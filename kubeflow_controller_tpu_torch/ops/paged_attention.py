@@ -1,0 +1,352 @@
+"""Paged attention for the serving engine: decode, chunk prefill, verify.
+
+Counterpart of ``kubeflow_controller_tpu/ops/paged_attention_pallas.py``.
+Each entry point computes what the Pallas kernel computes: a
+flash-style online softmax that walks a slot's block table page by page
+and reads the pool's pages in place, so the dense ``[B, S, KVH, D]``
+view of the gather path (``ops/attention.py:paged_kv_view``) never
+exists; int8 pools dequantize inside the page load.
+
+* :func:`paged_attention_decode` — one query group per slot at its own
+  position, columns ``<= pos[b]``.
+* :func:`paged_attention_prefill` — a width-W chunk of ONE slot: the
+  chunk's own fresh K/V as an intra-chunk causal tile, then the slot's
+  cached columns ``< offset``.
+* :func:`paged_attention_verify` — the same chunk attention for a batch
+  of slots, cached columns ``< pos[b]``.
+
+Where the work runs is decided by the tensors alone: a CPU tensor runs
+the plain PyTorch version (``*_plain``, which repeats the kernel's
+page-by-page arithmetic and is what the CPU tests hold against the JAX
+package); a CUDA tensor launches the hand-written CUDA kernel
+(``csrc/paged_attention.cu``) or raises. There is no fallback from the
+kernel to the plain version.
+
+``LAUNCHES`` counts kernel launches per kernel (``paged_decode``,
+``paged_chunk``): each wrapper adds one where it launches, and nowhere
+else, so a run can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+MASK_VALUE = -1e30
+
+#: Kernel launches since the last :func:`reset_launches`, by kernel.
+LAUNCHES: Dict[str, int] = {"paged_decode": 0, "paged_chunk": 0}
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def pages_to_walk(width: Optional[int], bs: int, mb: int) -> int:
+    """``nb = min(ceil(min(width, mb*bs) / bs), mb)``, at least 1 — the
+    occupancy cap on the table walk, exactly as the Pallas wrappers
+    compute it (it fixes both the bytes read and the reduction order)."""
+    span = mb * bs if width is None else min(width, mb * bs)
+    return min(max(1, -(-span // bs)), mb)
+
+
+# -- plain PyTorch versions ---------------------------------------------------
+
+def _online_update(m, l, acc, s, v):
+    """One flash-softmax accumulator update: scores ``s`` [..., R, C] and
+    values ``v`` [..., C, D] (fp32 throughout)."""
+    m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new)
+    l = alpha * l + p.sum(-1, keepdim=True)
+    acc = acc * alpha + p @ v
+    return m_new, l, acc
+
+
+def _page_tiles(k_pool, v_pool, k_scale, v_scale, ids):
+    """The pool pages ``ids`` [B] as fp32 per-head tiles [B, G, bs, D],
+    int8 pages multiplied by their per-(token, head) scale."""
+    k = k_pool[ids].float()                   # [B, bs, G, D]
+    v = v_pool[ids].float()
+    if k_scale is not None:
+        k = k * k_scale[ids].float()[..., None]
+        v = v * v_scale[ids].float()[..., None]
+    return k.transpose(1, 2), v.transpose(1, 2)
+
+
+def paged_attention_decode_plain(
+    q: torch.Tensor,               # [B, G, rep, D]
+    k_pool: torch.Tensor,          # [n_pages, bs, G, D]
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,          # [B, mb] page ids (n_blocks = sentinel)
+    pos: torch.Tensor,             # [B] column of this step's token
+    *,
+    k_scale: Optional[torch.Tensor] = None,   # [n_pages, bs, G] f32
+    v_scale: Optional[torch.Tensor] = None,
+    width: Optional[int] = None,
+    sm_scale: Optional[float] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """The decode kernel's arithmetic in plain PyTorch: the same pages in
+    the same order, fp32 scores and online-softmax accumulators."""
+    b, g, rep, hd = q.shape
+    bs = k_pool.shape[1]
+    nb = pages_to_walk(width, bs, tables.shape[1])
+    sm_scale = hd ** -0.5 if sm_scale is None else sm_scale
+    ids = tables[:, :nb].long().clamp(0, k_pool.shape[0] - 1)
+    qf = q.float()
+    m = torch.full((b, g, rep, 1), float("-inf"), device=q.device)
+    l = torch.zeros((b, g, rep, 1), device=q.device)
+    acc = torch.zeros((b, g, rep, hd), device=q.device)
+    cols = torch.arange(bs, device=q.device)
+    p_b = pos.long()[:, None, None, None]
+    for j in range(nb):
+        k, v = _page_tiles(k_pool, v_pool, k_scale, v_scale, ids[:, j])
+        s = (qf @ k.transpose(-1, -2)) * sm_scale          # [B, G, rep, bs]
+        s = torch.where(j * bs + cols <= p_b, s, MASK_VALUE)
+        m, l, acc = _online_update(m, l, acc, s, v)
+    return (acc / l).to(out_dtype or q.dtype)
+
+
+def paged_chunk_attention_plain(
+    q: torch.Tensor,               # [B, W, G, rep, D]
+    k_new: torch.Tensor,           # [B, W, G, D]
+    v_new: torch.Tensor,
+    k_pool: torch.Tensor,          # [n_pages, bs, G, D]
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,          # [B, mb]
+    pos: torch.Tensor,             # [B] cached columns < pos visible
+    *,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    width: Optional[int] = None,
+    sm_scale: Optional[float] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """The chunk kernel's arithmetic in plain PyTorch: the intra-chunk
+    causal tile first (row r is chunk position r // rep and sees chunk
+    columns <= r // rep), then the pool pages."""
+    b, w, g, rep, hd = q.shape
+    bs = k_pool.shape[1]
+    nb = pages_to_walk(width, bs, tables.shape[1])
+    sm_scale = hd ** -0.5 if sm_scale is None else sm_scale
+    ids = tables[:, :nb].long().clamp(0, k_pool.shape[0] - 1)
+    dev = q.device
+    qf = q.float().permute(0, 2, 1, 3, 4).reshape(b, g, w * rep, hd)
+    m = torch.full((b, g, w * rep, 1), float("-inf"), device=dev)
+    l = torch.zeros((b, g, w * rep, 1), device=dev)
+    acc = torch.zeros((b, g, w * rep, hd), device=dev)
+    kn = k_new.float().transpose(1, 2)                     # [B, G, W, D]
+    vn = v_new.float().transpose(1, 2)
+    s = (qf @ kn.transpose(-1, -2)) * sm_scale             # [B, G, W*rep, W]
+    rows = torch.arange(w * rep, device=dev)[:, None] // rep
+    s = torch.where(torch.arange(w, device=dev)[None, :] <= rows, s,
+                    MASK_VALUE)
+    m, l, acc = _online_update(m, l, acc, s, vn)
+    cols = torch.arange(bs, device=dev)
+    p_b = pos.long()[:, None, None, None]
+    for j in range(nb):
+        k, v = _page_tiles(k_pool, v_pool, k_scale, v_scale, ids[:, j])
+        s = (qf @ k.transpose(-1, -2)) * sm_scale          # [B, G, W*rep, bs]
+        s = torch.where(j * bs + cols < p_b, s, MASK_VALUE)
+        m, l, acc = _online_update(m, l, acc, s, v)
+    out = (acc / l).to(out_dtype or q.dtype)
+    return out.reshape(b, g, w, rep, hd).permute(0, 2, 1, 3, 4)
+
+
+# -- kernel launches ----------------------------------------------------------
+
+def _pool_args(q, k_pool, v_pool, k_scale, v_scale):
+    """Validate the pool operands against the query; returns
+    ``(quantized, k_scale_ptr, v_scale_ptr)``."""
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"paged attention takes float32 or bfloat16 "
+                        f"queries (got {q.dtype})")
+    quantized = k_scale is not None
+    if quantized != (v_scale is not None):
+        raise ValueError("k_scale and v_scale come together")
+    want = torch.int8 if quantized else q.dtype
+    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want} (got {t.dtype})")
+    ptrs = []
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t is None:
+            ptrs.append(None)
+            continue
+        if t.dtype != torch.float32 or t.shape != k_pool.shape[:-1]:
+            raise TypeError(f"{name} must be float32 {tuple(k_pool.shape[:-1])}")
+        ptrs.append(t.data_ptr())
+    if k_pool.shape != v_pool.shape:
+        raise ValueError("k_pool and v_pool shapes differ")
+    return quantized, ptrs[0], ptrs[1]
+
+
+def _check_cuda(*tensors):
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise RuntimeError(
+            f"paged attention runs its CUDA kernel on cuda tensors and "
+            f"its plain version on cpu tensors (got {dev})")
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device != dev:
+            raise RuntimeError("paged attention operands on different devices")
+        if not t.is_contiguous():
+            raise RuntimeError("paged attention operands must be contiguous")
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def _decode_kernel(q, k_pool, v_pool, tables, pos, k_scale, v_scale,
+                   width, sm_scale, out_dtype):
+    from kubeflow_controller_tpu_torch.ops import _build
+
+    b, g, rep, hd = q.shape
+    n_pages, bs, g_pool, hd_pool = k_pool.shape
+    q = q.contiguous()
+    tables = tables.to(torch.int32).contiguous()
+    pos = pos.to(torch.int32).contiguous()
+    _check_cuda(q, k_pool, v_pool, tables, pos, k_scale, v_scale)
+    if (g_pool, hd_pool) != (g, hd) or tables.shape[0] != b or pos.shape != (b,):
+        raise ValueError("paged_attention_decode: inconsistent shapes")
+    if out_dtype not in (None, q.dtype):
+        raise TypeError("the decode kernel writes the query's dtype")
+    quantized, ks, vs = _pool_args(q, k_pool, v_pool, k_scale, v_scale)
+    mb = tables.shape[1]
+    out = torch.empty_like(q)
+    rc = _build.load().kfc_paged_decode(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
+        tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        b, g, rep, hd, bs, mb, pages_to_walk(width, bs, mb), n_pages - 1,
+        float(hd ** -0.5 if sm_scale is None else sm_scale),
+        _DTYPE_CODES[q.dtype], int(quantized), _stream(q.device))
+    _raise_on(rc, "paged_decode")
+    LAUNCHES["paged_decode"] += 1
+    return out
+
+
+def _chunk_kernel(q, k_new, v_new, k_pool, v_pool, tables, pos, k_scale,
+                  v_scale, width, sm_scale, out_dtype):
+    from kubeflow_controller_tpu_torch.ops import _build
+
+    b, w, g, rep, hd = q.shape
+    n_pages, bs, g_pool, hd_pool = k_pool.shape
+    tables = tables.to(torch.int32).contiguous()
+    pos = pos.to(torch.int32).contiguous()
+    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    _check_cuda(q, k_new, v_new, k_pool, v_pool, tables, pos, k_scale,
+                v_scale)
+    if ((g_pool, hd_pool) != (g, hd) or k_new.shape != (b, w, g, hd)
+            or v_new.shape != k_new.shape or tables.shape[0] != b
+            or pos.shape != (b,)):
+        raise ValueError("paged chunk attention: inconsistent shapes")
+    if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
+        raise TypeError("k_new/v_new must have the query's dtype")
+    if out_dtype not in (None, q.dtype):
+        raise TypeError("the chunk kernel writes the query's dtype")
+    quantized, ks, vs = _pool_args(q, k_pool, v_pool, k_scale, v_scale)
+    mb = tables.shape[1]
+    out = torch.empty_like(q)
+    rc = _build.load().kfc_paged_chunk(
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), ks, vs, tables.data_ptr(), pos.data_ptr(),
+        out.data_ptr(), b, w, g, rep, hd, bs, mb,
+        pages_to_walk(width, bs, mb), n_pages - 1,
+        float(hd ** -0.5 if sm_scale is None else sm_scale),
+        _DTYPE_CODES[q.dtype], int(quantized), _stream(q.device))
+    _raise_on(rc, "paged_chunk")
+    LAUNCHES["paged_chunk"] += 1
+    return out
+
+
+# -- entry points -------------------------------------------------------------
+
+def paged_attention_decode(
+    q: torch.Tensor,               # [B, G, rep, D] post-rope query groups
+    k_pool: torch.Tensor,          # [n_pages, bs, G, D] one layer's pool
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,          # [B, mb] page ids (n_blocks = sentinel)
+    pos: torch.Tensor,             # [B] column of this step's token
+    *,
+    k_scale: Optional[torch.Tensor] = None,   # [n_pages, bs, G] f32
+    v_scale: Optional[torch.Tensor] = None,
+    width: Optional[int] = None,
+    sm_scale: Optional[float] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """softmax(q·K/√d)·V over each slot's table-resolved pages, masked
+    to columns ``<= pos[b]``; ``width`` caps the pages walked. Returns
+    ``[B, G, rep, D]``."""
+    if q.device.type == "cpu":
+        return paged_attention_decode_plain(
+            q, k_pool, v_pool, tables, pos, k_scale=k_scale,
+            v_scale=v_scale, width=width, sm_scale=sm_scale,
+            out_dtype=out_dtype)
+    return _decode_kernel(q, k_pool, v_pool, tables, pos, k_scale, v_scale,
+                          width, sm_scale, out_dtype)
+
+
+def paged_attention_verify(
+    q: torch.Tensor,               # [B, W, G, rep, D] post-rope window queries
+    k_new: torch.Tensor,           # [B, W, G, D] the window's post-rope K
+    v_new: torch.Tensor,
+    k_pool: torch.Tensor,          # [n_pages, bs, G, D] one layer's pool
+    v_pool: torch.Tensor,
+    tables: torch.Tensor,          # [B, mb]
+    pos: torch.Tensor,             # [B] each row's cached length
+    *,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    width: Optional[int] = None,
+    sm_scale: Optional[float] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Chunk attention for a batch of slots: each slot's W rows attend
+    its cached columns ``< pos[b]`` plus the intra-window causal tile.
+    Returns ``[B, W, G, rep, D]``."""
+    if q.device.type == "cpu":
+        return paged_chunk_attention_plain(
+            q, k_new, v_new, k_pool, v_pool, tables, pos, k_scale=k_scale,
+            v_scale=v_scale, width=width, sm_scale=sm_scale,
+            out_dtype=out_dtype)
+    return _chunk_kernel(q, k_new, v_new, k_pool, v_pool, tables, pos,
+                         k_scale, v_scale, width, sm_scale, out_dtype)
+
+
+def paged_attention_prefill(
+    q: torch.Tensor,               # [W, G, rep, D] post-rope chunk queries
+    k_new: torch.Tensor,           # [W, G, D] the chunk's post-rope K
+    v_new: torch.Tensor,
+    k_pool: torch.Tensor,          # [n_pages, bs, G, D] one layer's pool
+    v_pool: torch.Tensor,
+    table_row: torch.Tensor,       # [mb] the slot's page ids
+    offset: int,                   # absolute chunk start position
+    *,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    width: Optional[int] = None,
+    sm_scale: Optional[float] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> torch.Tensor:
+    """Chunk-prefill attention for ONE slot: W rows attend the slot's
+    cached columns ``< offset`` plus the intra-chunk causal tile. The
+    chunk's K/V scatter into the pool stays with the caller, after the
+    layer. Returns ``[W, G, rep, D]``."""
+    pos = torch.full((1,), int(offset), dtype=torch.int32, device=q.device)
+    return paged_attention_verify(
+        q[None], k_new[None], v_new[None], k_pool, v_pool, table_row[None],
+        pos, k_scale=k_scale, v_scale=v_scale, width=width,
+        sm_scale=sm_scale, out_dtype=out_dtype)[0]

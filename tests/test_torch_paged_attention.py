@@ -1,0 +1,220 @@
+"""The port's paged attention (``kubeflow_controller_tpu_torch/ops``) held
+against the JAX package's Pallas kernels, run in interpret mode on the
+CPU as the JAX package's own tests run them, and against the gather
+oracle.
+
+On a CPU tensor each port wrapper runs its plain PyTorch version, which
+repeats the CUDA kernel's page-by-page online softmax; the contract with
+the Pallas kernels is the JAX package's declared ``PALLAS_TOL``
+(``tests/test_paged_attention_pallas.py``): the two frameworks round
+the same fp32 arithmetic in different places, a few ulps apart.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kubeflow_controller_tpu.ops import paged_attention_pallas as pap
+from kubeflow_controller_tpu.ops.attention import paged_kv_view as jax_view
+from kubeflow_controller_tpu_torch.ops import paged_attention as tpa
+from kubeflow_controller_tpu_torch.ops.attention import paged_kv_view
+
+pytestmark = pytest.mark.skipif(
+    pap.pltpu is None, reason="pallas TPU backend not built into this jax")
+
+# The JAX package's declared kernel-vs-oracle tolerance
+# (tests/test_paged_attention_pallas.py:53).
+PALLAS_TOL = dict(rtol=5e-6, atol=5e-6)
+
+BS = 8          # page size (tokens)
+MB = 4          # table width (pages per slot)
+N_BLOCKS = 12   # pool pages; id N_BLOCKS is the sentinel
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _drop_compiled_kernels():
+    yield
+    jax.clear_caches()
+
+
+def _pools(rng, g, hd, quant, extra_page):
+    """Random pools, with (extra_page) or without a spare sentinel page:
+    the engine's pool has none, so sentinel ids must clamp to the last
+    real page."""
+    n = N_BLOCKS + int(extra_page)
+    if quant:
+        # Scales are amax / 127 for rows whose amax lies in [1, 4], the
+        # range _kv_quantize gives roped K/V of unit scale. (Rows of
+        # |x| ~ 25 would push the cross-framework difference past
+        # PALLAS_TOL: the two frameworks reduce q.k in different orders,
+        # and one fp32 ulp of a score that large, amplified by exp and
+        # by cancelling values of that size, is ~1e-5 of the output.)
+        k = rng.integers(-127, 128, (n, BS, g, hd)).astype(np.int8)
+        v = rng.integers(-127, 128, (n, BS, g, hd)).astype(np.int8)
+        ks = (rng.uniform(1, 4, (n, BS, g)) / 127).astype(np.float32)
+        vs = (rng.uniform(1, 4, (n, BS, g)) / 127).astype(np.float32)
+        return k, v, ks, vs
+    k = rng.standard_normal((n, BS, g, hd)).astype(np.float32)
+    v = rng.standard_normal((n, BS, g, hd)).astype(np.float32)
+    return k, v, None, None
+
+
+def _tables(rng, b):
+    """Shuffled tables whose tail rows carry SENTINEL entries."""
+    tables = rng.integers(0, N_BLOCKS, (b, MB)).astype(np.int32)
+    tables[0, 2:] = N_BLOCKS
+    if b > 1:
+        tables[1, 1:] = N_BLOCKS
+    return tables
+
+
+def _j(x):
+    return None if x is None else jnp.asarray(x)
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _decode_oracle(q, k_pool, v_pool, tables, pos, ks, vs, width):
+    """Decode attention through the port's gather oracle: the dense view
+    and a full-row softmax."""
+    k = paged_kv_view(k_pool, tables, width, ks, torch.float32)
+    v = paged_kv_view(v_pool, tables, width, vs, torch.float32)
+    s = torch.einsum("bgrd,bsgd->bgrs", q.float(), k) * (q.shape[-1] ** -0.5)
+    mask = torch.arange(width)[None, :] <= pos[:, None].long()
+    s = torch.where(mask[:, None, None, :], s, float("-inf"))
+    return torch.einsum("bgrs,bsgd->bgrd", torch.softmax(s, -1), v)
+
+
+# pos covers one visible column (pos=0), a page's last row, the row just
+# past a page boundary, and the table's last column.
+DECODE_POS = np.asarray([BS + 3, 0, BS - 1, MB * BS - 1], np.int32)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("width", [None, 2 * BS, 3 * BS],
+                         ids=["full", "cap2", "cap3"])
+def test_decode_matches_pallas_and_oracle(quant, width):
+    rng = np.random.default_rng(11 + int(quant))
+    g, rep, hd, b = 2, 2, 16, 4
+    k, v, ks, vs = _pools(rng, g, hd, quant, extra_page=False)
+    q = rng.standard_normal((b, g, rep, hd)).astype(np.float32)
+    tables = _tables(rng, b)
+    pos = DECODE_POS.copy()
+    if width is not None:
+        pos = np.minimum(pos, width - 1)   # the cap covers every visible column
+    want = pap.paged_attention_decode(
+        _j(q), _j(k), _j(v), _j(tables), _j(pos), k_scale=_j(ks),
+        v_scale=_j(vs), width=width)
+    got = tpa.paged_attention_decode(
+        _t(q), _t(k), _t(v), _t(tables), _t(pos), k_scale=_t(ks),
+        v_scale=_t(vs), width=width)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **PALLAS_TOL)
+    oracle = _decode_oracle(_t(q), _t(k), _t(v), _t(tables), _t(pos),
+                            _t(ks), _t(vs), width or MB * BS)
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), **PALLAS_TOL)
+
+
+def _chunk_oracle(q, k_new, v_new, k_pool, v_pool, tables, pos, ks, vs,
+                  width):
+    """Chunk attention through the gather oracle: cached columns < pos
+    from the dense view, concatenated with the intra-chunk causal tile,
+    one full-row softmax."""
+    b, w, g, rep, hd = q.shape
+    kc = paged_kv_view(k_pool, tables, width, ks, torch.float32)
+    vc = paged_kv_view(v_pool, tables, width, vs, torch.float32)
+    qf = q.float() * hd ** -0.5
+    s_c = torch.einsum("bqgrd,bkgd->bgrqk", qf, kc)
+    s_c = torch.where((torch.arange(width)[None, :] < pos[:, None].long())
+                      [:, None, None, None, :], s_c, float("-inf"))
+    s_n = torch.einsum("bqgrd,bkgd->bgrqk", qf, k_new.float())
+    s_n = torch.where(torch.ones(w, w, dtype=torch.bool).tril(), s_n,
+                      float("-inf"))
+    p = torch.softmax(torch.cat([s_c, s_n], -1), -1)
+    return (torch.einsum("bgrqk,bkgd->bqgrd", p[..., :width], vc)
+            + torch.einsum("bgrqk,bkgd->bqgrd", p[..., width:], v_new.float()))
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("offset,width", [(0, None), (BS, None),
+                                          (BS + 3, 2 * BS), (3 * BS, None)],
+                         ids=["off0", "page", "mid-cap2", "last"])
+def test_prefill_matches_pallas_and_oracle(quant, offset, width):
+    """One slot's W-row chunk: offset 0 (nothing cached, every pool page
+    fully masked), a page boundary, mid-page under a width cap, and the
+    table's last page."""
+    rng = np.random.default_rng(21 + offset + int(quant))
+    g, rep, hd, w = 2, 2, 16, BS
+    k, v, ks, vs = _pools(rng, g, hd, quant, extra_page=False)
+    q = rng.standard_normal((w, g, rep, hd)).astype(np.float32)
+    kn = rng.standard_normal((w, g, hd)).astype(np.float32)
+    vn = rng.standard_normal((w, g, hd)).astype(np.float32)
+    row = rng.permutation(N_BLOCKS)[:MB].astype(np.int32)
+    row[(offset + w - 1) // BS + 1:] = N_BLOCKS        # sentinel tail
+    want = pap.paged_attention_prefill(
+        _j(q), _j(kn), _j(vn), _j(k), _j(v), _j(row), offset,
+        k_scale=_j(ks), v_scale=_j(vs), width=width)
+    got = tpa.paged_attention_prefill(
+        _t(q), _t(kn), _t(vn), _t(k), _t(v), _t(row), offset,
+        k_scale=_t(ks), v_scale=_t(vs), width=width)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **PALLAS_TOL)
+    oracle = _chunk_oracle(
+        _t(q)[None], _t(kn)[None], _t(vn)[None], _t(k), _t(v),
+        _t(row)[None], torch.tensor([offset]), _t(ks), _t(vs),
+        width or MB * BS)[0]
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), **PALLAS_TOL)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_verify_matches_pallas_and_oracle(quant):
+    """The K+1-wide verify window over a batch of slots, pools WITH a
+    spare sentinel page (the shape the JAX package's own tests use)."""
+    rng = np.random.default_rng(31 + int(quant))
+    g, rep, hd, b, w = 2, 2, 16, 4, 5
+    k, v, ks, vs = _pools(rng, g, hd, quant, extra_page=True)
+    q = rng.standard_normal((b, w, g, rep, hd)).astype(np.float32)
+    kn = rng.standard_normal((b, w, g, hd)).astype(np.float32)
+    vn = rng.standard_normal((b, w, g, hd)).astype(np.float32)
+    tables = _tables(rng, b)
+    pos = np.asarray([BS + 2, 0, BS, MB * BS - w], np.int32)
+    want = pap.paged_attention_verify(
+        _j(q), _j(kn), _j(vn), _j(k), _j(v), _j(tables), _j(pos),
+        k_scale=_j(ks), v_scale=_j(vs))
+    got = tpa.paged_attention_verify(
+        _t(q), _t(kn), _t(vn), _t(k), _t(v), _t(tables), _t(pos),
+        k_scale=_t(ks), v_scale=_t(vs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **PALLAS_TOL)
+    oracle = _chunk_oracle(_t(q), _t(kn), _t(vn), _t(k), _t(v), _t(tables),
+                           _t(pos), _t(ks), _t(vs), MB * BS)
+    np.testing.assert_allclose(got.numpy(), oracle.numpy(), **PALLAS_TOL)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("width", [MB * BS, 2 * BS + 3, 1])
+def test_paged_kv_view_bitwise_equals_jax(quant, width):
+    """The plain table gather is bitwise JAX's ``paged_kv_view``: same
+    pages, sentinel ids clamped like ``mode="clip"``, int8 scales applied
+    in fp32, the gather capped at ``width`` — for one layer's pool and
+    for the stacked ``[L, ...]`` pool read through one slot's row."""
+    rng = np.random.default_rng(41 + int(quant))
+    k, _, ks, _ = _pools(rng, 2, 16, quant, extra_page=False)
+    tables = _tables(rng, 3)
+    want = jax_view(_j(k), _j(tables), width, _j(ks), jnp.float32)
+    got = paged_kv_view(_t(k), _t(tables), width, _t(ks), torch.float32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    stacked = np.stack([k, k[::-1]])
+    s_stacked = None if ks is None else np.stack([ks, ks[::-1]])
+    want = jax_view(_j(stacked), _j(tables[0]), width, _j(s_stacked))
+    got = paged_kv_view(_t(stacked), _t(tables[0]), width, _t(s_stacked))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_pages_to_walk_matches_the_pallas_rule():
+    """nb = min(ceil(min(width, mb*bs) / bs), mb), at least 1."""
+    for width in (None, 1, BS - 1, BS, BS + 1, 3 * BS, 10 * BS):
+        span = MB * BS if width is None else min(width, MB * BS)
+        assert tpa.pages_to_walk(width, BS, MB) == min(
+            max(1, -(-span // BS)), MB)
