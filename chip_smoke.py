@@ -6,7 +6,8 @@
 Phases, in order; any failure exits non-zero before the result line:
 
 1. device: the card's name and power limit, and the kernels' build
-   (``nvcc`` from ``kubeflow_controller_tpu_torch/csrc``) with its time;
+   (one ``nvcc`` per ``kubeflow_controller_tpu_torch/csrc/*.cu``, all
+   started together) with its time;
 2. kernels vs plain: every paged-attention entry (decode, chunk prefill,
    verify) in bf16, int8-pool and fp32 forms, at the serving path's own
    shapes and at llama3_8b attention shapes up to 2048 columns, held
@@ -14,14 +15,28 @@ Phases, in order; any failure exits non-zero before the result line:
    each kernel's time beside the plain version's, a PyTorch library call
    on the gathered view (``scaled_dot_product_attention``, a yardstick
    only) and the least time the card could take;
-3. serve: ``serve(config="llama3_8b", batch=16, slots=8, prompt_len=256,
+3. flash kernels vs plain: the forward and the three backward kernels at
+   the flagship's attention shape (B16 H8 S1024 D128) and llama3_8b's
+   (B2 H32/8 S2048 D128), bf16 with rope tables, with and without
+   segment ids; the same four numbers each, SDPA (forward, or forward
+   and backward) as the yardstick, and the fused kernel's dq run to run;
+4. serve: ``serve(config="llama3_8b", batch=16, slots=8, prompt_len=256,
    max_new_tokens=32, block_size=16)`` at full width and depth with the
    kernels' launch counts zeroed just before and read just after; then 4
    requests with an int8 KV pool; then, on one set of llama3_8b weights,
    a profile of one decode micro-step and one prefill chunk (wall time,
    device time by kernel, idle share) and one request's first-token and
    next-token logits under ``attn_impl="kernel"`` and ``"gather"``;
-4. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the last line
+5. train: bench.py's flagship decoder (B16 S1024, 16 layers, remat) and
+   llama3_8b at full width and 2 layers (B2 S2048), 8 steps each through
+   ``TrainLoop`` with the flash launch counts zeroed just before and
+   checked exactly just after, a falling finite loss, step time,
+   tokens/s, MFU and a profiled step's idle share; the flagship for 4
+   steps through the entry point ``lm.train`` (``attn="auto"``, exact
+   launch counts); then one flagship batch's loss and gradients under
+   the flash kernels vs the plain attention, and the tiny config trained
+   on the card vs the CPU;
+6. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and writes only under
@@ -31,6 +46,7 @@ library, the compiler log and the served completions).
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -55,6 +71,45 @@ PEAK_OPS = {"bfloat16": 989e12, "int8": 989e12, "float32": 67e12}
 # * fp32: only the summation order differs.
 TOL = {"bfloat16": dict(rtol=1.6e-2, atol=1e-3),
        "float32": dict(rtol=1e-4, atol=1e-4)}
+# Flash kernels vs their plain versions (bf16 in, fp32 scores, softmax
+# and accumulators on both sides), with their reasons:
+# * o: the kernel rounds p to bf16 against the running max of its
+#   64-column tile, the plain version against the row's final max, so
+#   each p may differ by 2^-8 relative and o = sum(p v) / l by up to 2^-8
+#   of the largest |v| (atol_of_vmax); the output's own rounding adds one
+#   bf16 ulp (<= 2^-7 relative, rtol).
+# * lse: fp32 sums of the same p in another order (~1e-6 relative of
+#   values below ~20).
+# * dq, dk, dv: p and ds are rounded to bf16 before their products on
+#   both sides; a ds that straddles a rounding boundary moves a sum by
+#   one ulp of one term, far below 2e-3 of the largest gradient element,
+#   and the output rounding adds one ulp (rtol).
+# * dq of the fused kernel: its fp32 tile sums meet through atomicAdd in
+#   a launch-dependent order, so two launches on the same inputs may
+#   differ by one bf16 ulp (2^-7 relative) plus the fp32 order's
+#   1e-5 of the largest element: DQ_RUN_TO_RUN.
+FLASH_TOL = {"o": dict(rtol=1.6e-2, atol_of_vmax=2 ** -8),
+             "lse": dict(rtol=0.0, atol=1e-4),
+             "grad": dict(rtol=1.6e-2, atol_of_max=2e-3)}
+DQ_RUN_TO_RUN = dict(rtol=2 ** -7, atol_of_max=1e-5)
+# Train step, flash kernels vs the plain "xla" attention on the card, one
+# flagship batch and one set of weights: both run bf16 activations with
+# fp32 softmax but round attention at different points (the kernel p per
+# tile and o once; the plain path its probabilities against the row max
+# and its value product's output), and the difference carries through 16
+# layers forward and back. Each limit is about twice the reading of the
+# H100 run that set it: the loss read 1.7e-6 relative (at init it sits
+# near ln(vocab) whatever the attention, so this limit alone would not
+# catch a wrong attention; the gradients do), the gradient as a whole
+# 2.48e-2 relative L2, the worst leaf 2.9e-2.
+TRAIN_LOSS_REL_TOL = 1e-4
+TRAIN_GRAD_REL_L2_TOL = 5e-2
+TRAIN_GRAD_LEAF_REL_L2_TOL = 6e-2
+# The tiny config (fp32, head_dim 16: the plain attention on both
+# devices) trained 3 steps on the card and on the CPU from one CPU-drawn
+# init: the two differ only in summation order (TF32 off).
+TINY_LOSS_REL_TOL = 1e-4
+
 # kernel vs gather logits on the served model (bf16, 32 layers): the two
 # paths round attention at different points (the kernel once at its
 # output, the gather path its softmax probabilities before a bf16
@@ -253,6 +308,234 @@ class Case:
         return rec
 
 
+def _close(got, want, rtol, atol):
+    """(ok, max |err|) for got vs want, elementwise
+    |got - want| <= atol + rtol * |want|."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    bad = err > atol + rtol * want.float().abs()
+    ok = not bool(bad.any()) and bool(torch.isfinite(got.float()).all())
+    return ok, float(err.max())
+
+
+class FlashCase:
+    """The four flash kernels at one attention shape of the train path:
+    bf16 q/k/v/do drawn on the card, rope tables at per-row position
+    offsets, optionally packed segment ids (with a padding tail of id
+    0). The backward kernels take the plain forward's o and lse, so each
+    kernel and its plain version see the same inputs."""
+
+    def __init__(self, label, B, H, KVH, S, D, segments, seed, causal=True):
+        import torch
+
+        from kubeflow_controller_tpu_torch.ops import flash_attention as fa
+
+        self.label, self.B, self.H, self.KVH, self.S, self.D = label, B, H, KVH, S, D
+        self.causal = causal
+        dev = torch.device("cuda")
+        gen = torch.Generator(device=dev).manual_seed(seed)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev,
+                               dtype=torch.bfloat16)
+
+        self.q, self.do = randn(B, S, H, D), randn(B, S, H, D)
+        self.k, self.v = randn(B, S, KVH, D), randn(B, S, KVH, D)
+        pos = (torch.arange(S, device=dev)[None, :]
+               + torch.arange(B, device=dev)[:, None] * 17)
+        self.rope = fa.rope_full_tables(pos, D, 500000.0)
+        self.seg = None
+        if segments:
+            # Documents of S/8 .. S/2 tokens, the last ~S/16 rows padding.
+            cut = torch.randint(S // 8, S // 2, (B, 8), generator=gen, device=dev)
+            starts = cut.cumsum(1)
+            idx = torch.arange(S, device=dev)
+            seg = 1 + (idx[None, :, None] >= starts[:, None, :]).sum(-1)
+            seg[:, S - S // 16:] = 0
+            self.seg = seg.to(torch.int32)
+        self.o, self.lse = fa.flash_fwd_plain(self.q, self.k, self.v, self.seg,
+                                              self.rope, causal)
+        self.delta = fa.attention_delta(self.o, self.do)
+        mask = fa._visible(S, self.seg, causal, dev)
+        self.pairs = (B * S * S if mask is None                 # visible (q, k) pairs
+                      else int(mask.expand(B, 1, S, S).sum()))
+
+    def calls(self):
+        """kernel name -> (kernel call, plain call, output names)."""
+        from kubeflow_controller_tpu_torch.ops import flash_attention as fa
+
+        q, k, v, do, o, lse, delta = (self.q, self.k, self.v, self.do, self.o,
+                                      self.lse, self.delta)
+        a = (self.seg, self.rope, self.causal)
+        return {
+            "flash_fwd": (lambda: fa.flash_fwd(q, k, v, *a),
+                          lambda: fa.flash_fwd_plain(q, k, v, *a), ("o", "lse")),
+            "flash_bwd_fused": (
+                lambda: fa.flash_bwd_fused(q, k, v, o, lse, do, *a),
+                lambda: fa.flash_bwd_fused_plain(q, k, v, o, lse, do, *a),
+                ("dq", "dk", "dv")),
+            "flash_bwd_dkdv": (
+                lambda: fa.flash_bwd_dkdv(q, k, v, do, lse, delta, *a),
+                lambda: fa.flash_bwd_dkdv_plain(q, k, v, do, lse, delta, *a),
+                ("dk", "dv")),
+            "flash_bwd_dq": (
+                lambda: (fa.flash_bwd_dq(q, k, v, do, lse, delta, *a),),
+                lambda: (fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, *a),),
+                ("dq",)),
+        }
+
+    def cost(self, kernel):
+        """(bytes, operations) of one call on these inputs: each input read
+        once, each output written once; two operations per multiply-add
+        over the visible (q, k) pairs only."""
+        B, S, H, KVH, D = self.B, self.S, self.H, self.KVH, self.D
+        qo = B * S * H * D * 2                  # one bf16 [B, S, H, D]
+        kv = B * S * KVH * D * 2
+        stat = B * H * S * 4                    # one fp32 [B, H, S]
+        side = 2 * B * S * D * 4 + (B * S * 4 if self.seg is not None else 0)
+        products = {"flash_fwd": 2, "flash_bwd_fused": 5, "flash_bwd_dkdv": 4,
+                    "flash_bwd_dq": 3}[kernel]
+        ops = 2 * products * H * D * self.pairs
+        byts = {
+            "flash_fwd": 2 * qo + 2 * kv + stat,                  # q,k,v in; o, lse out
+            "flash_bwd_fused": 3 * qo + 2 * kv + stat + qo + 2 * kv,  # q,k,v,o,do,lse; dq,dk,dv
+            "flash_bwd_dkdv": 2 * qo + 2 * kv + 2 * stat + 2 * kv,    # q,k,v,do,lse,delta; dk,dv
+            "flash_bwd_dq": 2 * qo + 2 * kv + 2 * stat + qo,          # ...; dq
+        }[kernel] + side
+        return byts, ops
+
+    def library(self, kernel):
+        """One SDPA call on the same q/k/v (rope applied, KV heads
+        repeated, mask built beforehand): forward for the forward kernel,
+        forward and backward for the backward kernels."""
+        import torch
+        import torch.nn.functional as F
+
+        from kubeflow_controller_tpu_torch.ops import flash_attention as fa
+
+        rep = self.H // self.KVH
+        qr, kr = fa._rotated(self.q, self.k, self.rope)
+        qh = qr.transpose(1, 2).contiguous()
+        kh = kr.transpose(1, 2).repeat_interleave(rep, 1).contiguous()
+        vh = self.v.transpose(1, 2).repeat_interleave(rep, 1).contiguous()
+        doh = self.do.transpose(1, 2).contiguous()
+        kw = dict(is_causal=self.causal)
+        if self.seg is not None:
+            kw = dict(attn_mask=fa._visible(self.S, self.seg, self.causal, qh.device))
+        if kernel == "flash_fwd":
+            return lambda: F.scaled_dot_product_attention(qh, kh, vh, **kw)
+        leaves = [t.requires_grad_(True) for t in (qh, kh, vh)]
+
+        def fwd_bwd():
+            out = F.scaled_dot_product_attention(*leaves, **kw)
+            return torch.autograd.grad(out, leaves, doh)
+
+        return fwd_bwd
+
+    def _tol(self, name, want):
+        if name == "o":
+            t = FLASH_TOL["o"]
+            return dict(rtol=t["rtol"], atol=t["atol_of_vmax"]
+                        * float(self.v.float().abs().max()))
+        if name == "lse":
+            return FLASH_TOL["lse"]
+        t = FLASH_TOL["grad"]
+        return dict(rtol=t["rtol"],
+                    atol=t["atol_of_max"] * float(want.float().abs().max()))
+
+    def run(self, smi, timed, failures):
+        """Check (and time) every kernel; a disagreement is appended to
+        ``failures``."""
+        import torch
+
+        recs = {}
+        for kernel, (call, plain, names) in self.calls().items():
+            got, want = call(), plain()
+            torch.cuda.synchronize()
+            errs, bad = {}, []
+            for n, g, w in zip(names, got, want):
+                tol = self._tol(n, w)
+                ok, errs[n] = _close(g, w, **tol)
+                if not ok:
+                    bad.append(f"{kernel}[{self.label}]: {n} disagrees with the "
+                               f"plain version (max |err| {errs[n]}, tol {tol})")
+            if kernel == "flash_bwd_fused":
+                again = call()[0]
+                t = DQ_RUN_TO_RUN
+                ok, e = _close(again, got[0], rtol=t["rtol"],
+                               atol=t["atol_of_max"] * float(got[0].float().abs().max()))
+                if not ok:
+                    bad.append(f"{kernel}[{self.label}]: dq run to run max "
+                               f"|diff| {e} past {t}")
+                errs["dq_run_to_run"] = e
+            for msg in bad:
+                log("FAIL " + msg)
+            failures += bad
+            del got, want
+            rec = dict(kernel=kernel, case=self.label,
+                       max_abs_err=max(v for k, v in errs.items()
+                                       if k != "dq_run_to_run"),
+                       errors=errs)
+            if timed:
+                byts, ops = self.cost(kernel)
+                t_bytes = byts / HBM_BYTES_PER_S * 1e3
+                t_ops = ops / PEAK_OPS["bfloat16"] * 1e3
+                lib = self.library(kernel)
+                rec.update(ms=_time_ms(call), plain_ms=_time_ms(plain, iters=3),
+                           library_ms=_time_ms(lib, iters=10),
+                           bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops else "operations",
+                           bytes=byts, operations=ops)
+                del lib
+            torch.cuda.empty_cache()
+            log(f"flash-case {json.dumps(rec)} | {smi}")
+            recs[kernel] = rec
+        return recs
+
+
+#: The flash kernels' shapes on the train path: the flagship's attention
+#: (one tile per sequence: the fused backward) and llama3_8b's (two
+#: passes); each with and without packed segment ids.
+FLASH_SHAPES = {
+    "flagship": dict(B=16, H=8, KVH=8, S=1024, D=128),
+    "llama3_8b": dict(B=2, H=32, KVH=8, S=2048, D=128),
+}
+#: Checked, not timed: what the train path does not reach — a ragged
+#: sequence (200 rows: a partial tile) at head_dim 64, causal and not,
+#: and head_dim 256 (32-row tiles).
+FLASH_EXTRA = {
+    "ragged.d64": dict(B=2, H=4, KVH=2, S=200, D=64),
+    "ragged.d64.noncausal": dict(B=2, H=4, KVH=2, S=200, D=64, causal=False),
+    "d256": dict(B=1, H=2, KVH=1, S=160, D=256),
+}
+
+
+def flash_kernel_phase(smi, timed=True):
+    """Every flash kernel against its plain version at both shapes of the
+    train path (timed) and the extra shapes (checked only), with and
+    without segment ids; fails after all of them ran if any disagreed.
+    Returns records by (kernel, case)."""
+    import torch
+
+    recs, failures = {}, []
+    seed = 20
+    for shapes, timed_here in ((FLASH_SHAPES, timed), (FLASH_EXTRA, False)):
+        for shape, dims in shapes.items():
+            for segments in (False, True):
+                label = f"{shape}{'.seg' if segments else ''}"
+                case = FlashCase(label, segments=segments, seed=seed, **dims)
+                seed += 1
+                for kernel, rec in case.run(smi, timed_here, failures).items():
+                    recs[(kernel, label)] = rec
+                del case
+                torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f"{len(failures)} flash kernel checks failed; "
+                             f"first: {failures[0]}")
+    return recs
+
+
 def device_phase():
     import torch
 
@@ -386,7 +669,8 @@ def serve_phase(smi):
 
 
 def _kernel_bucket(name: str) -> str:
-    for kernel in ("paged_decode", "paged_chunk"):
+    for kernel in ("paged_decode", "paged_chunk", "flash_fwd", "flash_bwd_kv",
+                   "flash_bwd_dq"):
         if kernel + "_kernel" in name:
             return kernel
     low = name.lower()
@@ -403,7 +687,6 @@ def profile_phase(cfg, params):
     synchronised steps without the profiler; device time by kernel comes
     from ``torch.profiler``; idle share = 1 - device time / wall time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from kubeflow_controller_tpu_torch.models import generate as gen
@@ -437,22 +720,36 @@ def profile_phase(cfg, params):
                                  ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        buckets, launches = {}, 0
-        for evt in prof.key_averages():
-            if evt.device_type != DeviceType.CUDA:
-                continue                      # host ops; kernels follow
-            us = getattr(evt, "self_device_time_total",
-                         getattr(evt, "self_cuda_time_total", 0))
-            if us > 0:
-                b = _kernel_bucket(evt.key)
-                buckets[b] = buckets.get(b, 0.0) + us / 1e3
-                launches += evt.count
+        buckets, launches, _ = _device_time(prof)
         device_ms = sum(buckets.values())
         idle = "not measured" if device_ms == 0 else 1 - device_ms / wall_ms
         log(f"profile[{name}] llama3_8b bf16: wall {wall_ms} ms, device "
             f"{device_ms} ms in {launches} kernels, idle share {idle}, by "
-            f"kernel: " + json.dumps(
-                {k: v for k, v in sorted(buckets.items(), key=lambda kv: -kv[1])}))
+            f"kernel: " + json.dumps(buckets))
+
+
+def _device_time(prof):
+    """Device time of a ``torch.profiler`` run: (ms by kernel bucket,
+    largest first; kernel launches; the ten kernels of most time as
+    (name, ms, calls)). Annotated ranges (``record_function``, such as
+    ``Optimizer.step#AdamW.step``) show on the device timeline too but
+    span kernels already counted, so they are left out."""
+    from torch.autograd import DeviceType
+
+    buckets, launches, top = {}, 0, []
+    for evt in prof.key_averages():
+        if (evt.device_type != DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
+            continue                          # host ops; annotated ranges
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0))
+        if us > 0:
+            b = _kernel_bucket(evt.key)
+            buckets[b] = buckets.get(b, 0.0) + us / 1e3
+            launches += evt.count
+            top.append((evt.key[:80], us / 1e3, evt.count))
+    return (dict(sorted(buckets.items(), key=lambda kv: -kv[1])), launches,
+            sorted(top, key=lambda t: -t[1])[:10])
 
 
 def logits_phase():
@@ -497,9 +794,231 @@ def logits_phase():
             f"max |diff| {float((a - b).abs().max())}, argmax equal {same}")
 
 
+def _step_profile(loop, batch):
+    """One more train step under ``torch.profiler``, timed on a host
+    clock around the synchronised step: (wall ms, device ms, idle share
+    = 1 - device / wall of that same step, device ms by kernel bucket,
+    the ten kernels of most device time as (name, ms, calls))."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(loop.step(batch)["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    buckets, _, top = _device_time(prof)
+    device_ms = sum(buckets.values())
+    idle = "not measured" if device_ms == 0 else 1 - device_ms / wall_ms
+    return wall_ms, device_ms, idle, buckets, top
+
+
+def train_run(label, cfg, seq, batch, steps, expect, smi):
+    """Train ``cfg`` for ``steps`` steps through the port's ``TrainLoop``
+    with the LM entry point's optimizer, on one batch of its synthetic
+    stream fed every step (as bench.py feeds one fixed batch, so that
+    the loss falls within a few steps), with the flash kernels' launch
+    counts zeroed just before and read just after; the counts must equal
+    ``expect`` (per step) exactly and the loss must be finite and fall.
+    Returns the run's record."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints.lm import synthetic_lm
+    from kubeflow_controller_tpu_torch.dataplane.train import (
+        TrainLoop, TrainLoopConfig, device_prefetch,
+    )
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+    from kubeflow_controller_tpu_torch.ops import flash_attention as fa
+    from kubeflow_controller_tpu_torch.optim import make_optimizer
+
+    loop = TrainLoop(
+        init_fn=tfm.make_init_fn(cfg), loss_fn=tfm.make_loss_fn(cfg),
+        optimizer=make_optimizer(3e-4, steps),
+        config=TrainLoopConfig(total_steps=steps, log_every=1), device="cuda")
+    data = device_prefetch(
+        itertools.repeat(next(synthetic_lm(cfg.vocab_size, batch, seq))), "cuda")
+    records = []
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    loop.run(data, on_metrics=records.append)
+    torch.cuda.synchronize()
+    launches = dict(fa.LAUNCHES)
+    want = {k: n * steps for k, n in expect.items()}
+    if launches != want:
+        raise AssertionError(f"train[{label}]: flash launches {launches} != {want}")
+    losses = [m.loss for m in records]
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train[{label}]: losses {losses} not finite and falling")
+    # Steps 1 and 2 carry the allocator's warm-up; the rest are steady.
+    step_s = sorted(1 / m.steps_per_sec for m in records[2:])
+    med = step_s[len(step_s) // 2]
+    tokens = batch * seq
+    wall_ms, device_ms, idle, by_kernel, top = _step_profile(loop, next(data))
+    rec = dict(
+        run=label, steps=steps, losses=losses, step_ms=med * 1e3,
+        step_ms_all=[1e3 / m.steps_per_sec for m in records],
+        tokens_per_s=tokens / med,
+        mfu=tfm.train_flops_per_token(cfg, seq) * tokens / med / PEAK_OPS["bfloat16"],
+        profiled_step_wall_ms=wall_ms, profiled_step_device_ms=device_ms,
+        idle_share=idle, device_ms_by_kernel=by_kernel, top_kernels=top,
+        launches=launches,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        params=tfm.count_params(loop.state.params))
+    log(f"train[{label}] {json.dumps(rec)} | {smi}")
+    del loop, data
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_train_run(smi, steps=4):
+    """The LM entry point a TPUJob runs, ``lm.train``, on the named bf16
+    config ``"flagship"`` at S=1024, B=16 with its default ``attn="auto"``:
+    the auto dispatch must choose the flash kernels (bf16 CUDA tensors
+    under the JAX shape rule). The launch counts are zeroed just before
+    and must be exact just after; the metrics stream the entry point
+    writes must hold every step with a finite loss."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints import lm
+    from kubeflow_controller_tpu_torch.ops import flash_attention as fa
+
+    log_dir = os.path.join(OUT_DIR, "lm_train")
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, "metrics-p0.jsonl")
+    if os.path.exists(path):
+        os.remove(path)
+    layers = lm.model_config("flagship").n_layers
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    out = lm.train(ProcessContext(log_dir=log_dir), config="flagship",
+                   total_steps=steps, per_data_shard_batch=16, seq_len=1024)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    want = {"flash_fwd": 2 * layers * steps, "flash_bwd_fused": layers * steps,
+            "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    if launches != want:
+        raise AssertionError(f"lm.train[flagship]: flash launches {launches} != {want}")
+    rows = _read_completions(path)
+    losses = [r["loss"] for r in rows]
+    if ([r["step"] for r in rows] != list(range(1, steps + 1))
+            or out["final_step"] != steps
+            or not all(isinstance(x, float) and math.isfinite(x) for x in losses)):
+        raise AssertionError(f"lm.train[flagship]: metrics {rows}, result {out}")
+    log(f"lm.train[flagship] attn=auto: {steps} steps in {wall_s} s (init "
+        f"included), losses {losses}, last tokens/s {out['tokens_per_sec']}, "
+        f"launches {launches} | {smi}")
+
+
+def flash_vs_plain(smi):
+    """Loss and every gradient of one flagship batch under the flash
+    kernels and under the plain attention, on one set of weights."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.convert import tree_leaves
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints.lm import synthetic_lm
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.flagship_config()
+    params = tfm.init_params(cfg, seed=7, device="cuda")
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    tokens = torch.from_numpy(next(synthetic_lm(cfg.vocab_size, 16, 1024, seed=3))["tokens"])
+    batch = {"tokens": tokens.cuda()}
+    out = {}
+    for impl in ("flash", "xla"):
+        loss, _ = tfm.next_token_loss(cfg.replace(attn_impl=impl), params, batch)
+        out[impl] = (float(loss.detach()), torch.autograd.grad(loss, leaves))
+    (lf, gf), (lx, gx) = out["flash"], out["xla"]
+    loss_rel = abs(lf - lx) / abs(lx)
+    num = sum(float((a.float() - b.float()).norm() ** 2) for a, b in zip(gf, gx))
+    den = sum(float(b.float().norm() ** 2) for b in gx)
+    grad_rel = math.sqrt(num / den)
+    worst = max(float((a - b).norm() / b.norm()) for a, b in zip(gf, gx))
+    log(f"train-check flagship flash vs plain: loss {lf} vs {lx} (rel {loss_rel}, "
+        f"tol {TRAIN_LOSS_REL_TOL}), gradient rel L2 {grad_rel} (tol "
+        f"{TRAIN_GRAD_REL_L2_TOL}), worst leaf {worst} (tol "
+        f"{TRAIN_GRAD_LEAF_REL_L2_TOL}) | {smi}")
+    if not (math.isfinite(lf) and loss_rel <= TRAIN_LOSS_REL_TOL
+            and grad_rel <= TRAIN_GRAD_REL_L2_TOL
+            and worst <= TRAIN_GRAD_LEAF_REL_L2_TOL):
+        raise AssertionError("flash vs plain train step disagree")
+    del params, leaves, out, gf, gx
+    torch.cuda.empty_cache()
+
+
+def tiny_train_check():
+    """The tiny config (fp32) trained 3 steps on the card and on the CPU
+    from one CPU-drawn init and one batch stream: the losses agree."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints.lm import synthetic_lm
+    from kubeflow_controller_tpu_torch.dataplane.train import TrainLoop, TrainLoopConfig
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+    from kubeflow_controller_tpu_torch.optim import make_optimizer
+
+    cfg = tfm.tiny_config()
+    init = tfm.init_params(cfg, seed=0, device="cpu")
+    losses = {}
+    for device in ("cuda", "cpu"):
+        loop = TrainLoop(
+            init_fn=lambda seed, dev: {k: ({n: t.clone().to(dev) for n, t in v.items()}
+                                          if isinstance(v, dict) else v.clone().to(dev))
+                                       for k, v in init.items()},
+            loss_fn=tfm.make_loss_fn(cfg), optimizer=make_optimizer(1e-2, 3),
+            config=TrainLoopConfig(total_steps=3, log_every=1), device=device)
+        stream = synthetic_lm(cfg.vocab_size, 4, 64, seed=1)
+        recs = []
+        loop.run(({k: torch.from_numpy(v).to(device) for k, v in b.items()}
+                  for b in stream), on_metrics=recs.append)
+        losses[device] = [m.loss for m in recs]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    log(f"train[tiny] fp32 cuda vs cpu losses {losses['cuda']} vs {losses['cpu']} "
+        f"(max rel {rel}, tol {TINY_LOSS_REL_TOL})")
+    if not rel <= TINY_LOSS_REL_TOL:
+        raise AssertionError("tiny train: cuda and cpu losses disagree")
+
+
+def train_phase(smi):
+    """The flagship (bench.py) and llama3_8b at full width and 2 layers,
+    each for a few steps with exact flash launch counts; the flagship
+    again through ``lm.train``; then flash vs plain on one flagship
+    batch, and the tiny config on card and CPU."""
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+
+    flag = tfm.flagship_config()
+    runs = {
+        "flagship": train_run("flagship", flag, 1024, 16, TRAIN_STEPS,
+                              {"flash_fwd": 2 * flag.n_layers,
+                               "flash_bwd_fused": flag.n_layers,
+                               "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}, smi),
+    }
+    llama = tfm.llama3_8b_config(n_layers=2, max_seq=2048, attn_impl="flash")
+    runs["llama3_8b"] = train_run(
+        "llama3_8b", llama, 2048, 2, TRAIN_STEPS,
+        {"flash_fwd": 2 * llama.n_layers, "flash_bwd_fused": 0,
+         "flash_bwd_dkdv": llama.n_layers, "flash_bwd_dq": llama.n_layers}, smi)
+    lm_train_run(smi)
+    flash_vs_plain(smi)
+    tiny_train_check()
+    return runs
+
+
+TRAIN_STEPS = 8
+
 KERNELS = (
     ("paged_decode", "decode.bf16.serve", "ops/paged_attention_pallas.py:72"),
     ("paged_chunk", "prefill.bf16.serve", "ops/paged_attention_pallas.py:223"),
+)
+#: (kernel, kernel-phase case of its main-path shape, TPU kernel, train run
+#: whose launches it reports)
+FLASH_KERNELS = (
+    ("flash_fwd", "flagship", "ops/flash_attention.py:203", "flagship"),
+    ("flash_bwd_fused", "flagship", "ops/flash_attention.py:766", "flagship"),
+    ("flash_bwd_dkdv", "llama3_8b", "ops/flash_attention.py:621", "llama3_8b"),
+    ("flash_bwd_dq", "llama3_8b", "ops/flash_attention.py:919", "llama3_8b"),
 )
 
 
@@ -524,8 +1043,10 @@ def main() -> int:
     t0 = time.perf_counter()
     smi = device_phase()
     recs = kernel_phase()
+    flash_recs = flash_kernel_phase(smi)
     runs = serve_phase(smi)
     logits_phase()
+    train_runs = train_phase(smi)
     launches = runs["fp"][1]
     line = {"kernels": []}
     for name, case, replaces in KERNELS:
@@ -536,6 +1057,18 @@ def main() -> int:
             "replaces": f"kubeflow_controller_tpu/{replaces}",
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shape": case,
+        })
+    for name, case, replaces, run in FLASH_KERNELS:
+        r = flash_recs[(name, case)]
+        line["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "kubeflow_controller_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"kubeflow_controller_tpu/{replaces}",
+            "launches": train_runs[run]["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": case,
         })

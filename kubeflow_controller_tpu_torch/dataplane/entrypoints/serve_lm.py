@@ -31,7 +31,7 @@ import numpy as np
 
 from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
 from kubeflow_controller_tpu_torch.dataplane.entrypoints.lm import (
-    CONFIGS, NOT_YET_PORTED,
+    CONFIGS, NOT_YET_PORTED, model_config,
 )
 from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
 
@@ -146,11 +146,9 @@ def serve(
             raise NotImplementedError(
                 f"serve({key}={value!r}) is not yet ported to the PyTorch "
                 f"entry point (see ROADMAP.md)")
-    if config in NOT_YET_PORTED:
-        raise NotImplementedError(f"config {config!r} is not yet ported")
+    cfg = model_config(config)
     dev = resolve_device(device)
     ctx = ctx or ProcessContext.from_env()
-    cfg = CONFIGS[config]()
     params, restored_step = _load_params(cfg, ctx.model_dir, seed, dev)
     params = gen.inference_params(cfg, params)
     prompts = _read_prompts(input_file, cfg.vocab_size, batch, prompt_len)

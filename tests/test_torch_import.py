@@ -14,11 +14,13 @@ import pytest
 import torch
 
 import kubeflow_controller_tpu_torch as port
-from kubeflow_controller_tpu_torch.dataplane.entrypoints import serve_lm
+from kubeflow_controller_tpu_torch.dataplane import train as ttrain
+from kubeflow_controller_tpu_torch.dataplane.entrypoints import lm, serve_lm
 from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
     Request, ServingEngine,
 )
 from kubeflow_controller_tpu_torch.models import generate as gen
+from kubeflow_controller_tpu_torch import optim
 from kubeflow_controller_tpu_torch.models import transformer as tfm
 from kubeflow_controller_tpu_torch.ops import paged_attention as pa
 
@@ -106,6 +108,21 @@ def test_entry_points_raise_without_cuda(no_cuda):
     ServingEngine(cfg, params, n_slots=1, max_seq=16, device="cpu")
 
 
+def test_train_entry_points_raise_without_cuda(no_cuda):
+    cfg = tfm.tiny_config()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm.train(config="tiny", total_steps=2, seq_len=32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ttrain.TrainLoop(init_fn=tfm.make_init_fn(cfg),
+                         loss_fn=tfm.make_loss_fn(cfg),
+                         optimizer=optim.make_optimizer(1e-3, 2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        next(ttrain.device_prefetch(iter([{"tokens": np.zeros((1, 2))}])))
+    # device="cpu" is the one way onto the CPU.
+    assert lm.train(config="tiny", total_steps=2, per_data_shard_batch=1,
+                    seq_len=32, device="cpu")["final_step"] == 2
+
+
 def test_kernel_wrappers_refuse_non_cpu_non_cuda_tensors():
     """A non-CPU tensor must launch the kernel or raise — never fall back
     to the plain version."""
@@ -151,8 +168,28 @@ def test_inference_params_refuses_int8_weights():
 
 def test_build_module_needs_no_nvcc_at_import():
     """The CPU tests import every module on a machine without nvcc: the
-    loader may only look for the compiler when a kernel is launched."""
+    loader may only look for the compiler when a kernel is launched. It
+    builds every kernel source of the package into one library."""
     mod = importlib.import_module("kubeflow_controller_tpu_torch.ops._build")
-    assert mod.SOURCE.endswith(os.path.join("csrc", "paged_attention.cu"))
-    assert os.path.exists(mod.SOURCE)
+    names = [os.path.relpath(s, PKG) for s in mod.SOURCES]
+    assert names == [os.path.join("csrc", "flash_attention.cu"),
+                     os.path.join("csrc", "paged_attention.cu")]
+    assert all(os.path.exists(s) for s in mod.SOURCES)
     assert "arch=compute_90a,code=sm_90a" in mod.NVCC_FLAGS
+
+
+def test_library_name_is_keyed_by_every_source(tmp_path, monkeypatch):
+    """Editing any one source names a new library, so a stale build is
+    never loaded."""
+    from kubeflow_controller_tpu_torch.ops import _build
+
+    copies = []
+    for src in _build.SOURCES:
+        dst = tmp_path / os.path.basename(src)
+        dst.write_bytes(open(src, "rb").read())
+        copies.append(str(dst))
+    monkeypatch.setattr(_build, "SOURCES", tuple(copies))
+    before = _build.library_path()
+    with open(copies[0], "a") as f:
+        f.write("// edited\n")
+    assert _build.library_path() != before
