@@ -20,23 +20,32 @@ Phases, in order; any failure exits non-zero before the result line:
    (B2 H32/8 S2048 D128), bf16 with rope tables, with and without
    segment ids; the same four numbers each, SDPA (forward, or forward
    and backward) as the yardstick, and the fused kernel's dq run to run;
-4. serve: ``serve(config="llama3_8b", batch=16, slots=8, prompt_len=256,
+4. int8 kernel vs plain: the fused dynamic-int8 matmul (B7) at the seven
+   projection shapes of the int8 train runs, bit for bit against its
+   plain version, on rows with an outlier, all zeros and exact .5 ties;
+   its time beside the plain version's, ``torch._int_mm`` on the same
+   codes and a bf16 ``torch.mm``; a shape it does not tile must raise;
+5. serve: ``serve(config="llama3_8b", batch=16, slots=8, prompt_len=256,
    max_new_tokens=32, block_size=16)`` at full width and depth with the
    kernels' launch counts zeroed just before and read just after; then 4
    requests with an int8 KV pool; then, on one set of llama3_8b weights,
    a profile of one decode micro-step and one prefill chunk (wall time,
    device time by kernel, idle share) and one request's first-token and
    next-token logits under ``attn_impl="kernel"`` and ``"gather"``;
-5. train: bench.py's flagship decoder (B16 S1024, 16 layers, remat) and
+6. train: bench.py's flagship decoder (B16 S1024, 16 layers, remat) and
    llama3_8b at full width and 2 layers (B2 S2048), 8 steps each through
-   ``TrainLoop`` with the flash launch counts zeroed just before and
+   ``TrainLoop``; the flagship with int8 projections, ``"int8_fused"``
+   (8 steps) and ``"int8"`` (4), and llama3_8b with ``"int8_fused"`` (4);
+   each with the flash and B7 launch counts zeroed just before and
    checked exactly just after, a falling finite loss, step time,
-   tokens/s, MFU and a profiled step's idle share; the flagship for 4
-   steps through the entry point ``lm.train`` (``attn="auto"``, exact
-   launch counts); then one flagship batch's loss and gradients under
-   the flash kernels vs the plain attention, and the tiny config trained
-   on the card vs the CPU;
-6. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the last line
+   tokens/s, MFU, a profiled step's idle share and peak memory; the
+   flagship through the entry point ``lm.train`` (``attn="auto"``), 4
+   steps in bf16 and 4 with ``quant="int8_fused", opt8bit=True`` (exact
+   counts, every step's metrics); then one flagship batch's loss and
+   gradients under the flash kernels vs the plain attention and under
+   ``"int8_fused"`` vs ``"int8"``, and the tiny config trained on the
+   card vs the CPU;
+7. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and writes only under
@@ -59,9 +68,10 @@ OUT_DIR = os.path.join(ROOT, "kubeflow_controller_tpu_torch", "_build",
                        "chip_smoke")
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
-# the operation rate of each input type the kernels take.
+# the operation rate of each input type the kernels take (int8: 1,979
+# TOPS on the tensor cores).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "int8": 989e12, "float32": 67e12}
+PEAK_OPS = {"bfloat16": 989e12, "int8": 1979e12, "float32": 67e12}
 
 # Kernel vs plain tolerances, with their reasons:
 # * bf16 (and bf16 queries over int8 pools): both sides compute in fp32
@@ -105,6 +115,16 @@ DQ_RUN_TO_RUN = dict(rtol=2 ** -7, atol_of_max=1e-5)
 TRAIN_LOSS_REL_TOL = 1e-4
 TRAIN_GRAD_REL_L2_TOL = 5e-2
 TRAIN_GRAD_LEAF_REL_L2_TOL = 6e-2
+# One flagship batch under quant="int8_fused" and "int8" with the plain
+# attention: in bf16 the two compute one function (the fused path's bf16
+# lhs and output are the roundings a bf16 model makes anyway), the int8
+# sums are exact in both, and every other operation is the same code on
+# the same inputs, so the loss and the gradients should agree bit for
+# bit; a difference would come from a reduction whose order varies from
+# run to run (none is expected on this path). Limits: the loss within
+# 1e-6 relative, the worst leaf within 1e-4 relative L2.
+INT8_LOSS_REL_TOL = 1e-6
+INT8_GRAD_LEAF_REL_L2_TOL = 1e-4
 # The tiny config (fp32, head_dim 16: the plain attention on both
 # devices) trained 3 steps on the card and on the CPU from one CPU-drawn
 # init: the two differ only in summation order (TF32 off).
@@ -536,6 +556,91 @@ def flash_kernel_phase(smi, timed=True):
     return recs
 
 
+#: B7's shapes on the train path, (m, k, n): the flagship's projections at
+#: B16 S1024 (q/k/v/o, gate/up and down forward; the same three shapes
+#: are their dx) and llama3_8b's at B2 S2048 (wq/wo forward and dx, wk/wv
+#: forward, wk/wv dx, gate/up forward).
+INT8_SHAPES = {
+    "flagship.qkvo": (16384, 1024, 1024),
+    "flagship.gate_up": (16384, 1024, 4096),
+    "flagship.down": (16384, 4096, 1024),
+    "llama3_8b.wq_wo": (4096, 4096, 4096),
+    "llama3_8b.wk_wv": (4096, 4096, 1024),
+    "llama3_8b.wk_wv_dx": (4096, 1024, 4096),
+    "llama3_8b.gate_up": (4096, 4096, 14336),
+}
+
+
+def int8_kernel_phase(smi):
+    """B7 against its plain version at every main-path shape, bit for bit
+    (both quantize with an IEEE division, sum exactly in int32 and
+    dequantize with two fp32 products in one order), on bf16 rows that
+    include an outlier row, an all-zero row and a row of exact .5 ties;
+    each shape timed beside the plain version, ``torch._int_mm`` on the
+    same int8 codes (the product alone, a yardstick; with the rhs
+    column-major, as the composed path passes it, and row-major) and a
+    bf16 ``torch.mm`` of the same shape. A shape ``fusable`` refuses must
+    raise. Returns records by shape."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.ops import quant as q
+    from kubeflow_controller_tpu_torch.ops import quant_fused as qf
+
+    recs, failures = {}, []
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    for label, (m, k, n) in INT8_SHAPES.items():
+        a = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+        a[0] *= 1000
+        a[1] = 0
+        a[2] = torch.arange(k, device="cuda") % 254 - 126.5
+        a[2, 0] = 127
+        w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+        qb, sb = q._quantize(w, axis=0)
+        qb = qb.contiguous()
+        got, want = qf._launch(a, qb, sb), qf._fused_plain(a, qb, sb)
+        torch.cuda.synchronize()
+        mismatches = int((got != want).sum())
+        max_abs = float((got.float() - want.float()).abs().max())
+        if mismatches or not bool(torch.isfinite(got).all()):
+            failures.append(f"int8_matmul[{label}]: {mismatches} outputs differ "
+                            f"from the plain version (max |err| {max_abs})")
+        qa, _ = q._quantize(a, axis=1)
+        qb_cm = qb.t().contiguous().t()          # the same codes, column-major
+        wb = w.to(torch.bfloat16)
+        byts = m * k * 2 + k * n + n * 4 + m * n * 2   # a, qb, sb in; out
+        ops = 2 * m * k * n
+        t_bytes = byts / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_OPS["int8"] * 1e3
+        rec = dict(
+            case=label, m=m, k=k, n=n, mismatches=mismatches, max_abs_err=max_abs,
+            ms=_time_ms(lambda: qf._launch(a, qb, sb)),
+            plain_ms=_time_ms(lambda: qf._fused_plain(a, qb, sb), iters=5),
+            library_ms=_time_ms(lambda: torch._int_mm(qa, qb_cm)),
+            library="torch._int_mm on the same int8 codes, rhs column-major "
+                    "(the product alone)",
+            library_rhs_row_major_ms=_time_ms(lambda: torch._int_mm(qa, qb)),
+            bf16_mm_ms=_time_ms(lambda: torch.mm(a, wb)),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            bytes=byts, operations=ops)
+        log(f"int8-case {json.dumps(rec)} | {smi}")
+        recs[label] = rec
+        del a, w, qb, sb, got, want, qa, qb_cm, wb
+        torch.cuda.empty_cache()
+    a = torch.zeros((256, 100), device="cuda", dtype=torch.bfloat16)
+    try:
+        qf.fused_int8_matmul_2d(a, torch.zeros((100, 256), device="cuda"))
+        failures.append("int8_matmul: the refused shape 256x100x256 did not raise")
+    except ValueError as e:
+        log(f"int8_matmul: 256x100x256 refused as it should be ({e})")
+    if failures:
+        for msg in failures:
+            log("FAIL " + msg)
+        raise AssertionError(f"{len(failures)} int8 kernel checks failed; "
+                             f"first: {failures[0]}")
+    return recs
+
+
 def device_phase():
     import torch
 
@@ -670,7 +775,7 @@ def serve_phase(smi):
 
 def _kernel_bucket(name: str) -> str:
     for kernel in ("paged_decode", "paged_chunk", "flash_fwd", "flash_bwd_kv",
-                   "flash_bwd_dq"):
+                   "flash_bwd_dq", "int8_matmul"):
         if kernel + "_kernel" in name:
             return kernel
     low = name.lower()
@@ -794,18 +899,18 @@ def logits_phase():
             f"max |diff| {float((a - b).abs().max())}, argmax equal {same}")
 
 
-def _step_profile(loop, batch):
-    """One more train step under ``torch.profiler``, timed on a host
-    clock around the synchronised step: (wall ms, device ms, idle share
-    = 1 - device / wall of that same step, device ms by kernel bucket,
-    the ten kernels of most device time as (name, ms, calls))."""
+def _step_profile(step, batch):
+    """One train step (``step(batch)``) under ``torch.profiler``, timed on
+    a host clock around the synchronised step: (wall ms, device ms, idle
+    share = 1 - device / wall of that same step, device ms by kernel
+    bucket, the ten kernels of most device time as (name, ms, calls))."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        float(loop.step(batch)["loss"])
+        float(step(batch)["loss"])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     buckets, _, top = _device_time(prof)
@@ -814,14 +919,31 @@ def _step_profile(loop, batch):
     return wall_ms, device_ms, idle, buckets, top
 
 
+def _reset_launches():
+    from kubeflow_controller_tpu_torch.ops import flash_attention as fa
+    from kubeflow_controller_tpu_torch.ops import quant_fused as qf
+
+    fa.reset_launches()
+    qf.reset_launches()
+
+
+def _launches():
+    """The train path's kernel launches since :func:`_reset_launches`:
+    the flash kernels' and B7's."""
+    from kubeflow_controller_tpu_torch.ops import flash_attention as fa
+    from kubeflow_controller_tpu_torch.ops import quant_fused as qf
+
+    return {**fa.LAUNCHES, **qf.LAUNCHES}
+
+
 def train_run(label, cfg, seq, batch, steps, expect, smi):
     """Train ``cfg`` for ``steps`` steps through the port's ``TrainLoop``
     with the LM entry point's optimizer, on one batch of its synthetic
     stream fed every step (as bench.py feeds one fixed batch, so that
-    the loss falls within a few steps), with the flash kernels' launch
-    counts zeroed just before and read just after; the counts must equal
-    ``expect`` (per step) exactly and the loss must be finite and fall.
-    Returns the run's record."""
+    the loss falls within a few steps), with the flash kernels' and B7's
+    launch counts zeroed just before and read just after; the counts must
+    equal ``expect`` (per step) exactly and the loss must be finite and
+    fall. Returns the run's record (peak memory from the run's start)."""
     import torch
 
     from kubeflow_controller_tpu_torch.dataplane.entrypoints.lm import synthetic_lm
@@ -829,9 +951,10 @@ def train_run(label, cfg, seq, batch, steps, expect, smi):
         TrainLoop, TrainLoopConfig, device_prefetch,
     )
     from kubeflow_controller_tpu_torch.models import transformer as tfm
-    from kubeflow_controller_tpu_torch.ops import flash_attention as fa
     from kubeflow_controller_tpu_torch.optim import make_optimizer
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     loop = TrainLoop(
         init_fn=tfm.make_init_fn(cfg), loss_fn=tfm.make_loss_fn(cfg),
         optimizer=make_optimizer(3e-4, steps),
@@ -840,13 +963,13 @@ def train_run(label, cfg, seq, batch, steps, expect, smi):
         itertools.repeat(next(synthetic_lm(cfg.vocab_size, batch, seq))), "cuda")
     records = []
     torch.cuda.synchronize()
-    fa.reset_launches()
+    _reset_launches()
     loop.run(data, on_metrics=records.append)
     torch.cuda.synchronize()
-    launches = dict(fa.LAUNCHES)
-    want = {k: n * steps for k, n in expect.items()}
+    launches = _launches()
+    want = {k: expect.get(k, 0) * steps for k in launches}
     if launches != want:
-        raise AssertionError(f"train[{label}]: flash launches {launches} != {want}")
+        raise AssertionError(f"train[{label}]: launches {launches} != {want}")
     losses = [m.loss for m in records]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"train[{label}]: losses {losses} not finite and falling")
@@ -854,7 +977,7 @@ def train_run(label, cfg, seq, batch, steps, expect, smi):
     step_s = sorted(1 / m.steps_per_sec for m in records[2:])
     med = step_s[len(step_s) // 2]
     tokens = batch * seq
-    wall_ms, device_ms, idle, by_kernel, top = _step_profile(loop, next(data))
+    wall_ms, device_ms, idle, by_kernel, top = _step_profile(loop.step, next(data))
     rec = dict(
         run=label, steps=steps, losses=losses, step_ms=med * 1e3,
         step_ms_all=[1e3 / m.steps_per_sec for m in records],
@@ -871,46 +994,88 @@ def train_run(label, cfg, seq, batch, steps, expect, smi):
     return rec
 
 
-def lm_train_run(smi, steps=4):
+def lm_train_run(smi, steps=4, quant="", opt8bit=False):
     """The LM entry point a TPUJob runs, ``lm.train``, on the named bf16
-    config ``"flagship"`` at S=1024, B=16 with its default ``attn="auto"``:
-    the auto dispatch must choose the flash kernels (bf16 CUDA tensors
-    under the JAX shape rule). The launch counts are zeroed just before
-    and must be exact just after; the metrics stream the entry point
-    writes must hold every step with a finite loss."""
+    config ``"flagship"`` at S=1024, B=16 with its default ``attn="auto"``
+    (and ``quant``, ``opt8bit``): the auto dispatch must choose the flash
+    kernels (bf16 CUDA tensors under the JAX shape rule). The launch
+    counts are zeroed just before and must be exact just after (B7: 21
+    per layer and step under ``"int8_fused"``); the metrics stream the
+    entry point writes must hold every step with a finite loss, the last
+    below the first (a new batch every step, so not every step falls). The last
+    step runs under ``torch.profiler`` for its idle share. Returns the
+    run's record."""
     import torch
 
+    from kubeflow_controller_tpu_torch.dataplane import train as dtrain
     from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
     from kubeflow_controller_tpu_torch.dataplane.entrypoints import lm
-    from kubeflow_controller_tpu_torch.ops import flash_attention as fa
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
 
-    log_dir = os.path.join(OUT_DIR, "lm_train")
+    label = "+".join(["flagship"] + [x for x in (quant, "opt8bit" * opt8bit) if x])
+    log_dir = os.path.join(OUT_DIR, f"lm_train_{label}")
     os.makedirs(log_dir, exist_ok=True)
     path = os.path.join(log_dir, "metrics-p0.jsonl")
     if os.path.exists(path):
         os.remove(path)
-    layers = lm.model_config("flagship").n_layers
+    cfg = lm.model_config("flagship")
+    layers = cfg.n_layers
+    profiled = {}
+    step_fn = dtrain.TrainLoop.step
+
+    def step_profiling_the_last(loop, batch):
+        if loop.state.step != steps - 1:
+            return step_fn(loop, batch)
+        metrics = {}
+
+        def one(b):
+            metrics.update(step_fn(loop, b))
+            return metrics
+
+        profiled["wall_ms"], profiled["device_ms"], profiled["idle"], _, _ = \
+            _step_profile(one, batch)
+        return metrics
+
     torch.cuda.synchronize()
-    fa.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
     t0 = time.perf_counter()
-    out = lm.train(ProcessContext(log_dir=log_dir), config="flagship",
-                   total_steps=steps, per_data_shard_batch=16, seq_len=1024)
+    dtrain.TrainLoop.step = step_profiling_the_last
+    try:
+        out = lm.train(ProcessContext(log_dir=log_dir), config="flagship",
+                       total_steps=steps, per_data_shard_batch=16, seq_len=1024,
+                       quant=quant, opt8bit=opt8bit)
+    finally:
+        dtrain.TrainLoop.step = step_fn
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
-    launches = dict(fa.LAUNCHES)
+    launches = _launches()
     want = {"flash_fwd": 2 * layers * steps, "flash_bwd_fused": layers * steps,
-            "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+            "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
+            "int8_matmul": 21 * layers * steps if quant == "int8_fused" else 0}
     if launches != want:
-        raise AssertionError(f"lm.train[flagship]: flash launches {launches} != {want}")
+        raise AssertionError(f"lm.train[{label}]: launches {launches} != {want}")
     rows = _read_completions(path)
     losses = [r["loss"] for r in rows]
     if ([r["step"] for r in rows] != list(range(1, steps + 1))
             or out["final_step"] != steps
-            or not all(isinstance(x, float) and math.isfinite(x) for x in losses)):
-        raise AssertionError(f"lm.train[flagship]: metrics {rows}, result {out}")
-    log(f"lm.train[flagship] attn=auto: {steps} steps in {wall_s} s (init "
-        f"included), losses {losses}, last tokens/s {out['tokens_per_sec']}, "
-        f"launches {launches} | {smi}")
+            or not all(isinstance(x, float) and math.isfinite(x) for x in losses)
+            or not losses[-1] < losses[0]):
+        raise AssertionError(f"lm.train[{label}]: metrics {rows}, result {out}")
+    step_ms = [1e3 / r["steps_per_sec"] for r in rows]
+    steady = step_ms[1:-1]                 # not the first, not the profiled
+    med = sum(steady) / len(steady)
+    tokens = 16 * 1024
+    rec = dict(run=f"lm.train[{label}]", steps=steps, losses=losses,
+               step_ms=med, step_ms_all=step_ms, tokens_per_s=tokens / med * 1e3,
+               mfu=tfm.train_flops_per_token(cfg, 1024) * tokens / (med / 1e3)
+               / PEAK_OPS["bfloat16"],
+               profiled_step_wall_ms=profiled["wall_ms"],
+               profiled_step_device_ms=profiled["device_ms"],
+               idle_share=profiled["idle"], launches=launches,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, wall_s=wall_s)
+    log(f"lm.train[{label}] attn=auto {json.dumps(rec)} | {smi}")
+    return rec
 
 
 def flash_vs_plain(smi):
@@ -981,37 +1146,96 @@ def tiny_train_check():
         raise AssertionError("tiny train: cuda and cpu losses disagree")
 
 
+def int8_fused_vs_int8(smi):
+    """Loss and every gradient of one flagship batch under
+    ``quant="int8_fused"`` and ``"int8"``, on one set of weights, with the
+    plain attention (the fused backward's dq atomics stay out). In bf16
+    the two are one function: the fused kernel's bf16 lhs and bf16 output
+    are the roundings a bf16 model makes anyway."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.convert import tree_leaves
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints.lm import synthetic_lm
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.flagship_config(attn_impl="xla")
+    params = tfm.init_params(cfg, seed=9, device="cuda")
+    leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+    tokens = torch.from_numpy(next(synthetic_lm(cfg.vocab_size, 16, 1024, seed=4))["tokens"])
+    batch = {"tokens": tokens.cuda()}
+    out = {}
+    for quant in ("int8_fused", "int8"):
+        loss, _ = tfm.next_token_loss(cfg.replace(quant=quant), params, batch)
+        out[quant] = (float(loss.detach()), torch.autograd.grad(loss, leaves))
+    (lf, gf), (lc, gc) = out["int8_fused"], out["int8"]
+    loss_rel = abs(lf - lc) / abs(lc)
+    rels = [float((a.float() - b.float()).norm() / b.float().norm()) for a, b in zip(gf, gc)]
+    equal = sum(bool(torch.equal(a, b)) for a, b in zip(gf, gc))
+    log(f"train-check flagship int8_fused vs int8 (attn xla): loss {lf} vs {lc} "
+        f"(rel {loss_rel}, tol {INT8_LOSS_REL_TOL}), worst leaf rel L2 {max(rels)} "
+        f"(tol {INT8_GRAD_LEAF_REL_L2_TOL}), {equal} of {len(rels)} leaves bit-equal "
+        f"| {smi}")
+    if not (math.isfinite(lf) and loss_rel <= INT8_LOSS_REL_TOL
+            and max(rels) <= INT8_GRAD_LEAF_REL_L2_TOL):
+        raise AssertionError("int8_fused vs int8 train step disagree")
+    del params, leaves, out, gf, gc
+    torch.cuda.empty_cache()
+
+
 def train_phase(smi):
     """The flagship (bench.py) and llama3_8b at full width and 2 layers,
-    each for a few steps with exact flash launch counts; the flagship
-    again through ``lm.train``; then flash vs plain on one flagship
-    batch, and the tiny config on card and CPU."""
+    each for a few steps with exact launch counts, in bf16 and with int8
+    projections (the flagship under ``"int8_fused"`` and ``"int8"``,
+    llama3_8b under ``"int8_fused"``); the flagship again through
+    ``lm.train``, in bf16 and with int8_fused projections and 8-bit Adam;
+    then flash vs plain and int8_fused vs int8 on one flagship batch, and
+    the tiny config on card and CPU."""
     from kubeflow_controller_tpu_torch.models import transformer as tfm
 
     flag = tfm.flagship_config()
+    flag_flash = {"flash_fwd": 2 * flag.n_layers, "flash_bwd_fused": flag.n_layers}
     runs = {
-        "flagship": train_run("flagship", flag, 1024, 16, TRAIN_STEPS,
-                              {"flash_fwd": 2 * flag.n_layers,
-                               "flash_bwd_fused": flag.n_layers,
-                               "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}, smi),
+        "flagship": train_run("flagship", flag, 1024, 16, TRAIN_STEPS, flag_flash, smi),
     }
     llama = tfm.llama3_8b_config(n_layers=2, max_seq=2048, attn_impl="flash")
-    runs["llama3_8b"] = train_run(
-        "llama3_8b", llama, 2048, 2, TRAIN_STEPS,
-        {"flash_fwd": 2 * llama.n_layers, "flash_bwd_fused": 0,
-         "flash_bwd_dkdv": llama.n_layers, "flash_bwd_dq": llama.n_layers}, smi)
-    lm_train_run(smi)
+    llama_flash = {"flash_fwd": 2 * llama.n_layers, "flash_bwd_dkdv": llama.n_layers,
+                   "flash_bwd_dq": llama.n_layers}
+    runs["llama3_8b"] = train_run("llama3_8b", llama, 2048, 2, TRAIN_STEPS,
+                                  llama_flash, smi)
+    # B7 per layer and step: the flagship's seven projections and their
+    # seven dx are all fusable at M = 16384, and remat re-runs the seven
+    # forwards: 21. llama3_8b at M = 4096: w_down's forward (k = 14336)
+    # is composed, and so is its dx (a composed forward's backward is
+    # composed, as in the JAX package), and the dx of w_gate and w_up
+    # (contraction 14336): 6 + 6 + 4 = 16.
+    runs["flagship.int8_fused"] = train_run(
+        "flagship.int8_fused", flag.replace(quant="int8_fused"), 1024, 16,
+        TRAIN_STEPS, {**flag_flash, "int8_matmul": 21 * flag.n_layers}, smi)
+    runs["flagship.int8"] = train_run(
+        "flagship.int8", flag.replace(quant="int8"), 1024, 16, INT8_STEPS,
+        flag_flash, smi)
+    runs["llama3_8b.int8_fused"] = train_run(
+        "llama3_8b.int8_fused", llama.replace(quant="int8_fused"), 2048, 2,
+        INT8_STEPS, {**llama_flash, "int8_matmul": 16 * llama.n_layers}, smi)
+    runs["lm.train"] = lm_train_run(smi)
+    runs["lm.train.int8_fused.opt8bit"] = lm_train_run(
+        smi, INT8_STEPS, quant="int8_fused", opt8bit=True)
     flash_vs_plain(smi)
+    int8_fused_vs_int8(smi)
     tiny_train_check()
     return runs
 
 
 TRAIN_STEPS = 8
+INT8_STEPS = 4
 
 KERNELS = (
     ("paged_decode", "decode.bf16.serve", "ops/paged_attention_pallas.py:72"),
     ("paged_chunk", "prefill.bf16.serve", "ops/paged_attention_pallas.py:223"),
 )
+#: B7's record in the kernels line: the flagship's FFN gate/up shape; its
+#: launches come from the flagship int8_fused run.
+INT8_KERNEL_SHAPE = "flagship.gate_up"
 #: (kernel, kernel-phase case of its main-path shape, TPU kernel, train run
 #: whose launches it reports)
 FLASH_KERNELS = (
@@ -1044,6 +1268,7 @@ def main() -> int:
     smi = device_phase()
     recs = kernel_phase()
     flash_recs = flash_kernel_phase(smi)
+    int8_recs = int8_kernel_phase(smi)
     runs = serve_phase(smi)
     logits_phase()
     train_runs = train_phase(smi)
@@ -1072,6 +1297,17 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": case,
         })
+    r = int8_recs[INT8_KERNEL_SHAPE]
+    line["kernels"].append({
+        "name": "int8_matmul", "route": "cuda",
+        "source": "kubeflow_controller_tpu_torch/csrc/int8_matmul.cu",
+        "replaces": "kubeflow_controller_tpu/ops/quant_pallas.py:46",
+        "launches": train_runs["flagship.int8_fused"]["launches"]["int8_matmul"],
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "library": r["library"],
+        "shape": INT8_KERNEL_SHAPE,
+    })
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps(line))
     log(smi)

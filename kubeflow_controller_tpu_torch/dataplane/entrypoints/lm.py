@@ -11,10 +11,14 @@ decoder through ``TrainLoop`` on one device:
     python -m kubeflow_controller_tpu_torch.dataplane.entrypoints.lm \\
         --config tiny --total-steps 20 --seq-len 128 --device cpu
 
-Runs on ``cuda`` unless ``device="cpu"``. Options of the JAX entry
+Runs on ``cuda`` unless ``device="cpu"``. ``quant`` runs the linear
+projections in int8 (``"int8"``: the composed path; ``"int8_fused"``,
+from Python only as in the JAX package: the fused kernel where its
+shapes allow) and ``opt8bit`` keeps AdamW's moments in 8 bits
+(``--quant int8 --opt8`` on the command line). Options of the JAX entry
 point this port does not have yet — tensor, fsdp and sequence
-parallelism, ring attention, int8 projections, 8-bit Adam moments and
-checkpoints — are refused with "not yet ported".
+parallelism, ring attention and checkpoints — are refused with "not yet
+ported".
 """
 
 from __future__ import annotations
@@ -176,15 +180,15 @@ def train(
         if value != 1:
             raise NotImplementedError(
                 f"{name}={value}: multi-device training is not yet ported")
-    refused = {"attn='ring'": attn == "ring", "quant": bool(quant),
-               "opt8bit": opt8bit, "model_dir": bool(model_dir),
+    refused = {"attn='ring'": attn == "ring", "model_dir": bool(model_dir),
                "checkpoint_every": bool(checkpoint_every)}
     for name, on in refused.items():
         if on:
             raise NotImplementedError(f"{name} is not yet ported")
     ctx = ctx or ProcessContext.from_env()
     mlog = metrics_sink.from_context(ctx)
-    cfg = model_config(config, max_seq=max(seq_len, 128), attn_impl=attn)
+    cfg = model_config(config, max_seq=max(seq_len, 128), attn_impl=attn,
+                       quant=quant)
     global_batch = per_data_shard_batch
     loop = TrainLoop(
         init_fn=tfm.make_init_fn(cfg),

@@ -10,9 +10,11 @@ D_out]`` and applied as ``x @ w``.
 The training forward (:func:`forward_hidden`, :func:`next_token_loss`)
 runs the dense decoder on one device: attention through
 ``ops/attention.py:mha`` (the flash kernels on the card), each layer
-under ``torch.utils.checkpoint`` when ``remat`` is true. Not ported yet,
-and refused by name: ``remat="ffn"``, ``attn_impl="ring"``, int8
-projections, mixture-of-experts layers and the pipeline-parallel stack.
+under ``torch.utils.checkpoint`` when ``remat`` is true, and its seven
+linear projections through ``ops/quant.py:maybe_quant_dot`` (bf16, or
+int8 under ``quant``). Not ported yet, and refused by name:
+``remat="ffn"``, ``attn_impl="ring"``, mixture-of-experts layers and the
+pipeline-parallel stack.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from kubeflow_controller_tpu_torch.convert import tree_leaves
 from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_controller_tpu_torch.ops.attention import mha
 from kubeflow_controller_tpu_torch.ops.flash_attention import rope_full_tables
+from kubeflow_controller_tpu_torch.ops.quant import maybe_quant_dot
 
 Params = Dict[str, Any]
 
@@ -50,6 +53,15 @@ class TransformerConfig:
     # False: keep every activation. ("ffn", the JAX package's middle
     # rung, is not ported yet.)
     remat: Any = True
+    # "" = bf16 matmuls (default). "int8" runs every linear projection
+    # (qkv/o, FFN gate/up/down) through the int8 path: dynamic symmetric
+    # quantization with STE gradients, all three matmuls per projection
+    # quantized (ops/quant.py). "int8_fused" uses the fused in-kernel
+    # quantization kernel where shapes allow (ops/quant_fused.py; the JAX
+    # package measured it slower than "int8" on the TPU at flagship
+    # shapes). Embed, LM head, and attention scores/softmax stay
+    # bf16/fp32 in all modes.
+    quant: str = ""
     attn_impl: str = "auto"                    # auto|xla|flash
     tie_embeddings: bool = False
 
@@ -176,6 +188,9 @@ def check_ported(cfg: TransformerConfig) -> None:
     if cfg.attn_impl not in ("auto", "xla", "flash"):
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} is not yet ported (auto|xla|flash)")
+    if cfg.quant not in ("", "int8", "int8_fused"):
+        raise NotImplementedError(
+            f"quant={cfg.quant!r} is not yet ported ('', int8, int8_fused)")
 
 
 def _layer(
@@ -184,20 +199,24 @@ def _layer(
 ) -> torch.Tensor:
     """One pre-norm decoder layer: attention (q/k rotated by the step's
     rope tables inside ``mha``) and the SwiGLU FFN, projections in
-    ``cfg.dtype``."""
+    ``cfg.dtype`` through ``maybe_quant_dot`` (int8 under ``cfg.quant``)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     dt = cfg.dtype
+
+    def dot(a, w):
+        return maybe_quant_dot(a, w.to(dt), cfg.quant)
+
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (h @ lp["wq"].to(dt)).reshape(b, s, cfg.n_heads, hd)
-    k = (h @ lp["wk"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (h @ lp["wv"].to(dt)).reshape(b, s, cfg.n_kv_heads, hd)
+    q = dot(h, lp["wq"]).reshape(b, s, cfg.n_heads, hd)
+    k = dot(h, lp["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
+    v = dot(h, lp["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
     attn = mha(q, k, v, causal=True, segment_ids=segment_ids,
                impl=cfg.attn_impl, rope_tables=rope_tables)
-    x = x + attn.reshape(b, s, cfg.n_heads * hd) @ lp["wo"].to(dt)
+    x = x + dot(attn.reshape(b, s, cfg.n_heads * hd), lp["wo"])
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-    prod = F.silu(h @ lp["w_gate"].to(dt)) * (h @ lp["w_up"].to(dt))
-    return x + prod @ lp["w_down"].to(dt)
+    prod = F.silu(dot(h, lp["w_gate"])) * dot(h, lp["w_up"])
+    return x + dot(prod, lp["w_down"])
 
 
 def _embed(cfg: TransformerConfig, params: Params,

@@ -110,6 +110,7 @@ def load() -> ctypes.CDLL:
         "kfc_flash_fwd": [P] * 8 + [I] * 5 + [F, I, P],
         "kfc_flash_bwd_kv": [P] * 12 + [I] * 5 + [F, I, P],
         "kfc_flash_bwd_dq": [P] * 10 + [I] * 5 + [F, I, P],
+        "kfc_int8_matmul": [P] * 4 + [I] * 3 + [P],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -14,8 +14,8 @@ same steps from the same gradients, up to rounding:
   weight decay on every leaf (norms and embedding included).
 
 PyTorch's own fused AdamW does the update; there is no TPU kernel here
-to port. The 8-bit-moment optimizer (``ops/optim8.py``) is not yet
-ported.
+to port. ``make_optimizer(..., opt8bit=True)`` returns the 8-bit-moment
+AdamW of ``ops/optim8.py`` under the same schedule.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from typing import Callable, Optional, Union
 import torch
 
 from kubeflow_controller_tpu_torch.convert import tree_leaves
+from kubeflow_controller_tpu_torch.ops.optim8 import AdamW8bit
 
 Schedule = Callable[[int], float]
 
@@ -110,10 +111,12 @@ class AdamW:
 
 
 def make_optimizer(learning_rate: float, total_steps: int,
-                   opt8bit: bool = False) -> AdamW:
-    """The LM entry point's optimizer (``lm._make_optimizer``)."""
-    if opt8bit:
-        raise NotImplementedError("8-bit Adam moments are not yet ported")
+                   opt8bit: bool = False) -> Union[AdamW, AdamW8bit]:
+    """The LM entry point's optimizer (``lm._make_optimizer``): AdamW, or
+    with ``opt8bit`` the 8-bit-moment ``AdamW8bit``, both ``b1=0.9,
+    b2=0.95, weight_decay=0.1`` under the warmup-cosine schedule."""
     sched = warmup_cosine_decay_schedule(
         0.0, learning_rate, min(200, total_steps // 10 + 1), total_steps)
+    if opt8bit:
+        return AdamW8bit(sched, b1=0.9, b2=0.95, weight_decay=0.1)
     return AdamW(sched, b1=0.9, b2=0.95, weight_decay=0.1)

@@ -23,6 +23,7 @@ from kubeflow_controller_tpu_torch.models import generate as gen
 from kubeflow_controller_tpu_torch import optim
 from kubeflow_controller_tpu_torch.models import transformer as tfm
 from kubeflow_controller_tpu_torch.ops import paged_attention as pa
+from kubeflow_controller_tpu_torch.ops import quant_fused as qf
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "kubeflow_controller_tpu_torch")
@@ -132,6 +133,9 @@ def test_kernel_wrappers_refuse_non_cpu_non_cuda_tensors():
     pos = torch.zeros((1,), dtype=torch.int32, device="meta")
     with pytest.raises(RuntimeError, match="CUDA kernel on cuda tensors"):
         pa.paged_attention_decode(q, pool, pool, tables, pos)
+    a = torch.zeros((128, 128), dtype=torch.bfloat16, device="meta")
+    with pytest.raises(RuntimeError, match="CUDA kernel on cuda tensors"):
+        qf.fused_int8_matmul_2d(a, a)
 
 
 def test_launch_counters_stay_zero_on_cpu():
@@ -145,6 +149,14 @@ def test_launch_counters_stay_zero_on_cpu():
                            max_new_tokens=3) for i in range(3)])
     assert sorted(len(c.tokens) for c in out) == [3, 3, 3]
     assert pa.LAUNCHES == {"paged_decode": 0, "paged_chunk": 0}
+    # An int8_fused decoder at a width the fused route takes (d_model 128,
+    # 128 rows): the wrapper runs its plain version, and counts nothing.
+    qf.reset_launches()
+    cfg = tfm.tiny_config(d_model=128, d_ff=256, quant="int8_fused")
+    params = tfm.init_params(cfg, device="cpu")
+    loss, _ = tfm.next_token_loss(cfg, params, {"tokens": torch.zeros((2, 65), dtype=torch.int64)})
+    assert torch.isfinite(loss)
+    assert qf.LAUNCHES == {"int8_matmul": 0}
 
 
 @pytest.mark.parametrize("kwargs", [
@@ -173,6 +185,7 @@ def test_build_module_needs_no_nvcc_at_import():
     mod = importlib.import_module("kubeflow_controller_tpu_torch.ops._build")
     names = [os.path.relpath(s, PKG) for s in mod.SOURCES]
     assert names == [os.path.join("csrc", "flash_attention.cu"),
+                     os.path.join("csrc", "int8_matmul.cu"),
                      os.path.join("csrc", "paged_attention.cu")]
     assert all(os.path.exists(s) for s in mod.SOURCES)
     assert "arch=compute_90a,code=sm_90a" in mod.NVCC_FLAGS

@@ -311,13 +311,15 @@ def test_params_to_numpy_round_trips():
         np.testing.assert_array_equal(a, np.asarray(b))
 
 
-@pytest.mark.parametrize("name", ["remat_ffn", "ring", "pp"])
+@pytest.mark.parametrize("name", ["remat_ffn", "ring", "pp", "quant_fp8"])
 def test_model_refuses_what_is_not_ported(name):
     cfg = ttf.tiny_config()
     if name == "remat_ffn":
         cfg = cfg.replace(remat="ffn")
     elif name == "ring":
         cfg = cfg.replace(attn_impl="ring")
+    elif name == "quant_fp8":
+        cfg = cfg.replace(quant="fp8")
     params = ttf.init_params(cfg, device="cpu")
     batch = {"tokens": torch.zeros((1, 9), dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -379,11 +381,6 @@ def test_three_adamw_steps_match_optax():
                        convert.tree_leaves(jax.device_get(params))):
         np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=0,
                                    atol=lr / 1000, err_msg=n)
-
-
-def test_make_optimizer_refuses_8bit_moments():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        optim.make_optimizer(1e-3, 10, opt8bit=True)
 
 
 # -- train loop and entry point -------------------------------------------------
@@ -500,8 +497,8 @@ def test_lm_train_reads_a_corpus(tmp_path):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(tp=2), dict(fsdp=2), dict(sp=2), dict(attn="ring"), dict(quant="int8"),
-    dict(opt8bit=True), dict(model_dir="/nonexistent"), dict(checkpoint_every=5),
+    dict(tp=2), dict(fsdp=2), dict(sp=2), dict(attn="ring"),
+    dict(model_dir="/nonexistent"), dict(checkpoint_every=5),
     dict(config="tiny_moe"), dict(config="llama3_70b"),
 ], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
 def test_lm_train_refuses_what_is_not_ported(kw):
