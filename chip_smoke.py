@@ -7,7 +7,8 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. device: the card's name and power limit, and the kernels' build
    (one ``nvcc`` per ``kubeflow_controller_tpu_torch/csrc/*.cu``, all
-   started together) with its time;
+   started together) with its time and ``ptxas``'s registers and spills
+   per kernel;
 2. kernels vs plain: every paged-attention entry (decode, chunk prefill,
    verify) in bf16, int8-pool and fp32 forms, at the serving path's own
    shapes and at llama3_8b attention shapes up to 2048 columns, held
@@ -19,12 +20,20 @@ Phases, in order; any failure exits non-zero before the result line:
    the flagship's attention shape (B16 H8 S1024 D128) and llama3_8b's
    (B2 H32/8 S2048 D128), bf16 with rope tables, with and without
    segment ids; the same four numbers each, SDPA (forward, or forward
-   and backward) as the yardstick, and the fused kernel's dq run to run;
-4. int8 kernel vs plain: the fused dynamic-int8 matmul (B7) at the seven
-   projection shapes of the int8 train runs, bit for bit against its
-   plain version, on rows with an outlier, all zeros and exact .5 ties;
-   its time beside the plain version's, ``torch._int_mm`` on the same
-   codes and a bf16 ``torch.mm``; a shape it does not tile must raise;
+   and backward) as the yardstick, and the fused kernel's dq run to run.
+   The forward is timed as the whole call (rope prepass and forward
+   kernel) and by kernel on the device; its prepass is held bit for bit
+   against its plain version and timed alone; ragged sequences at
+   head_dim 64 and 128 and head_dim 256 (the first forward kernel's
+   route) are checked, not timed;
+4. int8 kernel vs plain: the fused dynamic-int8 matmul (B7: row-quantize
+   prepass and int8 GEMM) at the seven projection shapes of the int8
+   train runs and at 256x128x384, bit for bit against its plain version,
+   on rows with an outlier, all zeros and exact .5 ties, and the prepass
+   alone bit for bit; the whole call's time (with the re-layout of the
+   rhs codes) and its parts beside the plain version's,
+   ``torch._int_mm`` on the same codes and a bf16 ``torch.mm``; a shape
+   it does not tile must raise;
 5. serve: ``serve(config="llama3_8b", batch=16, slots=8, prompt_len=256,
    max_new_tokens=32, block_size=16)`` at full width and depth with the
    kernels' launch counts zeroed just before and read just after; then 4
@@ -50,7 +59,8 @@ Phases, in order; any failure exits non-zero before the result line:
 
 It needs one card, imports nothing of JAX, and writes only under
 ``kubeflow_controller_tpu_torch/_build/`` beside itself (the kernels'
-library, the compiler log and the served completions).
+library, the compiler log, every line it prints as ``log.txt`` and the
+served completions).
 """
 
 from __future__ import annotations
@@ -84,7 +94,8 @@ TOL = {"bfloat16": dict(rtol=1.6e-2, atol=1e-3),
 # Flash kernels vs their plain versions (bf16 in, fp32 scores, softmax
 # and accumulators on both sides), with their reasons:
 # * o: the kernel rounds p to bf16 against the running max of its
-#   64-column tile, the plain version against the row's final max, so
+#   k-tile (128 columns; 64 or 32 off head_dim 64 and 128), the plain
+#   version against the row's final max, so
 #   each p may differ by 2^-8 relative and o = sum(p v) / l by up to 2^-8
 #   of the largest |v| (atol_of_vmax); the output's own rounding adds one
 #   bf16 ulp (<= 2^-7 relative, rtol).
@@ -138,7 +149,12 @@ LOGITS_REL_L2_TOL = 5e-2
 
 
 def log(msg: str) -> None:
+    """Print a line and keep it in ``OUT_DIR/log.txt`` (the whole run's
+    lines, for a caller that sees only the end of the output)."""
     print(msg, flush=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "log.txt"), "a") as f:
+        f.write(msg + "\n")
 
 
 def _time_ms(fn, iters: int = 20) -> float:
@@ -154,6 +170,33 @@ def _time_ms(fn, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _kernels_ms(fn, iters: int = 10):
+    """Device time of one call of ``fn`` by kernel (``torch.profiler``,
+    the mean over ``iters`` calls), largest first: what the card spends
+    on the call when the host keeps its queue full, as a train step
+    does. The event-timed ``ms`` of a short call also holds the host's
+    time to enqueue it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if (evt.device_type == DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
+            us = getattr(evt, "self_device_time_total",
+                         getattr(evt, "self_cuda_time_total", 0))
+            if us > 0:
+                out[evt.key[:60]] = us / 1e3 / iters
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 class Case:
@@ -469,6 +512,8 @@ class FlashCase:
         ``failures``."""
         import torch
 
+        from kubeflow_controller_tpu_torch.ops import flash_attention as fa
+
         recs = {}
         for kernel, (call, plain, names) in self.calls().items():
             got, want = call(), plain()
@@ -489,14 +534,35 @@ class FlashCase:
                     bad.append(f"{kernel}[{self.label}]: dq run to run max "
                                f"|diff| {e} past {t}")
                 errs["dq_run_to_run"] = e
-            for msg in bad:
-                log("FAIL " + msg)
-            failures += bad
-            del got, want
             rec = dict(kernel=kernel, case=self.label,
                        max_abs_err=max(v for k, v in errs.items()
                                        if k != "dq_run_to_run"),
                        errors=errs)
+            if kernel == "flash_fwd":
+                # The forward's prepass alone, bit for bit: both round
+                # two fp32 products, their sum and the bf16 cast.
+                rot = fa.rope_rotate(self.q, self.k, self.rope)
+                n_bad = sum(int((r != fa._rope_rot(x, *self.rope)).sum())
+                            for r, x in zip(rot, (self.q, self.k)))
+                if n_bad:
+                    bad.append(f"rope_rotate[{self.label}]: {n_bad} elements "
+                               "differ from the plain version")
+                wgmma = self.D in fa.WGMMA_HEAD_DIMS
+                rec.update(rope_rotate_mismatches=n_bad,
+                           parts=(["rope_rotate_kernel", "flash_fwd_wgmma_kernel"]
+                                  if wgmma else ["flash_fwd_kernel"]))
+                if timed:
+                    rec["prepass_ms"] = _time_ms(
+                        lambda: fa.rope_rotate(self.q, self.k, self.rope))
+                    if self.seg is None:
+                        rec["device_ms_by_kernel"] = _kernels_ms(call)
+                        rec["library_device_ms_by_kernel"] = _kernels_ms(
+                            self.library(kernel))
+                del rot
+            for msg in bad:
+                log("FAIL " + msg)
+            failures += bad
+            del got, want
             if timed:
                 byts, ops = self.cost(kernel)
                 t_bytes = byts / HBM_BYTES_PER_S * 1e3
@@ -522,11 +588,14 @@ FLASH_SHAPES = {
     "llama3_8b": dict(B=2, H=32, KVH=8, S=2048, D=128),
 }
 #: Checked, not timed: what the train path does not reach — a ragged
-#: sequence (200 rows: a partial tile) at head_dim 64, causal and not,
-#: and head_dim 256 (32-row tiles).
+#: sequence (200 rows: a partial tile) at head_dim 64, causal and not; a
+#: ragged one at head_dim 128 (1000 rows: 104 live rows in the last
+#: 128-row tile); and head_dim 256, which the forward's first kernel
+#: serves (32-row tiles, rope rotated on load).
 FLASH_EXTRA = {
     "ragged.d64": dict(B=2, H=4, KVH=2, S=200, D=64),
     "ragged.d64.noncausal": dict(B=2, H=4, KVH=2, S=200, D=64, causal=False),
+    "ragged.d128": dict(B=1, H=4, KVH=2, S=1000, D=128),
     "d256": dict(B=1, H=2, KVH=1, S=160, D=256),
 }
 
@@ -571,16 +640,39 @@ INT8_SHAPES = {
 }
 
 
+#: The shapes whose call is also split into device time by kernel.
+INT8_PROFILED = ("flagship.gate_up", "flagship.down", "llama3_8b.gate_up")
+#: Checked, not timed: N is not a multiple of 256 and K is a single 128
+#: step, fewer than the GEMM's ring has stages.
+INT8_EXTRA = {"edge.256x128x384": (256, 128, 384)}
+
+
+def _int8_rows(m, k, gen):
+    """bf16 rows with an outlier row, an all-zero row and a row of exact
+    .5 ties (abs-max 127: scale 1)."""
+    import torch
+
+    a = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
+    a[0] *= 1000
+    a[1] = 0
+    a[2] = torch.arange(k, device="cuda") % 254 - 126.5
+    a[2, 0] = 127
+    return a
+
+
 def int8_kernel_phase(smi):
-    """B7 against its plain version at every main-path shape, bit for bit
-    (both quantize with an IEEE division, sum exactly in int32 and
-    dequantize with two fp32 products in one order), on bf16 rows that
-    include an outlier row, an all-zero row and a row of exact .5 ties;
-    each shape timed beside the plain version, ``torch._int_mm`` on the
-    same int8 codes (the product alone, a yardstick; with the rhs
-    column-major, as the composed path passes it, and row-major) and a
-    bf16 ``torch.mm`` of the same shape. A shape ``fusable`` refuses must
-    raise. Returns records by shape."""
+    """B7 against its plain version at every main-path shape and one edge
+    shape, bit for bit (both quantize with an IEEE division, sum exactly
+    in int32 and dequantize with two fp32 products in one order), on bf16
+    rows that include an outlier row, an all-zero row and a row of exact
+    .5 ties; the row-quantize prepass alone against its plain version,
+    bit for bit too. Each main-path shape is timed as the whole call
+    (the re-layout of the rhs codes to [n, k] that the forward's wrapper
+    makes, the prepass and the GEMM), with its parts, beside the plain
+    version, ``torch._int_mm`` on the same int8 codes (the product
+    alone, a yardstick; with the rhs column-major, as the composed path
+    passes it, and row-major) and a bf16 ``torch.mm`` of the same shape.
+    A shape ``fusable`` refuses must raise. Returns records by shape."""
     import torch
 
     from kubeflow_controller_tpu_torch.ops import quant as q
@@ -588,44 +680,55 @@ def int8_kernel_phase(smi):
 
     recs, failures = {}, []
     gen = torch.Generator(device="cuda").manual_seed(30)
-    for label, (m, k, n) in INT8_SHAPES.items():
-        a = torch.randn((m, k), generator=gen, device="cuda", dtype=torch.bfloat16)
-        a[0] *= 1000
-        a[1] = 0
-        a[2] = torch.arange(k, device="cuda") % 254 - 126.5
-        a[2, 0] = 127
+    for label, (m, k, n) in {**INT8_SHAPES, **INT8_EXTRA}.items():
+        a = _int8_rows(m, k, gen)
         w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
         qb, sb = q._quantize(w, axis=0)
         qb = qb.contiguous()
-        got, want = qf._launch(a, qb, sb), qf._fused_plain(a, qb, sb)
+        qbt = qb.t().contiguous()                # the same codes as [n, k]
+        got, want = qf._launch(a, qbt, sb), qf._fused_plain(a, qbt, sb)
+        (qa, sa), (qa_p, sa_p) = qf.quantize_rows(a), qf.quantize_rows_plain(a)
         torch.cuda.synchronize()
         mismatches = int((got != want).sum())
+        pre_mismatches = int((qa != qa_p).sum()) + int((sa != sa_p).sum())
         max_abs = float((got.float() - want.float()).abs().max())
         if mismatches or not bool(torch.isfinite(got).all()):
             failures.append(f"int8_matmul[{label}]: {mismatches} outputs differ "
                             f"from the plain version (max |err| {max_abs})")
-        qa, _ = q._quantize(a, axis=1)
-        qb_cm = qb.t().contiguous().t()          # the same codes, column-major
-        wb = w.to(torch.bfloat16)
-        byts = m * k * 2 + k * n + n * 4 + m * n * 2   # a, qb, sb in; out
-        ops = 2 * m * k * n
-        t_bytes = byts / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_OPS["int8"] * 1e3
-        rec = dict(
-            case=label, m=m, k=k, n=n, mismatches=mismatches, max_abs_err=max_abs,
-            ms=_time_ms(lambda: qf._launch(a, qb, sb)),
-            plain_ms=_time_ms(lambda: qf._fused_plain(a, qb, sb), iters=5),
-            library_ms=_time_ms(lambda: torch._int_mm(qa, qb_cm)),
-            library="torch._int_mm on the same int8 codes, rhs column-major "
-                    "(the product alone)",
-            library_rhs_row_major_ms=_time_ms(lambda: torch._int_mm(qa, qb)),
-            bf16_mm_ms=_time_ms(lambda: torch.mm(a, wb)),
-            bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            bytes=byts, operations=ops)
+        if pre_mismatches:
+            failures.append(f"int8_quantize_rows[{label}]: {pre_mismatches} codes "
+                            "or scales differ from the plain version")
+        rec = dict(case=label, m=m, k=k, n=n, mismatches=mismatches,
+                   prepass_mismatches=pre_mismatches, max_abs_err=max_abs)
+        if label in INT8_SHAPES:
+            qb_cm = qb.t().contiguous().t()      # the same codes, column-major
+            wb = w.to(torch.bfloat16)
+            byts = m * k * 2 + k * n + n * 4 + m * n * 2   # a, qb, sb in; out
+            ops = 2 * m * k * n
+            t_bytes = byts / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_OPS["int8"] * 1e3
+            rec.update(
+                ms=_time_ms(lambda: qf._launch(a, qb.t().contiguous(), sb)),
+                kernels_ms=_time_ms(lambda: qf._launch(a, qbt, sb)),
+                device_ms_by_kernel=(_kernels_ms(
+                    lambda: qf._launch(a, qb.t().contiguous(), sb))
+                    if label in INT8_PROFILED else None),
+                prepass_ms=_time_ms(lambda: qf.quantize_rows(a)),
+                relayout_ms=_time_ms(lambda: qb.t().contiguous()),
+                parts=["quantize_rows_kernel", "int8_gemm_kernel"],
+                plain_ms=_time_ms(lambda: qf._fused_plain(a, qbt, sb), iters=5),
+                library_ms=_time_ms(lambda: torch._int_mm(qa_p, qb_cm)),
+                library="torch._int_mm on the same int8 codes, rhs column-major "
+                        "(the product alone)",
+                library_rhs_row_major_ms=_time_ms(lambda: torch._int_mm(qa_p, qb)),
+                bf16_mm_ms=_time_ms(lambda: torch.mm(a, wb)),
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=byts, operations=ops)
+            del qb_cm, wb
         log(f"int8-case {json.dumps(rec)} | {smi}")
         recs[label] = rec
-        del a, w, qb, sb, got, want, qa, qb_cm, wb
+        del a, w, qb, qbt, sb, got, want, qa, sa, qa_p, sa_p
         torch.cuda.empty_cache()
     a = torch.zeros((256, 100), device="cuda", dtype=torch.bfloat16)
     try:
@@ -639,6 +742,21 @@ def int8_kernel_phase(smi):
         raise AssertionError(f"{len(failures)} int8 kernel checks failed; "
                              f"first: {failures[0]}")
     return recs
+
+
+def _ptxas_report(build_log):
+    """One line per kernel from ``ptxas -v``: its (mangled) name, its
+    registers and shared memory, and its stack frame and spills."""
+    out, name, spills = [], "?", ""
+    for ln in build_log.splitlines():
+        ln = ln.strip()
+        if "Compiling entry function" in ln:
+            name, spills = ln.split("'")[1], ""
+        elif "spill" in ln:
+            spills = ln
+        elif "registers" in ln:
+            out.append(f"{name}: {ln.split(':', 1)[-1].strip()}; {spills}")
+    return out
 
 
 def device_phase():
@@ -656,9 +774,8 @@ def device_phase():
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "nvcc.log"), "w") as f:
         f.write(build_log)
-    usage = [ln.strip() for ln in build_log.splitlines() if "registers" in ln]
     log(f"build: {os.path.basename(path)} in {seconds:.1f} s (nvcc, sm_90a)")
-    for ln in usage:
+    for ln in _ptxas_report(build_log):
         log(f"  ptxas: {ln}")
     _build.load()
     return smi
@@ -774,9 +891,15 @@ def serve_phase(smi):
 
 
 def _kernel_bucket(name: str) -> str:
-    for kernel in ("paged_decode", "paged_chunk", "flash_fwd", "flash_bwd_kv",
-                   "flash_bwd_dq", "int8_matmul"):
-        if kernel + "_kernel" in name:
+    for piece, kernel in (("paged_decode", "paged_decode"),
+                          ("paged_chunk", "paged_chunk"),
+                          ("rope_rotate", "rope_rotate"),
+                          ("flash_fwd", "flash_fwd"),
+                          ("flash_bwd_kv", "flash_bwd_kv"),
+                          ("flash_bwd_dq", "flash_bwd_dq"),
+                          ("quantize_rows", "int8_quantize_rows"),
+                          ("int8_gemm", "int8_matmul")):
+        if piece in name and "_kernel" in name:
             return kernel
     low = name.lower()
     if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "nvjet",
@@ -1050,9 +1173,10 @@ def lm_train_run(smi, steps=4, quant="", opt8bit=False):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = _launches()
-    want = {"flash_fwd": 2 * layers * steps, "flash_bwd_fused": layers * steps,
-            "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
-            "int8_matmul": 21 * layers * steps if quant == "int8_fused" else 0}
+    b7 = 21 * layers * steps if quant == "int8_fused" else 0
+    want = {"rope_rotate": 2 * layers * steps, "flash_fwd": 2 * layers * steps,
+            "flash_bwd_fused": layers * steps, "flash_bwd_dkdv": 0,
+            "flash_bwd_dq": 0, "int8_quantize_rows": b7, "int8_matmul": b7}
     if launches != want:
         raise AssertionError(f"lm.train[{label}]: launches {launches} != {want}")
     rows = _read_completions(path)
@@ -1193,13 +1317,14 @@ def train_phase(smi):
     from kubeflow_controller_tpu_torch.models import transformer as tfm
 
     flag = tfm.flagship_config()
-    flag_flash = {"flash_fwd": 2 * flag.n_layers, "flash_bwd_fused": flag.n_layers}
+    flag_flash = {"rope_rotate": 2 * flag.n_layers, "flash_fwd": 2 * flag.n_layers,
+                  "flash_bwd_fused": flag.n_layers}
     runs = {
         "flagship": train_run("flagship", flag, 1024, 16, TRAIN_STEPS, flag_flash, smi),
     }
     llama = tfm.llama3_8b_config(n_layers=2, max_seq=2048, attn_impl="flash")
-    llama_flash = {"flash_fwd": 2 * llama.n_layers, "flash_bwd_dkdv": llama.n_layers,
-                   "flash_bwd_dq": llama.n_layers}
+    llama_flash = {"rope_rotate": 2 * llama.n_layers, "flash_fwd": 2 * llama.n_layers,
+                   "flash_bwd_dkdv": llama.n_layers, "flash_bwd_dq": llama.n_layers}
     runs["llama3_8b"] = train_run("llama3_8b", llama, 2048, 2, TRAIN_STEPS,
                                   llama_flash, smi)
     # B7 per layer and step: the flagship's seven projections and their
@@ -1210,13 +1335,15 @@ def train_phase(smi):
     # (contraction 14336): 6 + 6 + 4 = 16.
     runs["flagship.int8_fused"] = train_run(
         "flagship.int8_fused", flag.replace(quant="int8_fused"), 1024, 16,
-        TRAIN_STEPS, {**flag_flash, "int8_matmul": 21 * flag.n_layers}, smi)
+        TRAIN_STEPS, {**flag_flash, "int8_quantize_rows": 21 * flag.n_layers,
+                      "int8_matmul": 21 * flag.n_layers}, smi)
     runs["flagship.int8"] = train_run(
         "flagship.int8", flag.replace(quant="int8"), 1024, 16, INT8_STEPS,
         flag_flash, smi)
     runs["llama3_8b.int8_fused"] = train_run(
         "llama3_8b.int8_fused", llama.replace(quant="int8_fused"), 2048, 2,
-        INT8_STEPS, {**llama_flash, "int8_matmul": 16 * llama.n_layers}, smi)
+        INT8_STEPS, {**llama_flash, "int8_quantize_rows": 16 * llama.n_layers,
+                     "int8_matmul": 16 * llama.n_layers}, smi)
     runs["lm.train"] = lm_train_run(smi)
     runs["lm.train.int8_fused.opt8bit"] = lm_train_run(
         smi, INT8_STEPS, quant="int8_fused", opt8bit=True)
@@ -1265,13 +1392,23 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    smi = device_phase()
-    recs = kernel_phase()
-    flash_recs = flash_kernel_phase(smi)
-    int8_recs = int8_kernel_phase(smi)
-    runs = serve_phase(smi)
-    logits_phase()
-    train_runs = train_phase(smi)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    open(os.path.join(OUT_DIR, "log.txt"), "w").close()
+
+    def phase(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+        return out
+
+    smi = phase("device", device_phase)
+    recs = phase("paged kernels", kernel_phase)
+    flash_recs = phase("flash kernels", flash_kernel_phase, smi)
+    int8_recs = phase("int8 kernel", int8_kernel_phase, smi)
+    runs = phase("serve", serve_phase, smi)
+    phase("logits", logits_phase)
+    train_runs = phase("train", train_phase, smi)
     launches = runs["fp"][1]
     line = {"kernels": []}
     for name, case, replaces in KERNELS:
@@ -1296,6 +1433,10 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": case,
+            # The forward's ms is the whole call: the K rope prepass (also
+            # timed alone) and the forward kernel.
+            **({"parts": r["parts"], "prepass_ms": r["prepass_ms"]}
+               if "parts" in r else {}),
         })
     r = int8_recs[INT8_KERNEL_SHAPE]
     line["kernels"].append({
@@ -1307,6 +1448,10 @@ def main() -> int:
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"], "library": r["library"],
         "shape": INT8_KERNEL_SHAPE,
+        # ms is the whole call: the rhs codes' re-layout to [n, k], the
+        # row-quantize prepass and the GEMM; each also timed alone.
+        "parts": r["parts"], "prepass_ms": r["prepass_ms"],
+        "kernels_ms": r["kernels_ms"], "relayout_ms": r["relayout_ms"],
     })
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps(line))

@@ -1,11 +1,14 @@
 // Flash attention for training, written by hand for Hopper (sm_90a).
 //
-// Three kernels cover the four TPU kernels of
+// The kernels here cover the four TPU kernels of
 // kubeflow_controller_tpu/ops/flash_attention.py:
 //
-// * flash_fwd_kernel replaces _fwd_kernel (:203, launched :576 via
-//   _fwd_wide :530 / _fwd :599): o = softmax(q k^T * scale + mask) v and
-//   the row log-sum-exp lse [B, H, S] (the narrow residual of _fwd).
+// * flash_fwd_wgmma_kernel (head_dim 64 and 128) and flash_fwd_kernel
+//   (every other head_dim a multiple of 16 up to 256) replace _fwd_kernel
+//   (:203, launched :576 via _fwd_wide :530 / _fwd :599): o = softmax(q
+//   k^T * scale + mask) v and the row log-sum-exp lse [B, H, S] (the
+//   narrow residual of _fwd). rope_rotate_kernel is the wgmma forward's
+//   prepass: it rotates Q and K once per call.
 // * flash_bwd_kv_kernel<kDq = true> replaces _bwd_fused_kernel (:766,
 //   launched :1109): dk and dv, and every tile's dq, from one score
 //   recompute.
@@ -17,46 +20,81 @@
 // Layouts are BSHD: q, o, do [B, S, H, D]; k, v [B, S, KVH, D] (query
 // head h reads KV head h / (H / KVH)); segment ids [B, S] int32; rope
 // tables C, S [B, S, D] fp32 with rot(x) = x * C + roll(x, D/2) * S
-// (rotated in fp32 on load and cast back to bf16, as _rope_rot does; dq
-// and dk are counter-rotated with -S before their cast). Row i sees
-// column j iff (!causal || j <= i) && seg[i] == seg[j]; masked scores
-// are the finite -1e30 of the TPU kernels, and masked probabilities are
-// exactly 0. Segment id 0 is not special here: a padding row still sees
-// its own diagonal, so no row is ever fully masked.
+// (rotated in fp32 and cast back to bf16, as _rope_rot does; dq and dk
+// are counter-rotated with -S before their cast). Row i sees column j
+// iff (!causal || j <= i) && seg[i] == seg[j]; masked scores are the
+// finite -1e30 of the TPU kernels, and masked probabilities are exactly
+// 0. Segment id 0 is not special here: a padding row still sees its own
+// diagonal, so no row is ever fully masked.
 //
 // What bounds them on an H100: operations. At the flagship's shape (B16
 // H8 S1024 D128, causal) the forward does 2 * 2 * B*H*S^2*D / 2 = 34
 // GFLOP (0.035 ms at 989 TFLOP/s bf16) against ~150 MB of inputs and
 // outputs (0.045 ms at 3.35 TB/s), so the two bounds are close; the
 // fused backward does 2.5x the forward's products, the dk/dv pass 2x,
-// the dq pass 1.5x. The design therefore:
-//   - never writes the S x S scores to device memory: a block owns a
-//     64-row tile (32 rows when D = 256) and walks the other operand's
-//     tiles itself, the TPU's sequential grid carry (m/l/acc scratch)
-//     becoming shared memory inside the block;
-//   - skips every tile wholly above the diagonal (the counterpart of the
-//     splash dead-triangle skip), which halves the causal work;
-//   - runs every product on the tensor cores: bf16 WMMA 16x16x16
-//     fragments with fp32 accumulation, operands staged in shared
-//     memory (the probabilities and ds cast to bf16 first, as the TPU
-//     kernels cast p and ds to the input dtype);
-//   - gives the dk/dv kernel a (batch, KV head, k-tile) block that loops
-//     over the KV head's query heads and their live q-tiles, so the GQA
-//     group sum falls out of the accumulation with no atomics and no
-//     fp32 staging tensor; the dq kernel a (batch, head, q-tile) block.
-//   dq in the fused kernel crosses blocks: each (q-tile, k-tile) pair
-//   adds its [T, D] tile into an fp32 scratch with atomicAdd (so dq's
-//   fp32 sums run in a launch-dependent order; dk and dv are
-//   deterministic), and the wrapper counter-rotates and casts it.
+// the dq pass 1.5x. No kernel writes the S x S scores to device memory,
+// and every kernel skips the tiles wholly above the diagonal (the
+// counterpart of the splash dead-triangle skip), which halves the causal
+// work.
 //
-// This is the simple, correct first version: the softmax bookkeeping is
-// scalar fp32 in shared memory, accumulators make a round trip through
-// shared memory around every product, and loads are not overlapped with
-// compute. wgmma, TMA and register-resident accumulators are later work.
+// The forward (flash_fwd_wgmma_kernel), FlashAttention's shape on
+// Hopper's warpgroup MMA (wgmma). The TPU kernel carries m, l and the
+// output accumulator in VMEM scratch across its sequential grid; here a
+// warpgroup carries them in registers across its own loop over 128-row
+// k-tiles:
+//   - Q and K are rotated once per call by rope_rotate_kernel into
+//     scratch: rotating on load would repeat a K tile's rotation in each
+//     of its head's q-tile blocks and read 64 KB of fp32 tables for 16 KB
+//     of K, and would keep the tiles from being plain copies. It uses
+//     rope_mix, so a rotated element is the plain version's bit for bit.
+//     SDPA, the yardstick, is timed on q and k that are already rotated;
+//     the prepass is part of this forward's time;
+//   - the tiles are then plain bf16 boxes, which one thread copies by
+//     TMA: a tensor map per operand ([D, heads, S, B], boxes of 64
+//     elements by 128 rows, written under the 128-byte swizzle, rows past
+//     S zero-filled by the hardware). A producer warp keeps a ring of two
+//     K/V stages full and signals each tile on an mbarrier; it has given
+//     its warpgroup's registers to the consumers (setmaxnreg);
+//   - two consumer warpgroups own 64 rows each of a 128-row q-tile. They
+//     wait on a tile's mbarrier and release its stage on another, and
+//     otherwise never wait on each other, so one's softmax runs under the
+//     other's products: the exponentials alone take half as long as the
+//     products (16 a clock and SM against 4096 multiply-adds);
+//   - S = Q K^T runs as wgmma m64n128k16 with both operands K-major in
+//     shared memory; the scores stay in registers, where the online
+//     softmax runs (row max and sum across the four lanes that share a
+//     row; exp2 with scale * log2(e) folded into one multiply-add; the
+//     mask compared only on diagonal, ragged or segmented tiles); the
+//     output accumulator (64 x D fp32 a warpgroup) is rescaled in
+//     registers;
+//   - P is cast to bf16 in registers, whose layout is already the A
+//     operand's, and O += P V runs as wgmma with V row-major [k][D] as
+//     an MN-major B;
+//   - the epilogue multiplies by 1 / l, packs bf16, transposes across the
+//     four lanes of a row and writes 16 bytes a thread; lse = m + log(l);
+//   - the grid is persistent: one block of 384 threads an SM (161 KB of
+//     shared memory at D = 128) walks the (q-tile, head, batch) items,
+//     the heaviest causal q-tiles first, and the producer runs ahead
+//     across items, so an item's Q and first tiles land under the last
+//     item's final products and epilogue.
+//
+// The backward kernels and the forward for other head dims
+// (flash_fwd_kernel) are the first, simple versions: a block owns a
+// 64-row tile (32 rows when D = 256), rope rotates on load, every
+// product is bf16 WMMA 16x16x16 with operands and fp32 accumulators
+// staged in shared memory, the softmax bookkeeping is scalar fp32 there,
+// and loads are not overlapped with compute. The dk/dv kernel's block
+// (batch, KV head, k-tile) loops over the KV head's query heads and their
+// live q-tiles, so the GQA group sum falls out of the accumulation with
+// no atomics; dq in the fused kernel crosses blocks: each (q-tile,
+// k-tile) pair adds its [T, D] tile into an fp32 scratch with atomicAdd
+// (so dq's fp32 sums run in a launch-dependent order; dk and dv are
+// deterministic), and the wrapper counter-rotates and casts it.
 //
 // The C functions return cudaGetLastError() after the launch (or the
 // error that stopped it); the Python wrappers raise when it is not 0.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -64,9 +102,12 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 using namespace nvcuda;
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 constexpr float kNegInf = -1e30f;
@@ -176,6 +217,52 @@ __device__ void load_rows(const bf16* __restrict__ x, int heads, int head,
   }
 }
 
+// Elements [d0, d0 + 8) of one row of D rotated by the tables' row: the
+// arithmetic of load_rows for one 16-byte chunk (load_rows keeps its own
+// copy, so the backward kernels compile as they did).
+__device__ __forceinline__ uint4 load8_rotated(const bf16* __restrict__ row, int d0,
+                                               int D, const float* __restrict__ rc,
+                                               const float* __restrict__ rs) {
+  const int half = D / 2;
+  const uint4 own = *reinterpret_cast<const uint4*>(row + d0);
+  const uint4 partner =
+      *reinterpret_cast<const uint4*>(row + (d0 < half ? d0 + half : d0 - half));
+  const float4 c0 = *reinterpret_cast<const float4*>(rc + d0);
+  const float4 c1 = *reinterpret_cast<const float4*>(rc + d0 + 4);
+  const float4 s0 = *reinterpret_cast<const float4*>(rs + d0);
+  const float4 s1 = *reinterpret_cast<const float4*>(rs + d0 + 4);
+  const float c[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+  const float sn[8] = {s0.x, s0.y, s0.z, s0.w, s1.x, s1.y, s1.z, s1.w};
+  const bf16* xv = reinterpret_cast<const bf16*>(&own);
+  const bf16* xr = reinterpret_cast<const bf16*>(&partner);
+  uint4 rotated;
+  bf16* ov = reinterpret_cast<bf16*>(&rotated);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    ov[j] = __float2bfloat16(rope_mix(__bfloat162float(xv[j]), c[j],
+                                      __bfloat162float(xr[j]), sn[j]));
+  return rotated;
+}
+
+// The forward's prepass: q [tokens, H, D] and k [tokens, KVH, D] rotated
+// by the tables [tokens, D] into q_out and k_out, 8 elements a thread.
+__global__ void __launch_bounds__(kThreads)
+rope_rotate_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const float* __restrict__ rc, const float* __restrict__ rs,
+                   bf16* __restrict__ q_out, bf16* __restrict__ k_out, size_t tokens,
+                   int H, int KVH, int D) {
+  const int nv = D / 8, heads = H + KVH;
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= tokens * heads * nv) return;
+  const size_t row = i / nv, token = row / heads;
+  const int d0 = static_cast<int>(i - row * nv) * 8;
+  const int head = static_cast<int>(row - token * heads);
+  const bool is_q = head < H;
+  const size_t at = is_q ? (token * H + head) * D : (token * KVH + head - H) * D;
+  *reinterpret_cast<uint4*>((is_q ? q_out : k_out) + at + d0) =
+      load8_rotated((is_q ? q : k) + at, d0, D, rc + token * D, rs + token * D);
+}
+
 // Eight consecutive fp32 values stored as bf16 in one 16-byte store.
 __device__ __forceinline__ void store8(bf16* dst, const float* v) {
   uint4 out;
@@ -270,7 +357,7 @@ __device__ __forceinline__ float counter_rotated(const Problem& p, const float* 
   return rope_mix(row[d], p.rc[t], row[dr], -p.rs[t]);
 }
 
-// -- forward ----------------------------------------------------------------
+// -- forward, other head dims --------------------------------------------------
 // Block (q-tile, head h, batch b). Online softmax over the live k-tiles;
 // the running max m, sum l and output accumulator stay in shared memory.
 __global__ void __launch_bounds__(kThreads)
@@ -360,6 +447,288 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     store8(o + ((static_cast<size_t>(b) * p.S + row) * p.H + h) * D + d0, vals);
     if (d0 == 0)
       lse[(static_cast<size_t>(b) * p.H + h) * p.S + row] = m_s[r] + logf(l_safe);
+  }
+}
+
+// -- forward, head_dim 64 and 128 ------------------------------------------------
+constexpr int kFwdRows = 128;      // q-tile and k-tile rows
+constexpr int kFwdThreads = 384;   // two consumer warpgroups and the producer's
+constexpr int kFwdStages = 2;
+
+// Shared memory of the forward, from a 1024-byte aligned base: the Q
+// tile, the stages of K and of V (each a tile of 128 rows, D / 64 panels
+// of 128-byte rows), the stages of the k-tile's segment ids and the
+// mbarriers.
+template <int D>
+struct FwdSmem {
+  static constexpr int kPanel = kFwdRows * 128;
+  static constexpr int kTile = (D / 64) * kPanel;
+  static constexpr int q = 0, k = kTile, v = k + kFwdStages * kTile;
+  static constexpr int seg = v + kFwdStages * kTile;
+  static constexpr int bars = seg + kFwdStages * kFwdRows * 4;   // q_full, kv_full[], kv_empty[]
+  static constexpr int bytes = bars + 64 + 1024;                 // + alignment slack
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+// One 128-row tile of head `head`, rows from s0 of batch b, by TMA: a box
+// of 64 elements by 128 rows per panel of the tile.
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int head, int s0, int b) {
+#pragma unroll
+  for (int pnl = 0; pnl < D / 64; ++pnl)
+    tma_load_4d(dst + pnl * FwdSmem<D>::kPanel, map, bar, 64 * pnl, head, s0, b);
+}
+
+// One (q-tile, head, batch) of the forward's work, by its index in the
+// order the blocks take them: for a causal problem the q-tiles with the
+// most k-tiles first, and the heads of one KV group next to each other.
+struct FwdItem {
+  int h, b, g, q0, nk;
+  __device__ FwdItem(const Problem& p, int item) {
+    const int n_tiles = (p.S + kFwdRows - 1) / kFwdRows, per_tile = p.H * p.B;
+    const int qt = p.causal ? n_tiles - 1 - item / per_tile : item / per_tile;
+    const int rem = item % per_tile;
+    h = rem % p.H;
+    b = rem / p.H;
+    g = h / (p.H / p.KVH);
+    q0 = qt * kFwdRows;
+    nk = p.causal ? qt + 1 : n_tiles;   // tiles above the diagonal skipped
+  }
+};
+
+// A persistent block walks the items blockIdx.x, blockIdx.x + gridDim.x,
+// ... q and k are already rotated; the tensor maps describe q, k and v as
+// [D, heads, S, B]. Warp 8 streams the tiles in by TMA, across item
+// boundaries, so the next item's Q and first tiles land under this
+// item's last products and epilogue; warps 0-7 are two warpgroups of 64
+// q rows each, which wait on a tile's mbarrier and otherwise do not wait
+// on each other, so one's softmax runs under the other's products. A
+// consumer's accumulator registers [4 j + e] hold row (lane / 4) + 8
+// (e / 2) of its warp's 16, column 8 j + 2 (lane % 4) + e % 2.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v, Problem p,
+                       bf16* __restrict__ o, float* __restrict__ lse, int n_items) {
+  using L = FwdSmem<D>;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t q_full = base + L::bars, q_empty = q_full + 8, kv_full = q_empty + 8,
+                 kv_empty = kv_full + 8 * kFwdStages;
+  const int tid = threadIdx.x, lane = tid & 31;
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(q_empty, 8);                // the consumer warps
+    for (int st = 0; st < kFwdStages; ++st) {
+      mbar_init(kv_full + 8 * st, 32);    // the producer's lanes
+      mbar_init(kv_empty + 8 * st, 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    // The producer's warpgroup gives its registers to the consumers; its
+    // first warp streams each item's Q once the consumers are done with
+    // the last one's, then each tile as its stage comes free. Lane 0
+    // starts the TMA copies; every lane brings 4 of the tile's segment
+    // ids and arrives.
+    setmaxnreg_dec<40>();
+    if (tid >= 256 + 32) return;
+    int t = 0;   // tiles so far, over all items: stage t % stages, use t / stages
+    for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {
+      const FwdItem w(p, item);
+      if (it > 0) mbar_wait(q_empty, (it - 1) & 1);
+      if (lane == 0) {
+        mbar_arrive_expect_tx(q_full, L::kTile);
+        tma_tile<D>(base + L::q, &map_q, q_full, w.h, w.q0, w.b);
+      }
+      for (int j = 0; j < w.nk; ++j, ++t) {
+        const int st = t % kFwdStages, k0 = j * kFwdRows;
+        if (t >= kFwdStages) mbar_wait(kv_empty + 8 * st, (t / kFwdStages - 1) & 1);
+        if (p.seg != nullptr) {
+          int* segk = reinterpret_cast<int*>(smem + L::seg) + st * kFwdRows;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int col = k0 + 4 * lane + i;
+            segk[4 * lane + i] = col < p.S ? p.seg[static_cast<size_t>(w.b) * p.S + col] : 0;
+          }
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(kv_full + 8 * st, 2 * L::kTile);
+          tma_tile<D>(base + L::k + st * L::kTile, &map_k, kv_full + 8 * st, w.g, k0, w.b);
+          tma_tile<D>(base + L::v + st * L::kTile, &map_v, kv_full + 8 * st, w.g, k0, w.b);
+        } else {
+          mbar_arrive(kv_full + 8 * st);
+        }
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<232>();
+
+  const int wg = tid >> 7, quad = lane & 3;
+  const int row_lo = wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);   // and row_lo + 8
+  const float to_log2 = p.scale * kLog2e;
+  int t = 0;
+  for (int item = blockIdx.x, it = 0; item < n_items; item += gridDim.x, ++it) {
+    const FwdItem w(p, item);
+    const int q0 = w.q0;
+    int segq[2] = {0, 0};
+    if (p.seg != nullptr) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int qi = q0 + row_lo + 8 * hh;
+        segq[hh] = qi < p.S ? p.seg[static_cast<size_t>(w.b) * p.S + qi] : 0;
+      }
+    }
+    float o_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+    // Running max of the raw scores (q . k, before the scale) and each
+    // thread's share of the running sum; p = 2^(to_log2 * (s - max)).
+    float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+
+    mbar_wait(q_full, it & 1);
+    for (int j = 0; j < w.nk; ++j, ++t) {
+      const int st = t % kFwdStages, k0 = j * kFwdRows;
+      mbar_wait(kv_full + 8 * st, (t / kFwdStages) & 1);
+
+      float s_acc[64];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint64_t da =
+            desc_sw128(base + L::q + (kk >> 2) * L::kPanel + wg * 64 * 128) + 2 * (kk & 3);
+        const uint64_t db =
+            desc_sw128(base + L::k + st * L::kTile + (kk >> 2) * L::kPanel) + 2 * (kk & 3);
+        wgmma_bf16_ss_m64n128k16(s_acc, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_registers(s_acc);
+      if (j == w.nk - 1) {   // this warp has read the item's Q for the last time
+        __syncwarp();
+        if (lane == 0) mbar_arrive(q_empty);
+      }
+
+      // The mask is compared only where a tile can hold a masked pair: the
+      // diagonal tile, a tile that runs past S, any tile under segment ids.
+      const bool masked = p.seg != nullptr || (p.causal && k0 + kFwdRows - 1 > q0) ||
+                          k0 + kFwdRows > p.S;
+      float mx[2] = {kNegInf, kNegInf};
+      if (masked) {
+        const int* segk = reinterpret_cast<const int*>(smem + L::seg) + st * kFwdRows;
+#pragma unroll
+        for (int jb = 0; jb < 16; ++jb) {
+          int2 sk2 = make_int2(0, 0);
+          if (p.seg != nullptr) sk2 = *reinterpret_cast<const int2*>(segk + 8 * jb + 2 * quad);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + 8 * jb + 2 * quad + (e & 1);
+            const int row = q0 + row_lo + 8 * (e >> 1);
+            const bool vis = col < p.S && (!p.causal || col <= row) &&
+                             (p.seg == nullptr || segq[e >> 1] == ((e & 1) ? sk2.y : sk2.x));
+            s_acc[4 * jb + e] = vis ? s_acc[4 * jb + e] : kNegInf;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s_acc[i]);
+      float alpha[2], m_log2[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float m_new = fmaxf(m_run[hh], quad_max(mx[hh]));
+        alpha[hh] = ex2((m_run[hh] - m_new) * to_log2);
+        m_run[hh] = m_new;
+        m_log2[hh] = m_new * to_log2;
+      }
+      // A masked score (exactly kNegInf) gives exactly 0 even while the
+      // row's max is still kNegInf itself.
+      uint32_t pw[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int hh = i & 1;     // s_acc[2 i], s_acc[2 i + 1]: one row, two columns
+        float p0 = ex2(fmaf(s_acc[2 * i], to_log2, -m_log2[hh]));
+        float p1 = ex2(fmaf(s_acc[2 * i + 1], to_log2, -m_log2[hh]));
+        if (masked) {
+          p0 = s_acc[2 * i] > 0.5f * kNegInf ? p0 : 0.f;
+          p1 = s_acc[2 * i + 1] > 0.5f * kNegInf ? p1 : 0.f;
+        }
+        sum[hh] += p0 + p1;
+        pw[i] = pack_bf16(p0, p1);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) l_run[hh] = l_run[hh] * alpha[hh] + sum[hh];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o_acc[i] *= alpha[(i >> 1) & 1];
+
+      // O += P V: P's words are the A operand of each 16 rows of V.
+      fence_registers(o_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kFwdRows / 16; ++kc) {
+        const uint32_t a[4] = {pw[4 * kc], pw[4 * kc + 1], pw[4 * kc + 2], pw[4 * kc + 3]};
+        const uint64_t db = desc_sw128(base + L::v + st * L::kTile + kc * 16 * 128, L::kPanel);
+        if constexpr (D == 128)
+          wgmma_bf16_rs_m64n128k16(o_acc, a, db);
+        else
+          wgmma_bf16_rs_m64n64k16(o_acc, a, db);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_registers(o_acc);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(pw[i])::"memory");   // live until here
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kv_empty + 8 * st);   // this warp is done with the stage
+    }
+
+    float inv_l[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float l = l_run[hh];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const float l_safe = fmaxf(l, 1e-30f);
+      inv_l[hh] = 1.0f / l_safe;
+      const int row = q0 + row_lo + 8 * hh;
+      if (quad == 0 && row < p.S)
+        lse[(static_cast<size_t>(w.b) * p.H + w.h) * p.S + row] =
+            m_run[hh] * p.scale + logf(l_safe);
+    }
+#pragma unroll
+    for (int gq = 0; gq < D / 32; ++gq) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        uint32_t wd[4];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int i = 4 * (4 * gq + jj) + 2 * hh;
+          wd[jj] = pack_bf16(o_acc[i] * inv_l[hh], o_acc[i + 1] * inv_l[hh]);
+        }
+        quad_transpose(wd, lane);
+        const int row = q0 + row_lo + 8 * hh;
+        if (row < p.S)
+          *reinterpret_cast<uint4*>(o + ((static_cast<size_t>(w.b) * p.S + row) * p.H + w.h) * D +
+                                    8 * (4 * gq + quad)) = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+      }
+    }
   }
 }
 
@@ -551,8 +920,92 @@ bool make_problem(Problem* p, int B, int S, int H, int KVH, int D, float scale,
 
 }  // namespace
 
+// q bf16 [tokens, H, D] and k bf16 [tokens, KVH, D] rotated by the fp32
+// tables [tokens, D] into q_out and k_out (the forward's prepass).
+extern "C" int kfc_rope_rotate(const void* q, const void* k, const void* rope_c,
+                               const void* rope_s, void* q_out, void* k_out, int tokens,
+                               int H, int KVH, int D, void* stream) {
+  if (tokens <= 0 || H <= 0 || KVH <= 0 || D <= 0 || D % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t total = static_cast<size_t>(tokens) * (H + KVH) * (D / 8);
+  const size_t blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffu) return static_cast<int>(cudaErrorInvalidValue);
+  rope_rotate_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const float*>(rope_c), static_cast<const float*>(rope_s),
+      static_cast<bf16*>(q_out), static_cast<bf16*>(k_out),
+      static_cast<size_t>(tokens), H, KVH, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched from libcuda through the runtime (the
+// library links against no stub of it).
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* found = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &found, cudaEnableDefault,
+                                &status) != cudaSuccess ||
+        status != cudaDriverEntryPointSuccess)
+      found = nullptr;
+    return reinterpret_cast<EncodeTiled>(found);
+  }();
+  return fn;
+}
+
+// x bf16 [B, S, heads, D] as the tensor [D, heads, S, B] cut into boxes of
+// 64 elements by 128 rows of S, written under the 128-byte swizzle.
+bool tile_map(CUtensorMap* map, const void* x, int B, int S, int heads, int D) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
+                                 static_cast<cuuint64_t>(heads) * D * 2,
+                                 static_cast<cuuint64_t>(S) * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, kFwdRows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
+                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_fwd_wgmma(const void* q, const void* k, const void* v, const Problem& p,
+                     bf16* o, float* lse, cudaStream_t stream) {
+  CUtensorMap map_q, map_k, map_v;
+  if (!tile_map(&map_q, q, p.B, p.S, p.H, D) || !tile_map(&map_k, k, p.B, p.S, p.KVH, D) ||
+      !tile_map(&map_v, v, p.B, p.S, p.KVH, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = prepare(flash_fwd_wgmma_kernel<D>, FwdSmem<D>::bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return static_cast<int>(err);
+  const int n_items = (p.S + kFwdRows - 1) / kFwdRows * p.H * p.B;
+  flash_fwd_wgmma_kernel<D><<<n_items < sms ? n_items : sms, kFwdThreads, FwdSmem<D>::bytes,
+                              stream>>>(map_q, map_k, map_v, p, o, lse, n_items);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // All tensors bf16 unless named: lse, delta, rope tables and dq_acc fp32,
-// segment ids int32. seg, rope_c/rope_s and dq_acc may be null.
+// segment ids int32. seg, rope_c/rope_s and dq_acc may be null. The
+// forward picks its kernel by head_dim: 64 and 128 take the wgmma kernel,
+// which wants q and k already rotated (kfc_rope_rotate) and refuses
+// tables; every other head_dim takes the first kernel, which rotates on
+// load.
 extern "C" int kfc_flash_fwd(const void* q, const void* k, const void* v,
                              const void* seg, const void* rope_c,
                              const void* rope_s, void* o, void* lse, int B,
@@ -561,12 +1014,19 @@ extern "C" int kfc_flash_fwd(const void* q, const void* k, const void* v,
   Problem p;
   if (!make_problem(&p, B, S, H, KVH, D, scale, causal, seg, rope_c, rope_s))
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64 || D == 128) {
+    if (rope_c != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return D == 64 ? launch_fwd_wgmma<64>(q, k, v, p, static_cast<bf16*>(o),
+                                          static_cast<float*>(lse), st)
+                   : launch_fwd_wgmma<128>(q, k, v, p, static_cast<bf16*>(o),
+                                           static_cast<float*>(lse), st);
+  }
   const int T = tile_rows(D);
   const size_t bytes = Layout(T, D, 1, false).bytes;
   cudaError_t err = prepare(flash_fwd_kernel, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_kernel<<<dim3((S + T - 1) / T, H, B), kThreads, bytes,
-                     static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<<<dim3((S + T - 1) / T, H, B), kThreads, bytes, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), p, static_cast<bf16*>(o),
       static_cast<float*>(lse));

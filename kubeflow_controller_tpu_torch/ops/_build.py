@@ -5,7 +5,7 @@ Every ``csrc/*.cu`` has a plain C interface, so each compiles with
 compile in parallel, one ``nvcc`` each, and link into one shared library
 that :func:`load` opens with ``ctypes``. The build happens at first use,
 into ``_build/`` inside the package (listed in ``.gitignore``), under a
-name keyed by the hash of every source and the flags, so an edited
+name keyed by the hash of every source, header and the flags, so an edited
 source never loads a stale library. Nothing here runs at import time:
 the CPU tests import every module of the port on a machine with no
 ``nvcc``.
@@ -25,6 +25,7 @@ from typing import Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cu"))))
+HEADERS = tuple(sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh"))))
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -47,7 +48,7 @@ def nvcc_path() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())
@@ -108,9 +109,11 @@ def load() -> ctypes.CDLL:
         "kfc_paged_decode": [P] * 8 + [I] * 8 + [F, I, I, P],
         "kfc_paged_chunk": [P] * 10 + [I] * 9 + [F, I, I, P],
         "kfc_flash_fwd": [P] * 8 + [I] * 5 + [F, I, P],
+        "kfc_rope_rotate": [P] * 6 + [I] * 4 + [P],
         "kfc_flash_bwd_kv": [P] * 12 + [I] * 5 + [F, I, P],
         "kfc_flash_bwd_dq": [P] * 10 + [I] * 5 + [F, I, P],
-        "kfc_int8_matmul": [P] * 4 + [I] * 3 + [P],
+        "kfc_int8_quantize_rows": [P] * 3 + [I] * 2 + [P],
+        "kfc_int8_matmul": [P] * 5 + [I] * 3 + [P],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -5,7 +5,11 @@ entry points, each a hand-written CUDA kernel (``csrc/flash_attention.cu``)
 on CUDA tensors and its plain PyTorch version on CPU tensors:
 
 * :func:`flash_fwd` — ``softmax(QKᵀ/√d + mask)·V`` and the row
-  log-sum-exp ``lse [B, H, S]`` (replaces ``_fwd_kernel``);
+  log-sum-exp ``lse [B, H, S]`` (replaces ``_fwd_kernel``). At head_dim
+  64 and 128 (``WGMMA_HEAD_DIMS``) it is two launches: :func:`rope_rotate`
+  rotates Q and K once into scratch (only with rope tables), then the
+  forward kernel on plain bf16 tiles; at every other head_dim one kernel
+  that rotates both on load;
 * :func:`flash_bwd_fused` — dq, dk and dv from one score recompute
   (replaces ``_bwd_fused_kernel``);
 * :func:`flash_bwd_dkdv` — the two-pass backward's first pass, dk and dv
@@ -48,9 +52,14 @@ RopeTables = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel.
 LAUNCHES: Dict[str, int] = {
-    "flash_fwd": 0, "flash_bwd_fused": 0, "flash_bwd_dkdv": 0,
-    "flash_bwd_dq": 0,
+    "rope_rotate": 0, "flash_fwd": 0, "flash_bwd_fused": 0,
+    "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
 }
+
+#: The head dims the warpgroup forward kernel is built for; there Q and K
+#: are rotated by the prepass. ``kfc_flash_fwd`` picks its kernel by the same
+#: rule.
+WGMMA_HEAD_DIMS = (64, 128)
 
 
 def reset_launches() -> None:
@@ -317,12 +326,37 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+def rope_rotate(q: torch.Tensor, k: torch.Tensor, rope_tables):
+    """``(q, k)`` rotated by the tables, each in its dtype: the prepass
+    kernel on CUDA tensors (one launch for both), :func:`_rope_rot` on
+    CPU tensors. Both round like ``_rope_rot``: two fp32 products, their
+    sum, one cast."""
+    c, st = rope_tables
+    if q.device.type == "cpu":
+        return _rope_rot(q, c, st), _rope_rot(k, c, st)
+    from kubeflow_controller_tpu_torch.ops import _build
+
+    _check("rope_rotate", q, k, k, rope_tables=rope_tables)   # k also stands in for v
+    b, s, h, d = q.shape
+    q_out, k_out = torch.empty_like(q), torch.empty_like(k)
+    rc = _build.load().kfc_rope_rotate(
+        q.data_ptr(), k.data_ptr(), c.data_ptr(), st.data_ptr(),
+        q_out.data_ptr(), k_out.data_ptr(), b * s, h, k.shape[2], d,
+        _stream(q.device))
+    _raise_on(rc, "rope_rotate")
+    LAUNCHES["rope_rotate"] += 1
+    return q_out, k_out
+
+
 def _fwd_kernel(q, k, v, segment_ids, rope_tables, causal):
     from kubeflow_controller_tpu_torch.ops import _build
 
     seg, seg_p, c_p, s_p = _check("flash_fwd", q, k, v, segment_ids=segment_ids,
                                   rope_tables=rope_tables)
     b, s, h, d = q.shape
+    if rope_tables is not None and d in WGMMA_HEAD_DIMS:
+        q, k = rope_rotate(q, k, rope_tables)
+        c_p = s_p = None
     o = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     rc = _build.load().kfc_flash_fwd(

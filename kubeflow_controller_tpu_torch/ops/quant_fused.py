@@ -1,18 +1,27 @@
-"""Fused dynamic-int8 matmul: the lhs quantized inside the kernel.
+"""Fused dynamic-int8 matmul: the lhs quantized on the card by a kernel.
 
 Counterpart of ``kubeflow_controller_tpu/ops/quant_pallas.py``.
 :func:`fused_int8_matmul_2d` computes ``[m, k] @ [k, n] -> bf16``: the
-lhs is cast to bf16 and quantized per row inside the kernel
-(``csrc/int8_matmul.cu``, which replaces ``_kernel_v2``); the rhs is
-cast to fp32 and quantized per column outside it, in plain PyTorch, as
-the JAX package quantizes it with XLA ops; the int32 sum is dequantized
-by the row and column scales in fp32 and rounded to bf16 once. On CUDA
-tensors the kernel runs, on CPU tensors its plain version
-(:func:`fused_int8_matmul_2d_plain`); any other device, or a shape
+lhs is cast to bf16 and quantized per row by a prepass kernel, once
+(``quantize_rows_kernel``); the rhs is cast to fp32 and quantized per
+column outside the kernels, in plain PyTorch, as the JAX package
+quantizes it with XLA ops; a pure int8 GEMM kernel sums the products in
+int32, dequantizes by the row and column scales in fp32 and rounds to
+bf16 once (``int8_gemm_kernel``; both in ``csrc/int8_matmul.cu``,
+together they replace ``_kernel_v2``). On CUDA tensors the kernels run,
+on CPU tensors their plain versions (:func:`quantize_rows_plain`,
+:func:`fused_int8_matmul_2d_plain`); any other device, or a shape
 :func:`fusable` refuses, raises.
 
+The GEMM takes both operands contiguous along the contraction: the lhs
+codes ``[m, k]`` and the rhs codes as ``[n, k]`` (the int8 tensor cores
+read no transposed operand). :func:`rhs_codes` produces them: the same
+codes as ``_quantize(b, axis=0)``, transposed. For the forward that is
+one int8 copy; for dx, whose rhs is ``w.T``, it is ``w``'s own layout
+and no copy.
+
 :func:`fused_int8_matmul` is the differentiable form (STE gradients).
-Its forward launches the kernel; in the backward, dx runs the kernel on
+Its forward launches the kernels; in the backward, dx runs them on
 ``(g, w.T)`` when ``fusable`` admits that orientation and the composed
 int8 path (``ops/quant.py``) otherwise, and dw always runs the composed
 int8 path (its contraction is the token axis). The JAX package's
@@ -23,8 +32,8 @@ path, and so does this one.
 decide which calls take the kernel, so that both packages route every
 projection the same way. The Hopper kernel's tiles are its own.
 
-``LAUNCHES`` counts kernel launches; the wrapper adds one where it
-launches and nowhere else.
+``LAUNCHES`` counts kernel launches by kernel; a wrapper adds one where
+it launches and nowhere else.
 """
 
 from __future__ import annotations
@@ -38,10 +47,10 @@ from kubeflow_controller_tpu_torch.ops.quant import (
 )
 
 #: Kernel launches since the last :func:`reset_launches`.
-LAUNCHES: Dict[str, int] = {"int8_matmul": 0}
+LAUNCHES: Dict[str, int] = {"int8_quantize_rows": 0, "int8_matmul": 0}
 
-#: The kernel's output tile and k step (``csrc/int8_matmul.cu``).
-TILE_M, TILE_N, TILE_K = 128, 128, 64
+#: The GEMM kernel's output tile and k step (``csrc/int8_matmul.cu``).
+TILE_M, TILE_N, TILE_K = 128, 128, 128
 
 
 def reset_launches() -> None:
@@ -77,47 +86,98 @@ def fusable(m: int, k: int, n: int) -> bool:
     return bm % 128 == 0 and bn % 128 == 0
 
 
-def _fused_plain(a: torch.Tensor, qb: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic: bf16 ``a [m, k]`` quantized per row, the
-    exact int32 product with ``qb [k, n]``, ``acc * sa * sb`` in fp32,
-    rounded to bf16."""
-    qa, sa = _quantize(a, axis=1)
-    return (_int_mm(qa, qb).float() * sa * sb).to(torch.bfloat16)
+def quantize_rows_plain(a: torch.Tensor):
+    """The prepass kernel's arithmetic: ``a [m, k]`` -> ``(codes int8
+    [m, k], scales fp32 [m, 1])``, each row by its own abs-max."""
+    return _quantize(a, axis=1)
+
+
+def rhs_codes(b: torch.Tensor):
+    """``b [k, n]`` quantized per column, as the GEMM kernel reads it:
+    ``(codes int8 [n, k] contiguous, scales fp32 [1, n])``. The codes
+    are ``_quantize(b, axis=0)``'s, transposed; when ``b`` is the
+    transposed view of a contiguous ``[n, k]`` tensor nothing is
+    copied."""
+    qb, sb = _quantize(b.float(), axis=0)
+    return qb.t().contiguous(), sb.contiguous()
+
+
+def _fused_plain(a: torch.Tensor, qbt: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
+    """The kernels' arithmetic: bf16 ``a [m, k]`` quantized per row, the
+    exact int32 product with the rhs codes ``qbt [n, k]``, ``acc * sa *
+    sb`` in fp32, rounded to bf16."""
+    qa, sa = quantize_rows_plain(a)
+    return (_int_mm(qa, qbt.t()).float() * sa * sb).to(torch.bfloat16)
 
 
 def fused_int8_matmul_2d_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """:func:`fused_int8_matmul_2d` in plain PyTorch, any shape."""
-    qb, sb = _quantize(b.float(), axis=0)
-    return _fused_plain(a.to(torch.bfloat16), qb, sb)
+    qbt, sb = rhs_codes(b)
+    return _fused_plain(a.to(torch.bfloat16), qbt, sb)
 
 
-def _launch(a: torch.Tensor, qb: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
-    """One launch of the kernel on ``a`` bf16 ``[m, k]``, ``qb`` int8
-    ``[k, n]`` and ``sb`` fp32 ``[1, n]``, all contiguous on one card."""
+def _check_operands(name: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be contiguous, 16-byte "
+                             "aligned and on one device")
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def quantize_rows(a: torch.Tensor):
+    """``a`` bf16 ``[m, k]`` -> ``(codes int8 [m, k], scales fp32 [m,
+    1])``: the prepass kernel on a CUDA tensor (one launch),
+    :func:`quantize_rows_plain` on a CPU tensor."""
+    if a.device.type == "cpu":
+        return quantize_rows_plain(a)
     from kubeflow_controller_tpu_torch.ops import _build
 
     m, k = a.shape
-    n = qb.shape[1]
-    if m % TILE_M or n % TILE_N or k % TILE_K:
+    if a.device.type != "cuda" or a.dtype != torch.bfloat16 or k % 16:
+        raise ValueError("int8_quantize_rows takes a bfloat16 cuda tensor "
+                         f"with k a multiple of 16 (got {a.dtype}, {a.device}, k={k})")
+    _check_operands("int8_quantize_rows", a)
+    qa = torch.empty((m, k), dtype=torch.int8, device=a.device)
+    sa = torch.empty((m, 1), dtype=torch.float32, device=a.device)
+    rc = _build.load().kfc_int8_quantize_rows(
+        a.data_ptr(), qa.data_ptr(), sa.data_ptr(), m, k,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    _raise_on(rc, "int8_quantize_rows")
+    LAUNCHES["int8_quantize_rows"] += 1
+    return qa, sa
+
+
+def _launch(a: torch.Tensor, qbt: torch.Tensor, sb: torch.Tensor) -> torch.Tensor:
+    """The two kernels on ``a`` bf16 ``[m, k]``, the rhs codes ``qbt``
+    int8 ``[n, k]`` and ``sb`` fp32 ``[1, n]``, all contiguous on one
+    card: the rows' codes and scales go through scratch to the GEMM."""
+    from kubeflow_controller_tpu_torch.ops import _build
+
+    m, k = a.shape
+    n = qbt.shape[0]
+    if m % TILE_M or n % TILE_N or k % TILE_K or qbt.shape[1] != k:
         raise ValueError(f"int8_matmul: [{m}, {k}] @ [{k}, {n}] is not tiled by "
                          f"({TILE_M}, {TILE_N}, {TILE_K})")
-    for t in (a, qb, sb):
-        if t.device != a.device or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("int8_matmul: operands must be contiguous, 16-byte "
-                             "aligned and on one device")
+    _check_operands("int8_matmul", a, qbt, sb)
+    qa, sa = quantize_rows(a)
     out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
     rc = _build.load().kfc_int8_matmul(
-        a.data_ptr(), qb.data_ptr(), sb.data_ptr(), out.data_ptr(), m, k, n,
+        qa.data_ptr(), qbt.data_ptr(), sa.data_ptr(), sb.data_ptr(),
+        out.data_ptr(), m, k, n,
         torch.cuda.current_stream(a.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {rc}")
+    _raise_on(rc, "int8_matmul")
     LAUNCHES["int8_matmul"] += 1
     return out
 
 
 def fused_int8_matmul_2d(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``[m, k] @ [k, n] -> bf16`` with dynamic int8 quantization: the
-    kernel on CUDA tensors, the plain version on CPU tensors. Raises on
+    kernels on CUDA tensors, the plain version on CPU tensors. Raises on
     any other device and on a shape :func:`fusable` refuses."""
     m, k = a.shape
     k2, n = b.shape
@@ -131,9 +191,8 @@ def fused_int8_matmul_2d(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(
             "int8_matmul runs its CUDA kernel on cuda tensors and its plain "
             f"version on cpu tensors (got {a.device} and {b.device})")
-    qb, sb = _quantize(b.float(), axis=0)
-    return _launch(a.to(torch.bfloat16).contiguous(), qb.contiguous(),
-                   sb.contiguous())
+    qbt, sb = rhs_codes(b)
+    return _launch(a.to(torch.bfloat16).contiguous(), qbt, sb)
 
 
 class _FusedInt8Matmul(torch.autograd.Function):

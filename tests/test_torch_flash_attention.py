@@ -95,6 +95,34 @@ def test_apply_rope_tables_matches_jax_and_reference_rope():
                                  10000.0)), atol=1e-5)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+def test_rope_rotate_plain_matches_jax_rope_rot(d):
+    """The rope prepass's plain version against the JAX kernels' tile
+    rotation ``_rope_rot`` on bf16 q and k, bit for bit after the bf16
+    cast: both take two fp32 products, their sum and one cast, with no
+    fused multiply-add. On CPU tensors the wrapper is that plain version
+    and launches nothing."""
+    r = np.random.default_rng(30)
+    jt, tt = _tables(True, d)
+    pairs = []
+    for heads in (H, KVH):
+        xj = jnp.asarray(r.standard_normal((B, S, heads, d)).astype(np.float32), jnp.bfloat16)
+        xt = torch.from_numpy(np.asarray(xj.astype(jnp.float32))).to(torch.bfloat16)
+        pairs.append((xj, xt))
+    tfa.reset_launches()
+    got = tfa.rope_rotate(pairs[0][1], pairs[1][1], tt)
+    assert tfa.LAUNCHES["rope_rotate"] == 0
+    for (xj, xt), g in zip(pairs, got):
+        assert g.dtype == torch.bfloat16 and g.shape == xt.shape
+        for b in range(B):
+            for hd in range(xt.shape[2]):
+                want = jfa._rope_rot(xj[b, :, hd], jt[0][b], jt[1][b], True)
+                np.testing.assert_array_equal(
+                    g[b, :, hd].float().numpy(),
+                    np.asarray(want.astype(jnp.float32)))
+        assert torch.equal(g, tfa._rope_rot(xt, *tt))
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("segments", [False, True], ids=["dense", "segments"])
 @pytest.mark.parametrize("kv_h", [KVH, H], ids=["gqa", "mha"])

@@ -161,7 +161,52 @@ def test_fused_plain_matches_jitted_pallas_kernel(m, k, n):
     # On CPU tensors the wrapper is the plain version, and launches nothing.
     tqf.reset_launches()
     _same(tqf.fused_int8_matmul_2d(at, torch.from_numpy(b)), want)
-    assert tqf.LAUNCHES == {"int8_matmul": 0}
+    assert tqf.LAUNCHES == {"int8_quantize_rows": 0, "int8_matmul": 0}
+
+
+@pytest.mark.parametrize("k", [128, 1024, 4096])
+def test_quantize_rows_plain_matches_jitted_jax(k):
+    """The row-quantize prepass's plain version against the jitted
+    ``_quantize(axis=1)`` on bf16 rows, bit for bit (the same IEEE steps:
+    abs-max, times fp32(1/127), a division, round half to even, clip), on
+    the tie, all-zero and outlier rows too. On CPU tensors the wrapper is
+    that plain version and launches nothing."""
+    aj, at = _pair(_rows(16, k, seed=20), torch.bfloat16)
+    qj, sj = jax.jit(lambda a: jq._quantize(a, 1))(aj)
+    qt, st = tqf.quantize_rows_plain(at)
+    assert qt.dtype == torch.int8 and st.dtype == torch.float32
+    assert qt.shape == (16, k) and st.shape == (16, 1)
+    _same(qt, qj, "codes")
+    _same(st, sj, "scales")
+    assert float(st[0]) == 1.0 and not qt[1].any()      # the tie row, the zero row
+    tqf.reset_launches()
+    qw, sw = tqf.quantize_rows(at)
+    _same(qw, qj, "codes through the wrapper")
+    _same(sw, sj, "scales through the wrapper")
+    assert tqf.LAUNCHES["int8_quantize_rows"] == 0
+
+
+@pytest.mark.parametrize("orientation", ["forward_w", "dx_w_transposed"])
+def test_rhs_codes_are_the_transposed_column_codes(orientation):
+    """The GEMM kernel reads the rhs codes as [n, k]: the same codes and
+    scales as the jitted ``_quantize(b, axis=0)`` (exact equality: one
+    abs-max and an elementwise pass either way), transposed and
+    contiguous, for the forward's ``w [k, n]`` and for dx's ``w.T``,
+    whose [n, k] form is ``w``'s own layout."""
+    w = _rows(256, 384, seed=21) * 0.05
+    b = w if orientation == "forward_w" else np.ascontiguousarray(w).T
+    qj, sj = jax.jit(lambda x: jq._quantize(x, 0))(jnp.asarray(b))
+    bt = torch.from_numpy(np.ascontiguousarray(w))
+    qbt, sb = tqf.rhs_codes(bt if orientation == "forward_w" else bt.T)
+    k, n = b.shape
+    assert qbt.shape == (n, k) and qbt.is_contiguous() and qbt.dtype == torch.int8
+    assert sb.shape == (1, n) and sb.is_contiguous()
+    _same(qbt.T, qj, "codes")
+    _same(sb, sj, "scales")
+    # The plain product on those codes is the wrapper's result.
+    a = torch.from_numpy(_rows(128, k, seed=22)).to(torch.bfloat16)
+    _same(tqf._fused_plain(a, qbt, sb),
+          tqf.fused_int8_matmul_2d(a, bt if orientation == "forward_w" else bt.T))
 
 
 @pytest.mark.parametrize("n", [384, 4224], ids=["dx_fused", "dx_composed"])
