@@ -15,12 +15,17 @@ Phases, in order; any failure exits non-zero before the result line:
    against its plain PyTorch version on the same inputs on the card;
    each kernel's time beside the plain version's, a PyTorch library call
    on the gathered view (``scaled_dot_product_attention``, a yardstick
-   only) and the least time the card could take;
+   only) and the least time the card could take; the serving prefill
+   chunk also by kernel on the device; checked, not timed, a prefill at
+   offset 0, a tail chunk of 8 rows and an int8 verify at pos 0;
 3. flash kernels vs plain: the forward and the three backward kernels at
    the flagship's attention shape (B16 H8 S1024 D128) and llama3_8b's
    (B2 H32/8 S2048 D128), bf16 with rope tables, with and without
    segment ids; the same four numbers each, SDPA (forward, or forward
    and backward) as the yardstick, and the fused kernel's dq run to run.
+   The fused backward is timed as the whole call (rope prepass, delta
+   prepass, kernel, dq postprocess) and by kernel; its prepass and
+   postprocess are held against their plain versions and timed alone;
    The forward is timed as the whole call (rope prepass and forward
    kernel) and by kernel on the device; its prepass is held bit for bit
    against its plain version and timed alone; ragged sequences at
@@ -54,7 +59,9 @@ Phases, in order; any failure exits non-zero before the result line:
    gradients under the flash kernels vs the plain attention and under
    ``"int8_fused"`` vs ``"int8"``, and the tiny config trained on the
    card vs the CPU;
-7. a ``kernels`` JSON line, the ``nvidia-smi`` line, and the last line
+7. a ``kernels`` JSON line (each kernel's whole-call time over its
+   library call's, ``vs_library``, from this run), the ``nvidia-smi``
+   line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and writes only under
@@ -335,7 +342,19 @@ class Case:
             byts += 2 * self.k_new.numel() * self.dtype.itemsize
         return byts, ops
 
-    def run(self, name: str):
+    def parts(self):
+        """The kernel this call launches (``kfc_paged_chunk``'s rule)."""
+        import torch
+
+        from kubeflow_controller_tpu_torch.ops import paged_attention as pa
+
+        if self.kind == "decode":
+            return ["paged_decode_kernel"]
+        if self.dtype == torch.bfloat16 and self.D in pa.MMA_HEAD_DIMS:
+            return ["paged_chunk_mma_kernel"]
+        return ["paged_chunk_kernel"]
+
+    def run(self, name: str, timed: bool = True, profiled: bool = False):
         import torch
         import torch.nn.functional as F
 
@@ -351,6 +370,10 @@ class Case:
                 f"{name}: kernel disagrees with its plain version "
                 f"(max |err| {max_abs}, {int(bad.sum())} elements past "
                 f"rtol={TOL[key]['rtol']} atol={TOL[key]['atol']})")
+        if not timed:
+            rec = dict(case=name, max_abs_err=max_abs, parts=self.parts())
+            log("kernel-case " + json.dumps(rec))
+            return rec
         ms = _time_ms(self._rotating(lambda i: self.call(False, i)))
         plain_ms = _time_ms(self._rotating(lambda i: self.call(True, i)), iters=5)
         dense = self.sdpa_inputs()
@@ -366,7 +389,10 @@ class Case:
         rec = dict(case=name, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                    library_ms=library_ms, bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                   bytes=byts, operations=ops)
+                   bytes=byts, operations=ops, parts=self.parts())
+        if profiled:
+            rec["device_ms_by_kernel"] = _kernels_ms(
+                self._rotating(lambda i: self.call(False, i)))
         log("kernel-case " + json.dumps(rec))
         return rec
 
@@ -507,6 +533,49 @@ class FlashCase:
         return dict(rtol=t["rtol"],
                     atol=t["atol_of_max"] * float(want.float().abs().max()))
 
+    def check_bwd_parts(self, timed, bad):
+        """The fused backward's prepass and postprocess against their plain
+        versions (head_dim 64 and 128 only; other head dims run one kernel):
+        delta within D * 2^-24 of each row's sum of |dO * O| (fp32 sums of
+        the same products in another order), the dq scratch exactly zero,
+        and the postprocess bit for bit (both round two fp32 products,
+        their sum and one cast) on random fp32 rows. Returns the record's
+        additions; disagreements go to ``bad``."""
+        import torch
+
+        from kubeflow_controller_tpu_torch.ops import flash_attention as fa
+
+        if self.D not in fa.WGMMA_HEAD_DIMS:
+            return {"parts": ["flash_bwd_kv_kernel<true>"]}
+        delta, acc = fa.flash_bwd_prep(self.o, self.do)
+        prod = self.do.float() * self.o.float()
+        want = prod.sum(-1).transpose(1, 2)
+        tol = self.D * 2.0 ** -24 * prod.abs().sum(-1).transpose(1, 2)
+        delta_err = float((delta - want).abs().max())
+        if bool(((delta - want).abs() > tol).any()) or bool(acc.any()):
+            bad.append(f"flash_bwd_prep[{self.label}]: delta max |err| {delta_err} "
+                       f"past D * 2^-24 * sum|dO O|, or the dq scratch is not zero")
+        gen = torch.Generator(device="cuda").manual_seed(40)
+        dq_acc = torch.randn(self.q.shape, generator=gen, device="cuda")
+        rope = self.rope
+        n_post = int((fa.flash_bwd_post(dq_acc, rope)
+                      != fa.flash_bwd_post_plain(dq_acc, rope)).sum())
+        if n_post:
+            bad.append(f"flash_bwd_post[{self.label}]: {n_post} elements differ "
+                       "from the plain version")
+        out = dict(parts=["rope_rotate_kernel", "flash_bwd_prep_kernel",
+                          "flash_bwd_wgmma_kernel", "flash_bwd_post_kernel"],
+                   prep_delta_max_abs_err=delta_err, post_mismatches=n_post)
+        if timed:
+            out.update(
+                prep_ms=_time_ms(lambda: fa.flash_bwd_prep(self.o, self.do)),
+                prep_plain_ms=_time_ms(lambda: (fa.attention_delta(self.o, self.do),
+                                                torch.zeros_like(dq_acc))),
+                post_ms=_time_ms(lambda: fa.flash_bwd_post(dq_acc, rope)),
+                post_plain_ms=_time_ms(lambda: fa.flash_bwd_post_plain(dq_acc, rope)))
+        del delta, acc, prod, want, tol, dq_acc
+        return out
+
     def run(self, smi, timed, failures):
         """Check (and time) every kernel; a disagreement is appended to
         ``failures``."""
@@ -534,10 +603,15 @@ class FlashCase:
                     bad.append(f"{kernel}[{self.label}]: dq run to run max "
                                f"|diff| {e} past {t}")
                 errs["dq_run_to_run"] = e
+            extra = {}
+            if kernel == "flash_bwd_fused":
+                extra = self.check_bwd_parts(timed, bad)
+                if timed and self.seg is None:
+                    extra["device_ms_by_kernel"] = _kernels_ms(call)
             rec = dict(kernel=kernel, case=self.label,
                        max_abs_err=max(v for k, v in errs.items()
                                        if k != "dq_run_to_run"),
-                       errors=errs)
+                       errors=errs, **extra)
             if kernel == "flash_fwd":
                 # The forward's prepass alone, bit for bit: both round
                 # two fp32 products, their sum and the bf16 cast.
@@ -808,9 +882,18 @@ def kernel_phase():
         ("verify.fp32.2048", Case("verify", f32, False, 8, 5, 128, 2048,
                                   [2043, 0, 15, 16, 1000, 1535, 777, 2040], 10)),
     ]
+    # Checked, not timed: a prefill at offset 0 (no pool page live: the
+    # intra-chunk tile alone), a tail chunk of 8 rows at offset 8, and an
+    # int8 verify of one slot at pos 0.
+    edge = [
+        ("prefill.bf16.off0", Case("prefill", bf, False, 1, 16, 18, 288, [0], 11)),
+        ("prefill.bf16.tail8", Case("prefill", bf, False, 1, 8, 18, 288, [8], 12)),
+        ("verify.int8.pos0", Case("verify", bf, True, 1, 5, 18, 288, [0], 13)),
+    ]
     recs = {}
-    for name, case in cases:
-        recs[name] = case.run(name)
+    for name, case in cases + edge:
+        recs[name] = case.run(name, timed=name not in dict(edge),
+                              profiled=name == "prefill.bf16.serve")
         del case
         torch.cuda.empty_cache()
     return recs
@@ -892,6 +975,9 @@ def serve_phase(smi):
 
 def _kernel_bucket(name: str) -> str:
     for piece, kernel in (("paged_decode", "paged_decode"),
+                          ("flash_bwd_prep", "flash_bwd_prep"),
+                          ("flash_bwd_post", "flash_bwd_post"),
+                          ("flash_bwd_wgmma", "flash_bwd_fused"),
                           ("paged_chunk", "paged_chunk"),
                           ("rope_rotate", "rope_rotate"),
                           ("flash_fwd", "flash_fwd"),
@@ -1174,8 +1260,9 @@ def lm_train_run(smi, steps=4, quant="", opt8bit=False):
     wall_s = time.perf_counter() - t0
     launches = _launches()
     b7 = 21 * layers * steps if quant == "int8_fused" else 0
-    want = {"rope_rotate": 2 * layers * steps, "flash_fwd": 2 * layers * steps,
-            "flash_bwd_fused": layers * steps, "flash_bwd_dkdv": 0,
+    want = {"rope_rotate": 3 * layers * steps, "flash_fwd": 2 * layers * steps,
+            "flash_bwd_prep": layers * steps, "flash_bwd_fused": layers * steps,
+            "flash_bwd_post": layers * steps, "flash_bwd_dkdv": 0,
             "flash_bwd_dq": 0, "int8_quantize_rows": b7, "int8_matmul": b7}
     if launches != want:
         raise AssertionError(f"lm.train[{label}]: launches {launches} != {want}")
@@ -1317,8 +1404,11 @@ def train_phase(smi):
     from kubeflow_controller_tpu_torch.models import transformer as tfm
 
     flag = tfm.flagship_config()
-    flag_flash = {"rope_rotate": 2 * flag.n_layers, "flash_fwd": 2 * flag.n_layers,
-                  "flash_bwd_fused": flag.n_layers}
+    # The flagship's fused backward rotates q and k once more (its own
+    # rope prepass) and has a prepass and a postprocess of its own.
+    flag_flash = {"rope_rotate": 3 * flag.n_layers, "flash_fwd": 2 * flag.n_layers,
+                  "flash_bwd_prep": flag.n_layers, "flash_bwd_fused": flag.n_layers,
+                  "flash_bwd_post": flag.n_layers}
     runs = {
         "flagship": train_run("flagship", flag, 1024, 16, TRAIN_STEPS, flag_flash, smi),
     }
@@ -1420,7 +1510,9 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": case,
+            "shape": case, "parts": r["parts"],
+            **({"device_ms_by_kernel": r["device_ms_by_kernel"]}
+               if "device_ms_by_kernel" in r else {}),
         })
     for name, case, replaces, run in FLASH_KERNELS:
         r = flash_recs[(name, case)]
@@ -1433,10 +1525,12 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "shape": case,
-            # The forward's ms is the whole call: the K rope prepass (also
-            # timed alone) and the forward kernel.
-            **({"parts": r["parts"], "prepass_ms": r["prepass_ms"]}
-               if "parts" in r else {}),
+            # The forward's and the fused backward's ms are the whole call:
+            # the rope prepass (timed alone) and the forward kernel; the
+            # rope prepass, the delta prepass, the kernel and the dq
+            # postprocess (the last two parts also timed alone).
+            **{k: r[k] for k in ("parts", "prepass_ms", "prep_ms", "post_ms",
+                                 "device_ms_by_kernel") if k in r},
         })
     r = int8_recs[INT8_KERNEL_SHAPE]
     line["kernels"].append({
@@ -1453,6 +1547,10 @@ def main() -> int:
         "parts": r["parts"], "prepass_ms": r["prepass_ms"],
         "kernels_ms": r["kernels_ms"], "relayout_ms": r["relayout_ms"],
     })
+    # The factor that orders the kernel queue: whole call over the library
+    # call, both from this run.
+    for k in line["kernels"]:
+        k["vs_library"] = k["ms"] / k["library_ms"]
     log(f"total {time.perf_counter() - t0:.1f} s")
     log(json.dumps(line))
     log(smi)

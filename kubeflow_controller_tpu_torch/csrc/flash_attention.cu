@@ -9,9 +9,12 @@
 //   k^T * scale + mask) v and the row log-sum-exp lse [B, H, S] (the
 //   narrow residual of _fwd). rope_rotate_kernel is the wgmma forward's
 //   prepass: it rotates Q and K once per call.
-// * flash_bwd_kv_kernel<kDq = true> replaces _bwd_fused_kernel (:766,
+// * flash_bwd_wgmma_kernel (head_dim 64 and 128) and flash_bwd_kv_kernel<kDq
+//   = true> (every other head_dim) replace _bwd_fused_kernel (:766,
 //   launched :1109): dk and dv, and every tile's dq, from one score
-//   recompute.
+//   recompute. flash_bwd_prep_kernel (delta = rowsum(dO O), the dq
+//   scratch zeroed) and flash_bwd_post_kernel (dq counter-rotated and
+//   cast) are the warpgroup kernel's prepass and postprocess.
 // * flash_bwd_kv_kernel<kDq = false> replaces _bwd_dkdv_kernel (:621,
 //   launched :1187): the two-pass backward's first pass, dk and dv.
 // * flash_bwd_dq_kernel replaces _bwd_dq_kernel (:919, launched :1227):
@@ -78,8 +81,40 @@
 //     across items, so an item's Q and first tiles land under the last
 //     item's final products and epilogue.
 //
-// The backward kernels and the forward for other head dims
-// (flash_fwd_kernel) are the first, simple versions: a block owns a
+// The fused backward (flash_bwd_wgmma_kernel), FlashAttention-3's
+// backward shape on wgmma. The first version (flash_bwd_kv_kernel<true>,
+// below) ran 64-row WMMA tiles staged through fp32 shared memory, one
+// block an SM, dq added by 8192 scalar atomics a tile pair, Q rotated
+// from fp32 tables at every visit: 3.6 ms at the flagship's shape for a
+// bound of 0.087. Here:
+//   - Q and K are rotated once per call (rope_rotate_kernel), so every
+//     tile is a plain bf16 box that one thread copies by TMA; a block owns
+//     a 128-row k-tile of one KV head (K and V loaded once) and streams
+//     Q, dO (64-row boxes), lse, delta and the segment ids of each
+//     (query head of the group, live q-tile) through two stages on
+//     mbarriers. The block is the two warpgroups alone (warp 0 refills a
+//     stage once both are past it): a ninth warp, producer or not, would
+//     cap every thread at 168 registers and spill dV and dK;
+//   - the two warpgroups own 64 k rows each. S^T = K Q^T and dP^T =
+//     V dO^T run as wgmma with both operands K-major in shared memory;
+//     P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) scale are
+//     formed in registers, masks applied there (causal dead q-tiles are
+//     never visited; rows past S are zero-filled by TMA and masked);
+//   - dV += P^T dO and dK += dS^T Q take P^T and dS^T from registers as
+//     the A operand (their accumulator layout is the A layout) and dO, Q
+//     as MN-major B; dV and dK stay in registers over the whole loop,
+//     and dK is counter-rotated from registers in the epilogue;
+//   - dS^T goes to shared memory in bf16 (two buffers, one barrier of the
+//     two warpgroups a tile), dQ = dS K runs as wgmma with both operands
+//     MN-major, each warpgroup 64 of the output columns, and is added to
+//     the fp32 scratch by 16-byte vector reductions (neighbouring lanes
+//     trade a pair of columns first), never by scalar atomics;
+//   - the prepass writes delta and zeroes the scratch in one pass; the
+//     postprocess counter-rotates dq and casts it, rounding as _rope_rot.
+//
+// The two-pass backward kernels, the fused backward's first kernel and
+// the forward for other head dims (flash_fwd_kernel) are the first,
+// simple versions: a block owns a
 // 64-row tile (32 rows when D = 256), rope rotates on load, every
 // product is bf16 WMMA 16x16x16 with operands and fp32 accumulators
 // staged in shared memory, the softmax bookkeeping is scalar fp32 there,
@@ -901,6 +936,382 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// -- fused backward, head_dim 64 and 128 ----------------------------------------
+// The prepass: delta [B, H, S] = rowsum(dO * O) in fp32 and the dq scratch
+// zeroed, one thread per 8 elements of a row, D / 8 lanes a row.
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                      float* __restrict__ delta, float* __restrict__ dq_acc, size_t rows, int S,
+                      int H, int D) {
+  const int nv = D / 8;
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const bool live = i < rows * nv;
+  float sum = 0.f;
+  const size_t row = i / nv;
+  const int d0 = static_cast<int>(i - row * nv) * 8;
+  if (live) {
+    const uint4 ov = *reinterpret_cast<const uint4*>(o + row * D + d0);
+    const uint4 dv = *reinterpret_cast<const uint4*>(dout + row * D + d0);
+    const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+    const bf16* de = reinterpret_cast<const bf16*>(&dv);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      sum = __fadd_rn(sum, __fmul_rn(__bfloat162float(de[j]), __bfloat162float(oe[j])));
+    float4* z = reinterpret_cast<float4*>(dq_acc + row * D + d0);
+    z[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+    z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int off = nv / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+  if (live && d0 == 0) {
+    const size_t token = row / H;
+    const int h = static_cast<int>(row - token * H);
+    const size_t b = token / S, s = token - b * S;
+    delta[(b * H + h) * S + s] = sum;
+  }
+}
+
+// The postprocess: dq [tokens, H, D] bf16 from the fp32 scratch,
+// counter-rotated (table S negated) when there are tables, 8 elements a
+// thread; rounds like _rope_rot(dq_acc, C, -S).to(bf16).
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_post_kernel(const float* __restrict__ dq_acc, const float* __restrict__ rc,
+                      const float* __restrict__ rs, bf16* __restrict__ dq, size_t tokens, int H,
+                      int D) {
+  const int nv = D / 8, half = D / 2;
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= tokens * H * nv) return;
+  const size_t row = i / nv, token = row / H;
+  const int d0 = static_cast<int>(i - row * nv) * 8;
+  const float* x = dq_acc + row * D;
+  float out[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) out[j] = x[d0 + j];
+  if (rc != nullptr) {
+    const float* xr = x + (d0 < half ? d0 + half : d0 - half);
+    const float* c = rc + token * D + d0;
+    const float* sn = rs + token * D + d0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[j] = rope_mix(out[j], c[j], xr[j], -sn[j]);
+  }
+  store8(dq + row * D + d0, out);
+}
+
+constexpr int kBwdKRows = 128;     // k-tile rows: 64 for each consumer warpgroup
+constexpr int kBwdQRows = 64;      // q-tile rows
+// Two warpgroups and no producer warp: a block's registers are split
+// over the SM's four quarters, so a ninth warp caps every thread at 168
+// registers (with or without setmaxnreg), and dV and dK alone hold 128 of
+// them at head_dim 128. With eight warps the cap is 255.
+constexpr int kBwdThreads = 256;
+constexpr int kBwdStages = 2;
+
+// Shared memory of the backward, from a 1024-byte aligned base: the K and
+// V tiles (128 rows, D / 64 panels of 128-byte rows), the stages of Q and
+// dO (64 rows), two buffers of dS^T ([128 k][64 q] bf16, one 128-byte
+// row a k), the stages' lse, delta and segment ids, and the mbarriers.
+template <int D>
+struct BwdSmem {
+  static constexpr int kKPanel = kBwdKRows * 128;
+  static constexpr int kQPanel = kBwdQRows * 128;
+  static constexpr int kKTile = (D / 64) * kKPanel;
+  static constexpr int kQTile = (D / 64) * kQPanel;
+  static constexpr int kDsBuf = kBwdKRows * 128;
+  static constexpr int kSide = 3 * kBwdQRows * 4;
+  static constexpr int k = 0, v = kKTile, q = 2 * kKTile;
+  static constexpr int dout = q + kBwdStages * kQTile;
+  static constexpr int ds = dout + kBwdStages * kQTile;
+  static constexpr int side = ds + 2 * kDsBuf;
+  static constexpr int bars = side + kBwdStages * kSide;   // kv_full, q_full[]
+  static constexpr int bytes = bars + 64 + 1024;           // + alignment slack
+};
+
+// `rows` rows of head `head` from s0 of batch b by TMA, one box of 64
+// elements per panel of `panel` bytes.
+template <int D>
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int head, int s0, int b, int panel) {
+#pragma unroll
+  for (int pnl = 0; pnl < D / 64; ++pnl) tma_load_4d(dst + pnl * panel, map, bar, 64 * pnl, head, s0, b);
+}
+
+// Block (k-tile kt, KV head g, batch b), by index in the order kt-major,
+// so a causal problem's k-tiles with the most q-tiles start first. q and
+// k are already rotated; the maps describe q, do as [D, H, S, B] in
+// boxes of 64 rows and k, v as [D, KVH, S, B] in boxes of 128 rows. Warp
+// 0 loads K and V once and fills the two stages with Q, dO, lse, delta
+// and the segment ids of each (query head of the group, live q-tile).
+// Warpgroup w owns k rows [64 w, 64 w + 64) of the tile: S^T = K Q^T and
+// dP^T = V dO^T by wgmma into registers (accumulator [4 j + e]: k row
+// (lane / 4) + 8 (e / 2) of its warp's 16, q column 8 j + 2 (lane % 4) +
+// e % 2), P^T and dS^T there, dV += P^T dO and dK += dS^T Q with P^T, dS^T
+// as register A operands (dV, dK stay in registers over the whole loop).
+// dS^T goes to shared memory in bf16; after a barrier of the two
+// warpgroups, warpgroup w computes dQ = dS K for output columns [64 w, 64
+// w + 64) (D = 128; at D = 64 each its own k rows) and adds it into
+// dq_acc by 16-byte reductions.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                       const __grid_constant__ CUtensorMap map_k,
+                       const __grid_constant__ CUtensorMap map_v,
+                       const __grid_constant__ CUtensorMap map_do, Problem p,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dq_acc) {
+  using L = BwdSmem<D>;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t kv_full = base + L::bars, q_full = kv_full + 8;
+  const int tid = threadIdx.x, lane = tid & 31;
+
+  const int per_kt = p.KVH * p.B;
+  const int kt = blockIdx.x / per_kt, g = blockIdx.x % per_kt % p.KVH,
+            b = blockIdx.x % per_kt / p.KVH;
+  const int k0 = kt * kBwdKRows, rep = p.H / p.KVH;
+  const int n_qt = (p.S + kBwdQRows - 1) / kBwdQRows;
+  const int qt0 = p.causal ? k0 / kBwdQRows : 0;   // q-tiles wholly above the diagonal skipped
+  const int n_q = n_qt - qt0, total = rep * n_q;
+
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kBwdStages; ++st) mbar_init(q_full + 8 * st, 32);   // warp 0's lanes
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Warp 0 fills stage t % 2 with item t: lse, delta and the segment ids
+  // of its 64 q rows (two a lane), and Q and dO by TMA.
+  auto fill = [&](int t) {
+    const int st = t % kBwdStages, h = g * rep + t / n_q, q0 = (qt0 + t % n_q) * kBwdQRows;
+    float* side = reinterpret_cast<float*>(smem + L::side + st * L::kSide);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = lane + 32 * i, row = q0 + r;
+      const bool in = row < p.S;
+      const size_t at = (static_cast<size_t>(b) * p.H + h) * p.S + row;
+      side[r] = in ? lse[at] : 0.f;
+      side[kBwdQRows + r] = in ? delta[at] : 0.f;
+      reinterpret_cast<int*>(side)[2 * kBwdQRows + r] =
+          in && p.seg != nullptr ? p.seg[static_cast<size_t>(b) * p.S + row] : 0;
+    }
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full + 8 * st, 2 * L::kQTile);
+      tma_rows<D>(base + L::q + st * L::kQTile, &map_q, q_full + 8 * st, h, q0, b, L::kQPanel);
+      tma_rows<D>(base + L::dout + st * L::kQTile, &map_do, q_full + 8 * st, h, q0, b,
+                  L::kQPanel);
+    } else {
+      mbar_arrive(q_full + 8 * st);
+    }
+  };
+  if (tid < 32) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_full, 2 * L::kKTile);
+      tma_rows<D>(base + L::k, &map_k, kv_full, g, k0, b, L::kKPanel);
+      tma_rows<D>(base + L::v, &map_v, kv_full, g, k0, b, L::kKPanel);
+    }
+    for (int t = 0; t < kBwdStages && t < total; ++t) fill(t);
+  }
+
+  const int wg = tid >> 7, wq = (tid >> 5) & 3, quad = lane & 3;
+  const int lrow = wg * 64 + wq * 16 + (lane >> 2);   // tile-local k row, and lrow + 8
+  const int k_lo = k0 + lrow;
+  int segk[2] = {0, 0};
+  if (p.seg != nullptr) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      segk[hh] = k_lo + 8 * hh < p.S ? p.seg[static_cast<size_t>(b) * p.S + k_lo + 8 * hh] : 0;
+  }
+  const float to_log2 = p.scale * kLog2e;
+  // dQ's share of this warpgroup: all 128 k rows and output columns
+  // [64 wg, 64 wg + 64) at D = 128; its own 64 k rows and all 64 columns
+  // at D = 64.
+  constexpr int kDqSteps = D == 128 ? 8 : 4;
+  const int dq_row0 = D == 128 ? 0 : wg * 64, dq_panel = D == 128 ? wg : 0;
+
+  float dv_acc[D / 2], dk_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dv_acc[i] = dk_acc[i] = 0.f;
+
+  mbar_wait(kv_full, 0);
+  for (int t = 0; t < total; ++t) {
+    const int st = t % kBwdStages, h = g * rep + t / n_q, q0 = (qt0 + t % n_q) * kBwdQRows;
+    mbar_wait(q_full + 8 * st, (t / kBwdStages) & 1);
+    // The shared base, opaque to the compiler in each iteration: the
+    // descriptors of the K and V tiles do not change over the loop, and
+    // hoisted out of it they would hold ~50 registers all the way.
+    uint32_t sbase = base;
+    asm volatile("" : "+r"(sbase));
+    const uint32_t q_s = sbase + L::q + st * L::kQTile, do_s = sbase + L::dout + st * L::kQTile;
+
+    // P^T = exp(S^T scale - lse[q]) and dS^T = P^T (dP^T - delta[q]) scale,
+    // masked pairs exactly 0: the diagonal tile, a tile past S (rows TMA
+    // zero-filled; lse and delta read as 0 there), any tile under segment
+    // ids. In two halves of 32 q columns, so that S^T and dP^T hold 32
+    // registers beside dV and dK.
+    const float* side = reinterpret_cast<const float*>(smem + L::side + st * L::kSide);
+    const int* segq = reinterpret_cast<const int*>(side) + 2 * kBwdQRows;
+    const int kw0 = k0 + wg * 64;
+    const bool masked = p.seg != nullptr || (p.causal && q0 < kw0 + 63) ||
+                        q0 + kBwdQRows > p.S || kw0 + 64 > p.S;
+    uint32_t pw[16], dsw[16];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      uint32_t hb = sbase;   // descriptors made here, not ahead of the last wait
+      asm volatile("" : "+r"(hb));
+      const uint32_t qh = hb + L::q + st * L::kQTile + half * 32 * 128;
+      const uint32_t doh = hb + L::dout + st * L::kQTile + half * 32 * 128;
+      float s[16], dp[16];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * L::kKPanel + wg * 64 * 128;
+        wgmma_bf16_ss_m64n32k16<0, 0>(s, desc_sw128(hb + L::k + off) + 2 * (kk & 3),
+                                      desc_sw128(qh + (kk >> 2) * L::kQPanel) + 2 * (kk & 3),
+                                      kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk >> 2) * L::kKPanel + wg * 64 * 128;
+        wgmma_bf16_ss_m64n32k16<0, 0>(dp, desc_sw128(hb + L::v + off) + 2 * (kk & 3),
+                                      desc_sw128(doh + (kk >> 2) * L::kQPanel) + 2 * (kk & 3),
+                                      kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_registers(s);
+      fence_registers(dp);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 32 * half + 8 * j + 2 * quad, jg = 4 * half + j;
+        const float2 l2 = *reinterpret_cast<const float2*>(side + c);
+        const float2 d2 = *reinterpret_cast<const float2*>(side + kBwdQRows + c);
+        const int2 sq = *reinterpret_cast<const int2*>(segq + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1, odd = e & 1;
+          bool vis = true;
+          if (masked) {
+            const int qi = q0 + c + odd, kj = k_lo + 8 * hh;
+            vis = qi < p.S && kj < p.S && (!p.causal || kj <= qi) &&
+                  (p.seg == nullptr || segk[hh] == (odd ? sq.y : sq.x));
+          }
+          const float lse_q = odd ? l2.y : l2.x, delta_q = odd ? d2.y : d2.x;
+          const float pv = vis ? ex2(fmaf(s[4 * j + e], to_log2, -lse_q * kLog2e)) : 0.f;
+          s[4 * j + e] = pv;
+          dp[4 * j + e] = pv * (dp[4 * j + e] - delta_q) * p.scale;
+        }
+        pw[2 * jg] = pack_bf16(s[4 * j], s[4 * j + 1]);
+        pw[2 * jg + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+        dsw[2 * jg] = pack_bf16(dp[4 * j], dp[4 * j + 1]);
+        dsw[2 * jg + 1] = pack_bf16(dp[4 * j + 2], dp[4 * j + 3]);
+      }
+    }
+    // dS^T into buffer t % 2: row = k, 64 q columns of 128 bytes.
+    unsigned char* dsb = smem + L::ds + (t & 1) * L::kDsBuf;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<uint32_t*>(dsb + swizzle_chunk(lrow + 8 * hh, j) + 4 * quad) =
+            dsw[2 * j + hh];
+    fence_async_proxy();
+
+    // dV += P^T dO and dK += dS^T Q over the tile's 64 q rows: the
+    // registers are the A operand, dO and Q MN-major B.
+    fence_registers(dv_acc);
+    fence_registers(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kBwdQRows / 16; ++kc) {
+      const uint32_t a[4] = {pw[4 * kc], pw[4 * kc + 1], pw[4 * kc + 2], pw[4 * kc + 3]};
+      const uint64_t db = desc_sw128(do_s + kc * 16 * 128, L::kQPanel);
+      if constexpr (D == 128)
+        wgmma_bf16_rs_m64n128k16(dv_acc, a, db);
+      else
+        wgmma_bf16_rs_m64n64k16(dv_acc, a, db);
+    }
+#pragma unroll
+    for (int kc = 0; kc < kBwdQRows / 16; ++kc) {
+      const uint32_t a[4] = {dsw[4 * kc], dsw[4 * kc + 1], dsw[4 * kc + 2], dsw[4 * kc + 3]};
+      const uint64_t db = desc_sw128(q_s + kc * 16 * 128, L::kQPanel);
+      if constexpr (D == 128)
+        wgmma_bf16_rs_m64n128k16(dk_acc, a, db);
+      else
+        wgmma_bf16_rs_m64n64k16(dk_acc, a, db);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_registers(dv_acc);
+    fence_registers(dk_acc);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(pw[i]), "+r"(dsw[i])::"memory");
+
+    // dQ = dS K once both warpgroups' dS^T are in: dS^T is an MN-major A,
+    // K an MN-major B. Past this barrier every warp is done with the
+    // stage, and warp 0 refills it with item t + 2.
+    named_barrier(1, 256);
+    if (tid < 32 && t + kBwdStages < total) fill(t + kBwdStages);
+    uint32_t qb = sbase;
+    asm volatile("" : "+r"(qb));
+    float dq[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < kDqSteps; ++kc) {
+      const uint32_t row = (dq_row0 + 16 * kc) * 128;
+      wgmma_bf16_ss_m64n64k16<1, 1>(
+          dq, desc_sw128(qb + L::ds + (t & 1) * L::kDsBuf + row, L::kDsBuf),
+          desc_sw128(qb + L::k + dq_panel * L::kKPanel + row, L::kKPanel), kc > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_registers(dq);
+    // Pairs of 8-column blocks: the even lane of two neighbours adds
+    // block j's four columns, the odd one block j + 1's.
+    const int odd = quad & 1;
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float a0 = dq[4 * j + 2 * hh], a1 = dq[4 * j + 2 * hh + 1];
+        const float b0 = dq[4 * j + 4 + 2 * hh], b1 = dq[4 * j + 4 + 2 * hh + 1];
+        const float r0 = __shfl_xor_sync(0xffffffffu, odd ? a0 : b0, 1);
+        const float r1 = __shfl_xor_sync(0xffffffffu, odd ? a1 : b1, 1);
+        const int qi = q0 + wq * 16 + (lane >> 2) + 8 * hh;
+        const int col = (D == 128 ? 64 * wg : 0) + 8 * (j + odd) + 2 * (quad - odd);
+        if (qi < p.S) {
+          float* dst = dq_acc + ((static_cast<size_t>(b) * p.S + qi) * p.H + h) * D + col;
+          add_v4_f32(dst, odd ? r0 : a0, odd ? r1 : a1, odd ? b0 : r0, odd ? b1 : r1);
+        }
+      }
+    }
+  }
+
+  // Epilogue: dK counter-rotated from registers (element d and d +- D/2
+  // of a row are this thread's blocks j and j +- D/16), dV as it is.
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = k_lo + 8 * hh;
+    if (row >= p.S) continue;
+    const size_t out = ((static_cast<size_t>(b) * p.S + row) * p.KVH + g) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int d = 8 * j + 2 * quad, i = 4 * j + 2 * hh;
+      float x0 = dk_acc[i], x1 = dk_acc[i + 1];
+      if (p.rc != nullptr) {
+        const int ir = 4 * ((j + D / 16) % (D / 8)) + 2 * hh;
+        const size_t tt = (static_cast<size_t>(b) * p.S + row) * D + d;
+        const float2 c2 = *reinterpret_cast<const float2*>(p.rc + tt);
+        const float2 s2 = *reinterpret_cast<const float2*>(p.rs + tt);
+        x0 = rope_mix(dk_acc[i], c2.x, dk_acc[ir], -s2.x);
+        x1 = rope_mix(dk_acc[i + 1], c2.y, dk_acc[ir + 1], -s2.y);
+      }
+      *reinterpret_cast<uint32_t*>(dk + out + d) = pack_bf16(x0, x1);
+      *reinterpret_cast<uint32_t*>(dv + out + d) = pack_bf16(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, size_t bytes) {
   if (bytes > kMaxSmem) return cudaErrorInvalidValue;
@@ -962,8 +1373,9 @@ EncodeTiled encode_tiled() {
 }
 
 // x bf16 [B, S, heads, D] as the tensor [D, heads, S, B] cut into boxes of
-// 64 elements by 128 rows of S, written under the 128-byte swizzle.
-bool tile_map(CUtensorMap* map, const void* x, int B, int S, int heads, int D) {
+// 64 elements by `rows` rows of S, written under the 128-byte swizzle.
+bool tile_map(CUtensorMap* map, const void* x, int B, int S, int heads, int D,
+              int rows = kFwdRows) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
@@ -971,7 +1383,7 @@ bool tile_map(CUtensorMap* map, const void* x, int B, int S, int heads, int D) {
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2,
                                  static_cast<cuuint64_t>(heads) * D * 2,
                                  static_cast<cuuint64_t>(S) * heads * D * 2};
-  const cuuint32_t box[4] = {64, 1, kFwdRows, 1};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
@@ -995,6 +1407,24 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, const Problem&
   const int n_items = (p.S + kFwdRows - 1) / kFwdRows * p.H * p.B;
   flash_fwd_wgmma_kernel<D><<<n_items < sms ? n_items : sms, kFwdThreads, FwdSmem<D>::bytes,
                               stream>>>(map_q, map_k, map_v, p, o, lse, n_items);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                     const Problem& p, const float* lse, const float* delta, bf16* dk, bf16* dv,
+                     float* dq_acc, cudaStream_t stream) {
+  CUtensorMap map_q, map_k, map_v, map_do;
+  if (!tile_map(&map_q, q, p.B, p.S, p.H, D, kBwdQRows) ||
+      !tile_map(&map_k, k, p.B, p.S, p.KVH, D, kBwdKRows) ||
+      !tile_map(&map_v, v, p.B, p.S, p.KVH, D, kBwdKRows) ||
+      !tile_map(&map_do, dout, p.B, p.S, p.H, D, kBwdQRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = prepare(flash_bwd_wgmma_kernel<D>, BwdSmem<D>::bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_items = (p.S + kBwdKRows - 1) / kBwdKRows * p.KVH * p.B;
+  flash_bwd_wgmma_kernel<D><<<n_items, kBwdThreads, BwdSmem<D>::bytes, stream>>>(
+      map_q, map_k, map_v, map_do, p, lse, delta, dk, dv, dq_acc);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1091,4 +1521,60 @@ extern "C" int kfc_flash_bwd_dq(const void* q, const void* k, const void* v,
       static_cast<const float*>(lse), static_cast<const float*>(delta), p,
       static_cast<bf16*>(dq));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The fused backward's prepass: delta fp32 [B, H, S] = rowsum(dout * o)
+// of o, dout bf16 [B, S, H, D], and dq_acc fp32 [B, S, H, D] zeroed.
+extern "C" int kfc_flash_bwd_prep(const void* o, const void* dout, void* delta, void* dq_acc,
+                                  int B, int S, int H, int D, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0 || (D != 64 && D != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t rows = static_cast<size_t>(B) * S * H;
+  const size_t blocks = (rows * (D / 8) + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffu) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_prep_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), static_cast<float*>(delta),
+      static_cast<float*>(dq_acc), rows, S, H, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fused backward's postprocess: dq bf16 [tokens, H, D] from dq_acc
+// fp32, counter-rotated by the tables [tokens, D] (both null: a cast).
+extern "C" int kfc_flash_bwd_post(const void* dq_acc, const void* rope_c, const void* rope_s,
+                                  void* dq, int tokens, int H, int D, void* stream) {
+  if (tokens <= 0 || H <= 0 || D <= 0 || D % 16 || (rope_c == nullptr) != (rope_s == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t total = static_cast<size_t>(tokens) * H * (D / 8);
+  const size_t blocks = (total + kThreads - 1) / kThreads;
+  if (blocks > 0x7fffffffu) return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_post_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dq_acc), static_cast<const float*>(rope_c),
+      static_cast<const float*>(rope_s), static_cast<bf16*>(dq), static_cast<size_t>(tokens), H,
+      D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fused backward at head_dim 64 and 128: q and k already rotated
+// (kfc_rope_rotate); the tables, when given, only counter-rotate dk.
+// dq_acc (fp32 [B, S, H, D], zeroed by kfc_flash_bwd_prep) receives dq
+// in rotation space, for kfc_flash_bwd_post.
+extern "C" int kfc_flash_bwd_fused(const void* q, const void* k, const void* v,
+                                   const void* dout, const void* lse, const void* delta,
+                                   const void* seg, const void* rope_c, const void* rope_s,
+                                   void* dk, void* dv, void* dq_acc, int B, int S, int H,
+                                   int KVH, int D, float scale, int causal, void* stream) {
+  Problem p;
+  if (!make_problem(&p, B, S, H, KVH, D, scale, causal, seg, rope_c, rope_s) ||
+      (D != 64 && D != 128) || dq_acc == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  bf16* dkp = static_cast<bf16*>(dk);
+  bf16* dvp = static_cast<bf16*>(dv);
+  float* acc = static_cast<float*>(dq_acc);
+  return D == 64 ? launch_bwd_wgmma<64>(q, k, v, dout, p, l, dl, dkp, dvp, acc, st)
+                 : launch_bwd_wgmma<128>(q, k, v, dout, p, l, dl, dkp, dvp, acc, st);
 }

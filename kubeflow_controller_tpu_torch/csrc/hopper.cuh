@@ -2,8 +2,8 @@
 // cp.async copies and the proxy fence, mbarriers, TMA tile copies,
 // setmaxnreg, wgmma descriptors for operand tiles kept in shared memory
 // under the 128-byte swizzle, the wgmma products the kernels start,
-// and a 4x4 transpose across the four lanes that share an accumulator
-// row.
+// named barriers, 16-byte fp32 reductions into global memory, and a 4x4
+// transpose across the four lanes that share an accumulator row.
 //
 // Operand tiles in shared memory are rows of 128 bytes: row r of a tile
 // starts at r * 128 from a 1024-byte aligned base, and its 16-byte chunk
@@ -140,6 +140,7 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t saddr, uint32_t leading_
 #define KFC_L32(M, d, o) KFC_L8(M, d, o), KFC_L8(M, d, o + 8), KFC_L8(M, d, o + 16), KFC_L8(M, d, o + 24)
 #define KFC_RW_R(x) "+r"(x)
 #define KFC_RW_F(x) "+f"(x)
+#define KFC_D16 "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
 #define KFC_D32 \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
@@ -199,6 +200,44 @@ __device__ __forceinline__ void wgmma_bf16_rs_m64n64k16(float (&d)[32], const ui
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : KFC_L32(KFC_RW_F, d, 0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, bf16 operands in shared memory
+// under the 128-byte swizzle, fp32 sums; TA / TB = 1 take A / B
+// MN-major (the tile's rows run along the output dimension).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16_ss_m64n64k16(float (&d)[32], uint64_t da, uint64_t db,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " KFC_D32
+      ", %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : KFC_L32(KFC_RW_F, d, 0)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// The same with 32 output columns.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_bf16_ss_m64n32k16(float (&d)[16], uint64_t da, uint64_t db,
+                                                        int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " KFC_D16
+      ", %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : KFC_L8(KFC_RW_F, d, 0), KFC_L8(KFC_RW_F, d, 8)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// Barrier `id` (1..15) over `threads` threads of the block.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// dst[0..3] += v, one 16-byte vector reduction (dst 16-byte aligned).
+__device__ __forceinline__ void add_v4_f32(float* dst, float a, float b, float c, float d) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n"
+               :: "l"(dst), "f"(a), "f"(b), "f"(c), "f"(d)
+               : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of accumulator

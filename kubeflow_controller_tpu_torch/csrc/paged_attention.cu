@@ -37,13 +37,41 @@
 // visible, so the running max is finite before any fully masked page and
 // such a page contributes exp(-1e30 - m) == 0.
 //
-// This is the simple, correct first version: scalar fp32 FMAs, one page
-// in flight per block, four __syncthreads per page. The next design
-// questions (recorded in PERF.md): at B=8 the decode grid is 64 blocks on
-// 132 SMs, so a split over pages (flash-decoding) with a second reduce
-// pass would fill the card; cp.async/TMA double buffering would overlap
-// the page loads with the math; wgmma would take the chunk kernel's
-// [W*rep, D] x [D, bs] products.
+// paged_decode_kernel, and paged_chunk_kernel for fp32 queries, are the
+// simple first versions: scalar fp32 FMAs, one page in flight per block,
+// four __syncthreads per page.
+//
+// paged_chunk_mma_kernel is the chunk attention for bf16 queries over
+// bf16 or int8 pools at head_dim 64 and 128 (every chunk the engine
+// runs); kfc_paged_chunk picks it by dtype and head_dim. At the serving
+// shape (one slot, W 16, 8 KV heads, rep 4, 240 cached columns) the first
+// kernel ran 8 blocks on 132 SMs, each walking 18 pages one after the
+// other: a chain of latencies at ~1300x the byte bound. Its design:
+//   - the page walk is split flash-decoding style: grid (part, row
+//     group, slot x KV head). Part 0 is the intra-chunk causal tile;
+//     part p >= 1 walks its own run of 16-column tiles of the pool. The
+//     host sizes the parts so that the grid covers the SMs, by the live
+//     columns where it knows them (prefill: its offset) or by the width
+//     cap (verify: pos is on the device, and a part past its slot's live
+//     columns writes an empty partial at once);
+//   - only columns c < min(pos[b], nb * bs) are walked: a page that holds
+//     no visible column is never read (exact: once the running max is
+//     finite, a fully masked page adds exp(-1e30 - m) == 0 and alpha 1);
+//   - every part writes its fp32 (m, l, acc) to scratch the wrapper
+//     allocates; the last block to finish a (slot, head, row group),
+//     found by a counter the kernel resets itself, merges them. One
+//     launch a call: the serving step is host-bound, and a second launch
+//     per layer would cost more than it saves;
+//   - pages arrive by 16-byte cp.async copies of the pool's own type into
+//     a ring of two stages (no fp32 staging);
+//   - a warp owns 16 query rows (position, rep pairs; a block 64) and
+//     runs the scores and P V as mma.sync m16n8k16 bf16 with fp32 sums,
+//     the softmax in registers. int8 codes are exact in bf16: K's scale
+//     multiplies the fp32 score column, V's scale is folded into P
+//     before the product; no dequantized copy is formed. P goes into the
+//     product as a bf16 hi/lo pair, so the product carries ~16 bits of P
+//     (the plain version is fp32 throughout; a single bf16 P would cost
+//     2^-9 of |v|, ~25 for int8 rows).
 //
 // The C functions return cudaGetLastError() after the launch; the Python
 // wrapper raises when it is not cudaSuccess.
@@ -51,6 +79,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -285,6 +315,399 @@ __global__ void paged_chunk_kernel(
   }
 }
 
+// -- chunk attention on the tensor cores (bf16 queries) -------------------------
+constexpr int kMmaThreads = 128;   // four warps of 16 query rows
+constexpr int kMmaRows = 64;       // query rows of one block (a row group)
+constexpr int kTileCols = 16;      // columns of one tile (one mma k-step of P V)
+constexpr int kMaxParts = 64;      // part 0 and at most 63 runs of pool tiles
+
+using bf16 = __nv_bfloat16;
+
+struct ChunkArgs {
+  const bf16* q;            // [B, W, G, rep, D]
+  const bf16* k_new;        // [B, W, G, D]
+  const bf16* v_new;
+  const void* k_pool;       // [n_pages, bs, G, D] bf16 or int8
+  const void* v_pool;
+  const float* k_scale;     // [n_pages, bs, G] or null
+  const float* v_scale;
+  const int* tables;        // [B, mb]
+  const int* pos;           // [B], or null: every slot at pos_host
+  bf16* out;                // [B, W, G, rep, D]
+  float* part_acc;          // [B * G * RG * parts, 64, D], parts > 1
+  float* part_ml;           // [B * G * RG * parts, 64, 2]
+  int* counters;            // [B * G * RG], zero between launches
+  int W, G, rep, bs, mb, nb, last_page, parts, tiles_per_part, pos_host;
+  float sm_scale;
+};
+
+// Bytes of one stage row: the row of D elements and 16 bytes of padding,
+// so that the 8 rows a fragment load touches fall on distinct banks.
+template <int D, typename T>
+__host__ __device__ constexpr int stage_row_bytes() {
+  return D * static_cast<int>(sizeof(T)) + 16;
+}
+
+// One stage: K rows, V rows (kTileCols each), K and V scales.
+template <int D>
+__host__ __device__ constexpr int stage_bytes() {
+  return 2 * kTileCols * stage_row_bytes<D, bf16>() + 2 * kTileCols * 4;
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two consecutive elements of a stage row as a bf16 pair (low half the
+// first); int8 codes convert exactly.
+__device__ __forceinline__ uint32_t pair_at(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+__device__ __forceinline__ uint32_t pair_at(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return hopper::pack_bf16(static_cast<float>(c.x), static_cast<float>(c.y));
+}
+
+// Two elements of one column from two rows as a bf16 pair.
+__device__ __forceinline__ uint32_t pair_of(const bf16* lo, const bf16* hi) {
+  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(lo)) |
+         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi)) << 16);
+}
+__device__ __forceinline__ uint32_t pair_of(const int8_t* lo, const int8_t* hi) {
+  return hopper::pack_bf16(static_cast<float>(*lo), static_cast<float>(*hi));
+}
+
+// Starts the copies of tile `tile` of a part into `stage`: kTileCols K and
+// V rows of KV head g of slot b. Fresh rows (pool == false) come from
+// k_new/v_new, rows past W zero-filled; pool rows through the slot's
+// table (sentinel ids clamped to the last real page; columns past the
+// table read its last entry: both are masked). int8 rows bring their
+// scales.
+template <int D, typename T>
+__device__ __forceinline__ void load_tile(const ChunkArgs& a, int b, int g, bool pool, int tile,
+                                          unsigned char* stage) {
+  constexpr int kRow = stage_row_bytes<D, T>();
+  constexpr int kChunks = D * static_cast<int>(sizeof(T)) / 16;
+  const uint32_t base = hopper::smem_u32(stage);
+  const int c0 = tile * kTileCols;
+  for (int i = threadIdx.x; i < 2 * kTileCols * kChunks; i += kMmaThreads) {
+    const int kv = i / (kTileCols * kChunks);
+    const int row = (i / kChunks) % kTileCols, ch = i % kChunks, c = c0 + row;
+    const uint32_t dst = base + (kv * kTileCols + row) * kRow + ch * 16;
+    const unsigned char* src;
+    if (!pool) {
+      if (c >= a.W) {
+        asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n" :: "r"(dst), "r"(0) : "memory");
+        continue;
+      }
+      src = reinterpret_cast<const unsigned char*>(
+          (kv ? a.v_new : a.k_new) + ((static_cast<size_t>(b) * a.W + c) * a.G + g) * D);
+    } else {
+      const int j = min(c / a.bs, a.mb - 1);
+      const int page = min(max(a.tables[static_cast<size_t>(b) * a.mb + j], 0), a.last_page);
+      const size_t tok = static_cast<size_t>(page) * a.bs + c % a.bs;
+      src = static_cast<const unsigned char*>(kv ? a.v_pool : a.k_pool) +
+            (tok * a.G + g) * D * sizeof(T);
+    }
+    hopper::cp_async16(dst, src + ch * 16);
+  }
+  if (pool && a.k_scale != nullptr && threadIdx.x < 2 * kTileCols) {
+    const int kv = threadIdx.x / kTileCols, row = threadIdx.x % kTileCols, c = c0 + row;
+    const int j = min(c / a.bs, a.mb - 1);
+    const int page = min(max(a.tables[static_cast<size_t>(b) * a.mb + j], 0), a.last_page);
+    const size_t tok = static_cast<size_t>(page) * a.bs + c % a.bs;
+    cp_async4(base + 2 * kTileCols * kRow + threadIdx.x * 4,
+              (kv ? a.v_scale : a.k_scale) + tok * a.G + g);
+  }
+}
+
+// Online-softmax state of one warp's 16 rows: each thread holds rows
+// r0 = lane / 4 and r0 + 8 (hh = 0, 1), the output columns 8 n + 2 (lane
+// % 4) + {0, 1} of each n (mma C layout), its share of l, and m.
+template <int D>
+struct RowState {
+  float o[D / 8][4];
+  float m[2], l[2];
+};
+
+// One tile's scores, softmax update and P V for one warp. `visible(hh,
+// col)` says whether tile column col (0..15) is visible to row hh.
+template <int D, typename T, typename Visible>
+__device__ __forceinline__ void tile_math(const unsigned char* stage, const uint32_t (&qa)[D / 16][4],
+                                          RowState<D>& st, float sm_scale, bool scaled,
+                                          Visible visible) {
+  constexpr int kRow = stage_row_bytes<D, T>();
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int lane = threadIdx.x & 31, g8 = lane >> 2, q4 = lane & 3;
+  const unsigned char* k_rows = stage;
+  const unsigned char* v_rows = stage + kTileCols * kRow;
+  const float* scales = reinterpret_cast<const float*>(stage + 2 * kTileCols * kRow);
+
+  float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const T* kr = reinterpret_cast<const T*>(k_rows + (8 * nt + g8) * kRow) + 16 * kk + 2 * q4;
+      mma_16816(s[nt], qa[kk], pair_at(kr), pair_at(kr + 8));
+    }
+  }
+  float mx[2] = {kMaskValue, kMaskValue};
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * nt + 2 * q4 + (e & 1), hh = e >> 1;
+      float x = s[nt][e] * sm_scale;
+      if (scaled) x *= scales[col];
+      x = visible(hh, col) ? x : kMaskValue;
+      s[nt][e] = x;
+      mx[hh] = fmaxf(mx[hh], x);
+    }
+  }
+  float alpha[2], m_log2[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float v = fmaxf(mx[hh], __shfl_xor_sync(0xffffffffu, mx[hh], 1));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+    const float m_new = fmaxf(st.m[hh], v);
+    alpha[hh] = exp2_approx((st.m[hh] - m_new) * kLog2e);
+    st.m[hh] = m_new;
+    m_log2[hh] = m_new * kLog2e;
+  }
+  // p, its share of l, and p (times V's scale) as a bf16 hi/lo pair in
+  // the A layout: a[0] = (row, cols 2q..), a[1] = (row + 8, ...), a[2],
+  // a[3] = the same at cols + 8.
+  uint32_t hi[4], lo[4];
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float pv[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = exp2_approx(fmaf(s[nt][2 * hh + e], kLog2e, -m_log2[hh]));
+        sum[hh] += p;
+        pv[e] = scaled ? p * scales[kTileCols + 8 * nt + 2 * q4 + e] : p;
+      }
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(pv[0], pv[1]);
+      const float2 hf = __bfloat1622float2(h2);
+      hi[2 * nt + hh] = *reinterpret_cast<const uint32_t*>(&h2);
+      lo[2 * nt + hh] = hopper::pack_bf16(pv[0] - hf.x, pv[1] - hf.y);
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) st.l[hh] = st.l[hh] * alpha[hh] + sum[hh];
+  const uint32_t a_hi[4] = {hi[0], hi[1], hi[2], hi[3]};
+  const uint32_t a_lo[4] = {lo[0], lo[1], lo[2], lo[3]};
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    st.o[n][0] *= alpha[0];
+    st.o[n][1] *= alpha[0];
+    st.o[n][2] *= alpha[1];
+    st.o[n][3] *= alpha[1];
+    const T* v0 = reinterpret_cast<const T*>(v_rows + 2 * q4 * kRow) + 8 * n + g8;
+    const T* v1 = reinterpret_cast<const T*>(v_rows + (2 * q4 + 1) * kRow) + 8 * n + g8;
+    const T* v8 = reinterpret_cast<const T*>(v_rows + (2 * q4 + 8) * kRow) + 8 * n + g8;
+    const T* v9 = reinterpret_cast<const T*>(v_rows + (2 * q4 + 9) * kRow) + 8 * n + g8;
+    const uint32_t b0 = pair_of(v0, v1), b1 = pair_of(v8, v9);
+    mma_16816(st.o[n], a_hi, b0, b1);
+    mma_16816(st.o[n], a_lo, b0, b1);
+  }
+}
+
+// Walks tiles [t0, t1) of one part through a ring of two stages.
+template <int D, typename T, typename Visible>
+__device__ __forceinline__ void walk(const ChunkArgs& a, int b, int g, bool pool, int t0, int t1,
+                                     unsigned char* smem, const uint32_t (&qa)[D / 16][4],
+                                     RowState<D>& st, bool scaled, Visible visible) {
+  const int n = t1 - t0;
+  for (int i = 0; i < 2; ++i) {
+    if (i < n) load_tile<D, T>(a, b, g, pool, t0 + i, smem + i * stage_bytes<D>());
+    hopper::cp_async_commit();
+  }
+  for (int i = 0; i < n; ++i) {
+    unsigned char* stage = smem + (i & 1) * stage_bytes<D>();
+    hopper::cp_async_wait<1>();
+    __syncthreads();
+    const int c0 = (t0 + i) * kTileCols;
+    tile_math<D, T>(stage, qa, st, a.sm_scale, scaled,
+                    [&](int hh, int col) { return visible(hh, c0 + col); });
+    __syncthreads();
+    if (i + 2 < n) load_tile<D, T>(a, b, g, pool, t0 + i + 2, stage);
+    hopper::cp_async_commit();
+  }
+}
+
+// grid (parts, row groups, B * G), kMmaThreads threads. Block (part, rg,
+// b * G + g) computes query rows [64 rg, 64 rg + 64) of (slot b, KV head
+// g) over its part's columns; with one part it writes the output, else
+// its partial, and the last of the parts to finish merges.
+template <int D, typename TKV>
+__global__ void __launch_bounds__(kMmaThreads)
+paged_chunk_mma_kernel(const ChunkArgs a) {
+  extern __shared__ __align__(16) unsigned char chunk_smem[];
+  unsigned char* smem = chunk_smem;
+  const int part = blockIdx.x, rg = blockIdx.y;
+  const int b = blockIdx.z / a.G, g = blockIdx.z % a.G;
+  const int R = a.W * a.rep;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, q4 = lane & 3;
+  const int row0 = rg * kMmaRows + warp * 16 + g8;   // and row0 + 8
+
+  // This thread's query fragments: rows row0 and row0 + 8 (zero past R).
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = row0 + 8 * hh;
+    const bf16* qr = nullptr;
+    if (r < R) {
+      const int w = r / a.rep, h = r % a.rep;
+      qr = a.q + (((static_cast<size_t>(b) * a.W + w) * a.G + g) * a.rep + h) * D;
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      qa[kk][hh] = qr ? pair_at(qr + 16 * kk + 2 * q4) : 0u;
+      qa[kk][2 + hh] = qr ? pair_at(qr + 16 * kk + 8 + 2 * q4) : 0u;
+    }
+  }
+  RowState<D> st;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st.o[n][e] = 0.f;
+  st.m[0] = st.m[1] = neg_inf();
+  st.l[0] = st.l[1] = 0.f;
+
+  // Pool columns c < live are visible (the width cap bounds the walk).
+  const int live = min(a.pos != nullptr ? a.pos[b] : a.pos_host, a.nb * a.bs);
+  bool empty = false;
+  if (part == 0) {
+    // The intra-chunk causal tile first: row r sees fresh column c <= r /
+    // rep; the tiles past the group's last row's diagonal are skipped.
+    const int last = min(rg * kMmaRows + kMmaRows, R) - 1;
+    const int cols = min(a.W, last / a.rep + 1);
+    const int rep = a.rep;
+    walk<D, bf16>(a, b, g, false, 0, (cols + kTileCols - 1) / kTileCols, smem, qa, st, false,
+                  [&](int hh, int c) { return c < a.W && c <= (row0 + 8 * hh) / rep; });
+  } else {
+    const int live_tiles = (live + kTileCols - 1) / kTileCols;
+    const int t0 = (part - 1) * a.tiles_per_part;
+    const int t1 = min(t0 + a.tiles_per_part, live_tiles);
+    empty = t0 >= t1;
+    if (!empty)
+      walk<D, TKV>(a, b, g, true, t0, t1, smem, qa, st, a.k_scale != nullptr,
+                   [&](int, int c) { return c < live; });
+  }
+
+  float l_row[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float l = st.l[hh];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_row[hh] = l;
+  }
+  const int bgr = blockIdx.z * gridDim.y + rg;
+  auto out_at = [&](int r) {
+    const int w = r / a.rep, h = r % a.rep;
+    return a.out + (((static_cast<size_t>(b) * a.W + w) * a.G + g) * a.rep + h) * D;
+  };
+  if (a.parts == 1) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = row0 + 8 * hh;
+      if (r >= R) continue;
+      const float inv = 1.f / l_row[hh];
+      bf16* o = out_at(r);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(o + 8 * n + 2 * q4) =
+            hopper::pack_bf16(st.o[n][2 * hh] * inv, st.o[n][2 * hh + 1] * inv);
+    }
+    return;
+  }
+
+  // Partial of this part: m, l (l == 0 marks an empty part) and acc.
+  const size_t pidx = static_cast<size_t>(bgr) * a.parts + part;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int rl = warp * 16 + g8 + 8 * hh;
+    if (q4 == 0)
+      *reinterpret_cast<float2*>(a.part_ml + (pidx * kMmaRows + rl) * 2) =
+          make_float2(empty ? neg_inf() : st.m[hh], empty ? 0.f : l_row[hh]);
+    if (empty) continue;
+    float* acc = a.part_acc + (pidx * kMmaRows + rl) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(acc + 8 * n + 2 * q4) =
+          make_float2(st.o[n][2 * hh], st.o[n][2 * hh + 1]);
+  }
+  __threadfence();
+  __syncthreads();
+  int* flag = reinterpret_cast<int*>(smem + 2 * stage_bytes<D>());
+  float* wts = reinterpret_cast<float*>(flag + 4);      // [parts][64]
+  float* inv_l = wts + a.parts * kMmaRows;               // [64]
+  if (threadIdx.x == 0) flag[0] = atomicAdd(a.counters + bgr, 1) == a.parts - 1;
+  __syncthreads();
+  if (!flag[0]) return;
+  __threadfence();
+
+  // The last part merges: out = sum_p w_p acc_p / sum_p w_p l_p with w_p
+  // = exp(m_p - max m); empty parts weigh 0 and their acc is not read.
+  const size_t first = static_cast<size_t>(bgr) * a.parts;
+  for (int rl = threadIdx.x; rl < kMmaRows; rl += kMmaThreads) {
+    float mmax = neg_inf();
+    for (int p = 0; p < a.parts; ++p) {
+      const float2 ml = __ldcg(reinterpret_cast<const float2*>(a.part_ml) + (first + p) * kMmaRows + rl);
+      if (ml.y > 0.f) mmax = fmaxf(mmax, ml.x);
+    }
+    float l = 0.f;
+    for (int p = 0; p < a.parts; ++p) {
+      const float2 ml = __ldcg(reinterpret_cast<const float2*>(a.part_ml) + (first + p) * kMmaRows + rl);
+      const float w = ml.y > 0.f ? expf(ml.x - mmax) : 0.f;
+      wts[p * kMmaRows + rl] = w;
+      l += w * ml.y;
+    }
+    inv_l[rl] = 1.f / l;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kMmaRows * (D / 4); i += kMmaThreads) {
+    const int rl = i / (D / 4), d0 = (i % (D / 4)) * 4, r = rg * kMmaRows + rl;
+    if (r >= R) continue;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int p = 0; p < a.parts; ++p) {
+      const float w = wts[p * kMmaRows + rl];
+      if (w == 0.f) continue;
+      const float4 x = __ldcg(reinterpret_cast<const float4*>(
+          a.part_acc + ((first + p) * kMmaRows + rl) * D + d0));
+      acc.x = fmaf(w, x.x, acc.x);
+      acc.y = fmaf(w, x.y, acc.y);
+      acc.z = fmaf(w, x.z, acc.z);
+      acc.w = fmaf(w, x.w, acc.w);
+    }
+    const float il = inv_l[rl];
+    *reinterpret_cast<uint2*>(out_at(r) + d0) =
+        make_uint2(hopper::pack_bf16(acc.x * il, acc.y * il), hopper::pack_bf16(acc.z * il, acc.w * il));
+  }
+  if (threadIdx.x == 0) a.counters[bgr] = 0;   // ready for the next launch
+}
+
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
@@ -339,6 +762,16 @@ int launch_chunk(const void* q, const void* k_new, const void* v_new,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, typename TKV>
+int launch_chunk_mma(const ChunkArgs& a, int B, int row_groups, cudaStream_t stream) {
+  const size_t bytes = 2 * stage_bytes<D>() + 16 + static_cast<size_t>(a.parts + 1) * kMmaRows * 4;
+  auto kernel = paged_chunk_mma_kernel<D, TKV>;
+  cudaError_t err = prepare(kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(a.parts, row_groups, B * a.G), kMmaThreads, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // q_dtype: 0 = float32, 1 = bfloat16 (q, k_new, v_new and out share it).
@@ -367,13 +800,42 @@ extern "C" int kfc_paged_decode(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+
+// q_dtype: 0 = float32, 1 = bfloat16 (q, k_new, v_new and out share it).
+// quantized: pools are int8 with float32 scales; else pools have q's type.
+// bf16 queries at head_dim 64 and 128 take paged_chunk_mma_kernel in
+// `parts` parts of `tiles_per_part` 16-column pool tiles (part_acc,
+// part_ml and counters as ChunkArgs says; unused with one part; pos may
+// be null, every slot then at pos_host); every other call takes
+// paged_chunk_kernel, which ignores those six and needs pos.
 extern "C" int kfc_paged_chunk(
     const void* q, const void* k_new, const void* v_new, const void* k_pool,
     const void* v_pool, const void* k_scale, const void* v_scale,
-    const void* tables, const void* pos, void* out, int B, int W, int G,
-    int rep, int D, int bs, int mb, int nb, int last_page, float sm_scale,
-    int q_dtype, int quantized, void* stream) {
+    const void* tables, const void* pos, void* out, void* part_acc,
+    void* part_ml, void* counters, int B, int W, int G, int rep, int D,
+    int bs, int mb, int nb, int last_page, int parts, int tiles_per_part,
+    int pos_host, float sm_scale, int q_dtype, int quantized, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (q_dtype == 1 && (D == 64 || D == 128)) {
+    if (parts < 1 || parts > kMaxParts || tiles_per_part < 1 ||
+        (parts > 1 && (part_acc == nullptr || part_ml == nullptr || counters == nullptr)) ||
+        B <= 0 || W <= 0 || rep <= 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const ChunkArgs a{static_cast<const bf16*>(q), static_cast<const bf16*>(k_new),
+                      static_cast<const bf16*>(v_new), k_pool, v_pool,
+                      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                      static_cast<const int*>(tables), static_cast<const int*>(pos),
+                      static_cast<bf16*>(out), static_cast<float*>(part_acc),
+                      static_cast<float*>(part_ml), static_cast<int*>(counters), W, G, rep, bs,
+                      mb, nb, last_page, parts, tiles_per_part, pos_host, sm_scale};
+    const int row_groups = (W * rep + kMmaRows - 1) / kMmaRows;
+    if (D == 64)
+      return quantized ? launch_chunk_mma<64, int8_t>(a, B, row_groups, s)
+                       : launch_chunk_mma<64, bf16>(a, B, row_groups, s);
+    return quantized ? launch_chunk_mma<128, int8_t>(a, B, row_groups, s)
+                     : launch_chunk_mma<128, bf16>(a, B, row_groups, s);
+  }
+  if (pos == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (q_dtype == 0 && !quantized)
     return launch_chunk<float, float>(q, k_new, v_new, k_pool, v_pool, nullptr, nullptr,
                                       tables, pos, out, B, W, G, rep, D, bs, mb, nb,

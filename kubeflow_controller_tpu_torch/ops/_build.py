@@ -107,11 +107,14 @@ def load() -> ctypes.CDLL:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
         "kfc_paged_decode": [P] * 8 + [I] * 8 + [F, I, I, P],
-        "kfc_paged_chunk": [P] * 10 + [I] * 9 + [F, I, I, P],
+        "kfc_paged_chunk": [P] * 13 + [I] * 12 + [F, I, I, P],
         "kfc_flash_fwd": [P] * 8 + [I] * 5 + [F, I, P],
         "kfc_rope_rotate": [P] * 6 + [I] * 4 + [P],
         "kfc_flash_bwd_kv": [P] * 12 + [I] * 5 + [F, I, P],
         "kfc_flash_bwd_dq": [P] * 10 + [I] * 5 + [F, I, P],
+        "kfc_flash_bwd_prep": [P] * 4 + [I] * 4 + [P],
+        "kfc_flash_bwd_post": [P] * 4 + [I] * 3 + [P],
+        "kfc_flash_bwd_fused": [P] * 12 + [I] * 5 + [F, I, P],
         "kfc_int8_quantize_rows": [P] * 3 + [I] * 2 + [P],
         "kfc_int8_matmul": [P] * 5 + [I] * 3 + [P],
     }

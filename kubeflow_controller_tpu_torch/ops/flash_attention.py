@@ -11,7 +11,11 @@ on CUDA tensors and its plain PyTorch version on CPU tensors:
   forward kernel on plain bf16 tiles; at every other head_dim one kernel
   that rotates both on load;
 * :func:`flash_bwd_fused` — dq, dk and dv from one score recompute
-  (replaces ``_bwd_fused_kernel``);
+  (replaces ``_bwd_fused_kernel``). At head_dim 64 and 128 four launches:
+  :func:`rope_rotate` (with rope tables), :func:`flash_bwd_prep` (delta
+  and the zeroed dq scratch), the warpgroup kernel on plain bf16 tiles,
+  and :func:`flash_bwd_post` (dq counter-rotated and cast); at every
+  other head_dim one kernel that rotates on load;
 * :func:`flash_bwd_dkdv` — the two-pass backward's first pass, dk and dv
   (replaces ``_bwd_dkdv_kernel``);
 * :func:`flash_bwd_dq` — its second pass, dq (replaces
@@ -52,13 +56,14 @@ RopeTables = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
 #: Kernel launches since the last :func:`reset_launches`, by kernel.
 LAUNCHES: Dict[str, int] = {
-    "rope_rotate": 0, "flash_fwd": 0, "flash_bwd_fused": 0,
-    "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
+    "rope_rotate": 0, "flash_fwd": 0, "flash_bwd_prep": 0,
+    "flash_bwd_fused": 0, "flash_bwd_post": 0, "flash_bwd_dkdv": 0,
+    "flash_bwd_dq": 0,
 }
 
-#: The head dims the warpgroup forward kernel is built for; there Q and K
-#: are rotated by the prepass. ``kfc_flash_fwd`` picks its kernel by the same
-#: rule.
+#: The head dims the warpgroup forward and fused backward kernels are
+#: built for; there Q and K are rotated by the prepass. ``kfc_flash_fwd``
+#: picks its kernel by the same rule.
 WGMMA_HEAD_DIMS = (64, 128)
 
 
@@ -236,6 +241,14 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
+def flash_bwd_post_plain(dq_acc: torch.Tensor, rope_tables) -> torch.Tensor:
+    """fp32 ``[B, S, H, D]`` dq in rotation space -> bf16 dq: counter-rotated
+    (``-S``) in fp32 and cast once."""
+    if rope_tables is not None:
+        dq_acc = _rope_rot(dq_acc, rope_tables[0], -rope_tables[1])
+    return dq_acc.to(torch.bfloat16)
+
+
 def flash_bwd_dkdv_plain(q, k, v, do, lse, delta, segment_ids=None,
                          rope_tables=None, causal=True):
     """Pass 1 of the two-pass backward: ``(dk, dv)`` in k's/v's layout
@@ -348,6 +361,59 @@ def rope_rotate(q: torch.Tensor, k: torch.Tensor, rope_tables):
     return q_out, k_out
 
 
+def flash_bwd_prep(o: torch.Tensor, do: torch.Tensor):
+    """``(delta [B, H, S] fp32, dq scratch [B, S, H, D] fp32 zeros)``: the
+    fused backward's prepass kernel on CUDA tensors (one launch for
+    both), :func:`attention_delta` and ``torch.zeros`` on CPU tensors."""
+    b, s, h, d = o.shape
+    if o.device.type == "cpu":
+        return attention_delta(o, do), torch.zeros(o.shape, dtype=torch.float32)
+    from kubeflow_controller_tpu_torch.ops import _build
+
+    _check("flash_bwd_prep", o, do, do)
+    if d not in WGMMA_HEAD_DIMS or do.shape != o.shape:
+        raise ValueError(f"flash_bwd_prep: o and do [B, S, H, D] with D in "
+                         f"{WGMMA_HEAD_DIMS} (got {tuple(o.shape)}, {tuple(do.shape)})")
+    delta = torch.empty((b, h, s), dtype=torch.float32, device=o.device)
+    dq_acc = torch.empty(o.shape, dtype=torch.float32, device=o.device)
+    rc = _build.load().kfc_flash_bwd_prep(
+        o.data_ptr(), do.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
+        b, s, h, d, _stream(o.device))
+    _raise_on(rc, "flash_bwd_prep")
+    LAUNCHES["flash_bwd_prep"] += 1
+    return delta, dq_acc
+
+
+def flash_bwd_post(dq_acc: torch.Tensor, rope_tables: RopeTables) -> torch.Tensor:
+    """bf16 dq from the fused backward's fp32 scratch: the postprocess
+    kernel on CUDA tensors, :func:`flash_bwd_post_plain` on CPU tensors
+    (the same roundings: bit for bit)."""
+    if dq_acc.device.type == "cpu":
+        return flash_bwd_post_plain(dq_acc, rope_tables)
+    from kubeflow_controller_tpu_torch.ops import _build
+
+    b, s, h, d = dq_acc.shape
+    if dq_acc.dtype != torch.float32 or not dq_acc.is_contiguous() or d % 16:
+        raise ValueError("flash_bwd_post: dq_acc must be contiguous float32 "
+                         "[B, S, H, D], D a multiple of 16")
+    c_p = s_p = None
+    if rope_tables is not None:
+        c, st = rope_tables
+        for t in (c, st):
+            if (t.shape != (b, s, d) or t.dtype != torch.float32
+                    or t.device != dq_acc.device or not t.is_contiguous()):
+                raise ValueError("flash_bwd_post: rope tables must be contiguous "
+                                 f"float32 [B, S, D] on {dq_acc.device}")
+        c_p, s_p = c.data_ptr(), st.data_ptr()
+    dq = torch.empty(dq_acc.shape, dtype=torch.bfloat16, device=dq_acc.device)
+    rc = _build.load().kfc_flash_bwd_post(
+        dq_acc.data_ptr(), c_p, s_p, dq.data_ptr(), b * s, h, d,
+        _stream(dq_acc.device))
+    _raise_on(rc, "flash_bwd_post")
+    LAUNCHES["flash_bwd_post"] += 1
+    return dq
+
+
 def _fwd_kernel(q, k, v, segment_ids, rope_tables, causal):
     from kubeflow_controller_tpu_torch.ops import _build
 
@@ -394,6 +460,33 @@ def _bwd_kv_kernel(name, q, k, v, do, lse, delta, segment_ids, rope_tables,
     return dk, dv
 
 
+def _bwd_fused_wgmma(q, k, v, o, lse, do, segment_ids, rope_tables, causal):
+    """The fused backward at head_dim 64 and 128: rope prepass, delta and
+    scratch prepass, the warpgroup kernel (dk, dv; dq into the scratch by
+    16-byte reductions, in a launch-dependent order), dq postprocess."""
+    from kubeflow_controller_tpu_torch.ops import _build
+
+    name = "flash_bwd_fused"
+    seg, seg_p, c_p, s_p = _check(name, q, k, v, o, do, lse,
+                                  segment_ids=segment_ids,
+                                  rope_tables=rope_tables)
+    b, s, h, d = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or o.shape != q.shape:
+        raise ValueError(f"{name}: o and do must match q")
+    qr, kr = rope_rotate(q, k, rope_tables) if rope_tables is not None else (q, k)
+    delta, dq_acc = flash_bwd_prep(o, do)
+    _check_residuals(name, lse, delta, (b, h, s))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rc = _build.load().kfc_flash_bwd_fused(
+        qr.data_ptr(), kr.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), seg_p, c_p, s_p, dk.data_ptr(),
+        dv.data_ptr(), dq_acc.data_ptr(), b, s, h, k.shape[2], d,
+        float(d ** -0.5), int(causal), _stream(q.device))
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
+    return flash_bwd_post(dq_acc, rope_tables), dk, dv
+
+
 def _dq_kernel(q, k, v, do, lse, delta, segment_ids, rope_tables, causal):
     from kubeflow_controller_tpu_torch.ops import _build
 
@@ -428,20 +521,21 @@ def flash_fwd(q, k, v, segment_ids=None, rope_tables: RopeTables = None,
 
 def flash_bwd_fused(q, k, v, o, lse, do, segment_ids=None,
                     rope_tables: RopeTables = None, causal: bool = True):
-    """``(dq, dk, dv)`` from one launch. On CUDA, dq tiles from
-    different k-tiles meet in an fp32 scratch through ``atomicAdd``, so
+    """``(dq, dk, dv)`` from one score recompute. On CUDA, dq tiles from
+    different k-tiles meet in an fp32 scratch through atomic adds, so
     dq's fp32 sums run in a launch-dependent order before the one
     counter-rotation and cast (dk and dv are deterministic)."""
     if q.device.type == "cpu":
         return flash_bwd_fused_plain(q, k, v, o, lse, do, segment_ids,
                                      rope_tables, causal)
+    if q.shape[-1] in WGMMA_HEAD_DIMS:
+        return _bwd_fused_wgmma(q, k, v, o, lse, do, segment_ids, rope_tables,
+                                causal)
     delta = attention_delta(o, do)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk, dv = _bwd_kv_kernel("flash_bwd_fused", q, k, v, do, lse, delta,
                             segment_ids, rope_tables, causal, dq_acc)
-    if rope_tables is not None:
-        dq_acc = _rope_rot(dq_acc, rope_tables[0], -rope_tables[1])
-    return dq_acc.to(q.dtype), dk, dv
+    return flash_bwd_post_plain(dq_acc, rope_tables), dk, dv
 
 
 def flash_bwd_dkdv(q, k, v, do, lse, delta, segment_ids=None,

@@ -25,6 +25,12 @@ kernel to the plain version.
 ``LAUNCHES`` counts kernel launches per kernel (``paged_decode``,
 ``paged_chunk``): each wrapper adds one where it launches, and nowhere
 else, so a run can show that its main path went through the kernels.
+
+Chunk attention with bf16 queries at head_dim 64 and 128
+(``MMA_HEAD_DIMS``) launches the tensor-core kernel, which splits each
+(slot, KV head)'s walk into parts (:func:`chunk_parts`) and walks only
+the columns ``< min(pos[b], nb * bs)``; every other chunk call launches
+the first kernel.
 """
 
 from __future__ import annotations
@@ -40,6 +46,18 @@ LAUNCHES: Dict[str, int] = {"paged_decode": 0, "paged_chunk": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: Head dims of the tensor-core chunk kernel (bf16 queries).
+MMA_HEAD_DIMS = (64, 128)
+TILE_COLS = 16        # pool columns of one tile of that kernel
+ROWS_PER_BLOCK = 64   # query rows (position, rep pairs) of one block
+MAX_PARTS = 64        # part 0 (the intra-chunk tile) and 63 runs of pool tiles
+TARGET_BLOCKS = 264   # two blocks for each of the H100's 132 SMs
+
+# Merge counters of the tensor-core chunk kernel, by device: zeros the
+# kernel leaves zero after every launch (the last block of each (slot,
+# head, row group) resets its own).
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -52,6 +70,21 @@ def pages_to_walk(width: Optional[int], bs: int, mb: int) -> int:
     compute it (it fixes both the bytes read and the reduction order)."""
     span = mb * bs if width is None else min(width, mb * bs)
     return min(max(1, -(-span // bs)), mb)
+
+
+def chunk_parts(groups: int, cols: int) -> tuple:
+    """``(parts, tiles_per_part)`` of the tensor-core chunk kernel for
+    ``groups`` = slots x KV heads x row groups and ``cols`` pool columns
+    to cover: part 0 is the intra-chunk tile, the others split the
+    ``ceil(cols / 16)`` tiles into equal runs, as many as bring the grid
+    to ``TARGET_BLOCKS`` (at most ``MAX_PARTS`` in all)."""
+    tiles = -(-cols // TILE_COLS)
+    if tiles == 0:
+        return 1, 1
+    want = max(1, -(-TARGET_BLOCKS // groups) - 1)
+    runs = min(tiles, want, MAX_PARTS - 1)
+    per = -(-tiles // runs)
+    return 1 + -(-tiles // per), per
 
 
 # -- plain PyTorch versions ---------------------------------------------------
@@ -238,20 +271,34 @@ def _decode_kernel(q, k_pool, v_pool, tables, pos, k_scale, v_scale,
     return out
 
 
+def _counters(dev, n: int) -> torch.Tensor:
+    buf = _COUNTERS.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = _COUNTERS[dev] = torch.zeros(max(n, 64), dtype=torch.int32, device=dev)
+    return buf
+
+
 def _chunk_kernel(q, k_new, v_new, k_pool, v_pool, tables, pos, k_scale,
-                  v_scale, width, sm_scale, out_dtype):
+                  v_scale, width, sm_scale, out_dtype, offset=None):
+    """One chunk-kernel launch. With ``offset`` (the prefill's host
+    integer; ``pos`` None) every slot is at that position and the grid is
+    sized by its live columns; else by the width cap, and parts past a
+    slot's ``pos`` exit at once."""
     from kubeflow_controller_tpu_torch.ops import _build
 
     b, w, g, rep, hd = q.shape
     n_pages, bs, g_pool, hd_pool = k_pool.shape
+    mma = q.dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS
+    if pos is None and not mma:
+        pos = torch.full((b,), int(offset), dtype=torch.int32, device=q.device)
     tables = tables.to(torch.int32).contiguous()
-    pos = pos.to(torch.int32).contiguous()
+    pos = None if pos is None else pos.to(torch.int32).contiguous()
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     _check_cuda(q, k_new, v_new, k_pool, v_pool, tables, pos, k_scale,
                 v_scale)
     if ((g_pool, hd_pool) != (g, hd) or k_new.shape != (b, w, g, hd)
             or v_new.shape != k_new.shape or tables.shape[0] != b
-            or pos.shape != (b,)):
+            or (pos is not None and pos.shape != (b,))):
         raise ValueError("paged chunk attention: inconsistent shapes")
     if k_new.dtype != q.dtype or v_new.dtype != q.dtype:
         raise TypeError("k_new/v_new must have the query's dtype")
@@ -259,12 +306,27 @@ def _chunk_kernel(q, k_new, v_new, k_pool, v_pool, tables, pos, k_scale,
         raise TypeError("the chunk kernel writes the query's dtype")
     quantized, ks, vs = _pool_args(q, k_pool, v_pool, k_scale, v_scale)
     mb = tables.shape[1]
+    nb = pages_to_walk(width, bs, mb)
     out = torch.empty_like(q)
+    parts, per, acc_p, ml_p, cnt_p = 1, 1, None, None, None
+    if mma:
+        span = nb * bs if offset is None else min(max(int(offset), 0), nb * bs)
+        groups = b * g * -(-(w * rep) // ROWS_PER_BLOCK)
+        parts, per = chunk_parts(groups, span)
+        if parts > 1:
+            # One buffer: the partial accumulators [groups * parts, 64, D],
+            # then their (m, l) pairs [groups * parts, 64, 2].
+            n_acc = groups * parts * ROWS_PER_BLOCK * hd
+            scratch = torch.empty(n_acc + groups * parts * ROWS_PER_BLOCK * 2,
+                                  dtype=torch.float32, device=q.device)
+            acc_p, ml_p = scratch.data_ptr(), scratch[n_acc:].data_ptr()
+            cnt_p = _counters(q.device, groups).data_ptr()
     rc = _build.load().kfc_paged_chunk(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), ks, vs, tables.data_ptr(), pos.data_ptr(),
-        out.data_ptr(), b, w, g, rep, hd, bs, mb,
-        pages_to_walk(width, bs, mb), n_pages - 1,
+        v_pool.data_ptr(), ks, vs, tables.data_ptr(),
+        None if pos is None else pos.data_ptr(), out.data_ptr(), acc_p, ml_p,
+        cnt_p, b, w, g, rep, hd, bs, mb, nb, n_pages - 1, parts, per,
+        0 if offset is None else int(offset),
         float(hd ** -0.5 if sm_scale is None else sm_scale),
         _DTYPE_CODES[q.dtype], int(quantized), _stream(q.device))
     _raise_on(rc, "paged_chunk")
@@ -344,9 +406,14 @@ def paged_attention_prefill(
     """Chunk-prefill attention for ONE slot: W rows attend the slot's
     cached columns ``< offset`` plus the intra-chunk causal tile. The
     chunk's K/V scatter into the pool stays with the caller, after the
-    layer. Returns ``[W, G, rep, D]``."""
-    pos = torch.full((1,), int(offset), dtype=torch.int32, device=q.device)
-    return paged_attention_verify(
-        q[None], k_new[None], v_new[None], k_pool, v_pool, table_row[None],
-        pos, k_scale=k_scale, v_scale=v_scale, width=width,
-        sm_scale=sm_scale, out_dtype=out_dtype)[0]
+    layer. Returns ``[W, G, rep, D]``. On CUDA the kernel's grid is sized
+    by the offset's live pages (a host integer: no device read)."""
+    if q.device.type == "cpu":
+        pos = torch.full((1,), int(offset), dtype=torch.int32)
+        return paged_chunk_attention_plain(
+            q[None], k_new[None], v_new[None], k_pool, v_pool,
+            table_row[None], pos, k_scale=k_scale, v_scale=v_scale,
+            width=width, sm_scale=sm_scale, out_dtype=out_dtype)[0]
+    return _chunk_kernel(q[None], k_new[None], v_new[None], k_pool, v_pool,
+                         table_row[None], None, k_scale, v_scale, width,
+                         sm_scale, out_dtype, offset=int(offset))[0]

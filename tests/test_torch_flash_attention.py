@@ -272,3 +272,40 @@ def test_flash_wrappers_refuse_non_cpu_non_cuda_tensors():
     lse = torch.zeros((1, 2, 64), device="meta")
     with pytest.raises(RuntimeError, match="CUDA kernel on cuda tensors"):
         tfa.flash_bwd_dq(q, q, q, q, lse, lse)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("segments", [False, True], ids=["dense", "segments"])
+@pytest.mark.parametrize("kv_h", [KVH, H], ids=["gqa", "mha"])
+def test_fused_backward_rotate_once_decomposition(causal, segments, kv_h):
+    """The route the fused backward takes at head_dim 64 and 128: q and k
+    rotated once (the rope prepass), the score recompute on plain tiles
+    with no tables, fp32 dq and dk counter-rotated before the group fold
+    and the cast (dq through the postprocess's plain version, delta and
+    the zeroed scratch through the prepass's). Bit for bit the plain
+    fused backward with tables; within GRAD_TOL of ``jax.grad`` through
+    the JAX package's fused Pallas backward."""
+    q, k, v, ct = _inputs(8, kv_h=kv_h)
+    seg = _segments() if segments else None
+    jt, tt = _tables(True)
+    qt_, kt_, vt_, dot_ = (torch.from_numpy(x) for x in (q, k, v, ct))
+    seg_t = _t(seg)
+    o, lse = tfa.flash_fwd(qt_, kt_, vt_, seg_t, tt, causal)
+    want = tfa.flash_bwd_fused_plain(qt_, kt_, vt_, o, lse, dot_, seg_t, tt, causal)
+
+    qr, kr = tfa.rope_rotate(qt_, kt_, tt)
+    delta, dq_acc = tfa.flash_bwd_prep(o, dot_)
+    assert torch.equal(delta, tfa.attention_delta(o, dot_))
+    assert not dq_acc.any() and dq_acc.dtype == torch.float32
+    qh, kh, p, ds = tfa._bwd_terms(qr, kr, vt_, dot_, lse, delta, seg_t, None, causal)
+    dk, dv = tfa._dkdv_from(qh, p, ds, dot_, tt, kt_, vt_)
+    dq_acc += (ds.to(kh.dtype).float() @ kh.float()).transpose(1, 2)
+    dq = tfa._rope_rot(dq_acc, tt[0], -tt[1]).to(qt_.dtype)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert torch.equal(got, w), name
+    # The postprocess's plain version rounds the same way, then casts to bf16.
+    assert torch.equal(tfa.flash_bwd_post(dq_acc, tt), dq.to(torch.bfloat16))
+    jax_want = _jax_grads(q, k, v, ct, causal, seg, jt, S)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), jax_want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), err_msg=name,
+                                   **GRAD_TOL)

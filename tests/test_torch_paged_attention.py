@@ -218,3 +218,52 @@ def test_pages_to_walk_matches_the_pallas_rule():
         span = MB * BS if width is None else min(width, MB * BS)
         assert tpa.pages_to_walk(width, BS, MB) == min(
             max(1, -(-span // BS)), MB)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("pos", [0, BS + 3, 2 * BS], ids=["pos0", "mid", "boundary"])
+def test_chunk_dead_pages_skip_is_exact(quant, pos):
+    """The chunk kernel walks only pages that hold a visible column (c <
+    pos): capping the plain walk at the live pages, width = max(1,
+    ceil(pos / bs)) * bs, leaves prefill and verify bit for bit as the
+    uncapped walk — once the intra-chunk tile has made the running max
+    finite, a fully masked page adds exp(-1e30 - m) == 0 with alpha 1."""
+    rng = np.random.default_rng(51 + pos + int(quant))
+    g, rep, hd, w = 2, 2, 16, 5
+    k, v, ks, vs = _pools(rng, g, hd, quant, extra_page=False)
+    q = rng.standard_normal((w, g, rep, hd)).astype(np.float32)
+    kn = rng.standard_normal((w, g, hd)).astype(np.float32)
+    vn = rng.standard_normal((w, g, hd)).astype(np.float32)
+    row = rng.permutation(N_BLOCKS)[:MB].astype(np.int32)
+    live = max(1, -(-pos // BS)) * BS
+    assert tpa.pages_to_walk(live, BS, MB) < MB
+    kw = dict(k_scale=_t(ks), v_scale=_t(vs))
+    pre = [tpa.paged_attention_prefill(
+        _t(q), _t(kn), _t(vn), _t(k), _t(v), _t(row), pos, width=cap, **kw)
+        for cap in (live, None)]
+    assert torch.equal(pre[0], pre[1])
+    ver = [tpa.paged_attention_verify(
+        _t(q)[None], _t(kn)[None], _t(vn)[None], _t(k), _t(v), _t(row)[None],
+        torch.tensor([pos], dtype=torch.int32), width=cap, **kw)
+        for cap in (live, None)]
+    assert torch.equal(ver[0], ver[1])
+    assert torch.equal(ver[0][0], pre[0])
+
+
+@pytest.mark.parametrize("groups,cols", [(8, 0), (8, 240), (8, 1024), (64, 2048),
+                                         (1, 4096), (264, 16), (8, 1)])
+def test_chunk_parts_cover_every_live_tile(groups, cols):
+    """The tensor-core chunk kernel's split: part 0 is the intra-chunk
+    tile, parts 1.. cover every 16-column pool tile exactly once in equal
+    runs (the last may be short, never empty), at most MAX_PARTS in all,
+    and no more blocks than the target unless one run per tile is
+    already fewer."""
+    parts, per = tpa.chunk_parts(groups, cols)
+    tiles = -(-cols // tpa.TILE_COLS)
+    assert 1 <= parts <= tpa.MAX_PARTS and per >= 1
+    covered = [t for p in range(1, parts)
+               for t in range((p - 1) * per, min(p * per, tiles))]
+    assert covered == list(range(tiles))
+    assert all((p - 1) * per < tiles for p in range(1, parts))
+    if tiles:
+        assert groups * (parts - 1) <= max(tpa.TARGET_BLOCKS, groups)
