@@ -22,7 +22,11 @@ Phases, in order; any failure exits non-zero before the result line:
    the flagship's attention shape (B16 H8 S1024 D128) and llama3_8b's
    (B2 H32/8 S2048 D128), bf16 with rope tables, with and without
    segment ids; the same four numbers each, SDPA (forward, or forward
-   and backward) as the yardstick, and the fused kernel's dq run to run.
+   and backward) as the yardstick, the fused kernel's dq run to run and
+   the two-pass dq kernel's bit for bit run to run. At head_dim 64 and
+   128 the two-pass kernels are held against plain versions on the q
+   and k the rope prepass rotates, and the whole two-pass backward and
+   the fused route at llama3_8b's shape are timed as yardsticks.
    The fused backward is timed as the whole call (rope prepass, delta
    prepass, kernel, dq postprocess) and by kernel; its prepass and
    postprocess are held against their plain versions and timed alone;
@@ -457,6 +461,15 @@ class FlashCase:
         q, k, v, do, o, lse, delta = (self.q, self.k, self.v, self.do, self.o,
                                       self.lse, self.delta)
         a = (self.seg, self.rope, self.causal)
+        dkdv_plain, dq_plain = fa.flash_bwd_dkdv_plain, fa.flash_bwd_dq_plain
+        qp, kp = q, k
+        if self.D in fa.WGMMA_HEAD_DIMS:
+            # The two-pass kernels at head_dim 64 and 128 run on q and k
+            # rotated by the prepass (bit for bit _rope_rot): their plain
+            # versions take the same rotated tiles.
+            dkdv_plain = fa.flash_bwd_dkdv_rotated_plain
+            dq_plain = fa.flash_bwd_dq_rotated_plain
+            qp, kp = fa._rotated(q, k, self.rope)
         return {
             "flash_fwd": (lambda: fa.flash_fwd(q, k, v, *a),
                           lambda: fa.flash_fwd_plain(q, k, v, *a), ("o", "lse")),
@@ -466,11 +479,11 @@ class FlashCase:
                 ("dq", "dk", "dv")),
             "flash_bwd_dkdv": (
                 lambda: fa.flash_bwd_dkdv(q, k, v, do, lse, delta, *a),
-                lambda: fa.flash_bwd_dkdv_plain(q, k, v, do, lse, delta, *a),
+                lambda: dkdv_plain(qp, kp, v, do, lse, delta, *a),
                 ("dk", "dv")),
             "flash_bwd_dq": (
                 lambda: (fa.flash_bwd_dq(q, k, v, do, lse, delta, *a),),
-                lambda: (fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, *a),),
+                lambda: (dq_plain(qp, kp, v, do, lse, delta, *a),),
                 ("dq",)),
         }
 
@@ -576,6 +589,36 @@ class FlashCase:
         del delta, acc, prod, want, tol, dq_acc
         return out
 
+    def check_two_pass_parts(self, kernel, timed, bad):
+        """The two-pass kernels' parts: at head_dim 64 and 128 the rope
+        prepass and the warpgroup kernel (the delta prepass, which the
+        backward runs before both passes, without its dq scratch: delta
+        within D * 2^-24 of each row's sum of |dO * O|, as the fused
+        backward's); the first kernels elsewhere. Returns the record's
+        additions; disagreements go to ``bad``."""
+        from kubeflow_controller_tpu_torch.ops import flash_attention as fa
+
+        if self.D not in fa.WGMMA_HEAD_DIMS:
+            return {"parts": [{"flash_bwd_dkdv": "flash_bwd_kv_kernel<false>",
+                               "flash_bwd_dq": "flash_bwd_dq_kernel"}[kernel]]}
+        out = {"parts": ["rope_rotate_kernel",
+                         {"flash_bwd_dkdv": "flash_bwd_wgmma_kernel<D, false>",
+                          "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel"}[kernel]]}
+        if kernel == "flash_bwd_dkdv":
+            delta, scratch = fa.flash_bwd_prep(self.o, self.do, scratch=False)
+            prod = self.do.float() * self.o.float()
+            err = (delta - prod.sum(-1).transpose(1, 2)).abs()
+            tol = self.D * 2.0 ** -24 * prod.abs().sum(-1).transpose(1, 2)
+            if scratch is not None or bool((err > tol).any()):
+                bad.append(f"flash_bwd_prep[{self.label}, no scratch]: delta max "
+                           f"|err| {float(err.max())} past D * 2^-24 * sum|dO O|")
+            out["prep_delta_max_abs_err"] = float(err.max())
+            if timed:
+                out["prep_ms"] = _time_ms(
+                    lambda: fa.flash_bwd_prep(self.o, self.do, scratch=False))
+            del delta, prod, err, tol
+        return out
+
     def run(self, smi, timed, failures):
         """Check (and time) every kernel; a disagreement is appended to
         ``failures``."""
@@ -584,6 +627,7 @@ class FlashCase:
         from kubeflow_controller_tpu_torch.ops import flash_attention as fa
 
         recs = {}
+        a_all = (self.seg, self.rope, self.causal)
         for kernel, (call, plain, names) in self.calls().items():
             got, want = call(), plain()
             torch.cuda.synchronize()
@@ -594,6 +638,13 @@ class FlashCase:
                 if not ok:
                     bad.append(f"{kernel}[{self.label}]: {n} disagrees with the "
                                f"plain version (max |err| {errs[n]}, tol {tol})")
+            if kernel == "flash_bwd_dq" and self.D in fa.WGMMA_HEAD_DIMS:
+                # No atomics: the same bits on every run.
+                n_diff = int((call()[0] != got[0]).sum())
+                if n_diff:
+                    bad.append(f"{kernel}[{self.label}]: dq differs run to run "
+                               f"in {n_diff} elements")
+                errs["dq_run_to_run"] = n_diff
             if kernel == "flash_bwd_fused":
                 again = call()[0]
                 t = DQ_RUN_TO_RUN
@@ -606,8 +657,19 @@ class FlashCase:
             extra = {}
             if kernel == "flash_bwd_fused":
                 extra = self.check_bwd_parts(timed, bad)
-                if timed and self.seg is None:
-                    extra["device_ms_by_kernel"] = _kernels_ms(call)
+            elif kernel in ("flash_bwd_dkdv", "flash_bwd_dq"):
+                extra = self.check_two_pass_parts(kernel, timed, bad)
+            if kernel != "flash_fwd" and timed and self.seg is None:
+                extra["device_ms_by_kernel"] = _kernels_ms(call)
+            if kernel == "flash_bwd_dq" and timed and self.seg is None:
+                # Yardsticks, timed once: the whole two-pass backward as
+                # the train step runs it (one rope prepass, the delta
+                # prepass, both passes), and the fused route on the same
+                # inputs, which the block rule does not take at S > 1024.
+                args = (self.q, self.k, self.v, self.o, self.lse, self.do, *a_all)
+                extra["two_pass_route_ms"] = _time_ms(
+                    lambda: fa.flash_bwd_two_pass(*args))
+                extra["fused_route_ms"] = _time_ms(lambda: fa.flash_bwd_fused(*args))
             rec = dict(kernel=kernel, case=self.label,
                        max_abs_err=max(v for k, v in errs.items()
                                        if k != "dq_run_to_run"),
@@ -974,6 +1036,8 @@ def serve_phase(smi):
 
 
 def _kernel_bucket(name: str) -> str:
+    if "flash_bwd_wgmma" in name and ("false>" in name or "Lb0E" in name):
+        return "flash_bwd_kv"          # the warpgroup kernel without dQ: B3
     for piece, kernel in (("paged_decode", "paged_decode"),
                           ("flash_bwd_prep", "flash_bwd_prep"),
                           ("flash_bwd_post", "flash_bwd_post"),
@@ -1413,8 +1477,12 @@ def train_phase(smi):
         "flagship": train_run("flagship", flag, 1024, 16, TRAIN_STEPS, flag_flash, smi),
     }
     llama = tfm.llama3_8b_config(n_layers=2, max_seq=2048, attn_impl="flash")
-    llama_flash = {"rope_rotate": 2 * llama.n_layers, "flash_fwd": 2 * llama.n_layers,
-                   "flash_bwd_dkdv": llama.n_layers, "flash_bwd_dq": llama.n_layers}
+    # S=2048 takes the two-pass backward: one rope prepass shared by its
+    # two passes (a third beside the forward's and remat's) and the delta
+    # prepass.
+    llama_flash = {"rope_rotate": 3 * llama.n_layers, "flash_fwd": 2 * llama.n_layers,
+                   "flash_bwd_prep": llama.n_layers, "flash_bwd_dkdv": llama.n_layers,
+                   "flash_bwd_dq": llama.n_layers}
     runs["llama3_8b"] = train_run("llama3_8b", llama, 2048, 2, TRAIN_STEPS,
                                   llama_flash, smi)
     # B7 per layer and step: the flagship's seven projections and their
@@ -1528,9 +1596,11 @@ def main() -> int:
             # The forward's and the fused backward's ms are the whole call:
             # the rope prepass (timed alone) and the forward kernel; the
             # rope prepass, the delta prepass, the kernel and the dq
-            # postprocess (the last two parts also timed alone).
+            # postprocess (the last two parts also timed alone). The
+            # two-pass kernels' ms: the rope prepass and the kernel.
             **{k: r[k] for k in ("parts", "prepass_ms", "prep_ms", "post_ms",
-                                 "device_ms_by_kernel") if k in r},
+                                 "device_ms_by_kernel", "two_pass_route_ms",
+                                 "fused_route_ms") if k in r},
         })
     r = int8_recs[INT8_KERNEL_SHAPE]
     line["kernels"].append({

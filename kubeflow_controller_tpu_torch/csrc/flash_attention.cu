@@ -9,16 +9,22 @@
 //   k^T * scale + mask) v and the row log-sum-exp lse [B, H, S] (the
 //   narrow residual of _fwd). rope_rotate_kernel is the wgmma forward's
 //   prepass: it rotates Q and K once per call.
-// * flash_bwd_wgmma_kernel (head_dim 64 and 128) and flash_bwd_kv_kernel<kDq
-//   = true> (every other head_dim) replace _bwd_fused_kernel (:766,
-//   launched :1109): dk and dv, and every tile's dq, from one score
-//   recompute. flash_bwd_prep_kernel (delta = rowsum(dO O), the dq
-//   scratch zeroed) and flash_bwd_post_kernel (dq counter-rotated and
-//   cast) are the warpgroup kernel's prepass and postprocess.
-// * flash_bwd_kv_kernel<kDq = false> replaces _bwd_dkdv_kernel (:621,
-//   launched :1187): the two-pass backward's first pass, dk and dv.
-// * flash_bwd_dq_kernel replaces _bwd_dq_kernel (:919, launched :1227):
-//   the second pass, dq.
+// * flash_bwd_wgmma_kernel<D, kDq = true> (head_dim 64 and 128) and
+//   flash_bwd_kv_kernel<kDq = true> (every other head_dim) replace
+//   _bwd_fused_kernel (:766, launched :1109): dk and dv, and every tile's
+//   dq, from one score recompute. flash_bwd_prep_kernel (delta =
+//   rowsum(dO O), the dq scratch zeroed) and flash_bwd_post_kernel (dq
+//   counter-rotated and cast) are the warpgroup kernel's prepass and
+//   postprocess.
+// * flash_bwd_wgmma_kernel<D, kDq = false> (head_dim 64 and 128) and
+//   flash_bwd_kv_kernel<kDq = false> (every other head_dim) replace
+//   _bwd_dkdv_kernel (:621, launched :1187): the two-pass backward's
+//   first pass, dk and dv.
+// * flash_bwd_dq_wgmma_kernel (head_dim 64 and 128) and
+//   flash_bwd_dq_kernel (every other head_dim) replace _bwd_dq_kernel
+//   (:919, launched :1227): the second pass, dq. At head_dim 64 and 128
+//   the two passes share one rope prepass and take delta from
+//   flash_bwd_prep_kernel, which then writes no scratch.
 //
 // Layouts are BSHD: q, o, do [B, S, H, D]; k, v [B, S, KVH, D] (query
 // head h reads KV head h / (H / KVH)); segment ids [B, S] int32; rope
@@ -112,9 +118,19 @@
 //   - the prepass writes delta and zeroes the scratch in one pass; the
 //     postprocess counter-rotates dq and casts it, rounding as _rope_rot.
 //
-// The two-pass backward kernels, the fused backward's first kernel and
-// the forward for other head dims (flash_fwd_kernel) are the first,
-// simple versions: a block owns a
+// The two-pass backward at head_dim 64 and 128 reuses the fused
+// backward's design. Its dk/dv pass is flash_bwd_wgmma_kernel without
+// dQ: no dS^T buffer, no barrier between the warpgroups, and the last
+// warp done with a stage refills it, so the warpgroups drift apart. Its
+// dq pass (flash_bwd_dq_wgmma_kernel) is the mirror: a block owns a
+// 128-row q-tile, loads Q and dO once, streams 64-row k-tiles of K and V
+// through a three-stage TMA ring, forms S, dP, P and dS in registers and
+// keeps dQ in fp32 registers to the epilogue, which counter-rotates it:
+// no scratch, no atomics, the same bits every run.
+//
+// The two-pass kernels at other head dims, the fused backward's first
+// kernel and the forward for other head dims (flash_fwd_kernel) are the
+// first, simple versions: a block owns a
 // 64-row tile (32 rows when D = 256), rope rotates on load, every
 // product is bf16 WMMA 16x16x16 with operands and fp32 accumulators
 // staged in shared memory, the softmax bookkeeping is scalar fp32 there,
@@ -937,8 +953,9 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // -- fused backward, head_dim 64 and 128 ----------------------------------------
-// The prepass: delta [B, H, S] = rowsum(dO * O) in fp32 and the dq scratch
-// zeroed, one thread per 8 elements of a row, D / 8 lanes a row.
+// The prepass: delta [B, H, S] = rowsum(dO * O) in fp32 and, for the fused
+// backward, the dq scratch zeroed (the two-pass backward passes none),
+// one thread per 8 elements of a row, D / 8 lanes a row.
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
                       float* __restrict__ delta, float* __restrict__ dq_acc, size_t rows, int S,
@@ -957,9 +974,11 @@ flash_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       sum = __fadd_rn(sum, __fmul_rn(__bfloat162float(de[j]), __bfloat162float(oe[j])));
-    float4* z = reinterpret_cast<float4*>(dq_acc + row * D + d0);
-    z[0] = make_float4(0.f, 0.f, 0.f, 0.f);
-    z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (dq_acc != nullptr) {
+      float4* z = reinterpret_cast<float4*>(dq_acc + row * D + d0);
+      z[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+      z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
   for (int off = nv / 2; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
   if (live && d0 == 0) {
@@ -1005,11 +1024,30 @@ constexpr int kBwdQRows = 64;      // q-tile rows
 constexpr int kBwdThreads = 256;
 constexpr int kBwdStages = 2;
 
+// A warp counts itself out of a ring stage once it has read the stage for
+// the last time; the last of the block's eight warps resets the count and
+// runs `refill` (a whole-warp fill of the stage). No warp waits here.
+template <typename Refill>
+__device__ __forceinline__ void release_stage(int* count, int lane, Refill refill) {
+  __syncwarp();
+  int last = 0;
+  if (lane == 0) {
+    __threadfence_block();
+    last = atomicAdd(count, 1) == kBwdThreads / 32 - 1;
+    if (last) atomicExch(count, 0);
+  }
+  if (__shfl_sync(0xffffffffu, last, 0)) {
+    __threadfence_block();
+    refill();
+  }
+}
+
 // Shared memory of the backward, from a 1024-byte aligned base: the K and
 // V tiles (128 rows, D / 64 panels of 128-byte rows), the stages of Q and
-// dO (64 rows), two buffers of dS^T ([128 k][64 q] bf16, one 128-byte
-// row a k), the stages' lse, delta and segment ids, and the mbarriers.
-template <int D>
+// dO (64 rows), with dQ two buffers of dS^T ([128 k][64 q] bf16, one
+// 128-byte row a k), the stages' lse, delta and segment ids, and the
+// mbarriers and the stages' release counts.
+template <int D, bool kDq>
 struct BwdSmem {
   static constexpr int kKPanel = kBwdKRows * 128;
   static constexpr int kQPanel = kBwdQRows * 128;
@@ -1020,8 +1058,8 @@ struct BwdSmem {
   static constexpr int k = 0, v = kKTile, q = 2 * kKTile;
   static constexpr int dout = q + kBwdStages * kQTile;
   static constexpr int ds = dout + kBwdStages * kQTile;
-  static constexpr int side = ds + 2 * kDsBuf;
-  static constexpr int bars = side + kBwdStages * kSide;   // kv_full, q_full[]
+  static constexpr int side = ds + (kDq ? 2 * kDsBuf : 0);
+  static constexpr int bars = side + kBwdStages * kSide;   // kv_full, q_full[], free[]
   static constexpr int bytes = bars + 64 + 1024;           // + alignment slack
 };
 
@@ -1045,11 +1083,16 @@ __device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, u
 // (lane / 4) + 8 (e / 2) of its warp's 16, q column 8 j + 2 (lane % 4) +
 // e % 2), P^T and dS^T there, dV += P^T dO and dK += dS^T Q with P^T, dS^T
 // as register A operands (dV, dK stay in registers over the whole loop).
-// dS^T goes to shared memory in bf16; after a barrier of the two
-// warpgroups, warpgroup w computes dQ = dS K for output columns [64 w, 64
-// w + 64) (D = 128; at D = 64 each its own k rows) and adds it into
-// dq_acc by 16-byte reductions.
-template <int D>
+// With kDq (the fused backward), dS^T goes to shared memory in bf16;
+// after a barrier of the two warpgroups, warpgroup w computes dQ = dS K
+// for output columns [64 w, 64 w + 64) (D = 128; at D = 64 each its own
+// k rows) and adds it into dq_acc by 16-byte reductions, and warp 0
+// refills the stage. Without dQ (the two-pass backward's dk/dv pass)
+// there is no dS^T buffer and no barrier: each warp counts itself out of
+// a stage once its products are done, and the last of the eight refills
+// it, so the two warpgroups drift apart and one's exponentials run under
+// the other's products.
+template <int D, bool kDq>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_k,
@@ -1057,12 +1100,13 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
                        const __grid_constant__ CUtensorMap map_do, Problem p,
                        const float* __restrict__ lse, const float* __restrict__ delta,
                        bf16* __restrict__ dk, bf16* __restrict__ dv, float* __restrict__ dq_acc) {
-  using L = BwdSmem<D>;
+  using L = BwdSmem<D, kDq>;
   constexpr float kLog2e = 1.4426950408889634f;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
   const uint32_t kv_full = base + L::bars, q_full = kv_full + 8;
+  int* free_count = reinterpret_cast<int*>(smem + L::bars + 8 + 8 * kBwdStages);
   const int tid = threadIdx.x, lane = tid & 31;
 
   const int per_kt = p.KVH * p.B;
@@ -1075,34 +1119,51 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 
   if (tid == 0) {
     mbar_init(kv_full, 1);
-    for (int st = 0; st < kBwdStages; ++st) mbar_init(q_full + 8 * st, 32);   // warp 0's lanes
+    for (int st = 0; st < kBwdStages; ++st) {
+      // The 32 lanes' arrivals (lane 0's with the TMA bytes); without dQ
+      // one more, lane 0's cp.async arrival.
+      mbar_init(q_full + 8 * st, kDq ? 32 : 33);
+      free_count[st] = 0;
+    }
     mbar_init_fence();
   }
   __syncthreads();
 
-  // Warp 0 fills stage t % 2 with item t: lse, delta and the segment ids
-  // of its 64 q rows (two a lane), and Q and dO by TMA.
+  // A whole warp fills stage t % 2 with item t: lse, delta and the segment
+  // ids of its 64 q rows (two a lane), and Q and dO by TMA. Without dQ the
+  // side rows come by cp.async, so the warp that refills (whichever is
+  // last out of the stage) does not wait on their loads.
   auto fill = [&](int t) {
     const int st = t % kBwdStages, h = g * rep + t / n_q, q0 = (qt0 + t % n_q) * kBwdQRows;
-    float* side = reinterpret_cast<float*>(smem + L::side + st * L::kSide);
+    const uint32_t side = base + L::side + st * L::kSide;
+    float* side_p = reinterpret_cast<float*>(smem + L::side + st * L::kSide);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = lane + 32 * i, row = q0 + r;
-      const bool in = row < p.S;
-      const size_t at = (static_cast<size_t>(b) * p.H + h) * p.S + row;
-      side[r] = in ? lse[at] : 0.f;
-      side[kBwdQRows + r] = in ? delta[at] : 0.f;
-      reinterpret_cast<int*>(side)[2 * kBwdQRows + r] =
-          in && p.seg != nullptr ? p.seg[static_cast<size_t>(b) * p.S + row] : 0;
+      const bool in = row < p.S, in_seg = in && p.seg != nullptr;
+      const size_t at = in ? (static_cast<size_t>(b) * p.H + h) * p.S + row : 0;
+      const int* seg_at = in_seg ? p.seg + static_cast<size_t>(b) * p.S + row : nullptr;
+      if constexpr (kDq) {
+        side_p[r] = in ? lse[at] : 0.f;
+        side_p[kBwdQRows + r] = in ? delta[at] : 0.f;
+        reinterpret_cast<int*>(side_p)[2 * kBwdQRows + r] = in_seg ? *seg_at : 0;
+      } else {
+        cp_async4_zfill(side + 4 * r, lse + at, in);
+        cp_async4_zfill(side + 4 * (kBwdQRows + r), delta + at, in);
+        cp_async4_zfill(side + 4 * (2 * kBwdQRows + r),
+                        in_seg ? static_cast<const void*>(seg_at) : static_cast<const void*>(lse),
+                        in_seg);
+      }
     }
     if (lane == 0) {
       mbar_arrive_expect_tx(q_full + 8 * st, 2 * L::kQTile);
       tma_rows<D>(base + L::q + st * L::kQTile, &map_q, q_full + 8 * st, h, q0, b, L::kQPanel);
       tma_rows<D>(base + L::dout + st * L::kQTile, &map_do, q_full + 8 * st, h, q0, b,
                   L::kQPanel);
-    } else {
+    } else if constexpr (kDq) {
       mbar_arrive(q_full + 8 * st);
     }
+    if constexpr (!kDq) cp_async_mbar_arrive(q_full + 8 * st);
   };
   if (tid < 32) {
     if (lane == 0) {
@@ -1123,9 +1184,9 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       segk[hh] = k_lo + 8 * hh < p.S ? p.seg[static_cast<size_t>(b) * p.S + k_lo + 8 * hh] : 0;
   }
   const float to_log2 = p.scale * kLog2e;
-  // dQ's share of this warpgroup: all 128 k rows and output columns
-  // [64 wg, 64 wg + 64) at D = 128; its own 64 k rows and all 64 columns
-  // at D = 64.
+  // With dQ, this warpgroup's share of it: all 128 k rows and output
+  // columns [64 wg, 64 wg + 64) at D = 128; its own 64 k rows and all 64
+  // columns at D = 64.
   constexpr int kDqSteps = D == 128 ? 8 : 4;
   const int dq_row0 = D == 128 ? 0 : wg * 64, dq_panel = D == 128 ? wg : 0;
 
@@ -1207,15 +1268,17 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
         dsw[2 * jg + 1] = pack_bf16(dp[4 * j + 2], dp[4 * j + 3]);
       }
     }
-    // dS^T into buffer t % 2: row = k, 64 q columns of 128 bytes.
-    unsigned char* dsb = smem + L::ds + (t & 1) * L::kDsBuf;
+    if constexpr (kDq) {
+      // dS^T into buffer t % 2: row = k, 64 q columns of 128 bytes.
+      unsigned char* dsb = smem + L::ds + (t & 1) * L::kDsBuf;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh)
-        *reinterpret_cast<uint32_t*>(dsb + swizzle_chunk(lrow + 8 * hh, j) + 4 * quad) =
-            dsw[2 * j + hh];
-    fence_async_proxy();
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<uint32_t*>(dsb + swizzle_chunk(lrow + 8 * hh, j) + 4 * quad) =
+              dsw[2 * j + hh];
+      fence_async_proxy();
+    }
 
     // dV += P^T dO and dK += dS^T Q over the tile's 64 q rows: the
     // registers are the A operand, dO and Q MN-major B.
@@ -1247,6 +1310,14 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
 #pragma unroll
     for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(pw[i]), "+r"(dsw[i])::"memory");
 
+    if constexpr (!kDq) {
+      // This warp is done with the stage; the last of the eight refills
+      // it with item t + 2.
+      release_stage(free_count + st, lane, [&] {
+        if (t + kBwdStages < total) fill(t + kBwdStages);
+      });
+      continue;
+    }
     // dQ = dS K once both warpgroups' dS^T are in: dS^T is an MN-major A,
     // K an MN-major B. Past this barrier every warp is done with the
     // stage, and warp 0 refills it with item t + 2.
@@ -1308,6 +1379,248 @@ flash_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       *reinterpret_cast<uint32_t*>(dk + out + d) = pack_bf16(x0, x1);
       *reinterpret_cast<uint32_t*>(dv + out + d) = pack_bf16(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
+// -- two-pass dq, head_dim 64 and 128 ---------------------------------------------
+// The mirror of the dk/dv pass: a block owns a 128-row q-tile of one head
+// (64 rows for each warpgroup), loads Q and dO once and streams the KV
+// head's k-tiles (64 rows) through a TMA ring. dQ stays in fp32 registers
+// over the whole walk, so the pass needs no scratch and no atomics, and
+// its sums run in one fixed order (dq is the same bits run to run).
+constexpr int kDqQRows = 128;   // q-tile rows: 64 for each consumer warpgroup
+constexpr int kDqKRows = 64;    // k-tile rows
+constexpr int kDqStages = 3;
+
+// Shared memory of the dq pass, from a 1024-byte aligned base: the Q and
+// dO tiles (128 rows, D / 64 panels of 128-byte rows), the stages of K
+// and V (64 rows) and of the k-tile's segment ids, the mbarriers and the
+// stages' release counts.
+template <int D>
+struct DqSmem {
+  static constexpr int kQPanel = kDqQRows * 128;
+  static constexpr int kKPanel = kDqKRows * 128;
+  static constexpr int kQTile = (D / 64) * kQPanel;
+  static constexpr int kKTile = (D / 64) * kKPanel;
+  static constexpr int q = 0, dout = kQTile, k = 2 * kQTile;
+  static constexpr int v = k + kDqStages * kKTile;
+  static constexpr int seg = v + kDqStages * kKTile;
+  static constexpr int bars = seg + kDqStages * kDqKRows * 4;   // q_full, kv_full[], free[]
+  static constexpr int bytes = bars + 64 + 1024;               // + alignment slack
+};
+
+// The block's (q-tile, head, batch), by index: for a causal problem the
+// q-tiles with the most k-tiles first, the heads of one KV group next to
+// each other (their K and V stay in L2). nk: the k-tiles the block
+// streams (the second warpgroup's live ones).
+struct DqItem {
+  int h, b, g, q0, nk, n_kt;
+  __device__ DqItem(const Problem& p, int item) {
+    const int n_qt = (p.S + kDqQRows - 1) / kDqQRows, per_tile = p.H * p.B;
+    const int qt = p.causal ? n_qt - 1 - item / per_tile : item / per_tile;
+    const int rem = item % per_tile;
+    h = rem % p.H;
+    b = rem / p.H;
+    g = h / (p.H / p.KVH);
+    q0 = qt * kDqQRows;
+    n_kt = (p.S + kDqKRows - 1) / kDqKRows;
+    nk = p.causal ? min(n_kt, q0 / kDqKRows + 2) : n_kt;   // tiles above the diagonal skipped
+  }
+};
+
+// Block (q-tile, head h, batch b); q and k already rotated; the maps
+// describe q, do as [D, H, S, B] in boxes of 128 rows and k, v as [D, KVH,
+// S, B] in boxes of 64 rows. Warp 0 loads Q and dO and fills the first
+// stages; afterwards the last warp to be done with a stage refills it
+// (release_stage). Warpgroup w owns q rows [64 w, 64 w + 64): per live
+// k-tile S = Q K^T and dP = dO V^T by wgmma into registers (accumulator
+// [4 j + e]: q row (lane / 4) + 8 (e / 2) of its warp's 16, k column 8 j
+// + 2 (lane % 4) + e % 2), P = exp2(S scale log2e - lse log2e) and dS = P
+// (dP - delta) scale there, masks compared only on diagonal, ragged or
+// segmented tiles, then dQ += dS K with dS as the register A operand and
+// K MN-major B. Under a causal mask the first warpgroup's last streamed
+// tile lies wholly above its diagonal: it skips it. The epilogue
+// counter-rotates dQ from registers and casts it.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do, Problem p,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          bf16* __restrict__ dq) {
+  using L = DqSmem<D>;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t q_full = base + L::bars, kv_full = q_full + 8;
+  int* free_count = reinterpret_cast<int*>(smem + L::bars + 8 + 8 * kDqStages);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const DqItem w(p, blockIdx.x);
+
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kDqStages; ++st) {
+      mbar_init(kv_full + 8 * st, 33);   // lane 0's expect_tx and the 32 lanes' cp.async
+      free_count[st] = 0;
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // A whole warp fills stage j % stages with k-tile j: K and V by TMA, the
+  // tile's 64 segment ids (two a lane) by cp.async.
+  auto fill = [&](int j) {
+    const int st = j % kDqStages, k0 = j * kDqKRows;
+    const uint32_t segs = base + L::seg + st * kDqKRows * 4;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = lane + 32 * i, col = k0 + c;
+      const bool in = p.seg != nullptr && col < p.S;
+      cp_async4_zfill(segs + 4 * c,
+                      in ? static_cast<const void*>(p.seg + static_cast<size_t>(w.b) * p.S + col)
+                         : static_cast<const void*>(lse),
+                      in);
+    }
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_full + 8 * st, 2 * L::kKTile);
+      tma_rows<D>(base + L::k + st * L::kKTile, &map_k, kv_full + 8 * st, w.g, k0, w.b,
+                  L::kKPanel);
+      tma_rows<D>(base + L::v + st * L::kKTile, &map_v, kv_full + 8 * st, w.g, k0, w.b,
+                  L::kKPanel);
+    }
+    cp_async_mbar_arrive(kv_full + 8 * st);
+  };
+  if (tid < 32) {
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * L::kQTile);
+      tma_rows<D>(base + L::q, &map_q, q_full, w.h, w.q0, w.b, L::kQPanel);
+      tma_rows<D>(base + L::dout, &map_do, q_full, w.h, w.q0, w.b, L::kQPanel);
+    }
+    for (int j = 0; j < kDqStages && j < w.nk; ++j) fill(j);
+  }
+
+  const int wg = tid >> 7, wq = (tid >> 5) & 3, quad = lane & 3;
+  const int q_lo = w.q0 + wg * 64 + wq * 16 + (lane >> 2);   // this thread's q rows: q_lo, q_lo + 8
+  const int qw0 = w.q0 + wg * 64;                            // the warpgroup's first row
+  float lse2[2], dl[2];
+  int segq[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q_lo + 8 * hh;
+    const bool in = row < p.S;
+    const size_t at = (static_cast<size_t>(w.b) * p.H + w.h) * p.S + row;
+    lse2[hh] = in ? lse[at] * kLog2e : 0.f;
+    dl[hh] = in ? delta[at] : 0.f;
+    segq[hh] = in && p.seg != nullptr ? p.seg[static_cast<size_t>(w.b) * p.S + row] : 0;
+  }
+  const int nk_w = p.causal ? min(w.n_kt, w.q0 / kDqKRows + wg + 1) : w.n_kt;
+  const float to_log2 = p.scale * kLog2e;
+
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < w.nk; ++j) {
+    const int st = j % kDqStages, k0 = j * kDqKRows;
+    if (j < nk_w) {
+      mbar_wait(kv_full + 8 * st, (j / kDqStages) & 1);
+      // The shared base, opaque to the compiler in each iteration, so the
+      // descriptors are made here and not held across the loop.
+      uint32_t sb = base;
+      asm volatile("" : "+r"(sb));
+      const uint32_t k_s = sb + L::k + st * L::kKTile, v_s = sb + L::v + st * L::kKTile;
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t qo = (kk >> 2) * L::kQPanel + wg * 64 * 128, ko = (kk >> 2) * L::kKPanel;
+        wgmma_bf16_ss_m64n64k16<0, 0>(s, desc_sw128(sb + L::q + qo) + 2 * (kk & 3),
+                                      desc_sw128(k_s + ko) + 2 * (kk & 3), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t qo = (kk >> 2) * L::kQPanel + wg * 64 * 128, ko = (kk >> 2) * L::kKPanel;
+        wgmma_bf16_ss_m64n64k16<0, 0>(dp, desc_sw128(sb + L::dout + qo) + 2 * (kk & 3),
+                                      desc_sw128(v_s + ko) + 2 * (kk & 3), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_registers(s);
+      fence_registers(dp);
+
+      // P and dS; masked pairs exactly 0: the diagonal tile, a tile past S
+      // (rows TMA zero-filled), any tile under segment ids.
+      const bool masked = p.seg != nullptr || (p.causal && k0 + kDqKRows - 1 > qw0) ||
+                          k0 + kDqKRows > p.S || qw0 + 64 > p.S;
+      const int* segk = reinterpret_cast<const int*>(smem + L::seg) + st * kDqKRows;
+      uint32_t dsw[16];
+#pragma unroll
+      for (int jb = 0; jb < 8; ++jb) {
+        int2 sk = make_int2(0, 0);
+        if (p.seg != nullptr) sk = *reinterpret_cast<const int2*>(segk + 8 * jb + 2 * quad);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1, odd = e & 1;
+          bool vis = true;
+          if (masked) {
+            const int col = k0 + 8 * jb + 2 * quad + odd, row = q_lo + 8 * hh;
+            vis = row < p.S && col < p.S && (!p.causal || col <= row) &&
+                  (p.seg == nullptr || segq[hh] == (odd ? sk.y : sk.x));
+          }
+          const float pv = vis ? ex2(fmaf(s[4 * jb + e], to_log2, -lse2[hh])) : 0.f;
+          s[4 * jb + e] = pv * (dp[4 * jb + e] - dl[hh]) * p.scale;
+        }
+        dsw[2 * jb] = pack_bf16(s[4 * jb], s[4 * jb + 1]);
+        dsw[2 * jb + 1] = pack_bf16(s[4 * jb + 2], s[4 * jb + 3]);
+      }
+
+      // dQ += dS K: dS's words are the A operand of each 16 rows of K.
+      fence_registers(dq_acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < kDqKRows / 16; ++kc) {
+        const uint32_t a[4] = {dsw[4 * kc], dsw[4 * kc + 1], dsw[4 * kc + 2], dsw[4 * kc + 3]};
+        const uint64_t db = desc_sw128(k_s + kc * 16 * 128, L::kKPanel);
+        if constexpr (D == 128)
+          wgmma_bf16_rs_m64n128k16(dq_acc, a, db);
+        else
+          wgmma_bf16_rs_m64n64k16(dq_acc, a, db);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_registers(dq_acc);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(dsw[i])::"memory");   // live until here
+    }
+    release_stage(free_count + st, lane, [&] {
+      if (j + kDqStages < w.nk) fill(j + kDqStages);
+    });
+  }
+
+  // Epilogue: dQ counter-rotated from registers (element d and d +- D/2 of
+  // a row are this thread's blocks j and j +- D/16) and cast.
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = q_lo + 8 * hh;
+    if (row >= p.S) continue;
+    const size_t out = ((static_cast<size_t>(w.b) * p.S + row) * p.H + w.h) * D;
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      const int d = 8 * jj + 2 * quad, i = 4 * jj + 2 * hh;
+      float x0 = dq_acc[i], x1 = dq_acc[i + 1];
+      if (p.rc != nullptr) {
+        const int ir = 4 * ((jj + D / 16) % (D / 8)) + 2 * hh;
+        const size_t tt = (static_cast<size_t>(w.b) * p.S + row) * D + d;
+        const float2 c2 = *reinterpret_cast<const float2*>(p.rc + tt);
+        const float2 s2 = *reinterpret_cast<const float2*>(p.rs + tt);
+        x0 = rope_mix(dq_acc[i], c2.x, dq_acc[ir], -s2.x);
+        x1 = rope_mix(dq_acc[i + 1], c2.y, dq_acc[ir + 1], -s2.y);
+      }
+      *reinterpret_cast<uint32_t*>(dq + out + d) = pack_bf16(x0, x1);
     }
   }
 }
@@ -1410,7 +1723,7 @@ int launch_fwd_wgmma(const void* q, const void* k, const void* v, const Problem&
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool kDq>
 int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* dout,
                      const Problem& p, const float* lse, const float* delta, bf16* dk, bf16* dv,
                      float* dq_acc, cudaStream_t stream) {
@@ -1420,11 +1733,29 @@ int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* do
       !tile_map(&map_v, v, p.B, p.S, p.KVH, D, kBwdKRows) ||
       !tile_map(&map_do, dout, p.B, p.S, p.H, D, kBwdQRows))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = prepare(flash_bwd_wgmma_kernel<D>, BwdSmem<D>::bytes);
+  cudaError_t err = prepare(flash_bwd_wgmma_kernel<D, kDq>, BwdSmem<D, kDq>::bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_items = (p.S + kBwdKRows - 1) / kBwdKRows * p.KVH * p.B;
-  flash_bwd_wgmma_kernel<D><<<n_items, kBwdThreads, BwdSmem<D>::bytes, stream>>>(
+  flash_bwd_wgmma_kernel<D, kDq><<<n_items, kBwdThreads, BwdSmem<D, kDq>::bytes, stream>>>(
       map_q, map_k, map_v, map_do, p, lse, delta, dk, dv, dq_acc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                    const Problem& p, const float* lse, const float* delta, bf16* dq,
+                    cudaStream_t stream) {
+  CUtensorMap map_q, map_k, map_v, map_do;
+  if (!tile_map(&map_q, q, p.B, p.S, p.H, D, kDqQRows) ||
+      !tile_map(&map_k, k, p.B, p.S, p.KVH, D, kDqKRows) ||
+      !tile_map(&map_v, v, p.B, p.S, p.KVH, D, kDqKRows) ||
+      !tile_map(&map_do, dout, p.B, p.S, p.H, D, kDqQRows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = prepare(flash_bwd_dq_wgmma_kernel<D>, DqSmem<D>::bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_items = (p.S + kDqQRows - 1) / kDqQRows * p.H * p.B;
+  flash_bwd_dq_wgmma_kernel<D><<<n_items, kBwdThreads, DqSmem<D>::bytes, stream>>>(
+      map_q, map_k, map_v, map_do, p, lse, delta, dq);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1463,9 +1794,12 @@ extern "C" int kfc_flash_fwd(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dq_acc null: the two-pass backward's dk/dv pass; else the fused
-// backward, adding dq (rotation space) into dq_acc (fp32 [B, S, H, D],
-// zeroed by the caller).
+// dq_acc null: the two-pass backward's dk/dv pass; else the first fused
+// backward (head dims other than 64 and 128), adding dq (rotation space)
+// into dq_acc (fp32 [B, S, H, D], zeroed by the caller). At head_dim 64
+// and 128 the pass is the warpgroup kernel without dQ: q and k already
+// rotated (kfc_rope_rotate), the tables only counter-rotate dk, and
+// dq_acc must be null.
 extern "C" int kfc_flash_bwd_kv(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, const void* seg,
@@ -1476,9 +1810,18 @@ extern "C" int kfc_flash_bwd_kv(const void* q, const void* k, const void* v,
   Problem p;
   if (!make_problem(&p, B, S, H, KVH, D, scale, causal, seg, rope_c, rope_s))
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 64 || D == 128) {
+    if (dq_acc != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const float* l = static_cast<const float*>(lse);
+    const float* dl = static_cast<const float*>(delta);
+    bf16* dkp = static_cast<bf16*>(dk);
+    bf16* dvp = static_cast<bf16*>(dv);
+    return D == 64 ? launch_bwd_wgmma<64, false>(q, k, v, dout, p, l, dl, dkp, dvp, nullptr, st)
+                   : launch_bwd_wgmma<128, false>(q, k, v, dout, p, l, dl, dkp, dvp, nullptr, st);
+  }
   const int T = tile_rows(D);
   const dim3 grid((S + T - 1) / T, KVH, B);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dq_acc != nullptr) {
     const size_t bytes = Layout(T, D, 3, true).bytes;
     cudaError_t err = prepare(flash_bwd_kv_kernel<true>, bytes);
@@ -1501,6 +1844,10 @@ extern "C" int kfc_flash_bwd_kv(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The two-pass backward's dq pass. At head_dim 64 and 128 the warpgroup
+// kernel: q and k already rotated (kfc_rope_rotate), the tables only
+// counter-rotate dq; every other head_dim the first kernel, which rotates
+// on load.
 extern "C" int kfc_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse,
                                 const void* delta, const void* seg,
@@ -1510,6 +1857,14 @@ extern "C" int kfc_flash_bwd_dq(const void* q, const void* k, const void* v,
   Problem p;
   if (!make_problem(&p, B, S, H, KVH, D, scale, causal, seg, rope_c, rope_s))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (D == 64 || D == 128) {
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const float* l = static_cast<const float*>(lse);
+    const float* dl = static_cast<const float*>(delta);
+    bf16* dqp = static_cast<bf16*>(dq);
+    return D == 64 ? launch_dq_wgmma<64>(q, k, v, dout, p, l, dl, dqp, st)
+                   : launch_dq_wgmma<128>(q, k, v, dout, p, l, dl, dqp, st);
+  }
   const int T = tile_rows(D);
   const size_t bytes = Layout(T, D, 1, true).bytes;
   cudaError_t err = prepare(flash_bwd_dq_kernel, bytes);
@@ -1523,8 +1878,9 @@ extern "C" int kfc_flash_bwd_dq(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The fused backward's prepass: delta fp32 [B, H, S] = rowsum(dout * o)
-// of o, dout bf16 [B, S, H, D], and dq_acc fp32 [B, S, H, D] zeroed.
+// The backward's prepass: delta fp32 [B, H, S] = rowsum(dout * o) of o,
+// dout bf16 [B, S, H, D], and dq_acc fp32 [B, S, H, D] zeroed unless null
+// (the two-pass backward's dq pass needs no scratch).
 extern "C" int kfc_flash_bwd_prep(const void* o, const void* dout, void* delta, void* dq_acc,
                                   int B, int S, int H, int D, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || (D != 64 && D != 128))
@@ -1575,6 +1931,6 @@ extern "C" int kfc_flash_bwd_fused(const void* q, const void* k, const void* v,
   bf16* dkp = static_cast<bf16*>(dk);
   bf16* dvp = static_cast<bf16*>(dv);
   float* acc = static_cast<float*>(dq_acc);
-  return D == 64 ? launch_bwd_wgmma<64>(q, k, v, dout, p, l, dl, dkp, dvp, acc, st)
-                 : launch_bwd_wgmma<128>(q, k, v, dout, p, l, dl, dkp, dvp, acc, st);
+  return D == 64 ? launch_bwd_wgmma<64, true>(q, k, v, dout, p, l, dl, dkp, dvp, acc, st)
+                 : launch_bwd_wgmma<128, true>(q, k, v, dout, p, l, dl, dkp, dvp, acc, st);
 }

@@ -45,6 +45,20 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
+// 4 bytes global -> shared, asynchronously; zeros when !valid (src is
+// then not read, but must still be a global address).
+__device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+// An arrival on `bar` once every cp.async this thread started has
+// landed; it is one of the arrivals the barrier was initialised to
+// expect (noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+}
+
 // Makes this thread's shared-memory writes (st.shared, landed cp.async)
 // visible to the asynchronous proxy through which wgmma reads.
 __device__ __forceinline__ void fence_async_proxy() {

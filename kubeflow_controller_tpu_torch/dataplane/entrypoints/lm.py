@@ -18,7 +18,9 @@ shapes allow) and ``opt8bit`` keeps AdamW's moments in 8 bits
 (``--quant int8 --opt8`` on the command line). Options of the JAX entry
 point this port does not have yet — tensor, fsdp and sequence
 parallelism, ring attention and checkpoints — are refused with "not yet
-ported".
+ported", and so are a job's model dir (``ctx.model_dir``) and a
+multi-process job (``ctx.num_processes > 1``). The command line takes
+every option of the JAX entry point's, with the same defaults.
 """
 
 from __future__ import annotations
@@ -180,12 +182,20 @@ def train(
         if value != 1:
             raise NotImplementedError(
                 f"{name}={value}: multi-device training is not yet ported")
+    ctx = ctx or ProcessContext.from_env()
+    # The reference trains into ``model_dir or ctx.model_dir`` and saves
+    # there at the end; until checkpoints are ported a job's model dir is
+    # refused, not dropped.
     refused = {"attn='ring'": attn == "ring", "model_dir": bool(model_dir),
-               "checkpoint_every": bool(checkpoint_every)}
+               "checkpoint_every": bool(checkpoint_every),
+               "the job's model dir (ctx.model_dir)": bool(ctx.model_dir)}
     for name, on in refused.items():
         if on:
             raise NotImplementedError(f"{name} is not yet ported")
-    ctx = ctx or ProcessContext.from_env()
+    if ctx.num_processes > 1:
+        raise NotImplementedError(
+            f"multi-process training (num_processes={ctx.num_processes}) "
+            "is not yet ported: each process would train its own replica")
     mlog = metrics_sink.from_context(ctx)
     cfg = model_config(config, max_seq=max(seq_len, 128), attn_impl=attn,
                        quant=quant)

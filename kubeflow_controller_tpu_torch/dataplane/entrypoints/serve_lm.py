@@ -13,8 +13,10 @@ JSONL to ``--output`` and report TTFT/TPOT/tokens per second.
         --config llama3_8b --batch 16 --slots 8 --prompt-len 256
 
 Runs on ``cuda``; ``--device cpu`` runs the plain PyTorch versions on
-the CPU. Flags of the JAX entry point whose features this port does not
-serve yet are accepted and refused with "not yet ported".
+the CPU. The command line takes every option of the JAX entry point's,
+with its default (``--attn-impl`` also takes the JAX names ``xla`` and
+``pallas``); options whose features this port does not serve yet are
+refused with "not yet ported" when they are off that default.
 """
 
 from __future__ import annotations
@@ -56,7 +58,18 @@ NOT_YET_PORTED_FLAGS = {
     "disagg": False,
     "fault_plan": "",
     "watchdog_stale_s": 0.0,
+    "paged": True,
+    "draft_k": 4,
+    "proposer": "prompt",
+    "tp_compute": "gathered",
+    "mesh_devices": "",
+    "fault_seed": 0,
 }
+#: The command-line spelling of a keyword where it is not the keyword's,
+#: and the choices the JAX entry point's parser gives an option.
+_CLI_NAMES = {"mesh_devices": "--mesh"}
+_CLI_CHOICES = {"quant": ["", "int8"], "proposer": ["prompt", "radix"],
+                "tp_compute": ["gathered", "parallel"]}
 
 
 def _read_prompts(path: str, vocab: int, batch: int,
@@ -129,6 +142,13 @@ def serve(
     """Serve ``batch`` prompts through the engine; returns the summary
     (``tokens_per_sec``, ``ttft_p50_ms``, ``tpot_p50_ms``, ...).
 
+    Two defaults differ from the JAX entry point's on purpose:
+    ``attn_impl`` is ``"kernel"`` (the hand-written kernels; the JAX
+    default ``"xla"`` is accepted as an alias of ``"gather"``, ``"pallas"``
+    of ``"kernel"``), and ``prefill_mode`` is ``"bucketed"``, since exact
+    prefill is not yet ported. A job's model dir and a multi-process job
+    (``ctx.num_processes > 1``) are refused with "not yet ported".
+
     ``stop`` (a ``threading.Event``) drains the engine within
     ``drain_grace_s`` and still writes the partial completions.
     Keywords of :data:`NOT_YET_PORTED_FLAGS` are accepted and refused
@@ -146,9 +166,13 @@ def serve(
             raise NotImplementedError(
                 f"serve({key}={value!r}) is not yet ported to the PyTorch "
                 f"entry point (see ROADMAP.md)")
+    ctx = ctx or ProcessContext.from_env()
+    if ctx.num_processes > 1:
+        raise NotImplementedError(
+            f"multi-process serving (num_processes={ctx.num_processes}) is "
+            "not yet ported")
     cfg = model_config(config)
     dev = resolve_device(device)
-    ctx = ctx or ProcessContext.from_env()
     params, restored_step = _load_params(cfg, ctx.model_dir, seed, dev)
     params = gen.inference_params(cfg, params)
     prompts = _read_prompts(input_file, cfg.vocab_size, batch, prompt_len)
@@ -256,15 +280,21 @@ def main(argv=None) -> int:
                         "(0 = one full context per slot)")
     p.add_argument("--kv-quant", default="none", choices=["none", "int8"])
     p.add_argument("--attn-impl", default="kernel",
-                   choices=["kernel", "gather"],
-                   help="kernel = the hand-written paged-attention kernels; "
-                        "gather = dense view gather + full softmax (oracle)")
+                   choices=["kernel", "gather", "pallas", "xla"],
+                   help="kernel (or pallas) = the hand-written "
+                        "paged-attention kernels; gather (or xla) = dense "
+                        "view gather + full softmax (oracle)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     for key, off in NOT_YET_PORTED_FLAGS.items():
-        kind = (dict(action="store_true") if isinstance(off, bool)
-                else dict(type=type(off)))
-        p.add_argument("--" + key.replace("_", "-"), default=off,
-                       help="not yet ported", **kind)
+        if isinstance(off, bool):
+            kind = dict(action=argparse.BooleanOptionalAction if off
+                        else "store_true")
+        else:
+            kind = dict(type=type(off))
+            if key in _CLI_CHOICES:
+                kind["choices"] = _CLI_CHOICES[key]
+        p.add_argument(_CLI_NAMES.get(key, "--" + key.replace("_", "-")),
+                       dest=key, default=off, help="not yet ported", **kind)
     args = p.parse_args(argv)
     refused = {k: getattr(args, k) for k in NOT_YET_PORTED_FLAGS}
     # SIGTERM drains the engine and still writes the partial completions.

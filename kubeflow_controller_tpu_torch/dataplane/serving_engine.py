@@ -248,7 +248,7 @@ class ServingEngine:
         if block_size < 1 or (block_size & (block_size - 1)) != 0:
             raise ValueError(
                 f"block_size must be a power of two >= 1 (got {block_size})")
-        gen.check_attn_impl(attn_impl)
+        attn_impl = gen.check_attn_impl(attn_impl)
         if kv_quant in (None, "none"):
             kv_quant = ""
         if kv_quant not in ("", "int8"):

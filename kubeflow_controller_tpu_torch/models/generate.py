@@ -8,10 +8,12 @@ unallocated).
 
 Attention runs one of two ways (``attn_impl``):
 
-* ``"kernel"`` (the default; the JAX engine's ``"pallas"``): the
+* ``"kernel"`` (the default; the JAX engine's ``"pallas"``, accepted as
+  an alias): the
   hand-written paged-attention kernels of ``ops/paged_attention.py`` on
   the card, their plain PyTorch versions on the CPU;
-* ``"gather"`` (the JAX engine's ``"xla"`` oracle): gather the dense view
+* ``"gather"`` (the JAX engine's ``"xla"`` oracle, accepted as an
+  alias): gather the dense view
   with ``ops/attention.py:paged_kv_view`` and run a full-row softmax.
 
 Where JAX returns a new cache, the port writes the pool in place (it is
@@ -37,12 +39,19 @@ from kubeflow_controller_tpu_torch.ops.paged_attention import (
 )
 
 ATTN_IMPLS = ("kernel", "gather")
+#: The JAX engine's names for the same two paths.
+ATTN_IMPL_ALIASES = {"pallas": "kernel", "xla": "gather"}
 
 
-def check_attn_impl(attn_impl: str) -> None:
+def check_attn_impl(attn_impl: str) -> str:
+    """The port's name of ``attn_impl`` (``"pallas"`` is ``"kernel"``,
+    ``"xla"`` is ``"gather"``); raises on any other name."""
+    attn_impl = ATTN_IMPL_ALIASES.get(attn_impl, attn_impl)
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(
-            f"attn_impl must be 'kernel' or 'gather' (got {attn_impl!r})")
+            f"attn_impl must be 'kernel' ('pallas') or 'gather' ('xla') "
+            f"(got {attn_impl!r})")
+    return attn_impl
 
 
 def inference_params(
@@ -276,7 +285,7 @@ def decode_step_paged(
     k/v in place and whose ``length`` advanced on active slots only.
     ``view_width`` caps the pages attention walks to the engine's live
     occupancy; writes still guard against the full table span."""
-    check_attn_impl(attn_impl)
+    attn_impl = check_attn_impl(attn_impl)
     x = params["embed"].to(cfg.dtype)[tokens.long()]      # [B, 1, D]
     pos = cache.length
     for layer in range(cfg.n_layers):
@@ -304,7 +313,7 @@ def prefill_chunk_paged(
     span or on sentinel entries drop). Returns the last real position's
     fp32 logits [1, vocab] and the cache with ``length[slot] = offset +
     n_real``."""
-    check_attn_impl(attn_impl)
+    attn_impl = check_attn_impl(attn_impl)
     if toks.shape[0] != 1:
         raise ValueError(
             f"prefill_chunk_paged refused this call:\n  - toks must carry "

@@ -19,7 +19,13 @@ on CUDA tensors and its plain PyTorch version on CPU tensors:
 * :func:`flash_bwd_dkdv` — the two-pass backward's first pass, dk and dv
   (replaces ``_bwd_dkdv_kernel``);
 * :func:`flash_bwd_dq` — its second pass, dq (replaces
-  ``_bwd_dq_kernel``).
+  ``_bwd_dq_kernel``). At head_dim 64 and 128 each of the two is
+  :func:`rope_rotate` (with rope tables) and a warpgroup kernel on plain
+  bf16 tiles that counter-rotates its output (dk, resp. dq) in its
+  epilogue; at every other head_dim one kernel that rotates on load.
+  :func:`flash_bwd_two_pass` runs both passes as the backward does: one
+  rope prepass for the two, delta from :func:`flash_bwd_prep` (which then
+  writes no dq scratch).
 
 Layouts are the public ``[B, S, H, D]`` ("BSHD") of :func:`flash_mha`
 throughout: q and o ``[B, S, H, D]``, k and v ``[B, S, KVH, D]`` (query
@@ -34,8 +40,8 @@ dq and dk are counter-rotated (``-S``) in fp32 before their cast.
 :func:`flash_mha` wraps them in a ``torch.autograd.Function``. Its
 backward takes the fused kernel when the JAX package's block rule gives
 one tile (``S // block == 1`` for both blocks, ``flash_attention.py:1081``)
-and the two-pass kernels otherwise, so the same ``S`` and blocks take the
-same route in both packages. The blocks choose nothing else here: Hopper
+and the two-pass kernels (:func:`flash_bwd_two_pass`) otherwise, so the
+same ``S`` and blocks take the same route in both packages. The blocks choose nothing else here: Hopper
 tiles are the kernels' own.
 
 ``LAUNCHES`` counts kernel launches per kernel; each wrapper adds one
@@ -61,9 +67,10 @@ LAUNCHES: Dict[str, int] = {
     "flash_bwd_dq": 0,
 }
 
-#: The head dims the warpgroup forward and fused backward kernels are
-#: built for; there Q and K are rotated by the prepass. ``kfc_flash_fwd``
-#: picks its kernel by the same rule.
+#: The head dims the warpgroup forward and backward kernels are built
+#: for; there Q and K are rotated by the prepass. ``kfc_flash_fwd``,
+#: ``kfc_flash_bwd_kv`` and ``kfc_flash_bwd_dq`` pick their kernel by the
+#: same rule.
 WGMMA_HEAD_DIMS = (64, 128)
 
 
@@ -266,6 +273,28 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, segment_ids=None,
     return _dq_from(kh, ds, rope_tables, q)
 
 
+def flash_bwd_dkdv_rotated_plain(qr, kr, v, do, lse, delta, segment_ids=None,
+                                 rope_tables=None, causal=True):
+    """The dk/dv pass as its warpgroup kernel computes it: ``qr`` and
+    ``kr`` already rotated (:func:`rope_rotate`), the score recompute on
+    them with no tables, dk counter-rotated in fp32 (by ``rope_tables``)
+    before the group fold and the cast. Bit for bit
+    :func:`flash_bwd_dkdv_plain` on the unrotated q and k."""
+    qh, _, p, ds = _bwd_terms(qr, kr, v, do, lse, delta, segment_ids, None,
+                              causal)
+    return _dkdv_from(qh, p, ds, do, rope_tables, kr, v)
+
+
+def flash_bwd_dq_rotated_plain(qr, kr, v, do, lse, delta, segment_ids=None,
+                               rope_tables=None, causal=True):
+    """The dq pass as its warpgroup kernel computes it: ``qr`` and ``kr``
+    already rotated, fp32 dq counter-rotated before the cast. Bit for bit
+    :func:`flash_bwd_dq_plain` on the unrotated q and k."""
+    _, kh, _, ds = _bwd_terms(qr, kr, v, do, lse, delta, segment_ids, None,
+                              causal)
+    return _dq_from(kh, ds, rope_tables, qr)
+
+
 def flash_bwd_fused_plain(q, k, v, o, lse, do, segment_ids=None,
                           rope_tables=None, causal=True):
     """The single-tile backward: ``(dq, dk, dv)`` from one score
@@ -361,13 +390,16 @@ def rope_rotate(q: torch.Tensor, k: torch.Tensor, rope_tables):
     return q_out, k_out
 
 
-def flash_bwd_prep(o: torch.Tensor, do: torch.Tensor):
+def flash_bwd_prep(o: torch.Tensor, do: torch.Tensor, scratch: bool = True):
     """``(delta [B, H, S] fp32, dq scratch [B, S, H, D] fp32 zeros)``: the
-    fused backward's prepass kernel on CUDA tensors (one launch for
-    both), :func:`attention_delta` and ``torch.zeros`` on CPU tensors."""
+    backward's prepass kernel on CUDA tensors (one launch for both),
+    :func:`attention_delta` and ``torch.zeros`` on CPU tensors. With
+    ``scratch=False`` (the two-pass backward) the scratch is None and the
+    kernel writes delta alone."""
     b, s, h, d = o.shape
     if o.device.type == "cpu":
-        return attention_delta(o, do), torch.zeros(o.shape, dtype=torch.float32)
+        return attention_delta(o, do), (
+            torch.zeros(o.shape, dtype=torch.float32) if scratch else None)
     from kubeflow_controller_tpu_torch.ops import _build
 
     _check("flash_bwd_prep", o, do, do)
@@ -375,10 +407,12 @@ def flash_bwd_prep(o: torch.Tensor, do: torch.Tensor):
         raise ValueError(f"flash_bwd_prep: o and do [B, S, H, D] with D in "
                          f"{WGMMA_HEAD_DIMS} (got {tuple(o.shape)}, {tuple(do.shape)})")
     delta = torch.empty((b, h, s), dtype=torch.float32, device=o.device)
-    dq_acc = torch.empty(o.shape, dtype=torch.float32, device=o.device)
+    dq_acc = (torch.empty(o.shape, dtype=torch.float32, device=o.device)
+              if scratch else None)
     rc = _build.load().kfc_flash_bwd_prep(
-        o.data_ptr(), do.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(),
-        b, s, h, d, _stream(o.device))
+        o.data_ptr(), do.data_ptr(), delta.data_ptr(),
+        None if dq_acc is None else dq_acc.data_ptr(), b, s, h, d,
+        _stream(o.device))
     _raise_on(rc, "flash_bwd_prep")
     LAUNCHES["flash_bwd_prep"] += 1
     return delta, dq_acc
@@ -438,7 +472,9 @@ def _bwd_kv_kernel(name, q, k, v, do, lse, delta, segment_ids, rope_tables,
                    causal, dq_acc):
     """One launch of the dk/dv kernel; with ``dq_acc`` (fp32 ``[B, S, H,
     D]`` zeros) it is the fused kernel and also adds every tile's dq
-    into ``dq_acc``, still in rotation space."""
+    into ``dq_acc``, still in rotation space. At head_dim 64 and 128 (no
+    ``dq_acc``) q and k must come rotated already: the tables only
+    counter-rotate dk."""
     from kubeflow_controller_tpu_torch.ops import _build
 
     seg, seg_p, c_p, s_p = _check(name, q, k, v, do, lse, delta,
@@ -473,7 +509,7 @@ def _bwd_fused_wgmma(q, k, v, o, lse, do, segment_ids, rope_tables, causal):
     b, s, h, d = q.shape
     if do.shape != q.shape or do.dtype != q.dtype or o.shape != q.shape:
         raise ValueError(f"{name}: o and do must match q")
-    qr, kr = rope_rotate(q, k, rope_tables) if rope_tables is not None else (q, k)
+    qr, kr = _rotated_for_kernels(q, k, rope_tables)
     delta, dq_acc = flash_bwd_prep(o, do)
     _check_residuals(name, lse, delta, (b, h, s))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -488,6 +524,8 @@ def _bwd_fused_wgmma(q, k, v, o, lse, do, segment_ids, rope_tables, causal):
 
 
 def _dq_kernel(q, k, v, do, lse, delta, segment_ids, rope_tables, causal):
+    """One launch of the dq kernel; at head_dim 64 and 128 q and k must
+    come rotated already (the tables only counter-rotate dq)."""
     from kubeflow_controller_tpu_torch.ops import _build
 
     seg, seg_p, c_p, s_p = _check("flash_bwd_dq", q, k, v, do, lse, delta,
@@ -538,25 +576,60 @@ def flash_bwd_fused(q, k, v, o, lse, do, segment_ids=None,
     return flash_bwd_post_plain(dq_acc, rope_tables), dk, dv
 
 
+def _rotated_for_kernels(q, k, rope_tables):
+    """q and k as the warpgroup kernels take them: rotated by the prepass
+    at head_dim 64 and 128 when there are tables, else as they are (the
+    other kernels rotate on load)."""
+    if rope_tables is None or q.shape[-1] not in WGMMA_HEAD_DIMS:
+        return q, k
+    return rope_rotate(q, k, rope_tables)
+
+
 def flash_bwd_dkdv(q, k, v, do, lse, delta, segment_ids=None,
                    rope_tables: RopeTables = None, causal: bool = True):
     """``(dk, dv)``, each KV head's query-head group summed inside the
-    kernel."""
+    kernel (at head_dim 64 and 128 after the rope prepass)."""
     if q.device.type == "cpu":
         return flash_bwd_dkdv_plain(q, k, v, do, lse, delta, segment_ids,
                                     rope_tables, causal)
-    return _bwd_kv_kernel("flash_bwd_dkdv", q, k, v, do, lse, delta,
+    qr, kr = _rotated_for_kernels(q, k, rope_tables)
+    return _bwd_kv_kernel("flash_bwd_dkdv", qr, kr, v, do, lse, delta,
                           segment_ids, rope_tables, causal, None)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, segment_ids=None,
                  rope_tables: RopeTables = None, causal: bool = True):
-    """dq, one block per (batch, head, q-tile), no atomics."""
+    """dq, one block per (q-tile, head, batch), no atomics (at head_dim 64
+    and 128 after the rope prepass)."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, segment_ids,
                                   rope_tables, causal)
-    return _dq_kernel(q, k, v, do, lse, delta, segment_ids, rope_tables,
+    qr, kr = _rotated_for_kernels(q, k, rope_tables)
+    return _dq_kernel(qr, kr, v, do, lse, delta, segment_ids, rope_tables,
                       causal)
+
+
+def flash_bwd_two_pass(q, k, v, o, lse, do, segment_ids=None,
+                       rope_tables: RopeTables = None, causal: bool = True):
+    """``(dq, dk, dv)`` by the two-pass backward, as :func:`flash_mha`'s
+    backward runs it when the block rule gives more than one tile. On
+    CUDA at head_dim 64 and 128: one rope prepass for both passes, delta
+    from the prepass kernel (no scratch), the dk/dv pass, the dq pass;
+    at other head dims delta eagerly and the two first kernels."""
+    if q.device.type == "cpu" or q.shape[-1] not in WGMMA_HEAD_DIMS:
+        delta = attention_delta(o, do)
+        dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, segment_ids,
+                                rope_tables, causal)
+        dq = flash_bwd_dq(q, k, v, do, lse, delta, segment_ids, rope_tables,
+                          causal)
+        return dq, dk, dv
+    qr, kr = _rotated_for_kernels(q, k, rope_tables)
+    delta, _ = flash_bwd_prep(o, do, scratch=False)
+    dk, dv = _bwd_kv_kernel("flash_bwd_dkdv", qr, kr, v, do, lse, delta,
+                            segment_ids, rope_tables, causal, None)
+    dq = _dq_kernel(qr, kr, v, do, lse, delta, segment_ids, rope_tables,
+                    causal)
+    return dq, dk, dv
 
 
 def _dense(t: torch.Tensor) -> torch.Tensor:
@@ -584,10 +657,8 @@ class _FlashAttention(torch.autograd.Function):
             dq, dk, dv = flash_bwd_fused(q, k, v, o, lse, do, seg, rope,
                                          ctx.causal)
         else:
-            delta = attention_delta(o, do)
-            dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, seg, rope,
-                                    ctx.causal)
-            dq = flash_bwd_dq(q, k, v, do, lse, delta, seg, rope, ctx.causal)
+            dq, dk, dv = flash_bwd_two_pass(q, k, v, o, lse, do, seg, rope,
+                                            ctx.causal)
         # Segment ids are integers and the rope tables functions of
         # integer positions: no gradients.
         return dq, dk, dv, None, None, None, None, None

@@ -309,3 +309,46 @@ def test_fused_backward_rotate_once_decomposition(causal, segments, kv_h):
     for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), jax_want):
         np.testing.assert_allclose(got.numpy(), np.asarray(w), err_msg=name,
                                    **GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("segments", [False, True], ids=["dense", "segments"])
+@pytest.mark.parametrize("kv_h", [KVH, H], ids=["gqa", "mha"])
+def test_two_pass_backward_rotate_once_decomposition(causal, segments, kv_h):
+    """The route the two-pass backward takes at head_dim 64 and 128: q and
+    k rotated once for both passes (the rope prepass), delta from the
+    prepass's plain version (no scratch), the dk/dv and dq passes on the
+    rotated tiles with no tables, fp32 dk and dq counter-rotated before
+    the group fold and the cast. Bit for bit the plain two-pass backward
+    with tables; within GRAD_TOL of ``jax.grad`` through the JAX
+    package's two-pass Pallas backward (block 128 < S)."""
+    q, k, v, ct = _inputs(9, kv_h=kv_h)
+    seg = _segments() if segments else None
+    jt, tt = _tables(True)
+    qt_, kt_, vt_, dot_ = (torch.from_numpy(x) for x in (q, k, v, ct))
+    seg_t = _t(seg)
+    o, lse = tfa.flash_fwd(qt_, kt_, vt_, seg_t, tt, causal)
+    want_delta = tfa.attention_delta(o, dot_)
+    want = (tfa.flash_bwd_dq_plain(qt_, kt_, vt_, dot_, lse, want_delta, seg_t, tt, causal),
+            *tfa.flash_bwd_dkdv_plain(qt_, kt_, vt_, dot_, lse, want_delta, seg_t, tt,
+                                      causal))
+
+    qr, kr = tfa.rope_rotate(qt_, kt_, tt)
+    delta, scratch = tfa.flash_bwd_prep(o, dot_, scratch=False)
+    assert scratch is None and torch.equal(delta, want_delta)
+    a = (vt_, dot_, lse, delta, seg_t, tt, causal)
+    dk, dv = tfa.flash_bwd_dkdv_rotated_plain(qr, kr, *a)
+    dq = tfa.flash_bwd_dq_rotated_plain(qr, kr, *a)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert torch.equal(got, w), name
+    # The backward's own two-pass route on CPU tensors runs the same plain
+    # versions.
+    for name, got, w in zip(("dq", "dk", "dv"),
+                            tfa.flash_bwd_two_pass(qt_, kt_, vt_, o, lse, dot_, seg_t, tt,
+                                                   causal), want):
+        assert torch.equal(got, w), name
+    assert not tfa.single_tile(S, 128, 128, segments)
+    jax_want = _jax_grads(q, k, v, ct, causal, seg, jt, 128)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), jax_want):
+        np.testing.assert_allclose(got.numpy(), np.asarray(w), err_msg=name,
+                                   **GRAD_TOL)

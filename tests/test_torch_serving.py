@@ -252,3 +252,119 @@ def test_small_pool_requeues_until_pages_free():
                    for i, (p, m, _) in enumerate(work)])
     assert {c.rid: (c.tokens, c.finish_reason) for c in out} == want
     assert eng.pool.used_blocks == 0
+
+
+@pytest.mark.parametrize("env", [
+    dict(model_dir="/nonexistent"), dict(num_processes=2, process_id=1),
+], ids=["ctx_model_dir", "num_processes=2"])
+def test_serve_refuses_the_job_env_it_cannot_honour(env):
+    from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
+
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        serve_lm.serve(ProcessContext(**env), config="tiny", batch=2,
+                       prompt_len=9, max_new_tokens=2, device="cpu")
+
+
+def test_attn_impl_takes_the_reference_names(tmp_path):
+    """``xla`` and ``pallas`` (the JAX engine's names) serve exactly what
+    ``gather`` and ``kernel`` serve: the same greedy streams."""
+    streams = {}
+    for impl in ("gather", "xla", "kernel", "pallas"):
+        out = tmp_path / f"{impl}.jsonl"
+        serve_lm.serve(config="tiny", batch=3, prompt_len=9, max_new_tokens=5,
+                       slots=2, block_size=BS, seed=2, attn_impl=impl,
+                       device="cpu", output_file=str(out))
+        streams[impl] = [json.loads(line)["completion"]
+                         for line in out.read_text().splitlines()]
+    assert streams["xla"] == streams["gather"]
+    assert streams["pallas"] == streams["kernel"]
+    assert all(len(s) == 5 for s in streams["xla"])
+    assert tgen.check_attn_impl("xla") == "gather"
+    assert tgen.check_attn_impl("pallas") == "kernel"
+    with pytest.raises(ValueError, match="attn_impl"):
+        tgen.check_attn_impl("dense")
+
+
+class _Parsed(Exception):
+    pass
+
+
+def _parser_of(main, monkeypatch):
+    """The ArgumentParser ``main`` builds, caught at its parse_args."""
+    import argparse
+
+    seen = []
+
+    def capture(self, args=None, namespace=None):
+        seen.append(self)
+        raise _Parsed
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", capture)
+        with pytest.raises(_Parsed):
+            main([])
+    return {o: a for a in seen[0]._actions for o in a.option_strings
+            if o not in ("-h", "--help")}
+
+
+def _off_default(action):
+    """A command-line value of ``action`` other than its default."""
+    import argparse
+
+    if isinstance(action, argparse.BooleanOptionalAction):
+        return ["--no-" + action.dest.replace("_", "-")] if action.default else [
+            action.option_strings[0]]
+    if action.nargs == 0:                                 # store_true
+        return [action.option_strings[0]]
+    if action.choices:
+        return [action.option_strings[0],
+                next(c for c in action.choices if c != action.default)]
+    value = {int: action.default + 1 if isinstance(action.default, int) else 2,
+             float: (action.default or 0.0) + 0.5}.get(action.type, "x")
+    return [action.option_strings[0], str(value)]
+
+
+#: (entry point, the reference's defaults the port keeps on purpose
+#: different: its attention kernels, and bucketed prefill until exact
+#: prefill is ported)
+PARSERS = {
+    "serve_lm": {"--attn-impl": "kernel", "--prefill-mode": "bucketed"},
+    "lm": {},
+}
+
+
+@pytest.mark.parametrize("entry", sorted(PARSERS))
+def test_cli_takes_every_reference_option_and_refuses_off_default_values(
+        entry, monkeypatch):
+    """Every option of the JAX entry point's parser is an option of the
+    port's, with the same default (but for the deliberate differences in
+    PARSERS), so a manifest written for the JAX entry point parses; each
+    option the port does not serve yet is refused with "not yet ported"
+    at any value off its default."""
+    import importlib
+
+    jmain = importlib.import_module(
+        f"kubeflow_controller_tpu.dataplane.entrypoints.{entry}").main
+    tmod = importlib.import_module(
+        f"kubeflow_controller_tpu_torch.dataplane.entrypoints.{entry}")
+    ref, port = _parser_of(jmain, monkeypatch), _parser_of(tmod.main, monkeypatch)
+    for opt, action in ref.items():
+        assert opt in port, f"{entry}: {opt} missing"
+        want = PARSERS[entry].get(opt, action.default)
+        assert port[opt].default == want, (entry, opt, port[opt].default)
+    if entry == "serve_lm":
+        unported = [port["--" + k.replace("_", "-") if k != "mesh_devices"
+                         else "--mesh"] for k in tmod.NOT_YET_PORTED_FLAGS]
+        unported.append(port["--prefill-mode"])
+        base = ["--config", "tiny", "--device", "cpu", "--batch", "1",
+                "--prompt-len", "9", "--max-new-tokens", "1", "--block-size", "8"]
+    else:
+        unported = [port[o] for o in ("--tp", "--fsdp", "--sp")]
+        base = ["--config", "tiny", "--device", "cpu", "--total-steps", "1",
+                "--batch", "1", "--seq-len", "32"]
+    off = [_off_default(a) for a in unported]
+    if entry == "lm":
+        off.append(["--attn", "ring"])
+    for flag in off:
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            tmod.main(base + flag)

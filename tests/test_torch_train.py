@@ -507,3 +507,17 @@ def test_lm_train_refuses_what_is_not_ported(kw):
     base.update(kw)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tlm.train(**base)
+
+
+@pytest.mark.parametrize("env", [
+    dict(model_dir="/nonexistent"), dict(num_processes=2, process_id=1),
+], ids=["ctx_model_dir", "num_processes=2"])
+def test_lm_train_refuses_the_job_env_it_cannot_honour(env):
+    """A TPUJob's model dir (the reference trains into it and saves at the
+    end) and a multi-process job (the reference syncs gradients across
+    processes) are refused, never dropped without a word."""
+    from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
+
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        tlm.train(ProcessContext(**env), config="tiny", total_steps=2,
+                  per_data_shard_batch=1, seq_len=32, device="cpu")
