@@ -347,13 +347,16 @@ class Case:
         return byts, ops
 
     def parts(self):
-        """The kernel this call launches (``kfc_paged_chunk``'s rule)."""
+        """The kernel this call launches (``kfc_paged_decode``'s and
+        ``kfc_paged_chunk``'s rules)."""
         import torch
 
         from kubeflow_controller_tpu_torch.ops import paged_attention as pa
 
         if self.kind == "decode":
-            return ["paged_decode_kernel"]
+            return ["paged_decode_mma_kernel"
+                    if pa.decode_uses_mma(self.dtype, self.rep, self.D)
+                    else "paged_decode_kernel"]
         if self.dtype == torch.bfloat16 and self.D in pa.MMA_HEAD_DIMS:
             return ["paged_chunk_mma_kernel"]
         return ["paged_chunk_kernel"]
@@ -931,6 +934,7 @@ def kernel_phase():
     long_pos = [2047, 0, 15, 16, 1000, 1535, 777, 2040]
     cases = [
         ("decode.bf16.serve", Case("decode", bf, False, 8, 1, 18, 288, serve_pos, 1)),
+        ("decode.int8.serve", Case("decode", bf, True, 8, 1, 18, 288, serve_pos, 14)),
         ("prefill.bf16.serve", Case("prefill", bf, False, 1, 16, 18, 288, [240], 2)),
         ("decode.bf16.2048", Case("decode", bf, False, 8, 1, 128, 2048, long_pos, 3)),
         ("decode.int8.2048", Case("decode", bf, True, 8, 1, 128, 2048, long_pos, 4)),
@@ -945,20 +949,75 @@ def kernel_phase():
                                   [2043, 0, 15, 16, 1000, 1535, 777, 2040], 10)),
     ]
     # Checked, not timed: a prefill at offset 0 (no pool page live: the
-    # intra-chunk tile alone), a tail chunk of 8 rows at offset 8, and an
-    # int8 verify of one slot at pos 0.
+    # intra-chunk tile alone), a tail chunk of 8 rows at offset 8, an int8
+    # verify of one slot at pos 0; decode at head_dim 64 (bf16 and int8
+    # pools), every slot at pos 0, pos on and beside page boundaries, a
+    # slot past the width cap (inactive: every column up to the cap
+    # visible), one slot at 2048 columns (the most parts), and pages of 8
+    # rows (a 16-column tile spans two pages).
     edge = [
         ("prefill.bf16.off0", Case("prefill", bf, False, 1, 16, 18, 288, [0], 11)),
         ("prefill.bf16.tail8", Case("prefill", bf, False, 1, 8, 18, 288, [8], 12)),
         ("verify.int8.pos0", Case("verify", bf, True, 1, 5, 18, 288, [0], 13)),
+        ("decode.bf16.d64", Case("decode", bf, False, 8, 1, 18, 288, serve_pos, 15, D=64)),
+        ("decode.int8.d64", Case("decode", bf, True, 8, 1, 18, 288, serve_pos, 16, D=64)),
+        ("decode.bf16.pos0", Case("decode", bf, False, 8, 1, 18, 288, [0] * 8, 17)),
+        ("decode.int8.pages", Case("decode", bf, True, 8, 1, 18, 288,
+                                   [15, 16, 31, 32, 15, 16, 31, 32], 18)),
+        ("decode.bf16.past_cap", Case("decode", bf, False, 8, 1, 18, 288,
+                                      [256, 300, 287, 288, 0, 500, 16, 270], 19)),
+        ("decode.bf16.one2048", Case("decode", bf, False, 1, 1, 128, 2048, [2047], 20)),
+        ("decode.int8.bs8", Case("decode", bf, True, 8, 1, 36, 288, serve_pos, 23, bs=8)),
     ]
     recs = {}
     for name, case in cases + edge:
         recs[name] = case.run(name, timed=name not in dict(edge),
-                              profiled=name == "prefill.bf16.serve")
+                              profiled=name in ("decode.bf16.serve", "prefill.bf16.serve"))
         del case
         torch.cuda.empty_cache()
     return recs
+
+
+def two_stream_check():
+    """C4: a split decode on a side stream while a split verify chunk runs
+    on the current stream, each queued behind a sleep of the same length
+    so that their launches start together. The two kernels merge their
+    parts through counters and scratch of their own stream; every output
+    must be the bits of a run alone and within TOL of its plain version."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.ops import paged_attention as pa
+
+    bf = torch.bfloat16
+    serve_pos = [256, 263, 270, 277, 284, 287, 259, 266]
+    dec = Case("decode", bf, False, 8, 1, 18, 288, serve_pos, 21)
+    ver = Case("verify", bf, False, 8, 5, 128, 2048,
+               [2043, 0, 15, 16, 1000, 1535, 777, 2040], 22)
+    n = 24
+    dec_alone, ver_alone = dec.call(False), ver.call(False)
+    dec_plain, ver_plain = dec.call(True), ver.call(True)
+    side, main = torch.cuda.Stream(), torch.cuda.current_stream()
+    side.wait_stream(main)
+    torch.cuda.synchronize()
+    cycles = 20_000_000                       # ~10 ms at the H100's clock
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(cycles)
+        dec_outs = [dec.call(False) for _ in range(n)]
+    torch.cuda._sleep(cycles)
+    ver_outs = [ver.call(False) for _ in range(n)]
+    torch.cuda.synchronize()
+    for name, outs, alone, plain in (("decode", dec_outs, dec_alone, dec_plain),
+                                     ("verify", ver_outs, ver_alone, ver_plain)):
+        diff = sum(int((o != alone).sum()) for o in outs)
+        ok, err = _close(alone, plain, **TOL["bfloat16"])
+        if diff or not ok:
+            raise AssertionError(f"two-stream {name}: {diff} elements differ from a run "
+                                 f"alone over {n} launches; alone vs plain max |err| {err}")
+    keys = [k for k in pa._STREAM_BUFFERS if k[1] in (side.cuda_stream, main.cuda_stream)]
+    if len(keys) != 2:
+        raise AssertionError(f"two-stream: stream buffer keys {keys}, want one per stream")
+    log(f"two-stream check (C4): {n} split decodes on a side stream beside {n} split "
+        f"verify chunks, the same bits as alone, {len(keys)} stream buffer sets")
 
 
 def _read_completions(path):
@@ -995,6 +1054,13 @@ def serve_phase(smi):
         for k, n in launches.items():
             if n <= 0:
                 raise AssertionError(f"serve[{label}]: kernel {k} never launched")
+        # One chunk launch per layer per prefill chunk, one decode launch
+        # per layer per decode micro-step.
+        n_layers = tfm.llama3_8b_config().n_layers
+        if (launches["paged_chunk"] != res["prefill_chunks"] * n_layers
+                or launches["paged_decode"] % n_layers):
+            raise AssertionError(f"serve[{label}]: launches {launches} are not one per "
+                                 f"layer of {res['prefill_chunks']} chunks and whole steps")
         log(f"serve[{label}] llama3_8b (d_model 4096, 32 layers, kv {kv_quant or 'bf16'}) "
             f"on {smi}: {batch} requests x 32 tokens, ttft_p50 {res['ttft_p50_ms']} ms, "
             f"ttft_p95 {res['ttft_p95_ms']} ms, tpot_p50 {res['tpot_p50_ms']} ms, "
@@ -1562,6 +1628,7 @@ def main() -> int:
 
     smi = phase("device", device_phase)
     recs = phase("paged kernels", kernel_phase)
+    phase("two streams", two_stream_check)
     flash_recs = phase("flash kernels", flash_kernel_phase, smi)
     int8_recs = phase("int8 kernel", int8_kernel_phase, smi)
     runs = phase("serve", serve_phase, smi)

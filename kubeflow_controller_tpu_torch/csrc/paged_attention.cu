@@ -41,6 +41,36 @@
 // simple first versions: scalar fp32 FMAs, one page in flight per block,
 // four __syncthreads per page.
 //
+// paged_decode_mma_kernel also replaces the decode Pallas kernel
+// (_decode_kernel :72), for bf16 queries over bf16 or int8 pools at head_dim
+// 64 and 128 with rep <= 16 (every decode the engine runs); kfc_paged_decode
+// picks it by dtype, head_dim and rep. Bytes bound it (4 * rep flops per KV
+// element). At the serving shape (8 slots, 8 KV heads, rep 4, 288 columns)
+// the first kernel ran 64 blocks on 132 SMs, each walking its 18 pages one
+// after the other, and walked every page up to the width cap. Its design
+// takes the chunk kernel's machinery:
+//   - the walk is split flash-decoding style: grid (part, slot x KV head),
+//     parts sized by the width cap (pos is on the device) to fill the card;
+//     a part past its slot's live columns writes an empty partial at once,
+//     and the last part to finish merges in the same launch (one launch a
+//     call; the counters and the scratch are the wrapper's, one set per
+//     stream);
+//   - only columns c < min(pos[b] + 1, nb * bs) are walked;
+//   - inside a block each of the four warps walks every fourth tile of the
+//     part through a ring of its own (two stages of 16-byte cp.async
+//     copies in the pool's type), ordered by __syncwarp alone; the warps'
+//     states merge in shared memory at the end;
+//   - the rep query rows sit in the first rows of an m16n8k16 tile (the
+//     rest zero) and the tile math is the chunk kernel's: K's scale on the
+//     fp32 score column, V's scale folded into P, P as a bf16 hi/lo pair.
+//   Measured on the H100 against its alternatives, which lost and were
+//   removed (times in PERF.md, section 6): keys as the M rows (S^T = K Q^T,
+//   rep padded to 8) took 0.92-1.04x its device time (faster on bf16
+//   pools, slower on int8 at 2048 columns; it takes rep <= 8 only and a
+//   tile_math of its own, and a decode call is bound by the host), fp32
+//   FMAs 1.7-2.0x, one bulk copy (the TMA engine) per K or V row in place
+//   of cp.async 0.96-1.15x.
+//
 // paged_chunk_mma_kernel is the chunk attention for bf16 queries over
 // bf16 or int8 pools at head_dim 64 and 128 (every chunk the engine
 // runs); kfc_paged_chunk picks it by dtype and head_dim. At the serving
@@ -398,14 +428,34 @@ __device__ __forceinline__ uint32_t pair_of(const int8_t* lo, const int8_t* hi) 
 // table (sentinel ids clamped to the last real page; columns past the
 // table read its last entry: both are masked). int8 rows bring their
 // scales.
-template <int D, typename T>
+// The kThreads threads that share the stage (the block, or one warp) each
+// pass their index tid < kThreads.
+template <int D, typename T, int kThreads>
 __device__ __forceinline__ void load_tile(const ChunkArgs& a, int b, int g, bool pool, int tile,
-                                          unsigned char* stage) {
+                                          unsigned char* stage, int tid) {
   constexpr int kRow = stage_row_bytes<D, T>();
   constexpr int kChunks = D * static_cast<int>(sizeof(T)) / 16;
+  static_assert((2 * kTileCols * kChunks) % kThreads == 0, "whole copies per thread");
   const uint32_t base = hopper::smem_u32(stage);
   const int c0 = tile * kTileCols;
-  for (int i = threadIdx.x; i < 2 * kTileCols * kChunks; i += kMmaThreads) {
+  // Pool column c as a token row of the pool, through the slot's table. A
+  // tile lies in one page when bs is a multiple of 16: one lookup.
+  const bool one_page = pool && a.bs % kTileCols == 0;
+  size_t tok0 = 0;
+  if (one_page) {
+    const int j = min(c0 / a.bs, a.mb - 1);
+    const int page = min(max(a.tables[static_cast<size_t>(b) * a.mb + j], 0), a.last_page);
+    tok0 = static_cast<size_t>(page) * a.bs + c0 % a.bs;
+  }
+  auto token = [&](int c) -> size_t {
+    if (one_page) return tok0 + (c - c0);
+    const int j = min(c / a.bs, a.mb - 1);
+    const int page = min(max(a.tables[static_cast<size_t>(b) * a.mb + j], 0), a.last_page);
+    return static_cast<size_t>(page) * a.bs + c % a.bs;
+  };
+#pragma unroll
+  for (int k = 0; k < 2 * kTileCols * kChunks / kThreads; ++k) {
+    const int i = tid + k * kThreads;
     const int kv = i / (kTileCols * kChunks);
     const int row = (i / kChunks) % kTileCols, ch = i % kChunks, c = c0 + row;
     const uint32_t dst = base + (kv * kTileCols + row) * kRow + ch * 16;
@@ -418,21 +468,15 @@ __device__ __forceinline__ void load_tile(const ChunkArgs& a, int b, int g, bool
       src = reinterpret_cast<const unsigned char*>(
           (kv ? a.v_new : a.k_new) + ((static_cast<size_t>(b) * a.W + c) * a.G + g) * D);
     } else {
-      const int j = min(c / a.bs, a.mb - 1);
-      const int page = min(max(a.tables[static_cast<size_t>(b) * a.mb + j], 0), a.last_page);
-      const size_t tok = static_cast<size_t>(page) * a.bs + c % a.bs;
       src = static_cast<const unsigned char*>(kv ? a.v_pool : a.k_pool) +
-            (tok * a.G + g) * D * sizeof(T);
+            (token(c) * a.G + g) * D * sizeof(T);
     }
     hopper::cp_async16(dst, src + ch * 16);
   }
-  if (pool && a.k_scale != nullptr && threadIdx.x < 2 * kTileCols) {
-    const int kv = threadIdx.x / kTileCols, row = threadIdx.x % kTileCols, c = c0 + row;
-    const int j = min(c / a.bs, a.mb - 1);
-    const int page = min(max(a.tables[static_cast<size_t>(b) * a.mb + j], 0), a.last_page);
-    const size_t tok = static_cast<size_t>(page) * a.bs + c % a.bs;
-    cp_async4(base + 2 * kTileCols * kRow + threadIdx.x * 4,
-              (kv ? a.v_scale : a.k_scale) + tok * a.G + g);
+  if (pool && a.k_scale != nullptr && tid < 2 * kTileCols) {
+    const int kv = tid / kTileCols, row = tid % kTileCols;
+    cp_async4(base + 2 * kTileCols * kRow + tid * 4,
+              (kv ? a.v_scale : a.k_scale) + token(c0 + row) * a.G + g);
   }
 }
 
@@ -532,25 +576,31 @@ __device__ __forceinline__ void tile_math(const unsigned char* stage, const uint
   }
 }
 
-// Walks tiles [t0, t1) of one part through a ring of two stages.
-template <int D, typename T, typename Visible>
+// Walks tiles t0, t0 + step, ... (below t1) of one part through a ring of
+// two stages at `smem`, shared by the whole block (kThreads ==
+// kMmaThreads: every warp computes its own rows on each tile) or private
+// to one warp (kThreads == 32: the warp walks its own tiles, and only
+// __syncwarp orders its ring). tile_fn(stage, c0) consumes a stage whose
+// first column is c0.
+template <int D, typename T, int kThreads, typename TileFn>
 __device__ __forceinline__ void walk(const ChunkArgs& a, int b, int g, bool pool, int t0, int t1,
-                                     unsigned char* smem, const uint32_t (&qa)[D / 16][4],
-                                     RowState<D>& st, bool scaled, Visible visible) {
-  const int n = t1 - t0;
+                                     int step, unsigned char* smem, TileFn tile_fn) {
+  const int tid = threadIdx.x % kThreads;
+  const int n = t1 > t0 ? (t1 - t0 + step - 1) / step : 0;
+  auto sync = [] {
+    if constexpr (kThreads == 32) __syncwarp(); else __syncthreads();
+  };
   for (int i = 0; i < 2; ++i) {
-    if (i < n) load_tile<D, T>(a, b, g, pool, t0 + i, smem + i * stage_bytes<D>());
+    if (i < n) load_tile<D, T, kThreads>(a, b, g, pool, t0 + i * step, smem + i * stage_bytes<D>(), tid);
     hopper::cp_async_commit();
   }
   for (int i = 0; i < n; ++i) {
     unsigned char* stage = smem + (i & 1) * stage_bytes<D>();
     hopper::cp_async_wait<1>();
-    __syncthreads();
-    const int c0 = (t0 + i) * kTileCols;
-    tile_math<D, T>(stage, qa, st, a.sm_scale, scaled,
-                    [&](int hh, int col) { return visible(hh, c0 + col); });
-    __syncthreads();
-    if (i + 2 < n) load_tile<D, T>(a, b, g, pool, t0 + i + 2, stage);
+    sync();
+    tile_fn(static_cast<const unsigned char*>(stage), (t0 + i * step) * kTileCols);
+    sync();
+    if (i + 2 < n) load_tile<D, T, kThreads>(a, b, g, pool, t0 + (i + 2) * step, stage, tid);
     hopper::cp_async_commit();
   }
 }
@@ -603,16 +653,25 @@ paged_chunk_mma_kernel(const ChunkArgs a) {
     const int last = min(rg * kMmaRows + kMmaRows, R) - 1;
     const int cols = min(a.W, last / a.rep + 1);
     const int rep = a.rep;
-    walk<D, bf16>(a, b, g, false, 0, (cols + kTileCols - 1) / kTileCols, smem, qa, st, false,
-                  [&](int hh, int c) { return c < a.W && c <= (row0 + 8 * hh) / rep; });
+    walk<D, bf16, kMmaThreads>(
+        a, b, g, false, 0, (cols + kTileCols - 1) / kTileCols, 1, smem,
+        [&](const unsigned char* stage, int c0) {
+          tile_math<D, bf16>(stage, qa, st, a.sm_scale, false, [&](int hh, int col) {
+            const int c = c0 + col;
+            return c < a.W && c <= (row0 + 8 * hh) / rep;
+          });
+        });
   } else {
     const int live_tiles = (live + kTileCols - 1) / kTileCols;
     const int t0 = (part - 1) * a.tiles_per_part;
     const int t1 = min(t0 + a.tiles_per_part, live_tiles);
     empty = t0 >= t1;
     if (!empty)
-      walk<D, TKV>(a, b, g, true, t0, t1, smem, qa, st, a.k_scale != nullptr,
-                   [&](int, int c) { return c < live; });
+      walk<D, TKV, kMmaThreads>(
+          a, b, g, true, t0, t1, 1, smem, [&](const unsigned char* stage, int c0) {
+            tile_math<D, TKV>(stage, qa, st, a.sm_scale, a.k_scale != nullptr,
+                              [&](int, int col) { return c0 + col < live; });
+          });
   }
 
   float l_row[2];
@@ -708,6 +767,187 @@ paged_chunk_mma_kernel(const ChunkArgs a) {
   if (threadIdx.x == 0) a.counters[bgr] = 0;   // ready for the next launch
 }
 
+// -- decode attention on the tensor cores (bf16 queries) -------------------------
+constexpr int kDecodeWarps = kMmaThreads / 32;   // warps of a decode block
+constexpr int kMaxDecodeRep = 16;                // query rows one warp's mma tile holds
+
+// A merged row: sum_i w_i acc_i (four columns) and sum_i w_i l_i over n
+// partials (m_i, l_i, acc_i), w_i = exp(m_i - max m) over the partials with
+// l_i > 0; an empty partial (l_i == 0) weighs 0 and its acc is not read. m
+// is the max (-inf when every partial is empty). kGlobal: the partials lie
+// in device memory, written by other blocks (read past L1).
+struct Merged {
+  float4 acc;
+  float m, l;
+};
+template <bool kGlobal>
+__device__ __forceinline__ Merged merge_partials(const float2* ml, int ml_stride, const float* acc,
+                                                 size_t acc_stride, int n) {
+  auto ld_ml = [&](int i) {
+    if constexpr (kGlobal) return __ldcg(ml + i * ml_stride);
+    else return ml[i * ml_stride];
+  };
+  Merged r{make_float4(0.f, 0.f, 0.f, 0.f), neg_inf(), 0.f};
+  for (int i = 0; i < n; ++i) {
+    const float2 x = ld_ml(i);
+    if (x.y > 0.f) r.m = fmaxf(r.m, x.x);
+  }
+  for (int i = 0; i < n; ++i) {
+    const float2 x = ld_ml(i);
+    if (!(x.y > 0.f)) continue;
+    const float w = expf(x.x - r.m);
+    const float4* src = reinterpret_cast<const float4*>(acc + i * acc_stride);
+    float4 v;
+    if constexpr (kGlobal) v = __ldcg(src);
+    else v = *src;
+    r.l = fmaf(w, x.y, r.l);
+    r.acc.x = fmaf(w, v.x, r.acc.x);
+    r.acc.y = fmaf(w, v.y, r.acc.y);
+    r.acc.z = fmaf(w, v.z, r.acc.z);
+    r.acc.w = fmaf(w, v.w, r.acc.w);
+  }
+  return r;
+}
+
+// Shared memory of a decode block: each warp's ring of two stages (after
+// the walk the same bytes hold the warps' partials for the block's
+// merge) and 16 bytes for the merge flag.
+template <int D>
+__host__ __device__ constexpr size_t decode_smem_bytes() {
+  return static_cast<size_t>(kDecodeWarps) * 2 * stage_bytes<D>() + 16;
+}
+
+// The warps' partials of a block, in the ring's bytes once every warp is
+// done with its ring: (m, l) [warps][16] and acc [warps][rep][D].
+struct WarpPartials {
+  float2* ml;
+  float* acc;
+  __device__ explicit WarpPartials(unsigned char* smem)
+      : ml(reinterpret_cast<float2*>(smem)),
+        acc(reinterpret_cast<float*>(smem) + 2 * kDecodeWarps * kMaxDecodeRep) {}
+};
+
+// One decode warp's walk over tiles t0, t0 + 4, ... (below t1) of the pool
+// through its own ring of two stages (walk's warp form, 16-byte cp.async
+// copies), the rep query rows as the first rows of m16n8k16 tiles (rows g8
+// and g8 + 8 of this thread's fragments, zero past rep; the chunk kernel's
+// tile_math); then its (m, l, acc) into the block's WarpPartials.
+template <int D, typename TKV>
+__device__ __forceinline__ void decode_warp(const ChunkArgs& a, int bg, int b, int g, int t0,
+                                            int t1, unsigned char* smem, int live) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g8 = lane >> 2, q4 = lane & 3;
+  const int rep = a.rep;
+  uint32_t qa[D / 16][4];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = g8 + 8 * hh;
+    const bf16* qr = r < rep ? a.q + (static_cast<size_t>(bg) * rep + r) * D : nullptr;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      qa[kk][hh] = qr ? pair_at(qr + 16 * kk + 2 * q4) : 0u;
+      qa[kk][2 + hh] = qr ? pair_at(qr + 16 * kk + 8 + 2 * q4) : 0u;
+    }
+  }
+  RowState<D> st;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st.o[n][e] = 0.f;
+  st.m[0] = st.m[1] = neg_inf();
+  st.l[0] = st.l[1] = 0.f;
+  walk<D, TKV, 32>(a, b, g, true, t0, t1, kDecodeWarps, smem + warp * 2 * stage_bytes<D>(),
+                   [&](const unsigned char* stage, int c0) {
+                     tile_math<D, TKV>(stage, qa, st, a.sm_scale, a.k_scale != nullptr,
+                                       [&](int, int col) { return c0 + col < live; });
+                   });
+  float l_row[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float l = st.l[hh];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_row[hh] = l;
+  }
+  hopper::cp_async_wait<0>();
+  __syncthreads();
+  const WarpPartials wp(smem);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = g8 + 8 * hh;
+    if (r >= rep) continue;
+    if (q4 == 0) wp.ml[warp * kMaxDecodeRep + r] = make_float2(st.m[hh], l_row[hh]);
+    float* acc = wp.acc + (warp * rep + r) * D;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(acc + 8 * n + 2 * q4) =
+          make_float2(st.o[n][2 * hh], st.o[n][2 * hh + 1]);
+  }
+}
+
+// -- the decode kernel -------------------------------------------------------------
+
+// grid (parts, B * G), kMmaThreads threads; a.W == 1, q and out [B, G,
+// rep, D]. Block (part, b * G + g) covers the part's run of 16-column
+// tiles [t0, t1) of (slot b, KV head g), cut at the slot's live columns
+// c < min(pos[b] + 1, nb * bs); warp w walks tiles t0 + w, t0 + w + 4, ...
+// through a ring of its own (every walked tile holds a visible column, so
+// each warp's running max is finite from its first tile on). The four
+// warps' states merge in shared memory; with one part the block writes
+// the output, else its partial, and the last of the parts to finish
+// merges.
+template <int D, typename TKV>
+__global__ void __launch_bounds__(kMmaThreads, 3)   // 3 blocks an SM: the grid in one wave
+paged_decode_mma_kernel(const ChunkArgs a) {
+  extern __shared__ __align__(16) unsigned char decode_smem[];
+  unsigned char* smem = decode_smem;
+  const int part = blockIdx.x, bg = blockIdx.y;
+  const int b = bg / a.G, g = bg % a.G, rep = a.rep, warp = threadIdx.x >> 5;
+  const int live = min(a.pos[b] + 1, a.nb * a.bs);
+  const int t0 = part * a.tiles_per_part + warp;
+  const int t1 = min(part * a.tiles_per_part + a.tiles_per_part, (live + kTileCols - 1) / kTileCols);
+  decode_warp<D, TKV>(a, bg, b, g, t0, t1, smem, live);
+  __syncthreads();
+
+  const WarpPartials wp(smem);
+  auto store_out = [&](int r, int d0, const Merged& mg) {
+    const float il = 1.f / mg.l;
+    *reinterpret_cast<uint2*>(a.out + (static_cast<size_t>(bg) * rep + r) * D + d0) =
+        make_uint2(hopper::pack_bf16(mg.acc.x * il, mg.acc.y * il),
+                   hopper::pack_bf16(mg.acc.z * il, mg.acc.w * il));
+  };
+  const size_t first = static_cast<size_t>(bg) * a.parts;   // partial of part 0
+  for (int i = threadIdx.x; i < rep * (D / 4); i += kMmaThreads) {
+    const int r = i / (D / 4), d0 = (i % (D / 4)) * 4;
+    const Merged mg = merge_partials<false>(wp.ml + r, kMaxDecodeRep, wp.acc + r * D + d0,
+                                            static_cast<size_t>(rep) * D, kDecodeWarps);
+    if (a.parts == 1) {
+      store_out(r, d0, mg);
+      continue;
+    }
+    const size_t row = (first + part) * rep + r;
+    if (d0 == 0) reinterpret_cast<float2*>(a.part_ml)[row] = make_float2(mg.m, mg.l);
+    if (mg.l > 0.f) *reinterpret_cast<float4*>(a.part_acc + row * D + d0) = mg.acc;
+  }
+  if (a.parts == 1) return;
+
+  __threadfence();
+  __syncthreads();
+  int* flag = reinterpret_cast<int*>(smem + decode_smem_bytes<D>() - 16);
+  if (threadIdx.x == 0) flag[0] = atomicAdd(a.counters + bg, 1) == a.parts - 1;
+  __syncthreads();
+  if (!flag[0]) return;
+  __threadfence();
+  // The last part merges every part's partial (empty parts weigh 0).
+  for (int i = threadIdx.x; i < rep * (D / 4); i += kMmaThreads) {
+    const int r = i / (D / 4), d0 = (i % (D / 4)) * 4;
+    store_out(r, d0, merge_partials<true>(
+                         reinterpret_cast<const float2*>(a.part_ml) + first * rep + r, rep,
+                         a.part_acc + (first * rep + r) * D + d0, static_cast<size_t>(rep) * D,
+                         a.parts));
+  }
+  if (threadIdx.x == 0) a.counters[bg] = 0;   // ready for the next launch
+}
+
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr size_t kMaxSmem = 227 * 1024;
 
@@ -772,17 +1012,38 @@ int launch_chunk_mma(const ChunkArgs& a, int B, int row_groups, cudaStream_t str
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+template <int D, typename TKV>
+int launch_decode_mma(const ChunkArgs& a, int B, cudaStream_t stream) {
+  constexpr size_t bytes = decode_smem_bytes<D>();
+  auto kernel = paged_decode_mma_kernel<D, TKV>;
+  cudaError_t err = prepare(kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(a.parts, B * a.G), kMmaThreads, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
 
-// q_dtype: 0 = float32, 1 = bfloat16 (q, k_new, v_new and out share it).
-// quantized: pools are int8 with float32 scales; else pools have q's type.
-extern "C" int kfc_paged_decode(
-    const void* q, const void* k_pool, const void* v_pool,
-    const void* k_scale, const void* v_scale, const void* tables,
-    const void* pos, void* out, int B, int G, int rep, int D, int bs, int mb,
-    int nb, int last_page, float sm_scale, int q_dtype, int quantized,
-    void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+int paged_decode(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+                 const void* v_scale, const void* tables, const void* pos, void* out,
+                 void* part_acc, void* part_ml, void* counters, int B, int G, int rep, int D,
+                 int bs, int mb, int nb, int last_page, int parts, int tiles_per_part,
+                 float sm_scale, int q_dtype, int quantized, cudaStream_t s) {
+  if (q_dtype == 1 && (D == 64 || D == 128) && rep <= kMaxDecodeRep) {
+    if (parts < 1 || parts > kMaxParts || tiles_per_part < 1 ||
+        (parts > 1 && (part_acc == nullptr || part_ml == nullptr || counters == nullptr)) ||
+        B <= 0 || rep <= 0 || pos == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const ChunkArgs a{static_cast<const bf16*>(q), nullptr, nullptr, k_pool, v_pool,
+                      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+                      static_cast<const int*>(tables), static_cast<const int*>(pos),
+                      static_cast<bf16*>(out), static_cast<float*>(part_acc),
+                      static_cast<float*>(part_ml), static_cast<int*>(counters), 1, G, rep, bs,
+                      mb, nb, last_page, parts, tiles_per_part, 0, sm_scale};
+    if (D == 64)
+      return quantized ? launch_decode_mma<64, int8_t>(a, B, s)
+                       : launch_decode_mma<64, bf16>(a, B, s);
+    return quantized ? launch_decode_mma<128, int8_t>(a, B, s)
+                     : launch_decode_mma<128, bf16>(a, B, s);
+  }
   if (q_dtype == 0 && !quantized)
     return launch_decode<float, float>(q, k_pool, v_pool, nullptr, nullptr, tables, pos, out,
                                        B, G, rep, D, bs, mb, nb, last_page, sm_scale, s);
@@ -800,6 +1061,33 @@ extern "C" int kfc_paged_decode(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+}  // namespace
+
+// A decode launch's shape arguments, which the wrapper builds once per
+// configuration. q_dtype: 0 = float32, 1 = bfloat16 (q and out share it).
+// quantized: pools are int8 with float32 scales; else pools have q's type.
+struct KfcDecodeDims {
+  int B, G, rep, D, bs, mb, nb, last_page, parts, tiles_per_part;
+  float sm_scale;
+  int q_dtype, quantized;
+};
+
+// bf16 queries at head_dim 64 and 128 with rep <= 16 take
+// paged_decode_mma_kernel in `parts` parts of `tiles_per_part` 16-column
+// tiles (part_acc [B * G * parts, rep, D] and part_ml [B * G * parts,
+// rep, 2] fp32 scratch and counters [B * G], zero between launches; unused
+// with one part); every other call takes paged_decode_kernel, which
+// ignores those five.
+extern "C" int kfc_paged_decode(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* tables,
+    const void* pos, void* out, void* part_acc, void* part_ml, void* counters,
+    const KfcDecodeDims* d, void* stream) {
+  return paged_decode(q, k_pool, v_pool, k_scale, v_scale, tables, pos, out, part_acc, part_ml,
+                      counters, d->B, d->G, d->rep, d->D, d->bs, d->mb, d->nb, d->last_page,
+                      d->parts, d->tiles_per_part, d->sm_scale, d->q_dtype, d->quantized,
+                      static_cast<cudaStream_t>(stream));
+}
 
 // q_dtype: 0 = float32, 1 = bfloat16 (q, k_new, v_new and out share it).
 // quantized: pools are int8 with float32 scales; else pools have q's type.

@@ -106,7 +106,7 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(build()[0])
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     signatures = {
-        "kfc_paged_decode": [P] * 8 + [I] * 8 + [F, I, I, P],
+        "kfc_paged_decode": [P] * 13,
         "kfc_paged_chunk": [P] * 13 + [I] * 12 + [F, I, I, P],
         "kfc_flash_fwd": [P] * 8 + [I] * 5 + [F, I, P],
         "kfc_rope_rotate": [P] * 6 + [I] * 4 + [P],

@@ -26,16 +26,21 @@ kernel to the plain version.
 ``paged_chunk``): each wrapper adds one where it launches, and nowhere
 else, so a run can show that its main path went through the kernels.
 
-Chunk attention with bf16 queries at head_dim 64 and 128
-(``MMA_HEAD_DIMS``) launches the tensor-core kernel, which splits each
-(slot, KV head)'s walk into parts (:func:`chunk_parts`) and walks only
-the columns ``< min(pos[b], nb * bs)``; every other chunk call launches
-the first kernel.
+Chunk and decode attention with bf16 queries at head_dim 64 and 128
+(``MMA_HEAD_DIMS``; decode also needs ``rep <= MAX_DECODE_REP``) launch
+the tensor-core kernels, which split each (slot, KV head)'s walk into
+parts (:func:`chunk_parts`, :func:`decode_parts`) and walk only the
+visible columns (``< min(pos[b], nb * bs)`` for a chunk, ``<= pos[b]``
+for decode); every other call launches the first kernels. The parts
+merge inside the launch through counters and scratch held per (device,
+stream) (:func:`_stream_buffers`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import ctypes
+import functools
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -46,17 +51,24 @@ LAUNCHES: Dict[str, int] = {"paged_decode": 0, "paged_chunk": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: Head dims of the tensor-core chunk kernel (bf16 queries).
+#: Head dims of the tensor-core chunk and decode kernels (bf16 queries).
 MMA_HEAD_DIMS = (64, 128)
-TILE_COLS = 16        # pool columns of one tile of that kernel
-ROWS_PER_BLOCK = 64   # query rows (position, rep pairs) of one block
-MAX_PARTS = 64        # part 0 (the intra-chunk tile) and 63 runs of pool tiles
+TILE_COLS = 16        # pool columns of one tile of those kernels
+ROWS_PER_BLOCK = 64   # query rows (position, rep pairs) of one chunk block
+MAX_PARTS = 64        # chunk: part 0 (the intra-chunk tile) and 63 runs of pool tiles
 TARGET_BLOCKS = 264   # two blocks for each of the H100's 132 SMs
+DECODE_WARPS = 4      # warps of a decode block; warp w walks every 4th tile of its part
+MAX_DECODE_REP = 16   # query rows of one decode warp's mma tile
 
-# Merge counters of the tensor-core chunk kernel, by device: zeros the
-# kernel leaves zero after every launch (the last block of each (slot,
-# head, row group) resets its own).
-_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+# Merge counters and split-partial scratch of the tensor-core kernels, one
+# pair per (device, stream), grown when a launch needs more. The chunk
+# and the decode kernel share a stream's pair: launches on one stream run
+# one after another, so the two never use it at once, and each kernel's
+# last block resets its own counters, so the counters are all zero
+# between launches. Two streams never share a pair: kernels on two
+# streams may run at once.
+_STREAM_BUFFERS: Dict[Tuple[torch.device, int],
+                      Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def reset_launches() -> None:
@@ -85,6 +97,27 @@ def chunk_parts(groups: int, cols: int) -> tuple:
     runs = min(tiles, want, MAX_PARTS - 1)
     per = -(-tiles // runs)
     return 1 + -(-tiles // per), per
+
+
+def decode_parts(groups: int, cols: int) -> tuple:
+    """``(parts, tiles_per_part)`` of the tensor-core decode kernel for
+    ``groups`` = slots x KV heads and ``cols`` columns to cover (the width
+    cap: decode's ``pos`` is on the device): the ``ceil(cols / 16)`` tiles
+    in equal runs, as many as bring the grid to ``TARGET_BLOCKS``
+    (at most ``MAX_PARTS``), each of at least ``DECODE_WARPS`` tiles (one
+    for each warp of a block)."""
+    tiles = max(1, -(-cols // TILE_COLS))
+    runs = min(max(1, -(-TARGET_BLOCKS // groups)), MAX_PARTS)
+    per = max(DECODE_WARPS, -(-tiles // runs))
+    return -(-tiles // per), per
+
+
+def decode_uses_mma(dtype: torch.dtype, rep: int, head_dim: int) -> bool:
+    """Whether a decode of ``rep`` query rows per KV head at ``head_dim``
+    in queries of ``dtype`` takes the tensor-core kernel
+    (``kfc_paged_decode``'s rule)."""
+    return (dtype == torch.bfloat16 and head_dim in MMA_HEAD_DIMS
+            and rep <= MAX_DECODE_REP)
 
 
 # -- plain PyTorch versions ---------------------------------------------------
@@ -193,30 +226,34 @@ def paged_chunk_attention_plain(
 
 # -- kernel launches ----------------------------------------------------------
 
-def _pool_args(q, k_pool, v_pool, k_scale, v_scale):
-    """Validate the pool operands against the query; returns
-    ``(quantized, k_scale_ptr, v_scale_ptr)``."""
-    if q.dtype not in _DTYPE_CODES:
+def _meta(t: Optional[torch.Tensor]):
+    return None if t is None else (t.shape, t.dtype)
+
+
+def _pool_check(q_dtype, k_pool, v_pool, k_scale, v_scale) -> bool:
+    """Validate the pool operands, each given as ``(shape, dtype)`` (the
+    scales may be None), against the query's dtype; returns whether the
+    pools are int8."""
+    if q_dtype not in _DTYPE_CODES:
         raise TypeError(f"paged attention takes float32 or bfloat16 "
-                        f"queries (got {q.dtype})")
+                        f"queries (got {q_dtype})")
     quantized = k_scale is not None
     if quantized != (v_scale is not None):
         raise ValueError("k_scale and v_scale come together")
-    want = torch.int8 if quantized else q.dtype
-    for name, t in (("k_pool", k_pool), ("v_pool", v_pool)):
-        if t.dtype != want:
-            raise TypeError(f"{name} must be {want} (got {t.dtype})")
-    ptrs = []
-    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
-        if t is None:
-            ptrs.append(None)
-            continue
-        if t.dtype != torch.float32 or t.shape != k_pool.shape[:-1]:
-            raise TypeError(f"{name} must be float32 {tuple(k_pool.shape[:-1])}")
-        ptrs.append(t.data_ptr())
-    if k_pool.shape != v_pool.shape:
+    want = torch.int8 if quantized else q_dtype
+    for name, (_, dtype) in (("k_pool", k_pool), ("v_pool", v_pool)):
+        if dtype != want:
+            raise TypeError(f"{name} must be {want} (got {dtype})")
+    for name, m in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if m is not None and (m[1] != torch.float32 or m[0] != k_pool[0][:-1]):
+            raise TypeError(f"{name} must be float32 {tuple(k_pool[0][:-1])}")
+    if k_pool[0] != v_pool[0]:
         raise ValueError("k_pool and v_pool shapes differ")
-    return quantized, ptrs[0], ptrs[1]
+    return quantized
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def _check_cuda(*tensors):
@@ -235,7 +272,36 @@ def _check_cuda(*tensors):
 
 
 def _stream(dev) -> int:
+    """The current stream of ``dev`` (a CUDA device with its index), as
+    the ``cudaStream_t`` handle the kernels launch on."""
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _i32(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as contiguous int32, without a copy when it already is."""
+    if t.dtype == torch.int32 and t.is_contiguous():
+        return t
+    return t.to(torch.int32).contiguous()
+
+
+def _stream_buffers(dev: torch.device, stream: int, n_counters: int,
+                    n_floats: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The merge counters (int32, zero) and the fp32 split-partial scratch
+    of stream ``stream`` on ``dev``, at least ``n_counters`` and
+    ``n_floats`` long: allocated at a key's first use and grown when a
+    launch needs more, else the same tensors every call."""
+    key = (dev, stream)
+    bufs = _STREAM_BUFFERS.get(key)
+    if bufs is not None and bufs[0].numel() >= n_counters \
+            and bufs[1].numel() >= n_floats:
+        return bufs
+    counters, scratch = bufs if bufs is not None else (None, None)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(max(n_counters, 64), dtype=torch.int32, device=dev)
+    if scratch is None or scratch.numel() < n_floats:
+        scratch = torch.empty(max(n_floats, 1 << 16), dtype=torch.float32, device=dev)
+    bufs = _STREAM_BUFFERS[key] = (counters, scratch)
+    return bufs
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -243,39 +309,71 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+class _DecodeDims(ctypes.Structure):
+    """``KfcDecodeDims`` of ``csrc/paged_attention.cu``."""
+    _fields_ = ([(n, ctypes.c_int) for n in (
+        "B", "G", "rep", "D", "bs", "mb", "nb", "last_page", "parts",
+        "tiles_per_part")]
+        + [("sm_scale", ctypes.c_float), ("q_dtype", ctypes.c_int),
+           ("quantized", ctypes.c_int)])
+
+
+@functools.lru_cache(maxsize=256)
+def _decode_plan(q_shape, q_dtype, k_pool, v_pool, k_scale, v_scale,
+                 tables_shape, pos_shape, width, sm_scale, out_dtype):
+    """A decode launch's shape-only work, once per configuration: the
+    operands' checks (the pools and scales given as ``(shape, dtype)``),
+    then ``kfc_paged_decode``'s shape arguments (the struct, kept alive
+    here, and its address), the fp32 scratch the split needs (0 with one
+    part) and the byte offset of its (m, l) pairs."""
+    b, g, rep, hd = q_shape
+    n_pages, bs, g_pool, hd_pool = k_pool[0]
+    if (g_pool, hd_pool) != (g, hd) or tables_shape[0] != b or pos_shape != (b,):
+        raise ValueError("paged_attention_decode: inconsistent shapes")
+    if out_dtype not in (None, q_dtype):
+        raise TypeError("the decode kernel writes the query's dtype")
+    quantized = _pool_check(q_dtype, k_pool, v_pool, k_scale, v_scale)
+    mb = tables_shape[1]
+    nb = pages_to_walk(width, bs, mb)
+    parts, per = 1, 1
+    if decode_uses_mma(q_dtype, rep, hd):
+        parts, per = decode_parts(b * g, nb * bs)
+    # The partial accumulators [B*G*parts, rep, D], then their (m, l) pairs
+    # [B*G*parts, rep, 2].
+    n_acc = b * g * parts * rep * hd if parts > 1 else 0
+    n_floats = n_acc + b * g * parts * rep * 2 if parts > 1 else 0
+    dims = _DecodeDims(b, g, rep, hd, bs, mb, nb, n_pages - 1, parts, per,
+                       hd ** -0.5 if sm_scale is None else sm_scale,
+                       _DTYPE_CODES[q_dtype], int(quantized))
+    return dims, ctypes.addressof(dims), n_floats, 4 * n_acc
+
+
 def _decode_kernel(q, k_pool, v_pool, tables, pos, k_scale, v_scale,
                    width, sm_scale, out_dtype):
     from kubeflow_controller_tpu_torch.ops import _build
 
-    b, g, rep, hd = q.shape
-    n_pages, bs, g_pool, hd_pool = k_pool.shape
-    q = q.contiguous()
-    tables = tables.to(torch.int32).contiguous()
-    pos = pos.to(torch.int32).contiguous()
+    if not q.is_contiguous():
+        q = q.contiguous()
+    tables, pos = _i32(tables), _i32(pos)
     _check_cuda(q, k_pool, v_pool, tables, pos, k_scale, v_scale)
-    if (g_pool, hd_pool) != (g, hd) or tables.shape[0] != b or pos.shape != (b,):
-        raise ValueError("paged_attention_decode: inconsistent shapes")
-    if out_dtype not in (None, q.dtype):
-        raise TypeError("the decode kernel writes the query's dtype")
-    quantized, ks, vs = _pool_args(q, k_pool, v_pool, k_scale, v_scale)
-    mb = tables.shape[1]
+    dims, dims_p, n_floats, ml_offset = _decode_plan(
+        q.shape, q.dtype, _meta(k_pool), _meta(v_pool), _meta(k_scale),
+        _meta(v_scale), tables.shape, pos.shape, width, sm_scale, out_dtype)
+    dev = q.device
+    stream = _stream(dev)
+    acc_p = ml_p = cnt_p = None
+    if n_floats:
+        counters, scratch = _stream_buffers(dev, stream, dims.B * dims.G, n_floats)
+        acc_p = scratch.data_ptr()
+        ml_p, cnt_p = acc_p + ml_offset, counters.data_ptr()
     out = torch.empty_like(q)
     rc = _build.load().kfc_paged_decode(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ks, vs,
-        tables.data_ptr(), pos.data_ptr(), out.data_ptr(),
-        b, g, rep, hd, bs, mb, pages_to_walk(width, bs, mb), n_pages - 1,
-        float(hd ** -0.5 if sm_scale is None else sm_scale),
-        _DTYPE_CODES[q.dtype], int(quantized), _stream(q.device))
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale), tables.data_ptr(), pos.data_ptr(), out.data_ptr(), acc_p,
+        ml_p, cnt_p, dims_p, stream)
     _raise_on(rc, "paged_decode")
     LAUNCHES["paged_decode"] += 1
     return out
-
-
-def _counters(dev, n: int) -> torch.Tensor:
-    buf = _COUNTERS.get(dev)
-    if buf is None or buf.numel() < n:
-        buf = _COUNTERS[dev] = torch.zeros(max(n, 64), dtype=torch.int32, device=dev)
-    return buf
 
 
 def _chunk_kernel(q, k_new, v_new, k_pool, v_pool, tables, pos, k_scale,
@@ -291,8 +389,8 @@ def _chunk_kernel(q, k_new, v_new, k_pool, v_pool, tables, pos, k_scale,
     mma = q.dtype == torch.bfloat16 and hd in MMA_HEAD_DIMS
     if pos is None and not mma:
         pos = torch.full((b,), int(offset), dtype=torch.int32, device=q.device)
-    tables = tables.to(torch.int32).contiguous()
-    pos = None if pos is None else pos.to(torch.int32).contiguous()
+    tables = _i32(tables)
+    pos = None if pos is None else _i32(pos)
     q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
     _check_cuda(q, k_new, v_new, k_pool, v_pool, tables, pos, k_scale,
                 v_scale)
@@ -304,31 +402,34 @@ def _chunk_kernel(q, k_new, v_new, k_pool, v_pool, tables, pos, k_scale,
         raise TypeError("k_new/v_new must have the query's dtype")
     if out_dtype not in (None, q.dtype):
         raise TypeError("the chunk kernel writes the query's dtype")
-    quantized, ks, vs = _pool_args(q, k_pool, v_pool, k_scale, v_scale)
+    quantized = _pool_check(q.dtype, _meta(k_pool), _meta(v_pool), _meta(k_scale),
+                            _meta(v_scale))
     mb = tables.shape[1]
     nb = pages_to_walk(width, bs, mb)
     out = torch.empty_like(q)
+    stream = _stream(q.device)
     parts, per, acc_p, ml_p, cnt_p = 1, 1, None, None, None
     if mma:
         span = nb * bs if offset is None else min(max(int(offset), 0), nb * bs)
         groups = b * g * -(-(w * rep) // ROWS_PER_BLOCK)
         parts, per = chunk_parts(groups, span)
         if parts > 1:
-            # One buffer: the partial accumulators [groups * parts, 64, D],
-            # then their (m, l) pairs [groups * parts, 64, 2].
+            # The partial accumulators [groups * parts, 64, D], then their
+            # (m, l) pairs [groups * parts, 64, 2].
             n_acc = groups * parts * ROWS_PER_BLOCK * hd
-            scratch = torch.empty(n_acc + groups * parts * ROWS_PER_BLOCK * 2,
-                                  dtype=torch.float32, device=q.device)
-            acc_p, ml_p = scratch.data_ptr(), scratch[n_acc:].data_ptr()
-            cnt_p = _counters(q.device, groups).data_ptr()
+            counters, scratch = _stream_buffers(
+                q.device, stream, groups,
+                n_acc + groups * parts * ROWS_PER_BLOCK * 2)
+            acc_p = scratch.data_ptr()
+            ml_p, cnt_p = acc_p + 4 * n_acc, counters.data_ptr()
     rc = _build.load().kfc_paged_chunk(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), k_pool.data_ptr(),
-        v_pool.data_ptr(), ks, vs, tables.data_ptr(),
+        v_pool.data_ptr(), _ptr(k_scale), _ptr(v_scale), tables.data_ptr(),
         None if pos is None else pos.data_ptr(), out.data_ptr(), acc_p, ml_p,
         cnt_p, b, w, g, rep, hd, bs, mb, nb, n_pages - 1, parts, per,
         0 if offset is None else int(offset),
         float(hd ** -0.5 if sm_scale is None else sm_scale),
-        _DTYPE_CODES[q.dtype], int(quantized), _stream(q.device))
+        _DTYPE_CODES[q.dtype], int(quantized), stream)
     _raise_on(rc, "paged_chunk")
     LAUNCHES["paged_chunk"] += 1
     return out

@@ -267,3 +267,198 @@ def test_chunk_parts_cover_every_live_tile(groups, cols):
     assert all((p - 1) * per < tiles for p in range(1, parts))
     if tiles:
         assert groups * (parts - 1) <= max(tpa.TARGET_BLOCKS, groups)
+
+
+# -- the tensor-core decode kernel's walk, in plain arithmetic ---------------
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("pos", [0, BS + 3, 2 * BS - 1, 2 * BS],
+                         ids=["pos0", "mid", "boundary", "past-boundary"])
+def test_decode_dead_pages_skip_is_exact(quant, pos):
+    """The decode kernel walks only pages that hold a visible column (c <=
+    pos): capping the plain walk at the live pages, width = ceil((pos + 1)
+    / bs) * bs, leaves the output bit for bit as the uncapped walk — page 0
+    makes the running max finite, and a fully masked page adds
+    exp(-1e30 - m) == 0 with alpha 1."""
+    rng = np.random.default_rng(61 + pos + int(quant))
+    g, rep, hd, b = 2, 2, 16, 2
+    k, v, ks, vs = _pools(rng, g, hd, quant, extra_page=False)
+    q = rng.standard_normal((b, g, rep, hd)).astype(np.float32)
+    tables = rng.integers(0, N_BLOCKS, (b, MB)).astype(np.int32)
+    live = -(-(pos + 1) // BS) * BS
+    assert tpa.pages_to_walk(live, BS, MB) < MB
+    p = torch.full((b,), pos, dtype=torch.int32)
+    got = [tpa.paged_attention_decode(
+        _t(q), _t(k), _t(v), _t(tables), p, k_scale=_t(ks), v_scale=_t(vs),
+        width=cap) for cap in (live, None)]
+    assert torch.equal(got[0], got[1])
+
+
+@pytest.mark.parametrize("groups,cols", [(64, 288), (64, 2048), (8, 2048), (1, 4096),
+                                         (264, 16), (8, 1), (64, 16), (512, 2048)])
+def test_decode_parts_cover_every_live_tile(groups, cols):
+    """The tensor-core decode kernel's split: the parts cover every
+    16-column tile of the width cap exactly once in equal runs (the last
+    may be short, never empty), each run at least one tile for each warp
+    of a block, at most MAX_PARTS parts, and no more parts than bring
+    the grid to the target."""
+    parts, per = tpa.decode_parts(groups, cols)
+    tiles = max(1, -(-cols // tpa.TILE_COLS))
+    assert 1 <= parts <= tpa.MAX_PARTS and per >= tpa.DECODE_WARPS
+    covered = [t for p in range(parts) for t in range(p * per, min((p + 1) * per, tiles))]
+    assert covered == list(range(tiles))
+    assert all(p * per < tiles for p in range(parts))
+    assert parts <= max(1, -(-tpa.TARGET_BLOCKS // groups))
+
+
+def _merge_states(states):
+    """The kernel's merge of partial (m, l, acc) states: w_i = exp(m_i -
+    max m) over the states with l_i > 0, empty states (l_i == 0) weighted
+    0; returns the merged (m, l, acc), unnormalised."""
+    ms = torch.stack([m for m, _, _ in states])
+    ls = torch.stack([l for _, l, _ in states])
+    accs = torch.stack([a for _, _, a in states])
+    live = ls > 0
+    m = torch.where(live, ms, float("-inf")).amax(0)
+    w = torch.where(live, torch.exp(ms - m), 0.0)
+    return m, (w * ls).sum(0), (w * accs).sum(0)
+
+
+def _decode_split_plain(q, k_pool, v_pool, tables, pos, k_scale, v_scale,
+                        width, per, warps=tpa.DECODE_WARPS):
+    """The tensor-core decode kernel's arithmetic, in plain PyTorch: each
+    slot's live columns c <= pos (below the width cap) in 16-column tiles,
+    parts of ``per`` tiles; warp w of a part walks tiles t0 + w, t0 + w +
+    warps, ... with the online softmax; the warps' states merge, then the
+    parts' (a part past the slot's live tiles is empty)."""
+    b, g, rep, hd = q.shape
+    n_pages, bs = k_pool.shape[:2]
+    mb = tables.shape[1]
+    nb = tpa.pages_to_walk(width, bs, mb)
+    tc = tpa.TILE_COLS
+    parts = -(-max(1, -(-nb * bs // tc)) // per)
+    out = torch.empty(b, g, rep, hd)
+    for bi in range(b):
+        live = min(int(pos[bi]) + 1, nb * bs)
+        cols = torch.arange(-(-live // tc) * tc)
+        ids = tables[bi, (cols // bs).clamp(max=mb - 1)].long().clamp(0, n_pages - 1)
+        k = k_pool[ids, cols % bs].float()                  # [C, G, D]
+        v = v_pool[ids, cols % bs].float()
+        if k_scale is not None:
+            k = k * k_scale[ids, cols % bs][..., None]
+            v = v * v_scale[ids, cols % bs][..., None]
+        k, v = k.transpose(0, 1), v.transpose(0, 1)         # [G, C, D]
+        qf = q[bi].float()
+        partials = []
+        for p in range(parts):
+            t1 = min((p + 1) * per, len(cols) // tc)
+            states = []
+            for w in range(warps):
+                m = torch.full((g, rep, 1), float("-inf"))
+                l, acc = torch.zeros((g, rep, 1)), torch.zeros((g, rep, hd))
+                for t in range(p * per + w, t1, warps):
+                    sl = slice(t * tc, (t + 1) * tc)
+                    s = (qf @ k[:, sl].transpose(-1, -2)) * hd ** -0.5
+                    s = torch.where(cols[sl] < live, s, tpa.MASK_VALUE)
+                    m, l, acc = tpa._online_update(m, l, acc, s, v[:, sl])
+                states.append((m, l, acc))
+            partials.append(_merge_states(states))
+        _, l, acc = _merge_states(partials)
+        out[bi] = acc / l
+    return out
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("per", [tpa.DECODE_WARPS, 1, 6])
+def test_decode_split_merge_matches_sequential_and_pallas(quant, per):
+    """The split walk and its in-launch merge (warps within a part, then
+    parts, some of them empty: one slot at pos 0 has a single live tile)
+    against the sequential plain decode (fp32: the orders differ by
+    rounding only) and against the JAX package's Pallas decode in
+    interpret mode (PALLAS_TOL, as test_decode_matches_pallas_and_oracle)."""
+    rng = np.random.default_rng(71 + per + int(quant))
+    g, rep, hd, b, mb = 2, 4, 16, 4, 16
+    k, v, ks, vs = _pools(rng, g, hd, quant, extra_page=False)
+    q = rng.standard_normal((b, g, rep, hd)).astype(np.float32)
+    tables = rng.integers(0, N_BLOCKS, (b, mb)).astype(np.int32)
+    pos = np.asarray([0, 9, 63, mb * BS - 1], np.int32)
+    for bi, p in enumerate(pos):
+        tables[bi, p // BS + 1:] = N_BLOCKS                 # sentinel tail
+    got = _decode_split_plain(_t(q), _t(k), _t(v), _t(tables), _t(pos),
+                              _t(ks), _t(vs), None, per)
+    seq = tpa.paged_attention_decode(_t(q), _t(k), _t(v), _t(tables), _t(pos),
+                                     k_scale=_t(ks), v_scale=_t(vs))
+    np.testing.assert_allclose(got.numpy(), seq.numpy(), rtol=1e-6, atol=1e-7)
+    want = pap.paged_attention_decode(_j(q), _j(k), _j(v), _j(tables), _j(pos),
+                                      k_scale=_j(ks), v_scale=_j(vs))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **PALLAS_TOL)
+
+
+def test_stream_buffers_are_keyed_by_stream(monkeypatch):
+    """The merge counters and split scratch are one pair per (device,
+    stream): distinct for distinct streams, the same tensors for the same
+    stream while they are large enough, grown (counters zero) when a
+    launch needs more."""
+    monkeypatch.setattr(tpa, "_STREAM_BUFFERS", {})
+    dev = torch.device("cpu")
+    a = tpa._stream_buffers(dev, 1, 8, 100)
+    b = tpa._stream_buffers(dev, 2, 8, 100)
+    assert a[0].data_ptr() != b[0].data_ptr() and a[1].data_ptr() != b[1].data_ptr()
+    again = tpa._stream_buffers(dev, 1, 4, 50)
+    assert again[0] is a[0] and again[1] is a[1]
+    grown = tpa._stream_buffers(dev, 1, 1000, 10 ** 6)
+    assert grown[0].numel() >= 1000 and grown[1].numel() >= 10 ** 6
+    assert grown[0].dtype == torch.int32 and not bool(grown[0].any())
+    assert grown[1].dtype == torch.float32
+    assert tpa._stream_buffers(dev, 2, 8, 100)[0] is b[0]
+    assert tpa._stream_buffers(dev, 1, 8, 100)[1] is grown[1]
+
+
+@pytest.mark.parametrize("dtype,rep,hd,quant,want_mma", [
+    (torch.bfloat16, 4, 128, False, True), (torch.bfloat16, 4, 64, True, True),
+    (torch.bfloat16, 16, 128, False, True), (torch.bfloat16, 32, 128, False, False),
+    (torch.bfloat16, 4, 256, False, False), (torch.float32, 4, 128, False, False)],
+    ids=["bf16-d128", "int8-d64", "rep16", "rep32", "d256", "fp32"])
+def test_decode_plan_sizes_the_split_and_checks_operands(dtype, rep, hd, quant, want_mma):
+    """The decode wrapper's per-configuration plan: the tensor-core kernel
+    (bf16, head_dim 64/128, rep <= 16) gets decode_parts' split of the
+    width cap and scratch for every part's (rep, D) accumulator and (m,
+    l) pair; the first kernel one part and none; the struct carries the
+    launch's shape arguments."""
+    b, g, mb, bs, n_pages = 8, 8, 18, 16, 144
+    kv = torch.int8 if quant else dtype
+    pool = ((n_pages, bs, g, hd), kv)
+    scale = ((n_pages, bs, g), torch.float32) if quant else None
+    dims, addr, n_floats, ml_offset = tpa._decode_plan(
+        (b, g, rep, hd), dtype, pool, pool, scale, scale, (b, mb), (b,), 288, None, None)
+    parts, per = tpa.decode_parts(b * g, 288) if want_mma else (1, 1)
+    assert (dims.parts, dims.tiles_per_part) == (parts, per)
+    assert (dims.B, dims.G, dims.rep, dims.D, dims.bs, dims.mb, dims.nb,
+            dims.last_page) == (b, g, rep, hd, bs, mb, 18, n_pages - 1)
+    assert dims.q_dtype == tpa._DTYPE_CODES[dtype] and dims.quantized == int(quant)
+    assert dims.sm_scale == pytest.approx(hd ** -0.5)
+    assert addr != 0
+    if parts > 1:
+        assert ml_offset == 4 * b * g * parts * rep * hd
+        assert n_floats == b * g * parts * rep * (hd + 2)
+    else:
+        assert n_floats == 0
+
+
+def test_decode_plan_refuses_inconsistent_operands():
+    bf = torch.bfloat16
+    pool = ((144, 16, 8, 128), bf)
+    ok = dict(q_shape=(8, 8, 4, 128), q_dtype=bf, k_pool=pool, v_pool=pool, k_scale=None,
+              v_scale=None, tables_shape=(8, 18), pos_shape=(8,), width=288, sm_scale=None,
+              out_dtype=None)
+    tpa._decode_plan(**ok)
+    for bad, err in (
+            (dict(q_shape=(8, 4, 4, 128)), ValueError),              # KV heads differ
+            (dict(pos_shape=(7,)), ValueError),
+            (dict(tables_shape=(7, 18)), ValueError),
+            (dict(out_dtype=torch.float32), TypeError),
+            (dict(v_pool=((144, 16, 8, 128), torch.int8)), TypeError),
+            (dict(k_scale=((144, 16, 8), torch.float32)), ValueError),  # k_scale alone
+            (dict(q_dtype=torch.float16), TypeError)):
+        with pytest.raises(err):
+            tpa._decode_plan(**{**ok, **bad})
