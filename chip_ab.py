@@ -18,7 +18,8 @@ line ``AB {json}``. Sections (all by default):
   (``Case.run``, timed and by kernel);
 * ``serve``: ``profile_phase``'s decode micro-step and prefill chunk on
   llama3_8b (wall, device time by kernel bucket, idle share), then 16
-  llama3_8b requests through ``serve`` (TTFT, TPOT, tokens/s, launches).
+  llama3_8b requests through ``serve`` with bucketed prefill (TTFT,
+  TPOT, tokens/s, launches).
 
 Compare two trees only inside one call on one card, in turns: parent,
 change, change, parent. Needs one card; runs nothing on the CPU.
@@ -148,8 +149,11 @@ def serve_section(c, smi, out):
                 by_kernel=json.loads(m.group(6)))
     torch.cuda.synchronize()
     pa.reset_launches()
+    # Bucketed prefill named: the default before exact prefill was ported,
+    # so that trees from before and after compare the same path.
     res = serve(config="llama3_8b", batch=16, slots=8, prompt_len=256, max_new_tokens=32,
-                block_size=16, output_file=os.path.join(c.OUT_DIR, "ab_serve.jsonl"))
+                block_size=16, prefill_mode="bucketed",
+                output_file=os.path.join(c.OUT_DIR, "ab_serve.jsonl"))
     torch.cuda.synchronize()
     out["serve/fp"] = {**{k: res[k] for k in ("ttft_p50_ms", "ttft_p95_ms", "tpot_p50_ms",
                                               "tokens_per_sec", "wall_s")},

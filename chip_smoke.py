@@ -12,15 +12,18 @@ Phases, in order; any failure exits non-zero before the result line:
 2. kernels vs plain: every paged-attention entry (decode, chunk prefill,
    verify) in bf16, int8-pool and fp32 forms, at the serving path's own
    shapes and at llama3_8b attention shapes up to 2048 columns, held
-   against its plain PyTorch version on the same inputs on the card;
+   against its plain PyTorch version on the same inputs on the card
+   (verify also at the speculative serve run's shape: 8 slots, a window
+   of 5, 288 columns);
    each kernel's time beside the plain version's, a PyTorch library call
    on the gathered view (``scaled_dot_product_attention``, a yardstick
    only) and the least time the card could take; the serving prefill
    chunk also by kernel on the device; checked, not timed, a prefill at
    offset 0, a tail chunk of 8 rows and an int8 verify at pos 0;
 3. flash kernels vs plain: the forward and the three backward kernels at
-   the flagship's attention shape (B16 H8 S1024 D128) and llama3_8b's
-   (B2 H32/8 S2048 D128), bf16 with rope tables, with and without
+   the flagship's attention shape (B16 H8 S1024 D128), llama3_8b's
+   (B2 H32/8 S2048 D128) and llama3_8b's exact prefill (B1 H32/8 S256
+   D128), bf16 with rope tables, with and without
    segment ids; the same four numbers each, SDPA (forward, or forward
    and backward) as the yardstick, the fused kernel's dq run to run and
    the two-pass dq kernel's bit for bit run to run. At head_dim 64 and
@@ -45,8 +48,18 @@ Phases, in order; any failure exits non-zero before the result line:
    it does not tile must raise;
 5. serve: ``serve(config="llama3_8b", batch=16, slots=8, prompt_len=256,
    max_new_tokens=32, block_size=16)`` at full width and depth with the
-   kernels' launch counts zeroed just before and read just after; then 4
-   requests with an int8 KV pool; then, on one set of llama3_8b weights,
+   kernels' launch counts zeroed just before and read just after, in
+   bucketed prefill (then 4 requests with an int8 KV pool) and in exact
+   prefill (B1 once per layer per admission, no prefill chunk), TTFT and
+   TPOT side by side; greedy speculative decoding (prompt lookup,
+   ``draft_k=4``) on tiled prompts beside the plain exact run on them
+   (verify = B6 once per layer per verify step; a stream may leave the
+   plain one only after a near-tie, ``SPEC_FLIP_GAP_OF_RMS``); exact
+   prefill of the flagship at prompt lengths on both sides of the flash
+   gate (256, 300: B1; 1042: the dense path) against the dense path; the tiny
+   config in fp32, card vs CPU, bucketed and exact, without and with
+   speculation (an oracle proposer: drafts must be accepted); then, on
+   one set of llama3_8b weights,
    a profile of one decode micro-step and one prefill chunk (wall time,
    device time by kernel, idle share) and one request's first-token and
    next-token logits under ``attn_impl="kernel"`` and ``"gather"``;
@@ -63,15 +76,21 @@ Phases, in order; any failure exits non-zero before the result line:
    gradients under the flash kernels vs the plain attention and under
    ``"int8_fused"`` vs ``"int8"``, and the tiny config trained on the
    card vs the CPU;
-7. a ``kernels`` JSON line (each kernel's whole-call time over its
+7. checkpoint: the flagship through ``lm.train``, 2 steps into a model
+   dir (a checkpoint every step, one kept), resumed to 4 against an
+   uninterrupted run on the same batches (``RESUME_LOSS_REL_TOL``), then
+   ``serve(model_dir=...)`` against an engine on the in-memory
+   parameters; save and restore seconds and bytes on disk;
+8. a ``kernels`` JSON line (each kernel's whole-call time over its
    library call's, ``vs_library``, from this run), the ``nvidia-smi``
    line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and writes only under
 ``kubeflow_controller_tpu_torch/_build/`` beside itself (the kernels'
-library, the compiler log, every line it prints as ``log.txt`` and the
-served completions).
+library, the compiler log, every line it prints as ``log.txt``, the
+served completions and, until the checkpoint phase removes it, its
+model dir).
 """
 
 from __future__ import annotations
@@ -719,12 +738,15 @@ class FlashCase:
         return recs
 
 
-#: The flash kernels' shapes on the train path: the flagship's attention
+#: The flash kernels' shapes on the main path: the flagship's attention
 #: (one tile per sequence: the fused backward) and llama3_8b's (two
-#: passes); each with and without packed segment ids.
+#: passes) in training, and llama3_8b's exact prefill of one 256-token
+#: prompt in serving (the forward; its backward kernels are checked
+#: too); each with and without packed segment ids.
 FLASH_SHAPES = {
     "flagship": dict(B=16, H=8, KVH=8, S=1024, D=128),
     "llama3_8b": dict(B=2, H=32, KVH=8, S=2048, D=128),
+    "llama3_8b.prefill": dict(B=1, H=32, KVH=8, S=256, D=128),
 }
 #: Checked, not timed: what the train path does not reach — a ragged
 #: sequence (200 rows: a partial tile) at head_dim 64, causal and not; a
@@ -947,6 +969,10 @@ def kernel_phase():
                                   [2043, 0, 15, 16, 1000, 1535, 777, 2040], 9)),
         ("verify.fp32.2048", Case("verify", f32, False, 8, 5, 128, 2048,
                                   [2043, 0, 15, 16, 1000, 1535, 777, 2040], 10)),
+        # The speculative serve run's verify: 8 slots, a window of draft_k
+        # + 1 = 5 rows, past 256-token prompts in a 288-column span.
+        ("verify.bf16.serve", Case("verify", bf, False, 8, 5, 18, 288,
+                                   [256, 263, 270, 277, 282, 283, 259, 266], 24)),
     ]
     # Checked, not timed: a prefill at offset 0 (no pool page live: the
     # intra-chunk tile alone), a tail chunk of 8 rows at offset 8, an int8
@@ -972,7 +998,8 @@ def kernel_phase():
     recs = {}
     for name, case in cases + edge:
         recs[name] = case.run(name, timed=name not in dict(edge),
-                              profiled=name in ("decode.bf16.serve", "prefill.bf16.serve"))
+                              profiled=name in ("decode.bf16.serve", "prefill.bf16.serve",
+                                                "verify.bf16.serve"))
         del case
         torch.cuda.empty_cache()
     return recs
@@ -1025,79 +1052,321 @@ def _read_completions(path):
         return [json.loads(line) for line in f if line.strip()]
 
 
-def serve_phase(smi):
+def _serve_launches():
+    """The serving path's kernel launches since :func:`_reset_serve_launches`:
+    the paged kernels' and the flash kernels' (B1 in exact prefill)."""
+    from kubeflow_controller_tpu_torch.ops import flash_attention as fa
+    from kubeflow_controller_tpu_torch.ops import paged_attention as pa
+
+    return {**pa.LAUNCHES, **fa.LAUNCHES}
+
+
+def _reset_serve_launches():
+    from kubeflow_controller_tpu_torch.ops import flash_attention as fa
+    from kubeflow_controller_tpu_torch.ops import paged_attention as pa
+
+    pa.reset_launches()
+    fa.reset_launches()
+
+
+def _serve_run(label, smi, batch, **kw):
+    """One ``serve()`` at llama3_8b (full width and depth, bf16, 8 slots,
+    256-token prompts, 32 new tokens, pages of 16) with every serving
+    kernel's count zeroed just before and read just after. Checks the
+    completions (``batch`` of 32 in-vocab tokens) and returns (summary,
+    launches, {rid: tokens})."""
     import torch
 
     from kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm import serve
     from kubeflow_controller_tpu_torch.models import transformer as tfm
-    from kubeflow_controller_tpu_torch.ops import paged_attention as pa
 
     vocab = tfm.llama3_8b_config().vocab_size
-    os.makedirs(OUT_DIR, exist_ok=True)
-    runs = {}
-    for label, batch, kv_quant in (("fp", 16, ""), ("int8", 4, "int8")):
-        out_file = os.path.join(OUT_DIR, f"serve_{label}.jsonl")
-        torch.cuda.synchronize()
-        pa.reset_launches()
-        res = serve(config="llama3_8b", batch=batch, slots=8, prompt_len=256,
-                    max_new_tokens=32, block_size=16, kv_quant=kv_quant,
-                    output_file=out_file)
-        torch.cuda.synchronize()
-        launches = dict(pa.LAUNCHES)
-        comps = _read_completions(out_file)
-        if len(comps) != batch:
-            raise AssertionError(f"serve[{label}]: {len(comps)} of {batch} completions")
-        for c in comps:
-            toks = c["completion"]
-            if len(toks) != 32 or not all(0 <= t < vocab for t in toks):
-                raise AssertionError(f"serve[{label}]: bad completion {c['rid']}: {toks}")
-        for k, n in launches.items():
-            if n <= 0:
-                raise AssertionError(f"serve[{label}]: kernel {k} never launched")
-        # One chunk launch per layer per prefill chunk, one decode launch
-        # per layer per decode micro-step.
-        n_layers = tfm.llama3_8b_config().n_layers
-        if (launches["paged_chunk"] != res["prefill_chunks"] * n_layers
-                or launches["paged_decode"] % n_layers):
-            raise AssertionError(f"serve[{label}]: launches {launches} are not one per "
-                                 f"layer of {res['prefill_chunks']} chunks and whole steps")
-        log(f"serve[{label}] llama3_8b (d_model 4096, 32 layers, kv {kv_quant or 'bf16'}) "
-            f"on {smi}: {batch} requests x 32 tokens, ttft_p50 {res['ttft_p50_ms']} ms, "
-            f"ttft_p95 {res['ttft_p95_ms']} ms, tpot_p50 {res['tpot_p50_ms']} ms, "
-            f"tokens/s {res['tokens_per_sec']}, wall {res['wall_s']} s, "
-            f"prefill chunks {res['prefill_chunks']}, launches {launches}")
-        runs[label] = (res, launches)
+    out_file = os.path.join(OUT_DIR, f"serve_{label}.jsonl")
+    torch.cuda.synchronize()
+    _reset_serve_launches()
+    res = serve(config="llama3_8b", batch=batch, slots=8, prompt_len=256,
+                max_new_tokens=32, block_size=16, output_file=out_file, **kw)
+    torch.cuda.synchronize()
+    launches = _serve_launches()
+    comps = _read_completions(out_file)
+    if len(comps) != batch or res["requests"] != batch:
+        raise AssertionError(f"serve[{label}]: {len(comps)} of {batch} completions")
+    for c in comps:
+        toks = c["completion"]
+        if len(toks) != 32 or not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"serve[{label}]: bad completion {c['rid']}: {toks}")
+    log(f"serve[{label}] llama3_8b (d_model 4096, 32 layers, "
+        f"{json.dumps({k: v for k, v in kw.items() if k != 'input_file'})}) on "
+        f"{smi}: {batch} requests x 32 tokens, ttft_p50 {res['ttft_p50_ms']} ms, "
+        f"ttft_p95 {res['ttft_p95_ms']} ms, tpot_p50 {res['tpot_p50_ms']} ms, "
+        f"tokens/s {res['tokens_per_sec']}, wall {res['wall_s']} s, "
+        f"prefill chunks {res['prefill_chunks']}, launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    return res, launches, {c["rid"]: c["completion"] for c in comps}
 
-    # The repo's own reference on a small input: the tiny config in fp32
-    # served with the kernels on the card and with their plain versions on
-    # the CPU must commit the same greedy streams (TF32 is off, so the
-    # two differ only in summation order, far below any argmax margin).
-    # One weight set drawn on the CPU serves both: a CUDA generator draws
-    # other numbers than a CPU one from the same seed.
+
+def _tiled_prompts(path, vocab, n, seed, period=16, reps=16):
+    """``n`` prompts of ``period * reps`` tokens, each a random pattern
+    of ``period`` tokens (drawn from ``seed``) tiled: prompt lookup finds
+    n-gram matches in them. Written as the serve entry point's JSONL."""
     import numpy as np
 
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for _ in range(n):
+            pattern = rng.integers(0, vocab, period)
+            f.write(json.dumps({"prompt": np.tile(pattern, reps).tolist()}) + "\n")
+    return path
+
+
+def _first_divergence_gaps(seed, prompts, plain, spec):
+    """For each request whose speculative stream differs from its plain
+    stream: (rid, first differing position, the top-2 logit gap there and
+    the logits' RMS). The logits come from one block-prefill forward over
+    the prompt and the plain stream up to that position, on the llama3_8b
+    weights ``serve`` drew from ``seed``."""
+    import gc
+
+    import torch
+
+    from kubeflow_controller_tpu_torch.models import generate as gen
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+
+    diverged = [(rid, next(i for i, (a, b) in enumerate(zip(plain[rid], spec[rid]))
+                           if a != b))
+                for rid in sorted(plain) if plain[rid] != spec[rid]]
+    if not diverged:
+        return []
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = tfm.llama3_8b_config()
+    params = tfm.init_params(cfg, seed=seed, device="cuda", dtype=cfg.dtype)
+    out = []
+    for rid, p in diverged:
+        ctx = list(prompts[rid]) + plain[rid][:p]
+        logits, _ = gen.prefill(
+            cfg, params, torch.tensor([ctx], dtype=torch.int32, device="cuda"),
+            gen.init_kv_cache(cfg, 1, len(ctx), device="cuda"))
+        top = logits[0].topk(2).values
+        out.append((rid, p, float(top[0] - top[1]),
+                    float(logits[0].pow(2).mean().sqrt())))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class _OracleProposer:
+    """Drafts the plain run's own continuation of each request (looked up
+    by its prompt), so that multi-token accepts fire on random weights."""
+
+    def __init__(self, prompts, streams):
+        self.book = [(list(map(int, prompts[rid])), streams[rid]) for rid in streams]
+
+    def propose(self, contexts, k):
+        import numpy as np
+
+        draft = np.zeros((len(contexts), k), np.int32)
+        lens = np.zeros((len(contexts),), np.int32)
+        for i, ctx in enumerate(contexts):
+            if ctx is None:
+                continue
+            ctx = list(map(int, ctx))
+            for prompt, stream in self.book:
+                n = len(prompt)
+                if ctx[:n] == prompt and ctx[n:] == stream[:len(ctx) - n]:
+                    got = stream[len(ctx) - n:][:k]
+                    draft[i, :len(got)] = got
+                    lens[i] = len(got)
+                    break
+        return draft, lens
+
+
+def tiny_serve_check():
+    """The repo's own reference on a small input: the tiny config in fp32
+    served with the kernels on the card and with their plain versions on
+    the CPU, in bucketed and exact prefill, each without and with
+    speculative decoding (an oracle proposer drafting the plain run's own
+    continuation, ``draft_k=4``), must commit the same greedy streams
+    (TF32 is off, so the two devices differ only in summation order, far
+    below any argmax margin), speculation must not change a stream, and
+    drafts must be accepted. One weight set drawn on the CPU serves all:
+    a CUDA generator draws other numbers than a CPU one from one seed."""
+    import numpy as np
+
+    from kubeflow_controller_tpu_torch.dataplane import spec_decode
     from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
         Request, ServingEngine,
     )
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+
+    class Oracle(_OracleProposer, spec_decode.DraftProposer):
+        pass
 
     cfg = tfm.tiny_config()
     cpu_params = tfm.init_params(cfg, seed=0, device="cpu")
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 20))
-    streams = {}
-    for device in ("cuda", "cpu"):
-        params = {k: ({n: t.to(device) for n, t in v.items()}
-                      if isinstance(v, dict) else v.to(device))
-                  for k, v in cpu_params.items()}
-        eng = ServingEngine(cfg, params, n_slots=3, max_seq=32, block_size=8,
-                            device=device)
-        out = eng.run([Request(rid=i, prompt=p, max_new_tokens=12)
-                       for i, p in enumerate(prompts)])
-        streams[device] = [c.tokens for c in sorted(out, key=lambda c: c.rid)]
-    if streams["cuda"] != streams["cpu"]:
-        raise AssertionError(f"serve[tiny]: cuda streams {streams['cuda']} "
-                             f"!= cpu streams {streams['cpu']}")
-    log(f"serve[tiny] fp32: cuda kernels and cpu plain versions commit the "
-        f"same {len(streams['cuda'])} greedy streams")
+    for mode in ("bucketed", "exact"):
+        streams, accepted = {}, {}
+        for spec in (False, True):
+            for device in ("cuda", "cpu"):
+                params = {k: ({n: t.to(device) for n, t in v.items()}
+                              if isinstance(v, dict) else v.to(device))
+                          for k, v in cpu_params.items()}
+                kw = {}
+                if spec:
+                    kw = dict(spec_decode=True, draft_k=4, proposer=Oracle(
+                        prompts, dict(enumerate(streams[(False, "cpu")]))))
+                eng = ServingEngine(cfg, params, n_slots=3, max_seq=32,
+                                    block_size=8, prefill_mode=mode,
+                                    device=device, **kw)
+                out = eng.run([Request(rid=i, prompt=p, max_new_tokens=12)
+                               for i, p in enumerate(prompts)])
+                streams[(spec, device)] = [
+                    c.tokens for c in sorted(out, key=lambda c: c.rid)]
+                accepted[(spec, device)] = eng.stats.draft_accepted
+        base = streams[(False, "cpu")]
+        for key, got in streams.items():
+            if got != base:
+                raise AssertionError(f"serve[tiny] {mode}: streams of {key} "
+                                     f"{got} != plain cpu streams {base}")
+        if not (accepted[(True, "cuda")] > 0 and accepted[(True, "cpu")] > 0):
+            raise AssertionError(f"serve[tiny] {mode}: no draft accepted {accepted}")
+        log(f"serve[tiny] fp32 {mode}: cuda kernels and cpu plain versions, "
+            f"without and with speculative decoding, commit the same "
+            f"{len(base)} greedy streams; drafts accepted cuda "
+            f"{accepted[(True, 'cuda')]}, cpu {accepted[(True, 'cpu')]}")
+
+
+def exact_prefill_lengths_check(smi):
+    """Exact prefill at prompt lengths on both sides of ``mha``'s flash
+    gate (the JAX package's block rule), on the flagship's bf16 weights:
+    256 and 300 tiles (B1, ragged at 300: one launch per layer), 1042 does
+    not (the dense path: no launch) and must not fail. Each prompt's
+    last-position logits against the dense path's on the same weights
+    (``attn_impl="xla"``), within LOGITS_REL_L2_TOL: the two round
+    attention at different points, as in the logits phase."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.models import generate as gen
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+    from kubeflow_controller_tpu_torch.ops import flash_attention as fa
+
+    cfg = tfm.flagship_config()
+    params = tfm.init_params(cfg, seed=11, device="cuda", dtype=cfg.dtype)
+    gen_t = torch.Generator().manual_seed(12)
+    for s, flash in ((256, True), (300, True), (1042, False)):
+        prompt = torch.randint(0, cfg.vocab_size, (1, s), generator=gen_t).cuda()
+        fa.reset_launches()
+        got, _ = gen.prefill(cfg, params, prompt,
+                             gen.init_kv_cache(cfg, 1, s, device="cuda"))
+        torch.cuda.synchronize()
+        launches = fa.LAUNCHES["flash_fwd"]
+        want, _ = gen.prefill(cfg.replace(attn_impl="xla"), params, prompt,
+                              gen.init_kv_cache(cfg, 1, s, device="cuda"))
+        rel = float((got - want).norm() / want.norm())
+        log(f"exact prefill flagship S={s}: flash_fwd launches {launches}, "
+            f"vs dense rel L2 {rel} (tol {LOGITS_REL_L2_TOL}) | {smi}")
+        if (launches != (cfg.n_layers if flash else 0)
+                or not bool(torch.isfinite(got).all()) or rel > LOGITS_REL_L2_TOL):
+            raise AssertionError(f"exact prefill S={s}: launches {launches}, rel {rel}")
+    del params
+    torch.cuda.empty_cache()
+
+
+# A speculative stream may leave the plain one only where the plain run
+# had a near-tie: verify (B6, a window of 5 rows) and decode (B5, one row)
+# sum attention in different orders and round at different points, and
+# the difference carries through 32 bf16 layers. The logits phase bounds
+# that difference by the kernel-vs-gather relative L2 (LOGITS_REL_L2_TOL),
+# so each of the two top logits may move by about that much times the
+# logits' RMS: a flip needs a gap under twice that.
+SPEC_FLIP_GAP_OF_RMS = 2 * LOGITS_REL_L2_TOL
+
+
+def serve_phase(smi):
+    """llama3_8b served end to end, full width and depth: bucketed prefill
+    (16 requests; then 4 with an int8 KV pool), exact prefill (the same 16
+    requests), and greedy speculative decoding on tiled prompts beside
+    the plain exact run on the same prompts; each with exact kernel
+    launch counts. Then the tiny config, card vs CPU."""
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+
+    n_layers = tfm.llama3_8b_config().n_layers
+    vocab = tfm.llama3_8b_config().vocab_size
+    os.makedirs(OUT_DIR, exist_ok=True)
+    runs = {}
+    for label, batch, kv_quant in (("fp", 16, ""), ("int8", 4, "int8")):
+        res, launches, _ = _serve_run(label, smi, batch, kv_quant=kv_quant,
+                                      prefill_mode="bucketed")
+        for k in ("paged_decode", "paged_chunk"):
+            if launches[k] <= 0:
+                raise AssertionError(f"serve[{label}]: kernel {k} never launched")
+        # One chunk launch per layer per prefill chunk, one decode launch
+        # per layer per decode micro-step.
+        if (launches["paged_chunk"] != res["prefill_chunks"] * n_layers
+                or launches["paged_decode"] % n_layers):
+            raise AssertionError(f"serve[{label}]: launches {launches} are not one per "
+                                 f"layer of {res['prefill_chunks']} chunks and whole steps")
+        runs[label] = (res, launches)
+
+    # Exact prefill: one forward of each whole prompt at admission, B1 (the
+    # flash forward with its rope prepass) once per layer per admission;
+    # no prefill chunk.
+    res, launches, _ = _serve_run("exact", smi, 16)
+    b1 = 16 * n_layers
+    if (launches["flash_fwd"] != b1 or launches["rope_rotate"] != b1
+            or launches["paged_chunk"] != 0 or launches["paged_decode"] <= 0
+            or launches["paged_decode"] % n_layers or res["prefill_chunks"] != 0):
+        raise AssertionError(f"serve[exact]: launches {launches}, want flash_fwd and "
+                             f"rope_rotate {b1}, paged_chunk 0, whole decode steps")
+    runs["exact"] = (res, launches)
+    bucketed = runs["fp"][0]
+    log(f"serve exact vs bucketed (same requests, this run): ttft_p50 "
+        f"{res['ttft_p50_ms']} vs {bucketed['ttft_p50_ms']} ms, ttft_p95 "
+        f"{res['ttft_p95_ms']} vs {bucketed['ttft_p95_ms']} ms, tpot_p50 "
+        f"{res['tpot_p50_ms']} vs {bucketed['tpot_p50_ms']} ms, tokens/s "
+        f"{res['tokens_per_sec']} vs {bucketed['tokens_per_sec']}, wall "
+        f"{res['wall_s']} vs {bucketed['wall_s']} s")
+
+    # Speculative decoding (prompt lookup, draft_k 4) on tiled prompts,
+    # beside the plain exact run on the same prompts. Each verify step
+    # launches B6's verify entry once per layer.
+    seed = 0
+    tiled = _tiled_prompts(os.path.join(OUT_DIR, "tiled_prompts.jsonl"), vocab, 16, seed)
+    prompts = [r["prompt"] for r in _read_completions(tiled)]
+    plain_res, _, plain = _serve_run("tiled.plain", smi, 16, input_file=tiled,
+                                     seed=seed)
+    res, launches, spec = _serve_run("tiled.spec", smi, 16, input_file=tiled,
+                                     seed=seed, speculative=True, draft_k=4)
+    if (res["draft_proposed"] <= 0 or res["spec_steps"] <= 0
+            or launches["paged_chunk"] != res["spec_steps"] * n_layers
+            or launches["flash_fwd"] != b1 or launches["paged_decode"] % n_layers):
+        raise AssertionError(f"serve[spec]: {res}, launches {launches}: want drafts, "
+                             f"verify steps, paged_chunk = spec_steps x {n_layers}")
+    hist = {k: v for k, v in res.items() if k.startswith("spec_step_tokens_")}
+    log(f"serve spec vs plain (tiled prompts, this run): acceptance "
+        f"{res['acceptance_rate']} ({res['draft_accepted']} of "
+        f"{res['draft_proposed']}), verify steps {res['spec_steps']}, probe "
+        f"steps {res['spec_probe_steps']}, committed per slot-step "
+        f"{json.dumps(hist)}, tpot_p50 {res['tpot_p50_ms']} vs "
+        f"{plain_res['tpot_p50_ms']} ms, tokens/s {res['tokens_per_sec']} vs "
+        f"{plain_res['tokens_per_sec']}, wall {res['wall_s']} vs "
+        f"{plain_res['wall_s']} s")
+    gaps = _first_divergence_gaps(seed, prompts, plain, spec)
+    for rid, pos, gap, rms in gaps:
+        log(f"serve spec vs plain: request {rid} first differs at token {pos}, "
+            f"plain top-2 logit gap {gap} (logits rms {rms}, limit "
+            f"{SPEC_FLIP_GAP_OF_RMS * rms})")
+    bad = [g for g in gaps if g[2] > SPEC_FLIP_GAP_OF_RMS * g[3]]
+    if bad:
+        raise AssertionError(f"serve[spec]: streams differ past a near-tie: {bad}")
+    log(f"serve spec vs plain: {16 - len(gaps)} of 16 streams equal, "
+        f"{len(gaps)} differ after a near-tie")
+    runs["spec"] = (res, launches)
+    runs["tiled.plain"] = (plain_res, None)
+    exact_prefill_lengths_check(smi)
+    tiny_serve_check()
     return runs
 
 
@@ -1419,6 +1688,138 @@ def lm_train_run(smi, steps=4, quant="", opt8bit=False):
     return rec
 
 
+# Checkpoint round trip: the resumed run's losses at steps 3 and 4 against
+# an uninterrupted run fed the same batches (the entry point's stream
+# starts again on resume, as the reference's does, so the uninterrupted
+# run takes its first two batches twice). Both start from one seeded init
+# and take the same schedule; the restore itself is bit for bit (the CPU
+# tests), so the two differ only where B2's dq does from run to run
+# (DQ_RUN_TO_RUN: one bf16 ulp, moving two updates of lr <= 3e-4 by far
+# less than 1e-3 of a loss near ln(32768)). Steps 1 and 2 of the first
+# run against the uninterrupted run's are logged as that spread.
+RESUME_LOSS_REL_TOL = 1e-3
+
+
+def checkpoint_phase(smi):
+    """The flagship (335.6 M parameters, bf16, B16 S1024) through
+    ``lm.train``: 2 steps into a model dir saving every step and keeping
+    one checkpoint, then resumed to 4; its losses against an uninterrupted
+    4-step run on the same batches; then ``serve(model_dir=...)`` must
+    report restored step 4 and stream what an engine on the resumed
+    loop's in-memory parameters streams. Logs save and restore seconds
+    and the bytes on disk; removes the directory."""
+    import shutil
+
+    import torch
+
+    from kubeflow_controller_tpu_torch.dataplane import train as dtrain
+    from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints import lm
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints import serve_lm
+    from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
+        Request, ServingEngine,
+    )
+    from kubeflow_controller_tpu_torch.models import generate as gen
+
+    ckpt = os.path.join(OUT_DIR, "ckpt_flagship")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    timed = {"save": [], "restore": []}
+    loops = []
+    real = {name: getattr(dtrain.TrainLoop, name) for name in ("save", "restore", "run")}
+
+    def timing(name):
+        def wrapped(loop, *a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real[name](loop, *a, **k)
+            torch.cuda.synchronize()
+            timed[name].append(time.perf_counter() - t)
+            return out
+        return wrapped
+
+    def keeping(loop, *a, **k):
+        loops.append(loop)
+        return real["run"](loop, *a, **k)
+
+    def train(label, total, **kw):
+        log_dir = os.path.join(OUT_DIR, f"ckpt_{label}")
+        shutil.rmtree(log_dir, ignore_errors=True)
+        t = time.perf_counter()
+        out = lm.train(ProcessContext(log_dir=log_dir), config="flagship",
+                       total_steps=total, per_data_shard_batch=16, seq_len=1024,
+                       **kw)
+        rows = _read_completions(os.path.join(log_dir, "metrics-p0.jsonl"))
+        losses = {r["step"]: r["loss"] for r in rows}
+        if not all(math.isfinite(x) for x in losses.values()):
+            raise AssertionError(f"checkpoint[{label}]: losses {losses}")
+        return out, losses, time.perf_counter() - t
+
+    synthetic = lm.synthetic_lm
+
+    def first_two_twice(*a, **k):
+        it = synthetic(*a, **k)
+        first = [next(it), next(it)]
+        while True:
+            yield from first
+
+    lm.synthetic_lm = first_two_twice
+    try:
+        _, whole, whole_s = train("uninterrupted", 4)
+    finally:
+        lm.synthetic_lm = synthetic
+    for name in ("save", "restore"):
+        setattr(dtrain.TrainLoop, name, timing(name))
+    dtrain.TrainLoop.run = keeping
+    try:
+        kw = dict(model_dir=ckpt, checkpoint_every=1, keep_checkpoints=1)
+        out1, first, first_s = train("first", 2, **kw)
+        out2, resumed, resumed_s = train("resumed", 4, **kw)
+    finally:
+        for name, fn in real.items():
+            setattr(dtrain.TrainLoop, name, fn)
+    if (out1["start_step"], out1["final_step"]) != (0, 2) or \
+            (out2["start_step"], out2["final_step"]) != (2, 4) or \
+            sorted(resumed) != [3, 4] or dtrain.checkpoint_steps(ckpt) != [4]:
+        raise AssertionError(f"checkpoint: runs {out1} {out2}, steps {resumed}, "
+                             f"kept {dtrain.checkpoint_steps(ckpt)}")
+    spread = max(abs(first[k] - whole[k]) / abs(whole[k]) for k in (1, 2))
+    rel = max(abs(resumed[k] - whole[k]) / abs(whole[k]) for k in (3, 4))
+    n_bytes = sum(os.path.getsize(os.path.join(d, f))
+                  for d, _, files in os.walk(ckpt) for f in files)
+    log(f"checkpoint flagship: uninterrupted losses {whole}, first {first}, "
+        f"resumed {resumed}; steps 1-2 run-to-run rel {spread}, resumed vs "
+        f"uninterrupted rel {rel} (tol {RESUME_LOSS_REL_TOL}); save s "
+        f"{timed['save']}, restore s {timed['restore']}, bytes on disk "
+        f"{n_bytes} (one checkpoint), runs s {whole_s} / {first_s} / "
+        f"{resumed_s} | {smi}")
+    if not rel <= RESUME_LOSS_REL_TOL:
+        raise AssertionError("checkpoint: resumed losses leave the uninterrupted run's")
+
+    # Serve the directory, and an engine on the resumed loop's parameters.
+    cfg = lm.model_config("flagship")
+    out_file = os.path.join(OUT_DIR, "serve_flagship_ckpt.jsonl")
+    t = time.perf_counter()
+    res = serve_lm.serve(config="flagship", model_dir=ckpt, batch=8, slots=8,
+                         prompt_len=256, max_new_tokens=16, output_file=out_file)
+    serve_s = time.perf_counter() - t
+    got = {c["rid"]: c["completion"] for c in _read_completions(out_file)}
+    params = gen.inference_params(cfg, loops[-1].state.params)
+    del loops[:]
+    prompts = serve_lm._read_prompts("", cfg.vocab_size, 8, 256)
+    eng = ServingEngine(cfg, params, n_slots=8, max_seq=256 + 16, device="cuda")
+    want = {c.rid: c.tokens for c in eng.run([
+        Request(rid=i, prompt=prompts[i], max_new_tokens=16) for i in range(8)])}
+    log(f"checkpoint serve flagship: restored_step {res['restored_step']}, "
+        f"{sum(got[r] == want[r] for r in want)} of 8 streams equal the "
+        f"in-memory params', serve s {serve_s}")
+    if res["restored_step"] != 4 or got != want:
+        raise AssertionError(f"checkpoint serve: restored {res['restored_step']}, "
+                             f"streams {got} vs in-memory {want}")
+    del params, eng
+    shutil.rmtree(ckpt)
+    torch.cuda.empty_cache()
+
+
 def flash_vs_plain(smi):
     """Loss and every gradient of one flagship batch under the flash
     kernels and under the plain attention, on one set of weights."""
@@ -1634,6 +2035,7 @@ def main() -> int:
     runs = phase("serve", serve_phase, smi)
     phase("logits", logits_phase)
     train_runs = phase("train", train_phase, smi)
+    phase("checkpoint", checkpoint_phase, smi)
     launches = runs["fp"][1]
     line = {"kernels": []}
     for name, case, replaces in KERNELS:
@@ -1649,6 +2051,17 @@ def main() -> int:
             **({"device_ms_by_kernel": r["device_ms_by_kernel"]}
                if "device_ms_by_kernel" in r else {}),
         })
+        if name == "paged_chunk":
+            # B6's verify entry: its launches on the speculative serve run
+            # (one per layer per verify step) and its record at that
+            # run's shape.
+            v = recs["verify.bf16.serve"]
+            line["kernels"][-1]["verify"] = {
+                "launches": runs["spec"][1]["paged_chunk"],
+                "shape": "verify.bf16.serve",
+                **{k: v[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms", "parts",
+                                     "device_ms_by_kernel")}}
     for name, case, replaces, run in FLASH_KERNELS:
         r = flash_recs[(name, case)]
         line["kernels"].append({
@@ -1669,6 +2082,17 @@ def main() -> int:
                                  "device_ms_by_kernel", "two_pass_route_ms",
                                  "fused_route_ms") if k in r},
         })
+        if name == "flash_fwd":
+            # B1 on the serving path: exact prefill, once per layer per
+            # admission of the exact llama3_8b serve run, and its record
+            # at that run's shape.
+            p = flash_recs[(name, "llama3_8b.prefill")]
+            line["kernels"][-1]["serve_exact"] = {
+                "launches": runs["exact"][1]["flash_fwd"],
+                "shape": "llama3_8b.prefill",
+                **{k: p[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms", "parts",
+                                     "device_ms_by_kernel")}}
     r = int8_recs[INT8_KERNEL_SHAPE]
     line["kernels"].append({
         "name": "int8_matmul", "route": "cuda",

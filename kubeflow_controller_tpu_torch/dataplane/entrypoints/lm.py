@@ -15,12 +15,15 @@ Runs on ``cuda`` unless ``device="cpu"``. ``quant`` runs the linear
 projections in int8 (``"int8"``: the composed path; ``"int8_fused"``,
 from Python only as in the JAX package: the fused kernel where its
 shapes allow) and ``opt8bit`` keeps AdamW's moments in 8 bits
-(``--quant int8 --opt8`` on the command line). Options of the JAX entry
+(``--quant int8 --opt8`` on the command line). It trains into
+``model_dir or ctx.model_dir`` (a TPUJob's ``TPUJOB_MODEL_DIR``) as the
+JAX entry point does: resuming from the latest checkpoint there, saving
+every ``checkpoint_every`` steps and at the end (``dataplane/train.py``;
+the format is the port's own, not orbax's). Options of the JAX entry
 point this port does not have yet — tensor, fsdp and sequence
-parallelism, ring attention and checkpoints — are refused with "not yet
-ported", and so are a job's model dir (``ctx.model_dir``) and a
-multi-process job (``ctx.num_processes > 1``). The command line takes
-every option of the JAX entry point's, with the same defaults.
+parallelism and ring attention — are refused with "not yet ported", and
+so is a multi-process job (``ctx.num_processes > 1``). The command line
+takes every option of the JAX entry point's, with the same defaults.
 """
 
 from __future__ import annotations
@@ -160,6 +163,7 @@ def train(
     attn: str = "auto",
     model_dir: str = "",
     checkpoint_every: int = 0,
+    keep_checkpoints: int = 3,
     pack: bool = False,
     quant: str = "",
     grad_accum: int = 1,
@@ -170,9 +174,12 @@ def train(
     sp: int = 1,
     device: DeviceLike = None,
 ) -> Dict[str, float]:
-    """Train ``config`` for ``total_steps`` on one device; returns the
-    last logged metrics (``loss``, ``step``, ``tokens_per_sec``,
-    ``accuracy``, ``perplexity``) and ``final_step``."""
+    """Train ``config`` up to step ``total_steps`` on one device, into
+    and from ``model_dir or ctx.model_dir`` when set (``checkpoint_every``
+    and ``keep_checkpoints`` as in ``TrainLoopConfig``); returns the last
+    logged metrics (``loss``, ``step``, ``tokens_per_sec``, ``accuracy``,
+    ``perplexity``), ``final_step`` and ``start_step`` (the restored step,
+    0 on a fresh start)."""
     from kubeflow_controller_tpu_torch.dataplane.train import (
         TrainLoop, TrainLoopConfig, device_prefetch,
     )
@@ -183,15 +190,8 @@ def train(
             raise NotImplementedError(
                 f"{name}={value}: multi-device training is not yet ported")
     ctx = ctx or ProcessContext.from_env()
-    # The reference trains into ``model_dir or ctx.model_dir`` and saves
-    # there at the end; until checkpoints are ported a job's model dir is
-    # refused, not dropped.
-    refused = {"attn='ring'": attn == "ring", "model_dir": bool(model_dir),
-               "checkpoint_every": bool(checkpoint_every),
-               "the job's model dir (ctx.model_dir)": bool(ctx.model_dir)}
-    for name, on in refused.items():
-        if on:
-            raise NotImplementedError(f"{name} is not yet ported")
+    if attn == "ring":
+        raise NotImplementedError("attn='ring' is not yet ported")
     if ctx.num_processes > 1:
         raise NotImplementedError(
             f"multi-process training (num_processes={ctx.num_processes}) "
@@ -206,7 +206,10 @@ def train(
         optimizer=make_optimizer(learning_rate, total_steps, opt8bit),
         config=TrainLoopConfig(total_steps=total_steps,
                                log_every=max(1, total_steps // 10),
+                               checkpoint_every=checkpoint_every,
+                               keep_checkpoints=keep_checkpoints,
                                grad_accum=grad_accum),
+        model_dir=model_dir or ctx.model_dir,
         device=device,
     )
     # A real corpus when given (data_file, or train.bin in the job's
@@ -245,6 +248,7 @@ def train(
         if mlog:
             mlog.close()
     last["final_step"] = int(state.step)
+    last["start_step"] = loop.start_step
     return last
 
 

@@ -1,16 +1,20 @@
 """LM batch-inference entrypoint on the GPU.
 
 Counterpart of ``kubeflow_controller_tpu/dataplane/entrypoints/
-serve_lm.py``: build a freshly initialised model from a seed (no
-weights are downloaded; restoring a checkpoint is not yet ported), read
+serve_lm.py``: restore the parameters of the latest checkpoint in
+``--model-dir`` (``TPUJOB_MODEL_DIR``; written by the port's ``lm.train``)
+or, with none there, build a freshly initialised model from a seed; read
 token-id prompts (JSONL ``{"prompt": [ids...]}`` from ``--input``, or a
 synthetic batch), serve them through the continuous-batching engine
-(``dataplane/serving_engine.py``: paged KV pool, chunked prefill, fused
-decode chunks with on-device retirement, slot reuse), write completions
-JSONL to ``--output`` and report TTFT/TPOT/tokens per second.
+(``dataplane/serving_engine.py``: paged KV pool, exact or chunked
+prefill, fused decode chunks with on-device retirement, slot reuse, and
+with ``--speculative`` prompt-lookup drafts verified in one forward),
+write completions JSONL to ``--output`` and report TTFT/TPOT/tokens per
+second.
 
     python -m kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm \\
-        --config llama3_8b --batch 16 --slots 8 --prompt-len 256
+        --config llama3_8b --batch 16 --slots 8 --prompt-len 256 \\
+        --speculative --draft-k 4
 
 Runs on ``cuda``; ``--device cpu`` runs the plain PyTorch versions on
 the CPU. The command line takes every option of the JAX entry point's,
@@ -42,7 +46,6 @@ logger = logging.getLogger("tpujob.serve_lm_torch")
 #: serve() keywords of features not ported yet, with the value that means
 #: "off". Any other value raises NotImplementedError.
 NOT_YET_PORTED_FLAGS = {
-    "model_dir": "",
     "quant": "",
     "temperature": 0.0,
     "top_k": 0,
@@ -52,15 +55,12 @@ NOT_YET_PORTED_FLAGS = {
     "turns": 1,
     "prefix_cache": False,
     "host_kv_mb": 0.0,
-    "speculative": False,
     "tp": 1,
     "trace": "",
     "disagg": False,
     "fault_plan": "",
     "watchdog_stale_s": 0.0,
     "paged": True,
-    "draft_k": 4,
-    "proposer": "prompt",
     "tp_compute": "gathered",
     "mesh_devices": "",
     "fault_seed": 0,
@@ -68,8 +68,7 @@ NOT_YET_PORTED_FLAGS = {
 #: The command-line spelling of a keyword where it is not the keyword's,
 #: and the choices the JAX entry point's parser gives an option.
 _CLI_NAMES = {"mesh_devices": "--mesh"}
-_CLI_CHOICES = {"quant": ["", "int8"], "proposer": ["prompt", "radix"],
-                "tp_compute": ["gathered", "parallel"]}
+_CLI_CHOICES = {"quant": ["", "int8"], "tp_compute": ["gathered", "parallel"]}
 
 
 def _read_prompts(path: str, vocab: int, batch: int,
@@ -105,20 +104,28 @@ def _read_prompts(path: str, vocab: int, batch: int,
 
 
 def _load_params(cfg, model_dir: str, seed: int, device):
-    """(params, restored_step): a fresh init drawn in the compute dtype
-    from ``seed``; restoring a checkpoint is not yet ported."""
+    """(params, restored_step): the parameters of the latest checkpoint in
+    ``model_dir`` (``dataplane/train.py``'s format), or, with none there
+    (a warning) or no ``model_dir``, a fresh init drawn in the compute
+    dtype from ``seed`` and restored_step None."""
+    from kubeflow_controller_tpu_torch.dataplane import train
     from kubeflow_controller_tpu_torch.models import transformer as tfm
 
     if model_dir:
-        raise NotImplementedError(
-            "restoring a checkpoint (model_dir) is not yet ported; the "
-            "PyTorch entry point serves a fresh init")
+        steps = train.checkpoint_steps(model_dir)
+        if steps:
+            logger.info("restored params from %s @ step %d", model_dir,
+                        steps[-1])
+            return train.load_params(model_dir, steps[-1], device), steps[-1]
+        logger.warning("%s: no checkpoint found; serving fresh init",
+                       model_dir)
     return tfm.init_params(cfg, seed=seed, device=device, dtype=cfg.dtype), None
 
 
 def serve(
     ctx: Optional[ProcessContext] = None,
     config: str = "tiny",
+    model_dir: str = "",
     input_file: str = "",
     output_file: str = "",
     batch: int = 8,
@@ -130,24 +137,31 @@ def serve(
     deadline_s: Optional[float] = None,
     max_queue: Optional[int] = None,
     drain_grace_s: float = 2.0,
-    prefill_mode: str = "bucketed",
+    prefill_mode: str = "exact",
     block_size: int = 16,
     kv_pool_mb: Optional[float] = None,
     kv_quant: str = "",
+    speculative: bool = False,
+    draft_k: int = 4,
+    proposer: str = "prompt",
     attn_impl: str = "kernel",
     stop=None,
     device: DeviceLike = None,
     **not_yet_ported,
 ) -> Dict[str, float]:
     """Serve ``batch`` prompts through the engine; returns the summary
-    (``tokens_per_sec``, ``ttft_p50_ms``, ``tpot_p50_ms``, ...).
+    (``tokens_per_sec``, ``ttft_p50_ms``, ``tpot_p50_ms``, the spec
+    counters, ``restored_step``: -1 for a fresh init, ...).
 
-    Two defaults differ from the JAX entry point's on purpose:
-    ``attn_impl`` is ``"kernel"`` (the hand-written kernels; the JAX
-    default ``"xla"`` is accepted as an alias of ``"gather"``, ``"pallas"``
-    of ``"kernel"``), and ``prefill_mode`` is ``"bucketed"``, since exact
-    prefill is not yet ported. A job's model dir and a multi-process job
-    (``ctx.num_processes > 1``) are refused with "not yet ported".
+    The parameters come from ``model_dir or ctx.model_dir`` when a
+    checkpoint is there, cast as ``inference_params`` casts them. One
+    default differs from the JAX entry point's on purpose: ``attn_impl``
+    is ``"kernel"`` (the hand-written kernels; the JAX default ``"xla"``,
+    the gathered-view oracle, is accepted as an alias of ``"gather"``,
+    ``"pallas"`` of ``"kernel"``): the port serves through its kernels
+    unless asked for the oracle. A multi-process job
+    (``ctx.num_processes > 1``) and ``proposer="radix"`` are refused with
+    "not yet ported".
 
     ``stop`` (a ``threading.Event``) drains the engine within
     ``drain_grace_s`` and still writes the partial completions.
@@ -166,6 +180,13 @@ def serve(
             raise NotImplementedError(
                 f"serve({key}={value!r}) is not yet ported to the PyTorch "
                 f"entry point (see ROADMAP.md)")
+    if proposer != "prompt":
+        # Refused whether or not speculative decoding is on, as every
+        # other flag of an unported feature is off its default.
+        from kubeflow_controller_tpu_torch.dataplane.spec_decode import (
+            make_proposer,
+        )
+        make_proposer(proposer)
     ctx = ctx or ProcessContext.from_env()
     if ctx.num_processes > 1:
         raise NotImplementedError(
@@ -173,7 +194,8 @@ def serve(
             "not yet ported")
     cfg = model_config(config)
     dev = resolve_device(device)
-    params, restored_step = _load_params(cfg, ctx.model_dir, seed, dev)
+    params, restored_step = _load_params(cfg, model_dir or ctx.model_dir,
+                                         seed, dev)
     params = gen.inference_params(cfg, params)
     prompts = _read_prompts(input_file, cfg.vocab_size, batch, prompt_len)
     b, s = prompts.shape
@@ -190,7 +212,8 @@ def serve(
         cfg, params, n_slots=n_slots, max_seq=s + max_new_tokens,
         max_queue=max_queue, prefill_mode=prefill_mode,
         block_size=block_size, kv_hbm_budget_mb=kv_pool_mb,
-        kv_quant=kv_quant, attn_impl=attn_impl, device=dev)
+        kv_quant=kv_quant, spec_decode=speculative, draft_k=draft_k,
+        proposer=proposer, attn_impl=attn_impl, device=dev)
     for i in range(b):
         try:
             engine.submit(Request(
@@ -233,6 +256,11 @@ def serve(
     tps = new_total / dt
     logger.info("served %d prompts (%d new tokens total) in %.2fs "
                 "(%.0f tok/s) on %s", b, new_total, dt, tps, dev)
+    if speculative:
+        logger.info("speculative: %d/%d draft tokens accepted (%.2f) over "
+                    "%d verify steps", engine.stats.draft_accepted,
+                    engine.stats.draft_proposed,
+                    engine.stats.acceptance_rate, engine.stats.spec_steps)
     out = {
         "prompts": float(b),
         "new_tokens": float(max_new_tokens),
@@ -254,6 +282,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--config", default="tiny",
                    choices=sorted(CONFIGS) + list(NOT_YET_PORTED))
+    p.add_argument("--model-dir", default="",
+                   help="checkpoint dir written by the port's lm.train "
+                        "(TPUJOB_MODEL_DIR analog); fresh init when empty")
     p.add_argument("--input", default="",
                    help="JSONL of {\"prompt\": [token ids]}")
     p.add_argument("--output", default="", help="completions JSONL")
@@ -271,14 +302,26 @@ def main(argv=None) -> int:
     p.add_argument("--max-queue", type=int, default=0,
                    help="bound the engine FIFO (0 = unbounded)")
     p.add_argument("--drain-grace-s", type=float, default=2.0)
-    p.add_argument("--prefill-mode", default="bucketed",
-                   choices=["exact", "bucketed"])
+    p.add_argument("--prefill-mode", default="exact",
+                   choices=["exact", "bucketed"],
+                   help="exact = one forward over the whole prompt at "
+                        "admission; bucketed = block_size chunks "
+                        "interleaved with decode")
     p.add_argument("--block-size", type=int, default=16,
                    help="KV page size in tokens (power of two)")
     p.add_argument("--kv-pool-mb", type=float, default=0.0,
                    help="device-memory budget of the KV pool in MiB "
                         "(0 = one full context per slot)")
     p.add_argument("--kv-quant", default="none", choices=["none", "int8"])
+    p.add_argument("--speculative", action="store_true",
+                   help="speculative decoding: model-free drafts verified "
+                        "in one forward; greedy outputs equal plain decode")
+    p.add_argument("--draft-k", type=int, default=4,
+                   help="max draft tokens proposed per slot per step "
+                        "(adaptive K shrinks below this on rejection)")
+    p.add_argument("--proposer", default="prompt", choices=["prompt", "radix"],
+                   help="draft source: prompt = n-gram lookup in the "
+                        "request's own context (radix: not yet ported)")
     p.add_argument("--attn-impl", default="kernel",
                    choices=["kernel", "gather", "pallas", "xla"],
                    help="kernel (or pallas) = the hand-written "
@@ -305,7 +348,7 @@ def main(argv=None) -> int:
             config=args.config, input_file=args.input,
             output_file=args.output, batch=args.batch,
             prompt_len=args.prompt_len, max_new_tokens=args.max_new_tokens,
-            seed=args.seed, slots=args.slots,
+            model_dir=args.model_dir, seed=args.seed, slots=args.slots,
             eos_id=None if args.eos_id < 0 else args.eos_id,
             deadline_s=args.deadline_s if args.deadline_s > 0 else None,
             max_queue=args.max_queue if args.max_queue > 0 else None,
@@ -313,6 +356,8 @@ def main(argv=None) -> int:
             prefill_mode=args.prefill_mode, block_size=args.block_size,
             kv_pool_mb=args.kv_pool_mb if args.kv_pool_mb > 0 else None,
             kv_quant="" if args.kv_quant == "none" else args.kv_quant,
+            speculative=args.speculative, draft_k=args.draft_k,
+            proposer=args.proposer,
             attn_impl=args.attn_impl, device=args.device, stop=stop,
             **refused)
     finally:

@@ -2,8 +2,8 @@
 
 Counterpart of ``kubeflow_controller_tpu/dataplane/metrics.py``'s
 :class:`ServingStats` and :class:`MetricsLogger`, cut to the counters
-this slice of the port produces (no prefix cache, speculation,
-migration, host tier or MoE yet).
+this slice of the port produces (no prefix cache, migration, host tier
+or MoE yet).
 """
 
 from __future__ import annotations
@@ -64,6 +64,16 @@ class ServingStats:
     pool_blocks_total: int = 0
     pool_blocks_in_use: int = 0
     kv_bytes_per_token: int = 0
+    # Speculative decoding: draft tokens sent to the verifier and those
+    # that committed (acceptance_rate is their ratio), fused verify
+    # dispatches, quanta that took the un-pipelined proposal path (a
+    # superset of spec_steps), and committed tokens per slot-step (1..K+1)
+    # -> occurrences.
+    draft_proposed: int = 0
+    draft_accepted: int = 0
+    spec_steps: int = 0
+    spec_probe_steps: int = 0
+    spec_step_tokens_hist: Dict[int, int] = field(default_factory=dict)
     # Quantum-progress counter: bumped once per completed step().
     heartbeat: int = 0
 
@@ -95,6 +105,14 @@ class ServingStats:
         denom = self.steps * self.n_slots
         return self.active_slot_steps / denom if denom else 0.0
 
+    @property
+    def acceptance_rate(self) -> float:
+        """Committed over proposed draft tokens (0.0 before any
+        proposal)."""
+        if not self.draft_proposed:
+            return 0.0
+        return self.draft_accepted / self.draft_proposed
+
     def summary(self, wall_s: float = 0.0) -> Dict[str, float]:
         out = {
             "requests": float(self.finished),
@@ -115,9 +133,19 @@ class ServingStats:
             "pool_blocks_total": float(self.pool_blocks_total),
             "pool_blocks_in_use": float(self.pool_blocks_in_use),
             "kv_bytes_per_token": float(self.kv_bytes_per_token),
+            "draft_proposed": float(self.draft_proposed),
+            "draft_accepted": float(self.draft_accepted),
+            "acceptance_rate": self.acceptance_rate,
+            "spec_steps": float(self.spec_steps),
+            "spec_probe_steps": float(self.spec_probe_steps),
             "samples_dropped": float(self.samples_dropped),
             "heartbeat": float(self.heartbeat),
         }
+        # The committed-tokens histogram as flat keys spec_step_tokens_1
+        # .. spec_step_tokens_{K+1}: one flat record a line.
+        for n_tok in sorted(self.spec_step_tokens_hist):
+            out[f"spec_step_tokens_{n_tok}"] = float(
+                self.spec_step_tokens_hist[n_tok])
         if wall_s > 0:
             out["tokens_per_sec"] = self.tokens_out / wall_s
         return out

@@ -1,7 +1,6 @@
 """Continuous-batching LM decode engine over the paged KV pool, on one GPU.
 
-Counterpart of ``kubeflow_controller_tpu/dataplane/serving_engine.py``
-with ``prefill_mode="bucketed"`` (this slice's only mode):
+Counterpart of ``kubeflow_controller_tpu/dataplane/serving_engine.py``:
 
 * KV lives in one shared block pool (:class:`~..models.generate.
   PagedKVCache`); each of the ``n_slots`` lanes reads and writes it
@@ -10,9 +9,12 @@ with ``prefill_mode="bucketed"`` (this slice's only mode):
 * a FIFO request queue; admission reserves the request's whole
   ``ceil((prompt + max_new) / block_size)`` page span up front, so no
   slot can run out of pages mid-decode;
-* every prefill decomposes on the absolute ``block_size`` grid into
-  full-block chunks plus a power-of-two padded tail, one chunk per slot
-  per step, interleaved with decode (Sarathi-style);
+* ``prefill_mode="exact"`` (the default) prefills a request's whole
+  prompt at admission in one forward (``generate.prefill_into_paged``)
+  and the slot decodes from the next step; ``"bucketed"`` decomposes
+  every prefill on the absolute ``block_size`` grid into full-block
+  chunks plus a power-of-two padded tail, one chunk per slot per step,
+  interleaved with decode (Sarathi-style);
 * every step dispatches one fused chunk of ``decode_chunk`` micro-steps
   (argmax of the carried logits -> one decode step -> retirement), and
   retirement is decided ON THE DEVICE: the chunk flips a row's
@@ -22,12 +24,16 @@ with ``prefill_mode="bucketed"`` (this slice's only mode):
 * the host loop is pipelined one dispatch deep: ``step()`` dispatches
   the next chunk first, then books the previous chunk's tokens (copied
   to pinned host memory behind that chunk on the stream) while the
-  device works.
+  device works;
+* ``spec_decode=True``: model-free drafts (``dataplane/spec_decode.py``)
+  verified in one forward over the pages (``generate.verify_step_paged``)
+  on the quanta where some slot drafts; the plain pipelined chunk
+  otherwise. Greedy streams are those of plain decode.
 
 Greedy decoding only. Everything else the JAX engine offers raises "not
-yet ported" when asked for: exact prefill, the prefix cache, the host
-tier, speculative decoding, sampling, ``n > 1`` forks, grammars,
-tensor parallelism, disaggregation, fault injection and the tracer.
+yet ported" when asked for: the prefix cache, the radix proposer, the
+host tier, sampling, ``n > 1`` forks, grammars, tensor parallelism,
+disaggregation, fault injection and the tracer.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import numpy as np
 import torch
 
 from kubeflow_controller_tpu_torch.dataplane import kv_blocks
+from kubeflow_controller_tpu_torch.dataplane import spec_decode as spec_mod
 from kubeflow_controller_tpu_torch.dataplane.metrics import (
     MetricsLogger, ServingStats,
 )
@@ -152,6 +159,14 @@ class _Slot:
     tokens: List[int] = field(default_factory=list)
     owned: List[int] = field(default_factory=list)   # pool pages held
     prefill: Optional[_Prefill] = None   # set while mid-chunked-prefill
+    # Speculative decoding: the next committed token (argmax of the
+    # carried logits, fetched with the step that computed it; None until
+    # the slot's first booked step), the adaptive draft length, and the
+    # consecutive fruitless rounds and full accepts that drive backoff.
+    next_tok: Optional[int] = None
+    spec_k: int = 0
+    spec_miss: int = 0
+    spec_hits: int = 0
 
 
 class _Fetch:
@@ -207,7 +222,7 @@ class ServingEngine:
         decode_chunk: int = 4,
         max_queue: Optional[int] = None,
         max_queue_delay_s: Optional[float] = None,
-        prefill_mode: str = "bucketed",
+        prefill_mode: str = "exact",
         prefix_cache: bool = False,
         block_size: int = 16,
         kv_pool_blocks: Optional[int] = None,
@@ -215,6 +230,10 @@ class ServingEngine:
         kv_quant: str = "",
         metrics_path: Optional[str] = None,
         spec_decode: bool = False,
+        draft_k: int = 4,
+        proposer: object = "prompt",
+        spec_patience: int = 2,
+        spec_cooldown_max: int = 256,
         tp: int = 1,
         attn_impl: str = "kernel",
         host_kv_mb: float = 0.0,
@@ -231,11 +250,13 @@ class ServingEngine:
             raise ValueError(
                 f"prefill_mode must be 'exact' or 'bucketed' "
                 f"(got {prefill_mode!r})")
+        if prefix_cache and prefill_mode != "bucketed":
+            raise ValueError(
+                "prefix_cache requires prefill_mode='bucketed' (exact-"
+                "length prefill does not land on the block grid)")
         refused = [
-            (prefill_mode == "exact", "prefill_mode='exact'"),
             (prefix_cache, "prefix_cache"),
             (host_kv_mb > 0, "the host KV tier (host_kv_mb)"),
-            (spec_decode, "speculative decoding (spec_decode)"),
             (not self._default_params.is_greedy,
              "sampling (temperature > 0)"),
             (int(tp) > 1, "tensor-parallel serving (tp > 1)"),
@@ -261,9 +282,18 @@ class ServingEngine:
         self.cfg = cfg
         self.params = params
         self.n_slots = n_slots
-        # A slot's KV is exactly its table span, so max_seq rounds UP to
-        # the block grid.
-        self.max_seq = -(-int(max_seq or cfg.max_seq) // block_size) * block_size
+        self.max_seq = int(max_seq or cfg.max_seq)
+        if prefill_mode == "bucketed":
+            # A slot's KV is exactly its table span, so max_seq rounds UP
+            # to the block grid.
+            self.max_seq = -(-self.max_seq // block_size) * block_size
+        else:
+            # Exact prefill never exposes the grid, but the pool needs
+            # one: shrink to the largest power-of-two divisor of max_seq,
+            # so that the table span lands exactly on max_seq.
+            while block_size > self.max_seq or self.max_seq % block_size:
+                block_size //= 2
+        self.prefill_mode = prefill_mode
         self.decode_chunk = max(1, int(decode_chunk))
         self.max_queue = max_queue
         self.max_queue_delay_s = max_queue_delay_s
@@ -284,6 +314,28 @@ class ServingEngine:
         self.pool = kv_blocks.BlockPool(self._kv_pool_blocks)
         self._clock = clock
         self._metrics = MetricsLogger(metrics_path) if metrics_path else None
+        # Speculative decoding. Cooldown (steps before a lane may propose
+        # again) and backoff (the last cooldown, doubled on every relapse
+        # up to spec_cooldown_max) are kept per LANE, not per request:
+        # "this traffic does not speculate" outlives any one request.
+        self.spec_decode = bool(spec_decode)
+        self.draft_k = int(draft_k)
+        self.spec_patience = max(1, int(spec_patience))
+        self.spec_cooldown_max = max(1, int(spec_cooldown_max))
+        self._spec_cooldown = [0] * n_slots
+        self._spec_backoff = [0] * n_slots
+        self._proposer: Optional[spec_mod.DraftProposer] = None
+        if self.spec_decode:
+            if self.draft_k < 1:
+                raise ValueError(f"draft_k must be >= 1 (got {draft_k})")
+            if isinstance(proposer, str):
+                self._proposer = spec_mod.make_proposer(proposer)
+            elif isinstance(proposer, spec_mod.DraftProposer):
+                self._proposer = proposer
+            else:
+                raise ValueError(
+                    f"proposer must be 'prompt', 'radix', or a "
+                    f"DraftProposer (got {proposer!r})")
 
         self.cache = gen.init_paged_cache(
             cfg, n_slots, self._max_blocks, self._kv_pool_blocks,
@@ -455,8 +507,10 @@ class ServingEngine:
         """``decode_chunk`` fused micro-steps over the pool: sample the
         carried logits' argmax (first maximum on ties), decode it, and
         retire rows on the device. Returns the ``[chunk, n_slots]``
-        tokens; the logits, cache and emitted counts advance in place of
-        the engine's."""
+        tokens — with speculative decoding one row more, each slot's
+        next committed token (the carried logits' argmax) for the
+        proposer; the logits, cache and emitted counts advance in place
+        of the engine's."""
         logits, cache, emitted = self.logits, self.cache, self.emitted
         toks_out = []
         for _ in range(self.decode_chunk):
@@ -473,7 +527,32 @@ class ServingEngine:
             cache.active = cache.active & ~done
             toks_out.append(toks)
         self.logits, self.cache, self.emitted = logits, cache, emitted
+        if self.spec_decode:
+            toks_out.append(logits.argmax(-1).to(torch.int32))
         return torch.stack(toks_out)
+
+    def _verify(self, vw: int, draft: np.ndarray, dlen: np.ndarray):
+        """One fused verify step over the pool: commit each row's accepted
+        run, then apply the plain chunk's retirement rule on the device —
+        an EOS inside the committed run, or the budget spent (``max_commit
+        = budget - emitted`` caps the run, so a row retires at exactly
+        its budget). Returns ``[n_slots, K + 3]`` int32: the window, the
+        committed count n and the next committed token."""
+        max_commit = (self.budget - self.emitted).clamp_min(1)
+        window, n, self.logits, self.cache = gen.verify_step_paged(
+            self.cfg, self.params, _to_device(draft, self.device),
+            _to_device(dlen, self.device), self.logits, self.cache, self.eos,
+            max_commit, view_width=vw, attn_impl=self.attn_impl)
+        self.emitted = self.emitted + n              # n = 0 on inactive rows
+        in_commit = (torch.arange(window.shape[1], device=self.device)[None, :]
+                     < n[:, None])
+        committed_eos = ((window == self.eos[:, None])
+                         & (self.eos[:, None] >= 0) & in_commit).any(1)
+        active = self.cache.active
+        done = active & (committed_eos | (self.emitted >= self.budget))
+        self.cache.active = active & ~done
+        next_tok = self.logits.argmax(-1).to(torch.int32)
+        return torch.cat([window, n[:, None], next_tok[:, None]], 1)
 
     def _chunk(self, i: int, toks: np.ndarray, off: int, w_real: int,
                p: _Prefill, activate: bool) -> None:
@@ -517,8 +596,9 @@ class ServingEngine:
 
     def _admit_waiting(self) -> None:
         """Fill every free slot from the queue: reserve the request's
-        whole page span, write the page ids into the slot's table row,
-        and leave a :class:`_Prefill` cursor that
+        whole page span and write the page ids into the slot's table
+        row; then, in exact mode, prefill the prompt into the slot and
+        make it live, or, bucketed, leave a :class:`_Prefill` cursor that
         :meth:`_advance_prefills` runs one chunk per step. A request
         whose reservation cannot be met goes back to the queue head and
         admission stops for this step."""
@@ -541,13 +621,28 @@ class ServingEngine:
             row[:needed] = owned
             self._slot_blocks[slot] = needed
             self._tables_dirty = True
+            eos_val = -1 if req.eos_id is None else req.eos_id
+            prefill = None
+            if self.prefill_mode == "exact":
+                # The whole prompt in one forward; the row is live at once
+                # and decodes in the next dispatch.
+                self._push_tables()
+                row_logits, self.cache = gen.prefill_into_paged(
+                    self.cfg, self.params,
+                    _to_device(req.prompt[None], self.device), self.cache,
+                    slot)
+                self.logits[slot] = row_logits[0]
+                self.eos[slot] = eos_val
+                self.budget[slot] = req.max_new_tokens
+                self.emitted[slot] = 0
+            else:
+                prefill = _Prefill(tokens=req.prompt, next_off=0,
+                                   eos_val=eos_val,
+                                   budget_val=req.max_new_tokens)
             self.slots[slot] = _Slot(
                 req=req, submit_t=q.submit_t, admit_t=now,
-                deadline_t=q.deadline_t, owned=owned,
-                prefill=_Prefill(
-                    tokens=req.prompt, next_off=0,
-                    eos_val=-1 if req.eos_id is None else req.eos_id,
-                    budget_val=req.max_new_tokens))
+                deadline_t=q.deadline_t, owned=owned, spec_k=self.draft_k,
+                prefill=prefill)
             self.stats.admitted += 1
             self.stats.record_queue_wait(now - q.submit_t)
 
@@ -597,27 +692,221 @@ class ServingEngine:
         3. admit waiting requests into freed slots and advance every
            slot's prefill by one chunk.
 
-        Returns the requests that finished this quantum."""
+        Returns the requests that finished this quantum.
+        ``spec_decode=True`` engines run :meth:`_step_spec` instead."""
+        if self.spec_decode:
+            return self._step_spec()
         finished: List[Completion] = list(self._done_buf)
         self._done_buf.clear()
         finished.extend(self._retire_due())
-        dispatched = None
-        # Only slots past prefill decode; a mid-prefill slot's device row
-        # is inactive, and snapshotting it as None keeps its chunk
-        # garbage out of the books.
-        snapshot: List[Optional[_Slot]] = [
-            s if (s is not None and s.prefill is None) else None
-            for s in self.slots
-        ]
-        if any(s is not None for s in snapshot):
-            self._push_tables()
-            toks = self._decode_chunk(self._view_width())
-            dispatched = (_Fetch(toks), snapshot)
+        snapshot = self._decoding_snapshot()
+        dispatched = self._dispatch_plain(snapshot)
         finished.extend(self._process_pending())
         self._pending = dispatched
         self._admit_waiting()
         self._advance_prefills()
         self._sync_stats()
+        return finished
+
+    def _decoding_snapshot(self) -> List[Optional[_Slot]]:
+        """The slots past prefill. A mid-prefill slot's device row is
+        inactive, and snapshotting it as None keeps its chunk garbage out
+        of the books."""
+        return [s if (s is not None and s.prefill is None) else None
+                for s in self.slots]
+
+    def _dispatch_plain(self, snapshot):
+        """Dispatch the pipelined plain chunk when any slot decodes: the
+        ``(token fetch, snapshot)`` to book next quantum, or None."""
+        if not any(s is not None for s in snapshot):
+            return None
+        self._push_tables()
+        return _Fetch(self._decode_chunk(self._view_width())), snapshot
+
+    def _step_spec(self) -> List[Completion]:
+        """One quantum with speculative decoding. Drafting needs the last
+        committed token, so the order differs from :meth:`step`: the
+        previous dispatch books FIRST (it carries each surviving slot's
+        ``next_tok``), then the proposer runs over the live contexts, and
+        the dispatch is the fused verify step (booked at once: its output
+        feeds the next proposal) or, when nothing drafts, the plain
+        pipelined chunk. When no lane is worth a probe (cooldown, or a
+        host-side scan of the booked context finds no candidate), the
+        quantum is exactly the plain one: dispatch first, then book."""
+        finished: List[Completion] = list(self._done_buf)
+        self._done_buf.clear()
+        finished.extend(self._retire_due())
+        probe = False
+        for i, s in enumerate(self.slots):
+            if s is None or s.prefill is not None:
+                continue
+            if self._spec_cooldown[i] > 0:
+                continue
+            ctx = np.concatenate([s.req.prompt, np.asarray(s.tokens, np.int32)])
+            if self._proposer.has_candidate(ctx):
+                probe = True
+            else:
+                self._note_spec_miss(i, s)
+        if not probe:
+            snapshot = self._decoding_snapshot()
+            if any(s is not None for s in snapshot):
+                for i, s in enumerate(snapshot):
+                    if s is not None and self._spec_cooldown[i] > 0:
+                        self._spec_cooldown[i] -= 1
+            dispatched = self._dispatch_plain(snapshot)
+            finished.extend(self._process_pending())
+            self._pending = dispatched
+            self._admit_waiting()
+            self._advance_prefills()
+            self._sync_stats()
+            return finished
+        finished.extend(self._process_pending())
+        snapshot = self._decoding_snapshot()
+        if any(s is not None for s in snapshot):
+            self.stats.spec_probe_steps += 1
+            proposal = self._propose_drafts(snapshot)
+            if proposal is not None:
+                draft, dlen = proposal
+                self._push_tables()
+                out = _Fetch(self._verify(self._view_width(), draft,
+                                          dlen)).numpy()
+                k1 = draft.shape[1] + 1
+                finished.extend(self._book_spec(
+                    snapshot, out[:, :k1], out[:, k1], out[:, k1 + 1], dlen))
+            else:
+                self._pending = self._dispatch_plain(snapshot)
+        self._admit_waiting()
+        self._advance_prefills()
+        self._sync_stats()
+        return finished
+
+    def _propose_drafts(self, snapshot):
+        """Draft proposals for every slot eligible to speculate: decoding,
+        its next token known, at least 2 tokens of budget left, not an
+        EOS away from retiring, not cooling down (the cooldown ticks down
+        here, on each step the slot sits out). Returns ``(draft [B, K]
+        int32, dlen [B] int32)``, or None when no slot has a draft."""
+        k = self.draft_k
+        contexts: List[Optional[np.ndarray]] = [None] * self.n_slots
+        caps = np.zeros((self.n_slots,), np.int32)
+        for i, slot in enumerate(snapshot):
+            if slot is None:
+                continue
+            if self._spec_cooldown[i] > 0:
+                self._spec_cooldown[i] -= 1
+                continue
+            if slot.next_tok is None:
+                continue                  # first step after admission
+            remaining = slot.req.max_new_tokens - len(slot.tokens) - 1
+            if remaining < 1:
+                continue                  # next_tok retires the slot
+            if (slot.req.eos_id is not None
+                    and slot.next_tok == slot.req.eos_id):
+                continue                  # nothing follows EOS
+            caps[i] = min(max(1, slot.spec_k), remaining, k)
+            if self._spec_backoff[i] > 0 and slot.spec_hits == 0:
+                # A backed-off lane probes with ONE token, so a spurious
+                # match cannot buy a full-width garbage verify.
+                caps[i] = 1
+            contexts[i] = np.concatenate([
+                slot.req.prompt,
+                np.asarray(slot.tokens + [slot.next_tok], np.int32)])
+        if not any(c is not None for c in contexts):
+            return None
+        draft, lens = self._proposer.propose(contexts, k)
+        lens = np.minimum(np.asarray(lens, np.int32), caps)
+        # A verify quantum is serialized, a plain one commits decode_chunk
+        # tokens pipelined: drop drafts too short to commit ~2x that.
+        # Probes (cap 1) and budget-capped drafts are exempt.
+        min_len = 2 * self.decode_chunk
+        for i in range(self.n_slots):
+            if caps[i] > 1 and 0 < lens[i] < min(min_len, int(caps[i])):
+                lens[i] = 0
+        # No draft (or none long enough) for an eligible slot is a miss
+        # too, so incompressible traffic enters cooldown.
+        for i, slot in enumerate(snapshot):
+            if contexts[i] is not None and lens[i] == 0:
+                self._note_spec_miss(i, slot)
+        if not lens.any():
+            return None
+        return np.asarray(draft, np.int32), lens
+
+    def _note_spec_miss(self, i: int, slot: _Slot) -> None:
+        """One fruitless round on lane ``i`` (no match, or a verified
+        draft with zero accepts). The first descent takes
+        ``spec_patience`` misses in a row; once backed off, one fruitless
+        probe re-enters cooldown at twice the interval (capped at
+        ``spec_cooldown_max``)."""
+        slot.spec_hits = 0
+        slot.spec_miss += 1
+        if (self._spec_backoff[i] > 0
+                or slot.spec_miss >= self.spec_patience):
+            self._spec_backoff[i] = min(max(4, self._spec_backoff[i] * 2),
+                                        self.spec_cooldown_max)
+            self._spec_cooldown[i] = self._spec_backoff[i]
+            slot.spec_miss = 0
+
+    def _book_spec(self, snapshot, window, n, next_tok,
+                   dlen) -> List[Completion]:
+        """Book one verify step: for each surviving snapshot row, record
+        its ``n[i]`` committed window tokens through the shared EOS/budget
+        rule, update the acceptance counters and the adaptive-K / backoff
+        state, and keep ``next_tok`` for the next proposal. A row retired
+        on the host since the dispatch fails the snapshot-identity check
+        and its tokens are dropped, as on the plain path."""
+        now = self._clock()
+        self.stats.steps += 1
+        self.stats.spec_steps += 1
+        finished: List[Completion] = []
+        for i, slot in enumerate(snapshot):
+            if slot is None or self.slots[i] is not slot:
+                continue
+            n_i = int(n[i])
+            if n_i <= 0:
+                continue
+            hist = self.stats.spec_step_tokens_hist
+            hist[n_i] = hist.get(n_i, 0) + 1
+            d = int(dlen[i])
+            accepted = min(n_i - 1, d)
+            if d > 0:
+                self.stats.draft_proposed += d
+                self.stats.draft_accepted += accepted
+                if accepted >= d:
+                    # Full accept: regrow toward draft_k by doubling; a
+                    # probe hit jumps to full width. Clearing the backoff
+                    # takes a >= 2-token full accept or two probe hits.
+                    if self._spec_backoff[i] > 0 and d == 1:
+                        slot.spec_k = self.draft_k
+                    else:
+                        slot.spec_k = min(self.draft_k,
+                                          max(1, slot.spec_k) * 2)
+                    slot.spec_miss = 0
+                    slot.spec_hits += 1
+                    if d >= 2 or slot.spec_hits >= 2:
+                        self._spec_backoff[i] = 0
+                        slot.spec_hits = 0
+                elif accepted == 0:
+                    slot.spec_k = max(1, slot.spec_k // 2)
+                    self._note_spec_miss(i, slot)
+                else:
+                    slot.spec_k = max(1, accepted + 1)
+                    slot.spec_miss = 0
+                    slot.spec_hits = 0
+            # n was cut at the first committed EOS and at the budget, so
+            # only the LAST committed token can finish the request.
+            if n_i > 1:
+                if slot.first_token_t is None:
+                    slot.first_token_t = now
+                slot.tokens.extend(int(t) for t in window[i, :n_i - 1])
+                self.stats.tokens_out += n_i - 1
+                self.stats.active_slot_steps += n_i - 1
+            comp = self._book_token(i, slot, int(window[i, n_i - 1]), now)
+            if comp is not None:
+                finished.append(comp)
+            else:
+                slot.next_tok = int(next_tok[i])
+        for c in finished:
+            self.stats.record(c)
         return finished
 
     def _sync_stats(self) -> None:
@@ -660,23 +949,31 @@ class ServingEngine:
     def _process_pending(self) -> List[Completion]:
         """Book the token chunk of the previous dispatch against the
         slots captured AT dispatch time; a snapshot row whose slot has
-        since been freed or reassigned is skipped."""
+        since been freed or reassigned is skipped. With speculative
+        decoding the chunk also carried each row's next committed token,
+        which a surviving slot keeps for the next proposal."""
         if self._pending is None:
             return []
         fetch, snapshot = self._pending
         self._pending = None
-        toks_np = fetch.numpy()                       # [chunk, B]
+        toks_np = fetch.numpy()                       # [chunk (+1), B]
+        next_np = None
+        if self.spec_decode:
+            toks_np, next_np = toks_np[:-1], toks_np[-1]
         now = self._clock()
         self.stats.steps += toks_np.shape[0]
         finished: List[Completion] = []
         for i, slot in enumerate(snapshot):
             if slot is None or self.slots[i] is not slot:
                 continue
+            comp = None
             for k in range(toks_np.shape[0]):
                 comp = self._book_token(i, slot, int(toks_np[k, i]), now)
                 if comp is not None:
                     finished.append(comp)
                     break
+            if comp is None and next_np is not None:
+                slot.next_tok = int(next_np[i])
         for c in finished:
             self.stats.record(c)
         return finished

@@ -9,20 +9,34 @@ pins them; each copy is ``non_blocking``). Like the JAX loop, it reads
 device values only at log points, so steps queue on the card between
 them.
 
-Not ported yet, and refused by name: checkpointing (``model_dir``,
-``checkpoint_every``: orbax restore has no counterpart here), multi-step
-dispatch (``steps_per_call > 1``), periodic evaluation (``eval_fn``),
-stateful models (``stateful``) and profiling (``profile_dir``).
+Checkpoints: with a ``model_dir``, :meth:`TrainLoop.run` resumes from
+the latest checkpoint there, saves every ``checkpoint_every`` steps and
+at the end, and keeps the newest ``keep_checkpoints``. A checkpoint is
+the directory ``model_dir/<step>/`` holding ``params.pt`` (the step and
+the parameters) and ``opt.pt`` (the optimizer's whole state), written
+with ``torch.save`` into a temporary directory that is then renamed, so
+a save cut short never leaves a checkpoint that :meth:`restore` would
+pick. The JAX package's checkpoints are orbax directories, which this
+format does not read; ``convert.py`` carries JAX weights across as numpy
+arrays.
+
+Not ported yet, and refused by name: asynchronous saves
+(``async_checkpoint``), multi-step dispatch (``steps_per_call > 1``),
+periodic evaluation (``eval_fn``), stateful models (``stateful``) and
+profiling (``profile_dir``).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import queue
+import shutil
+import tempfile
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -98,8 +112,10 @@ class TrainLoopConfig:
     # forward and backward on each, and apply ONE optimizer update on the
     # mean gradient. The batch's leading dim must divide.
     grad_accum: int = 1
+    checkpoint_every: int = 0      # 0 = only at the end (with a model_dir)
+    keep_checkpoints: int = 3
     # Not ported yet; any value but these defaults is refused.
-    checkpoint_every: int = 0
+    async_checkpoint: bool = False
     steps_per_call: int = 1
     eval_every: int = 0
     profile_dir: str = ""
@@ -117,6 +133,30 @@ class StepMetrics:
 class TrainState:
     step: int
     params: Any
+
+
+PARAMS_FILE, OPT_FILE = "params.pt", "opt.pt"
+
+
+def checkpoint_steps(model_dir: str) -> List[int]:
+    """The steps of the complete checkpoints in ``model_dir``, oldest
+    first. A temporary directory of a save cut short is not one."""
+    if not model_dir or not os.path.isdir(model_dir):
+        return []
+    return sorted(
+        int(name) for name in os.listdir(model_dir)
+        if name.isdigit() and os.path.isfile(
+            os.path.join(model_dir, name, OPT_FILE)))
+
+
+def load_params(model_dir: str, step: int, device: DeviceLike = None):
+    """The parameters of the checkpoint at ``step`` on ``device``, read
+    without the optimizer's state."""
+    ckpt = torch.load(os.path.join(model_dir, str(step), PARAMS_FILE),
+                      map_location="cpu", mmap=True, weights_only=True)
+    dev = resolve_device(device)
+    return tree_unflatten(ckpt["params"],
+                          [t.to(dev) for t in tree_leaves(ckpt["params"])])
 
 
 class TrainLoop:
@@ -142,8 +182,7 @@ class TrainLoop:
         self.config = config or TrainLoopConfig()
         cfg = self.config
         refused = {
-            "model_dir": bool(model_dir),
-            "checkpoint_every": bool(cfg.checkpoint_every),
+            "async_checkpoint": cfg.async_checkpoint,
             "steps_per_call": cfg.steps_per_call != 1,
             "eval_fn": eval_fn is not None or bool(cfg.eval_every),
             "stateful": stateful,
@@ -155,6 +194,7 @@ class TrainLoop:
         if cfg.grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1 (got {cfg.grad_accum})")
         self.device = resolve_device(device)
+        self.model_dir = model_dir
         self.loss_fn = loss_fn
         self.tx = optimizer
         params = init_fn(seed, self.device)
@@ -162,6 +202,7 @@ class TrainLoop:
             p.requires_grad_(True)
         optimizer.init(params)
         self.state = TrainState(step=0, params=params)
+        self.start_step = 0        # the step the last run() began at
 
     def _grads(self, batch):
         params = self.state.params
@@ -204,17 +245,75 @@ class TrainLoop:
         self.state.step += 1
         return {"loss": loss, **metrics}
 
+    # -- checkpointing -------------------------------------------------------
+
+    def save(self) -> None:
+        """Write the state as ``model_dir/<step>/`` (a no-op without a
+        model dir, or when that step is saved already, as the reference's
+        checkpoint manager skips it): into a temporary directory first,
+        renamed when both files are down, then prune all but the newest
+        ``keep_checkpoints``."""
+        if not self.model_dir:
+            return
+        step = int(self.state.step)
+        final = os.path.join(self.model_dir, str(step))
+        if os.path.exists(final):
+            return
+        os.makedirs(self.model_dir, exist_ok=True)
+        for name in os.listdir(self.model_dir):
+            if name.startswith(".tmp-"):       # a save cut short earlier
+                shutil.rmtree(os.path.join(self.model_dir, name))
+        tmp = tempfile.mkdtemp(prefix=f".tmp-{step}-", dir=self.model_dir)
+        params = tree_unflatten(self.state.params, [
+            p.detach() for p in tree_leaves(self.state.params)])
+        torch.save({"step": step, "params": params},
+                   os.path.join(tmp, PARAMS_FILE))
+        torch.save(self.tx.state_dict(), os.path.join(tmp, OPT_FILE))
+        os.rename(tmp, final)
+        for old in checkpoint_steps(self.model_dir)[:-max(1, self.config.keep_checkpoints)]:
+            shutil.rmtree(os.path.join(self.model_dir, str(old)))
+
+    def restore(self) -> bool:
+        """Resume from the latest checkpoint in ``model_dir``, if any:
+        the parameters (in place), the optimizer's state and the step, on
+        the loop's device. The path by which a preempted job continues
+        instead of starting again at step 0."""
+        steps = checkpoint_steps(self.model_dir)
+        if not steps:
+            return False
+        path = os.path.join(self.model_dir, str(steps[-1]))
+        ckpt = torch.load(os.path.join(path, PARAMS_FILE),
+                          map_location=self.device, weights_only=True)
+        with torch.no_grad():
+            for p, q in zip(tree_leaves(self.state.params),
+                            tree_leaves(ckpt["params"])):
+                p.copy_(q)
+        self.tx.load_state_dict(torch.load(
+            os.path.join(path, OPT_FILE), map_location=self.device,
+            weights_only=True))
+        self.state.step = int(ckpt["step"])
+        logger.info("restored checkpoint at step %d", self.state.step)
+        return True
+
+    # -- the loop ---------------------------------------------------------------
+
     def run(self, data_iter: Iterator[Dict[str, torch.Tensor]],
             on_metrics: Optional[Callable[[StepMetrics], None]] = None) -> TrainState:
-        """Step until ``total_steps``; report every ``log_every`` steps and
-        at the last. ``steps_per_sec`` averages the steps since the last
-        report (reading the loss waits for them)."""
+        """Resume from ``model_dir`` if it holds a checkpoint, then step
+        until ``total_steps``; report every ``log_every`` steps and at the
+        last, save every ``checkpoint_every`` steps and at the end.
+        ``steps_per_sec`` averages the steps since the last report
+        (reading the loss waits for them)."""
         cfg = self.config
+        self.restore()
+        self.start_step = self.state.step
         t0 = time.perf_counter()
         window = self.state.step
         while self.state.step < cfg.total_steps:
             metrics = self.step(next(data_iter))
             step = self.state.step
+            if cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
+                self.save()
             if on_metrics and (step % cfg.log_every == 0 or step == cfg.total_steps):
                 scalar = {k: float(v) for k, v in metrics.items()}
                 dt = time.perf_counter() - t0
@@ -223,4 +322,5 @@ class TrainLoop:
                     steps_per_sec=(step - window) / dt if dt > 0 else 0.0))
                 t0 = time.perf_counter()
                 window = step
+        self.save()
         return self.state

@@ -1,10 +1,13 @@
-"""Paged-KV decode and chunked prefill for the serving engine (one GPU).
+"""Paged-KV decode, prefill and verify for the serving engine (one GPU).
 
-Counterpart of the paged half of ``kubeflow_controller_tpu/models/
-generate.py``, single device (tp=1). The pool's ``[L, n_blocks, bs,
-KVH, D]`` pages are the only KV storage; each slot reads and writes them
-through its row of the block table (sentinel id ``n_blocks`` =
-unallocated).
+Counterpart of ``kubeflow_controller_tpu/models/generate.py``, single
+device (tp=1): the fused block prefill (:func:`prefill` into a
+contiguous :class:`KVCache`, :func:`prefill_into_paged` into one slot's
+pages), the paged decode step, the chunked prefill and the greedy
+speculative verify step (:func:`verify_step_paged`). The pool's ``[L,
+n_blocks, bs, KVH, D]`` pages are the only KV storage of the paged
+paths; each slot reads and writes them through its row of the block
+table (sentinel id ``n_blocks`` = unallocated).
 
 Attention runs one of two ways (``attn_impl``):
 
@@ -15,6 +18,10 @@ Attention runs one of two ways (``attn_impl``):
 * ``"gather"`` (the JAX engine's ``"xla"`` oracle, accepted as an
   alias): gather the dense view
   with ``ops/attention.py:paged_kv_view`` and run a full-row softmax.
+
+The block prefill is not paged: it runs ``ops/attention.py:mha`` over
+the whole prompt (the flash kernels for bf16 CUDA prompts that tile,
+the dense path otherwise), as the JAX package does.
 
 Where JAX returns a new cache, the port writes the pool in place (it is
 most of the device memory a server holds) and returns the same
@@ -33,9 +40,11 @@ from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_controller_tpu_torch.models.transformer import (
     Params, TransformerConfig, rmsnorm, rope,
 )
-from kubeflow_controller_tpu_torch.ops.attention import paged_kv_view
+from kubeflow_controller_tpu_torch.ops.attention import mha, paged_kv_view
+from kubeflow_controller_tpu_torch.ops.flash_attention import rope_full_tables
 from kubeflow_controller_tpu_torch.ops.paged_attention import (
     MASK_VALUE, paged_attention_decode, paged_attention_prefill,
+    paged_attention_verify,
 )
 
 ATTN_IMPLS = ("kernel", "gather")
@@ -58,8 +67,10 @@ def inference_params(
     cfg: TransformerConfig, params: Params, quant: str = "",
 ) -> Params:
     """Prepare master weights for serving: fp32 tensors cast to the
-    compute dtype (others kept). ``quant="int8"`` (weight-only int8)
-    is not yet ported."""
+    compute dtype (others kept), detached from any autograd graph (a
+    training loop's parameters require gradients; serving writes them
+    into the KV pool in place). ``quant="int8"`` (weight-only int8) is
+    not yet ported."""
     if quant:
         raise NotImplementedError(
             f"quant={quant!r} (weight-only int8 serving) is not yet ported")
@@ -67,6 +78,7 @@ def inference_params(
     def cast(x):
         if isinstance(x, dict):
             return {k: cast(v) for k, v in x.items()}
+        x = x.detach()
         return x.to(cfg.dtype) if x.dtype == torch.float32 else x
 
     return cast(params)
@@ -212,6 +224,80 @@ def _ffn(lp: Params, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     gate = F.silu(h @ _w(lp, "w_gate", dt))
     up = h @ _w(lp, "w_up", dt)
     return (gate * up) @ _w(lp, "w_down", dt)
+
+
+# -- fused block prefill --------------------------------------------------------
+
+@dataclass
+class KVCache:
+    """A contiguous cache: every row at the same ``length``."""
+
+    k: torch.Tensor          # [L, B, max_seq, KVH, D]
+    v: torch.Tensor
+    length: int              # valid positions
+
+
+def init_kv_cache(cfg: TransformerConfig, batch: int, max_seq: int,
+                  device: DeviceLike = None) -> KVCache:
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                   v=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                   length=0)
+
+
+def _block_prefill(
+    cfg: TransformerConfig, params: Params, prompt: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """ONE forward pass over the whole prompt ``[B, S]`` from position 0:
+    the last position's fp32 logits ``[B, vocab]`` and every layer's K
+    (rotated, as the cache keeps it) and V, ``[L, B, S, KVH, D]``.
+
+    Attention runs through :func:`mha` with ``impl="auto"`` (``"xla"``
+    when ``cfg.attn_impl == "xla"``): the flash kernels where the JAX
+    package's shape rule holds, the dense path on other prompt lengths.
+    q and k enter un-rotated with rope tables shared by every layer."""
+    b, s = prompt.shape
+    dt = cfg.dtype
+    hd = cfg.head_dim
+    x = params["embed"].to(dt)[prompt.long()]             # [B, S, D]
+    positions = torch.arange(s, dtype=torch.int32,
+                             device=prompt.device).expand(b, s)
+    attn_impl = "xla" if cfg.attn_impl == "xla" else "auto"
+    tables = rope_full_tables(positions, hd, cfg.rope_theta)
+    ks, vs = [], []
+    for layer in range(cfg.n_layers):
+        lp = _layer_params(params, layer)
+        h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+        q = (h @ _w(lp, "wq", dt)).reshape(b, s, cfg.n_heads, hd)
+        k = (h @ _w(lp, "wk", dt)).reshape(b, s, cfg.n_kv_heads, hd)
+        v = (h @ _w(lp, "wv", dt)).reshape(b, s, cfg.n_kv_heads, hd)
+        attn = mha(q, k, v, causal=True, impl=attn_impl, rope_tables=tables)
+        ks.append(rope(k, positions, cfg.rope_theta))   # rotated for the cache
+        vs.append(v)
+        x = x + attn.reshape(b, s, -1) @ _w(lp, "wo", dt)
+        h2 = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+        x = x + _ffn(lp, h2, dt)
+    x = rmsnorm(x[:, -1], params["final_norm"], cfg.norm_eps)
+    return _head_logits(cfg, params, x), torch.stack(ks), torch.stack(vs)
+
+
+def prefill(
+    cfg: TransformerConfig, params: Params, prompt: torch.Tensor,
+    cache: KVCache,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Fused block prefill into a FRESH cache: one forward over the
+    whole prompt ``[B, S]`` (not S decode steps) fills positions
+    ``[0, S)``. Returns the last position's fp32 logits ``[B, vocab]``
+    and the cache (written in place) with ``length = S``."""
+    s = prompt.shape[1]
+    if s > cache.k.shape[2]:
+        raise ValueError(f"prompt {s} exceeds cache capacity {cache.k.shape[2]}")
+    logits, ks, vs = _block_prefill(cfg, params, prompt)
+    cache.k[:, :, :s] = ks.to(cache.k.dtype)
+    cache.v[:, :, :s] = vs.to(cache.v.dtype)
+    cache.length = s
+    return logits, cache
 
 
 # -- decode -------------------------------------------------------------------
@@ -388,3 +474,153 @@ def prefill_chunk_paged(
         cfg, params, rmsnorm(x_last, params["final_norm"], cfg.norm_eps))
     cache.length[slot] = offset + n_real
     return logits, cache
+
+
+def prefill_into_paged(
+    cfg: TransformerConfig, params: Params, prompt: torch.Tensor,
+    cache: PagedKVCache, slot: int,
+) -> Tuple[torch.Tensor, PagedKVCache]:
+    """Block-prefill ONE request's prompt ``[1, S]`` (the fused forward
+    of :func:`prefill`: the same logits and KV bytes) and scatter its S
+    positions into the pages of slot ``slot``'s table row, quantizing on
+    write for int8 pools. Sets ``length[slot] = S`` and ``active[slot] =
+    True``; every other slot's pages are untouched. Returns the last
+    position's fp32 logits ``[1, vocab]`` and the cache."""
+    if prompt.shape[0] != 1:
+        raise ValueError(
+            f"prefill_into_paged admits one request (got batch "
+            f"{prompt.shape[0]})")
+    n_blocks, bs = cache.k.shape[1], cache.k.shape[2]
+    mb = cache.tables.shape[1]
+    s = prompt.shape[1]
+    if s > mb * bs:
+        raise ValueError(f"prompt {s} exceeds slot capacity {mb * bs}")
+    logits, ks, vs = _block_prefill(cfg, params, prompt)
+    trow = cache.tables[slot]
+    cols = torch.arange(s, device=prompt.device)
+    blk = trow[(cols // bs).clamp(0, mb - 1)]
+    off = cols % bs
+    valid = blk < n_blocks                       # sentinel entries drop
+    _pool_write(cache.k, cache.k_scale, None, blk, off, ks[:, 0], valid)
+    _pool_write(cache.v, cache.v_scale, None, blk, off, vs[:, 0], valid)
+    cache.length[slot] = s
+    cache.active[slot] = True
+    return logits, cache
+
+
+# -- greedy speculative verify ---------------------------------------------------
+
+def verify_step_paged(
+    cfg: TransformerConfig, params: Params,
+    draft: torch.Tensor,        # [B, K] int32 proposed continuations
+    draft_len: torch.Tensor,    # [B] int32 in [0, K] valid drafts a row
+    logits: torch.Tensor,       # [B, vocab] carried last-position logits
+    cache: PagedKVCache,
+    eos: torch.Tensor,          # [B] int32 EOS id a row (-1 = none)
+    max_commit: torch.Tensor,   # [B] int32 commit cap, >= 1
+    view_width: Optional[int] = None,
+    attn_impl: str = "kernel",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, PagedKVCache]:
+    """Verify every slot's window ``[t0 = argmax(logits), draft]`` (W =
+    K + 1 positions from ``length[b]``) in ONE forward over the slot's
+    pages, and commit the longest argmax-consistent run.
+
+    Acceptance is the JAX package's: the cumulative prefix of draft
+    tokens equal to the previous position's argmax, capped by
+    ``draft_len``; ``n = min(1 + accepted, max(max_commit, 1))``; cut
+    just after the window's first EOS; ``n = 0`` on inactive rows. Only
+    the accepted positions' K/V reach the pool (rejected and padded
+    positions drop — rollback is never committing), ``length += n``, and
+    the new logits are those at window position ``n - 1``.
+
+    Attention: ``"kernel"`` is ``paged_attention_verify`` (on the card
+    the chunk kernel, B6's verify entry), ``"gather"`` the gathered-view
+    oracle. Returns ``(window [B, W], n [B], new_logits [B, vocab],
+    cache)``; the pool is written in place."""
+    attn_impl = check_attn_impl(attn_impl)
+    b, k_draft = draft.shape
+    w = k_draft + 1
+    dt = cfg.dtype
+    hd = cfg.head_dim
+    n_blocks, bs = cache.k.shape[1], cache.k.shape[2]
+    mb = cache.tables.shape[1]
+    width = mb * bs
+    vw = _occupancy_cap(width, view_width)
+    g = cfg.n_kv_heads
+    rep = cfg.n_heads // g
+    dev = draft.device
+    pos0 = cache.length                                    # [B]
+    t0 = logits.argmax(-1).to(torch.int32)
+    window = torch.cat([t0[:, None], draft.to(torch.int32)], 1)   # [B, W]
+    x = params["embed"].to(dt)[window.long()]              # [B, W, D]
+    arange_w = torch.arange(w, dtype=torch.int32, device=dev)
+    positions = pos0[:, None] + arange_w[None, :]
+    scale = hd ** -0.5
+    if attn_impl == "gather":
+        kview, vview = _capped_kv_views(
+            cache.k, cache.v, cache.tables, width, view_width, cache.k_scale,
+            cache.v_scale, dt)                             # [L, B, vw, G, D]
+        cache_visible = (torch.arange(vw, device=dev)[None, :]
+                         < pos0[:, None])[:, None, None, None, :]
+        causal = arange_w[:, None] >= arange_w[None, :]    # [W, W]
+    k_rows, v_rows = [], []
+    for layer in range(cfg.n_layers):
+        lp = _layer_params(params, layer)
+        h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+        q = (h @ _w(lp, "wq", dt)).reshape(b, w, g * rep, hd)
+        k = (h @ _w(lp, "wk", dt)).reshape(b, w, g, hd)
+        v = (h @ _w(lp, "wv", dt)).reshape(b, w, g, hd)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        qg = q.reshape(b, w, g, rep, hd)
+        if attn_impl == "kernel":
+            attn = paged_attention_verify(
+                qg, k, v, cache.k[layer], cache.v[layer], cache.tables, pos0,
+                k_scale=None if cache.k_scale is None else cache.k_scale[layer],
+                v_scale=None if cache.v_scale is None else cache.v_scale[layer],
+                width=vw, sm_scale=scale, out_dtype=dt)    # [B, W, G, rep, D]
+        else:
+            kc, vc = kview[layer], vview[layer]
+            s_cache = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
+                                   kc.float()) * scale     # [B,G,rep,W,vw]
+            s_cache = torch.where(cache_visible, s_cache, MASK_VALUE)
+            s_new = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
+                                 k.float()) * scale        # [B,G,rep,W,W]
+            s_new = torch.where(causal, s_new, MASK_VALUE)
+            p = torch.softmax(torch.cat([s_cache, s_new], -1), -1).to(dt)
+            attn = (torch.einsum("bgrqk,bkgd->bqgrd", p[..., :vw], vc)
+                    + torch.einsum("bgrqk,bkgd->bqgrd", p[..., vw:], v))
+        x = x + attn.reshape(b, w, -1) @ _w(lp, "wo", dt)
+        h2 = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+        x = x + _ffn(lp, h2, dt)
+        k_rows.append(k)
+        v_rows.append(v)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    all_logits = _head_logits(cfg, params, x)              # [B, W, vocab]
+
+    preds = all_logits.argmax(-1).to(torch.int32)          # [B, W]
+    ok = ((window[:, 1:] == preds[:, :-1])
+          & (arange_w[None, :k_draft] < draft_len[:, None]))
+    acc = torch.cumprod(ok.to(torch.int32), 1).sum(1)
+    n = 1 + acc                                            # [B], 1..K+1
+    n = torch.minimum(n, max_commit.clamp_min(1))
+    is_eos = (window == eos[:, None]) & (eos[:, None] >= 0)
+    eos_pos = torch.argmax(is_eos.to(torch.int32), 1)      # first EOS, or 0
+    n = torch.where(is_eos.any(1) & (eos_pos < n), eos_pos + 1, n)
+    n = torch.where(cache.active, n, 0).to(torch.int32)
+
+    # Commit the accepted positions only: columns length + [0, n) through
+    # the slot's table; rejected, padded and inactive positions drop.
+    wcols = positions.long()                               # [B, W]
+    commit = arange_w[None, :] < n[:, None]
+    blk = cache.tables.gather(1, (wcols // bs).clamp(0, mb - 1))
+    valid = (commit & (wcols < width) & (blk < n_blocks)).reshape(-1)
+    blk, woff = blk.reshape(-1), (wcols % bs).reshape(-1)
+    _pool_write(cache.k, cache.k_scale, None, blk, woff,
+                torch.stack(k_rows).reshape(cfg.n_layers, b * w, g, hd), valid)
+    _pool_write(cache.v, cache.v_scale, None, blk, woff,
+                torch.stack(v_rows).reshape(cfg.n_layers, b * w, g, hd), valid)
+    idx = (n.long() - 1).clamp(0, k_draft)
+    new_logits = all_logits[torch.arange(b, device=dev), idx]
+    cache.length = pos0 + n
+    return window, n, new_logits, cache

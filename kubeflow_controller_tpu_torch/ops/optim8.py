@@ -36,6 +36,7 @@ differently in the two libraries.
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass
 from typing import Callable, List, Union
 
@@ -136,6 +137,29 @@ class AdamW8bit:
             else:
                 self.m.append(zeros)
                 self.v.append(zeros.clone())
+
+    def state_dict(self) -> dict:
+        """The update count and every leaf's moment state, as plain
+        tensors (codes and scales of the quantized leaves)."""
+        def leaf(x):
+            return {"t": x} if isinstance(x, torch.Tensor) else dict(vars(x))
+
+        return {"count": self.count, "m": [leaf(x) for x in self.m],
+                "v": [leaf(x) for x in self.v]}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        """Take ``state`` from :meth:`state_dict` (after :meth:`init` on
+        parameters of the same shapes), copying into the current
+        states."""
+        self.count = int(state["count"])
+        for mine, saved in itertools.chain(zip(self.m, state["m"]),
+                                           zip(self.v, state["v"])):
+            if isinstance(mine, torch.Tensor):
+                mine.copy_(saved["t"])
+            else:
+                for name, t in vars(mine).items():
+                    t.copy_(saved[name])
 
     @staticmethod
     def _store(state, new: torch.Tensor, quantize) -> None:

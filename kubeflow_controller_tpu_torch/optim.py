@@ -109,6 +109,24 @@ class AdamW:
         self.sched.step()
         return lr
 
+    def state_dict(self) -> dict:
+        """The moments and update count of every leaf, and the count the
+        schedule is at."""
+        return {"opt": self.opt.state_dict(), "count": self.sched.last_epoch}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Take ``state`` from :meth:`state_dict` (after :meth:`init` on
+        parameters of the same shapes). The learning rate is read again
+        from this optimizer's schedule at the restored count, as optax
+        reads its schedule at the count in its state."""
+        self.opt.load_state_dict(state["opt"])
+        count = int(state["count"])
+        self.sched.last_epoch = count
+        lr = self.lr(count)
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+        self.sched._last_lr = [lr]
+
 
 def make_optimizer(learning_rate: float, total_steps: int,
                    opt8bit: bool = False) -> Union[AdamW, AdamW8bit]:

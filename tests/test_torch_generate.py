@@ -252,3 +252,80 @@ def test_rmsnorm_and_rope_match_jax():
         ttfm.rope(torch.from_numpy(x), torch.from_numpy(pos), 500000.0).numpy(),
         np.asarray(jtfm.rope(jnp.asarray(x), jnp.asarray(pos), 500000.0)),
         rtol=1e-5, atol=1e-5)
+
+
+# -- fused block prefill (exact prefill) -------------------------------------
+
+@pytest.mark.parametrize("s", [16, 13], ids=["S16", "S13"])
+def test_prefill_matches_jax(s):
+    """The fused block prefill of a [2, S] batch (one forward over the
+    prompt; the dense attention path on the CPU, in both packages):
+    last-position logits and every layer's rotated K and V against JAX's
+    ``prefill``, at a length that tiles the page grid and one that does
+    not, in a cache longer than the prompt."""
+    cfg_j, cfg_t, params_j, params_t = _models()
+    prompt = np.random.default_rng(11).integers(
+        0, cfg_j.vocab_size, (2, s)).astype(np.int32)
+    lj, cj = jax.jit(functools.partial(jgen.prefill, cfg_j))(
+        params_j, jnp.asarray(prompt), jgen.init_kv_cache(cfg_j, 2, 24))
+    cache_t = tgen.init_kv_cache(cfg_t, 2, 24, device="cpu")
+    lt, ct = tgen.prefill(cfg_t, params_t, torch.from_numpy(prompt), cache_t)
+    assert ct is cache_t and ct.length == int(cj.length) == s
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **PALLAS_LOGITS_TOL)
+    for a, b in ((cj.k, ct.k), (cj.v, ct.v)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), **PALLAS_LOGITS_TOL)
+    assert not ct.k[:, :, s:].any()
+
+
+def test_flash_gate_matches_the_jax_dispatch_gate():
+    """``mha``'s auto rule sends a prompt of at least 256 tokens to the
+    flash kernels only at lengths that tile into blocks of at least 128,
+    by the JAX package's own block rule; every other length takes the
+    dense path instead of failing in the kernel."""
+    from kubeflow_controller_tpu.ops import attention as jattn
+    from kubeflow_controller_tpu_torch.ops import attention as tattn
+
+    lengths = list(range(1, 700)) + [1000, 1042, 1024, 2048, 2054, 3000,
+                                     4096, 8192]
+    for s in lengths:
+        for seg in (False, True):
+            assert tattn._flash_block_ok(s, seg) == jattn._flash_block_ok(s, seg), (s, seg)
+    refused = [s for s in lengths if s >= 256 and not tattn._flash_block_ok(s)]
+    assert 1042 in refused and 2054 in refused, refused
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_prefill_into_paged_matches_jax(quant):
+    """One request's prompt (13 tokens: a full page and a partial one)
+    prefilled into slot 1's shuffled pages of a pool with no spare page:
+    logits, the pool's bytes (int8 codes within one code), ``length`` and
+    ``active`` against JAX; slot 0's pages untouched on both sides."""
+    kvq = "int8" if quant else ""
+    cfg_j, cfg_t, params_j, params_t = _models()
+    n_blocks = 2 * MB
+    tables = np.random.default_rng(5).permutation(n_blocks).astype(
+        np.int32).reshape(2, MB)
+    tables[1, 2:] = n_blocks                 # slot 1 reserved 2 pages only
+    cache_j = jgen.init_paged_cache(cfg_j, 2, MB, n_blocks, BS, kvq)
+    cache_j = cache_j._replace(tables=jnp.asarray(tables))
+    cache_t = tgen.init_paged_cache(cfg_t, 2, MB, n_blocks, BS, kvq,
+                                    device="cpu")
+    cache_t.tables = torch.from_numpy(tables.copy())
+    prompt = np.random.default_rng(12).integers(
+        0, cfg_j.vocab_size, (1, 13)).astype(np.int32)
+    lj, cache_j = jax.jit(functools.partial(jgen.prefill_into_paged, cfg_j))(
+        params_j, jnp.asarray(prompt), cache_j, jnp.int32(1))
+    lt, cache_t = tgen.prefill_into_paged(
+        cfg_t, params_t, torch.from_numpy(prompt), cache_t, 1)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **PALLAS_LOGITS_TOL)
+    _assert_pools_close(cache_j, cache_t, quant)
+    assert cache_t.length.tolist() == np.asarray(cache_j.length).tolist() == [0, 13]
+    assert cache_t.active.tolist() == np.asarray(cache_j.active).tolist() == [False, True]
+    assert not cache_t.k[:, tables[0]].any()
+    with pytest.raises(ValueError, match="one request"):
+        tgen.prefill_into_paged(cfg_t, params_t, torch.zeros((2, 4), dtype=torch.int32),
+                                cache_t, 0)
+    with pytest.raises(ValueError, match="exceeds slot capacity"):
+        tgen.prefill_into_paged(cfg_t, params_t,
+                                torch.zeros((1, MB * BS + 1), dtype=torch.int32),
+                                cache_t, 0)

@@ -159,15 +159,27 @@ def test_launch_counters_stay_zero_on_cpu():
     assert qf.LAUNCHES == {"int8_quantize_rows": 0, "int8_matmul": 0}
 
 
-@pytest.mark.parametrize("kwargs", [
+_SERVE_KW = [
     dict(prefill_mode="exact"), dict(temperature=0.7), dict(quant="int8"),
     dict(prefix_cache=True), dict(speculative=True), dict(tp=2),
     dict(n=2), dict(model_dir="/nonexistent"), dict(config="tiny_moe"),
-], ids=lambda kw: next(iter(kw)))
+]
+#: Refused until exact prefill, speculative decoding and checkpoints were
+#: ported: these now serve.
+_SERVE_PORTED = ("prefill_mode", "speculative", "model_dir")
+
+
+@pytest.mark.parametrize("kwargs", _SERVE_KW,
+                         ids=[next(iter(kw)) for kw in _SERVE_KW])
 def test_serve_refuses_what_is_not_ported(kwargs):
     base = dict(config="tiny", batch=1, prompt_len=4, max_new_tokens=2,
                 device="cpu")
     base.update(kwargs)
+    if next(iter(kwargs)) in _SERVE_PORTED:
+        out = serve_lm.serve(**base)
+        assert out["requests"] == 1 and out["tokens_out"] == 2
+        assert out["restored_step"] == -1      # no checkpoint: a fresh init
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         serve_lm.serve(**base)
 

@@ -1,12 +1,14 @@
 """The port's serving engine and ``serve()`` held against the JAX engine:
 greedy streams token-identical on pinned tiny-config workloads.
 
-The JAX side runs ``ServingEngine(prefill_mode="bucketed",
-attn_impl="pallas")`` (Pallas kernels in interpret mode on the CPU); the
-port runs its defaults (bucketed prefill, ``attn_impl="kernel"``, whose
-wrappers take their plain versions on CPU tensors). Workloads carry more
-requests than slots (slot reuse, requeued admission), prompts that need
-a padded tail chunk, EOS and budget retirement, and fp and int8 KV.
+The JAX side runs ``ServingEngine(attn_impl="pallas")`` (Pallas kernels
+in interpret mode on the CPU); the port runs ``attn_impl="kernel"``,
+whose wrappers take their plain versions on CPU tensors. Both run the
+same ``prefill_mode``: bucketed where a test says so, else exact (the
+default of both). Workloads carry more requests than slots (slot reuse,
+requeued admission), prompts that need a padded tail chunk, EOS and
+budget retirement, and fp and int8 KV. The speculative engine's tests
+are in ``test_torch_spec_decode.py``.
 """
 
 import json
@@ -64,10 +66,12 @@ def _workload(eos_id):
             for n, m in zip(PROMPT_LENS, BUDGETS)]
 
 
-def _run_port(cfg, params, work, kv_quant, attn_impl="kernel"):
+def _run_port(cfg, params, work, kv_quant, attn_impl="kernel",
+              prefill_mode="bucketed"):
     eng = ServingEngine(cfg, params, n_slots=3, max_seq=MAX_SEQ,
                         block_size=BS, kv_quant=kv_quant,
-                        attn_impl=attn_impl, device="cpu")
+                        prefill_mode=prefill_mode, attn_impl=attn_impl,
+                        device="cpu")
     out = eng.run([Request(rid=i, prompt=p, max_new_tokens=m, eos_id=e)
                    for i, (p, m, e) in enumerate(work)])
     assert eng.stats.submitted == eng.stats.finished == len(work)
@@ -75,9 +79,9 @@ def _run_port(cfg, params, work, kv_quant, attn_impl="kernel"):
     return {c.rid: (c.tokens, c.finish_reason) for c in out}
 
 
-def _run_jax(cfg, params, work, kv_quant):
+def _run_jax(cfg, params, work, kv_quant, prefill_mode="bucketed"):
     eng = JEngine(cfg, params, n_slots=3, max_seq=MAX_SEQ,
-                  prefill_mode="bucketed", block_size=BS,
+                  prefill_mode=prefill_mode, block_size=BS,
                   kv_quant=kv_quant, attn_impl="pallas")
     out = eng.run([JRequest(rid=i, prompt=p, max_new_tokens=m, eos_id=e)
                    for i, (p, m, e) in enumerate(work)])
@@ -104,6 +108,49 @@ def test_engine_streams_equal_jax_engine(kv_quant):
     assert got == want
     reasons = {r for _, r in got.values()}
     assert reasons == {"eos", "length"}, reasons
+
+
+@pytest.mark.parametrize("kv_quant", ["", "int8"], ids=["fp", "int8"])
+def test_exact_engine_streams_equal_jax_exact_engine(kv_quant):
+    """Exact prefill (the default of both engines): each admission runs
+    the whole prompt in one forward into the slot's pages. Token for
+    token the JAX engine's streams in exact mode, for fp and int8 KV,
+    with EOS and budget retirement and slot reuse; with fp KV, the same
+    streams as bucketed prefill."""
+    cfg_j, cfg_t, params_j, params_t = _weights()
+    eos = _pick_eos(_run_port(cfg_t, params_t, _workload(None), kv_quant,
+                              prefill_mode="exact"))
+    work = _workload(eos)
+    got = _run_port(cfg_t, params_t, work, kv_quant, prefill_mode="exact")
+    assert got == _run_jax(cfg_j, params_j, work, kv_quant, "exact")
+    assert {r for _, r in got.values()} == {"eos", "length"}
+    if not kv_quant:
+        # With int8 pages the two modes are different functions, in the
+        # JAX package too: a bucketed chunk attends the earlier chunks'
+        # quantized K/V, the exact forward the whole prompt's unquantized.
+        assert got == _run_port(cfg_t, params_t, work, kv_quant)
+
+
+def test_exact_admission_makes_the_slot_live_at_once():
+    """An exact admission prefills in the step that admits and runs no
+    prefill chunk; the slot's first token comes from the next dispatch.
+    A max_seq off the block grid shrinks the page size to its largest
+    power-of-two divisor, as in the JAX engine."""
+    _, cfg_t, _, params_t = _weights()
+    p, m, _ = _workload(None)[1]
+    eng = ServingEngine(cfg_t, params_t, n_slots=2, max_seq=MAX_SEQ,
+                        block_size=BS, device="cpu")
+    assert eng.prefill_mode == "exact"
+    eng.submit(Request(rid=0, prompt=p, max_new_tokens=m))
+    eng.step()
+    assert eng.slots[0] is not None and eng.slots[0].prefill is None
+    assert bool(eng.cache.active[0]) and int(eng.cache.length[0]) == p.size
+    assert eng.stats.prefill_chunks == 0
+    out = eng.run([])
+    assert len(out[0].tokens) == m and eng.stats.prefill_chunks == 0
+    odd = ServingEngine(cfg_t, params_t, n_slots=1, max_seq=24,
+                        block_size=16, device="cpu")
+    assert (odd.block_size, odd.max_seq) == (8, 24)
 
 
 def test_gather_and_kernel_paths_stream_equal():
@@ -142,7 +189,7 @@ def test_serve_streams_equal_jax_engine(tmp_path):
     res = serve_lm.serve(config="tiny", batch=batch, prompt_len=prompt_len,
                          max_new_tokens=max_new, slots=slots, seed=4,
                          eos_id=eos, block_size=BS, device="cpu",
-                         output_file=str(out_file))
+                         prefill_mode="bucketed", output_file=str(out_file))
     rows = [json.loads(line) for line in out_file.read_text().splitlines()]
     got = {r["rid"]: r["completion"] for r in rows}
     assert got == want
@@ -152,13 +199,29 @@ def test_serve_streams_equal_jax_engine(tmp_path):
 
 
 def test_engine_refuses_what_is_not_ported():
+    """What the port does not serve yet raises "not yet ported"; exact
+    prefill and greedy speculative decoding (refused before they were
+    ported) now build engines, and the prefix cache with exact prefill
+    raises the JAX engine's ValueError."""
     _, cfg_t, _, params_t = _weights()
-    for kw in (dict(prefill_mode="exact"), dict(prefix_cache=True),
-               dict(spec_decode=True), dict(temperature=0.5), dict(tp=2),
-               dict(host_kv_mb=1.0)):
+    for kw in (dict(prefix_cache=True, prefill_mode="bucketed"),
+               dict(spec_decode=True, proposer="radix"),
+               dict(temperature=0.5), dict(tp=2), dict(host_kv_mb=1.0)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16,
                           device="cpu", **kw)
+    with pytest.raises(ValueError, match="prefix_cache requires"):
+        ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16,
+                      prefix_cache=True, device="cpu")
+    for kw in (dict(prefill_mode="exact"), dict(spec_decode=True),
+               dict(spec_decode=True, prefill_mode="bucketed", draft_k=2)):
+        eng = ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16,
+                            device="cpu", **kw)
+        assert eng.prefill_mode == kw.get("prefill_mode", "exact")
+        assert eng.spec_decode == kw.get("spec_decode", False)
+    with pytest.raises(ValueError, match="draft_k"):
+        ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16,
+                      spec_decode=True, draft_k=0, device="cpu")
 
 
 def test_drain_and_deadline_retire_with_partial_output():
@@ -167,7 +230,8 @@ def test_drain_and_deadline_retire_with_partial_output():
     _, cfg_t, _, params_t = _weights()
     now = [0.0]
     eng = ServingEngine(cfg_t, params_t, n_slots=2, max_seq=MAX_SEQ,
-                        block_size=BS, clock=lambda: now[0], device="cpu")
+                        block_size=BS, clock=lambda: now[0],
+                        prefill_mode="bucketed", device="cpu")
     for i, (p, m, _) in enumerate(_workload(None)):
         eng.submit(Request(rid=i, prompt=p, max_new_tokens=m))
     eng.step()
@@ -186,7 +250,8 @@ def test_deadline_retires_in_flight_and_sheds_queued():
     _, cfg_t, _, params_t = _weights()
     now = [0.0]
     eng = ServingEngine(cfg_t, params_t, n_slots=1, max_seq=MAX_SEQ,
-                        block_size=BS, clock=lambda: now[0], device="cpu")
+                        block_size=BS, clock=lambda: now[0],
+                        prefill_mode="bucketed", device="cpu")
     p, m, _ = _workload(None)[1]
     eng.submit(Request(rid=0, prompt=p, max_new_tokens=m, deadline_s=5.0))
     eng.submit(Request(rid=1, prompt=p, max_new_tokens=m, deadline_s=1.0))
@@ -210,10 +275,17 @@ def test_cli_serves_on_cpu_and_refuses_unported_flags(tmp_path):
     rows = [json.loads(line) for line in out.read_text().splitlines()]
     assert [r["rid"] for r in rows] == [0, 1, 2]
     assert all(len(r["completion"]) == 4 for r in rows)
-    for flag in (["--temperature", "0.5"], ["--speculative"], ["--tp", "2"],
-                 ["--quant", "int8"], ["--prefill-mode", "exact"]):
+    for flag in (["--temperature", "0.5"], ["--tp", "2"],
+                 ["--quant", "int8"], ["--speculative", "--proposer", "radix"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             serve_lm.main(argv + flag)
+    # Refused until ported; the same completions now, by every route.
+    for flag in (["--speculative"], ["--speculative", "--draft-k", "2"],
+                 ["--prefill-mode", "bucketed"],
+                 ["--model-dir", str(tmp_path / "empty")]):
+        assert serve_lm.main(argv + flag) == 0
+        again = [json.loads(line) for line in out.read_text().splitlines()]
+        assert again == rows, flag
 
 
 def test_admission_control_rejects_with_typed_reasons():
@@ -247,7 +319,8 @@ def test_small_pool_requeues_until_pages_free():
     work = _workload(None)
     want = _run_port(cfg_t, params_t, work, "")
     eng = ServingEngine(cfg_t, params_t, n_slots=3, max_seq=MAX_SEQ,
-                        block_size=BS, kv_pool_blocks=4, device="cpu")
+                        block_size=BS, kv_pool_blocks=4,
+                        prefill_mode="bucketed", device="cpu")
     out = eng.run([Request(rid=i, prompt=p, max_new_tokens=m)
                    for i, (p, m, _) in enumerate(work)])
     assert {c.rid: (c.tokens, c.finish_reason) for c in out} == want
@@ -257,12 +330,23 @@ def test_small_pool_requeues_until_pages_free():
 @pytest.mark.parametrize("env", [
     dict(model_dir="/nonexistent"), dict(num_processes=2, process_id=1),
 ], ids=["ctx_model_dir", "num_processes=2"])
-def test_serve_refuses_the_job_env_it_cannot_honour(env):
+def test_serve_refuses_the_job_env_it_cannot_honour(env, caplog):
+    """A multi-process job is refused. A job's model dir (refused until
+    checkpoints were ported) is read: with no checkpoint in it, serve()
+    warns and serves the fresh init, reporting restored_step -1, as the
+    JAX entry point does."""
     from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        serve_lm.serve(ProcessContext(**env), config="tiny", batch=2,
-                       prompt_len=9, max_new_tokens=2, device="cpu")
+    kw = dict(config="tiny", batch=2, prompt_len=9, max_new_tokens=2,
+              device="cpu")
+    if "model_dir" not in env:
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            serve_lm.serve(ProcessContext(**env), **kw)
+        return
+    with caplog.at_level("WARNING", logger="tpujob.serve_lm_torch"):
+        res = serve_lm.serve(ProcessContext(**env), **kw)
+    assert res["restored_step"] == -1 and res["requests"] == 2
+    assert "no checkpoint found" in caplog.text
 
 
 def test_attn_impl_takes_the_reference_names(tmp_path):
@@ -325,22 +409,23 @@ def _off_default(action):
 
 
 #: (entry point, the reference's defaults the port keeps on purpose
-#: different: its attention kernels, and bucketed prefill until exact
-#: prefill is ported)
+#: different: its attention kernels)
 PARSERS = {
-    "serve_lm": {"--attn-impl": "kernel", "--prefill-mode": "bucketed"},
+    "serve_lm": {"--attn-impl": "kernel"},
     "lm": {},
 }
 
 
 @pytest.mark.parametrize("entry", sorted(PARSERS))
 def test_cli_takes_every_reference_option_and_refuses_off_default_values(
-        entry, monkeypatch):
+        entry, monkeypatch, tmp_path):
     """Every option of the JAX entry point's parser is an option of the
     port's, with the same default (but for the deliberate differences in
     PARSERS), so a manifest written for the JAX entry point parses; each
     option the port does not serve yet is refused with "not yet ported"
-    at any value off its default."""
+    at any value off its default. The options refused until exact
+    prefill, checkpoints and speculative decoding were ported now serve
+    off their defaults."""
     import importlib
 
     jmain = importlib.import_module(
@@ -355,16 +440,23 @@ def test_cli_takes_every_reference_option_and_refuses_off_default_values(
     if entry == "serve_lm":
         unported = [port["--" + k.replace("_", "-") if k != "mesh_devices"
                          else "--mesh"] for k in tmod.NOT_YET_PORTED_FLAGS]
-        unported.append(port["--prefill-mode"])
+        unported.append(port["--proposer"])
         base = ["--config", "tiny", "--device", "cpu", "--batch", "1",
                 "--prompt-len", "9", "--max-new-tokens", "1", "--block-size", "8"]
+        ported = [["--model-dir", str(tmp_path)], ["--speculative"],
+                  _off_default(port["--draft-k"]),
+                  _off_default(port["--prefill-mode"])]
+        assert ported[-1] == ["--prefill-mode", "bucketed"]
     else:
         unported = [port[o] for o in ("--tp", "--fsdp", "--sp")]
         base = ["--config", "tiny", "--device", "cpu", "--total-steps", "1",
                 "--batch", "1", "--seq-len", "32"]
+        ported = []
     off = [_off_default(a) for a in unported]
     if entry == "lm":
         off.append(["--attn", "ring"])
     for flag in off:
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tmod.main(base + flag)
+    for flag in ported:
+        assert tmod.main(base + flag) == 0, flag

@@ -426,19 +426,37 @@ def test_grad_accum_refuses_indivisible_batch():
         loop.step({"tokens": torch.zeros((3, 9), dtype=torch.int32)})
 
 
-@pytest.mark.parametrize("kw", [
-    dict(model_dir="/nonexistent"), dict(stateful=True),
-    dict(eval_fn=lambda p, b: {}), dict(config=dict(steps_per_call=2)),
-    dict(config=dict(checkpoint_every=5)), dict(config=dict(profile_dir="/tmp/x")),
+@pytest.mark.parametrize("kw,ported", [
+    (dict(model_dir="/nonexistent"), True), (dict(stateful=True), False),
+    (dict(eval_fn=lambda p, b: {}), False),
+    (dict(config=dict(steps_per_call=2)), False),
+    (dict(config=dict(checkpoint_every=5)), True),
+    (dict(config=dict(profile_dir="/tmp/x")), False),
+    (dict(config=dict(async_checkpoint=True)), False),
 ], ids=["model_dir", "stateful", "eval_fn", "steps_per_call", "checkpoint_every",
-        "profile_dir"])
-def test_train_loop_refuses_what_is_not_ported(kw):
+        "profile_dir", "async_checkpoint"])
+def test_train_loop_refuses_what_is_not_ported(kw, ported):
+    """Options not ported yet raise "not yet ported" at construction;
+    ``model_dir`` and ``checkpoint_every``, refused until checkpoints
+    were ported, build a loop that keeps them (and touches no file before
+    it runs: test_torch_checkpoint.py runs them)."""
     cfg = ttf.tiny_config()
     kw = dict(kw)
     conf = ttrain.TrainLoopConfig(**kw.pop("config", {}))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttrain.TrainLoop(init_fn=ttf.make_init_fn(cfg), loss_fn=ttf.make_loss_fn(cfg),
-                         optimizer=optim.AdamW(1e-3), config=conf, device="cpu", **kw)
+
+    def build():
+        return ttrain.TrainLoop(
+            init_fn=ttf.make_init_fn(cfg), loss_fn=ttf.make_loss_fn(cfg),
+            optimizer=optim.AdamW(1e-3), config=conf, device="cpu", **kw)
+
+    if not ported:
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            build()
+        return
+    loop = build()
+    assert loop.model_dir == kw.get("model_dir", "")
+    assert loop.config.checkpoint_every == conf.checkpoint_every
+    assert not os.path.exists("/nonexistent")
 
 
 def test_train_loop_reports_loss_accuracy_perplexity_and_rate():
@@ -496,15 +514,31 @@ def test_lm_train_reads_a_corpus(tmp_path):
     assert out["final_step"] == 2
 
 
-@pytest.mark.parametrize("kw", [
-    dict(tp=2), dict(fsdp=2), dict(sp=2), dict(attn="ring"),
-    dict(model_dir="/nonexistent"), dict(checkpoint_every=5),
-    dict(config="tiny_moe"), dict(config="llama3_70b"),
-], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()))
-def test_lm_train_refuses_what_is_not_ported(kw):
+_LM_KW = [dict(tp=2), dict(fsdp=2), dict(sp=2), dict(attn="ring"),
+          dict(model_dir="/nonexistent"), dict(checkpoint_every=5),
+          dict(config="tiny_moe"), dict(config="llama3_70b")]
+
+
+@pytest.mark.parametrize(
+    "kw", _LM_KW, ids=["-".join(f"{k}={v}" for k, v in kw.items())
+                       for kw in _LM_KW])
+def test_lm_train_refuses_what_is_not_ported(kw, tmp_path):
+    """What the port does not train yet raises "not yet ported".
+    ``model_dir`` and ``checkpoint_every`` (refused until checkpoints
+    were ported) train: into a model dir (here under tmp_path, not the
+    id's path), saving there every ``checkpoint_every`` steps and at the
+    end."""
     base = dict(config="tiny", total_steps=2, per_data_shard_batch=1,
                 seq_len=32, device="cpu")
     base.update(kw)
+    if "model_dir" in kw or "checkpoint_every" in kw:
+        if "model_dir" in kw:
+            base["model_dir"] = str(tmp_path)
+        out = tlm.train(**base)
+        assert out["final_step"] == 2 and out["start_step"] == 0
+        want = [2] if "model_dir" in kw else []
+        assert ttrain.checkpoint_steps(str(tmp_path)) == want
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tlm.train(**base)
 
@@ -512,12 +546,23 @@ def test_lm_train_refuses_what_is_not_ported(kw):
 @pytest.mark.parametrize("env", [
     dict(model_dir="/nonexistent"), dict(num_processes=2, process_id=1),
 ], ids=["ctx_model_dir", "num_processes=2"])
-def test_lm_train_refuses_the_job_env_it_cannot_honour(env):
-    """A TPUJob's model dir (the reference trains into it and saves at the
-    end) and a multi-process job (the reference syncs gradients across
-    processes) are refused, never dropped without a word."""
+def test_lm_train_refuses_the_job_env_it_cannot_honour(env, tmp_path):
+    """A multi-process job (the reference syncs gradients across
+    processes) is refused, never dropped without a word. A TPUJob's
+    model dir (refused until checkpoints were ported; here under
+    tmp_path, not the id's path) is honoured as the reference honours
+    it: the job trains into it, saves at the end, and a rerun resumes
+    there."""
     from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
 
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tlm.train(ProcessContext(**env), config="tiny", total_steps=2,
-                  per_data_shard_batch=1, seq_len=32, device="cpu")
+    kw = dict(config="tiny", per_data_shard_batch=1, seq_len=32, device="cpu")
+    if "model_dir" not in env:
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            tlm.train(ProcessContext(**env), total_steps=2, **kw)
+        return
+    ctx = ProcessContext(model_dir=str(tmp_path))
+    assert tlm.train(ctx, total_steps=2, **kw)["final_step"] == 2
+    assert ttrain.checkpoint_steps(str(tmp_path)) == [2]
+    out = tlm.train(ctx, total_steps=3, **kw)
+    assert (out["start_step"], out["final_step"]) == (2, 3)
+    assert ttrain.checkpoint_steps(str(tmp_path)) == [2, 3]
