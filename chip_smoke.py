@@ -58,8 +58,18 @@ Phases, in order; any failure exits non-zero before the result line:
    prefill of the flagship at prompt lengths on both sides of the flash
    gate (256, 300: B1; 1042: the dense path) against the dense path; the tiny
    config in fp32, card vs CPU, bucketed and exact, without and with
-   speculation (an oracle proposer: drafts must be accepted); then, on
-   one set of llama3_8b weights,
+   speculation (an oracle proposer: drafts must be accepted); per-request
+   sampling (temperature 0.8, top_k 50, top_p 0.95, seed 0): the 16
+   requests sampled in exact prefill beside the greedy run, then in
+   reverse order (each request must commit the same stream), 4 prompts
+   x 4 copy-on-write forks (shared pages, boundary copies and every
+   page back, predicted exactly), sampled speculation on the tiled
+   prompts by lookup and by oracle drafts (B6 through the sampled
+   verifier), 4 requests under a ``re:`` grammar (every token admissible
+   on replay), ``sample_step_slots`` at [8, 128256] card vs CPU with its
+   ms and launches beside the argmax's, and the tiny config's sampled
+   traffic (greedy and sampled rows, n=2, a regex mask, sampled
+   speculation) card vs CPU; then, on one set of llama3_8b weights,
    a profile of one decode micro-step and one prefill chunk (wall time,
    device time by kernel, idle share) and one request's first-token and
    next-token logits under ``attn_impl="kernel"`` and ``"gather"``;
@@ -1069,12 +1079,12 @@ def _reset_serve_launches():
     fa.reset_launches()
 
 
-def _serve_run(label, smi, batch, **kw):
+def _serve_run(label, smi, batch, n=1, prompt_len=256, **kw):
     """One ``serve()`` at llama3_8b (full width and depth, bf16, 8 slots,
-    256-token prompts, 32 new tokens, pages of 16) with every serving
-    kernel's count zeroed just before and read just after. Checks the
-    completions (``batch`` of 32 in-vocab tokens) and returns (summary,
-    launches, {rid: tokens})."""
+    ``prompt_len``-token prompts, 32 new tokens, pages of 16) with every
+    serving kernel's count zeroed just before and read just after. Checks
+    the completions (``batch * n`` of 32 in-vocab tokens) and returns
+    (summary, launches, {rid: tokens}; {(rid, gen): tokens} when n > 1)."""
     import torch
 
     from kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm import serve
@@ -1084,13 +1094,14 @@ def _serve_run(label, smi, batch, **kw):
     out_file = os.path.join(OUT_DIR, f"serve_{label}.jsonl")
     torch.cuda.synchronize()
     _reset_serve_launches()
-    res = serve(config="llama3_8b", batch=batch, slots=8, prompt_len=256,
-                max_new_tokens=32, block_size=16, output_file=out_file, **kw)
+    res = serve(config="llama3_8b", batch=batch, slots=8, prompt_len=prompt_len,
+                max_new_tokens=32, block_size=16, output_file=out_file, n=n,
+                **kw)
     torch.cuda.synchronize()
     launches = _serve_launches()
     comps = _read_completions(out_file)
-    if len(comps) != batch or res["requests"] != batch:
-        raise AssertionError(f"serve[{label}]: {len(comps)} of {batch} completions")
+    if len(comps) != batch * n or res["requests"] != batch * n:
+        raise AssertionError(f"serve[{label}]: {len(comps)} of {batch * n} completions")
     for c in comps:
         toks = c["completion"]
         if len(toks) != 32 or not all(0 <= t < vocab for t in toks):
@@ -1101,8 +1112,9 @@ def _serve_run(label, smi, batch, **kw):
         f"ttft_p95 {res['ttft_p95_ms']} ms, tpot_p50 {res['tpot_p50_ms']} ms, "
         f"tokens/s {res['tokens_per_sec']}, wall {res['wall_s']} s, "
         f"prefill chunks {res['prefill_chunks']}, launches "
-        f"{ {k: n for k, n in launches.items() if n} }")
-    return res, launches, {c["rid"]: c["completion"] for c in comps}
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return res, launches, {((c["rid"], c["gen"]) if n > 1 else c["rid"]):
+                           c["completion"] for c in comps}
 
 
 def _tiled_prompts(path, vocab, n, seed, period=16, reps=16):
@@ -1236,6 +1248,79 @@ def tiny_serve_check():
             f"without and with speculative decoding, commit the same "
             f"{len(base)} greedy streams; drafts accepted cuda "
             f"{accepted[(True, 'cuda')]}, cpu {accepted[(True, 'cpu')]}")
+    tiny_sampled_check(cfg, cpu_params, prompts)
+
+
+def tiny_sampled_check(cfg, cpu_params, prompts):
+    """Sampled traffic on the tiny config, fp32, card vs CPU: greedy and
+    sampled rows mixed (every knob), one request with n = 2 and one under
+    a regex mask, in bucketed and exact prefill, without and with sampled
+    speculative decoding (the oracle proposer drafting each request's own
+    plain stream). Every stream must be identical on the card and the
+    CPU and with speculation, and drafts must be accepted: the draws are
+    keyed by (seed, gen, position) on both, and TF32 is off."""
+    import re
+
+    from kubeflow_controller_tpu_torch.dataplane import sampling, spec_decode
+    from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
+        Request, ServingEngine,
+    )
+
+    class Oracle(_OracleProposer, spec_decode.DraftProposer):
+        pass
+
+    mask = sampling.make_mask("re:[0-9a-f]+", cfg.vocab_size)
+    knobs = [None, (0.9, 20, 0.9, 1), (1.3, 0, 1.0, 1), (0.7, 5, 1.0, 2),
+             (1.0, 0, 0.8, 1), None, (0.8, 0, 1.0, 1), (0.9, 10, 0.95, 1)]
+
+    def requests():
+        out = []
+        for i, (p, k) in enumerate(zip(prompts, knobs)):
+            sp = None
+            if k is not None:
+                t, tk, tp, n = k
+                sp = sampling.SamplingParams(
+                    temperature=t, top_k=tk, top_p=tp, n=n, seed=17 * i,
+                    logit_mask=mask if i == 6 else None)
+            out.append(Request(rid=i, prompt=p, max_new_tokens=12, params=sp))
+        return out
+
+    for mode in ("bucketed", "exact"):
+        streams, accepted = {}, {}
+        for spec in (False, True):
+            for device in ("cuda", "cpu"):
+                params = {k: ({n: t.to(device) for n, t in v.items()}
+                              if isinstance(v, dict) else v.to(device))
+                          for k, v in cpu_params.items()}
+                kw = {}
+                if spec:
+                    plain = streams[(False, "cpu")]
+                    kw = dict(spec_decode=True, draft_k=4, proposer=Oracle(
+                        prompts, {r: t for (r, g), t in plain.items() if g == 0}))
+                eng = ServingEngine(cfg, params, n_slots=3, max_seq=32,
+                                    block_size=8, prefill_mode=mode,
+                                    device=device, **kw)
+                out = eng.run(requests())
+                if eng.pool.used_blocks:
+                    raise AssertionError(f"serve[tiny sampled] {mode}: pages leaked")
+                streams[(spec, device)] = {(c.rid, c.gen): c.tokens for c in out}
+                accepted[(spec, device)] = eng.stats.draft_accepted
+        base = streams[(False, "cpu")]
+        for key, got in streams.items():
+            if got != base:
+                raise AssertionError(f"serve[tiny sampled] {mode}: streams of "
+                                     f"{key} {got} != plain cpu streams {base}")
+        strs = sampling.default_token_strs(cfg.vocab_size)
+        if (not re.fullmatch("[0-9a-f]+", "".join(strs[t] for t in base[(6, 0)]))
+                or base[(3, 0)] == base[(3, 1)] or len(base) != 9):
+            raise AssertionError(f"serve[tiny sampled] {mode}: {base}")
+        if not (accepted[(True, "cuda")] > 0 and accepted[(True, "cpu")] > 0):
+            raise AssertionError(f"serve[tiny sampled] {mode}: no draft accepted "
+                                 f"{accepted}")
+        log(f"serve[tiny sampled] fp32 {mode}: greedy and sampled rows, n=2 and "
+            f"a regex mask, without and with sampled speculation: the card and "
+            f"the cpu commit the same {len(base)} streams; drafts accepted cuda "
+            f"{accepted[(True, 'cuda')]}, cpu {accepted[(True, 'cpu')]}")
 
 
 def exact_prefill_lengths_check(smi):
@@ -1284,12 +1369,304 @@ def exact_prefill_lengths_check(smi):
 SPEC_FLIP_GAP_OF_RMS = 2 * LOGITS_REL_L2_TOL
 
 
+# The sampled llama3_8b runs' knobs (chat-style traffic) and the
+# grammar run's pattern.
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95, seed=0)
+GRAMMAR = "re:[0-9]+"
+
+
+def _count_launches(fn, iters: int = 5) -> float:
+    """CUDA kernel launches of one call of ``fn`` (``torch.profiler``'s
+    kernel events over ``iters`` calls, divided by ``iters``)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(evt.count for evt in prof.key_averages()
+            if evt.device_type == DeviceType.CUDA
+            and not getattr(evt, "is_user_annotation", False)
+            and not evt.key.startswith("Memcpy"))
+    return n / iters
+
+
+def sampling_bench(smi):
+    """``sample_step_slots`` at the served batch (8 rows x llama3_8b's
+    128,256-token vocab), top_k 50, top_p 0.95, on the card: ms a call
+    and kernel launches a call, beside the greedy argmax's; the parts the
+    sampled decode chunk runs (the chunk's noise once, the per-row draw
+    each micro-step) alike. The card's tokens must equal the CPU's on the
+    same inputs (both draw under the same keys; the report gives the
+    smallest top-2 gap of gumbel + filtered logits)."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.models import generate as gen
+
+    b, v, chunk = 8, 128256, 4
+    g = torch.Generator().manual_seed(5)
+    cpu = dict(
+        logits=torch.randn(b, v, generator=g) * 4,
+        temp=torch.full((b,), SAMPLED["temperature"]),
+        top_k=torch.full((b,), SAMPLED["top_k"], dtype=torch.int32),
+        top_p=torch.full((b,), SAMPLED["top_p"]),
+        seed=torch.arange(b, dtype=torch.int32),
+        gen=torch.zeros(b, dtype=torch.int32),
+        pos=torch.arange(b, dtype=torch.int32) * 7)
+    dev = {k: t.cuda() for k, t in cpu.items()}
+
+    def draw(d):
+        return gen.sample_step_slots(d["logits"], d["temp"], d["top_k"],
+                                     d["top_p"], d["seed"], d["gen"], d["pos"])
+
+    got, want = draw(dev).cpu(), draw(cpu)
+    filt = gen._filter_logits_rows(cpu["logits"], cpu["temp"], cpu["top_k"],
+                                   cpu["top_p"])
+    z = gen.sampling_noise(gen.generation_keys(cpu["seed"], cpu["gen"]),
+                           cpu["pos"], v) + filt
+    top2 = z.topk(2, -1).values
+    gap = float((top2[:, 0] - top2[:, 1]).min())
+    if not torch.equal(got, want):
+        raise AssertionError(f"sample_step_slots card {got.tolist()} != cpu "
+                             f"{want.tolist()} (smallest top-2 gap {gap})")
+    steps = torch.arange(chunk + 1, dtype=torch.int32, device="cuda")
+    # The engine hashes each lane's generation key on the host.
+    key = tuple(k.cuda() for k in gen.generation_keys(cpu["seed"], cpu["gen"]))
+    noise = gen.sampling_noise(key, dev["pos"][None] + steps[:, None], v)
+    parts = {
+        "sample_step_slots": lambda: draw(dev),
+        "argmax": lambda: dev["logits"].argmax(-1),
+        "chunk_noise": lambda: gen.sampling_noise(
+            key, dev["pos"][None] + steps[:, None], v),
+        "draw_with_noise": lambda: gen.sample_with_noise(
+            dev["logits"], dev["temp"], dev["top_k"], dev["top_p"], noise[0]),
+    }
+    rec = {"shape": [b, v], "decode_chunk": chunk, "smallest_top2_gap": gap}
+    for name, fn in parts.items():
+        rec[name] = {"ms": _time_ms(fn), "launches": _count_launches(fn)}
+    # A sampled micro-step adds the draw over the greedy argmax, and the
+    # chunk's noise shared by its decode_chunk micro-steps (and the
+    # speculative peek).
+    rec["added_launches_per_micro_step"] = (
+        rec["draw_with_noise"]["launches"] - rec["argmax"]["launches"]
+        + rec["chunk_noise"]["launches"] / chunk)
+    rec["added_ms_per_micro_step"] = (
+        rec["draw_with_noise"]["ms"] - rec["argmax"]["ms"]
+        + rec["chunk_noise"]["ms"] / chunk)
+    log(f"sampling {json.dumps(rec)} | {smi}")
+    return rec
+
+
+def _mask_replay_errors(spec, vocab, streams):
+    """(key, position, token) of every committed token a fresh automaton
+    of ``spec`` does not admit on replay."""
+    from kubeflow_controller_tpu_torch.dataplane import sampling
+
+    bad = []
+    for key, toks in streams.items():
+        mask = sampling.make_mask(spec, vocab)
+        st = mask.init_state()
+        for i, t in enumerate(toks):
+            if not mask.allowed(st)[t]:
+                bad.append((key, i, t))
+                break
+            st = mask.advance(st, t)
+    return bad
+
+
+def sampled_oracle_spec(smi, prompts, streams, device="cuda"):
+    """Sampled speculative decoding at llama3_8b through the engine, on
+    ``serve()``'s weights (seed 0) and the sampled run's 16 requests,
+    with a proposer that drafts each request's own plain sampled stream:
+    the sampled verifier (B6's verify entry, once per layer per verify
+    step) must run and accept drafts. A stream may leave the plain one
+    where bf16 verify (B6) and decode (B5) logits move a draw; the count
+    of equal streams is reported. Returns (summary, launches)."""
+    import gc
+
+    import torch
+
+    from kubeflow_controller_tpu_torch.dataplane import spec_decode
+    from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
+        Request, ServingEngine,
+    )
+    from kubeflow_controller_tpu_torch.models import generate as gen
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+
+    class Oracle(_OracleProposer, spec_decode.DraftProposer):
+        pass
+
+    cfg = tfm.llama3_8b_config()
+    params = gen.inference_params(cfg, tfm.init_params(
+        cfg, seed=SAMPLED["seed"], device=device, dtype=cfg.dtype))
+    eng = ServingEngine(cfg, params, n_slots=8, max_seq=256 + 32,
+                        block_size=16, spec_decode=True, draft_k=4,
+                        proposer=Oracle(prompts, streams), device=device,
+                        **SAMPLED)
+    torch.cuda.synchronize()
+    _reset_serve_launches()
+    t = time.perf_counter()
+    out = eng.run([Request(rid=i, prompt=p, max_new_tokens=32)
+                   for i, p in enumerate(prompts)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = _serve_launches()
+    res = eng.stats.summary(wall_s=wall)
+    got = {c.rid: c.tokens for c in out}
+    equal = sum(got[r] == streams[r] for r in streams)
+    n_layers = cfg.n_layers
+    if (res["spec_steps"] <= 0 or res["draft_accepted"] <= 0
+            or launches["paged_chunk"] != res["spec_steps"] * n_layers
+            or launches["flash_fwd"] != len(prompts) * n_layers
+            or launches["paged_decode"] % n_layers or eng.pool.used_blocks
+            or not all(len(t) == 32 for t in got.values())):
+        raise AssertionError(f"serve[spec.sampled.oracle]: {res}, launches {launches}")
+    hist = {k: v for k, v in res.items() if k.startswith("spec_step_tokens_")}
+    log(f"serve sampled spec, oracle drafts (llama3_8b, {SAMPLED}): acceptance "
+        f"{res['acceptance_rate']} ({res['draft_accepted']} of "
+        f"{res['draft_proposed']}), verify steps {res['spec_steps']}, "
+        f"paged_chunk {launches['paged_chunk']}, committed per slot-step "
+        f"{json.dumps(hist)}, {equal} of {len(streams)} streams equal the plain "
+        f"sampled run's, tpot_p50 {res['tpot_p50_ms']} ms, tokens/s "
+        f"{res['tokens_per_sec']}, wall {wall} s | {smi}")
+    del eng, params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def sampling_serve_phase(smi, runs, tiled):
+    """llama3_8b served with per-request sampling, full width and depth,
+    exact prefill, bf16, each run's serving kernels counted exactly:
+
+    * 16 requests (256 + 32 tokens, 8 slots) at SAMPLED, beside the
+      greedy exact run on the same requests; then the same requests
+      submitted in reverse order, which must commit the same stream a
+      request (the keying contract);
+    * n = 4: 4 prompts of 250 tokens x 4 generations over 8 slots
+      (bucketed prefill on the 16-token grid, so each prompt ends in a
+      partial page): 15 shared pages a child, one boundary-page copy a
+      child, the generations of a prompt all different, every page back;
+    * sampled speculative decoding (prompt lookup, draft_k 4) on the
+      tiled prompts: B6 once per layer per verify step; then with drafts
+      of the sampled run's own streams (:func:`sampled_oracle_spec`);
+    * GRAMMAR on 4 requests: every committed token admissible on replay;
+      the masked step's ms a token and the first ``allowed()`` build's.
+    """
+    import numpy as np
+
+    from kubeflow_controller_tpu_torch.dataplane import sampling
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm import (
+        _read_prompts,
+    )
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.llama3_8b_config()
+    n_layers, vocab = cfg.n_layers, cfg.vocab_size
+    out = {}
+
+    def whole_steps(launches, b1):
+        return (launches["flash_fwd"] == b1 and launches["rope_rotate"] == b1
+                and launches["paged_decode"] > 0
+                and launches["paged_decode"] % n_layers == 0)
+
+    res, launches, fwd = _serve_run("sampled", smi, 16, **SAMPLED)
+    if (not whole_steps(launches, 16 * n_layers) or launches["paged_chunk"]
+            or res["sampled_requests"] != 16 or res["prefill_chunks"]):
+        raise AssertionError(f"serve[sampled]: {res}, launches {launches}")
+    if len({tuple(t) for t in fwd.values()}) != 16:
+        raise AssertionError("serve[sampled]: two requests drew one stream")
+    greedy = runs["exact"][0]
+    log(f"serve sampled vs greedy exact (same 16 requests, this run): ttft_p50 "
+        f"{res['ttft_p50_ms']} vs {greedy['ttft_p50_ms']} ms, ttft_p95 "
+        f"{res['ttft_p95_ms']} vs {greedy['ttft_p95_ms']} ms, tpot_p50 "
+        f"{res['tpot_p50_ms']} vs {greedy['tpot_p50_ms']} ms, tokens/s "
+        f"{res['tokens_per_sec']} vs {greedy['tokens_per_sec']}, wall "
+        f"{res['wall_s']} vs {greedy['wall_s']} s | {smi}")
+    out["sampled"] = (res, launches)
+
+    prompts = _read_prompts("", vocab, 16, 256)
+    rev_path = os.path.join(OUT_DIR, "reversed_prompts.jsonl")
+    with open(rev_path, "w") as f:
+        for p in prompts[::-1]:
+            f.write(json.dumps({"prompt": p.tolist()}) + "\n")
+    res_r, launches_r, rev = _serve_run("sampled.reversed", smi, 16,
+                                        input_file=rev_path, **SAMPLED)
+    moved = [i for i in range(16) if rev[15 - i] != fwd[i]]
+    if moved or not whole_steps(launches_r, 16 * n_layers):
+        raise AssertionError(f"serve[sampled.reversed]: requests {moved} drew "
+                             f"another stream in reverse order; {launches_r}")
+    log("serve sampled: the 16 requests submitted in reverse order commit the "
+        "same 16 streams")
+
+    res_f, launches_f, forks = _serve_run(
+        "forks", smi, 4, n=4, prompt_len=250, prefill_mode="bucketed", **SAMPLED)
+    fp, bs = 250 // 16, 16
+    want = dict(fork_shared_tokens=12 * fp * bs, cow_page_copies=12,
+                sampled_requests=16, pool_blocks_in_use=0)
+    got = {k: res_f[k] for k in want}
+    same = [r for r in range(4) if len({tuple(forks[(r, g)]) for g in range(4)}) < 4]
+    if (got != want or same
+            or launches_f["paged_chunk"] != res_f["prefill_chunks"] * n_layers
+            or launches_f["paged_decode"] % n_layers or launches_f["flash_fwd"]):
+        raise AssertionError(f"serve[forks]: {got} (want {want}), prompts with "
+                             f"equal generations {same}, launches {launches_f}")
+    log(f"serve forks n=4: {got}; every prompt's 4 generations differ | {smi}")
+    out["forks"] = (res_f, launches_f)
+
+    res_s, launches_s, _ = _serve_run(
+        "tiled.spec.sampled", smi, 16, input_file=tiled, speculative=True,
+        draft_k=4, temperature=SAMPLED["temperature"], seed=0)
+    # Sampled random-weight streams rarely repeat an n-gram, so lookup may
+    # draft nothing here; the oracle run below drafts for certain.
+    if (launches_s["paged_chunk"] != res_s["spec_steps"] * n_layers
+            or not whole_steps(launches_s, 16 * n_layers)):
+        raise AssertionError(f"serve[spec.sampled]: {res_s}, launches {launches_s}")
+    hist = {k: v for k, v in res_s.items() if k.startswith("spec_step_tokens_")}
+    log(f"serve sampled spec (tiled prompts, temperature "
+        f"{SAMPLED['temperature']}): acceptance {res_s['acceptance_rate']} "
+        f"({res_s['draft_accepted']} of {res_s['draft_proposed']}), verify "
+        f"steps {res_s['spec_steps']}, probe steps {res_s['spec_probe_steps']}, "
+        f"committed per slot-step {json.dumps(hist)}, tpot_p50 "
+        f"{res_s['tpot_p50_ms']} ms | {smi}")
+    out["spec.sampled"] = (res_s, launches_s)
+    out["spec.sampled.oracle"] = sampled_oracle_spec(smi, prompts, fwd)
+
+    t = time.perf_counter()
+    probe = sampling.make_mask(GRAMMAR, vocab)
+    probe.allowed(probe.init_state())
+    build_ms = (time.perf_counter() - t) * 1e3
+    res_g, launches_g, gram = _serve_run("grammar", smi, 4, grammar=GRAMMAR,
+                                         **SAMPLED)
+    bad = _mask_replay_errors(GRAMMAR, vocab, gram)
+    if bad or not whole_steps(launches_g, 4 * n_layers) or res_g[
+            "mask_tokens_filtered"] <= 0:
+        raise AssertionError(f"serve[grammar]: inadmissible tokens {bad}, "
+                             f"launches {launches_g}, {res_g}")
+    strs = sampling.default_token_strs(vocab)
+    log(f"serve grammar {GRAMMAR!r}: 4 requests x 32 tokens all admissible on "
+        f"replay (first: {''.join(strs[t] for t in gram[0])!r}); masked step "
+        f"tpot_p50 {res_g['tpot_p50_ms']} ms a token, ttft_p50 "
+        f"{res_g['ttft_p50_ms']} ms, first allowed() build {build_ms} ms "
+        f"({vocab} token strings), mask_tokens_filtered "
+        f"{res_g['mask_tokens_filtered']} | {smi}")
+    out["grammar"] = (res_g, launches_g)
+    out["grammar.allowed_build_ms"] = build_ms
+    out["sampling"] = sampling_bench(smi)
+    return out
+
+
 def serve_phase(smi):
     """llama3_8b served end to end, full width and depth: bucketed prefill
     (16 requests; then 4 with an int8 KV pool), exact prefill (the same 16
     requests), and greedy speculative decoding on tiled prompts beside
-    the plain exact run on the same prompts; each with exact kernel
-    launch counts. Then the tiny config, card vs CPU."""
+    the plain exact run on the same prompts; then the sampling runs
+    (:func:`sampling_serve_phase`); each with exact kernel launch counts.
+    Then the tiny config, card vs CPU."""
     from kubeflow_controller_tpu_torch.models import transformer as tfm
 
     n_layers = tfm.llama3_8b_config().n_layers
@@ -1365,6 +1742,7 @@ def serve_phase(smi):
         f"{len(gaps)} differ after a near-tie")
     runs["spec"] = (res, launches)
     runs["tiled.plain"] = (plain_res, None)
+    runs.update(sampling_serve_phase(smi, runs, tiled))
     exact_prefill_lengths_check(smi)
     tiny_serve_check()
     return runs
@@ -2051,6 +2429,11 @@ def main() -> int:
             **({"device_ms_by_kernel": r["device_ms_by_kernel"]}
                if "device_ms_by_kernel" in r else {}),
         })
+        # Each sampling run's launches of this kernel, counted from zero
+        # just before the run.
+        line["kernels"][-1]["sampling_runs_launches"] = {
+            run: runs[run][1][name] for run in
+            ("sampled", "forks", "spec.sampled.oracle", "grammar")}
         if name == "paged_chunk":
             # B6's verify entry: its launches on the speculative serve run
             # (one per layer per verify step) and its record at that
@@ -2083,6 +2466,9 @@ def main() -> int:
                                  "fused_route_ms") if k in r},
         })
         if name == "flash_fwd":
+            line["kernels"][-1]["sampling_runs_launches"] = {
+                run: runs[run][1][name] for run in
+                ("sampled", "forks", "spec.sampled.oracle", "grammar")}
             # B1 on the serving path: exact prefill, once per layer per
             # admission of the exact llama3_8b serve run, and its record
             # at that run's shape.

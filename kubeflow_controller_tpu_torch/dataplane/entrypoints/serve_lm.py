@@ -7,14 +7,16 @@ or, with none there, build a freshly initialised model from a seed; read
 token-id prompts (JSONL ``{"prompt": [ids...]}`` from ``--input``, or a
 synthetic batch), serve them through the continuous-batching engine
 (``dataplane/serving_engine.py``: paged KV pool, exact or chunked
-prefill, fused decode chunks with on-device retirement, slot reuse, and
-with ``--speculative`` prompt-lookup drafts verified in one forward),
+prefill, fused decode chunks with on-device retirement, slot reuse,
+with ``--speculative`` prompt-lookup drafts verified in one forward, and
+per-request sampling: ``--temperature``/``--top-k``/``--top-p`` under the
+seeded key chain, ``--n`` copy-on-write forks and ``--grammar`` masks),
 write completions JSONL to ``--output`` and report TTFT/TPOT/tokens per
 second.
 
     python -m kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm \\
         --config llama3_8b --batch 16 --slots 8 --prompt-len 256 \\
-        --speculative --draft-k 4
+        --temperature 0.8 --top-k 50 --top-p 0.95 --speculative --draft-k 4
 
 Runs on ``cuda``; ``--device cpu`` runs the plain PyTorch versions on
 the CPU. The command line takes every option of the JAX entry point's,
@@ -47,11 +49,6 @@ logger = logging.getLogger("tpujob.serve_lm_torch")
 #: "off". Any other value raises NotImplementedError.
 NOT_YET_PORTED_FLAGS = {
     "quant": "",
-    "temperature": 0.0,
-    "top_k": 0,
-    "top_p": 1.0,
-    "n": 1,
-    "grammar": "",
     "turns": 1,
     "prefix_cache": False,
     "host_kv_mb": 0.0,
@@ -131,7 +128,12 @@ def serve(
     batch: int = 8,
     prompt_len: int = 32,
     max_new_tokens: int = 32,
+    temperature: float = 0.0,
+    top_k: int = 0,
+    top_p: float = 1.0,
+    n: int = 1,
     seed: int = 0,
+    grammar: str = "",
     slots: int = 0,
     eos_id: Optional[int] = None,
     deadline_s: Optional[float] = None,
@@ -150,8 +152,16 @@ def serve(
     **not_yet_ported,
 ) -> Dict[str, float]:
     """Serve ``batch`` prompts through the engine; returns the summary
-    (``tokens_per_sec``, ``ttft_p50_ms``, ``tpot_p50_ms``, the spec
-    counters, ``restored_step``: -1 for a fresh init, ...).
+    (``tokens_per_sec``, ``ttft_p50_ms``, ``tpot_p50_ms``, the spec and
+    sampling counters, ``restored_step``: -1 for a fresh init, ...).
+
+    ``temperature``/``top_k``/``top_p`` set the engine's sampling
+    defaults and ``seed`` its key chain (and the fresh init's weights);
+    ``n > 1`` forks each prompt into ``n`` generations and ``grammar``
+    (``json``, ``re:<pattern>``, ``set:<ids>``) masks every draw, through
+    one ``SamplingParams`` shared by every request, as in the JAX entry
+    point. ``n > 1`` needs the paged pool; ``n`` and ``grammar`` need
+    ``turns == 1``.
 
     The parameters come from ``model_dir or ctx.model_dir`` when a
     checkpoint is there, cast as ``inference_params`` casts them. One
@@ -168,11 +178,23 @@ def serve(
     Keywords of :data:`NOT_YET_PORTED_FLAGS` are accepted and refused
     unless they hold their "off" value."""
     from kubeflow_controller_tpu_torch.dataplane import metrics as metrics_mod
+    from kubeflow_controller_tpu_torch.dataplane import sampling
     from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
         Rejected, Request, ServingEngine,
     )
     from kubeflow_controller_tpu_torch.models import generate as gen
 
+    # The reference's sampling checks come first, before the refusals of
+    # what is not ported and before any weights load.
+    sampling.SamplingParams(temperature=temperature, top_k=top_k,
+                            top_p=top_p, n=n, seed=seed).validate()
+    if n > 1 and not not_yet_ported.get("paged", True):
+        raise ValueError(
+            "n > 1 forks prompt KV pages copy-on-write and requires the "
+            "paged block pool (drop --no-paged)")
+    if (n > 1 or grammar) and not_yet_ported.get("turns", 1) > 1:
+        raise ValueError(
+            "--n / --grammar are single-turn engine features (turns == 1)")
     for key, value in not_yet_ported.items():
         if key not in NOT_YET_PORTED_FLAGS:
             raise TypeError(f"serve() got an unexpected keyword {key!r}")
@@ -210,20 +232,31 @@ def serve(
     n_slots = min(slots, b) if slots > 0 else b
     engine = ServingEngine(
         cfg, params, n_slots=n_slots, max_seq=s + max_new_tokens,
+        temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
         max_queue=max_queue, prefill_mode=prefill_mode,
         block_size=block_size, kv_hbm_budget_mb=kv_pool_mb,
         kv_quant=kv_quant, spec_decode=speculative, draft_k=draft_k,
         proposer=proposer, attn_impl=attn_impl, device=dev)
+    # One params object for every request: draws are keyed by (seed,
+    # gen, position), and a mask keeps its automaton state in the slot.
+    req_params = None
+    if n > 1 or grammar:
+        req_params = sampling.SamplingParams(
+            temperature=temperature, top_k=top_k, top_p=top_p, n=n,
+            seed=seed,
+            logit_mask=(sampling.make_mask(grammar, cfg.vocab_size,
+                                           eos_id=eos_id)
+                        if grammar else None))
     for i in range(b):
         try:
             engine.submit(Request(
                 rid=i, prompt=prompts[i], max_new_tokens=max_new_tokens,
-                eos_id=eos_id, deadline_s=deadline_s))
+                eos_id=eos_id, deadline_s=deadline_s, params=req_params))
         except Rejected as e:
             logger.warning("request %d rejected: %s", i, e.reason)
     # Worst case: every prompt prefills chunkwise, one chunk per step.
     chunks = -(-s // block_size)
-    max_steps = b * (max_new_tokens + chunks) + 2 * b + 4
+    max_steps = b * n * (max_new_tokens + chunks) + 2 * b * n + 4
     completions = []
     for _ in range(max_steps):
         if stop is not None and stop.is_set():
@@ -240,7 +273,7 @@ def serve(
         completions.extend(engine.drain(0.0))
     dt = time.perf_counter() - t0
     serving = engine.stats.summary(wall_s=dt)
-    completions.sort(key=lambda c: c.rid)
+    completions.sort(key=lambda c: (c.rid, c.gen))
 
     if output_file:
         with open(output_file, "w") as f:
@@ -291,8 +324,29 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--prompt-len", type=int, default=32)
     p.add_argument("--max-new-tokens", type=int, default=32)
+    p.add_argument("--temperature", type=float, default=0.0,
+                   help="softmax temperature (0 = greedy argmax; > 0 "
+                        "samples reproducibly from the per-request "
+                        "seeded key chain)")
+    p.add_argument("--top-k", type=int, default=0,
+                   help="keep only the k highest-probability tokens "
+                        "before sampling (0 = no top-k filter)")
+    p.add_argument("--top-p", type=float, default=1.0,
+                   help="nucleus sampling: keep the smallest probability "
+                        "mass >= p before sampling (1.0 = no filter)")
+    p.add_argument("--n", type=int, default=1,
+                   help="parallel generations per prompt: the prompt is "
+                        "prefilled ONCE, then forked into n slots that "
+                        "share its KV pages copy-on-write; completions "
+                        "carry a 'gen' index (requires the paged pool)")
     p.add_argument("--seed", type=int, default=0,
-                   help="seed of the fresh weight init")
+                   help="sampling seed (token i of generation g draws "
+                        "from fold_in(fold_in(key(seed), g), i)) and the "
+                        "seed of the fresh weight init")
+    p.add_argument("--grammar", default="",
+                   help="constrained decoding spec: 'json', "
+                        "'re:<pattern>' or 'set:<id,id,...>'; every "
+                        "emitted token keeps the output a valid prefix")
     p.add_argument("--slots", type=int, default=0,
                    help="slot-pool size (0 = one slot per request)")
     p.add_argument("--eos-id", type=int, default=-1,
@@ -339,6 +393,24 @@ def main(argv=None) -> int:
         p.add_argument(_CLI_NAMES.get(key, "--" + key.replace("_", "-")),
                        dest=key, default=off, help="not yet ported", **kind)
     args = p.parse_args(argv)
+    # The reference's checks of the sampling flags, through argparse
+    # (usage and exit 2), before anything loads.
+    from kubeflow_controller_tpu_torch.dataplane.sampling import (
+        SamplingParams, make_mask,
+    )
+    try:
+        SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                       top_p=args.top_p, n=args.n, seed=args.seed).validate()
+        if args.grammar:
+            make_mask(args.grammar, model_config(args.config).vocab_size)
+    except ValueError as e:
+        p.error(str(e))
+    if args.n > 1 and not args.paged:
+        p.error("--n > 1 forks prompt KV pages copy-on-write and "
+                "requires the paged pool (drop --no-paged)")
+    if (args.n > 1 or args.grammar) and args.turns > 1:
+        p.error("--n / --grammar are single-turn engine features "
+                "(use --turns 1)")
     refused = {k: getattr(args, k) for k in NOT_YET_PORTED_FLAGS}
     # SIGTERM drains the engine and still writes the partial completions.
     stop = threading.Event()
@@ -348,6 +420,8 @@ def main(argv=None) -> int:
             config=args.config, input_file=args.input,
             output_file=args.output, batch=args.batch,
             prompt_len=args.prompt_len, max_new_tokens=args.max_new_tokens,
+            temperature=args.temperature, top_k=args.top_k,
+            top_p=args.top_p, n=args.n, grammar=args.grammar,
             model_dir=args.model_dir, seed=args.seed, slots=args.slots,
             eos_id=None if args.eos_id < 0 else args.eos_id,
             deadline_s=args.deadline_s if args.deadline_s > 0 else None,

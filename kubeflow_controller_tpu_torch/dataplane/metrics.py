@@ -74,6 +74,16 @@ class ServingStats:
     spec_steps: int = 0
     spec_probe_steps: int = 0
     spec_step_tokens_hist: Dict[int, int] = field(default_factory=dict)
+    # Sampling: non-greedy generations admitted (forked children
+    # included), device page copies copy-on-write forking made (one a
+    # child with a partial boundary page), prompt tokens whose KV a
+    # forked child reads by reference instead of prefilling again, and
+    # vocab entries constrained decoding masked out over all masked
+    # tokens.
+    sampled_requests: int = 0
+    cow_page_copies: int = 0
+    fork_shared_tokens: int = 0
+    mask_tokens_filtered: int = 0
     # Quantum-progress counter: bumped once per completed step().
     heartbeat: int = 0
 
@@ -138,6 +148,10 @@ class ServingStats:
             "acceptance_rate": self.acceptance_rate,
             "spec_steps": float(self.spec_steps),
             "spec_probe_steps": float(self.spec_probe_steps),
+            "sampled_requests": float(self.sampled_requests),
+            "cow_page_copies": float(self.cow_page_copies),
+            "fork_shared_tokens": float(self.fork_shared_tokens),
+            "mask_tokens_filtered": float(self.mask_tokens_filtered),
             "samples_dropped": float(self.samples_dropped),
             "heartbeat": float(self.heartbeat),
         }

@@ -28,12 +28,24 @@ Counterpart of ``kubeflow_controller_tpu/dataplane/serving_engine.py``:
 * ``spec_decode=True``: model-free drafts (``dataplane/spec_decode.py``)
   verified in one forward over the pages (``generate.verify_step_paged``)
   on the quanta where some slot drafts; the plain pipelined chunk
-  otherwise. Greedy streams are those of plain decode.
+  otherwise. Greedy streams are those of plain decode;
+* per-request sampling (``Request.params``, or the engine's defaults):
+  each draw is keyed by ``fold_in(fold_in(PRNGKey(seed), gen), pos)``
+  (``dataplane/sampling.py``), so a sampled stream is a function of the
+  request alone — not of the batch, the slot, the admission order or
+  the kind of quantum that emitted a token. A batch with a sampled row
+  runs the sampled twin of the chunk (and of the verify step); an
+  all-greedy batch runs the greedy one;
+* ``logit_mask`` (grammars): while a decoding slot carries a mask, each
+  quantum is ONE masked micro-step booked at once, so the host advances
+  the slot's automaton between draws;
+* ``n > 1``: the prompt is prefilled once and forked copy-on-write into
+  generations 1..n-1, which read the prompt's full pages by refcount and
+  copy only the partial boundary page.
 
-Greedy decoding only. Everything else the JAX engine offers raises "not
-yet ported" when asked for: the prefix cache, the radix proposer, the
-host tier, sampling, ``n > 1`` forks, grammars, tensor parallelism,
-disaggregation, fault injection and the tracer.
+Everything else the JAX engine offers raises "not yet ported" when
+asked for: the prefix cache, the radix proposer, the host tier, tensor
+parallelism, disaggregation, fault injection and the tracer.
 """
 
 from __future__ import annotations
@@ -41,7 +53,7 @@ from __future__ import annotations
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,7 +63,9 @@ from kubeflow_controller_tpu_torch.dataplane import spec_decode as spec_mod
 from kubeflow_controller_tpu_torch.dataplane.metrics import (
     MetricsLogger, ServingStats,
 )
-from kubeflow_controller_tpu_torch.dataplane.sampling import SamplingParams
+from kubeflow_controller_tpu_torch.dataplane.sampling import (
+    LogitMask, SamplingParams,
+)
 from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_controller_tpu_torch.models import generate as gen
 from kubeflow_controller_tpu_torch.models.transformer import (
@@ -102,7 +116,7 @@ class Request:
 class Completion:
     rid: int
     tokens: List[int]                 # includes the EOS token if emitted
-    finish_reason: str                # eos | length | deadline | shed
+    finish_reason: str                # eos | length | deadline | shed | cancelled
     submit_t: float
     first_token_t: Optional[float]    # None when retired before any token
     done_t: float
@@ -155,9 +169,14 @@ class _Slot:
     submit_t: float
     admit_t: float
     deadline_t: Optional[float] = None
+    cancelled: bool = False
     first_token_t: Optional[float] = None
     tokens: List[int] = field(default_factory=list)
     owned: List[int] = field(default_factory=list)   # pool pages held
+    # Pool pages this slot reads but does not own: a fork's shared prompt
+    # pages, refcounted in the pool at fork time and released on every
+    # retirement path (_free_shared).
+    shared: List[int] = field(default_factory=list)
     prefill: Optional[_Prefill] = None   # set while mid-chunked-prefill
     # Speculative decoding: the next committed token (argmax of the
     # carried logits, fetched with the step that computed it; None until
@@ -167,6 +186,36 @@ class _Slot:
     spec_k: int = 0
     spec_miss: int = 0
     spec_hits: int = 0
+    # The generation's sampling contract (the request's params or the
+    # engine's defaults) and its index (0 for the parent, 1..n-1 for
+    # forks); the grammar mask and its automaton state, advanced a
+    # booked token at a time.
+    sp: SamplingParams = field(default_factory=SamplingParams)
+    gen_idx: int = 0
+    mask: Optional[LogitMask] = None
+    mask_state: object = None
+
+
+@dataclass
+class _ForkSource:
+    """A prefilled ``n > 1`` parent awaiting its forks 1..n-1: its table
+    row, prefill-final logits row and the page holds each pending child
+    already took (taken at capture, so the parent's retirement can never
+    free a page a deferred child still needs). Children take slots as
+    they free; cancel, deadline and drain release the holds."""
+
+    req: Request
+    sp: SamplingParams
+    submit_t: float
+    admit_t: float
+    deadline_t: Optional[float]
+    gens_left: List[int]              # generation indices not yet placed
+    table: np.ndarray                 # the parent's table row (host copy)
+    needed: int                       # pages spanned by prompt + budget
+    prompt_len: int
+    logits_row: torch.Tensor          # [vocab] parent logits at prefill end
+    shared: List[int]                 # the prompt's full page ids
+    boundary_bid: Optional[int]       # the partial last prompt page
 
 
 class _Fetch:
@@ -257,8 +306,6 @@ class ServingEngine:
         refused = [
             (prefix_cache, "prefix_cache"),
             (host_kv_mb > 0, "the host KV tier (host_kv_mb)"),
-            (not self._default_params.is_greedy,
-             "sampling (temperature > 0)"),
             (int(tp) > 1, "tensor-parallel serving (tp > 1)"),
             (tracer is not None, "the lifecycle tracer"),
             (injector is not None, "fault injection"),
@@ -357,6 +404,22 @@ class ServingEngine:
         self.eos = torch.full((n_slots,), -1, dtype=torch.int32, device=dev)
         self.budget = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
         self.emitted = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+        # Per-slot sampling lanes, host-owned and mirrored to the device
+        # (_push_sampling) before a sampled dispatch: temperature, top-k,
+        # top-p, seed, generation index. Greedy rows carry temperature 0
+        # and take the argmax inside the sampled functions.
+        self._temp_h = np.zeros(n_slots, np.float32)
+        self._topk_h = np.zeros(n_slots, np.int32)
+        self._topp_h = np.ones(n_slots, np.float32)
+        self._seed_h = np.zeros(n_slots, np.int32)
+        self._gen_h = np.zeros(n_slots, np.int32)
+        self._samp_d: Optional[Tuple[torch.Tensor, ...]] = None
+        self._gen_key_d: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        # Prefilled n > 1 parents awaiting forks, and the generations
+        # each such rid still owes a Completion (the rid stays reserved
+        # until its last generation finishes).
+        self._fork_sources: List[_ForkSource] = []
+        self._rid_gens: Dict[int, int] = {}
         self.slots: List[Optional[_Slot]] = [None] * n_slots
         self.queue: deque = deque()
         self.stats = ServingStats(n_slots=n_slots)
@@ -377,12 +440,14 @@ class ServingEngine:
             raise ValueError(f"request {req.rid}: empty prompt")
         if req.params is not None:
             req.params.validate()
-            if not req.params.is_greedy:
-                raise not_yet_ported("sampling (temperature > 0)")
-            if req.params.n > 1:
-                raise not_yet_ported("parallel generations (n > 1)")
             if req.params.max_tokens is not None:
                 req.max_new_tokens = int(req.params.max_tokens)
+            if req.params.logit_mask is not None:
+                mv = getattr(req.params.logit_mask, "vocab_size", None)
+                if mv is not None and mv != self.cfg.vocab_size:
+                    raise ValueError(
+                        f"request {req.rid}: logit_mask vocab "
+                        f"{mv} != model vocab {self.cfg.vocab_size}")
         if req.prefill_only:
             raise not_yet_ported("prefill/decode disaggregation (prefill_only)")
         if prompt.size + req.max_new_tokens > self.max_seq:
@@ -409,9 +474,42 @@ class ServingEngine:
         deadline_t = None if req.deadline_s is None else now + req.deadline_s
         self.queue.append(_Queued(req=req, submit_t=now, deadline_t=deadline_t))
         self._rids.add(req.rid)
+        if req.params is not None and req.params.n > 1:
+            self._rid_gens[req.rid] = req.params.n
         self.stats.submitted += 1
         self.stats.queue_depth_max = max(self.stats.queue_depth_max,
                                          len(self.queue))
+
+    def cancel(self, rid: int) -> bool:
+        """Cancel a request by rid. A queued request is removed outright
+        (a Completion with no tokens at the next :meth:`step`); an
+        in-flight one retires at the next step with the tokens decoded
+        so far — every generation of an ``n > 1`` request, and the forks
+        not placed yet, whose page holds come back. Returns False for an
+        unknown rid (finished, or never submitted)."""
+        if rid not in self._rids:
+            return False
+        for q in self.queue:
+            if q.req.rid == rid:
+                self.queue.remove(q)
+                self._rids.discard(rid)
+                self._rid_gens.pop(rid, None)
+                self._finish_completion(Completion(
+                    rid=rid, tokens=[], finish_reason="cancelled",
+                    submit_t=q.submit_t, first_token_t=None,
+                    done_t=self._clock()))
+                return True
+        found = False
+        for slot in self.slots:
+            if slot is not None and slot.req.rid == rid:
+                slot.cancelled = True
+                found = True
+        for src in list(self._fork_sources):
+            if src.req.rid == rid:
+                self._cancel_fork_source(src, "cancelled")
+                self._fork_sources.remove(src)
+                found = True
+        return found
 
     def _finish_completion(self, comp: Completion) -> None:
         """Record a completion made outside a step's booking (a shed) and
@@ -462,6 +560,67 @@ class ServingEngine:
             self.pool.unref(bid)
         slot.owned = []
 
+    def _free_shared(self, slot: _Slot) -> None:
+        """Drop the slot's fork-shared page holds. Called on every
+        retirement path, like :meth:`_free_owned`, so sharing is
+        leak-free under eos, length, deadline, cancel and drain alike."""
+        for bid in slot.shared:
+            self.pool.unref(bid, owner=("fork", slot.req.rid, slot.gen_idx))
+        slot.shared = []
+
+    def _rid_done(self, rid: int) -> None:
+        """One generation of ``rid`` finished; the rid stays reserved
+        (the duplicate-rid guard) until all ``n`` have."""
+        left = self._rid_gens.get(rid)
+        if left is None:
+            self._rids.discard(rid)
+        elif left <= 1:
+            self._rid_gens.pop(rid, None)
+            self._rids.discard(rid)
+        else:
+            self._rid_gens[rid] = left - 1
+
+    # -- per-slot sampling lanes -----------------------------------------------
+
+    def _set_slot_sampling(self, i: int, sp: SamplingParams,
+                           gen_idx: int = 0) -> None:
+        """Program slot ``i``'s sampling lane (admission and fork)."""
+        self._temp_h[i] = sp.temperature
+        self._topk_h[i] = sp.top_k
+        self._topp_h[i] = sp.top_p
+        self._seed_h[i] = sp.seed
+        self._gen_h[i] = gen_idx
+        self._samp_d = None
+
+    def _push_sampling(self) -> Tuple[torch.Tensor, ...]:
+        """The lanes on the device ``(temperature, top_k, top_p, seed,
+        gen)``, pushed again only after a lane changed; with them each
+        lane's generation key ``fold_in(PRNGKey(seed), gen)``
+        (``self._gen_key_d``), hashed on the host: on the device it would
+        be a threefry of ~170 launches on eight words every chunk."""
+        if self._samp_d is None:
+            self._samp_d = tuple(
+                _to_device(a, self.device) for a in (
+                    self._temp_h, self._topk_h, self._topp_h,
+                    self._seed_h, self._gen_h))
+            k0, k1 = gen.generation_keys(torch.from_numpy(self._seed_h),
+                                         torch.from_numpy(self._gen_h))
+            self._gen_key_d = (_to_device(k0.numpy(), self.device),
+                               _to_device(k1.numpy(), self.device))
+        return self._samp_d
+
+    def _sampled_in(self, snapshot) -> int:
+        """Decoding rows that need the sampled functions."""
+        return sum(1 for s in snapshot
+                   if s is not None and not s.sp.is_greedy)
+
+    def _masked_decoding(self) -> bool:
+        """True while a DECODING slot carries a grammar mask: such quanta
+        run one synchronous micro-step, so the automaton advances a token
+        at a time (mid-prefill masked slots do not count yet)."""
+        return any(s is not None and s.prefill is None
+                   and s.mask is not None for s in self.slots)
+
     def _clear_table_row(self, i: int) -> None:
         """Reset slot ``i``'s host table row to the sentinel. The stale
         device row persists until the next push, which is safe: its
@@ -479,24 +638,30 @@ class ServingEngine:
         this row are dropped by the snapshot-identity check in
         :meth:`_process_pending`."""
         self._free_owned(slot)
+        self._free_shared(slot)
         self._clear_table_row(i)
         comp = Completion(
             rid=slot.req.rid, tokens=slot.tokens, finish_reason=reason,
             submit_t=slot.submit_t, first_token_t=slot.first_token_t,
-            done_t=now, admit_t=slot.admit_t)
+            done_t=now, admit_t=slot.admit_t, gen=slot.gen_idx)
         self.slots[i] = None
-        self._rids.discard(slot.req.rid)
+        self._rid_done(slot.req.rid)
         self.cache.active[i] = False
         self.stats.record(comp)
         return comp
 
     def _retire_due(self) -> List[Completion]:
-        """Retire in-flight slots whose deadline passed, before the next
-        dispatch."""
+        """Retire in-flight slots that were cancelled or whose deadline
+        passed, before the next dispatch."""
         out: List[Completion] = []
         for i, slot in enumerate(self.slots):
-            if (slot is not None and slot.deadline_t is not None
-                    and self._clock() >= slot.deadline_t):
+            if slot is None:
+                continue
+            if slot.cancelled:
+                out.append(self._retire_slot(i, slot, "cancelled",
+                                             self._clock()))
+            elif (slot.deadline_t is not None
+                  and self._clock() >= slot.deadline_t):
                 out.append(self._retire_slot(i, slot, "deadline",
                                              self._clock()))
         return out
@@ -531,18 +696,94 @@ class ServingEngine:
             toks_out.append(logits.argmax(-1).to(torch.int32))
         return torch.stack(toks_out)
 
-    def _verify(self, vw: int, draft: np.ndarray, dlen: np.ndarray):
+    def _decode_chunk_sampled(self, vw: int):
+        """The sampled twin of :meth:`_decode_chunk`: each micro-step
+        draws through ``generate.sample_with_noise`` (per-row filters;
+        greedy rows take the argmax, the greedy chunk's bits) under the
+        key of (seed, gen, emitted). A row live at micro-step j was live
+        at every earlier one, so its position there is ``emitted + j``,
+        and one call draws the Gumbel noise of the whole chunk; a row
+        that retired mid-chunk draws garbage the host discards. With
+        speculative decoding the extra row is the sampled peek at the
+        carried position: the first token the next quantum would draw,
+        which the proposer drafts from."""
+        temp, top_k, top_p, _, _ = self._push_sampling()
+        logits, cache, emitted = self.logits, self.cache, self.emitted
+        n_draws = self.decode_chunk + (1 if self.spec_decode else 0)
+        steps = torch.arange(n_draws, dtype=torch.int32, device=self.device)
+        noise = gen.sampling_noise(self._gen_key_d,
+                                   emitted[None] + steps[:, None],
+                                   self.cfg.vocab_size)   # [n, B, V]
+        toks_out = []
+        for j in range(self.decode_chunk):
+            toks = gen.sample_with_noise(logits, temp, top_k, top_p, noise[j])
+            was_active = cache.active
+            logits, cache = gen.decode_step_paged(
+                self.cfg, self.params, toks[:, None], cache, view_width=vw,
+                attn_impl=self.attn_impl)
+            emitted = torch.where(was_active, emitted + 1, emitted)
+            done = was_active & ((toks == self.eos) | (emitted >= self.budget))
+            cache.active = cache.active & ~done
+            toks_out.append(toks)
+        self.logits, self.cache, self.emitted = logits, cache, emitted
+        if self.spec_decode:
+            toks_out.append(gen.sample_with_noise(
+                logits, temp, top_k, top_p, noise[self.decode_chunk]))
+        return torch.stack(toks_out)
+
+    def _masked_step(self, vw: int, mask: np.ndarray, sampled: bool):
+        """ONE constrained micro-step: draw each row's token under its
+        ``[n_slots, vocab]`` admissibility row (all True on unmasked rows,
+        which changes nothing), decode it and retire rows on the device.
+        Returns the ``[n_slots]`` tokens. Without a sampled row the draw
+        is the masked argmax, the greedy rows' bits either way."""
+        mask_d = _to_device(mask, self.device)
+        if sampled:
+            temp, top_k, top_p, _, _ = self._push_sampling()
+            noise = gen.sampling_noise(self._gen_key_d, self.emitted,
+                                       self.cfg.vocab_size)
+            toks = gen.sample_with_noise(self.logits, temp, top_k, top_p,
+                                         noise, mask=mask_d)
+        else:
+            toks = torch.where(
+                mask_d, self.logits,
+                torch.tensor(float("-inf"), device=self.device)
+            ).argmax(-1).to(torch.int32)
+        was_active = self.cache.active
+        self.logits, self.cache = gen.decode_step_paged(
+            self.cfg, self.params, toks[:, None], self.cache, view_width=vw,
+            attn_impl=self.attn_impl)
+        self.emitted = torch.where(was_active, self.emitted + 1, self.emitted)
+        done = was_active & ((toks == self.eos) | (self.emitted >= self.budget))
+        self.cache.active = self.cache.active & ~done
+        return toks
+
+    def _verify(self, vw: int, draft: np.ndarray, dlen: np.ndarray,
+                sampled: bool = False):
         """One fused verify step over the pool: commit each row's accepted
         run, then apply the plain chunk's retirement rule on the device —
         an EOS inside the committed run, or the budget spent (``max_commit
         = budget - emitted`` caps the run, so a row retires at exactly
-        its budget). Returns ``[n_slots, K + 3]`` int32: the window, the
-        committed count n and the next committed token."""
+        its budget). ``sampled`` runs ``generate.verify_step_paged_sampled``
+        (the batch has a sampled row): acceptance by the speculative
+        sampling rule, and the next token is the sampled peek. Returns
+        ``[n_slots, K + 3]`` int32: the window, the committed count n and
+        the next committed token."""
         max_commit = (self.budget - self.emitted).clamp_min(1)
-        window, n, self.logits, self.cache = gen.verify_step_paged(
-            self.cfg, self.params, _to_device(draft, self.device),
-            _to_device(dlen, self.device), self.logits, self.cache, self.eos,
-            max_commit, view_width=vw, attn_impl=self.attn_impl)
+        draft_d = _to_device(draft, self.device)
+        dlen_d = _to_device(dlen, self.device)
+        if sampled:
+            window, n, next_tok, self.logits, self.cache = \
+                gen.verify_step_paged_sampled(
+                    self.cfg, self.params, draft_d, dlen_d, self.logits,
+                    self.cache, self.eos, max_commit, *self._push_sampling(),
+                    self.emitted, view_width=vw, attn_impl=self.attn_impl)
+        else:
+            window, n, self.logits, self.cache = gen.verify_step_paged(
+                self.cfg, self.params, draft_d, dlen_d, self.logits,
+                self.cache, self.eos, max_commit, view_width=vw,
+                attn_impl=self.attn_impl)
+            next_tok = None
         self.emitted = self.emitted + n              # n = 0 on inactive rows
         in_commit = (torch.arange(window.shape[1], device=self.device)[None, :]
                      < n[:, None])
@@ -551,7 +792,8 @@ class ServingEngine:
         active = self.cache.active
         done = active & (committed_eos | (self.emitted >= self.budget))
         self.cache.active = active & ~done
-        next_tok = self.logits.argmax(-1).to(torch.int32)
+        if next_tok is None:
+            next_tok = self.logits.argmax(-1).to(torch.int32)
         return torch.cat([window, n[:, None], next_tok[:, None]], 1)
 
     def _chunk(self, i: int, toks: np.ndarray, off: int, w_real: int,
@@ -587,6 +829,7 @@ class ServingEngine:
                        and now - q.submit_t >= self.max_queue_delay_s)
             if expired or delayed:
                 self._rids.discard(q.req.rid)
+                self._rid_gens.pop(q.req.rid, None)
                 self._finish_completion(Completion(
                     rid=q.req.rid, tokens=[], finish_reason="shed",
                     submit_t=q.submit_t, first_token_t=None, done_t=now))
@@ -601,8 +844,11 @@ class ServingEngine:
         make it live, or, bucketed, leave a :class:`_Prefill` cursor that
         :meth:`_advance_prefills` runs one chunk per step. A request
         whose reservation cannot be met goes back to the queue head and
-        admission stops for this step."""
+        admission stops for this step. Pending forks take free slots
+        first: they extend work already prefilled, and their page holds
+        are live."""
         self._shed_queued()
+        self._spawn_forks()
         while self.queue:
             try:
                 slot = self.slots.index(None)
@@ -610,6 +856,7 @@ class ServingEngine:
                 return                      # slots full
             q = self.queue.popleft()
             req = q.req
+            sp = req.params if req.params is not None else self._default_params
             now = self._clock()
             needed = self._blocks_needed(req.prompt.size, req.max_new_tokens)
             owned = self._reserve_blocks(needed)
@@ -642,9 +889,20 @@ class ServingEngine:
             self.slots[slot] = _Slot(
                 req=req, submit_t=q.submit_t, admit_t=now,
                 deadline_t=q.deadline_t, owned=owned, spec_k=self.draft_k,
-                prefill=prefill)
+                prefill=prefill, sp=sp, mask=sp.logit_mask,
+                mask_state=(sp.logit_mask.init_state()
+                            if sp.logit_mask is not None else None))
+            self._set_slot_sampling(slot, sp, 0)
+            if prefill is None and sp.n > 1:
+                # Exact prefill ran at once: the parent is fork-ready.
+                self._capture_fork_source(slot, self.slots[slot])
+            if not sp.is_greedy:
+                self.stats.sampled_requests += 1
             self.stats.admitted += 1
             self.stats.record_queue_wait(now - q.submit_t)
+        # Exact admissions may have captured fork sources; place their
+        # children in the slots still free.
+        self._spawn_forks()
 
     def _advance_prefills(self) -> None:
         """Run ONE prefill chunk for every slot mid-admission. Chunks sit
@@ -672,6 +930,129 @@ class ServingEngine:
             p.next_off = off + w_real
             if final:
                 slot.prefill = None
+                if slot.sp.n > 1:
+                    # The prompt is in the pages and the row holds the
+                    # prompt-final logits: the parent is fork-ready.
+                    self._capture_fork_source(i, slot)
+        self._spawn_forks()
+
+    # -- copy-on-write forks (n > 1) ------------------------------------------
+
+    def _capture_fork_source(self, i: int, slot: _Slot) -> None:
+        """Snapshot a just-prefilled ``n > 1`` parent for forking. Each
+        pending generation takes a pool ref on every full prompt page
+        (owner ``("fork", rid, g)``) and on the partial boundary page
+        until its copy lands (``("fork-src", rid, g)``), so neither the
+        parent's retirement nor anything else frees a page a deferred
+        child needs. The prompt-final logits row is copied here, before a
+        later dispatch replaces the engine's logits."""
+        sp = slot.sp
+        bs = self.block_size
+        n_prompt = int(slot.req.prompt.size)
+        fp = n_prompt // bs                  # full, immutable prompt pages
+        shared = [int(self._tables[i, b]) for b in range(fp)]
+        boundary_bid = int(self._tables[i, fp]) if n_prompt % bs else None
+        gens = list(range(1, sp.n))
+        for g in gens:
+            for bid in shared:
+                self.pool.ref(bid, owner=("fork", slot.req.rid, g))
+            if boundary_bid is not None:
+                self.pool.ref(boundary_bid,
+                              owner=("fork-src", slot.req.rid, g))
+        self._fork_sources.append(_ForkSource(
+            req=slot.req, sp=sp, submit_t=slot.submit_t,
+            admit_t=slot.admit_t, deadline_t=slot.deadline_t,
+            gens_left=gens, table=self._tables[i].copy(),
+            needed=int(self._slot_blocks[i]), prompt_len=n_prompt,
+            logits_row=self.logits[i].clone(), shared=shared,
+            boundary_bid=boundary_bid))
+
+    def _materialize_fork(self, slot_idx: int, src: _ForkSource,
+                          g: int) -> bool:
+        """Install generation ``g`` of ``src`` into a free slot: the
+        parent's table entries for the full prompt pages, a fresh copy of
+        the boundary page (the child's first decode write lands in it),
+        fresh decode pages, and the row made live with the parent's
+        prefill-final logits. False (the source's holds intact, to retry
+        next quantum) when the pool cannot supply the fresh pages yet."""
+        bs = self.block_size
+        n_prompt = src.prompt_len
+        fp = n_prompt // bs
+        owned = self._reserve_blocks(src.needed - fp)
+        if owned is None:
+            return False
+        row = self._tables[slot_idx]
+        row[:] = self._kv_pool_blocks
+        row[:fp] = src.table[:fp]
+        row[fp:src.needed] = owned
+        self._slot_blocks[slot_idx] = src.needed
+        self._tables_dirty = True
+        if src.boundary_bid is not None:
+            gen.copy_pool_pages(self.cache, [src.boundary_bid], [owned[0]])
+            self.pool.unref(src.boundary_bid,
+                            owner=("fork-src", src.req.rid, g))
+            self.stats.cow_page_copies += 1
+        self.logits[slot_idx] = src.logits_row
+        self.eos[slot_idx] = -1 if src.req.eos_id is None else src.req.eos_id
+        self.budget[slot_idx] = src.req.max_new_tokens
+        self.emitted[slot_idx] = 0
+        self.cache.length[slot_idx] = n_prompt
+        self.cache.active[slot_idx] = True
+        self.slots[slot_idx] = _Slot(
+            req=src.req, submit_t=src.submit_t, admit_t=src.admit_t,
+            deadline_t=src.deadline_t, spec_k=self.draft_k, owned=owned,
+            sp=src.sp, gen_idx=g, shared=list(src.shared),
+            mask=src.sp.logit_mask,
+            mask_state=(src.sp.logit_mask.init_state()
+                        if src.sp.logit_mask is not None else None))
+        self._set_slot_sampling(slot_idx, src.sp, g)
+        self.stats.admitted += 1
+        self.stats.fork_shared_tokens += fp * bs
+        if not src.sp.is_greedy:
+            self.stats.sampled_requests += 1
+        return True
+
+    def _spawn_forks(self) -> None:
+        """Place pending fork generations into free slots. A source whose
+        deadline passed sheds its remaining generations, holds
+        released."""
+        if not self._fork_sources:
+            return
+        remaining: List[_ForkSource] = []
+        for src in self._fork_sources:
+            if (src.deadline_t is not None
+                    and self._clock() >= src.deadline_t):
+                self._cancel_fork_source(src, "deadline")
+                continue
+            while src.gens_left:
+                try:
+                    slot = self.slots.index(None)
+                except ValueError:
+                    break
+                if not self._materialize_fork(slot, src, src.gens_left[0]):
+                    break
+                src.gens_left.pop(0)
+            if src.gens_left:
+                remaining.append(src)
+        self._fork_sources = remaining
+
+    def _cancel_fork_source(self, src: _ForkSource, reason: str) -> None:
+        """Release every pending generation's page holds and emit its
+        (empty) Completion. The caller drops ``src`` from
+        ``_fork_sources``."""
+        now = self._clock()
+        for g in list(src.gens_left):
+            for bid in src.shared:
+                self.pool.unref(bid, owner=("fork", src.req.rid, g))
+            if src.boundary_bid is not None:
+                self.pool.unref(src.boundary_bid,
+                                owner=("fork-src", src.req.rid, g))
+            self._finish_completion(Completion(
+                rid=src.req.rid, tokens=[], finish_reason=reason,
+                submit_t=src.submit_t, first_token_t=None, done_t=now,
+                admit_t=src.admit_t, gen=g))
+            self._rid_done(src.req.rid)
+        src.gens_left = []
 
     @property
     def n_active(self) -> int:
@@ -680,7 +1061,8 @@ class ServingEngine:
     @property
     def idle(self) -> bool:
         return (not self.queue and self.n_active == 0
-                and self._pending is None and not self._done_buf)
+                and self._pending is None and not self._done_buf
+                and not self._fork_sources)
 
     def step(self) -> List[Completion]:
         """One scheduling quantum, pipelined one dispatch deep:
@@ -692,8 +1074,12 @@ class ServingEngine:
         3. admit waiting requests into freed slots and advance every
            slot's prefill by one chunk.
 
-        Returns the requests that finished this quantum.
-        ``spec_decode=True`` engines run :meth:`_step_spec` instead."""
+        Returns the requests that finished this quantum. While a
+        decoding slot carries a grammar mask, :meth:`_step_constrained`
+        runs instead; otherwise ``spec_decode=True`` engines run
+        :meth:`_step_spec`."""
+        if self._masked_decoding():
+            return self._step_constrained()
         if self.spec_decode:
             return self._step_spec()
         finished: List[Completion] = list(self._done_buf)
@@ -716,12 +1102,69 @@ class ServingEngine:
                 for s in self.slots]
 
     def _dispatch_plain(self, snapshot):
-        """Dispatch the pipelined plain chunk when any slot decodes: the
-        ``(token fetch, snapshot)`` to book next quantum, or None."""
+        """Dispatch the pipelined plain chunk when any slot decodes — the
+        sampled twin when a decoding row samples, else the greedy chunk:
+        the ``(token fetch, snapshot)`` to book next quantum, or None."""
         if not any(s is not None for s in snapshot):
             return None
         self._push_tables()
-        return _Fetch(self._decode_chunk(self._view_width())), snapshot
+        chunk = (self._decode_chunk_sampled if self._sampled_in(snapshot)
+                 else self._decode_chunk)
+        return _Fetch(chunk(self._view_width())), snapshot
+
+    def _step_constrained(self) -> List[Completion]:
+        """One quantum while a decoding slot carries a grammar mask. The
+        automaton must see token i before it can admit token i+1, so the
+        quantum books the pipelined chunk still in flight, then
+        dispatches ONE masked micro-step and books it at once. Unmasked
+        rows ride along under all-True mask rows; since draws are keyed
+        by (seed, gen, position), their streams do not change with the
+        kind of quantum. A masked slot whose grammar admits nothing (and
+        that has no EOS to carry the end) retires as an EOS finish."""
+        finished: List[Completion] = list(self._done_buf)
+        self._done_buf.clear()
+        finished.extend(self._retire_due())
+        finished.extend(self._process_pending())  # booking order = stream order
+        snapshot = self._decoding_snapshot()
+        vocab = self.cfg.vocab_size
+        mask = np.ones((self.n_slots, vocab), bool)
+        now = self._clock()
+        for i, s in enumerate(snapshot):
+            if s is None or s.mask is None:
+                continue
+            allowed = s.mask.allowed(s.mask_state)
+            if not allowed.any():
+                finished.append(self._retire_slot(i, s, "eos", now))
+                snapshot[i] = None
+                continue
+            mask[i] = allowed
+            self.stats.mask_tokens_filtered += int(vocab - int(allowed.sum()))
+        if any(s is not None for s in snapshot):
+            self._push_tables()
+            toks = _Fetch(self._masked_step(
+                self._view_width(), mask,
+                self._sampled_in(snapshot) > 0)).numpy()
+            now = self._clock()
+            self.stats.steps += 1
+            for i, s in enumerate(snapshot):
+                if s is None or self.slots[i] is not s:
+                    continue
+                tok = int(toks[i])
+                if s.mask is not None:
+                    s.mask_state = s.mask.advance(s.mask_state, tok)
+                # The masked step does not peek: speculation for this
+                # slot resumes after its next plain quantum.
+                s.next_tok = None
+                comp = self._book_token(i, s, tok, now)
+                if comp is not None:
+                    # Recorded here as the other booking paths record
+                    # theirs (the JAX engine's constrained step does not).
+                    self.stats.record(comp)
+                    finished.append(comp)
+        self._admit_waiting()
+        self._advance_prefills()
+        self._sync_stats()
+        return finished
 
     def _step_spec(self) -> List[Completion]:
         """One quantum with speculative decoding. Drafting needs the last
@@ -768,8 +1211,9 @@ class ServingEngine:
             if proposal is not None:
                 draft, dlen = proposal
                 self._push_tables()
-                out = _Fetch(self._verify(self._view_width(), draft,
-                                          dlen)).numpy()
+                out = _Fetch(self._verify(
+                    self._view_width(), draft, dlen,
+                    sampled=self._sampled_in(snapshot) > 0)).numpy()
                 k1 = draft.shape[1] + 1
                 finished.extend(self._book_spec(
                     snapshot, out[:, :k1], out[:, k1], out[:, k1 + 1], dlen))
@@ -936,14 +1380,15 @@ class ServingEngine:
         if not done_eos and len(slot.tokens) < req.max_new_tokens:
             return None
         self._free_owned(slot)
+        self._free_shared(slot)
         self._clear_table_row(i)
         comp = Completion(
             rid=req.rid, tokens=slot.tokens,
             finish_reason="eos" if done_eos else "length",
             submit_t=slot.submit_t, first_token_t=slot.first_token_t,
-            done_t=now, admit_t=slot.admit_t)
+            done_t=now, admit_t=slot.admit_t, gen=slot.gen_idx)
         self.slots[i] = None
-        self._rids.discard(req.rid)
+        self._rid_done(req.rid)
         return comp
 
     def _process_pending(self) -> List[Completion]:
@@ -990,6 +1435,7 @@ class ServingEngine:
         while self.queue:
             q = self.queue.popleft()
             self._rids.discard(q.req.rid)
+            self._rid_gens.pop(q.req.rid, None)
             comp = Completion(
                 rid=q.req.rid, tokens=[], finish_reason="shed",
                 submit_t=q.submit_t, first_token_t=None, done_t=now)
@@ -1005,6 +1451,10 @@ class ServingEngine:
         for i, slot in enumerate(self.slots):
             if slot is not None:
                 out.append(self._retire_slot(i, slot, "deadline", now))
+        # Forks never placed shed with their page holds released.
+        for src in self._fork_sources:
+            self._cancel_fork_source(src, "deadline")
+        self._fork_sources = []
         out.extend(self._done_buf)
         self._done_buf.clear()
         self._sync_stats()
@@ -1032,7 +1482,8 @@ class ServingEngine:
             self.submit(r)
         if not max_steps:
             max_steps = sum(
-                (r.max_new_tokens + 2)
+                (r.params.n if r.params is not None else 1)
+                * (r.max_new_tokens + 2)
                 + -(-int(np.asarray(r.prompt).size) // self.block_size)
                 for r in requests
             ) + 2 * len(requests) + 4

@@ -40,6 +40,7 @@ from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_controller_tpu_torch.models.transformer import (
     Params, TransformerConfig, rmsnorm, rope,
 )
+from kubeflow_controller_tpu_torch.ops import prng
 from kubeflow_controller_tpu_torch.ops.attention import mha, paged_kv_view
 from kubeflow_controller_tpu_torch.ops.flash_attention import rope_full_tables
 from kubeflow_controller_tpu_torch.ops.paged_attention import (
@@ -508,7 +509,7 @@ def prefill_into_paged(
     return logits, cache
 
 
-# -- greedy speculative verify ---------------------------------------------------
+# -- speculative verify ---------------------------------------------------
 
 def verify_step_paged(
     cfg: TransformerConfig, params: Params,
@@ -520,10 +521,16 @@ def verify_step_paged(
     max_commit: torch.Tensor,   # [B] int32 commit cap, >= 1
     view_width: Optional[int] = None,
     attn_impl: str = "kernel",
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, PagedKVCache]:
+    sampling: Optional[Tuple[torch.Tensor, ...]] = None,
+) -> Tuple[torch.Tensor, ...]:
     """Verify every slot's window ``[t0 = argmax(logits), draft]`` (W =
     K + 1 positions from ``length[b]``) in ONE forward over the slot's
     pages, and commit the longest argmax-consistent run.
+
+    ``sampling`` (``(temperature, top_k, top_p, seed, gen, pos)``, each
+    ``[B]``; see :func:`verify_step_paged_sampled`) draws t0 and the
+    per-position predictions instead of taking argmaxes, and adds the
+    next committed token to the result.
 
     Acceptance is the JAX package's: the cumulative prefix of draft
     tokens equal to the previous position's argmax, capped by
@@ -550,7 +557,14 @@ def verify_step_paged(
     rep = cfg.n_heads // g
     dev = draft.device
     pos0 = cache.length                                    # [B]
-    t0 = logits.argmax(-1).to(torch.int32)
+    if sampling is None:
+        t0 = logits.argmax(-1).to(torch.int32)
+    else:
+        # Sampled rows draw t0 under the key of the next stream position;
+        # greedy rows take the argmax inside sample_step_slots.
+        s_temp, s_topk, s_topp, s_seed, s_gen, s_pos = sampling
+        t0 = sample_step_slots(logits, s_temp, s_topk, s_topp, s_seed,
+                               s_gen, s_pos)
     window = torch.cat([t0[:, None], draft.to(torch.int32)], 1)   # [B, W]
     x = params["embed"].to(dt)[window.long()]              # [B, W, D]
     arange_w = torch.arange(w, dtype=torch.int32, device=dev)
@@ -599,6 +613,15 @@ def verify_step_paged(
     all_logits = _head_logits(cfg, params, x)              # [B, W, vocab]
 
     preds = all_logits.argmax(-1).to(torch.int32)          # [B, W]
+    if sampling is not None:
+        # Speculative sampling with a point-mass draft: sample the
+        # filtered target at each window position under that position's
+        # key and accept a draft token iff it equals the sample; on a
+        # rejection the sample is the correction, carried as next_tok.
+        pred_pos = s_pos[:, None] + 1 + arange_w[None, :]
+        sampled_preds = _sample_rows_2d(
+            all_logits, s_temp, s_topk, s_topp, s_seed, s_gen, pred_pos)
+        preds = torch.where((s_temp > 0.0)[:, None], sampled_preds, preds)
     ok = ((window[:, 1:] == preds[:, :-1])
           & (arange_w[None, :k_draft] < draft_len[:, None]))
     acc = torch.cumprod(ok.to(torch.int32), 1).sum(1)
@@ -621,6 +644,193 @@ def verify_step_paged(
     _pool_write(cache.v, cache.v_scale, None, blk, woff,
                 torch.stack(v_rows).reshape(cfg.n_layers, b * w, g, hd), valid)
     idx = (n.long() - 1).clamp(0, k_draft)
-    new_logits = all_logits[torch.arange(b, device=dev), idx]
+    rows = torch.arange(b, device=dev)
+    new_logits = all_logits[rows, idx]
     cache.length = pos0 + n
-    return window, n, new_logits, cache
+    if sampling is None:
+        return window, n, new_logits, cache
+    # preds[n - 1] is the draw at stream position pos + n: the next
+    # quantum's first sample from new_logits (its argmax on greedy rows).
+    return window, n, preds[rows, idx], new_logits, cache
+
+
+def verify_step_paged_sampled(
+    cfg: TransformerConfig, params: Params,
+    draft: torch.Tensor,        # [B, K] int32 proposed continuations
+    draft_len: torch.Tensor,    # [B] int32 in [0, K] valid drafts a row
+    logits: torch.Tensor,       # [B, vocab] carried last-position logits
+    cache: PagedKVCache,
+    eos: torch.Tensor,          # [B] int32 EOS id a row (-1 = none)
+    max_commit: torch.Tensor,   # [B] int32 commit cap, >= 1
+    temperature: torch.Tensor,  # [B] f32, <= 0 rows verify greedily
+    top_k: torch.Tensor,        # [B] int32
+    top_p: torch.Tensor,        # [B] f32
+    seed: torch.Tensor,         # [B] int32
+    gen: torch.Tensor,          # [B] int32
+    pos: torch.Tensor,          # [B] int32 tokens emitted a row
+    view_width: Optional[int] = None,
+    attn_impl: str = "kernel",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           PagedKVCache]:
+    """:func:`verify_step_paged` with per-row sampling: the speculative
+    sampling rule for a deterministic draft (accept-with-probability
+    ``min(1, p/q)`` for a point-mass ``q`` is "sample the filtered
+    target; accept while it equals the draft", and the sample at the
+    rejected position is the residual correction). Greedy rows keep the
+    argmax-equality rule with the same bits. Keys are
+    :func:`_sample_keys`', so acceptance does not depend on the batch.
+    Returns ``(window, n, next_tok, new_logits, cache)``: ``next_tok`` is
+    the draw the next quantum makes first. One device only (the JAX
+    engine's tp > 1 path is not ported)."""
+    return verify_step_paged(
+        cfg, params, draft, draft_len, logits, cache, eos, max_commit,
+        view_width=view_width, attn_impl=attn_impl,
+        sampling=(temperature, top_k, top_p, seed, gen, pos))
+
+
+# -- batched sampling: per-row filters, counter-based per-request keys ---------
+
+def generation_keys(seed: torch.Tensor, gen: torch.Tensor) -> prng.Key:
+    """Each generation's key ``fold_in(PRNGKey(seed), gen)``: a function
+    of the request's lane alone, so the engine computes it on the host
+    when a lane changes."""
+    return prng.fold_in(prng.prng_key(seed), gen)
+
+
+def _sample_keys(seed: torch.Tensor, gen: torch.Tensor,
+                 pos: torch.Tensor) -> prng.Key:
+    """Per-row keys ``fold_in(fold_in(PRNGKey(seed), gen), pos)``: a
+    function of (request seed, generation index, position in the
+    generated stream) only, never of the step, the slot or the batch."""
+    return prng.fold_in(generation_keys(seed, gen), pos)
+
+
+def _filter_logits_rows(
+    logits: torch.Tensor,       # [B, vocab]
+    temperature: torch.Tensor,  # [B] f32, <= 0 rows pass through (greedy)
+    top_k: torch.Tensor,        # [B] int32, 0 disables
+    top_p: torch.Tensor,        # [B] f32, >= 1 disables
+) -> torch.Tensor:
+    """Per-row temperature, top-k and top-p, the JAX package's op
+    sequence and tie handling (``scaled < kth`` and ``scaled < thresh``
+    go to ``-inf``; ties with the cut survive). A row whose knob is off
+    passes through that filter bitwise.
+
+    One sort serves both filters: the top-k cut maps the descending
+    values to themselves with a ``-inf`` tail, which is exactly the sort
+    of the top-k-filtered row that the JAX package sorts again. The
+    softmax and the cumulative sum sum in another order than XLA's, so
+    the top-p cut can move only on a row whose cumulative mass lies
+    within a few ulps of ``top_p``."""
+    safe_t = torch.where(temperature > 0.0, temperature,
+                         torch.ones_like(temperature))
+    scaled = logits / safe_t[:, None]
+    v = scaled.shape[-1]
+    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    sorted_desc = torch.sort(scaled, -1, descending=True).values
+    kth = sorted_desc.gather(
+        -1, (top_k.long() - 1).clamp(0, v - 1)[:, None])
+    on_k = (top_k > 0)[:, None]
+    scaled = torch.where(on_k & (scaled < kth), neg_inf, scaled)
+    sorted2 = torch.where(on_k & (sorted_desc < kth), neg_inf, sorted_desc)
+    e = torch.exp(sorted2 - sorted2[:, :1])
+    cum = torch.cumsum(e / e.sum(-1, keepdim=True), -1)
+    keep_sorted = torch.cat(
+        [torch.ones_like(cum[:, :1], dtype=torch.bool),
+         cum[:, :-1] < top_p[:, None]], -1)
+    thresh = torch.where(keep_sorted, sorted2,
+                         torch.tensor(float("inf"), device=logits.device)
+                         ).amin(-1, keepdim=True)
+    return torch.where((top_p < 1.0)[:, None] & (scaled < thresh),
+                       neg_inf, scaled)
+
+
+def sampling_noise(gen_key: prng.Key, pos: torch.Tensor,
+                   vocab: int) -> torch.Tensor:
+    """The Gumbel noise of each row's draw at ``pos`` under its
+    generation key (:func:`generation_keys`, broadcast against pos):
+    ``[..., vocab]`` float32. It depends on the key alone, so the engine
+    draws a whole chunk's noise in one call."""
+    return prng.gumbel_rows(prng.fold_in(gen_key, pos), vocab)
+
+
+def sample_with_noise(
+    logits: torch.Tensor,       # [B, vocab]
+    temperature: torch.Tensor,  # [B] f32, <= 0 means greedy for that row
+    top_k: torch.Tensor,        # [B] int32
+    top_p: torch.Tensor,        # [B] f32
+    noise: torch.Tensor,        # [B, vocab] from :func:`sampling_noise`
+    mask: Optional[torch.Tensor] = None,   # [B, vocab] bool, True = allowed
+) -> torch.Tensor:
+    """:func:`sample_step_slots` given each row's Gumbel noise."""
+    if mask is not None:
+        logits = torch.where(mask, logits,
+                             torch.tensor(float("-inf"), device=logits.device))
+    greedy = logits.argmax(-1)
+    filtered = _filter_logits_rows(logits, temperature, top_k, top_p)
+    sampled = torch.argmax(noise + filtered, -1)
+    return torch.where(temperature > 0.0, sampled, greedy).to(torch.int32)
+
+
+def sample_step_slots(
+    logits: torch.Tensor,       # [B, vocab]
+    temperature: torch.Tensor,  # [B] f32, <= 0 means greedy for that row
+    top_k: torch.Tensor,        # [B] int32
+    top_p: torch.Tensor,        # [B] f32
+    seed: torch.Tensor,         # [B] int32 per-request seed
+    gen: torch.Tensor,          # [B] int32 generation index
+    pos: torch.Tensor,          # [B] int32 position in the generated stream
+    mask: Optional[torch.Tensor] = None,   # [B, vocab] bool, True = allowed
+) -> torch.Tensor:
+    """One token a slot. Greedy rows (``temperature <= 0``) take the
+    argmax the greedy engine takes (the first maximum; the same bits), so
+    sampled traffic in a batch never moves a greedy row. Sampled rows
+    draw ``categorical`` from their filtered logits under the key of
+    :func:`_sample_keys`. ``mask`` sends disallowed tokens to ``-inf``
+    before both; an all-True row changes nothing."""
+    return sample_with_noise(
+        logits, temperature, top_k, top_p,
+        sampling_noise(generation_keys(seed, gen), pos, logits.shape[-1]),
+        mask)
+
+
+def _sample_rows_2d(
+    all_logits: torch.Tensor,   # [B, W, vocab]
+    temperature: torch.Tensor,  # [B]
+    top_k: torch.Tensor,        # [B]
+    top_p: torch.Tensor,        # [B]
+    seed: torch.Tensor,         # [B]
+    gen: torch.Tensor,          # [B]
+    pos: torch.Tensor,          # [B, W] stream position of each column
+) -> torch.Tensor:
+    """:func:`sample_step_slots` over a ``[B, W]`` window (no mask): each
+    position draws under its own key, so the draw at stream position p is
+    the draw plain decode would make there."""
+    b, w, v = all_logits.shape
+    rep = lambda x: x.repeat_interleave(w)  # noqa: E731
+    return sample_step_slots(
+        all_logits.reshape(b * w, v), rep(temperature), rep(top_k),
+        rep(top_p), rep(seed), rep(gen), pos.reshape(-1)).reshape(b, w)
+
+
+# -- copy-on-write page copy ---------------------------------------------------
+
+def copy_pool_pages(cache: PagedKVCache, src_ids, dst_ids) -> PagedKVCache:
+    """Copy whole pool pages ``src -> dst`` in place, on the device: the
+    copy-on-write of ``n > 1`` forks. int8 pools copy the int8 payload
+    and its scales verbatim (no requantization), so a copied page is the
+    bytes of its source. A sentinel (``>= n_blocks``) destination drops
+    its write; a sentinel source reads the last page, as JAX's clamped
+    gather does."""
+    n_blocks = cache.k.shape[1]
+    pairs = [(min(int(s), n_blocks - 1), int(d))
+             for s, d in zip(src_ids, dst_ids) if 0 <= int(d) < n_blocks]
+    if not pairs:
+        return cache
+    dev = cache.k.device
+    src = torch.tensor([p[0] for p in pairs], dtype=torch.long, device=dev)
+    dst = torch.tensor([p[1] for p in pairs], dtype=torch.long, device=dev)
+    for t in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        if t is not None:
+            t[:, dst] = t[:, src]
+    return cache

@@ -164,9 +164,10 @@ _SERVE_KW = [
     dict(prefix_cache=True), dict(speculative=True), dict(tp=2),
     dict(n=2), dict(model_dir="/nonexistent"), dict(config="tiny_moe"),
 ]
-#: Refused until exact prefill, speculative decoding and checkpoints were
-#: ported: these now serve.
-_SERVE_PORTED = ("prefill_mode", "speculative", "model_dir")
+#: Refused until exact prefill, speculative decoding, checkpoints and
+#: sampling were ported: these now serve.
+_SERVE_PORTED = ("prefill_mode", "speculative", "model_dir", "temperature",
+                 "n")
 
 
 @pytest.mark.parametrize("kwargs", _SERVE_KW,
@@ -177,7 +178,8 @@ def test_serve_refuses_what_is_not_ported(kwargs):
     base.update(kwargs)
     if next(iter(kwargs)) in _SERVE_PORTED:
         out = serve_lm.serve(**base)
-        assert out["requests"] == 1 and out["tokens_out"] == 2
+        n = kwargs.get("n", 1)                 # n generations a prompt
+        assert out["requests"] == n and out["tokens_out"] == 2 * n
         assert out["restored_step"] == -1      # no checkpoint: a fresh init
         return
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -200,13 +200,13 @@ def test_serve_streams_equal_jax_engine(tmp_path):
 
 def test_engine_refuses_what_is_not_ported():
     """What the port does not serve yet raises "not yet ported"; exact
-    prefill and greedy speculative decoding (refused before they were
-    ported) now build engines, and the prefix cache with exact prefill
-    raises the JAX engine's ValueError."""
+    prefill, greedy speculative decoding and sampling (refused before
+    they were ported) now build engines, and the prefix cache with exact
+    prefill raises the JAX engine's ValueError."""
     _, cfg_t, _, params_t = _weights()
     for kw in (dict(prefix_cache=True, prefill_mode="bucketed"),
                dict(spec_decode=True, proposer="radix"),
-               dict(temperature=0.5), dict(tp=2), dict(host_kv_mb=1.0)):
+               dict(tp=2), dict(host_kv_mb=1.0)):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16,
                           device="cpu", **kw)
@@ -219,6 +219,13 @@ def test_engine_refuses_what_is_not_ported():
                             device="cpu", **kw)
         assert eng.prefill_mode == kw.get("prefill_mode", "exact")
         assert eng.spec_decode == kw.get("spec_decode", False)
+    eng = ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16,
+                        temperature=0.5, top_k=5, top_p=0.9, seed=3,
+                        device="cpu")
+    assert not eng._default_params.is_greedy
+    with pytest.raises(ValueError, match="temperature"):
+        ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16,
+                      temperature=-1.0, device="cpu")
     with pytest.raises(ValueError, match="draft_k"):
         ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16,
                       spec_decode=True, draft_k=0, device="cpu")
@@ -275,10 +282,19 @@ def test_cli_serves_on_cpu_and_refuses_unported_flags(tmp_path):
     rows = [json.loads(line) for line in out.read_text().splitlines()]
     assert [r["rid"] for r in rows] == [0, 1, 2]
     assert all(len(r["completion"]) == 4 for r in rows)
-    for flag in (["--temperature", "0.5"], ["--tp", "2"],
-                 ["--quant", "int8"], ["--speculative", "--proposer", "radix"]):
+    for flag in (["--tp", "2"], ["--quant", "int8"],
+                 ["--speculative", "--proposer", "radix"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             serve_lm.main(argv + flag)
+    # Sampling serves now: a seeded run writes the same file twice, and
+    # its streams are not the greedy ones.
+    sampled = []
+    for _ in range(2):
+        assert serve_lm.main(argv + ["--temperature", "0.5"]) == 0
+        sampled.append([json.loads(line)
+                        for line in out.read_text().splitlines()])
+    assert sampled[0] == sampled[1] and sampled[0] != rows
+    assert all(len(r["completion"]) == 4 for r in sampled[0])
     # Refused until ported; the same completions now, by every route.
     for flag in (["--speculative"], ["--speculative", "--draft-k", "2"],
                  ["--prefill-mode", "bucketed"],
@@ -445,8 +461,10 @@ def test_cli_takes_every_reference_option_and_refuses_off_default_values(
                 "--prompt-len", "9", "--max-new-tokens", "1", "--block-size", "8"]
         ported = [["--model-dir", str(tmp_path)], ["--speculative"],
                   _off_default(port["--draft-k"]),
-                  _off_default(port["--prefill-mode"])]
-        assert ported[-1] == ["--prefill-mode", "bucketed"]
+                  _off_default(port["--prefill-mode"]),
+                  ["--temperature", "0.5"], ["--top-k", "3"],
+                  ["--top-p", "0.5"], ["--n", "2"], ["--grammar", "re:[0-9]+"]]
+        assert ported[3] == ["--prefill-mode", "bucketed"]
     else:
         unported = [port[o] for o in ("--tp", "--fsdp", "--sp")]
         base = ["--config", "tiny", "--device", "cpu", "--total-steps", "1",
