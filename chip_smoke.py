@@ -73,6 +73,21 @@ Phases, in order; any failure exits non-zero before the result line:
    a profile of one decode micro-step and one prefill chunk (wall time,
    device time by kernel, idle share) and one request's first-token and
    next-token logits under ``attn_impl="kernel"`` and ``"gather"``;
+5b. prefix (on one set of llama3_8b weights): 32 chat requests behind
+   one 192-token system prompt with the prefix cache off and on (the hit
+   count and the prefill chunks predicted from the schedule and checked
+   exactly; streams equal but after a near-tie, ``SPEC_FLIP_GAP_OF_RMS``); 16
+   families of 192-token prefixes in 3 waves through a 256 MiB pool with
+   the host tier off and at 1024 MiB (equal streams, spills and
+   rehydrates, their ms a page and GB/s beside a pinned ``copy_``, the
+   leak sweep and ``reset()``), and int8 pages through one slot;
+   ``serve(turns=3)`` with the cache (the hit rate predicted exactly)
+   and on the contiguous path (B1 for turn 1, ``prefill_continue``
+   after), and a ``register_prefix`` round trip; the radix proposer over
+   two waves of the same prompts (wave 2's streams may leave wave 1's
+   only after a near-tie); each run's launches exact
+   (``paged_chunk`` = (prefill chunks + verify steps) x 32); then the
+   tiny config, card vs CPU, through each of those paths;
 6. train: bench.py's flagship decoder (B16 S1024, 16 layers, remat) and
    llama3_8b at full width and 2 layers (B2 S2048), 8 steps each through
    ``TrainLoop``; the flagship with int8 projections, ``"int8_fused"``
@@ -1079,42 +1094,65 @@ def _reset_serve_launches():
     fa.reset_launches()
 
 
+def _counted(fn):
+    """``fn()`` with every serving kernel's count zeroed just before and
+    read just after, the card synchronized on both sides: (its result,
+    wall seconds, launches)."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_serve_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, _serve_launches()
+
+
+def _check_streams(label, streams, keys, n_tokens, vocab):
+    """Exactly the requests ``keys`` completed, each with ``n_tokens``
+    in-vocab tokens."""
+    if sorted(streams) != sorted(keys):
+        raise AssertionError(f"{label}: completions {sorted(streams)}")
+    for key, toks in streams.items():
+        if len(toks) != n_tokens or not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"{label}: bad completion {key}: {toks}")
+
+
+def _log_serve(label, what, smi, res, wall, launches):
+    log(f"{label} llama3_8b (d_model 4096, 32 layers, {what}) on {smi}: ttft_p50 "
+        f"{res['ttft_p50_ms']} ms, ttft_p95 {res['ttft_p95_ms']} ms, tpot_p50 "
+        f"{res['tpot_p50_ms']} ms, tokens/s {res['tokens_per_sec']}, wall {wall} s, "
+        f"prefill chunks {res['prefill_chunks']}, prefix hit tokens "
+        f"{res['prefix_hit_tokens']}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+
+
 def _serve_run(label, smi, batch, n=1, prompt_len=256, **kw):
     """One ``serve()`` at llama3_8b (full width and depth, bf16, 8 slots,
     ``prompt_len``-token prompts, 32 new tokens, pages of 16) with every
     serving kernel's count zeroed just before and read just after. Checks
     the completions (``batch * n`` of 32 in-vocab tokens) and returns
     (summary, launches, {rid: tokens}; {(rid, gen): tokens} when n > 1)."""
-    import torch
-
     from kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm import serve
     from kubeflow_controller_tpu_torch.models import transformer as tfm
 
     vocab = tfm.llama3_8b_config().vocab_size
     out_file = os.path.join(OUT_DIR, f"serve_{label}.jsonl")
-    torch.cuda.synchronize()
-    _reset_serve_launches()
-    res = serve(config="llama3_8b", batch=batch, slots=8, prompt_len=prompt_len,
-                max_new_tokens=32, block_size=16, output_file=out_file, n=n,
-                **kw)
-    torch.cuda.synchronize()
-    launches = _serve_launches()
-    comps = _read_completions(out_file)
-    if len(comps) != batch * n or res["requests"] != batch * n:
-        raise AssertionError(f"serve[{label}]: {len(comps)} of {batch * n} completions")
-    for c in comps:
-        toks = c["completion"]
-        if len(toks) != 32 or not all(0 <= t < vocab for t in toks):
-            raise AssertionError(f"serve[{label}]: bad completion {c['rid']}: {toks}")
-    log(f"serve[{label}] llama3_8b (d_model 4096, 32 layers, "
-        f"{json.dumps({k: v for k, v in kw.items() if k != 'input_file'})}) on "
-        f"{smi}: {batch} requests x 32 tokens, ttft_p50 {res['ttft_p50_ms']} ms, "
-        f"ttft_p95 {res['ttft_p95_ms']} ms, tpot_p50 {res['tpot_p50_ms']} ms, "
-        f"tokens/s {res['tokens_per_sec']}, wall {res['wall_s']} s, "
-        f"prefill chunks {res['prefill_chunks']}, launches "
-        f"{ {k: v for k, v in launches.items() if v} }")
-    return res, launches, {((c["rid"], c["gen"]) if n > 1 else c["rid"]):
-                           c["completion"] for c in comps}
+    res, wall, launches = _counted(lambda: serve(
+        config="llama3_8b", batch=batch, slots=8, prompt_len=prompt_len,
+        max_new_tokens=32, block_size=16, output_file=out_file, n=n, **kw))
+    streams = {((c["rid"], c["gen"]) if n > 1 else c["rid"]): c["completion"]
+               for c in _read_completions(out_file)}
+    if res["requests"] != batch * n:
+        raise AssertionError(f"serve[{label}]: {res['requests']} of {batch * n} "
+                             f"requests")
+    _check_streams(f"serve[{label}]", streams,
+                   [(r, g) if n > 1 else r for r in range(batch) for g in range(n)],
+                   32, vocab)
+    what = json.dumps({k: v for k, v in kw.items() if k != "input_file"})
+    _log_serve(f"serve[{label}]", f"{batch} requests x 32 tokens, {what}", smi, res,
+               res["wall_s"], launches)
+    return res, launches, streams
 
 
 def _tiled_prompts(path, vocab, n, seed, period=16, reps=16):
@@ -1131,41 +1169,52 @@ def _tiled_prompts(path, vocab, n, seed, period=16, reps=16):
     return path
 
 
-def _first_divergence_gaps(seed, prompts, plain, spec):
-    """For each request whose speculative stream differs from its plain
-    stream: (rid, first differing position, the top-2 logit gap there and
-    the logits' RMS). The logits come from one block-prefill forward over
-    the prompt and the plain stream up to that position, on the llama3_8b
-    weights ``serve`` drew from ``seed``."""
-    import gc
+def _stream_context(prompts, streams):
+    """``context(rid, pos)``: the tokens a single-turn request's run had
+    before its ``pos``-th generated token."""
+    return lambda rid, pos: list(map(int, prompts[rid])) + streams[rid][:pos]
 
+
+def _first_divergence_gaps(params, a, b, context):
+    """For each request whose stream in ``b`` differs from its stream in
+    ``a``: (rid, first differing position, the top-2 logit gap there and
+    the logits' RMS). The logits come from one block-prefill forward over
+    ``context(rid, pos)``, the tokens ``a``'s run had before that
+    position, on the llama3_8b weights ``params``."""
     import torch
 
     from kubeflow_controller_tpu_torch.models import generate as gen
     from kubeflow_controller_tpu_torch.models import transformer as tfm
 
-    diverged = [(rid, next(i for i, (a, b) in enumerate(zip(plain[rid], spec[rid]))
-                           if a != b))
-                for rid in sorted(plain) if plain[rid] != spec[rid]]
-    if not diverged:
-        return []
-    gc.collect()
-    torch.cuda.empty_cache()
     cfg = tfm.llama3_8b_config()
-    params = tfm.init_params(cfg, seed=seed, device="cuda", dtype=cfg.dtype)
     out = []
-    for rid, p in diverged:
-        ctx = list(prompts[rid]) + plain[rid][:p]
+    for rid in sorted(a):
+        if a[rid] == b[rid]:
+            continue
+        p = next(i for i, (x, y) in enumerate(zip(a[rid], b[rid])) if x != y)
+        ctx = context(rid, p)
         logits, _ = gen.prefill(
             cfg, params, torch.tensor([ctx], dtype=torch.int32, device="cuda"),
             gen.init_kv_cache(cfg, 1, len(ctx), device="cuda"))
         top = logits[0].topk(2).values
         out.append((rid, p, float(top[0] - top[1]),
-                    float(logits[0].pow(2).mean().sqrt())))
-    del params
-    gc.collect()
-    torch.cuda.empty_cache()
+                    float(logits[0].float().pow(2).mean().sqrt())))
     return out
+
+
+def _check_near_ties(label, gaps, n, gate=True):
+    """Log each first divergence with its gap and limit; with ``gate``,
+    fail on one past a near-tie (a gap over ``SPEC_FLIP_GAP_OF_RMS``
+    times the logits' RMS)."""
+    for rid, pos, gap, rms in gaps:
+        log(f"{label}: request {rid} first differs at token {pos}, top-2 logit "
+            f"gap {gap} (logits rms {rms}, limit {SPEC_FLIP_GAP_OF_RMS * rms})")
+    bad = [g for g in gaps if g[2] > SPEC_FLIP_GAP_OF_RMS * g[3]]
+    if gate and bad:
+        raise AssertionError(f"{label}: streams differ past a near-tie: {bad}")
+    log(f"{label}: {n - len(gaps)} of {n} streams equal, {len(gaps)} differ, "
+        f"{len(bad)} of them past a near-tie"
+        + ("" if gate else " (a finding: different computations)"))
 
 
 class _OracleProposer:
@@ -1557,7 +1606,6 @@ def sampling_serve_phase(smi, runs, tiled):
     * GRAMMAR on 4 requests: every committed token admissible on replay;
       the masked step's ms a token and the first ``allowed()`` build's.
     """
-    import numpy as np
 
     from kubeflow_controller_tpu_torch.dataplane import sampling
     from kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm import (
@@ -1730,21 +1778,668 @@ def serve_phase(smi):
         f"{plain_res['tpot_p50_ms']} ms, tokens/s {res['tokens_per_sec']} vs "
         f"{plain_res['tokens_per_sec']}, wall {res['wall_s']} vs "
         f"{plain_res['wall_s']} s")
-    gaps = _first_divergence_gaps(seed, prompts, plain, spec)
-    for rid, pos, gap, rms in gaps:
-        log(f"serve spec vs plain: request {rid} first differs at token {pos}, "
-            f"plain top-2 logit gap {gap} (logits rms {rms}, limit "
-            f"{SPEC_FLIP_GAP_OF_RMS * rms})")
-    bad = [g for g in gaps if g[2] > SPEC_FLIP_GAP_OF_RMS * g[3]]
-    if bad:
-        raise AssertionError(f"serve[spec]: streams differ past a near-tie: {bad}")
-    log(f"serve spec vs plain: {16 - len(gaps)} of 16 streams equal, "
-        f"{len(gaps)} differ after a near-tie")
+    # serve() drew its weights from seed 0: the ones _llama() draws.
+    gaps = (_first_divergence_gaps(_llama()[1], plain, spec,
+                                   _stream_context(prompts, plain))
+            if plain != spec else [])
+    _drop_llama()
+    _check_near_ties("serve spec vs plain", gaps, 16)
     runs["spec"] = (res, launches)
     runs["tiled.plain"] = (plain_res, None)
     runs.update(sampling_serve_phase(smi, runs, tiled))
     exact_prefill_lengths_check(smi)
     tiny_serve_check()
+    return runs
+
+
+# -- prefix cache, host tier, multi-turn, radix drafts -------------------------
+
+#: The llama3_8b weights (seed 0, bf16) of the phases that serve through
+#: the engine or hold a stream's logits: drawn once, the weights
+#: ``serve(config="llama3_8b", seed=0)`` draws.
+_LLAMA = {}
+
+
+def _llama():
+    import torch
+
+    from kubeflow_controller_tpu_torch.models import generate as gen
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+
+    if not _LLAMA:
+        cfg = tfm.llama3_8b_config()
+        _LLAMA["cfg"] = cfg
+        _LLAMA["params"] = gen.inference_params(
+            cfg, tfm.init_params(cfg, seed=0, device="cuda", dtype=cfg.dtype))
+        torch.cuda.synchronize()
+    return _LLAMA["cfg"], _LLAMA["params"]
+
+
+def _drop_llama():
+    import gc
+
+    import torch
+
+    _LLAMA.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _prefix_requests(n, shared_len, tail_lo, tail_hi, seed, families=1):
+    """``families`` seeded ``shared_len``-token prefixes, request ``i``
+    the ``i % families``-th of them (so ``n // families`` waves) plus a
+    seeded tail of ``tail_lo..tail_hi`` tokens: ``(rid, prompt)``
+    pairs."""
+    import numpy as np
+
+    vocab = _LLAMA["cfg"].vocab_size
+    rng = np.random.default_rng(seed)
+    fams = [rng.integers(0, vocab, shared_len) for _ in range(families)]
+    tails = np.random.default_rng(seed + 1)
+    out = []
+    for i in range(n):
+        f = fams[i % families]
+        tail = tails.integers(0, vocab, int(tails.integers(tail_lo, tail_hi + 1)))
+        out.append((i, np.concatenate([f, tail]).astype(np.int32)))
+    return out
+
+
+def _engine_run(label, smi, prompts, max_new=32, eng=None, rid0=0, **kw):
+    """Serve ``prompts`` (``(rid, prompt)``) on the llama3_8b weights
+    through a fresh engine (or ``eng``), every serving kernel's count
+    zeroed just before and read just after. Checks every completion
+    (``max_new`` in-vocab tokens) and returns (engine, summary, launches,
+    {rid: tokens})."""
+    from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
+        Request, ServingEngine,
+    )
+
+    cfg, params = _llama()
+    if eng is None:
+        eng = ServingEngine(cfg, params, prefill_mode="bucketed",
+                            block_size=16, device="cuda", **kw)
+    comps, wall, launches = _counted(lambda: eng.run(
+        [Request(rid=rid0 + rid, prompt=p, max_new_tokens=max_new)
+         for rid, p in prompts]))
+    res = eng.stats.summary(wall_s=wall)
+    streams = {c.rid - rid0: list(map(int, c.tokens)) for c in comps}
+    _check_streams(label, streams, [r for r, _ in prompts], max_new, cfg.vocab_size)
+    _log_serve(label, f"{len(prompts)} requests x {max_new} tokens, "
+               f"{json.dumps(kw)}", smi, res, wall, launches)
+    return eng, res, launches, streams
+
+
+def _check_paged_launches(label, res, launches, n_layers, verify_steps=0):
+    """One chunk launch per layer per prefill chunk and verify step, one
+    decode launch per layer per micro-step."""
+    want = (res["prefill_chunks"] + verify_steps) * n_layers
+    if launches["paged_chunk"] != want or launches["paged_decode"] % n_layers:
+        raise AssertionError(f"{label}: launches {launches}, want paged_chunk "
+                             f"{want} and whole decode steps")
+
+
+def _check_contiguous_launches(launches, n_layers):
+    """The contiguous multi-turn path: B1 and its rope prepass once a
+    layer (turn 1's batched prefill), no paged kernel."""
+    if (launches["flash_fwd"] != n_layers or launches["rope_rotate"] != n_layers
+            or launches["paged_chunk"] or launches["paged_decode"]):
+        raise AssertionError(f"multiturn[contiguous]: launches {launches}, want "
+                             f"flash_fwd and rope_rotate {n_layers}, no paged kernel")
+
+
+def _trie_sweep(label, eng):
+    """The leak sweep: no request pin survives, pool pages in use are the
+    trie's resident pages, and each live host entry is one spilled
+    node's. Returns (resident, spilled) node counts."""
+    store, tier = eng._prefix_store, eng._host_tier
+    stack = list(store.trie.root.children.values())
+    resident, handles = 0, []
+    while stack:
+        n = stack.pop()
+        if n.refs:
+            raise AssertionError(f"{label}: a request pin leaked")
+        if n.block >= 0:
+            resident += 1
+        elif tier is not None and tier.has(n.host_handle):
+            handles.append(n.host_handle)
+        stack.extend(n.children.values())
+    tier_pages = 0 if tier is None else tier.resident_pages
+    if eng.pool.used_blocks != resident or len(handles) != tier_pages:
+        raise AssertionError(
+            f"{label}: pool pages in use {eng.pool.used_blocks} vs resident "
+            f"trie pages {resident}; tier entries {tier_pages} vs spilled "
+            f"nodes {len(handles)}")
+    return resident, len(handles)
+
+
+def prefix_serve_phase(smi):
+    """32 chat requests behind one seeded 192-token system prompt (tails
+    of 1-64 tokens, 32 new tokens, 8 slots, pages of 16, bucketed,
+    greedy) with the prefix cache off, then on. The hit count and both
+    runs' prefill chunks are predicted from the schedule first: the
+    first wave of 8 is admitted before anything is published and misses;
+    every later admission hits the prompt's 12 full pages."""
+    cfg, _ = _llama()
+    n_layers = cfg.n_layers
+    reqs = _prefix_requests(32, 192, 1, 64, seed=100)
+    prompts = dict(reqs)
+    max_seq = 192 + 64 + 32
+    want_hits = (32 - 8) * 192
+    want_chunks = {
+        "off": sum(-(-p.size // 16) for _, p in reqs),
+        "on": sum(-(-p.size // 16) if rid < 8 else -(-(p.size - 192) // 16)
+                  for rid, p in reqs)}
+    log(f"prefix predicted: prefix_hit_tokens {want_hits}, prefill chunks "
+        f"off {want_chunks['off']}, on {want_chunks['on']}")
+    runs = {}
+    for mode, on in (("off", False), ("on", True)):
+        eng, res, launches, streams = _engine_run(
+            f"prefix[{mode}]", smi, reqs, n_slots=8, max_seq=max_seq,
+            prefix_cache=on)
+        _check_paged_launches(f"prefix[{mode}]", res, launches, n_layers)
+        hits = int(res["prefix_hit_tokens"])
+        if res["prefill_chunks"] != want_chunks[mode] or hits != (want_hits if on else 0):
+            raise AssertionError(
+                f"prefix[{mode}]: prefill chunks {res['prefill_chunks']} (predicted "
+                f"{want_chunks[mode]}), prefix hits {hits} (predicted "
+                f"{want_hits if on else 0})")
+        if on:
+            _trie_sweep("prefix[on]", eng)
+        runs[mode] = (res, launches, streams)
+        del eng
+    log(f"prefix: prefix_hit_tokens {int(runs['on'][0]['prefix_hit_tokens'])} vs "
+        f"predicted {want_hits}; hit rate {runs['on'][0]['prefix_hit_rate']}")
+    _check_near_ties("prefix on vs off", _first_divergence_gaps(
+        _llama()[1], runs["off"][2], runs["on"][2],
+        _stream_context(prompts, runs["off"][2])), len(prompts))
+    off, on = runs["off"][0], runs["on"][0]
+    log(f"prefix on vs off (this run): ttft_p50 {on['ttft_p50_ms']} vs "
+        f"{off['ttft_p50_ms']} ms, ttft_p95 {on['ttft_p95_ms']} vs "
+        f"{off['ttft_p95_ms']} ms, tpot_p50 {on['tpot_p50_ms']} vs "
+        f"{off['tpot_p50_ms']} ms, tokens/s {on['tokens_per_sec']} vs "
+        f"{off['tokens_per_sec']}, B6 {runs['on'][1]['paged_chunk']} vs "
+        f"{runs['off'][1]['paged_chunk']}, B5 {runs['on'][1]['paged_decode']} vs "
+        f"{runs['off'][1]['paged_decode']}")
+    return {f"prefix.{m}": (r[0], r[1]) for m, r in runs.items()}
+
+
+def _time_tier_moves(eng, rec):
+    """Wrap the engine's spill and rehydrate callbacks with host timers
+    around synchronized calls (the pipeline stalls at each: these runs'
+    TTFT includes the stalls). A rehydrate's own time leaves out the
+    spills it triggers."""
+    import torch
+
+    spill, rehydrate = eng._spill_nodes, eng._rehydrate_nodes
+    nested = [0.0]
+
+    def timed_spill(nodes):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        keep = spill(nodes)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        nested[0] += dt
+        rec["spill"].append((dt, sum(keep)))
+        return keep
+
+    def timed_rehydrate(nodes):
+        torch.cuda.synchronize()
+        nested[0] = 0.0
+        t = time.perf_counter()
+        n = rehydrate(nodes)
+        torch.cuda.synchronize()
+        rec["rehydrate"].append((time.perf_counter() - t - nested[0], n))
+        return n
+
+    eng._spill_nodes, eng._rehydrate_nodes = timed_spill, timed_rehydrate
+
+
+def _copy_yardstick(page_bytes, pages=16):
+    """A plain pinned ``copy_`` of ``pages`` pages' bytes each way (CUDA
+    events, the mean of 10): (d2h ms a page, h2d ms a page)."""
+    import torch
+
+    n = pages * page_bytes
+    dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    d2h = _time_ms(lambda: host.copy_(dev, non_blocking=True), 10)
+    h2d = _time_ms(lambda: dev.copy_(host, non_blocking=True), 10)
+    return d2h / pages, h2d / pages
+
+
+def _spill_breakdown(cache, smi, pages=8):
+    """Where a spill's time goes: ``gather_pool_pages`` of ``pages``
+    pages (one device gather, one D2H copy a page and part into a fresh
+    pinned buffer of its own, the wait), and the fresh pinned buffers
+    alone, each round's buffers kept alive as the tier keeps its entries
+    (so the caching host allocator has no freed block to hand back);
+    each the median of 3 host-timed rounds after one warm-up."""
+    import statistics
+
+    import torch
+
+    from kubeflow_controller_tpu_torch.models import generate as gen
+
+    ids = list(range(pages))
+    shape = (cache.k.shape[0], 1) + tuple(cache.k.shape[2:])
+    kept = []
+
+    def gather():
+        kept.append(gen.gather_pool_pages(cache, ids))
+
+    def fresh():
+        kept.append([torch.empty(shape, dtype=cache.k.dtype, pin_memory=True)
+                     for _ in range(2 * pages)])
+
+    out = {}
+    for name, fn in (("gather", gather), ("fresh pinned", fresh)):
+        fn()
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3 / pages)
+        out[name] = statistics.median(times)
+    log(f"tier spill breakdown on {smi}: gather_pool_pages {out['gather']} ms a "
+        f"page; fresh pinned buffers for a page's K and V alone "
+        f"{out['fresh pinned']} ms a page ({pages} pages, median of 3)")
+    del kept
+    return out
+
+
+def _same_streams(label, a, b):
+    """The tier moves bytes verbatim: its streams equal the tier-off
+    run's, token for token."""
+    diff = [rid for rid in sorted(a) if a[rid] != b[rid]]
+    if diff:
+        raise AssertionError(f"{label}: streams of requests {diff} differ")
+    log(f"{label}: {len(a)} of {len(a)} streams equal")
+
+
+def tier_serve_phase(smi):
+    """16 seeded families of 192-token prefixes, each revisited in 3
+    waves (tails of 1-16 tokens, 32 new tokens, 4 slots, pages of 16) in
+    a 256 MiB pool (128 pages of 2 MiB, 60 of them live reservations),
+    with the host tier off, then at 1024 MiB: the streams must be equal,
+    and the tier run must spill and rehydrate; the spill's and the
+    rehydrate's ms a page and GB/s beside a pinned ``copy_``; the leak
+    sweep, then ``reset()`` to zero. Then int8 pages: 4 requests of two
+    families in turn through one slot and a pool of 16 pages, so that
+    each family evicts the other's chain, tier off and on."""
+    from kubeflow_controller_tpu_torch.models import generate as gen
+
+    cfg, _ = _llama()
+    n_layers = cfg.n_layers
+    reqs = _prefix_requests(48, 192, 1, 16, seed=200, families=16)
+    kw = dict(n_slots=4, max_seq=192 + 16 + 32, prefix_cache=True,
+              kv_hbm_budget_mb=256)
+    runs, streams = {}, {}
+    rec = {"spill": [], "rehydrate": []}
+    for mode, mb in (("off", 0), ("on", 1024)):
+        eng = None
+        if mb:
+            from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
+                ServingEngine,
+            )
+            eng = ServingEngine(_llama()[0], _llama()[1], prefill_mode="bucketed",
+                                block_size=16, device="cuda", host_kv_mb=mb, **kw)
+            _time_tier_moves(eng, rec)
+        eng, res, launches, streams[mode] = _engine_run(
+            f"tier[{mode}]", smi, reqs, eng=eng, host_kv_mb=mb, **kw)
+        _check_paged_launches(f"tier[{mode}]", res, launches, n_layers)
+        if eng.pool.n_blocks != 128:
+            raise AssertionError(f"tier: pool {eng.pool.n_blocks} pages, want 128 "
+                                 f"(256 MiB)")
+        resident, spilled = _trie_sweep(f"tier[{mode}]", eng)
+        log(f"tier[{mode}]: spilled_pages {res['spilled_pages']}, spill_bytes "
+            f"{res['spill_bytes']}, rehydrate_hits {res['rehydrate_hits']}, "
+            f"rehydrate_tokens {res['rehydrate_tokens']}, host_pages_resident "
+            f"{res['host_pages_resident']}, prefix_hit_tokens "
+            f"{res['prefix_hit_tokens']}, zero-copy {res['prefix_zero_copy_tokens']}; "
+            f"leak sweep: {eng.pool.used_blocks} pool pages in use = {resident} "
+            f"resident trie pages, {spilled} spilled nodes = host entries")
+        if mb:
+            if res["spilled_pages"] <= 0 or res["rehydrate_hits"] <= 0:
+                raise AssertionError(f"tier[on]: no spill or no rehydrate: {res}")
+            page_bytes = gen.pool_page_host_bytes(eng.cache)
+            _spill_breakdown(eng.cache, smi)
+            eng.reset()
+            if eng.pool.used_blocks or eng._host_tier.resident_pages:
+                raise AssertionError("tier: reset() left pages")
+            log(f"tier[on]: after reset(): {eng.pool.used_blocks} pool pages, "
+                f"{eng._host_tier.resident_pages} host entries")
+        runs[f"tier.{mode}"] = (res, launches)
+        del eng
+    _same_streams("tier on vs off", streams["off"], streams["on"])
+    d2h, h2d = _copy_yardstick(page_bytes)
+    for name, ys in (("spill", d2h), ("rehydrate", h2d)):
+        secs = sum(t for t, _ in rec[name])
+        pages = sum(n for _, n in rec[name])
+        ms = secs * 1e3 / max(pages, 1)
+        log(f"tier {name}: {pages} pages in {len(rec[name])} calls, {ms} ms a "
+            f"page ({page_bytes} B), {page_bytes / ms / 1e6} GB/s; pinned "
+            f"copy_ of the same bytes {ys} ms a page, "
+            f"{page_bytes / ys / 1e6} GB/s, on {smi}")
+    tier = runs["tier.on"][0]
+    off = runs["tier.off"][0]
+    log(f"tier on vs off (this run): ttft_p50 {tier['ttft_p50_ms']} vs "
+        f"{off['ttft_p50_ms']} ms, tpot_p50 {tier['tpot_p50_ms']} vs "
+        f"{off['tpot_p50_ms']} ms, tokens/s {tier['tokens_per_sec']} vs "
+        f"{off['tokens_per_sec']}, prefill chunks {tier['prefill_chunks']} vs "
+        f"{off['prefill_chunks']}")
+
+    # int8 pages: A, B, A, B through one slot and 16 pages.
+    fam = _prefix_requests(2, 192, 1, 16, seed=210, families=2)
+    pair = [(0, fam[0][1]), (1, fam[1][1]), (2, fam[0][1]), (3, fam[1][1])]
+    int8 = {}
+    for mode, mb in (("off", 0), ("on", 64)):
+        eng, res, launches, int8[mode] = _engine_run(
+            f"tier.int8[{mode}]", smi, pair, n_slots=1, max_seq=240,
+            prefix_cache=True, kv_pool_blocks=16, kv_quant="int8", host_kv_mb=mb)
+        _check_paged_launches(f"tier.int8[{mode}]", res, launches, n_layers)
+        _trie_sweep(f"tier.int8[{mode}]", eng)
+        log(f"tier.int8[{mode}]: spilled_pages {res['spilled_pages']}, "
+            f"rehydrate_hits {res['rehydrate_hits']}, rehydrate_tokens "
+            f"{res['rehydrate_tokens']}")
+        if mb and (res["spilled_pages"] <= 0 or res["rehydrate_hits"] <= 0):
+            raise AssertionError(f"tier.int8[on]: no spill or no rehydrate: {res}")
+        runs[f"tier.int8.{mode}"] = (res, launches)
+        del eng
+    _same_streams("tier.int8 on vs off", int8["off"], int8["on"])
+    return runs
+
+
+def _history_context(prompts, follow, streams, rid, pos, turns, max_new):
+    """The token context a multi-turn conversation had before its
+    ``pos``-th generated token: the prompt, then each turn's follow-up
+    and reply in order."""
+    ctx = list(map(int, prompts[rid]))
+    for turn in range(turns):
+        if turn:
+            ctx += list(map(int, follow[turn][rid]))
+        take = min(max_new, pos - turn * max_new)
+        if take <= 0:
+            break
+        ctx += streams[rid][turn * max_new:turn * max_new + take]
+        if take < max_new:
+            break
+    return ctx
+
+
+def multiturn_phase(smi):
+    """``serve(config="llama3_8b", batch=8, slots=8, prompt_len=256,
+    max_new_tokens=32, turns=3)`` with the prefix cache and without. With
+    it: the hit rate must equal the count that follows from the full
+    pages each turn's history already published (turn t reuses turn
+    t-1's prompt and reply). Without it: B1 (and its rope prepass) once a
+    layer for turn 1's batched prefill, ``prefill_continue`` on turns 2-3,
+    no paged kernel. The two paths are different computations: their
+    first divergence and its gap are a finding, not a gate. Then a
+    ``register_prefix`` round trip: a ``generate_from_cache`` session's
+    KV registered in an engine, whose next turn hits every full block."""
+    import numpy as np
+    import torch
+
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm import (
+        _read_prompts, serve,
+    )
+    from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
+        Request, ServingEngine,
+    )
+    from kubeflow_controller_tpu_torch.models import generate as gen
+
+    cfg, params = _llama()
+    n_layers = cfg.n_layers
+    b, s, new, turns = 8, 256, 32, 3
+    prompts = _read_prompts("", cfg.vocab_size, b, s)
+    follow = {t: np.random.default_rng(t).integers(0, cfg.vocab_size, (b, s))
+              for t in range(1, turns)}
+    # Turn t's admission finds the full pages of turn t-1's prompt and
+    # reply: (history_{t-1} + new) // 16 pages.
+    hist, want_hits, lookup = s, 0, 0
+    for t in range(turns):
+        lookup += b * hist
+        if t:
+            want_hits += b * ((prev + new) // 16) * 16
+        prev = hist
+        hist = hist + new + s
+    want_rate = want_hits / lookup
+    log(f"multiturn predicted: prefix_hit_tokens {want_hits} of {lookup} "
+        f"(hit rate {want_rate})")
+    runs, streams = {}, {}
+    for mode, on in (("cache", True), ("contiguous", False)):
+        out_file = os.path.join(OUT_DIR, f"multiturn_{mode}.jsonl")
+        res, wall, launches = _counted(lambda: serve(
+            config="llama3_8b", batch=b, slots=b, prompt_len=s,
+            max_new_tokens=new, turns=turns, prefix_cache=on, block_size=16,
+            output_file=out_file))
+        streams[mode] = {c["rid"]: c["completion"]
+                         for c in _read_completions(out_file)}
+        _check_streams(f"multiturn[{mode}]", streams[mode], range(b), turns * new,
+                       cfg.vocab_size)
+        log(f"multiturn[{mode}] llama3_8b on {smi}: {b} conversations x "
+            f"{turns} turns x {new} tokens, tokens/s {res['tokens_per_sec']} "
+            f"(serve wall {res['wall_s']} s, call {wall} s with the weights' "
+            f"init), launches { {k: v for k, v in launches.items() if v} }")
+        if on:
+            _check_paged_launches("multiturn[cache]", res, launches, n_layers)
+            log(f"multiturn[cache]: prefix_hit_rate {res['prefix_hit_rate']} "
+                f"({int(res['prefix_hit_tokens'])} tokens) vs predicted "
+                f"{want_rate} ({want_hits})")
+            if int(res["prefix_hit_tokens"]) != want_hits or abs(
+                    res["prefix_hit_rate"] - want_rate) > 1e-12:
+                raise AssertionError(f"multiturn[cache]: hits {res['prefix_hit_tokens']} "
+                                     f"!= predicted {want_hits}")
+        else:
+            _check_contiguous_launches(launches, n_layers)
+        runs[f"multiturn.{mode}"] = (res, launches)
+    _check_near_ties("multiturn cache vs contiguous", _first_divergence_gaps(
+        params, streams["cache"], streams["contiguous"],
+        lambda rid, pos: _history_context(prompts, follow, streams["cache"], rid,
+                                          pos, turns, new)), b, gate=False)
+
+    # register_prefix: a contiguous session (256 prompt tokens + a 32-token
+    # reply = 18 full pages) registered; its next turn (64 more tokens)
+    # hits all 18.
+    prompt = torch.from_numpy(prompts[:1]).to("cuda")
+    cache = gen.init_kv_cache(cfg, 1, 512, device="cuda")
+    logits, cache = gen.prefill(cfg, params, prompt, cache)
+    toks, logits, cache = gen.generate_from_cache(cfg, params, logits, cache, new,
+                                                  return_state=True)
+    session = np.concatenate([prompts[0], toks[0].cpu().numpy().astype(np.int32)])
+    eng = ServingEngine(cfg, params, n_slots=1, max_seq=512,
+                        prefill_mode="bucketed", block_size=16, prefix_cache=True,
+                        device="cuda")
+    registered = eng.register_prefix(session, cache)
+    turn2 = np.concatenate([session, follow[1][0, :64].astype(np.int32)])
+    out = eng.run([Request(rid=0, prompt=turn2, max_new_tokens=new)])
+    hits = eng.stats.prefix_hit_tokens
+    if registered != 288 or hits != 288 or len(out[0].tokens) != new:
+        raise AssertionError(f"register_prefix: registered {registered}, hits {hits}, "
+                             f"want 288 and 288")
+    cold = ServingEngine(cfg, params, n_slots=1, max_seq=512,
+                         prefill_mode="bucketed", block_size=16, device="cuda")
+    ref = cold.run([Request(rid=0, prompt=turn2, max_new_tokens=new)])
+    same = ref[0].tokens == out[0].tokens
+    log(f"register_prefix llama3_8b: a {session.size}-token session registered "
+        f"{registered} tokens; turn 2 ({turn2.size} tokens) hit {hits}, prefilled "
+        f"{turn2.size - hits}; its stream {'equals' if same else 'differs from'} a "
+        f"cold engine's (a finding: contiguous vs paged computations)")
+    del eng, cold, cache
+    return runs
+
+
+def radix_spec_phase(smi):
+    """Prefix cache on, speculative decoding, ``proposer="radix"``,
+    ``draft_k=4``: 16 requests (128-token seeded prompts, 32 new tokens,
+    8 slots), then the same 16 prompts under new rids on the same engine,
+    whose trie now holds wave 1's replies, so wave 2 drafts them.
+    Acceptance a wave; ``paged_chunk`` = (prefill chunks + verify steps)
+    x 32 a wave; wave 2's streams may leave wave 1's (same prompts) only
+    after a near-tie (``SPEC_FLIP_GAP_OF_RMS``, as serve[spec])."""
+    from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
+        ServingEngine,
+    )
+
+    cfg, params = _llama()
+    reqs = _prefix_requests(16, 0, 128, 128, seed=300)
+    prompts = dict(reqs)
+    # 256 pages: wave 1's 16 published chains (10 pages each) and wave
+    # 2's live reservations fit, so no reply is evicted before wave 2
+    # drafts it. spec_cooldown_max=1: a lane that found no draft in wave 1
+    # (whose trie holds no reply yet) probes again the next step instead
+    # of cooling down into wave 2 (the backoff is kept per lane).
+    eng = ServingEngine(cfg, params, n_slots=8, max_seq=160, prefill_mode="bucketed",
+                        block_size=16, prefix_cache=True, kv_pool_blocks=256,
+                        spec_decode=True, draft_k=4, proposer="radix",
+                        spec_cooldown_max=1, device="cuda")
+    runs, streams = {}, {}
+    before = {k: 0.0 for k in ("prefill_chunks", "spec_steps", "draft_proposed",
+                                "draft_accepted")}
+    for wave in (1, 2):
+        _, res, launches, streams[wave] = _engine_run(
+            f"radix[wave {wave}]", smi, reqs, eng=eng, rid0=16 * (wave - 1))
+        d = {k: res[k] - before[k] for k in before}
+        before = {k: res[k] for k in before}
+        _check_paged_launches(f"radix[wave {wave}]", d, launches, cfg.n_layers,
+                              verify_steps=d["spec_steps"])
+        rate = d["draft_accepted"] / d["draft_proposed"] if d["draft_proposed"] else 0.0
+        log(f"radix[wave {wave}]: acceptance {rate} ({d['draft_accepted']} of "
+            f"{d['draft_proposed']}), verify steps {d['spec_steps']}, prefill "
+            f"chunks {d['prefill_chunks']}, tpot_p50 (cumulative) "
+            f"{res['tpot_p50_ms']} ms")
+        runs[f"radix.wave{wave}"] = (dict(res, **{f"wave_{k}": v for k, v in d.items()}),
+                                     launches)
+    if runs["radix.wave2"][0]["wave_draft_accepted"] <= 0:
+        raise AssertionError("radix: wave 2 accepted no draft from the trie")
+    _trie_sweep("radix", eng)
+    # Wave 2 commits through verify windows (B6) what wave 1 decoded
+    # (B5), as serve[spec] does beside its plain run: a stream may leave
+    # wave 1's only at a near-tie.
+    _check_near_ties("radix wave 2 vs wave 1", _first_divergence_gaps(
+        params, streams[1], streams[2], _stream_context(prompts, streams[1])),
+        len(streams[1]))
+    del eng
+    return runs
+
+
+def tiny_prefix_check():
+    """The tiny config in fp32, card vs CPU, on one weight set drawn on
+    the CPU: the same streams with the prefix cache off and on, the tier
+    on over a 12-page pool (spills and rehydrates on both devices, the
+    same counts), a ``register_prefix`` session's next turn, the radix
+    proposer, and ``serve(turns=3)`` on the contiguous path, greedy and
+    sampled."""
+    import numpy as np
+    import torch
+
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints import serve_lm
+    from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
+        Request, ServingEngine,
+    )
+    from kubeflow_controller_tpu_torch.models import generate as gen
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.tiny_config()
+    cpu_params = tfm.init_params(cfg, seed=0, device="cpu")
+
+    def on(device):
+        return {k: ({n: t.to(device) for n, t in v.items()}
+                    if isinstance(v, dict) else v.to(device))
+                for k, v in cpu_params.items()}
+
+    rng = np.random.default_rng(5)
+    fams = [rng.integers(0, cfg.vocab_size, 16) for _ in range(4)]
+    reqs = [(i, np.concatenate([fams[i % 4], rng.integers(0, cfg.vocab_size,
+                                                          1 + i % 4)]).astype(np.int32))
+            for i in range(12)]
+    cases = {
+        "off": dict(n_slots=2, max_seq=32),
+        "on": dict(n_slots=2, max_seq=32, prefix_cache=True),
+        "tier": dict(n_slots=2, max_seq=32, prefix_cache=True,
+                     kv_pool_blocks=12, host_kv_mb=1.0),
+        # The prompts twice: the repeats draft the first replies.
+        "radix": dict(n_slots=2, max_seq=32, prefix_cache=True,
+                      kv_pool_blocks=96, spec_decode=True, draft_k=4,
+                      proposer="radix", spec_cooldown_max=1),
+    }
+    got = {}
+    for device in ("cuda", "cpu"):
+        params = on(device)
+        for name, kw in cases.items():
+            eng = ServingEngine(cfg, params, prefill_mode="bucketed", block_size=4,
+                                device=device, **kw)
+            work = reqs + ([(100 + i, p) for i, p in reqs] if name == "radix"
+                           else [])
+            out = eng.run([Request(rid=i, prompt=p,
+                                   max_new_tokens=12 if name == "radix" else 4)
+                           for i, p in work])
+            got[(name, device)] = (
+                {c.rid: c.tokens for c in out},
+                {k: getattr(eng.stats, k) for k in (
+                    "prefix_hit_tokens", "spilled_pages", "rehydrate_hits",
+                    "rehydrate_tokens", "draft_accepted")})
+        # register_prefix: a contiguous session, then its next turn.
+        prompt = torch.from_numpy(reqs[0][1][None]).to(device)
+        cache = gen.init_kv_cache(cfg, 1, 64, device=device)
+        logits, cache = gen.prefill(cfg, params, prompt, cache)
+        toks, _, cache = gen.generate_from_cache(cfg, params, logits, cache, 8,
+                                                 return_state=True)
+        session = np.concatenate([reqs[0][1], toks[0].cpu().numpy().astype(np.int32)])
+        eng = ServingEngine(cfg, params, n_slots=1, max_seq=64,
+                            prefill_mode="bucketed", block_size=4,
+                            prefix_cache=True, device=device)
+        reg = eng.register_prefix(session, cache)
+        out = eng.run([Request(rid=0, prompt=np.concatenate([session, reqs[1][1]]),
+                               max_new_tokens=6)])
+        got[("register", device)] = (out[0].tokens, (reg, eng.stats.prefix_hit_tokens))
+        # serve(turns=3) on the contiguous path, greedy and sampled.
+        saved = serve_lm._load_params
+        serve_lm._load_params = lambda *a, **k: (params, None)
+        try:
+            for name, kw in (("turns", {}), ("turns.sampled", dict(temperature=0.8,
+                                                                   seed=3))):
+                path = os.path.join(OUT_DIR, f"tiny_{name}_{device}.jsonl")
+                serve_lm.serve(config="tiny", batch=3, prompt_len=9,
+                               max_new_tokens=5, turns=3, output_file=path,
+                               device=device, **kw)
+                got[(name, device)] = ([r["completion"] for r in _read_completions(path)],
+                                     None)
+        finally:
+            serve_lm._load_params = saved
+    for name in list(cases) + ["register", "turns", "turns.sampled"]:
+        if got[(name, "cuda")] != got[(name, "cpu")]:
+            raise AssertionError(f"prefix[tiny] {name}: card {got[(name, 'cuda')]} "
+                                 f"!= cpu {got[(name, 'cpu')]}")
+    if got[("on", "cpu")][0] != got[("off", "cpu")][0] or got[("tier", "cpu")][0] != got[("off", "cpu")][0]:
+        raise AssertionError("prefix[tiny]: cache or tier changed a stream")
+    tier = got[("tier", "cuda")][1]
+    if tier["spilled_pages"] <= 0 or tier["rehydrate_hits"] <= 0:
+        raise AssertionError(f"prefix[tiny]: the tier did not spill and rehydrate: {tier}")
+    if got[("radix", "cuda")][1]["draft_accepted"] <= 0:
+        raise AssertionError("prefix[tiny]: no radix draft accepted")
+    log(f"prefix[tiny] fp32: cuda kernels and cpu plain versions commit the same "
+        f"streams with the cache off and on, the tier on ({tier}), register_prefix "
+        f"{got[('register', 'cuda')][1]}, the radix proposer "
+        f"({got[('radix', 'cuda')][1]}), and serve(turns=3) greedy and sampled")
+
+
+def prefix_phase(smi):
+    """The prefix-cache phases on one set of llama3_8b weights, then the
+    tiny config card vs CPU; the weights are dropped at the end."""
+    runs = {}
+    try:
+        for fn in (prefix_serve_phase, tier_serve_phase, multiturn_phase,
+                   radix_spec_phase):
+            t = time.perf_counter()
+            runs.update(fn(smi))
+            log(f"phase {fn.__name__}: {time.perf_counter() - t:.1f} s")
+    finally:
+        _drop_llama()
+    tiny_prefix_check()
     return runs
 
 
@@ -2411,6 +3106,7 @@ def main() -> int:
     flash_recs = phase("flash kernels", flash_kernel_phase, smi)
     int8_recs = phase("int8 kernel", int8_kernel_phase, smi)
     runs = phase("serve", serve_phase, smi)
+    prefix_runs = phase("prefix", prefix_phase, smi)
     phase("logits", logits_phase)
     train_runs = phase("train", train_phase, smi)
     phase("checkpoint", checkpoint_phase, smi)
@@ -2434,6 +3130,10 @@ def main() -> int:
         line["kernels"][-1]["sampling_runs_launches"] = {
             run: runs[run][1][name] for run in
             ("sampled", "forks", "spec.sampled.oracle", "grammar")}
+        # Each prefix-cache run's launches (prefix cache off and on, the
+        # host tier off and on, int8, multi-turn, radix drafts).
+        line["kernels"][-1]["prefix_runs_launches"] = {
+            run: rec[1][name] for run, rec in prefix_runs.items()}
         if name == "paged_chunk":
             # B6's verify entry: its launches on the speculative serve run
             # (one per layer per verify step) and its record at that
@@ -2469,6 +3169,9 @@ def main() -> int:
             line["kernels"][-1]["sampling_runs_launches"] = {
                 run: runs[run][1][name] for run in
                 ("sampled", "forks", "spec.sampled.oracle", "grammar")}
+            # B1 on the contiguous multi-turn path: turn 1's prefill.
+            line["kernels"][-1]["prefix_runs_launches"] = {
+                run: rec[1][name] for run, rec in prefix_runs.items()}
             # B1 on the serving path: exact prefill, once per layer per
             # admission of the exact llama3_8b serve run, and its record
             # at that run's shape.

@@ -8,11 +8,16 @@ token-id prompts (JSONL ``{"prompt": [ids...]}`` from ``--input``, or a
 synthetic batch), serve them through the continuous-batching engine
 (``dataplane/serving_engine.py``: paged KV pool, exact or chunked
 prefill, fused decode chunks with on-device retirement, slot reuse,
-with ``--speculative`` prompt-lookup drafts verified in one forward, and
-per-request sampling: ``--temperature``/``--top-k``/``--top-p`` under the
-seeded key chain, ``--n`` copy-on-write forks and ``--grammar`` masks),
-write completions JSONL to ``--output`` and report TTFT/TPOT/tokens per
-second.
+with ``--speculative`` drafts (prompt lookup, or ``--proposer radix``
+from the prefix trie) verified in one forward, per-request sampling:
+``--temperature``/``--top-k``/``--top-p`` under the seeded key chain,
+``--n`` copy-on-write forks and ``--grammar`` masks, and
+``--prefix-cache`` with the ``--host-kv-mb`` tier beneath it), write
+completions JSONL to ``--output`` and report TTFT/TPOT/tokens per
+second. ``--turns N`` serves a multi-turn chat: through the engine with
+the prefix cache (each turn submits the whole history), or, without it,
+on a contiguous cache (``prefill``, then ``prefill_continue`` a turn,
+each reply by ``generate_from_cache``).
 
     python -m kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm \\
         --config llama3_8b --batch 16 --slots 8 --prompt-len 256 \\
@@ -49,9 +54,6 @@ logger = logging.getLogger("tpujob.serve_lm_torch")
 #: "off". Any other value raises NotImplementedError.
 NOT_YET_PORTED_FLAGS = {
     "quant": "",
-    "turns": 1,
-    "prefix_cache": False,
-    "host_kv_mb": 0.0,
     "tp": 1,
     "trace": "",
     "disagg": False,
@@ -147,6 +149,9 @@ def serve(
     draft_k: int = 4,
     proposer: str = "prompt",
     attn_impl: str = "kernel",
+    turns: int = 1,
+    prefix_cache: bool = False,
+    host_kv_mb: float = 0.0,
     stop=None,
     device: DeviceLike = None,
     **not_yet_ported,
@@ -163,6 +168,19 @@ def serve(
     point. ``n > 1`` needs the paged pool; ``n`` and ``grammar`` need
     ``turns == 1``.
 
+    ``prefix_cache`` serves through the radix prefix cache (bucketed
+    prefill), ``host_kv_mb > 0`` (needs it) spills evicted pages to a
+    pinned-host tier, and ``proposer="radix"`` drafts from the trie.
+    ``turns > 1`` serves a chat of ``turns`` turns: each turn after the
+    first appends a follow-up of ``prompt_len`` tokens from
+    ``default_rng(seed + turn)`` to every conversation. With
+    ``prefix_cache`` each turn submits the whole history to the engine
+    (the previous turns' pages are reused); without it the conversation
+    lives in one contiguous cache (``prefill``, ``prefill_continue`` a
+    turn, ``generate_from_cache`` a reply, sampled with temperature only,
+    under ``fold_in(key(seed), turn)``); that path returns no engine
+    stats.
+
     The parameters come from ``model_dir or ctx.model_dir`` when a
     checkpoint is there, cast as ``inference_params`` casts them. One
     default differs from the JAX entry point's on purpose: ``attn_impl``
@@ -170,13 +188,14 @@ def serve(
     the gathered-view oracle, is accepted as an alias of ``"gather"``,
     ``"pallas"`` of ``"kernel"``): the port serves through its kernels
     unless asked for the oracle. A multi-process job
-    (``ctx.num_processes > 1``) and ``proposer="radix"`` are refused with
-    "not yet ported".
+    (``ctx.num_processes > 1``) is refused with "not yet ported".
 
     ``stop`` (a ``threading.Event``) drains the engine within
     ``drain_grace_s`` and still writes the partial completions.
     Keywords of :data:`NOT_YET_PORTED_FLAGS` are accepted and refused
     unless they hold their "off" value."""
+    import torch
+
     from kubeflow_controller_tpu_torch.dataplane import metrics as metrics_mod
     from kubeflow_controller_tpu_torch.dataplane import sampling
     from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
@@ -192,9 +211,20 @@ def serve(
         raise ValueError(
             "n > 1 forks prompt KV pages copy-on-write and requires the "
             "paged block pool (drop --no-paged)")
-    if (n > 1 or grammar) and not_yet_ported.get("turns", 1) > 1:
+    if (n > 1 or grammar) and turns > 1:
         raise ValueError(
             "--n / --grammar are single-turn engine features (turns == 1)")
+    if host_kv_mb < 0:
+        raise ValueError(f"--host-kv-mb must be >= 0 (got {host_kv_mb})")
+    if host_kv_mb > 0 and not prefix_cache:
+        raise ValueError(
+            "--host-kv-mb spills radix-cache pages to host RAM and "
+            "requires --prefix-cache (0 disables the tier)")
+    if (top_k > 0 or top_p < 1.0) and turns > 1 and not prefix_cache:
+        raise ValueError(
+            "top-k/top-p serve through the engine; the contiguous "
+            "multi-turn path (--turns without --prefix-cache) supports "
+            "temperature only")
     for key, value in not_yet_ported.items():
         if key not in NOT_YET_PORTED_FLAGS:
             raise TypeError(f"serve() got an unexpected keyword {key!r}")
@@ -202,13 +232,6 @@ def serve(
             raise NotImplementedError(
                 f"serve({key}={value!r}) is not yet ported to the PyTorch "
                 f"entry point (see ROADMAP.md)")
-    if proposer != "prompt":
-        # Refused whether or not speculative decoding is on, as every
-        # other flag of an unported feature is off its default.
-        from kubeflow_controller_tpu_torch.dataplane.spec_decode import (
-            make_proposer,
-        )
-        make_proposer(proposer)
     ctx = ctx or ProcessContext.from_env()
     if ctx.num_processes > 1:
         raise NotImplementedError(
@@ -229,67 +252,141 @@ def serve(
 
     t0 = time.perf_counter()
     interrupted = False
+    serving: Dict[str, float] = {}
     n_slots = min(slots, b) if slots > 0 else b
-    engine = ServingEngine(
-        cfg, params, n_slots=n_slots, max_seq=s + max_new_tokens,
-        temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
-        max_queue=max_queue, prefill_mode=prefill_mode,
-        block_size=block_size, kv_hbm_budget_mb=kv_pool_mb,
-        kv_quant=kv_quant, spec_decode=speculative, draft_k=draft_k,
-        proposer=proposer, attn_impl=attn_impl, device=dev)
-    # One params object for every request: draws are keyed by (seed,
-    # gen, position), and a mask keeps its automaton state in the slot.
-    req_params = None
-    if n > 1 or grammar:
-        req_params = sampling.SamplingParams(
-            temperature=temperature, top_k=top_k, top_p=top_p, n=n,
-            seed=seed,
-            logit_mask=(sampling.make_mask(grammar, cfg.vocab_size,
-                                           eos_id=eos_id)
-                        if grammar else None))
-    for i in range(b):
-        try:
-            engine.submit(Request(
-                rid=i, prompt=prompts[i], max_new_tokens=max_new_tokens,
-                eos_id=eos_id, deadline_s=deadline_s, params=req_params))
-        except Rejected as e:
-            logger.warning("request %d rejected: %s", i, e.reason)
-    # Worst case: every prompt prefills chunkwise, one chunk per step.
-    chunks = -(-s // block_size)
-    max_steps = b * n * (max_new_tokens + chunks) + 2 * b * n + 4
-    completions = []
-    for _ in range(max_steps):
-        if stop is not None and stop.is_set():
-            logger.info("stop requested: draining engine (grace %.1fs)",
-                        drain_grace_s)
-            completions.extend(engine.drain(drain_grace_s))
-            interrupted = True
-            break
-        completions.extend(engine.step())
-        if engine.idle:
-            break
-    if not interrupted and not engine.idle:
-        logger.error("engine failed to drain; flushing partials")
-        completions.extend(engine.drain(0.0))
-    dt = time.perf_counter() - t0
-    serving = engine.stats.summary(wall_s=dt)
-    completions.sort(key=lambda c: (c.rid, c.gen))
+    engine = None
+    mode = "bucketed" if prefix_cache else prefill_mode
+    if turns <= 1 or prefix_cache:
+        # A conversation of `turns` turns fits a slot.
+        engine = ServingEngine(
+            cfg, params, n_slots=n_slots,
+            max_seq=max(1, turns) * (s + max_new_tokens),
+            temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
+            max_queue=max_queue, prefill_mode=mode, prefix_cache=prefix_cache,
+            block_size=block_size, kv_hbm_budget_mb=kv_pool_mb,
+            host_kv_mb=host_kv_mb, kv_quant=kv_quant,
+            spec_decode=speculative, draft_k=draft_k, proposer=proposer,
+            attn_impl=attn_impl, device=dev)
+    if turns <= 1:
+        # One params object for every request: draws are keyed by (seed,
+        # gen, position), and a mask keeps its automaton state in the slot.
+        req_params = None
+        if n > 1 or grammar:
+            req_params = sampling.SamplingParams(
+                temperature=temperature, top_k=top_k, top_p=top_p, n=n,
+                seed=seed,
+                logit_mask=(sampling.make_mask(grammar, cfg.vocab_size,
+                                               eos_id=eos_id)
+                            if grammar else None))
+        for i in range(b):
+            try:
+                engine.submit(Request(
+                    rid=i, prompt=prompts[i], max_new_tokens=max_new_tokens,
+                    eos_id=eos_id, deadline_s=deadline_s, params=req_params))
+            except Rejected as e:
+                logger.warning("request %d rejected: %s", i, e.reason)
+        # Worst case: every prompt prefills chunkwise, one chunk per step
+        # (a small pool can force it every wave).
+        chunks = -(-s // block_size) if mode != "exact" else 1
+        max_steps = b * n * (max_new_tokens + chunks) + 2 * b * n + 4
+        completions = []
+        for _ in range(max_steps):
+            if stop is not None and stop.is_set():
+                logger.info("stop requested: draining engine (grace %.1fs)",
+                            drain_grace_s)
+                completions.extend(engine.drain(drain_grace_s))
+                interrupted = True
+                break
+            completions.extend(engine.step())
+            if engine.idle:
+                break
+        if not interrupted and not engine.idle:
+            logger.error("engine failed to drain; flushing partials")
+            completions.extend(engine.drain(0.0))
+        dt = time.perf_counter() - t0
+        serving = engine.stats.summary(wall_s=dt)
+        completions.sort(key=lambda c: (c.rid, c.gen))
+        rows = [(c.rid, c.gen, list(map(int, c.tokens)), c.finish_reason)
+                for c in completions]
+    elif prefix_cache:
+        # Multi-turn through the engine: every turn submits the whole
+        # conversation so far. Turn N's retirement published its prompt
+        # and reply pages, so turn N+1's admission puts them in its table
+        # and prefills only the follow-up.
+        history = [list(map(int, prompts[i])) for i in range(b)]
+        tok_rows: List[List[int]] = [[] for _ in range(b)]
+        reasons = ["length"] * b
+        for turn in range(turns):
+            if turn:
+                follow_up = np.random.default_rng(seed + turn).integers(
+                    0, cfg.vocab_size, (b, s))
+                for i in range(b):
+                    history[i].extend(map(int, follow_up[i]))
+            comps = engine.run([
+                Request(rid=turn * b + i,
+                        prompt=np.asarray(history[i], np.int32),
+                        max_new_tokens=max_new_tokens, eos_id=eos_id)
+                for i in range(b)])
+            comps.sort(key=lambda c: c.rid)
+            for i, c in enumerate(comps):
+                history[i].extend(c.tokens)
+                tok_rows[i].extend(c.tokens)
+                reasons[i] = c.finish_reason
+        dt = time.perf_counter() - t0
+        serving = engine.stats.summary(wall_s=dt)
+        logger.info(
+            "multi-turn prefix reuse: hit rate %.2f (%d/%d prompt tokens "
+            "from cached blocks)", engine.stats.prefix_hit_rate,
+            engine.stats.prefix_hit_tokens, engine.stats.prefix_lookup_tokens)
+        rows = [(i, 0, tok_rows[i], reasons[i]) for i in range(b)]
+    else:
+        # Multi-turn on one contiguous cache: turn 1 block-prefills it,
+        # each later turn extends it in one forward (prefill_continue),
+        # and each reply decodes into it (generate_from_cache hands back
+        # the decoded state, so no reply is encoded again).
+        from kubeflow_controller_tpu_torch.ops import prng
+
+        cache = gen.init_kv_cache(cfg, b, turns * (s + max_new_tokens),
+                                  device=dev)
+        toks_d = torch.from_numpy(prompts).to(dev)
+        logits, cache = gen.prefill(cfg, params, toks_d, cache)
+        rng = (prng.prng_key(torch.tensor(seed, dtype=torch.int32))
+               if temperature > 0 else None)
+        replies = []
+        for turn in range(turns):
+            if turn:
+                follow_up = np.random.default_rng(seed + turn).integers(
+                    0, cfg.vocab_size, (b, s)).astype(np.int32)
+                logits, cache = gen.prefill_continue(
+                    cfg, params, torch.from_numpy(follow_up).to(dev), cache)
+            toks, logits, cache = gen.generate_from_cache(
+                cfg, params, logits, cache, max_new_tokens,
+                temperature=temperature,
+                # A distinct key chain each turn.
+                rng=None if rng is None else prng.fold_in(
+                    rng, torch.tensor(turn)),
+                return_state=True)
+            replies.append(toks.cpu().numpy())
+        toks = np.concatenate(replies, axis=1)
+        dt = time.perf_counter() - t0
+        rows = [(i, 0, toks[i].tolist(), "length") for i in range(b)]
 
     if output_file:
         with open(output_file, "w") as f:
-            for c in completions:
+            for rid, g, completion, reason in rows:
                 f.write(json.dumps({
-                    "rid": c.rid,
-                    "gen": c.gen,
-                    "prompt": prompts[c.rid].tolist(),
-                    "completion": list(map(int, c.tokens)),
-                    "finish_reason": c.finish_reason,
+                    "rid": rid,
+                    "gen": g,
+                    "prompt": prompts[rid].tolist(),
+                    "completion": completion,
+                    "finish_reason": reason,
                 }) + "\n")
-    new_total = sum(len(c.tokens) for c in completions)
+    new_total = sum(len(r[2]) for r in rows)
     tps = new_total / dt
-    logger.info("served %d prompts (%d new tokens total) in %.2fs "
-                "(%.0f tok/s) on %s", b, new_total, dt, tps, dev)
-    if speculative:
+    logger.info("served %d prompts (%d new tokens total%s) in %.2fs "
+                "(%.0f tok/s) on %s", b, new_total,
+                f" across {turns} turns" if turns > 1 else "", dt, tps, dev)
+    if speculative and engine is not None:
         logger.info("speculative: %d/%d draft tokens accepted (%.2f) over "
                     "%d verify steps", engine.stats.draft_accepted,
                     engine.stats.draft_proposed,
@@ -375,7 +472,22 @@ def main(argv=None) -> int:
                         "(adaptive K shrinks below this on rejection)")
     p.add_argument("--proposer", default="prompt", choices=["prompt", "radix"],
                    help="draft source: prompt = n-gram lookup in the "
-                        "request's own context (radix: not yet ported)")
+                        "request's own context; radix = walk the "
+                        "--prefix-cache trie (requires --prefix-cache)")
+    p.add_argument("--turns", type=int, default=1,
+                   help="multi-turn chat: each turn after the first appends "
+                        "a follow-up prompt to every conversation; with "
+                        "--prefix-cache through the engine (each turn "
+                        "reuses the previous turns' pages), else on a "
+                        "contiguous cache (prefill_continue a turn)")
+    p.add_argument("--prefix-cache", action="store_true",
+                   help="radix-trie prefix reuse over the KV block pool "
+                        "(implies bucketed prefill)")
+    p.add_argument("--host-kv-mb", type=float, default=0.0,
+                   help="pinned-host budget in MiB of the KV tier beneath "
+                        "the prefix cache (requires --prefix-cache): "
+                        "evicted pages spill there and come back on the "
+                        "next hit, bit for bit; 0 disables the tier")
     p.add_argument("--attn-impl", default="kernel",
                    choices=["kernel", "gather", "pallas", "xla"],
                    help="kernel (or pallas) = the hand-written "
@@ -411,6 +523,11 @@ def main(argv=None) -> int:
     if (args.n > 1 or args.grammar) and args.turns > 1:
         p.error("--n / --grammar are single-turn engine features "
                 "(use --turns 1)")
+    if args.host_kv_mb < 0:
+        p.error(f"--host-kv-mb must be >= 0 (got {args.host_kv_mb})")
+    if args.host_kv_mb > 0 and not args.prefix_cache:
+        p.error("--host-kv-mb spills radix-cache pages to host RAM and "
+                "requires --prefix-cache (0 disables the tier)")
     refused = {k: getattr(args, k) for k in NOT_YET_PORTED_FLAGS}
     # SIGTERM drains the engine and still writes the partial completions.
     stop = threading.Event()
@@ -431,7 +548,8 @@ def main(argv=None) -> int:
             kv_pool_mb=args.kv_pool_mb if args.kv_pool_mb > 0 else None,
             kv_quant="" if args.kv_quant == "none" else args.kv_quant,
             speculative=args.speculative, draft_k=args.draft_k,
-            proposer=args.proposer,
+            proposer=args.proposer, turns=args.turns,
+            prefix_cache=args.prefix_cache, host_kv_mb=args.host_kv_mb,
             attn_impl=args.attn_impl, device=args.device, stop=stop,
             **refused)
     finally:

@@ -2,8 +2,7 @@
 
 Counterpart of ``kubeflow_controller_tpu/dataplane/metrics.py``'s
 :class:`ServingStats` and :class:`MetricsLogger`, cut to the counters
-this slice of the port produces (no prefix cache, migration, host tier
-or MoE yet).
+the port produces (no migration, tensor parallelism or MoE yet).
 """
 
 from __future__ import annotations
@@ -60,6 +59,14 @@ class ServingStats:
     queue_waits_s: Reservoir = field(
         default_factory=lambda: Reservoir(SAMPLE_CAP))
     finish_reasons: Dict[str, int] = field(default_factory=dict)
+    # Prefix cache: prompt tokens admission found in cached pages (hit),
+    # the share of those whose pages were resident (zero-copy: the page
+    # ids enter the slot's table, no byte moves; rehydrated pages moved
+    # host -> device bytes), and every prompt token that went through a
+    # lookup (the hit rate's denominator).
+    prefix_hit_tokens: int = 0
+    prefix_zero_copy_tokens: int = 0
+    prefix_lookup_tokens: int = 0
     prefill_chunks: int = 0
     pool_blocks_total: int = 0
     pool_blocks_in_use: int = 0
@@ -84,6 +91,15 @@ class ServingStats:
     cow_page_copies: int = 0
     fork_shared_tokens: int = 0
     mask_tokens_filtered: int = 0
+    # Host tier: pool pages spilled to host memory on eviction (and their
+    # payload bytes), admissions that installed at least one spilled page
+    # back instead of prefilling it again (and the tokens those pages
+    # cover), and the pages the tier holds now.
+    spilled_pages: int = 0
+    spill_bytes: int = 0
+    rehydrate_hits: int = 0
+    rehydrate_tokens: int = 0
+    host_pages_resident: int = 0
     # Quantum-progress counter: bumped once per completed step().
     heartbeat: int = 0
 
@@ -116,6 +132,14 @@ class ServingStats:
         return self.active_slot_steps / denom if denom else 0.0
 
     @property
+    def prefix_hit_rate(self) -> float:
+        """Share of looked-up prompt tokens served from cached pages (0.0
+        without a prefix store or before any admission)."""
+        if not self.prefix_lookup_tokens:
+            return 0.0
+        return self.prefix_hit_tokens / self.prefix_lookup_tokens
+
+    @property
     def acceptance_rate(self) -> float:
         """Committed over proposed draft tokens (0.0 before any
         proposal)."""
@@ -139,6 +163,14 @@ class ServingStats:
             "queue_wait_p95_ms": percentile(self.queue_waits_s, 95) * 1e3,
             "queue_depth_max": float(self.queue_depth_max),
             "slot_utilization": self.slot_utilization,
+            "prefix_hit_tokens": float(self.prefix_hit_tokens),
+            "prefix_zero_copy_tokens": float(self.prefix_zero_copy_tokens),
+            "prefix_hit_rate": self.prefix_hit_rate,
+            "spilled_pages": float(self.spilled_pages),
+            "spill_bytes": float(self.spill_bytes),
+            "rehydrate_hits": float(self.rehydrate_hits),
+            "rehydrate_tokens": float(self.rehydrate_tokens),
+            "host_pages_resident": float(self.host_pages_resident),
             "prefill_chunks": float(self.prefill_chunks),
             "pool_blocks_total": float(self.pool_blocks_total),
             "pool_blocks_in_use": float(self.pool_blocks_in_use),

@@ -41,11 +41,21 @@ Counterpart of ``kubeflow_controller_tpu/dataplane/serving_engine.py``:
   the slot's automaton between draws;
 * ``n > 1``: the prompt is prefilled once and forked copy-on-write into
   generations 1..n-1, which read the prompt's full pages by refcount and
-  copy only the partial boundary page.
+  copy only the partial boundary page;
+* ``prefix_cache=True`` (bucketed prefill): a radix trie over the pool
+  (``dataplane/kv_blocks.py``). Admission walks it with the prompt and
+  puts the matched chain's page ids into the slot's table row (no byte
+  moves), and prefill starts at the matched offset; the final prefill
+  chunk and the natural retirement publish the slot's own full pages
+  into the trie (ownership moves, no copy); a reservation short of pages
+  evicts cold chains. ``host_kv_mb > 0`` adds a pinned-host tier beneath
+  the trie: evicted pages spill there and a later admission installs
+  them back, bytes verbatim. ``proposer="radix"`` drafts from the trie;
+  :meth:`register_prefix` ingests an external contiguous cache.
 
 Everything else the JAX engine offers raises "not yet ported" when
-asked for: the prefix cache, the radix proposer, the host tier, tensor
-parallelism, disaggregation, fault injection and the tracer.
+asked for: tensor parallelism, disaggregation, fault injection and the
+tracer.
 """
 
 from __future__ import annotations
@@ -172,7 +182,13 @@ class _Slot:
     cancelled: bool = False
     first_token_t: Optional[float] = None
     tokens: List[int] = field(default_factory=list)
-    owned: List[int] = field(default_factory=list)   # pool pages held
+    # Radix-trie nodes this request pins (prefix cache): the matched
+    # prefix from admission, extended by the publish at the final prefill
+    # chunk; released on every retirement path (_release_pins).
+    path: List[kv_blocks.RadixNode] = field(default_factory=list)
+    # Pool pages this slot owns; a publish that adopts pages into the trie
+    # removes them.
+    owned: List[int] = field(default_factory=list)
     # Pool pages this slot reads but does not own: a fork's shared prompt
     # pages, refcounted in the pool at fork time and released on every
     # retirement path (_free_shared).
@@ -304,8 +320,6 @@ class ServingEngine:
                 "prefix_cache requires prefill_mode='bucketed' (exact-"
                 "length prefill does not land on the block grid)")
         refused = [
-            (prefix_cache, "prefix_cache"),
-            (host_kv_mb > 0, "the host KV tier (host_kv_mb)"),
             (int(tp) > 1, "tensor-parallel serving (tp > 1)"),
             (tracer is not None, "the lifecycle tracer"),
             (injector is not None, "fault injection"),
@@ -349,16 +363,37 @@ class ServingEngine:
         self.kv_quant = kv_quant
         self.attn_impl = attn_impl
         # Pool sizing: explicit page count > memory budget > one full
-        # context per slot.
+        # context per slot (twice that with the prefix cache: an equal
+        # allowance for the trie's tenancy, or every published chain
+        # would be evicted by the next wave's reservations).
         if kv_pool_blocks is None:
             if kv_hbm_budget_mb is not None:
                 kv_pool_blocks = kv_blocks.blocks_for_budget(
                     cfg, self.block_size, int(kv_hbm_budget_mb * (1 << 20)),
                     kv_quant)
+            elif prefix_cache:
+                kv_pool_blocks = 2 * n_slots * self._max_blocks
             else:
                 kv_pool_blocks = n_slots * self._max_blocks
         self._kv_pool_blocks = int(kv_pool_blocks)
         self.pool = kv_blocks.BlockPool(self._kv_pool_blocks)
+        # The host tier beneath the trie; 0 builds none, and eviction
+        # discards.
+        if host_kv_mb < 0:
+            raise ValueError(f"host_kv_mb must be >= 0 (got {host_kv_mb})")
+        if host_kv_mb > 0 and not prefix_cache:
+            raise ValueError(
+                "host_kv_mb > 0 requires prefix_cache=True (the host "
+                "tier spills radix-cache pages; without the trie there "
+                "is nothing to spill)")
+        self._host_tier: Optional[kv_blocks.HostKVTier] = None
+        if host_kv_mb > 0:
+            self._host_tier = kv_blocks.HostKVTier(int(host_kv_mb * (1 << 20)))
+        self._prefix_store: Optional[kv_blocks.PrefixStore] = None
+        if prefix_cache:
+            self._prefix_store = kv_blocks.PrefixStore(
+                cfg, self.block_size, self._kv_pool_blocks, pool=self.pool,
+                tier=self._host_tier)
         self._clock = clock
         self._metrics = MetricsLogger(metrics_path) if metrics_path else None
         # Speculative decoding. Cooldown (steps before a lane may propose
@@ -376,7 +411,8 @@ class ServingEngine:
             if self.draft_k < 1:
                 raise ValueError(f"draft_k must be >= 1 (got {draft_k})")
             if isinstance(proposer, str):
-                self._proposer = spec_mod.make_proposer(proposer)
+                self._proposer = spec_mod.make_proposer(
+                    proposer, self._prefix_store)
             elif isinstance(proposer, spec_mod.DraftProposer):
                 self._proposer = proposer
             else:
@@ -428,6 +464,76 @@ class ServingEngine:
         self._rids: set = set()
         self._done_buf: List[Completion] = []
         self._draining = False
+
+    def reset(self) -> None:
+        """Drop every queued and in-flight request and zero the pool and
+        the stats, keeping the configuration. The prefix store is
+        mutated in place (a ``RadixProposer`` holds it) over a fresh pool
+        and a fresh tier; the lanes' speculation backoff stays (it is
+        adaptation to the traffic)."""
+        self.pool = kv_blocks.BlockPool(self._kv_pool_blocks)
+        if self._host_tier is not None:
+            self._host_tier = kv_blocks.HostKVTier(self._host_tier.budget_bytes)
+        if self._prefix_store is not None:
+            self._prefix_store.pool = self.pool
+            self._prefix_store.tier = self._host_tier
+            self._prefix_store.trie = kv_blocks.RadixCache(
+                self.pool, self.block_size, tier=self._host_tier)
+        self._tables = np.full(
+            (self.n_slots, self._max_blocks), self._kv_pool_blocks, np.int32)
+        self._tables_dirty = False
+        self._slot_blocks = np.zeros(self.n_slots, np.int64)
+        # The old pool goes before the new one is allocated.
+        self.cache = None
+        self.cache = gen.init_paged_cache(
+            self.cfg, self.n_slots, self._max_blocks, self._kv_pool_blocks,
+            self.block_size, self.kv_quant, device=self.device)
+        self.logits.zero_()
+        self.eos.fill_(-1)
+        self.budget.zero_()
+        self.emitted.zero_()
+        self._temp_h[:] = 0.0
+        self._topk_h[:] = 0
+        self._topp_h[:] = 1.0
+        self._seed_h[:] = 0
+        self._gen_h[:] = 0
+        self._samp_d = None
+        self._gen_key_d = None
+        self._fork_sources = []
+        self._rid_gens = {}
+        self.slots = [None] * self.n_slots
+        self.queue.clear()
+        self.stats = ServingStats(n_slots=self.n_slots)
+        self._pending = None
+        self._rids = set()
+        self._done_buf = []
+        self._draining = False
+
+    def register_prefix(self, tokens, cache: gen.KVCache, row: int = 0) -> int:
+        """Seed the prefix trie from an external contiguous cache: the
+        multi-turn path, where a ``generate_from_cache(...,
+        return_state=True)`` session registers its KV (prompt and
+        replies) so the next turn's admission reuses it. ``tokens`` are
+        the ids the cache row holds from position 0, ``row`` the batch
+        row. Only full blocks register; blocks the trie lacks get pages
+        (evicting if need be) and their KV is copied in
+        (``scatter_row_into_pool``, quantized on write for int8 pools).
+        Returns the tokens now cached for this prefix (0 without a
+        prefix store)."""
+        if self._prefix_store is None:
+            return 0
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        n = int(tokens.size)
+        if n > cache.k.shape[2]:
+            raise ValueError(
+                f"{n} tokens exceed cache capacity {cache.k.shape[2]}")
+        path, new = self._prefix_store.trie.insert(tokens)
+        if new:
+            gen.scatter_row_into_pool(
+                self.cache, cache.k, cache.v, row,
+                [node.block for node, _ in new], [off for _, off in new],
+                self.block_size)
+        return len(path) * self.block_size
 
     # -- request intake ----------------------------------------------------
 
@@ -542,18 +648,150 @@ class ServingEngine:
     def _blocks_needed(self, prompt_size: int, max_new: int) -> int:
         return -(-(prompt_size + max_new) // self.block_size)
 
+    def _alloc_block(self) -> Optional[int]:
+        """One pool page, evicting cold trie leaves while the free list
+        is dry; None when every page is held by a live table."""
+        bid = self.pool.alloc()
+        while bid is None:
+            if (self._prefix_store is None
+                    or self._prefix_store.trie.evict_one(
+                        spill=self._spill_cb()) is None):
+                return None
+            bid = self.pool.alloc()
+        return bid
+
     def _reserve_blocks(self, n: int) -> Optional[List[int]]:
-        """Reserve ``n`` pool pages, or None (every page unwound) when
-        the free list cannot cover them."""
+        """Reserve ``n`` pool pages, evicting (and spilling, with the
+        tier) cold prefix chains in one ``evict_chain`` call a deficit;
+        None (every page unwound) when the pool cannot cover them even
+        then.
+
+        A page evicted here may still be named by the device table of
+        the chunk in flight, but only by an inactive row, which reads it
+        and writes nothing: its next tenant's writes are enqueued after
+        that chunk on the same stream."""
         owned: List[int] = []
         while len(owned) < n:
             bid = self.pool.alloc()
-            if bid is None:
+            if bid is not None:
+                owned.append(bid)
+                continue
+            if (self._prefix_store is None
+                    or not self._prefix_store.trie.evict_chain(
+                        n - len(owned), spill=self._spill_cb())):
                 for b in owned:
                     self.pool.unref(b)
                 return None
-            owned.append(bid)
         return owned
+
+    def _spill_cb(self):
+        """The eviction spill callback, or None without a tier
+        (eviction then discards)."""
+        return self._spill_nodes if self._host_tier is not None else None
+
+    def _spill_nodes(self, nodes: List[kv_blocks.RadixNode]) -> List[bool]:
+        """Stage the victims' pool pages in the host tier: one gather of
+        the wave, which returns once the bytes are on the host (so the
+        pages may be freed and reused as soon as this returns), each page
+        its own tier entry in the pool's storage types (never
+        requantized). Returns each node's keep decision; False (the tier
+        refused a page over its budget) discards."""
+        tier = self._host_tier
+        keep: List[bool] = []
+        pages = 0
+        nbytes = 0
+        for node, payload in zip(nodes, gen.gather_pool_pages(
+                self.cache, [n.block for n in nodes])):
+            h = tier.put(payload)
+            if h is None:
+                keep.append(False)
+                continue
+            node.host_handle = h
+            keep.append(True)
+            pages += 1
+            nbytes += kv_blocks.HostKVTier.payload_nbytes(payload)
+        self.stats.spilled_pages += pages
+        self.stats.spill_bytes += nbytes
+        reg = registry()
+        reg.counter("kv_spilled_pages", "dataplane").inc(pages)
+        reg.counter("kv_spill_bytes", "dataplane").inc(nbytes)
+        return keep
+
+    def _rehydrate_nodes(self, nodes: List[kv_blocks.RadixNode]) -> int:
+        """Install spilled nodes' host pages back into the pool: the
+        ``match_for_admission`` rehydrate callback. The payloads leave
+        the tier FIRST (our own allocations below may spill, and must not
+        drop them), then pages are allocated (evicting in one call a
+        deficit), then one install writes the bytes verbatim. Each
+        restored node is resident again and pinned for the admitting
+        request. Returns how many leading nodes were restored; a tail the
+        pool could not take goes back to the tier under fresh handles.
+
+        The host-to-device copies read pinned tensors this function drops
+        when it returns: the caching host allocator keeps each block
+        until the copy's stream has passed it (it records an event on
+        the stream at the copy)."""
+        tier = self._host_tier
+        if tier is None or not nodes:
+            return 0
+        trie = self._prefix_store.trie
+        payloads: List[tuple] = []
+        usable: List[kv_blocks.RadixNode] = []
+        for node in nodes:
+            payload = tier.pop(node.host_handle)
+            if payload is None:
+                trie.prune_subtree(node)    # a dead handle never restores
+                break
+            payloads.append(payload)
+            usable.append(node)
+        bids: List[int] = []
+        while len(bids) < len(usable):
+            bid = self.pool.alloc()
+            if bid is not None:
+                bids.append(bid)
+                continue
+            if not trie.evict_chain(len(usable) - len(bids),
+                                    spill=self._spill_cb()):
+                j = len(bids)
+                for node2, payload2 in zip(usable[j:], payloads[j:]):
+                    h = tier.put(payload2)
+                    if h is None:
+                        trie.prune_subtree(node2)
+                        break
+                    node2.host_handle = h
+                usable = usable[:j]
+                payloads = payloads[:j]
+                break
+        if not bids:
+            return 0
+        dev = self.device
+
+        def joined(part: int) -> Optional[torch.Tensor]:
+            if payloads[0][part] is None:
+                return None
+            return torch.cat([p[part].to(dev, non_blocking=True)
+                              for p in payloads], 1)
+
+        gen.install_pool_pages(self.cache, joined(0), joined(1), joined(2),
+                               joined(3), bids)
+        for node, bid in zip(usable, bids):
+            trie.rehydrated(node, bid)
+        trie.acquire(usable)
+        tokens = len(bids) * self.block_size
+        self.stats.rehydrate_hits += 1
+        self.stats.rehydrate_tokens += tokens
+        reg = registry()
+        reg.counter("kv_rehydrate_hits", "dataplane").inc()
+        reg.counter("kv_rehydrate_tokens", "dataplane").inc(tokens)
+        return len(usable)
+
+    def _release_pins(self, slot: _Slot) -> None:
+        """Drop the slot's trie pins. Called on every retirement path
+        (eos, length, deadline, cancel, shed of a slot and drain)
+        beside :meth:`_free_owned` and :meth:`_free_shared`."""
+        if self._prefix_store is not None and slot.path:
+            self._prefix_store.release(slot.path)
+            slot.path = []
 
     def _free_owned(self, slot: _Slot) -> None:
         for bid in slot.owned:
@@ -637,6 +875,7 @@ class ServingEngine:
         its device row's ``active`` bit. The pending chunk's tokens for
         this row are dropped by the snapshot-identity check in
         :meth:`_process_pending`."""
+        self._release_pins(slot)
         self._free_owned(slot)
         self._free_shared(slot)
         self._clear_table_row(i)
@@ -858,14 +1097,31 @@ class ServingEngine:
             req = q.req
             sp = req.params if req.params is not None else self._default_params
             now = self._clock()
+            path: List[kv_blocks.RadixNode] = []
+            matched = 0
+            if self._prefix_store is not None:
+                rehydrate = (self._rehydrate_nodes
+                             if self._host_tier is not None else None)
+                rt0 = self.stats.rehydrate_tokens
+                path, matched = self._prefix_store.match_for_admission(
+                    req.prompt, rehydrate=rehydrate)
+                self.stats.prefix_lookup_tokens += req.prompt.size
+                self.stats.prefix_hit_tokens += matched
+                # Rehydrated pages moved host -> device bytes: only the
+                # resident share of the hit is zero-copy.
+                self.stats.prefix_zero_copy_tokens += matched - (
+                    self.stats.rehydrate_tokens - rt0)
             needed = self._blocks_needed(req.prompt.size, req.max_new_tokens)
-            owned = self._reserve_blocks(needed)
+            owned = self._reserve_blocks(needed - len(path))
             if owned is None:
+                if path:
+                    self._prefix_store.release(path)
                 self.queue.appendleft(q)    # FIFO order is a fairness contract
                 return
             row = self._tables[slot]
             row[:] = self._kv_pool_blocks
-            row[:needed] = owned
+            row[:len(path)] = [n.block for n in path]
+            row[len(path):needed] = owned
             self._slot_blocks[slot] = needed
             self._tables_dirty = True
             eos_val = -1 if req.eos_id is None else req.eos_id
@@ -883,12 +1139,15 @@ class ServingEngine:
                 self.budget[slot] = req.max_new_tokens
                 self.emitted[slot] = 0
             else:
-                prefill = _Prefill(tokens=req.prompt, next_off=0,
+                # Prefill starts at the matched offset: the matched pages
+                # are already in the slot's table.
+                prefill = _Prefill(tokens=req.prompt, next_off=matched,
                                    eos_val=eos_val,
                                    budget_val=req.max_new_tokens)
             self.slots[slot] = _Slot(
                 req=req, submit_t=q.submit_t, admit_t=now,
-                deadline_t=q.deadline_t, owned=owned, spec_k=self.draft_k,
+                deadline_t=q.deadline_t, path=path, owned=owned,
+                spec_k=self.draft_k,
                 prefill=prefill, sp=sp, mask=sp.logit_mask,
                 mask_state=(sp.logit_mask.init_state()
                             if sp.logit_mask is not None else None))
@@ -929,6 +1188,23 @@ class ServingEngine:
             self.stats.prefill_chunks += 1
             p.next_off = off + w_real
             if final:
+                if self._prefix_store is not None:
+                    # Publish the prompt's full pages: blocks the trie
+                    # lacks adopt this slot's pages in place, then the
+                    # slot's pin extends over the whole chain. A block
+                    # another slot published first stays this slot's
+                    # duplicate until retirement.
+                    owned_map = {
+                        o: int(self._tables[i, o // bs])
+                        for o in range(len(slot.path) * bs,
+                                       (p.tokens.size // bs) * bs, bs)}
+                    full, adopted = self._prefix_store.trie.insert_owned(
+                        p.tokens, owned_map, known_path=slot.path)
+                    for o in adopted:
+                        slot.owned.remove(owned_map[o])
+                    ext = full[len(slot.path):]
+                    self._prefix_store.trie.acquire(ext)
+                    slot.path = slot.path + ext
                 slot.prefill = None
                 if slot.sp.n > 1:
                     # The prompt is in the pages and the row holds the
@@ -978,9 +1254,14 @@ class ServingEngine:
         bs = self.block_size
         n_prompt = src.prompt_len
         fp = n_prompt // bs
-        owned = self._reserve_blocks(src.needed - fp)
-        if owned is None:
-            return False
+        owned: List[int] = []
+        for _ in range(src.needed - fp):
+            bid = self._alloc_block()
+            if bid is None:
+                for b in owned:
+                    self.pool.unref(b)
+                return False
+            owned.append(bid)
         row = self._tables[slot_idx]
         row[:] = self._kv_pool_blocks
         row[:fp] = src.table[:fp]
@@ -1359,10 +1640,16 @@ class ServingEngine:
         self.stats.pool_blocks_in_use = self.pool.used_blocks
         self.stats.kv_bytes_per_token = kv_blocks.kv_bytes_per_token(
             self.cfg, self.kv_quant)
+        self.stats.host_pages_resident = (
+            self._host_tier.resident_pages
+            if self._host_tier is not None else 0)
         reg = registry()
         reg.gauge("queue_depth", "serving").set(len(self.queue))
         reg.gauge("pool_blocks_in_use", "serving").set(self.pool.used_blocks)
         reg.gauge("active_slots", "serving").set(self.n_active)
+        for name in ("spilled_pages", "spill_bytes", "rehydrate_hits",
+                     "rehydrate_tokens", "host_pages_resident"):
+            reg.gauge(name, "serving").set(getattr(self.stats, name))
 
     def _book_token(self, i: int, slot: _Slot, tok: int,
                     now: float) -> Optional[Completion]:
@@ -1379,6 +1666,23 @@ class ServingEngine:
         done_eos = req.eos_id is not None and tok == req.eos_id
         if not done_eos and len(slot.tokens) < req.max_new_tokens:
             return None
+        if self._prefix_store is not None and not slot.shared:
+            # The reply joins the trie too (every committed token's KV is
+            # in the slot's pages, and the row is inactive on the device),
+            # so a follow-up turn reuses reply blocks. Fork children never
+            # publish: their rows name pages the parent owns.
+            full = np.concatenate([req.prompt,
+                                   np.asarray(slot.tokens, np.int32)])
+            bs = self.block_size
+            owned_map = {
+                o: int(self._tables[i, o // bs])
+                for o in range(len(slot.path) * bs, (full.size // bs) * bs,
+                               bs)}
+            _, adopted = self._prefix_store.trie.insert_owned(
+                full, owned_map, known_path=slot.path)
+            for o in adopted:
+                slot.owned.remove(owned_map[o])
+        self._release_pins(slot)
         self._free_owned(slot)
         self._free_shared(slot)
         self._clear_table_row(i)

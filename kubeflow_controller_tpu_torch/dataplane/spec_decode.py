@@ -10,10 +10,9 @@ would have produced.
 * :class:`PromptLookupProposer` — prompt lookup: match the last n-gram
   of the request's prompt + emitted tokens against its earlier history
   and propose the tokens that followed the most recent earlier
-  occurrence.
-
-The radix proposer walks the prefix cache's trie, which this port does
-not have yet: :func:`make_proposer` refuses ``"radix"``.
+  occurrence;
+* :class:`RadixProposer` — walk the prefix cache's trie with the context
+  and propose a cached continuation.
 
 Contract: ``propose(contexts, k)`` takes one optional 1-D int32 context
 per slot (prompt + emitted tokens + the next committed token; None =
@@ -25,9 +24,13 @@ token is copied from the context.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from kubeflow_controller_tpu_torch.dataplane.kv_blocks import (
+    PrefixStore, RadixNode,
+)
 
 
 class DraftProposer:
@@ -101,14 +104,84 @@ class PromptLookupProposer(DraftProposer):
         return draft, lens
 
 
-def make_proposer(name: str) -> DraftProposer:
-    """A proposer by its command-line name: ``"prompt"``. ``"radix"``
-    (the prefix cache's trie as the draft source) is not yet ported."""
+class RadixProposer(DraftProposer):
+    """Drafts from the prefix trie's cached continuations.
+
+    The context walks the trie block by block (exact match); the
+    remainder (< block_size tokens) must prefix exactly one child's key,
+    and the draft is that child's remaining tokens, then a deterministic
+    descent (the most recently used child, the key breaking ties) until
+    ``k`` tokens or the chain's end. Any mismatch: no draft.
+
+    Read-only: the walk neither pins (a draft must not extend a page's
+    life; only the token keys are read) nor touches ``last_use``
+    (drafting must not change the eviction order)."""
+
+    def __init__(self, store: PrefixStore):
+        self.store = store
+
+    @staticmethod
+    def _best_child(node: RadixNode) -> Optional[RadixNode]:
+        if not node.children:
+            return None
+        return max(node.children.values(),
+                   key=lambda c: (c.last_use, c.key))
+
+    def propose(self, contexts, k):
+        b = len(contexts)
+        draft = np.zeros((b, k), np.int32)
+        lens = np.zeros((b,), np.int32)
+        trie = self.store.trie
+        bs = trie.block_size
+        for i, ctx in enumerate(contexts):
+            if ctx is None:
+                continue
+            toks = [int(t) for t in np.asarray(ctx, np.int32).reshape(-1)]
+            node = trie.root
+            n_full = (len(toks) // bs) * bs
+            matched = True
+            for s in range(0, n_full, bs):
+                child = node.children.get(tuple(toks[s:s + bs]))
+                if child is None:
+                    matched = False
+                    break
+                node = child
+            if not matched:
+                continue
+            tail = tuple(toks[n_full:])
+            out: List[int] = []
+            if tail:
+                # The remainder must prefix exactly one child edge.
+                nxt = next(
+                    (c for key, c in node.children.items()
+                     if key[:len(tail)] == tail), None)
+                if nxt is None:
+                    continue
+                out.extend(nxt.key[len(tail):])
+                node = nxt
+            while len(out) < k:
+                nxt = self._best_child(node)
+                if nxt is None:
+                    break
+                out.extend(nxt.key)
+                node = nxt
+            got = np.asarray(out[:k], np.int32)
+            draft[i, :got.size] = got
+            lens[i] = got.size
+        return draft, lens
+
+
+def make_proposer(name: str,
+                  store: Optional[PrefixStore] = None) -> DraftProposer:
+    """A proposer by its command-line name: ``"prompt"``, or ``"radix"``,
+    which needs the engine's prefix store (``prefix_cache=True``)."""
     if name == "prompt":
         return PromptLookupProposer()
     if name == "radix":
-        raise NotImplementedError(
-            "proposer='radix' (drafts from the prefix cache's trie) is not "
-            "yet ported to the PyTorch engine (see ROADMAP.md)")
+        if store is None:
+            raise ValueError(
+                "proposer='radix' requires prefix_cache=True "
+                "(the radix trie is the draft source)")
+        return RadixProposer(store)
     raise ValueError(
         f"unknown proposer {name!r} (expected 'prompt' or 'radix')")

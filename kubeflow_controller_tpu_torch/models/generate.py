@@ -4,7 +4,12 @@ Counterpart of ``kubeflow_controller_tpu/models/generate.py``, single
 device (tp=1): the fused block prefill (:func:`prefill` into a
 contiguous :class:`KVCache`, :func:`prefill_into_paged` into one slot's
 pages), the paged decode step, the chunked prefill and the greedy
-speculative verify step (:func:`verify_step_paged`). The pool's ``[L,
+speculative verify step (:func:`verify_step_paged`); the contiguous
+multi-turn path (:func:`decode_step`, :func:`prefill_continue`,
+:func:`generate_from_cache`, :func:`generate`); and the page movement
+under the prefix cache (:func:`gather_pool_pages` and
+:func:`install_pool_pages` for the host tier,
+:func:`scatter_row_into_pool` for ``register_prefix``). The pool's ``[L,
 n_blocks, bs, KVH, D]`` pages are the only KV storage of the paged
 paths; each slot reads and writes them through its row of the block
 table (sentinel id ``n_blocks`` = unallocated).
@@ -31,7 +36,7 @@ most of the device memory a server holds) and returns the same
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -299,6 +304,227 @@ def prefill(
     cache.v[:, :, :s] = vs.to(cache.v.dtype)
     cache.length = s
     return logits, cache
+
+
+# -- the contiguous multi-turn path ---------------------------------------------
+
+def _check_cache_capacity(cache: KVCache, new_tokens: int, what: str) -> None:
+    """Refuse writes past the cache's window (a slice assignment past
+    ``max_seq`` would raise deep in a layer, or, with JAX's clamped
+    update, overwrite the newest positions)."""
+    max_seq = cache.k.shape[2]
+    if int(cache.length) + new_tokens > max_seq:
+        raise ValueError(
+            f"{what}: cache length {int(cache.length)} + {new_tokens} new "
+            f"tokens exceeds max_seq {max_seq}")
+
+
+def _refuse_moe(cfg: TransformerConfig) -> None:
+    if getattr(cfg, "moe_experts", 0):
+        raise NotImplementedError(
+            "the mixture-of-experts decode is not yet ported")
+
+
+def _decode_layer(
+    cfg: TransformerConfig, lp: Params, x: torch.Tensor, pos: int,
+    layer: int, cache: KVCache,
+) -> torch.Tensor:
+    """One decoder layer of the contiguous cache for one token a row at
+    position ``pos``: the row's rotated k and v land in place at
+    ``[layer, :, pos]``, then the query attends columns ``<= pos``
+    (grouped einsums over the un-repeated cache, fp32 softmax)."""
+    b = x.shape[0]
+    hd = cfg.head_dim
+    dt = cfg.dtype
+    g = cfg.n_kv_heads
+    rep = cfg.n_heads // g
+    max_seq = cache.k.shape[2]
+    h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+    q = (h @ _w(lp, "wq", dt)).reshape(b, 1, cfg.n_heads, hd)
+    k = (h @ _w(lp, "wk", dt)).reshape(b, 1, g, hd)
+    v = (h @ _w(lp, "wv", dt)).reshape(b, 1, g, hd)
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    cache.k[layer, :, pos] = k[:, 0].to(cache.k.dtype)
+    cache.v[layer, :, pos] = v[:, 0].to(cache.v.dtype)
+    qg = q.reshape(b, 1, g, rep, hd)
+    s = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
+                     cache.k[layer].float()) * (hd ** -0.5)   # [B,G,rep,1,S]
+    valid = torch.arange(max_seq, device=x.device) <= pos
+    s = torch.where(valid, s, -1e30)
+    p = torch.softmax(s, dim=-1).to(dt)
+    attn = torch.einsum("bgrqk,bkgd->bqgrd", p, cache.v[layer]).reshape(b, 1, -1)
+    x = x + attn @ _w(lp, "wo", dt)
+    h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+    return x + _ffn(lp, h, dt)
+
+
+def decode_step(
+    cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
+    cache: KVCache,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One token for every row of a contiguous cache (``tokens`` [B, 1]
+    at position ``cache.length``): fp32 logits [B, vocab] and the cache,
+    written in place, with ``length`` advanced by one. Dense models
+    only."""
+    _refuse_moe(cfg)
+    _check_cache_capacity(cache, 1, "decode_step")
+    x = params["embed"].to(cfg.dtype)[tokens.long()]      # [B, 1, D]
+    pos = int(cache.length)
+    for layer in range(cfg.n_layers):
+        x = _decode_layer(cfg, _layer_params(params, layer), x, pos, layer,
+                          cache)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    cache.length = pos + 1
+    return _head_logits(cfg, params, x[:, 0]), cache
+
+
+def prefill_continue(
+    cfg: TransformerConfig, params: Params, new_tokens: torch.Tensor,
+    cache: KVCache,
+) -> Tuple[torch.Tensor, KVCache]:
+    """A turn's new tokens ``[B, S_new]`` in ONE forward over a cache
+    that already holds ``length`` positions: position i attends the
+    cache's columns ``< length`` and the new positions ``<= i``. The
+    cache half and the causal intra-block half are scored by two
+    grouped einsums and normalised by one fp32 softmax. The new rotated
+    K and V land at ``[length, length + S_new)`` in place. Returns the
+    last position's fp32 logits and the cache."""
+    _refuse_moe(cfg)
+    b, s = new_tokens.shape
+    dt = cfg.dtype
+    hd = cfg.head_dim
+    g = cfg.n_kv_heads
+    rep = cfg.n_heads // g
+    max_seq = cache.k.shape[2]
+    start = int(cache.length)
+    _check_cache_capacity(cache, s, "prefill_continue")
+    dev = new_tokens.device
+    x = params["embed"].to(dt)[new_tokens.long()]         # [B, S, D]
+    positions = start + torch.arange(s, dtype=torch.int32,
+                                     device=dev).expand(b, s)
+    cache_visible = torch.arange(max_seq, device=dev) < start
+    causal = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
+    scale = hd ** -0.5
+    for layer in range(cfg.n_layers):
+        lp = _layer_params(params, layer)
+        h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+        q = (h @ _w(lp, "wq", dt)).reshape(b, s, cfg.n_heads, hd)
+        k = (h @ _w(lp, "wk", dt)).reshape(b, s, g, hd)
+        v = (h @ _w(lp, "wv", dt)).reshape(b, s, g, hd)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        qg = q.reshape(b, s, g, rep, hd)
+        kc, vc = cache.k[layer], cache.v[layer]           # [B, max, G, D]
+        s_cache = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
+                               kc.float()) * scale        # [B,G,rep,S,max]
+        s_cache = torch.where(cache_visible, s_cache, -1e30)
+        s_new = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
+                             k.float()) * scale           # [B,G,rep,S,S]
+        s_new = torch.where(causal, s_new, -1e30)
+        p = torch.softmax(torch.cat([s_cache, s_new], -1), -1).to(dt)
+        attn = (torch.einsum("bgrqk,bkgd->bqgrd", p[..., :max_seq], vc)
+                + torch.einsum("bgrqk,bkgd->bqgrd", p[..., max_seq:], v)
+                ).reshape(b, s, -1)
+        x = x + attn @ _w(lp, "wo", dt)
+        h2 = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+        x = x + _ffn(lp, h2, dt)
+        # After this layer's attention read the cache: written in place.
+        cache.k[layer, :, start:start + s] = k.to(cache.k.dtype)
+        cache.v[layer, :, start:start + s] = v.to(cache.v.dtype)
+    x = rmsnorm(x[:, -1], params["final_norm"], cfg.norm_eps)
+    cache.length = start + s
+    return _head_logits(cfg, params, x), cache
+
+
+def _filter_logits(logits: torch.Tensor, top_k: int = 0,
+                   top_p: float = 1.0) -> torch.Tensor:
+    """Top-k, then nucleus filtering with scalar knobs, the JAX
+    package's op sequence: ``logits < kth`` goes to ``-inf``; top-p
+    keeps the tokens whose preceding sorted mass is ``< top_p`` (the top
+    token always), cut at the smallest kept logit."""
+    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    if top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, neg_inf, logits)
+    if top_p < 1.0:
+        sorted_logits = torch.sort(logits, -1, descending=True).values
+        cum = torch.cumsum(torch.softmax(sorted_logits, -1), -1)
+        keep_sorted = torch.cat(
+            [torch.ones_like(cum[..., :1], dtype=torch.bool),
+             cum[..., :-1] < top_p], -1)
+        thresh = torch.where(
+            keep_sorted, sorted_logits,
+            torch.tensor(float("inf"), device=logits.device)
+        ).amin(-1, keepdim=True)
+        logits = torch.where(logits < thresh, neg_inf, logits)
+    return logits
+
+
+def generate_from_cache(
+    cfg: TransformerConfig, params: Params, logits: torch.Tensor,
+    cache: KVCache, max_new_tokens: int, temperature: float = 0.0,
+    top_k: int = 0, top_p: float = 1.0, rng: Optional[prng.Key] = None,
+    return_state: bool = False,
+):
+    """Decode ``max_new_tokens`` from a prefilled (or continued) cache
+    and its last-position logits ``[B, vocab]``: the multi-turn entry
+    (turn 1 :func:`prefill`, later turns :func:`prefill_continue`).
+    Greedy takes the argmax; ``temperature > 0`` draws JAX's
+    ``categorical`` from ``_filter_logits(logits / temperature)`` under
+    step ``i``'s key of ``prng.split(rng, max_new_tokens)`` (``rng``
+    defaults to ``PRNGKey(0)``). Every step writes one row of the cache
+    in place, so the loop holds one cache, not one a step. Returns the
+    tokens ``[B, new]`` int32, and with ``return_state`` also the final
+    logits and the cache (``length`` advanced by ``max_new_tokens``)."""
+    _check_cache_capacity(cache, max_new_tokens, "generate_from_cache")
+    b, vocab = logits.shape
+    dev = logits.device
+    keys = None
+    if temperature > 0.0:
+        if rng is None:
+            rng = prng.prng_key(torch.tensor(0, dtype=torch.int32))
+        keys = prng.split(rng, max_new_tokens)
+    toks = []
+    for i in range(max_new_tokens):
+        if keys is None:
+            tok = logits.argmax(-1).to(torch.int32)
+        else:
+            filtered = _filter_logits(logits / temperature, top_k, top_p)
+            key = (keys[0][..., i].to(dev), keys[1][..., i].to(dev))
+            noise = prng.gumbel(prng.random_bits(key, b * vocab)).reshape(
+                b, vocab)
+            tok = torch.argmax(noise + filtered, -1).to(torch.int32)
+        logits, cache = decode_step(cfg, params, tok[:, None], cache)
+        toks.append(tok)
+    out = (torch.stack(toks, 1) if toks
+           else torch.zeros((b, 0), dtype=torch.int32, device=dev))
+    if return_state:
+        return out, logits, cache
+    return out
+
+
+def generate(
+    cfg: TransformerConfig, params: Params, prompt: torch.Tensor,
+    max_new_tokens: int, temperature: float = 0.0, top_k: int = 0,
+    top_p: float = 1.0, rng: Optional[prng.Key] = None,
+    max_seq: Optional[int] = None,
+) -> torch.Tensor:
+    """Greedy or sampled generation from a fresh contiguous cache:
+    :func:`prefill` of the prompt ``[B, S]``, then
+    :func:`generate_from_cache`. Returns ``[B, new]`` int32."""
+    b, s_prompt = prompt.shape
+    max_seq = max_seq or cfg.max_seq
+    if s_prompt + max_new_tokens > max_seq:
+        raise ValueError(
+            f"prompt {s_prompt} + new {max_new_tokens} exceeds max_seq "
+            f"{max_seq}")
+    cache = init_kv_cache(cfg, b, max_seq, device=prompt.device)
+    logits, cache = prefill(cfg, params, prompt, cache)
+    return generate_from_cache(
+        cfg, params, logits, cache, max_new_tokens, temperature=temperature,
+        top_k=top_k, top_p=top_p, rng=rng)
 
 
 # -- decode -------------------------------------------------------------------
@@ -833,4 +1059,124 @@ def copy_pool_pages(cache: PagedKVCache, src_ids, dst_ids) -> PagedKVCache:
     for t in (cache.k, cache.v, cache.k_scale, cache.v_scale):
         if t is not None:
             t[:, dst] = t[:, src]
+    return cache
+
+
+# -- page movement: the host tier and the external ingest --------------------
+
+def _page_ids(ids, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor([int(i) for i in ids], dtype=torch.long,
+                           device=device)
+
+
+def gather_pool_pages(
+    cache: PagedKVCache, ids,
+) -> List[Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
+                Optional[torch.Tensor]]]:
+    """Copy whole pool pages to host memory, one ``(k, v, k_scale,
+    v_scale)`` tuple a page (in ``ids`` order) of tensors ``[L, 1, bs,
+    KVH(, D)]`` in the pool's storage types (int8 payload and fp32
+    scales for int8 pools, never dequantized; scales None for fp pools).
+    Each page owns its bytes, so a page the host tier drops frees them.
+    On the card one device gather puts each page's layers side by side,
+    then one copy a page and part lands in a pinned buffer of its own;
+    the call returns once the bytes are there, so a page freed after it
+    may be rewritten at once. Every id must name a real page (the JAX
+    package pads its id lists with a sentinel to bound compiles; the
+    port needs no padding)."""
+    n_blocks = cache.k.shape[1]
+    if any(not 0 <= int(i) < n_blocks for i in ids):
+        raise ValueError(f"gather_pool_pages: ids {list(ids)} outside "
+                         f"[0, {n_blocks})")
+    parts = (cache.k, cache.v, cache.k_scale, cache.v_scale)
+    dev = cache.k.device
+    if dev.type != "cuda":
+        return [tuple(None if t is None else t[:, int(i):int(i) + 1].clone()
+                      for t in parts) for i in ids]
+    idx = _page_ids(ids, dev)
+    # [n, L, ...]: page j of a part is one contiguous block on the card.
+    rows = [None if t is None else t.transpose(0, 1).index_select(0, idx)
+            for t in parts]
+    pages = []
+    for j in range(len(ids)):
+        page = []
+        for r in rows:
+            if r is None:
+                page.append(None)
+                continue
+            host = torch.empty((r.shape[1], 1) + tuple(r.shape[2:]),
+                               dtype=r.dtype, pin_memory=True)
+            host[:, 0].copy_(r[j], non_blocking=True)
+            page.append(host)
+        pages.append(tuple(page))
+    # The tier hands these bytes out, and the pages they came from may
+    # be reused by the next dispatch: wait for the copies here.
+    torch.cuda.current_stream(dev).synchronize()
+    return pages
+
+
+def pool_page_host_bytes(cache: PagedKVCache) -> int:
+    """Host bytes one pool page occupies off the card (K and V in the
+    storage type, plus the fp32 scales of int8 pools): the unit the host
+    tier's budget counts in."""
+    n_layers = cache.k.shape[0]
+    per = cache.k[0, 0].numel() * cache.k.element_size()
+    n = 2 * n_layers * per
+    if cache.k_scale is not None:
+        n += 2 * n_layers * cache.k_scale[0, 0].numel() * 4
+    return n
+
+
+def install_pool_pages(
+    cache: PagedKVCache, pages_k: torch.Tensor, pages_v: torch.Tensor,
+    scales_k: Optional[torch.Tensor], scales_v: Optional[torch.Tensor],
+    dst_ids,
+) -> PagedKVCache:
+    """Write pages (``[L, n, bs, KVH(, D)]``: ``gather_pool_pages``'
+    pages joined along dim 1, on the host or the card) into the pool's
+    ``dst_ids`` in place, bytes verbatim: int8
+    payload and scales as they are, never requantized, so an installed
+    page is its source's bits. A host tensor is copied to the card
+    behind the work already on the stream (pinned memory: without
+    stopping the host)."""
+    if not len(dst_ids):
+        return cache
+    n_blocks = cache.k.shape[1]
+    if any(not 0 <= int(i) < n_blocks for i in dst_ids):
+        raise ValueError(f"install_pool_pages: ids {list(dst_ids)} outside "
+                         f"[0, {n_blocks})")
+    dev = cache.k.device
+    dst = _page_ids(dst_ids, dev)
+    for pool, pages in ((cache.k, pages_k), (cache.v, pages_v),
+                        (cache.k_scale, scales_k), (cache.v_scale, scales_v)):
+        if pool is None:
+            continue
+        pool[:, dst] = pages.to(dev, non_blocking=True).to(pool.dtype)
+    return cache
+
+
+def scatter_row_into_pool(
+    cache: PagedKVCache, ext_k: torch.Tensor, ext_v: torch.Tensor, row: int,
+    ids, starts, block_size: int,
+) -> PagedKVCache:
+    """Ingest full blocks of one row of an external contiguous cache
+    (``[L, B, S, KVH, D]``, K rotated) into pool pages: block ``j``
+    (tokens ``starts[j] + [0, block_size)``) into page ``ids[j]``,
+    quantizing on write for int8 pools (``_pool_write``). The
+    ``register_prefix`` path: the one place KV is copied into the pool
+    from outside."""
+    if not len(ids):
+        return cache
+    dev = cache.k.device
+    bs = int(block_size)
+    cols = (torch.as_tensor([int(s) for s in starts], dtype=torch.long,
+                            device=dev)[:, None]
+            + torch.arange(bs, device=dev)[None, :]).reshape(-1)
+    blk = _page_ids(ids, dev).repeat_interleave(bs)
+    off = torch.arange(bs, device=dev).repeat(len(ids))
+    valid = torch.ones_like(blk, dtype=torch.bool)
+    for pool, scale, ext in ((cache.k, cache.k_scale, ext_k),
+                             (cache.v, cache.v_scale, ext_v)):
+        rows = ext[:, row].to(dev).index_select(1, cols)   # [L, m*bs, KVH, D]
+        _pool_write(pool, scale, None, blk, off, rows, valid)
     return cache

@@ -10,6 +10,8 @@ random numbers: as easy as 1, 2, 3", SC 2011) as JAX defines it:
 * ``PRNGKey(s)`` of an int32 seed is the key pair ``(0, s)``;
 * ``fold_in(k, d)`` is ``threefry2x32(k, (0, d))``, taken as the new
   pair;
+* ``split(k, n)`` (partitionable route): key ``i`` is
+  ``threefry2x32(k, (hi32(i), lo32(i)))``;
 * ``random_bits(k, (V,))`` on the partitionable route (JAX's
   ``jax_threefry_partitionable``, on by default): element ``i`` is
   ``y0 ^ y1`` of ``threefry2x32(k, (hi32(i), lo32(i)))``;
@@ -85,6 +87,16 @@ def fold_in(key: Key, data: torch.Tensor) -> Key:
     ``key``; the two output words are the new key."""
     d = _u32(data)
     return threefry2x32(key, (torch.zeros_like(d), d))
+
+
+def split(key: Key, n: int) -> Key:
+    """``jax.random.split(key, n)`` (partitionable route): key ``i`` is
+    the hash's two words on the count pair ``(hi32(i), lo32(i))``.
+    Returns ``[..., n]`` halves for ``[...]`` keys."""
+    k0, k1 = key
+    counts = torch.arange(n, dtype=torch.int64, device=k0.device)
+    return threefry2x32((k0[..., None], k1[..., None]),
+                        (counts >> 32, counts & _M32))
 
 
 def random_bits(key: Key, n: int) -> torch.Tensor:

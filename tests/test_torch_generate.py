@@ -329,3 +329,230 @@ def test_prefill_into_paged_matches_jax(quant):
         tgen.prefill_into_paged(cfg_t, params_t,
                                 torch.zeros((1, MB * BS + 1), dtype=torch.int32),
                                 cache_t, 0)
+
+
+# -- the contiguous multi-turn path and the page movement (prefix cache) ------
+
+from kubeflow_controller_tpu_torch.ops import prng  # noqa: E402
+
+SEEDS = (0, 1, 7, 2 ** 31 - 1)
+
+
+@pytest.mark.parametrize("n", [1, 2, 5, 64])
+def test_prng_split_bitwise_equals_jax(n):
+    """``prng.split`` is ``jax.random.split`` (partitionable route) on
+    keys from a grid of seeds, also on split keys split again."""
+    for seed in SEEDS:
+        kj = jax.random.key(seed)
+        kt = prng.prng_key(torch.tensor(seed, dtype=torch.int32))
+        for _ in range(2):
+            want = np.asarray(jax.random.key_data(
+                jax.random.split(kj, n))).astype(np.int64)
+            k0, k1 = prng.split(kt, n)
+            np.testing.assert_array_equal(k0.numpy(), want[:, 0])
+            np.testing.assert_array_equal(k1.numpy(), want[:, 1])
+            kj = jax.random.split(kj, n)[n - 1]
+            kt = (k0[n - 1], k1[n - 1])
+
+
+def _contiguous_session(cfg_j, cfg_t, params_j, params_t, prompt, cap):
+    cj = jgen.init_kv_cache(cfg_j, prompt.shape[0], cap)
+    lj, cj = jax.jit(functools.partial(jgen.prefill, cfg_j))(
+        params_j, jnp.asarray(prompt), cj)
+    ct = tgen.init_kv_cache(cfg_t, prompt.shape[0], cap, device="cpu")
+    lt, ct = tgen.prefill(cfg_t, params_t, torch.from_numpy(prompt), ct)
+    return lj, cj, lt, ct
+
+
+def _assert_caches_close(cj, ct):
+    assert int(cj.length) == int(ct.length)
+    for a, b in ((cj.k, ct.k), (cj.v, ct.v)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), **PALLAS_LOGITS_TOL)
+
+
+def test_prefill_continue_and_decode_step_match_jax():
+    """A [2, 10] prompt block-prefilled, a turn of 7 new tokens through
+    ``prefill_continue`` (cache half and causal half under one softmax),
+    then 3 ``decode_step``s: logits and the rotated K/V cache against
+    JAX's at every call; the cache's tail stays zero; a write past the
+    window is refused as JAX refuses it."""
+    cfg_j, cfg_t, params_j, params_t = _models()
+    rng = np.random.default_rng(21)
+    prompt = rng.integers(0, cfg_j.vocab_size, (2, 10)).astype(np.int32)
+    lj, cj, lt, ct = _contiguous_session(cfg_j, cfg_t, params_j, params_t,
+                                         prompt, 24)
+    turn = rng.integers(0, cfg_j.vocab_size, (2, 7)).astype(np.int32)
+    lj, cj = jax.jit(functools.partial(jgen.prefill_continue, cfg_j))(
+        params_j, jnp.asarray(turn), cj)
+    lt, ct2 = tgen.prefill_continue(cfg_t, params_t, torch.from_numpy(turn), ct)
+    assert ct2 is ct and ct.length == 17
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **PALLAS_LOGITS_TOL)
+    _assert_caches_close(cj, ct)
+    step_j = jax.jit(functools.partial(jgen.decode_step, cfg_j))
+    for _ in range(3):
+        tok = np.asarray(lj.argmax(-1)).astype(np.int32)[:, None]
+        assert np.array_equal(tok[:, 0], lt.argmax(-1).numpy())
+        lj, cj = step_j(params_j, jnp.asarray(tok), cj)
+        lt, ct = tgen.decode_step(cfg_t, params_t, torch.from_numpy(tok), ct)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **PALLAS_LOGITS_TOL)
+        _assert_caches_close(cj, ct)
+    assert not ct.k[:, :, 20:].any()
+    for fn, arg in ((tgen.prefill_continue, torch.zeros((2, 5), dtype=torch.int32)),
+                    (tgen.generate_from_cache, None)):
+        with pytest.raises(ValueError, match="exceeds max_seq"):
+            if arg is None:
+                fn(cfg_t, params_t, lt, ct, 5)
+            else:
+                fn(cfg_t, params_t, arg, ct)
+    with pytest.raises(ValueError, match="exceeds max_seq"):
+        jgen.prefill_continue(cfg_j, params_j, jnp.zeros((2, 5), jnp.int32), cj)
+
+
+SAMPLING = [dict(), dict(temperature=0.8), dict(temperature=1.1, top_k=20),
+            dict(temperature=0.7, top_k=0, top_p=0.9)]
+
+
+@pytest.mark.parametrize("kw", SAMPLING,
+                         ids=["greedy", "temp", "top_k", "top_p"])
+def test_generate_from_cache_streams_equal_jax(kw):
+    """``generate_from_cache(return_state=True)`` from a prefilled cache,
+    then a second turn through ``prefill_continue`` and again, greedy and
+    sampled under ``fold_in(key(seed), turn)`` as ``serve()`` keys its
+    turns: the token streams equal JAX's; the returned logits and cache
+    agree within the generate tolerance."""
+    cfg_j, cfg_t, params_j, params_t = _models()
+    rng = np.random.default_rng(22)
+    prompt = rng.integers(0, cfg_j.vocab_size, (3, 9)).astype(np.int32)
+    lj, cj, lt, ct = _contiguous_session(cfg_j, cfg_t, params_j, params_t,
+                                         prompt, 40)
+    sampled = kw.get("temperature", 0.0) > 0
+    for turn in range(2):
+        if turn:
+            follow = rng.integers(0, cfg_j.vocab_size, (3, 6)).astype(np.int32)
+            lj, cj = jgen.prefill_continue(cfg_j, params_j, jnp.asarray(follow), cj)
+            lt, ct = tgen.prefill_continue(cfg_t, params_t,
+                                           torch.from_numpy(follow), ct)
+        rj = jax.random.fold_in(jax.random.key(5), turn) if sampled else None
+        rt = (prng.fold_in(prng.prng_key(torch.tensor(5, dtype=torch.int32)),
+                           torch.tensor(turn)) if sampled else None)
+        tj, lj, cj = jgen.generate_from_cache(
+            cfg_j, params_j, lj, cj, 8, rng=rj, return_state=True, **kw)
+        tt, lt, ct = tgen.generate_from_cache(
+            cfg_t, params_t, lt, ct, 8, rng=rt, return_state=True, **kw)
+        assert tt.dtype == torch.int32 and tuple(tt.shape) == (3, 8)
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(tj))
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **PALLAS_LOGITS_TOL)
+        _assert_caches_close(cj, ct)
+    # generate() is prefill + generate_from_cache on a fresh cache.
+    want = jgen.generate(cfg_j, params_j, jnp.asarray(prompt), 5, max_seq=16,
+                         rng=jax.random.key(3) if sampled else None, **kw)
+    got = tgen.generate(cfg_t, params_t, torch.from_numpy(prompt), 5, max_seq=16,
+                        rng=(prng.prng_key(torch.tensor(3, dtype=torch.int32))
+                             if sampled else None), **kw)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_filter_logits_matches_jax():
+    """The scalar-knob filter: the same surviving set and values as JAX's
+    (ties with the top-k cut survive)."""
+    rng = np.random.default_rng(23)
+    logits = (rng.standard_normal((6, 97)) * 3).astype(np.float32)
+    logits[::2, :4] = logits[::2, :1]
+    for top_k, top_p in ((0, 1.0), (5, 1.0), (1, 1.0), (0, 0.8), (10, 0.5),
+                         (0, 0.0)):
+        want = np.asarray(jgen._filter_logits(jnp.asarray(logits), top_k, top_p))
+        got = tgen._filter_logits(torch.from_numpy(logits), top_k, top_p).numpy()
+        np.testing.assert_array_equal(np.isinf(got), np.isinf(want))
+        np.testing.assert_array_equal(got[~np.isinf(got)], want[~np.isinf(want)])
+
+
+def _random_pools(quant, n_blocks=6, seed=24):
+    """The same random pool bytes in a JAX and a port paged cache."""
+    cfg_j, cfg_t, _, _ = _models()
+    kvq = "int8" if quant else ""
+    cj = jgen.init_paged_cache(cfg_j, 1, MB, n_blocks, BS, kvq)
+    ct = tgen.init_paged_cache(cfg_t, 1, MB, n_blocks, BS, kvq, device="cpu")
+    rng = np.random.default_rng(seed)
+    arrays = {}
+    for name in ("k", "v", "k_scale", "v_scale"):
+        t = getattr(ct, name)
+        if t is None:
+            continue
+        if t.dtype == torch.int8:
+            a = rng.integers(-127, 128, tuple(t.shape)).astype(np.int8)
+        else:
+            a = rng.standard_normal(tuple(t.shape)).astype(np.float32)
+        arrays[name] = a
+        setattr(ct, name, torch.from_numpy(a.copy()))
+    cj = cj._replace(**{k: jnp.asarray(a) for k, a in arrays.items()})
+    return cj, ct
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_gather_install_round_trip_bit_for_bit(quant):
+    """Pages out with ``gather_pool_pages`` (one tuple a page, the
+    storage types, scales for int8 pools) equal JAX's bytes, and
+    installed into other pages of another pool they are their source's
+    bits; the untouched pages stay; ``pool_page_host_bytes`` is each
+    page's payload size and JAX's."""
+    cj, ct = _random_pools(quant)
+    ids = [4, 1, 5]
+    want = jgen.gather_pool_pages(cj, ids)
+    pages = tgen.gather_pool_pages(ct, ids)
+    assert len(pages) == len(ids)
+    got = tuple(None if page[0] is None else torch.cat(page, 1)
+                for page in zip(*pages))
+    for w, g in zip(want, got):
+        if w is None:
+            assert g is None
+            continue
+        assert tuple(g.shape) == w.shape and g.shape[1] == len(ids)
+        np.testing.assert_array_equal(g.numpy(), w)
+    for page in pages:
+        assert (tgen.pool_page_host_bytes(ct) == jgen.pool_page_host_bytes(cj)
+                == sum(a.nbytes for a in page if a is not None))
+        assert all(a is None or a.shape[1] == 1 for a in page)
+    _, dst = _random_pools(quant, seed=25)
+    before = {n: getattr(dst, n).clone() for n in ("k", "v", "k_scale", "v_scale")
+              if getattr(dst, n) is not None}
+    tgen.install_pool_pages(dst, *got, [0, 2, 3])
+    for name, src in before.items():
+        new = getattr(dst, name)
+        np.testing.assert_array_equal(new[:, [0, 2, 3]].numpy(),
+                                      getattr(ct, name)[:, ids].numpy())
+        np.testing.assert_array_equal(new[:, [1, 4, 5]].numpy(),
+                                      src[:, [1, 4, 5]].numpy())
+    with pytest.raises(ValueError, match="outside"):
+        tgen.gather_pool_pages(ct, [6])
+    with pytest.raises(ValueError, match="outside"):
+        tgen.install_pool_pages(dst, *got, [0, 2, 6])
+    assert tgen.install_pool_pages(dst, *got, []) is dst
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+def test_scatter_row_into_pool_matches_jax(quant):
+    """Full blocks of row 1 of an external contiguous cache (the
+    ``register_prefix`` ingest) scattered into chosen pages, quantized on
+    write for int8 pools: the pool's bytes against JAX's (fp pools bit for
+    bit); every other page untouched."""
+    cj, ct = _random_pools(quant)
+    rng = np.random.default_rng(26)
+    shape = (ct.k.shape[0], 2, 3 * BS, ct.k.shape[3], ct.k.shape[4])
+    ek = rng.standard_normal(shape).astype(np.float32)
+    ev = rng.standard_normal(shape).astype(np.float32)
+    ids, starts = [3, 0], [BS, 2 * BS]
+    cj = jgen.scatter_row_into_pool(cj, jnp.asarray(ek), jnp.asarray(ev), 1,
+                                    ids, starts, BS)
+    keep = {n: getattr(ct, n).clone() for n in ("k", "v")}
+    tgen.scatter_row_into_pool(ct, torch.from_numpy(ek), torch.from_numpy(ev),
+                               1, ids, starts, BS)
+    if quant:
+        # JAX's jitted quantizer may differ by an ulp of a scale, and so
+        # by one code at a rounding boundary (as in exact prefill).
+        _assert_pools_close(cj, ct, quant)
+    else:
+        for name in ("k", "v"):
+            np.testing.assert_array_equal(getattr(ct, name).numpy(),
+                                          np.asarray(getattr(cj, name)))
+    np.testing.assert_array_equal(ct.k[:, [1, 2, 4, 5]].numpy(),
+                                  keep["k"][:, [1, 2, 4, 5]].numpy())

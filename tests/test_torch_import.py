@@ -97,14 +97,22 @@ def no_cuda(monkeypatch):
 
 def test_entry_points_raise_without_cuda(no_cuda):
     cfg = tfm.tiny_config()
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        serve_lm.serve(config="tiny", batch=1, prompt_len=4,
-                       max_new_tokens=2)
+    for kw in (dict(), dict(turns=2), dict(turns=2, prefix_cache=True),
+               dict(prefix_cache=True, host_kv_mb=1.0)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            serve_lm.serve(config="tiny", batch=1, prompt_len=4,
+                           max_new_tokens=2, **kw)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tfm.init_params(cfg)
     params = tfm.init_params(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingEngine(cfg, params, n_slots=1, max_seq=16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(cfg, params, n_slots=1, max_seq=16,
+                      prefill_mode="bucketed", prefix_cache=True,
+                      host_kv_mb=1.0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        gen.init_kv_cache(cfg, 1, 16)
     # device="cpu" is the one way onto the CPU.
     ServingEngine(cfg, params, n_slots=1, max_seq=16, device="cpu")
 
@@ -164,10 +172,10 @@ _SERVE_KW = [
     dict(prefix_cache=True), dict(speculative=True), dict(tp=2),
     dict(n=2), dict(model_dir="/nonexistent"), dict(config="tiny_moe"),
 ]
-#: Refused until exact prefill, speculative decoding, checkpoints and
-#: sampling were ported: these now serve.
+#: Refused until exact prefill, speculative decoding, checkpoints,
+#: sampling and the prefix cache were ported: these now serve.
 _SERVE_PORTED = ("prefill_mode", "speculative", "model_dir", "temperature",
-                 "n")
+                 "n", "prefix_cache")
 
 
 @pytest.mark.parametrize("kwargs", _SERVE_KW,

@@ -513,7 +513,8 @@ def test_serve_and_cli_validate_the_sampling_flags_as_jax(tmp_path):
     """The reference's checks, in serve() (ValueError) and on the command
     line (usage and exit 2): bad knobs, n > 1 without the paged pool,
     n or grammar with turns > 1, a malformed grammar; multi-turn itself
-    stays refused ("not yet ported")."""
+    (refused until the prefix cache slice) now serves, sampled on the
+    contiguous path."""
     from kubeflow_controller_tpu_torch.dataplane.entrypoints import (
         serve_lm as tserve,
     )
@@ -527,8 +528,8 @@ def test_serve_and_cli_validate_the_sampling_flags_as_jax(tmp_path):
                     (dict(grammar="bogus"), "unknown grammar")):
         with pytest.raises(ValueError, match=msg):
             tserve.serve(**base, **kw)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tserve.serve(**base, turns=2)
+    res = tserve.serve(**base, turns=2, temperature=0.5)
+    assert res["prompts"] == 1 and res["tokens_per_sec"] > 0
     argv = ["--config", "tiny", "--device", "cpu", "--batch", "1",
             "--prompt-len", "5", "--max-new-tokens", "2", "--block-size", "4",
             "--output", str(tmp_path / "o.jsonl")]

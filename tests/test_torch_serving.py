@@ -200,25 +200,33 @@ def test_serve_streams_equal_jax_engine(tmp_path):
 
 def test_engine_refuses_what_is_not_ported():
     """What the port does not serve yet raises "not yet ported"; exact
-    prefill, greedy speculative decoding and sampling (refused before
-    they were ported) now build engines, and the prefix cache with exact
-    prefill raises the JAX engine's ValueError."""
+    prefill, greedy speculative decoding, sampling, the prefix cache,
+    the host tier and the radix proposer (refused before they were
+    ported) now build engines, and the prefix cache with exact prefill,
+    the tier without the cache and the radix proposer without the trie
+    raise the JAX engine's ValueErrors."""
     _, cfg_t, _, params_t = _weights()
-    for kw in (dict(prefix_cache=True, prefill_mode="bucketed"),
-               dict(spec_decode=True, proposer="radix"),
-               dict(tp=2), dict(host_kv_mb=1.0)):
+    for kw in (dict(tp=2), dict(tracer=object()), dict(injector=object())):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16,
                           device="cpu", **kw)
-    with pytest.raises(ValueError, match="prefix_cache requires"):
-        ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16,
-                      prefix_cache=True, device="cpu")
+    for kw, msg in ((dict(prefix_cache=True), "prefix_cache requires"),
+                    (dict(host_kv_mb=1.0, prefill_mode="bucketed"),
+                     "requires prefix_cache"),
+                    (dict(spec_decode=True, proposer="radix"),
+                     "requires prefix_cache")):
+        with pytest.raises(ValueError, match=msg):
+            ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16,
+                          device="cpu", **kw)
     for kw in (dict(prefill_mode="exact"), dict(spec_decode=True),
-               dict(spec_decode=True, prefill_mode="bucketed", draft_k=2)):
+               dict(spec_decode=True, prefill_mode="bucketed", draft_k=2),
+               dict(prefill_mode="bucketed", prefix_cache=True,
+                    host_kv_mb=1.0, spec_decode=True, proposer="radix")):
         eng = ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16,
                             device="cpu", **kw)
         assert eng.prefill_mode == kw.get("prefill_mode", "exact")
         assert eng.spec_decode == kw.get("spec_decode", False)
+        assert (eng._host_tier is not None) == ("host_kv_mb" in kw)
     eng = ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16,
                         temperature=0.5, top_k=5, top_p=0.9, seed=3,
                         device="cpu")
@@ -282,10 +290,12 @@ def test_cli_serves_on_cpu_and_refuses_unported_flags(tmp_path):
     rows = [json.loads(line) for line in out.read_text().splitlines()]
     assert [r["rid"] for r in rows] == [0, 1, 2]
     assert all(len(r["completion"]) == 4 for r in rows)
-    for flag in (["--tp", "2"], ["--quant", "int8"],
-                 ["--speculative", "--proposer", "radix"]):
+    for flag in (["--tp", "2"], ["--quant", "int8"]):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             serve_lm.main(argv + flag)
+    # The radix proposer serves now, and needs the trie, as in JAX.
+    with pytest.raises(ValueError, match="requires prefix_cache"):
+        serve_lm.main(argv + ["--speculative", "--proposer", "radix"])
     # Sampling serves now: a seeded run writes the same file twice, and
     # its streams are not the greedy ones.
     sampled = []
@@ -298,7 +308,9 @@ def test_cli_serves_on_cpu_and_refuses_unported_flags(tmp_path):
     # Refused until ported; the same completions now, by every route.
     for flag in (["--speculative"], ["--speculative", "--draft-k", "2"],
                  ["--prefill-mode", "bucketed"],
-                 ["--model-dir", str(tmp_path / "empty")]):
+                 ["--model-dir", str(tmp_path / "empty")],
+                 ["--prefix-cache"], ["--prefix-cache", "--host-kv-mb", "1"],
+                 ["--prefix-cache", "--speculative", "--proposer", "radix"]):
         assert serve_lm.main(argv + flag) == 0
         again = [json.loads(line) for line in out.read_text().splitlines()]
         assert again == rows, flag
@@ -440,8 +452,9 @@ def test_cli_takes_every_reference_option_and_refuses_off_default_values(
     PARSERS), so a manifest written for the JAX entry point parses; each
     option the port does not serve yet is refused with "not yet ported"
     at any value off its default. The options refused until exact
-    prefill, checkpoints and speculative decoding were ported now serve
-    off their defaults."""
+    prefill, checkpoints, speculative decoding, sampling and the prefix
+    cache were ported now serve off their defaults, and ``--host-kv-mb``
+    without ``--prefix-cache`` takes the reference's ``p.error``."""
     import importlib
 
     jmain = importlib.import_module(
@@ -456,15 +469,24 @@ def test_cli_takes_every_reference_option_and_refuses_off_default_values(
     if entry == "serve_lm":
         unported = [port["--" + k.replace("_", "-") if k != "mesh_devices"
                          else "--mesh"] for k in tmod.NOT_YET_PORTED_FLAGS]
-        unported.append(port["--proposer"])
         base = ["--config", "tiny", "--device", "cpu", "--batch", "1",
                 "--prompt-len", "9", "--max-new-tokens", "1", "--block-size", "8"]
         ported = [["--model-dir", str(tmp_path)], ["--speculative"],
                   _off_default(port["--draft-k"]),
                   _off_default(port["--prefill-mode"]),
                   ["--temperature", "0.5"], ["--top-k", "3"],
-                  ["--top-p", "0.5"], ["--n", "2"], ["--grammar", "re:[0-9]+"]]
+                  ["--top-p", "0.5"], ["--n", "2"], ["--grammar", "re:[0-9]+"],
+                  _off_default(port["--proposer"]),
+                  _off_default(port["--turns"]),
+                  _off_default(port["--prefix-cache"]),
+                  ["--prefix-cache"] + _off_default(port["--host-kv-mb"])]
         assert ported[3] == ["--prefill-mode", "bucketed"]
+        assert ported[9:12] == [["--proposer", "radix"], ["--turns", "2"],
+                                ["--prefix-cache"]]
+        # The reference's p.error: the tier needs the cache.
+        with pytest.raises(SystemExit) as e:
+            tmod.main(base + _off_default(port["--host-kv-mb"]))
+        assert e.value.code == 2
     else:
         unported = [port[o] for o in ("--tp", "--fsdp", "--sp")]
         base = ["--config", "tiny", "--device", "cpu", "--total-steps", "1",

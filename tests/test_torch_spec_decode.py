@@ -35,6 +35,7 @@ from kubeflow_controller_tpu.models import generate as jgen
 from kubeflow_controller_tpu.models import transformer as jtfm
 from kubeflow_controller_tpu.ops import paged_attention_pallas as pap
 from kubeflow_controller_tpu_torch.convert import params_from_numpy
+from kubeflow_controller_tpu_torch.dataplane import kv_blocks as tkv
 from kubeflow_controller_tpu_torch.dataplane import spec_decode as tspec
 from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
     Request, ServingEngine,
@@ -291,8 +292,13 @@ def test_prompt_lookup_equals_jax(seed):
 
 def test_make_proposer():
     assert isinstance(tspec.make_proposer("prompt"), tspec.PromptLookupProposer)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # The radix proposer (refused until the prefix cache was ported)
+    # walks a prefix store, and needs one, as in JAX.
+    with pytest.raises(ValueError, match="requires prefix_cache"):
         tspec.make_proposer("radix")
+    store = tkv.PrefixStore(None, 4, 8)
+    prop = tspec.make_proposer("radix", store)
+    assert isinstance(prop, tspec.RadixProposer) and prop.store is store
     with pytest.raises(ValueError, match="unknown proposer"):
         tspec.make_proposer("model")
     with pytest.raises(ValueError, match="ngram_min"):
