@@ -37,7 +37,9 @@ Phases, in order; any failure exits non-zero before the result line:
    kernel) and by kernel on the device; its prepass is held bit for bit
    against its plain version and timed alone; ragged sequences at
    head_dim 64 and 128 and head_dim 256 (the first forward kernel's
-   route) are checked, not timed;
+   route) are checked, not timed; BERT-base's attention (B8 H12 S512
+   D64, not causal, no rope tables, with and without segment ids) is
+   timed as the other shapes are;
 4. int8 kernel vs plain: the fused dynamic-int8 matmul (B7: row-quantize
    prepass and int8 GEMM) at the seven projection shapes of the int8
    train runs and at 256x128x384, bit for bit against its plain version,
@@ -73,6 +75,14 @@ Phases, in order; any failure exits non-zero before the result line:
    a profile of one decode micro-step and one prefill chunk (wall time,
    device time by kernel, idle share) and one request's first-token and
    next-token logits under ``attn_impl="kernel"`` and ``"gather"``;
+5a. int8 serve: weight-only int8 ``(q, scale)`` card vs CPU bit for bit
+   at llama3_8b's projection shapes; llama3_8b with ``quant="int8"``
+   (the 16 requests in exact prefill, B1 once a layer an admission; the
+   tiled prompts in bucketed prefill with lookup speculation; 4 requests
+   on an int8 KV pool), exact launch counts, TTFT/TPOT/tokens/s beside
+   the bf16 runs and the weight bytes of both; the tiny config's int8
+   streams card vs CPU (exact and bucketed, fp and int8 KV, with and
+   without speculation) under the near-tie rule;
 5b. prefix (on one set of llama3_8b weights): 32 chat requests behind
    one 192-token system prompt with the prefix cache off and on (the hit
    count and the prefill chunks predicted from the schedule and checked
@@ -106,6 +116,15 @@ Phases, in order; any failure exits non-zero before the result line:
    uninterrupted run on the same batches (``RESUME_LOSS_REL_TOL``), then
    ``serve(model_dir=...)`` against an engine on the in-memory
    parameters; save and restore seconds and bytes on disk;
+7a. models: the MNIST entry point at its defaults (200 steps, held-out
+   evaluation every 40; accuracy well above chance); ResNet-50 through
+   its entry point (B128 224² uint8, bf16, 8 steps: images/s, step ms,
+   peak memory, the last step's idle share and device time by kernel,
+   the BN statistics moved, no flash kernel) and resnet_tiny card vs
+   CPU after 2 steps; BERT-base through its entry point (S512, B8,
+   bf16, ``attn="auto"``, 4 steps, half the rows padded: B1 and B2 per
+   step exactly as the per-layer remat predicts, no rope prepass) and
+   ``encode`` card vs CPU;
 8. a ``kernels`` JSON line (each kernel's whole-call time over its
    library call's, ``vs_library``, from this run), the ``nvidia-smi``
    line, and the last line
@@ -466,7 +485,8 @@ class FlashCase:
     0). The backward kernels take the plain forward's o and lse, so each
     kernel and its plain version see the same inputs."""
 
-    def __init__(self, label, B, H, KVH, S, D, segments, seed, causal=True):
+    def __init__(self, label, B, H, KVH, S, D, segments, seed, causal=True,
+                 rope=True):
         import torch
 
         from kubeflow_controller_tpu_torch.ops import flash_attention as fa
@@ -484,7 +504,9 @@ class FlashCase:
         self.k, self.v = randn(B, S, KVH, D), randn(B, S, KVH, D)
         pos = (torch.arange(S, device=dev)[None, :]
                + torch.arange(B, device=dev)[:, None] * 17)
-        self.rope = fa.rope_full_tables(pos, D, 500000.0)
+        # BERT's attention has no rotary embedding: rope=False runs every
+        # kernel without tables (no rope prepass).
+        self.rope = fa.rope_full_tables(pos, D, 500000.0) if rope else None
         self.seg = None
         if segments:
             # Documents of S/8 .. S/2 tokens, the last ~S/16 rows padding.
@@ -542,7 +564,8 @@ class FlashCase:
         qo = B * S * H * D * 2                  # one bf16 [B, S, H, D]
         kv = B * S * KVH * D * 2
         stat = B * H * S * 4                    # one fp32 [B, H, S]
-        side = 2 * B * S * D * 4 + (B * S * 4 if self.seg is not None else 0)
+        side = ((2 * B * S * D * 4 if self.rope is not None else 0)
+                + (B * S * 4 if self.seg is not None else 0))
         products = {"flash_fwd": 2, "flash_bwd_fused": 5, "flash_bwd_dkdv": 4,
                     "flash_bwd_dq": 3}[kernel]
         ops = 2 * products * H * D * self.pairs
@@ -623,8 +646,9 @@ class FlashCase:
         if n_post:
             bad.append(f"flash_bwd_post[{self.label}]: {n_post} elements differ "
                        "from the plain version")
-        out = dict(parts=["rope_rotate_kernel", "flash_bwd_prep_kernel",
-                          "flash_bwd_wgmma_kernel", "flash_bwd_post_kernel"],
+        out = dict(parts=["rope_rotate_kernel"] * (rope is not None) + [
+            "flash_bwd_prep_kernel", "flash_bwd_wgmma_kernel",
+            "flash_bwd_post_kernel"],
                    prep_delta_max_abs_err=delta_err, post_mismatches=n_post)
         if timed:
             out.update(
@@ -648,9 +672,9 @@ class FlashCase:
         if self.D not in fa.WGMMA_HEAD_DIMS:
             return {"parts": [{"flash_bwd_dkdv": "flash_bwd_kv_kernel<false>",
                                "flash_bwd_dq": "flash_bwd_dq_kernel"}[kernel]]}
-        out = {"parts": ["rope_rotate_kernel",
-                         {"flash_bwd_dkdv": "flash_bwd_wgmma_kernel<D, false>",
-                          "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel"}[kernel]]}
+        out = {"parts": ["rope_rotate_kernel"] * (self.rope is not None) + [
+            {"flash_bwd_dkdv": "flash_bwd_wgmma_kernel<D, false>",
+             "flash_bwd_dq": "flash_bwd_dq_wgmma_kernel"}[kernel]]}
         if kernel == "flash_bwd_dkdv":
             delta, scratch = fa.flash_bwd_prep(self.o, self.do, scratch=False)
             prod = self.do.float() * self.o.float()
@@ -721,7 +745,14 @@ class FlashCase:
                        max_abs_err=max(v for k, v in errs.items()
                                        if k != "dq_run_to_run"),
                        errors=errs, **extra)
-            if kernel == "flash_fwd":
+            if kernel == "flash_fwd" and self.rope is None:
+                rec["parts"] = (["flash_fwd_wgmma_kernel"]
+                                if self.D in fa.WGMMA_HEAD_DIMS else ["flash_fwd_kernel"])
+                if timed and self.seg is None:
+                    rec["device_ms_by_kernel"] = _kernels_ms(call)
+                    rec["library_device_ms_by_kernel"] = _kernels_ms(
+                        self.library(kernel))
+            elif kernel == "flash_fwd":
                 # The forward's prepass alone, bit for bit: both round
                 # two fp32 products, their sum and the bf16 cast.
                 rot = fa.rope_rotate(self.q, self.k, self.rope)
@@ -772,6 +803,9 @@ FLASH_SHAPES = {
     "flagship": dict(B=16, H=8, KVH=8, S=1024, D=128),
     "llama3_8b": dict(B=2, H=32, KVH=8, S=2048, D=128),
     "llama3_8b.prefill": dict(B=1, H=32, KVH=8, S=256, D=128),
+    # BERT-base's attention at S=512 (one tile: the fused backward), not
+    # causal, no rotary embedding.
+    "bert_base": dict(B=8, H=12, KVH=12, S=512, D=64, causal=False, rope=False),
 }
 #: Checked, not timed: what the train path does not reach — a ragged
 #: sequence (200 rows: a partial tile) at head_dim 64, causal and not; a
@@ -1175,18 +1209,19 @@ def _stream_context(prompts, streams):
     return lambda rid, pos: list(map(int, prompts[rid])) + streams[rid][:pos]
 
 
-def _first_divergence_gaps(params, a, b, context):
+def _first_divergence_gaps(params, a, b, context, cfg=None):
     """For each request whose stream in ``b`` differs from its stream in
     ``a``: (rid, first differing position, the top-2 logit gap there and
     the logits' RMS). The logits come from one block-prefill forward over
     ``context(rid, pos)``, the tokens ``a``'s run had before that
-    position, on the llama3_8b weights ``params``."""
+    position, on the weights ``params`` (on the card) of ``cfg``
+    (llama3_8b by default)."""
     import torch
 
     from kubeflow_controller_tpu_torch.models import generate as gen
     from kubeflow_controller_tpu_torch.models import transformer as tfm
 
-    cfg = tfm.llama3_8b_config()
+    cfg = cfg or tfm.llama3_8b_config()
     out = []
     for rid in sorted(a):
         if a[rid] == b[rid]:
@@ -3051,6 +3086,459 @@ def train_phase(smi):
     return runs
 
 
+# -- weight-only int8 serving ------------------------------------------------
+
+def _weight_bytes(params):
+    """Device bytes of a serving parameter tree, each ``(q, scale)`` pair
+    counted whole."""
+    from kubeflow_controller_tpu_torch.convert import tree_leaves
+
+    total = 0
+    for leaf in tree_leaves(params):
+        for t in (leaf if isinstance(leaf, tuple) else (leaf,)):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def int8_quant_check():
+    """Weight-only int8's ``(q, scale)`` on the card bit for bit the CPU's,
+    from the same fp32 weights: two layers of llama3_8b's wq and w_down
+    and a quarter of its lm_head, a few weights scaled up to be their
+    channel's maximum."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.models import generate as gen
+
+    g = torch.Generator().manual_seed(7)
+    shapes = {"wq": (2, 4096, 4096), "w_down": (2, 14336, 4096),
+              "lm_head": (4096, 32064)}
+    checked = 0
+    for name, shape in shapes.items():
+        w = torch.randn(shape, generator=g) * 0.02
+        w[..., :3, :] *= 40.0
+        qc, sc = gen.quantize_weight(w, torch.bfloat16)
+        qg, sg = gen.quantize_weight(w.cuda(), torch.bfloat16)
+        nq = int((qg.cpu() != qc).sum())
+        ns = int((sg.cpu().view(torch.int16) != sc.view(torch.int16)).sum())
+        if nq or ns:
+            raise AssertionError(f"int8 weights[{name}]: {nq} codes and {ns} scales "
+                                 "differ card vs CPU")
+        checked += w.numel()
+        del w, qc, sc, qg, sg
+    torch.cuda.empty_cache()
+    log(f"int8 weights: (q, scale) card vs CPU bit for bit over {checked} fp32 "
+        f"weights ({', '.join(f'{k} {v}' for k, v in shapes.items())})")
+
+
+def _tiny_int8_streams(cfg, params, prompts, device, mode, kv_quant, spec):
+    from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
+        Request, ServingEngine,
+    )
+
+    kw = dict(spec_decode=True, draft_k=4) if spec else {}
+    eng = ServingEngine(cfg, params, n_slots=3, max_seq=32, block_size=8,
+                        prefill_mode=mode, kv_quant=kv_quant, device=device, **kw)
+    out = eng.run([Request(rid=i, prompt=p, max_new_tokens=12)
+                   for i, p in enumerate(prompts)])
+    return {c.rid: c.tokens for c in out}, eng.stats.spec_steps
+
+
+def tiny_int8_check():
+    """The tiny config (fp32) with weight-only int8 from one CPU-drawn
+    master: ``(q, scale)`` card vs CPU bit for bit; then served on the card
+    (the kernels) and on the CPU (their plain versions) in exact and
+    bucketed prefill, fp and int8 KV, without and with lookup
+    speculation on tiled prompts: the streams must be equal, or leave
+    each other only at a near-tie (``SPEC_FLIP_GAP_OF_RMS``)."""
+    import numpy as np
+    import torch
+
+    from kubeflow_controller_tpu_torch.convert import tree_leaves
+    from kubeflow_controller_tpu_torch.models import generate as gen
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.tiny_config()
+    master = tfm.init_params(cfg, seed=0, device="cpu")
+    p_cpu = gen.inference_params(cfg, master, quant="int8")
+    p_gpu = gen.inference_params(cfg, {k: ({n: t.cuda() for n, t in v.items()}
+                                           if isinstance(v, dict) else v.cuda())
+                                       for k, v in master.items()}, quant="int8")
+    for a, b in zip(tree_leaves(p_cpu), tree_leaves(p_gpu)):
+        for x, y in zip(a if isinstance(a, tuple) else (a,),
+                        b if isinstance(b, tuple) else (b,)):
+            if not torch.equal(x, y.cpu()):
+                raise AssertionError("serve[tiny int8]: (q, scale) card vs CPU differ")
+    rng = np.random.default_rng(3)
+    prompts = [np.tile(rng.integers(0, cfg.vocab_size, 4), 5).astype(np.int32)
+               for _ in range(6)]
+    for mode in ("exact", "bucketed"):
+        for kv_quant in ("", "int8"):
+            for spec in (False, True):
+                got, acc_g = _tiny_int8_streams(cfg, p_gpu, prompts, "cuda", mode,
+                                                kv_quant, spec)
+                want, acc_c = _tiny_int8_streams(cfg, p_cpu, prompts, "cpu", mode,
+                                                 kv_quant, spec)
+                label = f"serve[tiny int8 {mode} kv={kv_quant or 'fp'} spec={spec}]"
+                gaps = (_first_divergence_gaps(
+                    p_gpu, want, got, _stream_context(prompts, want), cfg=cfg)
+                    if got != want else [])
+                _check_near_ties(label, gaps, len(prompts))
+                if spec and not (acc_g > 0 and acc_c > 0):
+                    raise AssertionError(f"{label}: no verify step ({acc_g}, {acc_c})")
+
+
+def int8_serve_phase(smi, runs):
+    """llama3_8b served with weight-only int8 projections, full width and
+    depth (seeded init, quantized after it is drawn): the 16 requests of
+    256 + 32 over 8 slots in exact prefill (B1 once a layer an
+    admission), bucketed prefill with lookup speculation on the tiled
+    prompts (B6 once a layer a chunk and a verify step), and 4 requests
+    on an int8 KV pool; each with exact launch counts, beside its bf16
+    twin in the same mode on the same requests (the exact and int8 KV
+    runs of :func:`serve_phase`, and a bf16 bucketed speculative run
+    made here just before the int8 one); the weight bytes of both;
+    ``(q, scale)`` card vs CPU; the tiny config card vs CPU."""
+    from kubeflow_controller_tpu_torch.models import generate as gen
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+
+    int8_quant_check()
+    cfg = tfm.llama3_8b_config()
+    n_layers = cfg.n_layers
+    out = {}
+    res, launches, _ = _serve_run("int8w.exact", smi, 16, quant="int8")
+    b1 = 16 * n_layers
+    if (launches["flash_fwd"] != b1 or launches["rope_rotate"] != b1
+            or launches["paged_chunk"] != 0 or launches["paged_decode"] <= 0
+            or launches["paged_decode"] % n_layers or res["prefill_chunks"] != 0):
+        raise AssertionError(f"serve[int8w.exact]: launches {launches}, want "
+                             f"flash_fwd and rope_rotate {b1}, paged_chunk 0")
+    out["int8w.exact"] = (res, launches)
+    tiled = os.path.join(OUT_DIR, "tiled_prompts.jsonl")      # serve_phase's
+    twins = {"int8w.exact": ("exact", runs["exact"][0]),
+             "int8w.int8kv": ("int8", runs["int8"][0])}
+    for label, quant in (("tiled.spec.bucketed", ""), ("int8w.spec", "int8")):
+        res, launches, _ = _serve_run(label, smi, 16, input_file=tiled, seed=0,
+                                      quant=quant, prefill_mode="bucketed",
+                                      speculative=True, draft_k=4)
+        if (res["draft_proposed"] <= 0 or res["spec_steps"] <= 0
+                or not launches["paged_decode"]):
+            raise AssertionError(f"serve[{label}]: {res}, launches {launches}")
+        _check_paged_launches(f"serve[{label}]", res, launches, n_layers,
+                              verify_steps=res["spec_steps"])
+        out[label] = (res, launches)
+    twins["int8w.spec"] = ("tiled.spec.bucketed", out.pop("tiled.spec.bucketed")[0])
+    res, launches, _ = _serve_run("int8w.int8kv", smi, 4, quant="int8",
+                                  kv_quant="int8", prefill_mode="bucketed")
+    if not (launches["paged_decode"] and launches["paged_chunk"]):
+        raise AssertionError(f"serve[int8w.int8kv]: launches {launches}")
+    _check_paged_launches("serve[int8w.int8kv]", res, launches, n_layers)
+    out["int8w.int8kv"] = (res, launches)
+    _, params16 = _llama()
+    bytes16 = _weight_bytes(params16)
+    bytes8 = _weight_bytes(gen.inference_params(cfg, params16, quant="int8"))
+    _drop_llama()
+    log(f"int8 weights llama3_8b: {bytes8} bytes vs bf16 {bytes16} "
+        f"({bytes8 / bytes16} of bf16) | {smi}")
+    for label, (bf16, b) in twins.items():
+        a = out[label][0]
+        log(f"serve {label} vs bf16 serve[{bf16}] (this run): ttft_p50 "
+            f"{a['ttft_p50_ms']} vs {b['ttft_p50_ms']} ms, tpot_p50 "
+            f"{a['tpot_p50_ms']} vs {b['tpot_p50_ms']} ms, tokens/s "
+            f"{a['tokens_per_sec']} vs {b['tokens_per_sec']}, acceptance "
+            f"{a['acceptance_rate']} vs {b['acceptance_rate']}, modelled "
+            f"hbm_bytes_per_step {a['hbm_bytes_per_step']} vs "
+            f"{b['hbm_bytes_per_step']}")
+    tiny_int8_check()
+    return out
+
+
+# -- MNIST, ResNet-50 and BERT ---------------------------------------------------
+
+def _entry_train(label, fn, steps, smi):
+    """``fn()`` (an entry point's ``train``) with the flash and B7 counts
+    zeroed just before and read just after, every step timed on a host
+    clock between synchronizations and its last of ``steps`` steps under
+    ``torch.profiler``: (result, launches, profile of the last step as
+    (wall ms, device ms, idle share, ms by kernel, top kernels), wall
+    seconds, peak GB, the median ms of the steps but the first two and
+    the profiled one)."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.dataplane import train as dtrain
+
+    step_fn = dtrain.TrainLoop.step
+    profiled, step_ms = [], []
+
+    def step_profiling_the_last(loop, batch):
+        if loop.state.step != steps - 1:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = step_fn(loop, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            return metrics
+        metrics = {}
+
+        def one(b):
+            metrics.update(step_fn(loop, b))
+            return metrics
+
+        profiled.append(_step_profile(one, batch))
+        return metrics
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    dtrain.TrainLoop.step = step_profiling_the_last
+    try:
+        out = fn()
+    finally:
+        dtrain.TrainLoop.step = step_fn
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    if out["final_step"] != steps or not math.isfinite(out["loss"]):
+        raise AssertionError(f"{label}: {out}")
+    steady = sorted(step_ms[2:])
+    if len(steady) < 5:
+        raise AssertionError(f"{label}: {len(steady)} steady steps timed, want >= 5")
+    return (out, launches, profiled[0], wall,
+            torch.cuda.max_memory_allocated() / 1e9, steady[len(steady) // 2])
+
+
+def mnist_phase(smi):
+    """The MNIST entry point at the reference's defaults (batch 100, 128
+    hidden units, Adam 0.01, 200 steps, evaluation every 40 steps on the
+    held-out synthetic stream): the held-out accuracy must clear chance
+    (0.1) by far; step ms from the last report's window."""
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints import mnist
+
+    out, launches, prof, wall, peak, step_ms = _entry_train(
+        "mnist", lambda: mnist.train(total_steps=200, batch_size=100), 200, smi)
+    if not out["val_accuracy"] > 0.3 or any(launches.values()):
+        raise AssertionError(f"mnist: {out}, launches {launches}")
+    rec = dict(run="mnist", steps=200, val_accuracy=out["val_accuracy"],
+               val_cross_entropy=out["val_cross_entropy"], accuracy=out["accuracy"],
+               loss=out["loss"], step_ms=step_ms, wall_s=wall,
+               profiled_step_wall_ms=prof[0], profiled_step_device_ms=prof[1],
+               idle_share=prof[2], peak_gb=peak)
+    log(f"mnist {json.dumps(rec)} | {smi}")
+    return rec
+
+
+RESNET_STEPS = 8
+#: resnet_tiny (fp32, TF32 off) trained 2 steps on the card and on the CPU
+#: from one CPU-drawn init: cuDNN's and the CPU's convolutions sum in other
+#: orders, which the 2 SGD steps at lr 0.1 carry into the weights; limit
+#: 1e-4 of each compared tensor's largest element.
+RESNET_TINY_TOL_OF_MAX = 1e-4
+
+
+def resnet_tiny_check():
+    """resnet_tiny, card vs CPU: 2 stateful steps of the entry point's SGD
+    from one init drawn on the CPU, then the train-mode logits on a new
+    batch and the BN running statistics."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.convert import tree_leaves
+    from kubeflow_controller_tpu_torch.dataplane.train import (
+        TrainLoop, TrainLoopConfig, device_prefetch,
+    )
+    from kubeflow_controller_tpu_torch.models import resnet
+    from kubeflow_controller_tpu_torch.optim import SGD
+
+    model = resnet.resnet_tiny()
+    init = model.init(0, "cpu")
+    stream = resnet.synthetic_imagenet(8, 32, 10, seed=1, uint8=True)
+    batches = [next(stream) for _ in range(3)]
+    got = {}
+    for dev in ("cuda", "cpu"):
+        def init_fn(seed, device):
+            return tuple({k: _to(v, device) for k, v in t.items()} for t in init)
+
+        loop = TrainLoop(init_fn=init_fn, loss_fn=resnet.make_loss_fn(model),
+                         optimizer=SGD(0.1, momentum=0.9, nesterov=True),
+                         config=TrainLoopConfig(total_steps=2), stateful=True,
+                         device=dev)
+        loop.run(device_prefetch(iter(batches[:2]), dev))
+        with torch.no_grad():
+            logits, _ = model.apply(loop.state.params, loop.state.model_state,
+                                    torch.from_numpy(batches[2]["image"]).to(dev))
+        got[dev] = [logits.cpu()] + [t.cpu() for t in tree_leaves(loop.state.model_state)]
+    worst = 0.0
+    for a, b in zip(got["cuda"], got["cpu"]):
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        worst = max(worst, err)
+    if worst > RESNET_TINY_TOL_OF_MAX:
+        raise AssertionError(f"resnet[tiny]: card vs CPU {worst} of max past "
+                             f"{RESNET_TINY_TOL_OF_MAX}")
+    log(f"resnet[tiny] fp32: logits and BN statistics after 2 steps, card vs CPU "
+        f"within {worst} of each tensor's max (limit {RESNET_TINY_TOL_OF_MAX})")
+
+
+def _to(tree, device):
+    """A copy of a tensor tree on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
+
+
+def resnet50_phase(smi):
+    """The ResNet-50 entry point at full depth and width: batch 128 of
+    224² uint8 images, bf16, 8 steps (SGD, Nesterov momentum), into a
+    model dir whose final checkpoint holds the BN statistics: the loss
+    must be finite, no flash or int8 kernel may launch, and the running
+    statistics must have moved from their init (mean 0, var 1). Logs
+    images/s per card, step ms, peak memory, and the last step's idle
+    share and device time by kernel. Then resnet_tiny card vs CPU."""
+    import shutil
+
+    import torch
+
+    from kubeflow_controller_tpu_torch.dataplane import train as dtrain
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints import resnet
+
+    model_dir = os.path.join(OUT_DIR, "resnet50_ckpt")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    out, launches, prof, wall, peak, step_ms = _entry_train(
+        "resnet50", lambda: resnet.train(total_steps=RESNET_STEPS, per_chip_batch=128,
+                                         model_dir=model_dir),
+        RESNET_STEPS, smi)
+    ckpt = torch.load(os.path.join(model_dir, str(RESNET_STEPS), dtrain.PARAMS_FILE),
+                      map_location="cpu", weights_only=True)
+    stem = ckpt["model_state"]["stem_norm"]
+    moved = (float(stem["mean"].abs().max()), float((stem["var"] - 1).abs().max()))
+    shutil.rmtree(model_dir, ignore_errors=True)
+    if any(launches.values()) or not min(moved) > 0:
+        raise AssertionError(f"resnet50: launches {launches}, stem BN moved {moved}")
+    rec = dict(run="resnet50", steps=RESNET_STEPS, loss=out["loss"],
+               images_per_sec_per_chip=128e3 / step_ms, step_ms=step_ms,
+               entry_images_per_sec_per_chip=out["images_per_sec_per_chip"],
+               wall_s=wall, peak_gb=peak,
+               profiled_step_wall_ms=prof[0], profiled_step_device_ms=prof[1],
+               idle_share=prof[2], device_ms_by_kernel=prof[3], top_kernels=prof[4],
+               stem_bn_moved=dict(mean_max_abs=moved[0], var_max_abs_from_1=moved[1]))
+    log(f"resnet50 {json.dumps(rec)} | {smi}")
+    resnet_tiny_check()
+    return rec
+
+
+BERT_STEPS = 8
+#: BERT, card vs CPU, on one CPU-drawn init and a batch with padded rows:
+#: fp32 (the dense attention on both, TF32 off) differs in summation order
+#: only; bf16 at S=256, head_dim 64 runs B1 on the card and the dense path
+#: on the CPU, which round attention at different points (as
+#: LOGITS_REL_L2_TOL's kernel vs gather paths do).
+BERT_TINY_FP32_TOL_OF_MAX = 1e-4
+BERT_TINY_BF16_REL_L2_TOL = LOGITS_REL_L2_TOL
+
+
+def _padded_mlm(cfg, batch, seq, seed=0, synthetic=None):
+    """The synthetic MLM stream (``synthetic``, by default
+    ``bert.synthetic_mlm_batch``) with the tails of half of each batch's
+    rows padded (attention mask 0 from a drawn length on, no position
+    there scored)."""
+    import numpy as np
+
+    from kubeflow_controller_tpu_torch.models import bert
+
+    rng = np.random.default_rng(seed + 100)
+    for b in (synthetic or bert.synthetic_mlm_batch)(cfg, batch, seq, seed=seed):
+        for row in range(0, batch, 2):
+            b["attention_mask"][row, int(rng.integers(seq // 2, seq - 8)):] = 0
+        b["mlm_mask"] = b["mlm_mask"] * b["attention_mask"]
+        yield b
+
+
+def bert_tiny_check():
+    """``encode`` card vs CPU on padded rows: fp32 tiny config, and bf16
+    at S=256 and head_dim 64 (B1 on the card)."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.models import bert
+
+    for label, cfg, seq in (
+            ("fp32", bert.bert_tiny_config(), 64),
+            ("bf16.flash", bert.bert_tiny_config(d_model=128, n_heads=2, max_seq=256,
+                                                 vocab_size=1024,
+                                                 dtype=torch.bfloat16), 256)):
+        params = bert.init_params(cfg, seed=0, device="cpu")
+        batch = next(_padded_mlm(cfg, 4, seq, seed=2))
+        hid = {}
+        for dev in ("cuda", "cpu"):
+            from kubeflow_controller_tpu_torch.ops import flash_attention as fa
+            fa.reset_launches()
+            with torch.no_grad():
+                hid[dev] = bert.encode(
+                    cfg, _to(params, dev), torch.from_numpy(batch["tokens"]).to(dev),
+                    torch.from_numpy(batch["attention_mask"]).to(dev)).float().cpu()
+            if dev == "cuda":
+                b1 = fa.LAUNCHES["flash_fwd"]
+        a, b = hid["cuda"], hid["cpu"]
+        if label == "fp32":
+            err = float((a - b).abs().max()) / float(b.abs().max())
+            ok, lim = err <= BERT_TINY_FP32_TOL_OF_MAX and b1 == 0, BERT_TINY_FP32_TOL_OF_MAX
+        else:
+            err = float((a - b).norm() / b.norm())
+            ok, lim = err <= BERT_TINY_BF16_REL_L2_TOL and b1 == cfg.n_layers, \
+                BERT_TINY_BF16_REL_L2_TOL
+        if not ok:
+            raise AssertionError(f"bert[tiny {label}]: card vs CPU {err} (limit {lim}), "
+                                 f"B1 launches {b1}")
+        log(f"bert[tiny {label}] encode card vs CPU: {err} (limit {lim}), B1 "
+            f"launches on the card {b1}")
+
+
+def bert_phase(smi):
+    """The BERT entry point with BERT-base at S=512, batch 8, bf16,
+    ``attn="auto"``, 8 steps (the median of steps 2-6 reported), on
+    batches whose even rows pad their tails (the entry point's synthetic
+    stream, swapped for the padded one for the call): ``auto`` must take
+    the flash kernels with segment ids, not causal; per step B1 twice a
+    layer (the forward and the remat recompute), B2 with its delta
+    prepass and dq postprocess once a layer, no rope prepass (BERT has
+    no rotary embedding) and no two-pass kernel, exactly. Logs tokens/s,
+    step ms, peak memory and the last step's device time by kernel; then
+    ``encode`` card vs CPU."""
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints import bert as entry
+    from kubeflow_controller_tpu_torch.models import bert
+
+    cfg = bert.bert_base_config(max_seq=512, attn_impl="auto")
+    L = cfg.n_layers
+    synthetic = bert.synthetic_mlm_batch
+    bert.synthetic_mlm_batch = (
+        lambda cfg, batch, seq, seed=0: _padded_mlm(cfg, batch, seq, seed, synthetic))
+    try:
+        out, launches, prof, wall, peak, step_ms = _entry_train(
+            "bert", lambda: entry.train(total_steps=BERT_STEPS, per_data_shard_batch=8,
+                                        seq_len=512, cfg=cfg),
+            BERT_STEPS, smi)
+    finally:
+        bert.synthetic_mlm_batch = synthetic
+    want = {"rope_rotate": 0, "flash_fwd": 2 * L * BERT_STEPS,
+            "flash_bwd_prep": L * BERT_STEPS, "flash_bwd_fused": L * BERT_STEPS,
+            "flash_bwd_post": L * BERT_STEPS, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
+            "int8_quantize_rows": 0, "int8_matmul": 0}
+    if launches != want:
+        raise AssertionError(f"bert: launches {launches} != {want}")
+    rec = dict(run="bert_base.S512.B8", steps=BERT_STEPS, loss=out["loss"],
+               tokens_per_sec=8 * 512e3 / step_ms, step_ms=step_ms,
+               entry_tokens_per_sec=out["tokens_per_sec"], wall_s=wall, peak_gb=peak,
+               profiled_step_wall_ms=prof[0], profiled_step_device_ms=prof[1],
+               idle_share=prof[2], device_ms_by_kernel=prof[3], top_kernels=prof[4],
+               launches=launches)
+    log(f"bert {json.dumps(rec)} | {smi}")
+    bert_tiny_check()
+    return rec
+
+
+def models_phase(smi):
+    """MNIST, ResNet-50 and BERT through their entry points."""
+    return {"mnist": mnist_phase(smi), "resnet50": resnet50_phase(smi),
+            "bert": bert_phase(smi)}
+
+
 TRAIN_STEPS = 8
 INT8_STEPS = 4
 
@@ -3106,10 +3594,12 @@ def main() -> int:
     flash_recs = phase("flash kernels", flash_kernel_phase, smi)
     int8_recs = phase("int8 kernel", int8_kernel_phase, smi)
     runs = phase("serve", serve_phase, smi)
+    int8_runs = phase("int8 serve", int8_serve_phase, smi, runs)
     prefix_runs = phase("prefix", prefix_phase, smi)
     phase("logits", logits_phase)
     train_runs = phase("train", train_phase, smi)
     phase("checkpoint", checkpoint_phase, smi)
+    model_runs = phase("models", models_phase, smi)
     launches = runs["fp"][1]
     line = {"kernels": []}
     for name, case, replaces in KERNELS:
@@ -3134,6 +3624,10 @@ def main() -> int:
         # host tier off and on, int8, multi-turn, radix drafts).
         line["kernels"][-1]["prefix_runs_launches"] = {
             run: rec[1][name] for run, rec in prefix_runs.items()}
+        # The weight-only int8 runs' launches (exact, bucketed with lookup
+        # speculation, int8 KV).
+        line["kernels"][-1]["int8_serve_launches"] = {
+            run: rec[1][name] for run, rec in int8_runs.items()}
         if name == "paged_chunk":
             # B6's verify entry: its launches on the speculative serve run
             # (one per layer per verify step) and its record at that
@@ -3165,6 +3659,17 @@ def main() -> int:
                                  "device_ms_by_kernel", "two_pass_route_ms",
                                  "fused_route_ms") if k in r},
         })
+        if name in ("flash_fwd", "flash_bwd_fused"):
+            # B1 and B2 under BERT-base (S=512, not causal, segment ids, no
+            # rope): the entry point's launches, and the record at its
+            # attention shape.
+            line["kernels"][-1]["bert_runs_launches"] = {
+                model_runs["bert"]["run"]: model_runs["bert"]["launches"][name]}
+            b = flash_recs[(name, "bert_base")]
+            line["kernels"][-1]["bert_base"] = {
+                "shape": "bert_base", **{k: b[k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "parts") if k in b}}
         if name == "flash_fwd":
             line["kernels"][-1]["sampling_runs_launches"] = {
                 run: runs[run][1][name] for run in
@@ -3172,6 +3677,8 @@ def main() -> int:
             # B1 on the contiguous multi-turn path: turn 1's prefill.
             line["kernels"][-1]["prefix_runs_launches"] = {
                 run: rec[1][name] for run, rec in prefix_runs.items()}
+            line["kernels"][-1]["int8_serve_launches"] = {
+                run: rec[1][name] for run, rec in int8_runs.items()}
             # B1 on the serving path: exact prefill, once per layer per
             # admission of the exact llama3_8b serve run, and its record
             # at that run's shape.

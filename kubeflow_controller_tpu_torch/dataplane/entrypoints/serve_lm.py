@@ -14,10 +14,14 @@ from the prefix trie) verified in one forward, per-request sampling:
 ``--n`` copy-on-write forks and ``--grammar`` masks, and
 ``--prefix-cache`` with the ``--host-kv-mb`` tier beneath it), write
 completions JSONL to ``--output`` and report TTFT/TPOT/tokens per
-second. ``--turns N`` serves a multi-turn chat: through the engine with
+second. ``--quant int8`` serves weight-only int8 projections (the
+checkpoint's or the fresh init's weights quantized once, after they
+load). ``--turns N`` serves a multi-turn chat: through the engine with
 the prefix cache (each turn submits the whole history), or, without it,
 on a contiguous cache (``prefill``, then ``prefill_continue`` a turn,
-each reply by ``generate_from_cache``).
+each reply by ``generate_from_cache``); ``--no-paged`` is accepted
+there, and refused by the engine everywhere else, as in the JAX entry
+point.
 
     python -m kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm \\
         --config llama3_8b --batch 16 --slots 8 --prompt-len 256 \\
@@ -53,13 +57,11 @@ logger = logging.getLogger("tpujob.serve_lm_torch")
 #: serve() keywords of features not ported yet, with the value that means
 #: "off". Any other value raises NotImplementedError.
 NOT_YET_PORTED_FLAGS = {
-    "quant": "",
     "tp": 1,
     "trace": "",
     "disagg": False,
     "fault_plan": "",
     "watchdog_stale_s": 0.0,
-    "paged": True,
     "tp_compute": "gathered",
     "mesh_devices": "",
     "fault_seed": 0,
@@ -67,7 +69,7 @@ NOT_YET_PORTED_FLAGS = {
 #: The command-line spelling of a keyword where it is not the keyword's,
 #: and the choices the JAX entry point's parser gives an option.
 _CLI_NAMES = {"mesh_devices": "--mesh"}
-_CLI_CHOICES = {"quant": ["", "int8"], "tp_compute": ["gathered", "parallel"]}
+_CLI_CHOICES = {"tp_compute": ["gathered", "parallel"]}
 
 
 def _read_prompts(path: str, vocab: int, batch: int,
@@ -152,6 +154,8 @@ def serve(
     turns: int = 1,
     prefix_cache: bool = False,
     host_kv_mb: float = 0.0,
+    quant: str = "",
+    paged: bool = True,
     stop=None,
     device: DeviceLike = None,
     **not_yet_ported,
@@ -190,6 +194,12 @@ def serve(
     unless asked for the oracle. A multi-process job
     (``ctx.num_processes > 1``) is refused with "not yet ported".
 
+    ``quant="int8"`` serves weight-only int8 projections
+    (``inference_params(quant="int8")``, after the checkpoint's weights
+    are restored). ``paged=False`` is accepted where the reference
+    accepts it, on the contiguous multi-turn path; elsewhere the engine
+    raises the reference's ``ValueError``, and so does ``n > 1``.
+
     ``stop`` (a ``threading.Event``) drains the engine within
     ``drain_grace_s`` and still writes the partial completions.
     Keywords of :data:`NOT_YET_PORTED_FLAGS` are accepted and refused
@@ -207,7 +217,7 @@ def serve(
     # what is not ported and before any weights load.
     sampling.SamplingParams(temperature=temperature, top_k=top_k,
                             top_p=top_p, n=n, seed=seed).validate()
-    if n > 1 and not not_yet_ported.get("paged", True):
+    if n > 1 and not paged:
         raise ValueError(
             "n > 1 forks prompt KV pages copy-on-write and requires the "
             "paged block pool (drop --no-paged)")
@@ -241,7 +251,7 @@ def serve(
     dev = resolve_device(device)
     params, restored_step = _load_params(cfg, model_dir or ctx.model_dir,
                                          seed, dev)
-    params = gen.inference_params(cfg, params)
+    params = gen.inference_params(cfg, params, quant=quant)
     prompts = _read_prompts(input_file, cfg.vocab_size, batch, prompt_len)
     b, s = prompts.shape
     if input_file and (b, s) != (batch, prompt_len):
@@ -266,7 +276,7 @@ def serve(
             block_size=block_size, kv_hbm_budget_mb=kv_pool_mb,
             host_kv_mb=host_kv_mb, kv_quant=kv_quant,
             spec_decode=speculative, draft_k=draft_k, proposer=proposer,
-            attn_impl=attn_impl, device=dev)
+            attn_impl=attn_impl, paged=paged, device=dev)
     if turns <= 1:
         # One params object for every request: draws are keyed by (seed,
         # gen, position), and a mask keeps its automaton state in the slot.
@@ -421,6 +431,8 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--prompt-len", type=int, default=32)
     p.add_argument("--max-new-tokens", type=int, default=32)
+    p.add_argument("--quant", default="", choices=["", "int8"],
+                   help="int8 = weight-only int8 serving weights")
     p.add_argument("--temperature", type=float, default=0.0,
                    help="softmax temperature (0 = greedy argmax; > 0 "
                         "samples reproducibly from the per-request "
@@ -493,6 +505,11 @@ def main(argv=None) -> int:
                    help="kernel (or pallas) = the hand-written "
                         "paged-attention kernels; gather (or xla) = dense "
                         "view gather + full softmax (oracle)")
+    p.add_argument("--paged", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="--no-paged serves the contiguous multi-turn path "
+                        "(--turns > 1 without --prefix-cache); the engine "
+                        "serves from the paged pool only")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     for key, off in NOT_YET_PORTED_FLAGS.items():
         if isinstance(off, bool):
@@ -550,7 +567,8 @@ def main(argv=None) -> int:
             speculative=args.speculative, draft_k=args.draft_k,
             proposer=args.proposer, turns=args.turns,
             prefix_cache=args.prefix_cache, host_kv_mb=args.host_kv_mb,
-            attn_impl=args.attn_impl, device=args.device, stop=stop,
+            attn_impl=args.attn_impl, quant=args.quant, paged=args.paged,
+            device=args.device, stop=stop,
             **refused)
     finally:
         signal.signal(signal.SIGTERM, previous)

@@ -2,7 +2,10 @@
 
 Counterpart of ``kubeflow_controller_tpu/dataplane/metrics.py``'s
 :class:`ServingStats` and :class:`MetricsLogger`, cut to the counters
-the port produces (no migration, tensor parallelism or MoE yet).
+the port produces: the reference's summary keys but those of features
+not ported yet (tensor parallelism, migration, fault injection, spans,
+MoE, and the jit-cache counts ``prefill_compiles`` and
+``admit_cache_size``).
 """
 
 from __future__ import annotations
@@ -70,7 +73,17 @@ class ServingStats:
     prefill_chunks: int = 0
     pool_blocks_total: int = 0
     pool_blocks_in_use: int = 0
+    pool_blocks_resident: int = 0
     kv_bytes_per_token: int = 0
+    kv_hbm_per_device_mb: float = 0.0
+    # The engine's analytic traffic model (ServingEngine._traffic_model):
+    # device bytes a step reads, per attention phase (the unsuffixed
+    # gauge is the decode phase's), and FLOPs a token.
+    hbm_bytes_per_step: float = 0.0
+    hbm_bytes_per_step_prefill: float = 0.0
+    hbm_bytes_per_step_decode: float = 0.0
+    hbm_bytes_per_step_verify: float = 0.0
+    flops_per_token_per_shard: float = 0.0
     # Speculative decoding: draft tokens sent to the verifier and those
     # that committed (acceptance_rate is their ratio), fused verify
     # dispatches, quanta that took the un-pipelined proposal path (a
@@ -153,6 +166,7 @@ class ServingStats:
             "tokens_out": float(self.tokens_out),
             "rejected": float(self.rejected),
             "shed": float(self.finish_reasons.get("shed", 0)),
+            "cancelled": float(self.finish_reasons.get("cancelled", 0)),
             "deadline_expired": float(
                 self.finish_reasons.get("deadline", 0)),
             "ttft_p50_ms": percentile(self.ttfts_s, 50) * 1e3,
@@ -174,7 +188,18 @@ class ServingStats:
             "prefill_chunks": float(self.prefill_chunks),
             "pool_blocks_total": float(self.pool_blocks_total),
             "pool_blocks_in_use": float(self.pool_blocks_in_use),
+            "pool_blocks_resident": float(self.pool_blocks_resident),
             "kv_bytes_per_token": float(self.kv_bytes_per_token),
+            "kv_hbm_per_device_mb": float(self.kv_hbm_per_device_mb),
+            "hbm_bytes_per_step": float(self.hbm_bytes_per_step),
+            "hbm_bytes_per_step_prefill": float(
+                self.hbm_bytes_per_step_prefill),
+            "hbm_bytes_per_step_decode": float(
+                self.hbm_bytes_per_step_decode),
+            "hbm_bytes_per_step_verify": float(
+                self.hbm_bytes_per_step_verify),
+            "flops_per_token_per_shard": float(
+                self.flops_per_token_per_shard),
             "draft_proposed": float(self.draft_proposed),
             "draft_accepted": float(self.draft_accepted),
             "acceptance_rate": self.acceptance_rate,

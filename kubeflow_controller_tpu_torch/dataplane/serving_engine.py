@@ -53,9 +53,13 @@ Counterpart of ``kubeflow_controller_tpu/dataplane/serving_engine.py``:
   them back, bytes verbatim. ``proposer="radix"`` drafts from the trie;
   :meth:`register_prefix` ingests an external contiguous cache.
 
-Everything else the JAX engine offers raises "not yet ported" when
-asked for: tensor parallelism, disaggregation, fault injection and the
-tracer.
+Parameters from ``generate.inference_params(quant="int8")`` serve with
+weight-only int8 projections. ``stats.summary()`` publishes the JAX
+engine's keys (``cancelled``, the pool gauges and the analytic traffic
+model of :meth:`ServingEngine._traffic_model`) but those of features not
+ported. Everything else the JAX engine offers raises "not yet ported"
+when asked for: tensor parallelism, disaggregation, fault injection and
+the tracer; ``paged=False`` raises the JAX engine's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -301,6 +305,7 @@ class ServingEngine:
         spec_cooldown_max: int = 256,
         tp: int = 1,
         attn_impl: str = "kernel",
+        paged: bool = True,
         host_kv_mb: float = 0.0,
         tracer=None,
         injector=None,
@@ -327,6 +332,14 @@ class ServingEngine:
         for asked, what in refused:
             if asked:
                 raise not_yet_ported(what)
+        if not paged:
+            # The reference engine's own refusal: it serves from the block
+            # pool only (its contiguous cache survives in models/generate.py
+            # and serve(turns > 1) without the prefix cache).
+            raise ValueError(
+                "paged=False is unsupported: the block pool is the only KV "
+                "storage of the engine (the contiguous cache serves "
+                "serve(turns > 1) without the prefix cache)")
         if block_size < 1 or (block_size & (block_size - 1)) != 0:
             raise ValueError(
                 f"block_size must be a power of two >= 1 (got {block_size})")
@@ -362,6 +375,11 @@ class ServingEngine:
         self._max_blocks = self.max_seq // self.block_size
         self.kv_quant = kv_quant
         self.attn_impl = attn_impl
+        # Weight-only int8 params (inference_params(quant="int8")); read
+        # by the traffic model.
+        self._w_quant = gen.weight_quant(params)
+        # The view width of the latest dispatch: the traffic model's input.
+        self._last_vw = 0
         # Pool sizing: explicit page count > memory budget > one full
         # context per slot (twice that with the prefix cache: an equal
         # allowance for the trie's tenancy, or every published chain
@@ -643,7 +661,8 @@ class ServingEngine:
         while nb < mb:
             nb *= 2
         nb = max(1, min(nb, self._max_blocks))
-        return nb * self.block_size
+        self._last_vw = nb * self.block_size
+        return self._last_vw
 
     def _blocks_needed(self, prompt_size: int, max_new: int) -> int:
         return -(-(prompt_size + max_new) // self.block_size)
@@ -1634,12 +1653,61 @@ class ServingEngine:
             self.stats.record(c)
         return finished
 
+    def _traffic_model(self, phase: str = "decode") -> Tuple[float, float]:
+        """The reference engine's analytic traffic for one attention
+        ``phase`` at tp=1: ``(hbm_bytes_per_step,
+        flops_per_token_per_shard)``.
+
+        * Weights: every projection is read once a step, one byte an
+          element under weight-only int8, else the compute dtype's size.
+        * KV: the view width's span of pool pages that the phase's query
+          rows attend (every slot for decode and verify, one row for a
+          prefill chunk), read once by the kernels and three times by the
+          gather path (pool read, view write, view read), as
+          ``attn_impl`` says.
+        * FLOPs a token: 2 a weight element, plus the two attention
+          products over the view width.
+
+        Both are models, not counters. On the card the eager dequant of
+        int8 weights writes a compute-dtype copy of each weight first,
+        which this model (the reference's, where XLA fuses the dequant
+        into the matmul) does not count."""
+        cfg = self.cfg
+        hd = cfg.head_dim
+        L = cfg.n_layers
+        per_elem = (1 if self._w_quant == "int8"
+                    else torch.empty((), dtype=cfg.dtype).element_size())
+        col = (cfg.d_model * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
+               + 2 * cfg.d_model * cfg.d_ff)
+        row = cfg.n_heads * hd * cfg.d_model + cfg.d_ff * cfg.d_model
+        local_params = L * (col + row) + cfg.d_model * cfg.vocab_size
+        weight_bytes = local_params * per_elem
+        vw = self._last_vw or self._view_width()
+        kv_factor = 1 if self.attn_impl == "kernel" else 3
+        kv_rows = 1 if phase == "prefill" else self.n_slots
+        kv_bytes = (kv_factor * kv_rows * vw
+                    * kv_blocks.kv_bytes_per_token(cfg, self.kv_quant))
+        flops = 2.0 * local_params + 4.0 * vw * cfg.n_heads * hd * L
+        return weight_bytes + kv_bytes, flops
+
     def _sync_stats(self) -> None:
         self.stats.heartbeat += 1
         self.stats.pool_blocks_total = self.pool.n_blocks
         self.stats.pool_blocks_in_use = self.pool.used_blocks
+        self.stats.pool_blocks_resident = self.pool.used_blocks
         self.stats.kv_bytes_per_token = kv_blocks.kv_bytes_per_token(
             self.cfg, self.kv_quant)
+        self.stats.kv_hbm_per_device_mb = (
+            self.pool.n_blocks * self.block_size
+            * self.stats.kv_bytes_per_token / (1 << 20))
+        phase_bytes = {}
+        for phase in ("prefill", "decode", "verify"):
+            phase_bytes[phase], flops = self._traffic_model(phase)
+        self.stats.hbm_bytes_per_step = phase_bytes["decode"]
+        self.stats.hbm_bytes_per_step_prefill = phase_bytes["prefill"]
+        self.stats.hbm_bytes_per_step_decode = phase_bytes["decode"]
+        self.stats.hbm_bytes_per_step_verify = phase_bytes["verify"]
+        self.stats.flops_per_token_per_shard = flops
         self.stats.host_pages_resident = (
             self._host_tier.resident_pages
             if self._host_tier is not None else 0)

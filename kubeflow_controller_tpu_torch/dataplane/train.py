@@ -9,20 +9,29 @@ pins them; each copy is ``non_blocking``). Like the JAX loop, it reads
 device values only at log points, so steps queue on the card between
 them.
 
+Stateful models (``stateful=True``, e.g. BatchNorm's running
+statistics): ``init_fn`` returns ``(params, model_state)`` and
+``loss_fn(params, model_state, batch)`` returns ``(loss, (metrics,
+new_model_state))``; the new state replaces the old after the step, and
+under ``grad_accum`` it threads through the microbatches in order.
+Periodic evaluation: ``eval_fn(params, batch)`` (``(params, model_state,
+batch)`` when stateful) returns metrics; :meth:`TrainLoop.evaluate`
+averages them over ``eval_batches`` batches, and :meth:`TrainLoop.run`
+evaluates every ``eval_every`` steps and reports them as ``val_*``.
+
 Checkpoints: with a ``model_dir``, :meth:`TrainLoop.run` resumes from
 the latest checkpoint there, saves every ``checkpoint_every`` steps and
 at the end, and keeps the newest ``keep_checkpoints``. A checkpoint is
-the directory ``model_dir/<step>/`` holding ``params.pt`` (the step and
-the parameters) and ``opt.pt`` (the optimizer's whole state), written
-with ``torch.save`` into a temporary directory that is then renamed, so
-a save cut short never leaves a checkpoint that :meth:`restore` would
-pick. The JAX package's checkpoints are orbax directories, which this
-format does not read; ``convert.py`` carries JAX weights across as numpy
-arrays.
+the directory ``model_dir/<step>/`` holding ``params.pt`` (the step, the
+parameters and the model state) and ``opt.pt`` (the optimizer's whole
+state), written with ``torch.save`` into a temporary directory that is
+then renamed, so a save cut short never leaves a checkpoint that
+:meth:`restore` would pick. The JAX package's checkpoints are orbax
+directories, which this format does not read; ``convert.py`` carries
+JAX weights across as numpy arrays.
 
 Not ported yet, and refused by name: asynchronous saves
-(``async_checkpoint``), multi-step dispatch (``steps_per_call > 1``),
-periodic evaluation (``eval_fn``), stateful models (``stateful``) and
+(``async_checkpoint``), multi-step dispatch (``steps_per_call > 1``) and
 profiling (``profile_dir``).
 """
 
@@ -114,10 +123,13 @@ class TrainLoopConfig:
     grad_accum: int = 1
     checkpoint_every: int = 0      # 0 = only at the end (with a model_dir)
     keep_checkpoints: int = 3
+    # Every eval_every steps (0 = never), run eval_fn over eval_batches
+    # batches of the eval stream and report the means as val_* metrics.
+    eval_every: int = 0
+    eval_batches: int = 1
     # Not ported yet; any value but these defaults is refused.
     async_checkpoint: bool = False
     steps_per_call: int = 1
-    eval_every: int = 0
     profile_dir: str = ""
 
 
@@ -133,6 +145,9 @@ class StepMetrics:
 class TrainState:
     step: int
     params: Any
+    # Non-trainable model state (BatchNorm statistics), updated by the
+    # loss function rather than the optimizer; empty when unused.
+    model_state: Any = field(default_factory=dict)
 
 
 PARAMS_FILE, OPT_FILE = "params.pt", "opt.pt"
@@ -160,12 +175,15 @@ def load_params(model_dir: str, step: int, device: DeviceLike = None):
 
 
 class TrainLoop:
-    """Owns the parameters, the optimizer state and the step.
+    """Owns the parameters, the model state, the optimizer state and the
+    step.
 
     ``init_fn(seed, device) -> params`` (a nested dict of tensors) and
-    ``loss_fn(params, batch) -> (loss, metrics_dict)`` define the model;
-    ``optimizer`` has ``init(params)`` and ``update(params, grads)``
-    (``optim.AdamW``)."""
+    ``loss_fn(params, batch) -> (loss, metrics_dict)`` define the model
+    (with ``stateful``: ``init_fn -> (params, model_state)`` and
+    ``loss_fn(params, model_state, batch) -> (loss, (metrics,
+    new_model_state))``); ``optimizer`` has ``init(params)`` and
+    ``update(params, grads)`` (``optim.AdamW``, ``optim.SGD``)."""
 
     def __init__(
         self,
@@ -184,8 +202,6 @@ class TrainLoop:
         refused = {
             "async_checkpoint": cfg.async_checkpoint,
             "steps_per_call": cfg.steps_per_call != 1,
-            "eval_fn": eval_fn is not None or bool(cfg.eval_every),
-            "stateful": stateful,
             "profile_dir": bool(cfg.profile_dir),
         }
         for name, on in refused.items():
@@ -196,27 +212,40 @@ class TrainLoop:
         self.device = resolve_device(device)
         self.model_dir = model_dir
         self.loss_fn = loss_fn
+        self.eval_fn = eval_fn
+        self.stateful = stateful
         self.tx = optimizer
-        params = init_fn(seed, self.device)
+        init_out = init_fn(seed, self.device)
+        params, model_state = init_out if stateful else (init_out, {})
         for p in tree_leaves(params):
             p.requires_grad_(True)
         optimizer.init(params)
-        self.state = TrainState(step=0, params=params)
+        self.state = TrainState(step=0, params=params, model_state=model_state)
         self.start_step = 0        # the step the last run() began at
+        self.last_eval: Dict[str, float] = {}
 
-    def _grads(self, batch):
+    def _grads(self, batch, model_state):
+        """Gradients, loss and metrics of one (micro)batch, and the model
+        state after it (``model_state`` itself when not stateful)."""
         params = self.state.params
-        loss, metrics = self.loss_fn(params, batch)
+        if self.stateful:
+            loss, (metrics, model_state) = self.loss_fn(params, model_state, batch)
+            model_state = tree_unflatten(model_state, [
+                t.detach() for t in tree_leaves(model_state)])
+        else:
+            loss, metrics = self.loss_fn(params, batch)
         grads = torch.autograd.grad(loss, tree_leaves(params))
-        return list(grads), loss.detach(), {k: v.detach() for k, v in metrics.items()}
+        return (list(grads), loss.detach(),
+                {k: v.detach() for k, v in metrics.items()}, model_state)
 
     def step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One optimizer step on ``batch`` (already on the device);
         returns the step's metrics as device scalars (``loss`` and the
         loss function's metrics)."""
         A = self.config.grad_accum
+        model_state = self.state.model_state
         if A == 1:
-            grads, loss, metrics = self._grads(batch)
+            grads, loss, metrics, model_state = self._grads(batch, model_state)
         else:
             for k, v in batch.items():
                 if v.shape[0] % A:
@@ -228,7 +257,9 @@ class TrainLoop:
                      for i in range(A)]
             grads, losses, metricses = None, [], []
             for mb in micro:
-                g, loss, metrics = self._grads(mb)
+                # The model state threads through the microbatches in
+                # order, as it would across real steps.
+                g, loss, metrics, model_state = self._grads(mb, model_state)
                 grads = g if grads is None else [a.add_(b) for a, b in zip(grads, g)]
                 losses.append(loss)
                 metricses.append(metrics)
@@ -242,8 +273,32 @@ class TrainLoop:
                 metrics["perplexity"] = torch.exp(torch.stack(
                     [torch.log(m["perplexity"]) for m in metricses]).mean())
         self.tx.update(self.state.params, tree_unflatten(self.state.params, grads))
+        self.state.model_state = model_state
         self.state.step += 1
         return {"loss": loss, **metrics}
+
+    def _on_device(self, batch) -> Dict[str, torch.Tensor]:
+        return {k: (v if isinstance(v, torch.Tensor)
+                    else torch.from_numpy(np.ascontiguousarray(v))).to(self.device)
+                for k, v in batch.items()}
+
+    @torch.no_grad()
+    def evaluate(self, eval_iter: Iterator[Any], batches: int = 1) -> Dict[str, float]:
+        """``eval_fn`` over ``batches`` batches of ``eval_iter`` (numpy or
+        tensors); the mean of each metric. Sums on the device and reads
+        once at the end."""
+        if self.eval_fn is None:
+            raise ValueError("TrainLoop built without eval_fn")
+        acc: Dict[str, torch.Tensor] = {}
+        for _ in range(batches):
+            batch = self._on_device(next(eval_iter))
+            if self.stateful:
+                out = self.eval_fn(self.state.params, self.state.model_state, batch)
+            else:
+                out = self.eval_fn(self.state.params, batch)
+            for k, v in out.items():
+                acc[k] = v if k not in acc else acc[k] + v
+        return {k: float(v) / batches for k, v in acc.items()}
 
     # -- checkpointing -------------------------------------------------------
 
@@ -266,7 +321,8 @@ class TrainLoop:
         tmp = tempfile.mkdtemp(prefix=f".tmp-{step}-", dir=self.model_dir)
         params = tree_unflatten(self.state.params, [
             p.detach() for p in tree_leaves(self.state.params)])
-        torch.save({"step": step, "params": params},
+        torch.save({"step": step, "params": params,
+                    "model_state": self.state.model_state},
                    os.path.join(tmp, PARAMS_FILE))
         torch.save(self.tx.state_dict(), os.path.join(tmp, OPT_FILE))
         os.rename(tmp, final)
@@ -275,8 +331,8 @@ class TrainLoop:
 
     def restore(self) -> bool:
         """Resume from the latest checkpoint in ``model_dir``, if any:
-        the parameters (in place), the optimizer's state and the step, on
-        the loop's device. The path by which a preempted job continues
+        the parameters (in place), the model state, the optimizer's state
+        and the step, on the loop's device. The path by which a preempted job continues
         instead of starting again at step 0."""
         steps = checkpoint_steps(self.model_dir)
         if not steps:
@@ -288,6 +344,7 @@ class TrainLoop:
             for p, q in zip(tree_leaves(self.state.params),
                             tree_leaves(ckpt["params"])):
                 p.copy_(q)
+        self.state.model_state = ckpt.get("model_state", {})
         self.tx.load_state_dict(torch.load(
             os.path.join(path, OPT_FILE), map_location=self.device,
             weights_only=True))
@@ -298,12 +355,15 @@ class TrainLoop:
     # -- the loop ---------------------------------------------------------------
 
     def run(self, data_iter: Iterator[Dict[str, torch.Tensor]],
-            on_metrics: Optional[Callable[[StepMetrics], None]] = None) -> TrainState:
+            on_metrics: Optional[Callable[[StepMetrics], None]] = None,
+            eval_iter: Optional[Iterator[Any]] = None) -> TrainState:
         """Resume from ``model_dir`` if it holds a checkpoint, then step
         until ``total_steps``; report every ``log_every`` steps and at the
-        last, save every ``checkpoint_every`` steps and at the end.
-        ``steps_per_sec`` averages the steps since the last report
-        (reading the loss waits for them)."""
+        last, save every ``checkpoint_every`` steps and at the end, and,
+        with an ``eval_fn`` and an ``eval_iter``, evaluate every
+        ``eval_every`` steps (the latest ``val_*`` metrics ride along in
+        each report's extras). ``steps_per_sec`` averages the steps since
+        the last report (reading the loss waits for them)."""
         cfg = self.config
         self.restore()
         self.start_step = self.state.step
@@ -314,8 +374,14 @@ class TrainLoop:
             step = self.state.step
             if cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
                 self.save()
+            if (self.eval_fn is not None and eval_iter is not None
+                    and cfg.eval_every and step % cfg.eval_every == 0):
+                self.last_eval = {
+                    f"val_{k}": v for k, v in
+                    self.evaluate(eval_iter, cfg.eval_batches).items()}
             if on_metrics and (step % cfg.log_every == 0 or step == cfg.total_steps):
                 scalar = {k: float(v) for k, v in metrics.items()}
+                scalar.update(self.last_eval)
                 dt = time.perf_counter() - t0
                 on_metrics(StepMetrics(
                     step=step, loss=scalar.pop("loss"), extras=scalar,

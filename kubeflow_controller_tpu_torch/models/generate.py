@@ -69,35 +69,79 @@ def check_attn_impl(attn_impl: str) -> str:
     return attn_impl
 
 
+#: Projection weights eligible for weight-only int8 serving: matmul
+#: operands whose contraction axis is the second-to-last. The embedding
+#: (a gather table), the norms and the MoE router stay out.
+_QUANT_KEYS = frozenset(
+    ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head"))
+
+
+def quantize_weight(x: torch.Tensor, dtype: torch.dtype
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Weight-only int8: ``(q int8, scale)`` with one symmetric scale per
+    output channel, over the contraction axis -2: ``scale = max(|x|,
+    1e-30) / 127`` in fp32, ``q = clip(round(x / scale), -127, 127)``
+    (round half to even), the scale stored in ``dtype``. The JAX
+    package computes it eagerly, with true divisions, and so does this
+    on either device: the 127 is a tensor, because PyTorch's CUDA
+    division by a Python scalar multiplies by its reciprocal instead
+    (which moves a code now and then)."""
+    xf = x.detach().float()
+    amax = xf.abs().amax(dim=-2, keepdim=True).clamp_min(1e-30)
+    scale = amax / torch.full_like(amax, 127.0)
+    q = torch.round(xf / scale).clamp_(-127, 127).to(torch.int8)
+    return q, scale.to(dtype)
+
+
 def inference_params(
     cfg: TransformerConfig, params: Params, quant: str = "",
 ) -> Params:
     """Prepare master weights for serving: fp32 tensors cast to the
     compute dtype (others kept), detached from any autograd graph (a
     training loop's parameters require gradients; serving writes them
-    into the KV pool in place). ``quant="int8"`` (weight-only int8) is
-    not yet ported."""
-    if quant:
-        raise NotImplementedError(
-            f"quant={quant!r} (weight-only int8 serving) is not yet ported")
+    into the KV pool in place). The MoE router stays as it is.
 
-    def cast(x):
+    ``quant="int8"``: weight-only int8. Each weight of
+    :data:`_QUANT_KEYS` becomes a ``(q, scale)`` pair
+    (:func:`quantize_weight`), dequantized in the compute dtype where it
+    is used (:func:`_w`); activations and the KV pool stay as they are."""
+    if quant not in ("", "int8"):
+        raise ValueError(f"quant must be '' or 'int8' (got {quant!r})")
+
+    def cast(key, x):
         if isinstance(x, dict):
-            return {k: cast(v) for k, v in x.items()}
+            return {k: cast(k, v) for k, v in x.items()}
         x = x.detach()
+        if key == "w_router":
+            return x
+        if quant == "int8" and key in _QUANT_KEYS:
+            return quantize_weight(x, cfg.dtype)
         return x.to(cfg.dtype) if x.dtype == torch.float32 else x
 
-    return cast(params)
+    return cast(None, params)
+
+
+def weight_quant(params: Params) -> str:
+    """``"int8"`` when ``params`` holds weight-only int8 projections
+    (``inference_params(quant="int8")``), else ``""``."""
+    wq = params.get("layers", {}).get("wq")
+    return "int8" if isinstance(wq, tuple) else ""
 
 
 def _w(lp: Params, name: str, dt: torch.dtype) -> torch.Tensor:
-    """A projection weight in the compute dtype."""
-    return lp[name].to(dt)
+    """A projection weight in the compute dtype; a ``(q, scale)`` pair is
+    dequantized as ``q.to(dt) * scale.to(dt)``, as the JAX package does."""
+    w = lp[name]
+    if isinstance(w, tuple):
+        q, scale = w
+        return q.to(dt) * scale.to(dt)
+    return w.to(dt)
 
 
 def _head_logits(cfg: TransformerConfig, params: Params,
                  x: torch.Tensor) -> torch.Tensor:
-    """Final-norm'd hidden [B, D] -> fp32 logits [B, vocab]."""
+    """Final-norm'd hidden [B, D] -> fp32 logits [B, vocab] (an int8
+    ``lm_head`` is dequantized by :func:`_w`)."""
     if params.get("lm_head") is None:
         head = params["embed"].to(cfg.dtype).T
     else:
@@ -223,7 +267,10 @@ def _capped_kv_views(k_pool, v_pool, tables, width, view_width, k_scale,
 
 
 def _layer_params(params: Params, layer: int) -> Params:
-    return {k: v[layer] for k, v in params["layers"].items()}
+    """Layer ``layer``'s weights; both members of a ``(q, scale)`` pair
+    are sliced."""
+    return {k: (v[0][layer], v[1][layer]) if isinstance(v, tuple) else v[layer]
+            for k, v in params["layers"].items()}
 
 
 def _ffn(lp: Params, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""AdamW and the warmup-cosine learning-rate schedule, as optax computes them.
+"""AdamW, Adam, SGD and the warmup-cosine schedule, as optax computes them.
 
 Counterpart of the optimizer ``kubeflow_controller_tpu/dataplane/
 entrypoints/lm.py:_make_optimizer`` builds: ``optax.adamw(sched, b1=0.9,
@@ -16,6 +16,15 @@ same steps from the same gradients, up to rounding:
 PyTorch's own fused AdamW does the update; there is no TPU kernel here
 to port. ``make_optimizer(..., opt8bit=True)`` returns the 8-bit-moment
 AdamW of ``ops/optim8.py`` under the same schedule.
+
+The other entry points' optimizers: :func:`adam` (``optax.adam``, the
+MNIST entry point's: AdamW without weight decay) and :class:`SGD`
+(``optax.sgd(lr, momentum, nesterov)``, ResNet-50's: optax's ``trace``
+keeps ``t = g + momentum * t`` and steps along ``g + momentum * t``
+under Nesterov, ``t`` otherwise, which is ``torch.optim.SGD`` with zero
+dampening, whose first buffer is ``g``). BERT's ``optax.adamw(sched,
+weight_decay=0.01)`` has no mask, so it decays every leaf, as
+:class:`AdamW` does.
 """
 
 from __future__ import annotations
@@ -72,29 +81,25 @@ def warmup_cosine_decay_schedule(
                           else decay(count - warmup_steps))
 
 
-class AdamW:
-    """optax's ``adamw`` over a parameter tree (nested dicts of tensors):
-    ``torch.optim.AdamW`` with one parameter group and ``fused=True`` (one
-    pass over each leaf), its learning rate set by a ``LambdaLR`` from
-    ``learning_rate``, a float or a schedule of the update count. The
-    scheduler sets the rate for count ``n`` before update ``n + 1`` runs,
-    as optax reads its count before incrementing it. ``torch.optim.AdamW``
-    decays ``p`` by ``lr * wd * p`` and bias-corrects the moments as optax
-    does, so the two take the same step up to rounding."""
+class _Scheduled:
+    """An optax transformation over a parameter tree (nested dicts of
+    tensors) as one ``torch.optim`` optimizer with one parameter group,
+    its learning rate set by a ``LambdaLR`` from ``learning_rate``, a
+    float or a schedule of the update count. The scheduler sets the rate
+    for count ``n`` before update ``n + 1`` runs, as optax reads its count
+    before incrementing it."""
 
-    def __init__(self, learning_rate: Union[float, Schedule], b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 1e-4):
+    def __init__(self, learning_rate: Union[float, Schedule]):
         self.lr = (learning_rate if callable(learning_rate)
                    else (lambda count, v=learning_rate: v))
-        self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
-        self.opt: Optional[torch.optim.AdamW] = None
+        self.opt: Optional[torch.optim.Optimizer] = None
         self.sched: Optional[torch.optim.lr_scheduler.LambdaLR] = None
 
+    def _make(self, leaves) -> torch.optim.Optimizer:
+        raise NotImplementedError
+
     def init(self, params) -> None:
-        self.opt = torch.optim.AdamW(
-            tree_leaves(params), lr=1.0, betas=(self.b1, self.b2),
-            eps=self.eps, weight_decay=self.wd, fused=True)
+        self.opt = self._make(tree_leaves(params))
         self.sched = torch.optim.lr_scheduler.LambdaLR(self.opt, self.lr)
 
     @torch.no_grad()
@@ -103,7 +108,10 @@ class AdamW:
         returns the learning rate it used."""
         lr = self.opt.param_groups[0]["lr"]
         for p, g in zip(tree_leaves(params), tree_leaves(grads)):
-            p.grad = g
+            # The fused CUDA update wants each gradient laid out as its
+            # parameter; a tied weight's summed gradient can come back
+            # transposed (BERT's embedding and MLM head).
+            p.grad = g.contiguous()
         self.opt.step()
         self.opt.zero_grad(set_to_none=True)
         self.sched.step()
@@ -126,6 +134,48 @@ class AdamW:
         for group in self.opt.param_groups:
             group["lr"] = lr
         self.sched._last_lr = [lr]
+
+
+class AdamW(_Scheduled):
+    """optax's ``adamw``: ``torch.optim.AdamW`` with ``fused=True`` (one
+    pass over each leaf). ``torch.optim.AdamW`` decays ``p`` by ``lr * wd
+    * p`` (every leaf: optax's default has no mask) and bias-corrects the
+    moments as optax does, so the two take the same step up to
+    rounding."""
+
+    def __init__(self, learning_rate: Union[float, Schedule], b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 1e-4):
+        super().__init__(learning_rate)
+        self.b1, self.b2, self.eps, self.wd = b1, b2, eps, weight_decay
+
+    def _make(self, leaves) -> torch.optim.Optimizer:
+        return torch.optim.AdamW(
+            leaves, lr=1.0, betas=(self.b1, self.b2), eps=self.eps,
+            weight_decay=self.wd, fused=True)
+
+
+def adam(learning_rate: Union[float, Schedule], b1: float = 0.9,
+         b2: float = 0.999, eps: float = 1e-8) -> AdamW:
+    """optax's ``adam``: the same moments and bias correction as
+    ``adamw``, with no weight decay."""
+    return AdamW(learning_rate, b1=b1, b2=b2, eps=eps, weight_decay=0.0)
+
+
+class SGD(_Scheduled):
+    """optax's ``sgd(learning_rate, momentum, nesterov)``: ``trace`` then
+    the scaled step, as ``torch.optim.SGD`` with zero dampening (the
+    first momentum buffer is the gradient, as optax's zero trace plus
+    the gradient is). Without momentum, plain gradient descent."""
+
+    def __init__(self, learning_rate: Union[float, Schedule],
+                 momentum: Optional[float] = None, nesterov: bool = False):
+        super().__init__(learning_rate)
+        self.momentum, self.nesterov = momentum, nesterov
+
+    def _make(self, leaves) -> torch.optim.Optimizer:
+        return torch.optim.SGD(leaves, lr=1.0, momentum=self.momentum or 0.0,
+                               nesterov=self.nesterov)
 
 
 def make_optimizer(learning_rate: float, total_steps: int,

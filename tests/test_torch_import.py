@@ -132,6 +132,38 @@ def test_train_entry_points_raise_without_cuda(no_cuda):
                     seq_len=32, device="cpu")["final_step"] == 2
 
 
+#: The MNIST, ResNet and BERT slice: each of these is imported with JAX
+#: blocked by test_every_module_imports_with_jax_blocked.
+MODEL_MODULES = [
+    "kubeflow_controller_tpu_torch.models.mnist",
+    "kubeflow_controller_tpu_torch.models.resnet",
+    "kubeflow_controller_tpu_torch.models.bert",
+    "kubeflow_controller_tpu_torch.dataplane.entrypoints.mnist",
+    "kubeflow_controller_tpu_torch.dataplane.entrypoints.resnet",
+    "kubeflow_controller_tpu_torch.dataplane.entrypoints.bert",
+]
+
+
+@pytest.mark.parametrize("module", MODEL_MODULES)
+def test_model_modules_stand_alone_and_entry_points_need_cuda(module, no_cuda):
+    """Each new module is among those imported with JAX blocked, and each
+    entry point (a ``train`` with no ``device``) raises without a card."""
+    assert module in _port_modules()
+    mod = importlib.import_module(module)
+    if module.endswith(".bert") and "entrypoints" in module:
+        from kubeflow_controller_tpu_torch.models import bert
+        kw = dict(cfg=bert.bert_tiny_config(), seq_len=16, per_data_shard_batch=1)
+    elif module.endswith(".resnet") and "entrypoints" in module:
+        from kubeflow_controller_tpu_torch.models import resnet
+        kw = dict(model=resnet.resnet_tiny(), image_size=16, per_chip_batch=1)
+    elif "entrypoints" in module:
+        kw = dict(batch_size=2)
+    else:
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.train(total_steps=2, **kw)
+
+
 def test_kernel_wrappers_refuse_non_cpu_non_cuda_tensors():
     """A non-CPU tensor must launch the kernel or raise — never fall back
     to the plain version."""
@@ -173,9 +205,10 @@ _SERVE_KW = [
     dict(n=2), dict(model_dir="/nonexistent"), dict(config="tiny_moe"),
 ]
 #: Refused until exact prefill, speculative decoding, checkpoints,
-#: sampling and the prefix cache were ported: these now serve.
+#: sampling, the prefix cache and weight-only int8 were ported: these now
+#: serve.
 _SERVE_PORTED = ("prefill_mode", "speculative", "model_dir", "temperature",
-                 "n", "prefix_cache")
+                 "n", "prefix_cache", "quant")
 
 
 @pytest.mark.parametrize("kwargs", _SERVE_KW,
@@ -195,9 +228,15 @@ def test_serve_refuses_what_is_not_ported(kwargs):
 
 
 def test_inference_params_refuses_int8_weights():
+    """Weight-only int8 is ported (``(q, scale)`` pairs, held bit for bit
+    to the JAX package in test_torch_serving.py); a scheme other than
+    ``""`` and ``"int8"`` is refused."""
     cfg = tfm.tiny_config()
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        gen.inference_params(cfg, {}, quant="int8")
+    params = gen.inference_params(cfg, tfm.init_params(cfg, device="cpu"),
+                                  quant="int8")
+    assert isinstance(params["layers"]["wq"], tuple)
+    with pytest.raises(ValueError, match="quant must be"):
+        gen.inference_params(cfg, {}, quant="fp8")
 
 
 def test_build_module_needs_no_nvcc_at_import():

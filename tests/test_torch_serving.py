@@ -290,9 +290,13 @@ def test_cli_serves_on_cpu_and_refuses_unported_flags(tmp_path):
     rows = [json.loads(line) for line in out.read_text().splitlines()]
     assert [r["rid"] for r in rows] == [0, 1, 2]
     assert all(len(r["completion"]) == 4 for r in rows)
-    for flag in (["--tp", "2"], ["--quant", "int8"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            serve_lm.main(argv + flag)
+    with pytest.raises(NotImplementedError, match="not yet ported"):
+        serve_lm.main(argv + ["--tp", "2"])
+    # Weight-only int8 serves now (its streams are held to the JAX
+    # engine's in test_int8_engine_streams_equal_jax_engine).
+    assert serve_lm.main(argv + ["--quant", "int8"]) == 0
+    assert all(len(json.loads(line)["completion"]) == 4
+               for line in out.read_text().splitlines())
     # The radix proposer serves now, and needs the trie, as in JAX.
     with pytest.raises(ValueError, match="requires prefix_cache"):
         serve_lm.main(argv + ["--speculative", "--proposer", "radix"])
@@ -479,10 +483,16 @@ def test_cli_takes_every_reference_option_and_refuses_off_default_values(
                   _off_default(port["--proposer"]),
                   _off_default(port["--turns"]),
                   _off_default(port["--prefix-cache"]),
-                  ["--prefix-cache"] + _off_default(port["--host-kv-mb"])]
+                  ["--prefix-cache"] + _off_default(port["--host-kv-mb"]),
+                  _off_default(port["--quant"]),
+                  _off_default(port["--paged"]) + ["--turns", "2"]]
         assert ported[3] == ["--prefill-mode", "bucketed"]
         assert ported[9:12] == [["--proposer", "radix"], ["--turns", "2"],
                                 ["--prefix-cache"]]
+        assert ported[13:] == [["--quant", "int8"], ["--no-paged", "--turns", "2"]]
+        # The reference engine's ValueError: --no-paged on the engine path.
+        with pytest.raises(ValueError, match="paged=False"):
+            tmod.main(base + ["--no-paged"])
         # The reference's p.error: the tier needs the cache.
         with pytest.raises(SystemExit) as e:
             tmod.main(base + _off_default(port["--host-kv-mb"]))
@@ -500,3 +510,236 @@ def test_cli_takes_every_reference_option_and_refuses_off_default_values(
             tmod.main(base + flag)
     for flag in ported:
         assert tmod.main(base + flag) == 0, flag
+
+
+# -- weight-only int8 serving ----------------------------------------------------
+
+def _int8_weights(dtype="float32", **cfg_kw):
+    """The tiny config's fp32 master weights quantized by each package's
+    ``inference_params(quant="int8")``."""
+    import jax.numpy as jnp
+    import torch
+
+    cfg_j = jtfm.tiny_config(n_kv_heads=4, dtype=getattr(jnp, dtype), **cfg_kw)
+    cfg_t = ttfm.tiny_config(n_kv_heads=4, dtype=getattr(torch, dtype), **cfg_kw)
+    master = jax.device_get(jtfm.init_params(cfg_j, jax.random.key(1)))
+    params_j = jgen.inference_params(cfg_j, master, quant="int8")
+    params_t = tgen.inference_params(
+        cfg_t, params_from_numpy(master, device="cpu"), quant="int8")
+    return cfg_j, cfg_t, params_j, params_t
+
+
+def _bits(x):
+    """An array's bytes as unsigned integers (bf16 has no numpy dtype)."""
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        if x.dtype == torch.bfloat16:
+            x = x.view(torch.int16)
+        x = x.numpy()
+    x = np.asarray(x)
+    return x.view({1: np.uint8, 2: np.uint16, 4: np.uint32}[x.itemsize])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_weights_bitwise_equal_jax_inference_params(dtype):
+    """``inference_params(quant="int8")``: every projection of
+    ``_QUANT_KEYS`` becomes ``(q, scale)``, codes and scales (stored in
+    the compute dtype) bit for bit the JAX package's; the embedding and
+    the norms are cast as before."""
+    _, _, params_j, params_t = _int8_weights(dtype)
+    keys = set(tgen._QUANT_KEYS)
+    pairs = {"lm_head": (params_j["lm_head"], params_t["lm_head"])}
+    pairs.update({k: (params_j["layers"][k], params_t["layers"][k])
+                  for k in keys - {"lm_head"}})
+    for k, (pj, pt) in pairs.items():
+        assert isinstance(pj, tuple) and isinstance(pt, tuple), k
+        assert pt[0].dtype == __import__("torch").int8, k
+        np.testing.assert_array_equal(np.asarray(pj[0]), pt[0].numpy(), err_msg=k)
+        assert np.asarray(pj[1]).shape == tuple(pt[1].shape), k
+        np.testing.assert_array_equal(_bits(pj[1]), _bits(pt[1]), err_msg=k)
+    for k in ("attn_norm", "mlp_norm"):
+        np.testing.assert_array_equal(_bits(params_j["layers"][k]),
+                                      _bits(params_t["layers"][k]))
+    np.testing.assert_array_equal(_bits(params_j["embed"]), _bits(params_t["embed"]))
+    assert tgen.weight_quant(params_t) == "int8"
+    with pytest.raises(ValueError, match="quant must be"):
+        tgen.inference_params(ttfm.tiny_config(), {}, quant="int4")
+
+
+@pytest.mark.parametrize("prefill_mode,kv_quant", [
+    ("exact", ""), ("exact", "int8"), ("bucketed", ""), ("bucketed", "int8"),
+], ids=["exact-fp", "exact-int8kv", "bucketed-fp", "bucketed-int8kv"])
+def test_int8_engine_streams_equal_jax_engine(prefill_mode, kv_quant):
+    """Greedy streams with weight-only int8 projections, token for token
+    the JAX engine's: exact and bucketed prefill, fp and int8 KV, EOS
+    and budget retirement, slot reuse."""
+    cfg_j, cfg_t, params_j, params_t = _int8_weights()
+    eos = _pick_eos(_run_port(cfg_t, params_t, _workload(None), kv_quant,
+                              prefill_mode=prefill_mode))
+    work = _workload(eos)
+    got = _run_port(cfg_t, params_t, work, kv_quant, prefill_mode=prefill_mode)
+    want = _run_jax(cfg_j, params_j, work, kv_quant, prefill_mode=prefill_mode)
+    assert got == want
+    assert {r for _, r in got.values()} == {"eos", "length"}
+
+
+@pytest.mark.parametrize("prefill_mode", ["exact", "bucketed"])
+def test_int8_speculative_streams_equal_jax_engine(prefill_mode):
+    """Prompt-lookup speculation over int8 weights on repeating prompts:
+    the JAX engine's streams and spec counters, drafts accepted."""
+    cfg_j, cfg_t, params_j, params_t = _int8_weights()
+    rng = np.random.default_rng(5)
+    work = [(np.tile(rng.integers(0, 256, 4), 4)[:n].astype(np.int32), m)
+            for n, m in ((13, 9), (16, 8), (11, 10), (14, 7))]
+    kw = dict(n_slots=2, max_seq=MAX_SEQ, block_size=BS,
+              prefill_mode=prefill_mode, spec_decode=True, draft_k=4)
+    eng = ServingEngine(cfg_t, params_t, attn_impl="kernel", device="cpu", **kw)
+    got = {c.rid: c.tokens for c in eng.run(
+        [Request(rid=i, prompt=p, max_new_tokens=m) for i, (p, m) in enumerate(work)])}
+    jeng = JEngine(cfg_j, params_j, attn_impl="pallas", **kw)
+    want = {c.rid: c.tokens for c in jeng.run(
+        [JRequest(rid=i, prompt=p, max_new_tokens=m) for i, (p, m) in enumerate(work)])}
+    assert got == want
+    for k in ("draft_proposed", "draft_accepted", "spec_steps"):
+        assert getattr(eng.stats, k) == getattr(jeng.stats, k), k
+    assert eng.stats.spec_steps > 0
+
+
+def test_serve_int8_equals_jax_serve(tmp_path, monkeypatch):
+    """``serve(quant="int8")`` writes the completions file and the traffic
+    gauges the JAX ``serve(quant="int8")`` writes on the same fp32
+    weights, quantized after they load."""
+    from kubeflow_controller_tpu.dataplane.entrypoints import serve_lm as jserve
+
+    cfg_j = jtfm.tiny_config()
+    master = jax.device_get(jtfm.init_params(cfg_j, jax.random.key(0)))
+    monkeypatch.setattr(serve_lm, "_load_params", lambda *a, **k: (
+        params_from_numpy(master, device="cpu"), None))
+    common = dict(config="tiny", batch=3, prompt_len=9, max_new_tokens=5,
+                  slots=2, block_size=4, quant="int8", attn_impl="pallas")
+    files, res = [], []
+    for name, serve, extra in (("jax", jserve.serve, {}),
+                               ("port", serve_lm.serve, dict(device="cpu"))):
+        out = tmp_path / f"{name}.jsonl"
+        res.append(serve(output_file=str(out), **common, **extra))
+        files.append([json.loads(line) for line in out.read_text().splitlines()])
+    assert files[0] == files[1] and len(files[1]) == 3
+    for k in ("hbm_bytes_per_step", "hbm_bytes_per_step_prefill",
+              "flops_per_token_per_shard", "kv_hbm_per_device_mb", "requests"):
+        assert res[0][k] == res[1][k], k
+
+
+# -- C8: the summary's keys ------------------------------------------------------
+
+#: Summary keys of features the port refuses: tensor parallelism,
+#: migration, fault injection, spans, MoE and the jit-cache counts.
+REFUSED_SUMMARY_KEYS = {
+    "tp", "pool_blocks_per_shard", "migrated_in", "migrated_out",
+    "pages_migrated", "migration_bytes", "migrated_zero_copy_tokens",
+    "migrate_dedups", "faults_injected", "spans_recorded", "spans_dropped",
+    "moe_experts_per_shard", "moe_tokens_dispatched", "prefill_compiles",
+    "admit_cache_size",
+}
+
+
+@pytest.mark.parametrize("impl,quant", [("pallas", ""), ("xla", "int8")],
+                         ids=["kernel-fp", "gather-int8"])
+def test_summary_keys_and_values_equal_jax_engine_on_a_cancelling_trace(
+        impl, quant):
+    """On one trace that cancels a queued and an in-flight request, the
+    port's summary has the JAX engine's keys but those of refused
+    features, and every shared value equal (a frozen clock makes the
+    latencies 0 on both): ``cancelled``, the pool gauges and the traffic
+    model, for the kernel and the gather path, fp and int8 weights."""
+    if quant:
+        cfg_j, cfg_t, params_j, params_t = _int8_weights()
+    else:
+        cfg_j, cfg_t, params_j, params_t = _weights()
+    work = _workload(None)
+    kw = dict(n_slots=3, max_seq=MAX_SEQ, block_size=BS,
+              prefill_mode="bucketed", clock=lambda: 0.0)
+    engines = (ServingEngine(cfg_t, params_t, attn_impl=impl, device="cpu", **kw),
+               JEngine(cfg_j, params_j, attn_impl=impl, **kw))
+    summaries = []
+    for eng, req in zip(engines, (Request, JRequest)):
+        for i, (p, m, e) in enumerate(work):
+            eng.submit(req(rid=i, prompt=p, max_new_tokens=m, eos_id=e))
+        out = eng.step() + eng.step() + eng.step()
+        assert eng.cancel(5) and eng.cancel(0)
+        while not eng.idle:
+            out += eng.step()
+        assert sorted(c.rid for c in out) == list(range(len(work)))
+        summaries.append(eng.stats.summary())
+    got, want = summaries
+    assert set(got) == set(want) - REFUSED_SUMMARY_KEYS
+    assert want["cancelled"] == 2
+    assert {k: got[k] for k in got} == {k: want[k] for k in got}
+
+
+# -- C9: paged=False -------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [dict(turns=1), dict(turns=3), dict(turns=1, n=2)],
+                         ids=["turns1", "turns3", "n2"])
+def test_no_paged_outcome_equals_jax_serve(kw, tmp_path, monkeypatch):
+    """``paged=False`` gives the reference's outcome: the engine's
+    ``ValueError`` for one turn and for ``n > 1``, the contiguous path's
+    completions for three turns (the same file as the JAX serve())."""
+    from kubeflow_controller_tpu.dataplane.entrypoints import serve_lm as jserve
+
+    cfg_j = jtfm.tiny_config()
+    master = jax.device_get(jtfm.init_params(cfg_j, jax.random.key(0)))
+    monkeypatch.setattr(serve_lm, "_load_params", lambda *a, **k: (
+        params_from_numpy(master, device="cpu"), None))
+    common = dict(config="tiny", batch=2, prompt_len=9, max_new_tokens=4,
+                  block_size=4, paged=False, **kw)
+    outcomes = []
+    for name, serve, extra in (("jax", jserve.serve, {}),
+                               ("port", serve_lm.serve, dict(device="cpu"))):
+        out = tmp_path / f"{name}.jsonl"
+        try:
+            serve(output_file=str(out), **common, **extra)
+        except Exception as e:                      # the outcome compared
+            outcomes.append(type(e))
+            continue
+        outcomes.append([json.loads(line) for line in out.read_text().splitlines()])
+    assert outcomes[0] == outcomes[1]
+    if kw["turns"] == 3:
+        assert len(outcomes[1]) == 2
+        assert all(len(r["completion"]) == 12 for r in outcomes[1])
+    else:
+        assert outcomes[1] is ValueError
+
+
+def test_serve_model_dir_int8_quantizes_the_restored_fp32_weights(tmp_path):
+    """``serve(model_dir=..., quant="int8")`` restores the checkpoint's
+    fp32 weights and then quantizes them: its streams are the JAX
+    engine's on the JAX package's ``inference_params(quant="int8")`` of
+    the same fp32 weights (exact prefill, the default of both); the
+    command line's ``--model-dir --quant int8`` writes the same file."""
+    from kubeflow_controller_tpu_torch.convert import params_to_numpy
+    from kubeflow_controller_tpu_torch.dataplane import train as ttrain
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints import lm as tlm
+
+    tlm.train(config="tiny", total_steps=2, per_data_shard_batch=2, seq_len=32,
+              model_dir=str(tmp_path), device="cpu")
+    master = params_to_numpy(ttrain.load_params(str(tmp_path), 2, "cpu"))
+    cfg_j = jtfm.tiny_config()
+    params_j = jgen.inference_params(cfg_j, master, quant="int8")
+    prompts = serve_lm._read_prompts("", cfg_j.vocab_size, 3, 9)
+    eng = JEngine(cfg_j, params_j, n_slots=3, max_seq=9 + 6, attn_impl="pallas")
+    want = {c.rid: c.tokens for c in eng.run([
+        JRequest(rid=i, prompt=prompts[i], max_new_tokens=6) for i in range(3)])}
+    out_file = tmp_path / "out.jsonl"
+    res = serve_lm.serve(config="tiny", model_dir=str(tmp_path), batch=3,
+                         prompt_len=9, max_new_tokens=6, quant="int8",
+                         device="cpu", output_file=str(out_file))
+    assert res["restored_step"] == 2
+    rows = [json.loads(line) for line in out_file.read_text().splitlines()]
+    assert {r["rid"]: r["completion"] for r in rows} == want
+    assert serve_lm.main(["--config", "tiny", "--device", "cpu", "--batch", "3",
+                          "--prompt-len", "9", "--max-new-tokens", "6",
+                          "--model-dir", str(tmp_path), "--quant", "int8",
+                          "--output", str(out_file)]) == 0
+    rows = [json.loads(line) for line in out_file.read_text().splitlines()]
+    assert {r["rid"]: r["completion"] for r in rows} == want

@@ -12,6 +12,7 @@ its largest element (measured), so the tolerances below are LOSS_RTOL =
 rtol 1e-4 for the large elements). The bf16 tests state their own.
 """
 
+import itertools
 import json
 import os
 
@@ -427,8 +428,8 @@ def test_grad_accum_refuses_indivisible_batch():
 
 
 @pytest.mark.parametrize("kw,ported", [
-    (dict(model_dir="/nonexistent"), True), (dict(stateful=True), False),
-    (dict(eval_fn=lambda p, b: {}), False),
+    (dict(model_dir="/nonexistent"), True), (dict(stateful=True), True),
+    (dict(eval_fn=lambda p, b: {}), True),
     (dict(config=dict(steps_per_call=2)), False),
     (dict(config=dict(checkpoint_every=5)), True),
     (dict(config=dict(profile_dir="/tmp/x")), False),
@@ -439,14 +440,19 @@ def test_train_loop_refuses_what_is_not_ported(kw, ported):
     """Options not ported yet raise "not yet ported" at construction;
     ``model_dir`` and ``checkpoint_every``, refused until checkpoints
     were ported, build a loop that keeps them (and touches no file before
-    it runs: test_torch_checkpoint.py runs them)."""
+    it runs: test_torch_checkpoint.py runs them); ``stateful`` and
+    ``eval_fn``, refused until the MNIST and ResNet slice, build one too
+    (the tests below run them against the JAX loop)."""
     cfg = ttf.tiny_config()
     kw = dict(kw)
     conf = ttrain.TrainLoopConfig(**kw.pop("config", {}))
+    init_fn = ttf.make_init_fn(cfg)
+    if kw.get("stateful"):
+        init_fn = lambda seed, dev: (ttf.make_init_fn(cfg)(seed, dev), {})  # noqa: E731
 
     def build():
         return ttrain.TrainLoop(
-            init_fn=ttf.make_init_fn(cfg), loss_fn=ttf.make_loss_fn(cfg),
+            init_fn=init_fn, loss_fn=ttf.make_loss_fn(cfg),
             optimizer=optim.AdamW(1e-3), config=conf, device="cpu", **kw)
 
     if not ported:
@@ -566,3 +572,174 @@ def test_lm_train_refuses_the_job_env_it_cannot_honour(env, tmp_path):
     out = tlm.train(ctx, total_steps=3, **kw)
     assert (out["start_step"], out["final_step"]) == (2, 3)
     assert ttrain.checkpoint_steps(str(tmp_path)) == [2, 3]
+
+
+# -- evaluation, stateful models and the other optimizers -------------------------
+
+def _jax_loop(**kw):
+    """The JAX package's TrainLoop on one CPU device."""
+    from kubeflow_controller_tpu.dataplane import train as jtrain
+    from kubeflow_controller_tpu.parallel.mesh import MeshConfig, make_mesh
+
+    return jtrain.TrainLoop(mesh=make_mesh(MeshConfig(), jax.devices()[:1]), **kw)
+
+
+def _records(loop_run):
+    seen = []
+    loop_run(lambda m: seen.append((m.step, m.loss, dict(m.extras))))
+    return seen
+
+
+def test_eval_every_matches_jax_loop():
+    """``eval_fn``/``eval_every``/``eval_batches``: the MNIST MLP trained 6
+    steps by Adam, evaluated every 2 steps over 2 held-out batches; each
+    report's loss, accuracy and ``val_*`` metrics equal the JAX loop's
+    (fp32; Adam moves an element by up to lr wherever its gradient is
+    noise, so the metrics agree within 1e-4 relative)."""
+    from kubeflow_controller_tpu.dataplane import train as jtrain
+    from kubeflow_controller_tpu.models import mnist as jmnist
+    from kubeflow_controller_tpu_torch.models import mnist as tmnist
+
+    jm, tm = jmnist.MnistMLP(hidden=32), tmnist.MnistMLP(hidden=32)
+    variables = jax.device_get(jm.init(jax.random.key(0), jnp.zeros((2, 784))))
+    conf = dict(total_steps=6, log_every=2, eval_every=2, eval_batches=2)
+    train = list(itertools.islice(jmnist.synthetic_mnist(16, uint8=True), 6))
+    jloop = _jax_loop(init_fn=lambda rng: variables, loss_fn=jmnist.make_loss_fn(jm),
+                      optimizer=optax.adam(1e-3), eval_fn=jmnist.make_eval_fn(jm),
+                      config=jtrain.TrainLoopConfig(**conf))
+    want = _records(lambda cb: jloop.run(
+        iter(train), on_metrics=cb,
+        eval_iter=jmnist.synthetic_mnist(16, seed=1, uint8=True)))
+    tloop = ttrain.TrainLoop(
+        init_fn=lambda seed, dev: convert.mnist_params_from_flax(variables, dev),
+        loss_fn=tmnist.make_loss_fn(tm), optimizer=optim.adam(1e-3),
+        eval_fn=tmnist.make_eval_fn(tm), config=ttrain.TrainLoopConfig(**conf),
+        device="cpu")
+    got = _records(lambda cb: tloop.run(
+        ttrain.device_prefetch(iter(train), "cpu"), on_metrics=cb,
+        eval_iter=tmnist.synthetic_mnist(16, seed=1, uint8=True)))
+    assert [g[0] for g in got] == [w[0] for w in want] == [2, 4, 6]
+    for (_, gl, ge), (_, wl, we) in zip(got, want):
+        assert set(ge) == set(we) == {"accuracy", "val_cross_entropy", "val_accuracy"}
+        np.testing.assert_allclose(gl, wl, rtol=1e-4)
+        for k in we:
+            np.testing.assert_allclose(ge[k], we[k], rtol=1e-4, err_msg=k)
+    assert tloop.evaluate(tmnist.synthetic_mnist(16, seed=5, uint8=True), 3).keys() == {
+        "cross_entropy", "accuracy"}
+
+
+def _resnet_setup():
+    from kubeflow_controller_tpu.models import resnet as jresnet
+    from kubeflow_controller_tpu_torch.models import resnet as tresnet
+
+    jm, tm = jresnet.resnet_tiny(), tresnet.resnet_tiny()
+    params, stats = jax.device_get(
+        jax.jit(jresnet.make_init_fn(jm, 16))(jax.random.key(2)))
+    batches = list(itertools.islice(
+        jresnet.synthetic_imagenet(8, 16, 10, seed=3, uint8=True), 3))
+    return jresnet, tresnet, jm, tm, params, stats, batches
+
+
+def test_stateful_loop_with_grad_accum_matches_jax_loop():
+    """``stateful=True`` with ``grad_accum=2``: resnet_tiny's BatchNorm
+    statistics thread through both microbatches of each step in order;
+    3 steps of SGD with Nesterov momentum (lr 0.05) from the same
+    weights. Each step's loss within 1e-4 relative, and the statistics
+    and parameters after, within 1e-4 of each leaf's largest element,
+    of the JAX loop's."""
+    from kubeflow_controller_tpu.dataplane import train as jtrain
+
+    jresnet, tresnet, jm, tm, params, stats, batches = _resnet_setup()
+    conf = dict(total_steps=3, log_every=1, grad_accum=2)
+    jloop = _jax_loop(init_fn=lambda rng: (params, stats),
+                      loss_fn=jresnet.make_loss_fn(jm),
+                      optimizer=optax.sgd(0.05, momentum=0.9, nesterov=True),
+                      config=jtrain.TrainLoopConfig(**conf), stateful=True)
+    want = _records(lambda cb: jloop.run(iter(batches), on_metrics=cb))
+    tloop = ttrain.TrainLoop(
+        init_fn=lambda seed, dev: convert.resnet_params_from_flax(params, stats, dev),
+        loss_fn=tresnet.make_loss_fn(tm),
+        optimizer=optim.SGD(0.05, momentum=0.9, nesterov=True),
+        config=ttrain.TrainLoopConfig(**conf), stateful=True, device="cpu")
+    got = _records(lambda cb: tloop.run(ttrain.device_prefetch(iter(batches), "cpu"),
+                                        on_metrics=cb))
+    assert [g[0] for g in got] == [w[0] for w in want] == [1, 2, 3]
+    for (_, gl, _), (_, wl, _) in zip(got, want):
+        np.testing.assert_allclose(gl, wl, rtol=1e-4)
+    jp, js = convert.resnet_params_to_flax(tloop.state.params, tloop.state.model_state)
+    for got_tree, want_tree in ((js, jloop.state.model_state), (jp, jloop.state.params)):
+        for a, b in zip(jax.tree.leaves(got_tree), jax.tree.leaves(jax.device_get(want_tree))):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * float(np.abs(b).max()))
+    # The statistics moved from their init (mean 0, var 1).
+    assert float(np.abs(js["stem_norm"]["mean"]).max()) > 1e-3
+
+
+def test_checkpoint_round_trip_keeps_model_state(tmp_path):
+    """A stateful loop saves its model state with its parameters; a new
+    loop resumed from the checkpoint at step 2 and run to 3 ends where an
+    uninterrupted run to 3 ends, statistics included."""
+    _, tresnet, _, tm, params, stats, batches = _resnet_setup()
+
+    def loop(total, model_dir=""):
+        return ttrain.TrainLoop(
+            init_fn=lambda seed, dev: convert.resnet_params_from_flax(params, stats, dev),
+            loss_fn=tresnet.make_loss_fn(tm),
+            optimizer=optim.SGD(0.05, momentum=0.9, nesterov=True),
+            config=ttrain.TrainLoopConfig(total_steps=total), stateful=True,
+            model_dir=model_dir, device="cpu")
+
+    def feed(bs):
+        return ttrain.device_prefetch(iter(bs), "cpu")
+
+    first = loop(2, str(tmp_path))
+    first.run(feed(batches[:2]))
+    assert ttrain.checkpoint_steps(str(tmp_path)) == [2]
+    resumed = loop(3, str(tmp_path))
+    assert resumed.restore() and resumed.state.step == 2
+    for a, b in zip(convert.tree_leaves(resumed.state.model_state),
+                    convert.tree_leaves(first.state.model_state)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    resumed.run(feed(batches[2:]))
+    whole = loop(3)
+    whole.run(feed(batches))
+    for a, b in zip(convert.tree_leaves(resumed.state.model_state),
+                    convert.tree_leaves(whole.state.model_state)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for a, b in zip(convert.tree_leaves(resumed.state.params),
+                    convert.tree_leaves(whole.state.params)):
+        torch.testing.assert_close(a.detach(), b.detach(), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("name", ["sgd_nesterov", "adam"])
+def test_optimizer_matches_optax_over_five_steps(name):
+    """``optim.SGD(momentum=0.9, nesterov=True)`` under the ResNet entry
+    point's warmup-cosine schedule, and ``optim.adam``, against optax on
+    the same parameters and the same five gradients (numpy draws):
+    within 1e-6 of each leaf's largest element (fp32 rounding of the same
+    updates; Adam's division by its own small gradients stays inside
+    this at these draws)."""
+    rng = np.random.default_rng(11)
+    shapes = {"a": (5, 7), "b": {"c": (3,), "d": (2, 4, 2)}}
+    draw = lambda: jax.tree.map(  # noqa: E731
+        lambda s: rng.standard_normal(s).astype(np.float32), shapes,
+        is_leaf=lambda x: isinstance(x, tuple))
+    params = draw()
+    grads = [draw() for _ in range(5)]
+    if name == "adam":
+        tx, topt = optax.adam(3e-2), optim.adam(3e-2)
+    else:
+        sched = optax.warmup_cosine_decay_schedule(0.0, 0.1, 2, 5)
+        tx = optax.sgd(sched, momentum=0.9, nesterov=True)
+        topt = optim.SGD(optim.warmup_cosine_decay_schedule(0.0, 0.1, 2, 5),
+                         momentum=0.9, nesterov=True)
+    state = tx.init(params)
+    tp = convert.params_from_numpy(params, device="cpu")
+    topt.init(tp)
+    for g in grads:
+        updates, state = tx.update(g, state, params)
+        params = optax.apply_updates(params, updates)
+        topt.update(tp, convert.params_from_numpy(g, device="cpu"))
+        for a, b in zip(convert.tree_leaves(tp), jax.tree.leaves(params)):
+            b = np.asarray(b)
+            np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                       atol=1e-6 * float(np.abs(b).max()))
