@@ -1152,8 +1152,8 @@ def _check_streams(label, streams, keys, n_tokens, vocab):
             raise AssertionError(f"{label}: bad completion {key}: {toks}")
 
 
-def _log_serve(label, what, smi, res, wall, launches):
-    log(f"{label} llama3_8b (d_model 4096, 32 layers, {what}) on {smi}: ttft_p50 "
+def _log_serve(label, what, smi, res, wall, launches, config="llama3_8b"):
+    log(f"{label} {config} (d_model 4096, 32 layers, {what}) on {smi}: ttft_p50 "
         f"{res['ttft_p50_ms']} ms, ttft_p95 {res['ttft_p95_ms']} ms, tpot_p50 "
         f"{res['tpot_p50_ms']} ms, tokens/s {res['tokens_per_sec']}, wall {wall} s, "
         f"prefill chunks {res['prefill_chunks']}, prefix hit tokens "
@@ -1161,19 +1161,20 @@ def _log_serve(label, what, smi, res, wall, launches):
         f"{ {k: v for k, v in launches.items() if v} }")
 
 
-def _serve_run(label, smi, batch, n=1, prompt_len=256, **kw):
-    """One ``serve()`` at llama3_8b (full width and depth, bf16, 8 slots,
-    ``prompt_len``-token prompts, 32 new tokens, pages of 16) with every
-    serving kernel's count zeroed just before and read just after. Checks
-    the completions (``batch * n`` of 32 in-vocab tokens) and returns
-    (summary, launches, {rid: tokens}; {(rid, gen): tokens} when n > 1)."""
+def _serve_run(label, smi, batch, n=1, prompt_len=256, config="llama3_8b", **kw):
+    """One ``serve()`` at ``config`` (llama3_8b: full width and depth,
+    bf16; 8 slots, ``prompt_len``-token prompts, 32 new tokens, pages of
+    16) with every serving kernel's count zeroed just before and read
+    just after. Checks the completions (``batch * n`` of 32 in-vocab
+    tokens) and returns (summary, launches, {rid: tokens}; {(rid, gen):
+    tokens} when n > 1)."""
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints.lm import model_config
     from kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm import serve
-    from kubeflow_controller_tpu_torch.models import transformer as tfm
 
-    vocab = tfm.llama3_8b_config().vocab_size
+    vocab = model_config(config).vocab_size
     out_file = os.path.join(OUT_DIR, f"serve_{label}.jsonl")
     res, wall, launches = _counted(lambda: serve(
-        config="llama3_8b", batch=batch, slots=8, prompt_len=prompt_len,
+        config=config, batch=batch, slots=8, prompt_len=prompt_len,
         max_new_tokens=32, block_size=16, output_file=out_file, n=n, **kw))
     streams = {((c["rid"], c["gen"]) if n > 1 else c["rid"]): c["completion"]
                for c in _read_completions(out_file)}
@@ -1185,7 +1186,7 @@ def _serve_run(label, smi, batch, n=1, prompt_len=256, **kw):
                    32, vocab)
     what = json.dumps({k: v for k, v in kw.items() if k != "input_file"})
     _log_serve(f"serve[{label}]", f"{batch} requests x 32 tokens, {what}", smi, res,
-               res["wall_s"], launches)
+               res["wall_s"], launches, config)
     return res, launches, streams
 
 
@@ -3252,6 +3253,207 @@ def int8_serve_phase(smi, runs):
     return out
 
 
+# -- the mixture-of-experts decoder -------------------------------------------------
+
+#: The mixtral_8x7b exact serve run's launches, written in PERF.md before
+#: the first run: B1 and its rope prepass once a layer an admission (16 x
+#: 32), B5 once a layer a decode micro-step (72 micro-steps for 16 requests
+#: of 32 tokens over 8 slots, the llama3_8b run's schedule), no B6.
+MIXTRAL_EXACT_LAUNCHES = {"flash_fwd": 512, "rope_rotate": 512,
+                          "paged_decode": 72 * 32, "paged_chunk": 0}
+#: tiny_moe (fp32, TF32 off) card vs CPU: only summation order differs, and
+#: routing runs in fp32 on both, so the logits, the loss and each gradient
+#: leaf agree to ~1e-6 relative unless a router near-tie flips a pick.
+MOE_TINY_REL_TOL = 1e-4
+MOE_TRAIN_STEPS = 8
+
+
+def _rel_l2(a, b):
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def moe_tiny_check():
+    """tiny_moe (fp32) on the card against the CPU from one CPU-drawn
+    init: the forward's logits and MoE aux, the loss and every gradient
+    of ``next_token_loss`` under the einsum and the gather dispatch
+    (``MOE_TINY_REL_TOL``); then greedy engine streams card vs CPU with
+    exact prefill, with lookup speculation on tiled prompts (which must
+    accept drafts) and with int8 weights: equal, or leaving each other
+    only at a near-tie (``SPEC_FLIP_GAP_OF_RMS``)."""
+    import numpy as np
+    import torch
+
+    from kubeflow_controller_tpu_torch.convert import tree_leaves
+    from kubeflow_controller_tpu_torch.models import generate as gen
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.tiny_moe_config()
+    init = tfm.init_params(cfg, seed=0, device="cpu")
+    tokens = torch.from_numpy(
+        np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 65)))
+    for dispatch in ("einsum", "gather"):
+        c = cfg.replace(moe_dispatch=dispatch)
+        got = {}
+        for device in ("cuda", "cpu"):
+            params = _to(init, device)
+            leaves = [p.requires_grad_(True) for p in tree_leaves(params)]
+            tok = tokens.to(device)
+            loss, metrics = tfm.next_token_loss(c, params, {"tokens": tok})
+            grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                hidden, aux = tfm.forward_hidden(c, params, tok)
+                logits = hidden @ params["lm_head"]
+            got[device] = (loss.detach(), grads, logits, aux,
+                           metrics["moe_drop_rate"].detach())
+        (lg, gg, og, ag, dg), (lc, gc, oc, ac, dc) = got["cuda"], got["cpu"]
+        errs = {"loss": _rel_l2(lg, lc), "logits": _rel_l2(og, oc),
+                "aux": _rel_l2(ag, ac),
+                "grad_leaf_max": max(_rel_l2(a, b) for a, b in zip(gg, gc))}
+        log(f"moe[tiny] fp32 {dispatch}: cuda vs cpu {json.dumps(errs)} (tol "
+            f"{MOE_TINY_REL_TOL}), drop rate {float(dg)} vs {float(dc)}")
+        if not all(v <= MOE_TINY_REL_TOL for v in errs.values()):
+            raise AssertionError(f"moe[tiny] {dispatch}: cuda vs cpu {errs}")
+
+    rng = np.random.default_rng(2)
+    random_prompts = [rng.integers(0, cfg.vocab_size, 20).astype(np.int32)
+                      for _ in range(6)]
+    # Tiled prompts on which lookup finds drafts for these weights (3
+    # verify steps on the CPU): a random tiny model seldom continues a
+    # pattern.
+    rng = np.random.default_rng(3)
+    tiled = [np.tile(rng.integers(0, cfg.vocab_size, 4), 5).astype(np.int32)
+             for _ in range(6)]
+    for label, quant, prompts, spec in (("exact", "", random_prompts, False),
+                                        ("exact.spec", "", tiled, True),
+                                        ("int8w.exact", "int8", random_prompts, False)):
+        p_cpu = gen.inference_params(cfg, init, quant=quant)
+        p_gpu = gen.inference_params(cfg, _to(init, "cuda"), quant=quant)
+        got, acc_g = _tiny_int8_streams(cfg, p_gpu, prompts, "cuda", "exact", "", spec)
+        want, acc_c = _tiny_int8_streams(cfg, p_cpu, prompts, "cpu", "exact", "", spec)
+        name = f"moe[tiny {label}]"
+        gaps = (_first_divergence_gaps(p_gpu, want, got,
+                                       _stream_context(prompts, want), cfg=cfg)
+                if got != want else [])
+        _check_near_ties(name, gaps, len(prompts))
+        if spec and not (acc_g > 0 and acc_c > 0):
+            raise AssertionError(f"{name}: no verify step ({acc_g}, {acc_c})")
+
+
+def mixtral_serve_phase(smi):
+    """mixtral_8x7b at full width and depth (32 layers, 8 experts, top-2,
+    d_ff 14336) served with weight-only int8 from the streamed seeded
+    init (``serve(quant="int8")``: the bf16 tree would not fit): the 16
+    requests of 256 + 32 over 8 slots in exact prefill (launches
+    :data:`MIXTRAL_EXACT_LAUNCHES` exactly), then the 16 tiled prompts in
+    exact prefill and with lookup speculation (``draft_k=4``: B6 once a
+    layer a verify step), the speculative streams held to the exact
+    ones under the near-tie rule. Logs each run's peak memory beside the
+    summary, and the int8 tree's bytes."""
+    import gc
+
+    import torch
+
+    from kubeflow_controller_tpu_torch.models import generate as gen
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.mixtral_8x7b_config()
+    n_layers = cfg.n_layers
+    runs = {}
+
+    def run(label, **kw):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        res, launches, streams = _serve_run(label, smi, 16, config="mixtral_8x7b",
+                                            quant="int8", **kw)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"serve[{label}] mixtral_8x7b int8: peak memory {peak} bytes "
+            f"({peak / 1e9} GB), moe_tokens_dispatched "
+            f"{res['moe_tokens_dispatched']} | {smi}")
+        runs[label] = (res, launches, peak)
+        return res, launches, streams
+
+    res, launches, _ = run("mixtral.exact")
+    got = {k: launches[k] for k in MIXTRAL_EXACT_LAUNCHES}
+    if got != MIXTRAL_EXACT_LAUNCHES or res["prefill_chunks"] != 0:
+        raise AssertionError(f"serve[mixtral.exact]: launches {got} != "
+                             f"{MIXTRAL_EXACT_LAUNCHES}")
+    tiled = _tiled_prompts(os.path.join(OUT_DIR, "mixtral_tiled_prompts.jsonl"),
+                           cfg.vocab_size, 16, 0)
+    prompts = [r["prompt"] for r in _read_completions(tiled)]
+    _, launches, plain = run("mixtral.tiled.exact", input_file=tiled)
+    if (launches["flash_fwd"] != 16 * n_layers or launches["paged_chunk"]
+            or launches["paged_decode"] % n_layers):
+        raise AssertionError(f"serve[mixtral.tiled.exact]: launches {launches}")
+    res, launches, spec = run("mixtral.tiled.spec", input_file=tiled,
+                              speculative=True, draft_k=4)
+    if (res["draft_proposed"] <= 0 or res["spec_steps"] <= 0
+            or launches["flash_fwd"] != 16 * n_layers
+            or launches["paged_chunk"] != res["spec_steps"] * n_layers
+            or launches["paged_decode"] % n_layers):
+        raise AssertionError(f"serve[mixtral.tiled.spec]: {res}, launches "
+                             f"{launches}: want paged_chunk = spec_steps x 32")
+    plain_res = runs["mixtral.tiled.exact"][0]
+    log(f"serve mixtral spec vs exact (tiled prompts, this run): acceptance "
+        f"{res['acceptance_rate']}, verify steps {res['spec_steps']}, tpot_p50 "
+        f"{res['tpot_p50_ms']} vs {plain_res['tpot_p50_ms']} ms, tokens/s "
+        f"{res['tokens_per_sec']} vs {plain_res['tokens_per_sec']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # serve() drew its weights from seed 0: the ones drawn here.
+    params = gen.init_inference_params(cfg, 0, "cuda", quant="int8")
+    log(f"int8 weights mixtral_8x7b: {_weight_bytes(params)} bytes | {smi}")
+    gaps = (_first_divergence_gaps(params, plain, spec,
+                                   _stream_context(prompts, plain), cfg=cfg)
+            if plain != spec else [])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check_near_ties("serve mixtral spec vs exact", gaps, 16)
+    return runs
+
+
+def mixtral_train_phase(smi):
+    """mixtral_8x7b at full width and 2 layers (B2 S2048, bf16, remat, the
+    einsum dispatch; 8 experts of d_ff 14336, top-2, capacity 320 a
+    group of 1024) through ``TrainLoop`` with exact flash launch counts
+    (the llama3_8b run's: S=2048 takes the two-pass backward); MFU on the
+    active parameters. Then ``int8_fused`` for 4 steps: B7 44 a layer a
+    step (the attention's 4 forwards, 4 remat re-forwards and 4 dx; each
+    expert's gate and up forwards at M = 1280 and their re-forwards: 8 x
+    4; w_down (k = 14336) and every expert dx are composed). Both runs
+    must fit on the card: an out-of-memory error fails the phase."""
+    import gc
+
+    import torch
+
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+
+    cfg = tfm.mixtral_8x7b_config(n_layers=2, max_seq=2048, attn_impl="flash")
+    L = cfg.n_layers
+    flash = {"rope_rotate": 3 * L, "flash_fwd": 2 * L, "flash_bwd_prep": L,
+             "flash_bwd_dkdv": L, "flash_bwd_dq": L}
+    runs = {"mixtral_8x7b": train_run("mixtral_8x7b", cfg, 2048, 2,
+                                      MOE_TRAIN_STEPS, flash, smi)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["mixtral_8x7b.int8_fused"] = train_run(
+        "mixtral_8x7b.int8_fused", cfg.replace(quant="int8_fused"), 2048, 2,
+        INT8_STEPS, {**flash, "int8_quantize_rows": 44 * L,
+                     "int8_matmul": 44 * L}, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def moe_phase(smi):
+    """The MoE decoder: tiny_moe card vs CPU, mixtral_8x7b served (int8,
+    full depth) and trained (2 layers). Returns every run's record."""
+    moe_tiny_check()
+    return {**mixtral_serve_phase(smi), **mixtral_train_phase(smi)}
+
+
 # -- MNIST, ResNet-50 and BERT ---------------------------------------------------
 
 def _entry_train(label, fn, steps, smi):
@@ -3595,6 +3797,7 @@ def main() -> int:
     int8_recs = phase("int8 kernel", int8_kernel_phase, smi)
     runs = phase("serve", serve_phase, smi)
     int8_runs = phase("int8 serve", int8_serve_phase, smi, runs)
+    moe_runs = phase("moe", moe_phase, smi)
     prefix_runs = phase("prefix", prefix_phase, smi)
     phase("logits", logits_phase)
     train_runs = phase("train", train_phase, smi)
@@ -3628,6 +3831,10 @@ def main() -> int:
         # speculation, int8 KV).
         line["kernels"][-1]["int8_serve_launches"] = {
             run: rec[1][name] for run, rec in int8_runs.items()}
+        # The mixtral_8x7b serve runs' launches (int8 weights).
+        line["kernels"][-1]["moe_runs_launches"] = {
+            run: rec[1][name] for run, rec in moe_runs.items()
+            if isinstance(rec, tuple)}
         if name == "paged_chunk":
             # B6's verify entry: its launches on the speculative serve run
             # (one per layer per verify step) and its record at that
@@ -3659,6 +3866,12 @@ def main() -> int:
                                  "device_ms_by_kernel", "two_pass_route_ms",
                                  "fused_route_ms") if k in r},
         })
+        if name in ("flash_fwd", "flash_bwd_dkdv", "flash_bwd_dq"):
+            # The MoE runs' launches: B1 in the mixtral serve runs' exact
+            # prefill and in training; B3 and B4 in training (S=2048).
+            line["kernels"][-1]["moe_runs_launches"] = {
+                run: (rec[1] if isinstance(rec, tuple) else rec["launches"])[name]
+                for run, rec in moe_runs.items()}
         if name in ("flash_fwd", "flash_bwd_fused"):
             # B1 and B2 under BERT-base (S=512, not causal, segment ids, no
             # rope): the entry point's launches, and the record at its

@@ -45,14 +45,16 @@ logger = logging.getLogger("tpujob.lm_torch")
 
 CONFIGS = {
     "tiny": tfm.tiny_config,
+    "tiny_moe": tfm.tiny_moe_config,
     "llama3_8b": tfm.llama3_8b_config,
+    "mixtral_8x7b": tfm.mixtral_8x7b_config,
     # bench.py's flagship decoder, which the JAX table does not name.
     "flagship": tfm.flagship_config,
 }
 
 #: Configurations of the JAX package's table this port does not run yet
-#: (MoE configs need the routed FFN; llama3_70b needs tensor parallelism).
-NOT_YET_PORTED = ("tiny_moe", "llama3_70b", "mixtral_8x7b")
+#: (llama3_70b needs tensor parallelism).
+NOT_YET_PORTED = ("llama3_70b",)
 
 
 def synthetic_lm(
@@ -239,8 +241,11 @@ def train(
         tps = m.steps_per_sec * global_batch * seq_len
         last.update({"loss": m.loss, "step": m.step, "tokens_per_sec": tps,
                      **m.extras})
-        logger.info("step %d loss %.4f ppl %.1f (%.0f tok/s)", m.step, m.loss,
-                    m.extras.get("perplexity", float("nan")), tps)
+        logger.info("step %d loss %.4f ppl %.1f (%.0f tok/s)%s", m.step, m.loss,
+                    m.extras.get("perplexity", float("nan")), tps,
+                    (f" moe_aux {m.extras['moe_aux']:.4f} drop "
+                     f"{m.extras['moe_drop_rate']:.4f}"
+                     if "moe_aux" in m.extras else ""))
 
     try:
         state = loop.run(data, on_metrics=on_metrics)

@@ -104,12 +104,17 @@ def _read_prompts(path: str, vocab: int, batch: int,
     return arr.astype(np.int32)
 
 
-def _load_params(cfg, model_dir: str, seed: int, device):
+def _load_params(cfg, model_dir: str, seed: int, device, quant: str = ""):
     """(params, restored_step): the parameters of the latest checkpoint in
     ``model_dir`` (``dataplane/train.py``'s format), or, with none there
     (a warning) or no ``model_dir``, a fresh init drawn in the compute
-    dtype from ``seed`` and restored_step None."""
+    dtype from ``seed`` and restored_step None. A fresh init under
+    ``quant="int8"`` comes already quantized, drawn and quantized a
+    layer at a time (``generate.init_inference_params``): mixtral_8x7b's
+    bf16 tree (~93 GB) does not fit one card, its int8 tree (~47 GB)
+    does."""
     from kubeflow_controller_tpu_torch.dataplane import train
+    from kubeflow_controller_tpu_torch.models import generate as gen
     from kubeflow_controller_tpu_torch.models import transformer as tfm
 
     if model_dir:
@@ -120,6 +125,8 @@ def _load_params(cfg, model_dir: str, seed: int, device):
             return train.load_params(model_dir, steps[-1], device), steps[-1]
         logger.warning("%s: no checkpoint found; serving fresh init",
                        model_dir)
+    if quant:
+        return gen.init_inference_params(cfg, seed, device, quant=quant), None
     return tfm.init_params(cfg, seed=seed, device=device, dtype=cfg.dtype), None
 
 
@@ -250,8 +257,9 @@ def serve(
     cfg = model_config(config)
     dev = resolve_device(device)
     params, restored_step = _load_params(cfg, model_dir or ctx.model_dir,
-                                         seed, dev)
-    params = gen.inference_params(cfg, params, quant=quant)
+                                         seed, dev, quant)
+    if not gen.weight_quant(params):
+        params = gen.inference_params(cfg, params, quant=quant)
     prompts = _read_prompts(input_file, cfg.vocab_size, batch, prompt_len)
     b, s = prompts.shape
     if input_file and (b, s) != (batch, prompt_len):

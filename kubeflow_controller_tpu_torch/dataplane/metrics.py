@@ -4,8 +4,7 @@ Counterpart of ``kubeflow_controller_tpu/dataplane/metrics.py``'s
 :class:`ServingStats` and :class:`MetricsLogger`, cut to the counters
 the port produces: the reference's summary keys but those of features
 not ported yet (tensor parallelism, migration, fault injection, spans,
-MoE, and the jit-cache counts ``prefill_compiles`` and
-``admit_cache_size``).
+and the jit-cache counts ``prefill_compiles`` and ``admit_cache_size``).
 """
 
 from __future__ import annotations
@@ -84,6 +83,12 @@ class ServingStats:
     hbm_bytes_per_step_decode: float = 0.0
     hbm_bytes_per_step_verify: float = 0.0
     flops_per_token_per_shard: float = 0.0
+    # MoE: the expert bank resident on the device (E at tp=1; 0 for a
+    # dense model), and the token-x-expert routings of every dispatched
+    # forward (each real token a quantum forwards adds top_k, once a
+    # forward, not once a layer).
+    moe_experts_per_shard: int = 0
+    moe_tokens_dispatched: int = 0
     # Speculative decoding: draft tokens sent to the verifier and those
     # that committed (acceptance_rate is their ratio), fused verify
     # dispatches, quanta that took the un-pipelined proposal path (a
@@ -200,6 +205,8 @@ class ServingStats:
                 self.hbm_bytes_per_step_verify),
             "flops_per_token_per_shard": float(
                 self.flops_per_token_per_shard),
+            "moe_experts_per_shard": float(self.moe_experts_per_shard),
+            "moe_tokens_dispatched": float(self.moe_tokens_dispatched),
             "draft_proposed": float(self.draft_proposed),
             "draft_accepted": float(self.draft_accepted),
             "acceptance_rate": self.acceptance_rate,

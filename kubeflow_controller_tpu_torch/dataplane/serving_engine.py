@@ -54,12 +54,15 @@ Counterpart of ``kubeflow_controller_tpu/dataplane/serving_engine.py``:
   :meth:`register_prefix` ingests an external contiguous cache.
 
 Parameters from ``generate.inference_params(quant="int8")`` serve with
-weight-only int8 projections. ``stats.summary()`` publishes the JAX
-engine's keys (``cancelled``, the pool gauges and the analytic traffic
-model of :meth:`ServingEngine._traffic_model`) but those of features not
-ported. Everything else the JAX engine offers raises "not yet ported"
-when asked for: tensor parallelism, disaggregation, fault injection and
-the tracer; ``paged=False`` raises the JAX engine's ``ValueError``.
+weight-only int8 projections. A MoE model serves on one device: its
+routed FFN in every path (``models/generate.py``), and the counters
+``moe_tokens_dispatched`` and ``moe_experts_per_shard``.
+``stats.summary()`` publishes the JAX engine's keys (``cancelled``, the
+pool gauges and the analytic traffic model of
+:meth:`ServingEngine._traffic_model`) but those of features not ported.
+Everything else the JAX engine offers raises "not yet ported" when
+asked for: tensor parallelism, disaggregation, fault injection and the
+tracer; ``paged=False`` raises the JAX engine's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -1149,6 +1152,7 @@ class ServingEngine:
                 # The whole prompt in one forward; the row is live at once
                 # and decodes in the next dispatch.
                 self._push_tables()
+                self._note_moe_dispatch(req.prompt.size)
                 row_logits, self.cache = gen.prefill_into_paged(
                     self.cfg, self.params,
                     _to_device(req.prompt[None], self.device), self.cache,
@@ -1203,6 +1207,7 @@ class ServingEngine:
             buf = np.zeros((1, w), np.int32)
             buf[0, :w_real] = p.tokens[off:off + w_real]
             self._push_tables()
+            self._note_moe_dispatch(w_real)
             self._chunk(i, buf, off, w_real, p, final)
             self.stats.prefill_chunks += 1
             p.next_off = off + w_real
@@ -1401,6 +1406,14 @@ class ServingEngine:
         return [s if (s is not None and s.prefill is None) else None
                 for s in self.slots]
 
+    def _note_moe_dispatch(self, n_tokens: int) -> None:
+        """Count expert routings as the reference does: every token a
+        dispatched forward carries routes to ``top_k`` experts (once a
+        forward, not once a layer). No-op for a dense model."""
+        if self.cfg.moe_experts:
+            self.stats.moe_tokens_dispatched += (
+                int(n_tokens) * self.cfg.moe_top_k)
+
     def _dispatch_plain(self, snapshot):
         """Dispatch the pipelined plain chunk when any slot decodes — the
         sampled twin when a decoding row samples, else the greedy chunk:
@@ -1408,6 +1421,7 @@ class ServingEngine:
         if not any(s is not None for s in snapshot):
             return None
         self._push_tables()
+        self._note_moe_dispatch(self.n_active * self.decode_chunk)
         chunk = (self._decode_chunk_sampled if self._sampled_in(snapshot)
                  else self._decode_chunk)
         return _Fetch(chunk(self._view_width())), snapshot
@@ -1441,6 +1455,7 @@ class ServingEngine:
             self.stats.mask_tokens_filtered += int(vocab - int(allowed.sum()))
         if any(s is not None for s in snapshot):
             self._push_tables()
+            self._note_moe_dispatch(self.n_active)
             toks = _Fetch(self._masked_step(
                 self._view_width(), mask,
                 self._sampled_in(snapshot) > 0)).numpy()
@@ -1511,6 +1526,7 @@ class ServingEngine:
             if proposal is not None:
                 draft, dlen = proposal
                 self._push_tables()
+                self._note_moe_dispatch(self.n_active * (self.draft_k + 1))
                 out = _Fetch(self._verify(
                     self._view_width(), draft, dlen,
                     sampled=self._sampled_in(snapshot) > 0)).numpy()
@@ -1667,6 +1683,9 @@ class ServingEngine:
           ``attn_impl`` says.
         * FLOPs a token: 2 a weight element, plus the two attention
           products over the view width.
+        * MoE: the experts a step can touch, ``min(E, n_slots * top_k)``
+          of them, take the dense FFN's place, plus the fp32 router; a
+          token computes its ``top_k`` experts and the router.
 
         Both are models, not counters. On the card the eager dequant of
         int8 weights writes a compute-dtype copy of each weight first,
@@ -1677,17 +1696,27 @@ class ServingEngine:
         L = cfg.n_layers
         per_elem = (1 if self._w_quant == "int8"
                     else torch.empty((), dtype=cfg.dtype).element_size())
-        col = (cfg.d_model * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd
-               + 2 * cfg.d_model * cfg.d_ff)
-        row = cfg.n_heads * hd * cfg.d_model + cfg.d_ff * cfg.d_model
-        local_params = L * (col + row) + cfg.d_model * cfg.vocab_size
-        weight_bytes = local_params * per_elem
+        local_params = (
+            L * (cfg.d_model * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * hd)
+            + cfg.d_model * cfg.vocab_size)
+        ffn_each = 3 * cfg.d_model * cfg.d_ff
+        if cfg.moe_experts:
+            e_resident = min(cfg.moe_experts, self.n_slots * cfg.moe_top_k)
+            ffn_bytes = (L * e_resident * ffn_each * per_elem
+                         + L * cfg.d_model * cfg.moe_experts * 4)
+            ffn_flops = L * (2.0 * cfg.moe_top_k * ffn_each
+                             + 2.0 * cfg.d_model * cfg.moe_experts)
+        else:
+            ffn_bytes = L * ffn_each * per_elem
+            ffn_flops = 2.0 * L * ffn_each
+        weight_bytes = local_params * per_elem + ffn_bytes
         vw = self._last_vw or self._view_width()
         kv_factor = 1 if self.attn_impl == "kernel" else 3
         kv_rows = 1 if phase == "prefill" else self.n_slots
         kv_bytes = (kv_factor * kv_rows * vw
                     * kv_blocks.kv_bytes_per_token(cfg, self.kv_quant))
-        flops = 2.0 * local_params + 4.0 * vw * cfg.n_heads * hd * L
+        flops = (2.0 * local_params + ffn_flops
+                 + 4.0 * vw * cfg.n_heads * hd * L)
         return weight_bytes + kv_bytes, flops
 
     def _sync_stats(self) -> None:
@@ -1708,6 +1737,7 @@ class ServingEngine:
         self.stats.hbm_bytes_per_step_decode = phase_bytes["decode"]
         self.stats.hbm_bytes_per_step_verify = phase_bytes["verify"]
         self.stats.flops_per_token_per_shard = flops
+        self.stats.moe_experts_per_shard = self.cfg.moe_experts
         self.stats.host_pages_resident = (
             self._host_tier.resident_pages
             if self._host_tier is not None else 0)
@@ -1716,7 +1746,8 @@ class ServingEngine:
         reg.gauge("pool_blocks_in_use", "serving").set(self.pool.used_blocks)
         reg.gauge("active_slots", "serving").set(self.n_active)
         for name in ("spilled_pages", "spill_bytes", "rehydrate_hits",
-                     "rehydrate_tokens", "host_pages_resident"):
+                     "rehydrate_tokens", "host_pages_resident",
+                     "moe_experts_per_shard", "moe_tokens_dispatched"):
             reg.gauge(name, "serving").set(getattr(self.stats, name))
 
     def _book_token(self, i: int, slot: _Slot, tok: int,

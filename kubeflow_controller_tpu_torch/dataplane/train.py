@@ -30,9 +30,17 @@ then renamed, so a save cut short never leaves a checkpoint that
 directories, which this format does not read; ``convert.py`` carries
 JAX weights across as numpy arrays.
 
-Not ported yet, and refused by name: asynchronous saves
-(``async_checkpoint``), multi-step dispatch (``steps_per_call > 1``) and
-profiling (``profile_dir``).
+``async_checkpoint``: a periodic save copies the state to the host
+synchronously (the next step updates the parameters in place) and writes
+it in a background thread; the final save waits for it. Multi-step
+dispatch (``steps_per_call = K > 1``): each item of the data iterator is
+a ``[K, ...]`` chunk (``device_prefetch(chunk=K, yield_chunks=True)``),
+trimmed to the steps that remain, stepped through in one call; its
+metrics come back stacked ``[K]`` and are averaged at the log sites, and
+the checkpoint, eval and log cadences land on K-step boundaries.
+Profiling: with ``profile_dir``, a ``torch.profiler`` trace of steps
+``[profile_start, profile_start + profile_steps)`` is written there as
+``*.pt.trace.json``.
 """
 
 from __future__ import annotations
@@ -92,25 +100,55 @@ def _producer_stream(make_items, size: int) -> Iterator[Any]:
         abandoned.set()
 
 
+def _host_stack(arrays: List[np.ndarray], pin: bool) -> torch.Tensor:
+    """``np.stack(arrays)`` written straight into a fresh ``[n, ...]``
+    host tensor, pinned when ``pin``: one copy of each batch."""
+    first = np.asarray(arrays[0])
+    dtype = torch.from_numpy(np.empty(0, first.dtype)).dtype
+    buf = torch.empty((len(arrays), *first.shape), dtype=dtype, pin_memory=pin)
+    np.stack(arrays, out=buf.numpy())
+    return buf
+
+
 def device_prefetch(data_iter: Iterator[Dict[str, np.ndarray]],
-                    device: DeviceLike = None,
-                    size: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+                    device: DeviceLike = None, size: int = 2,
+                    chunk: int = 1,
+                    yield_chunks: bool = False) -> Iterator[Dict[str, torch.Tensor]]:
     """Host batches (dicts of numpy arrays) -> batches on ``device``.
-    A producer thread turns each batch into tensors, pinned when the
-    device is a card, ``size`` batches ahead of the consumer; the copy to
-    the card is ``non_blocking``, so it queues behind the step before it
-    instead of stopping the host."""
+    A producer thread stacks up to ``chunk`` batches into host tensors
+    (one copy, pinned when the device is a card), ``size`` chunks ahead
+    of the consumer; each chunk's copy to the card is ONE
+    ``non_blocking`` transfer, so it queues behind the step before it
+    instead of stopping the host. Yields the chunk's batches one by one, or, with
+    ``yield_chunks``, the whole ``[n, ...]`` chunk (the input of
+    ``TrainLoopConfig.steps_per_call``). A finite stream's last, partial
+    chunk is yielded too."""
     dev = resolve_device(device)
     pin = dev.type == "cuda"
+    data_iter = iter(data_iter)
 
-    def host_batches():
-        for batch in data_iter:
-            t = {k: torch.from_numpy(np.ascontiguousarray(v))
-                 for k, v in batch.items()}
-            yield {k: v.pin_memory() for k, v in t.items()} if pin else t
+    def host_chunks():
+        while True:
+            batches = []
+            for _ in range(chunk):
+                try:
+                    batches.append(next(data_iter))
+                except StopIteration:
+                    break
+            if not batches:
+                return
+            yield {k: _host_stack([b[k] for b in batches], pin)
+                   for k in batches[0]}
+            if len(batches) < chunk:
+                return
 
-    for batch in _producer_stream(host_batches, size):
-        yield {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
+    for stack in _producer_stream(host_chunks, size):
+        stack = {k: v.to(dev, non_blocking=True) for k, v in stack.items()}
+        if yield_chunks:
+            yield stack
+        else:
+            for i in range(next(iter(stack.values())).shape[0]):
+                yield {k: v[i] for k, v in stack.items()}
 
 
 @dataclass
@@ -127,10 +165,17 @@ class TrainLoopConfig:
     # batches of the eval stream and report the means as val_* metrics.
     eval_every: int = 0
     eval_batches: int = 1
-    # Not ported yet; any value but these defaults is refused.
+    # True: a periodic save copies the state to the host and writes it
+    # in a background thread (the final save always waits).
     async_checkpoint: bool = False
+    # > 1: each data item is a [K, ...] chunk of K steps' batches, stepped
+    # through in one call; cadences land on K-step boundaries.
     steps_per_call: int = 1
+    # When set, write a torch.profiler trace of steps [profile_start,
+    # profile_start + profile_steps) into this directory.
     profile_dir: str = ""
+    profile_start: int = 10
+    profile_steps: int = 5
 
 
 @dataclass
@@ -199,16 +244,11 @@ class TrainLoop:
     ):
         self.config = config or TrainLoopConfig()
         cfg = self.config
-        refused = {
-            "async_checkpoint": cfg.async_checkpoint,
-            "steps_per_call": cfg.steps_per_call != 1,
-            "profile_dir": bool(cfg.profile_dir),
-        }
-        for name, on in refused.items():
-            if on:
-                raise NotImplementedError(f"TrainLoop {name} is not yet ported")
         if cfg.grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1 (got {cfg.grad_accum})")
+        if cfg.steps_per_call < 1:
+            raise ValueError(
+                f"steps_per_call must be >= 1 (got {cfg.steps_per_call})")
         self.device = resolve_device(device)
         self.model_dir = model_dir
         self.loss_fn = loss_fn
@@ -223,6 +263,8 @@ class TrainLoop:
         self.state = TrainState(step=0, params=params, model_state=model_state)
         self.start_step = 0        # the step the last run() began at
         self.last_eval: Dict[str, float] = {}
+        self._saver: Optional[threading.Thread] = None
+        self._save_error: Optional[BaseException] = None
 
     def _grads(self, batch, model_state):
         """Gradients, loss and metrics of one (micro)batch, and the model
@@ -277,6 +319,13 @@ class TrainLoop:
         self.state.step += 1
         return {"loss": loss, **metrics}
 
+    def steps(self, chunk: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One step per leading index of the ``[K, ...]`` ``chunk``, in
+        order; returns each metric stacked ``[K]``."""
+        n = next(iter(chunk.values())).shape[0]
+        out = [self.step({k: v[i] for k, v in chunk.items()}) for i in range(n)]
+        return {k: torch.stack([m[k] for m in out]) for k in out[0]}
+
     def _on_device(self, batch) -> Dict[str, torch.Tensor]:
         return {k: (v if isinstance(v, torch.Tensor)
                     else torch.from_numpy(np.ascontiguousarray(v))).to(self.device)
@@ -302,29 +351,60 @@ class TrainLoop:
 
     # -- checkpointing -------------------------------------------------------
 
-    def save(self) -> None:
+    def save(self, wait: bool = True) -> None:
         """Write the state as ``model_dir/<step>/`` (a no-op without a
         model dir, or when that step is saved already, as the reference's
         checkpoint manager skips it): into a temporary directory first,
         renamed when both files are down, then prune all but the newest
-        ``keep_checkpoints``."""
+        ``keep_checkpoints``. ``wait=False`` copies the state to the host
+        now and writes it in a background thread; any save first waits
+        for the one before it."""
+        self.wait_for_save()
         if not self.model_dir:
             return
         step = int(self.state.step)
-        final = os.path.join(self.model_dir, str(step))
-        if os.path.exists(final):
+        if os.path.exists(os.path.join(self.model_dir, str(step))):
             return
+        params = tree_unflatten(self.state.params, [
+            p.detach() for p in tree_leaves(self.state.params)])
+        payload = ({"step": step, "params": params,
+                    "model_state": self.state.model_state},
+                   self.tx.state_dict())
+        if wait:
+            self._write(step, payload)
+            return
+        # The optimizer updates the parameters and its state in place:
+        # the background thread writes a host copy taken now.
+        payload = _to_host(payload)
+        self._saver = threading.Thread(
+            target=self._write_async, args=(step, payload), daemon=True)
+        self._saver.start()
+
+    def wait_for_save(self) -> None:
+        """Wait for the background save in flight, if any; raise its
+        error here."""
+        if self._saver is not None:
+            self._saver.join()
+            self._saver = None
+        if self._save_error is not None:
+            err, self._save_error = self._save_error, None
+            raise err
+
+    def _write_async(self, step: int, payload) -> None:
+        try:
+            self._write(step, payload)
+        except BaseException as e:  # raised again by wait_for_save
+            self._save_error = e
+
+    def _write(self, step: int, payload) -> None:
+        final = os.path.join(self.model_dir, str(step))
         os.makedirs(self.model_dir, exist_ok=True)
         for name in os.listdir(self.model_dir):
             if name.startswith(".tmp-"):       # a save cut short earlier
                 shutil.rmtree(os.path.join(self.model_dir, name))
         tmp = tempfile.mkdtemp(prefix=f".tmp-{step}-", dir=self.model_dir)
-        params = tree_unflatten(self.state.params, [
-            p.detach() for p in tree_leaves(self.state.params)])
-        torch.save({"step": step, "params": params,
-                    "model_state": self.state.model_state},
-                   os.path.join(tmp, PARAMS_FILE))
-        torch.save(self.tx.state_dict(), os.path.join(tmp, OPT_FILE))
+        torch.save(payload[0], os.path.join(tmp, PARAMS_FILE))
+        torch.save(payload[1], os.path.join(tmp, OPT_FILE))
         os.rename(tmp, final)
         for old in checkpoint_steps(self.model_dir)[:-max(1, self.config.keep_checkpoints)]:
             shutil.rmtree(os.path.join(self.model_dir, str(old)))
@@ -334,6 +414,7 @@ class TrainLoop:
         the parameters (in place), the model state, the optimizer's state
         and the step, on the loop's device. The path by which a preempted job continues
         instead of starting again at step 0."""
+        self.wait_for_save()
         steps = checkpoint_steps(self.model_dir)
         if not steps:
             return False
@@ -359,28 +440,55 @@ class TrainLoop:
             eval_iter: Optional[Iterator[Any]] = None) -> TrainState:
         """Resume from ``model_dir`` if it holds a checkpoint, then step
         until ``total_steps``; report every ``log_every`` steps and at the
-        last, save every ``checkpoint_every`` steps and at the end, and,
-        with an ``eval_fn`` and an ``eval_iter``, evaluate every
-        ``eval_every`` steps (the latest ``val_*`` metrics ride along in
-        each report's extras). ``steps_per_sec`` averages the steps since
-        the last report (reading the loss waits for them)."""
+        last, save every ``checkpoint_every`` steps (in the background
+        under ``async_checkpoint``) and at the end, and, with an
+        ``eval_fn`` and an ``eval_iter``, evaluate every ``eval_every``
+        steps (the latest ``val_*`` metrics ride along in each report's
+        extras). Under ``steps_per_call = K`` each data item is a ``[K,
+        ...]`` chunk and each cadence fires when a call crosses a multiple
+        of it. ``steps_per_sec`` averages the steps since the last report
+        (reading the loss waits for them)."""
         cfg = self.config
         self.restore()
         self.start_step = self.state.step
         t0 = time.perf_counter()
         window = self.state.step
+        spc = cfg.steps_per_call
+        prof = None
+        profile_done = False
+
+        def crossed(every: int, before: int, after: int) -> bool:
+            """Did (before, after] cross a multiple of ``every``?"""
+            return bool(every) and (before // every) != (after // every)
+
         while self.state.step < cfg.total_steps:
-            metrics = self.step(next(data_iter))
+            before = self.state.step
+            if (cfg.profile_dir and prof is None and not profile_done
+                    and before >= cfg.profile_start):
+                prof = _start_profile(self.device)
+            if prof is not None and before >= cfg.profile_start + cfg.profile_steps:
+                _stop_profile(prof, self.device, cfg.profile_dir,
+                              cfg.profile_start, before)
+                prof, profile_done = None, True
+            batch = next(data_iter)
+            if spc > 1:
+                take = min(next(iter(batch.values())).shape[0],
+                           cfg.total_steps - before)
+                metrics = self.steps({k: v[:take] for k, v in batch.items()})
+            else:
+                metrics = self.step(batch)
             step = self.state.step
-            if cfg.checkpoint_every and step % cfg.checkpoint_every == 0:
-                self.save()
+            if crossed(cfg.checkpoint_every, before, step):
+                self.save(wait=not cfg.async_checkpoint)
             if (self.eval_fn is not None and eval_iter is not None
-                    and cfg.eval_every and step % cfg.eval_every == 0):
+                    and crossed(cfg.eval_every, before, step)):
                 self.last_eval = {
                     f"val_{k}": v for k, v in
                     self.evaluate(eval_iter, cfg.eval_batches).items()}
-            if on_metrics and (step % cfg.log_every == 0 or step == cfg.total_steps):
-                scalar = {k: float(v) for k, v in metrics.items()}
+            if on_metrics and (crossed(cfg.log_every, before, step)
+                               or step == cfg.total_steps):
+                # Multi-step metrics come back stacked [K]: their mean.
+                scalar = {k: float(v.float().mean()) for k, v in metrics.items()}
                 scalar.update(self.last_eval)
                 dt = time.perf_counter() - t0
                 on_metrics(StepMetrics(
@@ -388,5 +496,42 @@ class TrainLoop:
                     steps_per_sec=(step - window) / dt if dt > 0 else 0.0))
                 t0 = time.perf_counter()
                 window = step
+        if prof is not None:         # the loop ended inside the window
+            _stop_profile(prof, self.device, cfg.profile_dir,
+                          cfg.profile_start, self.state.step)
         self.save()
         return self.state
+
+
+def _to_host(tree):
+    """A copy of ``tree`` (dicts, lists, tuples of tensors and plain
+    values) with every tensor copied to host memory."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+def _start_profile(device: torch.device):
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, device: torch.device, profile_dir: str,
+                  first: int, end: int) -> None:
+    """Wait for the profiled steps, stop the profiler and write its trace
+    as ``profile_dir/steps_<first>_<end>.pt.trace.json``."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"steps_{first}_{end}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    logger.info("profile of steps [%d, %d) written to %s", first, end, path)

@@ -28,6 +28,12 @@ The block prefill is not paged: it runs ``ops/attention.py:mha`` over
 the whole prompt (the flash kernels for bf16 CUDA prompts that tile,
 the dense path otherwise), as the JAX package does.
 
+A MoE model routes every path's FFN as the JAX package does on one
+device: one token a row (the decode steps) through
+:func:`_moe_decode_ffn` (the top-k experts, no capacity), a block of
+positions (prefill, chunks, verify windows) through the training FFN
+with capacity factor ``E / top_k``, so that no token is dropped.
+
 Where JAX returns a new cache, the port writes the pool in place (it is
 most of the device memory a server holds) and returns the same
 :class:`PagedKVCache` object with ``length`` advanced.
@@ -42,6 +48,7 @@ import torch
 import torch.nn.functional as F
 
 from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
+from kubeflow_controller_tpu_torch.models import transformer as tfm
 from kubeflow_controller_tpu_torch.models.transformer import (
     Params, TransformerConfig, rmsnorm, rope,
 )
@@ -119,6 +126,43 @@ def inference_params(
         return x.to(cfg.dtype) if x.dtype == torch.float32 else x
 
     return cast(None, params)
+
+
+def init_inference_params(
+    cfg: TransformerConfig, seed: int = 0, device: DeviceLike = None,
+    quant: str = "",
+) -> Params:
+    """A fresh init ready to serve, bit for bit ``inference_params(cfg,
+    init_params(cfg, seed, device, dtype=cfg.dtype), quant)``. Under
+    ``quant="int8"`` a MoE model's expert banks never exist whole in the
+    compute dtype: each bank is drawn a layer at a time
+    (``transformer.init_bank_layer``) and quantized an expert at a time
+    into the preallocated ``[L, E, ...]`` codes and ``[L, E, 1, ...]``
+    scales. (mixtral_8x7b's banks are ~90 GB in bf16, its int8 tree ~47
+    GB.) The per-output-channel quantization reduces over one expert's
+    contraction axis, so quantizing an expert alone gives the codes and
+    scales of the whole bank."""
+    dev = resolve_device(device)
+    if quant != "int8" or not cfg.moe_experts:
+        return inference_params(
+            cfg, tfm.init_params(cfg, seed=seed, device=dev, dtype=cfg.dtype),
+            quant=quant)
+    params = inference_params(
+        cfg, tfm.init_params(cfg, seed=seed, device=dev, dtype=cfg.dtype,
+                             banks=False), quant=quant)
+    layers = params["layers"]
+    L, E = cfg.n_layers, cfg.moe_experts
+    for name in tfm.MOE_BANKS:
+        shape, _ = tfm.bank_shape(cfg, name)
+        q = torch.empty((L, *shape), dtype=torch.int8, device=dev)
+        scale = torch.empty((L, E, 1, shape[-1]), dtype=cfg.dtype, device=dev)
+        for i in range(L):
+            w = tfm.init_bank_layer(cfg, name, i, seed, dev, cfg.dtype)
+            for e in range(E):
+                q[i, e], scale[i, e] = quantize_weight(w[e], cfg.dtype)
+            del w
+        layers[name] = (q, scale)
+    return params
 
 
 def weight_quant(params: Params) -> str:
@@ -273,7 +317,80 @@ def _layer_params(params: Params, layer: int) -> Params:
             for k, v in params["layers"].items()}
 
 
-def _ffn(lp: Params, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+def _dense_lp(lp: Params, dt: torch.dtype) -> Params:
+    """Per-layer weights with every ``(q, scale)`` pair dequantized, for
+    the paths that run the training FFN (:func:`tfm._moe_ffn`)."""
+    return {k: (v[0].to(dt) * v[1].to(dt)) if isinstance(v, tuple) else v
+            for k, v in lp.items()}
+
+
+def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` over the last axis: values descending, ties to the
+    lower index (``argmax`` returns the first maximum; ``torch.topk``
+    promises no order for ties on the card)."""
+    vals, idxs = [], []
+    rest = probs
+    for _ in range(k):
+        i = rest.argmax(-1)
+        vals.append(rest.gather(-1, i[..., None])[..., 0])
+        idxs.append(i)
+        rest = rest.scatter(-1, i[..., None], float("-inf"))
+    return torch.stack(vals, -1), torch.stack(idxs, -1)
+
+
+def _expert(lp: Params, name: str, e: int, dt: torch.dtype) -> torch.Tensor:
+    """Expert ``e`` of bank ``name`` in the compute dtype; an int8 bank's
+    expert is dequantized as :func:`_w` dequantizes, element for element
+    the JAX package's gathered ``q[idx].astype(dt) * scale[idx]``."""
+    w = lp[name]
+    if isinstance(w, tuple):
+        return w[0][e].to(dt) * w[1][e].to(dt)
+    return w[e].to(dt)
+
+
+def _moe_decode_ffn(cfg: TransformerConfig, lp: Params,
+                    h: torch.Tensor) -> torch.Tensor:
+    """The routed FFN for one token a row (``h [B, 1, D]``), as the JAX
+    package's ``_moe_decode_ffn``: fp32 router probabilities, the
+    ``top_k`` experts a row (:func:`_top_k`), gates not renormalized, no
+    capacity (decode drops no token). Each expert is dequantized once a
+    layer and applied to every row; a row keeps the outputs of the
+    experts it picked, in pick order, and sums them scaled by its gates
+    in the compute dtype."""
+    dt = cfg.dtype
+    hb = h[:, 0]                                           # [B, D]
+    probs = torch.softmax(hb.float() @ lp["w_router"].float(), dim=-1)
+    gates, idx = _top_k(probs, cfg.moe_top_k)              # [B, k]
+    out_k = torch.zeros((hb.shape[0], cfg.moe_top_k, hb.shape[1]),
+                        dtype=dt, device=h.device)
+    for e in range(cfg.moe_experts):
+        act = (F.silu(hb @ _expert(lp, "w_gate", e, dt))
+               * (hb @ _expert(lp, "w_up", e, dt)))
+        out_e = act @ _expert(lp, "w_down", e, dt)         # [B, D]
+        out_k = torch.where((idx == e)[..., None], out_e[:, None, :], out_k)
+    return (out_k * gates[..., None].to(dt)).sum(1)[:, None, :]
+
+
+def _moe_block_ffn(cfg: TransformerConfig, lp: Params,
+                   h: torch.Tensor) -> torch.Tensor:
+    """The routed FFN over a block of positions (prefill, chunks,
+    verify windows): the training FFN with capacity factor
+    ``E / top_k``, which makes every expert's capacity the whole group,
+    so no token is dropped whatever the training capacity factor."""
+    moe_cfg = cfg.replace(
+        moe_capacity_factor=float(cfg.moe_experts) / cfg.moe_top_k)
+    ffn = {k: lp[k] for k in ("w_router", *tfm.MOE_BANKS)}
+    return tfm._moe_ffn(moe_cfg, _dense_lp(ffn, cfg.dtype), h)[0]
+
+
+def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
+         decode: bool = False) -> torch.Tensor:
+    """The layer's FFN in the compute dtype: SwiGLU, or for a MoE model
+    the routed bank (:func:`_moe_decode_ffn` for one token a row,
+    :func:`_moe_block_ffn` over a block)."""
+    if cfg.moe_experts:
+        return (_moe_decode_ffn if decode else _moe_block_ffn)(cfg, lp, h)
+    dt = cfg.dtype
     gate = F.silu(h @ _w(lp, "w_gate", dt))
     up = h @ _w(lp, "w_up", dt)
     return (gate * up) @ _w(lp, "w_down", dt)
@@ -330,7 +447,7 @@ def _block_prefill(
         vs.append(v)
         x = x + attn.reshape(b, s, -1) @ _w(lp, "wo", dt)
         h2 = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(lp, h2, dt)
+        x = x + _ffn(cfg, lp, h2)
     x = rmsnorm(x[:, -1], params["final_norm"], cfg.norm_eps)
     return _head_logits(cfg, params, x), torch.stack(ks), torch.stack(vs)
 
@@ -366,12 +483,6 @@ def _check_cache_capacity(cache: KVCache, new_tokens: int, what: str) -> None:
             f"tokens exceeds max_seq {max_seq}")
 
 
-def _refuse_moe(cfg: TransformerConfig) -> None:
-    if getattr(cfg, "moe_experts", 0):
-        raise NotImplementedError(
-            "the mixture-of-experts decode is not yet ported")
-
-
 def _decode_layer(
     cfg: TransformerConfig, lp: Params, x: torch.Tensor, pos: int,
     layer: int, cache: KVCache,
@@ -404,7 +515,7 @@ def _decode_layer(
     attn = torch.einsum("bgrqk,bkgd->bqgrd", p, cache.v[layer]).reshape(b, 1, -1)
     x = x + attn @ _w(lp, "wo", dt)
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + _ffn(lp, h, dt)
+    return x + _ffn(cfg, lp, h, decode=True)
 
 
 def decode_step(
@@ -413,9 +524,7 @@ def decode_step(
 ) -> Tuple[torch.Tensor, KVCache]:
     """One token for every row of a contiguous cache (``tokens`` [B, 1]
     at position ``cache.length``): fp32 logits [B, vocab] and the cache,
-    written in place, with ``length`` advanced by one. Dense models
-    only."""
-    _refuse_moe(cfg)
+    written in place, with ``length`` advanced by one."""
     _check_cache_capacity(cache, 1, "decode_step")
     x = params["embed"].to(cfg.dtype)[tokens.long()]      # [B, 1, D]
     pos = int(cache.length)
@@ -438,7 +547,6 @@ def prefill_continue(
     grouped einsums and normalised by one fp32 softmax. The new rotated
     K and V land at ``[length, length + S_new)`` in place. Returns the
     last position's fp32 logits and the cache."""
-    _refuse_moe(cfg)
     b, s = new_tokens.shape
     dt = cfg.dtype
     hd = cfg.head_dim
@@ -476,7 +584,7 @@ def prefill_continue(
                 ).reshape(b, s, -1)
         x = x + attn @ _w(lp, "wo", dt)
         h2 = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(lp, h2, dt)
+        x = x + _ffn(cfg, lp, h2)
         # After this layer's attention read the cache: written in place.
         cache.k[layer, :, start:start + s] = k.to(cache.k.dtype)
         cache.v[layer, :, start:start + s] = v.to(cache.v.dtype)
@@ -632,7 +740,7 @@ def _decode_layer_paged(
         attn = torch.einsum("bgrqk,bkgd->bqgrd", p, v_cache)
     x = x + attn.reshape(b, 1, -1) @ _w(lp, "wo", dt)
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + _ffn(lp, h, dt)
+    return x + _ffn(cfg, lp, h, decode=True)
 
 
 def decode_step_paged(
@@ -730,7 +838,7 @@ def prefill_chunk_paged(
                     + torch.einsum("bgrqk,bkgd->bqgrd", p[..., vw:], v))
         x = x + attn.reshape(b, w, -1) @ _w(lp, "wo", dt)
         h2 = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(lp, h2, dt)
+        x = x + _ffn(cfg, lp, h2)
         k_rows.append(k[0])
         v_rows.append(v[0])
 
@@ -879,7 +987,7 @@ def verify_step_paged(
                     + torch.einsum("bgrqk,bkgd->bqgrd", p[..., vw:], v))
         x = x + attn.reshape(b, w, -1) @ _w(lp, "wo", dt)
         h2 = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(lp, h2, dt)
+        x = x + _ffn(cfg, lp, h2)
         k_rows.append(k)
         v_rows.append(v)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)

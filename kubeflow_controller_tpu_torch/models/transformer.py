@@ -8,13 +8,15 @@ stacked on a leading ``[L, ...]`` axis, each projection ``[D_in,
 D_out]`` and applied as ``x @ w``.
 
 The training forward (:func:`forward_hidden`, :func:`next_token_loss`)
-runs the dense decoder on one device: attention through
+runs the decoder on one device: attention through
 ``ops/attention.py:mha`` (the flash kernels on the card), each layer
-under ``torch.utils.checkpoint`` when ``remat`` is true, and its seven
+under ``torch.utils.checkpoint`` when ``remat`` is true (``"ffn"``:
+only the dense FFN's d_ff-wide intermediates are recomputed), and its
 linear projections through ``ops/quant.py:maybe_quant_dot`` (bf16, or
-int8 under ``quant``). Not ported yet, and refused by name:
-``remat="ffn"``, ``attn_impl="ring"``, mixture-of-experts layers and the
-pipeline-parallel stack.
+int8 under ``quant``). With ``moe_experts > 0`` every layer's FFN is a
+routed expert bank (:func:`_moe_ffn`: GShard-style grouped capacity
+dispatch, one device, so no expert parallelism). Not ported yet, and
+refused by name: ``attn_impl="ring"`` and the pipeline-parallel stack.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -50,8 +53,9 @@ class TransformerConfig:
     dtype: torch.dtype = torch.bfloat16        # activation/compute dtype
     param_dtype: torch.dtype = torch.float32   # master weights
     # True: checkpoint every layer (the backward re-runs its forward);
-    # False: keep every activation. ("ffn", the JAX package's middle
-    # rung, is not ported yet.)
+    # "ffn": keep everything but the dense FFN's four d_ff-wide
+    # intermediates (the backward re-runs only the gate and up
+    # products; MoE layers take True); False: keep every activation.
     remat: Any = True
     # "" = bf16 matmuls (default). "int8" runs every linear projection
     # (qkv/o, FFN gate/up/down) through the int8 path: dynamic symmetric
@@ -64,6 +68,22 @@ class TransformerConfig:
     quant: str = ""
     attn_impl: str = "auto"                    # auto|xla|flash
     tie_embeddings: bool = False
+    # Mixture-of-experts: 0 = dense FFN. When > 0 every layer's FFN is a
+    # routed bank of ``moe_experts`` SwiGLU experts, each token sent to
+    # its ``moe_top_k`` experts within groups of ``moe_group_size``
+    # tokens, at most ``round(top_k * group / E * moe_capacity_factor)``
+    # tokens an expert a group (the rest dropped). The load-balance loss
+    # is weighted by ``moe_aux_weight``, the router z-loss
+    # (mean(logsumexp(router logits)^2)) by ``moe_router_z_weight`` (0
+    # disables it). ``moe_dispatch``: "auto" and "einsum" dispatch by
+    # one-hot products, "gather" by index gathers (the same values).
+    moe_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+    moe_router_z_weight: float = 0.0
+    moe_group_size: int = 1024
+    moe_dispatch: str = "auto"
 
     @property
     def head_dim(self) -> int:
@@ -80,6 +100,20 @@ def tiny_config(**kw) -> TransformerConfig:
     base = TransformerConfig(
         vocab_size=256, d_model=64, n_layers=2, n_heads=4, n_kv_heads=2,
         d_ff=128, max_seq=128, remat=False, dtype=torch.float32,
+    )
+    return base.replace(**kw)
+
+
+def tiny_moe_config(**kw) -> TransformerConfig:
+    base = tiny_config(moe_experts=4, moe_top_k=2, d_ff=64)
+    return base.replace(**kw)
+
+
+def mixtral_8x7b_config(**kw) -> TransformerConfig:
+    base = TransformerConfig(
+        vocab_size=32000, d_model=4096, n_layers=32, n_heads=32,
+        n_kv_heads=8, d_ff=14336, max_seq=8192, rope_theta=1e6,
+        moe_experts=8, moe_top_k=2,
     )
     return base.replace(**kw)
 
@@ -105,9 +139,41 @@ def llama3_8b_config(**kw) -> TransformerConfig:
 
 # -- params ------------------------------------------------------------------
 
+#: The expert banks of a MoE layer: ``w_gate`` and ``w_up`` ``[L, E, D,
+#: F]``, ``w_down`` ``[L, E, F, D]``.
+MOE_BANKS = ("w_gate", "w_up", "w_down")
+
+
+def bank_shape(cfg: TransformerConfig, name: str) -> Tuple[Tuple[int, ...], int]:
+    """One layer's ``[E, ...]`` shape of expert bank ``name`` and its
+    fan-in."""
+    e, d, f = cfg.moe_experts, cfg.d_model, cfg.d_ff
+    return ((e, f, d), f) if name == "w_down" else ((e, d, f), d)
+
+
+def init_bank_layer(
+    cfg: TransformerConfig, name: str, layer: int, seed: int = 0,
+    device: DeviceLike = None, dtype: torch.dtype = None,
+) -> torch.Tensor:
+    """Layer ``layer``'s ``[E, ...]`` slice of expert bank ``name`` as
+    :func:`init_params` draws it: from a generator of its own, seeded by
+    ``(seed, name, layer)``, so that one layer can be drawn without the
+    others (``generate.init_inference_params`` streams mixtral_8x7b's
+    ~90 GB of bf16 banks into int8 a layer at a time)."""
+    dev = resolve_device(device)
+    dt = cfg.param_dtype if dtype is None else dtype
+    state = np.random.SeedSequence(
+        [int(seed) % 2 ** 64, MOE_BANKS.index(name), int(layer)])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(state.generate_state(1, np.uint64)[0] >> np.uint64(1)))
+    shape, fan_in = bank_shape(cfg, name)
+    t = torch.randn(shape, generator=gen, device=dev, dtype=dt)
+    return t.mul_(fan_in ** -0.5)
+
+
 def init_params(
     cfg: TransformerConfig, seed: int = 0, device: DeviceLike = None,
-    dtype: torch.dtype = None,
+    dtype: torch.dtype = None, banks: bool = True,
 ) -> Params:
     """Scaled-normal init (``N(0, 1) / sqrt(fan_in)``, norms at 1) drawn
     from a ``torch.Generator`` seeded with ``seed`` on ``device``.
@@ -115,9 +181,13 @@ def init_params(
     Each tensor is drawn directly in ``dtype`` (default
     ``cfg.param_dtype``) and scaled in place: serving llama3_8b passes
     ``dtype=cfg.dtype`` so the ~16 GB of bf16 weights never pass through
-    a ~32 GB fp32 copy. The draws differ from the JAX package's
-    ``jax.random`` init; tests that compare the two packages carry one
-    package's weights across with ``convert.params_from_numpy``."""
+    a ~32 GB fp32 copy. A MoE layer's router ``w_router [L, D, E]`` is
+    drawn in ``cfg.param_dtype`` whatever ``dtype`` is (routing runs in
+    fp32, and serving keeps the router as it is), and its expert banks
+    (:data:`MOE_BANKS`) a layer at a time by :func:`init_bank_layer`;
+    ``banks=False`` leaves them out. The draws differ from the JAX
+    package's ``jax.random`` init; tests that compare the two packages
+    carry one package's weights across with ``convert.params_from_numpy``."""
     dev = resolve_device(device)
     dt = cfg.param_dtype if dtype is None else dtype
     gen = torch.Generator(device=dev)
@@ -125,8 +195,8 @@ def init_params(
     hd = cfg.head_dim
     L = cfg.n_layers
 
-    def normal(shape, fan_in):
-        t = torch.randn(shape, generator=gen, device=dev, dtype=dt)
+    def normal(shape, fan_in, dtype=dt):
+        t = torch.randn(shape, generator=gen, device=dev, dtype=dtype)
         return t.mul_(fan_in ** -0.5)
 
     def ones(shape):
@@ -140,10 +210,22 @@ def init_params(
         "wv": normal((L, d, cfg.n_kv_heads * hd), d),
         "wo": normal((L, cfg.n_heads * hd, d), cfg.n_heads * hd),
         "mlp_norm": ones((L, d)),
-        "w_gate": normal((L, d, f), d),
-        "w_up": normal((L, d, f), d),
-        "w_down": normal((L, f, d), f),
     }
+    if cfg.moe_experts:
+        layers["w_router"] = normal((L, d, cfg.moe_experts), d, cfg.param_dtype)
+        if banks:
+            for name in MOE_BANKS:
+                shape, _ = bank_shape(cfg, name)
+                bank = torch.empty((L, *shape), device=dev, dtype=dt)
+                for i in range(L):
+                    bank[i] = init_bank_layer(cfg, name, i, seed, dev, dt)
+                layers[name] = bank
+    else:
+        layers.update({
+            "w_gate": normal((L, d, f), d),
+            "w_up": normal((L, d, f), d),
+            "w_down": normal((L, f, d), f),
+        })
     params: Params = {
         "embed": normal((cfg.vocab_size, d), d),
         "layers": layers,
@@ -182,24 +264,233 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 def check_ported(cfg: TransformerConfig) -> None:
     """Refuse the training options this port does not have yet."""
-    if cfg.remat not in (True, False):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not yet ported (True or False)")
+    if cfg.remat not in (True, False, "ffn"):
+        raise ValueError(f"remat={cfg.remat!r}: expected True, False or 'ffn'")
     if cfg.attn_impl not in ("auto", "xla", "flash"):
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} is not yet ported (auto|xla|flash)")
     if cfg.quant not in ("", "int8", "int8_fused"):
         raise NotImplementedError(
             f"quant={cfg.quant!r} is not yet ported ('', int8, int8_fused)")
+    if cfg.moe_experts and cfg.moe_dispatch not in ("auto", "einsum", "gather"):
+        raise ValueError(
+            f"moe_dispatch={cfg.moe_dispatch!r}: expected auto|einsum|gather")
+
+
+# -- the routed FFN ----------------------------------------------------------------
+
+def moe_group(n: int, group_size: int) -> int:
+    """The routing group: the largest divisor of the token count ``n``
+    not above ``group_size`` (one device: no shard alignment)."""
+    return max(g for g in range(1, min(group_size, n) + 1) if n % g == 0)
+
+
+def _moe_ffn(
+    cfg: TransformerConfig, lp: Params, h: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GShard-style routed FFN with grouped capacity dispatch, as the JAX
+    package's ``_moe_ffn``: ``h [B, S, D] -> (out [B, S, D], [aux
+    load-balance loss, router z-loss, drop rate])``.
+
+    Tokens route within groups (:func:`moe_group`) in fp32: ``top_k``
+    rounds of ``argmax`` (the first maximum on ties) over the
+    probabilities not picked yet, each pick's gate its probability (not
+    renormalised), its slot the count of earlier tokens of the group
+    sent to that expert (``base_count`` carries the kept slots across
+    rounds); a pick past ``cap = round(top_k * group / E * cf)`` slots
+    is dropped. The expert products run in ``cfg.dtype``; under
+    ``cfg.quant`` each expert's three are ``maybe_quant_dot`` calls of
+    their own (``[G * cap, D] @ [D, F]``: B7 where ``fusable`` admits the
+    shape under ``"int8_fused"``), empty slots being all-zero rows."""
+    b, s, d = h.shape
+    E = cfg.moe_experts
+    n = b * s
+    group = moe_group(n, cfg.moe_group_size)
+    G = n // group
+    x = h.reshape(G, group, d)
+    logits = x.float() @ lp["w_router"].float()                # [G, g, E]
+    probs = torch.softmax(logits, dim=-1)
+    z_loss = torch.logsumexp(logits, dim=-1).square().mean()
+    cap = int(max(1, round(cfg.moe_top_k * group / E * cfg.moe_capacity_factor)))
+
+    base_count = torch.zeros((G, E), dtype=torch.int64, device=h.device)
+    remaining = probs
+    aux_fraction = torch.zeros((), dtype=torch.float32, device=h.device)
+    mean_probs = probs.mean(1)
+    picks = []       # per round: (choice, gate, pos_tok, keep), each [G, g]
+    for _ in range(cfg.moe_top_k):
+        choice = remaining.argmax(-1)
+        gate = remaining.gather(-1, choice[..., None])[..., 0]
+        onehot = F.one_hot(choice, E)                          # [G, g, E]
+        pos = onehot.cumsum(1) - 1 + base_count[:, None, :]
+        pos_tok = (pos * onehot).sum(-1)
+        keep = pos_tok < cap
+        picks.append((choice, gate, pos_tok, keep))
+        aux_fraction = aux_fraction + E * (
+            onehot.float().mean(1) * mean_probs).mean()
+        base_count = base_count + (onehot * keep[..., None]).sum(1)
+        remaining = remaining * (1 - onehot)
+
+    dispatch = (_moe_dispatch_gather if cfg.moe_dispatch == "gather"
+                else _moe_dispatch_einsum)
+    xe, out_from = dispatch(cfg, x, picks, G, group, E, cap)   # [E, G, cap, D]
+    dt = cfg.dtype
+    if cfg.quant.startswith("int8"):
+        xe2 = xe.reshape(E, G * cap, d)
+        outs = []
+        for e in range(E):
+            gate_h = F.silu(maybe_quant_dot(xe2[e], lp["w_gate"][e].to(dt), cfg.quant))
+            up_h = maybe_quant_dot(xe2[e], lp["w_up"][e].to(dt), cfg.quant)
+            outs.append(maybe_quant_dot(gate_h * up_h, lp["w_down"][e].to(dt),
+                                        cfg.quant))
+        out_e = torch.stack(outs).reshape(E, G, cap, d)
+    else:
+        gate_h = F.silu(torch.einsum("egcd,edf->egcf", xe, lp["w_gate"].to(dt)))
+        up_h = torch.einsum("egcd,edf->egcf", xe, lp["w_up"].to(dt))
+        out_e = torch.einsum("egcf,efd->egcd", gate_h * up_h, lp["w_down"].to(dt))
+    out = out_from(out_e).reshape(b, s, d)
+    kept = torch.stack([k.float() for (_, _, _, k) in picks])
+    drop_rate = 1.0 - kept.mean()
+    return out, torch.stack([aux_fraction, z_loss, drop_rate])
+
+
+def _moe_dispatch_einsum(cfg, x, picks, G, group, E, cap):
+    """Dense one-hot dispatch and combine: ``[G, g, E, cap]`` masks
+    built from the picks (slots are disjoint across rounds, so summing
+    the rounds' outer products is exact), the combine weights in fp32,
+    the dispatch mask in ``cfg.dtype``."""
+    dt = cfg.dtype
+    combine = torch.zeros((G, group, E, cap), dtype=torch.float32, device=x.device)
+    dispatch = torch.zeros((G, group, E, cap), dtype=dt, device=x.device)
+    for choice, gate, pos_tok, keep in picks:
+        # A dropped pick's slot is out of range: its one-hot row is
+        # zeroed by ``keep`` (JAX's one_hot gives zeros there).
+        slot = (F.one_hot(choice, E).float()[..., None]
+                * F.one_hot(pos_tok.clamp(max=cap - 1), cap).float()[..., None, :]
+                * keep[..., None, None])
+        combine = combine + gate[..., None, None] * slot
+        dispatch = dispatch + slot.to(dt)
+    xe = torch.einsum("gnec,gnd->egcd", dispatch, x)
+
+    def out_from(out_e):
+        return torch.einsum("gnec,egcd->gnd", combine.to(dt), out_e)
+
+    return xe, out_from
+
+
+def _moe_dispatch_gather(cfg, x, picks, G, group, E, cap):
+    """Scatter/gather dispatch: every (expert, slot) holds at most one
+    token, so the dispatch is a permutation — each kept token's index is
+    written into its slot, the slots gather their tokens, and the combine
+    gathers each token's ``top_k`` expert outputs back, scaled by its
+    gates. The einsum form's values, without the one-hot products."""
+    dt = cfg.dtype
+    d = x.shape[-1]
+    dev = x.device
+    g_idx = torch.arange(G, device=dev)[:, None].expand(G, group)
+    tok_idx = torch.arange(group, device=dev)[None, :]
+    slot_src = torch.zeros((G, E, cap), dtype=torch.int64, device=dev)
+    for choice, _, pos_tok, keep in picks:
+        safe_pos = torch.where(keep, pos_tok, cap - 1)
+        slot_src = slot_src.index_put(
+            (g_idx, choice, safe_pos),
+            torch.where(keep, tok_idx + 1, 0).expand(G, group), accumulate=True)
+    valid = slot_src > 0
+    src = (slot_src - 1).clamp_min(0).reshape(G, E * cap)
+    xe = x.gather(1, src[..., None].expand(G, E * cap, d))
+    xe = xe * valid.reshape(G, E * cap, 1).to(x.dtype)
+    xe = xe.reshape(G, E, cap, d).permute(1, 0, 2, 3)
+
+    def out_from(out_e):
+        flat = out_e.permute(1, 0, 2, 3).reshape(G, E * cap, -1)
+        out = torch.zeros((G, group, flat.shape[-1]), dtype=dt, device=dev)
+        for choice, gate, pos_tok, keep in picks:
+            slot = choice * cap + pos_tok.clamp(max=cap - 1)
+            picked = flat.gather(1, slot[..., None].expand(G, group, flat.shape[-1]))
+            out = out + picked * (gate * keep).to(dt)[..., None]
+        return out
+
+    return xe, out_from
+
+
+# -- the dense FFN under remat="ffn" --------------------------------------------
+
+class _FfnRecompute:
+    """What ``remat="ffn"`` keeps of one dense FFN: its input and weights.
+    The d_ff-wide intermediates (the gate and up products, the gate's
+    SiLU and their product) are dropped after the forward; the backward
+    re-runs the gate and up products once, under int8 with their
+    quantized copies, as the JAX package's ``save_anything_except_these_
+    names`` policy does."""
+
+    def __init__(self, cfg, h, wg, wu):
+        self.cfg, self.h, self.wg, self.wu = cfg, h, wg, wu
+        self.prod_ptr = self.prod_numel = None    # set once the product exists
+        self.graph = None
+
+    def gate_up(self, h, wg, wu):
+        q = self.cfg.quant
+        return F.silu(maybe_quant_dot(h, wg, q)) * maybe_quant_dot(h, wu, q)
+
+    def recompute(self):
+        """The product again, once, with its graph back to the inputs."""
+        if self.graph is None:
+            with torch.enable_grad():
+                ins = [t.detach().requires_grad_(t.requires_grad)
+                       for t in (self.h, self.wg, self.wu)]
+                self.graph = (ins, self.gate_up(*ins))
+        return self.graph
+
+    def pack(self, t):
+        if (self.prod_ptr is not None and t.data_ptr() == self.prod_ptr
+                and t.numel() == self.prod_numel):
+            return ("prod", t.shape)
+        return t
+
+    def unpack(self, saved):
+        if isinstance(saved, tuple) and saved and saved[0] == "prod":
+            return self.recompute()[1].detach().reshape(saved[1])
+        return saved
+
+
+class _FfnProd(torch.autograd.Function):
+    """``silu(h @ wg) * (h @ wu)`` computed without a graph; the backward
+    differentiates the recomputed graph of :class:`_FfnRecompute`."""
+
+    @staticmethod
+    def forward(ctx, h, wg, wu, rec):
+        ctx.rec = rec
+        return rec.gate_up(h, wg, wu)
+
+    @staticmethod
+    def backward(ctx, g):
+        ins, prod = ctx.rec.recompute()
+        want = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad(prod, want, g))
+        ctx.rec.graph = None
+        return (*(next(got) if t.requires_grad else None for t in ins), None)
+
+
+def _ffn_remat(cfg: TransformerConfig, h, wg, wu, wd):
+    """The dense FFN with only its input and weights saved: the down
+    product's saved operand is a placeholder the backward fills by
+    recomputing the gate and up products."""
+    rec = _FfnRecompute(cfg, h, wg, wu)
+    prod = _FfnProd.apply(h, wg, wu, rec)
+    rec.prod_ptr, rec.prod_numel = prod.data_ptr(), prod.numel()
+    with torch.autograd.graph.saved_tensors_hooks(rec.pack, rec.unpack):
+        return maybe_quant_dot(prod, wd, cfg.quant)
 
 
 def _layer(
     cfg: TransformerConfig, lp: Params, x: torch.Tensor,
     segment_ids: Optional[torch.Tensor], rope_tables,
-) -> torch.Tensor:
+) -> Tuple[torch.Tensor, torch.Tensor]:
     """One pre-norm decoder layer: attention (q/k rotated by the step's
-    rope tables inside ``mha``) and the SwiGLU FFN, projections in
-    ``cfg.dtype`` through ``maybe_quant_dot`` (int8 under ``cfg.quant``)."""
+    rope tables inside ``mha``) and the SwiGLU FFN (or the routed expert
+    bank), projections in ``cfg.dtype`` through ``maybe_quant_dot``
+    (int8 under ``cfg.quant``). Returns the layer's output and its MoE
+    ``[aux, z_loss, drop_rate]`` (zeros for a dense layer)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     dt = cfg.dtype
@@ -215,8 +506,15 @@ def _layer(
                impl=cfg.attn_impl, rope_tables=rope_tables)
     x = x + dot(attn.reshape(b, s, cfg.n_heads * hd), lp["wo"])
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+    if cfg.moe_experts:
+        down, aux = _moe_ffn(cfg, lp, h)
+        return x + down, aux
+    aux = torch.zeros(3, dtype=torch.float32, device=x.device)
+    if cfg.remat == "ffn":
+        return x + _ffn_remat(cfg, h, lp["w_gate"].to(dt), lp["w_up"].to(dt),
+                              lp["w_down"].to(dt)), aux
     prod = F.silu(dot(h, lp["w_gate"])) * dot(h, lp["w_up"])
-    return x + dot(prod, lp["w_down"])
+    return x + dot(prod, lp["w_down"]), aux
 
 
 def _embed(cfg: TransformerConfig, params: Params,
@@ -228,11 +526,15 @@ def forward_hidden(
     cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     positions: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """tokens ``[B, S]`` -> final-norm hidden ``[B, S, d_model]``. The
-    rope tables are built once for the step and shared by every layer.
-    The stacked layer weights are split with one ``unbind`` per leaf, so
-    the backward stacks each leaf's gradient once."""
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens ``[B, S]`` -> (final-norm hidden ``[B, S, d_model]``, MoE
+    aux ``[load-balance sum, z-loss sum, drop-rate mean]`` over the
+    layers; zeros for a dense model). The rope tables are built once for
+    the step and shared by every layer. The stacked layer weights are
+    split with one ``unbind`` per leaf, so the backward stacks each
+    leaf's gradient once. A layer runs under a checkpoint when
+    ``remat`` is True, or ``"ffn"`` on a MoE model (the routing is
+    recomputed in the backward: it is deterministic)."""
     check_ported(cfg)
     b, s = tokens.shape
     if positions is None:
@@ -240,14 +542,19 @@ def forward_hidden(
     x = _embed(cfg, params, tokens)
     tables = rope_full_tables(positions, cfg.head_dim, cfg.rope_theta)
     per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
+    whole = cfg.remat is True or (cfg.remat == "ffn" and cfg.moe_experts)
+    auxes = []
     for i in range(cfg.n_layers):
         lp = {k: v[i] for k, v in per_layer.items()}
-        if cfg.remat:
-            x = checkpoint(_layer, cfg, lp, x, segment_ids, tables,
-                           use_reentrant=False)
+        if whole:
+            x, aux = checkpoint(_layer, cfg, lp, x, segment_ids, tables,
+                                use_reentrant=False)
         else:
-            x = _layer(cfg, lp, x, segment_ids, tables)
-    return rmsnorm(x, params["final_norm"], cfg.norm_eps)
+            x, aux = _layer(cfg, lp, x, segment_ids, tables)
+        auxes.append(aux)
+    aux = torch.stack(auxes)                               # [L, 3]
+    aux = torch.stack([aux[:, 0].sum(), aux[:, 1].sum(), aux[:, 2].mean()])
+    return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def _head(cfg: TransformerConfig, params: Params) -> torch.Tensor:
@@ -258,15 +565,22 @@ def _head(cfg: TransformerConfig, params: Params) -> torch.Tensor:
 
 
 def train_flops_per_token(cfg: TransformerConfig, seq: int) -> float:
-    """Model FLOPs per trained token: ``6 * N`` matmul FLOPs (forward and
-    backward) plus the causal-attention term ``12 * L * H * hd * seq /
-    2`` (the PaLM appendix B convention, as the JAX package counts)."""
+    """Model FLOPs per trained token: ``6 * N_active`` matmul FLOPs
+    (forward and backward) plus the causal-attention term ``12 * L * H *
+    hd * seq / 2`` (the PaLM appendix B convention, as the JAX package
+    counts). A MoE layer's active FFN is its ``top_k`` experts and the
+    router."""
+    if cfg.moe_experts:
+        ffn = (cfg.moe_top_k * 3 * cfg.d_model * cfg.d_ff
+               + cfg.d_model * cfg.moe_experts)
+    else:
+        ffn = 3 * cfg.d_model * cfg.d_ff
     n_active = (
         cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
         + cfg.n_layers * (
             cfg.d_model * cfg.n_heads * cfg.head_dim * 2
             + cfg.d_model * cfg.n_kv_heads * cfg.head_dim * 2
-            + 3 * cfg.d_model * cfg.d_ff
+            + ffn
         )
     )
     attn = 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * (seq / 2)
@@ -345,7 +659,10 @@ def next_token_loss(
     inside each document, RoPE restarts per document, and targets that
     cross a boundary or land in padding are excluded. ``loss_chunk > 0``
     streams the vocab projection in chunks (the largest divisor of S not
-    above it). Returns ``(loss, {"accuracy", "perplexity"})``.
+    above it). Returns ``(loss, {"accuracy", "perplexity"})``; a MoE
+    model adds ``moe_aux_weight`` times the load-balance loss (and
+    ``moe_router_z_weight`` times the router z-loss) to the loss, and
+    reports ``moe_aux`` and ``moe_drop_rate``.
 
     The vocab projection takes ``cfg.dtype`` operands and accumulates
     fp32 logits, as the JAX package's does."""
@@ -356,7 +673,7 @@ def next_token_loss(
     targets = tokens[:, 1:]
     segs = batch.get("segment_ids")
     seg_in = None if segs is None else segs[:, :-1]
-    hidden = forward_hidden(
+    hidden, aux = forward_hidden(
         cfg, params, tokens[:, :-1],
         positions=None if seg_in is None else packed_positions(seg_in),
         segment_ids=seg_in)
@@ -380,7 +697,14 @@ def next_token_loss(
     else:
         loss = nll.mean()
         acc = hits.mean()
-    return loss, {"accuracy": acc, "perplexity": torch.exp(loss)}
+    metrics = {"accuracy": acc, "perplexity": torch.exp(loss)}
+    if cfg.moe_experts:
+        loss = loss + cfg.moe_aux_weight * aux[0]
+        if cfg.moe_router_z_weight:
+            loss = loss + cfg.moe_router_z_weight * aux[1]
+        metrics["moe_aux"] = aux[0]
+        metrics["moe_drop_rate"] = aux[2]
+    return loss, metrics
 
 
 def make_loss_fn(cfg: TransformerConfig):

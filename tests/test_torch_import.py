@@ -205,10 +205,10 @@ _SERVE_KW = [
     dict(n=2), dict(model_dir="/nonexistent"), dict(config="tiny_moe"),
 ]
 #: Refused until exact prefill, speculative decoding, checkpoints,
-#: sampling, the prefix cache and weight-only int8 were ported: these now
-#: serve.
+#: sampling, the prefix cache, weight-only int8 and the MoE decoder
+#: (``config="tiny_moe"``) were ported: these now serve.
 _SERVE_PORTED = ("prefill_mode", "speculative", "model_dir", "temperature",
-                 "n", "prefix_cache", "quant")
+                 "n", "prefix_cache", "quant", "config")
 
 
 @pytest.mark.parametrize("kwargs", _SERVE_KW,

@@ -314,6 +314,9 @@ def test_params_to_numpy_round_trips():
 
 @pytest.mark.parametrize("name", ["remat_ffn", "ring", "pp", "quant_fp8"])
 def test_model_refuses_what_is_not_ported(name):
+    """What the model cannot run yet raises "not yet ported".
+    ``remat="ffn"``, refused until the MoE slice ported it, trains: its
+    loss and gradients are remat=False's bit for bit."""
     cfg = ttf.tiny_config()
     if name == "remat_ffn":
         cfg = cfg.replace(remat="ffn")
@@ -323,12 +326,20 @@ def test_model_refuses_what_is_not_ported(name):
         cfg = cfg.replace(quant="fp8")
     params = ttf.init_params(cfg, device="cpu")
     batch = {"tokens": torch.zeros((1, 9), dtype=torch.int32)}
+    if name == "remat_ffn":
+        for p in convert.tree_leaves(params):
+            p.requires_grad_(True)
+        got = []
+        for c in (cfg, cfg.replace(remat=False)):
+            loss, _ = ttf.next_token_loss(c, params, batch)
+            got.append((loss, torch.autograd.grad(loss, convert.tree_leaves(params))))
+        assert torch.isfinite(got[0][0]) and torch.equal(got[0][0], got[1][0])
+        assert all(torch.equal(a, b) for a, b in zip(got[0][1], got[1][1]))
+        return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         ttf.next_token_loss(cfg, params, batch,
                             pp_microbatches=2 if name == "pp" else 0)
 
-
-# -- optimizer ----------------------------------------------------------------
 
 @pytest.mark.parametrize("lr,total", [(3e-4, 100), (1e-2, 3), (5e-4, 4000)])
 def test_schedule_matches_optax(lr, total):
@@ -430,10 +441,10 @@ def test_grad_accum_refuses_indivisible_batch():
 @pytest.mark.parametrize("kw,ported", [
     (dict(model_dir="/nonexistent"), True), (dict(stateful=True), True),
     (dict(eval_fn=lambda p, b: {}), True),
-    (dict(config=dict(steps_per_call=2)), False),
+    (dict(config=dict(steps_per_call=2)), True),
     (dict(config=dict(checkpoint_every=5)), True),
-    (dict(config=dict(profile_dir="/tmp/x")), False),
-    (dict(config=dict(async_checkpoint=True)), False),
+    (dict(config=dict(profile_dir="/tmp/x")), True),
+    (dict(config=dict(async_checkpoint=True)), True),
 ], ids=["model_dir", "stateful", "eval_fn", "steps_per_call", "checkpoint_every",
         "profile_dir", "async_checkpoint"])
 def test_train_loop_refuses_what_is_not_ported(kw, ported):
@@ -442,7 +453,9 @@ def test_train_loop_refuses_what_is_not_ported(kw, ported):
     were ported, build a loop that keeps them (and touches no file before
     it runs: test_torch_checkpoint.py runs them); ``stateful`` and
     ``eval_fn``, refused until the MNIST and ResNet slice, build one too
-    (the tests below run them against the JAX loop)."""
+    (the tests below run them against the JAX loop); so do
+    ``steps_per_call``, ``profile_dir`` and ``async_checkpoint``, refused
+    until the MoE slice (the tests below run them)."""
     cfg = ttf.tiny_config()
     kw = dict(kw)
     conf = ttrain.TrainLoopConfig(**kw.pop("config", {}))
@@ -461,7 +474,7 @@ def test_train_loop_refuses_what_is_not_ported(kw, ported):
         return
     loop = build()
     assert loop.model_dir == kw.get("model_dir", "")
-    assert loop.config.checkpoint_every == conf.checkpoint_every
+    assert loop.config == conf
     assert not os.path.exists("/nonexistent")
 
 
@@ -533,10 +546,17 @@ def test_lm_train_refuses_what_is_not_ported(kw, tmp_path):
     ``model_dir`` and ``checkpoint_every`` (refused until checkpoints
     were ported) train: into a model dir (here under tmp_path, not the
     id's path), saving there every ``checkpoint_every`` steps and at the
-    end."""
+    end. ``config="tiny_moe"`` (refused until the MoE slice) trains and
+    reports the MoE metrics; ``llama3_70b`` (tensor parallelism) stays
+    refused."""
     base = dict(config="tiny", total_steps=2, per_data_shard_batch=1,
                 seq_len=32, device="cpu")
     base.update(kw)
+    if kw.get("config") == "tiny_moe":
+        out = tlm.train(**base)
+        assert out["final_step"] == 2 and np.isfinite(out["loss"])
+        assert np.isfinite(out["moe_aux"]) and 0 <= out["moe_drop_rate"] <= 1
+        return
     if "model_dir" in kw or "checkpoint_every" in kw:
         if "model_dir" in kw:
             base["model_dir"] = str(tmp_path)
@@ -743,3 +763,170 @@ def test_optimizer_matches_optax_over_five_steps(name):
             b = np.asarray(b)
             np.testing.assert_allclose(a.numpy(), b, rtol=0,
                                        atol=1e-6 * float(np.abs(b).max()))
+
+
+# -- remat="ffn" and the last TrainLoop options -----------------------------------
+
+@pytest.mark.parametrize("quant", ["", "int8"], ids=["fp32", "int8"])
+def test_remat_ffn_matches_jax_and_drops_the_ffn_intermediates(quant):
+    """``remat="ffn"`` (as ``tests/test_transformer.py``'s remat test):
+    the loss and every gradient equal the JAX package's ``remat="ffn"``
+    within the fp32 tolerances (int8: its composed path, as
+    test_torch_quant.py holds it), and the port's ``remat=False`` bit for
+    bit; of the activations autograd keeps, none is d_ff wide (the four
+    intermediates and, under int8, their quantized copies are recomputed
+    in the backward), where ``remat=False`` keeps several."""
+    jc = jtf.tiny_config(remat="ffn", quant=quant)
+    tc = ttf.tiny_config(remat="ffn", quant=quant)
+    params = _jax_params(jc)
+    batch = next(jlm.synthetic_lm(jc.vocab_size, 2, 64, seed=1))
+    lj, gj = jax.jit(jax.value_and_grad(lambda p: jtf.next_token_loss(
+        jc, p, {k: jnp.asarray(v) for k, v in batch.items()})[0]))(params)
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    rows = 2 * 64
+    got = {}
+    for remat in ("ffn", False):
+        tp = convert.params_from_numpy(params, device="cpu")
+        leaves = [p.requires_grad_(True) for p in convert.tree_leaves(tp)]
+        wide = []
+
+        def pack(t):
+            if t.numel() == rows * tc.d_ff and tc.d_ff in t.shape:
+                wide.append(tuple(t.shape))
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            lt, _ = ttf.next_token_loss(tc.replace(remat=remat), tp, tb)
+        got[remat] = (lt, torch.autograd.grad(lt, leaves), wide)
+    lt, gt, wide = got["ffn"]
+    assert wide == [] and len(got[False][2]) >= 4 * tc.n_layers
+    assert torch.equal(lt, got[False][0])
+    assert all(torch.equal(a, b) for a, b in zip(gt, got[False][1]))
+    gj = convert.tree_leaves(jax.device_get(gj))
+    if not quant:
+        np.testing.assert_allclose(float(lt.detach()), float(lj), rtol=LOSS_RTOL)
+        _assert_grads_close(gt, gj, _names(params))
+        return
+    # int8: test_torch_quant.py's limits for the fp32 decoder (a code may
+    # flip at a rounding tie that the two frameworks' upstream sums place
+    # differently): loss within 3e-4 relative, each leaf within 5e-2
+    # relative L2.
+    np.testing.assert_allclose(float(lt.detach()), float(lj), rtol=3e-4)
+    for n, g, w in zip(_names(params), gt, gj):
+        w = np.asarray(w)
+        assert np.linalg.norm(g.numpy() - w) / np.linalg.norm(w) <= 5e-2, n
+
+
+def _toy_loop(total, **conf):
+    """The JAX package's TestMultiStepDispatch model: ``w [8]`` pulled
+    towards each batch's first row by SGD at 0.05."""
+    def init_fn(seed, dev):
+        return {"w": torch.zeros(8, device=dev)}
+
+    def loss_fn(params, batch):
+        err = ((params["w"] - batch["x"][0]) ** 2).sum()
+        return err, {"werr": err}
+
+    return ttrain.TrainLoop(
+        init_fn=init_fn, loss_fn=loss_fn, optimizer=optim.SGD(0.05),
+        config=ttrain.TrainLoopConfig(total_steps=total, **conf), device="cpu")
+
+
+def _toy_data():
+    i = 0
+    while True:
+        yield {"x": np.full((8, 8), i % 5, np.float32)}
+        i += 1
+
+
+@pytest.mark.parametrize("k", [4, 5], ids=["K4", "K5_trimmed"])
+def test_steps_per_call_matches_single_steps(k, tmp_path):
+    """``steps_per_call = K`` over ``device_prefetch(chunk=K,
+    yield_chunks=True)``: the final parameters equal K=1's bit for bit;
+    the log, checkpoint and eval cadences land on K-step boundaries,
+    each report the mean of its call's stacked metrics (the JAX
+    package's TestMultiStepDispatch); a last chunk past ``total_steps``
+    is trimmed, so the run ends exactly there (24 = 4·5 + 4 at K=5)."""
+    evals = []
+    runs = {}
+    for spc in (1, k):
+        mdir = str(tmp_path / f"k{spc}")
+        loop = _toy_loop(24, log_every=8, checkpoint_every=8, eval_every=8,
+                         steps_per_call=spc)
+        loop.model_dir = mdir
+        loop.eval_fn = lambda p, b: (evals.append(spc), {"w0": p["w"][0]})[1]
+        it = (ttrain.device_prefetch(_toy_data(), "cpu", chunk=spc,
+                                     yield_chunks=True)
+              if spc > 1 else ttrain.device_prefetch(_toy_data(), "cpu"))
+        seen = []
+        state = loop.run(it, on_metrics=seen.append, eval_iter=_toy_data())
+        runs[spc] = (state, seen, ttrain.checkpoint_steps(mdir))
+    (s1, log1, ck1), (sk, logk, ckk) = runs[1], runs[k]
+    assert s1.step == sk.step == 24
+    assert torch.equal(s1.params["w"], sk.params["w"])
+    want = sorted({min(24, -(-m // k) * k) for m in (8, 16, 24)})
+    assert [m.step for m in log1] == [8, 16, 24] and ck1 == [8, 16, 24]
+    assert [m.step for m in logk] == want and ckk == want
+    assert evals.count(1) == 3 and evals.count(k) == len(want)
+    # Each K-step report is the mean of the losses of its call's steps.
+    losses = []
+    _toy_loop(24, log_every=1).run(ttrain.device_prefetch(_toy_data(), "cpu"),
+                                   on_metrics=lambda m: losses.append(m.loss))
+    for m in logk:
+        first = (m.step - 1) // k * k
+        assert m.loss == pytest.approx(float(np.mean(losses[first:m.step])),
+                                       rel=1e-6)
+
+
+def test_device_prefetch_chunks():
+    """``chunk=K``: one stacked ``[K, ...]`` transfer a chunk, yielded
+    whole with ``yield_chunks`` (a finite stream's last chunk partial),
+    else batch by batch in order."""
+    batches = [{"x": np.full((2, 3), i, np.float32)} for i in range(7)]
+    chunks = list(ttrain.device_prefetch(iter(batches), "cpu", chunk=3,
+                                         yield_chunks=True))
+    assert [tuple(c["x"].shape) for c in chunks] == [(3, 2, 3), (3, 2, 3), (1, 2, 3)]
+    flat = list(ttrain.device_prefetch(iter(batches), "cpu", chunk=3))
+    assert [int(b["x"][0, 0]) for b in flat] == list(range(7))
+
+
+def test_async_checkpoint_resumes(tmp_path):
+    """``async_checkpoint``: periodic saves are written in the background,
+    the final save waits, and a fresh loop resumes from it and ends
+    where an uninterrupted run ends (the JAX package's
+    TestAsyncCheckpoint, and the host copy holds the state of its step,
+    not a later one)."""
+    mdir = str(tmp_path / "ckpt")
+
+    def make(total):
+        loop = _toy_loop(total, log_every=100, checkpoint_every=5,
+                         async_checkpoint=True)
+        loop.model_dir = mdir
+        return loop
+
+    state = make(20).run(ttrain.device_prefetch(_toy_data(), "cpu"))
+    assert state.step == 20 and ttrain.checkpoint_steps(mdir) == [10, 15, 20]
+    saved5 = ttrain.load_params(mdir, 15, "cpu")["w"]
+    loop2 = make(40)
+    state = loop2.run(ttrain.device_prefetch(_toy_data(), "cpu"))
+    assert loop2.start_step == 20 and state.step == 40
+    assert ttrain.checkpoint_steps(mdir) == [30, 35, 40]
+    ref = _toy_loop(15)
+    ref.run(ttrain.device_prefetch(_toy_data(), "cpu"))
+    assert torch.equal(saved5, ref.state.params["w"])
+
+
+def test_profile_dir_writes_a_trace(tmp_path):
+    """``profile_dir``: a ``torch.profiler`` trace of steps
+    ``[profile_start, profile_start + profile_steps)`` lands there, once,
+    and training goes on to the end; a window the run does not reach
+    writes nothing."""
+    prof = tmp_path / "prof"
+    loop = _toy_loop(8, profile_dir=str(prof), profile_start=2, profile_steps=3)
+    assert loop.run(ttrain.device_prefetch(_toy_data(), "cpu")).step == 8
+    traces = sorted(p.name for p in prof.glob("*.pt.trace.json"))
+    assert traces == ["steps_2_5.pt.trace.json"]
+    assert json.loads((prof / traces[0]).read_text())["traceEvents"]
+    loop = _toy_loop(4, profile_dir=str(tmp_path / "none"), profile_start=10)
+    loop.run(ttrain.device_prefetch(_toy_data(), "cpu"))
+    assert not (tmp_path / "none").exists()
