@@ -125,9 +125,26 @@ Phases, in order; any failure exits non-zero before the result line:
    bf16, ``attn="auto"``, 4 steps, half the rows padded: B1 and B2 per
    step exactly as the per-layer remat predicts, no rope prepass) and
    ``encode`` card vs CPU;
+7b. dist: a two-rank gang of ``python -c`` workers with the env the
+   controller gives a pod (``JAX_COORDINATOR_ADDRESS``,
+   ``JAX_NUM_PROCESSES=2``, ``JAX_PROCESS_ID``), entering through
+   ``initialize_from_env`` and ``lm.train``: NCCL with a card a rank on
+   a machine of two cards or more, else gloo with both ranks on cuda:0
+   (the backend's collectives on CUDA tensors probed first; a layout
+   whose collectives it lacks is not run and the line says so). The
+   flagship at full width and depth (global batch 16) at dp=2, fsdp=2
+   (its checkpoint restored by a one-process loop, bit for bit) and
+   tp=2, 3 steps; ``int8_fused`` at fsdp=2 and llama3_8b at 2 layers
+   (B3/B4) at fsdp=2, 2 steps; each rank's launches a step exactly the
+   one-process counts, its step ms, and the steps' peak memory within
+   ``transformer_memory_plan`` plus ``DIST_PEAK_LEAF_COPIES`` copies of
+   the largest leaf; rank 0 holds the losses and the
+   parameters' change against a one-process run (``DIST_*``
+   tolerances); a rank's failure fails the run;
 8. a ``kernels`` JSON line (each kernel's whole-call time over its
-   library call's, ``vs_library``, from this run), the ``nvidia-smi``
-   line, and the last line
+   library call's, ``vs_library``, from this run; the flash kernels'
+   and B7's launches a rank a step in each dist layout), the
+   ``nvidia-smi`` line, and the last line
    ``{"ok": true, "device": {...}}``.
 
 It needs one card, imports nothing of JAX, and writes only under
@@ -3761,6 +3778,426 @@ FLASH_KERNELS = (
 )
 
 
+# -- multi-process training --------------------------------------------------------
+
+# The gang's layouts: each a two-rank lm.train (global batch 16 at S1024
+# for the flagship, 2 at S2048 for llama3_8b at 2 layers) held against
+# a one-process run of the same batches, init and steps on the same card.
+# ``needs``: the collectives the layout runs on its tensors beyond
+# all_reduce (probed first on the gang's backend).
+DIST_CASES = [
+    dict(label="flagship.dp2", config="flagship", mesh=dict(dp=2), batch=8, seq=1024,
+         steps=3, needs=(), change_cap=0.114),
+    dict(label="flagship.fsdp2", config="flagship", mesh=dict(dp=1, fsdp=2), batch=8,
+         seq=1024, steps=3, needs=("all_gather_into_tensor", "reduce_scatter_tensor"),
+         checkpoint=True, change_cap=0.114),
+    dict(label="flagship.tp2", config="flagship", mesh=dict(dp=1, tp=2), batch=16,
+         seq=1024, steps=3, needs=("all_gather_into_tensor", "all_gather", "all_reduce_max"),
+         change_cap=0.114),
+    dict(label="flagship.int8_fused.fsdp2", config="flagship", quant="int8_fused",
+         mesh=dict(dp=1, fsdp=2), batch=8, seq=1024, steps=2,
+         needs=("all_gather_into_tensor", "reduce_scatter_tensor"), change_cap=0.3654),
+    dict(label="llama3_8b.fsdp2", config="llama3_8b_2l", attn="flash",
+         mesh=dict(dp=1, fsdp=2), batch=1, seq=2048, steps=2,
+         needs=("all_gather_into_tensor", "reduce_scatter_tensor"), change_cap=0.0666),
+]
+# A layout against the one-process run: the two differ in each rank's
+# rows (bf16 weight gradients are rounded per rank before the ranks'
+# halves meet in fp32) and in the shapes cuBLAS sees. The loss takes the
+# flagship's flash-vs-plain limit, TRAIN_LOSS_REL_TOL. The parameters
+# after the last step are held by their change from the init, relative
+# L2 against the one-process change, over the whole model and for the
+# worst leaf. AdamW's step is about lr times the gradient's sign, so an
+# element whose gradient is rounding noise moves either way in either
+# run, and a fixed limit on the change would measure the optimizer, not
+# the layout: the yardstick is the same one-process run with the plain
+# attention instead of the flash kernels (the pair the flagship's
+# flash-vs-plain gradient limits were set on), read in the same call,
+# and a layout may differ from the one-process run by at most
+# DIST_VS_YARDSTICK times as much, whole and worst leaf. So that this
+# limit cannot grow with the flash kernels' own error, the whole
+# model's change is also capped by the case's ``change_cap``: twice its
+# yardstick as read on an H100 80GB HBM3 at 700 W (flagship 0.0570,
+# int8_fused 0.1827, llama3_8b 0.0333).
+DIST_LOSS_REL_TOL = TRAIN_LOSS_REL_TOL
+DIST_VS_YARDSTICK = 2.0
+# Each rank's peak memory against ``transformer_memory_plan``: the plan
+# counts the stored chunks, the gradients and the moments sharded, but
+# not what a gather or a reduction of one leaf holds for a moment (the
+# whole leaf or its whole gradient, its contiguous copy, its bf16
+# cast). A rank may exceed the plan by DIST_PEAK_LEAF_COPIES copies of
+# the largest leaf in fp32; a step that held every parameter and every
+# gradient whole would exceed that. This holds the steps' peak: a save
+# after them gathers the whole state (parameters and moments) on every
+# rank, which the plan does not count either; ``peak_gb`` includes it.
+DIST_PEAK_LEAF_COPIES = 3
+DIST_TIMEOUT_S = 900
+
+
+def _dist_probe(device):
+    """Which collectives the gang's backend runs on tensors of
+    ``device``: {name: True or the error's text}."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.ones(4, device=device)
+    tests = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "all_reduce_max": lambda: dist.all_reduce(x.clone(), op=dist.ReduceOp.MAX),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(2)], x),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(8, device=device), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(2, device=device), x.clone()),
+        "barrier": lambda: dist.barrier(),
+    }
+    out = {}
+    for name, fn in tests.items():
+        try:
+            fn()
+            torch.cuda.synchronize(device)
+            out[name] = True
+        except Exception as e:  # a probe: its finding is the answer
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    return out
+
+
+def _dist_expected(case, n_layers):
+    """The flash and B7 launches a rank makes a step: the one-process
+    counts (each rank runs every layer on its rows or heads)."""
+    flash = {"rope_rotate": 3 * n_layers, "flash_fwd": 2 * n_layers,
+             "flash_bwd_prep": n_layers}
+    if case["seq"] > 1024:
+        flash.update(flash_bwd_dkdv=n_layers, flash_bwd_dq=n_layers)
+    else:
+        flash.update(flash_bwd_fused=n_layers, flash_bwd_post=n_layers)
+    if case.get("quant") == "int8_fused":
+        flash.update(int8_quantize_rows=21 * n_layers, int8_matmul=21 * n_layers)
+    return flash
+
+
+def _change_rel(got, want, init):
+    """Relative L2 of ``got``'s change from ``init`` against ``want``'s,
+    over the whole tree and for each leaf."""
+    num = [float((g - w).float().norm()) ** 2 for g, w in zip(got, want)]
+    den = [float((w - i).float().norm()) ** 2 for w, i in zip(want, init)]
+    whole = math.sqrt(sum(num) / sum(den))
+    return whole, [math.sqrt(n / max(d, 1e-60)) for n, d in zip(num, den)]
+
+
+def _dist_one_process(case, cfg, device, mesh):
+    """The one-process run of a case: the pieces ``lm.train`` builds, on
+    a mesh of this rank alone, fed the whole global batch."""
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints.lm import synthetic_lm
+    from kubeflow_controller_tpu_torch.dataplane.train import (
+        TrainLoop, TrainLoopConfig, device_prefetch,
+    )
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+    from kubeflow_controller_tpu_torch.optim import make_optimizer
+
+    _, dp, fsdp, ep, _, _ = _dist_mesh_config(case).resolve(2)
+    global_batch = case["batch"] * dp * fsdp * ep
+    loop = TrainLoop(
+        init_fn=tfm.make_init_fn(cfg), loss_fn=tfm.make_loss_fn(cfg),
+        optimizer=make_optimizer(3e-4, case["steps"]),
+        config=TrainLoopConfig(total_steps=case["steps"], log_every=1),
+        device=device, mesh=mesh, param_shardings=tfm.param_specs(cfg))
+    recs = []
+    loop.run(device_prefetch(synthetic_lm(cfg.vocab_size, global_batch, case["seq"]),
+                             device), on_metrics=recs.append)
+    return [m.loss for m in recs], loop
+
+
+def _shape_leaves(tree):
+    """The shapes of a tree of shapes, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _shape_leaves(tree[k])]
+    return [tuple(tree)]
+
+
+def _leaf_names(tree, prefix=""):
+    """Dotted names of a tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k], f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
+
+def _dist_mesh_config(case):
+    from kubeflow_controller_tpu_torch.parallel.mesh import MeshConfig
+
+    return MeshConfig(**case["mesh"])
+
+
+def _dist_case(ctx, case, device):
+    """One layout on this rank: ``lm.train`` with the counts zeroed just
+    before and read just after, the gathered parameters, and on rank 0
+    the one-process run and the comparison (and, with ``checkpoint``, a
+    one-process restore of the layout's checkpoint)."""
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_controller_tpu_torch.convert import tree_leaves
+    from kubeflow_controller_tpu_torch.dataplane import train as dtrain
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints import lm
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+    from kubeflow_controller_tpu_torch.optim import make_optimizer
+    from kubeflow_controller_tpu_torch.parallel import memory, sharding
+    from kubeflow_controller_tpu_torch.parallel.mesh import make_mesh
+
+    kept, recs, step_peaks = [], [], []
+    real_run, real_save = dtrain.TrainLoop.run, dtrain.TrainLoop.save
+
+    def keeping(loop, data, on_metrics=None, eval_iter=None):
+        kept.append(loop)
+
+        def both(m):
+            recs.append(m)
+            if on_metrics:
+                on_metrics(m)
+        return real_run(loop, data, on_metrics=both, eval_iter=eval_iter)
+
+    def saving(loop, wait=True):
+        # The steps' peak, before a save gathers the whole state.
+        step_peaks.append(torch.cuda.max_memory_allocated(device))
+        return real_save(loop, wait=wait)
+
+    mdir = os.path.join(OUT_DIR, "dist_ckpt") if case.get("checkpoint") else ""
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    _reset_launches()
+    dtrain.TrainLoop.run, dtrain.TrainLoop.save = keeping, saving
+    t0 = time.perf_counter()
+    try:
+        out = lm.train(ctx, config=case["config"], total_steps=case["steps"],
+                       per_data_shard_batch=case["batch"], seq_len=case["seq"],
+                       attn=case.get("attn", "auto"), quant=case.get("quant", ""),
+                       mesh_config=_dist_mesh_config(case), model_dir=mdir)
+    finally:
+        dtrain.TrainLoop.run, dtrain.TrainLoop.save = real_run, real_save
+    torch.cuda.synchronize(device)
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    peak = torch.cuda.max_memory_allocated(device)
+    peak_steps = step_peaks[0] if step_peaks else peak
+    loop = kept[0]
+    cfg = lm.model_config(case["config"], max_seq=max(case["seq"], 128),
+                          attn_impl=case.get("attn", "auto"), quant=case.get("quant", ""))
+    axes = {k: v for k, v in loop.mesh.shape.items() if v > 1}
+    plan = memory.transformer_memory_plan(cfg, axes, case["batch"] * loop.mesh.axis_size(
+        "dp", "fsdp"), case["seq"])
+    whole = [sharding.gather_full(p.detach(), s, loop.mesh)
+             for p, s in zip(tree_leaves(loop.state.params), loop._specs)]
+    del loop, kept
+    steps = case["steps"]
+    want = {k: v * steps for k, v in _dist_expected(case, cfg.n_layers).items()}
+    want = {k: want.get(k, 0) for k in launches}
+    step_ms = [1e3 / m.steps_per_sec for m in recs]
+    steady = sorted(step_ms[1:])
+    rec = dict(rank=ctx.process_id, final_step=out["final_step"],
+               losses=[m.loss for m in recs], step_ms=step_ms,
+               step_ms_median_steady=steady[len(steady) // 2], wall_s=wall,
+               peak_gb=peak / 1e9, peak_steps_gb=peak_steps / 1e9, plan_gb=plan.total / 1e9,
+               plan_rows={k: v / 1e9 for k, v in plan.rows()},
+               launches=launches,
+               launches_per_step={k: v / steps for k, v in launches.items() if v})
+    if launches != want:
+        raise AssertionError(f"dist[{case['label']}] rank {ctx.process_id}: "
+                             f"launches {launches} != {want}")
+    leaf = 4 * max(math.prod(s) for s in _shape_leaves(tfm.param_shapes(cfg)))
+    peak_limit = plan.total + DIST_PEAK_LEAF_COPIES * leaf
+    rec["peak_limit_gb"] = peak_limit / 1e9
+    if peak_steps > peak_limit:
+        raise AssertionError(f"dist[{case['label']}] rank {ctx.process_id}: steps' peak "
+                             f"{peak_steps / 1e9} GB > the plan's {plan.total / 1e9} GB + "
+                             f"{DIST_PEAK_LEAF_COPIES} x the largest leaf's {leaf / 1e9} GB")
+    if ctx.process_id == 0:
+        one = make_mesh(devices=[0], device_type="cuda")
+        ref_losses, ref = _dist_one_process(case, cfg, device, one)
+        ref_leaves = [p.detach() for p in tree_leaves(ref.state.params)]
+        del ref
+        _, yard = _dist_one_process(case, cfg.replace(attn_impl="xla"), device, one)
+        yard_leaves = [p.detach() for p in tree_leaves(yard.state.params)]
+        del yard
+        init = tree_leaves(tfm.init_params(cfg, seed=0, device=device))
+        names = _leaf_names(tfm.param_shapes(cfg))
+        rel_whole, rel = _change_rel(whole, ref_leaves, init)
+        yard_whole, yard_rel = _change_rel(yard_leaves, ref_leaves, init)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], ref_losses))
+        worst = max(range(len(rel)), key=rel.__getitem__)
+        rec.update(one_process_losses=ref_losses, loss_rel=loss_rel,
+                   param_change_rel_l2=rel_whole,
+                   param_change_rel_l2_worst=(names[worst], rel[worst]),
+                   yardstick_rel_l2=yard_whole,
+                   yardstick_rel_l2_worst=max(yard_rel),
+                   param_change_rel_l2_by_leaf=dict(zip(names, rel)))
+        del init, ref_leaves, yard_leaves
+        if mdir:
+            back = make_mesh(devices=[0], device_type="cuda")
+            lp = dtrain.TrainLoop(
+                init_fn=tfm.make_init_fn(cfg), loss_fn=tfm.make_loss_fn(cfg),
+                optimizer=make_optimizer(3e-4, steps),
+                config=dtrain.TrainLoopConfig(total_steps=steps), device=device,
+                mesh=back, param_shardings=tfm.param_specs(cfg), model_dir=mdir)
+            t = time.perf_counter()
+            ok = lp.restore()
+            rec["restore_s"] = time.perf_counter() - t
+            same = ok and lp.state.step == steps and all(
+                torch.equal(a.detach(), b) for a, b in zip(tree_leaves(lp.state.params), whole))
+            rec["restored_step"] = lp.state.step
+            rec["restore_equal"] = bool(same)
+            del lp
+        if not (all(math.isfinite(x) for x in rec["losses"])
+                and loss_rel <= DIST_LOSS_REL_TOL
+                and rel_whole <= min(DIST_VS_YARDSTICK * yard_whole, case["change_cap"])
+                and max(rel) <= DIST_VS_YARDSTICK * max(yard_rel)
+                and rec.get("restore_equal", True)):
+            raise AssertionError(
+                f"dist[{case['label']}] vs one process: loss rel {loss_rel} (tol "
+                f"{DIST_LOSS_REL_TOL}), change rel L2 {rel_whole} and worst leaf "
+                f"{rec['param_change_rel_l2_worst']} against {DIST_VS_YARDSTICK} x the "
+                f"yardstick's {yard_whole} (cap {case['change_cap']}) and "
+                f"{max(yard_rel)}, restore "
+                f"{rec.get('restore_equal')}")
+    del whole
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return rec
+
+
+def _dist_worker() -> int:
+    """One rank of ``dist_phase``'s gang: join through
+    ``initialize_from_env`` (the env a pod gets), probe the backend's
+    collectives, run every layout they allow, write this rank's
+    records."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from kubeflow_controller_tpu_torch.dataplane import dist as ddist
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints import lm
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+
+    spec = json.loads(os.environ["CHIP_SMOKE_DIST"])
+    # llama3_8b cut to 2 layers (its fp32 state at 32 layers is ~128 GB).
+    lm.CONFIGS["llama3_8b_2l"] = lambda **kw: tfm.llama3_8b_config(n_layers=2, **kw)
+    ctx = ddist.initialize_from_env(backend=spec["backend"])
+    device = ddist.local_device(ctx)
+    probe = _dist_probe(device)
+    out = {"rank": ctx.process_id, "device": str(device), "probe": probe, "cases": {}}
+    for case in DIST_CASES:
+        missing = [n for n in case["needs"] if probe.get(n) is not True]
+        if missing:
+            out["cases"][case["label"]] = {"skipped": {n: probe.get(n) for n in missing}}
+            continue
+        out["cases"][case["label"]] = _dist_case(ctx, case, device)
+    with open(os.path.join(spec["out"], f"rank{ctx.process_id}.json"), "w") as f:
+        json.dump(out, f)
+    ddist.destroy()
+    return 0
+
+
+def dist_phase(smi):
+    """A two-rank gang of ``python -c`` workers, each with the env the
+    controller gives a pod (``JAX_COORDINATOR_ADDRESS`` on 127.0.0.1,
+    ``JAX_NUM_PROCESSES=2``, ``JAX_PROCESS_ID``), entering through
+    ``initialize_from_env`` and ``lm.train``: the flagship at full width
+    and depth at dp=2, fsdp=2 (writing a checkpoint a one-process loop
+    restores) and tp=2, ``int8_fused`` at fsdp=2 and llama3_8b (2
+    layers, B3/B4) at fsdp=2, each against a one-process run. NCCL with
+    a card a rank when there are two cards; gloo with both ranks on
+    cuda:0 on one (NCCL refuses two ranks on one card). The kernels were
+    built before the gang starts, so no two ranks build at once. Per
+    layout and rank: step ms, peak memory against
+    ``transformer_memory_plan``, launches a step."""
+    import shutil
+    import socket
+
+    import torch
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    log(f"dist: backend {backend}, {cards} card(s), 2 ranks on "
+        f"{'cuda:0 and cuda:1' if cards >= 2 else 'cuda:0'}")
+    from kubeflow_controller_tpu_torch.ops import _build
+
+    _build.load()                       # built before any rank starts
+    out = os.path.join(OUT_DIR, "dist")
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.rmtree(os.path.join(OUT_DIR, "dist_ckpt"), ignore_errors=True)
+    os.makedirs(out)
+    torch.cuda.empty_cache()
+    log(f"dist: this process holds {torch.cuda.memory_allocated() / 1e9:.3f} GB "
+        f"allocated, {torch.cuda.memory_reserved() / 1e9:.3f} GB reserved on cuda:0")
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    spec = json.dumps({"backend": backend, "out": out})
+    procs, logs = [], []
+    for rank in range(2):
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(rank),
+                   CHIP_SMOKE_DIST=spec, PYTHONPATH=ROOT)
+        f = open(os.path.join(out, f"rank{rank}.log"), "w")
+        logs.append(f)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c",
+             "import chip_smoke as c; raise SystemExit(c._dist_worker())"],
+            cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT))
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, DIST_TIMEOUT_S - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            with open(os.path.join(out, f"rank{r}.log")) as f:
+                log(f"dist rank {r} rc={procs[r].returncode}:\n{f.read()[-6000:]}")
+        raise AssertionError(f"dist: rank(s) {bad} failed")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    log(f"dist probe ({backend} on {ranks[0]['device']}): {json.dumps(ranks[0]['probe'])}")
+    runs = {}
+    for case in DIST_CASES:
+        label = case["label"]
+        recs = [rk["cases"][label] for rk in ranks]
+        if "skipped" in recs[0]:
+            log(f"dist[{label}] not run: {backend} on {cards} card(s) cannot run "
+                f"{json.dumps(recs[0]['skipped'])} on CUDA tensors; this layout waits "
+                "for a two-card machine (NCCL)")
+            continue
+        runs[label] = recs
+        for rec in recs:
+            log(f"dist[{label}] {backend} {cards} card(s) {json.dumps(rec)} | {smi}")
+        r0 = recs[0]
+        log(f"dist[{label}] summary ({backend}, {cards} card(s), 2 ranks): step ms "
+            f"{[round(r['step_ms_median_steady'], 2) for r in recs]} (median of the "
+            f"steps after the first, per rank), steps' peak GB "
+            f"{[round(r['peak_steps_gb'], 3) for r in recs]} vs plan {r0['plan_gb']:.3f} (limit "
+            f"{r0['peak_limit_gb']:.3f}), peak with the save {[round(r['peak_gb'], 3) for r in recs]}"
+            f", launches a rank a step "
+            f"{r0['launches_per_step']}, loss rel {r0['loss_rel']:.3g}, change rel L2 "
+            f"{r0['param_change_rel_l2']:.4f} (worst {r0['param_change_rel_l2_worst']}) vs "
+            f"yardstick {r0['yardstick_rel_l2']:.4f} (worst "
+            f"{r0['yardstick_rel_l2_worst']:.4f})"
+            + (f", restored step {r0['restored_step']} equal {r0['restore_equal']}"
+               if "restore_equal" in r0 else "") + f" | {smi}")
+    shutil.rmtree(os.path.join(OUT_DIR, "dist_ckpt"), ignore_errors=True)
+    log(f"dist: {time.perf_counter() - t0:.1f} s of gang")
+    return runs
+
+
 def main() -> int:
     try:
         import torch
@@ -3803,6 +4240,7 @@ def main() -> int:
     train_runs = phase("train", train_phase, smi)
     phase("checkpoint", checkpoint_phase, smi)
     model_runs = phase("models", models_phase, smi)
+    dist_runs = phase("dist", dist_phase, smi)
     launches = runs["fp"][1]
     line = {"kernels": []}
     for name, case, replaces in KERNELS:
@@ -3917,6 +4355,12 @@ def main() -> int:
         "parts": r["parts"], "prepass_ms": r["prepass_ms"],
         "kernels_ms": r["kernels_ms"], "relayout_ms": r["relayout_ms"],
     })
+    # Each rank's launches a step in the gang's layouts (dist_phase).
+    for k in line["kernels"]:
+        if k["name"] in _launches():
+            k["dist_launches_per_rank_step"] = {
+                label: [rec["launches_per_step"].get(k["name"], 0) for rec in recs]
+                for label, recs in dist_runs.items()}
     # The factor that orders the kernel queue: whole call over the library
     # call, both from this run.
     for k in line["kernels"]:

@@ -1,8 +1,13 @@
-"""This process's identity within a job, parsed from the controller's env.
+"""Distributed bootstrap from the controller's env.
 
-Counterpart of ``kubeflow_controller_tpu/dataplane/dist.py``: the env
-parsing only. Bringing up a multi-process runtime
-(``torch.distributed``) belongs to a later slice of the port.
+Counterpart of ``kubeflow_controller_tpu/dataplane/dist.py``, the data
+plane's half of the contract whose control-plane half is
+``tpu/naming.py:coordinator_env``: each gang member reads its identity
+(:class:`ProcessContext`) from the env, and :func:`initialize_from_env`
+brings up ``torch.distributed`` over the coordinator's address for a
+multi-process job (one process per GPU), as the JAX package calls
+``jax.distributed.initialize``. A single-process job creates no
+process group.
 """
 
 from __future__ import annotations
@@ -10,6 +15,9 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 from typing import Dict, Optional
+
+import torch
+import torch.distributed as dist
 
 
 @dataclass
@@ -52,3 +60,67 @@ class ProcessContext:
             log_dir=e.get("TPUJOB_LOG_DIR", ""),
             export_dir=e.get("TPUJOB_EXPORT_DIR", ""),
         )
+
+
+def initialize_from_env(env: Optional[Dict[str, str]] = None,
+                        backend: Optional[str] = None,
+                        device: Optional[str] = None) -> ProcessContext:
+    """Parse the identity env and, for a multi-process job, join the
+    job's process group at ``tcp://$JAX_COORDINATOR_ADDRESS`` as rank
+    ``JAX_PROCESS_ID`` of ``JAX_NUM_PROCESSES``. The backend is NCCL when
+    the process drives a GPU and gloo on the CPU (``device="cpu"``);
+    ``backend`` overrides it (gloo for several ranks on one card, which
+    NCCL refuses). A process drives ``cuda:{process_id % device_count}``
+    (:func:`local_device`). A single-process job, or one whose process
+    group is up already, is left as it is."""
+    ctx = ProcessContext.from_env(env)
+    if ctx.num_processes <= 1 or dist.is_initialized():
+        return ctx
+    if not ctx.coordinator_address:
+        raise ValueError(
+            f"num_processes={ctx.num_processes} but JAX_COORDINATOR_ADDRESS "
+            "is not set")
+    on_gpu = device != "cpu" and torch.cuda.is_available()
+    if on_gpu:
+        torch.cuda.set_device(local_device(ctx))
+    dist.init_process_group(
+        backend=backend or ("nccl" if on_gpu else "gloo"),
+        init_method=f"tcp://{ctx.coordinator_address}",
+        world_size=ctx.num_processes, rank=ctx.process_id)
+    return ctx
+
+
+def local_device(ctx: ProcessContext) -> torch.device:
+    """The GPU this process drives: one per process, round robin over
+    the visible cards."""
+    return torch.device("cuda", ctx.process_id % torch.cuda.device_count())
+
+
+def require_process_group(ctx: ProcessContext) -> None:
+    """Refuse a multi-process job whose process group is not up: training
+    on without it would give each process a private replica."""
+    if ctx.num_processes > 1 and not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"num_processes={ctx.num_processes} but no torch.distributed "
+            "process group is up: call dataplane.dist.initialize_from_env() "
+            "first (each process would otherwise train a replica of its own)")
+    if ctx.num_processes > 1 and dist.get_world_size() != ctx.num_processes:
+        raise RuntimeError(
+            f"num_processes={ctx.num_processes} but the process group has "
+            f"{dist.get_world_size()} ranks")
+
+
+def job_device(ctx: ProcessContext, device=None):
+    """The device an entry point trains on: ``device`` when given, else
+    this rank's GPU under a process group, else ``cuda``."""
+    if device is not None:
+        return device
+    if ctx.num_processes > 1 and torch.cuda.is_available():
+        return local_device(ctx)
+    return None
+
+
+def destroy() -> None:
+    """Leave the process group, if one is up."""
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()

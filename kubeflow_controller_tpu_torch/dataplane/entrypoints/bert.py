@@ -1,4 +1,4 @@
-"""BERT-base masked-LM pretraining entry point on one GPU.
+"""BERT-base masked-LM pretraining entry point.
 
 Counterpart of ``kubeflow_controller_tpu/dataplane/entrypoints/bert.py``:
 ``models/bert.py`` trained through ``TrainLoop`` by AdamW (weight decay
@@ -10,9 +10,11 @@ MLM stream, reporting ``tokens_per_sec``:
 
 ``--attn auto`` takes the flash kernels (B1 forward, B2 fused backward)
 for bf16 rows of at least 256 tokens; ``--quant int8`` runs the encoder's
-projections in int8. Runs on ``cuda`` unless ``device="cpu"``; a
-multi-process job, and tensor or fsdp parallelism (``mesh_config``), are
-refused with "not yet ported".
+projections in int8. Runs on ``cuda`` unless ``device="cpu"``. A
+multi-process job (its process group up through
+``dist.initialize_from_env``, which :func:`main` calls) trains over the
+mesh of ``mesh_config`` (dp and fsdp; ``param_specs`` places the
+parameters); tensor parallelism is refused with "not yet ported".
 """
 
 from __future__ import annotations
@@ -22,9 +24,13 @@ import logging
 from typing import Dict, Optional
 
 from kubeflow_controller_tpu_torch.dataplane import metrics as metrics_sink
-from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
-from kubeflow_controller_tpu_torch.device import DeviceLike
+from kubeflow_controller_tpu_torch.dataplane.dist import (
+    ProcessContext, destroy, initialize_from_env, job_device,
+    require_process_group,
+)
+from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_controller_tpu_torch.models import bert
+from kubeflow_controller_tpu_torch.parallel.mesh import MeshConfig, data_shards, make_mesh
 
 logger = logging.getLogger("tpujob.bert_torch")
 
@@ -53,14 +59,15 @@ def train(
     )
 
     ctx = ctx or ProcessContext.from_env()
-    if mesh_config is not None:
-        raise NotImplementedError("mesh_config (tp/fsdp) is not yet ported")
-    if ctx.num_processes > 1:
+    mesh_config = mesh_config or MeshConfig()
+    if mesh_config.tp > 1:
         raise NotImplementedError(
-            f"multi-process training (num_processes={ctx.num_processes}) "
-            "is not yet ported")
+            f"BERT over tp={mesh_config.tp} is not yet ported (dp and fsdp are)")
+    require_process_group(ctx)
+    dev = resolve_device(job_device(ctx, device))
+    mesh = make_mesh(mesh_config, device_type=dev.type)
     mlog = metrics_sink.from_context(ctx)
-    global_batch = per_data_shard_batch
+    global_batch = per_data_shard_batch * data_shards(mesh)
     cfg = cfg or bert.bert_base_config(max_seq=max(seq_len, 128))
     loop = TrainLoop(
         init_fn=bert.make_init_fn(cfg),
@@ -74,7 +81,9 @@ def train(
             checkpoint_every=checkpoint_every,
         ),
         model_dir=model_dir or ctx.model_dir,
-        device=device,
+        device=dev,
+        mesh=mesh,
+        param_shardings=bert.param_specs(cfg),
     )
     stream = bert.synthetic_mlm_batch(cfg, global_batch, seq_len)
     last: Dict[str, float] = {}
@@ -90,7 +99,8 @@ def train(
                     m.loss, m.extras.get("mlm_accuracy", float("nan")), tps)
 
     try:
-        state = loop.run(device_prefetch(stream, loop.device),
+        state = loop.run(device_prefetch(stream, loop.device,
+                                         rows=loop.local_rows(global_batch)),
                          on_metrics=on_metrics)
     finally:
         if mlog:
@@ -113,12 +123,13 @@ def main(argv=None) -> int:
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
     metrics = train(
-        ProcessContext.from_env(), total_steps=args.total_steps,
+        initialize_from_env(device=args.device), total_steps=args.total_steps,
         per_data_shard_batch=args.batch, seq_len=args.seq_len,
         learning_rate=args.lr,
         cfg=bert.bert_base_config(max_seq=max(args.seq_len, 128),
                                   attn_impl=args.attn, quant=args.quant),
         device=args.device)
+    destroy()             # leave the job's process group, if any
     return 0 if metrics.get("final_step", 0) > 0 else 1
 
 

@@ -1,4 +1,4 @@
-"""Causal-LM pretraining entry point on one GPU, and the model table.
+"""Causal-LM pretraining entry point, and the model table.
 
 Counterpart of ``kubeflow_controller_tpu/dataplane/entrypoints/lm.py``:
 the configurations by name (``CONFIGS``, with ``bench.py``'s flagship
@@ -6,7 +6,8 @@ decoder as ``"flagship"``; the JAX table's other entries are refused by
 name in ``NOT_YET_PORTED`` until a later slice ports them), the token
 streams (:func:`synthetic_lm`, byte for byte the JAX
 package's, and :func:`token_bin_lm`), and :func:`train`, which runs the
-decoder through ``TrainLoop`` on one device:
+decoder through ``TrainLoop`` over the job's mesh (``mesh_config``: dp,
+fsdp and tp; one device for a single-process job):
 
     python -m kubeflow_controller_tpu_torch.dataplane.entrypoints.lm \\
         --config tiny --total-steps 20 --seq-len 128 --device cpu
@@ -19,11 +20,21 @@ shapes allow) and ``opt8bit`` keeps AdamW's moments in 8 bits
 ``model_dir or ctx.model_dir`` (a TPUJob's ``TPUJOB_MODEL_DIR``) as the
 JAX entry point does: resuming from the latest checkpoint there, saving
 every ``checkpoint_every`` steps and at the end (``dataplane/train.py``;
-the format is the port's own, not orbax's). Options of the JAX entry
-point this port does not have yet — tensor, fsdp and sequence
-parallelism and ring attention — are refused with "not yet ported", and
-so is a multi-process job (``ctx.num_processes > 1``). The command line
-takes every option of the JAX entry point's, with the same defaults.
+the format is the port's own, not orbax's). A multi-process job
+(``ctx.num_processes > 1``) needs its process group up
+(``dist.initialize_from_env``, which :func:`main` calls); each process
+drives ``cuda:{process_id % device_count}``. A gang of two on the CPU
+(and the same with ``JAX_PROCESS_ID=1``)::
+
+    JAX_COORDINATOR_ADDRESS=127.0.0.1:29500 JAX_NUM_PROCESSES=2 \\
+    JAX_PROCESS_ID=0 python -m \\
+        kubeflow_controller_tpu_torch.dataplane.entrypoints.lm \\
+        --fsdp 2 --device cpu
+
+Sequence parallelism and ring attention are refused with "not yet
+ported", as are int8 projections and MoE layers over tp > 1 and 8-bit
+Adam over sharded parameters. The command line takes every option of
+the JAX entry point's, with the same defaults.
 """
 
 from __future__ import annotations
@@ -37,9 +48,15 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 
 from kubeflow_controller_tpu_torch.dataplane import metrics as metrics_sink
-from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
-from kubeflow_controller_tpu_torch.device import DeviceLike
+from kubeflow_controller_tpu_torch.dataplane.dist import (
+    ProcessContext, destroy, initialize_from_env, job_device,
+    require_process_group,
+)
+from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_controller_tpu_torch.models import transformer as tfm
+from kubeflow_controller_tpu_torch.parallel.mesh import (
+    MeshConfig, data_shards, mesh_for_context, row_source, use_mesh,
+)
 
 logger = logging.getLogger("tpujob.lm_torch")
 
@@ -162,6 +179,7 @@ def train(
     per_data_shard_batch: int = 4,
     seq_len: int = 512,
     learning_rate: float = 3e-4,
+    mesh_config: Optional[MeshConfig] = None,
     attn: str = "auto",
     model_dir: str = "",
     checkpoint_every: int = 0,
@@ -171,37 +189,37 @@ def train(
     grad_accum: int = 1,
     data_file: str = "",
     opt8bit: bool = False,
-    tp: int = 1,
-    fsdp: int = 1,
-    sp: int = 1,
     device: DeviceLike = None,
 ) -> Dict[str, float]:
-    """Train ``config`` up to step ``total_steps`` on one device, into
-    and from ``model_dir or ctx.model_dir`` when set (``checkpoint_every``
+    """Train ``config`` up to step ``total_steps`` over the mesh of
+    ``mesh_config`` (default: pure dp over the job's ranks), into and
+    from ``model_dir or ctx.model_dir`` when set (``checkpoint_every``
     and ``keep_checkpoints`` as in ``TrainLoopConfig``); returns the last
     logged metrics (``loss``, ``step``, ``tokens_per_sec``, ``accuracy``,
-    ``perplexity``), ``final_step`` and ``start_step`` (the restored step,
-    0 on a fresh start)."""
+    ``perplexity``; the global batch's), ``final_step`` and
+    ``start_step`` (the restored step, 0 on a fresh start). The global
+    batch is ``per_data_shard_batch`` times the mesh's data shards."""
     from kubeflow_controller_tpu_torch.dataplane.train import (
         TrainLoop, TrainLoopConfig, device_prefetch,
     )
     from kubeflow_controller_tpu_torch.optim import make_optimizer
 
-    for name, value in (("tp", tp), ("fsdp", fsdp), ("sp", sp)):
-        if value != 1:
-            raise NotImplementedError(
-                f"{name}={value}: multi-device training is not yet ported")
     ctx = ctx or ProcessContext.from_env()
+    mesh_config = mesh_config or MeshConfig()
     if attn == "ring":
         raise NotImplementedError("attn='ring' is not yet ported")
-    if ctx.num_processes > 1:
+    if mesh_config.sp > 1:
         raise NotImplementedError(
-            f"multi-process training (num_processes={ctx.num_processes}) "
-            "is not yet ported: each process would train its own replica")
-    mlog = metrics_sink.from_context(ctx)
+            f"sp={mesh_config.sp}: sequence parallelism is not yet ported")
+    require_process_group(ctx)
+    dev = resolve_device(job_device(ctx, device))
+    mesh = mesh_for_context(ctx, mesh_config, device_type=dev.type)
     cfg = model_config(config, max_seq=max(seq_len, 128), attn_impl=attn,
                        quant=quant)
-    global_batch = per_data_shard_batch
+    with use_mesh(mesh):
+        tfm.check_mesh(cfg)
+    mlog = metrics_sink.from_context(ctx)
+    global_batch = per_data_shard_batch * data_shards(mesh)
     loop = TrainLoop(
         init_fn=tfm.make_init_fn(cfg),
         loss_fn=tfm.make_loss_fn(cfg),
@@ -212,7 +230,9 @@ def train(
                                keep_checkpoints=keep_checkpoints,
                                grad_accum=grad_accum),
         model_dir=model_dir or ctx.model_dir,
-        device=device,
+        device=dev,
+        mesh=mesh,
+        param_shardings=tfm.param_specs(cfg),
     )
     # A real corpus when given (data_file, or train.bin in the job's
     # data dir), the synthetic stream otherwise; pack opts out of the
@@ -225,13 +245,18 @@ def train(
         if pack:
             raise ValueError("--pack is for the synthetic stream; a "
                              "token-bin corpus is already contiguous text")
+        # Seeded by process as the JAX package seeds it, but every rank
+        # of one data shard (its tp and sp ranks) takes the seed of the
+        # shard's first rank, so that they hold the same rows.
+        seed = row_source(mesh)
         stream = token_bin_lm(data_file, global_batch, seq_len,
-                              seed=ctx.process_id, vocab_size=cfg.vocab_size)
-        logger.info("training on %s (shard seed %d)", data_file,
-                    ctx.process_id)
+                              seed=seed, vocab_size=cfg.vocab_size)
+        logger.info("training on %s (shard seed %d)", data_file, seed)
     else:
         stream = synthetic_lm(cfg.vocab_size, global_batch, seq_len, pack=pack)
-    data = device_prefetch(stream, loop.device)
+    # Every rank draws the global batch and keeps its rows.
+    data = device_prefetch(stream, loop.device,
+                           rows=loop.local_rows(global_batch))
     last: Dict[str, float] = {}
 
     def on_metrics(m):
@@ -284,15 +309,18 @@ def main(argv=None) -> int:
                         "defaults to $TPUJOB_DATA_DIR/train.bin if present")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
+    ctx = initialize_from_env(device=args.device)
     metrics = train(
-        ProcessContext.from_env(),
+        ctx,
         config=args.config, total_steps=args.total_steps,
         per_data_shard_batch=args.batch, seq_len=args.seq_len,
         learning_rate=args.lr, attn=args.attn, pack=args.pack,
         quant=args.quant, grad_accum=args.grad_accum, data_file=args.data,
-        opt8bit=args.opt8, tp=args.tp, fsdp=args.fsdp, sp=args.sp,
+        opt8bit=args.opt8,
+        mesh_config=MeshConfig(fsdp=args.fsdp, sp=args.sp, tp=args.tp),
         device=args.device,
     )
+    destroy()             # leave the job's process group, if any
     return 0 if metrics.get("final_step", 0) > 0 else 1
 
 

@@ -1,4 +1,4 @@
-"""MNIST training entry point on one GPU.
+"""MNIST training entry point.
 
 Counterpart of ``kubeflow_controller_tpu/dataplane/entrypoints/mnist.py``:
 the MLP (``models/mnist.py``) trained by Adam through ``TrainLoop``, with
@@ -10,8 +10,11 @@ they are there, and on the synthetic teacher task otherwise:
         --device cpu
 
 On real data it also reports ``test_accuracy`` over the whole test split.
-Runs on ``cuda`` unless ``device="cpu"``; a multi-process job
-(``ctx.num_processes > 1``) is refused with "not yet ported".
+Runs on ``cuda`` unless ``device="cpu"``. A multi-process job
+(``ctx.num_processes > 1``, its process group up through
+``dist.initialize_from_env``, which :func:`main` calls) trains pure dp
+over every rank, as the JAX package's ``make_mesh(MeshConfig())``: the
+batch rounds up to a multiple of the data shards.
 """
 
 from __future__ import annotations
@@ -23,9 +26,13 @@ from typing import Dict, Optional
 import torch
 
 from kubeflow_controller_tpu_torch.dataplane import metrics as metrics_sink
-from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
-from kubeflow_controller_tpu_torch.device import DeviceLike
+from kubeflow_controller_tpu_torch.dataplane.dist import (
+    ProcessContext, destroy, initialize_from_env, job_device,
+    require_process_group,
+)
+from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_controller_tpu_torch.models import mnist
+from kubeflow_controller_tpu_torch.parallel.mesh import MeshConfig, data_shards, make_mesh
 
 logger = logging.getLogger("tpujob.mnist_torch")
 
@@ -51,12 +58,18 @@ def train(
     from kubeflow_controller_tpu_torch.optim import adam
 
     ctx = ctx or ProcessContext.from_env()
-    if ctx.num_processes > 1:
-        raise NotImplementedError(
-            f"multi-process training (num_processes={ctx.num_processes}) "
-            "is not yet ported")
+    require_process_group(ctx)
+    dev = resolve_device(job_device(ctx, device))
     data_dir = data_dir or ctx.data_dir
     mlog = metrics_sink.from_context(ctx)
+    mesh = make_mesh(MeshConfig(), device_type=dev.type)   # pure dp
+    n_data = data_shards(mesh)
+    if batch_size % n_data:
+        # The reference's default 100 does not divide every mesh: round
+        # up so that every rank gets equal work.
+        batch_size = -(-batch_size // n_data) * n_data
+        logger.info("rounded batch size up to %d (mesh has %d data shards)",
+                    batch_size, n_data)
     model = mnist.MnistMLP(hidden=hidden)
     loop = TrainLoop(
         init_fn=mnist.make_init_fn(model),
@@ -70,7 +83,8 @@ def train(
         ),
         model_dir=model_dir or ctx.model_dir,
         eval_fn=mnist.make_eval_fn(model),
-        device=device,
+        device=dev,
+        mesh=mesh,
     )
     last: Dict[str, float] = {}
 
@@ -107,7 +121,8 @@ def train(
         eval_iter = mnist.synthetic_mnist(batch_size, seed=1)   # held out
 
     try:
-        state = loop.run(device_prefetch(train_iter, loop.device),
+        rows = loop.local_rows(batch_size)
+        state = loop.run(device_prefetch(train_iter, loop.device, rows=rows),
                          on_metrics=on_metrics, eval_iter=eval_iter)
     finally:
         if mlog:
@@ -131,8 +146,9 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    metrics = train(ProcessContext.from_env(), device=args.device)
+    metrics = train(initialize_from_env(device=args.device), device=args.device)
     # Success: the controller marks the job Succeeded on exit 0.
+    destroy()             # leave the job's process group, if any
     return 0 if metrics.get("accuracy", 0.0) > 0.5 else 1
 
 

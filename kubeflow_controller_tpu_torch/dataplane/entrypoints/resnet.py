@@ -1,4 +1,4 @@
-"""ResNet-50 ImageNet training entry point on one GPU.
+"""ResNet-50 ImageNet training entry point.
 
 Counterpart of ``kubeflow_controller_tpu/dataplane/entrypoints/
 resnet.py``: ``models/resnet.py`` trained through a stateful
@@ -6,13 +6,17 @@ resnet.py``: ``models/resnet.py`` trained through a stateful
 momentum 0.9 under the warmup-cosine schedule, on the synthetic
 ImageNet stream with uint8 images on the wire. It reports the
 reference's metrics, ``images_per_sec`` and ``images_per_sec_per_chip``
-(here per card: one card):
+(per card: one card a rank):
 
     python -m kubeflow_controller_tpu_torch.dataplane.entrypoints.resnet \\
         --total-steps 8
 
-Runs on ``cuda`` unless ``device="cpu"``; a multi-process job is refused
-with "not yet ported".
+Runs on ``cuda`` unless ``device="cpu"``. A multi-process job (its
+process group up through ``dist.initialize_from_env``, which
+:func:`main` calls) trains over every rank, as the JAX package's
+``make_mesh(MeshConfig())``: ``per_chip_batch`` rows a rank, BatchNorm's
+statistics over the global batch, parameters placed by the fsdp
+heuristic (which leaves them whole at fsdp 1).
 """
 
 from __future__ import annotations
@@ -22,9 +26,14 @@ import logging
 from typing import Dict, Optional
 
 from kubeflow_controller_tpu_torch.dataplane import metrics as metrics_sink
-from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
-from kubeflow_controller_tpu_torch.device import DeviceLike
+from kubeflow_controller_tpu_torch.dataplane.dist import (
+    ProcessContext, destroy, initialize_from_env, job_device,
+    require_process_group,
+)
+from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_controller_tpu_torch.models import resnet
+from kubeflow_controller_tpu_torch.parallel.mesh import MeshConfig, data_shards, make_mesh
+from kubeflow_controller_tpu_torch.parallel.sharding import infer_param_sharding
 
 logger = logging.getLogger("tpujob.resnet_torch")
 
@@ -52,12 +61,11 @@ def train(
     )
 
     ctx = ctx or ProcessContext.from_env()
-    if ctx.num_processes > 1:
-        raise NotImplementedError(
-            f"multi-process training (num_processes={ctx.num_processes}) "
-            "is not yet ported")
+    require_process_group(ctx)
+    dev = resolve_device(job_device(ctx, device))
     mlog = metrics_sink.from_context(ctx)
-    global_batch = per_chip_batch
+    mesh = make_mesh(MeshConfig(), device_type=dev.type)
+    global_batch = per_chip_batch * data_shards(mesh)
     model = model or resnet.resnet50()
     tx = SGD(warmup_cosine_decay_schedule(
         0.0, learning_rate, min(500, total_steps // 10 + 1), total_steps),
@@ -73,12 +81,15 @@ def train(
         ),
         model_dir=model_dir or ctx.model_dir,
         stateful=True,
-        device=device,
+        device=dev,
+        mesh=mesh,
+        param_shardings=lambda params: infer_param_sharding(
+            params, mesh, reference_axes=resnet.flax_axes),
     )
     data = device_prefetch(
         resnet.synthetic_imagenet(global_batch, image_size, model.num_classes,
                                   uint8=True),
-        loop.device)
+        loop.device, rows=loop.local_rows(global_batch))
     last: Dict[str, float] = {}
 
     def on_metrics(m):
@@ -87,9 +98,10 @@ def train(
                                 "steps_per_sec": m.steps_per_sec, **m.extras})
         ips = m.steps_per_sec * global_batch
         last.update({"loss": m.loss, "step": m.step, "images_per_sec": ips,
-                     "images_per_sec_per_chip": ips, **m.extras})
-        logger.info("step %d loss %.4f acc %.3f (%.1f img/s on one card)",
-                    m.step, m.loss, m.extras.get("accuracy", float("nan")), ips)
+                     "images_per_sec_per_chip": ips / mesh.size, **m.extras})
+        logger.info("step %d loss %.4f acc %.3f (%.1f img/s, %.1f img/s/card)",
+                    m.step, m.loss, m.extras.get("accuracy", float("nan")), ips,
+                    ips / mesh.size)
 
     try:
         state = loop.run(data, on_metrics=on_metrics)
@@ -108,9 +120,11 @@ def main(argv=None) -> int:
     p.add_argument("--image-size", type=int, default=resnet.IMAGE_SIZE)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    metrics = train(ProcessContext.from_env(), total_steps=args.total_steps,
+    metrics = train(initialize_from_env(device=args.device),
+                    total_steps=args.total_steps,
                     per_chip_batch=args.batch, image_size=args.image_size,
                     device=args.device)
+    destroy()             # leave the job's process group, if any
     return 0 if metrics.get("final_step", 0) > 0 else 1
 
 

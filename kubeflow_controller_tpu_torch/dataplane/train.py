@@ -1,9 +1,20 @@
-"""The train loop on one device.
+"""The train loop, on one device or over a mesh of ranks.
 
-Counterpart of ``kubeflow_controller_tpu/dataplane/train.py``: the
-parameter tree and its optimizer state live on one device; each step
+Counterpart of ``kubeflow_controller_tpu/dataplane/train.py``: each step
 runs the loss's forward and backward (over ``grad_accum`` microbatches,
-gradients averaged) and one optimizer update, in place. Host batches
+gradients averaged) and one optimizer update, in place.
+
+Over a mesh (``parallel/mesh.py``, one rank a device) every rank holds
+its chunk of each parameter as ``param_shardings`` places it (the fsdp
+heuristic ``infer_param_sharding`` when none are given), and the
+optimizer's state for that chunk (moments live where their parameter
+lives). A step gathers each parameter's compute view
+(``parallel/sharding.py``: whole but for tp-sharded dimensions), runs
+the loss on this rank's rows of the global batch (:meth:`TrainLoop.
+local_rows`, the counterpart of ``host_to_global``), reduces each
+gradient over the data ranks to this rank's chunk, and reports the loss
+and metrics as means over the data ranks: the global batch's, as the
+JAX loop logs them. Host batches
 reach the card through :func:`device_prefetch` (a producer thread
 pins them; each copy is ``non_blocking``). Like the JAX loop, it reads
 device values only at log points, so steps queue on the card between
@@ -26,7 +37,10 @@ the directory ``model_dir/<step>/`` holding ``params.pt`` (the step, the
 parameters and the model state) and ``opt.pt`` (the optimizer's whole
 state), written with ``torch.save`` into a temporary directory that is
 then renamed, so a save cut short never leaves a checkpoint that
-:meth:`restore` would pick. The JAX package's checkpoints are orbax
+:meth:`restore` would pick. Over a mesh every rank gathers the whole
+state and the mesh's first rank writes it, in the one-device layout;
+every rank restores the whole state and keeps its chunks, so a
+checkpoint resumes at another world size and serves on one card. The JAX package's checkpoints are orbax
 directories, which this format does not read; ``convert.py`` carries
 JAX weights across as numpy arrays.
 
@@ -58,8 +72,14 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 import numpy as np
 import torch
 
+import torch.distributed as dist
+
 from kubeflow_controller_tpu_torch.convert import tree_leaves, tree_unflatten
 from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
+from kubeflow_controller_tpu_torch.parallel import sharding
+from kubeflow_controller_tpu_torch.parallel.mesh import (
+    AXES, DATA_AXES, Mesh, MeshConfig, batch_rows, make_mesh, use_mesh,
+)
 
 logger = logging.getLogger("tpujob.train_torch")
 
@@ -113,7 +133,8 @@ def _host_stack(arrays: List[np.ndarray], pin: bool) -> torch.Tensor:
 def device_prefetch(data_iter: Iterator[Dict[str, np.ndarray]],
                     device: DeviceLike = None, size: int = 2,
                     chunk: int = 1,
-                    yield_chunks: bool = False) -> Iterator[Dict[str, torch.Tensor]]:
+                    yield_chunks: bool = False,
+                    rows: Optional[np.ndarray] = None) -> Iterator[Dict[str, torch.Tensor]]:
     """Host batches (dicts of numpy arrays) -> batches on ``device``.
     A producer thread stacks up to ``chunk`` batches into host tensors
     (one copy, pinned when the device is a card), ``size`` chunks ahead
@@ -122,7 +143,8 @@ def device_prefetch(data_iter: Iterator[Dict[str, np.ndarray]],
     instead of stopping the host. Yields the chunk's batches one by one, or, with
     ``yield_chunks``, the whole ``[n, ...]`` chunk (the input of
     ``TrainLoopConfig.steps_per_call``). A finite stream's last, partial
-    chunk is yielded too."""
+    chunk is yielded too. ``rows`` keeps only those rows of each host
+    batch (this rank's, ``TrainLoop.local_rows``)."""
     dev = resolve_device(device)
     pin = dev.type == "cuda"
     data_iter = iter(data_iter)
@@ -137,6 +159,9 @@ def device_prefetch(data_iter: Iterator[Dict[str, np.ndarray]],
                     break
             if not batches:
                 return
+            if rows is not None:
+                batches = [{k: np.asarray(v)[rows] for k, v in b.items()}
+                           for b in batches]
             yield {k: _host_stack([b[k] for b in batches], pin)
                    for k in batches[0]}
             if len(batches) < chunk:
@@ -228,7 +253,18 @@ class TrainLoop:
     (with ``stateful``: ``init_fn -> (params, model_state)`` and
     ``loss_fn(params, model_state, batch) -> (loss, (metrics,
     new_model_state))``); ``optimizer`` has ``init(params)`` and
-    ``update(params, grads)`` (``optim.AdamW``, ``optim.SGD``)."""
+    ``update(params, grads)`` (``optim.AdamW``, ``optim.SGD``).
+
+    ``mesh`` (default: the whole world, pure dp; one rank without a
+    process group) and ``param_shardings`` (a tree of specs, or a
+    function of the initial parameters returning one) place the state;
+    the loss runs under ``use_mesh(mesh)``. Batches given to :meth:`step`
+    are this rank's rows of the global batch. A step computes with each
+    parameter's compute view (``sharding.gather_for_compute``); when
+    ``loss_fn.gathers_params`` is true (the decoder's, BERT's) it hands
+    the loss the chunks of the leaves a view would gather instead, and
+    the model gathers each where it uses it, a layer at a time
+    (``sharding.gathered_in_model``)."""
 
     def __init__(
         self,
@@ -241,6 +277,8 @@ class TrainLoop:
         stateful: bool = False,
         eval_fn: Optional[Callable[..., Dict]] = None,
         device: DeviceLike = None,
+        mesh: Optional[Mesh] = None,
+        param_shardings: Any = None,
     ):
         self.config = config or TrainLoopConfig()
         cfg = self.config
@@ -255,10 +293,33 @@ class TrainLoop:
         self.eval_fn = eval_fn
         self.stateful = stateful
         self.tx = optimizer
+        self.mesh = mesh if mesh is not None else make_mesh(
+            MeshConfig(), device_type=self.device.type)
+        if self.mesh.coords is None:
+            raise ValueError(f"rank {self.mesh.rank} is not in {self.mesh}")
+        # Collectives run only over a mesh of more than one rank.
+        self.distributed = self.mesh.size > 1
         init_out = init_fn(seed, self.device)
         params, model_state = init_out if stateful else (init_out, {})
-        for p in tree_leaves(params):
-            p.requires_grad_(True)
+        specs = (param_shardings(params) if callable(param_shardings)
+                 else param_shardings)
+        if specs is None:
+            specs = sharding.infer_param_sharding(params, self.mesh)
+        self.param_shardings = specs
+        self._specs = sharding.spec_leaves(specs)
+        self._full_shapes = [tuple(p.shape) for p in tree_leaves(params)]
+        # The leaves the model gathers itself: their gradients arrive
+        # reduced to the chunk.
+        self._in_model = [
+            self.distributed and getattr(loss_fn, "gathers_params", False)
+            and sharding.needs_gather(s, self.mesh, len(shape))
+            for s, shape in zip(self._specs, self._full_shapes)]
+        if self.distributed:
+            params = sharding.shard_params(params, specs, self.mesh)
+            self._check_optimizer()
+        else:
+            for p in tree_leaves(params):
+                p.requires_grad_(True)
         optimizer.init(params)
         self.state = TrainState(step=0, params=params, model_state=model_state)
         self.start_step = 0        # the step the last run() began at
@@ -266,28 +327,109 @@ class TrainLoop:
         self._saver: Optional[threading.Thread] = None
         self._save_error: Optional[BaseException] = None
 
-    def _grads(self, batch, model_state):
-        """Gradients, loss and metrics of one (micro)batch, and the model
-        state after it (``model_state`` itself when not stateful)."""
-        params = self.state.params
+    def _check_optimizer(self) -> None:
+        from kubeflow_controller_tpu_torch.ops.optim8 import AdamW8bit
+
+        if isinstance(self.tx, AdamW8bit) and any(
+                sharding.is_sharded(s, self.mesh, len(shape))
+                for s, shape in zip(self._specs, self._full_shapes)):
+            raise NotImplementedError(
+                "8-bit AdamW on sharded parameters (fsdp or tp > 1) is not "
+                "yet ported: its per-row scales and size threshold are the "
+                "whole leaf's")
+
+    def local_rows(self, global_batch: int) -> Optional[np.ndarray]:
+        """This rank's rows of a ``global_batch``-row batch
+        (``parallel.mesh.batch_rows`` at the loop's ``grad_accum``), or
+        ``None`` (every row) on one rank."""
+        if not self.distributed:
+            return None
+        return batch_rows(self.mesh, global_batch, self.config.grad_accum)
+
+    def _views(self) -> List[torch.Tensor]:
+        """The parameters the loss computes with: the parameters
+        themselves on one rank, else each one's gathered compute view
+        (a leaf of its own)."""
+        leaves = tree_leaves(self.state.params)
+        if not self.distributed:
+            return leaves
+        with torch.no_grad():
+            return [sharding.gather_for_compute(p, s, self.mesh).requires_grad_(True)
+                    for p, s in zip(leaves, self._specs)]
+
+    def _step_views(self) -> List[torch.Tensor]:
+        """The leaves a step differentiates: each parameter's compute
+        view, or, for one the model gathers itself, its chunk."""
+        if not any(self._in_model):
+            return self._views()
+        leaves = tree_leaves(self.state.params)
+        with torch.no_grad():
+            return [(p.detach() if own else sharding.gather_for_compute(p, s, self.mesh)
+                     ).requires_grad_(True)
+                    for p, s, own in zip(leaves, self._specs, self._in_model)]
+
+    def _data_mean(self, values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Each metric's mean over the data ranks (perplexity's geometric
+        mean: exp of the mean cross entropy)."""
+        group = self.mesh.group(*DATA_AXES)
+        if group is None:
+            return values
+        keys = list(values)
+        stack = torch.stack([
+            torch.log(values[k].float()) if k == "perplexity" else values[k].float()
+            for k in keys])
+        dist.all_reduce(stack, group=group)
+        stack = stack / self.mesh.axis_size(*DATA_AXES)
+        return {k: torch.exp(v) if k == "perplexity" else v
+                for k, v in zip(keys, stack.unbind())}
+
+    def _grads(self, views, batch, model_state):
+        """Gradients (of ``views``), loss and metrics of one (micro)batch,
+        and the model state after it (``model_state`` itself when not
+        stateful)."""
+        params = tree_unflatten(self.state.params, views)
         if self.stateful:
             loss, (metrics, model_state) = self.loss_fn(params, model_state, batch)
             model_state = tree_unflatten(model_state, [
                 t.detach() for t in tree_leaves(model_state)])
         else:
             loss, metrics = self.loss_fn(params, batch)
-        grads = torch.autograd.grad(loss, tree_leaves(params))
+        grads = torch.autograd.grad(loss, views)
         return (list(grads), loss.detach(),
                 {k: v.detach() for k, v in metrics.items()}, model_state)
 
     def step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """One optimizer step on ``batch`` (already on the device);
-        returns the step's metrics as device scalars (``loss`` and the
-        loss function's metrics)."""
+        """One optimizer step on ``batch`` (this rank's rows, already on
+        the device); returns the step's metrics as device scalars
+        (``loss`` and the loss function's metrics; over a mesh, their
+        means over the data ranks)."""
+        with use_mesh(self.mesh):
+            return self._step(batch)
+
+    def _step(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        views = self._step_views()
+        own = [(v, s) for v, s, o in zip(views, self._specs, self._in_model) if o]
+        with sharding.gathered_in_model([v for v, _ in own], [s for _, s in own],
+                                        self.mesh):
+            grads, loss, metrics, model_state = self._accumulate(views, batch)
+        del views, own
+        if self.distributed:
+            grads = [g if mine else sharding.reduce_grad(g, s, self.mesh)
+                     for g, s, mine in zip(grads, self._specs, self._in_model)]
+            metrics = self._data_mean({"loss": loss, **metrics})
+            loss = metrics.pop("loss")
+        self.tx.update(self.state.params, tree_unflatten(self.state.params, grads))
+        self.state.model_state = model_state
+        self.state.step += 1
+        return {"loss": loss, **metrics}
+
+    def _accumulate(self, views, batch):
+        """Gradients, loss, metrics and model state of one step's batch,
+        over its ``grad_accum`` microbatches."""
         A = self.config.grad_accum
         model_state = self.state.model_state
         if A == 1:
-            grads, loss, metrics, model_state = self._grads(batch, model_state)
+            grads, loss, metrics, model_state = self._grads(views, batch, model_state)
         else:
             for k, v in batch.items():
                 if v.shape[0] % A:
@@ -301,7 +443,7 @@ class TrainLoop:
             for mb in micro:
                 # The model state threads through the microbatches in
                 # order, as it would across real steps.
-                g, loss, metrics, model_state = self._grads(mb, model_state)
+                g, loss, metrics, model_state = self._grads(views, mb, model_state)
                 grads = g if grads is None else [a.add_(b) for a, b in zip(grads, g)]
                 losses.append(loss)
                 metricses.append(metrics)
@@ -314,10 +456,7 @@ class TrainLoop:
                 # perplexities, as an un-accumulated step reports it.
                 metrics["perplexity"] = torch.exp(torch.stack(
                     [torch.log(m["perplexity"]) for m in metricses]).mean())
-        self.tx.update(self.state.params, tree_unflatten(self.state.params, grads))
-        self.state.model_state = model_state
-        self.state.step += 1
-        return {"loss": loss, **metrics}
+        return grads, loss, metrics, model_state
 
     def steps(self, chunk: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One step per leading index of the ``[K, ...]`` ``chunk``, in
@@ -327,26 +466,38 @@ class TrainLoop:
         return {k: torch.stack([m[k] for m in out]) for k in out[0]}
 
     def _on_device(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: (v if isinstance(v, torch.Tensor)
-                    else torch.from_numpy(np.ascontiguousarray(v))).to(self.device)
-                for k, v in batch.items()}
+        """A global host batch -> this rank's rows of it on the device."""
+        rows = None
+        if self.distributed:
+            rows = batch_rows(self.mesh, len(next(iter(batch.values()))))
+        out = {}
+        for k, v in batch.items():
+            v = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+            if rows is not None:
+                v = v[torch.from_numpy(rows)]
+            out[k] = v.to(self.device)
+        return out
 
     @torch.no_grad()
     def evaluate(self, eval_iter: Iterator[Any], batches: int = 1) -> Dict[str, float]:
-        """``eval_fn`` over ``batches`` batches of ``eval_iter`` (numpy or
-        tensors); the mean of each metric. Sums on the device and reads
-        once at the end."""
+        """``eval_fn`` over ``batches`` global batches of ``eval_iter``
+        (numpy or tensors; over a mesh each rank evaluates its rows); the
+        mean of each metric. Sums on the device and reads once at the
+        end."""
         if self.eval_fn is None:
             raise ValueError("TrainLoop built without eval_fn")
         acc: Dict[str, torch.Tensor] = {}
-        for _ in range(batches):
-            batch = self._on_device(next(eval_iter))
-            if self.stateful:
-                out = self.eval_fn(self.state.params, self.state.model_state, batch)
-            else:
-                out = self.eval_fn(self.state.params, batch)
-            for k, v in out.items():
-                acc[k] = v if k not in acc else acc[k] + v
+        with use_mesh(self.mesh):
+            params = tree_unflatten(self.state.params, self._views())
+            for _ in range(batches):
+                batch = self._on_device(next(eval_iter))
+                if self.stateful:
+                    out = self.eval_fn(params, self.state.model_state, batch)
+                else:
+                    out = self.eval_fn(params, batch)
+                for k, v in out.items():
+                    acc[k] = v if k not in acc else acc[k] + v
+            acc = self._data_mean(acc)
         return {k: float(v) / batches for k, v in acc.items()}
 
     # -- checkpointing -------------------------------------------------------
@@ -363,15 +514,17 @@ class TrainLoop:
         if not self.model_dir:
             return
         step = int(self.state.step)
-        if os.path.exists(os.path.join(self.model_dir, str(step))):
+        if self._agree(os.path.exists(os.path.join(self.model_dir, str(step)))):
             return
-        params = tree_unflatten(self.state.params, [
-            p.detach() for p in tree_leaves(self.state.params)])
+        params, opt = self._whole_state()
         payload = ({"step": step, "params": params,
-                    "model_state": self.state.model_state},
-                   self.tx.state_dict())
+                    "model_state": self.state.model_state}, opt)
         if wait:
-            self._write(step, payload)
+            if self._writer():
+                self._write(step, payload)
+            self._barrier()     # the other ranks see the checkpoint
+            return
+        if not self._writer():
             return
         # The optimizer updates the parameters and its state in place:
         # the background thread writes a host copy taken now.
@@ -379,6 +532,60 @@ class TrainLoop:
         self._saver = threading.Thread(
             target=self._write_async, args=(step, payload), daemon=True)
         self._saver.start()
+
+    def _mesh_group(self):
+        return self.mesh.group(*AXES)
+
+    def _writer(self) -> bool:
+        """Whether this rank writes checkpoints: the mesh's first."""
+        return self.mesh.rank == int(self.mesh.devices.flat[0])
+
+    def _barrier(self) -> None:
+        if self.distributed:
+            dist.barrier(group=self._mesh_group())
+
+    def _agree(self, value: int) -> int:
+        """The largest of the mesh's ranks' ``value``s (so that every
+        rank takes the same branch)."""
+        if not self.distributed:
+            return int(value)
+        t = torch.tensor([int(value)], dtype=torch.int64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._mesh_group())
+        return int(t.item())
+
+    def _whole_state(self):
+        """The whole parameters and optimizer state (gathered from every
+        rank's chunks over a mesh), detached."""
+        leaves = tree_leaves(self.state.params)
+        opt = self.tx.state_dict()
+        if not self.distributed:
+            return tree_unflatten(self.state.params, [p.detach() for p in leaves]), opt
+        params = tree_unflatten(self.state.params, [
+            sharding.gather_full(p.detach(), s, self.mesh)
+            for p, s in zip(leaves, self._specs)])
+        if "opt" in opt:          # a torch.optim state (AdamW, SGD)
+            inner = opt["opt"]
+            specs = sharding.opt_state_specs(
+                inner["state"], [p.shape for p in leaves], self._specs)
+            inner = dict(inner, state={
+                i: {k: sharding.gather_full(v, specs[i][k], self.mesh)
+                    if isinstance(v, torch.Tensor) else v for k, v in st.items()}
+                for i, st in inner["state"].items()})
+            opt = dict(opt, opt=inner)
+        return params, opt
+
+    def _shard_opt_state(self, opt):
+        """A whole optimizer state (from a checkpoint) -> this rank's."""
+        if not self.distributed or "opt" not in opt:
+            return opt
+        inner = opt["opt"]
+        specs = sharding.opt_state_specs(inner["state"], self._full_shapes, self._specs)
+        inner = dict(inner, state={
+            i: {k: sharding.local_shard(v, specs[i][k], self.mesh)
+                if isinstance(v, torch.Tensor) and v.ndim > 0 else v
+                for k, v in st.items()}
+            for i, st in inner["state"].items()})
+        return dict(opt, opt=inner)
 
     def wait_for_save(self) -> None:
         """Wait for the background save in flight, if any; raise its
@@ -415,20 +622,23 @@ class TrainLoop:
         and the step, on the loop's device. The path by which a preempted job continues
         instead of starting again at step 0."""
         self.wait_for_save()
+        self._barrier()
         steps = checkpoint_steps(self.model_dir)
-        if not steps:
+        latest = self._agree(steps[-1] if steps else -1)
+        if latest < 0:
             return False
-        path = os.path.join(self.model_dir, str(steps[-1]))
+        path = os.path.join(self.model_dir, str(latest))
         ckpt = torch.load(os.path.join(path, PARAMS_FILE),
                           map_location=self.device, weights_only=True)
         with torch.no_grad():
-            for p, q in zip(tree_leaves(self.state.params),
-                            tree_leaves(ckpt["params"])):
-                p.copy_(q)
+            for p, q, s in zip(tree_leaves(self.state.params),
+                               tree_leaves(ckpt["params"]), self._specs):
+                p.copy_(sharding.local_shard(q, s, self.mesh)
+                        if self.distributed else q)
         self.state.model_state = ckpt.get("model_state", {})
-        self.tx.load_state_dict(torch.load(
+        self.tx.load_state_dict(self._shard_opt_state(torch.load(
             os.path.join(path, OPT_FILE), map_location=self.device,
-            weights_only=True))
+            weights_only=True)))
         self.state.step = int(ckpt["step"])
         logger.info("restored checkpoint at step %d", self.state.step)
         return True

@@ -17,6 +17,10 @@ Remat: each layer runs under ``torch.utils.checkpoint`` when
 ``cfg.remat`` is true, so the backward runs every layer's forward again
 (one more B1 launch a layer). The JAX package saves the projections'
 outputs (``dots_with_no_batch_dims_saveable``) and so recomputes less.
+
+Over a mesh (``dataplane/train.py``), :func:`param_specs` places the
+parameters as the JAX package's do and the loss divides by the scored
+positions of the global batch; tensor parallelism is not ported.
 """
 
 from __future__ import annotations
@@ -34,6 +38,10 @@ from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_controller_tpu_torch.models.transformer import _LogitsF32
 from kubeflow_controller_tpu_torch.ops.attention import mha
 from kubeflow_controller_tpu_torch.ops.quant import maybe_quant_dot
+from kubeflow_controller_tpu_torch.parallel.collectives import (
+    masked_denominator, tp_size,
+)
+from kubeflow_controller_tpu_torch.parallel.sharding import P, layers, view
 
 Params = Dict[str, Any]
 
@@ -133,10 +141,43 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")          # jax.nn.gelu's default
 
 
+def param_specs(cfg: BertConfig) -> Params:
+    """The placement of every parameter (``parallel/sharding.py``), as
+    the JAX package's ``param_specs``. The port trains BERT over the
+    data axes (dp, fsdp) only: a mesh with ``tp > 1`` is refused by
+    :func:`mlm_loss`."""
+    return {
+        "embed": P("tp", "fsdp"),
+        "pos_embed": P(None, "fsdp"),
+        "embed_norm": {"scale": P(None), "bias": P(None)},
+        "layers": {
+            "wq": P(None, "fsdp", "tp"),
+            "bq": P(None, "tp"),
+            "wk": P(None, "fsdp", "tp"),
+            "bk": P(None, "tp"),
+            "wv": P(None, "fsdp", "tp"),
+            "bv": P(None, "tp"),
+            "wo": P(None, "tp", "fsdp"),
+            "bo": P(None, None),
+            "attn_norm": {"scale": P(None, None), "bias": P(None, None)},
+            "w_up": P(None, "fsdp", "tp"),
+            "b_up": P(None, "tp"),
+            "w_down": P(None, "tp", "fsdp"),
+            "b_down": P(None, None),
+            "mlp_norm": {"scale": P(None, None), "bias": P(None, None)},
+        },
+        "mlm_dense": P("fsdp", "tp"),
+        "mlm_bias": P("tp"),
+        "mlm_norm": {"scale": P(None), "bias": P(None)},
+        "mlm_out_bias": P("tp"),
+    }
+
+
 def _layer(cfg: BertConfig, lp: Params, x: torch.Tensor,
            segs: Optional[torch.Tensor]) -> torch.Tensor:
     b, s, _ = x.shape
     dt, hd = cfg.dtype, cfg.head_dim
+    lp = view(lp)             # over fsdp, this layer's weights gathered here
 
     def dot(a, w):
         return maybe_quant_dot(a, w.to(dt), cfg.quant)
@@ -156,11 +197,12 @@ def _layer(cfg: BertConfig, lp: Params, x: torch.Tensor,
 def _unbind_layers(tree, n: int):
     """The stacked ``[L, ...]`` layer tree as ``n`` per-layer trees, one
     ``unbind`` a leaf (so the backward stacks each leaf's gradient
-    once)."""
+    once; ``sharding.layers``: over fsdp, each slice is gathered inside
+    its layer)."""
     if isinstance(tree, dict):
         parts = {k: _unbind_layers(v, n) for k, v in tree.items()}
         return [{k: parts[k][i] for k in parts} for i in range(n)]
-    return tree.unbind(0)
+    return layers(tree)
 
 
 def encode(cfg: BertConfig, params: Params, tokens: torch.Tensor,
@@ -172,8 +214,9 @@ def encode(cfg: BertConfig, params: Params, tokens: torch.Tensor,
             f"attn_impl={cfg.attn_impl!r} is not yet ported (auto|xla|flash)")
     b, s = tokens.shape
     dt = cfg.dtype
-    x = params["embed"].to(dt)[tokens] + params["pos_embed"].to(dt)[None, :s]
-    x = layernorm(x, params["embed_norm"], cfg.norm_eps)
+    embed = view(params["embed"])
+    x = embed.to(dt)[tokens] + view(params["pos_embed"]).to(dt)[None, :s]
+    x = layernorm(x, view(params["embed_norm"]), cfg.norm_eps)
     segs = (attention_mask.to(torch.int32)
             if attention_mask is not None else None)
     for lp in _unbind_layers(params["layers"], cfg.n_layers):
@@ -190,13 +233,13 @@ def mlm_logits(cfg: BertConfig, params: Params,
     product accumulated straight into fp32 logits, plus the fp32 output
     bias."""
     dt = cfg.dtype
-    h = _gelu(hidden @ params["mlm_dense"].to(dt) + params["mlm_bias"].to(dt))
-    h = layernorm(h, params["mlm_norm"], cfg.norm_eps)
+    h = _gelu(hidden @ view(params["mlm_dense"]).to(dt) + view(params["mlm_bias"]).to(dt))
+    h = layernorm(h, view(params["mlm_norm"]), cfg.norm_eps)
     b, s, d = h.shape
-    head = params["embed"].to(dt).T
+    head = view(params["embed"]).to(dt).T
     h2 = h.reshape(b * s, d)
     logits = h2 @ head if h2.dtype == torch.float32 else _LogitsF32.apply(h2, head)
-    return logits.reshape(b, s, -1) + params["mlm_out_bias"].float()
+    return logits.reshape(b, s, -1) + view(params["mlm_out_bias"]).float()
 
 
 def mlm_loss(cfg: BertConfig, params: Params, batch: Dict[str, torch.Tensor]
@@ -204,23 +247,30 @@ def mlm_loss(cfg: BertConfig, params: Params, batch: Dict[str, torch.Tensor]
     """batch: ``tokens`` (with the [MASK]s applied), ``targets``,
     ``mlm_mask`` (1 where a prediction is scored), ``attention_mask``.
     Returns ``(loss, {"mlm_accuracy"})`` over the scored positions."""
+    if tp_size() > 1:
+        raise NotImplementedError(
+            "BERT over a tp > 1 mesh is not yet ported (dp and fsdp are)")
     hidden = encode(cfg, params, batch["tokens"], batch.get("attention_mask"))
     logits = mlm_logits(cfg, params, hidden)
     targets = batch["targets"].long()
     logp = torch.log_softmax(logits, -1)
     nll = -logp.gather(-1, targets[..., None])[..., 0]
     w = batch["mlm_mask"].float()
-    denom = w.sum().clamp_min(1.0)
+    # Over the data ranks of a mesh, the mean of the ranks' losses is the
+    # global batch's: each divides by the mean count.
+    denom = masked_denominator(w.sum())
     loss = (nll * w).sum() / denom
     acc = ((logits.argmax(-1) == targets) * w).sum() / denom
     return loss, {"mlm_accuracy": acc}
 
 
 def make_loss_fn(cfg: BertConfig):
-    """``loss_fn(params, batch) -> (loss, metrics)`` for ``TrainLoop``."""
+    """``loss_fn(params, batch) -> (loss, metrics)`` for ``TrainLoop``; it
+    reads every parameter through ``sharding.view`` (``gathers_params``)."""
     def loss_fn(params, batch):
         return mlm_loss(cfg, params, batch)
 
+    loss_fn.gathers_params = True
     return loss_fn
 
 

@@ -39,6 +39,7 @@ import torch.nn.functional as F
 
 from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_controller_tpu_torch.models.mnist import _normalize, lecun_normal
+from kubeflow_controller_tpu_torch.parallel.collectives import data_shards, data_sum
 
 IMAGE_SIZE = 224
 NUM_CLASSES = 1000
@@ -80,12 +81,24 @@ def batch_norm(x: torch.Tensor, p: Dict[str, torch.Tensor],
                ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """flax ``nn.BatchNorm`` over the channel axis 1 (module docstring);
     returns the output in ``x``'s dtype and, in train mode, the new
-    running statistics (detached)."""
+    running statistics (detached). Over the data ranks of a mesh the
+    statistics are the global batch's, as GSPMD computes them for the
+    JAX package (``parallel/collectives.py:data_sum``)."""
     shape = (1, -1, 1, 1)
     if train:
         xf = x.float()
-        mean = xf.mean((0, 2, 3))
-        var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        n = data_shards()
+        if n == 1:
+            mean = xf.mean((0, 2, 3))
+            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+        else:
+            # The global batch's statistics: Σx and Σx² summed over the
+            # data ranks (and their gradients back over them).
+            sums = data_sum(torch.stack([xf.sum((0, 2, 3)),
+                                         (xf * xf).sum((0, 2, 3))]))
+            count = xf.numel() // xf.shape[1] * n
+            mean = sums[0] / count
+            var = (sums[1] / count - mean * mean).clamp_min(0.0)
         new = {"mean": BN_MOMENTUM * stats["mean"]
                + (1 - BN_MOMENTUM) * mean.detach(),
                "var": BN_MOMENTUM * stats["var"]
@@ -200,6 +213,13 @@ class ResNet:
         x = x.mean((2, 3))
         logits = x.float() @ params["head"]["kernel"] + params["head"]["bias"]
         return logits, (new if train else None)
+
+
+def flax_axes(t: torch.Tensor) -> Optional[Tuple[int, ...]]:
+    """The order of ``t``'s dimensions in flax's layout: a conv kernel's
+    OIHW is HWIO there (``parallel.sharding.infer_param_sharding``'s
+    ``reference_axes``, so that its ties break as in the JAX package)."""
+    return (2, 3, 1, 0) if t.ndim == 4 else None
 
 
 def resnet50(**kw) -> ResNet:

@@ -17,6 +17,16 @@ int8 under ``quant``). With ``moe_experts > 0`` every layer's FFN is a
 routed expert bank (:func:`_moe_ffn`: GShard-style grouped capacity
 dispatch, one device, so no expert parallelism). Not ported yet, and
 refused by name: ``attn_impl="ring"`` and the pipeline-parallel stack.
+
+Over a mesh (``dataplane/train.py``, ``parallel/``), :func:`param_specs`
+places the parameters as the JAX package's ``param_specs`` does, and a
+layer runs Megatron-style under ``tp``: q/k/v and gate/up are
+column-parallel (each rank holds ``n_heads/tp`` query heads and
+``n_kv_heads/tp`` KV heads, its local head count read from the weights'
+shapes), wo and w_down row-parallel with one all-reduce after each, and
+the head vocab-parallel (:func:`_vocab_parallel_nll_and_argmax`). Masked
+means divide by the global batch's count. Refused under ``tp > 1``:
+int8 projections and MoE layers; ``ep > 1`` and ``sp > 1`` anywhere.
 """
 
 from __future__ import annotations
@@ -35,6 +45,11 @@ from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_controller_tpu_torch.ops.attention import mha
 from kubeflow_controller_tpu_torch.ops.flash_attention import rope_full_tables
 from kubeflow_controller_tpu_torch.ops.quant import maybe_quant_dot
+from kubeflow_controller_tpu_torch.parallel.collectives import (
+    masked_denominator, tp_copy, tp_gather, tp_index, tp_max, tp_size, tp_sum,
+)
+from kubeflow_controller_tpu_torch.parallel.mesh import current_mesh
+from kubeflow_controller_tpu_torch.parallel.sharding import P, layers, view
 
 Params = Dict[str, Any]
 
@@ -234,6 +249,90 @@ def init_params(
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, cfg.vocab_size), d)
     return params
+
+
+def param_shapes(cfg: TransformerConfig) -> Params:
+    """The shape of every leaf :func:`init_params` draws (with expert
+    banks), without drawing them."""
+    L, d, f, hd = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.head_dim
+    layers: Params = {
+        "attn_norm": (L, d), "wq": (L, d, cfg.n_heads * hd),
+        "wk": (L, d, cfg.n_kv_heads * hd), "wv": (L, d, cfg.n_kv_heads * hd),
+        "wo": (L, cfg.n_heads * hd, d), "mlp_norm": (L, d),
+    }
+    if cfg.moe_experts:
+        layers["w_router"] = (L, d, cfg.moe_experts)
+        for name in MOE_BANKS:
+            layers[name] = (L, *bank_shape(cfg, name)[0])
+    else:
+        layers.update({"w_gate": (L, d, f), "w_up": (L, d, f), "w_down": (L, f, d)})
+    shapes: Params = {"embed": (cfg.vocab_size, d), "layers": layers,
+                      "final_norm": (d,)}
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, cfg.vocab_size)
+    return shapes
+
+
+def param_specs(cfg: TransformerConfig) -> Params:
+    """The placement of every parameter (``parallel/sharding.py``), as
+    the JAX package's ``param_specs``: column-parallel projections put
+    their output dimension on tp, row-parallel ones their input
+    dimension, and the other matmul dimension is fsdp-sharded; the
+    embedding is d_model-sharded over (fsdp, tp), the head vocab-sharded
+    over tp; the expert banks put experts on ep."""
+    layers = {
+        "attn_norm": P(None, None),
+        "wq": P(None, "fsdp", "tp"),
+        "wk": P(None, "fsdp", "tp"),
+        "wv": P(None, "fsdp", "tp"),
+        "wo": P(None, "tp", "fsdp"),
+        "mlp_norm": P(None, None),
+    }
+    if cfg.moe_experts:
+        layers.update({
+            "w_router": P(None, "fsdp", None),
+            "w_gate": P(None, "ep", "fsdp", "tp"),
+            "w_up": P(None, "ep", "fsdp", "tp"),
+            "w_down": P(None, "ep", "tp", "fsdp"),
+        })
+    else:
+        layers.update({
+            "w_gate": P(None, "fsdp", "tp"),
+            "w_up": P(None, "fsdp", "tp"),
+            "w_down": P(None, "tp", "fsdp"),
+        })
+    specs: Params = {
+        "embed": P(None, ("fsdp", "tp")),
+        "layers": layers,
+        "final_norm": P(None),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = P("fsdp", "tp")
+    return specs
+
+
+def check_mesh(cfg: TransformerConfig) -> None:
+    """Refuse what the ambient mesh asks that the port does not run."""
+    mesh = current_mesh()
+    if mesh is None:
+        return
+    for axis in ("sp", "ep", "pp"):
+        if mesh.shape[axis] > 1:
+            raise NotImplementedError(
+                f"{axis}={mesh.shape[axis]} is not yet ported")
+    tp = mesh.shape["tp"]
+    if tp == 1:
+        return
+    if cfg.moe_experts:
+        raise NotImplementedError("MoE layers over tp > 1 are not yet ported")
+    if cfg.quant:
+        raise NotImplementedError(
+            f"quant={cfg.quant!r} over tp > 1 is not yet ported (the row "
+            "abs-max spans the whole contraction axis)")
+    for name, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
+                    ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
+        if n % tp:
+            raise ValueError(f"{name}={n} does not divide over tp={tp}")
 
 
 # -- layer math --------------------------------------------------------------
@@ -494,32 +593,37 @@ def _layer(
     b, s, _ = x.shape
     hd = cfg.head_dim
     dt = cfg.dtype
+    lp = view(lp)             # over fsdp, this layer's weights gathered here
 
     def dot(a, w):
         return maybe_quant_dot(a, w.to(dt), cfg.quant)
 
-    h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-    q = dot(h, lp["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = dot(h, lp["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = dot(h, lp["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    # Under tp the weights are this rank's column (q/k/v, gate/up) or
+    # row (wo, w_down) shards: the head counts come from their shapes,
+    # tp_copy/tp_sum are Megatron's f and g (identities off a mesh).
+    h = tp_copy(rmsnorm(x, lp["attn_norm"], cfg.norm_eps))
+    q = dot(h, lp["wq"]).reshape(b, s, -1, hd)
+    k = dot(h, lp["wk"]).reshape(b, s, -1, hd)
+    v = dot(h, lp["wv"]).reshape(b, s, -1, hd)
     attn = mha(q, k, v, causal=True, segment_ids=segment_ids,
                impl=cfg.attn_impl, rope_tables=rope_tables)
-    x = x + dot(attn.reshape(b, s, cfg.n_heads * hd), lp["wo"])
+    x = x + tp_sum(dot(attn.reshape(b, s, -1), lp["wo"]))
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
     if cfg.moe_experts:
         down, aux = _moe_ffn(cfg, lp, h)
         return x + down, aux
     aux = torch.zeros(3, dtype=torch.float32, device=x.device)
+    h = tp_copy(h)
     if cfg.remat == "ffn":
-        return x + _ffn_remat(cfg, h, lp["w_gate"].to(dt), lp["w_up"].to(dt),
-                              lp["w_down"].to(dt)), aux
+        return x + tp_sum(_ffn_remat(cfg, h, lp["w_gate"].to(dt), lp["w_up"].to(dt),
+                                     lp["w_down"].to(dt))), aux
     prod = F.silu(dot(h, lp["w_gate"])) * dot(h, lp["w_up"])
-    return x + dot(prod, lp["w_down"]), aux
+    return x + tp_sum(dot(prod, lp["w_down"])), aux
 
 
 def _embed(cfg: TransformerConfig, params: Params,
            tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"].to(cfg.dtype)[tokens]
+    return view(params["embed"]).to(cfg.dtype)[tokens]
 
 
 def forward_hidden(
@@ -532,16 +636,18 @@ def forward_hidden(
     layers; zeros for a dense model). The rope tables are built once for
     the step and shared by every layer. The stacked layer weights are
     split with one ``unbind`` per leaf, so the backward stacks each
-    leaf's gradient once. A layer runs under a checkpoint when
+    leaf's gradient once (``sharding.layers``: over fsdp, each slice is
+    gathered inside its layer). A layer runs under a checkpoint when
     ``remat`` is True, or ``"ffn"`` on a MoE model (the routing is
     recomputed in the backward: it is deterministic)."""
     check_ported(cfg)
+    check_mesh(cfg)
     b, s = tokens.shape
     if positions is None:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
     x = _embed(cfg, params, tokens)
     tables = rope_full_tables(positions, cfg.head_dim, cfg.rope_theta)
-    per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
+    per_layer = {k: layers(v) for k, v in params["layers"].items()}
     whole = cfg.remat is True or (cfg.remat == "ffn" and cfg.moe_experts)
     auxes = []
     for i in range(cfg.n_layers):
@@ -554,13 +660,12 @@ def forward_hidden(
         auxes.append(aux)
     aux = torch.stack(auxes)                               # [L, 3]
     aux = torch.stack([aux[:, 0].sum(), aux[:, 1].sum(), aux[:, 2].mean()])
-    return rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
+    return rmsnorm(x, view(params["final_norm"]), cfg.norm_eps), aux
 
 
 def _head(cfg: TransformerConfig, params: Params) -> torch.Tensor:
     head = params.get("lm_head")
-    if head is None:
-        head = params["embed"].T
+    head = view(params["embed"]).T if head is None else view(head)
     return head.to(cfg.dtype)
 
 
@@ -609,8 +714,35 @@ class _LogitsF32(torch.autograd.Function):
         return g @ w.T, h.T @ g
 
 
+def _vocab_parallel_nll_and_argmax(hidden: torch.Tensor, head: torch.Tensor,
+                                   targets: torch.Tensor):
+    """:func:`_nll_and_argmax` with ``head`` this rank's ``[D, V/tp]``
+    vocab shard: the log-sum-exp from the tp max and the tp sum of the
+    shards' exponentials, the target logit from the shard that holds it
+    (a one-hot reduce summed over tp, as the JAX package's
+    ``_select_target_logp`` under tp), and the argmax as the first
+    global maximum."""
+    b, s, d = hidden.shape
+    h2 = tp_copy(hidden.reshape(b * s, d))
+    logits = h2 @ head if h2.dtype == torch.float32 else _LogitsF32.apply(h2, head)
+    v_loc = logits.shape[-1]
+    off = tp_index() * v_loc
+    m = tp_max(logits.max(-1).values)
+    lse = m + torch.log(tp_sum(torch.exp(logits - m[:, None]).sum(-1)))
+    t = targets.reshape(-1).long() - off
+    here = (t >= 0) & (t < v_loc)
+    picked = logits.gather(-1, t.clamp(0, v_loc - 1)[:, None])[:, 0]
+    nll = lse - tp_sum(torch.where(here, picked, torch.zeros_like(picked)))
+    local_am = logits.argmax(-1)
+    best = tp_gather(logits.gather(-1, local_am[:, None])[:, 0]).argmax(0)
+    am = tp_gather(local_am + off).gather(0, best[None])[0]
+    return nll.reshape(b, s), am.reshape(b, s)
+
+
 def _nll_and_argmax(hidden: torch.Tensor, head: torch.Tensor,
-                    targets: torch.Tensor):
+                    targets: torch.Tensor, vocab_parallel: bool = False):
+    if vocab_parallel:
+        return _vocab_parallel_nll_and_argmax(hidden, head, targets)
     b, s, d = hidden.shape
     h2 = hidden.reshape(b * s, d)
     logits = (h2 @ head if h2.dtype == torch.float32
@@ -622,7 +754,7 @@ def _nll_and_argmax(hidden: torch.Tensor, head: torch.Tensor,
 
 def _chunked_nll_and_argmax(
     cfg: TransformerConfig, hidden: torch.Tensor, head: torch.Tensor,
-    targets: torch.Tensor, chunk: int,
+    targets: torch.Tensor, chunk: int, vocab_parallel: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-position NLL and argmax with the vocab projection streamed in
     sequence chunks, each under a checkpoint, so at most one chunk's
@@ -630,7 +762,8 @@ def _chunked_nll_and_argmax(
     nll, am = [], []
     for lo in range(0, hidden.shape[1], chunk):
         n, a = checkpoint(_nll_and_argmax, hidden[:, lo:lo + chunk], head,
-                          targets[:, lo:lo + chunk], use_reentrant=False)
+                          targets[:, lo:lo + chunk], vocab_parallel,
+                          use_reentrant=False)
         nll.append(n)
         am.append(a)
     return torch.cat(nll, 1), torch.cat(am, 1)
@@ -678,12 +811,14 @@ def next_token_loss(
         positions=None if seg_in is None else packed_positions(seg_in),
         segment_ids=seg_in)
     head = _head(cfg, params)
+    # Under tp the untied head is this rank's vocab shard.
+    vp = tp_size() > 1 and "lm_head" in params
     if loss_chunk:
         s = targets.shape[1]
         chunk = max(d for d in range(1, min(loss_chunk, s) + 1) if s % d == 0)
-        nll, am = _chunked_nll_and_argmax(cfg, hidden, head, targets, chunk)
+        nll, am = _chunked_nll_and_argmax(cfg, hidden, head, targets, chunk, vp)
     else:
-        nll, am = _nll_and_argmax(hidden, head, targets)
+        nll, am = _nll_and_argmax(hidden, head, targets, vp)
     mask = batch.get("mask")
     mask = None if mask is None else mask[:, 1:].float()
     if segs is not None:
@@ -691,7 +826,9 @@ def next_token_loss(
         mask = valid if mask is None else mask * valid
     hits = (am == targets).float()
     if mask is not None:
-        denom = mask.sum().clamp_min(1.0)
+        # Over the data ranks of a mesh the ranks' mean loss is the
+        # global batch's masked mean: each divides by the mean count.
+        denom = masked_denominator(mask.sum())
         loss = (nll * mask).sum() / denom
         acc = (hits * mask).sum() / denom
     else:
@@ -708,10 +845,12 @@ def next_token_loss(
 
 
 def make_loss_fn(cfg: TransformerConfig):
-    """``loss_fn(params, batch) -> (loss, metrics)`` for ``TrainLoop``."""
+    """``loss_fn(params, batch) -> (loss, metrics)`` for ``TrainLoop``; it
+    reads every parameter through ``sharding.view`` (``gathers_params``)."""
     def loss_fn(params, batch):
         return next_token_loss(cfg, params, batch)
 
+    loss_fn.gathers_params = True
     return loss_fn
 
 

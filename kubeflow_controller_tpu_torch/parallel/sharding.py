@@ -1,0 +1,341 @@
+"""Parameter sharding: logical axis names -> mesh axes -> local shards.
+
+Counterpart of ``kubeflow_controller_tpu/parallel/sharding.py``. A
+parameter's placement is a :class:`P` (a ``PartitionSpec``-like tuple:
+per dimension ``None``, a mesh axis, or a tuple of mesh axes), the same
+value the JAX package writes; :func:`placements` turns one into
+``torch.distributed`` ``DTensor`` placements. Each rank stores its
+chunk of every parameter (:func:`shard_params`, :func:`local_shard`).
+
+A train step runs on *compute views* (:func:`gather_for_compute`):
+every sharded dimension is all-gathered except one sharded over ``tp``
+alone, which the tensor-parallel layers consume in place (Megatron's
+column- and row-parallel weights, the vocab-parallel head). The
+gradient of a view is a per-rank partial sum over the data axes, whole
+over tp; :func:`reduce_grad` sums it over the data ranks —
+reduce-scattered over fsdp where a dimension is fsdp-sharded — keeps
+this rank's chunk and divides by the number of data shards (the mean
+over the global batch). :func:`gather_full` rebuilds a whole parameter
+(checkpoints).
+
+A model that reads its parameters through :func:`view` (and its
+stacked ``[L, ...]`` layer leaves through :func:`layers`) lets the
+train loop hand it the chunks instead (:func:`gathered_in_model`): each
+is then gathered where it is used, one layer at a time, and its
+gradient is reduced to the chunk's in the backward, so that a step
+never holds every parameter, or every gradient, whole. Under a layer's
+checkpoint the gather runs again in the recompute, so the layer's
+gathered weights live only while it runs.
+
+Default rules, as the JAX package's:
+
+    "embed"   -> tp      (vocab/feature-parallel embedding)
+    "heads"   -> tp      (attention heads across tensor group)
+    "mlp"     -> tp      (ffn hidden across tensor group)
+    "fsdp"    -> fsdp    (any axis marked for fully-sharded storage)
+    None      -> replicated
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from kubeflow_controller_tpu_torch.convert import tree_leaves, tree_unflatten
+from kubeflow_controller_tpu_torch.parallel.mesh import AXES, DATA_AXES, Mesh
+
+
+class P(tuple):
+    """A ``PartitionSpec``: one entry per leading dimension (``None``,
+    an axis name, or a tuple of axis names); missing trailing entries
+    are ``None``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+DEFAULT_RULES: Dict[str, Optional[str]] = {
+    "embed": "tp",
+    "vocab": "tp",
+    "heads": "tp",
+    "mlp": "tp",
+    "kv": None,
+    "fsdp": "fsdp",
+    "seq": "sp",
+    "batch": "dp",
+}
+
+
+def logical_to_mesh(logical_axes: Sequence[Optional[str]],
+                    rules: Optional[Dict[str, Optional[str]]] = None) -> P:
+    rules = rules or DEFAULT_RULES
+    return P(*(rules.get(ax) if ax is not None else None for ax in logical_axes))
+
+
+def _entry_axes(entry) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def effective(spec: Optional[Sequence], mesh: Mesh, ndim: int) -> List[Tuple[str, ...]]:
+    """Per dimension, the mesh axes of more than one rank that shard it
+    (in mesh order: an entry naming axes out of mesh order is refused)."""
+    entries = list(spec or ()) + [None] * (ndim - len(spec or ()))
+    out = []
+    for e in entries[:ndim]:
+        axes = _entry_axes(e)
+        if list(axes) != sorted(axes, key=AXES.index):
+            raise NotImplementedError(
+                f"spec entry {e!r} names axes out of mesh order {AXES}")
+        out.append(tuple(a for a in axes if mesh.shape[a] > 1))
+    return out
+
+
+def placements(spec: Optional[Sequence], mesh: Mesh, ndim: int) -> list:
+    """``DTensor`` placements of a ``ndim``-dimensional tensor placed by
+    ``spec``, one per mesh axis: ``Shard(d)`` where the axis splits
+    dimension ``d`` (two axes on one dimension nest in mesh order, as
+    the spec's tuple does), ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    entries = list(spec or ()) + [None] * (ndim - len(spec or ()))
+    out = []
+    for axis in AXES:
+        dims = [d for d, e in enumerate(entries[:ndim]) if axis in _entry_axes(e)]
+        out.append(Shard(dims[0]) if dims else Replicate())
+    effective(spec, mesh, ndim)          # refuses out-of-order entries
+    return out
+
+
+def infer_param_sharding(
+    params: Any, mesh: Mesh,
+    rules: Optional[Dict[str, Optional[str]]] = None,
+    fsdp_min_size: int = 2 ** 16,
+    reference_axes: Optional[Callable[[torch.Tensor], Optional[Sequence[int]]]] = None,
+) -> Any:
+    """Heuristic specs for unannotated trees (MNIST, ResNet): a leaf of
+    2+ dimensions and at least ``fsdp_min_size`` elements has its
+    largest dimension divisible by fsdp sharded over fsdp (the first
+    such on ties); everything else is replicated. ``reference_axes(t)``
+    may give the order of ``t``'s dimensions in the JAX package's
+    layout (ResNet's OIHW kernels are HWIO there), so that ties break
+    as they break there."""
+    fsdp = mesh.shape["fsdp"]
+
+    def spec_for(p: torch.Tensor) -> P:
+        if fsdp > 1 and p.ndim >= 2 and p.numel() >= fsdp_min_size:
+            order = list((reference_axes and reference_axes(p)) or range(p.ndim))
+            for i in sorted(order, key=lambda i: -p.shape[i]):
+                if p.shape[i] % fsdp == 0:
+                    axes: list = [None] * p.ndim
+                    axes[i] = "fsdp"
+                    return P(*axes)
+        return P()
+
+    return tree_unflatten(params, [spec_for(p) for p in tree_leaves(params)])
+
+
+def _chunk(t: torch.Tensor, dim: int, n: int, i: int) -> torch.Tensor:
+    if t.shape[dim] % n:
+        raise ValueError(
+            f"dimension {dim} of shape {tuple(t.shape)} does not divide "
+            f"into {n} shards")
+    size = t.shape[dim] // n
+    return t.narrow(dim, i * size, size)
+
+
+def local_shard(t: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's chunk of the whole tensor ``t`` (a copy)."""
+    for d, axes in enumerate(effective(spec, mesh, t.ndim)):
+        if axes:
+            t = _chunk(t, d, mesh.axis_size(*axes), mesh.axis_index(*axes))
+    return t.contiguous().clone()
+
+
+def shard_params(params: Any, specs: Any, mesh: Mesh) -> Any:
+    """The tree of this rank's chunks of ``params`` placed by ``specs``
+    (a tree of the same structure)."""
+    return tree_unflatten(params, [
+        local_shard(p, s, mesh) for p, s in
+        zip(tree_leaves(params), spec_leaves(specs))])
+
+
+def spec_leaves(specs: Any) -> list:
+    """The specs of a spec tree in ``tree_leaves`` order (a spec is a
+    leaf, not a subtree)."""
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in spec_leaves(specs[k])]
+    return [specs]
+
+
+def _gather(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    src = t.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+def _tp_local(spec, ndim: int) -> List[bool]:
+    """Per dimension, whether the spec shards it over tp alone (the
+    dimensions a compute view keeps as this rank's)."""
+    entries = list(spec or ()) + [None] * (ndim - len(spec or ()))
+    return [_entry_axes(e) == ("tp",) for e in entries[:ndim]]
+
+
+def _gather_dims(t: torch.Tensor, spec, mesh: Mesh, keep_tp: bool) -> torch.Tensor:
+    local = _tp_local(spec, t.ndim)
+    for d, axes in enumerate(effective(spec, mesh, t.ndim)):
+        if axes and not (keep_tp and local[d]):
+            t = _gather(t, d, mesh.group(*axes), mesh.axis_size(*axes))
+    return t.contiguous()
+
+
+def gather_for_compute(local: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """The tensor a step computes with: every sharded dimension
+    gathered, but one sharded over ``tp`` alone stays this rank's."""
+    return _gather_dims(local, spec, mesh, keep_tp=True)
+
+
+def gather_full(local: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor, from every rank's chunk."""
+    return _gather_dims(local, spec, mesh, keep_tp=False)
+
+
+def reduce_grad(grad: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+    """The gradient of this rank's chunk from the gradient of its compute
+    view: summed over the data ranks (reduce-scattered along a dimension
+    whose spec leads with fsdp, all-reduced over the other data axes),
+    narrowed to the chunk, and divided by the number of data shards."""
+    data_left = [a for a in DATA_AXES if mesh.shape[a] > 1]
+    narrow = []
+    local = _tp_local(spec, grad.ndim)
+    for d, axes in enumerate(effective(spec, mesh, grad.ndim)):
+        if not axes or local[d]:
+            continue
+        if axes[0] == "fsdp" and "fsdp" in data_left:
+            grad = _reduce_scatter(grad, d, mesh.group("fsdp"), mesh.shape["fsdp"])
+            data_left.remove("fsdp")
+            axes = axes[1:]
+        if axes:
+            narrow.append((d, axes))
+    if data_left:
+        grad = grad.contiguous()
+        dist.all_reduce(grad, group=mesh.group(*data_left))
+    for d, axes in narrow:
+        grad = _chunk(grad, d, mesh.axis_size(*axes), mesh.axis_index(*axes))
+    n = mesh.axis_size(*DATA_AXES)
+    return (grad / n if n > 1 else grad).contiguous()
+
+
+def is_sharded(spec, mesh: Mesh, ndim: int) -> bool:
+    return any(effective(spec, mesh, ndim))
+
+
+def needs_gather(spec, mesh: Mesh, ndim: int) -> bool:
+    """Whether a compute view gathers anything of the leaf (a dimension
+    sharded over more than tp alone)."""
+    local = _tp_local(spec, ndim)
+    return any(axes and not local[d]
+               for d, axes in enumerate(effective(spec, mesh, ndim)))
+
+
+class _GatherView(torch.autograd.Function):
+    """A chunk -> its compute view; backward: the view's gradient -> the
+    chunk's (:func:`reduce_grad`)."""
+
+    @staticmethod
+    def forward(ctx, chunk, spec, mesh):
+        ctx.spec, ctx.mesh = spec, mesh
+        return gather_for_compute(chunk, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_grad(g, ctx.spec, ctx.mesh), None, None
+
+
+# id(chunk) -> (chunk, spec, mesh) of the chunks a model gathers itself,
+# innermost gathered_in_model block last.
+_IN_MODEL: List[Dict[int, Tuple[torch.Tensor, Any, Mesh]]] = []
+
+
+@contextlib.contextmanager
+def gathered_in_model(chunks: Sequence[torch.Tensor], specs: Sequence[Any],
+                      mesh: Mesh) -> Iterator[None]:
+    """Inside the block (the forward and the backward of a step),
+    :func:`view` of one of ``chunks`` gathers its compute view where the
+    model uses it, and the view's gradient reaches the chunk reduced:
+    the gradient ``reduce_grad`` would give."""
+    _IN_MODEL.append({id(t): (t, s, mesh) for t, s in zip(chunks, specs)})
+    try:
+        yield
+    finally:
+        _IN_MODEL.pop()
+
+
+def _registered(t: torch.Tensor):
+    entry = _IN_MODEL[-1].get(id(t)) if _IN_MODEL else None
+    return entry if entry is not None and entry[0] is t else None
+
+
+def view(t):
+    """The parameter (or tree of them) a model computes with: ``t``
+    itself, or for a chunk of a :func:`gathered_in_model` block its
+    compute view, gathered here."""
+    if isinstance(t, dict):
+        return {k: view(v) for k, v in t.items()}
+    entry = _registered(t)
+    if entry is None:
+        return t
+    _, spec, mesh = entry
+    return _GatherView.apply(t, spec, mesh)
+
+
+def layers(t: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``t.unbind(0)``, a stacked leaf's per-layer slices; a chunk's
+    slices are registered with a layer's spec (the leading entry
+    dropped), so that :func:`view` gathers one layer at a time."""
+    parts = t.unbind(0)
+    entry = _registered(t)
+    if entry is not None:
+        _, spec, mesh = entry
+        spec = list(spec or ())
+        if spec and spec[0] is not None:
+            raise NotImplementedError(
+                f"a stacked leaf sharded along its layer axis ({spec[0]!r})")
+        for part in parts:
+            _IN_MODEL[-1][id(part)] = (part, P(*spec[1:]), mesh)
+    return parts
+
+
+def opt_state_specs(opt_state: Dict[Any, Dict[str, Any]],
+                    shapes: Sequence[Tuple[int, ...]],
+                    specs: Sequence[Any]) -> Dict[Any, Dict[str, Any]]:
+    """Specs for a ``torch.optim`` ``state_dict()["state"]`` (per
+    parameter index, a dict of tensors) whose parameters have ``shapes``
+    (their chunks' or their whole shapes) and ``specs``: a state tensor
+    of its parameter's shape (Adam's moments, SGD's momentum) lives where
+    its parameter lives; scalars (step counts) are replicated. The
+    counterpart of ``opt_state_shardings``."""
+    out = {}
+    for i, st in opt_state.items():
+        shape, s = tuple(shapes[int(i)]), specs[int(i)]
+        out[i] = {k: (s if isinstance(v, torch.Tensor) and v.ndim > 0
+                      and tuple(v.shape) == shape else P())
+                  for k, v in st.items()}
+    return out

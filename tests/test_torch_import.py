@@ -267,3 +267,17 @@ def test_library_name_is_keyed_by_every_source(tmp_path, monkeypatch):
     with open(copies[0], "a") as f:
         f.write("// edited\n")
     assert _build.library_path() != before
+
+
+def test_dist_and_parallel_modules_are_checked():
+    """The multi-process layer (``dataplane/dist.py``, ``parallel/mesh.py``,
+    ``sharding.py``, ``memory.py``, ``collectives.py``) is among the
+    modules and sources the two checks above hold to importing neither
+    JAX nor the JAX package."""
+    names = {"kubeflow_controller_tpu_torch.dataplane.dist"} | {
+        f"kubeflow_controller_tpu_torch.parallel.{m}"
+        for m in ("mesh", "sharding", "memory", "collectives")}
+    assert names <= set(_port_modules())
+    srcs = {os.path.relpath(p, PKG) for p in _sources()}
+    assert {"dataplane/dist.py", "parallel/mesh.py", "parallel/sharding.py",
+            "parallel/memory.py", "parallel/collectives.py"} <= srcs

@@ -396,8 +396,17 @@ def test_bert_stream_matches_jax_and_train_runs_on_cpu():
                             cfg=cfg_t, device="cpu")
     assert out["final_step"] == 2 and np.isfinite(out["loss"])
     assert out["tokens_per_sec"] > 0 and "mlm_accuracy" in out
+    # A mesh (refused until multi-process training was ported): dp and
+    # fsdp train over a job's ranks, which one process cannot fill; tp
+    # stays refused.
+    from kubeflow_controller_tpu_torch.parallel.mesh import MeshConfig
+
+    with pytest.raises(ValueError, match="not divisible"):
+        tbert_entry.train(total_steps=1, cfg=cfg_t, mesh_config=MeshConfig(fsdp=2),
+                          device="cpu")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        tbert_entry.train(total_steps=1, cfg=cfg_t, mesh_config=object(), device="cpu")
+        tbert_entry.train(total_steps=1, cfg=cfg_t, mesh_config=MeshConfig(tp=2),
+                          device="cpu")
 
 
 def test_bert_three_adamw_steps_match_optax():

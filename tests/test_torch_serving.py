@@ -458,7 +458,9 @@ def test_cli_takes_every_reference_option_and_refuses_off_default_values(
     at any value off its default. The options refused until exact
     prefill, checkpoints, speculative decoding, sampling and the prefix
     cache were ported now serve off their defaults, and ``--host-kv-mb``
-    without ``--prefix-cache`` takes the reference's ``p.error``."""
+    without ``--prefix-cache`` takes the reference's ``p.error``. The
+    LM trainer's ``--tp`` and ``--fsdp``, refused until multi-process
+    training was ported, build the job's mesh."""
     import importlib
 
     jmain = importlib.import_module(
@@ -498,10 +500,16 @@ def test_cli_takes_every_reference_option_and_refuses_off_default_values(
             tmod.main(base + _off_default(port["--host-kv-mb"]))
         assert e.value.code == 2
     else:
-        unported = [port[o] for o in ("--tp", "--fsdp", "--sp")]
+        unported = [port["--sp"]]
         base = ["--config", "tiny", "--device", "cpu", "--total-steps", "1",
                 "--batch", "1", "--seq-len", "32"]
         ported = []
+        # --tp and --fsdp name the job's mesh (ported): one process is a
+        # world of one rank, which such a mesh cannot fill, and
+        # MeshConfig.resolve says so as the reference's does.
+        for opt in ("--tp", "--fsdp"):
+            with pytest.raises(ValueError, match="not divisible"):
+                tmod.main(base + _off_default(port[opt]))
     off = [_off_default(a) for a in unported]
     if entry == "lm":
         off.append(["--attn", "ring"])

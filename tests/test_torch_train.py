@@ -548,9 +548,23 @@ def test_lm_train_refuses_what_is_not_ported(kw, tmp_path):
     id's path), saving there every ``checkpoint_every`` steps and at the
     end. ``config="tiny_moe"`` (refused until the MoE slice) trains and
     reports the MoE metrics; ``llama3_70b`` (tensor parallelism) stays
-    refused."""
+    refused. ``tp`` and ``fsdp`` (refused until multi-process training
+    was ported) are a ``mesh_config`` now: one process is a world of one
+    rank, which a tp=2 or fsdp=2 mesh cannot fill, and
+    ``MeshConfig.resolve`` raises the reference's ``ValueError``;
+    ``sp`` stays refused."""
+    from kubeflow_controller_tpu_torch.parallel.mesh import MeshConfig
+
     base = dict(config="tiny", total_steps=2, per_data_shard_batch=1,
                 seq_len=32, device="cpu")
+    kw = dict(kw)
+    if {"tp", "fsdp", "sp"} & set(kw):
+        base["mesh_config"] = MeshConfig(**kw)
+        if "sp" not in kw:
+            with pytest.raises(ValueError, match="not divisible"):
+                tlm.train(**base)
+            return
+        kw = {}
     base.update(kw)
     if kw.get("config") == "tiny_moe":
         out = tlm.train(**base)
@@ -573,17 +587,19 @@ def test_lm_train_refuses_what_is_not_ported(kw, tmp_path):
     dict(model_dir="/nonexistent"), dict(num_processes=2, process_id=1),
 ], ids=["ctx_model_dir", "num_processes=2"])
 def test_lm_train_refuses_the_job_env_it_cannot_honour(env, tmp_path):
-    """A multi-process job (the reference syncs gradients across
-    processes) is refused, never dropped without a word. A TPUJob's
-    model dir (refused until checkpoints were ported; here under
-    tmp_path, not the id's path) is honoured as the reference honours
-    it: the job trains into it, saves at the end, and a rerun resumes
-    there."""
+    """A multi-process job whose process group is not up (the reference
+    syncs gradients across processes; refused with "not yet ported"
+    until multi-process training was ported) is refused with an error
+    that names ``initialize_from_env``, never trained as a private
+    replica. A TPUJob's model dir (refused until checkpoints were
+    ported; here under tmp_path, not the id's path) is honoured as the
+    reference honours it: the job trains into it, saves at the end, and
+    a rerun resumes there."""
     from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
 
     kw = dict(config="tiny", per_data_shard_batch=1, seq_len=32, device="cpu")
     if "model_dir" not in env:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(RuntimeError, match="initialize_from_env"):
             tlm.train(ProcessContext(**env), total_steps=2, **kw)
         return
     ctx = ProcessContext(model_dir=str(tmp_path))
@@ -930,3 +946,82 @@ def test_profile_dir_writes_a_trace(tmp_path):
     loop = _toy_loop(4, profile_dir=str(tmp_path / "none"), profile_start=10)
     loop.run(ttrain.device_prefetch(_toy_data(), "cpu"))
     assert not (tmp_path / "none").exists()
+
+
+# -- mesh options the port does not train yet --------------------------------------
+
+def _fake_mesh(size, **kw):
+    """A ``size``-rank mesh seen from rank 0 under torch's fake process
+    group (no collective runs); the caller destroys the group."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from kubeflow_controller_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=size)
+    return make_mesh(MeshConfig(**kw))
+
+
+_MESH_REFUSALS = {
+    "moe_tp2": (dict(dp=1, tp=2), dict(config="tiny_moe"), "MoE"),
+    "moe_ep2": (dict(dp=1, ep=2), dict(config="tiny_moe"), "ep=2"),
+    "int8_tp2": (dict(dp=1, tp=2), dict(quant="int8"), "int8"),
+    "int8_fused_tp2": (dict(dp=1, tp=2), dict(quant="int8_fused"), "int8_fused"),
+    "sp2": (dict(dp=1, sp=2), {}, "sp=2"),
+    "opt8bit_fsdp2": (dict(dp=1, fsdp=2), dict(opt8bit=True), "8-bit"),
+    "bert_tp2": (dict(dp=1, tp=2), dict(model="bert"), "BERT"),
+}
+
+
+@pytest.mark.parametrize("case", list(_MESH_REFUSALS))
+def test_mesh_options_not_yet_ported_are_refused(case):
+    """Over a mesh the port refuses, with "not yet ported", what it does
+    not train yet: MoE layers over tp or ep, int8 projections over tp
+    (the reference's row abs-max spans the whole contraction axis, a
+    row-parallel shard sees only its part), sequence parallelism, 8-bit
+    Adam over sharded parameters (its per-row scales are the whole
+    leaf's) and BERT over tp. Checked on a two-rank mesh under the fake
+    process group, where no collective runs."""
+    import torch.distributed as dist
+
+    from kubeflow_controller_tpu_torch.models import bert as tbert
+    from kubeflow_controller_tpu_torch.parallel.mesh import use_mesh
+
+    mesh_kw, opt, what = _MESH_REFUSALS[case]
+    mesh = _fake_mesh(2, **mesh_kw)
+    try:
+        with pytest.raises(NotImplementedError, match="not yet ported") as e:
+            if opt.get("model") == "bert":
+                cfg = tbert.bert_tiny_config()
+                batch = {k: torch.from_numpy(v) for k, v in
+                         next(tbert.synthetic_mlm_batch(cfg, 2, 16)).items()}
+                with use_mesh(mesh):
+                    tbert.mlm_loss(cfg, tbert.init_params(cfg, device="cpu"), batch)
+            elif opt.get("opt8bit"):
+                cfg = ttf.tiny_config()
+                ttrain.TrainLoop(init_fn=ttf.make_init_fn(cfg), loss_fn=ttf.make_loss_fn(cfg),
+                                 optimizer=optim.make_optimizer(1e-3, 2, opt8bit=True),
+                                 device="cpu", mesh=mesh, param_shardings=ttf.param_specs(cfg))
+            else:
+                cfg = tlm.model_config(opt.get("config", "tiny"), quant=opt.get("quant", ""))
+                with use_mesh(mesh):
+                    ttf.check_mesh(cfg)
+        assert what in str(e.value)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("entry", ["mnist", "resnet", "bert"])
+def test_entry_points_refuse_a_job_without_its_process_group(entry):
+    """MNIST, ResNet and BERT in a multi-process job whose process group
+    is not up (refused with "not yet ported" until multi-process
+    training was ported) raise the error naming ``initialize_from_env``."""
+    import importlib
+
+    from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
+
+    mod = importlib.import_module(
+        f"kubeflow_controller_tpu_torch.dataplane.entrypoints.{entry}")
+    with pytest.raises(RuntimeError, match="initialize_from_env"):
+        mod.train(ProcessContext(num_processes=2, process_id=1), total_steps=1,
+                  device="cpu")
