@@ -135,12 +135,18 @@ Phases, in order; any failure exits non-zero before the result line:
    flagship at full width and depth (global batch 16) at dp=2, fsdp=2
    (its checkpoint restored by a one-process loop, bit for bit) and
    tp=2, 3 steps; ``int8_fused`` at fsdp=2 and llama3_8b at 2 layers
-   (B3/B4) at fsdp=2, 2 steps; each rank's launches a step exactly the
-   one-process counts, its step ms, and the steps' peak memory within
-   ``transformer_memory_plan`` plus ``DIST_PEAK_LEAF_COPIES`` copies of
-   the largest leaf; rank 0 holds the losses and the
-   parameters' change against a one-process run (``DIST_*``
-   tolerances); a rank's failure fails the run;
+   (B3/B4) at fsdp=2, 2 steps; the flagship at sp=2 (S=2048, global
+   batch 4) with ring attention and with q/k/v gathered over sp (B1,
+   B3/B4), at pp=2 (4 microbatches, global batch 16) through
+   ``TrainLoop`` with ``next_token_loss(pp_microbatches=4)``, and
+   llama3_8b at 2 layers, sp=2, S=4096 with ring attention; each rank's
+   launches a step exactly the one-process counts (none on the ring;
+   each rank's layers on every tick of the pipeline), its step ms, and
+   the steps' peak memory within ``transformer_memory_plan`` plus
+   ``DIST_PEAK_LEAF_COPIES`` copies of the largest leaf; rank 0 holds
+   the losses and the parameters' change against a one-process run
+   (``DIST_*`` tolerances); a rank's failure fails the run; the probe
+   also runs the ring shift (``send_recv``) and names its transport;
 8. a ``kernels`` JSON line (each kernel's whole-call time over its
    library call's, ``vs_library``, from this run; the flash kernels'
    and B7's launches a rank a step in each dist layout), the
@@ -812,14 +818,19 @@ class FlashCase:
 
 
 #: The flash kernels' shapes on the main path: the flagship's attention
-#: (one tile per sequence: the fused backward) and llama3_8b's (two
-#: passes) in training, and llama3_8b's exact prefill of one 256-token
-#: prompt in serving (the forward; its backward kernels are checked
-#: too); each with and without packed segment ids.
+#: (one tile per sequence: the fused backward), llama3_8b's and the
+#: flagship's gathered over sp (two passes) in training, and llama3_8b's
+#: exact prefill of one 256-token prompt in serving (the forward; its
+#: backward kernels are checked too); each with and without packed
+#: segment ids.
 FLASH_SHAPES = {
     "flagship": dict(B=16, H=8, KVH=8, S=1024, D=128),
     "llama3_8b": dict(B=2, H=32, KVH=8, S=2048, D=128),
     "llama3_8b.prefill": dict(B=1, H=32, KVH=8, S=256, D=128),
+    # The flagship with its sequence gathered over sp=2 (B1 and the
+    # two-pass B3/B4, one query head a KV head); a pipeline microbatch
+    # differs from "flagship" only in its batch.
+    "flagship.sp2": dict(B=4, H=8, KVH=8, S=2048, D=128),
     # BERT-base's attention at S=512 (one tile: the fused backward), not
     # causal, no rotary embedding.
     "bert_base": dict(B=8, H=12, KVH=12, S=512, D=64, causal=False, rope=False),
@@ -3800,6 +3811,28 @@ DIST_CASES = [
     dict(label="llama3_8b.fsdp2", config="llama3_8b_2l", attn="flash",
          mesh=dict(dp=1, fsdp=2), batch=1, seq=2048, steps=2,
          needs=("all_gather_into_tensor", "reduce_scatter_tensor"), change_cap=0.0666),
+    # Sequence parallelism: each rank holds half of every row. Ring
+    # attention (plain PyTorch block updates, no flash kernel; the K/V
+    # blocks go around by send and receive), held against the one-process
+    # flash run; and the gather path (q/k/v gathered over sp: B1 and the
+    # two-pass backward B3/B4 at S=2048 on every rank).
+    dict(label="flagship.sp2.ring", config="flagship", attn="ring", one_process_attn="auto",
+         mesh=dict(dp=1, sp=2), batch=4, seq=2048, steps=3, needs=("send_recv",),
+         change_cap=0.123),
+    dict(label="flagship.sp2", config="flagship", mesh=dict(dp=1, sp=2), batch=4, seq=2048,
+         steps=3, needs=("all_gather_into_tensor", "reduce_scatter_tensor"),
+         change_cap=0.123),
+    # Pipeline parallelism: 8 layers a stage, 4 microbatches, through
+    # TrainLoop with next_token_loss(pp_microbatches=4) on parameters
+    # placed by param_specs(cfg, pp=True) (the JAX package's train-step
+    # entry: no lm.train flag).
+    dict(label="flagship.pp2", config="flagship", mesh=dict(pp=2, dp=1), batch=16,
+         seq=1024, steps=3, pp_microbatches=4, needs=("send_recv",), change_cap=0.114),
+    # The long context the sp axis exists for: llama3_8b at 2 layers,
+    # S=4096, one row, ring attention, against the one-process flash run.
+    dict(label="llama3_8b_2l.sp2.ring", config="llama3_8b_2l", attn="ring",
+         one_process_attn="flash", mesh=dict(dp=1, sp=2), batch=1, seq=4096, steps=2,
+         needs=("send_recv",), change_cap=0.0658),
 ]
 # A layout against the one-process run: the two differ in each rank's
 # rows (bf16 weight gradients are rounded per rank before the ranks'
@@ -3818,7 +3851,10 @@ DIST_CASES = [
 # limit cannot grow with the flash kernels' own error, the whole
 # model's change is also capped by the case's ``change_cap``: twice its
 # yardstick as read on an H100 80GB HBM3 at 700 W (flagship 0.0570,
-# int8_fused 0.1827, llama3_8b 0.0333).
+# int8_fused 0.1827, llama3_8b 0.0333; the flagship at B4 S2048 0.0615,
+# llama3_8b at S4096 0.0329). The ring cases are held against the
+# one-process flash run (``one_process_attn``): without a mesh the ring
+# is the plain attention, which is the yardstick itself.
 DIST_LOSS_REL_TOL = TRAIN_LOSS_REL_TOL
 DIST_VS_YARDSTICK = 2.0
 # Each rank's peak memory against ``transformer_memory_plan``: the plan
@@ -3834,9 +3870,27 @@ DIST_PEAK_LEAF_COPIES = 3
 DIST_TIMEOUT_S = 900
 
 
+def _send_recv_probe(device):
+    """The ring shift over a two-rank sp mesh on a tensor of ``device``:
+    each rank must receive the other's. Returns the transport it took."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.parallel.collectives import p2p_transport, ring_shift
+    from kubeflow_controller_tpu_torch.parallel.mesh import MeshConfig, make_mesh, use_mesh
+
+    mesh = make_mesh(MeshConfig(dp=1, sp=2), device_type=device.type)
+    x = torch.full((4,), float(mesh.rank), device=device)
+    with use_mesh(mesh):
+        got = ring_shift(x, "sp", -1)
+    if not torch.equal(got, torch.full_like(x, float(1 - mesh.rank))):
+        raise AssertionError(f"received {got.tolist()}")
+    return p2p_transport(x, mesh.group("sp"))
+
+
 def _dist_probe(device):
     """Which collectives the gang's backend runs on tensors of
-    ``device``: {name: True or the error's text}."""
+    ``device``: {name: True or the error's text}; ``send_recv_transport``
+    names the route the ring shift took."""
     import torch
     import torch.distributed as dist
 
@@ -3859,12 +3913,25 @@ def _dist_probe(device):
             out[name] = True
         except Exception as e:  # a probe: its finding is the answer
             out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    try:
+        out["send_recv_transport"] = _send_recv_probe(device)
+        out["send_recv"] = True
+    except Exception as e:  # a probe: its finding is the answer
+        out["send_recv"] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
     return out
 
 
 def _dist_expected(case, n_layers):
     """The flash and B7 launches a rank makes a step: the one-process
-    counts (each rank runs every layer on its rows or heads)."""
+    counts (each rank runs every layer on its rows or heads, or on the
+    sequence gathered over sp); none on the ring path (its block update
+    is plain PyTorch); over pp, each rank's L/P layers on each of the
+    M + P - 1 ticks of the schedule."""
+    if case.get("attn") == "ring":
+        return {}
+    if case.get("pp_microbatches"):
+        n_layers = (n_layers // case["mesh"]["pp"]) * (
+            case["pp_microbatches"] + case["mesh"]["pp"] - 1)
     flash = {"rope_rotate": 3 * n_layers, "flash_fwd": 2 * n_layers,
              "flash_bwd_prep": n_layers}
     if case["seq"] > 1024:
@@ -3885,9 +3952,13 @@ def _change_rel(got, want, init):
     return whole, [math.sqrt(n / max(d, 1e-60)) for n, d in zip(num, den)]
 
 
-def _dist_one_process(case, cfg, device, mesh):
-    """The one-process run of a case: the pieces ``lm.train`` builds, on
-    a mesh of this rank alone, fed the whole global batch."""
+def _loop_run(case, cfg, device, mesh, pp_microbatches=0):
+    """A case's run through ``TrainLoop`` with the pieces ``lm.train``
+    builds, on ``mesh``, each rank fed its rows of the gang's global
+    batch: the one-process run (a mesh of this rank alone), or a
+    pipelined case (``next_token_loss(pp_microbatches=M)`` on parameters
+    placed by ``param_specs(cfg, pp=True)``, as the JAX package's
+    pipelined train steps are called: no ``lm.train`` flag)."""
     from kubeflow_controller_tpu_torch.dataplane.entrypoints.lm import synthetic_lm
     from kubeflow_controller_tpu_torch.dataplane.train import (
         TrainLoop, TrainLoopConfig, device_prefetch,
@@ -3898,13 +3969,16 @@ def _dist_one_process(case, cfg, device, mesh):
     _, dp, fsdp, ep, _, _ = _dist_mesh_config(case).resolve(2)
     global_batch = case["batch"] * dp * fsdp * ep
     loop = TrainLoop(
-        init_fn=tfm.make_init_fn(cfg), loss_fn=tfm.make_loss_fn(cfg),
+        init_fn=tfm.make_init_fn(cfg),
+        loss_fn=tfm.make_loss_fn(cfg, pp_microbatches=pp_microbatches),
         optimizer=make_optimizer(3e-4, case["steps"]),
         config=TrainLoopConfig(total_steps=case["steps"], log_every=1),
-        device=device, mesh=mesh, param_shardings=tfm.param_specs(cfg))
+        device=device, mesh=mesh,
+        param_shardings=tfm.param_specs(cfg, pp=pp_microbatches > 0))
     recs = []
     loop.run(device_prefetch(synthetic_lm(cfg.vocab_size, global_batch, case["seq"]),
-                             device), on_metrics=recs.append)
+                             device, rows=loop.local_rows(global_batch)),
+             on_metrics=recs.append)
     return [m.loss for m in recs], loop
 
 
@@ -3928,11 +4002,15 @@ def _dist_mesh_config(case):
     return MeshConfig(**case["mesh"])
 
 
+
+
 def _dist_case(ctx, case, device):
     """One layout on this rank: ``lm.train`` with the counts zeroed just
     before and read just after, the gathered parameters, and on rank 0
     the one-process run and the comparison (and, with ``checkpoint``, a
     one-process restore of the layout's checkpoint)."""
+    import gc
+
     import torch
     import torch.distributed as dist
 
@@ -3942,7 +4020,7 @@ def _dist_case(ctx, case, device):
     from kubeflow_controller_tpu_torch.models import transformer as tfm
     from kubeflow_controller_tpu_torch.optim import make_optimizer
     from kubeflow_controller_tpu_torch.parallel import memory, sharding
-    from kubeflow_controller_tpu_torch.parallel.mesh import make_mesh
+    from kubeflow_controller_tpu_torch.parallel.mesh import make_mesh, mesh_for_context
 
     kept, recs, step_peaks = [], [], []
     real_run, real_save = dtrain.TrainLoop.run, dtrain.TrainLoop.save
@@ -3962,17 +4040,29 @@ def _dist_case(ctx, case, device):
         return real_save(loop, wait=wait)
 
     mdir = os.path.join(OUT_DIR, "dist_ckpt") if case.get("checkpoint") else ""
+    # The loops of the cases before (rank 0's one-process runs too) hold
+    # reference cycles: collect them, so that this case's peak is its own.
+    gc.collect()
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
+    start = torch.cuda.memory_allocated(device)
     _reset_launches()
     dtrain.TrainLoop.run, dtrain.TrainLoop.save = keeping, saving
     t0 = time.perf_counter()
+    cfg = lm.model_config(case["config"], max_seq=max(case["seq"], 128),
+                          attn_impl=case.get("attn", "auto"), quant=case.get("quant", ""))
     try:
-        out = lm.train(ctx, config=case["config"], total_steps=case["steps"],
-                       per_data_shard_batch=case["batch"], seq_len=case["seq"],
-                       attn=case.get("attn", "auto"), quant=case.get("quant", ""),
-                       mesh_config=_dist_mesh_config(case), model_dir=mdir)
+        if case.get("pp_microbatches"):
+            _, pp_loop = _loop_run(case, cfg, device, mesh_for_context(
+                ctx, _dist_mesh_config(case), device_type="cuda"), case["pp_microbatches"])
+            out = {"final_step": pp_loop.state.step}
+            del pp_loop
+        else:
+            out = lm.train(ctx, config=case["config"], total_steps=case["steps"],
+                           per_data_shard_batch=case["batch"], seq_len=case["seq"],
+                           attn=case.get("attn", "auto"), quant=case.get("quant", ""),
+                           mesh_config=_dist_mesh_config(case), model_dir=mdir)
     finally:
         dtrain.TrainLoop.run, dtrain.TrainLoop.save = real_run, real_save
     torch.cuda.synchronize(device)
@@ -3981,11 +4071,9 @@ def _dist_case(ctx, case, device):
     peak = torch.cuda.max_memory_allocated(device)
     peak_steps = step_peaks[0] if step_peaks else peak
     loop = kept[0]
-    cfg = lm.model_config(case["config"], max_seq=max(case["seq"], 128),
-                          attn_impl=case.get("attn", "auto"), quant=case.get("quant", ""))
     axes = {k: v for k, v in loop.mesh.shape.items() if v > 1}
     plan = memory.transformer_memory_plan(cfg, axes, case["batch"] * loop.mesh.axis_size(
-        "dp", "fsdp"), case["seq"])
+        "dp", "fsdp"), case["seq"], pp=bool(case.get("pp_microbatches")))
     whole = [sharding.gather_full(p.detach(), s, loop.mesh)
              for p, s in zip(tree_leaves(loop.state.params), loop._specs)]
     del loop, kept
@@ -3994,7 +4082,7 @@ def _dist_case(ctx, case, device):
     want = {k: want.get(k, 0) for k in launches}
     step_ms = [1e3 / m.steps_per_sec for m in recs]
     steady = sorted(step_ms[1:])
-    rec = dict(rank=ctx.process_id, final_step=out["final_step"],
+    rec = dict(rank=ctx.process_id, final_step=out["final_step"], start_gb=start / 1e9,
                losses=[m.loss for m in recs], step_ms=step_ms,
                step_ms_median_steady=steady[len(steady) // 2], wall_s=wall,
                peak_gb=peak / 1e9, peak_steps_gb=peak_steps / 1e9, plan_gb=plan.total / 1e9,
@@ -4009,14 +4097,18 @@ def _dist_case(ctx, case, device):
     rec["peak_limit_gb"] = peak_limit / 1e9
     if peak_steps > peak_limit:
         raise AssertionError(f"dist[{case['label']}] rank {ctx.process_id}: steps' peak "
-                             f"{peak_steps / 1e9} GB > the plan's {plan.total / 1e9} GB + "
+                             f"{peak_steps / 1e9} GB (from {start / 1e9} GB allocated at "
+                             f"the start) > the plan's {plan.total / 1e9} GB + "
                              f"{DIST_PEAK_LEAF_COPIES} x the largest leaf's {leaf / 1e9} GB")
     if ctx.process_id == 0:
         one = make_mesh(devices=[0], device_type="cuda")
-        ref_losses, ref = _dist_one_process(case, cfg, device, one)
+        # Without a mesh the ring is the plain attention, the yardstick:
+        # the ring cases are held against the flash run.
+        one_cfg = cfg.replace(attn_impl=case.get("one_process_attn", cfg.attn_impl))
+        ref_losses, ref = _loop_run(case, one_cfg, device, one)
         ref_leaves = [p.detach() for p in tree_leaves(ref.state.params)]
         del ref
-        _, yard = _dist_one_process(case, cfg.replace(attn_impl="xla"), device, one)
+        _, yard = _loop_run(case, cfg.replace(attn_impl="xla"), device, one)
         yard_leaves = [p.detach() for p in tree_leaves(yard.state.params)]
         del yard
         init = tree_leaves(tfm.init_params(cfg, seed=0, device=device))
@@ -4105,7 +4197,10 @@ def dist_phase(smi):
     ``initialize_from_env`` and ``lm.train``: the flagship at full width
     and depth at dp=2, fsdp=2 (writing a checkpoint a one-process loop
     restores) and tp=2, ``int8_fused`` at fsdp=2 and llama3_8b (2
-    layers, B3/B4) at fsdp=2, each against a one-process run. NCCL with
+    layers, B3/B4) at fsdp=2; the flagship at sp=2 (ring and gathered
+    attention) and at pp=2 (``TrainLoop`` with the pipelined loss), and
+    llama3_8b (2 layers) at sp=2, S=4096, ring; each against a
+    one-process run. NCCL with
     a card a rank when there are two cards; gloo with both ranks on
     cuda:0 on one (NCCL refuses two ranks on one card). The kernels were
     built before the gang starts, so no two ranks build at once. Per

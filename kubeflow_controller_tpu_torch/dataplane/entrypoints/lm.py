@@ -7,7 +7,7 @@ name in ``NOT_YET_PORTED`` until a later slice ports them), the token
 streams (:func:`synthetic_lm`, byte for byte the JAX
 package's, and :func:`token_bin_lm`), and :func:`train`, which runs the
 decoder through ``TrainLoop`` over the job's mesh (``mesh_config``: dp,
-fsdp and tp; one device for a single-process job):
+fsdp, sp and tp; one device for a single-process job):
 
     python -m kubeflow_controller_tpu_torch.dataplane.entrypoints.lm \\
         --config tiny --total-steps 20 --seq-len 128 --device cpu
@@ -31,10 +31,17 @@ drives ``cuda:{process_id % device_count}``. A gang of two on the CPU
         kubeflow_controller_tpu_torch.dataplane.entrypoints.lm \\
         --fsdp 2 --device cpu
 
-Sequence parallelism and ring attention are refused with "not yet
-ported", as are int8 projections and MoE layers over tp > 1 and 8-bit
-Adam over sharded parameters. The command line takes every option of
-the JAX entry point's, with the same defaults.
+Under ``sp > 1`` (``--sp``) or ``attn="ring"`` (``--attn ring``) the
+sequence is split over sp (``shard_seq``, as the JAX entry point sets
+it): ring attention rotates the K/V blocks between the sp ranks, the
+other attention paths gather q/k/v over sp. Refused with "not yet
+ported": int8 projections and MoE layers over tp > 1, MoE over sp > 1,
+ep > 1 and 8-bit Adam over sharded parameters. Pipeline parallelism has
+no flag here, as in the JAX package: a train step calls
+``next_token_loss(pp_microbatches=M)`` on parameters placed by
+``param_specs(cfg, pp=True)`` (``models/transformer.py``). The command
+line takes every option of the JAX entry point's, with the same
+defaults.
 """
 
 from __future__ import annotations
@@ -206,15 +213,11 @@ def train(
 
     ctx = ctx or ProcessContext.from_env()
     mesh_config = mesh_config or MeshConfig()
-    if attn == "ring":
-        raise NotImplementedError("attn='ring' is not yet ported")
-    if mesh_config.sp > 1:
-        raise NotImplementedError(
-            f"sp={mesh_config.sp}: sequence parallelism is not yet ported")
     require_process_group(ctx)
     dev = resolve_device(job_device(ctx, device))
     mesh = mesh_for_context(ctx, mesh_config, device_type=dev.type)
     cfg = model_config(config, max_seq=max(seq_len, 128), attn_impl=attn,
+                       shard_seq=(attn == "ring" or mesh.shape["sp"] > 1),
                        quant=quant)
     with use_mesh(mesh):
         tfm.check_mesh(cfg)

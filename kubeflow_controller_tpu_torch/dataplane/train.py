@@ -11,10 +11,11 @@ optimizer's state for that chunk (moments live where their parameter
 lives). A step gathers each parameter's compute view
 (``parallel/sharding.py``: whole but for tp-sharded dimensions), runs
 the loss on this rank's rows of the global batch (:meth:`TrainLoop.
-local_rows`, the counterpart of ``host_to_global``), reduces each
-gradient over the data ranks to this rank's chunk, and reports the loss
-and metrics as means over the data ranks: the global batch's, as the
-JAX loop logs them. Host batches
+local_rows`, the counterpart of ``host_to_global``; sp and pp ranks
+hold the same rows), reduces each gradient over the loss ranks
+(``LOSS_AXES``: data, sp and pp) to this rank's chunk, and reports the
+loss and metrics as means over the loss ranks: the global batch's, as
+the JAX loop logs them. Host batches
 reach the card through :func:`device_prefetch` (a producer thread
 pins them; each copy is ``non_blocking``). Like the JAX loop, it reads
 device values only at log points, so steps queue on the card between
@@ -78,7 +79,7 @@ from kubeflow_controller_tpu_torch.convert import tree_leaves, tree_unflatten
 from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_controller_tpu_torch.parallel import sharding
 from kubeflow_controller_tpu_torch.parallel.mesh import (
-    AXES, DATA_AXES, Mesh, MeshConfig, batch_rows, make_mesh, use_mesh,
+    AXES, LOSS_AXES, Mesh, MeshConfig, batch_rows, make_mesh, use_mesh,
 )
 
 logger = logging.getLogger("tpujob.train_torch")
@@ -86,28 +87,36 @@ logger = logging.getLogger("tpujob.train_torch")
 
 def _producer_stream(make_items, size: int) -> Iterator[Any]:
     """Items of ``make_items()`` produced by a daemon thread, at most
-    ``size`` ahead. A producer exception is raised in the consumer; a
-    consumer that stops early releases the producer."""
+    ``size`` ahead. A producer exception is raised in the consumer. A
+    consumer that stops early releases the producer and waits for it to
+    end: the producer may be inside torch or numpy making the next item,
+    and a thread left running there while the interpreter shuts down
+    aborts the process ("terminate called without an active
+    exception")."""
     q: "queue.Queue" = queue.Queue(maxsize=size)
     end = object()
     abandoned = threading.Event()
 
+    def put(item) -> bool:
+        while not abandoned.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
     def producer():
         try:
             for item in make_items():
-                while not abandoned.is_set():
-                    try:
-                        q.put(item, timeout=0.1)
-                        break
-                    except queue.Full:
-                        continue
-                if abandoned.is_set():
+                if not put(item):
                     return
-            q.put(end)
+            put(end)
         except BaseException as e:  # raised again in the consumer
-            q.put(e)
+            put(e)
 
-    threading.Thread(target=producer, daemon=True).start()
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
     try:
         while True:
             item = q.get()
@@ -118,6 +127,7 @@ def _producer_stream(make_items, size: int) -> Iterator[Any]:
             yield item
     finally:
         abandoned.set()
+        thread.join()
 
 
 def _host_stack(arrays: List[np.ndarray], pin: bool) -> torch.Tensor:
@@ -334,7 +344,7 @@ class TrainLoop:
                 sharding.is_sharded(s, self.mesh, len(shape))
                 for s, shape in zip(self._specs, self._full_shapes)):
             raise NotImplementedError(
-                "8-bit AdamW on sharded parameters (fsdp or tp > 1) is not "
+                "8-bit AdamW on sharded parameters (fsdp, tp or pp > 1) is not "
                 "yet ported: its per-row scales and size threshold are the "
                 "whole leaf's")
 
@@ -368,10 +378,11 @@ class TrainLoop:
                      ).requires_grad_(True)
                     for p, s, own in zip(leaves, self._specs, self._in_model)]
 
-    def _data_mean(self, values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Each metric's mean over the data ranks (perplexity's geometric
-        mean: exp of the mean cross entropy)."""
-        group = self.mesh.group(*DATA_AXES)
+    def _loss_mean(self, values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Each metric's mean over the loss ranks (``LOSS_AXES``: the data
+        ranks, the sp ranks' slices of the sequence and the pp stages;
+        perplexity's geometric mean: exp of the mean cross entropy)."""
+        group = self.mesh.group(*LOSS_AXES)
         if group is None:
             return values
         keys = list(values)
@@ -379,7 +390,7 @@ class TrainLoop:
             torch.log(values[k].float()) if k == "perplexity" else values[k].float()
             for k in keys])
         dist.all_reduce(stack, group=group)
-        stack = stack / self.mesh.axis_size(*DATA_AXES)
+        stack = stack / self.mesh.axis_size(*LOSS_AXES)
         return {k: torch.exp(v) if k == "perplexity" else v
                 for k, v in zip(keys, stack.unbind())}
 
@@ -402,7 +413,7 @@ class TrainLoop:
         """One optimizer step on ``batch`` (this rank's rows, already on
         the device); returns the step's metrics as device scalars
         (``loss`` and the loss function's metrics; over a mesh, their
-        means over the data ranks)."""
+        means over the loss ranks)."""
         with use_mesh(self.mesh):
             return self._step(batch)
 
@@ -416,7 +427,7 @@ class TrainLoop:
         if self.distributed:
             grads = [g if mine else sharding.reduce_grad(g, s, self.mesh)
                      for g, s, mine in zip(grads, self._specs, self._in_model)]
-            metrics = self._data_mean({"loss": loss, **metrics})
+            metrics = self._loss_mean({"loss": loss, **metrics})
             loss = metrics.pop("loss")
         self.tx.update(self.state.params, tree_unflatten(self.state.params, grads))
         self.state.model_state = model_state
@@ -497,7 +508,7 @@ class TrainLoop:
                     out = self.eval_fn(params, batch)
                 for k, v in out.items():
                     acc[k] = v if k not in acc else acc[k] + v
-            acc = self._data_mean(acc)
+            acc = self._loss_mean(acc)
         return {k: float(v) / batches for k, v in acc.items()}
 
     # -- checkpointing -------------------------------------------------------

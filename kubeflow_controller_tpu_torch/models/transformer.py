@@ -15,8 +15,7 @@ only the dense FFN's d_ff-wide intermediates are recomputed), and its
 linear projections through ``ops/quant.py:maybe_quant_dot`` (bf16, or
 int8 under ``quant``). With ``moe_experts > 0`` every layer's FFN is a
 routed expert bank (:func:`_moe_ffn`: GShard-style grouped capacity
-dispatch, one device, so no expert parallelism). Not ported yet, and
-refused by name: ``attn_impl="ring"`` and the pipeline-parallel stack.
+dispatch, one device, so no expert parallelism).
 
 Over a mesh (``dataplane/train.py``, ``parallel/``), :func:`param_specs`
 places the parameters as the JAX package's ``param_specs`` does, and a
@@ -25,15 +24,25 @@ column-parallel (each rank holds ``n_heads/tp`` query heads and
 ``n_kv_heads/tp`` KV heads, its local head count read from the weights'
 shapes), wo and w_down row-parallel with one all-reduce after each, and
 the head vocab-parallel (:func:`_vocab_parallel_nll_and_argmax`). Masked
-means divide by the global batch's count. Refused under ``tp > 1``:
-int8 projections and MoE layers; ``ep > 1`` and ``sp > 1`` anywhere.
+means divide by the global batch's count. Under ``sp > 1`` with
+``shard_seq`` (or ``attn_impl="ring"``) each sp rank holds its slice of
+the sequence (``mesh.seq_slice``): its tokens' embeddings, activations,
+targets and loss. Attention then either gathers q/k/v over sp and runs
+``mha`` on the whole sequence, keeping this rank's rows (the JAX
+package's constraint of q/k/v to ``P(batch, None, "tp", None)``), or,
+with ``attn_impl="ring"``, rotates q and k outside and runs
+``parallel/ring.py:ring_mha``. :func:`forward_hidden_pp` runs the layer
+stack as a GPipe schedule over pp (``parallel/pipeline.py``), each stage
+holding its block of layers (``param_specs(cfg, pp=True)``). Refused
+under ``tp > 1``: int8 projections and MoE layers; MoE under ``sp >
+1``; ``ep > 1`` anywhere.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,9 +55,12 @@ from kubeflow_controller_tpu_torch.ops.attention import mha
 from kubeflow_controller_tpu_torch.ops.flash_attention import rope_full_tables
 from kubeflow_controller_tpu_torch.ops.quant import maybe_quant_dot
 from kubeflow_controller_tpu_torch.parallel.collectives import (
-    masked_denominator, tp_copy, tp_gather, tp_index, tp_max, tp_size, tp_sum,
+    masked_denominator, seq_gather, tp_copy, tp_gather, tp_index, tp_max, tp_size,
+    tp_sum,
 )
-from kubeflow_controller_tpu_torch.parallel.mesh import current_mesh
+from kubeflow_controller_tpu_torch.parallel.mesh import current_mesh, seq_slice
+from kubeflow_controller_tpu_torch.parallel.pipeline import gpipe, pp_stage_count
+from kubeflow_controller_tpu_torch.parallel.ring import ring_mha
 from kubeflow_controller_tpu_torch.parallel.sharding import P, layers, view
 
 Params = Dict[str, Any]
@@ -81,8 +93,12 @@ class TransformerConfig:
     # shapes). Embed, LM head, and attention scores/softmax stay
     # bf16/fp32 in all modes.
     quant: str = ""
-    attn_impl: str = "auto"                    # auto|xla|flash
+    attn_impl: str = "auto"                    # auto|xla|flash|ring
     tie_embeddings: bool = False
+    # Split the activations' sequence axis over the mesh's sp axis (each
+    # sp rank holds its slice); attn_impl="ring" splits it whatever this
+    # says. Without it an sp rank computes the whole sequence.
+    shard_seq: bool = False
     # Mixture-of-experts: 0 = dense FFN. When > 0 every layer's FFN is a
     # routed bank of ``moe_experts`` SwiGLU experts, each token sent to
     # its ``moe_top_k`` experts within groups of ``moe_group_size``
@@ -273,33 +289,36 @@ def param_shapes(cfg: TransformerConfig) -> Params:
     return shapes
 
 
-def param_specs(cfg: TransformerConfig) -> Params:
+def param_specs(cfg: TransformerConfig, pp: bool = False) -> Params:
     """The placement of every parameter (``parallel/sharding.py``), as
     the JAX package's ``param_specs``: column-parallel projections put
     their output dimension on tp, row-parallel ones their input
     dimension, and the other matmul dimension is fsdp-sharded; the
     embedding is d_model-sharded over (fsdp, tp), the head vocab-sharded
-    over tp; the expert banks put experts on ep."""
+    over tp; the expert banks put experts on ep. ``pp=True`` shards the
+    stacked layer leaves' leading layer axis over pp: pipeline stage
+    ``p`` holds its contiguous block of layers."""
+    lead = "pp" if pp else None
     layers = {
-        "attn_norm": P(None, None),
-        "wq": P(None, "fsdp", "tp"),
-        "wk": P(None, "fsdp", "tp"),
-        "wv": P(None, "fsdp", "tp"),
-        "wo": P(None, "tp", "fsdp"),
-        "mlp_norm": P(None, None),
+        "attn_norm": P(lead, None),
+        "wq": P(lead, "fsdp", "tp"),
+        "wk": P(lead, "fsdp", "tp"),
+        "wv": P(lead, "fsdp", "tp"),
+        "wo": P(lead, "tp", "fsdp"),
+        "mlp_norm": P(lead, None),
     }
     if cfg.moe_experts:
         layers.update({
-            "w_router": P(None, "fsdp", None),
-            "w_gate": P(None, "ep", "fsdp", "tp"),
-            "w_up": P(None, "ep", "fsdp", "tp"),
-            "w_down": P(None, "ep", "tp", "fsdp"),
+            "w_router": P(lead, "fsdp", None),
+            "w_gate": P(lead, "ep", "fsdp", "tp"),
+            "w_up": P(lead, "ep", "fsdp", "tp"),
+            "w_down": P(lead, "ep", "tp", "fsdp"),
         })
     else:
         layers.update({
-            "w_gate": P(None, "fsdp", "tp"),
-            "w_up": P(None, "fsdp", "tp"),
-            "w_down": P(None, "tp", "fsdp"),
+            "w_gate": P(lead, "fsdp", "tp"),
+            "w_up": P(lead, "fsdp", "tp"),
+            "w_down": P(lead, "tp", "fsdp"),
         })
     specs: Params = {
         "embed": P(None, ("fsdp", "tp")),
@@ -316,10 +335,10 @@ def check_mesh(cfg: TransformerConfig) -> None:
     mesh = current_mesh()
     if mesh is None:
         return
-    for axis in ("sp", "ep", "pp"):
-        if mesh.shape[axis] > 1:
-            raise NotImplementedError(
-                f"{axis}={mesh.shape[axis]} is not yet ported")
+    if mesh.shape["ep"] > 1:
+        raise NotImplementedError(f"ep={mesh.shape['ep']} is not yet ported")
+    if mesh.shape["sp"] > 1 and cfg.moe_experts:
+        raise NotImplementedError("MoE layers over sp > 1 are not yet ported")
     tp = mesh.shape["tp"]
     if tp == 1:
         return
@@ -365,9 +384,9 @@ def check_ported(cfg: TransformerConfig) -> None:
     """Refuse the training options this port does not have yet."""
     if cfg.remat not in (True, False, "ffn"):
         raise ValueError(f"remat={cfg.remat!r}: expected True, False or 'ffn'")
-    if cfg.attn_impl not in ("auto", "xla", "flash"):
+    if cfg.attn_impl not in ("auto", "xla", "flash", "ring"):
         raise NotImplementedError(
-            f"attn_impl={cfg.attn_impl!r} is not yet ported (auto|xla|flash)")
+            f"attn_impl={cfg.attn_impl!r} is not yet ported (auto|xla|flash|ring)")
     if cfg.quant not in ("", "int8", "int8_fused"):
         raise NotImplementedError(
             f"quant={cfg.quant!r} is not yet ported ('', int8, int8_fused)")
@@ -581,15 +600,71 @@ def _ffn_remat(cfg: TransformerConfig, h, wg, wu, wd):
         return maybe_quant_dot(prod, wd, cfg.quant)
 
 
+class _Attention(NamedTuple):
+    """What a layer's attention reads besides q/k/v: the whole rows'
+    segment ids and positions, the step's rope tables (``None`` on the
+    ring path, which rotates q and k outside), and ``rows``, this sp
+    rank's slice of the sequence when the activations are split over sp
+    (``None`` when they are whole)."""
+
+    segment_ids: Optional[torch.Tensor]
+    positions: torch.Tensor
+    rope_tables: Any
+    rows: Optional[slice]
+
+
+def _split_rows(cfg: TransformerConfig, s: int) -> Optional[slice]:
+    """This sp rank's slice of an ``s``-position sequence when the
+    activations are split over sp (``shard_seq``, or the ring path), else
+    ``None``."""
+    mesh = current_mesh()
+    if mesh is None or mesh.shape["sp"] == 1:
+        return None
+    if not (cfg.shard_seq or cfg.attn_impl == "ring"):
+        return None
+    return seq_slice(mesh, s)
+
+
+def _attention_inputs(cfg: TransformerConfig, positions: torch.Tensor,
+                      segment_ids: Optional[torch.Tensor]) -> _Attention:
+    """The step's :class:`_Attention` for whole rows ``positions [B, S]``.
+    The rope tables are built once and shared by every layer, as the JAX
+    package's ``_rope_tables_for`` builds them (none for the ring)."""
+    tables = (None if cfg.attn_impl == "ring" else
+              rope_full_tables(positions, cfg.head_dim, cfg.rope_theta))
+    return _Attention(segment_ids, positions, tables,
+                      _split_rows(cfg, positions.shape[1]))
+
+
+def _attend(cfg: TransformerConfig, q, k, v, att: _Attention) -> torch.Tensor:
+    """Causal attention of this rank's queries. The ring path rotates q
+    and k by their positions and runs ``ring_mha`` on this rank's slice;
+    otherwise a split sequence is gathered over sp for ``mha`` and this
+    rank's rows are kept."""
+    rows = att.rows
+    if cfg.attn_impl == "ring":
+        pos, seg = att.positions, att.segment_ids
+        if rows is not None:
+            pos = pos[:, rows]
+            seg = None if seg is None else seg[:, rows]
+        return ring_mha(rope(q, pos, cfg.rope_theta), rope(k, pos, cfg.rope_theta),
+                        v, causal=True, segment_ids=seg)
+    if rows is not None:
+        q, k, v = seq_gather(q), seq_gather(k), seq_gather(v)
+    out = mha(q, k, v, causal=True, segment_ids=att.segment_ids,
+              impl=cfg.attn_impl, rope_tables=att.rope_tables)
+    return out if rows is None else out[:, rows]
+
+
 def _layer(
-    cfg: TransformerConfig, lp: Params, x: torch.Tensor,
-    segment_ids: Optional[torch.Tensor], rope_tables,
+    cfg: TransformerConfig, lp: Params, x: torch.Tensor, att: _Attention,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One pre-norm decoder layer: attention (q/k rotated by the step's
-    rope tables inside ``mha``) and the SwiGLU FFN (or the routed expert
-    bank), projections in ``cfg.dtype`` through ``maybe_quant_dot``
-    (int8 under ``cfg.quant``). Returns the layer's output and its MoE
-    ``[aux, z_loss, drop_rate]`` (zeros for a dense layer)."""
+    """One pre-norm decoder layer: attention (:func:`_attend`: q/k
+    rotated by the step's rope tables inside ``mha``) and the SwiGLU FFN
+    (or the routed expert bank), projections in ``cfg.dtype`` through
+    ``maybe_quant_dot`` (int8 under ``cfg.quant``). Returns the layer's
+    output and its MoE ``[aux, z_loss, drop_rate]`` (zeros for a dense
+    layer)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     dt = cfg.dtype
@@ -605,8 +680,7 @@ def _layer(
     q = dot(h, lp["wq"]).reshape(b, s, -1, hd)
     k = dot(h, lp["wk"]).reshape(b, s, -1, hd)
     v = dot(h, lp["wv"]).reshape(b, s, -1, hd)
-    attn = mha(q, k, v, causal=True, segment_ids=segment_ids,
-               impl=cfg.attn_impl, rope_tables=rope_tables)
+    attn = _attend(cfg, q, k, v, att)
     x = x + tp_sum(dot(attn.reshape(b, s, -1), lp["wo"]))
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
     if cfg.moe_experts:
@@ -626,6 +700,40 @@ def _embed(cfg: TransformerConfig, params: Params,
     return view(params["embed"]).to(cfg.dtype)[tokens]
 
 
+def _embedded(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
+              positions: Optional[torch.Tensor],
+              segment_ids: Optional[torch.Tensor]):
+    """The checks, the embeddings of this rank's tokens (its slice of
+    each row when the sequence is split over sp) and the step's
+    :class:`_Attention`, built on the whole rows (positions and segment
+    ids default to ``arange`` and none)."""
+    check_ported(cfg)
+    check_mesh(cfg)
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+    att = _attention_inputs(cfg, positions, segment_ids)
+    x = _embed(cfg, params, tokens if att.rows is None else tokens[:, att.rows])
+    return x, att
+
+
+def _stacked_layers(cfg: TransformerConfig, params: Params, stages: int = 1,
+                    pipelined: bool = False):
+    """Each layer's weights (``sharding.layers``: over fsdp each slice is
+    gathered inside its layer), this stage's ``n_layers / stages`` under
+    pp. ``pipelined``: the layers run on every tick, and each slice's
+    gradient is reduced once for all of them."""
+    per_layer = {k: layers(v, once=pipelined) for k, v in params["layers"].items()}
+    n = len(next(iter(per_layer.values())))
+    if n * stages != cfg.n_layers:
+        raise ValueError(
+            f"this rank holds {n} of {cfg.n_layers} layers over {stages} "
+            "pipeline stage(s): a layer stack sharded over pp "
+            "(param_specs(cfg, pp=True)) runs through "
+            "next_token_loss(pp_microbatches=M)")
+    return [{k: v[i] for k, v in per_layer.items()} for i in range(n)]
+
+
 def forward_hidden(
     cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     positions: Optional[torch.Tensor] = None,
@@ -633,34 +741,70 @@ def forward_hidden(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens ``[B, S]`` -> (final-norm hidden ``[B, S, d_model]``, MoE
     aux ``[load-balance sum, z-loss sum, drop-rate mean]`` over the
-    layers; zeros for a dense model). The rope tables are built once for
-    the step and shared by every layer. The stacked layer weights are
-    split with one ``unbind`` per leaf, so the backward stacks each
-    leaf's gradient once (``sharding.layers``: over fsdp, each slice is
-    gathered inside its layer). A layer runs under a checkpoint when
-    ``remat`` is True, or ``"ffn"`` on a MoE model (the routing is
-    recomputed in the backward: it is deterministic)."""
-    check_ported(cfg)
-    check_mesh(cfg)
-    b, s = tokens.shape
-    if positions is None:
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = _embed(cfg, params, tokens)
-    tables = rope_full_tables(positions, cfg.head_dim, cfg.rope_theta)
-    per_layer = {k: layers(v) for k, v in params["layers"].items()}
+    layers; zeros for a dense model). With the sequence split over sp the
+    hidden state is this rank's ``[B, S/sp, d_model]`` slice; ``tokens``,
+    ``positions`` and ``segment_ids`` are whole rows all the same. The
+    rope tables are built once for the step and shared by every layer.
+    The stacked layer weights are split with one ``unbind`` per leaf, so
+    the backward stacks each leaf's gradient once. A layer runs under a
+    checkpoint when ``remat`` is True, or ``"ffn"`` on a MoE model (the
+    routing is recomputed in the backward: it is deterministic)."""
+    x, att = _embedded(cfg, params, tokens, positions, segment_ids)
     whole = cfg.remat is True or (cfg.remat == "ffn" and cfg.moe_experts)
     auxes = []
-    for i in range(cfg.n_layers):
-        lp = {k: v[i] for k, v in per_layer.items()}
+    for lp in _stacked_layers(cfg, params):
         if whole:
-            x, aux = checkpoint(_layer, cfg, lp, x, segment_ids, tables,
-                                use_reentrant=False)
+            x, aux = checkpoint(_layer, cfg, lp, x, att, use_reentrant=False)
         else:
-            x, aux = _layer(cfg, lp, x, segment_ids, tables)
+            x, aux = _layer(cfg, lp, x, att)
         auxes.append(aux)
     aux = torch.stack(auxes)                               # [L, 3]
     aux = torch.stack([aux[:, 0].sum(), aux[:, 1].sum(), aux[:, 2].mean()])
     return rmsnorm(x, view(params["final_norm"]), cfg.norm_eps), aux
+
+
+def forward_hidden_pp(
+    cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
+    n_microbatches: int,
+    positions: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`forward_hidden` with the layer stack run as a GPipe
+    schedule over the ambient mesh's pp axis (``parallel/pipeline.py``):
+    this stage's layers (``param_specs(cfg, pp=True)``) on each of
+    ``n_microbatches`` microbatches in turn, handed from stage to stage.
+    The embedding, the final norm and the head stay outside the pipeline
+    (every stage computes them; stage 0's embeddings feed it). Positions
+    and segment ids ride along as the pipeline's extras, each stage
+    indexing the microbatch it holds. The stage function runs under a
+    checkpoint when ``remat`` is True (``"ffn"``: its FFNs recompute
+    their products, as in :func:`forward_hidden`). Over fsdp a stage
+    layer's weights are gathered at each use, on every tick, and their
+    gradient is reduced once a step. Dense layers only, as the JAX
+    package's; needs an ambient mesh, as its ``shard_map`` does."""
+    if cfg.moe_experts:
+        raise NotImplementedError(
+            "pipeline path supports dense layers only (shard experts over "
+            "ep instead)")
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError(
+            "the pipeline runs over the ambient mesh's pp axis: call it "
+            "under parallel.mesh.use_mesh(mesh)")
+    x, att = _embedded(cfg, params, tokens, positions, segment_ids)
+    stage_layers = _stacked_layers(cfg, params, pp_stage_count(mesh), pipelined=True)
+
+    def stage(stage_layers, x_mb, extra):
+        pos, segs = extra
+        att_mb = _attention_inputs(cfg, pos, segs)
+        for lp in stage_layers:
+            x_mb, _ = _layer(cfg, lp, x_mb, att_mb)
+        return x_mb
+
+    x = gpipe(stage, stage_layers, x, n_microbatches, remat=cfg.remat is True,
+              extras=(att.positions, att.segment_ids))
+    return (rmsnorm(x, view(params["final_norm"]), cfg.norm_eps),
+            torch.zeros(3, dtype=torch.float32, device=x.device))
 
 
 def _head(cfg: TransformerConfig, params: Params) -> torch.Tensor:
@@ -798,24 +942,32 @@ def next_token_loss(
     reports ``moe_aux`` and ``moe_drop_rate``.
 
     The vocab projection takes ``cfg.dtype`` operands and accumulates
-    fp32 logits, as the JAX package's does."""
-    if pp_microbatches:
-        raise NotImplementedError(
-            "the pipeline-parallel layer stack is not yet ported")
+    fp32 logits, as the JAX package's does. ``pp_microbatches = M > 0``
+    runs the layer stack over the mesh's pp axis in M microbatches
+    (:func:`forward_hidden_pp`). With the sequence split over sp each
+    rank scores its slice of the targets; the mean over the loss ranks is
+    the global batch's (``masked_denominator``)."""
     tokens = batch["tokens"]
     targets = tokens[:, 1:]
     segs = batch.get("segment_ids")
     seg_in = None if segs is None else segs[:, :-1]
-    hidden, aux = forward_hidden(
-        cfg, params, tokens[:, :-1],
-        positions=None if seg_in is None else packed_positions(seg_in),
-        segment_ids=seg_in)
+    kw = dict(positions=None if seg_in is None else packed_positions(seg_in),
+              segment_ids=seg_in)
+    if pp_microbatches:
+        hidden, aux = forward_hidden_pp(cfg, params, tokens[:, :-1], pp_microbatches, **kw)
+    else:
+        hidden, aux = forward_hidden(cfg, params, tokens[:, :-1], **kw)
+    s_all = targets.shape[1]
+    rows = _split_rows(cfg, s_all)
+    if rows is not None:
+        targets = targets[:, rows]
     head = _head(cfg, params)
     # Under tp the untied head is this rank's vocab shard.
     vp = tp_size() > 1 and "lm_head" in params
     if loss_chunk:
-        s = targets.shape[1]
-        chunk = max(d for d in range(1, min(loss_chunk, s) + 1) if s % d == 0)
+        # The largest divisor of the whole sequence, as the JAX package
+        # picks it; a rank's slice ends on a shorter chunk if need be.
+        chunk = max(d for d in range(1, min(loss_chunk, s_all) + 1) if s_all % d == 0)
         nll, am = _chunked_nll_and_argmax(cfg, hidden, head, targets, chunk, vp)
     else:
         nll, am = _nll_and_argmax(hidden, head, targets, vp)
@@ -824,9 +976,11 @@ def next_token_loss(
     if segs is not None:
         valid = ((segs[:, 1:] == segs[:, :-1]) & (segs[:, 1:] != 0)).float()
         mask = valid if mask is None else mask * valid
+    if mask is not None and rows is not None:
+        mask = mask[:, rows]
     hits = (am == targets).float()
     if mask is not None:
-        # Over the data ranks of a mesh the ranks' mean loss is the
+        # Over the loss ranks of a mesh (data, sp, pp) their mean loss is the
         # global batch's masked mean: each divides by the mean count.
         denom = masked_denominator(mask.sum())
         loss = (nll * mask).sum() / denom
@@ -844,11 +998,13 @@ def next_token_loss(
     return loss, metrics
 
 
-def make_loss_fn(cfg: TransformerConfig):
+def make_loss_fn(cfg: TransformerConfig, pp_microbatches: int = 0):
     """``loss_fn(params, batch) -> (loss, metrics)`` for ``TrainLoop``; it
-    reads every parameter through ``sharding.view`` (``gathers_params``)."""
+    reads every parameter through ``sharding.view`` (``gathers_params``).
+    ``pp_microbatches``: the pipelined loss (the JAX package's train
+    steps call ``next_token_loss(..., pp_microbatches=M)`` themselves)."""
     def loss_fn(params, batch):
-        return next_token_loss(cfg, params, batch)
+        return next_token_loss(cfg, params, batch, pp_microbatches=pp_microbatches)
 
     loss_fn.gathers_params = True
     return loss_fn

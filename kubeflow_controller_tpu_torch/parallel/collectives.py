@@ -9,15 +9,29 @@ on the axes it reduces over, or when there is no ambient mesh:
   gradient summed over tp backward), ``tp_sum`` leaves one (partial
   sums added over tp forward, identity backward: the gradient of a
   replicated output is already whole on every rank);
-* :func:`data_sum` sums over the data axes in both directions
-  (BatchNorm's statistics over the global batch: each rank's loss
-  depends on every rank's rows through them);
+* :func:`axis_sum` sums over mesh axes in both directions, as JAX's
+  ``psum`` transposes to a ``psum``: :func:`data_sum` over the data
+  axes (BatchNorm's statistics over the global batch: each rank's loss
+  depends on every rank's rows through them), and the pipeline's masked
+  sum over pp (``parallel/pipeline.py``);
 * :func:`masked_denominator` turns a per-rank count into the mean
-  count over the data ranks, so that a masked mean whose ranks hold
-  different counts averages to the global batch's masked mean (the
-  train loop averages the ranks' losses and gradients);
+  count over the loss ranks (:data:`~parallel.mesh.LOSS_AXES`), so that
+  a masked mean whose ranks hold different counts averages to the
+  global batch's masked mean (the train loop averages the ranks' losses
+  and gradients);
 * :func:`tp_max` and :func:`tp_gather` read values across tp without
-  gradients (the vocab-parallel loss's max and argmax).
+  gradients (the vocab-parallel loss's max and argmax);
+* :func:`ring_shift` is JAX's ``ppermute`` by a fixed offset around a
+  mesh axis (ring attention's K/V rotation, the pipeline's hand-off to
+  the next stage); its backward is the reverse shift;
+* :func:`seq_gather` all-gathers the sequence over sp; its backward
+  reduce-scatters, since each rank holds only its slice of the output's
+  gradient.
+
+Point-to-point transfers go through ``dist.batch_isend_irecv``. Gloo
+sends and receives host memory only, so on gloo a CUDA tensor is staged
+through pinned host buffers (:func:`p2p_transport` names the route);
+the compute stays on the card.
 """
 
 from __future__ import annotations
@@ -27,7 +41,9 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from kubeflow_controller_tpu_torch.parallel.mesh import DATA_AXES, current_mesh
+from kubeflow_controller_tpu_torch.parallel.mesh import (
+    DATA_AXES, LOSS_AXES, current_mesh,
+)
 
 
 def _group(*axes: str) -> Tuple[Optional[object], int]:
@@ -94,9 +110,15 @@ def tp_sum(x: torch.Tensor) -> torch.Tensor:
     return x if n == 1 else _TpSum.apply(x, group)
 
 
-def data_sum(x: torch.Tensor) -> torch.Tensor:
-    group, n = _group(*DATA_AXES)
+def axis_sum(x: torch.Tensor, *axes: str) -> torch.Tensor:
+    """``x`` summed over the ranks of ``axes``; the backward sums the
+    gradient over them too."""
+    group, n = _group(*axes)
     return x if n == 1 else _DataSum.apply(x, group)
+
+
+def data_sum(x: torch.Tensor) -> torch.Tensor:
+    return axis_sum(x, *DATA_AXES)
 
 
 def data_shards() -> int:
@@ -104,11 +126,12 @@ def data_shards() -> int:
 
 
 def masked_denominator(count: torch.Tensor, floor: float = 1.0) -> torch.Tensor:
-    """``max(Σ counts, floor) / n`` over the n data ranks (no gradient):
+    """``max(Σ counts, floor) / n`` over the n loss ranks (no gradient):
     ``local_sum / masked_denominator(local_count)`` averaged over the
     ranks is ``Σ sums / max(Σ counts, floor)``, the global batch's
-    masked mean. One rank: ``count.clamp_min(floor)``."""
-    group, n = _group(*DATA_AXES)
+    masked mean (pp ranks count the same tokens, which the mean over
+    them undoes). One rank: ``count.clamp_min(floor)``."""
+    group, n = _group(*LOSS_AXES)
     if n == 1:
         return count.clamp_min(floor)
     return _all_reduce(count.detach().float(), group).clamp_min(floor) / n
@@ -130,3 +153,97 @@ def tp_gather(x: torch.Tensor) -> torch.Tensor:
     out = [torch.empty_like(x) for _ in range(n)]
     dist.all_gather(out, x, group=group)
     return torch.stack(out)
+
+
+def _staged(x: torch.Tensor, group) -> bool:
+    """Whether :func:`_p2p` stages ``x`` through pinned host memory: a
+    CUDA tensor on gloo, which sends and receives host memory only."""
+    return x.is_cuda and str(dist.get_backend(group)) == "gloo"
+
+
+def p2p_transport(x: torch.Tensor, group) -> str:
+    """How :func:`ring_shift` moves ``x`` over ``group``: the backend's
+    own send and receive, or through pinned host memory
+    (:func:`_staged`)."""
+    backend = str(dist.get_backend(group))
+    return f"{backend} via pinned host memory" if _staged(x, group) else backend
+
+
+def _p2p(x: torch.Tensor, dst: int, src: int, group) -> torch.Tensor:
+    """Send ``x`` to group rank ``dst``; return what group rank ``src``
+    sends (of ``x``'s shape and dtype)."""
+    staged = _staged(x, group)
+    buf = x.detach().contiguous()
+    if staged:
+        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+        buf = host.copy_(buf)
+    out = torch.empty_like(buf)
+    ops = [dist.P2POp(dist.isend, buf, dist.get_global_rank(group, dst), group),
+           dist.P2POp(dist.irecv, out, dist.get_global_rank(group, src), group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return out.to(x.device) if staged else out
+
+
+def _shift(x: torch.Tensor, group, offset: int) -> torch.Tensor:
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    return _p2p(x, (i + offset) % n, (i - offset) % n, group)
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, offset):
+        ctx.group, ctx.offset = group, offset
+        return _shift(x, group, offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _shift(g, ctx.group, -ctx.offset), None, None
+
+
+def ring_shift(x: torch.Tensor, axis: str, offset: int) -> torch.Tensor:
+    """JAX's ``ppermute`` with ``perm = [(j, (j + offset) % n)]`` over
+    mesh axis ``axis``: each rank sends ``x`` to the rank ``offset``
+    along the axis and returns what the rank ``-offset`` along it sent
+    (ring attention's ``offset=-1``: receive from the right-hand
+    neighbour). The backward is the reverse shift, JAX's transpose of a
+    ``ppermute``. The identity on an axis of one rank."""
+    group, n = _group(axis)
+    return x if n == 1 else _Shift.apply(x, group, offset)
+
+
+def gather_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """The ``n`` ranks' ``x`` joined along ``dim`` in rank order."""
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather_into_tensor(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
+    """The sum of the ``n`` ranks' ``x``, this rank's chunk along ``dim``."""
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+class _SeqGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return gather_dim(x, dim, group, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g, ctx.dim, ctx.group, ctx.n).contiguous(), None, None, None
+
+
+def seq_gather(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The sp ranks' slices of ``x`` along ``dim`` joined in rank order
+    (the whole sequence); the backward reduce-scatters the gradient,
+    each rank keeping its slice's sum over the ranks."""
+    group, n = _group("sp")
+    return x if n == 1 else _SeqGather.apply(x, dim, group, n)

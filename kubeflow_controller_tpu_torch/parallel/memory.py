@@ -83,14 +83,17 @@ class MemoryPlan:
 
 def transformer_memory_plan(cfg, mesh_axes: Dict[str, int], global_batch: int,
                             seq: Optional[int] = None,
-                            optimizer_slots: int = 2) -> MemoryPlan:
+                            optimizer_slots: int = 2, pp: bool = False) -> MemoryPlan:
     """Per-device plan for the decoder's train step at ``mesh_axes``
-    (axis name -> size), as the JAX package computes it."""
+    (axis name -> size), as the JAX package computes it. ``pp=True``
+    places the parameters by ``param_specs(cfg, pp=True)`` (a pipeline
+    stage stores its block of layers), which the JAX package's plan does
+    not; the activation terms stay its."""
     from kubeflow_controller_tpu_torch.models import transformer as tfm
 
     seq = seq or cfg.max_seq
     shapes = tree_leaves(tfm.param_shapes(cfg))
-    specs = tree_leaves(tfm.param_specs(cfg))
+    specs = tree_leaves(tfm.param_specs(cfg, pp=pp))
     assert len(shapes) == len(specs), "specs/params tree mismatch"
     pbytes = torch.empty((), dtype=cfg.param_dtype).element_size()
     params_bytes = sum(sharded_leaf_bytes(s, pbytes, sp, mesh_axes)

@@ -35,12 +35,34 @@ AXES = ("pp", "dp", "fsdp", "ep", "sp", "tp")
 #: expert banks); sp and tp groups see the same rows.
 DATA_AXES = ("dp", "fsdp", "ep")
 
+#: The axes whose ranks each compute a part of one global loss, which is
+#: the mean of their losses: the data axes (each rank's rows), sp (each
+#: rank's slice of the sequence) and pp (every stage computes the loss
+#: of the replicated last-stage output). A gradient is summed over the
+#: ranks of these axes that hold its leaf whole, and divided by their
+#: count. tp ranks compute the same loss once between them.
+LOSS_AXES = ("pp", "dp", "fsdp", "ep", "sp")
+
+
+def grad_sum_axes(scattered: bool = False, stage: bool = False) -> Tuple[str, ...]:
+    """The loss axes a gradient is all-reduced over
+    (``sharding.reduce_grad``): all of them but fsdp where fsdp's
+    reduce-scatter has summed the leaf (``scattered``), and but pp where
+    the leaf is a stage's layers (``stage``)."""
+    return tuple(a for a in LOSS_AXES
+                 if not (a == "fsdp" and scattered or a == "pp" and stage))
+
+
 #: The sets of axes a mesh makes groups over: each axis, the data axes
-#: (the loss and metrics' means) and those fsdp's reduce-scatter leaves
-#: to an all-reduce, fsdp with tp (a leaf sharded over both on one
-#: dimension), and the whole mesh (barriers, checkpoints).
-GROUP_AXES = tuple((a,) for a in AXES) + (
-    DATA_AXES, ("dp", "ep"), ("fsdp", "tp"), AXES)
+#: (BatchNorm's statistics) and those fsdp's reduce-scatter leaves to an
+#: all-reduce, every set a gradient is all-reduced over
+#: (:func:`grad_sum_axes`; all the loss axes for the loss and metrics'
+#: means), fsdp with tp (a leaf sharded over both on one dimension), and
+#: the whole mesh (barriers, checkpoints).
+GROUP_AXES = tuple((a,) for a in AXES) + (DATA_AXES, ("dp", "ep")) + tuple(
+    grad_sum_axes(scattered, stage)
+    for scattered in (False, True) for stage in (False, True)) + (
+    ("fsdp", "tp"), AXES)
 
 
 @dataclass(frozen=True)
@@ -261,6 +283,20 @@ def row_source(mesh: Mesh) -> int:
     draw the same rows; without them it is the rank itself."""
     c = mesh.coords
     return int(mesh.devices[0, c["dp"], c["fsdp"], c["ep"], 0, 0])
+
+
+def seq_slice(mesh: Optional[Mesh], s: int) -> slice:
+    """This rank's contiguous slice of a sequence of ``s`` positions
+    split over sp (the whole sequence off a mesh or at sp=1): rank ``i``
+    of the sp group holds ``[i * s / sp, (i + 1) * s / sp)``, as
+    ``P(batch, "sp")`` splits it."""
+    if mesh is None or mesh.shape["sp"] == 1:
+        return slice(0, s)
+    n = mesh.shape["sp"]
+    if s % n:
+        raise ValueError(f"sequence length {s} does not divide over sp={n}")
+    i = mesh.coords["sp"]
+    return slice(i * s // n, (i + 1) * s // n)
 
 
 def data_shards(mesh: Mesh) -> int:

@@ -10,13 +10,16 @@ chunk of every parameter (:func:`shard_params`, :func:`local_shard`).
 A train step runs on *compute views* (:func:`gather_for_compute`):
 every sharded dimension is all-gathered except one sharded over ``tp``
 alone, which the tensor-parallel layers consume in place (Megatron's
-column- and row-parallel weights, the vocab-parallel head). The
-gradient of a view is a per-rank partial sum over the data axes, whole
-over tp; :func:`reduce_grad` sums it over the data ranks —
-reduce-scattered over fsdp where a dimension is fsdp-sharded — keeps
-this rank's chunk and divides by the number of data shards (the mean
-over the global batch). :func:`gather_full` rebuilds a whole parameter
-(checkpoints).
+column- and row-parallel weights, the vocab-parallel head), and the
+leading layer axis of a stacked leaf sharded over ``pp``, whose block
+of layers is this pipeline stage's. The gradient of a view is this
+rank's part of the gradient of the mean of the loss ranks' losses
+(``mesh.LOSS_AXES``: data, sp and pp), whole over tp;
+:func:`reduce_grad` sums it over the loss ranks that hold the leaf
+whole — reduce-scattered over fsdp where a dimension is fsdp-sharded,
+not over pp for a stage's layers — keeps this rank's chunk and divides
+by the number of loss ranks. :func:`gather_full` rebuilds a whole
+parameter, over pp too (checkpoints are in the one-device layout).
 
 A model that reads its parameters through :func:`view` (and its
 stacked ``[L, ...]`` layer leaves through :func:`layers`) lets the
@@ -45,7 +48,8 @@ import torch
 import torch.distributed as dist
 
 from kubeflow_controller_tpu_torch.convert import tree_leaves, tree_unflatten
-from kubeflow_controller_tpu_torch.parallel.mesh import AXES, DATA_AXES, Mesh
+from kubeflow_controller_tpu_torch.parallel.collectives import gather_dim, reduce_scatter_dim
+from kubeflow_controller_tpu_torch.parallel.mesh import AXES, LOSS_AXES, Mesh, grad_sum_axes
 
 
 class P(tuple):
@@ -175,40 +179,25 @@ def spec_leaves(specs: Any) -> list:
     return [specs]
 
 
-def _gather(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
-    src = t.movedim(dim, 0).contiguous()
-    out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=t.dtype,
-                      device=t.device)
-    dist.all_gather_into_tensor(out, src, group=group)
-    return out.movedim(0, dim)
-
-
-def _reduce_scatter(t: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
-    src = t.movedim(dim, 0).contiguous()
-    out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=t.dtype,
-                      device=t.device)
-    dist.reduce_scatter_tensor(out, src, group=group)
-    return out.movedim(0, dim)
-
-
 def _tp_local(spec, ndim: int) -> List[bool]:
-    """Per dimension, whether the spec shards it over tp alone (the
-    dimensions a compute view keeps as this rank's)."""
+    """Per dimension, whether the spec shards it over tp alone or pp
+    alone (the dimensions a compute view keeps as this rank's)."""
     entries = list(spec or ()) + [None] * (ndim - len(spec or ()))
-    return [_entry_axes(e) == ("tp",) for e in entries[:ndim]]
+    return [_entry_axes(e) in (("tp",), ("pp",)) for e in entries[:ndim]]
 
 
 def _gather_dims(t: torch.Tensor, spec, mesh: Mesh, keep_tp: bool) -> torch.Tensor:
     local = _tp_local(spec, t.ndim)
     for d, axes in enumerate(effective(spec, mesh, t.ndim)):
         if axes and not (keep_tp and local[d]):
-            t = _gather(t, d, mesh.group(*axes), mesh.axis_size(*axes))
+            t = gather_dim(t, d, mesh.group(*axes), mesh.axis_size(*axes))
     return t.contiguous()
 
 
 def gather_for_compute(local: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
     """The tensor a step computes with: every sharded dimension
-    gathered, but one sharded over ``tp`` alone stays this rank's."""
+    gathered, but one sharded over ``tp`` alone, or over ``pp`` alone (a
+    stage's layers), stays this rank's."""
     return _gather_dims(local, spec, mesh, keep_tp=True)
 
 
@@ -217,29 +206,35 @@ def gather_full(local: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
     return _gather_dims(local, spec, mesh, keep_tp=False)
 
 
-def reduce_grad(grad: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
+def reduce_grad(grad: torch.Tensor, spec, mesh: Mesh,
+                stage: bool = False) -> torch.Tensor:
     """The gradient of this rank's chunk from the gradient of its compute
-    view: summed over the data ranks (reduce-scattered along a dimension
-    whose spec leads with fsdp, all-reduced over the other data axes),
-    narrowed to the chunk, and divided by the number of data shards."""
-    data_left = [a for a in DATA_AXES if mesh.shape[a] > 1]
+    view: summed over the loss ranks (reduce-scattered along a dimension
+    whose spec leads with fsdp, all-reduced over the other loss axes but
+    pp where the leaf is a stage's layers: a layer axis sharded over pp,
+    or ``stage``, one layer of such a leaf), narrowed to the chunk, and
+    divided by the number of loss ranks (``mesh.LOSS_AXES``)."""
+    scattered = False
     narrow = []
     local = _tp_local(spec, grad.ndim)
     for d, axes in enumerate(effective(spec, mesh, grad.ndim)):
+        if axes == ("pp",):
+            stage = True
         if not axes or local[d]:
             continue
-        if axes[0] == "fsdp" and "fsdp" in data_left:
-            grad = _reduce_scatter(grad, d, mesh.group("fsdp"), mesh.shape["fsdp"])
-            data_left.remove("fsdp")
+        if axes[0] == "fsdp" and not scattered:
+            grad = reduce_scatter_dim(grad, d, mesh.group("fsdp"), mesh.shape["fsdp"])
+            scattered = True
             axes = axes[1:]
         if axes:
             narrow.append((d, axes))
-    if data_left:
+    group = mesh.group(*grad_sum_axes(scattered, stage))
+    if group is not None:
         grad = grad.contiguous()
-        dist.all_reduce(grad, group=mesh.group(*data_left))
+        dist.all_reduce(grad, group=group)
     for d, axes in narrow:
         grad = _chunk(grad, d, mesh.axis_size(*axes), mesh.axis_index(*axes))
-    n = mesh.axis_size(*DATA_AXES)
+    n = mesh.axis_size(*LOSS_AXES)
     return (grad / n if n > 1 else grad).contiguous()
 
 
@@ -260,18 +255,58 @@ class _GatherView(torch.autograd.Function):
     chunk's (:func:`reduce_grad`)."""
 
     @staticmethod
-    def forward(ctx, chunk, spec, mesh):
-        ctx.spec, ctx.mesh = spec, mesh
+    def forward(ctx, chunk, spec, mesh, stage):
+        ctx.spec, ctx.mesh, ctx.stage = spec, mesh, stage
         return gather_for_compute(chunk, spec, mesh)
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_grad(g, ctx.spec, ctx.mesh), None, None
+        return reduce_grad(g, ctx.spec, ctx.mesh, ctx.stage), None, None, None
 
 
-# id(chunk) -> (chunk, spec, mesh) of the chunks a model gathers itself,
-# innermost gathered_in_model block last.
-_IN_MODEL: List[Dict[int, Tuple[torch.Tensor, Any, Mesh]]] = []
+def _view_shape(chunk: torch.Tensor, spec, mesh: Mesh) -> Tuple[int, ...]:
+    """The shape of ``gather_for_compute(chunk, spec, mesh)``."""
+    shape, local = list(chunk.shape), _tp_local(spec, chunk.ndim)
+    for d, axes in enumerate(effective(spec, mesh, chunk.ndim)):
+        if axes and not local[d]:
+            shape[d] *= mesh.axis_size(*axes)
+    return tuple(shape)
+
+
+class _Pending(torch.autograd.Function):
+    """A chunk -> a stand-in of its compute view's shape (no storage),
+    which every use of the view hangs from (:class:`_GatherUse`);
+    backward: the uses' gradients, summed by autograd -> the chunk's
+    (:func:`reduce_grad`), once."""
+
+    @staticmethod
+    def forward(ctx, chunk, spec, mesh, stage):
+        ctx.spec, ctx.mesh, ctx.stage = spec, mesh, stage
+        return chunk.new_zeros(()).expand(_view_shape(chunk, spec, mesh))
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_grad(g, ctx.spec, ctx.mesh, ctx.stage), None, None, None
+
+
+class _GatherUse(torch.autograd.Function):
+    """One use of a chunk's compute view, gathered here; backward: the
+    view's gradient, unreduced, to the chunk's :class:`_Pending`."""
+
+    @staticmethod
+    def forward(ctx, pending, chunk, spec, mesh):
+        return gather_for_compute(chunk, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+# id(chunk) -> (chunk, spec, mesh, stage, pending) of the chunks a model
+# gathers itself (``stage``: one layer of a stage's pp-sharded stack;
+# ``pending``: its :class:`_Pending` when its gradient is reduced once
+# for every use), innermost gathered_in_model block last.
+_IN_MODEL: List[Dict[int, Tuple[torch.Tensor, Any, Mesh, bool, Optional[torch.Tensor]]]] = []
 
 
 @contextlib.contextmanager
@@ -281,7 +316,7 @@ def gathered_in_model(chunks: Sequence[torch.Tensor], specs: Sequence[Any],
     :func:`view` of one of ``chunks`` gathers its compute view where the
     model uses it, and the view's gradient reaches the chunk reduced:
     the gradient ``reduce_grad`` would give."""
-    _IN_MODEL.append({id(t): (t, s, mesh) for t, s in zip(chunks, specs)})
+    _IN_MODEL.append({id(t): (t, s, mesh, False, None) for t, s in zip(chunks, specs)})
     try:
         yield
     finally:
@@ -302,24 +337,33 @@ def view(t):
     entry = _registered(t)
     if entry is None:
         return t
-    _, spec, mesh = entry
-    return _GatherView.apply(t, spec, mesh)
+    _, spec, mesh, stage, pending = entry
+    if pending is not None:
+        return _GatherUse.apply(pending, t.detach(), spec, mesh)
+    return _GatherView.apply(t, spec, mesh, stage)
 
 
-def layers(t: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """``t.unbind(0)``, a stacked leaf's per-layer slices; a chunk's
-    slices are registered with a layer's spec (the leading entry
-    dropped), so that :func:`view` gathers one layer at a time."""
+def layers(t: torch.Tensor, once: bool = False) -> Tuple[torch.Tensor, ...]:
+    """``t.unbind(0)``, a stacked leaf's per-layer slices (under pp, this
+    stage's layers); a chunk's slices are registered with a layer's spec
+    (the leading entry dropped), so that :func:`view` gathers one layer
+    at a time. ``once``: a slice's view may be used many times (the
+    pipeline runs a stage's layers on every tick), and its gradient is
+    reduced once, when every use has handed back its part; until then
+    autograd holds the sum, of the view's shape."""
     parts = t.unbind(0)
     entry = _registered(t)
     if entry is not None:
-        _, spec, mesh = entry
+        _, spec, mesh, _, _ = entry
         spec = list(spec or ())
-        if spec and spec[0] is not None:
+        if spec and spec[0] not in (None, "pp"):
             raise NotImplementedError(
                 f"a stacked leaf sharded along its layer axis ({spec[0]!r})")
+        stage = bool(spec) and spec[0] == "pp" and mesh.shape["pp"] > 1
         for part in parts:
-            _IN_MODEL[-1][id(part)] = (part, P(*spec[1:]), mesh)
+            lspec = P(*spec[1:])
+            pending = _Pending.apply(part, lspec, mesh, stage) if once else None
+            _IN_MODEL[-1][id(part)] = (part, lspec, mesh, stage, pending)
     return parts
 
 

@@ -31,6 +31,10 @@ from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
 from kubeflow_controller_tpu_torch.models import generate as tgen
 from kubeflow_controller_tpu_torch.models import transformer as ttf
 
+# One intra-op thread, as every port test module sets at import
+# (tests/test_torch_import.py says why).
+torch.set_num_threads(1)
+
 CFG = ttf.tiny_config()
 BATCHES = [next(tlm.synthetic_lm(CFG.vocab_size, 4, 32, seed=s)) for s in range(6)]
 OPTIMIZERS = [False, True]

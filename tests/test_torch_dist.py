@@ -25,6 +25,10 @@ from kubeflow_controller_tpu_torch.parallel import memory as tmemory
 from kubeflow_controller_tpu_torch.parallel import mesh as tmesh
 from kubeflow_controller_tpu_torch.parallel import sharding as tsharding
 
+# One intra-op thread, as every port test module sets at import
+# (tests/test_torch_import.py says why).
+torch.set_num_threads(1)
+
 LAYOUT_SIZES = (-1, 1, 2, 4, 8)
 
 
@@ -195,10 +199,11 @@ def test_decoder_param_specs_match_jax(name):
     base = "tiny" if name == "tied" else name
     jc = getattr(jtf, f"{base}_config")(**kw)
     tc = getattr(ttf, f"{base}_config")(**kw)
-    want = _jspecs_flat(jtf.param_specs(jc))
-    got = tsharding.spec_leaves(ttf.param_specs(tc))
-    assert len(got) == len(want)
-    assert all(_same_spec(g, w) for g, w in zip(got, want)), (got, want)
+    for pp in (False, True):          # pp: the layer axis over the stages
+        want = _jspecs_flat(jtf.param_specs(jc, pp=pp))
+        got = tsharding.spec_leaves(ttf.param_specs(tc, pp=pp))
+        assert len(got) == len(want)
+        assert all(_same_spec(g, w) for g, w in zip(got, want)), (pp, got, want)
     shapes = jax.tree.leaves(jax.eval_shape(lambda: jtf.init_params(jc, jax.random.key(0))))
     assert [tuple(s) for s in tsharding.spec_leaves(ttf.param_shapes(tc))] == [
         tuple(s.shape) for s in shapes]
@@ -325,3 +330,20 @@ def test_transformer_memory_plan_matches_jax_byte_for_byte(name, axes, batch, se
     assert got.fits(80) == want.fits(80)
     assert tmemory.sharded_leaf_bytes((7, 8), 4, ("fsdp", "tp"), {"fsdp": 2, "tp": 4}) == \
         jmemory.sharded_leaf_bytes((7, 8), 4, ("fsdp", "tp"), {"fsdp": 2, "tp": 4})
+
+
+def test_memory_plan_with_pp_counts_a_stages_layers():
+    """``pp=True`` places the parameters by ``param_specs(cfg, pp=True)``:
+    a stage stores its block of layers and the whole embedding, head and
+    final norm (the JAX package's plan has no pp placement); the other
+    terms are the plan without it."""
+    from kubeflow_controller_tpu_torch.models import transformer as ttf
+
+    cfg = ttf.flagship_config()
+    base = tmemory.transformer_memory_plan(cfg, {"pp": 2}, 16, 1024)
+    got = tmemory.transformer_memory_plan(cfg, {"pp": 2}, 16, 1024, pp=True)
+    shapes = ttf.param_shapes(cfg)
+    layer_bytes = sum(4 * int(np.prod(s)) for s in shapes["layers"].values())
+    assert base.params - got.params == layer_bytes // 2
+    assert (got.grads, got.opt_state) == (got.params, 2 * got.params)
+    assert (got.activations, got.logits) == (base.activations, base.logits)

@@ -27,6 +27,10 @@ from kubeflow_controller_tpu.ops import flash_attention as jfa
 from kubeflow_controller_tpu_torch.ops import attention as tattn
 from kubeflow_controller_tpu_torch.ops import flash_attention as tfa
 
+# One intra-op thread, as every port test module sets at import
+# (tests/test_torch_import.py says why).
+torch.set_num_threads(1)
+
 FWD_TOL = dict(rtol=0.0, atol=2e-5)
 GRAD_TOL = dict(rtol=1e-3, atol=5e-4)
 

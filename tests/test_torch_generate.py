@@ -25,6 +25,10 @@ from kubeflow_controller_tpu_torch.convert import params_from_numpy
 from kubeflow_controller_tpu_torch.models import generate as tgen
 from kubeflow_controller_tpu_torch.models import transformer as ttfm
 
+# One intra-op thread, as every port test module sets at import
+# (tests/test_torch_import.py says why).
+torch.set_num_threads(1)
+
 # The JAX package's declared end-to-end logits tolerance
 # (tests/test_paged_attention_pallas.py:57).
 PALLAS_LOGITS_TOL = dict(rtol=5e-5, atol=5e-5)

@@ -25,6 +25,16 @@ from kubeflow_controller_tpu_torch.models import transformer as tfm
 from kubeflow_controller_tpu_torch.ops import paged_attention as pa
 from kubeflow_controller_tpu_torch.ops import quant_fused as qf
 
+# One intra-op thread for the port's CPU tests in this process. Every
+# port test module that imports torch sets it at import (checked below),
+# so that it holds for a file run alone too: under pytest-xdist six
+# workers of torch's default one thread a core oversubscribe the host,
+# and the small tensors of these tests then wait on each other's
+# spinning thread pools (a 0.8 s test took 116 s in a loaded run).
+# Results do not depend on it: the tests hold the port to tolerances,
+# and the gang tests' workers already run one thread.
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "kubeflow_controller_tpu_torch")
 BLOCKED = ("jax", "jaxlib", "kubeflow_controller_tpu")
@@ -281,3 +291,22 @@ def test_dist_and_parallel_modules_are_checked():
     srcs = {os.path.relpath(p, PKG) for p in _sources()}
     assert {"dataplane/dist.py", "parallel/mesh.py", "parallel/sharding.py",
             "parallel/memory.py", "parallel/collectives.py"} <= srcs
+
+
+def test_every_port_test_module_runs_one_intra_op_thread():
+    """Each ``tests/test_torch_*.py`` that imports torch at module level
+    sets one intra-op thread there (see the top of this file)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    missing = []
+    for name in sorted(os.listdir(here)):
+        if not (name.startswith("test_torch_") and name.endswith(".py")):
+            continue
+        with open(os.path.join(here, name)) as f:
+            tree = ast.parse(f.read())
+        imports_torch = any(isinstance(n, ast.Import) and any(a.name == "torch" for a in n.names)
+                            for n in tree.body)
+        sets_one = any(isinstance(n, ast.Expr) and ast.unparse(n) == "torch.set_num_threads(1)"
+                       for n in tree.body)
+        if imports_torch and not sets_one:
+            missing.append(name)
+    assert not missing, missing

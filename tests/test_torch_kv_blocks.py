@@ -28,6 +28,10 @@ from kubeflow_controller_tpu.dataplane import spec_decode as jspec
 from kubeflow_controller_tpu_torch.dataplane import kv_blocks as tkv
 from kubeflow_controller_tpu_torch.dataplane import spec_decode as tspec
 
+# One intra-op thread, as every port test module sets at import
+# (tests/test_torch_import.py says why).
+torch.set_num_threads(1)
+
 
 def _toks(seq):
     return [int(t) for t in seq]

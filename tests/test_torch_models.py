@@ -34,6 +34,10 @@ from kubeflow_controller_tpu_torch.models import bert as tbert
 from kubeflow_controller_tpu_torch.models import mnist as tmnist
 from kubeflow_controller_tpu_torch.models import resnet as tresnet
 
+# One intra-op thread, as every port test module sets at import
+# (tests/test_torch_import.py says why).
+torch.set_num_threads(1)
+
 LOGITS_ATOL = 1e-5
 STATS_ATOL = 1e-5
 LOSS_RTOL = 1e-5

@@ -38,6 +38,10 @@ from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
 from kubeflow_controller_tpu_torch.models import generate as tgen
 from kubeflow_controller_tpu_torch.models import transformer as ttf
 
+# One intra-op thread, as every port test module sets at import
+# (tests/test_torch_import.py says why).
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.skipif(
     pap.pltpu is None, reason="pallas TPU backend not built into this jax")
 

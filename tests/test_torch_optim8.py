@@ -28,6 +28,10 @@ from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
 from kubeflow_controller_tpu_torch.dataplane.entrypoints import lm as tlm
 from kubeflow_controller_tpu_torch.ops import optim8 as to8
 
+# One intra-op thread, as every port test module sets at import
+# (tests/test_torch_import.py says why).
+torch.set_num_threads(1)
+
 LR, TOTAL = 1e-2, 3
 
 # v codes one step apart, of the 25,600 quantized v codes: read 0 in

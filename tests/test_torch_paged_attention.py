@@ -21,6 +21,10 @@ from kubeflow_controller_tpu.ops.attention import paged_kv_view as jax_view
 from kubeflow_controller_tpu_torch.ops import paged_attention as tpa
 from kubeflow_controller_tpu_torch.ops.attention import paged_kv_view
 
+# One intra-op thread, as every port test module sets at import
+# (tests/test_torch_import.py says why).
+torch.set_num_threads(1)
+
 pytestmark = pytest.mark.skipif(
     pap.pltpu is None, reason="pallas TPU backend not built into this jax")
 

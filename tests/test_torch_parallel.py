@@ -1,5 +1,5 @@
-"""Multi-process training of the port over a dp/fsdp/tp mesh against the
-JAX package's ``TrainLoop`` on the same ``MeshConfig``.
+"""Multi-process training of the port over a dp/fsdp/sp/tp/pp mesh against
+the JAX package's ``TrainLoop`` on the same ``MeshConfig``.
 
 One gang of four gloo processes (:func:`_worker_main`, started once for
 the module) runs every case in turn; a case of two ranks runs beside
@@ -37,11 +37,26 @@ the case's shape. Each test then holds one case to its reference:
   uninterrupted fsdp=2 run ends, and serves with ``serve(model_dir=)``;
 * the mesh as a ``DeviceMesh``, and DTensors built from each rank's
   chunks by ``placements`` equal to the whole tensors; the chunked loss
-  under tp equal to the whole-sequence one.
+  under tp equal to the whole-sequence one;
+* ``ring_mha`` at sp=4 (causal and not, GQA, segment ids, gradients)
+  and at sp=2 x tp=2 against the JAX package's on the same mesh, at
+  ``tests/test_ring.py``'s tolerances;
+* ``gpipe`` at pp=2: identity stages keep the batch order, each stage's
+  offset is added once, the batch must divide;
+* the decoder (4 layers) at sp=2 with ring and with gathered attention
+  (packed rows), and at pp=2 x tp=2 with 4 microbatches (plain and
+  packed): its hidden state, loss and every leaf's gradient (one SGD
+  step at lr 1 from the same weights) against the JAX package's on the
+  same mesh and without one, at ``tests/test_pipeline.py``'s tolerances;
+  int8 projections at pp=2 x fsdp=2 within the int8 bounds;
+* three AdamW steps of ``TrainLoop`` at sp=2 with ring attention and at
+  pp=2 x tp=2 against the JAX loop on the same ``MeshConfig``; the
+  pp=2 x tp=2 run's checkpoint restores bit for bit in one process.
 """
 
 import itertools
 import json
+import math
 import os
 import socket
 import subprocess
@@ -56,6 +71,10 @@ import torch
 from kubeflow_controller_tpu_torch import convert, optim
 from kubeflow_controller_tpu_torch.dataplane import train as ttrain
 from kubeflow_controller_tpu_torch.parallel import mesh as tmesh
+
+# One intra-op thread, as every port test module sets at import
+# (tests/test_torch_import.py says why).
+torch.set_num_threads(1)
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(TESTS)
@@ -77,6 +96,12 @@ RESNET_RTOL = 4e-4               # 4 x test_stateful_loop_..._matches_jax_loop's
 # rtol 1e-4 and atol 1e-5 of its leaf's largest element.
 SGD_CHANGE_RTOL, SGD_CHANGE_ATOL_OF_MAX = 4 * 1e-4, 4 * 1e-5
 B, S = 8, 32                     # the decoder's global batch and sequence
+# tests/test_ring.py's and tests/test_pipeline.py's tolerances.
+RING_ATOL, RING_GRAD_ATOL, RING_DECODER_ATOL = 2e-5, 5e-4, 2e-4
+PIPE_FWD = dict(atol=2e-5, rtol=1e-5)
+PIPE_LOSS_RTOL = 1e-5
+PIPE_GRAD = dict(atol=3e-4, rtol=2e-3)
+PP_M = 4                         # the pipeline's microbatches
 
 # name -> (model, mesh config, ranks of the gang, extra)
 CASES = {
@@ -93,12 +118,26 @@ CASES = {
     "bert_fsdp2": ("bert", dict(dp=1, fsdp=2), [0, 1], {}),
     "moe_fsdp2": ("decoder", dict(dp=1, fsdp=2), [2, 3], {"config": "tiny_moe"}),
     "ckpt": ("ckpt", dict(dp=1, fsdp=2), [2, 3], {}),
+    "ring_sp4": ("ring", dict(dp=1, sp=4), [0, 1, 2, 3], {}),
+    "ring_sp2_tp2": ("ring", dict(dp=1, sp=2, tp=2), [0, 1, 2, 3], {}),
+    "gpipe_pp2": ("gpipe", dict(pp=2, dp=1), [2, 3], {}),
+    "grad_sp2_ring": ("grad", dict(dp=1, sp=2), [0, 1], {"attn": "ring", "pack": True}),
+    "grad_sp2_gather": ("grad", dict(dp=1, sp=2), [2, 3], {"shard_seq": True, "pack": True}),
+    "grad_pp2_tp2": ("grad", dict(pp=2, dp=1, tp=2), [0, 1, 2, 3], {"pp": PP_M}),
+    "grad_pp2_tp2_packed": ("grad", dict(pp=2, dp=1, tp=2), [0, 1, 2, 3],
+                            {"pp": PP_M, "pack": True}),
+    "grad_int8_pp2_fsdp2": ("grad", dict(pp=2, dp=1, fsdp=2), [0, 1, 2, 3],
+                            {"pp": PP_M, "quant": "int8", "remat": True}),
+    "dec_sp2_ring": ("decoder", dict(dp=1, sp=2), [0, 1], {"attn": "ring"}),
+    "dec_pp2_tp2": ("decoder", dict(pp=2, dp=1, tp=2), [0, 1, 2, 3], {"pp": PP_M}),
 }
 # Cases that run side by side (disjoint ranks), in order.
 PHASES = [["dec_dp4"], ["dec_dp2_fsdp2"], ["dec_fsdp2_tp2"],
           ["dec_tp2", "dec_int8_fsdp2"], ["mnist_dp2", "resnet_dp2"],
           ["bert_fsdp2", "moe_fsdp2"], ["dec_tp2_sgd", "ckpt"], ["dec_fsdp2_tp2_sgd"],
-          ["corpus_dp2_tp2"]]
+          ["corpus_dp2_tp2"], ["ring_sp4"], ["ring_sp2_tp2"],
+          ["grad_sp2_ring", "grad_sp2_gather"], ["grad_pp2_tp2"], ["grad_pp2_tp2_packed"],
+          ["grad_int8_pp2_fsdp2"], ["dec_sp2_ring", "gpipe_pp2"], ["dec_pp2_tp2"]]
 
 
 # -- the gang (no JAX here: the workers import this module) ---------------------
@@ -116,20 +155,132 @@ def _whole(loop):
     return convert.params_to_numpy(params)
 
 
-def _decoder_loop(inp, mesh, quant="", config="tiny", total=3, model_dir="", sgd=False):
+def _decoder_loop(inp, mesh, quant="", config="tiny", total=3, model_dir="", sgd=False,
+                  attn="auto", pp=0):
     """The decoder's loop: AdamW under the LM schedule, or plain SGD for
-    int8, MoE and ``sgd`` (each parameter's change its summed gradient)."""
+    int8, MoE and ``sgd`` (each parameter's change its summed gradient);
+    ``attn="ring"`` splits the sequence over sp, ``pp`` runs the layer
+    stack over pp in that many microbatches."""
     from kubeflow_controller_tpu_torch.models import transformer as ttf
 
-    cfg = getattr(ttf, f"{config}_config")(quant=quant)
+    cfg = getattr(ttf, f"{config}_config")(quant=quant, attn_impl=attn)
     tx = (optim.SGD(SGD_LR) if sgd or quant or config != "tiny"
           else optim.make_optimizer(LR, inp["dec_total"]))
     return ttrain.TrainLoop(
         init_fn=lambda seed, dev: convert.params_from_numpy(inp[f"{config}_params"], dev),
-        loss_fn=ttf.make_loss_fn(cfg), optimizer=tx,
+        loss_fn=ttf.make_loss_fn(cfg, pp_microbatches=pp), optimizer=tx,
         config=ttrain.TrainLoopConfig(total_steps=total, log_every=1),
-        device="cpu", mesh=mesh, param_shardings=ttf.param_specs(cfg),
+        device="cpu", mesh=mesh, param_shardings=ttf.param_specs(cfg, pp=pp > 0),
         model_dir=model_dir)
+
+
+def _pp_cfg(extra):
+    """The 4-layer decoder of the sp and pp gradient cases."""
+    from kubeflow_controller_tpu_torch.models import transformer as ttf
+
+    return ttf.tiny_config(n_layers=4, remat=extra.get("remat", False),
+                           attn_impl=extra.get("attn", "auto"),
+                           shard_seq=extra.get("shard_seq", False),
+                           quant=extra.get("quant", ""))
+
+
+def _run_grad(inp, mesh, root, extra):
+    """One SGD step at lr 1 (each leaf's change is minus its gradient)
+    from the 4-layer decoder's weights on the whole batch, and the hidden
+    state before it (gathered over sp)."""
+    from kubeflow_controller_tpu_torch.models import transformer as ttf
+    from kubeflow_controller_tpu_torch.parallel import sharding
+    from kubeflow_controller_tpu_torch.parallel.collectives import seq_gather
+
+    cfg, pp = _pp_cfg(extra), extra.get("pp", 0)
+    batch = inp["pp_packed" if extra.get("pack") else "pp_batch"]
+    loop = ttrain.TrainLoop(
+        init_fn=lambda seed, dev: convert.params_from_numpy(inp["pp_params"], dev),
+        loss_fn=ttf.make_loss_fn(cfg, pp_microbatches=pp), optimizer=optim.SGD(1.0),
+        config=ttrain.TrainLoopConfig(total_steps=1, log_every=1), device="cpu",
+        mesh=mesh, param_shardings=ttf.param_specs(cfg, pp=pp > 0))
+    out = {}
+    if tmesh.data_shards(mesh) == 1:
+        tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+        seg = tb.get("segment_ids")
+        seg = None if seg is None else seg[:, :-1]
+        kw = dict(positions=None if seg is None else ttf.packed_positions(seg),
+                  segment_ids=seg)
+        with tmesh.use_mesh(mesh), torch.no_grad():
+            params = convert.tree_unflatten(loop.state.params, loop._views())
+            hidden = (ttf.forward_hidden_pp(cfg, params, tb["tokens"][:, :-1], pp, **kw)
+                      if pp else ttf.forward_hidden(cfg, params, tb["tokens"][:, :-1], **kw))[0]
+            out["hidden"] = seq_gather(hidden).numpy()
+    # Each stage layer's slice gathered in the model has its gradient
+    # reduced once in the step, however many ticks used it.
+    calls, reduce_grad = [], sharding.reduce_grad
+
+    def counted(g, spec, mesh, stage=False):
+        calls.append(stage)
+        return reduce_grad(g, spec, mesh, stage)
+
+    sharding.reduce_grad = counted
+    try:
+        out["records"] = _records(loop, [batch], B)
+    finally:
+        sharding.reduce_grad = reduce_grad
+    stacked = sum(o and bool(s) and s[0] == "pp" for o, s in zip(loop._in_model, loop._specs))
+    out["stage_reduces"] = (sum(calls), stacked * cfg.n_layers // mesh.shape["pp"])
+    out["grads"] = [p0 - p1 for p0, p1 in zip(convert.tree_leaves(inp["pp_params"]),
+                                               convert.tree_leaves(_whole(loop)))]
+    return out
+
+
+def _run_ring(inp, mesh):
+    """``ring_mha`` on this rank's slices (and, over tp, its heads) of the
+    inputs; outputs and the gradients of ``sum(out ** 2)`` gathered
+    whole."""
+    from kubeflow_controller_tpu_torch.parallel.collectives import seq_gather, tp_gather
+    from kubeflow_controller_tpu_torch.parallel.ring import ring_mha
+
+    tp, ti = mesh.shape["tp"], mesh.coords["tp"]
+
+    def mine(x):
+        h, sl = x.shape[2] // tp, tmesh.seq_slice(mesh, x.shape[1])
+        return torch.from_numpy(x[:, sl, ti * h:(ti + 1) * h]).requires_grad_(True)
+
+    def whole(x):
+        x = seq_gather(x.detach())
+        return (torch.cat(list(tp_gather(x)), 2) if tp > 1 else x).numpy()
+
+    out = {}
+    with tmesh.use_mesh(mesh):
+        for name, (q, k, v, seg, causal) in inp["ring"].items():
+            if tp > 1 and name != "gqa_grad":
+                continue
+            ins = [mine(x) for x in (q, k, v)]
+            sl = tmesh.seq_slice(mesh, q.shape[1])
+            o = ring_mha(*ins, causal=causal,
+                         segment_ids=None if seg is None else torch.from_numpy(seg[:, sl]))
+            out[name] = whole(o)
+            if name.endswith("grad"):
+                (o ** 2).sum().backward()
+                out[name + "s"] = [whole(x.grad) for x in ins]
+    return out
+
+
+def _run_gpipe(mesh):
+    """The reference's three ``gpipe`` checks on this pp=2 mesh."""
+    from kubeflow_controller_tpu_torch.parallel.pipeline import gpipe, pp_stage_count
+
+    out = {"stages": pp_stage_count(mesh)}
+    with tmesh.use_mesh(mesh):
+        x = torch.arange(8 * 4 * 4, dtype=torch.float32).reshape(8, 4, 4)
+        out["identity"] = gpipe(lambda p, m: m, (), x, 4, remat=False).numpy()
+        consts = torch.tensor([1.0, 10.0])[mesh.coords["pp"]:mesh.coords["pp"] + 1]
+        out["offset"] = gpipe(lambda c, m: m + c[0], consts, torch.zeros(4, 2, 2), 2,
+                              remat=False).numpy()
+        try:
+            gpipe(lambda p, m: m, (), torch.zeros(6, 2, 2), 4)
+            out["divide"] = ""
+        except AssertionError as e:
+            out["divide"] = str(e)
+    return out
 
 
 def _run_case(name, inp, meshes, root):
@@ -141,9 +292,21 @@ def _run_case(name, inp, meshes, root):
 
     model, _, _, extra = CASES[name]
     mesh = meshes[name]
+    if model == "grad":
+        return _run_grad(inp, mesh, root, extra)
+    if model == "ring":
+        return _run_ring(inp, mesh)
+    if model == "gpipe":
+        return _run_gpipe(mesh)
     if model == "decoder":
-        loop = _decoder_loop(inp, mesh, **extra)
+        mdir = os.path.join(root, "pp_model") if name == "dec_pp2_tp2" else ""
+        loop = _decoder_loop(inp, mesh, model_dir=mdir, **extra)
         out = {"records": _records(loop, inp["dec_batches"], B), "params": _whole(loop)}
+        if mdir and mesh.rank == int(mesh.devices.flat[0]):
+            # The pp=2 x tp=2 checkpoint, restored by one process.
+            one = _decoder_loop(inp, meshes["ckpt_one"], model_dir=mdir, **extra)
+            out["restored_step"] = one.state.step if one.restore() else -1
+            out["restored"] = convert.params_to_numpy(one.state.params)
         if name == "dec_tp2":
             # The chunked loss keeps its chunks under tp (vocab-parallel
             # in each): the same loss as the whole-sequence one.
@@ -277,7 +440,7 @@ def _worker_main(root, rank, port):
     inp = torch.load(os.path.join(root, "inputs.pt"), weights_only=False)
     meshes = {name: tmesh.make_mesh(tmesh.MeshConfig(**kw), devices=ranks)
               for name, (_, kw, ranks, _) in CASES.items()}
-    meshes["ckpt_one"] = tmesh.make_mesh(tmesh.MeshConfig(), devices=[2])
+    meshes["ckpt_one"] = tmesh.make_mesh(tmesh.MeshConfig(), devices=[rank])
     meshes["ckpt_dp2"] = tmesh.make_mesh(tmesh.MeshConfig(dp=2), devices=[2, 3])
     _check_device_mesh(meshes["dec_fsdp2_tp2"], root, rank)
     timings = {}
@@ -322,6 +485,10 @@ def _inputs():
     tc = ttf.tiny_config()
     moe_params = convert.params_to_numpy(ttf.init_params(ttf.tiny_moe_config(), seed=4,
                                                          device="cpu"))
+    rng = np.random.default_rng(1)
+    pp_tokens = rng.integers(1, tc.vocab_size, (B, S + 1)).astype(np.int32)
+    pp_segs = np.concatenate([np.full((B, 16), 1), np.full((B, 12), 2),
+                              np.zeros((B, S + 1 - 28))], axis=1).astype(np.int32)
     dec_batches4 = list(itertools.islice(jlm.synthetic_lm(tc.vocab_size, B, S, seed=7), 4))
     rparams, rstats = convert.resnet_params_to_flax(*tresnet.resnet_tiny().init(2, "cpu"))
     bcfg = jbert.bert_tiny_config()
@@ -355,7 +522,26 @@ def _inputs():
         "bert_params": convert.params_to_numpy(
             tbert.init_params(tbert.bert_tiny_config(), seed=1, device="cpu")),
         "bert_batches": bert_batches,
+        "pp_params": convert.params_to_numpy(ttf.init_params(
+            ttf.tiny_config(n_layers=4), seed=1, device="cpu")),
+        "pp_batch": {"tokens": pp_tokens},
+        "pp_packed": {"tokens": pp_tokens, "segment_ids": pp_segs},
+        "ring": _ring_inputs(),
     }
+
+
+def _qkv(b=2, s=32, h=4, kv_h=4, d=16, seed=0):
+    r = np.random.default_rng(seed)
+    return tuple(r.standard_normal((b, s, n, d)).astype(np.float32) for n in (h, kv_h, kv_h))
+
+
+def _ring_inputs():
+    """``tests/test_ring.py``'s inputs: name -> (q, k, v, segment ids,
+    causal); the ``*grad`` ones are also differentiated."""
+    seg = np.array([[0] * 16 + [1] * 16, [0] * 8 + [1] * 24], np.int32)
+    return {"causal": (*_qkv(), None, True), "noncausal": (*_qkv(), None, False),
+            "gqa": (*_qkv(kv_h=2), None, True), "seg": (*_qkv(), seg, True),
+            "grad": (*_qkv(s=16), None, True), "gqa_grad": (*_qkv(kv_h=2), None, True)}
 
 
 def _jax_records(loop, batches, **kw):
@@ -363,6 +549,80 @@ def _jax_records(loop, batches, **kw):
     loop.run(iter(batches), on_metrics=lambda m: seen.append((m.step, m.loss, dict(m.extras))),
              **kw)
     return seen
+
+
+def _jax_ring(inp, kw):
+    """The JAX package's ``ring_mha`` on a mesh of ``kw``: outputs, and
+    the gradients of ``sum(out ** 2)`` for the ``*grad`` inputs."""
+    import jax
+    import jax.numpy as jnp
+    from kubeflow_controller_tpu.parallel.mesh import MeshConfig, make_mesh
+    from kubeflow_controller_tpu.parallel.ring import ring_mha
+
+    mesh = make_mesh(MeshConfig(**kw), jax.devices()[:math.prod(kw.values())])
+    out = {}
+    with jax.set_mesh(mesh):
+        for name, (q, k, v, seg, causal) in inp["ring"].items():
+            if kw.get("tp", 1) > 1 and name != "gqa_grad":
+                continue
+            seg = None if seg is None else jnp.asarray(seg)
+
+            def f(q, k, v, seg=seg, causal=causal):
+                return ring_mha(q, k, v, causal=causal, segment_ids=seg)
+
+            out[name] = np.asarray(jax.jit(f)(q, k, v))
+            if name.endswith("grad"):
+                g = jax.jit(jax.grad(lambda *a: (f(*a) ** 2).sum(), argnums=(0, 1, 2)))(q, k, v)
+                out[name + "s"] = [np.asarray(x) for x in g]
+    return out
+
+
+def _jax_decoder_grads(inp, extra, kw=None):
+    """The JAX package's loss, gradients and hidden state of the 4-layer
+    decoder on the case's batch: on a mesh of ``kw`` (pipelined with
+    ``extra["pp"]``), or without a mesh and pipeline when ``kw`` is
+    None."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding
+    from kubeflow_controller_tpu.models import transformer as jtf
+    from kubeflow_controller_tpu.parallel.mesh import MeshConfig, batch_sharding, make_mesh
+
+    pp = extra.get("pp", 0) if kw else 0
+    jc = jtf.tiny_config(n_layers=4, remat=extra.get("remat", False),
+                         quant=extra.get("quant", ""))
+    if kw:
+        jc = jc.replace(attn_impl=extra.get("attn", "auto"),
+                        shard_seq=extra.get("attn") == "ring" or extra.get("shard_seq", False))
+    batch = {k: jnp.asarray(v) for k, v in
+             inp["pp_packed" if extra.get("pack") else "pp_batch"].items()}
+    seg = batch.get("segment_ids")
+    seg = None if seg is None else seg[:, :-1]
+    pos = None if seg is None else jtf.packed_positions(seg)
+
+    def hidden(p, b):
+        toks = b["tokens"][:, :-1]
+        if pp:
+            return jtf.forward_hidden_pp(jc, p, toks, pp, positions=pos, segment_ids=seg)[0]
+        return jtf.forward_hidden(jc, p, toks, positions=pos, segment_ids=seg)[0]
+
+    def loss(p, b):
+        return jtf.next_token_loss(jc, p, b, pp_microbatches=pp)[0]
+
+    params = inp["pp_params"]
+    if kw is None:
+        lval, grads = jax.jit(jax.value_and_grad(loss))(params, batch)
+        h = jax.jit(hidden)(params, batch)
+    else:
+        mesh = make_mesh(MeshConfig(**kw), jax.devices()[:math.prod(kw.values())])
+        with jax.set_mesh(mesh):
+            params = jax.tree.map(lambda a, sp: jax.device_put(a, NamedSharding(mesh, sp)),
+                                  params, jtf.param_specs(jc, pp=pp > 0))
+            batch = {k: jax.device_put(v, batch_sharding(mesh)) for k, v in batch.items()}
+            lval, grads = jax.jit(jax.value_and_grad(loss))(params, batch)
+            h = jax.jit(hidden)(params, batch)
+    return {"loss": float(lval), "grads": [np.asarray(g) for g in jax.tree.leaves(grads)],
+            "hidden": np.asarray(h)}
 
 
 def _jax_reference(name, inp, total=None):
@@ -378,6 +638,12 @@ def _jax_reference(name, inp, total=None):
     from kubeflow_controller_tpu.parallel.mesh import MeshConfig, make_mesh
 
     model, kw, ranks, extra = CASES[name]
+    if model == "ring":
+        return _jax_ring(inp, kw)
+    if model == "gpipe":
+        return {}
+    if model == "grad":
+        return _jax_decoder_grads(inp, extra, kw)
     mesh = make_mesh(MeshConfig(**kw), jax.devices()[:len(ranks)])
 
     def specs(tree):
@@ -395,15 +661,19 @@ def _jax_reference(name, inp, total=None):
 
     if model in ("decoder", "ckpt"):
         config = extra.get("config", "tiny")
-        jc = getattr(jtf, f"{config}_config")(quant=extra.get("quant", ""))
+        attn, pp = extra.get("attn", "auto"), extra.get("pp", 0)
+        jc = getattr(jtf, f"{config}_config")(quant=extra.get("quant", ""), attn_impl=attn,
+                                              shard_seq=attn == "ring")
         steps = 4 if model == "ckpt" else 3
+        sgd = extra.get("sgd") or extra.get("quant") or config != "tiny"
         loop = jtrain.TrainLoop(
             mesh=mesh, init_fn=lambda rng: inp[f"{config}_params"],
-            loss_fn=jtf.make_loss_fn(jc),
-            optimizer=(optax.sgd(SGD_LR) if extra else
+            loss_fn=(jtf.make_loss_fn(jc) if not pp else
+                     lambda p, b, rng: jtf.next_token_loss(jc, p, b, pp_microbatches=pp)),
+            optimizer=(optax.sgd(SGD_LR) if sgd else
                        jlm._make_optimizer(LR, inp["dec_total"], False)),
             config=jtrain.TrainLoopConfig(total_steps=steps, log_every=1),
-            param_shardings=specs(jtf.param_specs(jc)))
+            param_shardings=specs(jtf.param_specs(jc, pp=pp > 0)))
         batches = inp["dec_batches4"] if model == "ckpt" else inp["dec_batches"]
         return {"records": _jax_records(loop, batches),
                 "params": jax.device_get(loop.state.params)}
@@ -464,9 +734,12 @@ def gang(tmp_path_factory):
                               env=env, cwd=ROOT, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True) for r in range(4)]
     try:
-        # The JAX loops compile in threads of their own, side by side.
+        # The JAX loops compile in threads of their own, side by side; the
+        # gradient cases share the two references without a mesh.
         with ThreadPoolExecutor(3) as pool:
+            dense = pool.map(lambda pack: _jax_decoder_grads(inp, {"pack": pack}), (False, True))
             refs = dict(zip(CASES, pool.map(lambda n: _jax_reference(n, inp), CASES)))
+            refs["dense"], refs["dense_packed"] = dense
         for r, p in enumerate(procs):
             out, err = p.communicate(timeout=240)
             assert p.returncode == 0, f"rank {r} rc={p.returncode}\n{err[-4000:]}"
@@ -518,7 +791,8 @@ def _assert_losses(got, want, rtol, extras=()):
                 np.testing.assert_allclose(ge[k], we[k], rtol=rtol, err_msg=k)
 
 
-@pytest.mark.parametrize("name", ["dec_dp4", "dec_dp2_fsdp2", "dec_fsdp2_tp2", "dec_tp2"])
+@pytest.mark.parametrize("name", ["dec_dp4", "dec_dp2_fsdp2", "dec_fsdp2_tp2", "dec_tp2",
+                                  "dec_sp2_ring", "dec_pp2_tp2"])
 def test_decoder_layouts_match_jax_loop(gang, name):
     _, got, refs = gang
     _assert_losses(got[name]["records"], refs[name]["records"], LOSS_RTOL,
@@ -659,3 +933,125 @@ def test_mesh_is_a_device_mesh_and_specs_are_dtensor_placements(gang):
     for rank in got["device_mesh"]:
         assert rank["coordinate"] == rank["coords"]
         assert all(v for k, v in rank.items() if k.startswith("P("))
+
+
+# -- sequence and pipeline parallelism ---------------------------------------------
+
+@pytest.mark.parametrize("name", ["ring_sp4", "ring_sp2_tp2"])
+def test_ring_mha_matches_jax_ring_on_the_same_mesh(gang, name):
+    """At sp=4: causal and not, GQA, segment ids, and the gradients; at
+    sp=2 x tp=2 (the six-axis regression of ``test_ring.py``, each rank
+    holding its slice and its tp heads): GQA and its gradients."""
+    _, got, refs = gang
+    g, w = got[name], refs[name]
+    assert set(g) == set(w) and len(w) == (8 if name == "ring_sp4" else 2)
+    for key, want in w.items():
+        if key.endswith("grads"):
+            for a, b in zip(g[key], want):
+                np.testing.assert_allclose(a, b, atol=RING_GRAD_ATOL, err_msg=key)
+        else:
+            np.testing.assert_allclose(g[key], want, atol=RING_ATOL, err_msg=key)
+
+
+def test_ring_without_a_mesh_is_dense_attention():
+    """No mesh (or sp=1): ``ring_mha`` is ``mha_xla``, as the JAX
+    package's falls back."""
+    import jax.numpy as jnp
+    from kubeflow_controller_tpu.parallel.ring import ring_mha as jring
+    from kubeflow_controller_tpu_torch.ops.attention import mha_xla
+    from kubeflow_controller_tpu_torch.parallel.ring import ring_mha
+
+    q, k, v, seg, _ = _ring_inputs()["seg"]
+    tq, tk, tv = (torch.from_numpy(x) for x in (q, k, v))
+    got = ring_mha(tq, tk, tv, segment_ids=torch.from_numpy(seg)).numpy()
+    np.testing.assert_array_equal(got, mha_xla(tq, tk, tv, segment_ids=torch.from_numpy(seg)).numpy())
+    want = np.asarray(jring(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            segment_ids=jnp.asarray(seg)))
+    np.testing.assert_allclose(got, want, atol=RING_ATOL)
+    with tmesh.use_mesh(tmesh.make_mesh()):
+        np.testing.assert_array_equal(ring_mha(tq, tk, tv).numpy(), mha_xla(tq, tk, tv).numpy())
+
+
+def test_gpipe_keeps_batch_order_adds_each_stage_once_and_needs_divisible_batch(gang):
+    """``test_pipeline.py``'s three checks of the schedule at pp=2:
+    identity stages are a delay line that keeps the batch's order, a
+    stage constant is added once per stage (every microbatch visits
+    every stage once), and a batch that does not divide into the
+    microbatches is refused."""
+    _, got, _ = gang
+    g = got["gpipe_pp2"]
+    assert g["stages"] == 2
+    np.testing.assert_array_equal(g["identity"], np.arange(8 * 4 * 4, dtype=np.float32)
+                                  .reshape(8, 4, 4))
+    np.testing.assert_array_equal(g["offset"], np.full((4, 2, 2), 11.0, np.float32))
+    assert "must divide into 4 microbatches" in g["divide"]
+
+
+@pytest.mark.parametrize("name", ["grad_sp2_ring", "grad_sp2_gather", "grad_pp2_tp2",
+                                  "grad_pp2_tp2_packed"])
+def test_decoder_hidden_loss_and_gradients_match_jax(gang, name):
+    """The decoder's hidden state, loss and every leaf's gradient on the
+    case's mesh against the JAX package's on the same mesh (ring
+    attention, the sequence gathered for attention, the GPipe schedule)
+    and without a mesh or a pipeline; ring attention's hidden state at
+    ``test_ring.py``'s decoder bound."""
+    inp, got, refs = gang
+    g = got[name]
+    fwd = dict(atol=RING_DECODER_ATOL) if "ring" in name else PIPE_FWD
+    dense = refs["dense_packed" if CASES[name][3].get("pack") else "dense"]
+    assert [r[0] for r in g["records"]] == [1]
+    for label, w in (("layout", refs[name]), ("no mesh", dense)):
+        np.testing.assert_allclose(g["hidden"], w["hidden"], err_msg=label, **fwd)
+        np.testing.assert_allclose(g["records"][0][1], w["loss"], rtol=PIPE_LOSS_RTOL,
+                                   err_msg=label)
+        assert len(g["grads"]) == len(w["grads"])
+        for i, (a, b) in enumerate(zip(g["grads"], w["grads"])):
+            assert np.abs(b).max() > 0, (label, i)
+            np.testing.assert_allclose(a, b, err_msg=f"{label} leaf {i}", **PIPE_GRAD)
+
+
+def test_int8_decoder_over_pp_matches_jax_pipeline(gang):
+    """int8 projections over pp=2 x fsdp=2 (B7's path inside each stage
+    on the card): the loss within the int8 bound of the fsdp case and
+    each leaf's gradient within its relative L2 bound."""
+    _, got, refs = gang
+    g, w = got["grad_int8_pp2_fsdp2"], refs["grad_int8_pp2_fsdp2"]
+    np.testing.assert_allclose(g["records"][0][1], w["loss"], rtol=INT8_LOSS_RTOL)
+    for i, (a, b) in enumerate(zip(g["grads"], w["grads"])):
+        rel = np.linalg.norm(a - b) / np.linalg.norm(b)
+        assert rel <= INT8_LEAF_REL, (i, rel)
+    # Over fsdp each stage layer's gradient is reduced once a step, not
+    # once a tick.
+    done, once = g["stage_reduces"]
+    assert once > 0 and done == once, (done, once)
+
+
+def test_pp2_checkpoint_restores_in_one_process(gang):
+    """The pp=2 x tp=2 loop's checkpoint is in the one-process layout:
+    one process restores it to the gathered parameters bit for bit."""
+    _, got, _ = gang
+    g = got["dec_pp2_tp2"]
+    assert g["restored_step"] == 3
+    for a, b in zip(convert.tree_leaves(g["restored"]), convert.tree_leaves(g["params"])):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_moe_is_refused_on_the_pipeline_path_with_the_reference_message():
+    import jax
+    from kubeflow_controller_tpu.models import transformer as jtf
+    from kubeflow_controller_tpu_torch.models import transformer as ttf
+
+    cfg = ttf.tiny_moe_config()
+    with pytest.raises(NotImplementedError) as want:
+        jtf.forward_hidden_pp(jtf.tiny_moe_config(), None, jax.numpy.zeros((4, 8), "int32"), 2)
+    with pytest.raises(NotImplementedError, match="dense") as got:
+        ttf.forward_hidden_pp(cfg, ttf.init_params(cfg, device="cpu"),
+                              torch.zeros((4, 8), dtype=torch.int64), 2)
+    assert str(got.value) == str(want.value)
+
+
+def test_this_process_runs_one_intra_op_thread():
+    """The JAX references and the checks here run beside the gang and
+    other xdist workers on one intra-op thread (set at this module's
+    import; ``tests/test_torch_import.py`` says why)."""
+    assert torch.get_num_threads() == 1

@@ -45,6 +45,10 @@ from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
 from kubeflow_controller_tpu_torch.models import generate as tgen
 from kubeflow_controller_tpu_torch.models import transformer as ttfm
 
+# One intra-op thread, as every port test module sets at import
+# (tests/test_torch_import.py says why).
+torch.set_num_threads(1)
+
 COUNTERS = ("prefix_hit_tokens", "prefix_zero_copy_tokens",
             "prefix_lookup_tokens", "spilled_pages", "spill_bytes",
             "rehydrate_hits", "rehydrate_tokens", "host_pages_resident",

@@ -26,6 +26,10 @@ from kubeflow_controller_tpu_torch.models import transformer as ttf
 from kubeflow_controller_tpu_torch.ops import quant as tq
 from kubeflow_controller_tpu_torch.ops import quant_fused as tqf
 
+# One intra-op thread, as every port test module sets at import
+# (tests/test_torch_import.py says why).
+torch.set_num_threads(1)
+
 
 @pytest.fixture(autouse=True, scope="module")
 def _drop_compiled_kernels():

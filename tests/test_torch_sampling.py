@@ -43,6 +43,10 @@ from kubeflow_controller_tpu_torch.models import generate as tgen
 from kubeflow_controller_tpu_torch.models import transformer as ttfm
 from kubeflow_controller_tpu_torch.ops import prng
 
+# One intra-op thread, as every port test module sets at import
+# (tests/test_torch_import.py says why).
+torch.set_num_threads(1)
+
 PALLAS_LOGITS_TOL = dict(rtol=5e-5, atol=5e-5)
 GUMBEL_TOL = 2.0
 TOP_P_EPS = 1e-5

@@ -30,6 +30,7 @@ import re
 import jax
 import numpy as np
 import pytest
+import torch
 
 from kubeflow_controller_tpu.dataplane import sampling as jsamp
 from kubeflow_controller_tpu.dataplane import spec_decode as jspec
@@ -45,6 +46,10 @@ from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
     Request, ServingEngine,
 )
 from kubeflow_controller_tpu_torch.models import transformer as ttfm
+
+# One intra-op thread, as every port test module sets at import
+# (tests/test_torch_import.py says why).
+torch.set_num_threads(1)
 
 MAX_SEQ = 48
 

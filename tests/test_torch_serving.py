@@ -16,6 +16,7 @@ import json
 import jax
 import numpy as np
 import pytest
+import torch
 
 from kubeflow_controller_tpu.dataplane.serving_engine import (
     Request as JRequest, ServingEngine as JEngine,
@@ -30,6 +31,10 @@ from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
 )
 from kubeflow_controller_tpu_torch.models import generate as tgen
 from kubeflow_controller_tpu_torch.models import transformer as ttfm
+
+# One intra-op thread, as every port test module sets at import
+# (tests/test_torch_import.py says why).
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.skipif(
     pap.pltpu is None, reason="pallas TPU backend not built into this jax")
@@ -460,7 +465,9 @@ def test_cli_takes_every_reference_option_and_refuses_off_default_values(
     cache were ported now serve off their defaults, and ``--host-kv-mb``
     without ``--prefix-cache`` takes the reference's ``p.error``. The
     LM trainer's ``--tp`` and ``--fsdp``, refused until multi-process
-    training was ported, build the job's mesh."""
+    training was ported, and ``--sp``, refused until the
+    sequence-parallel slice, build the job's mesh; ``--attn ring``
+    trains."""
     import importlib
 
     jmain = importlib.import_module(
@@ -500,19 +507,19 @@ def test_cli_takes_every_reference_option_and_refuses_off_default_values(
             tmod.main(base + _off_default(port["--host-kv-mb"]))
         assert e.value.code == 2
     else:
-        unported = [port["--sp"]]
+        unported = []
         base = ["--config", "tiny", "--device", "cpu", "--total-steps", "1",
                 "--batch", "1", "--seq-len", "32"]
-        ported = []
-        # --tp and --fsdp name the job's mesh (ported): one process is a
-        # world of one rank, which such a mesh cannot fill, and
+        # --attn ring trains (one process: the dense attention; two
+        # steps, as the LM schedule needs a step after its warmup).
+        ported = [["--attn", "ring", "--total-steps", "2"]]
+        # --tp, --fsdp and --sp name the job's mesh (ported): one process
+        # is a world of one rank, which such a mesh cannot fill, and
         # MeshConfig.resolve says so as the reference's does.
-        for opt in ("--tp", "--fsdp"):
+        for opt in ("--tp", "--fsdp", "--sp"):
             with pytest.raises(ValueError, match="not divisible"):
                 tmod.main(base + _off_default(port[opt]))
     off = [_off_default(a) for a in unported]
-    if entry == "lm":
-        off.append(["--attn", "ring"])
     for flag in off:
         with pytest.raises(NotImplementedError, match="not yet ported"):
             tmod.main(base + flag)

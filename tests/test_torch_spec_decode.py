@@ -43,6 +43,10 @@ from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
 from kubeflow_controller_tpu_torch.models import generate as tgen
 from kubeflow_controller_tpu_torch.models import transformer as ttfm
 
+# One intra-op thread, as every port test module sets at import
+# (tests/test_torch_import.py says why).
+torch.set_num_threads(1)
+
 PALLAS_LOGITS_TOL = dict(rtol=5e-5, atol=5e-5)
 BS, MB, K = 8, 6, 4
 PROMPT_LENS = (9, 13, 6, 11)

@@ -15,6 +15,8 @@ rtol 1e-4 for the large elements). The bf16 tests state their own.
 import itertools
 import json
 import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +31,10 @@ from kubeflow_controller_tpu_torch import convert, optim
 from kubeflow_controller_tpu_torch.dataplane import train as ttrain
 from kubeflow_controller_tpu_torch.dataplane.entrypoints import lm as tlm
 from kubeflow_controller_tpu_torch.models import transformer as ttf
+
+# One intra-op thread, as every port test module sets at import
+# (tests/test_torch_import.py says why).
+torch.set_num_threads(1)
 
 LOSS_RTOL = 1e-5
 GRAD_RTOL, GRAD_ATOL_OF_MAX = 1e-4, 1e-5
@@ -316,16 +322,35 @@ def test_params_to_numpy_round_trips():
 def test_model_refuses_what_is_not_ported(name):
     """What the model cannot run yet raises "not yet ported".
     ``remat="ffn"``, refused until the MoE slice ported it, trains: its
-    loss and gradients are remat=False's bit for bit."""
+    loss and gradients are remat=False's bit for bit. ``attn_impl="ring"``
+    and ``pp_microbatches``, refused until the sequence- and
+    pipeline-parallel slice: without a mesh the ring is the dense
+    forward (the JAX package's fallback), and the pipeline, which runs
+    over a mesh's pp axis, raises the JAX call's ValueError (both run
+    over a mesh in ``test_torch_parallel.py``)."""
     cfg = ttf.tiny_config()
     if name == "remat_ffn":
         cfg = cfg.replace(remat="ffn")
-    elif name == "ring":
-        cfg = cfg.replace(attn_impl="ring")
     elif name == "quant_fp8":
         cfg = cfg.replace(quant="fp8")
     params = ttf.init_params(cfg, device="cpu")
     batch = {"tokens": torch.zeros((1, 9), dtype=torch.int32)}
+    if name == "ring":
+        batch = {"tokens": torch.arange(18, dtype=torch.int32).reshape(2, 9) * 7 % 256}
+        dense = ttf.forward_hidden(cfg, params, batch["tokens"])[0]
+        ring = ttf.forward_hidden(cfg.replace(attn_impl="ring"), params, batch["tokens"])[0]
+        torch.testing.assert_close(ring, dense, rtol=0, atol=2e-4)
+        torch.testing.assert_close(
+            ttf.next_token_loss(cfg.replace(attn_impl="ring"), params, batch)[0],
+            ttf.next_token_loss(cfg, params, batch)[0], rtol=1e-5, atol=0)
+        return
+    if name == "pp":
+        with pytest.raises(ValueError, match="mesh"):
+            ttf.next_token_loss(cfg, params, batch, pp_microbatches=2)
+        with pytest.raises(ValueError, match="mesh"):
+            jtf.next_token_loss(jtf.tiny_config(), _jax_params(jtf.tiny_config()),
+                                {"tokens": batch["tokens"].numpy()}, pp_microbatches=2)
+        return
     if name == "remat_ffn":
         for p in convert.tree_leaves(params):
             p.requires_grad_(True)
@@ -337,8 +362,7 @@ def test_model_refuses_what_is_not_ported(name):
         assert all(torch.equal(a, b) for a, b in zip(got[0][1], got[1][1]))
         return
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttf.next_token_loss(cfg, params, batch,
-                            pp_microbatches=2 if name == "pp" else 0)
+        ttf.next_token_loss(cfg, params, batch)
 
 
 @pytest.mark.parametrize("lr,total", [(3e-4, 100), (1e-2, 3), (5e-4, 4000)])
@@ -512,6 +536,38 @@ def test_device_prefetch_yields_tensors_in_order_and_raises_producer_errors():
         next(it)
 
 
+_EXIT_EARLY = """
+import sys
+import torch
+from kubeflow_controller_tpu_torch.dataplane.train import device_prefetch
+
+def stream():
+    while True:
+        a = torch.randn(256, 256)
+        for _ in range(100):           # the next batch takes a while, in torch
+            a = torch.tanh(a @ a)
+        yield {"x": a.numpy()}
+
+it = device_prefetch(stream(), "cpu")
+next(it)
+del it
+sys.exit(0)
+"""
+
+
+def test_a_stream_left_early_lets_the_process_exit_cleanly():
+    """A consumer that stops early waits for the producer thread to end:
+    a producer left making the next batch inside torch while the
+    interpreter shuts down aborts the process ("terminate called
+    without an active exception", rc -6), as a two-process gang's rank
+    did after training."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS="1")
+    p = subprocess.run([sys.executable, "-c", _EXIT_EARLY], env=env, cwd=root,
+                       capture_output=True, text=True, timeout=120)
+    assert p.returncode == 0, (p.returncode, p.stderr[-2000:])
+
+
 @pytest.mark.parametrize("pack", [False, True], ids=["plain", "packed"])
 def test_lm_train_runs_on_cpu(pack, tmp_path):
     from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
@@ -551,8 +607,10 @@ def test_lm_train_refuses_what_is_not_ported(kw, tmp_path):
     refused. ``tp`` and ``fsdp`` (refused until multi-process training
     was ported) are a ``mesh_config`` now: one process is a world of one
     rank, which a tp=2 or fsdp=2 mesh cannot fill, and
-    ``MeshConfig.resolve`` raises the reference's ``ValueError``;
-    ``sp`` stays refused."""
+    ``MeshConfig.resolve`` raises the reference's ``ValueError``; so does
+    ``sp`` (refused until the sequence-parallel slice), and ``attn="ring"``
+    trains, on one process the dense attention (``sp=2`` with the ring
+    trains over a gang in ``test_torch_parallel.py``)."""
     from kubeflow_controller_tpu_torch.parallel.mesh import MeshConfig
 
     base = dict(config="tiny", total_steps=2, per_data_shard_batch=1,
@@ -560,16 +618,15 @@ def test_lm_train_refuses_what_is_not_ported(kw, tmp_path):
     kw = dict(kw)
     if {"tp", "fsdp", "sp"} & set(kw):
         base["mesh_config"] = MeshConfig(**kw)
-        if "sp" not in kw:
-            with pytest.raises(ValueError, match="not divisible"):
-                tlm.train(**base)
-            return
-        kw = {}
+        with pytest.raises(ValueError, match="not divisible"):
+            tlm.train(**base)
+        return
     base.update(kw)
-    if kw.get("config") == "tiny_moe":
+    if kw.get("config") == "tiny_moe" or kw.get("attn") == "ring":
         out = tlm.train(**base)
         assert out["final_step"] == 2 and np.isfinite(out["loss"])
-        assert np.isfinite(out["moe_aux"]) and 0 <= out["moe_drop_rate"] <= 1
+        if "attn" not in kw:
+            assert np.isfinite(out["moe_aux"]) and 0 <= out["moe_drop_rate"] <= 1
         return
     if "model_dir" in kw or "checkpoint_every" in kw:
         if "model_dir" in kw:
@@ -967,7 +1024,7 @@ _MESH_REFUSALS = {
     "moe_ep2": (dict(dp=1, ep=2), dict(config="tiny_moe"), "ep=2"),
     "int8_tp2": (dict(dp=1, tp=2), dict(quant="int8"), "int8"),
     "int8_fused_tp2": (dict(dp=1, tp=2), dict(quant="int8_fused"), "int8_fused"),
-    "sp2": (dict(dp=1, sp=2), {}, "sp=2"),
+    "sp2": (dict(dp=1, sp=2), dict(config="tiny_moe"), "sp > 1"),
     "opt8bit_fsdp2": (dict(dp=1, fsdp=2), dict(opt8bit=True), "8-bit"),
     "bert_tp2": (dict(dp=1, tp=2), dict(model="bert"), "BERT"),
 }
@@ -976,12 +1033,14 @@ _MESH_REFUSALS = {
 @pytest.mark.parametrize("case", list(_MESH_REFUSALS))
 def test_mesh_options_not_yet_ported_are_refused(case):
     """Over a mesh the port refuses, with "not yet ported", what it does
-    not train yet: MoE layers over tp or ep, int8 projections over tp
-    (the reference's row abs-max spans the whole contraction axis, a
-    row-parallel shard sees only its part), sequence parallelism, 8-bit
-    Adam over sharded parameters (its per-row scales are the whole
-    leaf's) and BERT over tp. Checked on a two-rank mesh under the fake
-    process group, where no collective runs."""
+    not train yet: MoE layers over tp, ep or sp (sequence parallelism
+    itself, refused until the sequence-parallel slice, trains: its
+    routing groups would span the ranks' slices), int8 projections over
+    tp (the reference's row abs-max spans the whole contraction axis, a
+    row-parallel shard sees only its part), 8-bit Adam over sharded
+    parameters (its per-row scales are the whole leaf's) and BERT over
+    tp. Checked on a two-rank mesh under the fake process group, where
+    no collective runs."""
     import torch.distributed as dist
 
     from kubeflow_controller_tpu_torch.models import bert as tbert
