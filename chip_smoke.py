@@ -893,6 +893,12 @@ INT8_PROFILED = ("flagship.gate_up", "flagship.down", "llama3_8b.gate_up")
 #: Checked, not timed: N is not a multiple of 256 and K is a single 128
 #: step, fewer than the GEMM's ring has stages.
 INT8_EXTRA = {"edge.256x128x384": (256, 128, 384)}
+#: B7's split entries (the row scales from the caller, the fp32 partial
+#: product out) at the shapes a contraction split over tp=2 gives them in
+#: the flagship: o's and down's forward (k halved), which are also
+#: q/k/v's and gate/up's dx (n halved).
+INT8_SPLIT_SHAPES = {"flagship.o.tp2": (16384, 512, 1024),
+                     "flagship.down.tp2": (16384, 2048, 1024)}
 
 
 def _int8_rows(m, k, gen):
@@ -920,7 +926,8 @@ def int8_kernel_phase(smi):
     version, ``torch._int_mm`` on the same int8 codes (the product
     alone, a yardstick; with the rhs column-major, as the composed path
     passes it, and row-major) and a bf16 ``torch.mm`` of the same shape.
-    A shape ``fusable`` refuses must raise. Returns records by shape."""
+    Then the split entries (:func:`_int8_split_checks`). A shape
+    ``fusable`` refuses must raise. Returns records by shape."""
     import torch
 
     from kubeflow_controller_tpu_torch.ops import quant as q
@@ -978,6 +985,7 @@ def int8_kernel_phase(smi):
         recs[label] = rec
         del a, w, qb, qbt, sb, got, want, qa, sa, qa_p, sa_p
         torch.cuda.empty_cache()
+    recs.update(_int8_split_checks(gen, failures, smi))
     a = torch.zeros((256, 100), device="cuda", dtype=torch.bfloat16)
     try:
         qf.fused_int8_matmul_2d(a, torch.zeros((100, 256), device="cuda"))
@@ -989,6 +997,64 @@ def int8_kernel_phase(smi):
             log("FAIL " + msg)
         raise AssertionError(f"{len(failures)} int8 kernel checks failed; "
                              f"first: {failures[0]}")
+    return recs
+
+
+def _int8_split_checks(gen, failures, smi):
+    """B7's split entries at :data:`INT8_SPLIT_SHAPES` against their plain
+    versions, bit for bit: the prepass quantizing by the caller's row
+    scales (a split contraction's are at least this part's abs-max: here
+    this part's times a factor drawn in [1, 4), 1 for the outlier, zero
+    and tie rows) and the GEMM writing its dequantized product in fp32.
+    Each is timed as the whole call (prepass and GEMM), the prepass
+    alone, beside the plain version and ``torch._int_mm`` on the same
+    codes; bound: a, the rhs codes and both scales in, the fp32 product
+    out, or 2mkn int8 operations."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.ops import quant as q
+    from kubeflow_controller_tpu_torch.ops import quant_fused as qf
+
+    recs = {}
+    for label, (m, k, n) in INT8_SPLIT_SHAPES.items():
+        a = _int8_rows(m, k, gen)
+        w = torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5
+        grow = 1 + 3 * torch.rand((m, 1), generator=gen, device="cuda")
+        grow[:3] = 1
+        sa = (q._symmetric_scales(a.float(), 1) * grow).contiguous()
+        qbt, sb = qf.rhs_codes(w)
+        got, want = qf._launch(a, qbt, sb, sa), qf._fused_plain(a, qbt, sb, sa)
+        qa, (qa_p, _) = qf.quantize_rows_scaled(a, sa), qf.quantize_rows_plain(a, sa)
+        torch.cuda.synchronize()
+        mismatches = int((got != want).sum())
+        pre_mismatches = int((qa != qa_p).sum())
+        max_abs = float((got - want).abs().max())
+        if mismatches or got.dtype != torch.float32 or not bool(torch.isfinite(got).all()):
+            failures.append(f"int8_matmul_f32[{label}]: {mismatches} outputs differ from "
+                            f"the plain version (max |err| {max_abs}, {got.dtype})")
+        if pre_mismatches:
+            failures.append(f"int8_quantize_rows_scaled[{label}]: {pre_mismatches} codes "
+                            "differ from the plain version")
+        byts = m * k * 2 + k * n + n * 4 + m * 4 + m * n * 4
+        ops = 2 * m * k * n
+        t_bytes, t_ops = byts / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS["int8"] * 1e3
+        qb_cm = qbt.t()                           # the same codes, column-major
+        rec = dict(case=label, entry="split", m=m, k=k, n=n, mismatches=mismatches,
+                   prepass_mismatches=pre_mismatches, max_abs_err=max_abs,
+                   ms=_time_ms(lambda: qf._launch(a, qbt, sb, sa)),
+                   prepass_ms=_time_ms(lambda: qf.quantize_rows_scaled(a, sa)),
+                   parts=["quantize_rows_kernel<true>", "int8_gemm_kernel<true>"],
+                   plain_ms=_time_ms(lambda: qf._fused_plain(a, qbt, sb, sa), iters=5),
+                   library_ms=_time_ms(lambda: torch._int_mm(qa_p, qb_cm)),
+                   library="torch._int_mm on the same int8 codes, rhs column-major "
+                           "(the product alone, int32 out)",
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=byts, operations=ops)
+        log(f"int8-case {json.dumps(rec)} | {smi}")
+        recs[label] = rec
+        del a, w, sa, qbt, sb, got, want, qa, qa_p, qb_cm
+        torch.cuda.empty_cache()
     return recs
 
 
@@ -2799,7 +2865,8 @@ def lm_train_run(smi, steps=4, quant="", opt8bit=False):
     want = {"rope_rotate": 3 * layers * steps, "flash_fwd": 2 * layers * steps,
             "flash_bwd_prep": layers * steps, "flash_bwd_fused": layers * steps,
             "flash_bwd_post": layers * steps, "flash_bwd_dkdv": 0,
-            "flash_bwd_dq": 0, "int8_quantize_rows": b7, "int8_matmul": b7}
+            "flash_bwd_dq": 0, "int8_quantize_rows": b7, "int8_matmul": b7,
+            "int8_quantize_rows_scaled": 0, "int8_matmul_f32": 0}
     if launches != want:
         raise AssertionError(f"lm.train[{label}]: launches {launches} != {want}")
     rows = _read_completions(path)
@@ -3749,7 +3816,8 @@ def bert_phase(smi):
     want = {"rope_rotate": 0, "flash_fwd": 2 * L * BERT_STEPS,
             "flash_bwd_prep": L * BERT_STEPS, "flash_bwd_fused": L * BERT_STEPS,
             "flash_bwd_post": L * BERT_STEPS, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0,
-            "int8_quantize_rows": 0, "int8_matmul": 0}
+            "int8_quantize_rows": 0, "int8_matmul": 0, "int8_quantize_rows_scaled": 0,
+            "int8_matmul_f32": 0}
     if launches != want:
         raise AssertionError(f"bert: launches {launches} != {want}")
     rec = dict(run="bert_base.S512.B8", steps=BERT_STEPS, loss=out["loss"],
@@ -3791,9 +3859,30 @@ FLASH_KERNELS = (
 
 # -- multi-process training --------------------------------------------------------
 
+# A case's ``loss_tol`` replaces DIST_LOSS_REL_TOL where that limit, set
+# on the flagship, does not hold the model's own rounding; each is about
+# twice the worst reading on an H100 80GB HBM3 at 700 W, the rule
+# TRAIN_LOSS_REL_TOL was set by, and the yardstick's loss difference (the
+# plain attention's one-process run against the flash run) is recorded
+# beside it. A routed (MoE) layout: the top-k routing is discrete, and
+# an input one bf16 rounding apart (a tp partial sum, an attention path)
+# may send a near-tied token to another expert, which moves mixtral's
+# loss by ~1e-4 of itself a token: its yardstick read 1.31e-4 and
+# 1.46e-4, mixtral_8x7b (1 layer) at tp=2 2.94e-4 (twice), at ep=2 and
+# sp=2 below 2e-7. BERT-base at tp=2: 8.28e-5 and 1.045e-4 (its
+# yardstick 6.18e-5: the fused backward's dq sums through atomics in an
+# order that varies run to run, DQ_RUN_TO_RUN).
+ROUTED_LOSS_REL_TOL = 6e-4
+BERT_TP_LOSS_REL_TOL = 2.1e-4
+
 # The gang's layouts: each a two-rank lm.train (global batch 16 at S1024
-# for the flagship, 2 at S2048 for llama3_8b at 2 layers) held against
-# a one-process run of the same batches, init and steps on the same card.
+# for the flagship at full width, 2 at S2048 for llama3_8b at 2 layers)
+# held against a one-process run of the same batches, init and steps on
+# the same card. The flagship's int8 and 8-bit AdamW layouts over tp and
+# with 8-bit moments run it at 8 of its 16 layers: on one card over gloo
+# every collective goes through host memory (an int8 tp=2 step of all
+# 16 layers sums ~9.6 GB of fp32 partials: 12.9 s), and the whole script
+# must stay within its time.
 # ``needs``: the collectives the layout runs on its tensors beyond
 # all_reduce (probed first on the gang's backend).
 DIST_CASES = [
@@ -3833,6 +3922,47 @@ DIST_CASES = [
     dict(label="llama3_8b_2l.sp2.ring", config="llama3_8b_2l", attn="ring",
          one_process_attn="flash", mesh=dict(dp=1, sp=2), batch=1, seq=4096, steps=2,
          needs=("send_recv",), change_cap=0.0658),
+    # Expert parallelism and MoE over tp and sp: mixtral_8x7b at full
+    # width, cut to one layer (1.71 B parameters, 27 GB of fp32 weights,
+    # gradients and moments whole: two sp ranks hold 55 GB of one card).
+    # At ep=2 each rank holds 4 experts and the dispatched tokens go to
+    # them by all-to-all; at tp=2 each expert's SwiGLU is column- and
+    # row-parallel; at sp=2 the routed FFN runs on the sequence gathered
+    # over sp (q/k/v gathered too: B1 and the two-pass B3/B4 at S=2048).
+    dict(label="mixtral_8x7b_1l.ep2", config="mixtral_8x7b_1l", loss_tol=ROUTED_LOSS_REL_TOL,
+         mesh=dict(dp=1, ep=2), batch=2, seq=1024, steps=2, needs=("all_to_all",),
+         change_cap=0.2432),
+    dict(label="mixtral_8x7b_1l.tp2", config="mixtral_8x7b_1l", loss_tol=ROUTED_LOSS_REL_TOL,
+         mesh=dict(dp=1, tp=2), batch=2, seq=1024, steps=2,
+         needs=("all_gather_into_tensor", "all_gather", "all_reduce_max"),
+         change_cap=0.2335),
+    dict(label="mixtral_8x7b_1l.sp2", config="mixtral_8x7b_1l", loss_tol=ROUTED_LOSS_REL_TOL,
+         mesh=dict(dp=1, sp=2), batch=1, seq=2048, steps=2,
+         needs=("all_gather_into_tensor", "reduce_scatter_tensor"), change_cap=0.2836),
+    # Int8 projections over tp: the row-parallel projections' scales span
+    # the tp-split contraction (MAX over tp) and their fp32 partials are
+    # summed over tp; under int8_fused they take B7's split entries (the
+    # row scales from the caller, fp32 out), as do q/k/v's and gate/up's
+    # dx.
+    dict(label="flagship_8l.int8.tp2", config="flagship_8l", quant="int8", mesh=dict(dp=1, tp=2),
+         batch=16, seq=1024, steps=2, needs=("all_gather_into_tensor", "all_gather",
+                                             "all_reduce_max"), change_cap=0.346),
+    dict(label="flagship_8l.int8_fused.tp2", config="flagship_8l", quant="int8_fused",
+         mesh=dict(dp=1, tp=2), batch=16, seq=1024, steps=2,
+         needs=("all_gather_into_tensor", "all_gather", "all_reduce_max"), change_cap=0.346),
+    # 8-bit AdamW on fsdp chunks: each leaf's row statistics the whole
+    # leaf's; checkpointed, and restored by one process with its
+    # quantized moments.
+    dict(label="flagship_8l.opt8bit.fsdp2", config="flagship_8l", quant="int8_fused", opt8bit=True,
+         mesh=dict(dp=1, fsdp=2), batch=8, seq=1024, steps=2, checkpoint=True,
+         needs=("all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce_max"),
+         change_cap=0.3536),
+    # BERT over tp: the vocabulary-split embedding and MLM head, the
+    # column-parallel mlm_dense gathered over tp before its norm.
+    dict(label="bert_base.tp2", model="bert", config="bert_base", loss_tol=BERT_TP_LOSS_REL_TOL,
+         mesh=dict(dp=1, tp=2),
+         batch=8, seq=512, steps=3, needs=("all_gather_into_tensor", "all_gather",
+                                           "all_reduce_max"), change_cap=0.2328),
 ]
 # A layout against the one-process run: the two differ in each rank's
 # rows (bf16 weight gradients are rounded per rank before the ranks'
@@ -3852,7 +3982,10 @@ DIST_CASES = [
 # model's change is also capped by the case's ``change_cap``: twice its
 # yardstick as read on an H100 80GB HBM3 at 700 W (flagship 0.0570,
 # int8_fused 0.1827, llama3_8b 0.0333; the flagship at B4 S2048 0.0615,
-# llama3_8b at S4096 0.0329). The ring cases are held against the
+# llama3_8b at S4096 0.0329; mixtral_8x7b at 1 layer: 0.1216 at ep=2,
+# 0.1167 at tp=2 (B2 S1024), 0.1418 at sp=2 (B1 S2048); the flagship's 8
+# layers with int8 at tp=2 0.1730, with 8-bit AdamW at fsdp=2 0.1768;
+# BERT-base 0.1164). The ring cases are held against the
 # one-process flash run (``one_process_attn``): without a mesh the ring
 # is the plain attention, which is the yardstick itself.
 DIST_LOSS_REL_TOL = TRAIN_LOSS_REL_TOL
@@ -3887,10 +4020,38 @@ def _send_recv_probe(device):
     return p2p_transport(x, mesh.group("sp"))
 
 
+def _all_to_all_probe(device):
+    """The expert exchange over a two-rank ep mesh on a bf16 tensor of
+    ``device`` (``collectives.all_to_all``): each rank must receive its
+    expert's slots of both ranks' groups, and the inverse must give its
+    own back. Returns the transport it took."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.parallel.collectives import all_to_all, p2p_transport
+    from kubeflow_controller_tpu_torch.parallel.mesh import MeshConfig, make_mesh, use_mesh
+
+    mesh = make_mesh(MeshConfig(dp=1, ep=2), device_type=device.type)
+    r = mesh.coords["ep"]
+
+    def slots(rank):                      # [E=2, G=1, cap=1, D=3] of rank's groups
+        return (torch.arange(6, device=device, dtype=torch.float32).reshape(2, 1, 1, 3)
+                + 10 * rank).to(torch.bfloat16)
+
+    x = slots(r)
+    with use_mesh(mesh):
+        got = all_to_all(x)
+        back = all_to_all(got, inverse=True)
+    want = torch.stack([slots(j)[r] for j in range(2)], 1)    # [1, 2, 1, 3]
+    if not (torch.equal(got, want) and torch.equal(back, x)):
+        raise AssertionError(f"received {got.tolist()}, back {back.tolist()}")
+    return p2p_transport(x, mesh.group("ep"))
+
+
 def _dist_probe(device):
     """Which collectives the gang's backend runs on tensors of
     ``device``: {name: True or the error's text}; ``send_recv_transport``
-    names the route the ring shift took."""
+    and ``all_to_all_transport`` name the routes the ring shift and the
+    expert exchange took."""
     import torch
     import torch.distributed as dist
 
@@ -3913,11 +4074,12 @@ def _dist_probe(device):
             out[name] = True
         except Exception as e:  # a probe: its finding is the answer
             out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
-    try:
-        out["send_recv_transport"] = _send_recv_probe(device)
-        out["send_recv"] = True
-    except Exception as e:  # a probe: its finding is the answer
-        out["send_recv"] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    for name, probe in (("send_recv", _send_recv_probe), ("all_to_all", _all_to_all_probe)):
+        try:
+            out[f"{name}_transport"] = probe(device)
+            out[name] = True
+        except Exception as e:  # a probe: its finding is the answer
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
     return out
 
 
@@ -3926,7 +4088,14 @@ def _dist_expected(case, n_layers):
     counts (each rank runs every layer on its rows or heads, or on the
     sequence gathered over sp); none on the ring path (its block update
     is plain PyTorch); over pp, each rank's L/P layers on each of the
-    M + P - 1 ticks of the schedule."""
+    M + P - 1 ticks of the schedule. BERT: no rope prepass. Int8_fused
+    over tp: B7's split entries take the row-parallel forwards (o, down)
+    and the column-parallel dx (q, k, v, gate, up), 9 a layer, the
+    regular ones the other 12 (``fusable`` judged on the logical
+    shapes, the same projections as in one process)."""
+    if case.get("model") == "bert":
+        return {"flash_fwd": 2 * n_layers, "flash_bwd_prep": n_layers,
+                "flash_bwd_fused": n_layers, "flash_bwd_post": n_layers}
     if case.get("attn") == "ring":
         return {}
     if case.get("pp_microbatches"):
@@ -3938,7 +4107,10 @@ def _dist_expected(case, n_layers):
         flash.update(flash_bwd_dkdv=n_layers, flash_bwd_dq=n_layers)
     else:
         flash.update(flash_bwd_fused=n_layers, flash_bwd_post=n_layers)
-    if case.get("quant") == "int8_fused":
+    if case.get("quant") == "int8_fused" and case["mesh"].get("tp", 1) > 1:
+        flash.update(int8_quantize_rows=12 * n_layers, int8_matmul=12 * n_layers,
+                     int8_quantize_rows_scaled=9 * n_layers, int8_matmul_f32=9 * n_layers)
+    elif case.get("quant") == "int8_fused":
         flash.update(int8_quantize_rows=21 * n_layers, int8_matmul=21 * n_layers)
     return flash
 
@@ -3952,34 +4124,92 @@ def _change_rel(got, want, init):
     return whole, [math.sqrt(n / max(d, 1e-60)) for n, d in zip(num, den)]
 
 
-def _loop_run(case, cfg, device, mesh, pp_microbatches=0):
-    """A case's run through ``TrainLoop`` with the pieces ``lm.train``
-    builds, on ``mesh``, each rank fed its rows of the gang's global
-    batch: the one-process run (a mesh of this rank alone), or a
-    pipelined case (``next_token_loss(pp_microbatches=M)`` on parameters
-    placed by ``param_specs(cfg, pp=True)``, as the JAX package's
-    pipelined train steps are called: no ``lm.train`` flag)."""
+def _model_pieces(case, cfg, global_batch, pp_microbatches=0):
+    """A case's ``(init_fn, loss_fn, param specs, optimizer, stream of
+    global batches)`` as its entry point builds them: ``lm.train``'s
+    (the pipelined loss and ``param_specs(cfg, pp=True)`` with
+    ``pp_microbatches``), or ``bert.train``'s."""
     from kubeflow_controller_tpu_torch.dataplane.entrypoints.lm import synthetic_lm
+    from kubeflow_controller_tpu_torch.models import bert
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+    from kubeflow_controller_tpu_torch.optim import (
+        AdamW, make_optimizer, warmup_cosine_decay_schedule,
+    )
+
+    steps = case["steps"]
+    if case.get("model") == "bert":
+        return (bert.make_init_fn(cfg), bert.make_loss_fn(cfg), bert.param_specs(cfg),
+                AdamW(warmup_cosine_decay_schedule(0.0, 1e-4, min(100, steps // 10 + 1),
+                                                   steps), weight_decay=0.01),
+                bert.synthetic_mlm_batch(cfg, global_batch, case["seq"]))
+    return (tfm.make_init_fn(cfg), tfm.make_loss_fn(cfg, pp_microbatches=pp_microbatches),
+            tfm.param_specs(cfg, pp=pp_microbatches > 0),
+            make_optimizer(3e-4, steps, case.get("opt8bit", False)),
+            synthetic_lm(cfg.vocab_size, global_batch, case["seq"]))
+
+
+def _loop_run(case, cfg, device, mesh, pp_microbatches=0, model_dir=""):
+    """A case's run through ``TrainLoop`` with the pieces its entry point
+    builds (:func:`_model_pieces`), on ``mesh``, each rank fed its rows
+    of the gang's global batch: the one-process run (a mesh of this rank
+    alone), or a pipelined case (``next_token_loss(pp_microbatches=M)``
+    on parameters placed by ``param_specs(cfg, pp=True)``, as the JAX
+    package's pipelined train steps are called: no ``lm.train`` flag).
+    With ``model_dir``: a loop that would resume from it, not run."""
     from kubeflow_controller_tpu_torch.dataplane.train import (
         TrainLoop, TrainLoopConfig, device_prefetch,
     )
-    from kubeflow_controller_tpu_torch.models import transformer as tfm
-    from kubeflow_controller_tpu_torch.optim import make_optimizer
 
     _, dp, fsdp, ep, _, _ = _dist_mesh_config(case).resolve(2)
     global_batch = case["batch"] * dp * fsdp * ep
+    init_fn, loss_fn, specs, tx, stream = _model_pieces(case, cfg, global_batch,
+                                                        pp_microbatches)
     loop = TrainLoop(
-        init_fn=tfm.make_init_fn(cfg),
-        loss_fn=tfm.make_loss_fn(cfg, pp_microbatches=pp_microbatches),
-        optimizer=make_optimizer(3e-4, case["steps"]),
+        init_fn=init_fn, loss_fn=loss_fn, optimizer=tx,
         config=TrainLoopConfig(total_steps=case["steps"], log_every=1),
-        device=device, mesh=mesh,
-        param_shardings=tfm.param_specs(cfg, pp=pp_microbatches > 0))
+        device=device, mesh=mesh, param_shardings=specs, model_dir=model_dir)
+    if model_dir:
+        return [], loop
     recs = []
-    loop.run(device_prefetch(synthetic_lm(cfg.vocab_size, global_batch, case["seq"]),
-                             device, rows=loop.local_rows(global_batch)),
+    loop.run(device_prefetch(stream, device, rows=loop.local_rows(global_batch)),
              on_metrics=recs.append)
     return [m.loss for m in recs], loop
+
+
+def _same_tensors(a, b) -> bool:
+    """Whether two trees (dicts, lists) hold equal tensors at the same
+    places (other values are not compared)."""
+    import torch
+
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_same_tensors(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_tensors(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b.to(a.device))
+    return True
+
+
+def _bert_memory_plan(cfg, axes, global_batch, seq, shapes, specs):
+    """BERT's per-rank plan by the decoder plan's terms
+    (``transformer_memory_plan``; the JAX package has none for BERT): the
+    fp32 parameters, gradients and two moments as ``specs`` shard the
+    leaves of ``shapes``; a layer's input a layer under remat and one
+    layer's intermediates twice; the MLM head's fp32 logits four times
+    (the logits, their exponentials, the log-probabilities and the
+    gradient), this rank's vocab shard of them."""
+    from kubeflow_controller_tpu_torch.parallel.memory import MemoryPlan, sharded_leaf_bytes
+
+    pbytes = sum(sharded_leaf_bytes(sh, 4, sp, axes) for sh, sp in zip(shapes, specs))
+    b = math.ceil(global_batch / (axes.get("dp", 1) * axes.get("fsdp", 1)))
+    tp, act = axes.get("tp", 1), 2
+    checkpoints = cfg.n_layers * b * seq * cfg.d_model * act
+    in_layer = b * seq * (math.ceil(cfg.d_model / tp) * 4 + math.ceil(cfg.d_ff / tp) * 2
+                          + cfg.d_model * 2) * act * 2
+    logits = b * seq * math.ceil(cfg.vocab_size / tp) * 4 * 4
+    return MemoryPlan(params=pbytes, grads=pbytes, opt_state=2 * pbytes,
+                      activations=checkpoints + in_layer, logits=logits,
+                      mesh_axes=dict(axes), global_batch=global_batch, seq=seq)
 
 
 def _shape_leaves(tree):
@@ -4005,20 +4235,24 @@ def _dist_mesh_config(case):
 
 
 def _dist_case(ctx, case, device):
-    """One layout on this rank: ``lm.train`` with the counts zeroed just
+    """One layout on this rank: its entry point (``lm.train``, or
+    ``bert.train`` for ``model="bert"``) with the counts zeroed just
     before and read just after, the gathered parameters, and on rank 0
     the one-process run and the comparison (and, with ``checkpoint``, a
-    one-process restore of the layout's checkpoint)."""
+    one-process restore of the layout's checkpoint: parameters and
+    optimizer state bit for bit)."""
     import gc
+    import shutil
 
     import torch
     import torch.distributed as dist
 
-    from kubeflow_controller_tpu_torch.convert import tree_leaves
+    from kubeflow_controller_tpu_torch.convert import tree_leaves, tree_unflatten
     from kubeflow_controller_tpu_torch.dataplane import train as dtrain
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints import bert as bert_entry
     from kubeflow_controller_tpu_torch.dataplane.entrypoints import lm
+    from kubeflow_controller_tpu_torch.models import bert
     from kubeflow_controller_tpu_torch.models import transformer as tfm
-    from kubeflow_controller_tpu_torch.optim import make_optimizer
     from kubeflow_controller_tpu_torch.parallel import memory, sharding
     from kubeflow_controller_tpu_torch.parallel.mesh import make_mesh, mesh_for_context
 
@@ -4039,7 +4273,9 @@ def _dist_case(ctx, case, device):
         step_peaks.append(torch.cuda.max_memory_allocated(device))
         return real_save(loop, wait=wait)
 
-    mdir = os.path.join(OUT_DIR, "dist_ckpt") if case.get("checkpoint") else ""
+    is_bert = case.get("model") == "bert"
+    mdir = (os.path.join(OUT_DIR, "dist_ckpt", case["label"]) if case.get("checkpoint")
+            else "")
     # The loops of the cases before (rank 0's one-process runs too) hold
     # reference cycles: collect them, so that this case's peak is its own.
     gc.collect()
@@ -4050,18 +4286,29 @@ def _dist_case(ctx, case, device):
     _reset_launches()
     dtrain.TrainLoop.run, dtrain.TrainLoop.save = keeping, saving
     t0 = time.perf_counter()
-    cfg = lm.model_config(case["config"], max_seq=max(case["seq"], 128),
-                          attn_impl=case.get("attn", "auto"), quant=case.get("quant", ""))
+    if is_bert:
+        cfg = bert.bert_base_config(max_seq=max(case["seq"], 128),
+                                    attn_impl=case.get("attn", "auto"))
+    else:
+        cfg = lm.model_config(case["config"], max_seq=max(case["seq"], 128),
+                              attn_impl=case.get("attn", "auto"),
+                              quant=case.get("quant", ""))
     try:
         if case.get("pp_microbatches"):
             _, pp_loop = _loop_run(case, cfg, device, mesh_for_context(
                 ctx, _dist_mesh_config(case), device_type="cuda"), case["pp_microbatches"])
             out = {"final_step": pp_loop.state.step}
             del pp_loop
+        elif is_bert:
+            out = bert_entry.train(ctx, total_steps=case["steps"],
+                                   per_data_shard_batch=case["batch"], seq_len=case["seq"],
+                                   cfg=cfg, mesh_config=_dist_mesh_config(case),
+                                   model_dir=mdir)
         else:
             out = lm.train(ctx, config=case["config"], total_steps=case["steps"],
                            per_data_shard_batch=case["batch"], seq_len=case["seq"],
                            attn=case.get("attn", "auto"), quant=case.get("quant", ""),
+                           opt8bit=case.get("opt8bit", False),
                            mesh_config=_dist_mesh_config(case), model_dir=mdir)
     finally:
         dtrain.TrainLoop.run, dtrain.TrainLoop.save = real_run, real_save
@@ -4072,10 +4319,18 @@ def _dist_case(ctx, case, device):
     peak_steps = step_peaks[0] if step_peaks else peak
     loop = kept[0]
     axes = {k: v for k, v in loop.mesh.shape.items() if v > 1}
-    plan = memory.transformer_memory_plan(cfg, axes, case["batch"] * loop.mesh.axis_size(
-        "dp", "fsdp"), case["seq"], pp=bool(case.get("pp_microbatches")))
+    rows_a_rank = case["batch"] * loop.mesh.axis_size("dp", "fsdp")
+    if is_bert:
+        plan = _bert_memory_plan(cfg, axes, rows_a_rank, case["seq"], loop._full_shapes,
+                                 loop._specs)
+    else:
+        plan = memory.transformer_memory_plan(cfg, axes, rows_a_rank, case["seq"],
+                                              pp=bool(case.get("pp_microbatches")))
     whole = [sharding.gather_full(p.detach(), s, loop.mesh)
              for p, s in zip(tree_leaves(loop.state.params), loop._specs)]
+    whole_opt = loop._whole_state()[1] if mdir else None
+    names = _leaf_names(tree_unflatten(loop.state.params, loop._full_shapes))
+    leaf = 4 * max(math.prod(s) for s in loop._full_shapes)
     del loop, kept
     steps = case["steps"]
     want = {k: v * steps for k, v in _dist_expected(case, cfg.n_layers).items()}
@@ -4092,7 +4347,6 @@ def _dist_case(ctx, case, device):
     if launches != want:
         raise AssertionError(f"dist[{case['label']}] rank {ctx.process_id}: "
                              f"launches {launches} != {want}")
-    leaf = 4 * max(math.prod(s) for s in _shape_leaves(tfm.param_shapes(cfg)))
     peak_limit = plan.total + DIST_PEAK_LEAF_COPIES * leaf
     rec["peak_limit_gb"] = peak_limit / 1e9
     if peak_steps > peak_limit:
@@ -4108,16 +4362,19 @@ def _dist_case(ctx, case, device):
         ref_losses, ref = _loop_run(case, one_cfg, device, one)
         ref_leaves = [p.detach() for p in tree_leaves(ref.state.params)]
         del ref
-        _, yard = _loop_run(case, cfg.replace(attn_impl="xla"), device, one)
+        yard_losses, yard = _loop_run(case, cfg.replace(attn_impl="xla"), device, one)
         yard_leaves = [p.detach() for p in tree_leaves(yard.state.params)]
         del yard
-        init = tree_leaves(tfm.init_params(cfg, seed=0, device=device))
-        names = _leaf_names(tfm.param_shapes(cfg))
+        init = tree_leaves((bert if is_bert else tfm).init_params(cfg, seed=0, device=device))
         rel_whole, rel = _change_rel(whole, ref_leaves, init)
         yard_whole, yard_rel = _change_rel(yard_leaves, ref_leaves, init)
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], ref_losses))
+        yard_loss_rel = max(abs(a - b) / abs(b) for a, b in zip(yard_losses, ref_losses))
+        loss_tol = case.get("loss_tol", DIST_LOSS_REL_TOL)
         worst = max(range(len(rel)), key=rel.__getitem__)
         rec.update(one_process_losses=ref_losses, loss_rel=loss_rel,
+                   yardstick_losses=yard_losses, yardstick_loss_rel=yard_loss_rel,
+                   loss_tol=loss_tol,
                    param_change_rel_l2=rel_whole,
                    param_change_rel_l2_worst=(names[worst], rel[worst]),
                    yardstick_rel_l2=yard_whole,
@@ -4125,12 +4382,8 @@ def _dist_case(ctx, case, device):
                    param_change_rel_l2_by_leaf=dict(zip(names, rel)))
         del init, ref_leaves, yard_leaves
         if mdir:
-            back = make_mesh(devices=[0], device_type="cuda")
-            lp = dtrain.TrainLoop(
-                init_fn=tfm.make_init_fn(cfg), loss_fn=tfm.make_loss_fn(cfg),
-                optimizer=make_optimizer(3e-4, steps),
-                config=dtrain.TrainLoopConfig(total_steps=steps), device=device,
-                mesh=back, param_shardings=tfm.param_specs(cfg), model_dir=mdir)
+            _, lp = _loop_run(case, cfg, device, make_mesh(devices=[0], device_type="cuda"),
+                              model_dir=mdir)
             t = time.perf_counter()
             ok = lp.restore()
             rec["restore_s"] = time.perf_counter() - t
@@ -4138,20 +4391,23 @@ def _dist_case(ctx, case, device):
                 torch.equal(a.detach(), b) for a, b in zip(tree_leaves(lp.state.params), whole))
             rec["restored_step"] = lp.state.step
             rec["restore_equal"] = bool(same)
+            rec["restore_opt_equal"] = _same_tensors(lp.tx.state_dict(), whole_opt)
             del lp
+            shutil.rmtree(mdir, ignore_errors=True)
         if not (all(math.isfinite(x) for x in rec["losses"])
-                and loss_rel <= DIST_LOSS_REL_TOL
+                and loss_rel <= loss_tol
                 and rel_whole <= min(DIST_VS_YARDSTICK * yard_whole, case["change_cap"])
                 and max(rel) <= DIST_VS_YARDSTICK * max(yard_rel)
-                and rec.get("restore_equal", True)):
+                and rec.get("restore_equal", True) and rec.get("restore_opt_equal", True)):
             raise AssertionError(
                 f"dist[{case['label']}] vs one process: loss rel {loss_rel} (tol "
-                f"{DIST_LOSS_REL_TOL}), change rel L2 {rel_whole} and worst leaf "
+                f"{loss_tol}; the yardstick's {yard_loss_rel}), change rel L2 "
+                f"{rel_whole} and worst leaf "
                 f"{rec['param_change_rel_l2_worst']} against {DIST_VS_YARDSTICK} x the "
                 f"yardstick's {yard_whole} (cap {case['change_cap']}) and "
-                f"{max(yard_rel)}, restore "
-                f"{rec.get('restore_equal')}")
-    del whole
+                f"{max(yard_rel)}, restore {rec.get('restore_equal')}, optimizer state "
+                f"{rec.get('restore_opt_equal')}")
+    del whole, whole_opt
     torch.cuda.empty_cache()
     dist.barrier()
     return rec
@@ -4172,25 +4428,36 @@ def _dist_worker() -> int:
     from kubeflow_controller_tpu_torch.models import transformer as tfm
 
     spec = json.loads(os.environ["CHIP_SMOKE_DIST"])
-    # llama3_8b cut to 2 layers (its fp32 state at 32 layers is ~128 GB).
+    # llama3_8b cut to 2 layers (its fp32 state at 32 layers is ~128 GB),
+    # mixtral_8x7b to 1 (~750 GB at 32 layers; 27 GB at 1).
     lm.CONFIGS["llama3_8b_2l"] = lambda **kw: tfm.llama3_8b_config(n_layers=2, **kw)
+    lm.CONFIGS["mixtral_8x7b_1l"] = lambda **kw: tfm.mixtral_8x7b_config(n_layers=1, **kw)
+    # The flagship at full width cut to 8 layers (DIST_CASES says why).
+    lm.CONFIGS["flagship_8l"] = lambda **kw: tfm.flagship_config(n_layers=8, **kw)
     ctx = ddist.initialize_from_env(backend=spec["backend"])
     device = ddist.local_device(ctx)
     probe = _dist_probe(device)
     out = {"rank": ctx.process_id, "device": str(device), "probe": probe, "cases": {}}
-    for case in DIST_CASES:
+    for case in _dist_cases(spec.get("labels")):
         missing = [n for n in case["needs"] if probe.get(n) is not True]
         if missing:
             out["cases"][case["label"]] = {"skipped": {n: probe.get(n) for n in missing}}
             continue
         out["cases"][case["label"]] = _dist_case(ctx, case, device)
-    with open(os.path.join(spec["out"], f"rank{ctx.process_id}.json"), "w") as f:
-        json.dump(out, f)
+        # Written after every case, so that a later case's failure keeps
+        # the records of those before it.
+        with open(os.path.join(spec["out"], f"rank{ctx.process_id}.json"), "w") as f:
+            json.dump(out, f)
     ddist.destroy()
     return 0
 
 
-def dist_phase(smi):
+def _dist_cases(labels=None):
+    """:data:`DIST_CASES`, or those of ``labels`` (a shorter call)."""
+    return [c for c in DIST_CASES if labels is None or c["label"] in labels]
+
+
+def dist_phase(smi, labels=None):
     """A two-rank gang of ``python -c`` workers, each with the env the
     controller gives a pod (``JAX_COORDINATOR_ADDRESS`` on 127.0.0.1,
     ``JAX_NUM_PROCESSES=2``, ``JAX_PROCESS_ID``), entering through
@@ -4199,8 +4466,14 @@ def dist_phase(smi):
     restores) and tp=2, ``int8_fused`` at fsdp=2 and llama3_8b (2
     layers, B3/B4) at fsdp=2; the flagship at sp=2 (ring and gathered
     attention) and at pp=2 (``TrainLoop`` with the pipelined loss), and
-    llama3_8b (2 layers) at sp=2, S=4096, ring; each against a
-    one-process run. NCCL with
+    llama3_8b (2 layers) at sp=2, S=4096, ring; mixtral_8x7b (1 layer)
+    at ep=2, tp=2 and sp=2, the flagship (8 of its 16 layers) with int8
+    projections at tp=2 (``int8`` and ``int8_fused``: B7's split
+    entries) and ``int8_fused`` with 8-bit AdamW at fsdp=2
+    (checkpointed: the quantized moments restored by one process) and
+    BERT-base at tp=2 through
+    ``bert.train``; each against a one-process run (``labels``: only
+    those layouts). NCCL with
     a card a rank when there are two cards; gloo with both ranks on
     cuda:0 on one (NCCL refuses two ranks on one card). The kernels were
     built before the gang starts, so no two ranks build at once. Per
@@ -4229,7 +4502,7 @@ def dist_phase(smi):
     sock.bind(("127.0.0.1", 0))
     port = sock.getsockname()[1]
     sock.close()
-    spec = json.dumps({"backend": backend, "out": out})
+    spec = json.dumps({"backend": backend, "out": out, "labels": labels})
     procs, logs = [], []
     for rank in range(2):
         env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
@@ -4264,7 +4537,7 @@ def dist_phase(smi):
             ranks.append(json.load(f))
     log(f"dist probe ({backend} on {ranks[0]['device']}): {json.dumps(ranks[0]['probe'])}")
     runs = {}
-    for case in DIST_CASES:
+    for case in _dist_cases(labels):
         label = case["label"]
         recs = [rk["cases"][label] for rk in ranks]
         if "skipped" in recs[0]:
@@ -4449,6 +4722,15 @@ def main() -> int:
         # row-quantize prepass and the GEMM; each also timed alone.
         "parts": r["parts"], "prepass_ms": r["prepass_ms"],
         "kernels_ms": r["kernels_ms"], "relayout_ms": r["relayout_ms"],
+        # The split entries (row scales from the caller, fp32 partials out)
+        # at the flagship's tp=2 shapes, and their launches a rank a step
+        # in the gang's layouts.
+        "split_entry": {label: {k: int8_recs[label][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library", "prepass_ms", "parts")} for label in INT8_SPLIT_SHAPES},
+        "split_entry_dist_launches_per_rank_step": {
+            label: [rec["launches_per_step"].get("int8_matmul_f32", 0) for rec in recs]
+            for label, recs in dist_runs.items()},
     })
     # Each rank's launches a step in the gang's layouts (dist_phase).
     for k in line["kernels"]:

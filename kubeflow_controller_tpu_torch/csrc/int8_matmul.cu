@@ -50,6 +50,20 @@
 //      scales, packs bf16 pairs, transposes them across the four lanes
 //      of a row and writes 16 bytes a thread.
 //
+// The split entries. Over a mesh a projection's contraction may be split
+// over ranks (a row-parallel layer's forward, a column-parallel one's dx
+// over tp). Its scales are then the whole contraction's, which the caller
+// computes (the abs-max all-reduced with MAX over the ranks), and each
+// rank's product is a partial sum that must meet the others' before the
+// one rounding to bf16. So quantize_rows_kernel<true> takes the row
+// scales and only quantizes (the same division and rounding as above),
+// and int8_gemm_kernel<true> writes the dequantized fp32 product (8 bytes
+// a thread a column pair, no transpose), which the wrapper sums over the
+// ranks and rounds. Same bounds as the bf16 entry but twice the output
+// bytes: at the flagship's row-parallel shapes with tp=2 (16384x512x1024
+// and 16384x2048x1024), 16384x1024x4 bytes = 67 MB of fp32 out, 0.020 ms
+// at 3.35 TB/s, against 0.009-0.035 ms of int8 operations.
+//
 // The C functions return cudaGetLastError() after the launch (or
 // cudaErrorInvalidValue for a shape they do not tile, without
 // launching); the Python wrapper raises when it is not 0.
@@ -102,7 +116,9 @@ __device__ __forceinline__ int8_t quantize(bf16 x, const RowDivider& div) {
 }
 
 // One warp a row: abs-max, scale, codes. The second pass re-reads the row
-// from L1; the kernel is bound by its arithmetic, not by that.
+// from L1; the kernel is bound by its arithmetic, not by that. kScalesIn:
+// the row's scale is read from sa (the caller's), not computed or written.
+template <bool kScalesIn>
 __global__ void __launch_bounds__(kQuantThreads)
 quantize_rows_kernel(const bf16* __restrict__ a, int8_t* __restrict__ qa,
                      float* __restrict__ sa, int M, int K) {
@@ -110,18 +126,23 @@ quantize_rows_kernel(const bf16* __restrict__ a, int8_t* __restrict__ qa,
   const int row = blockIdx.x * (kQuantThreads / 32) + warp;
   if (row >= M) return;
   const uint4* src = reinterpret_cast<const uint4*>(a + static_cast<size_t>(row) * K);
-  float amax = 0.0f;
-  for (int c = lane; c < K / 8; c += 32) {
-    const uint4 v = src[c];
-    const bf16* h = reinterpret_cast<const bf16*>(&v);
+  float scale;
+  if constexpr (kScalesIn) {
+    scale = sa[row];
+  } else {
+    float amax = 0.0f;
+    for (int c = lane; c < K / 8; c += 32) {
+      const uint4 v = src[c];
+      const bf16* h = reinterpret_cast<const bf16*>(&v);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(__bfloat162float(h[j])));
+      for (int j = 0; j < 8; ++j) amax = fmaxf(amax, fabsf(__bfloat162float(h[j])));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+    scale = __fmul_rn(fmaxf(amax, 1e-30f), kInv127);
+    if (lane == 0) sa[row] = scale;
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  const float scale = __fmul_rn(fmaxf(amax, 1e-30f), kInv127);
-  if (lane == 0) sa[row] = scale;
   const RowDivider div = row_divider(scale);
   uint4* dst = reinterpret_cast<uint4*>(qa + static_cast<size_t>(row) * K);
   for (int c = lane; c < K / 16; c += 32) {
@@ -135,10 +156,13 @@ quantize_rows_kernel(const bf16* __restrict__ a, int8_t* __restrict__ qa,
   }
 }
 
+// kF32Out: out is fp32 [M, N] (a split contraction's partial product),
+// else bf16.
+template <bool kF32Out>
 __global__ void __launch_bounds__(kThreads, 2)
 int8_gemm_kernel(const int8_t* __restrict__ qa, const int8_t* __restrict__ qb,
                  const float* __restrict__ sa, const float* __restrict__ sb,
-                 bf16* __restrict__ out, int M, int K, int N) {
+                 void* __restrict__ out_raw, int M, int K, int N) {
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
@@ -194,6 +218,22 @@ int8_gemm_kernel(const int8_t* __restrict__ qa, const int8_t* __restrict__ qb,
   const int r0 = m0 + wg * 64 + ((tid >> 5) & 3) * 16 + (lane >> 2);
   const int quad = lane & 3;
   const float s_row[2] = {sa[r0], sa[r0 + 8]};
+  if constexpr (kF32Out) {
+    float* out = static_cast<float*>(out_raw);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float2 cs = *reinterpret_cast<const float2*>(sb + n0 + 8 * j + 2 * quad);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float y0 = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), s_row[h]), cs.x);
+        const float y1 = __fmul_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), s_row[h]), cs.y);
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(r0 + 8 * h) * N + n0 + 8 * j +
+                                   2 * quad) = make_float2(y0, y1);
+      }
+    }
+    return;
+  }
+  bf16* out = static_cast<bf16*>(out_raw);
 #pragma unroll
   for (int g = 0; g < 4; ++g) {
     uint32_t w[2][4];
@@ -221,15 +261,46 @@ int8_gemm_kernel(const int8_t* __restrict__ qa, const int8_t* __restrict__ qb,
 }  // namespace
 
 // a bf16 [M, K] -> qa int8 [M, K], sa fp32 [M]. K a multiple of 16.
-extern "C" int kfc_int8_quantize_rows(const void* a, void* qa, void* sa, int M,
-                                      int K, void* stream) {
+namespace {
+
+template <bool kScalesIn>
+int quantize_rows(const void* a, void* qa, void* sa, int M, int K, void* stream) {
   if (M <= 0 || K <= 0 || K % 16) return static_cast<int>(cudaErrorInvalidValue);
   const int rows = kQuantThreads / 32;
-  quantize_rows_kernel<<<(M + rows - 1) / rows, kQuantThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  quantize_rows_kernel<kScalesIn><<<(M + rows - 1) / rows, kQuantThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(a), static_cast<int8_t*>(qa),
       static_cast<float*>(sa), M, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kF32Out>
+int int8_matmul(const void* qa, const void* qb, const void* sa, const void* sb,
+                void* out, int M, int K, int N, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || M % kBM || N % kBN || K % kBK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      int8_gemm_kernel<kF32Out>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int8_gemm_kernel<kF32Out><<<dim3(N / kBN, M / kBM), kThreads, kSmemBytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(qa), static_cast<const int8_t*>(qb),
+      static_cast<const float*>(sa), static_cast<const float*>(sb), out, M, K, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// a bf16 [M, K] -> qa int8 [M, K], sa fp32 [M]. K a multiple of 16.
+extern "C" int kfc_int8_quantize_rows(const void* a, void* qa, void* sa, int M,
+                                      int K, void* stream) {
+  return quantize_rows<false>(a, qa, sa, M, K, stream);
+}
+
+// a bf16 [M, K], sa fp32 [M] (the caller's row scales) -> qa int8 [M, K].
+extern "C" int kfc_int8_quantize_rows_scaled(const void* a, const void* sa, void* qa,
+                                             int M, int K, void* stream) {
+  return quantize_rows<true>(a, qa, const_cast<void*>(sa), M, K, stream);
 }
 
 // qa int8 [M, K], qb int8 [N, K] (the rhs codes, K-contiguous), sa fp32
@@ -237,15 +308,12 @@ extern "C" int kfc_int8_quantize_rows(const void* a, void* qa, void* sa, int M,
 extern "C" int kfc_int8_matmul(const void* qa, const void* qb, const void* sa,
                                const void* sb, void* out, int M, int K, int N,
                                void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || M % kBM || N % kBN || K % kBK)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      int8_gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  int8_gemm_kernel<<<dim3(N / kBN, M / kBM), kThreads, kSmemBytes,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(qa), static_cast<const int8_t*>(qb),
-      static_cast<const float*>(sa), static_cast<const float*>(sb),
-      static_cast<bf16*>(out), M, K, N);
-  return static_cast<int>(cudaGetLastError());
+  return int8_matmul<false>(qa, qb, sa, sb, out, M, K, N, stream);
+}
+
+// The same, out fp32 [M, N]: a split contraction's partial product.
+extern "C" int kfc_int8_matmul_f32(const void* qa, const void* qb, const void* sa,
+                                   const void* sb, void* out, int M, int K, int N,
+                                   void* stream) {
+  return int8_matmul<true>(qa, qb, sa, sb, out, M, K, N, stream);
 }

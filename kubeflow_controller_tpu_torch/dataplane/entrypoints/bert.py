@@ -13,8 +13,9 @@ for bf16 rows of at least 256 tokens; ``--quant int8`` runs the encoder's
 projections in int8. Runs on ``cuda`` unless ``device="cpu"``. A
 multi-process job (its process group up through
 ``dist.initialize_from_env``, which :func:`main` calls) trains over the
-mesh of ``mesh_config`` (dp and fsdp; ``param_specs`` places the
-parameters); tensor parallelism is refused with "not yet ported".
+mesh of ``mesh_config`` (dp, fsdp and tp; ``param_specs`` places the
+parameters, and under tp the encoder runs Megatron's layers with a
+vocab-parallel embedding and MLM head, ``models/bert.py``).
 """
 
 from __future__ import annotations
@@ -60,9 +61,6 @@ def train(
 
     ctx = ctx or ProcessContext.from_env()
     mesh_config = mesh_config or MeshConfig()
-    if mesh_config.tp > 1:
-        raise NotImplementedError(
-            f"BERT over tp={mesh_config.tp} is not yet ported (dp and fsdp are)")
     require_process_group(ctx)
     dev = resolve_device(job_device(ctx, device))
     mesh = make_mesh(mesh_config, device_type=dev.type)

@@ -7,7 +7,7 @@ name in ``NOT_YET_PORTED`` until a later slice ports them), the token
 streams (:func:`synthetic_lm`, byte for byte the JAX
 package's, and :func:`token_bin_lm`), and :func:`train`, which runs the
 decoder through ``TrainLoop`` over the job's mesh (``mesh_config``: dp,
-fsdp, sp and tp; one device for a single-process job):
+fsdp, ep, sp and tp; one device for a single-process job):
 
     python -m kubeflow_controller_tpu_torch.dataplane.entrypoints.lm \\
         --config tiny --total-steps 20 --seq-len 128 --device cpu
@@ -34,10 +34,11 @@ drives ``cuda:{process_id % device_count}``. A gang of two on the CPU
 Under ``sp > 1`` (``--sp``) or ``attn="ring"`` (``--attn ring``) the
 sequence is split over sp (``shard_seq``, as the JAX entry point sets
 it): ring attention rotates the K/V blocks between the sp ranks, the
-other attention paths gather q/k/v over sp. Refused with "not yet
-ported": int8 projections and MoE layers over tp > 1, MoE over sp > 1,
-ep > 1 and 8-bit Adam over sharded parameters. Pipeline parallelism has
-no flag here, as in the JAX package: a train step calls
+other attention paths gather q/k/v over sp. ``MeshConfig(ep=...)``
+shards a MoE model's experts (no CLI flag, as in the JAX package);
+int8 projections, MoE layers and 8-bit AdamW train over every axis.
+Pipeline parallelism has no flag here, as in the JAX package: a train
+step calls
 ``next_token_loss(pp_microbatches=M)`` on parameters placed by
 ``param_specs(cfg, pp=True)`` (``models/transformer.py``). The command
 line takes every option of the JAX entry point's, with the same

@@ -8,8 +8,11 @@ Over a mesh (``parallel/mesh.py``, one rank a device) every rank holds
 its chunk of each parameter as ``param_shardings`` places it (the fsdp
 heuristic ``infer_param_sharding`` when none are given), and the
 optimizer's state for that chunk (moments live where their parameter
-lives). A step gathers each parameter's compute view
-(``parallel/sharding.py``: whole but for tp-sharded dimensions), runs
+lives; 8-bit AdamW's per-row statistics are the whole leaf's,
+:meth:`~ops.optim8.AdamW8bit.place`). A step gathers each parameter's
+compute view (``parallel/sharding.py``: whole but for the dimensions
+the model consumes in place: tp shards, a stage's layers, an expert
+chunk), runs
 the loss on this rank's rows of the global batch (:meth:`TrainLoop.
 local_rows`, the counterpart of ``host_to_global``; sp and pp ranks
 hold the same rows), reduces each gradient over the loss ranks
@@ -326,7 +329,7 @@ class TrainLoop:
             for s, shape in zip(self._specs, self._full_shapes)]
         if self.distributed:
             params = sharding.shard_params(params, specs, self.mesh)
-            self._check_optimizer()
+            self._place_optimizer()
         else:
             for p in tree_leaves(params):
                 p.requires_grad_(True)
@@ -337,16 +340,17 @@ class TrainLoop:
         self._saver: Optional[threading.Thread] = None
         self._save_error: Optional[BaseException] = None
 
-    def _check_optimizer(self) -> None:
-        from kubeflow_controller_tpu_torch.ops.optim8 import AdamW8bit
-
-        if isinstance(self.tx, AdamW8bit) and any(
-                sharding.is_sharded(s, self.mesh, len(shape))
-                for s, shape in zip(self._specs, self._full_shapes)):
-            raise NotImplementedError(
-                "8-bit AdamW on sharded parameters (fsdp, tp or pp > 1) is not "
-                "yet ported: its per-row scales and size threshold are the "
-                "whole leaf's")
+    def _place_optimizer(self) -> None:
+        """Tell an optimizer with per-row statistics (8-bit AdamW) each
+        leaf's whole size and the group that splits its last axis."""
+        place = getattr(self.tx, "place", None)
+        if place is None:
+            return
+        groups = []
+        for s, shape in zip(self._specs, self._full_shapes):
+            axes = sharding.effective(s, self.mesh, len(shape))
+            groups.append(self.mesh.group(*axes[-1]) if shape and axes[-1] else None)
+        place([int(np.prod(shape)) for shape in self._full_shapes], groups)
 
     def local_rows(self, global_batch: int) -> Optional[np.ndarray]:
         """This rank's rows of a ``global_batch``-row batch
@@ -425,8 +429,11 @@ class TrainLoop:
             grads, loss, metrics, model_state = self._accumulate(views, batch)
         del views, own
         if self.distributed:
-            grads = [g if mine else sharding.reduce_grad(g, s, self.mesh)
-                     for g, s, mine in zip(grads, self._specs, self._in_model)]
+            # A leaf at a time, each replacing its unreduced gradient:
+            # the step holds both forms of one leaf's gradient at most.
+            for i, (s, mine) in enumerate(zip(self._specs, self._in_model)):
+                if not mine:
+                    grads[i] = sharding.reduce_grad(grads[i], s, self.mesh)
             metrics = self._loss_mean({"loss": loss, **metrics})
             loss = metrics.pop("loss")
         self.tx.update(self.state.params, tree_unflatten(self.state.params, grads))
@@ -574,29 +581,39 @@ class TrainLoop:
         params = tree_unflatten(self.state.params, [
             sharding.gather_full(p.detach(), s, self.mesh)
             for p, s in zip(leaves, self._specs)])
-        if "opt" in opt:          # a torch.optim state (AdamW, SGD)
-            inner = opt["opt"]
-            specs = sharding.opt_state_specs(
-                inner["state"], [p.shape for p in leaves], self._specs)
-            inner = dict(inner, state={
-                i: {k: sharding.gather_full(v, specs[i][k], self.mesh)
-                    if isinstance(v, torch.Tensor) else v for k, v in st.items()}
-                for i, st in inner["state"].items()})
-            opt = dict(opt, opt=inner)
-        return params, opt
+        return params, self._map_opt_state(
+            opt, [p.shape for p in leaves],
+            lambda v, spec: sharding.gather_full(v, spec, self.mesh))
 
     def _shard_opt_state(self, opt):
         """A whole optimizer state (from a checkpoint) -> this rank's."""
-        if not self.distributed or "opt" not in opt:
+        if not self.distributed:
             return opt
-        inner = opt["opt"]
-        specs = sharding.opt_state_specs(inner["state"], self._full_shapes, self._specs)
-        inner = dict(inner, state={
-            i: {k: sharding.local_shard(v, specs[i][k], self.mesh)
-                if isinstance(v, torch.Tensor) and v.ndim > 0 else v
-                for k, v in st.items()}
-            for i, st in inner["state"].items()})
-        return dict(opt, opt=inner)
+        return self._map_opt_state(
+            opt, self._full_shapes,
+            lambda v, spec: sharding.local_shard(v, spec, self.mesh))
+
+    def _map_opt_state(self, opt, shapes, fn):
+        """``opt`` (a ``state_dict``) with ``fn(tensor, spec)`` applied to
+        each of its per-parameter tensors, the spec by
+        ``sharding.moment_spec`` from the parameters' ``shapes`` (chunks'
+        or whole): a ``torch.optim`` state (AdamW, SGD) under ``"opt"``,
+        or 8-bit AdamW's per-leaf ``"m"`` and ``"v"`` (codes and
+        statistics)."""
+        if "opt" in opt:
+            inner = opt["opt"]
+            specs = sharding.opt_state_specs(inner["state"], shapes, self._specs)
+            inner = dict(inner, state={
+                i: {k: fn(v, specs[i][k]) if isinstance(v, torch.Tensor) and v.ndim > 0
+                    else v for k, v in st.items()}
+                for i, st in inner["state"].items()})
+            return dict(opt, opt=inner)
+        if "m" in opt and "v" in opt:
+            return dict(opt, **{key: [
+                {k: fn(v, sharding.moment_spec(v.shape, shape, s)) for k, v in leaf.items()}
+                for leaf, shape, s in zip(opt[key], shapes, self._specs)]
+                for key in ("m", "v")})
+        return opt
 
     def wait_for_save(self) -> None:
         """Wait for the background save in flight, if any; raise its

@@ -20,7 +20,19 @@ outputs (``dots_with_no_batch_dims_saveable``) and so recomputes less.
 
 Over a mesh (``dataplane/train.py``), :func:`param_specs` places the
 parameters as the JAX package's do and the loss divides by the scored
-positions of the global batch; tensor parallelism is not ported.
+positions of the global batch. Under ``tp`` (the JAX package's
+``param_specs`` and its q/k/v constraint to ``P(batch, None, "tp",
+None)``, written out as Megatron's layers, ``ops/quant.py:Projections``):
+q/k/v and ``w_up`` are column-parallel with their biases over tp, ``wo``
+and ``w_down`` row-parallel with their biases added once after the sum
+over tp. Two places where GSPMD partitions what the port writes by hand:
+the embedding is split by vocabulary (``P("tp", "fsdp")``), so the
+lookup masks the ids outside this rank's rows and sums over tp, and the
+tied MLM logits are this rank's vocab shard, scored by the decoder's
+vocab-parallel log-softmax (``transformer.vocab_parallel_nll_and_argmax``);
+``mlm_dense`` is column-parallel, and its output is gathered over tp
+(``collectives.tp_concat``) for ``mlm_norm``, which needs the whole
+width.
 """
 
 from __future__ import annotations
@@ -35,11 +47,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
-from kubeflow_controller_tpu_torch.models.transformer import _LogitsF32
+from kubeflow_controller_tpu_torch.models.transformer import (
+    _LogitsF32, vocab_parallel_nll_and_argmax,
+)
 from kubeflow_controller_tpu_torch.ops.attention import mha
-from kubeflow_controller_tpu_torch.ops.quant import maybe_quant_dot
+from kubeflow_controller_tpu_torch.ops.quant import Projections
 from kubeflow_controller_tpu_torch.parallel.collectives import (
-    masked_denominator, tp_size,
+    masked_denominator, tp_concat, tp_copy, tp_index, tp_size, tp_sum,
 )
 from kubeflow_controller_tpu_torch.parallel.sharding import P, layers, view
 
@@ -143,9 +157,9 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 def param_specs(cfg: BertConfig) -> Params:
     """The placement of every parameter (``parallel/sharding.py``), as
-    the JAX package's ``param_specs``. The port trains BERT over the
-    data axes (dp, fsdp) only: a mesh with ``tp > 1`` is refused by
-    :func:`mlm_loss`."""
+    the JAX package's ``param_specs``: over tp the embedding by
+    vocabulary, the column-parallel projections and their biases by
+    output column, the row-parallel ones by input row."""
     return {
         "embed": P("tp", "fsdp"),
         "pos_embed": P(None, "fsdp"),
@@ -178,19 +192,20 @@ def _layer(cfg: BertConfig, lp: Params, x: torch.Tensor,
     b, s, _ = x.shape
     dt, hd = cfg.dtype, cfg.head_dim
     lp = view(lp)             # over fsdp, this layer's weights gathered here
-
-    def dot(a, w):
-        return maybe_quant_dot(a, w.to(dt), cfg.quant)
-
-    q = (dot(x, lp["wq"]) + lp["bq"].to(dt)).reshape(b, s, cfg.n_heads, hd)
-    k = (dot(x, lp["wk"]) + lp["bk"].to(dt)).reshape(b, s, cfg.n_heads, hd)
-    v = (dot(x, lp["wv"]) + lp["bv"].to(dt)).reshape(b, s, cfg.n_heads, hd)
+    # Under tp: this rank's heads (q/k/v and their biases column-parallel)
+    # and d_ff columns; wo and w_down row-parallel, their biases added
+    # once after the sum.
+    proj = Projections(cfg.quant, dt)
+    xin = proj.enter(x)
+    q = (proj.column(xin, lp["wq"]) + lp["bq"].to(dt)).reshape(b, s, -1, hd)
+    k = (proj.column(xin, lp["wk"]) + lp["bk"].to(dt)).reshape(b, s, -1, hd)
+    v = (proj.column(xin, lp["wv"]) + lp["bv"].to(dt)).reshape(b, s, -1, hd)
     attn = mha(q, k, v, causal=False, segment_ids=segs,
-               impl=cfg.attn_impl).reshape(b, s, cfg.d_model)
-    x = layernorm(x + dot(attn, lp["wo"]) + lp["bo"].to(dt),
+               impl=cfg.attn_impl).reshape(b, s, -1)
+    x = layernorm(x + proj.row(attn, lp["wo"]) + lp["bo"].to(dt),
                   lp["attn_norm"], cfg.norm_eps)
-    h = _gelu(dot(x, lp["w_up"]) + lp["b_up"].to(dt))
-    h = dot(h, lp["w_down"]) + lp["b_down"].to(dt)
+    h = _gelu(proj.column(proj.enter(x), lp["w_up"]) + lp["b_up"].to(dt))
+    h = proj.row(h, lp["w_down"]) + lp["b_down"].to(dt)
     return layernorm(x + h, lp["mlp_norm"], cfg.norm_eps)
 
 
@@ -214,8 +229,7 @@ def encode(cfg: BertConfig, params: Params, tokens: torch.Tensor,
             f"attn_impl={cfg.attn_impl!r} is not yet ported (auto|xla|flash)")
     b, s = tokens.shape
     dt = cfg.dtype
-    embed = view(params["embed"])
-    x = embed.to(dt)[tokens] + view(params["pos_embed"]).to(dt)[None, :s]
+    x = _lookup(view(params["embed"]).to(dt), tokens) + view(params["pos_embed"]).to(dt)[None, :s]
     x = layernorm(x, view(params["embed_norm"]), cfg.norm_eps)
     segs = (attention_mask.to(torch.int32)
             if attention_mask is not None else None)
@@ -227,17 +241,32 @@ def encode(cfg: BertConfig, params: Params, tokens: torch.Tensor,
     return x
 
 
+def _lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; under tp ``table`` is this rank's block of
+    vocabulary rows (``P("tp", ...)``): the ids outside it read zeros
+    and the ranks' rows are summed over tp (one is not zero)."""
+    if tp_size() == 1:
+        return table[tokens]
+    v_loc = table.shape[0]
+    t = tokens.long() - tp_index() * v_loc
+    here = (t >= 0) & (t < v_loc)
+    return tp_sum(table[t.clamp(0, v_loc - 1)] * here[..., None].to(table.dtype))
+
+
 def mlm_logits(cfg: BertConfig, params: Params,
                hidden: torch.Tensor) -> torch.Tensor:
     """The MLM head: dense, GELU, LayerNorm, then the tied ``embed``
     product accumulated straight into fp32 logits, plus the fp32 output
-    bias."""
+    bias. Under tp the dense product is column-parallel and gathered
+    over tp before the norm, and the logits are this rank's vocab shard
+    ``[B, S, V/tp]``."""
     dt = cfg.dtype
-    h = _gelu(hidden @ view(params["mlm_dense"]).to(dt) + view(params["mlm_bias"]).to(dt))
+    h = tp_copy(hidden) @ view(params["mlm_dense"]).to(dt)
+    h = tp_concat(_gelu(h + view(params["mlm_bias"]).to(dt)))
     h = layernorm(h, view(params["mlm_norm"]), cfg.norm_eps)
     b, s, d = h.shape
     head = view(params["embed"]).to(dt).T
-    h2 = h.reshape(b * s, d)
+    h2 = tp_copy(h.reshape(b * s, d))
     logits = h2 @ head if h2.dtype == torch.float32 else _LogitsF32.apply(h2, head)
     return logits.reshape(b, s, -1) + view(params["mlm_out_bias"]).float()
 
@@ -246,21 +275,26 @@ def mlm_loss(cfg: BertConfig, params: Params, batch: Dict[str, torch.Tensor]
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: ``tokens`` (with the [MASK]s applied), ``targets``,
     ``mlm_mask`` (1 where a prediction is scored), ``attention_mask``.
-    Returns ``(loss, {"mlm_accuracy"})`` over the scored positions."""
-    if tp_size() > 1:
-        raise NotImplementedError(
-            "BERT over a tp > 1 mesh is not yet ported (dp and fsdp are)")
+    Returns ``(loss, {"mlm_accuracy"})`` over the scored positions
+    (under tp, the vocab-parallel log-softmax and argmax of the logits'
+    shards)."""
     hidden = encode(cfg, params, batch["tokens"], batch.get("attention_mask"))
     logits = mlm_logits(cfg, params, hidden)
     targets = batch["targets"].long()
-    logp = torch.log_softmax(logits, -1)
-    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    if tp_size() > 1:
+        b, s, v = logits.shape
+        nll, am = vocab_parallel_nll_and_argmax(logits.reshape(b * s, v), targets)
+        nll, am = nll.reshape(b, s), am.reshape(b, s)
+    else:
+        logp = torch.log_softmax(logits, -1)
+        nll = -logp.gather(-1, targets[..., None])[..., 0]
+        am = logits.argmax(-1)
     w = batch["mlm_mask"].float()
     # Over the data ranks of a mesh, the mean of the ranks' losses is the
     # global batch's: each divides by the mean count.
     denom = masked_denominator(w.sum())
     loss = (nll * w).sum() / denom
-    acc = ((logits.argmax(-1) == targets) * w).sum() / denom
+    acc = ((am == targets) * w).sum() / denom
     return loss, {"mlm_accuracy": acc}
 
 

@@ -15,15 +15,22 @@ only the dense FFN's d_ff-wide intermediates are recomputed), and its
 linear projections through ``ops/quant.py:maybe_quant_dot`` (bf16, or
 int8 under ``quant``). With ``moe_experts > 0`` every layer's FFN is a
 routed expert bank (:func:`_moe_ffn`: GShard-style grouped capacity
-dispatch, one device, so no expert parallelism).
+dispatch).
 
 Over a mesh (``dataplane/train.py``, ``parallel/``), :func:`param_specs`
 places the parameters as the JAX package's ``param_specs`` does, and a
-layer runs Megatron-style under ``tp``: q/k/v and gate/up are
-column-parallel (each rank holds ``n_heads/tp`` query heads and
-``n_kv_heads/tp`` KV heads, its local head count read from the weights'
-shapes), wo and w_down row-parallel with one all-reduce after each, and
-the head vocab-parallel (:func:`_vocab_parallel_nll_and_argmax`). Masked
+layer runs Megatron-style under ``tp`` (``ops/quant.py:Projections``):
+q/k/v and gate/up are column-parallel (each rank holds ``n_heads/tp``
+query heads and ``n_kv_heads/tp`` KV heads, its local head count read
+from the weights' shapes), wo and w_down row-parallel with one
+all-reduce after each, and the head vocab-parallel
+(:func:`vocab_parallel_nll_and_argmax`). Int8 projections take their
+scales over the whole contraction and sum their partials in fp32
+(``ops/quant.py``). A MoE layer keeps its routing replicated over tp and
+runs each expert's SwiGLU column- and row-parallel; under ``ep`` each
+rank holds ``E/ep`` experts, and :func:`_moe_ffn` sends the dispatched
+tokens to them and the outputs back (``collectives.all_to_all``), as
+GSPMD does for the JAX package's ``P("ep", ...)`` constraint. Masked
 means divide by the global batch's count. Under ``sp > 1`` with
 ``shard_seq`` (or ``attn_impl="ring"``) each sp rank holds its slice of
 the sequence (``mesh.seq_slice``): its tokens' embeddings, activations,
@@ -31,11 +38,14 @@ targets and loss. Attention then either gathers q/k/v over sp and runs
 ``mha`` on the whole sequence, keeping this rank's rows (the JAX
 package's constraint of q/k/v to ``P(batch, None, "tp", None)``), or,
 with ``attn_impl="ring"``, rotates q and k outside and runs
-``parallel/ring.py:ring_mha``. :func:`forward_hidden_pp` runs the layer
-stack as a GPipe schedule over pp (``parallel/pipeline.py``), each stage
-holding its block of layers (``param_specs(cfg, pp=True)``). Refused
-under ``tp > 1``: int8 projections and MoE layers; MoE under ``sp >
-1``; ``ep > 1`` anywhere.
+``parallel/ring.py:ring_mha``. A MoE layer gathers its input over sp
+and routes the whole sequence on every sp rank, keeping its slice of
+the output (the JAX package's groups are runs of the global ``[B·S]``
+order, which an sp rank's slice does not hold). :func:`forward_hidden_pp`
+runs the layer stack as a GPipe schedule over pp
+(``parallel/pipeline.py``), each stage holding its block of layers
+(``param_specs(cfg, pp=True)``; dense layers only, as the JAX
+package's).
 """
 
 from __future__ import annotations
@@ -53,12 +63,12 @@ from kubeflow_controller_tpu_torch.convert import tree_leaves
 from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
 from kubeflow_controller_tpu_torch.ops.attention import mha
 from kubeflow_controller_tpu_torch.ops.flash_attention import rope_full_tables
-from kubeflow_controller_tpu_torch.ops.quant import maybe_quant_dot
+from kubeflow_controller_tpu_torch.ops.quant import Projections
 from kubeflow_controller_tpu_torch.parallel.collectives import (
-    masked_denominator, seq_gather, tp_copy, tp_gather, tp_index, tp_max, tp_size,
-    tp_sum,
+    all_to_all, masked_denominator, seq_gather, tp_copy, tp_gather, tp_index, tp_max,
+    tp_size, tp_sum,
 )
-from kubeflow_controller_tpu_torch.parallel.mesh import current_mesh, seq_slice
+from kubeflow_controller_tpu_torch.parallel.mesh import DATA_AXES, current_mesh, seq_slice
 from kubeflow_controller_tpu_torch.parallel.pipeline import gpipe, pp_stage_count
 from kubeflow_controller_tpu_torch.parallel.ring import ring_mha
 from kubeflow_controller_tpu_torch.parallel.sharding import P, layers, view
@@ -331,23 +341,15 @@ def param_specs(cfg: TransformerConfig, pp: bool = False) -> Params:
 
 
 def check_mesh(cfg: TransformerConfig) -> None:
-    """Refuse what the ambient mesh asks that the port does not run."""
+    """Refuse a mesh whose axes do not divide what they shard."""
     mesh = current_mesh()
     if mesh is None:
         return
-    if mesh.shape["ep"] > 1:
-        raise NotImplementedError(f"ep={mesh.shape['ep']} is not yet ported")
-    if mesh.shape["sp"] > 1 and cfg.moe_experts:
-        raise NotImplementedError("MoE layers over sp > 1 are not yet ported")
-    tp = mesh.shape["tp"]
+    ep, tp = mesh.shape["ep"], mesh.shape["tp"]
+    if cfg.moe_experts and cfg.moe_experts % ep:
+        raise ValueError(f"moe_experts={cfg.moe_experts} does not divide over ep={ep}")
     if tp == 1:
         return
-    if cfg.moe_experts:
-        raise NotImplementedError("MoE layers over tp > 1 are not yet ported")
-    if cfg.quant:
-        raise NotImplementedError(
-            f"quant={cfg.quant!r} over tp > 1 is not yet ported (the row "
-            "abs-max spans the whole contraction axis)")
     for name, n in (("n_heads", cfg.n_heads), ("n_kv_heads", cfg.n_kv_heads),
                     ("d_ff", cfg.d_ff), ("vocab_size", cfg.vocab_size)):
         if n % tp:
@@ -399,7 +401,17 @@ def check_ported(cfg: TransformerConfig) -> None:
 
 def moe_group(n: int, group_size: int) -> int:
     """The routing group: the largest divisor of the token count ``n``
-    not above ``group_size`` (one device: no shard alignment)."""
+    not above ``group_size``.
+
+    ``n`` is this rank's token count. The JAX package picks the group
+    from the global count ``N = shards * n`` (``shards``: the data axes
+    dp, fsdp and ep, which split the batch; sp does not, and a MoE layer
+    gathers its input over sp), preferring a group ``g`` with ``(N // g)
+    % shards == 0`` so that no group straddles two shards. For a divisor
+    ``g`` of ``N`` that is ``g | N / shards = n``, so the aligned
+    divisors of ``N`` are exactly the divisors of ``n``, and the largest
+    not above ``group_size`` is the same group on every rank: each
+    rank's groups are the global groups its rows hold."""
     return max(g for g in range(1, min(group_size, n) + 1) if n % g == 0)
 
 
@@ -416,10 +428,10 @@ def _moe_ffn(
     renormalised), its slot the count of earlier tokens of the group
     sent to that expert (``base_count`` carries the kept slots across
     rounds); a pick past ``cap = round(top_k * group / E * cf)`` slots
-    is dropped. The expert products run in ``cfg.dtype``; under
-    ``cfg.quant`` each expert's three are ``maybe_quant_dot`` calls of
-    their own (``[G * cap, D] @ [D, F]``: B7 where ``fusable`` admits the
-    shape under ``"int8_fused"``), empty slots being all-zero rows."""
+    is dropped. The expert products run in ``cfg.dtype`` (:func:`_experts`)
+    on this rank's experts: over ep the dispatched ``[E, G, cap, D]``
+    goes to the ranks that hold each expert and comes back after them
+    (``collectives.all_to_all``); off a mesh that is the identity."""
     b, s, d = h.shape
     E = cfg.moe_experts
     n = b * s
@@ -452,24 +464,40 @@ def _moe_ffn(
     dispatch = (_moe_dispatch_gather if cfg.moe_dispatch == "gather"
                 else _moe_dispatch_einsum)
     xe, out_from = dispatch(cfg, x, picks, G, group, E, cap)   # [E, G, cap, D]
-    dt = cfg.dtype
-    if cfg.quant.startswith("int8"):
-        xe2 = xe.reshape(E, G * cap, d)
-        outs = []
-        for e in range(E):
-            gate_h = F.silu(maybe_quant_dot(xe2[e], lp["w_gate"][e].to(dt), cfg.quant))
-            up_h = maybe_quant_dot(xe2[e], lp["w_up"][e].to(dt), cfg.quant)
-            outs.append(maybe_quant_dot(gate_h * up_h, lp["w_down"][e].to(dt),
-                                        cfg.quant))
-        out_e = torch.stack(outs).reshape(E, G, cap, d)
-    else:
-        gate_h = F.silu(torch.einsum("egcd,edf->egcf", xe, lp["w_gate"].to(dt)))
-        up_h = torch.einsum("egcd,edf->egcf", xe, lp["w_up"].to(dt))
-        out_e = torch.einsum("egcf,efd->egcd", gate_h * up_h, lp["w_down"].to(dt))
+    # Over ep: [E/ep, ep G, cap, D], this rank's experts' slots of the ep
+    # ranks' groups, and their outputs back to [E, G, cap, D].
+    out_e = all_to_all(_experts(cfg, lp, all_to_all(xe)), inverse=True)
     out = out_from(out_e).reshape(b, s, d)
     kept = torch.stack([k.float() for (_, _, _, k) in picks])
     drop_rate = 1.0 - kept.mean()
     return out, torch.stack([aux_fraction, z_loss, drop_rate])
+
+
+def _experts(cfg: TransformerConfig, lp: Params, xe: torch.Tensor) -> torch.Tensor:
+    """Each expert's SwiGLU on its slots, ``xe [E', G', cap, D]`` (this
+    rank's ``E' = E / ep`` experts) -> ``[E', G', cap, D]``; over tp
+    column-parallel (gate/up over F) and row-parallel (down), the routing
+    replicated around it. The slots' token axis spans the ep ranks after
+    the all-to-all and the dp and fsdp ranks beside them: under
+    ``cfg.quant`` each expert's three products are ``maybe_quant_dot``
+    calls of their own (``[G' * cap, D] @ [D, F]``: B7 where ``fusable``
+    admits the logical shape under ``"int8_fused"``), their scales over
+    those axes; empty slots are all-zero rows."""
+    dt = cfg.dtype
+    proj = Projections(cfg.quant, dt, rows=("dp", "fsdp"))
+    if proj.int8:
+        e_loc, g, cap, d = xe.shape
+        xe2 = xe.reshape(e_loc, g * cap, d)
+        outs = []
+        for e in range(e_loc):
+            gate_h = F.silu(proj.column(xe2[e], lp["w_gate"][e]))
+            up_h = proj.column(xe2[e], lp["w_up"][e])
+            outs.append(proj.row(gate_h * up_h, lp["w_down"][e]))
+        return torch.stack(outs).reshape(e_loc, g, cap, d)
+    xe = proj.enter(xe)
+    gate_h = F.silu(torch.einsum("egcd,edf->egcf", xe, lp["w_gate"].to(dt)))
+    up_h = torch.einsum("egcd,edf->egcf", xe, lp["w_up"].to(dt))
+    return tp_sum(torch.einsum("egcf,efd->egcd", gate_h * up_h, lp["w_down"].to(dt)))
 
 
 def _moe_dispatch_einsum(cfg, x, picks, G, group, E, cap):
@@ -541,14 +569,13 @@ class _FfnRecompute:
     quantized copies, as the JAX package's ``save_anything_except_these_
     names`` policy does."""
 
-    def __init__(self, cfg, h, wg, wu):
-        self.cfg, self.h, self.wg, self.wu = cfg, h, wg, wu
+    def __init__(self, proj, h, wg, wu):
+        self.proj, self.h, self.wg, self.wu = proj, h, wg, wu
         self.prod_ptr = self.prod_numel = None    # set once the product exists
         self.graph = None
 
     def gate_up(self, h, wg, wu):
-        q = self.cfg.quant
-        return F.silu(maybe_quant_dot(h, wg, q)) * maybe_quant_dot(h, wu, q)
+        return F.silu(self.proj.column(h, wg)) * self.proj.column(h, wu)
 
     def recompute(self):
         """The product again, once, with its graph back to the inputs."""
@@ -589,15 +616,16 @@ class _FfnProd(torch.autograd.Function):
         return (*(next(got) if t.requires_grad else None for t in ins), None)
 
 
-def _ffn_remat(cfg: TransformerConfig, h, wg, wu, wd):
-    """The dense FFN with only its input and weights saved: the down
-    product's saved operand is a placeholder the backward fills by
-    recomputing the gate and up products."""
-    rec = _FfnRecompute(cfg, h, wg, wu)
+def _ffn_remat(proj: Projections, h, wg, wu, wd):
+    """The dense FFN (``proj``'s column-parallel gate and up, row-parallel
+    down) with only its input and weights saved: the down product's
+    saved operand is a placeholder the backward fills by recomputing the
+    gate and up products."""
+    rec = _FfnRecompute(proj, h, wg, wu)
     prod = _FfnProd.apply(h, wg, wu, rec)
     rec.prod_ptr, rec.prod_numel = prod.data_ptr(), prod.numel()
     with torch.autograd.graph.saved_tensors_hooks(rec.pack, rec.unpack):
-        return maybe_quant_dot(prod, wd, cfg.quant)
+        return proj.row(prod, wd)
 
 
 class _Attention(NamedTuple):
@@ -662,37 +690,38 @@ def _layer(
     """One pre-norm decoder layer: attention (:func:`_attend`: q/k
     rotated by the step's rope tables inside ``mha``) and the SwiGLU FFN
     (or the routed expert bank), projections in ``cfg.dtype`` through
-    ``maybe_quant_dot`` (int8 under ``cfg.quant``). Returns the layer's
-    output and its MoE ``[aux, z_loss, drop_rate]`` (zeros for a dense
-    layer)."""
+    ``ops/quant.py:Projections`` (int8 under ``cfg.quant``, the tokens'
+    scales over the data axes, and sp where the sequence is split).
+    Returns the layer's output and its MoE ``[aux, z_loss, drop_rate]``
+    (zeros for a dense layer)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
-    dt = cfg.dtype
     lp = view(lp)             # over fsdp, this layer's weights gathered here
-
-    def dot(a, w):
-        return maybe_quant_dot(a, w.to(dt), cfg.quant)
-
     # Under tp the weights are this rank's column (q/k/v, gate/up) or
-    # row (wo, w_down) shards: the head counts come from their shapes,
-    # tp_copy/tp_sum are Megatron's f and g (identities off a mesh).
-    h = tp_copy(rmsnorm(x, lp["attn_norm"], cfg.norm_eps))
-    q = dot(h, lp["wq"]).reshape(b, s, -1, hd)
-    k = dot(h, lp["wk"]).reshape(b, s, -1, hd)
-    v = dot(h, lp["wv"]).reshape(b, s, -1, hd)
+    # row (wo, w_down) shards: the head counts come from their shapes.
+    proj = Projections(cfg.quant, cfg.dtype,
+                       DATA_AXES if att.rows is None else DATA_AXES + ("sp",))
+    h = proj.enter(rmsnorm(x, lp["attn_norm"], cfg.norm_eps))
+    q = proj.column(h, lp["wq"]).reshape(b, s, -1, hd)
+    k = proj.column(h, lp["wk"]).reshape(b, s, -1, hd)
+    v = proj.column(h, lp["wv"]).reshape(b, s, -1, hd)
     attn = _attend(cfg, q, k, v, att)
-    x = x + tp_sum(dot(attn.reshape(b, s, -1), lp["wo"]))
+    x = x + proj.row(attn.reshape(b, s, -1), lp["wo"])
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
     if cfg.moe_experts:
-        down, aux = _moe_ffn(cfg, lp, h)
-        return x + down, aux
+        # The routing groups are runs of whole rows: under a split
+        # sequence, route the sequence gathered over sp and keep this
+        # rank's slice (the gather's backward reduce-scatters: each rank's
+        # loss reads its slice, and the routing mixes a group's tokens).
+        split = att.rows is not None
+        down, aux = _moe_ffn(cfg, lp, seq_gather(h) if split else h)
+        return x + (down[:, att.rows] if split else down), aux
     aux = torch.zeros(3, dtype=torch.float32, device=x.device)
-    h = tp_copy(h)
+    h = proj.enter(h)
     if cfg.remat == "ffn":
-        return x + tp_sum(_ffn_remat(cfg, h, lp["w_gate"].to(dt), lp["w_up"].to(dt),
-                                     lp["w_down"].to(dt))), aux
-    prod = F.silu(dot(h, lp["w_gate"])) * dot(h, lp["w_up"])
-    return x + tp_sum(dot(prod, lp["w_down"])), aux
+        return x + _ffn_remat(proj, h, lp["w_gate"], lp["w_up"], lp["w_down"]), aux
+    prod = F.silu(proj.column(h, lp["w_gate"])) * proj.column(h, lp["w_up"])
+    return x + proj.row(prod, lp["w_down"]), aux
 
 
 def _embed(cfg: TransformerConfig, params: Params,
@@ -858,17 +887,14 @@ class _LogitsF32(torch.autograd.Function):
         return g @ w.T, h.T @ g
 
 
-def _vocab_parallel_nll_and_argmax(hidden: torch.Tensor, head: torch.Tensor,
-                                   targets: torch.Tensor):
-    """:func:`_nll_and_argmax` with ``head`` this rank's ``[D, V/tp]``
-    vocab shard: the log-sum-exp from the tp max and the tp sum of the
-    shards' exponentials, the target logit from the shard that holds it
-    (a one-hot reduce summed over tp, as the JAX package's
-    ``_select_target_logp`` under tp), and the argmax as the first
-    global maximum."""
-    b, s, d = hidden.shape
-    h2 = tp_copy(hidden.reshape(b * s, d))
-    logits = h2 @ head if h2.dtype == torch.float32 else _LogitsF32.apply(h2, head)
+def vocab_parallel_nll_and_argmax(logits: torch.Tensor, targets: torch.Tensor):
+    """Per-row NLL and argmax of fp32 ``logits [N, V/tp]``, this rank's
+    vocab shard (the rows the same on every tp rank): the log-sum-exp
+    from the tp max and the tp sum of the shards' exponentials, the
+    target logit from the shard that holds it (a one-hot reduce summed
+    over tp, as the JAX package's ``_select_target_logp`` under tp), and
+    the argmax as the first global maximum. ``targets``: ``[N]`` global
+    vocab ids. Off a tp mesh: the plain log-softmax's."""
     v_loc = logits.shape[-1]
     off = tp_index() * v_loc
     m = tp_max(logits.max(-1).values)
@@ -880,6 +906,17 @@ def _vocab_parallel_nll_and_argmax(hidden: torch.Tensor, head: torch.Tensor,
     local_am = logits.argmax(-1)
     best = tp_gather(logits.gather(-1, local_am[:, None])[:, 0]).argmax(0)
     am = tp_gather(local_am + off).gather(0, best[None])[0]
+    return nll, am
+
+
+def _vocab_parallel_nll_and_argmax(hidden: torch.Tensor, head: torch.Tensor,
+                                   targets: torch.Tensor):
+    """:func:`_nll_and_argmax` with ``head`` this rank's ``[D, V/tp]``
+    vocab shard (:func:`vocab_parallel_nll_and_argmax` on its logits)."""
+    b, s, d = hidden.shape
+    h2 = tp_copy(hidden.reshape(b * s, d))
+    logits = h2 @ head if h2.dtype == torch.float32 else _LogitsF32.apply(h2, head)
+    nll, am = vocab_parallel_nll_and_argmax(logits, targets)
     return nll.reshape(b, s), am.reshape(b, s)
 
 

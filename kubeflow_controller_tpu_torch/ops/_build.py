@@ -117,6 +117,8 @@ def load() -> ctypes.CDLL:
         "kfc_flash_bwd_fused": [P] * 12 + [I] * 5 + [F, I, P],
         "kfc_int8_quantize_rows": [P] * 3 + [I] * 2 + [P],
         "kfc_int8_matmul": [P] * 5 + [I] * 3 + [P],
+        "kfc_int8_quantize_rows_scaled": [P] * 3 + [I] * 2 + [P],
+        "kfc_int8_matmul_f32": [P] * 5 + [I] * 3 + [P],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -13,6 +13,16 @@ returns the learning rate it used. Per leaf:
 - leaves of fewer than ``min_quantized_size`` elements keep fp32
   moments.
 
+Over a mesh each rank updates its chunk of every leaf, and the per-row
+statistics are the whole leaf's, as the JAX package's are under GSPMD:
+:meth:`AdamW8bit.place` gives each leaf its whole size (which the
+threshold is judged on) and the group that splits its last axis (a leaf
+placed ``P(..., "tp")``, or ``w_down``'s ``P(lead, "tp", "fsdp")``), over
+which the row statistics are all-reduced: m's abs-max with MAX, log v's
+maximum with MAX and its minimum with MIN (one all-reduce a leaf). The
+codes follow the parameter's chunk, the statistics its rows
+(``parallel/sharding.py:moment_spec``).
+
 The learning rate is read at the update count before it is incremented
 (a zero-warmup schedule's first step has lr 0) and the bias corrections
 use the incremented count; the update is ``-lr * (mhat / (sqrt(vhat) +
@@ -38,10 +48,11 @@ from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass
-from typing import Callable, List, Union
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kubeflow_controller_tpu_torch.convert import tree_leaves
 from kubeflow_controller_tpu_torch.ops.quant import INV_127
@@ -67,9 +78,11 @@ def _fma(a, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (a * x.double() + y.double()).float()
 
 
-def _quantize_m(m: torch.Tensor):
-    """Signed per-row int8: ``m -> (q int8, scale fp32 [..., 1])``."""
-    scale = (m.abs().amax(-1, keepdim=True) * INV_127).clamp_min(_V_FLOOR)
+def _quantize_m(m: torch.Tensor, amax: Optional[torch.Tensor] = None):
+    """Signed per-row int8: ``m -> (q int8, scale fp32 [..., 1])``; the
+    rows' abs-max is ``amax`` where given (the whole leaf's)."""
+    amax = m.abs().amax(-1, keepdim=True) if amax is None else amax
+    scale = (amax * INV_127).clamp_min(_V_FLOOR)
     q = torch.round(m / scale).clamp_(-127, 127).to(torch.int8)
     return q, scale
 
@@ -78,13 +91,31 @@ def _dequantize_m(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def _quantize_v(v: torch.Tensor):
-    """Non-negative per-row log-space uint8: ``v -> (q, lo, rng)``."""
-    lv = torch.log(v.clamp_min(_V_FLOOR))
-    lo = lv.amin(-1, keepdim=True)
-    rng = (lv.amax(-1, keepdim=True) - lo).clamp_min(1e-6)
+def _log_v(v: torch.Tensor) -> torch.Tensor:
+    return torch.log(v.clamp_min(_V_FLOOR))
+
+
+def _quantize_v(v: torch.Tensor, lv_range=None):
+    """Non-negative per-row log-space uint8: ``v -> (q, lo, rng)``; the
+    rows' ``(min, max)`` of ``log v`` are ``lv_range`` where given (the
+    whole leaf's)."""
+    lv = _log_v(v)
+    lo, hi = ((lv.amin(-1, keepdim=True), lv.amax(-1, keepdim=True))
+              if lv_range is None else lv_range)
+    rng = (hi - lo).clamp_min(1e-6)
     q = torch.round((lv - lo) / rng * 255.0).clamp_(0, 255).to(torch.uint8)
     return q, lo, rng
+
+
+def _whole_row_stats(m: torch.Tensor, v: torch.Tensor, group):
+    """The rows' statistics of the whole leaf whose last axis ``group``
+    splits: m's abs-max and ``log v``'s ``(min, max)``, reduced over the
+    group in one MAX all-reduce (the minimum negated)."""
+    lv = _log_v(v)
+    st = torch.cat([m.abs().amax(-1, keepdim=True), lv.amax(-1, keepdim=True),
+                    -lv.amin(-1, keepdim=True)], -1)
+    dist.all_reduce(st, op=dist.ReduceOp.MAX, group=group)
+    return st[..., :1], (-st[..., 2:], st[..., 1:2])
 
 
 def _dequantize_v(q: torch.Tensor, lo: torch.Tensor, rng: torch.Tensor) -> torch.Tensor:
@@ -124,14 +155,25 @@ class AdamW8bit:
         self.count = 0
         self.m: List[Union[QLeafM, torch.Tensor]] = []
         self.v: List[Union[QLeafV, torch.Tensor]] = []
+        self._sizes: Optional[List[int]] = None
+        self._groups: List[object] = []
+
+    def place(self, sizes: Sequence[int], groups: Sequence[object]) -> None:
+        """Over a mesh, before :meth:`init` on the chunks: each leaf's
+        whole element count (the threshold's size) and the process group
+        that splits its last axis (``None`` where this rank holds it
+        whole), over which its row statistics are reduced."""
+        self._sizes, self._groups = list(sizes), list(groups)
 
     @torch.no_grad()
     def init(self, params) -> None:
         self.count = 0
         self.m, self.v = [], []
-        for p in tree_leaves(params):
+        leaves = tree_leaves(params)
+        sizes = self._sizes or [p.numel() for p in leaves]
+        for p, size in zip(leaves, sizes):
             zeros = torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-            if p.numel() >= self.min_quantized_size:
+            if size >= self.min_quantized_size:
                 self.m.append(QLeafM(*_quantize_m(zeros)))
                 self.v.append(QLeafV(*_quantize_v(zeros)))
             else:
@@ -162,12 +204,9 @@ class AdamW8bit:
                     t.copy_(saved[name])
 
     @staticmethod
-    def _store(state, new: torch.Tensor, quantize) -> None:
-        if isinstance(state, torch.Tensor):
-            state.copy_(new)
-            return
-        for old, fresh in zip(vars(state).values(), quantize(new)):
-            old.copy_(fresh)
+    def _store(state, fresh) -> None:
+        for old, new in zip(vars(state).values(), fresh):
+            old.copy_(new)
 
     @torch.no_grad()
     def update(self, params, grads) -> float:
@@ -178,8 +217,9 @@ class AdamW8bit:
         b1, b2 = _f32(self.b1), _f32(self.b2)
         c1 = 1 - float(np.float32(b1) ** np.float32(self.count))
         c2 = 1 - float(np.float32(b2) ** np.float32(self.count))
-        for p, g, ms, vs in zip(tree_leaves(params), tree_leaves(grads),
-                                self.m, self.v):
+        groups = self._groups or itertools.repeat(None)
+        for p, g, ms, vs, group in zip(tree_leaves(params), tree_leaves(grads),
+                                       self.m, self.v, groups):
             g32 = g.float()
             m = ms if isinstance(ms, torch.Tensor) else _dequantize_m(ms.q, ms.scale)
             v = (vs if isinstance(vs, torch.Tensor)
@@ -190,6 +230,12 @@ class AdamW8bit:
             u = -lr * (mhat / (torch.sqrt(vhat) + self.eps)
                        + self.wd * p.float())
             p.add_(u.to(p.dtype))
-            self._store(ms, m, _quantize_m)
-            self._store(vs, v, _quantize_v)
+            if isinstance(ms, torch.Tensor):
+                ms.copy_(m)
+                vs.copy_(v)
+                continue
+            amax, lv_range = (_whole_row_stats(m, v, group) if group is not None
+                              else (None, None))
+            self._store(ms, _quantize_m(m, amax))
+            self._store(vs, _quantize_v(v, lv_range))
         return lr

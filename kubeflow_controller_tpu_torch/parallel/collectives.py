@@ -26,12 +26,22 @@ on the axes it reduces over, or when there is no ambient mesh:
   the next stage); its backward is the reverse shift;
 * :func:`seq_gather` all-gathers the sequence over sp; its backward
   reduce-scatters, since each rank holds only its slice of the output's
-  gradient.
+  gradient;
+* :func:`tp_concat` joins the tp ranks' shards of a column-parallel
+  output (Megatron's gather: backward keeps this rank's slice of a
+  gradient that is whole on every tp rank);
+* :func:`all_to_all` sends each ep rank's dispatched tokens to the ep
+  ranks that hold their experts and, with ``inverse``, the experts'
+  outputs back (the exchange GSPMD derives from the JAX package's
+  ``P("ep", ...)`` constraint); the backward is the other direction;
+* :func:`axes_group` names the group over some mesh axes, for the int8
+  scales of a contraction those axes split (``ops/quant.py``).
 
-Point-to-point transfers go through ``dist.batch_isend_irecv``. Gloo
-sends and receives host memory only, so on gloo a CUDA tensor is staged
-through pinned host buffers (:func:`p2p_transport` names the route);
-the compute stays on the card.
+Point-to-point transfers go through ``dist.batch_isend_irecv`` and the
+all-to-all through ``dist.all_to_all_single``. Gloo sends and receives
+host memory only, so on gloo a CUDA tensor is staged through pinned
+host buffers for both (:func:`p2p_transport` names the route); the
+compute stays on the card.
 """
 
 from __future__ import annotations
@@ -89,6 +99,12 @@ class _DataSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _all_reduce(g, ctx.group), None
+
+
+def axes_group(*axes: str) -> Tuple[Optional[object], int]:
+    """The ambient mesh's group over ``axes`` and its size: ``(None, 1)``
+    off a mesh or where those axes hold one rank."""
+    return _group(*axes)
 
 
 def tp_size() -> int:
@@ -162,9 +178,9 @@ def _staged(x: torch.Tensor, group) -> bool:
 
 
 def p2p_transport(x: torch.Tensor, group) -> str:
-    """How :func:`ring_shift` moves ``x`` over ``group``: the backend's
-    own send and receive, or through pinned host memory
-    (:func:`_staged`)."""
+    """How :func:`ring_shift` and :func:`all_to_all` move ``x`` over
+    ``group``: the backend's own send and receive or all-to-all, or
+    through pinned host memory (:func:`_staged`)."""
     backend = str(dist.get_backend(group))
     return f"{backend} via pinned host memory" if _staged(x, group) else backend
 
@@ -247,3 +263,74 @@ def seq_gather(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
     each rank keeping its slice's sum over the ranks."""
     group, n = _group("sp")
     return x if n == 1 else _SeqGather.apply(x, dim, group, n)
+
+
+class _TpConcat(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, i):
+        ctx.n, ctx.i = n, i
+        return gather_dim(x, x.ndim - 1, group, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.n, -1)[ctx.i].contiguous(), None, None, None
+
+
+def tp_concat(x: torch.Tensor) -> torch.Tensor:
+    """The tp ranks' shards of ``x``'s last dimension joined in rank
+    order; the backward keeps this rank's slice of the gradient (whole
+    and the same on every tp rank, as what follows runs replicated)."""
+    group, n = _group("tp")
+    return x if n == 1 else _TpConcat.apply(x, group, n, tp_index())
+
+
+def _all_to_all_single(x: torch.Tensor, group) -> torch.Tensor:
+    """``dist.all_to_all_single``: ``x``'s dim 0 cut into the group's n
+    equal chunks, chunk j sent to group rank j; the chunks received, in
+    rank order along dim 0. Staged through pinned host memory where
+    :func:`_staged` says so."""
+    staged = _staged(x, group)
+    buf = x.detach().contiguous()
+    if staged:
+        host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+        buf = host.copy_(buf)
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=group)
+    return out.to(x.device) if staged else out
+
+
+def _exchange(x: torch.Tensor, group, n: int, inverse: bool) -> torch.Tensor:
+    """Forward: ``[E, G, cap, D]`` (every expert's slots of this rank's
+    groups) -> ``[E/n, n G, cap, D]`` (this rank's experts' slots of the
+    n ranks' groups, rank by rank). Inverse: back."""
+    if not inverse:
+        e, g = x.shape[:2]
+        out = _all_to_all_single(x, group)                    # [n E/n, G, ...]
+        out = out.reshape(n, e // n, g, *x.shape[2:]).transpose(0, 1)
+        return out.reshape(e // n, n * g, *x.shape[2:])
+    e_loc, ng = x.shape[:2]
+    y = x.reshape(e_loc, n, ng // n, *x.shape[2:]).transpose(0, 1)
+    return _all_to_all_single(y.reshape(n * e_loc, ng // n, *x.shape[2:]), group)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, inverse):
+        ctx.group, ctx.n, ctx.inverse = group, n, inverse
+        return _exchange(x, group, n, inverse)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _exchange(g, ctx.group, ctx.n, not ctx.inverse), None, None, None
+
+
+def all_to_all(x: torch.Tensor, axis: str = "ep", inverse: bool = False) -> torch.Tensor:
+    """The expert exchange over mesh axis ``axis`` (n ranks). Forward:
+    ``x [E, G, cap, D]``, this rank's groups dispatched to every expert,
+    becomes ``[E/n, n G, cap, D]``: the slots of the n ranks' groups
+    (rank order) for this rank's ``E/n`` experts, the layout of the JAX
+    package's ``P("ep", ("dp", "fsdp"))``. ``inverse``: the experts'
+    outputs back to the ranks whose groups they are. The backward of each
+    direction is the other. The identity on an axis of one rank."""
+    group, n = _group(axis)
+    return x if n == 1 else _AllToAll.apply(x, group, n, inverse)

@@ -44,25 +44,31 @@ DATA_AXES = ("dp", "fsdp", "ep")
 LOSS_AXES = ("pp", "dp", "fsdp", "ep", "sp")
 
 
-def grad_sum_axes(scattered: bool = False, stage: bool = False) -> Tuple[str, ...]:
+def grad_sum_axes(scattered: bool = False, stage: bool = False,
+                  expert: bool = False) -> Tuple[str, ...]:
     """The loss axes a gradient is all-reduced over
     (``sharding.reduce_grad``): all of them but fsdp where fsdp's
-    reduce-scatter has summed the leaf (``scattered``), and but pp where
-    the leaf is a stage's layers (``stage``)."""
+    reduce-scatter has summed the leaf (``scattered``), but pp where the
+    leaf is a stage's layers (``stage``), and but ep where the leaf is
+    an expert bank's ep chunk (``expert``): the all-to-all brought every
+    ep rank's tokens to this rank's experts, so its gradient is already
+    summed over ep. The divisor stays the count of every loss rank."""
     return tuple(a for a in LOSS_AXES
-                 if not (a == "fsdp" and scattered or a == "pp" and stage))
+                 if not (a == "fsdp" and scattered or a == "pp" and stage
+                         or a == "ep" and expert))
 
 
 #: The sets of axes a mesh makes groups over: each axis, the data axes
-#: (BatchNorm's statistics) and those fsdp's reduce-scatter leaves to an
-#: all-reduce, every set a gradient is all-reduced over
-#: (:func:`grad_sum_axes`; all the loss axes for the loss and metrics'
-#: means), fsdp with tp (a leaf sharded over both on one dimension), and
-#: the whole mesh (barriers, checkpoints).
-GROUP_AXES = tuple((a,) for a in AXES) + (DATA_AXES, ("dp", "ep")) + tuple(
-    grad_sum_axes(scattered, stage)
-    for scattered in (False, True) for stage in (False, True)) + (
-    ("fsdp", "tp"), AXES)
+#: (BatchNorm's statistics, the int8 scales of a token contraction) and
+#: those fsdp's reduce-scatter leaves to an all-reduce, dp with fsdp (an
+#: expert's tokens after the all-to-all), every set a gradient is
+#: all-reduced over (:func:`grad_sum_axes`; all the loss axes for the
+#: loss and metrics' means), fsdp with tp (a leaf sharded over both on
+#: one dimension), and the whole mesh (barriers, checkpoints).
+GROUP_AXES = tuple((a,) for a in AXES) + (DATA_AXES, ("dp", "ep"), ("dp", "fsdp")) + tuple(
+    grad_sum_axes(scattered, stage, expert)
+    for scattered in (False, True) for stage in (False, True)
+    for expert in (False, True)) + (("fsdp", "tp"), AXES)
 
 
 @dataclass(frozen=True)

@@ -10,15 +10,17 @@ chunk of every parameter (:func:`shard_params`, :func:`local_shard`).
 A train step runs on *compute views* (:func:`gather_for_compute`):
 every sharded dimension is all-gathered except one sharded over ``tp``
 alone, which the tensor-parallel layers consume in place (Megatron's
-column- and row-parallel weights, the vocab-parallel head), and the
+column- and row-parallel weights, the vocab-parallel head), the
 leading layer axis of a stacked leaf sharded over ``pp``, whose block
-of layers is this pipeline stage's. The gradient of a view is this
-rank's part of the gradient of the mean of the loss ranks' losses
-(``mesh.LOSS_AXES``: data, sp and pp), whole over tp;
+of layers is this pipeline stage's, and an expert bank's expert axis
+sharded over ``ep``, whose experts are this rank's. The gradient of a
+view is this rank's part of the gradient of the mean of the loss
+ranks' losses (``mesh.LOSS_AXES``: data, sp and pp), whole over tp;
 :func:`reduce_grad` sums it over the loss ranks that hold the leaf
 whole — reduce-scattered over fsdp where a dimension is fsdp-sharded,
-not over pp for a stage's layers — keeps this rank's chunk and divides
-by the number of loss ranks. :func:`gather_full` rebuilds a whole
+not over pp for a stage's layers, not over ep for an expert chunk
+(``mesh.grad_sum_axes``) — keeps this rank's chunk and divides by the
+number of loss ranks. :func:`gather_full` rebuilds a whole
 parameter, over pp too (checkpoints are in the one-device layout).
 
 A model that reads its parameters through :func:`view` (and its
@@ -180,10 +182,11 @@ def spec_leaves(specs: Any) -> list:
 
 
 def _tp_local(spec, ndim: int) -> List[bool]:
-    """Per dimension, whether the spec shards it over tp alone or pp
-    alone (the dimensions a compute view keeps as this rank's)."""
+    """Per dimension, whether the spec shards it over tp, pp or ep alone
+    (the dimensions a compute view keeps as this rank's: a tp shard, a
+    stage's layers, an expert bank's experts)."""
     entries = list(spec or ()) + [None] * (ndim - len(spec or ()))
-    return [_entry_axes(e) in (("tp",), ("pp",)) for e in entries[:ndim]]
+    return [_entry_axes(e) in (("tp",), ("pp",), ("ep",)) for e in entries[:ndim]]
 
 
 def _gather_dims(t: torch.Tensor, spec, mesh: Mesh, keep_tp: bool) -> torch.Tensor:
@@ -196,8 +199,10 @@ def _gather_dims(t: torch.Tensor, spec, mesh: Mesh, keep_tp: bool) -> torch.Tens
 
 def gather_for_compute(local: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
     """The tensor a step computes with: every sharded dimension
-    gathered, but one sharded over ``tp`` alone, or over ``pp`` alone (a
-    stage's layers), stays this rank's."""
+    gathered, but one sharded over ``tp`` alone, over ``pp`` alone (a
+    stage's layers) or over ``ep`` alone (the experts of this rank, which
+    the all-to-all brings every ep rank's tokens to) stays this
+    rank's."""
     return _gather_dims(local, spec, mesh, keep_tp=True)
 
 
@@ -212,14 +217,19 @@ def reduce_grad(grad: torch.Tensor, spec, mesh: Mesh,
     view: summed over the loss ranks (reduce-scattered along a dimension
     whose spec leads with fsdp, all-reduced over the other loss axes but
     pp where the leaf is a stage's layers: a layer axis sharded over pp,
-    or ``stage``, one layer of such a leaf), narrowed to the chunk, and
-    divided by the number of loss ranks (``mesh.LOSS_AXES``)."""
-    scattered = False
+    or ``stage``, one layer of such a leaf; and but ep where an expert
+    axis is sharded over ep, whose gradient the all-to-all's backward
+    has summed over the ep ranks' tokens), narrowed to the chunk, and
+    divided by the number of loss ranks (``mesh.LOSS_AXES``), ep
+    included."""
+    scattered = expert = False
     narrow = []
     local = _tp_local(spec, grad.ndim)
     for d, axes in enumerate(effective(spec, mesh, grad.ndim)):
         if axes == ("pp",):
             stage = True
+        if axes == ("ep",):
+            expert = True
         if not axes or local[d]:
             continue
         if axes[0] == "fsdp" and not scattered:
@@ -228,7 +238,7 @@ def reduce_grad(grad: torch.Tensor, spec, mesh: Mesh,
             axes = axes[1:]
         if axes:
             narrow.append((d, axes))
-    group = mesh.group(*grad_sum_axes(scattered, stage))
+    group = mesh.group(*grad_sum_axes(scattered, stage, expert))
     if group is not None:
         grad = grad.contiguous()
         dist.all_reduce(grad, group=group)
@@ -244,7 +254,7 @@ def is_sharded(spec, mesh: Mesh, ndim: int) -> bool:
 
 def needs_gather(spec, mesh: Mesh, ndim: int) -> bool:
     """Whether a compute view gathers anything of the leaf (a dimension
-    sharded over more than tp alone)."""
+    sharded over more than tp, pp or ep alone)."""
     local = _tp_local(spec, ndim)
     return any(axes and not local[d]
                for d, axes in enumerate(effective(spec, mesh, ndim)))
@@ -367,19 +377,37 @@ def layers(t: torch.Tensor, once: bool = False) -> Tuple[torch.Tensor, ...]:
     return parts
 
 
+def moment_spec(shape: Sequence[int], param_shape: Sequence[int], spec) -> P:
+    """Where an optimizer state tensor of ``shape`` lives, for a
+    parameter of ``param_shape`` (both chunks' shapes, or both whole)
+    placed by ``spec``: one of the parameter's shape (Adam's moments,
+    SGD's momentum, 8-bit AdamW's codes) where the parameter lives; one
+    of its per-row statistics (the parameter's shape with a last axis of
+    1: 8-bit AdamW's scales and log ranges, the whole leaf's over its
+    last axis) where its rows live; anything else (a step count)
+    replicated."""
+    shape, param_shape = tuple(shape), tuple(param_shape)
+    if shape == param_shape:
+        return spec
+    n = len(shape)
+    if n and n == len(param_shape) and shape[:-1] == param_shape[:-1] and shape[-1] == 1:
+        rows = (list(spec or ()) + [None] * n)[:n - 1]
+        if any(e is not None for e in rows):
+            return P(*rows, None)
+    return P()
+
+
 def opt_state_specs(opt_state: Dict[Any, Dict[str, Any]],
                     shapes: Sequence[Tuple[int, ...]],
                     specs: Sequence[Any]) -> Dict[Any, Dict[str, Any]]:
     """Specs for a ``torch.optim`` ``state_dict()["state"]`` (per
     parameter index, a dict of tensors) whose parameters have ``shapes``
-    (their chunks' or their whole shapes) and ``specs``: a state tensor
-    of its parameter's shape (Adam's moments, SGD's momentum) lives where
-    its parameter lives; scalars (step counts) are replicated. The
-    counterpart of ``opt_state_shardings``."""
+    (their chunks' or their whole shapes) and ``specs``, by
+    :func:`moment_spec`. The counterpart of ``opt_state_shardings``."""
     out = {}
     for i, st in opt_state.items():
         shape, s = tuple(shapes[int(i)]), specs[int(i)]
-        out[i] = {k: (s if isinstance(v, torch.Tensor) and v.ndim > 0
-                      and tuple(v.shape) == shape else P())
+        out[i] = {k: (moment_spec(v.shape, shape, s)
+                      if isinstance(v, torch.Tensor) and v.ndim > 0 else P())
                   for k, v in st.items()}
     return out

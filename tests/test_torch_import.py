@@ -206,7 +206,8 @@ def test_launch_counters_stay_zero_on_cpu():
     params = tfm.init_params(cfg, device="cpu")
     loss, _ = tfm.next_token_loss(cfg, params, {"tokens": torch.zeros((2, 65), dtype=torch.int64)})
     assert torch.isfinite(loss)
-    assert qf.LAUNCHES == {"int8_quantize_rows": 0, "int8_matmul": 0}
+    assert qf.LAUNCHES == {"int8_quantize_rows": 0, "int8_matmul": 0,
+                           "int8_quantize_rows_scaled": 0, "int8_matmul_f32": 0}
 
 
 _SERVE_KW = [

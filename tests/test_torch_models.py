@@ -401,16 +401,29 @@ def test_bert_stream_matches_jax_and_train_runs_on_cpu():
     assert out["final_step"] == 2 and np.isfinite(out["loss"])
     assert out["tokens_per_sec"] > 0 and "mlm_accuracy" in out
     # A mesh (refused until multi-process training was ported): dp and
-    # fsdp train over a job's ranks, which one process cannot fill; tp
-    # stays refused.
+    # fsdp train over a job's ranks, which one process cannot fill. tp
+    # (refused until BERT over tp was ported) takes two steps (the fewest
+    # its schedule takes) over a two-rank mesh under the fake process
+    # group, where no collective runs, so
+    # only the run is checked here (tests/test_torch_parallel_ep.py holds
+    # BERT over tp to the JAX loop).
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
     from kubeflow_controller_tpu_torch.parallel.mesh import MeshConfig
 
     with pytest.raises(ValueError, match="not divisible"):
         tbert_entry.train(total_steps=1, cfg=cfg_t, mesh_config=MeshConfig(fsdp=2),
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tbert_entry.train(total_steps=1, cfg=cfg_t, mesh_config=MeshConfig(tp=2),
-                          device="cpu")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=2)
+    try:
+        out = tbert_entry.train(ProcessContext(num_processes=2, process_id=0),
+                                total_steps=2, per_data_shard_batch=2, seq_len=24,
+                                cfg=cfg_t, mesh_config=MeshConfig(tp=2), device="cpu")
+    finally:
+        dist.destroy_process_group()
+    assert out["final_step"] == 2
 
 
 def test_bert_three_adamw_steps_match_optax():

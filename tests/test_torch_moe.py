@@ -195,7 +195,8 @@ def test_int8_experts_match_jitted_jax(quant, monkeypatch):
     fused = []
     real = qf.fused_int8_matmul
     monkeypatch.setattr(qf, "fused_int8_matmul",
-                        lambda x, w: (fused.append(tuple(x.shape)), real(x, w))[1])
+                        lambda x, w, sp=None: (fused.append(tuple(x.shape)),
+                                               real(x, w, sp))[1])
     ot, at = ttf._moe_ffn(tc, lpt, torch.from_numpy(h))
     assert len(fused) == (3 * tc.moe_experts if quant == "int8_fused" else 0)
     np.testing.assert_allclose(at.numpy(), np.asarray(aj), **AUX)

@@ -165,7 +165,8 @@ def test_fused_plain_matches_jitted_pallas_kernel(m, k, n):
     # On CPU tensors the wrapper is the plain version, and launches nothing.
     tqf.reset_launches()
     _same(tqf.fused_int8_matmul_2d(at, torch.from_numpy(b)), want)
-    assert tqf.LAUNCHES == {"int8_quantize_rows": 0, "int8_matmul": 0}
+    assert tqf.LAUNCHES == {"int8_quantize_rows": 0, "int8_matmul": 0,
+                            "int8_quantize_rows_scaled": 0, "int8_matmul_f32": 0}
 
 
 @pytest.mark.parametrize("k", [128, 1024, 4096])
@@ -350,13 +351,13 @@ def test_fused_route_counts_match_the_jax_routing(monkeypatch):
     the wrapper (remat re-runs each layer's forward): per layer 5 fused
     forwards (wk/wv fall back) and 5 fused dx, and 5 more under remat."""
     calls = []
-    real = tqf.fused_int8_matmul_2d
+    real = tqf._fused_2d
 
-    def counting(a, b):
+    def counting(a, b, group=None):
         calls.append(tuple(a.shape) + (b.shape[1],))
-        return real(a, b)
+        return real(a, b, group)
 
-    monkeypatch.setattr(tqf, "fused_int8_matmul_2d", counting)
+    monkeypatch.setattr(tqf, "_fused_2d", counting)
     for remat, want in ((False, 10), (True, 15)):
         calls.clear()
         _, tc = _model_pair("int8_fused", torch.bfloat16)

@@ -1019,53 +1019,92 @@ def _fake_mesh(size, **kw):
     return make_mesh(MeshConfig(**kw))
 
 
+#: The mesh options refused with "not yet ported" until the slice that
+#: trains them (MoE over tp, ep and sp; int8 projections over tp; 8-bit
+#: AdamW on sharded leaves; BERT over tp): mesh, model options.
 _MESH_REFUSALS = {
-    "moe_tp2": (dict(dp=1, tp=2), dict(config="tiny_moe"), "MoE"),
-    "moe_ep2": (dict(dp=1, ep=2), dict(config="tiny_moe"), "ep=2"),
-    "int8_tp2": (dict(dp=1, tp=2), dict(quant="int8"), "int8"),
-    "int8_fused_tp2": (dict(dp=1, tp=2), dict(quant="int8_fused"), "int8_fused"),
-    "sp2": (dict(dp=1, sp=2), dict(config="tiny_moe"), "sp > 1"),
-    "opt8bit_fsdp2": (dict(dp=1, fsdp=2), dict(opt8bit=True), "8-bit"),
-    "bert_tp2": (dict(dp=1, tp=2), dict(model="bert"), "BERT"),
+    "moe_tp2": (dict(dp=1, tp=2), dict(config="tiny_moe")),
+    "moe_ep2": (dict(dp=1, ep=2), dict(config="tiny_moe")),
+    "int8_tp2": (dict(dp=1, tp=2), dict(quant="int8")),
+    "int8_fused_tp2": (dict(dp=1, tp=2), dict(quant="int8_fused")),
+    "sp2": (dict(dp=1, sp=2), dict(config="tiny_moe")),
+    "opt8bit_fsdp2": (dict(dp=1, fsdp=2), dict(opt8bit=True)),
+    "bert_tp2": (dict(dp=1, tp=2), dict(model="bert")),
 }
+
+
+def _chunk_shape(shape, spec, sizes):
+    """The shape of one rank's chunk of a ``shape`` leaf placed by the
+    JAX ``PartitionSpec`` ``spec`` over a mesh of axis ``sizes``."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    out = []
+    for dim, e in zip(shape, entries):
+        axes = () if e is None else ((e,) if isinstance(e, str) else tuple(e))
+        n = int(np.prod([sizes[a] for a in axes]))
+        assert dim % n == 0, (shape, spec)
+        out.append(dim // n)
+    return tuple(out)
 
 
 @pytest.mark.parametrize("case", list(_MESH_REFUSALS))
 def test_mesh_options_not_yet_ported_are_refused(case):
-    """Over a mesh the port refuses, with "not yet ported", what it does
-    not train yet: MoE layers over tp, ep or sp (sequence parallelism
-    itself, refused until the sequence-parallel slice, trains: its
-    routing groups would span the ranks' slices), int8 projections over
-    tp (the reference's row abs-max spans the whole contraction axis, a
-    row-parallel shard sees only its part), 8-bit Adam over sharded
-    parameters (its per-row scales are the whole leaf's) and BERT over
-    tp. Checked on a two-rank mesh under the fake process group, where
-    no collective runs."""
+    """The mesh options once refused with "not yet ported" (each case's
+    id) now build: on a two-rank mesh under the fake process group
+    (where no collective runs) the model's mesh check passes, and
+    ``TrainLoop`` places every leaf so that this rank's chunk has the
+    shape the JAX package's ``param_specs`` give it on that mesh, and so
+    do its optimizer moments: AdamW's after one update (of zeros, no
+    collective), 8-bit AdamW's codes (the chunk's shape) and per-row
+    statistics (its rows, one column: the whole leaf's) at init."""
     import torch.distributed as dist
 
+    from kubeflow_controller_tpu.models import bert as jbert
     from kubeflow_controller_tpu_torch.models import bert as tbert
+    from kubeflow_controller_tpu_torch.ops.optim8 import QLeafM, QLeafV
     from kubeflow_controller_tpu_torch.parallel.mesh import use_mesh
 
-    mesh_kw, opt, what = _MESH_REFUSALS[case]
+    mesh_kw, opt = _MESH_REFUSALS[case]
     mesh = _fake_mesh(2, **mesh_kw)
     try:
-        with pytest.raises(NotImplementedError, match="not yet ported") as e:
-            if opt.get("model") == "bert":
-                cfg = tbert.bert_tiny_config()
-                batch = {k: torch.from_numpy(v) for k, v in
-                         next(tbert.synthetic_mlm_batch(cfg, 2, 16)).items()}
-                with use_mesh(mesh):
-                    tbert.mlm_loss(cfg, tbert.init_params(cfg, device="cpu"), batch)
-            elif opt.get("opt8bit"):
-                cfg = ttf.tiny_config()
-                ttrain.TrainLoop(init_fn=ttf.make_init_fn(cfg), loss_fn=ttf.make_loss_fn(cfg),
-                                 optimizer=optim.make_optimizer(1e-3, 2, opt8bit=True),
-                                 device="cpu", mesh=mesh, param_shardings=ttf.param_specs(cfg))
-            else:
-                cfg = tlm.model_config(opt.get("config", "tiny"), quant=opt.get("quant", ""))
-                with use_mesh(mesh):
-                    ttf.check_mesh(cfg)
-        assert what in str(e.value)
+        if opt.get("model") == "bert":
+            cfg = tbert.bert_tiny_config()
+            init, loss_fn, specs = tbert.make_init_fn(cfg), tbert.make_loss_fn(cfg), tbert.param_specs(cfg)
+            jspecs = jbert.param_specs(jbert.bert_tiny_config())
+            tx = optim.AdamW(1e-3, weight_decay=0.01)
+        else:
+            config, quant = opt.get("config", "tiny"), opt.get("quant", "")
+            cfg = tlm.model_config(config, quant=quant)
+            with use_mesh(mesh):
+                ttf.check_mesh(cfg)
+            init, loss_fn, specs = ttf.make_init_fn(cfg), ttf.make_loss_fn(cfg), ttf.param_specs(cfg)
+            jspecs = jtf.param_specs(getattr(jtf, f"{config}_config")(quant=quant))
+            tx = optim.make_optimizer(1e-3, 2, opt8bit=opt.get("opt8bit", False))
+        loop = ttrain.TrainLoop(init_fn=init, loss_fn=loss_fn, optimizer=tx, device="cpu",
+                                mesh=mesh, param_shardings=specs)
+        want = [_chunk_shape(shape, spec, mesh.shape)
+                for shape, spec in zip(loop._full_shapes, jax.tree.leaves(jspecs))]
+        leaves = convert.tree_leaves(loop.state.params)
+        assert [tuple(p.shape) for p in leaves] == want
+        # sp shards no parameter; every other layout here shards some.
+        assert any(tuple(p.shape) != full for p, full in
+                   zip(leaves, loop._full_shapes)) == ("sp" not in mesh_kw)
+        if opt.get("opt8bit"):
+            quantized = 0
+            for m, v, shape in zip(tx.m, tx.v, want):
+                if isinstance(m, QLeafM):
+                    quantized += 1
+                    rows = shape[:-1] + (1,)
+                    assert isinstance(v, QLeafV) and m.q.shape == v.q.shape == shape
+                    assert m.scale.shape == v.lo.shape == v.rng.shape == rows
+                else:
+                    assert m.shape == v.shape == shape
+            assert quantized > 0
+        else:
+            tx.update(loop.state.params, convert.tree_unflatten(
+                loop.state.params, [torch.zeros_like(p) for p in leaves]))
+            state = tx.state_dict()["opt"]["state"]
+            assert [tuple(state[i]["exp_avg"].shape) for i in range(len(want))] == want
+            assert [tuple(state[i]["exp_avg_sq"].shape) for i in range(len(want))] == want
     finally:
         dist.destroy_process_group()
 
