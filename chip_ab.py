@@ -11,8 +11,15 @@ line ``AB {json}``. Sections (all by default):
   attention shapes (``FlashCase.run``, timed: whole call by CUDA events,
   device time by kernel, SDPA, bound);
 * ``train``: the llama3_8b train step at 2 layers, B2 S2048, in bf16 (8
-  steps) and under ``quant="int8_fused"`` (4), with exact launch counts
+  steps) and under ``quant="int8_fused"`` (4), and the flagship's
+  (bench.py: 16 layers, B16 S1024) in bf16 (8), with exact launch counts
   (``train_run``);
+* ``dispatch``: the host time of one kernel call through the port's
+  wrapper (``rope_rotate`` and B7's ``quantize_rows`` at a few rows,
+  where the launch, not the kernel, is the cost), and on a tree whose
+  kernels are ``torch.ops.kfc`` operators, of the bare ``ctypes``
+  launch, of the operator's CUDA implementation called as a function,
+  and of the same launch registered through ``torch.library.custom_op``;
 * ``paged``: the paged decode at the serving shapes (bf16 and int8
   pools) and at 2048 columns, and the serving prefill chunk
   (``Case.run``, timed and by kernel);
@@ -30,7 +37,7 @@ import os
 import re
 import sys
 
-SECTIONS = ("flash", "train", "paged", "serve")
+SECTIONS = ("flash", "train", "paged", "serve", "dispatch")
 SERVE_POS = [256, 263, 270, 277, 284, 287, 259, 266]
 LONG_POS = [2047, 0, 15, 16, 1000, 1535, 777, 2040]
 
@@ -65,13 +72,87 @@ def train_section(c, smi, out):
         want = {"rope_rotate": 2 * n}
     want.update(flash_fwd=2 * n, flash_bwd_dkdv=n, flash_bwd_dq=n)
     int8 = {"int8_quantize_rows": 16 * n, "int8_matmul": 16 * n}
-    for label, cfg, steps, extra in (
-            ("llama3_8b", llama, 8, {}),
-            ("llama3_8b.int8_fused", llama.replace(quant="int8_fused"), 4, int8)):
-        r = c.train_run(label, cfg, 2048, 2, steps, {**want, **extra}, smi)
+    flag = tfm.flagship_config()
+    m = flag.n_layers
+    flag_want = {"rope_rotate": 3 * m, "flash_fwd": 2 * m, "flash_bwd_prep": m,
+                 "flash_bwd_fused": m, "flash_bwd_post": m}
+    for label, cfg, seq, batch, steps, expect in (
+            ("llama3_8b", llama, 2048, 2, 8, want),
+            ("llama3_8b.int8_fused", llama.replace(quant="int8_fused"), 2048, 2, 4,
+             {**want, **int8}),
+            ("flagship", flag, 1024, 16, 8, flag_want)):
+        r = c.train_run(label, cfg, seq, batch, steps, expect, smi)
         out["train/" + label] = {x: r[x] for x in (
             "step_ms", "step_ms_all", "profiled_step_device_ms", "mfu", "tokens_per_s",
             "idle_share", "device_ms_by_kernel", "peak_gb")}
+
+
+DISPATCH_CALLS = 1000
+DISPATCH_ROUNDS = 9
+
+
+def _host_us(fns, n=DISPATCH_CALLS, rounds=DISPATCH_ROUNDS):
+    """Per name of ``fns``, the least and the median over ``rounds`` of
+    the host microseconds a call takes, ``n`` calls queued and one
+    synchronize after them (each call launches a kernel of a few
+    microseconds); the variants take turns within each round, so that a
+    change of the host's load falls on all of them."""
+    import time
+
+    import torch
+
+    for fn in fns.values():
+        for _ in range(50):
+            fn()
+    torch.cuda.synchronize()
+    got = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            t = time.perf_counter()
+            for _ in range(n):
+                fn()
+            got[name].append((time.perf_counter() - t) * 1e6 / n)
+            torch.cuda.synchronize()
+    return {name: {"min": min(v), "median": sorted(v)[len(v) // 2]}
+            for name, v in got.items()}
+
+
+def dispatch_section(c, smi, out):
+    import torch
+
+    from kubeflow_controller_tpu_torch.ops import _build
+    from kubeflow_controller_tpu_torch.ops import flash_attention as fa
+    from kubeflow_controller_tpu_torch.ops import quant_fused as qf
+
+    dev = torch.device("cuda")
+    q = torch.randn((1, 16, 1, 64), device=dev, dtype=torch.bfloat16)
+    k = torch.randn((1, 16, 1, 64), device=dev, dtype=torch.bfloat16)
+    tables = fa.rope_full_tables(torch.arange(16, device=dev)[None], 64, 1e4)
+    a = torch.randn((16, 128), device=dev, dtype=torch.bfloat16)
+    fns = {"rope_rotate": lambda: fa.rope_rotate(q, k, tables),
+           "quantize_rows": lambda: qf.quantize_rows(a)}
+    if hasattr(fa, "_rope_rotate_cuda"):
+        lib = _build.load()
+        qo, ko = torch.empty_like(q), torch.empty_like(k)
+        stream = torch.cuda.current_stream().cuda_stream
+        ptrs = (q.data_ptr(), k.data_ptr(), tables[0].data_ptr(), tables[1].data_ptr(),
+                qo.data_ptr(), ko.data_ptr(), 16, 1, 1, 64, stream)
+
+        def bare():
+            if lib.kfc_rope_rotate(*ptrs):
+                raise RuntimeError("kfc_rope_rotate failed")
+
+        @torch.library.custom_op("kfc_ab::rope_rotate", mutates_args=(), device_types="cuda")
+        def custom(q: torch.Tensor, k: torch.Tensor, c_: torch.Tensor,
+                   s_: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+            return fa._rope_rotate_cuda(q, k, c_, s_)
+
+        fns.update(
+            rope_rotate_ctypes=bare,
+            rope_rotate_impl=lambda: fa._rope_rotate_cuda(q, k, *tables),
+            rope_rotate_op=lambda: torch.ops.kfc.rope_rotate.default(q, k, *tables),
+            rope_rotate_custom_op=lambda: custom(q, k, *tables))
+    out["dispatch_host_us"] = _host_us(fns)
 
 
 def _timed_cases():
@@ -188,6 +269,8 @@ def main(root: str, tag: str, *sections: str) -> int:
         paged_section(c, out)
     if "serve" in sections:
         serve_section(c, smi, out)
+    if "dispatch" in sections:
+        dispatch_section(c, smi, out)
     print("AB " + json.dumps({"tag": tag, "smi": smi, **out}), flush=True)
     return 0
 

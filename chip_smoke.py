@@ -48,8 +48,9 @@ Phases, in order; any failure exits non-zero before the result line:
    rhs codes) and its parts beside the plain version's,
    ``torch._int_mm`` on the same codes and a bf16 ``torch.mm``; a shape
    it does not tile must raise;
-5. serve: ``serve(config="llama3_8b", batch=16, slots=8, prompt_len=256,
-   max_new_tokens=32, block_size=16)`` at full width and depth with the
+5. serve: ``serve(config=SERVE_CONFIG, batch=16, slots=8, prompt_len=256,
+   max_new_tokens=32, block_size=16)`` (llama3_8b at full width and 8 of
+   its 32 layers: the serving phases' depth, ``SERVE_CONFIG``) with the
    kernels' launch counts zeroed just before and read just after, in
    bucketed prefill (then 4 requests with an int8 KV pool) and in exact
    prefill (B1 once per layer per admission, no prefill chunk), TTFT and
@@ -71,24 +72,25 @@ Phases, in order; any failure exits non-zero before the result line:
    on replay), ``sample_step_slots`` at [8, 128256] card vs CPU with its
    ms and launches beside the argmax's, and the tiny config's sampled
    traffic (greedy and sampled rows, n=2, a regex mask, sampled
-   speculation) card vs CPU; then, on one set of llama3_8b weights,
-   a profile of one decode micro-step and one prefill chunk (wall time,
+   speculation) card vs CPU; then, on one set of llama3_8b weights at
+   all 32 layers, a profile of one decode micro-step and one prefill
+   chunk (wall time,
    device time by kernel, idle share) and one request's first-token and
    next-token logits under ``attn_impl="kernel"`` and ``"gather"``;
 5a. int8 serve: weight-only int8 ``(q, scale)`` card vs CPU bit for bit
-   at llama3_8b's projection shapes; llama3_8b with ``quant="int8"``
+   at llama3_8b's projection shapes; ``SERVE_CONFIG`` with ``quant="int8"``
    (the 16 requests in exact prefill, B1 once a layer an admission; the
    tiled prompts in bucketed prefill with lookup speculation; 4 requests
    on an int8 KV pool), exact launch counts, TTFT/TPOT/tokens/s beside
    the bf16 runs and the weight bytes of both; the tiny config's int8
    streams card vs CPU (exact and bucketed, fp and int8 KV, with and
    without speculation) under the near-tie rule;
-5b. prefix (on one set of llama3_8b weights): 32 chat requests behind
+5b. prefix (on one set of ``SERVE_CONFIG`` weights): 32 chat requests behind
    one 192-token system prompt with the prefix cache off and on (the hit
    count and the prefill chunks predicted from the schedule and checked
    exactly; streams equal but after a near-tie, ``SPEC_FLIP_GAP_OF_RMS``); 16
-   families of 192-token prefixes in 3 waves through a 256 MiB pool with
-   the host tier off and at 1024 MiB (equal streams, spills and
+   families of 192-token prefixes in 3 waves through a pool of 128 pages
+   with the host tier off and at 512 pages (equal streams, spills and
    rehydrates, their ms a page and GB/s beside a pinned ``copy_``, the
    leak sweep and ``reset()``), and int8 pages through one slot;
    ``serve(turns=3)`` with the cache (the hit rate predicted exactly)
@@ -96,7 +98,7 @@ Phases, in order; any failure exits non-zero before the result line:
    after), and a ``register_prefix`` round trip; the radix proposer over
    two waves of the same prompts (wave 2's streams may leave wave 1's
    only after a near-tie); each run's launches exact
-   (``paged_chunk`` = (prefill chunks + verify steps) x 32); then the
+   (``paged_chunk`` = (prefill chunks + verify steps) x the layers); then the
    tiny config, card vs CPU, through each of those paths;
 6. train: bench.py's flagship decoder (B16 S1024, 16 layers, remat) and
    llama3_8b at full width and 2 layers (B2 S2048), 8 steps each through
@@ -147,6 +149,18 @@ Phases, in order; any failure exits non-zero before the result line:
    the losses and the parameters' change against a one-process run
    (``DIST_*`` tolerances); a rank's failure fails the run; the probe
    also runs the ring shift (``send_recv``) and names its transport;
+   llama3_70b at full width and one layer, fsdp=2 (``after_gang``):
+   each rank's save and the gang's own restore of its ~35.5 GB
+   checkpoint (bit for bit) within its steps' peak plus one largest
+   leaf, then, the gang gone, the one-process run, its yardstick and a
+   one-process restore of the checkpoint in this process;
+7c. aot: the memory gate (``parallel/aot_check.py``) on fake CUDA
+   tensors under a fake process group, llama3_8b at dp=2 x fsdp=16 x
+   tp=4 (B32) and llama3_70b at fsdp=16 x tp=8 (B16), S=8192: per-rank
+   bytes beside the analytic plan and the card's 80 GB, nothing
+   allocated or launched on the card (traced in a process of its own
+   that starts with the script and runs on the host's cores beside the
+   phases above; read and checked here);
 8. a ``kernels`` JSON line (each kernel's whole-call time over its
    library call's, ``vs_library``, from this run; the flash kernels'
    and B7's launches a rank a step in each dist layout), the
@@ -834,7 +848,15 @@ FLASH_SHAPES = {
     # BERT-base's attention at S=512 (one tile: the fused backward), not
     # causal, no rotary embedding.
     "bert_base": dict(B=8, H=12, KVH=12, S=512, D=64, causal=False, rope=False),
+    # llama3_70b: a GQA group of 8 query heads a KV head (the flagship's
+    # is 1, llama3_8b's and mixtral's 4), at the dist case's S=1024 (the
+    # fused backward) and at S=2048 (the two-pass backward).
+    "llama3_70b": dict(B=1, H=64, KVH=8, S=1024, D=128),
+    "llama3_70b.s2048": dict(B=1, H=64, KVH=8, S=2048, D=128),
 }
+#: Shapes whose rows the main path never packs: checked and timed without
+#: segment ids only.
+UNPACKED_SHAPES = ("llama3_70b", "llama3_70b.s2048")
 #: Checked, not timed: what the train path does not reach — a ragged
 #: sequence (200 rows: a partial tile) at head_dim 64, causal and not; a
 #: ragged one at head_dim 128 (1000 rows: 104 live rows in the last
@@ -859,7 +881,7 @@ def flash_kernel_phase(smi, timed=True):
     seed = 20
     for shapes, timed_here in ((FLASH_SHAPES, timed), (FLASH_EXTRA, False)):
         for shape, dims in shapes.items():
-            for segments in (False, True):
+            for segments in (False,) if shape in UNPACKED_SHAPES else (False, True):
                 label = f"{shape}{'.seg' if segments else ''}"
                 case = FlashCase(label, segments=segments, seed=seed, **dims)
                 seed += 1
@@ -1246,8 +1268,11 @@ def _check_streams(label, streams, keys, n_tokens, vocab):
             raise AssertionError(f"{label}: bad completion {key}: {toks}")
 
 
-def _log_serve(label, what, smi, res, wall, launches, config="llama3_8b"):
-    log(f"{label} {config} (d_model 4096, 32 layers, {what}) on {smi}: ttft_p50 "
+def _log_serve(label, what, smi, res, wall, launches, config=None):
+    config = config or SERVE_CONFIG
+    cfg = _case_config(config)
+    log(f"{label} {config} (d_model {cfg.d_model}, {cfg.n_layers} layers, {what}) on "
+        f"{smi}: ttft_p50 "
         f"{res['ttft_p50_ms']} ms, ttft_p95 {res['ttft_p95_ms']} ms, tpot_p50 "
         f"{res['tpot_p50_ms']} ms, tokens/s {res['tokens_per_sec']}, wall {wall} s, "
         f"prefill chunks {res['prefill_chunks']}, prefix hit tokens "
@@ -1255,17 +1280,17 @@ def _log_serve(label, what, smi, res, wall, launches, config="llama3_8b"):
         f"{ {k: v for k, v in launches.items() if v} }")
 
 
-def _serve_run(label, smi, batch, n=1, prompt_len=256, config="llama3_8b", **kw):
-    """One ``serve()`` at ``config`` (llama3_8b: full width and depth,
-    bf16; 8 slots, ``prompt_len``-token prompts, 32 new tokens, pages of
-    16) with every serving kernel's count zeroed just before and read
-    just after. Checks the completions (``batch * n`` of 32 in-vocab
-    tokens) and returns (summary, launches, {rid: tokens}; {(rid, gen):
-    tokens} when n > 1)."""
-    from kubeflow_controller_tpu_torch.dataplane.entrypoints.lm import model_config
+def _serve_run(label, smi, batch, n=1, prompt_len=256, config=None, **kw):
+    """One ``serve()`` at ``config`` (``SERVE_CONFIG`` by default: llama3_8b
+    at full width and 8 of its 32 layers, bf16; 8 slots,
+    ``prompt_len``-token prompts, 32 new tokens, pages of 16) with every
+    serving kernel's count zeroed just before and read just after. Checks
+    the completions (``batch * n`` of 32 in-vocab tokens) and returns
+    (summary, launches, {rid: tokens}; {(rid, gen): tokens} when n > 1)."""
     from kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm import serve
 
-    vocab = model_config(config).vocab_size
+    config = config or SERVE_CONFIG
+    vocab = _case_config(config).vocab_size
     out_file = os.path.join(OUT_DIR, f"serve_{label}.jsonl")
     res, wall, launches = _counted(lambda: serve(
         config=config, batch=batch, slots=8, prompt_len=prompt_len,
@@ -1310,13 +1335,12 @@ def _first_divergence_gaps(params, a, b, context, cfg=None):
     the logits' RMS). The logits come from one block-prefill forward over
     ``context(rid, pos)``, the tokens ``a``'s run had before that
     position, on the weights ``params`` (on the card) of ``cfg``
-    (llama3_8b by default)."""
+    (``SERVE_CONFIG``'s by default)."""
     import torch
 
     from kubeflow_controller_tpu_torch.models import generate as gen
-    from kubeflow_controller_tpu_torch.models import transformer as tfm
 
-    cfg = cfg or tfm.llama3_8b_config()
+    cfg = cfg or _case_config(SERVE_CONFIG)
     out = []
     for rid in sorted(a):
         if a[rid] == b[rid]:
@@ -1658,7 +1682,7 @@ def _mask_replay_errors(spec, vocab, streams):
 
 
 def sampled_oracle_spec(smi, prompts, streams, device="cuda"):
-    """Sampled speculative decoding at llama3_8b through the engine, on
+    """Sampled speculative decoding at ``SERVE_CONFIG`` through the engine, on
     ``serve()``'s weights (seed 0) and the sampled run's 16 requests,
     with a proposer that drafts each request's own plain sampled stream:
     the sampled verifier (B6's verify entry, once per layer per verify
@@ -1679,7 +1703,7 @@ def sampled_oracle_spec(smi, prompts, streams, device="cuda"):
     class Oracle(_OracleProposer, spec_decode.DraftProposer):
         pass
 
-    cfg = tfm.llama3_8b_config()
+    cfg = _case_config(SERVE_CONFIG)
     params = gen.inference_params(cfg, tfm.init_params(
         cfg, seed=SAMPLED["seed"], device=device, dtype=cfg.dtype))
     eng = ServingEngine(cfg, params, n_slots=8, max_seq=256 + 32,
@@ -1705,7 +1729,7 @@ def sampled_oracle_spec(smi, prompts, streams, device="cuda"):
             or not all(len(t) == 32 for t in got.values())):
         raise AssertionError(f"serve[spec.sampled.oracle]: {res}, launches {launches}")
     hist = {k: v for k, v in res.items() if k.startswith("spec_step_tokens_")}
-    log(f"serve sampled spec, oracle drafts (llama3_8b, {SAMPLED}): acceptance "
+    log(f"serve sampled spec, oracle drafts ({SERVE_CONFIG}, {SAMPLED}): acceptance "
         f"{res['acceptance_rate']} ({res['draft_accepted']} of "
         f"{res['draft_proposed']}), verify steps {res['spec_steps']}, "
         f"paged_chunk {launches['paged_chunk']}, committed per slot-step "
@@ -1719,8 +1743,8 @@ def sampled_oracle_spec(smi, prompts, streams, device="cuda"):
 
 
 def sampling_serve_phase(smi, runs, tiled):
-    """llama3_8b served with per-request sampling, full width and depth,
-    exact prefill, bf16, each run's serving kernels counted exactly:
+    """``SERVE_CONFIG`` served with per-request sampling, exact prefill,
+    bf16, each run's serving kernels counted exactly:
 
     * 16 requests (256 + 32 tokens, 8 slots) at SAMPLED, beside the
       greedy exact run on the same requests; then the same requests
@@ -1741,9 +1765,8 @@ def sampling_serve_phase(smi, runs, tiled):
     from kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm import (
         _read_prompts,
     )
-    from kubeflow_controller_tpu_torch.models import transformer as tfm
 
-    cfg = tfm.llama3_8b_config()
+    cfg = _case_config(SERVE_CONFIG)
     n_layers, vocab = cfg.n_layers, cfg.vocab_size
     out = {}
 
@@ -1839,16 +1862,14 @@ def sampling_serve_phase(smi, runs, tiled):
 
 
 def serve_phase(smi):
-    """llama3_8b served end to end, full width and depth: bucketed prefill
+    """``SERVE_CONFIG`` served end to end: bucketed prefill
     (16 requests; then 4 with an int8 KV pool), exact prefill (the same 16
     requests), and greedy speculative decoding on tiled prompts beside
     the plain exact run on the same prompts; then the sampling runs
     (:func:`sampling_serve_phase`); each with exact kernel launch counts.
     Then the tiny config, card vs CPU."""
-    from kubeflow_controller_tpu_torch.models import transformer as tfm
-
-    n_layers = tfm.llama3_8b_config().n_layers
-    vocab = tfm.llama3_8b_config().vocab_size
+    n_layers = _case_config(SERVE_CONFIG).n_layers
+    vocab = _case_config(SERVE_CONFIG).vocab_size
     os.makedirs(OUT_DIR, exist_ok=True)
     runs = {}
     for label, batch, kv_quant in (("fp", 16, ""), ("int8", 4, "int8")):
@@ -1924,9 +1945,9 @@ def serve_phase(smi):
 
 # -- prefix cache, host tier, multi-turn, radix drafts -------------------------
 
-#: The llama3_8b weights (seed 0, bf16) of the phases that serve through
-#: the engine or hold a stream's logits: drawn once, the weights
-#: ``serve(config="llama3_8b", seed=0)`` draws.
+#: The ``SERVE_CONFIG`` weights (seed 0, bf16) of the phases that serve
+#: through the engine or hold a stream's logits: drawn once, the weights
+#: ``serve(config=SERVE_CONFIG, seed=0)`` draws.
 _LLAMA = {}
 
 
@@ -1937,7 +1958,7 @@ def _llama():
     from kubeflow_controller_tpu_torch.models import transformer as tfm
 
     if not _LLAMA:
-        cfg = tfm.llama3_8b_config()
+        cfg = _case_config(SERVE_CONFIG)
         _LLAMA["cfg"] = cfg
         _LLAMA["params"] = gen.inference_params(
             cfg, tfm.init_params(cfg, seed=0, device="cuda", dtype=cfg.dtype))
@@ -1975,7 +1996,7 @@ def _prefix_requests(n, shared_len, tail_lo, tail_hi, seed, families=1):
 
 
 def _engine_run(label, smi, prompts, max_new=32, eng=None, rid0=0, **kw):
-    """Serve ``prompts`` (``(rid, prompt)``) on the llama3_8b weights
+    """Serve ``prompts`` (``(rid, prompt)``) on the ``SERVE_CONFIG`` weights
     through a fresh engine (or ``eng``), every serving kernel's count
     zeroed just before and read just after. Checks every completion
     (``max_new`` in-vocab tokens) and returns (engine, summary, launches,
@@ -2192,8 +2213,10 @@ def _same_streams(label, a, b):
 def tier_serve_phase(smi):
     """16 seeded families of 192-token prefixes, each revisited in 3
     waves (tails of 1-16 tokens, 32 new tokens, 4 slots, pages of 16) in
-    a 256 MiB pool (128 pages of 2 MiB, 60 of them live reservations),
-    with the host tier off, then at 1024 MiB: the streams must be equal,
+    a pool of 128 pages (60 of them live reservations; 256 MiB of 2 MiB
+    pages at llama3_8b's 32 layers, the budget scaled with the served
+    depth so that the pages and the schedule stay those of all 32), with
+    the host tier off, then at 512 pages: the streams must be equal,
     and the tier run must spill and rehydrate; the spill's and the
     rehydrate's ms a page and GB/s beside a pinned ``copy_``; the leak
     sweep, then ``reset()`` to zero. Then int8 pages: 4 requests of two
@@ -2203,12 +2226,14 @@ def tier_serve_phase(smi):
 
     cfg, _ = _llama()
     n_layers = cfg.n_layers
+    # MiB at this depth for what 1 MiB holds at all 32 layers.
+    depth = n_layers / _case_config(CUT_CONFIGS[SERVE_CONFIG][0]).n_layers
     reqs = _prefix_requests(48, 192, 1, 16, seed=200, families=16)
     kw = dict(n_slots=4, max_seq=192 + 16 + 32, prefix_cache=True,
-              kv_hbm_budget_mb=256)
+              kv_hbm_budget_mb=256 * depth)
     runs, streams = {}, {}
     rec = {"spill": [], "rehydrate": []}
-    for mode, mb in (("off", 0), ("on", 1024)):
+    for mode, mb in (("off", 0), ("on", 1024 * depth)):
         eng = None
         if mb:
             from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
@@ -2222,7 +2247,7 @@ def tier_serve_phase(smi):
         _check_paged_launches(f"tier[{mode}]", res, launches, n_layers)
         if eng.pool.n_blocks != 128:
             raise AssertionError(f"tier: pool {eng.pool.n_blocks} pages, want 128 "
-                                 f"(256 MiB)")
+                                 f"({256 * depth} MiB)")
         resident, spilled = _trie_sweep(f"tier[{mode}]", eng)
         log(f"tier[{mode}]: spilled_pages {res['spilled_pages']}, spill_bytes "
             f"{res['spill_bytes']}, rehydrate_hits {res['rehydrate_hits']}, "
@@ -2265,7 +2290,7 @@ def tier_serve_phase(smi):
     fam = _prefix_requests(2, 192, 1, 16, seed=210, families=2)
     pair = [(0, fam[0][1]), (1, fam[1][1]), (2, fam[0][1]), (3, fam[1][1])]
     int8 = {}
-    for mode, mb in (("off", 0), ("on", 64)):
+    for mode, mb in (("off", 0), ("on", 64 * depth)):
         eng, res, launches, int8[mode] = _engine_run(
             f"tier.int8[{mode}]", smi, pair, n_slots=1, max_seq=240,
             prefix_cache=True, kv_pool_blocks=16, kv_quant="int8", host_kv_mb=mb)
@@ -2300,7 +2325,7 @@ def _history_context(prompts, follow, streams, rid, pos, turns, max_new):
 
 
 def multiturn_phase(smi):
-    """``serve(config="llama3_8b", batch=8, slots=8, prompt_len=256,
+    """``serve(config=SERVE_CONFIG, batch=8, slots=8, prompt_len=256,
     max_new_tokens=32, turns=3)`` with the prefix cache and without. With
     it: the hit rate must equal the count that follows from the full
     pages each turn's history already published (turn t reuses turn
@@ -2343,14 +2368,14 @@ def multiturn_phase(smi):
     for mode, on in (("cache", True), ("contiguous", False)):
         out_file = os.path.join(OUT_DIR, f"multiturn_{mode}.jsonl")
         res, wall, launches = _counted(lambda: serve(
-            config="llama3_8b", batch=b, slots=b, prompt_len=s,
+            config=SERVE_CONFIG, batch=b, slots=b, prompt_len=s,
             max_new_tokens=new, turns=turns, prefix_cache=on, block_size=16,
             output_file=out_file))
         streams[mode] = {c["rid"]: c["completion"]
                          for c in _read_completions(out_file)}
         _check_streams(f"multiturn[{mode}]", streams[mode], range(b), turns * new,
                        cfg.vocab_size)
-        log(f"multiturn[{mode}] llama3_8b on {smi}: {b} conversations x "
+        log(f"multiturn[{mode}] {SERVE_CONFIG} on {smi}: {b} conversations x "
             f"{turns} turns x {new} tokens, tokens/s {res['tokens_per_sec']} "
             f"(serve wall {res['wall_s']} s, call {wall} s with the weights' "
             f"init), launches { {k: v for k, v in launches.items() if v} }")
@@ -2394,7 +2419,7 @@ def multiturn_phase(smi):
                          prefill_mode="bucketed", block_size=16, device="cuda")
     ref = cold.run([Request(rid=0, prompt=turn2, max_new_tokens=new)])
     same = ref[0].tokens == out[0].tokens
-    log(f"register_prefix llama3_8b: a {session.size}-token session registered "
+    log(f"register_prefix {SERVE_CONFIG}: a {session.size}-token session registered "
         f"{registered} tokens; turn 2 ({turn2.size} tokens) hit {hits}, prefilled "
         f"{turn2.size - hits}; its stream {'equals' if same else 'differs from'} a "
         f"cold engine's (a finding: contiguous vs paged computations)")
@@ -2408,7 +2433,7 @@ def radix_spec_phase(smi):
     8 slots), then the same 16 prompts under new rids on the same engine,
     whose trie now holds wave 1's replies, so wave 2 drafts them.
     Acceptance a wave; ``paged_chunk`` = (prefill chunks + verify steps)
-    x 32 a wave; wave 2's streams may leave wave 1's (same prompts) only
+    x the layers a wave; wave 2's streams may leave wave 1's (same prompts) only
     after a near-tie (``SPEC_FLIP_GAP_OF_RMS``, as serve[spec])."""
     from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
         ServingEngine,
@@ -2558,7 +2583,7 @@ def tiny_prefix_check():
 
 
 def prefix_phase(smi):
-    """The prefix-cache phases on one set of llama3_8b weights, then the
+    """The prefix-cache phases on one set of ``SERVE_CONFIG`` weights, then the
     tiny config card vs CPU; the weights are dropped at the end."""
     runs = {}
     try:
@@ -2671,7 +2696,7 @@ def _device_time(prof):
 def logits_phase():
     """One request's first-token logits (after 16 prefill chunks) and
     next-token logits (one decode step) under both attention impls, on
-    the same llama3_8b weights."""
+    the same llama3_8b weights at all 32 layers."""
     import torch
 
     from kubeflow_controller_tpu_torch.models import generate as gen
@@ -3284,8 +3309,8 @@ def tiny_int8_check():
 
 
 def int8_serve_phase(smi, runs):
-    """llama3_8b served with weight-only int8 projections, full width and
-    depth (seeded init, quantized after it is drawn): the 16 requests of
+    """``SERVE_CONFIG`` served with weight-only int8 projections (seeded
+    init, quantized after it is drawn): the 16 requests of
     256 + 32 over 8 slots in exact prefill (B1 once a layer an
     admission), bucketed prefill with lookup speculation on the tiled
     prompts (B6 once a layer a chunk and a verify step), and 4 requests
@@ -3295,10 +3320,9 @@ def int8_serve_phase(smi, runs):
     made here just before the int8 one); the weight bytes of both;
     ``(q, scale)`` card vs CPU; the tiny config card vs CPU."""
     from kubeflow_controller_tpu_torch.models import generate as gen
-    from kubeflow_controller_tpu_torch.models import transformer as tfm
 
     int8_quant_check()
-    cfg = tfm.llama3_8b_config()
+    cfg = _case_config(SERVE_CONFIG)
     n_layers = cfg.n_layers
     out = {}
     res, launches, _ = _serve_run("int8w.exact", smi, 16, quant="int8")
@@ -3333,7 +3357,7 @@ def int8_serve_phase(smi, runs):
     bytes16 = _weight_bytes(params16)
     bytes8 = _weight_bytes(gen.inference_params(cfg, params16, quant="int8"))
     _drop_llama()
-    log(f"int8 weights llama3_8b: {bytes8} bytes vs bf16 {bytes16} "
+    log(f"int8 weights {SERVE_CONFIG}: {bytes8} bytes vs bf16 {bytes16} "
         f"({bytes8 / bytes16} of bf16) | {smi}")
     for label, (bf16, b) in twins.items():
         a = out[label][0]
@@ -3350,12 +3374,13 @@ def int8_serve_phase(smi, runs):
 
 # -- the mixture-of-experts decoder -------------------------------------------------
 
-#: The mixtral_8x7b exact serve run's launches, written in PERF.md before
-#: the first run: B1 and its rope prepass once a layer an admission (16 x
-#: 32), B5 once a layer a decode micro-step (72 micro-steps for 16 requests
-#: of 32 tokens over 8 slots, the llama3_8b run's schedule), no B6.
-MIXTRAL_EXACT_LAUNCHES = {"flash_fwd": 512, "rope_rotate": 512,
-                          "paged_decode": 72 * 32, "paged_chunk": 0}
+#: The mixtral_8x7b exact serve run's launches a layer, written in PERF.md
+#: before the first run: B1 and its rope prepass once a layer an admission
+#: (16), B5 once a layer a decode micro-step (72 micro-steps for 16
+#: requests of 32 tokens over 8 slots, the llama3_8b run's schedule), no
+#: B6.
+MIXTRAL_EXACT_LAUNCHES = {"flash_fwd": 16, "rope_rotate": 16, "paged_decode": 72,
+                          "paged_chunk": 0}
 #: tiny_moe (fp32, TF32 off) card vs CPU: only summation order differs, and
 #: routing runs in fp32 on both, so the logits, the loss and each gradient
 #: leaf agree to ~1e-6 relative unless a router near-tie flips a pick.
@@ -3436,11 +3461,12 @@ def moe_tiny_check():
 
 
 def mixtral_serve_phase(smi):
-    """mixtral_8x7b at full width and depth (32 layers, 8 experts, top-2,
-    d_ff 14336) served with weight-only int8 from the streamed seeded
-    init (``serve(quant="int8")``: the bf16 tree would not fit): the 16
-    requests of 256 + 32 over 8 slots in exact prefill (launches
-    :data:`MIXTRAL_EXACT_LAUNCHES` exactly), then the 16 tiled prompts in
+    """mixtral_8x7b at full width (8 experts, top-2, d_ff 14336) and 8
+    of its 32 layers (``MOE_SERVE_CONFIG``) served with weight-only int8
+    from the streamed seeded init (``serve(quant="int8")``: at 32 layers
+    the bf16 tree would not fit): the 16 requests of 256 + 32 over 8
+    slots in exact prefill (launches :data:`MIXTRAL_EXACT_LAUNCHES` a
+    layer exactly), then the 16 tiled prompts in
     exact prefill and with lookup speculation (``draft_k=4``: B6 once a
     layer a verify step), the speculative streams held to the exact
     ones under the near-tie rule. Logs each run's peak memory beside the
@@ -3450,9 +3476,8 @@ def mixtral_serve_phase(smi):
     import torch
 
     from kubeflow_controller_tpu_torch.models import generate as gen
-    from kubeflow_controller_tpu_torch.models import transformer as tfm
 
-    cfg = tfm.mixtral_8x7b_config()
+    cfg = _case_config(MOE_SERVE_CONFIG)
     n_layers = cfg.n_layers
     runs = {}
 
@@ -3460,7 +3485,7 @@ def mixtral_serve_phase(smi):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        res, launches, streams = _serve_run(label, smi, 16, config="mixtral_8x7b",
+        res, launches, streams = _serve_run(label, smi, 16, config=MOE_SERVE_CONFIG,
                                             quant="int8", **kw)
         peak = torch.cuda.max_memory_allocated()
         log(f"serve[{label}] mixtral_8x7b int8: peak memory {peak} bytes "
@@ -3471,9 +3496,9 @@ def mixtral_serve_phase(smi):
 
     res, launches, _ = run("mixtral.exact")
     got = {k: launches[k] for k in MIXTRAL_EXACT_LAUNCHES}
-    if got != MIXTRAL_EXACT_LAUNCHES or res["prefill_chunks"] != 0:
-        raise AssertionError(f"serve[mixtral.exact]: launches {got} != "
-                             f"{MIXTRAL_EXACT_LAUNCHES}")
+    want = {k: v * n_layers for k, v in MIXTRAL_EXACT_LAUNCHES.items()}
+    if got != want or res["prefill_chunks"] != 0:
+        raise AssertionError(f"serve[mixtral.exact]: launches {got} != {want}")
     tiled = _tiled_prompts(os.path.join(OUT_DIR, "mixtral_tiled_prompts.jsonl"),
                            cfg.vocab_size, 16, 0)
     prompts = [r["prompt"] for r in _read_completions(tiled)]
@@ -3488,7 +3513,7 @@ def mixtral_serve_phase(smi):
             or launches["paged_chunk"] != res["spec_steps"] * n_layers
             or launches["paged_decode"] % n_layers):
         raise AssertionError(f"serve[mixtral.tiled.spec]: {res}, launches "
-                             f"{launches}: want paged_chunk = spec_steps x 32")
+                             f"{launches}: want paged_chunk = spec_steps x {n_layers}")
     plain_res = runs["mixtral.tiled.exact"][0]
     log(f"serve mixtral spec vs exact (tiled prompts, this run): acceptance "
         f"{res['acceptance_rate']}, verify steps {res['spec_steps']}, tpot_p50 "
@@ -3544,7 +3569,7 @@ def mixtral_train_phase(smi):
 
 def moe_phase(smi):
     """The MoE decoder: tiny_moe card vs CPU, mixtral_8x7b served (int8,
-    full depth) and trained (2 layers). Returns every run's record."""
+    8 layers) and trained (2 layers). Returns every run's record."""
     moe_tiny_check()
     return {**mixtral_serve_phase(smi), **mixtral_train_phase(smi)}
 
@@ -3691,8 +3716,6 @@ def resnet50_phase(smi):
     share and device time by kernel. Then resnet_tiny card vs CPU."""
     import shutil
 
-    import torch
-
     from kubeflow_controller_tpu_torch.dataplane import train as dtrain
     from kubeflow_controller_tpu_torch.dataplane.entrypoints import resnet
 
@@ -3702,9 +3725,7 @@ def resnet50_phase(smi):
         "resnet50", lambda: resnet.train(total_steps=RESNET_STEPS, per_chip_batch=128,
                                          model_dir=model_dir),
         RESNET_STEPS, smi)
-    ckpt = torch.load(os.path.join(model_dir, str(RESNET_STEPS), dtrain.PARAMS_FILE),
-                      map_location="cpu", weights_only=True)
-    stem = ckpt["model_state"]["stem_norm"]
+    stem = dtrain.CheckpointReader(model_dir, RESNET_STEPS).index["model_state"]["stem_norm"]
     moved = (float(stem["mean"].abs().max()), float((stem["var"] - 1).abs().max()))
     shutil.rmtree(model_dir, ignore_errors=True)
     if any(launches.values()) or not min(moved) > 0:
@@ -3886,6 +3907,20 @@ BERT_TP_LOSS_REL_TOL = 2.1e-4
 # ``needs``: the collectives the layout runs on its tensors beyond
 # all_reduce (probed first on the gang's backend).
 DIST_CASES = [
+    # llama3_70b at full width cut to one of its 80 layers (2.957 B
+    # parameters: embed and head 1.051 B each, the layer 0.856 B; 47.3 GB
+    # of fp32 weights, gradients and moments whole, 23.7 GB a rank at
+    # fsdp=2): the GQA group of 8 on the train path (B1, B2 at S=1024),
+    # and a checkpoint of ~35.5 GB that no rank gathers (C11): each
+    # rank's save, and its restore of the checkpoint at fsdp=2 (bit for
+    # bit), held to its steps' peak plus SAVE_PEAK_LEAF_COPIES copies of
+    # the largest leaf. Its one-process runs (the oracle alone holds 47.3
+    # GB) wait until the gang has gone (``after_gang``: _after_gang). It
+    # runs first, in the gang's fresh processes, with the host's memory
+    # and the card's free of the other layouts' caches.
+    dict(label="llama3_70b_1l.fsdp2", config="llama3_70b_1l", mesh=dict(dp=1, fsdp=2),
+         batch=1, seq=1024, steps=2, checkpoint=True, after_gang=True,
+         needs=("all_gather_into_tensor", "reduce_scatter_tensor"), change_cap=0.0428),
     dict(label="flagship.dp2", config="flagship", mesh=dict(dp=2), batch=8, seq=1024,
          steps=3, needs=(), change_cap=0.114),
     dict(label="flagship.fsdp2", config="flagship", mesh=dict(dp=1, fsdp=2), batch=8,
@@ -3985,7 +4020,8 @@ DIST_CASES = [
 # llama3_8b at S4096 0.0329; mixtral_8x7b at 1 layer: 0.1216 at ep=2,
 # 0.1167 at tp=2 (B2 S1024), 0.1418 at sp=2 (B1 S2048); the flagship's 8
 # layers with int8 at tp=2 0.1730, with 8-bit AdamW at fsdp=2 0.1768;
-# BERT-base 0.1164). The ring cases are held against the
+# BERT-base 0.1164; llama3_70b at 1 layer, fsdp=2, B2 S1024: 0.0214).
+# The ring cases are held against the
 # one-process flash run (``one_process_attn``): without a mesh the ring
 # is the plain attention, which is the yardstick itself.
 DIST_LOSS_REL_TOL = TRAIN_LOSS_REL_TOL
@@ -3996,11 +4032,121 @@ DIST_VS_YARDSTICK = 2.0
 # whole leaf or its whole gradient, its contiguous copy, its bf16
 # cast). A rank may exceed the plan by DIST_PEAK_LEAF_COPIES copies of
 # the largest leaf in fp32; a step that held every parameter and every
-# gradient whole would exceed that. This holds the steps' peak: a save
-# after them gathers the whole state (parameters and moments) on every
-# rank, which the plan does not count either; ``peak_gb`` includes it.
+# gradient whole would exceed that. This holds the steps' peak. A save
+# gathers nothing (each rank writes its chunks), so its own peak (reset
+# just before it) may exceed the steps' by SAVE_PEAK_LEAF_COPIES copies
+# of the largest leaf at most, and so may the gang's restore of its
+# checkpoint (``after_gang`` layouts); before C11 was fixed every rank
+# gathered the whole parameters and moments to save.
 DIST_PEAK_LEAF_COPIES = 3
+SAVE_PEAK_LEAF_COPIES = 1
 DIST_TIMEOUT_S = 900
+
+
+#: The memory gate's cases (``parallel/aot_check.py``, traced on fake
+#: CUDA tensors at S=8192): llama3_8b at the JAX package's mesh of two
+#: v5p-64 slices (``tests/test_llama_fits.py``), and llama3_70b at
+#: fsdp=16 x tp=8, tp inside an 8-card NVLink domain.
+AOT_CASES = (("llama3_8b", {"dp": 2, "fsdp": 16, "tp": 4}, 32),
+             ("llama3_70b", {"fsdp": 16, "tp": 8}, 16))
+AOT_SEQ = 8192
+CARD_BYTES = 80e9
+
+
+def _aot_records():
+    """The memory gate (``aot_trace_train_step(device="cuda")``) on each
+    of :data:`AOT_CASES` in this process, each record beside the plan
+    (``transformer_memory_plan``) and the card's 80 GB; raises if the
+    traces allocated anything on the card or launched anything."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints.lm import model_config
+    from kubeflow_controller_tpu_torch.parallel import aot_check, memory
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    _reset_launches()
+    out = {}
+    for name, axes, batch in AOT_CASES:
+        r = aot_check.aot_trace_train_step(name, axes, batch, seq=AOT_SEQ, device="cuda")
+        plan = memory.transformer_memory_plan(model_config(name), axes, batch, AOT_SEQ)
+        out[name] = dict(r, per_rank_bytes=r["argument_bytes_per_device"]
+                         + r["temp_bytes_per_device"], plan_bytes=plan.total,
+                         plan_argument_bytes=plan.params + plan.opt_state,
+                         plan_rows=dict(plan.rows()), card_bytes=CARD_BYTES)
+    torch.cuda.synchronize()
+    launches = _launches()
+    if any(launches.values()) or torch.cuda.memory_allocated() != before:
+        raise AssertionError(f"aot: launches {launches}, allocated "
+                             f"{torch.cuda.memory_allocated() - before} B on the card")
+    return out
+
+
+def _aot_worker(path) -> int:
+    """:func:`_aot_records` in a process of its own, written to ``path``."""
+    sys.path.insert(0, ROOT)
+    out = _aot_records()
+    with open(path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def aot_start():
+    """Start the memory gate's traces in a process of their own (they use
+    the host's cores, not the card), so that they run beside the phases
+    before :func:`aot_phase` reads them."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "aot.json")
+    if os.path.exists(path):
+        os.remove(path)
+    log_file = open(os.path.join(OUT_DIR, "aot.log"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke as c; raise SystemExit(c._aot_worker({path!r}))"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), stdout=log_file,
+        stderr=subprocess.STDOUT)
+    log_file.close()
+    return proc, path
+
+
+def aot_phase(smi, started=None):
+    """The memory gate: one AdamW train step of each :data:`AOT_CASES`
+    traced as rank 0 of a fake process group on fake CUDA tensors
+    (``started``: the traces :func:`aot_start` began, waited for here;
+    else traced now), its per-rank bytes beside the analytic plan and
+    the card's 80 GB, and the trace's seconds. The rank's parameters and
+    moments must be the plan's to the byte and the whole under the
+    card's memory; the traces allocate nothing on the card and launch
+    nothing."""
+    if started is None:
+        out = _aot_records()
+    else:
+        proc, path = started
+        try:
+            rc = proc.wait(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if rc != 0:
+            with open(os.path.join(OUT_DIR, "aot.log")) as f:
+                log(f"aot rc={rc}:\n{f.read()[-6000:]}")
+            raise AssertionError(f"aot: the traces' process failed (rc {rc})")
+        with open(path) as f:
+            out = json.load(f)
+    for (name, axes, batch), rec in zip(AOT_CASES, out.values()):
+        rec["fits"] = rec["per_rank_bytes"] < CARD_BYTES
+        log(f"aot[{name}] {json.dumps(rec)} | {smi}")
+        log(f"aot[{name}] mesh {axes} B{batch} S{AOT_SEQ}: "
+            f"{rec['per_rank_bytes'] / 1e9:.3f} GB a rank traced (arguments "
+            f"{rec['argument_bytes_per_device'] / 1e9:.3f}, temp "
+            f"{rec['temp_bytes_per_device'] / 1e9:.3f}) vs plan "
+            f"{rec['plan_bytes'] / 1e9:.3f} GB vs the card's {CARD_BYTES / 1e9:.0f} GB; "
+            f"trace {rec['trace_s']:.2f} s | {smi}")
+        if (rec["argument_bytes_per_device"] != rec["plan_argument_bytes"]
+                or not 2 ** 30 < rec["per_rank_bytes"] < CARD_BYTES):
+            raise AssertionError(f"aot[{name}]: {rec}")
+    return out
 
 
 def _send_recv_probe(device):
@@ -4113,6 +4259,25 @@ def _dist_expected(case, n_layers):
     elif case.get("quant") == "int8_fused":
         flash.update(int8_quantize_rows=21 * n_layers, int8_matmul=21 * n_layers)
     return flash
+
+
+#: Rank 0's one-process run, its yardstick and the init of a layout
+#: whose next layouts run the same (:func:`_one_process_key`), kept on
+#: the host until the next one takes them: the flagship at dp=2, fsdp=2,
+#: tp=2 and pp=2 (16 rows of S=1024, 3 steps) and at sp=2 ring and
+#: gathered (4 rows of S=2048).
+_ONE_PROCESS = {}
+
+
+def _one_process_key(case):
+    """What a layout's one-process runs depend on: the model, its
+    configuration, quantization and one-process attention, the global
+    batch, the sequence, the steps and the optimizer."""
+    _, dp, fsdp, ep, _, _ = _dist_mesh_config(case).resolve(2)
+    return (case.get("model"), case["config"], case.get("quant", ""),
+            case.get("one_process_attn", case.get("attn", "auto")),
+            case["batch"] * dp * fsdp * ep, case["seq"], case["steps"],
+            case.get("opt8bit", False))
 
 
 def _change_rel(got, want, init):
@@ -4232,8 +4397,6 @@ def _dist_mesh_config(case):
     return MeshConfig(**case["mesh"])
 
 
-
-
 def _dist_case(ctx, case, device):
     """One layout on this rank: its entry point (``lm.train``, or
     ``bert.train`` for ``model="bert"``) with the counts zeroed just
@@ -4256,7 +4419,7 @@ def _dist_case(ctx, case, device):
     from kubeflow_controller_tpu_torch.parallel import memory, sharding
     from kubeflow_controller_tpu_torch.parallel.mesh import make_mesh, mesh_for_context
 
-    kept, recs, step_peaks = [], [], []
+    kept, recs, step_peaks, saves = [], [], [], []
     real_run, real_save = dtrain.TrainLoop.run, dtrain.TrainLoop.save
 
     def keeping(loop, data, on_metrics=None, eval_iter=None):
@@ -4269,9 +4432,16 @@ def _dist_case(ctx, case, device):
         return real_run(loop, data, on_metrics=both, eval_iter=eval_iter)
 
     def saving(loop, wait=True):
-        # The steps' peak, before a save gathers the whole state.
+        # The steps' peak, then the save's own (seconds and peak memory,
+        # reset just before it).
         step_peaks.append(torch.cuda.max_memory_allocated(device))
-        return real_save(loop, wait=wait)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        t = time.perf_counter()
+        out = real_save(loop, wait=wait)
+        torch.cuda.synchronize(device)
+        saves.append((time.perf_counter() - t, torch.cuda.max_memory_allocated(device)))
+        return out
 
     is_bert = case.get("model") == "bert"
     mdir = (os.path.join(OUT_DIR, "dist_ckpt", case["label"]) if case.get("checkpoint")
@@ -4281,6 +4451,10 @@ def _dist_case(ctx, case, device):
     gc.collect()
     torch.cuda.synchronize(device)
     torch.cuda.empty_cache()
+    if case.get("after_gang"):
+        # The pinned host buffers gloo staged the cases before through
+        # (cached, rounded up to powers of two) go back to the machine.
+        torch._C._host_emptyCache()
     torch.cuda.reset_peak_memory_stats(device)
     start = torch.cuda.memory_allocated(device)
     _reset_launches()
@@ -4317,6 +4491,7 @@ def _dist_case(ctx, case, device):
     launches = _launches()
     peak = torch.cuda.max_memory_allocated(device)
     peak_steps = step_peaks[0] if step_peaks else peak
+    peak = max([peak_steps, peak] + [p for _, p in saves])
     loop = kept[0]
     axes = {k: v for k, v in loop.mesh.shape.items() if v > 1}
     rows_a_rank = case["batch"] * loop.mesh.axis_size("dp", "fsdp")
@@ -4326,11 +4501,15 @@ def _dist_case(ctx, case, device):
     else:
         plan = memory.transformer_memory_plan(cfg, axes, rows_a_rank, case["seq"],
                                               pp=bool(case.get("pp_microbatches")))
-    whole = [sharding.gather_full(p.detach(), s, loop.mesh)
-             for p, s in zip(tree_leaves(loop.state.params), loop._specs)]
-    whole_opt = loop._whole_state()[1] if mdir else None
-    names = _leaf_names(tree_unflatten(loop.state.params, loop._full_shapes))
     leaf = 4 * max(math.prod(s) for s in loop._full_shapes)
+    after_gang = case.get("after_gang", False)
+    restored = _gang_restore(loop, device) if after_gang else {}
+    # The whole state, for the comparisons with the one-process run (an
+    # after_gang layout's is read back from its checkpoint instead).
+    whole = [] if after_gang else [sharding.gather_full(p.detach(), s, loop.mesh)
+                                   for p, s in zip(tree_leaves(loop.state.params), loop._specs)]
+    whole_opt = _whole_opt(loop) if mdir and not after_gang else None
+    names = _leaf_names(tree_unflatten(loop.state.params, loop._full_shapes))
     del loop, kept
     steps = case["steps"]
     want = {k: v * steps for k, v in _dist_expected(case, cfg.n_layers).items()}
@@ -4343,7 +4522,8 @@ def _dist_case(ctx, case, device):
                peak_gb=peak / 1e9, peak_steps_gb=peak_steps / 1e9, plan_gb=plan.total / 1e9,
                plan_rows={k: v / 1e9 for k, v in plan.rows()},
                launches=launches,
-               launches_per_step={k: v / steps for k, v in launches.items() if v})
+               launches_per_step={k: v / steps for k, v in launches.items() if v},
+               **restored)
     if launches != want:
         raise AssertionError(f"dist[{case['label']}] rank {ctx.process_id}: "
                              f"launches {launches} != {want}")
@@ -4354,18 +4534,39 @@ def _dist_case(ctx, case, device):
                              f"{peak_steps / 1e9} GB (from {start / 1e9} GB allocated at "
                              f"the start) > the plan's {plan.total / 1e9} GB + "
                              f"{DIST_PEAK_LEAF_COPIES} x the largest leaf's {leaf / 1e9} GB")
-    if ctx.process_id == 0:
-        one = make_mesh(devices=[0], device_type="cuda")
-        # Without a mesh the ring is the plain attention, the yardstick:
-        # the ring cases are held against the flash run.
-        one_cfg = cfg.replace(attn_impl=case.get("one_process_attn", cfg.attn_impl))
-        ref_losses, ref = _loop_run(case, one_cfg, device, one)
-        ref_leaves = [p.detach() for p in tree_leaves(ref.state.params)]
-        del ref
-        yard_losses, yard = _loop_run(case, cfg.replace(attn_impl="xla"), device, one)
-        yard_leaves = [p.detach() for p in tree_leaves(yard.state.params)]
-        del yard
-        init = tree_leaves((bert if is_bert else tfm).init_params(cfg, seed=0, device=device))
+    if mdir:
+        save_s, save_peak = saves[0]
+        io_limit = peak_steps + SAVE_PEAK_LEAF_COPIES * leaf
+        rec.update(save_s=save_s, save_peak_gb=save_peak / 1e9, io_limit_gb=io_limit / 1e9)
+        worst = max(save_peak, int(rec.get("restore_peak_gb", 0) * 1e9))
+        if worst > io_limit or not rec.get("restore_equal", True):
+            raise AssertionError(
+                f"dist[{case['label']}] rank {ctx.process_id}: save peak "
+                f"{save_peak / 1e9} GB, restore peak {rec.get('restore_peak_gb')} GB "
+                f"against the steps' {peak_steps / 1e9} GB + {SAVE_PEAK_LEAF_COPIES} x "
+                f"{leaf / 1e9} GB; restored bit for bit: {rec.get('restore_equal')}")
+    if ctx.process_id == 0 and not after_gang:
+        key = _one_process_key(case)
+        if key in _ONE_PROCESS:
+            ref_losses, yard_losses, *host = _ONE_PROCESS.pop(key)
+            ref_leaves, yard_leaves, init = [[t.to(device) for t in h] for h in host]
+        else:
+            one = make_mesh(devices=[0], device_type="cuda")
+            # Without a mesh the ring is the plain attention, the
+            # yardstick: the ring cases are held against the flash run.
+            one_cfg = cfg.replace(attn_impl=case.get("one_process_attn", cfg.attn_impl))
+            ref_losses, ref = _loop_run(case, one_cfg, device, one)
+            ref_leaves = [p.detach() for p in tree_leaves(ref.state.params)]
+            del ref
+            yard_losses, yard = _loop_run(case, cfg.replace(attn_impl="xla"), device, one)
+            yard_leaves = [p.detach() for p in tree_leaves(yard.state.params)]
+            del yard
+            init = tree_leaves((bert if is_bert else tfm).init_params(cfg, seed=0,
+                                                                      device=device))
+        if case.get("keep_one_process"):
+            _ONE_PROCESS[key] = (ref_losses, yard_losses, *[
+                [t.to("cpu", copy=True) for t in leaves]
+                for leaves in (ref_leaves, yard_leaves, init)])
         rel_whole, rel = _change_rel(whole, ref_leaves, init)
         yard_whole, yard_rel = _change_rel(yard_leaves, ref_leaves, init)
         loss_rel = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"], ref_losses))
@@ -4413,6 +4614,218 @@ def _dist_case(ctx, case, device):
     return rec
 
 
+def _whole_opt(loop):
+    """``loop``'s optimizer state with each of its chunked tensors
+    gathered whole over the loop's mesh: what a one-process restore of
+    its checkpoint holds."""
+    from kubeflow_controller_tpu_torch.dataplane import train as dtrain
+    from kubeflow_controller_tpu_torch.parallel import sharding
+
+    return dtrain.with_opt_tensors(loop.tx.state_dict(), {
+        key: sharding.gather_full(t, spec, loop.mesh)
+        for key, spec, t in loop.optimizer_chunks()})
+
+
+def _gang_restore(loop, device):
+    """The gang's restore of its own checkpoint at its mesh (C11): this
+    rank's chunks (parameters, moments and step counts) copied to the
+    host (with gloo's cached pinned staging buffers handed back first:
+    two ranks' copies of llama3_70b_1l are 35.5 GB of the machine's 96
+    GiB; the card has no room for them beside both ranks' state), the
+    state zeroed, ``restore()`` timed with the peak memory reset just
+    before it, then every chunk held bit for bit against its copy.
+    Returns the record's additions."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.convert import tree_leaves
+
+    def tensors():
+        opt = loop.tx.opt.state_dict()["state"]
+        return tree_leaves(loop.state.params) + [
+            opt[i][k] for i in sorted(opt) for k in sorted(opt[i])]
+
+    torch._C._host_emptyCache()
+    saved = [t.detach().to("cpu", copy=True) for t in tensors()]
+    step = loop.state.step
+    with torch.no_grad():
+        for t in tensors():
+            t.zero_()
+    loop.state.step = 0
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    ok = loop.restore()
+    torch.cuda.synchronize(device)
+    restore_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    now = tensors()
+    same = (ok and loop.state.step == step and len(now) == len(saved)
+            and all(torch.equal(a.detach(), b.to(a.device)) for a, b in zip(now, saved)))
+    copies = sum(t.untyped_storage().nbytes() for t in saved)
+    del saved
+    return dict(restore_s=restore_s, restore_peak_gb=peak / 1e9, restore_equal=bool(same),
+                restored_step=loop.state.step, restored_bytes=copies)
+
+
+def _after_gang(case, recs, smi):
+    """An ``after_gang`` layout's checks, in this process once the gang
+    has gone (its one-process runs do not fit beside the gang on one
+    card): the one-process run of the same batches, init and steps (the
+    oracle) and its plain-attention yardstick, each timed with its peak
+    memory above what was held before it (the oracle's parameters stay
+    on the card), then a one-process restore of the gang's checkpoint
+    (timed, its peak read the same way), whose parameters are the
+    gang's: held against the
+    oracle's as every layout's are (rank 0's losses within the case's
+    tolerance; the change from the init within DIST_VS_YARDSTICK times
+    the yardstick's and within the case's ``change_cap``, whole and worst
+    leaf). The checkpoint is removed afterwards."""
+    import gc
+    import shutil
+
+    import torch
+
+    from kubeflow_controller_tpu_torch.convert import tree_leaves, tree_unflatten
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+    from kubeflow_controller_tpu_torch.parallel.mesh import make_mesh
+
+    label = case["label"]
+    device = torch.device("cuda:0")
+    mdir = os.path.join(OUT_DIR, "dist_ckpt", label)
+    cfg = _case_config(case["config"], max_seq=max(case["seq"], 128),
+                       attn_impl=case.get("attn", "auto"))
+    one = make_mesh(devices=[0], device_type="cuda")
+    # The oracle's parameters stay on the card (llama3_70b_1l's 11.8 GB
+    # beside the yardstick's 61 GB peak), each run's others go with its
+    # loop: the yardstick is compared with the oracle as it ends.
+    runs, oracle, ynum = {}, None, []
+    for name, c in (("one_process", cfg), ("yardstick", cfg.replace(attn_impl="xla"))):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
+        t = time.perf_counter()
+        losses, loop = _loop_run(case, c, device, one)
+        torch.cuda.synchronize(device)
+        runs[name] = dict(losses=losses, wall_s=time.perf_counter() - t,
+                          peak_gb=(torch.cuda.max_memory_allocated(device) - held) / 1e9)
+        leaves = [p.detach() for p in tree_leaves(loop.state.params)]
+        if oracle is None:
+            oracle = leaves
+        else:
+            ynum = [float((y - o).float().norm()) ** 2 for y, o in zip(leaves, oracle)]
+        del loop, leaves
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    held = torch.cuda.memory_allocated(device)
+    _, lp = _loop_run(case, cfg, device, one, model_dir=mdir)
+    t = time.perf_counter()
+    ok = lp.restore()
+    torch.cuda.synchronize(device)
+    restore_s = time.perf_counter() - t
+    restore_peak = torch.cuda.max_memory_allocated(device) - held
+    restored_step = lp.state.step
+    lp.tx.opt.state.clear()                  # the gang's moments: read, not compared
+    gang = [p.detach() for p in tree_leaves(lp.state.params)]
+    names = _leaf_names(tree_unflatten(lp.state.params, lp._full_shapes))
+    init = tree_leaves(tfm.init_params(cfg, seed=0, device=device))
+    num = [float((g - o).float().norm()) ** 2 for g, o in zip(gang, oracle)]
+    den = [float((o - i).float().norm()) ** 2 for o, i in zip(oracle, init)]
+    del lp, gang, init, oracle
+    shutil.rmtree(mdir, ignore_errors=True)
+    rel_whole = math.sqrt(sum(num) / sum(den))
+    yard_whole = math.sqrt(sum(ynum) / sum(den))
+    rel = [math.sqrt(n / max(d, 1e-60)) for n, d in zip(num, den)]
+    yard_rel = [math.sqrt(n / max(d, 1e-60)) for n, d in zip(ynum, den)]
+    gang_losses = recs[0]["losses"]
+    ref_losses = runs["one_process"]["losses"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(gang_losses, ref_losses))
+    yard_loss_rel = max(abs(a - b) / abs(b)
+                        for a, b in zip(runs["yardstick"]["losses"], ref_losses))
+    loss_tol = case.get("loss_tol", DIST_LOSS_REL_TOL)
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    rec = dict(one_process_losses=ref_losses, gang_losses=gang_losses, loss_rel=loss_rel,
+               yardstick_losses=runs["yardstick"]["losses"],
+               yardstick_loss_rel=yard_loss_rel, loss_tol=loss_tol,
+               param_change_rel_l2=rel_whole,
+               param_change_rel_l2_worst=(names[worst], rel[worst]),
+               yardstick_rel_l2=yard_whole, yardstick_rel_l2_worst=max(yard_rel),
+               change_cap=case["change_cap"],
+               one_process_wall_s=runs["one_process"]["wall_s"],
+               one_process_peak_gb=runs["one_process"]["peak_gb"],
+               yardstick_wall_s=runs["yardstick"]["wall_s"],
+               yardstick_peak_gb=runs["yardstick"]["peak_gb"],
+               one_process_restore_s=restore_s, one_process_restore_peak_gb=restore_peak / 1e9,
+               one_process_restored_step=restored_step)
+    log(f"dist[{label}] after the gang (one process on cuda:0) {json.dumps(rec)} | {smi}")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (ok and restored_step == case["steps"]
+            and all(math.isfinite(x) for x in gang_losses)
+            and loss_rel <= loss_tol
+            and rel_whole <= min(DIST_VS_YARDSTICK * yard_whole, case["change_cap"])
+            and max(rel) <= DIST_VS_YARDSTICK * max(yard_rel)):
+        raise AssertionError(
+            f"dist[{label}] vs one process: restored {ok} at step {restored_step}, loss "
+            f"rel {loss_rel} (tol {loss_tol}; the yardstick's {yard_loss_rel}), change "
+            f"rel L2 {rel_whole} and worst leaf {rec['param_change_rel_l2_worst']} "
+            f"against {DIST_VS_YARDSTICK} x the yardstick's {yard_whole} (cap "
+            f"{case['change_cap']}) and {max(yard_rel)}")
+    return rec
+
+
+def _checkpoint_bytes(case) -> int:
+    """The bytes of a layout's checkpoint: its fp32 parameters and AdamW
+    moments."""
+    from kubeflow_controller_tpu_torch.convert import tree_leaves
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+
+    cfg = _case_config(case["config"])
+    return 12 * sum(math.prod(s) for s in tree_leaves(tfm.param_shapes(cfg)))
+
+
+#: The serving phases' models: llama3_8b and mixtral_8x7b at full width
+#: and 8 of their 32 layers. Serving is host-bound (the launches of one
+#: micro-step are a layer's times the depth), so its seconds follow the
+#: depth: at all 32 layers the serving phases took 530 of the script's
+#: 1100 s on an H100 80GB HBM3 at 700 W, against the script's limit of
+#: 1200 s. The logits phase and its profile keep all 32 layers.
+SERVE_CONFIG = "llama3_8b_8l"
+MOE_SERVE_CONFIG = "mixtral_8x7b_8l"
+#: The configurations cut in depth: name -> (the configuration, its
+#: layers). The serving phases' two above; for the gang's layouts
+#: llama3_8b cut to 2 layers (its fp32 state at 32 layers is ~128 GB),
+#: mixtral_8x7b to 1 (~750 GB at 32 layers; 27 GB at 1), llama3_70b to 1
+#: (1.13 TB at 80 layers; 47.3 GB at 1), the flagship at full width to 8
+#: (DIST_CASES says why).
+CUT_CONFIGS = {SERVE_CONFIG: ("llama3_8b", 8), MOE_SERVE_CONFIG: ("mixtral_8x7b", 8),
+               "llama3_8b_2l": ("llama3_8b", 2), "mixtral_8x7b_1l": ("mixtral_8x7b", 1),
+               "llama3_70b_1l": ("llama3_70b", 1), "flagship_8l": ("flagship", 8)}
+
+
+def _case_config(name, **overrides):
+    """``lm.model_config(name, **overrides)``, a :data:`CUT_CONFIGS` name
+    at its depth."""
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints import lm
+
+    base, layers = CUT_CONFIGS.get(name, (name, None))
+    if layers is not None:
+        overrides = dict(overrides, n_layers=layers)
+    return lm.model_config(base, **overrides)
+
+
+def _register_cut_configs() -> None:
+    """:data:`CUT_CONFIGS` by name in ``lm.CONFIGS`` of this process, for
+    the entry points called with them (``serve`` in the serving phases,
+    ``lm.train`` in a gang's rank)."""
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints import lm
+
+    for name in CUT_CONFIGS:
+        lm.CONFIGS[name] = lambda name=name, **kw: _case_config(name, **kw)
+
+
 def _dist_worker() -> int:
     """One rank of ``dist_phase``'s gang: join through
     ``initialize_from_env`` (the env a pod gets), probe the backend's
@@ -4424,21 +4837,18 @@ def _dist_worker() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from kubeflow_controller_tpu_torch.dataplane import dist as ddist
-    from kubeflow_controller_tpu_torch.dataplane.entrypoints import lm
-    from kubeflow_controller_tpu_torch.models import transformer as tfm
 
     spec = json.loads(os.environ["CHIP_SMOKE_DIST"])
-    # llama3_8b cut to 2 layers (its fp32 state at 32 layers is ~128 GB),
-    # mixtral_8x7b to 1 (~750 GB at 32 layers; 27 GB at 1).
-    lm.CONFIGS["llama3_8b_2l"] = lambda **kw: tfm.llama3_8b_config(n_layers=2, **kw)
-    lm.CONFIGS["mixtral_8x7b_1l"] = lambda **kw: tfm.mixtral_8x7b_config(n_layers=1, **kw)
-    # The flagship at full width cut to 8 layers (DIST_CASES says why).
-    lm.CONFIGS["flagship_8l"] = lambda **kw: tfm.flagship_config(n_layers=8, **kw)
+    _register_cut_configs()
     ctx = ddist.initialize_from_env(backend=spec["backend"])
     device = ddist.local_device(ctx)
     probe = _dist_probe(device)
     out = {"rank": ctx.process_id, "device": str(device), "probe": probe, "cases": {}}
-    for case in _dist_cases(spec.get("labels")):
+    cases = _dist_cases(spec.get("labels"))
+    for i, case in enumerate(cases):
+        if not case.get("after_gang"):
+            case = dict(case, keep_one_process=any(
+                _one_process_key(c) == _one_process_key(case) for c in cases[i + 1:]))
         missing = [n for n in case["needs"] if probe.get(n) is not True]
         if missing:
             out["cases"][case["label"]] = {"skipped": {n: probe.get(n) for n in missing}}
@@ -4473,7 +4883,9 @@ def dist_phase(smi, labels=None):
     (checkpointed: the quantized moments restored by one process) and
     BERT-base at tp=2 through
     ``bert.train``; each against a one-process run (``labels``: only
-    those layouts). NCCL with
+    those layouts); first, llama3_70b at full width and 1 layer at
+    fsdp=2, checkpointed and restored by the gang, its one-process runs
+    and restore after the gang (:func:`_after_gang`). NCCL with
     a card a rank when there are two cards; gloo with both ranks on
     cuda:0 on one (NCCL refuses two ranks on one card). The kernels were
     built before the gang starts, so no two ranks build at once. Per
@@ -4495,6 +4907,16 @@ def dist_phase(smi, labels=None):
     shutil.rmtree(out, ignore_errors=True)
     shutil.rmtree(os.path.join(OUT_DIR, "dist_ckpt"), ignore_errors=True)
     os.makedirs(out)
+    # The after_gang layouts' checkpoints stay on disk until the gang has
+    # gone; the others' are removed by rank 0 within their case.
+    need = max([_checkpoint_bytes(c) for c in _dist_cases(labels) if c.get("after_gang")],
+               default=0)
+    free = shutil.disk_usage(OUT_DIR).free
+    log(f"dist: {free / 1e9:.1f} GB free on the disk of {OUT_DIR}; the largest "
+        f"checkpoint kept past its case takes {need / 1e9:.1f} GB")
+    if need and free < 1.1 * need:
+        raise AssertionError(f"dist: {free / 1e9:.1f} GB free cannot hold a "
+                             f"{need / 1e9:.1f} GB checkpoint")
     torch.cuda.empty_cache()
     log(f"dist: this process holds {torch.cuda.memory_allocated() / 1e9:.3f} GB "
         f"allocated, {torch.cuda.memory_reserved() / 1e9:.3f} GB reserved on cuda:0")
@@ -4508,6 +4930,12 @@ def dist_phase(smi, labels=None):
         env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
                    JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(rank),
                    CHIP_SMOKE_DIST=spec, PYTHONPATH=ROOT)
+        if cards < 2:
+            # Two ranks share one card: each rank's allocator grows and
+            # shrinks its segments rather than keeping freed blocks the
+            # other rank needs (llama3_70b_1l.fsdp2 peaks at ~30 GiB a rank
+            # at once on both, with ~7 GiB a rank left unusable otherwise).
+            env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
         f = open(os.path.join(out, f"rank{rank}.log"), "w")
         logs.append(f)
         procs.append(subprocess.Popen(
@@ -4549,6 +4977,10 @@ def dist_phase(smi, labels=None):
         for rec in recs:
             log(f"dist[{label}] {backend} {cards} card(s) {json.dumps(rec)} | {smi}")
         r0 = recs[0]
+        if case.get("after_gang"):
+            r0 = dict(r0, loss_rel=float("nan"), param_change_rel_l2=float("nan"),
+                      param_change_rel_l2_worst="after the gang", yardstick_rel_l2=float("nan"),
+                      yardstick_rel_l2_worst=float("nan"))
         log(f"dist[{label}] summary ({backend}, {cards} card(s), 2 ranks): step ms "
             f"{[round(r['step_ms_median_steady'], 2) for r in recs]} (median of the "
             f"steps after the first, per rank), steps' peak GB "
@@ -4560,9 +4992,20 @@ def dist_phase(smi, labels=None):
             f"yardstick {r0['yardstick_rel_l2']:.4f} (worst "
             f"{r0['yardstick_rel_l2_worst']:.4f})"
             + (f", restored step {r0['restored_step']} equal {r0['restore_equal']}"
-               if "restore_equal" in r0 else "") + f" | {smi}")
-    shutil.rmtree(os.path.join(OUT_DIR, "dist_ckpt"), ignore_errors=True)
+               if "restore_equal" in r0 else "")
+            + (f", save s {[round(r['save_s'], 2) for r in recs]} peak GB "
+               f"{[round(r['save_peak_gb'], 3) for r in recs]} (limit "
+               f"{[round(r['io_limit_gb'], 3) for r in recs]})" if "save_s" in r0 else "")
+            + (f", the gang's restore s {[round(r['restore_s'], 2) for r in recs]} peak GB "
+               f"{[round(r['restore_peak_gb'], 3) for r in recs]}" if case.get("after_gang")
+               else "") + f" | {smi}")
     log(f"dist: {time.perf_counter() - t0:.1f} s of gang")
+    for case in _dist_cases(labels):
+        if case.get("after_gang") and case["label"] in runs:
+            t = time.perf_counter()
+            runs[case["label"]][0]["after_gang"] = _after_gang(case, runs[case["label"]], smi)
+            log(f"dist[{case['label']}] after the gang: {time.perf_counter() - t:.1f} s")
+    shutil.rmtree(os.path.join(OUT_DIR, "dist_ckpt"), ignore_errors=True)
     return runs
 
 
@@ -4584,9 +5027,24 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
     os.makedirs(OUT_DIR, exist_ok=True)
     open(os.path.join(OUT_DIR, "log.txt"), "w").close()
+    # The memory gate's traces run on the host's cores beside the phases
+    # before its own.
+    aot = aot_start()
+    try:
+        return _phases(aot)
+    finally:
+        if aot[0].poll() is None:
+            aot[0].kill()
+            aot[0].wait()
+
+
+def _phases(aot) -> int:
+    """Every phase in order, then the kernels line and the last line."""
+    import torch
+
+    t0 = time.perf_counter()
 
     def phase(name, fn, *args):
         t = time.perf_counter()
@@ -4595,6 +5053,7 @@ def main() -> int:
         log(f"phase {name}: {time.perf_counter() - t:.1f} s")
         return out
 
+    _register_cut_configs()
     smi = phase("device", device_phase)
     recs = phase("paged kernels", kernel_phase)
     phase("two streams", two_stream_check)
@@ -4609,6 +5068,7 @@ def main() -> int:
     phase("checkpoint", checkpoint_phase, smi)
     model_runs = phase("models", models_phase, smi)
     dist_runs = phase("dist", dist_phase, smi)
+    phase("aot", aot_phase, smi, aot)
     launches = runs["fp"][1]
     line = {"kernels": []}
     for name, case, replaces in KERNELS:

@@ -1,9 +1,8 @@
 """Causal-LM pretraining entry point, and the model table.
 
 Counterpart of ``kubeflow_controller_tpu/dataplane/entrypoints/lm.py``:
-the configurations by name (``CONFIGS``, with ``bench.py``'s flagship
-decoder as ``"flagship"``; the JAX table's other entries are refused by
-name in ``NOT_YET_PORTED`` until a later slice ports them), the token
+the configurations by name (``CONFIGS``: the JAX table's, with
+``bench.py``'s flagship decoder as ``"flagship"``), the token
 streams (:func:`synthetic_lm`, byte for byte the JAX
 package's, and :func:`token_bin_lm`), and :func:`train`, which runs the
 decoder through ``TrainLoop`` over the job's mesh (``mesh_config``: dp,
@@ -73,13 +72,12 @@ CONFIGS = {
     "tiny_moe": tfm.tiny_moe_config,
     "llama3_8b": tfm.llama3_8b_config,
     "mixtral_8x7b": tfm.mixtral_8x7b_config,
+    # Trains over a mesh; serving it waits for tensor-parallel serving
+    # (serve_lm.NOT_SERVED).
+    "llama3_70b": tfm.llama3_70b_config,
     # bench.py's flagship decoder, which the JAX table does not name.
     "flagship": tfm.flagship_config,
 }
-
-#: Configurations of the JAX package's table this port does not run yet
-#: (llama3_70b needs tensor parallelism).
-NOT_YET_PORTED = ("llama3_70b",)
 
 
 def synthetic_lm(
@@ -171,10 +169,7 @@ def token_bin_lm(
 
 
 def model_config(config: str, **overrides) -> tfm.TransformerConfig:
-    """The named configuration with ``overrides``; refuses names of the
-    JAX table this port does not run yet."""
-    if config in NOT_YET_PORTED:
-        raise NotImplementedError(f"config {config!r} is not yet ported")
+    """The named configuration with ``overrides``."""
     if config not in CONFIGS:
         raise ValueError(f"unknown config {config!r} (have {sorted(CONFIGS)})")
     return CONFIGS[config](**overrides)
@@ -290,7 +285,7 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     p = argparse.ArgumentParser()
     p.add_argument("--config", default="tiny",
-                   choices=sorted(CONFIGS) + list(NOT_YET_PORTED))
+                   choices=sorted(CONFIGS))
     p.add_argument("--total-steps", type=int, default=100)
     p.add_argument("--batch", type=int, default=4,
                    help="per-data-shard batch size")

@@ -48,11 +48,15 @@ import numpy as np
 
 from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
 from kubeflow_controller_tpu_torch.dataplane.entrypoints.lm import (
-    CONFIGS, NOT_YET_PORTED, model_config,
+    CONFIGS, model_config,
 )
 from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
 
 logger = logging.getLogger("tpujob.serve_lm_torch")
+
+#: Configurations lm.train trains that serve() refuses: llama3_70b's
+#: weights fit no one card, and serving over tp is not yet ported.
+NOT_SERVED = ("llama3_70b",)
 
 #: serve() keywords of features not ported yet, with the value that means
 #: "off". Any other value raises NotImplementedError.
@@ -254,6 +258,10 @@ def serve(
         raise NotImplementedError(
             f"multi-process serving (num_processes={ctx.num_processes}) is "
             "not yet ported")
+    if config in NOT_SERVED:
+        raise NotImplementedError(
+            f"serving config {config!r} is not yet ported (it needs "
+            "tensor-parallel serving)")
     cfg = model_config(config)
     dev = resolve_device(device)
     params, restored_step = _load_params(cfg, model_dir or ctx.model_dir,
@@ -429,7 +437,7 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO)
     p = argparse.ArgumentParser()
     p.add_argument("--config", default="tiny",
-                   choices=sorted(CONFIGS) + list(NOT_YET_PORTED))
+                   choices=sorted(CONFIGS))
     p.add_argument("--model-dir", default="",
                    help="checkpoint dir written by the port's lm.train "
                         "(TPUJOB_MODEL_DIR analog); fresh init when empty")

@@ -37,20 +37,33 @@ evaluates every ``eval_every`` steps and reports them as ``val_*``.
 Checkpoints: with a ``model_dir``, :meth:`TrainLoop.run` resumes from
 the latest checkpoint there, saves every ``checkpoint_every`` steps and
 at the end, and keeps the newest ``keep_checkpoints``. A checkpoint is
-the directory ``model_dir/<step>/`` holding ``params.pt`` (the step, the
-parameters and the model state) and ``opt.pt`` (the optimizer's whole
-state), written with ``torch.save`` into a temporary directory that is
-then renamed, so a save cut short never leaves a checkpoint that
-:meth:`restore` would pick. Over a mesh every rank gathers the whole
-state and the mesh's first rank writes it, in the one-device layout;
-every rank restores the whole state and keeps its chunks, so a
-checkpoint resumes at another world size and serves on one card. The JAX package's checkpoints are orbax
+the directory ``model_dir/<step>/``: ``index.pt`` (the step, the model
+state, the parameter and optimizer trees with a key in place of each
+tensor that has a dimension, and per key its whole shape, dtype and
+which rank's file holds which chunk) and ``chunks-<rank>.pt``, the
+chunks that rank was the first to hold (``sharding.chunk_writers``), as
+orbax writes each device's shards. The files go into a temporary
+directory that is then renamed, so a save cut short never leaves a
+checkpoint that :meth:`restore` would pick. No rank gathers a leaf to
+save it, and ``torch.save`` copies one chunk at a time to the host. A
+restore at any world size (one process included) reads each rank's
+region of each leaf from the memory-mapped chunk files that overlap it,
+a leaf at a time, into the device (:class:`CheckpointReader`), and
+:func:`load_params` reads the whole parameters the same way for
+serving. The JAX package's checkpoints are orbax
 directories, which this format does not read; ``convert.py`` carries
 JAX weights across as numpy arrays.
 
-``async_checkpoint``: a periodic save copies the state to the host
-synchronously (the next step updates the parameters in place) and writes
-it in a background thread; the final save waits for it. Multi-step
+Every rank marks its chunks as written in the process group's store;
+the mesh's first rank waits for every mark, then writes the index and
+renames the directory, and every rank learns the outcome there, so a
+rank's failure is raised on each. ``async_checkpoint``: a periodic save
+copies each rank's chunks to the host synchronously (the next step
+updates the parameters in place) and writes and commits them in a
+background thread, as orbax finalizes in the background: the
+checkpoint is restorable as soon as that thread ends, whether or not
+another save follows; the next save, restore or
+:meth:`TrainLoop.wait_for_save` joins it and raises its error. Multi-step
 dispatch (``steps_per_call = K > 1``): each item of the data iterator is
 a ``[K, ...]`` chunk (``device_prefetch(chunk=K, yield_chunks=True)``),
 trimmed to the steps that remain, stepped through in one call; its
@@ -66,12 +79,12 @@ from __future__ import annotations
 import logging
 import os
 import queue
+import secrets
 import shutil
-import tempfile
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -233,7 +246,12 @@ class TrainState:
     model_state: Any = field(default_factory=dict)
 
 
-PARAMS_FILE, OPT_FILE = "params.pt", "opt.pt"
+INDEX_FILE = "index.pt"
+
+
+def chunks_file(rank: int) -> str:
+    """The file of a checkpoint that holds the chunks rank ``rank`` wrote."""
+    return f"chunks-{rank}.pt"
 
 
 def checkpoint_steps(model_dir: str) -> List[int]:
@@ -244,17 +262,55 @@ def checkpoint_steps(model_dir: str) -> List[int]:
     return sorted(
         int(name) for name in os.listdir(model_dir)
         if name.isdigit() and os.path.isfile(
-            os.path.join(model_dir, name, OPT_FILE)))
+            os.path.join(model_dir, name, INDEX_FILE)))
+
+
+class CheckpointReader:
+    """The checkpoint ``model_dir/<step>/``: its index (``index``: the
+    step, the model state, the parameter and optimizer trees with a key
+    in place of each chunked tensor, and per key its whole shape, dtype
+    and chunks) and its chunk files, each memory-mapped when a read
+    first needs it."""
+
+    def __init__(self, model_dir: str, step: int):
+        self.path = os.path.join(model_dir, str(step))
+        self.index = torch.load(os.path.join(self.path, INDEX_FILE),
+                                map_location="cpu", weights_only=True)
+        self._files: Dict[int, Dict[str, torch.Tensor]] = {}
+
+    def shape(self, key: str) -> tuple:
+        return tuple(self.index["entries"][key]["shape"])
+
+    def _chunk(self, rank: int, key: str) -> torch.Tensor:
+        if rank not in self._files:
+            self._files[rank] = torch.load(
+                os.path.join(self.path, chunks_file(rank)), map_location="cpu",
+                mmap=True, weights_only=True)
+        return self._files[rank][key]
+
+    def read(self, key: str, box: Optional[sharding.Box] = None,
+             device: DeviceLike = None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The region ``box`` (default: the whole tensor) of tensor
+        ``key``, copied from the chunks that overlap it into ``out`` or a
+        new tensor on ``device``; nothing else of the tensor is read."""
+        entry = self.index["entries"][key]
+        if box is None:
+            box = tuple((0, n) for n in entry["shape"])
+        if out is None:
+            out = torch.empty([h - l for l, h in box], dtype=entry["dtype"],
+                              device=resolve_device(device))
+        pieces = [(tuple(map(tuple, b)), lambda r=r: self._chunk(r, key))
+                  for r, b in entry["chunks"]]
+        return sharding.fill_box(out, box, pieces)
 
 
 def load_params(model_dir: str, step: int, device: DeviceLike = None):
-    """The parameters of the checkpoint at ``step`` on ``device``, read
-    without the optimizer's state."""
-    ckpt = torch.load(os.path.join(model_dir, str(step), PARAMS_FILE),
-                      map_location="cpu", mmap=True, weights_only=True)
+    """The whole parameters of the checkpoint at ``step`` on ``device``,
+    read a leaf at a time, without the optimizer's state."""
+    reader = CheckpointReader(model_dir, step)
     dev = resolve_device(device)
-    return tree_unflatten(ckpt["params"],
-                          [t.to(dev) for t in tree_leaves(ckpt["params"])])
+    keys = reader.index["params"]
+    return tree_unflatten(keys, [reader.read(k, device=dev) for k in tree_leaves(keys)])
 
 
 class TrainLoop:
@@ -523,39 +579,39 @@ class TrainLoop:
     def save(self, wait: bool = True) -> None:
         """Write the state as ``model_dir/<step>/`` (a no-op without a
         model dir, or when that step is saved already, as the reference's
-        checkpoint manager skips it): into a temporary directory first,
-        renamed when both files are down, then prune all but the newest
-        ``keep_checkpoints``. ``wait=False`` copies the state to the host
-        now and writes it in a background thread; any save first waits
-        for the one before it."""
+        checkpoint manager skips it): every rank writes the chunks it is
+        the first to hold into a temporary directory, then the mesh's
+        first rank, once every rank's chunks are down, writes the index,
+        renames the directory and prunes all but the newest
+        ``keep_checkpoints`` (:meth:`_write_and_commit`). No rank gathers
+        a leaf: ``torch.save`` copies one chunk at a time to the host.
+        ``wait=False`` copies this rank's chunks to the host now and
+        writes and commits them in a background thread; the next save,
+        restore or :meth:`wait_for_save` joins it."""
         self.wait_for_save()
         if not self.model_dir:
             return
         step = int(self.state.step)
         if self._agree(os.path.exists(os.path.join(self.model_dir, str(step)))):
             return
-        params, opt = self._whole_state()
-        payload = ({"step": step, "params": params,
-                    "model_state": self.state.model_state}, opt)
+        index, mine = self._checkpoint_payload()
+        tmp, tag = self._make_tmp(step)
         if wait:
-            if self._writer():
-                self._write(step, payload)
-            self._barrier()     # the other ranks see the checkpoint
-            return
-        if not self._writer():
+            self._write_and_commit(step, tmp, tag, index, mine)
+            self.wait_for_save()
             return
         # The optimizer updates the parameters and its state in place:
         # the background thread writes a host copy taken now.
-        payload = _to_host(payload)
         self._saver = threading.Thread(
-            target=self._write_async, args=(step, payload), daemon=True)
+            target=self._write_and_commit,
+            args=(step, tmp, tag, _to_host(index), _to_host(mine)), daemon=True)
         self._saver.start()
 
     def _mesh_group(self):
         return self.mesh.group(*AXES)
 
     def _writer(self) -> bool:
-        """Whether this rank writes checkpoints: the mesh's first."""
+        """Whether this rank writes the index: the mesh's first."""
         return self.mesh.rank == int(self.mesh.devices.flat[0])
 
     def _barrier(self) -> None:
@@ -571,103 +627,149 @@ class TrainLoop:
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._mesh_group())
         return int(t.item())
 
-    def _whole_state(self):
-        """The whole parameters and optimizer state (gathered from every
-        rank's chunks over a mesh), detached."""
+    def optimizer_chunks(self) -> Iterator[Tuple[str, Any, torch.Tensor]]:
+        """This rank's per-parameter optimizer tensors of one or more
+        dimensions as ``(key, spec, tensor)``: the key as in
+        :func:`opt_tensors`, the spec by ``sharding.moment_spec`` (where
+        the tensor lives on the mesh)."""
+        shapes = [p.shape for p in tree_leaves(self.state.params)]
+        for key, i, v in opt_tensors(self.tx.state_dict()):
+            if isinstance(v, torch.Tensor) and v.ndim > 0:
+                yield key, sharding.moment_spec(v.shape, shapes[i], self._specs[i]), v
+
+    def _checkpoint_payload(self):
+        """``(index, mine)``: the index of a checkpoint of the current
+        state (the step, the model state, the trees with each chunked
+        tensor replaced by its key, and per key its whole shape, dtype
+        and which rank writes which chunk), and this rank's chunks to
+        write (key -> tensor, still on the device)."""
+        mine: Dict[str, torch.Tensor] = {}
+        entries: Dict[str, Dict[str, Any]] = {}
+
+        def place(t, spec, key):
+            shape = sharding.whole_shape(t.shape, spec, self.mesh)
+            writers = sharding.chunk_writers(shape, spec, self.mesh)
+            entries[key] = {"shape": shape, "dtype": t.dtype, "chunks": writers}
+            if any(r == self.mesh.rank for r, _ in writers):
+                mine[key] = t.detach()
+            return key
+
         leaves = tree_leaves(self.state.params)
-        opt = self.tx.state_dict()
-        if not self.distributed:
-            return tree_unflatten(self.state.params, [p.detach() for p in leaves]), opt
         params = tree_unflatten(self.state.params, [
-            sharding.gather_full(p.detach(), s, self.mesh)
-            for p, s in zip(leaves, self._specs)])
-        return params, self._map_opt_state(
-            opt, [p.shape for p in leaves],
-            lambda v, spec: sharding.gather_full(v, spec, self.mesh))
+            place(p, s, f"params/{i}") for i, (p, s) in enumerate(zip(leaves, self._specs))])
+        opt = with_opt_tensors(self.tx.state_dict(), {
+            key: place(t, spec, key) for key, spec, t in self.optimizer_chunks()})
+        index = {"step": int(self.state.step), "params": params, "opt": opt,
+                 "model_state": self.state.model_state, "entries": entries}
+        return index, mine
 
-    def _shard_opt_state(self, opt):
-        """A whole optimizer state (from a checkpoint) -> this rank's."""
-        if not self.distributed:
-            return opt
-        return self._map_opt_state(
-            opt, self._full_shapes,
-            lambda v, spec: sharding.local_shard(v, spec, self.mesh))
+    def _make_tmp(self, step: int) -> Tuple[str, int]:
+        """The temporary directory of the checkpoint at ``step``, made by
+        the first rank (after removing those of saves cut short), and the
+        save's tag: a number the first rank draws, the same on every rank
+        once each has seen the directory."""
+        tmp = os.path.join(self.model_dir, f".tmp-{step}-chunks")
+        if self._writer():
+            os.makedirs(self.model_dir, exist_ok=True)
+            for name in os.listdir(self.model_dir):
+                if name.startswith(".tmp-"):       # a save cut short earlier
+                    shutil.rmtree(os.path.join(self.model_dir, name))
+            os.makedirs(tmp)
+        return tmp, self._agree(secrets.randbits(62) if self._writer() else 0)
 
-    def _map_opt_state(self, opt, shapes, fn):
-        """``opt`` (a ``state_dict``) with ``fn(tensor, spec)`` applied to
-        each of its per-parameter tensors, the spec by
-        ``sharding.moment_spec`` from the parameters' ``shapes`` (chunks'
-        or whole): a ``torch.optim`` state (AdamW, SGD) under ``"opt"``,
-        or 8-bit AdamW's per-leaf ``"m"`` and ``"v"`` (codes and
-        statistics)."""
-        if "opt" in opt:
-            inner = opt["opt"]
-            specs = sharding.opt_state_specs(inner["state"], shapes, self._specs)
-            inner = dict(inner, state={
-                i: {k: fn(v, specs[i][k]) if isinstance(v, torch.Tensor) and v.ndim > 0
-                    else v for k, v in st.items()}
-                for i, st in inner["state"].items()})
-            return dict(opt, opt=inner)
-        if "m" in opt and "v" in opt:
-            return dict(opt, **{key: [
-                {k: fn(v, sharding.moment_spec(v.shape, shape, s)) for k, v in leaf.items()}
-                for leaf, shape, s in zip(opt[key], shapes, self._specs)]
-                for key in ("m", "v")})
-        return opt
+    def _write_and_commit(self, step: int, tmp: str, tag: int, index, mine) -> None:
+        """Write this rank's chunks, then commit: over a mesh each rank
+        marks its chunks as written (or failed) under the save's ``tag``
+        in the process group's store, the first rank waits for every mark
+        and, when all are written, finishes the checkpoint (index,
+        rename, prune) and marks the outcome, which every other rank
+        waits for. Each rank keeps the same verdict for
+        :meth:`wait_for_save`: its own error, another rank's failure, or
+        none. Needs no collective, so it runs beside the steps."""
+        error = _attempt(_write_chunks, tmp, self.mesh.rank, mine)
+        if self.distributed:
+            try:
+                error = self._commit_in_store(step, tmp, tag, index, error)
+            except BaseException as e:  # the store itself failed
+                error = error or e
+        elif error is None:
+            error = _attempt(self._finish, step, tmp, index)
+        self._save_error = error
+
+    def _commit_in_store(self, step: int, tmp: str, tag: int, index,
+                         error: Optional[BaseException]) -> Optional[BaseException]:
+        store = dist.distributed_c10d._get_default_store()
+        key = f"checkpoint/{tag}/"
+        store.set(key + str(self.mesh.rank), "ok" if error is None else "failed")
+        if self._writer():
+            marks = [key + str(int(r)) for r in self.mesh.devices.flat]
+            store.wait(marks)
+            if error is None and any(store.get(k) != b"ok" for k in marks):
+                error = RuntimeError(f"another rank failed to write checkpoint {step}")
+            if error is None:
+                error = _attempt(self._finish, step, tmp, index)
+            store.set(key + "commit", "ok" if error is None else "failed")
+        else:
+            store.wait([key + "commit"])
+            if error is None and store.get(key + "commit") != b"ok":
+                error = RuntimeError(f"checkpoint {step} was not committed")
+        return error
+
+    def _finish(self, step: int, tmp: str, index) -> None:
+        torch.save(index, os.path.join(tmp, INDEX_FILE))
+        os.rename(tmp, os.path.join(self.model_dir, str(step)))
+        for old in checkpoint_steps(self.model_dir)[:-max(1, self.config.keep_checkpoints)]:
+            shutil.rmtree(os.path.join(self.model_dir, str(old)))
 
     def wait_for_save(self) -> None:
-        """Wait for the background save in flight, if any; raise its
-        error here."""
+        """Join the background save in flight, if any, and raise the last
+        save's error here (on every rank, when any rank failed)."""
         if self._saver is not None:
             self._saver.join()
             self._saver = None
-        if self._save_error is not None:
-            err, self._save_error = self._save_error, None
-            raise err
-
-    def _write_async(self, step: int, payload) -> None:
-        try:
-            self._write(step, payload)
-        except BaseException as e:  # raised again by wait_for_save
-            self._save_error = e
-
-    def _write(self, step: int, payload) -> None:
-        final = os.path.join(self.model_dir, str(step))
-        os.makedirs(self.model_dir, exist_ok=True)
-        for name in os.listdir(self.model_dir):
-            if name.startswith(".tmp-"):       # a save cut short earlier
-                shutil.rmtree(os.path.join(self.model_dir, name))
-        tmp = tempfile.mkdtemp(prefix=f".tmp-{step}-", dir=self.model_dir)
-        torch.save(payload[0], os.path.join(tmp, PARAMS_FILE))
-        torch.save(payload[1], os.path.join(tmp, OPT_FILE))
-        os.rename(tmp, final)
-        for old in checkpoint_steps(self.model_dir)[:-max(1, self.config.keep_checkpoints)]:
-            shutil.rmtree(os.path.join(self.model_dir, str(old)))
+        error, self._save_error = self._save_error, None
+        if error is not None:
+            raise error
 
     def restore(self) -> bool:
         """Resume from the latest checkpoint in ``model_dir``, if any:
         the parameters (in place), the model state, the optimizer's state
         and the step, on the loop's device. The path by which a preempted job continues
-        instead of starting again at step 0."""
+        instead of starting again at step 0. Each rank reads its own
+        region of each leaf (at whatever world size the checkpoint was
+        written) from the memory-mapped chunk files, one leaf at a time,
+        straight into the device."""
         self.wait_for_save()
         self._barrier()
         steps = checkpoint_steps(self.model_dir)
         latest = self._agree(steps[-1] if steps else -1)
         if latest < 0:
             return False
-        path = os.path.join(self.model_dir, str(latest))
-        ckpt = torch.load(os.path.join(path, PARAMS_FILE),
-                          map_location=self.device, weights_only=True)
+        reader = CheckpointReader(self.model_dir, latest)
+        index = reader.index
+        keys = tree_leaves(index["params"])
         with torch.no_grad():
-            for p, q, s in zip(tree_leaves(self.state.params),
-                               tree_leaves(ckpt["params"]), self._specs):
-                p.copy_(sharding.local_shard(q, s, self.mesh)
-                        if self.distributed else q)
-        self.state.model_state = ckpt.get("model_state", {})
-        self.tx.load_state_dict(self._shard_opt_state(torch.load(
-            os.path.join(path, OPT_FILE), map_location=self.device,
-            weights_only=True)))
-        self.state.step = int(ckpt["step"])
+            for p, key, s in zip(tree_leaves(self.state.params), keys, self._specs):
+                reader.read(key, sharding.chunk_box(reader.shape(key), s, self.mesh), out=p)
+        self.state.model_state = _to_device(index.get("model_state", {}), self.device)
+        # The optimizer's current tensors (8-bit AdamW's, or AdamW's after
+        # a step) are read into in place; the others are made here.
+        current = {key: t for key, _, t in self.optimizer_chunks()}
+        values: Dict[str, torch.Tensor] = {}
+        with torch.no_grad():
+            for key, i, v in opt_tensors(index["opt"]):
+                if not isinstance(v, str):     # a step count, kept in the index
+                    continue
+                spec = sharding.moment_spec(reader.shape(v), reader.shape(keys[i]),
+                                            self._specs[i])
+                box = sharding.chunk_box(reader.shape(v), spec, self.mesh)
+                mine = current.get(key)
+                if mine is not None and tuple(mine.shape) == tuple(h - l for l, h in box):
+                    values[key] = reader.read(v, box, out=mine)
+                else:
+                    values[key] = reader.read(v, box, device=self.device)
+            self.tx.load_state_dict(with_opt_tensors(index["opt"], values))
+        self.state.step = int(index["step"])
         logger.info("restored checkpoint at step %d", self.state.step)
         return True
 
@@ -741,6 +843,38 @@ class TrainLoop:
         return self.state
 
 
+def opt_tensors(opt) -> Iterator[Tuple[str, int, Any]]:
+    """The per-parameter entries of an optimizer ``state_dict`` as ``(key,
+    leaf index, value)``: a ``torch.optim`` state's (AdamW, SGD) under
+    ``"opt"`` as ``opt/<i>/<name>``, 8-bit AdamW's per-leaf ``"m"`` and
+    ``"v"`` (codes and statistics) as ``m/<i>/<name>``. In a
+    checkpoint's index a chunked tensor's value is its key."""
+    if "opt" in opt:
+        for i, st in opt["opt"]["state"].items():
+            for name, v in st.items():
+                yield f"opt/{i}/{name}", int(i), v
+    elif "m" in opt and "v" in opt:
+        for which in ("m", "v"):
+            for i, leaf in enumerate(opt[which]):
+                for name, v in leaf.items():
+                    yield f"{which}/{i}/{name}", i, v
+
+
+def with_opt_tensors(opt, values: Dict[str, Any]):
+    """A copy of ``opt`` (a ``state_dict``) with the entry at each key of
+    ``values`` (keys as :func:`opt_tensors` gives them) replaced."""
+    if "opt" in opt:
+        inner = opt["opt"]
+        return dict(opt, opt=dict(inner, state={
+            i: {name: values.get(f"opt/{i}/{name}", v) for name, v in st.items()}
+            for i, st in inner["state"].items()}))
+    if "m" in opt and "v" in opt:
+        return dict(opt, **{which: [
+            {name: values.get(f"{which}/{i}/{name}", v) for name, v in leaf.items()}
+            for i, leaf in enumerate(opt[which])] for which in ("m", "v")})
+    return opt
+
+
 def _to_host(tree):
     """A copy of ``tree`` (dicts, lists, tuples of tensors and plain
     values) with every tensor copied to host memory."""
@@ -751,6 +885,31 @@ def _to_host(tree):
     if isinstance(tree, torch.Tensor):
         return tree.detach().to("cpu", copy=True)
     return tree
+
+
+def _to_device(tree, device: torch.device):
+    """``tree`` (as :func:`_to_host` takes) with every tensor on ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_device(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    return tree
+
+
+def _attempt(fn, *args) -> Optional[BaseException]:
+    """``fn(*args)``; the exception it raised, or ``None``."""
+    try:
+        fn(*args)
+    except BaseException as e:  # kept for wait_for_save, which raises it
+        return e
+    return None
+
+
+def _write_chunks(tmp: str, rank: int, mine: Dict[str, torch.Tensor]) -> None:
+    if mine:
+        torch.save(mine, os.path.join(tmp, chunks_file(rank)))
 
 
 def _start_profile(device: torch.device):

@@ -178,6 +178,17 @@ def llama3_8b_config(**kw) -> TransformerConfig:
     return base.replace(**kw)
 
 
+def llama3_70b_config(**kw) -> TransformerConfig:
+    """Llama-3-70B: head_dim 128 and a GQA group of 8 query heads a KV
+    head. 70.6 B parameters, 1.13 TB of fp32 AdamW state: it trains over
+    a mesh (fsdp and tp), and ``parallel/aot_check.py`` says which."""
+    base = TransformerConfig(
+        vocab_size=128256, d_model=8192, n_layers=80, n_heads=64,
+        n_kv_heads=8, d_ff=28672, max_seq=8192, rope_theta=500000.0,
+    )
+    return base.replace(**kw)
+
+
 # -- params ------------------------------------------------------------------
 
 #: The expert banks of a MoE layer: ``w_gate`` and ``w_up`` ``[L, E, D,

@@ -44,8 +44,17 @@ and the two-pass kernels (:func:`flash_bwd_two_pass`) otherwise, so the
 same ``S`` and blocks take the same route in both packages. The blocks choose nothing else here: Hopper
 tiles are the kernels' own.
 
-``LAUNCHES`` counts kernel launches per kernel; each wrapper adds one
-where it launches and nowhere else.
+Each kernel entry is an operator (``torch.ops.kfc.rope_rotate``,
+``flash_fwd``, ``flash_bwd_prep``, ``flash_bwd_fused``,
+``flash_bwd_post``, ``flash_bwd_kv``, ``flash_bwd_dq``;
+``ops/_library.py``): the dispatcher launches the kernel on CUDA
+tensors, runs its plain version on CPU tensors and, on fake tensors,
+allocates what the kernel's wrapper allocates. The entry points compose
+the operators the same way on every device, so the CPU runs the plain
+version of each kernel in the kernels' order (bit for bit the whole-row
+plain versions above). ``LAUNCHES`` counts kernel launches per kernel;
+each operator's CUDA implementation adds one where it launches and
+nowhere else.
 """
 
 from __future__ import annotations
@@ -53,6 +62,9 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+
+from kubeflow_controller_tpu_torch.ops._library import define
 
 NEG_INF = -1e30
 DEFAULT_BLOCK_Q = 1024
@@ -248,12 +260,13 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
 
 
-def flash_bwd_post_plain(dq_acc: torch.Tensor, rope_tables) -> torch.Tensor:
-    """fp32 ``[B, S, H, D]`` dq in rotation space -> bf16 dq: counter-rotated
-    (``-S``) in fp32 and cast once."""
+def flash_bwd_post_plain(dq_acc: torch.Tensor, rope_tables,
+                         dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """fp32 ``[B, S, H, D]`` dq in rotation space -> dq in ``dtype``:
+    counter-rotated (``-S``) in fp32 and cast once."""
     if rope_tables is not None:
         dq_acc = _rope_rot(dq_acc, rope_tables[0], -rope_tables[1])
-    return dq_acc.to(torch.bfloat16)
+    return dq_acc.to(dtype)
 
 
 def flash_bwd_dkdv_plain(q, k, v, do, lse, delta, segment_ids=None,
@@ -305,17 +318,18 @@ def flash_bwd_fused_plain(q, k, v, o, lse, do, segment_ids=None,
     return _dq_from(kh, ds, rope_tables, q), dk, dv
 
 
-# -- kernel launches ----------------------------------------------------------
+# -- the kernels as operators ----------------------------------------------------
+#
+# One operator per kernel entry (``ops/_library.py``): the CUDA
+# implementation launches the kernel, the CPU one is its plain version,
+# the fake allocates the CUDA implementation's outputs. The entry points
+# below compose them the same way on every device.
 
 def _check(name, q, k, v, *rest, segment_ids=None, rope_tables=None):
     """Validate the operands of a kernel launch; returns the pointers of
     the optional segment ids and rope tables (None when absent) and the
     contiguous int32 segment ids to keep alive across the launch."""
     dev = q.device
-    if dev.type != "cuda":
-        raise RuntimeError(
-            f"{name} runs its CUDA kernel on cuda tensors and its plain "
-            f"version on cpu tensors (got {dev})")
     b, s, h, d = q.shape
     if q.dtype != torch.bfloat16:
         raise TypeError(f"{name}: the flash kernels take bfloat16 (got {q.dtype})")
@@ -368,17 +382,19 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def rope_rotate(q: torch.Tensor, k: torch.Tensor, rope_tables):
-    """``(q, k)`` rotated by the tables, each in its dtype: the prepass
-    kernel on CUDA tensors (one launch for both), :func:`_rope_rot` on
-    CPU tensors. Both round like ``_rope_rot``: two fp32 products, their
-    sum, one cast."""
-    c, st = rope_tables
-    if q.device.type == "cpu":
-        return _rope_rot(q, c, st), _rope_rot(k, c, st)
+def _tables(c, s) -> RopeTables:
+    return None if c is None else (c, s)
+
+
+def _lse_like(q: torch.Tensor) -> torch.Tensor:
+    b, s, h, _ = q.shape
+    return q.new_empty((b, h, s), dtype=torch.float32)
+
+
+def _rope_rotate_cuda(q, k, c, st):
     from kubeflow_controller_tpu_torch.ops import _build
 
-    _check("rope_rotate", q, k, k, rope_tables=rope_tables)   # k also stands in for v
+    _check("rope_rotate", q, k, k, rope_tables=(c, st))   # k also stands in for v
     b, s, h, d = q.shape
     q_out, k_out = torch.empty_like(q), torch.empty_like(k)
     rc = _build.load().kfc_rope_rotate(
@@ -390,49 +406,53 @@ def rope_rotate(q: torch.Tensor, k: torch.Tensor, rope_tables):
     return q_out, k_out
 
 
-def flash_bwd_prep(o: torch.Tensor, do: torch.Tensor, scratch: bool = True):
-    """``(delta [B, H, S] fp32, dq scratch [B, S, H, D] fp32 zeros)``: the
-    backward's prepass kernel on CUDA tensors (one launch for both),
-    :func:`attention_delta` and ``torch.zeros`` on CPU tensors. With
-    ``scratch=False`` (the two-pass backward) the scratch is None and the
-    kernel writes delta alone."""
-    b, s, h, d = o.shape
-    if o.device.type == "cpu":
-        return attention_delta(o, do), (
-            torch.zeros(o.shape, dtype=torch.float32) if scratch else None)
+_rope_rotate_op = define(
+    "rope_rotate(Tensor q, Tensor k, Tensor c, Tensor s) -> (Tensor, Tensor)",
+    cpu=lambda q, k, c, st: (_rope_rot(q, c, st), _rope_rot(k, c, st)),
+    cuda=_rope_rotate_cuda,
+    fake=lambda q, k, c, st: (torch.empty_like(q), torch.empty_like(k)))
+
+
+def _prep_cpu(o, do, scratch):
+    return attention_delta(o, do), (
+        torch.zeros(o.shape, dtype=torch.float32) if scratch else o.new_empty((0,), dtype=torch.float32))
+
+
+def _prep_cuda(o, do, scratch):
     from kubeflow_controller_tpu_torch.ops import _build
 
+    b, s, h, d = o.shape
     _check("flash_bwd_prep", o, do, do)
     if d not in WGMMA_HEAD_DIMS or do.shape != o.shape:
         raise ValueError(f"flash_bwd_prep: o and do [B, S, H, D] with D in "
                          f"{WGMMA_HEAD_DIMS} (got {tuple(o.shape)}, {tuple(do.shape)})")
-    delta = torch.empty((b, h, s), dtype=torch.float32, device=o.device)
-    dq_acc = (torch.empty(o.shape, dtype=torch.float32, device=o.device)
-              if scratch else None)
+    delta = _lse_like(o)
+    dq_acc = o.new_empty(o.shape if scratch else (0,), dtype=torch.float32)
     rc = _build.load().kfc_flash_bwd_prep(
         o.data_ptr(), do.data_ptr(), delta.data_ptr(),
-        None if dq_acc is None else dq_acc.data_ptr(), b, s, h, d,
-        _stream(o.device))
+        dq_acc.data_ptr() if scratch else None, b, s, h, d, _stream(o.device))
     _raise_on(rc, "flash_bwd_prep")
     LAUNCHES["flash_bwd_prep"] += 1
     return delta, dq_acc
 
 
-def flash_bwd_post(dq_acc: torch.Tensor, rope_tables: RopeTables) -> torch.Tensor:
-    """bf16 dq from the fused backward's fp32 scratch: the postprocess
-    kernel on CUDA tensors, :func:`flash_bwd_post_plain` on CPU tensors
-    (the same roundings: bit for bit)."""
-    if dq_acc.device.type == "cpu":
-        return flash_bwd_post_plain(dq_acc, rope_tables)
+_prep_op = define(
+    "flash_bwd_prep(Tensor o, Tensor dout, bool scratch) -> (Tensor, Tensor)",
+    cpu=_prep_cpu, cuda=_prep_cuda,
+    fake=lambda o, do, scratch: (
+        _lse_like(o), o.new_empty(o.shape if scratch else (0,), dtype=torch.float32)))
+
+
+def _post_cuda(dq_acc, c, st, dtype):
     from kubeflow_controller_tpu_torch.ops import _build
 
     b, s, h, d = dq_acc.shape
-    if dq_acc.dtype != torch.float32 or not dq_acc.is_contiguous() or d % 16:
+    if (dq_acc.dtype != torch.float32 or not dq_acc.is_contiguous() or d % 16
+            or dtype != torch.bfloat16):
         raise ValueError("flash_bwd_post: dq_acc must be contiguous float32 "
-                         "[B, S, H, D], D a multiple of 16")
+                         "[B, S, H, D], D a multiple of 16, and dq bfloat16")
     c_p = s_p = None
-    if rope_tables is not None:
-        c, st = rope_tables
+    if c is not None:
         for t in (c, st):
             if (t.shape != (b, s, d) or t.dtype != torch.float32
                     or t.device != dq_acc.device or not t.is_contiguous()):
@@ -448,17 +468,21 @@ def flash_bwd_post(dq_acc: torch.Tensor, rope_tables: RopeTables) -> torch.Tenso
     return dq
 
 
-def _fwd_kernel(q, k, v, segment_ids, rope_tables, causal):
+_post_op = define(
+    "flash_bwd_post(Tensor dq_acc, Tensor? c, Tensor? s, ScalarType dtype) -> Tensor",
+    cpu=lambda dq_acc, c, st, dtype: flash_bwd_post_plain(dq_acc, _tables(c, st), dtype),
+    cuda=_post_cuda,
+    fake=lambda dq_acc, c, st, dtype: dq_acc.new_empty(dq_acc.shape, dtype=dtype))
+
+
+def _fwd_cuda(q, k, v, segment_ids, c, st, causal):
     from kubeflow_controller_tpu_torch.ops import _build
 
     seg, seg_p, c_p, s_p = _check("flash_fwd", q, k, v, segment_ids=segment_ids,
-                                  rope_tables=rope_tables)
+                                  rope_tables=_tables(c, st))
     b, s, h, d = q.shape
-    if rope_tables is not None and d in WGMMA_HEAD_DIMS:
-        q, k = rope_rotate(q, k, rope_tables)
-        c_p = s_p = None
     o = torch.empty_like(q)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    lse = _lse_like(q)
     rc = _build.load().kfc_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_p, c_p, s_p,
         o.data_ptr(), lse.data_ptr(), b, s, h, k.shape[2], d,
@@ -468,69 +492,88 @@ def _fwd_kernel(q, k, v, segment_ids, rope_tables, causal):
     return o, lse
 
 
-def _bwd_kv_kernel(name, q, k, v, do, lse, delta, segment_ids, rope_tables,
-                   causal, dq_acc):
-    """One launch of the dk/dv kernel; with ``dq_acc`` (fp32 ``[B, S, H,
-    D]`` zeros) it is the fused kernel and also adds every tile's dq
-    into ``dq_acc``, still in rotation space. At head_dim 64 and 128 (no
-    ``dq_acc``) q and k must come rotated already: the tables only
-    counter-rotate dk."""
+_fwd_op = define(
+    "flash_fwd(Tensor q, Tensor k, Tensor v, Tensor? segment_ids, Tensor? c, "
+    "Tensor? s, bool causal) -> (Tensor, Tensor)",
+    cpu=lambda q, k, v, seg, c, st, causal: flash_fwd_plain(
+        q, k, v, seg, _tables(c, st), causal),
+    cuda=_fwd_cuda,
+    fake=lambda q, k, v, seg, c, st, causal: (torch.empty_like(q), _lse_like(q)))
+
+
+def _kv_plain(q, k, v, do, lse, delta, segment_ids, c, st, dq_acc, causal):
+    """The dk/dv kernels' arithmetic: at head_dim 64 and 128 q and k come
+    rotated (the tables only counter-rotate dk), at the others they are
+    rotated here; with ``dq_acc`` also each query's dq, in rotation
+    space, added into it (the fused kernels)."""
+    rope = _tables(c, st)
+    on_load = None if q.shape[-1] in WGMMA_HEAD_DIMS else rope
+    qh, kh, p, ds = _bwd_terms(q, k, v, do, lse, delta, segment_ids, on_load, causal)
+    if dq_acc is not None:
+        dq_acc.add_((ds.to(kh.dtype).float() @ kh.float()).transpose(1, 2))
+    return _dkdv_from(qh, p, ds, do, rope, k, v)
+
+
+def _kv_cuda(name, q, k, v, do, lse, delta, segment_ids, c, st, dq_acc, causal):
+    """One launch of the dk/dv kernel (``name``: the fused wgmma kernel,
+    or the dk/dv kernel, which with ``dq_acc`` also adds every tile's dq
+    into it)."""
     from kubeflow_controller_tpu_torch.ops import _build
 
     seg, seg_p, c_p, s_p = _check(name, q, k, v, do, lse, delta,
-                                  segment_ids=segment_ids,
-                                  rope_tables=rope_tables)
+                                  segment_ids=segment_ids, rope_tables=_tables(c, st))
     b, s, h, d = q.shape
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"{name}: do must match q")
     _check_residuals(name, lse, delta, (b, h, s))
+    if dq_acc is not None and (dq_acc.shape != q.shape or dq_acc.dtype != torch.float32
+                               or not dq_acc.is_contiguous()):
+        raise ValueError(f"{name}: dq_acc must be contiguous float32 [B, S, H, D]")
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = _build.load().kfc_flash_bwd_kv(
+    entry = (_build.load().kfc_flash_bwd_fused if name == "flash_bwd_fused"
+             else _build.load().kfc_flash_bwd_kv)
+    rc = entry(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), seg_p, c_p, s_p, dk.data_ptr(),
         dv.data_ptr(), None if dq_acc is None else dq_acc.data_ptr(),
-        b, s, h, k.shape[2], d, float(d ** -0.5), int(causal),
-        _stream(q.device))
+        b, s, h, k.shape[2], d, float(d ** -0.5), int(causal), _stream(q.device))
     _raise_on(rc, name)
-    LAUNCHES[name] += 1
+    LAUNCHES["flash_bwd_fused" if dq_acc is not None else "flash_bwd_dkdv"] += 1
     return dk, dv
 
 
-def _bwd_fused_wgmma(q, k, v, o, lse, do, segment_ids, rope_tables, causal):
-    """The fused backward at head_dim 64 and 128: rope prepass, delta and
-    scratch prepass, the warpgroup kernel (dk, dv; dq into the scratch by
-    16-byte reductions, in a launch-dependent order), dq postprocess."""
-    from kubeflow_controller_tpu_torch.ops import _build
-
-    name = "flash_bwd_fused"
-    seg, seg_p, c_p, s_p = _check(name, q, k, v, o, do, lse,
-                                  segment_ids=segment_ids,
-                                  rope_tables=rope_tables)
-    b, s, h, d = q.shape
-    if do.shape != q.shape or do.dtype != q.dtype or o.shape != q.shape:
-        raise ValueError(f"{name}: o and do must match q")
-    qr, kr = _rotated_for_kernels(q, k, rope_tables)
-    delta, dq_acc = flash_bwd_prep(o, do)
-    _check_residuals(name, lse, delta, (b, h, s))
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rc = _build.load().kfc_flash_bwd_fused(
-        qr.data_ptr(), kr.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), seg_p, c_p, s_p, dk.data_ptr(),
-        dv.data_ptr(), dq_acc.data_ptr(), b, s, h, k.shape[2], d,
-        float(d ** -0.5), int(causal), _stream(q.device))
-    _raise_on(rc, name)
-    LAUNCHES[name] += 1
-    return flash_bwd_post(dq_acc, rope_tables), dk, dv
+def _kv_fake(q, k, v, do, lse, delta, seg, c, st, dq_acc, causal):
+    return torch.empty_like(k), torch.empty_like(v)
 
 
-def _dq_kernel(q, k, v, do, lse, delta, segment_ids, rope_tables, causal):
-    """One launch of the dq kernel; at head_dim 64 and 128 q and k must
-    come rotated already (the tables only counter-rotate dq)."""
+_BWD_ARGS = ("Tensor q, Tensor k, Tensor v, Tensor dout, Tensor lse, Tensor delta, "
+             "Tensor? segment_ids, Tensor? c, Tensor? s")
+_fused_op = define(
+    f"flash_bwd_fused({_BWD_ARGS}, Tensor(a!) dq_acc, bool causal) -> (Tensor, Tensor)",
+    cpu=_kv_plain,
+    cuda=lambda *a: _kv_cuda("flash_bwd_fused", *a),
+    fake=_kv_fake)
+_kv_op = define(
+    f"flash_bwd_kv({_BWD_ARGS}, Tensor(a!)? dq_acc, bool causal) -> (Tensor, Tensor)",
+    cpu=_kv_plain,
+    cuda=lambda *a: _kv_cuda("flash_bwd_kv", *a),
+    fake=_kv_fake)
+
+
+def _dq_plain(q, k, v, do, lse, delta, segment_ids, c, st, causal):
+    """The dq kernel's arithmetic (q and k rotated as :func:`_kv_plain`
+    takes them)."""
+    rope = _tables(c, st)
+    on_load = None if q.shape[-1] in WGMMA_HEAD_DIMS else rope
+    _, kh, _, ds = _bwd_terms(q, k, v, do, lse, delta, segment_ids, on_load, causal)
+    return _dq_from(kh, ds, rope, q)
+
+
+def _dq_cuda(q, k, v, do, lse, delta, segment_ids, c, st, causal):
     from kubeflow_controller_tpu_torch.ops import _build
 
     seg, seg_p, c_p, s_p = _check("flash_bwd_dq", q, k, v, do, lse, delta,
-                                  segment_ids=segment_ids,
-                                  rope_tables=rope_tables)
+                                  segment_ids=segment_ids, rope_tables=_tables(c, st))
     b, s, h, d = q.shape
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError("flash_bwd_dq: do must match q")
@@ -539,42 +582,23 @@ def _dq_kernel(q, k, v, do, lse, delta, segment_ids, rope_tables, causal):
     rc = _build.load().kfc_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), seg_p, c_p, s_p, dq.data_ptr(),
-        b, s, h, k.shape[2], d, float(d ** -0.5), int(causal),
-        _stream(q.device))
+        b, s, h, k.shape[2], d, float(d ** -0.5), int(causal), _stream(q.device))
     _raise_on(rc, "flash_bwd_dq")
     LAUNCHES["flash_bwd_dq"] += 1
     return dq
 
 
+_dq_op = define(
+    f"flash_bwd_dq({_BWD_ARGS}, bool causal) -> Tensor",
+    cpu=_dq_plain, cuda=_dq_cuda,
+    fake=lambda q, k, v, do, lse, delta, seg, c, st, causal: torch.empty_like(q))
+
+
 # -- entry points -------------------------------------------------------------
-
-def flash_fwd(q, k, v, segment_ids=None, rope_tables: RopeTables = None,
-              causal: bool = True):
-    """``(o [B, S, H, D], lse [B, H, S] fp32)``: the forward kernel on
-    CUDA tensors, :func:`flash_fwd_plain` on CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_fwd_plain(q, k, v, segment_ids, rope_tables, causal)
-    return _fwd_kernel(q, k, v, segment_ids, rope_tables, causal)
-
-
-def flash_bwd_fused(q, k, v, o, lse, do, segment_ids=None,
-                    rope_tables: RopeTables = None, causal: bool = True):
-    """``(dq, dk, dv)`` from one score recompute. On CUDA, dq tiles from
-    different k-tiles meet in an fp32 scratch through atomic adds, so
-    dq's fp32 sums run in a launch-dependent order before the one
-    counter-rotation and cast (dk and dv are deterministic)."""
-    if q.device.type == "cpu":
-        return flash_bwd_fused_plain(q, k, v, o, lse, do, segment_ids,
-                                     rope_tables, causal)
-    if q.shape[-1] in WGMMA_HEAD_DIMS:
-        return _bwd_fused_wgmma(q, k, v, o, lse, do, segment_ids, rope_tables,
-                                causal)
-    delta = attention_delta(o, do)
-    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dk, dv = _bwd_kv_kernel("flash_bwd_fused", q, k, v, do, lse, delta,
-                            segment_ids, rope_tables, causal, dq_acc)
-    return flash_bwd_post_plain(dq_acc, rope_tables), dk, dv
-
+#
+# Each runs the same operators on every device; the dispatcher runs the
+# kernels on CUDA tensors and their plain versions on CPU tensors, and
+# any other device raises there.
 
 def _rotated_for_kernels(q, k, rope_tables):
     """q and k as the warpgroup kernels take them: rotated by the prepass
@@ -585,57 +609,111 @@ def _rotated_for_kernels(q, k, rope_tables):
     return rope_rotate(q, k, rope_tables)
 
 
+def rope_rotate(q: torch.Tensor, k: torch.Tensor, rope_tables):
+    """``(q, k)`` rotated by the tables, each in its dtype: the prepass
+    kernel on CUDA tensors (one launch for both), :func:`_rope_rot` on
+    CPU tensors. Both round like ``_rope_rot``: two fp32 products, their
+    sum, one cast."""
+    c, st = rope_tables
+    return _rope_rotate_op(q, k, c, st)
+
+
+def flash_bwd_prep(o: torch.Tensor, do: torch.Tensor, scratch: bool = True):
+    """``(delta [B, H, S] fp32, dq scratch [B, S, H, D] fp32 zeros)``: the
+    backward's prepass kernel on CUDA tensors (one launch for both),
+    :func:`attention_delta` and ``torch.zeros`` on CPU tensors. With
+    ``scratch=False`` (the two-pass backward) the scratch is None and the
+    kernel writes delta alone."""
+    delta, dq_acc = _prep_op(o, do, scratch)
+    return delta, (dq_acc if scratch else None)
+
+
+def flash_bwd_post(dq_acc: torch.Tensor, rope_tables: RopeTables,
+                   dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """dq from the fused backward's fp32 scratch: the postprocess kernel
+    on CUDA tensors (bf16 only), :func:`flash_bwd_post_plain` on CPU
+    tensors (the same roundings: bit for bit)."""
+    c, st = rope_tables if rope_tables is not None else (None, None)
+    return _post_op(dq_acc, c, st, dtype)
+
+
+def flash_fwd(q, k, v, segment_ids=None, rope_tables: RopeTables = None,
+              causal: bool = True):
+    """``(o [B, S, H, D], lse [B, H, S] fp32)``: the forward kernel on
+    CUDA tensors, :func:`flash_fwd_plain` on CPU tensors. At head_dim 64
+    and 128 the rope prepass rotates q and k first."""
+    if rope_tables is not None and q.shape[-1] in WGMMA_HEAD_DIMS:
+        q, k = rope_rotate(q, k, rope_tables)
+        rope_tables = None
+    c, st = rope_tables if rope_tables is not None else (None, None)
+    return _fwd_op(q, k, v, segment_ids, c, st, causal)
+
+
+def flash_bwd_fused(q, k, v, o, lse, do, segment_ids=None,
+                    rope_tables: RopeTables = None, causal: bool = True):
+    """``(dq, dk, dv)`` from one score recompute. At head_dim 64 and 128:
+    the rope prepass, the delta and scratch prepass, the warpgroup kernel
+    (dk, dv; dq into the scratch by 16-byte reductions) and the dq
+    postprocess; at the others delta eagerly, the dk/dv kernel adding dq
+    into a zeroed scratch, and the postprocess's plain version. On CUDA,
+    dq tiles from different k-tiles meet in the fp32 scratch through
+    atomic adds, so dq's fp32 sums run in a launch-dependent order before
+    the one counter-rotation and cast (dk and dv are deterministic)."""
+    c, st = rope_tables if rope_tables is not None else (None, None)
+    if q.shape[-1] in WGMMA_HEAD_DIMS:
+        qr, kr = _rotated_for_kernels(q, k, rope_tables)
+        delta, dq_acc = flash_bwd_prep(o, do)
+        dk, dv = _fused_op(qr, kr, v, do, lse, delta, segment_ids, c, st, dq_acc, causal)
+        return flash_bwd_post(dq_acc, rope_tables, q.dtype), dk, dv
+    delta = attention_delta(o, do)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = _kv_op(q, k, v, do, lse, delta, segment_ids, c, st, dq_acc, causal)
+    return flash_bwd_post_plain(dq_acc, rope_tables, q.dtype), dk, dv
+
+
 def flash_bwd_dkdv(q, k, v, do, lse, delta, segment_ids=None,
                    rope_tables: RopeTables = None, causal: bool = True):
     """``(dk, dv)``, each KV head's query-head group summed inside the
     kernel (at head_dim 64 and 128 after the rope prepass)."""
-    if q.device.type == "cpu":
-        return flash_bwd_dkdv_plain(q, k, v, do, lse, delta, segment_ids,
-                                    rope_tables, causal)
+    c, st = rope_tables if rope_tables is not None else (None, None)
     qr, kr = _rotated_for_kernels(q, k, rope_tables)
-    return _bwd_kv_kernel("flash_bwd_dkdv", qr, kr, v, do, lse, delta,
-                          segment_ids, rope_tables, causal, None)
+    return _kv_op(qr, kr, v, do, lse, delta, segment_ids, c, st, None, causal)
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, segment_ids=None,
                  rope_tables: RopeTables = None, causal: bool = True):
     """dq, one block per (q-tile, head, batch), no atomics (at head_dim 64
     and 128 after the rope prepass)."""
-    if q.device.type == "cpu":
-        return flash_bwd_dq_plain(q, k, v, do, lse, delta, segment_ids,
-                                  rope_tables, causal)
+    c, st = rope_tables if rope_tables is not None else (None, None)
     qr, kr = _rotated_for_kernels(q, k, rope_tables)
-    return _dq_kernel(qr, kr, v, do, lse, delta, segment_ids, rope_tables,
-                      causal)
+    return _dq_op(qr, kr, v, do, lse, delta, segment_ids, c, st, causal)
 
 
 def flash_bwd_two_pass(q, k, v, o, lse, do, segment_ids=None,
                        rope_tables: RopeTables = None, causal: bool = True):
     """``(dq, dk, dv)`` by the two-pass backward, as :func:`flash_mha`'s
-    backward runs it when the block rule gives more than one tile. On
-    CUDA at head_dim 64 and 128: one rope prepass for both passes, delta
-    from the prepass kernel (no scratch), the dk/dv pass, the dq pass;
-    at other head dims delta eagerly and the two first kernels."""
-    if q.device.type == "cpu" or q.shape[-1] not in WGMMA_HEAD_DIMS:
-        delta = attention_delta(o, do)
-        dk, dv = flash_bwd_dkdv(q, k, v, do, lse, delta, segment_ids,
-                                rope_tables, causal)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, segment_ids, rope_tables,
-                          causal)
-        return dq, dk, dv
+    backward runs it when the block rule gives more than one tile: one
+    rope prepass for both passes (at head_dim 64 and 128), delta from the
+    prepass kernel (no scratch; at the other head dims eagerly), the
+    dk/dv pass, the dq pass."""
+    c, st = rope_tables if rope_tables is not None else (None, None)
     qr, kr = _rotated_for_kernels(q, k, rope_tables)
-    delta, _ = flash_bwd_prep(o, do, scratch=False)
-    dk, dv = _bwd_kv_kernel("flash_bwd_dkdv", qr, kr, v, do, lse, delta,
-                            segment_ids, rope_tables, causal, None)
-    dq = _dq_kernel(qr, kr, v, do, lse, delta, segment_ids, rope_tables,
-                    causal)
+    if q.shape[-1] in WGMMA_HEAD_DIMS:
+        delta, _ = flash_bwd_prep(o, do, scratch=False)
+    else:
+        delta = attention_delta(o, do)
+    dk, dv = _kv_op(qr, kr, v, do, lse, delta, segment_ids, c, st, None, causal)
+    dq = _dq_op(qr, kr, v, do, lse, delta, segment_ids, c, st, causal)
     return dq, dk, dv
 
 
 def _dense(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous and 16-byte aligned, as the kernels take it (a
-    copy only when it is not)."""
+    copy only when it is not). A fake tensor (a traced step's) has no
+    address: it stays as it is."""
     t = t.contiguous()
+    if isinstance(t, FakeTensor):
+        return t
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 

@@ -47,8 +47,12 @@ projection the same way; the caller judges the logical shapes (each
 dimension times the size of the group that splits it). The Hopper
 kernel's tiles are its own.
 
-``LAUNCHES`` counts kernel launches by kernel entry; a wrapper adds one
-where it launches and nowhere else.
+Each kernel entry is an operator (``torch.ops.kfc.int8_quantize_rows``,
+``int8_quantize_rows_scaled``, ``int8_matmul``, ``int8_matmul_f32``;
+``ops/_library.py``): the kernel on CUDA tensors, its plain version on
+CPU tensors, its outputs' allocation on fake tensors. ``LAUNCHES``
+counts kernel launches by kernel entry; an operator's CUDA
+implementation adds one where it launches and nowhere else.
 """
 
 from __future__ import annotations
@@ -57,6 +61,7 @@ from typing import Dict, Optional
 
 import torch
 
+from kubeflow_controller_tpu_torch.ops._library import define
 from kubeflow_controller_tpu_torch.ops.quant import (
     Split, _int8_matmul_raw, _int_mm, _psum, _quantize, _symmetric_scales, split,
 )
@@ -154,17 +159,26 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def quantize_rows(a: torch.Tensor):
-    """``a`` bf16 ``[m, k]`` -> ``(codes int8 [m, k], scales fp32 [m,
-    1])``: the prepass kernel on a CUDA tensor (one launch),
-    :func:`quantize_rows_plain` on a CPU tensor."""
-    if a.device.type == "cpu":
-        return quantize_rows_plain(a)
-    _check_rows("int8_quantize_rows", a)
-    qa = torch.empty(a.shape, dtype=torch.int8, device=a.device)
-    sa = torch.empty((a.shape[0], 1), dtype=torch.float32, device=a.device)
+def _check_rows(name: str, a: torch.Tensor) -> None:
+    k = a.shape[1]
+    if a.dtype != torch.bfloat16 or k % 16:
+        raise ValueError(f"{name} takes a bfloat16 cuda tensor with k a "
+                         f"multiple of 16 (got {a.dtype}, {a.device}, k={k})")
+    _check_operands(name, a)
+
+
+def _rows_like(a: torch.Tensor) -> torch.Tensor:
+    return a.new_empty((a.shape[0], 1), dtype=torch.float32)
+
+
+# -- the kernels as operators (``ops/_library.py``) ---------------------------
+
+def _quantize_rows_cuda(a):
     from kubeflow_controller_tpu_torch.ops import _build
 
+    _check_rows("int8_quantize_rows", a)
+    qa = torch.empty(a.shape, dtype=torch.int8, device=a.device)
+    sa = _rows_like(a)
     rc = _build.load().kfc_int8_quantize_rows(
         a.data_ptr(), qa.data_ptr(), sa.data_ptr(), a.shape[0], a.shape[1],
         torch.cuda.current_stream(a.device).cuda_stream)
@@ -173,22 +187,21 @@ def quantize_rows(a: torch.Tensor):
     return qa, sa
 
 
-def quantize_rows_scaled(a: torch.Tensor, sa: torch.Tensor) -> torch.Tensor:
-    """``a`` bf16 ``[m, k]`` quantized by the caller's row scales ``sa``
-    (fp32 ``[m, 1]``: a split contraction's, the abs-max all-reduced over
-    its group) -> codes int8 ``[m, k]``: the prepass kernel's scales-in
-    entry on a CUDA tensor (one launch), :func:`quantize_rows_plain` on a
-    CPU tensor."""
-    if a.device.type == "cpu":
-        return quantize_rows_plain(a, sa)[0]
+_quantize_rows_op = define(
+    "int8_quantize_rows(Tensor a) -> (Tensor, Tensor)",
+    cpu=lambda a: quantize_rows_plain(a), cuda=_quantize_rows_cuda,
+    fake=lambda a: (torch.empty_like(a, dtype=torch.int8), _rows_like(a)))
+
+
+def _quantize_rows_scaled_cuda(a, sa):
+    from kubeflow_controller_tpu_torch.ops import _build
+
     _check_rows("int8_quantize_rows_scaled", a)
     if sa.dtype != torch.float32 or tuple(sa.shape) != (a.shape[0], 1):
         raise ValueError(f"int8_quantize_rows_scaled: scales {sa.dtype} "
                          f"{tuple(sa.shape)} for {tuple(a.shape)} rows")
     _check_operands("int8_quantize_rows_scaled", a, sa)
     qa = torch.empty(a.shape, dtype=torch.int8, device=a.device)
-    from kubeflow_controller_tpu_torch.ops import _build
-
     rc = _build.load().kfc_int8_quantize_rows_scaled(
         a.data_ptr(), sa.data_ptr(), qa.data_ptr(), a.shape[0], a.shape[1],
         torch.cuda.current_stream(a.device).cuda_stream)
@@ -197,76 +210,96 @@ def quantize_rows_scaled(a: torch.Tensor, sa: torch.Tensor) -> torch.Tensor:
     return qa
 
 
-def _check_rows(name: str, a: torch.Tensor) -> None:
-    k = a.shape[1]
-    if a.device.type != "cuda" or a.dtype != torch.bfloat16 or k % 16:
-        raise ValueError(f"{name} takes a bfloat16 cuda tensor with k a "
-                         f"multiple of 16 (got {a.dtype}, {a.device}, k={k})")
-    _check_operands(name, a)
+_quantize_rows_scaled_op = define(
+    "int8_quantize_rows_scaled(Tensor a, Tensor sa) -> Tensor",
+    cpu=lambda a, sa: quantize_rows_plain(a, sa)[0], cuda=_quantize_rows_scaled_cuda,
+    fake=lambda a, sa: torch.empty_like(a, dtype=torch.int8))
 
 
-def _launch(a: torch.Tensor, qbt: torch.Tensor, sb: torch.Tensor,
-            sa: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The two kernels on ``a`` bf16 ``[m, k]``, the rhs codes ``qbt``
-    int8 ``[n, k]`` and ``sb`` fp32 ``[1, n]``, all contiguous on one
-    card: the rows' codes and scales go through scratch to the GEMM,
-    which rounds its output to bf16. With ``sa`` (fp32 ``[m, 1]``) the
-    split entries: the prepass quantizes by those scales and the GEMM
-    writes its fp32 product."""
+def _gemm_plain(qa, qbt, sa, sb, dtype):
+    """The GEMM kernel's arithmetic: the exact int32 product of the codes,
+    ``acc * sa * sb`` in fp32, in ``dtype``."""
+    return (_int_mm(qa, qbt.t()).float() * sa * sb).to(dtype)
+
+
+def _gemm_cuda(name, qa, qbt, sa, sb, dtype):
     from kubeflow_controller_tpu_torch.ops import _build
 
-    m, k = a.shape
+    m, k = qa.shape
     n = qbt.shape[0]
     if m % TILE_M or n % TILE_N or k % TILE_K or qbt.shape[1] != k:
         raise ValueError(f"int8_matmul: [{m}, {k}] @ [{k}, {n}] is not tiled by "
                          f"({TILE_M}, {TILE_N}, {TILE_K})")
-    _check_operands("int8_matmul", a, qbt, sb)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    if sa is None:
-        qa, sa = quantize_rows(a)
-        out = torch.empty((m, n), dtype=torch.bfloat16, device=a.device)
-        rc = _build.load().kfc_int8_matmul(
-            qa.data_ptr(), qbt.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-            out.data_ptr(), m, k, n, stream)
-        _raise_on(rc, "int8_matmul")
-        LAUNCHES["int8_matmul"] += 1
-        return out
-    qa = quantize_rows_scaled(a, sa)
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    rc = _build.load().kfc_int8_matmul_f32(
+    _check_operands("int8_matmul", qa, qbt, sa, sb)
+    out = torch.empty((m, n), dtype=dtype, device=qa.device)
+    rc = getattr(_build.load(), f"kfc_{name}")(
         qa.data_ptr(), qbt.data_ptr(), sa.data_ptr(), sb.data_ptr(),
-        out.data_ptr(), m, k, n, stream)
-    _raise_on(rc, "int8_matmul_f32")
-    LAUNCHES["int8_matmul_f32"] += 1
+        out.data_ptr(), m, k, n, torch.cuda.current_stream(qa.device).cuda_stream)
+    _raise_on(rc, name)
+    LAUNCHES[name] += 1
     return out
 
 
-def _on_device(a: torch.Tensor, b: torch.Tensor) -> None:
-    if a.device.type != "cuda" or b.device != a.device:
-        raise RuntimeError(
-            "int8_matmul runs its CUDA kernel on cuda tensors and its plain "
-            f"version on cpu tensors (got {a.device} and {b.device})")
+def _gemm_fake(qa, qbt, sa, sb, dtype):
+    return qa.new_empty((qa.shape[0], qbt.shape[0]), dtype=dtype)
+
+
+_GEMM = "(Tensor qa, Tensor qbt, Tensor sa, Tensor sb) -> Tensor"
+_matmul_op = define(
+    "int8_matmul" + _GEMM,
+    cpu=lambda *a: _gemm_plain(*a, torch.bfloat16),
+    cuda=lambda *a: _gemm_cuda("int8_matmul", *a, torch.bfloat16),
+    fake=lambda *a: _gemm_fake(*a, torch.bfloat16))
+_matmul_f32_op = define(
+    "int8_matmul_f32" + _GEMM,
+    cpu=lambda *a: _gemm_plain(*a, torch.float32),
+    cuda=lambda *a: _gemm_cuda("int8_matmul_f32", *a, torch.float32),
+    fake=lambda *a: _gemm_fake(*a, torch.float32))
+
+
+def quantize_rows(a: torch.Tensor):
+    """``a`` bf16 ``[m, k]`` -> ``(codes int8 [m, k], scales fp32 [m,
+    1])``: the prepass kernel on a CUDA tensor (one launch),
+    :func:`quantize_rows_plain` on a CPU tensor."""
+    return _quantize_rows_op(a)
+
+
+def quantize_rows_scaled(a: torch.Tensor, sa: torch.Tensor) -> torch.Tensor:
+    """``a`` bf16 ``[m, k]`` quantized by the caller's row scales ``sa``
+    (fp32 ``[m, 1]``: a split contraction's, the abs-max all-reduced over
+    its group) -> codes int8 ``[m, k]``: the prepass kernel's scales-in
+    entry on a CUDA tensor (one launch), :func:`quantize_rows_plain` on a
+    CPU tensor."""
+    return _quantize_rows_scaled_op(a, sa)
+
+
+def _launch(a: torch.Tensor, qbt: torch.Tensor, sb: torch.Tensor,
+            sa: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The two kernels (their plain versions on CPU tensors) on ``a``
+    bf16 ``[m, k]``, the rhs codes ``qbt`` int8 ``[n, k]`` and ``sb``
+    fp32 ``[1, n]``: the rows' codes and scales go through scratch to
+    the GEMM, which rounds its output to bf16. With ``sa`` (fp32 ``[m,
+    1]``) the split entries: the prepass quantizes by those scales and
+    the GEMM writes its fp32 product."""
+    if sa is None:
+        qa, sa = quantize_rows(a)
+        return _matmul_op(qa, qbt, sa, sb)
+    return _matmul_f32_op(quantize_rows_scaled(a, sa), qbt, sa, sb)
 
 
 def _fused_2d(a: torch.Tensor, b: torch.Tensor, group=None) -> torch.Tensor:
     """``[m, k] @ [k, n] -> bf16``: the kernels on CUDA tensors, the plain
-    version on CPU tensors, no shape gate. With ``group``, this rank's
+    versions on CPU tensors, no shape gate. With ``group``, this rank's
     part of a contraction split over it: the whole contraction's row and
     column scales, the fp32 partials summed over the group, then one
     rounding to bf16."""
-    a = a.to(torch.bfloat16)
-    cpu = a.device.type == "cpu"
-    if not cpu:
-        _on_device(a, b)
+    a = a.to(torch.bfloat16).contiguous()
     if group is None:
-        if cpu:
-            return fused_int8_matmul_2d_plain(a, b)
         qbt, sb = rhs_codes(b)
-        return _launch(a.contiguous(), qbt, sb)
+        return _launch(a, qbt, sb)
     sa = _symmetric_scales(a.float(), 1, group)
     qbt, sb = rhs_codes(b, group)
-    y = _fused_plain(a, qbt, sb, sa) if cpu else _launch(a.contiguous(), qbt, sb, sa)
-    return _psum(y, group).to(torch.bfloat16)
+    return _psum(_launch(a, qbt, sb, sa), group).to(torch.bfloat16)
 
 
 def fused_int8_matmul_2d(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -154,6 +154,18 @@ class AdamW(_Scheduled):
             leaves, lr=1.0, betas=(self.b1, self.b2), eps=self.eps,
             weight_decay=self.wd, fused=True)
 
+    @torch.no_grad()
+    def init_state(self) -> None:
+        """Make now the state the first update would make (each leaf's
+        moments, zeros of its shape and dtype on its device, and a step
+        count of 0), as optax's ``init`` holds the moments before the
+        first step."""
+        for p in self.opt.param_groups[0]["params"]:
+            self.opt.state[p] = {
+                "step": torch.zeros((), dtype=torch.float32, device=p.device),
+                "exp_avg": torch.zeros_like(p, memory_format=torch.preserve_format),
+                "exp_avg_sq": torch.zeros_like(p, memory_format=torch.preserve_format)}
+
 
 def adam(learning_rate: Union[float, Schedule], b1: float = 0.9,
          b2: float = 0.999, eps: float = 1e-8) -> AdamW:

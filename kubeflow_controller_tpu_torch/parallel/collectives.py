@@ -237,13 +237,27 @@ def gather_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     return out.movedim(0, dim)
 
 
-def reduce_scatter_dim(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
-    """The sum of the ``n`` ranks' ``x``, this rank's chunk along ``dim``."""
-    src = x.movedim(dim, 0).contiguous()
-    out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=x.dtype,
-                      device=x.device)
-    dist.reduce_scatter_tensor(out, src, group=group)
-    return out.movedim(0, dim)
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group, n: int,
+                       slab_bytes: int = 2 ** 29) -> torch.Tensor:
+    """The sum of the ``n`` ranks' ``x``, this rank's chunk along ``dim``.
+    The chunk goes in ``k`` equal slabs along ``dim``, ``k`` the fewest
+    that keep each call's input within ``slab_bytes`` (1 but for a
+    tensor above them): neither the contiguous copy a dimension other
+    than the first needs nor a backend's staging of the input then holds
+    the whole tensor at once (llama3_70b's embedding gradient is 4.2 GB
+    of fp32). A slab's sums are the one call's, element by element."""
+    m = x.shape[dim] // n
+    size = x.numel() * x.element_size()
+    k = next(k for k in range(1, m + 1) if m % k == 0 and (size <= k * slab_bytes or k == m))
+    src = x.movedim(dim, 0)
+    rest = src.shape[1:]
+    # [n ranks' chunks, k slabs, m / k rows, ...]: slab j of every chunk.
+    src = src.reshape(n, k, m // k, *rest)
+    out = torch.empty((k, m // k, *rest), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        dist.reduce_scatter_tensor(out[j], src[:, j].reshape(m // k * n, *rest).contiguous(),
+                                   group=group)
+    return out.reshape(m, *rest).movedim(0, dim)
 
 
 class _SeqGather(torch.autograd.Function):

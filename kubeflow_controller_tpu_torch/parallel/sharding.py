@@ -21,7 +21,10 @@ whole — reduce-scattered over fsdp where a dimension is fsdp-sharded,
 not over pp for a stage's layers, not over ep for an expert chunk
 (``mesh.grad_sum_axes``) — keeps this rank's chunk and divides by the
 number of loss ranks. :func:`gather_full` rebuilds a whole
-parameter, over pp too (checkpoints are in the one-device layout).
+parameter, over pp too. A checkpoint gathers nothing: each rank writes
+the chunks it is the first to hold (:func:`chunk_writers`), and a
+restore at any world size reads each rank's region of a leaf
+(:func:`chunk_box`) from the chunks that overlap it (:func:`fill_box`).
 
 A model that reads its parameters through :func:`view` (and its
 stacked ``[L, ...]`` layer leaves through :func:`layers`) lets the
@@ -44,8 +47,10 @@ Default rules, as the JAX package's:
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -163,6 +168,74 @@ def local_shard(t: torch.Tensor, spec, mesh: Mesh) -> torch.Tensor:
         if axes:
             t = _chunk(t, d, mesh.axis_size(*axes), mesh.axis_index(*axes))
     return t.contiguous().clone()
+
+
+Box = Tuple[Tuple[int, int], ...]
+
+
+def chunk_box(shape: Sequence[int], spec, mesh: Mesh,
+              coords: Optional[Dict[str, int]] = None) -> Box:
+    """Per dimension, the ``[lo, hi)`` bounds of the chunk of a whole
+    tensor of ``shape`` placed by ``spec`` that the rank at ``coords``
+    (default: this rank) holds: :func:`local_shard`'s chunk."""
+    coords = mesh.coords if coords is None else coords
+    box = []
+    for d, axes in enumerate(effective(spec, mesh, len(shape))):
+        n = mesh.axis_size(*axes)
+        if shape[d] % n:
+            raise ValueError(f"dimension {d} of shape {tuple(shape)} does not "
+                             f"divide into {n} shards")
+        idx = 0
+        for a in axes:
+            idx = idx * mesh.shape[a] + coords[a]
+        size = shape[d] // n
+        box.append((idx * size, (idx + 1) * size))
+    return tuple(box)
+
+
+def chunk_writers(shape: Sequence[int], spec, mesh: Mesh) -> List[Tuple[int, Box]]:
+    """Each distinct chunk of a leaf once, as ``(rank, box)``: the rank
+    whose coordinate is 0 on every axis that does not shard the leaf
+    writes it (for a replicated leaf, the mesh's first rank)."""
+    sharding = {a for axes in effective(spec, mesh, len(shape)) for a in axes}
+    out = []
+    for idx in np.ndindex(*mesh.devices.shape):
+        coords = dict(zip(AXES, idx))
+        if not any(coords[a] for a in AXES if a not in sharding):
+            out.append((int(mesh.devices[idx]), chunk_box(shape, spec, mesh, coords)))
+    return out
+
+
+def whole_shape(shape: Sequence[int], spec, mesh: Mesh) -> Tuple[int, ...]:
+    """The shape of the whole tensor whose chunk, placed by ``spec``, has
+    ``shape``."""
+    return tuple(n * mesh.axis_size(*axes)
+                 for n, axes in zip(shape, effective(spec, mesh, len(shape))))
+
+
+def fill_box(out: torch.Tensor, box: Box,
+             pieces: Sequence[Tuple[Box, Callable[[], torch.Tensor]]]) -> torch.Tensor:
+    """Write into ``out`` (the region ``box`` of a whole tensor) the parts
+    of ``pieces`` that overlap it. Each piece is a region of the same
+    whole tensor and a function giving its values (a chunk of a
+    checkpoint, read only if it overlaps); together they must cover
+    ``box``. Returns ``out``."""
+    covered = 0
+    for pbox, load in pieces:
+        lo = [max(a[0], b[0]) for a, b in zip(box, pbox)]
+        hi = [min(a[1], b[1]) for a, b in zip(box, pbox)]
+        if any(h <= l for l, h in zip(lo, hi)):
+            continue
+        dst, src = out, load()
+        for d, (l, h) in enumerate(zip(lo, hi)):
+            dst = dst.narrow(d, l - box[d][0], h - l)
+            src = src.narrow(d, l - pbox[d][0], h - l)
+        dst.copy_(src)
+        covered += math.prod(h - l for l, h in zip(lo, hi))
+    if covered != out.numel():
+        raise ValueError(f"the pieces cover {covered} of the {out.numel()} "
+                         f"elements of region {box}")
+    return out
 
 
 def shard_params(params: Any, specs: Any, mesh: Mesh) -> Any:

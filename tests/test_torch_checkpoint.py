@@ -109,7 +109,7 @@ def test_keep_checkpoints_prunes(tmp_path):
     _run(_loop(str(tmp_path), 5, every=1, keep=2), BATCHES[:5])
     assert ttrain.checkpoint_steps(str(tmp_path)) == [4, 5]
     assert sorted(os.listdir(tmp_path)) == ["4", "5"]
-    assert sorted(os.listdir(tmp_path / "5")) == ["opt.pt", "params.pt"]
+    assert sorted(os.listdir(tmp_path / "5")) == ["chunks-0.pt", "index.pt"]
 
 
 def test_crash_between_write_and_rename_keeps_the_previous(tmp_path, monkeypatch):

@@ -294,6 +294,50 @@ def test_placements_and_local_shards():
         jsharding.logical_to_mesh(("embed", None, "fsdp", "batch")))
 
 
+CHUNK_SPECS = [tsharding.P(), tsharding.P("fsdp"), tsharding.P(None, "tp"),
+               tsharding.P(("fsdp", "tp")), tsharding.P("pp", "fsdp", "tp"),
+               tsharding.P("ep", None, ("sp", "tp"))]
+
+
+@pytest.mark.parametrize("kw,n", LAYOUTS, ids=[
+    "-".join(f"{k}{v}" for k, v in kw.items()) for kw, _ in LAYOUTS])
+def test_checkpoint_chunks_tile_each_leaf_once(kw, n):
+    """A checkpoint's geometry (C11): on every rank ``chunk_box`` is the
+    region ``local_shard`` cuts; ``chunk_writers`` names each distinct
+    chunk once (the rank at coordinate 0 on the axes that do not shard
+    the leaf, so a replicated leaf is the first rank's), and
+    ``fill_box`` rebuilds from those chunks the whole leaf and any
+    rank's region, without reading a chunk that does not overlap it."""
+    t = torch.arange(8 * 4 * 8, dtype=torch.float32).reshape(8, 4, 8)
+
+    def region(box):
+        return t[tuple(slice(lo, hi) for lo, hi in box)]
+
+    for rank in range(n):
+        with _FakeWorld(n, rank):
+            m = tmesh.make_mesh(tmesh.MeshConfig(**kw))
+            for spec in CHUNK_SPECS:
+                box = tsharding.chunk_box(t.shape, spec, m)
+                mine = tsharding.local_shard(t, spec, m)
+                assert torch.equal(region(box), mine), (spec, rank)
+                writers = tsharding.chunk_writers(t.shape, spec, m)
+                boxes = [b for _, b in writers]
+                assert len(set(boxes)) == len(boxes) and box in boxes
+                assert sum(region(b).numel() for b in boxes) == t.numel()
+                for r, b in writers:
+                    coords = dict(zip(tmesh.AXES, np.argwhere(m.devices == r)[0]))
+                    sharding_axes = {a for axes in tsharding.effective(spec, m, 3) for a in axes}
+                    assert not any(coords[a] for a in tmesh.AXES if a not in sharding_axes)
+                read = []
+                pieces = [(b, lambda b=b: read.append(b) or region(b)) for b in boxes]
+                whole = ((0, 8), (0, 4), (0, 8))
+                assert torch.equal(tsharding.fill_box(torch.empty_like(t), whole, pieces), t)
+                read.clear()
+                got = tsharding.fill_box(torch.empty_like(mine), box, pieces)
+                assert torch.equal(got, mine) and read == [box], (spec, rank, read)
+                assert tsharding.whole_shape(mine.shape, spec, m) == tuple(t.shape)
+
+
 def test_opt_state_specs_follow_their_parameters():
     """Moments shaped as their parameter's chunk take its spec; step
     counts and other shapes are replicated."""

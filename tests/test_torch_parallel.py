@@ -130,6 +130,7 @@ CASES = {
                             {"pp": PP_M, "quant": "int8", "remat": True}),
     "dec_sp2_ring": ("decoder", dict(dp=1, sp=2), [0, 1], {"attn": "ring"}),
     "dec_pp2_tp2": ("decoder", dict(pp=2, dp=1, tp=2), [0, 1, 2, 3], {"pp": PP_M}),
+    "c11_fsdp2_tp2": ("c11", dict(dp=1, fsdp=2, tp=2), [0, 1, 2, 3], {}),
 }
 # Cases that run side by side (disjoint ranks), in order.
 PHASES = [["dec_dp4"], ["dec_dp2_fsdp2"], ["dec_fsdp2_tp2"],
@@ -137,7 +138,8 @@ PHASES = [["dec_dp4"], ["dec_dp2_fsdp2"], ["dec_fsdp2_tp2"],
           ["bert_fsdp2", "moe_fsdp2"], ["dec_tp2_sgd", "ckpt"], ["dec_fsdp2_tp2_sgd"],
           ["corpus_dp2_tp2"], ["ring_sp4"], ["ring_sp2_tp2"],
           ["grad_sp2_ring", "grad_sp2_gather"], ["grad_pp2_tp2"], ["grad_pp2_tp2_packed"],
-          ["grad_int8_pp2_fsdp2"], ["dec_sp2_ring", "gpipe_pp2"], ["dec_pp2_tp2"]]
+          ["grad_int8_pp2_fsdp2"], ["dec_sp2_ring", "gpipe_pp2"], ["dec_pp2_tp2"],
+          ["c11_fsdp2_tp2"]]
 
 
 # -- the gang (no JAX here: the workers import this module) ---------------------
@@ -150,8 +152,25 @@ def _records(loop, batches, global_batch):
     return seen
 
 
+def whole_state(loop):
+    """``loop``'s whole parameters and optimizer state (gathered from
+    every rank's chunks over its mesh), detached: what a one-device run
+    of the same steps holds."""
+    from kubeflow_controller_tpu_torch.parallel import sharding
+
+    leaves = convert.tree_leaves(loop.state.params)
+    opt = loop.tx.state_dict()
+    if not loop.distributed:
+        return convert.tree_unflatten(loop.state.params, [p.detach() for p in leaves]), opt
+    params = convert.tree_unflatten(loop.state.params, [
+        sharding.gather_full(p.detach(), s, loop.mesh) for p, s in zip(leaves, loop._specs)])
+    return params, ttrain.with_opt_tensors(opt, {
+        key: sharding.gather_full(t, spec, loop.mesh)
+        for key, spec, t in loop.optimizer_chunks()})
+
+
 def _whole(loop):
-    params, _ = loop._whole_state()
+    params, _ = whole_state(loop)
     return convert.params_to_numpy(params)
 
 
@@ -292,6 +311,8 @@ def _run_case(name, inp, meshes, root):
 
     model, _, _, extra = CASES[name]
     mesh = meshes[name]
+    if model == "c11":
+        return _run_c11(inp, mesh, root)
     if model == "grad":
         return _run_grad(inp, mesh, root, extra)
     if model == "ring":
@@ -345,7 +366,7 @@ def _run_case(name, inp, meshes, root):
             stateful=True, device="cpu", mesh=mesh)
         seen = _records(loop, inp["resnet_batches"], 8)
         params, stats = convert.resnet_params_to_flax(
-            loop._whole_state()[0], loop.state.model_state)
+            whole_state(loop)[0], loop.state.model_state)
         return {"records": seen, "params": params, "stats": stats}
     if model == "bert":
         cfg = tbert.bert_tiny_config()
@@ -375,6 +396,111 @@ def _run_case(name, inp, meshes, root):
         out.update(records=first + second, params=_whole(resumed),
                    start_step=resumed.start_step)
     return out
+
+
+class WholeLeafCounter:
+    """Inside the block, records every tensor an operator makes (not a
+    view or an in-place result) whose shape is one of ``shapes`` (whole
+    sharded leaves), every call of ``sharding.gather_full``, and the
+    keyword arguments of every ``torch.load``."""
+
+    def __init__(self, shapes):
+        self.shapes = {tuple(s) for s in shapes}
+        self.made, self.gathers, self.loads = [], 0, []
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_leaves
+
+        from kubeflow_controller_tpu_torch.parallel import sharding
+
+        counter = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if not any(r.alias_info for r in func._schema.returns):
+                    counter.made += [str(func) for t in tree_leaves(out)
+                                     if isinstance(t, torch.Tensor)
+                                     and tuple(t.shape) in counter.shapes]
+                return out
+
+        def gather_full(*a, **k):
+            self.gathers += 1
+            return self._gather_full(*a, **k)
+
+        def load(f, *a, **k):
+            self.loads.append((os.path.basename(str(f)), k.get("map_location"),
+                               k.get("mmap", False)))
+            return self._load(f, *a, **k)
+
+        self._sharding, self._gather_full, self._load = sharding, sharding.gather_full, torch.load
+        sharding.gather_full, torch.load = gather_full, load
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._mode.__exit__(*exc)
+        self._sharding.gather_full, torch.load = self._gather_full, self._load
+
+    def record(self):
+        return {"made": self.made, "gathers": self.gathers, "loads": self.loads}
+
+
+def sharded_shapes(loop):
+    """The whole shapes of ``loop``'s leaves that its mesh shards, but
+    those that are also some leaf's chunk shape here (at fsdp=2 x tp=2
+    the tiny decoder's ``w_down`` chunk is ``[2, 64, 32]``, ``wk``'s
+    whole shape): a tensor of one of these shapes is a whole leaf."""
+    from kubeflow_controller_tpu_torch.parallel import sharding
+
+    chunks = {tuple(p.shape) for p in convert.tree_leaves(loop.state.params)}
+    return [shape for shape, s in zip(loop._full_shapes, loop._specs)
+            if sharding.is_sharded(s, loop.mesh, len(shape)) and tuple(shape) not in chunks]
+
+
+def _run_c11(inp, mesh, root):
+    """Two AdamW steps at fsdp=2 x tp=2, then a save and a restore into a
+    fresh loop on the same mesh, each under a :class:`WholeLeafCounter`;
+    then a third step and a background save (``wait=False``), whose
+    thread alone must leave the checkpoint committed (no
+    ``wait_for_save`` before each rank lists the steps). The first rank
+    returns every rank's records, whether it writes the index, whether
+    the restored chunks (parameters, moments, counts) equal the saved
+    ones bit for bit, and the steps each rank saw committed."""
+    import torch.distributed as dist
+
+    mdir = os.path.join(root, "c11_model")
+    loop = _decoder_loop(inp, mesh, total=2, model_dir=mdir)
+    rows = loop.local_rows(B)
+    for batch in inp["dec_batches"][:2]:
+        loop.step({"tokens": torch.from_numpy(batch["tokens"][rows])})
+    shapes = sharded_shapes(loop)
+    with WholeLeafCounter(shapes) as saving:
+        loop.save()
+    fresh = _decoder_loop(inp, mesh, total=2, model_dir=mdir)
+    with WholeLeafCounter(shapes) as restoring:
+        restored = fresh.restore()
+
+    def tensors(lp):
+        opt = lp.tx.state_dict()["opt"]["state"]
+        return list(convert.tree_leaves(lp.state.params)) + [
+            opt[i][k] for i in sorted(opt) for k in sorted(opt[i])]
+
+    same = restored and fresh.state.step == 2 and all(
+        torch.equal(a, b) for a, b in zip(tensors(fresh), tensors(loop)))
+    loop.step({"tokens": torch.from_numpy(inp["dec_batches"][2]["tokens"][rows])})
+    loop.save(wait=False)
+    loop._saver.join()
+    committed = ttrain.checkpoint_steps(mdir)
+    loop.wait_for_save()
+    mine = {"rank": mesh.rank, "writer": loop._writer(), "save": saving.record(),
+            "restore": restoring.record(), "bit_for_bit": bool(same),
+            "n_sharded": len(shapes), "committed_in_background": committed}
+    every = [None] * mesh.size
+    dist.all_gather_object(every, mine, group=mesh.group(*tmesh.AXES))
+    return {"ranks": every, "files": sorted(os.listdir(os.path.join(mdir, "2")))}
 
 
 def _run_corpus(inp, root, rank):
@@ -640,7 +766,7 @@ def _jax_reference(name, inp, total=None):
     model, kw, ranks, extra = CASES[name]
     if model == "ring":
         return _jax_ring(inp, kw)
-    if model == "gpipe":
+    if model in ("gpipe", "c11"):
         return {}
     if model == "grad":
         return _jax_decoder_grads(inp, extra, kw)
@@ -908,8 +1034,8 @@ def test_bert_at_fsdp2_matches_jax_loop(gang):
 
 
 def test_fsdp2_checkpoint_restores_in_one_process_and_resumes_at_dp2(gang):
-    """The fsdp=2 checkpoint holds the whole state in the one-process
-    layout: one process restores the gathered parameters bit for bit, a
+    """The fsdp=2 checkpoint (each rank's chunks) restores at any world
+    size: one process restores the gathered parameters bit for bit, a
     dp=2 gang resumes from it to where the uninterrupted JAX fsdp=2 run
     ends, and ``serve(model_dir=...)`` serves its latest step."""
     from kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm import serve
@@ -924,6 +1050,36 @@ def test_fsdp2_checkpoint_restores_in_one_process_and_resumes_at_dp2(gang):
     out = serve(config="tiny", batch=2, slots=2, prompt_len=9, max_new_tokens=2,
                 model_dir=os.path.join(got["root"], "ckpt_model"), device="cpu")
     assert out["restored_step"] == 4
+
+
+def test_c11_save_and_restore_gather_no_whole_sharded_leaf(gang):
+    """C11: at fsdp=2 x tp=2 no rank, the writer of the index included,
+    makes a tensor of a whole sharded leaf's shape while it saves or
+    restores, and none calls ``gather_full``: each rank writes the
+    chunks it is the first to hold and reads its own region back from
+    the memory-mapped chunk files (``torch.load(mmap=True)`` on the
+    host). The restored parameters, moments and counts equal the saved
+    ones bit for bit. A background save over the mesh is committed by
+    its threads alone: each rank lists its step once its save thread
+    ends, before any ``wait_for_save``."""
+    _, got, _ = gang
+    g = got["c11_fsdp2_tp2"]
+    ranks = g["ranks"]
+    assert [r["rank"] for r in ranks] == [0, 1, 2, 3]
+    assert [r["writer"] for r in ranks] == [True, False, False, False]
+    assert g["files"] == ["chunks-0.pt", "chunks-1.pt", "chunks-2.pt", "chunks-3.pt",
+                          "index.pt"]
+    for r in ranks:
+        assert r["n_sharded"] >= 6 and r["bit_for_bit"], r
+        assert r["committed_in_background"] == [2, 3], r
+        for phase in ("save", "restore"):
+            rec = r[phase]
+            assert rec["made"] == [] and rec["gathers"] == 0, (r["rank"], phase, rec)
+        loads = r["restore"]["loads"]
+        chunk_loads = [x for x in loads if x[0].startswith("chunks-")]
+        assert chunk_loads and all(x[1:] == ("cpu", True) for x in chunk_loads), loads
+        assert ("index.pt", "cpu", False) in loads
+        assert r["save"]["loads"] == []
 
 
 def test_mesh_is_a_device_mesh_and_specs_are_dtensor_placements(gang):
@@ -1027,8 +1183,9 @@ def test_int8_decoder_over_pp_matches_jax_pipeline(gang):
 
 
 def test_pp2_checkpoint_restores_in_one_process(gang):
-    """The pp=2 x tp=2 loop's checkpoint is in the one-process layout:
-    one process restores it to the gathered parameters bit for bit."""
+    """The pp=2 x tp=2 loop's checkpoint (each rank's chunks: a stage's
+    layers, a tp shard) restores in one process to the gathered
+    parameters bit for bit."""
     _, got, _ = gang
     g = got["dec_pp2_tp2"]
     assert g["restored_step"] == 3

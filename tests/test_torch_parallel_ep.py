@@ -87,12 +87,13 @@ CASES = {
                          {"config": "tiny_moe", "quant": "int8"}),
     "opt8_fsdp2_tp2": ("opt8", dict(dp=1, fsdp=2, tp=2), [0, 1, 2, 3], {}),
     "c10_dp2_fsdp2": ("c10", dict(dp=2, fsdp=2), [0, 1, 2, 3], {}),
+    "slabs_fsdp4": ("slabs", dict(dp=1, fsdp=4), [0, 1, 2, 3], {}),
 }
 # Cases that run side by side (disjoint ranks), in order.
 PHASES = [["c10_dp2_fsdp2"], ["moe_fsdp2_ep2"], ["moe_ep2_tp2_fwd"],
           ["moe_tp2", "moe_sp2_ring"], ["moe_sp2_gather", "int8_tp2"],
           ["int8_fused_tp2", "bert_tp2"], ["bert_fsdp2_tp2"], ["moe_int8_ep2_tp2"],
-          ["opt8_fsdp2_tp2"]]
+          ["opt8_fsdp2_tp2"], ["slabs_fsdp4"]]
 
 
 # -- the gang (no JAX here: the workers import this module) ---------------------
@@ -149,8 +150,9 @@ def _decoder_loop(inp, mesh, extra, total=3):
 def _run_opt8(inp, mesh, meshes, root):
     """Three 8-bit AdamW updates of the tiny decoder's chunks at fsdp=2
     x tp=2 on given gradients (each rank its chunk of them), saved
-    through the loop; the mesh's first rank restores the checkpoint in
-    one process."""
+    through the loop (every rank's save under a
+    ``WholeLeafCounter``); the mesh's first rank restores the checkpoint
+    in one process."""
     from kubeflow_controller_tpu_torch.models import transformer as ttf
     from kubeflow_controller_tpu_torch.parallel import sharding
 
@@ -166,8 +168,12 @@ def _run_opt8(inp, mesh, meshes, root):
                   for g, s in zip(convert.tree_leaves(grads), loop._specs)]
         loop.tx.update(loop.state.params, convert.tree_unflatten(loop.state.params, chunks))
     loop.state.step = 3
-    params, opt = loop._whole_state()
-    loop.save()
+    params, opt = base.whole_state(loop)
+    with base.WholeLeafCounter(base.sharded_shapes(loop)) as saving:
+        loop.save()
+    saves = [None] * mesh.size
+    torch.distributed.all_gather_object(saves, saving.record(),
+                                        group=mesh.group(*tmesh.AXES))
     if mesh.rank != int(mesh.devices.flat[0]):
         return None
     one = ttrain.TrainLoop(
@@ -178,7 +184,8 @@ def _run_opt8(inp, mesh, meshes, root):
     assert one.restore()
     return {"params": convert.params_to_numpy(params), "opt": opt,
             "restored": convert.params_to_numpy(one.state.params),
-            "restored_opt": one.tx.state_dict(), "restored_step": one.state.step}
+            "restored_opt": one.tx.state_dict(), "restored_step": one.state.step,
+            "saves": saves}
 
 
 def _run_c10(inp, mesh):
@@ -201,6 +208,34 @@ def _run_c10(inp, mesh):
     return {"dw": g.numpy()}
 
 
+def _run_slabs(mesh):
+    """``reduce_scatter_dim`` over fsdp=4 along each dimension, with
+    ``slab_bytes`` set to cut every rank's chunk in two, against the one
+    call and against ``all_reduce`` then this rank's chunk, on
+    integer-valued tensors (their sums exact in any order); the first
+    rank returns every rank's findings."""
+    import torch.distributed as dist
+
+    from kubeflow_controller_tpu_torch.parallel import collectives
+
+    group, n, i = mesh.group("fsdp"), mesh.shape["fsdp"], mesh.axis_index("fsdp")
+    gen = torch.Generator().manual_seed(mesh.rank)
+    found = []
+    for shape, dim in (((8, 6, 4), 0), ((3, 16, 2), 1), ((2, 3, 8), 2)):
+        x = torch.randint(-50, 50, shape, generator=gen).float()
+        whole = collectives.reduce_scatter_dim(x, dim, group, n)
+        slabs = collectives.reduce_scatter_dim(
+            x, dim, group, n, slab_bytes=x.numel() * x.element_size() // 2)
+        summed = x.clone()
+        dist.all_reduce(summed, group=group)
+        m = shape[dim] // n
+        found.append((torch.equal(slabs, whole), torch.equal(slabs, summed.narrow(dim, i * m, m)),
+                      slabs.shape == whole.shape))
+    every = [None] * mesh.size
+    dist.all_gather_object(every, found, group=mesh.group(*tmesh.AXES))
+    return {"ranks": every}
+
+
 def _run_case(name, inp, meshes, root):
     """This rank's part of case ``name``; the case's first rank returns
     what the test compares."""
@@ -208,6 +243,8 @@ def _run_case(name, inp, meshes, root):
 
     what, _, _, extra = CASES[name]
     mesh = meshes[name]
+    if what == "slabs":
+        return _run_slabs(mesh)
     if what == "c10":
         return _run_c10(inp, mesh)
     if what == "opt8":
@@ -396,6 +433,8 @@ def _jax_reference(name, inp):
     from kubeflow_controller_tpu.models import transformer as jtf
 
     what, kw, ranks, extra = CASES[name]
+    if what == "slabs":
+        return {}
     if what == "c10":
         return _jax_c10(inp)
     if what == "opt8":
@@ -570,8 +609,9 @@ def test_8bit_adamw_on_sharded_leaves_matches_jax_and_restores(gang):
     threshold are the whole leaf's, so the gathered m codes and scales
     equal the JAX package's bit for bit, v codes within one code (C5)
     and its log range as ``test_torch_optim8.py`` holds it, and the
-    parameters within its bound; the checkpoint (gathered by the mesh's
-    first rank) restores in one process bit for bit."""
+    parameters within its bound; the checkpoint (each rank's chunks of
+    the codes and statistics: no rank makes a whole sharded leaf while
+    it saves) restores in one process bit for bit."""
     from kubeflow_controller_tpu.ops import optim8 as jo8
 
     _, got, refs = gang
@@ -605,6 +645,21 @@ def test_8bit_adamw_on_sharded_leaves_matches_jax_and_restores(gang):
             assert set(mine) == set(saved)
             for k in mine:
                 assert torch.equal(mine[k], saved[k]), (key, k)
+    for rank, rec in enumerate(g["saves"]):
+        assert rec["made"] == [] and rec["gathers"] == 0, (rank, rec)
+
+
+def test_reduce_scatter_in_slabs_gives_the_same_chunks(gang):
+    """A reduce-scatter above its ``slab_bytes`` (llama3_70b's 4.2 GB
+    embedding gradient) goes in slabs along its dimension: at fsdp=4,
+    along the first, a middle and the last dimension, each rank's chunk
+    equals the one call's and the all-reduced tensor's chunk, in the
+    one call's shape."""
+    _, got, _ = gang
+    ranks = got["slabs_fsdp4"]["ranks"]
+    assert len(ranks) == 4
+    for r, found in enumerate(ranks):
+        assert found == [(True, True, True)] * 3, (r, found)
 
 
 def test_int8_weight_gradient_scales_span_the_data_ranks(gang):

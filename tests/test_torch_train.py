@@ -603,8 +603,9 @@ def test_lm_train_refuses_what_is_not_ported(kw, tmp_path):
     were ported) train: into a model dir (here under tmp_path, not the
     id's path), saving there every ``checkpoint_every`` steps and at the
     end. ``config="tiny_moe"`` (refused until the MoE slice) trains and
-    reports the MoE metrics; ``llama3_70b`` (tensor parallelism) stays
-    refused. ``tp`` and ``fsdp`` (refused until multi-process training
+    reports the MoE metrics. ``llama3_70b`` (refused until its own slice,
+    though tensor parallelism came first) is a training config now, and
+    ``serve`` refuses it until tensor-parallel serving is ported. ``tp`` and ``fsdp`` (refused until multi-process training
     was ported) are a ``mesh_config`` now: one process is a world of one
     rank, which a tp=2 or fsdp=2 mesh cannot fill, and
     ``MeshConfig.resolve`` raises the reference's ``ValueError``; so does
@@ -622,6 +623,14 @@ def test_lm_train_refuses_what_is_not_ported(kw, tmp_path):
             tlm.train(**base)
         return
     base.update(kw)
+    if kw.get("config") == "llama3_70b":
+        from kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm import serve
+
+        cfg = tlm.model_config("llama3_70b")
+        assert (cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads) == (8192, 80, 64, 8)
+        with pytest.raises(NotImplementedError, match="not yet ported"):
+            serve(config="llama3_70b", device="cpu")
+        return
     if kw.get("config") == "tiny_moe" or kw.get("attn") == "ring":
         out = tlm.train(**base)
         assert out["final_step"] == 2 and np.isfinite(out["loss"])
@@ -987,6 +996,34 @@ def test_async_checkpoint_resumes(tmp_path):
     ref = _toy_loop(15)
     ref.run(ttrain.device_prefetch(_toy_data(), "cpu"))
     assert torch.equal(saved5, ref.state.params["w"])
+
+
+def test_async_checkpoint_is_restorable_before_the_next_save(tmp_path):
+    """``async_checkpoint`` commits in its background thread, as orbax
+    finalizes: a loop stopped (preempted) after one periodic save, with
+    no later save and no ``wait_for_save``, leaves that step restorable
+    once the thread ends, and a fresh loop resumes from it."""
+    mdir = str(tmp_path / "ckpt")
+
+    class Preempted(Exception):
+        pass
+
+    def preempted_after(n):
+        for i, batch in enumerate(_toy_data()):
+            if i == n:
+                raise Preempted
+            yield batch
+
+    loop = _toy_loop(20, log_every=100, checkpoint_every=5, async_checkpoint=True)
+    loop.model_dir = mdir
+    with pytest.raises(Preempted):
+        loop.run(ttrain.device_prefetch(preempted_after(7), "cpu"))
+    assert loop.state.step == 7
+    loop._saver.join()
+    assert ttrain.checkpoint_steps(mdir) == [5]
+    resumed = _toy_loop(20, log_every=100, checkpoint_every=5)
+    resumed.model_dir = mdir
+    assert resumed.restore() and resumed.state.step == 5
 
 
 def test_profile_dir_writes_a_trace(tmp_path):
