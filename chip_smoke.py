@@ -317,9 +317,12 @@ class Case:
     the working set exceeds the 50 MB L2, as a 32-layer model's would."""
 
     def __init__(self, kind, dtype, quant, B, W, mb, width, pos, seed,
-                 G=8, rep=4, D=128, bs=16):
+                 G=8, rep=4, D=128, bs=16, tp=1):
         import torch
 
+        # tp: the G heads are one tp rank's share (the kernels plan their
+        # split for tp * G heads).
+        self.tp = tp
         self.kind, self.dtype, self.quant = kind, dtype, quant
         self.B, self.W, self.mb, self.width = B, W, mb, width
         self.G, self.rep, self.D, self.bs = G, rep, D, bs
@@ -375,6 +378,8 @@ class Case:
 
         kp, vp, ks, vs = self._layer(i)
         kw = dict(k_scale=ks, v_scale=vs, width=self.width)
+        if not plain:
+            kw["tp"] = self.tp
         if self.kind == "decode":
             fn = pa.paged_attention_decode_plain if plain else pa.paged_attention_decode
             return fn(self.q, kp, vp, self.tables, self.pos, **kw)
@@ -1148,6 +1153,16 @@ def kernel_phase():
         # + 1 = 5 rows, past 256-token prompts in a 288-column span.
         ("verify.bf16.serve", Case("verify", bf, False, 8, 5, 18, 288,
                                    [256, 263, 270, 277, 282, 283, 259, 266], 24)),
+        # One rank's share at tp=2 (tp_serve_phase): llama3_8b's 4 of 8 KV
+        # heads (rep 4) and llama3_70b's 4 of 8 (rep 8), the serve shapes.
+        ("decode.bf16.tp2", Case("decode", bf, False, 8, 1, 18, 288, serve_pos, 25,
+                                 G=4, tp=2)),
+        ("prefill.bf16.tp2", Case("prefill", bf, False, 1, 16, 18, 288, [240], 26,
+                                  G=4, tp=2)),
+        ("decode.bf16.70b.tp2", Case("decode", bf, False, 8, 1, 18, 288, serve_pos, 27,
+                                     G=4, rep=8, tp=2)),
+        ("prefill.bf16.70b.tp2", Case("prefill", bf, False, 1, 16, 18, 288, [240], 28,
+                                      G=4, rep=8, tp=2)),
     ]
     # Checked, not timed: a prefill at offset 0 (no pool page live: the
     # intra-chunk tile alone), a tail chunk of 8 rows at offset 8, an int8
@@ -1177,7 +1192,58 @@ def kernel_phase():
                                                 "verify.bf16.serve"))
         del case
         torch.cuda.empty_cache()
+    tp_split_check()
     return recs
+
+
+#: The paged kernels' cases whose heads tp_split_check splits over two
+#: ranks: (name, kind, W, pos, rep).
+TP_SPLIT_CASES = (("decode", 1, [256, 263, 270, 277, 284, 287, 259, 266], 4),
+                  ("decode", 1, [2047, 0, 15, 16, 1000, 1535, 777, 2040], 8),
+                  ("prefill", 16, [240], 4), ("verify", 5, [2043, 0, 15, 16], 4))
+
+
+def tp_split_check():
+    """The split plan at tp: each half of the KV heads, called with
+    ``tp=2`` on its own half of the pool (a tp rank's share), gives the
+    bits of those heads in the one call over all 8 heads. Without the
+    ``tp`` argument a half plans its split for 4 heads: whether its bits
+    still match is logged, as the finding the argument answers."""
+    import torch
+
+    bf = torch.bfloat16
+    for seed, (kind, w, pos, rep) in enumerate(TP_SPLIT_CASES, 40):
+        mb = 128 if max(pos) > 288 else 18
+        whole = Case(kind, bf, False, len(pos), w, mb, mb * 16, pos, seed, rep=rep)
+        want = whole.call(plain=False)
+        same_unplanned = True
+        for r in range(2):
+            heads = slice(4 * r, 4 * r + 4)
+            for tp in (2, 1):
+                half = Case(kind, bf, False, len(pos), w, mb, mb * 16, pos, seed,
+                            G=4, rep=rep, tp=tp)
+                half.copies = 1
+                half.k_pool = whole.k_pool[:1, :, :, heads].contiguous()
+                half.v_pool = whole.v_pool[:1, :, :, heads].contiguous()
+                half.tables = whole.tables
+                half.q = whole.q[..., heads, :, :].contiguous()
+                if kind != "decode":
+                    half.k_new = whole.k_new[..., heads, :].contiguous()
+                    half.v_new = whole.v_new[..., heads, :].contiguous()
+                got = half.call(plain=False)
+                equal = torch.equal(got, want[..., heads, :, :])
+                if tp == 2 and not equal:
+                    raise AssertionError(
+                        f"tp split {kind} pos {pos}: rank {r}'s heads at tp=2 are not "
+                        f"the bits of the whole call")
+                if tp == 1:
+                    same_unplanned &= equal
+                del half
+        log(f"tp split {kind} W{w} rep{rep} {len(pos)} slot(s): each rank's 4 of 8 heads "
+            f"at tp=2 give the whole call's bits; planned for 4 heads alone they "
+            f"{'also do' if same_unplanned else 'do not'}")
+        del whole
+        torch.cuda.empty_cache()
 
 
 def two_stream_check():
@@ -1949,6 +2015,9 @@ def serve_phase(smi):
 #: through the engine or hold a stream's logits: drawn once, the weights
 #: ``serve(config=SERVE_CONFIG, seed=0)`` draws.
 _LLAMA = {}
+#: One-process engine runs (prompts, streams, summary, launches) that
+#: tp_serve_phase holds its gang to.
+_YARDSTICK = {}
 
 
 def _llama():
@@ -2304,6 +2373,12 @@ def tier_serve_phase(smi):
         runs[f"tier.int8.{mode}"] = (res, launches)
         del eng
     _same_streams("tier.int8 on vs off", int8["off"], int8["on"])
+    # The one-process run the tp gang's tier case is held to.
+    _YARDSTICK["tier.int8.on"] = dict(
+        prompts=[p.tolist() for _, p in pair], streams=int8["on"],
+        summary=runs["tier.int8.on"][0], launches=runs["tier.int8.on"][1],
+        engine_kw=dict(n_slots=1, max_seq=240, prefix_cache=True, kv_pool_blocks=16,
+                       kv_quant="int8", host_kv_mb=64 * depth))
     return runs
 
 
@@ -4799,10 +4874,14 @@ MOE_SERVE_CONFIG = "mixtral_8x7b_8l"
 #: llama3_8b cut to 2 layers (its fp32 state at 32 layers is ~128 GB),
 #: mixtral_8x7b to 1 (~750 GB at 32 layers; 27 GB at 1), llama3_70b to 1
 #: (1.13 TB at 80 layers; 47.3 GB at 1), the flagship at full width to 8
-#: (DIST_CASES says why).
+#: (DIST_CASES says why); for the tp serving gang mixtral_8x7b and
+#: llama3_70b at 2 (a rank holds its whole tree before it shards, two
+#: ranks on one card, and its gathers and exchanges go through host
+#: memory: TP_SERVE_CASES).
 CUT_CONFIGS = {SERVE_CONFIG: ("llama3_8b", 8), MOE_SERVE_CONFIG: ("mixtral_8x7b", 8),
                "llama3_8b_2l": ("llama3_8b", 2), "mixtral_8x7b_1l": ("mixtral_8x7b", 1),
-               "llama3_70b_1l": ("llama3_70b", 1), "flagship_8l": ("flagship", 8)}
+               "llama3_70b_1l": ("llama3_70b", 1), "flagship_8l": ("flagship", 8),
+               "mixtral_8x7b_2l": ("mixtral_8x7b", 2), "llama3_70b_2l": ("llama3_70b", 2)}
 
 
 def _case_config(name, **overrides):
@@ -5009,6 +5088,527 @@ def dist_phase(smi, labels=None):
     return runs
 
 
+# -- tensor- and expert-parallel serving over a two-rank gang -----------------
+
+#: The tp gang's cases, each served at tp=2 through the controller's env
+#: (``initialize_from_env``): ``via`` "serve" through ``serve()``, "engine"
+#: through ``ServingEngine``, "logits" a prefill and decode tail. Each is
+#: held to a one-process run of the same requests: ``yardstick`` names a
+#: run of the serve phase (its completions file), the prefix phase's
+#: tier run (``_YARDSTICK``), or "rank0" (rank 0 runs it in the gang,
+#: before the tp run). "gathered" must give its streams bit for bit;
+#: "parallel" and the MoE runs may leave them only after a near-tie
+#: (``SPEC_FLIP_GAP_OF_RMS``).
+TP_SERVE_CASES = [
+    dict(label="llama3_8b_8l.parallel.bucketed", config=SERVE_CONFIG, via="serve",
+         tp_compute="parallel", yardstick="fp", exact=False,
+         serve_kw=dict(batch=16, slots=8, prompt_len=256, max_new_tokens=32,
+                       block_size=16, prefill_mode="bucketed")),
+    dict(label="llama3_8b_8l.parallel.exact.spec", config=SERVE_CONFIG, via="serve",
+         tp_compute="parallel", yardstick="tiled.spec", yardstick_run="spec", exact=True,
+         serve_kw=dict(batch=16, slots=8, prompt_len=256, max_new_tokens=32,
+                       block_size=16, speculative=True, draft_k=4, seed=0,
+                       input_file="tiled_prompts.jsonl")),
+    dict(label="llama3_8b_8l.parallel.int8kv", config=SERVE_CONFIG, via="serve",
+         tp_compute="parallel", yardstick="int8", exact=False,
+         serve_kw=dict(batch=4, slots=8, prompt_len=256, max_new_tokens=32,
+                       block_size=16, prefill_mode="bucketed", kv_quant="int8")),
+    dict(label="llama3_8b_8l.parallel.tier.int8kv", config=SERVE_CONFIG, via="engine",
+         tp_compute="parallel", yardstick="tier.int8.on", exact=False, max_new=32),
+    dict(label="llama3_8b_8l.parallel.logits", config=SERVE_CONFIG, via="logits",
+         tp_compute="parallel", yardstick="rank0"),
+    dict(label="llama3_8b_2l.gathered", config="llama3_8b_2l", via="engine",
+         tp_compute="gathered", yardstick="rank0", exact=False, n_requests=2,
+         prompt_len=16, max_new=4,
+         engine_kw=dict(n_slots=2, max_seq=32, prefill_mode="bucketed")),
+    dict(label="llama3_8b_2l.gathered.logits", config="llama3_8b_2l", via="logits",
+         tp_compute="gathered", yardstick="rank0", steps=1),
+    dict(label="mixtral_8x7b_2l.int8.gathered", config="mixtral_8x7b_2l", quant="int8",
+         via="engine", tp_compute="gathered", yardstick="rank0", exact=True, n_requests=4,
+         prompt_len=256, max_new=8,
+         engine_kw=dict(n_slots=4, max_seq=272, prefill_mode="exact")),
+    dict(label="mixtral_8x7b_2l.int8.parallel", config="mixtral_8x7b_2l", quant="int8",
+         via="engine", tp_compute="parallel", yardstick="rank0", exact=False,
+         n_requests=4, prompt_len=48, max_new=8,
+         engine_kw=dict(n_slots=4, max_seq=64, prefill_mode="bucketed")),
+    dict(label="llama3_70b_2l.parallel", config="llama3_70b_2l", via="serve",
+         tp_compute="parallel", yardstick="rank0", exact=True,
+         serve_kw=dict(batch=4, slots=4, prompt_len=256, max_new_tokens=8,
+                       block_size=16)),
+]
+#: Parallel logits (bf16) against one device's, relative L2 over the
+#: vocabulary: each layer's two tp sums round the ranks' bf16 partials
+#: where one device rounds its whole product once, an error of the order
+#: of the kernel-vs-gather difference LOGITS_REL_L2_TOL bounds.
+TP_LOGITS_REL_L2_TOL = LOGITS_REL_L2_TOL
+TP_SERVE_TIMEOUT_S = 600
+
+
+def _tp_cases(labels=None):
+    return [c for c in TP_SERVE_CASES if labels is None or c["label"] in labels]
+
+
+def _tp_requests(case, vocab):
+    """The case's ``(rid, prompt)`` pairs: seeded prompts, or the
+    yardstick's own."""
+    import numpy as np
+
+    if case["yardstick"] in _YARDSTICK:
+        return [(i, np.asarray(p, np.int32))
+                for i, p in enumerate(_YARDSTICK[case["yardstick"]]["prompts"])]
+    rng = np.random.default_rng(17)
+    return [(i, rng.integers(0, vocab, case["prompt_len"]).astype(np.int32))
+            for i in range(case["n_requests"])]
+
+
+class _EngineTap:
+    """Inside the block, every ``ServingEngine`` step's completions and
+    the last engine made (``serve()`` keeps both to itself)."""
+
+    def __enter__(self):
+        from kubeflow_controller_tpu_torch.dataplane import serving_engine as se
+
+        self.completions, self.engine = [], None
+        self._cls, self._step, self._init = se.ServingEngine, se.ServingEngine.step, \
+            se.ServingEngine.__init__
+        tap = self
+
+        def init(eng, *a, **kw):
+            tap._init(eng, *a, **kw)
+            tap.engine = eng
+
+        def step(eng):
+            out = tap._step(eng)
+            tap.completions.extend(out)
+            return out
+
+        self._cls.__init__, self._cls.step = init, step
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.__init__, self._cls.step = self._init, self._step
+
+
+def _tp_engine_record(eng, res, wall, launches, streams, device):
+    """A rank's record of one served run."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.parallel.sharding import serving_param_shardings
+
+    rec = dict(streams=streams, launches=launches, wall_s=wall,
+               peak_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+               **{k: res[k] for k in (
+                   "ttft_p50_ms", "ttft_p95_ms", "tpot_p50_ms", "tokens_per_sec",
+                   "prefill_chunks", "spec_steps", "draft_accepted", "draft_proposed",
+                   "spilled_pages", "rehydrate_hits", "requests", "tp",
+                   "kv_hbm_per_device_mb", "moe_experts_per_shard")
+                  if k in res})
+    if eng is not None:
+        rec["resident_weight_bytes"] = _weight_bytes(eng.params)
+        rec["traffic_model_weight_bytes"] = eng._weights_model()[0]
+        if eng._mesh is not None:
+            # Each leaf's bytes over the ranks that split it.
+            specs = serving_param_shardings(eng.cfg, eng._mesh, eng._w_quant)
+            rec["expected_resident_bytes"] = _expected_bytes(eng.cfg, specs, eng.tp)
+    return rec
+
+
+def _expected_bytes(cfg, specs, tp):
+    """A rank's bytes of a fresh serving tree (every leaf in the compute
+    dtype but the router, drawn in the parameter dtype; int8 codes a byte
+    each) stored by ``specs``: each leaf's whole bytes over the tp ranks
+    that split it."""
+    import torch
+
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+    from kubeflow_controller_tpu_torch.parallel.sharding import P, tp_dims
+
+    item = torch.empty((), dtype=cfg.dtype).element_size()
+
+    def part(shape, spec, size):
+        return math.prod(shape) * size // (tp if tp_dims(spec, len(shape)) else 1)
+
+    def walk(shape, spec, key=None):
+        if isinstance(shape, dict):
+            return sum(walk(shape[k], spec[k], k) for k in shape)
+        if isinstance(spec, P):
+            size = (torch.empty((), dtype=cfg.param_dtype).element_size()
+                    if key == "w_router" else item)
+            return part(shape, spec, size)
+        scale = tuple(shape[:-2]) + (1, shape[-1])
+        return part(shape, spec[0], 1) + part(scale, spec[1], item)
+
+    return walk(tfm.param_shapes(cfg), specs)
+
+
+def _tp_logits(cfg, params, mesh, tp_compute, rank, device, steps=4):
+    """Two 256-token prompts admitted by ``prefill_into_paged``, then
+    ``steps`` decode steps fed one device's argmax (rank 0 computes one
+    device's run beside the mesh's; the other ranks take its tokens from
+    the mesh's logits, which are the same bits on every rank): per step
+    the relative L2 of the mesh's logits to one device's, whether their
+    argmaxes agree and whether they are equal."""
+    import numpy as np
+    import torch
+
+    from kubeflow_controller_tpu_torch.models import generate as gen
+    from kubeflow_controller_tpu_torch.parallel.sharding import shard_serving_params
+
+    rng = np.random.default_rng(31)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab_size, 256).astype(np.int32))
+               .to(device)[None] for _ in range(2)]
+    bs, mb = 16, 17
+    chunks = shard_serving_params(cfg, params, mesh, gen.weight_quant(params))
+    runs = [("mesh", mesh, chunks)] + ([("base", None, params)] if rank == 0 else [])
+    caches, logits = {}, {}
+    for mode, m, p in runs:
+        cache = gen.init_paged_cache(cfg, 2, mb, 2 * mb, bs, device=device,
+                                     tp=gen.tp_size(m))
+        cache.tables = torch.arange(2 * mb, dtype=torch.int32, device=device).reshape(2, mb)
+        rows = []
+        for i, pr in enumerate(prompts):
+            lg, cache = gen.prefill_into_paged(cfg, p, pr, cache, i, mesh=m,
+                                               tp_compute=tp_compute)
+            rows.append(lg)
+        caches[mode], logits[mode] = cache, torch.cat(rows)
+    out = []
+    for step in range(steps + 1):
+        if rank == 0:
+            a, b = logits["mesh"].float(), logits["base"].float()
+            out.append(dict(step=step, rel_l2=float((a - b).norm() / b.norm()),
+                            argmax_equal=bool((a.argmax(-1) == b.argmax(-1)).all()),
+                            equal=bool(torch.equal(a, b)),
+                            finite=bool(torch.isfinite(a).all())))
+        if step == steps:
+            break
+        toks = logits["base" if rank == 0 else "mesh"].argmax(-1).to(torch.int32)
+        if mesh is not None:
+            # Every rank feeds rank 0's tokens (one device's argmax).
+            import torch.distributed as dist
+
+            dist.broadcast(toks, src=0)
+        for mode, m, p in runs:
+            logits[mode], caches[mode] = gen.decode_step_paged(
+                cfg, p, toks[:, None], caches[mode], mesh=m, tp_compute=tp_compute)
+    del chunks, caches
+    return out
+
+
+def _tp_case(ctx, case, device, mesh):
+    """One case on this rank: the one-process yardstick first where rank
+    0 runs it, then the tp run; returns this rank's record."""
+    import gc
+
+    import torch
+
+    from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm import serve
+    from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
+        Request, ServingEngine,
+    )
+    from kubeflow_controller_tpu_torch.models import generate as gen
+
+    rank = ctx.process_id
+    cfg = _case_config(case["config"])
+    quant = case.get("quant", "")
+    rec = {}
+    t0 = time.perf_counter()
+    if case["via"] == "serve":
+        kw = dict(case["serve_kw"])
+        if "input_file" in kw:
+            kw["input_file"] = os.path.join(OUT_DIR, kw["input_file"])
+
+        def run(**extra):
+            torch.cuda.reset_peak_memory_stats(device)
+            with _EngineTap() as tap:
+                res, wall, launches = _counted(lambda: serve(
+                    config=case["config"], quant=quant, device=str(device), **kw, **extra))
+            streams = {c.rid: list(map(int, c.tokens)) for c in tap.completions}
+            out = _tp_engine_record(tap.engine, res, wall, launches, streams, device)
+            del tap
+            return out
+
+        if case["yardstick"] == "rank0" and rank == 0:
+            rec["one_process"] = run(ctx=ProcessContext())
+            gc.collect()
+            torch.cuda.empty_cache()
+        rec.update(run(tp=2, tp_compute=case["tp_compute"]))
+    else:
+        params = gen.init_inference_params(cfg, seed=0, device=device, quant=quant)
+        if case["via"] == "logits":
+            rec["logits"] = _tp_logits(cfg, params, mesh, case["tp_compute"], rank, device,
+                                       case.get("steps", 4))
+        else:
+            reqs = _tp_requests(case, cfg.vocab_size)
+            ekw = {"prefill_mode": "bucketed", **(
+                case.get("engine_kw") or _YARDSTICK[case["yardstick"]]["engine_kw"])}
+
+            def run(m):
+                torch.cuda.reset_peak_memory_stats(device)
+                eng = ServingEngine(cfg, params, block_size=16, device=device, mesh=m,
+                                    tp_compute=case["tp_compute"], **ekw)
+                comps, wall, launches = _counted(lambda: eng.run(
+                    [Request(rid=r, prompt=p, max_new_tokens=case["max_new"])
+                     for r, p in reqs]))
+                res = eng.stats.summary(wall_s=wall)
+                streams = {c.rid: list(map(int, c.tokens)) for c in comps}
+                return _tp_engine_record(eng, res, wall, launches, streams, device)
+
+            if case["yardstick"] == "rank0" and rank == 0:
+                rec["one_process"] = run(None)
+            rec.update(run(mesh))
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["case_s"] = time.perf_counter() - t0
+    return rec
+
+
+def _tp_probe(device):
+    """Whether the gang's backend reduces and gathers bf16 tensors of
+    ``device`` (the tp sums and gathers of the bf16 serving path)."""
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    x = torch.ones(8, device=device, dtype=torch.bfloat16)
+    for name, fn in (("all_reduce_bf16", lambda: dist.all_reduce(x.clone())),
+                     ("all_gather_into_tensor_bf16", lambda: dist.all_gather_into_tensor(
+                         torch.empty(16, device=device, dtype=torch.bfloat16), x))):
+        try:
+            fn()
+            torch.cuda.synchronize(device)
+            out[name] = True
+        except Exception as e:  # a probe: its finding is the answer
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    return out
+
+
+def _tp_serve_worker() -> int:
+    """One rank of ``tp_serve_phase``'s gang: join through
+    ``initialize_from_env``, probe the bf16 collectives, serve every case,
+    write this rank's records after each."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from kubeflow_controller_tpu_torch.dataplane import dist as ddist
+    from kubeflow_controller_tpu_torch.parallel.mesh import serving_mesh
+
+    spec = json.loads(os.environ["CHIP_SMOKE_TP"])
+    _YARDSTICK.update(spec["yardsticks"])
+    _register_cut_configs()
+    ctx = ddist.initialize_from_env(backend=spec["backend"])
+    device = ddist.local_device(ctx)
+    torch.cuda.set_device(device)
+    out = {"rank": ctx.process_id, "device": str(device), "probe": _tp_probe(device),
+           "cases": {}}
+    mesh = serving_mesh(2, device_type=device.type)
+    for case in _tp_cases(spec.get("labels")):
+        out["cases"][case["label"]] = _tp_case(ctx, case, device, mesh)
+        with open(os.path.join(spec["out"], f"rank{ctx.process_id}.json"), "w") as f:
+            json.dump(out, f)
+    ddist.destroy()
+    return 0
+
+
+def _tp_check_launches(label, rec, n_layers, exact):
+    """A rank's launches a layer a step: B5 whole decode micro-steps, B6
+    one a layer a prefill chunk and verify step, B1 (exact prefill) one
+    a layer an admission."""
+    ln = rec["launches"]
+    want_chunk = (rec["prefill_chunks"] + rec.get("spec_steps", 0)) * n_layers
+    bad = (ln["paged_decode"] <= 0 or ln["paged_decode"] % n_layers
+           or ln["paged_chunk"] != want_chunk
+           or ln.get("flash_fwd", 0) != (rec["requests"] * n_layers if exact else 0))
+    if bad:
+        raise AssertionError(f"tp[{label}]: launches {ln}, want paged_chunk {want_chunk}, "
+                             f"whole decode steps, flash_fwd admissions x {n_layers}")
+
+
+def tp_serve_phase(smi, serve_runs, labels=None):
+    """A two-rank gang that serves through the controller's env
+    (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES=2``,
+    ``JAX_PROCESS_ID``; gloo with both ranks on cuda:0 on one card, NCCL
+    with a card a rank on two) every case of :data:`TP_SERVE_CASES`, all
+    at full width: llama3_8b (8 layers) under ``"parallel"`` (bucketed,
+    exact with lookup speculation, int8 KV, the prefix cache with the
+    host tier over int8 pages, a logits tail), llama3_8b (2 layers)
+    under ``"gathered"`` (streams and logits bit for bit), mixtral_8x7b
+    (2 layers, int8 expert banks) in both modes and llama3_70b (2 of its
+    80 layers) under ``"parallel"`` through ``serve()``. Per case and
+    rank: B1/B5/B6 launches against the one-process run's, the resident
+    weight bytes against the placement's and the traffic model's
+    figures, peak memory, TTFT, TPOT and wall."""
+    import shutil
+    import socket
+
+    import torch
+
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    from kubeflow_controller_tpu_torch.ops import _build
+
+    _build.load()                       # built before any rank starts
+    out = os.path.join(OUT_DIR, "tp_serve")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    torch.cuda.empty_cache()
+    log(f"tp serve: backend {backend}, {cards} card(s), 2 ranks; this process holds "
+        f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    spec = json.dumps({"backend": backend, "out": out, "labels": labels,
+                       "yardsticks": _YARDSTICK})
+    procs, logs = [], []
+    for rank in range(2):
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(rank),
+                   CHIP_SMOKE_TP=spec, PYTHONPATH=ROOT)
+        if cards < 2:
+            env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        f = open(os.path.join(out, f"rank{rank}.log"), "w")
+        logs.append(f)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c",
+             "import chip_smoke as c; raise SystemExit(c._tp_serve_worker())"],
+            cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT))
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, TP_SERVE_TIMEOUT_S - (time.perf_counter() - t0)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad:
+            with open(os.path.join(out, f"rank{r}.log")) as f:
+                log(f"tp serve rank {r} rc={procs[r].returncode}:\n{f.read()[-6000:]}")
+        raise AssertionError(f"tp serve: rank(s) {bad} failed")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    log(f"tp serve: {time.perf_counter() - t0:.1f} s of gang; probe ({backend} on "
+        f"{ranks[0]['device']}): {json.dumps(ranks[0]['probe'])}")
+    records = {}
+    for case in _tp_cases(labels):
+        label = case["label"]
+        recs = [rk["cases"][label] for rk in ranks]
+        records[label] = recs
+        _tp_hold(case, recs, serve_runs, smi)
+    return records
+
+
+def _tp_hold(case, recs, serve_runs, smi):
+    """Hold one case's ranks to each other and to the one-process run."""
+    label = case["label"]
+    cfg = _case_config(case["config"])
+    n_layers = cfg.n_layers
+    for r, rec in enumerate(recs):
+        log(f"tp[{label}] rank {r} {json.dumps({k: v for k, v in rec.items() if k not in ('streams', 'one_process')})} | {smi}")
+    if case["via"] == "logits":
+        for step in recs[0]["logits"]:
+            log(f"tp[{label}] step {step['step']}: rel L2 {step['rel_l2']} (tol "
+                f"{TP_LOGITS_REL_L2_TOL}), argmax equal {step['argmax_equal']}, "
+                f"equal {step['equal']}")
+            if not step["finite"] or step["rel_l2"] > TP_LOGITS_REL_L2_TOL:
+                raise AssertionError(f"tp[{label}]: logits {step}")
+            if case["tp_compute"] == "gathered" and not step["equal"]:
+                raise AssertionError(f"tp[{label}]: gathered logits are not one "
+                                     f"device's bits: {step}")
+        return
+    if recs[1]["streams"] != recs[0]["streams"]:
+        raise AssertionError(f"tp[{label}]: the ranks' completions differ")
+    got = {int(k): v for k, v in recs[0]["streams"].items()}
+    yard = case["yardstick"]
+    if yard == "rank0":
+        one = recs[0]["one_process"]
+        want, one_launches = {int(k): v for k, v in one["streams"].items()}, one["launches"]
+        log(f"tp[{label}] one process: {json.dumps({k: v for k, v in one.items() if k != 'streams'})} | {smi}")
+    elif yard in _YARDSTICK:
+        want = {int(k): v for k, v in _YARDSTICK[yard]["streams"].items()}
+        one_launches = _YARDSTICK[yard]["launches"]
+    else:
+        want = {c["rid"]: c["completion"] for c in
+                _read_completions(os.path.join(OUT_DIR, f"serve_{yard}.jsonl"))}
+        one_launches = serve_runs[case.get("yardstick_run", yard)][1]
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"tp[{label}]: requests {sorted(got)} vs {sorted(want)}")
+    for r, rec in enumerate(recs):
+        _tp_check_launches(f"{label} rank {r}", rec, n_layers, case["exact"])
+        if rec.get("resident_weight_bytes") != rec.get("expected_resident_bytes"):
+            raise AssertionError(
+                f"tp[{label}] rank {r}: {rec.get('resident_weight_bytes')} weight bytes "
+                f"resident, the placement stores {rec.get('expected_resident_bytes')}")
+    per_rank = {k: [rec["launches"].get(k, 0) for rec in recs]
+                for k in ("flash_fwd", "paged_decode", "paged_chunk")}
+    log(f"tp[{label}] launches a rank {json.dumps(per_rank)} vs one process "
+        f"{ {k: one_launches.get(k, 0) for k in per_rank} }; resident weight GB a rank "
+        f"{[rec['resident_weight_bytes'] / 1e9 for rec in recs]} (traffic model's "
+        f"weight bytes a step {recs[0]['traffic_model_weight_bytes'] / 1e9} GB)")
+    if got == want:
+        # The same streams are the same schedule: the same launches a rank.
+        if not all(per_rank[k] == [one_launches.get(k, 0)] * 2 for k in per_rank):
+            raise AssertionError(f"tp[{label}]: the streams are one process's but the "
+                                 f"launches are not: {per_rank} vs {one_launches}")
+        log(f"tp[{label}]: {len(got)} of {len(got)} streams equal one process's")
+        return
+    if case["tp_compute"] == "gathered" and not cfg.moe_experts:
+        # Gathered dense serving is one device's arithmetic; a MoE model's
+        # expert-parallel FFN sums in another order in either mode.
+        raise AssertionError(f"tp[{label}]: gathered streams differ from one process's")
+    prompts = _tp_prompts(case, cfg)
+    gaps = _first_divergence_gaps(_case_params(case), want, got,
+                                  _stream_context(prompts, want), cfg)
+    _check_near_ties(f"tp[{label}] vs one process", gaps, len(got))
+    _drop_case_params()
+
+
+_CASE_PARAMS = {}
+
+
+def _case_params(case):
+    """The weights a case served (seed 0), drawn in this process."""
+    from kubeflow_controller_tpu_torch.models import generate as gen
+
+    if case["config"] == SERVE_CONFIG:
+        return _llama()[1]
+    key = (case["config"], case.get("quant", ""))
+    if key not in _CASE_PARAMS:
+        _CASE_PARAMS.clear()
+        _CASE_PARAMS[key] = gen.init_inference_params(
+            _case_config(case["config"]), seed=0, device="cuda", quant=key[1])
+    return _CASE_PARAMS[key]
+
+
+def _drop_case_params():
+    _CASE_PARAMS.clear()
+    _drop_llama()
+
+
+def _tp_prompts(case, cfg):
+    """Each request's prompt, by rid, as the served run had it."""
+    import numpy as np
+
+    if case["via"] == "engine":
+        return {r: p for r, p in _tp_requests(case, cfg.vocab_size)}
+    kw = case["serve_kw"]
+    if "input_file" in kw:
+        return dict(enumerate(r["prompt"] for r in _read_completions(
+            os.path.join(OUT_DIR, kw["input_file"]))))
+    rng = np.random.default_rng(0)
+    return dict(enumerate(rng.integers(0, cfg.vocab_size, (kw["batch"], kw["prompt_len"]))))
+
+
 def main() -> int:
     try:
         import torch
@@ -5068,6 +5668,7 @@ def _phases(aot) -> int:
     phase("checkpoint", checkpoint_phase, smi)
     model_runs = phase("models", models_phase, smi)
     dist_runs = phase("dist", dist_phase, smi)
+    tp_runs = phase("tp serve", tp_serve_phase, smi, runs)
     phase("aot", aot_phase, smi, aot)
     launches = runs["fp"][1]
     line = {"kernels": []}
@@ -5101,6 +5702,18 @@ def _phases(aot) -> int:
         line["kernels"][-1]["moe_runs_launches"] = {
             run: rec[1][name] for run, rec in moe_runs.items()
             if isinstance(rec, tuple)}
+        # One tp rank's share (tp=2: 4 of 8 KV heads) at llama3_8b's and
+        # llama3_70b's serve shapes, and each rank's launches in each case
+        # of the tp gang.
+        tp_case = {"paged_decode": "decode", "paged_chunk": "prefill"}[name]
+        line["kernels"][-1]["tp2"] = {
+            shape: {k: recs[shape][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "parts")}
+            for shape in (f"{tp_case}.bf16.tp2", f"{tp_case}.bf16.70b.tp2")}
+        line["kernels"][-1]["tp_launches_per_rank"] = {
+            label: [rec["launches"][name] for rec in rs]
+            for label, rs in tp_runs.items() if "launches" in rs[0]}
         if name == "paged_chunk":
             # B6's verify entry: its launches on the speculative serve run
             # (one per layer per verify step) and its record at that
@@ -5150,6 +5763,11 @@ def _phases(aot) -> int:
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "parts") if k in b}}
         if name == "flash_fwd":
+            # B1 in the tp gang: exact admissions, every head (gathered)
+            # or a rank's head group (parallel), a rank.
+            line["kernels"][-1]["tp_launches_per_rank"] = {
+                label: [rec["launches"]["flash_fwd"] for rec in rs]
+                for label, rs in tp_runs.items() if "launches" in rs[0]}
             line["kernels"][-1]["sampling_runs_launches"] = {
                 run: runs[run][1][name] for run in
                 ("sampled", "forks", "spec.sampled.oracle", "grammar")}

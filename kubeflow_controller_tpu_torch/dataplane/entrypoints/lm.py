@@ -72,8 +72,7 @@ CONFIGS = {
     "tiny_moe": tfm.tiny_moe_config,
     "llama3_8b": tfm.llama3_8b_config,
     "mixtral_8x7b": tfm.mixtral_8x7b_config,
-    # Trains over a mesh; serving it waits for tensor-parallel serving
-    # (serve_lm.NOT_SERVED).
+    # Trains over a mesh and serves over a tp gang (serve_lm --tp).
     "llama3_70b": tfm.llama3_70b_config,
     # bench.py's flagship decoder, which the JAX table does not name.
     "flagship": tfm.flagship_config,

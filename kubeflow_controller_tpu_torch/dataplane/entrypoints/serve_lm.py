@@ -27,6 +27,20 @@ point.
         --config llama3_8b --batch 16 --slots 8 --prompt-len 256 \\
         --temperature 0.8 --top-k 50 --top-p 0.95 --speculative --draft-k 4
 
+``--tp N`` serves over a tensor-parallel gang of N processes, one a tp
+rank, started by the controller's env (``JAX_COORDINATOR_ADDRESS``,
+``JAX_NUM_PROCESSES=N``, ``JAX_PROCESS_ID``): each joins the group
+(``dataplane/dist.py:initialize_from_env``), holds its ``1 / N`` of the
+weights and of the pool's KV heads, and serves the same requests;
+``--tp-compute gathered`` gives the one-device streams bit for bit,
+``parallel`` splits every projection (``models/generate.py``). Rank 0
+writes the completions and the metrics. A two-rank gang on the CPU:
+
+    for id in 0 1; do JAX_COORDINATOR_ADDRESS=127.0.0.1:29500 \
+        JAX_NUM_PROCESSES=2 JAX_PROCESS_ID=$id python -m \
+        kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm \
+        --config tiny --tp 2 --tp-compute parallel --device cpu & done; wait
+
 Runs on ``cuda``; ``--device cpu`` runs the plain PyTorch versions on
 the CPU. The command line takes every option of the JAX entry point's,
 with its default (``--attn-impl`` also takes the JAX names ``xla`` and
@@ -54,26 +68,15 @@ from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
 
 logger = logging.getLogger("tpujob.serve_lm_torch")
 
-#: Configurations lm.train trains that serve() refuses: llama3_70b's
-#: weights fit no one card, and serving over tp is not yet ported.
-NOT_SERVED = ("llama3_70b",)
-
 #: serve() keywords of features not ported yet, with the value that means
 #: "off". Any other value raises NotImplementedError.
 NOT_YET_PORTED_FLAGS = {
-    "tp": 1,
     "trace": "",
     "disagg": False,
     "fault_plan": "",
     "watchdog_stale_s": 0.0,
-    "tp_compute": "gathered",
-    "mesh_devices": "",
     "fault_seed": 0,
 }
-#: The command-line spelling of a keyword where it is not the keyword's,
-#: and the choices the JAX entry point's parser gives an option.
-_CLI_NAMES = {"mesh_devices": "--mesh"}
-_CLI_CHOICES = {"tp_compute": ["gathered", "parallel"]}
 
 
 def _read_prompts(path: str, vocab: int, batch: int,
@@ -134,6 +137,40 @@ def _load_params(cfg, model_dir: str, seed: int, device, quant: str = ""):
     return tfm.init_params(cfg, seed=seed, device=device, dtype=cfg.dtype), None
 
 
+def _device_and_mesh(ctx: ProcessContext, tp: int, mesh_devices: str,
+                     device: DeviceLike):
+    """``(device, mesh)`` of this process: one device and no mesh at
+    ``tp <= 1`` in a one-process job; else the job's group joined
+    (``initialize_from_env``), ``tp`` held to its process count, this
+    rank's device, and the 1-D tp mesh over the job's ranks (which
+    raises the mesh's ``ValueError`` for ``tp > 1`` in one process)."""
+    import torch
+    import torch.distributed as dist
+
+    from kubeflow_controller_tpu_torch.dataplane import dist as ddist
+    from kubeflow_controller_tpu_torch.parallel.mesh import serving_mesh
+
+    if ctx.num_processes > 1:
+        if tp != ctx.num_processes:
+            raise ValueError(
+                f"serve: a job of {ctx.num_processes} processes serves at "
+                f"tp={ctx.num_processes}, one process a tp rank (got tp={tp})")
+        if not dist.is_initialized():
+            ddist.initialize_from_env(device=None if device is None
+                                      else str(device))
+        ddist.require_process_group(ctx)
+    cards = [int(c) for c in mesh_devices.split(",")] if mesh_devices else []
+    if cards and len(cards) != tp:
+        raise ValueError(
+            f"--mesh names {len(cards)} devices for tp={tp}: give one a rank")
+    if cards and (device is None or torch.device(device).type == "cuda"):
+        device = f"cuda:{cards[ctx.process_id]}"
+    dev = resolve_device(ddist.job_device(ctx, device))
+    if dev.type == "cuda" and dev.index is not None:
+        torch.cuda.set_device(dev)
+    return dev, serving_mesh(tp, device_type=dev.type)
+
+
 def serve(
     ctx: Optional[ProcessContext] = None,
     config: str = "tiny",
@@ -167,6 +204,9 @@ def serve(
     host_kv_mb: float = 0.0,
     quant: str = "",
     paged: bool = True,
+    tp: int = 1,
+    tp_compute: str = "gathered",
+    mesh_devices: str = "",
     stop=None,
     device: DeviceLike = None,
     **not_yet_ported,
@@ -202,8 +242,18 @@ def serve(
     is ``"kernel"`` (the hand-written kernels; the JAX default ``"xla"``,
     the gathered-view oracle, is accepted as an alias of ``"gather"``,
     ``"pallas"`` of ``"kernel"``): the port serves through its kernels
-    unless asked for the oracle. A multi-process job
-    (``ctx.num_processes > 1``) is refused with "not yet ported".
+    unless asked for the oracle.
+
+    ``tp > 1`` serves over a tp mesh of that many processes: a job of
+    ``ctx.num_processes`` processes joins its group through
+    ``initialize_from_env`` and serves at ``tp`` equal to its process
+    count (any other ``tp`` is refused); ``tp_compute`` is
+    ``"gathered"`` or ``"parallel"``. The head split is checked before
+    any weight loads (``generate.check_tp_heads``). Rank ``i`` drives
+    ``cuda:<mesh_devices[i]>`` (a comma-separated list of cards), or with
+    none given the card training gives it (``dist.local_device``).
+    Every rank returns the summary; rank 0 alone writes
+    ``output_file`` and the metrics.
 
     ``quant="int8"`` serves weight-only int8 projections
     (``inference_params(quant="int8")``, after the checkpoint's weights
@@ -253,17 +303,17 @@ def serve(
             raise NotImplementedError(
                 f"serve({key}={value!r}) is not yet ported to the PyTorch "
                 f"entry point (see ROADMAP.md)")
-    ctx = ctx or ProcessContext.from_env()
-    if ctx.num_processes > 1:
-        raise NotImplementedError(
-            f"multi-process serving (num_processes={ctx.num_processes}) is "
-            "not yet ported")
-    if config in NOT_SERVED:
-        raise NotImplementedError(
-            f"serving config {config!r} is not yet ported (it needs "
-            "tensor-parallel serving)")
     cfg = model_config(config)
-    dev = resolve_device(device)
+    # The head split is checked before anything loads or joins a group.
+    gen.check_tp_heads(cfg, tp, tp_compute)
+    if tp > 1 and turns > 1 and not prefix_cache:
+        raise ValueError(
+            "tp > 1 serves through the continuous-batching engine; "
+            "the contiguous multi-turn path (--turns without "
+            "--prefix-cache) is single-chip only")
+    ctx = ctx or ProcessContext.from_env()
+    dev, mesh = _device_and_mesh(ctx, tp, mesh_devices, device)
+    rank0 = mesh is None or mesh.rank == 0
     params, restored_step = _load_params(cfg, model_dir or ctx.model_dir,
                                          seed, dev, quant)
     if not gen.weight_quant(params):
@@ -292,7 +342,10 @@ def serve(
             block_size=block_size, kv_hbm_budget_mb=kv_pool_mb,
             host_kv_mb=host_kv_mb, kv_quant=kv_quant,
             spec_decode=speculative, draft_k=draft_k, proposer=proposer,
-            attn_impl=attn_impl, paged=paged, device=dev)
+            attn_impl=attn_impl, paged=paged, mesh=mesh,
+            tp_compute=tp_compute, device=dev)
+        # The engine holds this rank's chunks; the whole tree goes.
+        params = None
     if turns <= 1:
         # One params object for every request: draws are keyed by (seed,
         # gen, position), and a mask keeps its automaton state in the slot.
@@ -317,7 +370,7 @@ def serve(
         max_steps = b * n * (max_new_tokens + chunks) + 2 * b * n + 4
         completions = []
         for _ in range(max_steps):
-            if stop is not None and stop.is_set():
+            if stop is not None and engine.agreed_flag(stop.is_set()):
                 logger.info("stop requested: draining engine (grace %.1fs)",
                             drain_grace_s)
                 completions.extend(engine.drain(drain_grace_s))
@@ -397,7 +450,7 @@ def serve(
         dt = time.perf_counter() - t0
         rows = [(i, 0, toks[i].tolist(), "length") for i in range(b)]
 
-    if output_file:
+    if output_file and rank0:
         with open(output_file, "w") as f:
             for rid, g, completion, reason in rows:
                 f.write(json.dumps({
@@ -426,7 +479,7 @@ def serve(
         "interrupted": float(interrupted),
     }
     out.update(serving)
-    ml = metrics_mod.from_context(ctx)
+    ml = metrics_mod.from_context(ctx) if rank0 else None
     if ml is not None:
         ml.write(0, out)
         ml.close()
@@ -526,6 +579,23 @@ def main(argv=None) -> int:
                    help="--no-paged serves the contiguous multi-turn path "
                         "(--turns > 1 without --prefix-cache); the engine "
                         "serves from the paged pool only")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel serving over a gang of --tp "
+                        "processes from the controller's env (one a tp "
+                        "rank): each holds 1/tp of the weights and of the "
+                        "pool's KV heads (requires n_kv_heads %% tp == 0)")
+    p.add_argument("--tp-compute", default="gathered",
+                   choices=["gathered", "parallel"],
+                   help="gathered = each layer's weights gathered where it "
+                        "runs (greedy streams bit for bit tp=1's); "
+                        "parallel = column/row-parallel projections, one "
+                        "tp sum a block (logits within "
+                        "generate.tp_parallel_tolerance; requires d_ff %% "
+                        "tp == 0 for a dense config)")
+    p.add_argument("--mesh", dest="mesh_devices", default="",
+                   help="comma-separated cards of the tp ranks (rank i "
+                        "drives cuda:<i-th>); default: the card training "
+                        "gives each rank")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     for key, off in NOT_YET_PORTED_FLAGS.items():
         if isinstance(off, bool):
@@ -533,11 +603,17 @@ def main(argv=None) -> int:
                         else "store_true")
         else:
             kind = dict(type=type(off))
-            if key in _CLI_CHOICES:
-                kind["choices"] = _CLI_CHOICES[key]
-        p.add_argument(_CLI_NAMES.get(key, "--" + key.replace("_", "-")),
+        p.add_argument("--" + key.replace("_", "-"),
                        dest=key, default=off, help="not yet ported", **kind)
     args = p.parse_args(argv)
+    if args.tp > 1:
+        from kubeflow_controller_tpu_torch.models import generate as gen
+
+        try:
+            gen.check_tp_heads(model_config(args.config), args.tp,
+                               args.tp_compute)
+        except ValueError as e:
+            p.error(str(e))
     # The reference's checks of the sampling flags, through argparse
     # (usage and exit 2), before anything loads.
     from kubeflow_controller_tpu_torch.dataplane.sampling import (
@@ -584,10 +660,14 @@ def main(argv=None) -> int:
             proposer=args.proposer, turns=args.turns,
             prefix_cache=args.prefix_cache, host_kv_mb=args.host_kv_mb,
             attn_impl=args.attn_impl, quant=args.quant, paged=args.paged,
-            device=args.device, stop=stop,
+            tp=args.tp, tp_compute=args.tp_compute,
+            mesh_devices=args.mesh_devices, device=args.device, stop=stop,
             **refused)
     finally:
         signal.signal(signal.SIGTERM, previous)
+    from kubeflow_controller_tpu_torch.dataplane.dist import destroy
+
+    destroy()             # leave the job's process group, if any
     return 0 if metrics["prompts"] > 0 else 1
 
 

@@ -188,9 +188,15 @@ class HostKVTier:
     was dropped stops answering :meth:`has`, and the trie prunes its
     node on the next walk through it. ``injector`` (fault injection) is
     not yet ported: only ``None`` is accepted.
+
+    ``shards``: an engine over a tp mesh of that many ranks, each rank's
+    tier holding its own ``1 / shards`` of every page's heads. The budget
+    and the residency count whole pages' bytes (``shards`` times an
+    entry's), as the JAX package's tier of whole pages does, so that
+    every rank spills, evicts and refuses the same pages at any tp.
     """
 
-    def __init__(self, budget_bytes: int, injector=None):
+    def __init__(self, budget_bytes: int, injector=None, shards: int = 1):
         if budget_bytes < 0:
             raise ValueError(
                 f"budget_bytes must be >= 0 (got {budget_bytes})")
@@ -199,6 +205,7 @@ class HostKVTier:
                 "fault injection in the host tier (injector) is not yet "
                 "ported (see ROADMAP.md)")
         self.budget_bytes = int(budget_bytes)
+        self.shards = int(shards)
         self._pages: "OrderedDict[int, tuple]" = OrderedDict()
         self._nbytes: Dict[int, int] = {}
         self._next_handle = 0
@@ -215,11 +222,15 @@ class HostKVTier:
     def payload_nbytes(payload: tuple) -> int:
         return sum(int(a.nbytes) for a in payload if a is not None)
 
+    def page_nbytes(self, payload: tuple) -> int:
+        """The whole page's bytes of this rank's ``payload``."""
+        return self.payload_nbytes(payload) * self.shards
+
     def put(self, payload: tuple) -> Optional[int]:
         """Admit one page's bytes, LRU-evicting until it fits. Returns
         the handle, or ``None`` when the page alone exceeds the budget
         (budget 0 admits nothing)."""
-        nbytes = self.payload_nbytes(payload)
+        nbytes = self.page_nbytes(payload)
         if nbytes > self.budget_bytes:
             return None
         while self.resident_bytes + nbytes > self.budget_bytes:

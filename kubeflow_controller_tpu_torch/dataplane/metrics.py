@@ -3,8 +3,8 @@
 Counterpart of ``kubeflow_controller_tpu/dataplane/metrics.py``'s
 :class:`ServingStats` and :class:`MetricsLogger`, cut to the counters
 the port produces: the reference's summary keys but those of features
-not ported yet (tensor parallelism, migration, fault injection, spans,
-and the jit-cache counts ``prefill_compiles`` and ``admit_cache_size``).
+not ported yet (migration, fault injection, spans, and the jit-cache
+counts ``prefill_compiles`` and ``admit_cache_size``).
 """
 
 from __future__ import annotations
@@ -74,6 +74,13 @@ class ServingStats:
     pool_blocks_in_use: int = 0
     pool_blocks_resident: int = 0
     kv_bytes_per_token: int = 0
+    # Tensor-parallel serving: ``tp`` is the mesh width,
+    # ``pool_blocks_per_shard`` the pages each rank's pool holds (all of
+    # them: the KVH axis is what splits, not the page axis), and
+    # ``kv_hbm_per_device_mb`` the device memory the pool occupies on a
+    # rank (1 / tp of the whole pool's).
+    tp: int = 1
+    pool_blocks_per_shard: int = 0
     kv_hbm_per_device_mb: float = 0.0
     # The engine's analytic traffic model (ServingEngine._traffic_model):
     # device bytes a step reads, per attention phase (the unsuffixed
@@ -83,8 +90,8 @@ class ServingStats:
     hbm_bytes_per_step_decode: float = 0.0
     hbm_bytes_per_step_verify: float = 0.0
     flops_per_token_per_shard: float = 0.0
-    # MoE: the expert bank resident on the device (E at tp=1; 0 for a
-    # dense model), and the token-x-expert routings of every dispatched
+    # MoE: the expert bank resident on the device (E at tp=1, E / tp
+    # under tp; 0 for a dense model), and the token-x-expert routings of every dispatched
     # forward (each real token a quantum forwards adds top_k, once a
     # forward, not once a layer).
     moe_experts_per_shard: int = 0
@@ -195,6 +202,8 @@ class ServingStats:
             "pool_blocks_in_use": float(self.pool_blocks_in_use),
             "pool_blocks_resident": float(self.pool_blocks_resident),
             "kv_bytes_per_token": float(self.kv_bytes_per_token),
+            "tp": float(self.tp),
+            "pool_blocks_per_shard": float(self.pool_blocks_per_shard),
             "kv_hbm_per_device_mb": float(self.kv_hbm_per_device_mb),
             "hbm_bytes_per_step": float(self.hbm_bytes_per_step),
             "hbm_bytes_per_step_prefill": float(

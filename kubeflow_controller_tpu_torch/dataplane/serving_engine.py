@@ -1,4 +1,4 @@
-"""Continuous-batching LM decode engine over the paged KV pool, on one GPU.
+"""Continuous-batching LM decode engine over the paged KV pool.
 
 Counterpart of ``kubeflow_controller_tpu/dataplane/serving_engine.py``:
 
@@ -54,15 +54,31 @@ Counterpart of ``kubeflow_controller_tpu/dataplane/serving_engine.py``:
   :meth:`register_prefix` ingests an external contiguous cache.
 
 Parameters from ``generate.inference_params(quant="int8")`` serve with
-weight-only int8 projections. A MoE model serves on one device: its
-routed FFN in every path (``models/generate.py``), and the counters
+weight-only int8 projections. A MoE model serves its routed FFN in every
+path (``models/generate.py``), with the counters
 ``moe_tokens_dispatched`` and ``moe_experts_per_shard``.
+
+Tensor parallelism (``tp`` or ``mesh``, and ``tp_compute``): one process
+a tp rank of a ``torch.distributed`` gang (``parallel.mesh.
+serving_mesh``), each running this engine on the same requests. A rank
+stores its chunks of the weights (``parallel.sharding.
+shard_serving_params``) and its ``KVH / tp`` heads of every pool page;
+the scheduler is mesh-blind, its block tables, lengths and logits whole
+on every rank, and every kernel call runs over the mesh (``"gathered"``:
+the one-device arithmetic, greedy streams bit for bit; ``"parallel"``:
+Megatron's split, within ``generate.tp_parallel_tolerance``; a MoE
+model's experts split over tp in both). The decisions the host takes
+from the clock (deadlines, queue waits, the drain's grace) read rank
+0's clock, broadcast to the gang at every read, and :meth:`run`'s
+``stop`` is rank 0's: every rank books, retires and admits alike. The
+KV budget is per device, and the host tier counts whole pages' bytes.
+
 ``stats.summary()`` publishes the JAX engine's keys (``cancelled``, the
-pool gauges and the analytic traffic model of
+pool and tp gauges and the analytic traffic model of
 :meth:`ServingEngine._traffic_model`) but those of features not ported.
 Everything else the JAX engine offers raises "not yet ported" when
-asked for: tensor parallelism, disaggregation, fault injection and the
-tracer; ``paged=False`` raises the JAX engine's ``ValueError``.
+asked for: disaggregation, fault injection and the tracer;
+``paged=False`` raises the JAX engine's ``ValueError``.
 """
 
 from __future__ import annotations
@@ -74,6 +90,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kubeflow_controller_tpu_torch.dataplane import kv_blocks
 from kubeflow_controller_tpu_torch.dataplane import spec_decode as spec_mod
@@ -89,6 +106,8 @@ from kubeflow_controller_tpu_torch.models.transformer import (
     Params, TransformerConfig,
 )
 from kubeflow_controller_tpu_torch.obs.telemetry import registry
+from kubeflow_controller_tpu_torch.parallel import mesh as mesh_lib
+from kubeflow_controller_tpu_torch.parallel import sharding as sharding_lib
 
 
 def not_yet_ported(what: str) -> NotImplementedError:
@@ -307,6 +326,8 @@ class ServingEngine:
         spec_patience: int = 2,
         spec_cooldown_max: int = 256,
         tp: int = 1,
+        mesh=None,
+        tp_compute: str = "gathered",
         attn_impl: str = "kernel",
         paged: bool = True,
         host_kv_mb: float = 0.0,
@@ -328,7 +349,6 @@ class ServingEngine:
                 "prefix_cache requires prefill_mode='bucketed' (exact-"
                 "length prefill does not land on the block grid)")
         refused = [
-            (int(tp) > 1, "tensor-parallel serving (tp > 1)"),
             (tracer is not None, "the lifecycle tracer"),
             (injector is not None, "fault injection"),
         ]
@@ -356,8 +376,29 @@ class ServingEngine:
         if embed.device.type != self.device.type:
             raise ValueError(
                 f"params live on {embed.device}, the engine on {self.device}")
+        # Tensor parallelism: the head split is checked first (the JAX
+        # engine's message), then the mesh resolves (an explicit mesh
+        # wins; tp > 1 without a gang of that many ranks raises the mesh's
+        # ValueError). The weights are stored as this rank's chunks.
+        if tp_compute not in gen.TP_COMPUTE:
+            raise ValueError(
+                f"tp_compute must be 'gathered' or 'parallel' "
+                f"(got {tp_compute!r})")
+        self.tp_compute = tp_compute
+        self.tp = gen.tp_size(mesh) if mesh is not None else max(1, int(tp))
+        gen.check_tp_heads(cfg, self.tp, tp_compute)
+        self._mesh = (mesh if mesh is not None else
+                      mesh_lib.serving_mesh(self.tp, device_type=self.device.type))
+        self._host_group = None
+        if self._mesh is not None:
+            params = sharding_lib.shard_serving_params(
+                cfg, params, self._mesh, gen.weight_quant(params))
+            self._host_group = self._agreement_group(self._mesh)
+            self._host_src = int(self._mesh.devices.reshape(-1)[0])
         self.cfg = cfg
         self.params = params
+        # Every kernel call's tensor-parallel arguments.
+        self._tp_kw = dict(mesh=self._mesh, tp_compute=tp_compute)
         self.n_slots = n_slots
         self.max_seq = int(max_seq or cfg.max_seq)
         if prefill_mode == "bucketed":
@@ -389,9 +430,11 @@ class ServingEngine:
         # would be evicted by the next wave's reservations).
         if kv_pool_blocks is None:
             if kv_hbm_budget_mb is not None:
+                # The budget is per device: a rank holds 1 / tp of every
+                # page's bytes.
                 kv_pool_blocks = kv_blocks.blocks_for_budget(
                     cfg, self.block_size, int(kv_hbm_budget_mb * (1 << 20)),
-                    kv_quant)
+                    kv_quant, tp=self.tp)
             elif prefix_cache:
                 kv_pool_blocks = 2 * n_slots * self._max_blocks
             else:
@@ -409,13 +452,15 @@ class ServingEngine:
                 "is nothing to spill)")
         self._host_tier: Optional[kv_blocks.HostKVTier] = None
         if host_kv_mb > 0:
-            self._host_tier = kv_blocks.HostKVTier(int(host_kv_mb * (1 << 20)))
+            self._host_tier = kv_blocks.HostKVTier(int(host_kv_mb * (1 << 20)),
+                                                   shards=self.tp)
         self._prefix_store: Optional[kv_blocks.PrefixStore] = None
         if prefix_cache:
             self._prefix_store = kv_blocks.PrefixStore(
                 cfg, self.block_size, self._kv_pool_blocks, pool=self.pool,
                 tier=self._host_tier)
-        self._clock = clock
+        self._clock = clock if self._host_group is None else (
+            lambda: self._agreed(clock()))
         self._metrics = MetricsLogger(metrics_path) if metrics_path else None
         # Speculative decoding. Cooldown (steps before a lane may propose
         # again) and backoff (the last cooldown, doubled on every relapse
@@ -443,7 +488,7 @@ class ServingEngine:
 
         self.cache = gen.init_paged_cache(
             cfg, n_slots, self._max_blocks, self._kv_pool_blocks,
-            self.block_size, kv_quant, device=self.device)
+            self.block_size, kv_quant, device=self.device, tp=self.tp)
         # Host-owned block tables, the scheduler's source of truth; the
         # sentinel (== n_blocks) marks unallocated entries.
         self._tables = np.full(
@@ -479,12 +524,37 @@ class ServingEngine:
         self._rid_gens: Dict[int, int] = {}
         self.slots: List[Optional[_Slot]] = [None] * n_slots
         self.queue: deque = deque()
-        self.stats = ServingStats(n_slots=n_slots)
+        self.stats = ServingStats(n_slots=n_slots, tp=self.tp)
         # One-deep dispatch pipeline: (token fetch, slot snapshot).
         self._pending: Optional[Tuple[_Fetch, List[Optional[_Slot]]]] = None
         self._rids: set = set()
         self._done_buf: List[Completion] = []
         self._draining = False
+
+    @staticmethod
+    def _agreement_group(mesh):
+        """The group rank 0's host values reach the other tp ranks over:
+        the tp group on gloo, a gloo group over the same ranks on another
+        backend (the values are host scalars, which NCCL does not
+        carry). Every rank of the world takes part in making it."""
+        if str(dist.get_backend()) == "gloo":
+            return mesh.group("tp")
+        return dist.new_group([int(r) for r in mesh.devices.reshape(-1)],
+                              backend="gloo")
+
+    def _agreed(self, value: float) -> float:
+        """Rank 0's ``value`` on every tp rank (``value`` itself on one
+        device)."""
+        if self._host_group is None:
+            return value
+        t = torch.tensor([float(value)], dtype=torch.float64)
+        dist.broadcast(t, src=self._host_src, group=self._host_group)
+        return float(t.item())
+
+    def agreed_flag(self, flag: bool) -> bool:
+        """Rank 0's ``flag`` on every tp rank: a stop signal or any other
+        host event that must act on every rank at the same step."""
+        return bool(self._agreed(1.0 if flag else 0.0))
 
     def reset(self) -> None:
         """Drop every queued and in-flight request and zero the pool and
@@ -494,7 +564,8 @@ class ServingEngine:
         adaptation to the traffic)."""
         self.pool = kv_blocks.BlockPool(self._kv_pool_blocks)
         if self._host_tier is not None:
-            self._host_tier = kv_blocks.HostKVTier(self._host_tier.budget_bytes)
+            self._host_tier = kv_blocks.HostKVTier(self._host_tier.budget_bytes,
+                                                   shards=self.tp)
         if self._prefix_store is not None:
             self._prefix_store.pool = self.pool
             self._prefix_store.tier = self._host_tier
@@ -508,7 +579,7 @@ class ServingEngine:
         self.cache = None
         self.cache = gen.init_paged_cache(
             self.cfg, self.n_slots, self._max_blocks, self._kv_pool_blocks,
-            self.block_size, self.kv_quant, device=self.device)
+            self.block_size, self.kv_quant, device=self.device, tp=self.tp)
         self.logits.zero_()
         self.eos.fill_(-1)
         self.budget.zero_()
@@ -524,7 +595,7 @@ class ServingEngine:
         self._rid_gens = {}
         self.slots = [None] * self.n_slots
         self.queue.clear()
-        self.stats = ServingStats(n_slots=self.n_slots)
+        self.stats = ServingStats(n_slots=self.n_slots, tp=self.tp)
         self._pending = None
         self._rids = set()
         self._done_buf = []
@@ -553,7 +624,7 @@ class ServingEngine:
             gen.scatter_row_into_pool(
                 self.cache, cache.k, cache.v, row,
                 [node.block for node, _ in new], [off for _, off in new],
-                self.block_size)
+                self.block_size, mesh=self._mesh)
         return len(path) * self.block_size
 
     # -- request intake ----------------------------------------------------
@@ -731,7 +802,7 @@ class ServingEngine:
             node.host_handle = h
             keep.append(True)
             pages += 1
-            nbytes += kv_blocks.HostKVTier.payload_nbytes(payload)
+            nbytes += tier.page_nbytes(payload)
         self.stats.spilled_pages += pages
         self.stats.spill_bytes += nbytes
         reg = registry()
@@ -944,7 +1015,7 @@ class ServingEngine:
             was_active = cache.active
             logits, cache = gen.decode_step_paged(
                 self.cfg, self.params, toks[:, None], cache, view_width=vw,
-                attn_impl=self.attn_impl)
+                attn_impl=self.attn_impl, **self._tp_kw)
             # This token IS decoded (the stream includes EOS); the row
             # then goes inactive for every later micro-step. Its later
             # chunk tokens are garbage the host discards by the same rule.
@@ -981,7 +1052,7 @@ class ServingEngine:
             was_active = cache.active
             logits, cache = gen.decode_step_paged(
                 self.cfg, self.params, toks[:, None], cache, view_width=vw,
-                attn_impl=self.attn_impl)
+                attn_impl=self.attn_impl, **self._tp_kw)
             emitted = torch.where(was_active, emitted + 1, emitted)
             done = was_active & ((toks == self.eos) | (emitted >= self.budget))
             cache.active = cache.active & ~done
@@ -1013,7 +1084,7 @@ class ServingEngine:
         was_active = self.cache.active
         self.logits, self.cache = gen.decode_step_paged(
             self.cfg, self.params, toks[:, None], self.cache, view_width=vw,
-            attn_impl=self.attn_impl)
+            attn_impl=self.attn_impl, **self._tp_kw)
         self.emitted = torch.where(was_active, self.emitted + 1, self.emitted)
         done = was_active & ((toks == self.eos) | (self.emitted >= self.budget))
         self.cache.active = self.cache.active & ~done
@@ -1038,12 +1109,13 @@ class ServingEngine:
                 gen.verify_step_paged_sampled(
                     self.cfg, self.params, draft_d, dlen_d, self.logits,
                     self.cache, self.eos, max_commit, *self._push_sampling(),
-                    self.emitted, view_width=vw, attn_impl=self.attn_impl)
+                    self.emitted, view_width=vw, attn_impl=self.attn_impl,
+                    **self._tp_kw)
         else:
             window, n, self.logits, self.cache = gen.verify_step_paged(
                 self.cfg, self.params, draft_d, dlen_d, self.logits,
                 self.cache, self.eos, max_commit, view_width=vw,
-                attn_impl=self.attn_impl)
+                attn_impl=self.attn_impl, **self._tp_kw)
             next_tok = None
         self.emitted = self.emitted + n              # n = 0 on inactive rows
         in_commit = (torch.arange(window.shape[1], device=self.device)[None, :]
@@ -1067,7 +1139,7 @@ class ServingEngine:
         row_logits, self.cache = gen.prefill_chunk_paged(
             self.cfg, self.params, _to_device(toks, self.device),
             self.cache, i, off, w_real, view_width=vw,
-            attn_impl=self.attn_impl)
+            attn_impl=self.attn_impl, **self._tp_kw)
         self.logits[i] = row_logits[0]
         self.eos[i] = p.eos_val
         self.budget[i] = p.budget_val
@@ -1156,7 +1228,7 @@ class ServingEngine:
                 row_logits, self.cache = gen.prefill_into_paged(
                     self.cfg, self.params,
                     _to_device(req.prompt[None], self.device), self.cache,
-                    slot)
+                    slot, **self._tp_kw)
                 self.logits[slot] = row_logits[0]
                 self.eos[slot] = eos_val
                 self.budget[slot] = req.max_new_tokens
@@ -1671,53 +1743,69 @@ class ServingEngine:
 
     def _traffic_model(self, phase: str = "decode") -> Tuple[float, float]:
         """The reference engine's analytic traffic for one attention
-        ``phase`` at tp=1: ``(hbm_bytes_per_step,
+        ``phase``, per tp rank: ``(hbm_bytes_per_step,
         flops_per_token_per_shard)``.
 
         * Weights: every projection is read once a step, one byte an
           element under weight-only int8, else the compute dtype's size.
+          Under ``tp_compute="parallel"`` the column- and row-parallel
+          weights are read as this rank's chunks (1 / tp of them); under
+          ``"gathered"`` whole. The head is counted whole.
         * KV: the view width's span of pool pages that the phase's query
           rows attend (every slot for decode and verify, one row for a
-          prefill chunk), read once by the kernels and three times by the
-          gather path (pool read, view write, view read), as
-          ``attn_impl`` says.
+          prefill chunk), this rank's heads, read once by the kernels
+          and three times by the gather path (pool read, view write,
+          view read), as ``attn_impl`` says.
         * FLOPs a token: 2 a weight element, plus the two attention
-          products over the view width.
-        * MoE: the experts a step can touch, ``min(E, n_slots * top_k)``
-          of them, take the dense FFN's place, plus the fp32 router; a
-          token computes its ``top_k`` experts and the router.
+          products over the view width on this rank's heads.
+        * MoE: the experts a step can touch take the dense FFN's place,
+          ``min(E, n_slots * top_k)`` on one device and the ``E / tp``
+          resident on a rank under tp, plus the fp32 router; a token
+          computes its ``top_k`` experts and the router.
 
         Both are models, not counters. On the card the eager dequant of
         int8 weights writes a compute-dtype copy of each weight first,
         which this model (the reference's, where XLA fuses the dequant
         into the matmul) does not count."""
         cfg = self.cfg
+        tp = self.tp
         hd = cfg.head_dim
         L = cfg.n_layers
-        per_elem = (1 if self._w_quant == "int8"
-                    else torch.empty((), dtype=cfg.dtype).element_size())
-        local_params = (
-            L * (cfg.d_model * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) * hd)
-            + cfg.d_model * cfg.vocab_size)
-        ffn_each = 3 * cfg.d_model * cfg.d_ff
-        if cfg.moe_experts:
-            e_resident = min(cfg.moe_experts, self.n_slots * cfg.moe_top_k)
-            ffn_bytes = (L * e_resident * ffn_each * per_elem
-                         + L * cfg.d_model * cfg.moe_experts * 4)
-            ffn_flops = L * (2.0 * cfg.moe_top_k * ffn_each
-                             + 2.0 * cfg.d_model * cfg.moe_experts)
-        else:
-            ffn_bytes = L * ffn_each * per_elem
-            ffn_flops = 2.0 * L * ffn_each
-        weight_bytes = local_params * per_elem + ffn_bytes
+        weight_bytes, local_params, ffn_flops = self._weights_model()
         vw = self._last_vw or self._view_width()
         kv_factor = 1 if self.attn_impl == "kernel" else 3
         kv_rows = 1 if phase == "prefill" else self.n_slots
         kv_bytes = (kv_factor * kv_rows * vw
-                    * kv_blocks.kv_bytes_per_token(cfg, self.kv_quant))
+                    * kv_blocks.kv_bytes_per_token(cfg, self.kv_quant, tp))
         flops = (2.0 * local_params + ffn_flops
-                 + 4.0 * vw * cfg.n_heads * hd * L)
+                 + 4.0 * vw * (cfg.n_heads // tp) * hd * L)
         return weight_bytes + kv_bytes, flops
+
+    def _weights_model(self) -> Tuple[float, float, float]:
+        """The weight half of :meth:`_traffic_model`: ``(weight bytes a
+        step reads on a rank, the dense parameters a token multiplies,
+        the MoE FFN's FLOPs a token)``."""
+        cfg = self.cfg
+        tp = self.tp
+        L = cfg.n_layers
+        div = tp if self.tp_compute == "parallel" and tp > 1 else 1
+        per_elem = (1 if self._w_quant == "int8"
+                    else torch.empty((), dtype=cfg.dtype).element_size())
+        attn_params = (cfg.d_model * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+                       * cfg.head_dim)
+        head_params = cfg.d_model * cfg.vocab_size
+        ffn_each = 3 * cfg.d_model * cfg.d_ff
+        if not cfg.moe_experts:
+            local_params = L * (attn_params + ffn_each) / div + head_params
+            return local_params * per_elem, local_params, 0.0
+        local_params = L * attn_params / div + head_params
+        e_resident = (cfg.moe_experts // tp if tp > 1 else
+                      min(cfg.moe_experts, self.n_slots * cfg.moe_top_k))
+        weight_bytes = ((local_params + L * e_resident * ffn_each) * per_elem
+                        + L * cfg.d_model * cfg.moe_experts * 4)
+        ffn_flops = L * (2.0 * cfg.moe_top_k * ffn_each
+                         + 2.0 * cfg.d_model * cfg.moe_experts)
+        return weight_bytes, local_params, ffn_flops
 
     def _sync_stats(self) -> None:
         self.stats.heartbeat += 1
@@ -1726,9 +1814,13 @@ class ServingEngine:
         self.stats.pool_blocks_resident = self.pool.used_blocks
         self.stats.kv_bytes_per_token = kv_blocks.kv_bytes_per_token(
             self.cfg, self.kv_quant)
+        # A rank's pool holds every page at 1 / tp of its bytes.
+        self.stats.tp = self.tp
+        self.stats.pool_blocks_per_shard = self.pool.n_blocks
         self.stats.kv_hbm_per_device_mb = (
             self.pool.n_blocks * self.block_size
-            * self.stats.kv_bytes_per_token / (1 << 20))
+            * kv_blocks.kv_bytes_per_token(self.cfg, self.kv_quant, self.tp)
+            / (1 << 20))
         phase_bytes = {}
         for phase in ("prefill", "decode", "verify"):
             phase_bytes[phase], flops = self._traffic_model(phase)
@@ -1737,7 +1829,7 @@ class ServingEngine:
         self.stats.hbm_bytes_per_step_decode = phase_bytes["decode"]
         self.stats.hbm_bytes_per_step_verify = phase_bytes["verify"]
         self.stats.flops_per_token_per_shard = flops
-        self.stats.moe_experts_per_shard = self.cfg.moe_experts
+        self.stats.moe_experts_per_shard = self.cfg.moe_experts // self.tp
         self.stats.host_pages_resident = (
             self._host_tier.resident_pages
             if self._host_tier is not None else 0)
@@ -1892,7 +1984,7 @@ class ServingEngine:
             ) + 2 * len(requests) + 4
         out: List[Completion] = []
         for _ in range(max_steps):
-            if stop is not None and stop.is_set():
+            if stop is not None and self.agreed_flag(stop.is_set()):
                 out.extend(self.drain(drain_grace_s))
                 return out
             out.extend(self.step())

@@ -1,18 +1,18 @@
-"""Paged-KV decode, prefill and verify for the serving engine (one GPU).
+"""Paged-KV decode, prefill and verify for the serving engine.
 
-Counterpart of ``kubeflow_controller_tpu/models/generate.py``, single
-device (tp=1): the fused block prefill (:func:`prefill` into a
-contiguous :class:`KVCache`, :func:`prefill_into_paged` into one slot's
-pages), the paged decode step, the chunked prefill and the greedy
-speculative verify step (:func:`verify_step_paged`); the contiguous
-multi-turn path (:func:`decode_step`, :func:`prefill_continue`,
-:func:`generate_from_cache`, :func:`generate`); and the page movement
-under the prefix cache (:func:`gather_pool_pages` and
-:func:`install_pool_pages` for the host tier,
-:func:`scatter_row_into_pool` for ``register_prefix``). The pool's ``[L,
-n_blocks, bs, KVH, D]`` pages are the only KV storage of the paged
-paths; each slot reads and writes them through its row of the block
-table (sentinel id ``n_blocks`` = unallocated).
+Counterpart of ``kubeflow_controller_tpu/models/generate.py``: the fused
+block prefill (:func:`prefill` into a contiguous :class:`KVCache`,
+:func:`prefill_into_paged` into one slot's pages), the paged decode
+step, the chunked prefill and the greedy speculative verify step
+(:func:`verify_step_paged`); the contiguous multi-turn path
+(:func:`decode_step`, :func:`prefill_continue`,
+:func:`generate_from_cache`, :func:`generate`; one device only, as in
+the JAX package); and the page movement under the prefix cache
+(:func:`gather_pool_pages` and :func:`install_pool_pages` for the host
+tier, :func:`scatter_row_into_pool` for ``register_prefix``). The
+pool's ``[L, n_blocks, bs, KVH, D]`` pages are the only KV storage of
+the paged paths; each slot reads and writes them through its row of
+the block table (sentinel id ``n_blocks`` = unallocated).
 
 Attention runs one of two ways (``attn_impl``):
 
@@ -34,6 +34,23 @@ device: one token a row (the decode steps) through
 positions (prefill, chunks, verify windows) through the training FFN
 with capacity factor ``E / top_k``, so that no token is dropped.
 
+Tensor parallelism (``mesh``, a ``parallel.mesh.serving_mesh``): one
+process a tp rank, each running the same call on its chunks of the
+weights (``parallel.sharding.shard_serving_params``) and its ``KVH /
+tp`` heads of the pool (``init_paged_cache(tp=...)``); tables, lengths,
+activations and logits are whole on every rank. ``tp_compute="gathered"``
+gathers each layer's weights where it runs, projects every head, keeps
+this rank's head group for attention and gathers the head outputs
+before the whole ``wo``: the one-device arithmetic, so greedy streams
+are the one-device streams bit for bit. ``"parallel"`` runs Megatron's
+column- and row-parallel projections on the chunks in place, with one
+tp sum after ``wo`` and one after ``w_down`` (logits within
+:func:`tp_parallel_tolerance`). A MoE model's experts split over tp in
+both modes and tokens travel to them (:func:`_moe_ep_ffn`, within
+:func:`moe_ep_tolerance`). The JAX package's ``psum``, ``all_gather``
+and ``all_to_all`` are ``parallel/collectives.py``'s ``tp_sum``,
+``gather_dim`` and ``all_to_all(axis="tp")`` over the mesh's tp group.
+
 Where JAX returns a new cache, the port writes the pool in place (it is
 most of the device memory a server holds) and returns the same
 :class:`PagedKVCache` object with ``length`` advanced.
@@ -41,8 +58,9 @@ most of the device memory a server holds) and returns the same
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -59,6 +77,9 @@ from kubeflow_controller_tpu_torch.ops.paged_attention import (
     MASK_VALUE, paged_attention_decode, paged_attention_prefill,
     paged_attention_verify,
 )
+from kubeflow_controller_tpu_torch.parallel import collectives as coll
+from kubeflow_controller_tpu_torch.parallel.mesh import Mesh, use_mesh
+from kubeflow_controller_tpu_torch.parallel.sharding import P, tp_dims
 
 ATTN_IMPLS = ("kernel", "gather")
 #: The JAX engine's names for the same two paths.
@@ -182,15 +203,206 @@ def _w(lp: Params, name: str, dt: torch.dtype) -> torch.Tensor:
     return w.to(dt)
 
 
+def inference_param_specs(cfg: TransformerConfig, quant: str = "") -> Params:
+    """The specs of ``inference_params(cfg, ..., quant)``'s tree
+    (``transformer.param_specs``), so that int8 serving weights place as
+    bf16 ones do: a quantized weight's ``(q, scale)`` pair gets (the
+    weight's spec, that spec with the contraction axis, always -2,
+    dropped: the scale is size 1 there)."""
+    specs = tfm.param_specs(cfg)
+    if quant != "int8":
+        return specs
+
+    def fix(key, s):
+        if isinstance(s, dict):
+            return {k: fix(k, v) for k, v in s.items()}
+        if key in _QUANT_KEYS:
+            parts = tuple(s)
+            return (s, P(*parts[:-2], None, parts[-1]))
+        return s
+
+    return fix(None, specs)
+
+
+# -- tensor parallelism -------------------------------------------------------
+
+TP_COMPUTE = ("gathered", "parallel")
+
+
+def tp_size(mesh: Optional[Mesh]) -> int:
+    """The tp extent of ``mesh`` (1 when mesh is None)."""
+    return 1 if mesh is None else int(mesh.shape.get("tp", 1))
+
+
+def check_tp_heads(cfg: TransformerConfig, tp: int,
+                   tp_compute: str = "gathered") -> None:
+    """Refuse a config that does not shard over ``tp``, in ONE message
+    listing every violated axis, as the JAX package does: ``n_kv_heads %
+    tp`` (KV heads split over tp), ``d_ff % tp`` under
+    ``tp_compute="parallel"`` for a dense config (the MLP's hidden axis
+    is column-split), ``moe_experts % tp`` (each rank holds ``E/tp``
+    experts)."""
+    if tp <= 1:
+        return
+    problems = []
+    if cfg.n_kv_heads % tp:
+        problems.append(
+            f"n_kv_heads must be divisible by tp — KV heads split "
+            f"across the tp axis (n_kv_heads={cfg.n_kv_heads}, tp={tp}); "
+            f"pick tp from the divisors of n_kv_heads, or reshape the "
+            f"model"
+        )
+    if tp_compute == "parallel" and not cfg.moe_experts and cfg.d_ff % tp:
+        problems.append(
+            f"d_ff must be divisible by tp under tp_compute='parallel' "
+            f"— the MLP hidden axis is column-split across shards "
+            f"(d_ff={cfg.d_ff}, tp={tp}); use tp_compute='gathered' or "
+            f"pick tp from the divisors of d_ff"
+        )
+    if cfg.moe_experts and cfg.moe_experts % tp:
+        problems.append(
+            f"moe_experts must be divisible by tp — expert banks shard "
+            f"E/tp experts per device and tokens reach them via "
+            f"all_to_all (moe_experts={cfg.moe_experts}, tp={tp}); "
+            f"pick tp from the divisors of moe_experts"
+        )
+    if problems:
+        raise ValueError(
+            "tensor-parallel serving refused this config:\n  - "
+            + "\n  - ".join(problems)
+        )
+
+
+def _eps(cfg: TransformerConfig) -> float:
+    return float(torch.finfo(torch.promote_types(cfg.dtype, torch.float32)).eps)
+
+
+def tp_parallel_tolerance(cfg: TransformerConfig, tp: int) -> Dict[str, float]:
+    """The JAX package's logits tolerance of ``tp_compute="parallel"``
+    against the gathered (one-device) arithmetic: the row-parallel wo
+    and w_down sum ``tp`` partial products in another tree, ``2 L + 1``
+    such blocks with the head, each O(tp eps), composed over depth as a
+    random walk, with a 16x margin."""
+    blocks = 2 * cfg.n_layers + 1
+    bound = 16.0 * max(tp, 1) * (blocks ** 0.5) * _eps(cfg)
+    return {"rtol": bound, "atol": bound}
+
+
+def moe_ep_tolerance(cfg: TransformerConfig, tp: int) -> Dict[str, float]:
+    """The JAX package's logits tolerance of expert-parallel MoE against
+    the one-device oracle: routing is exact (replicated fp32 router,
+    the same top-k), the expert products and the gate-weighted combine
+    reassociate, up to three reductions a layer (gate/up, down,
+    combine), as a random walk over depth with a 32x margin."""
+    blocks = 3 * cfg.n_layers + 1
+    bound = 32.0 * max(tp, 1) * (blocks ** 0.5) * _eps(cfg)
+    return {"rtol": bound, "atol": bound}
+
+
+@dataclass(frozen=True)
+class _Tp:
+    """One call's tensor-parallel plan: ``n`` ranks, this one's index,
+    the compute mode, the stored specs of the weight tree
+    (``sharding.serving_param_shardings``) and the tp group."""
+
+    n: int
+    rank: int
+    parallel: bool
+    specs: Params
+    group: object
+
+
+@functools.lru_cache(maxsize=16)
+def _stored_specs(cfg: TransformerConfig, mesh: Mesh, quant: str) -> Params:
+    from kubeflow_controller_tpu_torch.parallel.sharding import (
+        serving_param_shardings,
+    )
+
+    return serving_param_shardings(cfg, mesh, quant)
+
+
+def _tp_plan(cfg: TransformerConfig, params: Params, mesh: Optional[Mesh],
+             tp_compute: str) -> Optional[_Tp]:
+    """The plan of a call over ``mesh``, None at tp <= 1 (the one-device
+    path). Refuses a config that does not shard (:func:`check_tp_heads`)
+    and an unknown ``tp_compute``."""
+    if tp_compute not in TP_COMPUTE:
+        raise ValueError(
+            f"tp_compute must be 'gathered' or 'parallel' (got {tp_compute!r})")
+    tp = tp_size(mesh)
+    if tp <= 1:
+        return None
+    check_tp_heads(cfg, tp, tp_compute)
+    return _Tp(tp, mesh.coords["tp"], tp_compute == "parallel",
+               _stored_specs(cfg, mesh, weight_quant(params)), mesh.group("tp"))
+
+
+def _whole(x, spec, tp: _Tp):
+    """The whole tensor (or ``(q, scale)`` pair) from this rank's chunk
+    stored by ``spec``: each tp-split dimension gathered in rank order,
+    bytes unchanged."""
+    if isinstance(x, tuple):
+        return tuple(_whole(t, s, tp) for t, s in zip(x, spec))
+    dims = tp_dims(spec, x.ndim)
+    for d in dims:
+        x = coll.gather_dim(x, d, tp.group, tp.n)
+    # Row-major, as the whole weight is: a product over a strided view
+    # takes another kernel, which sums in another order.
+    return x.contiguous() if dims else x
+
+
+def _tp_join(x: torch.Tensor, dim: int, tp: Optional[_Tp]) -> torch.Tensor:
+    """Every rank's part of ``x`` along ``dim`` (a head group, a slice of
+    d_model or of the vocabulary), joined in rank order (the identity off
+    tp), row-major: a reduction over a strided view (the norm's over
+    d_model) sums in another order."""
+    if tp is None:
+        return x
+    return coll.gather_dim(x.contiguous(), dim, tp.group, tp.n).contiguous()
+
+
+def _embed(cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
+           tp: Optional[_Tp]) -> torch.Tensor:
+    """Token embeddings in the compute dtype. Under tp the table is
+    stored split on d_model, so each rank looks up its columns and the
+    ranks' columns join: the whole lookup's bytes."""
+    x = params["embed"].to(cfg.dtype)[tokens.long()]
+    if tp is not None and tp_dims(tp.specs["embed"], 2):
+        x = _tp_join(x, x.ndim - 1, tp)
+    return x
+
+
 def _head_logits(cfg: TransformerConfig, params: Params,
-                 x: torch.Tensor) -> torch.Tensor:
+                 x: torch.Tensor, tp: Optional[_Tp] = None) -> torch.Tensor:
     """Final-norm'd hidden [B, D] -> fp32 logits [B, vocab] (an int8
-    ``lm_head`` is dequantized by :func:`_w`)."""
-    if params.get("lm_head") is None:
-        head = params["embed"].to(cfg.dtype).T
-    else:
-        head = _w(params, "lm_head", cfg.dtype)
-    return (x @ head).float()
+    ``lm_head`` is dequantized by :func:`_w`). Under tp the logits are
+    whole on every rank: "gathered" gathers the head and computes the
+    one-device product; "parallel" computes this rank's vocab columns
+    and gathers them (a tied head: this rank's d_model rows, summed over
+    tp)."""
+    dt = cfg.dtype
+    tied = params.get("lm_head") is None
+    if tp is None or not tp.parallel:
+        if tied:
+            emb = params["embed"]
+            if tp is not None:
+                emb = _whole(emb, tp.specs["embed"], tp)
+            return (x @ emb.to(dt).T).float()
+        head = params if tp is None else {
+            "lm_head": _whole(params["lm_head"], tp.specs["lm_head"], tp)}
+        return (x @ _w(head, "lm_head", dt)).float()
+    if tied:
+        emb = params["embed"].to(dt)
+        if not tp_dims(tp.specs["embed"], 2):
+            return (x @ emb.T).float()
+        d_loc = emb.shape[1]
+        x_loc = x[..., tp.rank * d_loc:(tp.rank + 1) * d_loc]
+        return coll.tp_sum(x_loc @ emb.T).float()
+    out = x @ _w(params, "lm_head", dt)
+    spec = tp.specs["lm_head"]
+    if tp_dims(spec if isinstance(spec, P) else spec[0], 2):
+        out = _tp_join(out, out.ndim - 1, tp)
+    return out.float()
 
 
 # -- the paged pool -----------------------------------------------------------
@@ -216,11 +428,18 @@ class PagedKVCache:
 def init_paged_cache(
     cfg: TransformerConfig, n_slots: int, max_blocks: int, n_blocks: int,
     block_size: int, kv_quant: str = "", device: DeviceLike = None,
+    tp: int = 1,
 ) -> PagedKVCache:
     """A zeroed pool of exactly ``n_blocks`` pages (no spare sentinel
-    page) plus all-sentinel tables for ``n_slots`` slots."""
+    page) plus all-sentinel tables for ``n_slots`` slots. ``tp > 1``:
+    this rank's ``KVH / tp`` heads of every page (the JAX package's
+    ``shard_paged_cache`` split of the KVH axis); the tables, lengths
+    and active flags are whole."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads,
+    if cfg.n_kv_heads % tp:
+        raise ValueError(
+            f"n_kv_heads={cfg.n_kv_heads} does not divide over tp={tp}")
+    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads // tp,
              cfg.head_dim)
     if kv_quant == "int8":
         k = torch.zeros(shape, dtype=torch.int8, device=dev)
@@ -310,11 +529,28 @@ def _capped_kv_views(k_pool, v_pool, tables, width, view_width, k_scale,
     return k, v
 
 
-def _layer_params(params: Params, layer: int) -> Params:
+def _layer_params(params: Params, layer: int,
+                  tp: Optional[_Tp] = None) -> Params:
     """Layer ``layer``'s weights; both members of a ``(q, scale)`` pair
-    are sliced."""
-    return {k: (v[0][layer], v[1][layer]) if isinstance(v, tuple) else v[layer]
-            for k, v in params["layers"].items()}
+    are sliced. Under ``tp_compute="gathered"`` each weight stored split
+    over tp is gathered whole here, one layer at a time (the JAX
+    package's gather at dispatch), but an expert bank, whose experts
+    stay this rank's; under ``"parallel"`` the chunks are used as they
+    are."""
+    lp = {k: (v[0][layer], v[1][layer]) if isinstance(v, tuple) else v[layer]
+          for k, v in params["layers"].items()}
+    if tp is None or tp.parallel:
+        return lp
+    specs = tp.specs["layers"]
+
+    def layer_spec(spec):
+        if isinstance(spec, tuple) and not isinstance(spec, P):
+            return tuple(layer_spec(s) for s in spec)
+        return P(*tuple(spec)[1:])
+
+    return {k: v if k in tfm.MOE_BANKS and (v[0] if isinstance(v, tuple) else v).ndim >= 3
+            else _whole(v, layer_spec(specs[k]), tp)
+            for k, v in lp.items()}
 
 
 def _dense_lp(lp: Params, dt: torch.dtype) -> Params:
@@ -383,17 +619,118 @@ def _moe_block_ffn(cfg: TransformerConfig, lp: Params,
     return tfm._moe_ffn(moe_cfg, _dense_lp(ffn, cfg.dtype), h)[0]
 
 
+def _moe_ep_ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
+                tp: _Tp) -> torch.Tensor:
+    """The expert-parallel routed FFN under tp (the JAX package's
+    ``_moe_ep_ffn``), in both compute modes: this rank holds ``E/tp``
+    experts of each bank (int8 ``(q, scale)`` banks too), and tokens
+    travel to their experts.
+
+    1. Route on the whole activations: fp32 router probabilities and
+       the ``top_k`` experts a token (:func:`_top_k`), the same on every
+       rank and as on one device.
+    2. This rank's stripe of ``ceil(n / tp)`` of the ``n`` tokens (the
+       last stripe padded with rows routed nowhere), and the dispatch
+       buffer ``[tp, E/tp, n_loc, D]``: for every rank's experts, each
+       stripe token routed there or zeros. The capacity is the whole
+       stripe: serving drops no token.
+    3. ``all_to_all`` over tp; each local expert's 2-D products over the
+       ``tp * n_loc`` rows it received (an int8 expert dequantized
+       alone, as :func:`_expert` does).
+    4. ``all_to_all`` back, the gate-weighted combine over the experts,
+       and the stripes gathered: the output is whole on every rank.
+
+    Routing decisions are exact; the products and the combine sum in
+    another order than one device's, within :func:`moe_ep_tolerance`."""
+    dt = cfg.dtype
+    lead, d = h.shape[:-1], h.shape[-1]
+    hf = h.reshape(-1, d)
+    n, e_all = hf.shape[0], cfg.moe_experts
+    el = e_all // tp.n
+    probs = torch.softmax(hf.float() @ lp["w_router"].float(), dim=-1)
+    gates, idx = _top_k(probs, cfg.moe_top_k)              # [n, k]
+    n_loc = -(-n // tp.n)
+    pad = n_loc * tp.n - n
+    rows = slice(tp.rank * n_loc, (tp.rank + 1) * n_loc)
+    xs = F.pad(hf, (0, 0, 0, pad))[rows]
+    # Padded rows route nowhere: expert -1 matches no expert, so their
+    # dispatch slabs and combine weights are exact zeros.
+    is_ = F.pad(idx, (0, 0, 0, pad), value=-1)[rows]
+    gs = F.pad(gates, (0, 0, 0, pad))[rows]
+    one = (is_[..., None] == torch.arange(e_all, device=h.device)).float()
+    sel = one.sum(1)                                       # [n_loc, E]
+    # [E = dest rank x local expert, 1, n_loc, D]: collectives.all_to_all's
+    # [E, G, cap, D] with one group.
+    send = (sel.T[:, None, :, None].to(dt) * xs.to(dt)[None, None])
+    xe = coll.all_to_all(send, axis="tp")                  # [el, tp, n_loc, D]
+    xe = xe.reshape(el, tp.n * n_loc, d)
+    out_e = []
+    for e in range(el):
+        a = (F.silu(xe[e] @ _expert(lp, "w_gate", e, dt))
+             * (xe[e] @ _expert(lp, "w_up", e, dt)))
+        out_e.append(a @ _expert(lp, "w_down", e, dt))
+    back = torch.stack(out_e).reshape(el, tp.n, n_loc, d)
+    ret = coll.all_to_all(back, axis="tp", inverse=True)   # [E, 1, n_loc, D]
+    comb = (one * gs[..., None]).sum(1).to(dt)             # [n_loc, E] gate or 0
+    out_loc = torch.einsum("ce,ecd->cd", comb, ret[:, 0])
+    out = coll.gather_dim(out_loc.contiguous(), 0, tp.group, tp.n)[:n]
+    return out.reshape(*lead, d)
+
+
 def _ffn(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
-         decode: bool = False) -> torch.Tensor:
+         decode: bool = False, tp: Optional[_Tp] = None) -> torch.Tensor:
     """The layer's FFN in the compute dtype: SwiGLU, or for a MoE model
     the routed bank (:func:`_moe_decode_ffn` for one token a row,
-    :func:`_moe_block_ffn` over a block)."""
+    :func:`_moe_block_ffn` over a block, :func:`_moe_ep_ffn` for either
+    under tp). Under ``tp_compute="parallel"`` the dense FFN's
+    column-split gate and up and row-split down end in one tp sum."""
     if cfg.moe_experts:
+        if tp is not None:
+            return _moe_ep_ffn(cfg, lp, h, tp)
         return (_moe_decode_ffn if decode else _moe_block_ffn)(cfg, lp, h)
     dt = cfg.dtype
     gate = F.silu(h @ _w(lp, "w_gate", dt))
     up = h @ _w(lp, "w_up", dt)
-    return (gate * up) @ _w(lp, "w_down", dt)
+    down = (gate * up) @ _w(lp, "w_down", dt)
+    return coll.tp_sum(down) if tp is not None and tp.parallel else down
+
+
+def _project_qkv(cfg: TransformerConfig, lp: Params, h: torch.Tensor,
+                 positions: torch.Tensor, tp: Optional[_Tp]):
+    """The rotated query groups ``[..., G, rep, D]`` and the rotated K and
+    V ``[..., G, D]`` of ``h`` at ``positions``. Under tp, G is this
+    rank's ``KVH / tp`` heads: projected from the column chunks
+    (``"parallel"``: a column slice of wq is a head slice), or projected
+    whole and sliced (``"gathered"``: the one-device values)."""
+    dt = cfg.dtype
+    hd = cfg.head_dim
+    rep = cfg.n_heads // cfg.n_kv_heads
+    lead = h.shape[:-1]
+    q = (h @ _w(lp, "wq", dt)).reshape(*lead, -1, hd)
+    k = (h @ _w(lp, "wk", dt)).reshape(*lead, -1, hd)
+    v = (h @ _w(lp, "wv", dt)).reshape(*lead, -1, hd)
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    g = k.shape[-2]
+    qg = q.reshape(*lead, g, rep, hd)
+    if tp is not None and not tp.parallel:
+        gl = g // tp.n
+        sl = slice(tp.rank * gl, (tp.rank + 1) * gl)
+        qg, k, v = qg[..., sl, :, :], k[..., sl, :], v[..., sl, :]
+    return qg, k, v
+
+
+def _attn_out(cfg: TransformerConfig, lp: Params, x: torch.Tensor,
+              attn: torch.Tensor, tp: Optional[_Tp]) -> torch.Tensor:
+    """``x`` plus the output projection of the head outputs ``attn [...,
+    G, rep, D]``: under ``"gathered"`` the ranks' head groups joined (the
+    one-device layout) through the whole wo; under ``"parallel"`` this
+    rank's rows of wo, summed over tp."""
+    lead = attn.shape[:-3]
+    if tp is not None and not tp.parallel:
+        attn = _tp_join(attn, attn.ndim - 3, tp)
+    out = attn.reshape(*lead, -1) @ _w(lp, "wo", cfg.dtype)
+    return x + (coll.tp_sum(out) if tp is not None and tp.parallel else out)
 
 
 # -- fused block prefill --------------------------------------------------------
@@ -418,6 +755,7 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_seq: int,
 
 def _block_prefill(
     cfg: TransformerConfig, params: Params, prompt: torch.Tensor,
+    tp: Optional[_Tp] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """ONE forward pass over the whole prompt ``[B, S]`` from position 0:
     the last position's fp32 logits ``[B, vocab]`` and every layer's K
@@ -426,30 +764,43 @@ def _block_prefill(
     Attention runs through :func:`mha` with ``impl="auto"`` (``"xla"``
     when ``cfg.attn_impl == "xla"``): the flash kernels where the JAX
     package's shape rule holds, the dense path on other prompt lengths.
-    q and k enter un-rotated with rope tables shared by every layer."""
+    q and k enter un-rotated with rope tables shared by every layer.
+
+    Under tp (the JAX package's fused prefill at ``"gathered"`` and its
+    ``_tp_prefill_forward`` otherwise): ``"gathered"`` runs the one-device
+    forward on the gathered layers, every head (a MoE model's FFN the
+    expert-parallel one), and returns this rank's ``KVH / tp`` heads of
+    K and V; ``"parallel"`` projects, attends and returns this rank's
+    head group, with one tp sum after wo and one after the FFN."""
     b, s = prompt.shape
     dt = cfg.dtype
     hd = cfg.head_dim
-    x = params["embed"].to(dt)[prompt.long()]             # [B, S, D]
+    x = _embed(cfg, params, prompt, tp)                   # [B, S, D]
     positions = torch.arange(s, dtype=torch.int32,
                              device=prompt.device).expand(b, s)
     attn_impl = "xla" if cfg.attn_impl == "xla" else "auto"
     tables = rope_full_tables(positions, hd, cfg.rope_theta)
     ks, vs = [], []
     for layer in range(cfg.n_layers):
-        lp = _layer_params(params, layer)
+        lp = _layer_params(params, layer, tp)
         h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-        q = (h @ _w(lp, "wq", dt)).reshape(b, s, cfg.n_heads, hd)
-        k = (h @ _w(lp, "wk", dt)).reshape(b, s, cfg.n_kv_heads, hd)
-        v = (h @ _w(lp, "wv", dt)).reshape(b, s, cfg.n_kv_heads, hd)
+        q = (h @ _w(lp, "wq", dt)).reshape(b, s, -1, hd)
+        k = (h @ _w(lp, "wk", dt)).reshape(b, s, -1, hd)
+        v = (h @ _w(lp, "wv", dt)).reshape(b, s, -1, hd)
         attn = mha(q, k, v, causal=True, impl=attn_impl, rope_tables=tables)
-        ks.append(rope(k, positions, cfg.rope_theta))   # rotated for the cache
+        k = rope(k, positions, cfg.rope_theta)          # rotated for the cache
+        if tp is not None and not tp.parallel:
+            gl = k.shape[2] // tp.n
+            k = k[:, :, tp.rank * gl:(tp.rank + 1) * gl]
+            v = v[:, :, tp.rank * gl:(tp.rank + 1) * gl]
+        ks.append(k)
         vs.append(v)
-        x = x + attn.reshape(b, s, -1) @ _w(lp, "wo", dt)
+        out = attn.reshape(b, s, -1) @ _w(lp, "wo", dt)
+        x = x + (coll.tp_sum(out) if tp is not None and tp.parallel else out)
         h2 = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(cfg, lp, h2)
+        x = x + _ffn(cfg, lp, h2, tp=tp)
     x = rmsnorm(x[:, -1], params["final_norm"], cfg.norm_eps)
-    return _head_logits(cfg, params, x), torch.stack(ks), torch.stack(vs)
+    return _head_logits(cfg, params, x, tp), torch.stack(ks), torch.stack(vs)
 
 
 def prefill(
@@ -687,12 +1038,13 @@ def generate(
 def _decode_layer_paged(
     cfg: TransformerConfig, lp: Params, x: torch.Tensor, pos: torch.Tensor,
     layer: int, cache: PagedKVCache, view_width: Optional[int],
-    attn_impl: str,
+    attn_impl: str, tp: Optional[_Tp] = None,
 ) -> torch.Tensor:
     """One decoder layer for every slot at its own position: row b's new
     k/v land in page ``tables[b, pos[b] // bs]`` at row ``pos[b] % bs``
     (inactive rows and sentinel pages drop the write), THEN the slot
-    attends its pages with the mask ``c <= pos[b]``."""
+    attends its pages with the mask ``c <= pos[b]``. Under tp the rank
+    writes and attends its own head group."""
     b = x.shape[0]
     hd = cfg.head_dim
     dt = cfg.dtype
@@ -700,17 +1052,9 @@ def _decode_layer_paged(
     mb = cache.tables.shape[1]
     width = mb * bs
     vw = _occupancy_cap(width, view_width)
-    g = cfg.n_kv_heads
-    rep = cfg.n_heads // g
 
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (h @ _w(lp, "wq", dt)).reshape(b, 1, g * rep, hd)
-    k = (h @ _w(lp, "wk", dt)).reshape(b, 1, g, hd)
-    v = (h @ _w(lp, "wv", dt)).reshape(b, 1, g, hd)
-    positions = pos[:, None]
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    qg = q.reshape(b, 1, g, rep, hd)
+    qg, k, v = _project_qkv(cfg, lp, h, pos[:, None], tp)
     bi = (pos // bs).clamp(0, mb - 1).long()
     blk = cache.tables.gather(1, bi[:, None])[:, 0]
     # Inactive rows drop their write: a retired slot's table row stays on
@@ -726,7 +1070,8 @@ def _decode_layer_paged(
         attn = paged_attention_decode(
             qg[:, 0], cache.k[layer], cache.v[layer], cache.tables, pos,
             k_scale=k_scale, v_scale=v_scale, width=vw,
-            sm_scale=hd ** -0.5, out_dtype=dt)[:, None]   # [B, 1, G, rep, D]
+            sm_scale=hd ** -0.5, out_dtype=dt,
+            tp=1 if tp is None else tp.n)[:, None]   # [B, 1, G, rep, D]
     else:
         k_cache, v_cache = _capped_kv_views(
             cache.k[layer], cache.v[layer], cache.tables, width, view_width,
@@ -738,31 +1083,42 @@ def _decode_layer_paged(
         s = torch.where(visible[:, None, None, None, :], s, MASK_VALUE)
         p = torch.softmax(s, dim=-1).to(dt)
         attn = torch.einsum("bgrqk,bkgd->bqgrd", p, v_cache)
-    x = x + attn.reshape(b, 1, -1) @ _w(lp, "wo", dt)
+    x = _attn_out(cfg, lp, x, attn, tp)
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-    return x + _ffn(cfg, lp, h, decode=True)
+    return x + _ffn(cfg, lp, h, decode=True, tp=tp)
+
+
+def _decode_step_paged_impl(cfg, params, tokens, cache, view_width, attn_impl,
+                            tp):
+    x = _embed(cfg, params, tokens, tp)                    # [B, 1, D]
+    pos = cache.length
+    for layer in range(cfg.n_layers):
+        x = _decode_layer_paged(cfg, _layer_params(params, layer, tp), x, pos,
+                                layer, cache, view_width, attn_impl, tp)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    logits = _head_logits(cfg, params, x[:, 0], tp)
+    cache.length = torch.where(cache.active, pos + 1, pos)
+    return logits, cache
 
 
 def decode_step_paged(
     cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
     cache: PagedKVCache, view_width: Optional[int] = None,
-    attn_impl: str = "kernel",
+    attn_impl: str = "kernel", mesh: Optional[Mesh] = None,
+    tp_compute: str = "gathered",
 ) -> Tuple[torch.Tensor, PagedKVCache]:
     """One token for every slot at its own position (``tokens`` [B, 1]).
     Returns fp32 logits [B, vocab] and the cache, whose pool took the new
     k/v in place and whose ``length`` advanced on active slots only.
     ``view_width`` caps the pages attention walks to the engine's live
-    occupancy; writes still guard against the full table span."""
+    occupancy; writes still guard against the full table span.
+    ``mesh``/``tp_compute``: tensor parallelism (module docstring); the
+    logits come out whole on every rank."""
     attn_impl = check_attn_impl(attn_impl)
-    x = params["embed"].to(cfg.dtype)[tokens.long()]      # [B, 1, D]
-    pos = cache.length
-    for layer in range(cfg.n_layers):
-        x = _decode_layer_paged(cfg, _layer_params(params, layer), x, pos,
-                                layer, cache, view_width, attn_impl)
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = _head_logits(cfg, params, x[:, 0])
-    cache.length = torch.where(cache.active, pos + 1, pos)
-    return logits, cache
+    tp = _tp_plan(cfg, params, mesh, tp_compute)
+    with use_mesh(mesh):
+        return _decode_step_paged_impl(cfg, params, tokens, cache, view_width,
+                                       attn_impl, tp)
 
 
 # -- chunked prefill ------------------------------------------------------------
@@ -771,6 +1127,7 @@ def prefill_chunk_paged(
     cfg: TransformerConfig, params: Params, toks: torch.Tensor,
     cache: PagedKVCache, slot: int, offset: int, n_real: int,
     view_width: Optional[int] = None, attn_impl: str = "kernel",
+    mesh: Optional[Mesh] = None, tp_compute: str = "gathered",
 ) -> Tuple[torch.Tensor, PagedKVCache]:
     """One prefill chunk of ONE slot: ``toks`` [1, W] (padded to W, the
     first ``n_real`` real) at absolute positions ``offset + [0, W)``.
@@ -780,13 +1137,23 @@ def prefill_chunk_paged(
     the slot's pages only after ALL layers (pad columns past the table
     span or on sentinel entries drop). Returns the last real position's
     fp32 logits [1, vocab] and the cache with ``length[slot] = offset +
-    n_real``."""
+    n_real``. ``mesh``/``tp_compute``: see :func:`decode_step_paged`
+    (each rank attends and writes its own head group)."""
     attn_impl = check_attn_impl(attn_impl)
     if toks.shape[0] != 1:
         raise ValueError(
             f"prefill_chunk_paged refused this call:\n  - toks must carry "
             f"exactly ONE request row — chunked prefill advances a single "
             f"slot per dispatch (got batch {toks.shape[0]})")
+    tp = _tp_plan(cfg, params, mesh, tp_compute)
+    with use_mesh(mesh):
+        return _prefill_chunk_paged_impl(cfg, params, toks, cache, slot,
+                                         offset, n_real, view_width,
+                                         attn_impl, tp)
+
+
+def _prefill_chunk_paged_impl(cfg, params, toks, cache, slot, offset, n_real,
+                              view_width, attn_impl, tp):
     b, w = toks.shape
     dt = cfg.dtype
     hd = cfg.head_dim
@@ -794,8 +1161,6 @@ def prefill_chunk_paged(
     mb = cache.tables.shape[1]
     width = mb * bs
     vw = _occupancy_cap(width, view_width)
-    g = cfg.n_kv_heads
-    rep = cfg.n_heads // g
     dev = toks.device
     trow = cache.tables[slot]                              # [mb]
     if attn_impl == "gather":
@@ -805,26 +1170,22 @@ def prefill_chunk_paged(
         cache_visible = torch.arange(vw, device=dev) < offset
         causal = torch.ones((w, w), dtype=torch.bool, device=dev).tril()
 
-    x = params["embed"].to(dt)[toks.long()]                # [1, W, D]
+    x = _embed(cfg, params, toks, tp)                      # [1, W, D]
     positions = offset + torch.arange(w, dtype=torch.int32, device=dev)[None]
     scale = hd ** -0.5
     k_rows, v_rows = [], []
     for layer in range(cfg.n_layers):
-        lp = _layer_params(params, layer)
+        lp = _layer_params(params, layer, tp)
         h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-        q = (h @ _w(lp, "wq", dt)).reshape(b, w, g * rep, hd)
-        k = (h @ _w(lp, "wk", dt)).reshape(b, w, g, hd)
-        v = (h @ _w(lp, "wv", dt)).reshape(b, w, g, hd)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        qg = q.reshape(b, w, g, rep, hd)
+        qg, k, v = _project_qkv(cfg, lp, h, positions, tp)
         if attn_impl == "kernel":
             attn = paged_attention_prefill(
                 qg[0], k[0], v[0], cache.k[layer], cache.v[layer], trow,
                 offset,
                 k_scale=None if cache.k_scale is None else cache.k_scale[layer],
                 v_scale=None if cache.v_scale is None else cache.v_scale[layer],
-                width=vw, sm_scale=scale, out_dtype=dt)[None]
+                width=vw, sm_scale=scale, out_dtype=dt,
+                tp=1 if tp is None else tp.n)[None]
         else:
             kc, vc = kc_all[layer], vc_all[layer]
             s_cache = torch.einsum("bqgrd,kgd->bgrqk", qg.float(),
@@ -836,9 +1197,9 @@ def prefill_chunk_paged(
             p = torch.softmax(torch.cat([s_cache, s_new], -1), -1).to(dt)
             attn = (torch.einsum("bgrqk,kgd->bqgrd", p[..., :vw], vc)
                     + torch.einsum("bgrqk,bkgd->bqgrd", p[..., vw:], v))
-        x = x + attn.reshape(b, w, -1) @ _w(lp, "wo", dt)
+        x = _attn_out(cfg, lp, x, attn, tp)
         h2 = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(cfg, lp, h2)
+        x = x + _ffn(cfg, lp, h2, tp=tp)
         k_rows.append(k[0])
         v_rows.append(v[0])
 
@@ -853,21 +1214,24 @@ def prefill_chunk_paged(
                 torch.stack(v_rows), valid)
     x_last = x[:, n_real - 1]
     logits = _head_logits(
-        cfg, params, rmsnorm(x_last, params["final_norm"], cfg.norm_eps))
+        cfg, params, rmsnorm(x_last, params["final_norm"], cfg.norm_eps), tp)
     cache.length[slot] = offset + n_real
     return logits, cache
 
 
 def prefill_into_paged(
     cfg: TransformerConfig, params: Params, prompt: torch.Tensor,
-    cache: PagedKVCache, slot: int,
+    cache: PagedKVCache, slot: int, mesh: Optional[Mesh] = None,
+    tp_compute: str = "gathered",
 ) -> Tuple[torch.Tensor, PagedKVCache]:
     """Block-prefill ONE request's prompt ``[1, S]`` (the fused forward
     of :func:`prefill`: the same logits and KV bytes) and scatter its S
     positions into the pages of slot ``slot``'s table row, quantizing on
     write for int8 pools. Sets ``length[slot] = S`` and ``active[slot] =
     True``; every other slot's pages are untouched. Returns the last
-    position's fp32 logits ``[1, vocab]`` and the cache."""
+    position's fp32 logits ``[1, vocab]`` and the cache.
+    ``mesh``/``tp_compute``: see :func:`decode_step_paged` and
+    :func:`_block_prefill` (each rank scatters its own head group)."""
     if prompt.shape[0] != 1:
         raise ValueError(
             f"prefill_into_paged admits one request (got batch "
@@ -877,7 +1241,9 @@ def prefill_into_paged(
     s = prompt.shape[1]
     if s > mb * bs:
         raise ValueError(f"prompt {s} exceeds slot capacity {mb * bs}")
-    logits, ks, vs = _block_prefill(cfg, params, prompt)
+    tp = _tp_plan(cfg, params, mesh, tp_compute)
+    with use_mesh(mesh):
+        logits, ks, vs = _block_prefill(cfg, params, prompt, tp)
     trow = cache.tables[slot]
     cols = torch.arange(s, device=prompt.device)
     blk = trow[(cols // bs).clamp(0, mb - 1)]
@@ -903,6 +1269,8 @@ def verify_step_paged(
     view_width: Optional[int] = None,
     attn_impl: str = "kernel",
     sampling: Optional[Tuple[torch.Tensor, ...]] = None,
+    mesh: Optional[Mesh] = None,
+    tp_compute: str = "gathered",
 ) -> Tuple[torch.Tensor, ...]:
     """Verify every slot's window ``[t0 = argmax(logits), draft]`` (W =
     K + 1 positions from ``length[b]``) in ONE forward over the slot's
@@ -924,8 +1292,19 @@ def verify_step_paged(
     Attention: ``"kernel"`` is ``paged_attention_verify`` (on the card
     the chunk kernel, B6's verify entry), ``"gather"`` the gathered-view
     oracle. Returns ``(window [B, W], n [B], new_logits [B, vocab],
-    cache)``; the pool is written in place."""
+    cache)``; the pool is written in place. ``mesh``/``tp_compute``: see
+    :func:`decode_step_paged`; the logits are whole on every rank, so
+    every rank takes the same acceptance decisions."""
     attn_impl = check_attn_impl(attn_impl)
+    tp = _tp_plan(cfg, params, mesh, tp_compute)
+    with use_mesh(mesh):
+        return _verify_step_paged_impl(
+            cfg, params, draft, draft_len, logits, cache, eos, max_commit,
+            view_width, attn_impl, sampling, tp)
+
+
+def _verify_step_paged_impl(cfg, params, draft, draft_len, logits, cache, eos,
+                            max_commit, view_width, attn_impl, sampling, tp):
     b, k_draft = draft.shape
     w = k_draft + 1
     dt = cfg.dtype
@@ -934,8 +1313,6 @@ def verify_step_paged(
     mb = cache.tables.shape[1]
     width = mb * bs
     vw = _occupancy_cap(width, view_width)
-    g = cfg.n_kv_heads
-    rep = cfg.n_heads // g
     dev = draft.device
     pos0 = cache.length                                    # [B]
     if sampling is None:
@@ -947,7 +1324,7 @@ def verify_step_paged(
         t0 = sample_step_slots(logits, s_temp, s_topk, s_topp, s_seed,
                                s_gen, s_pos)
     window = torch.cat([t0[:, None], draft.to(torch.int32)], 1)   # [B, W]
-    x = params["embed"].to(dt)[window.long()]              # [B, W, D]
+    x = _embed(cfg, params, window, tp)                    # [B, W, D]
     arange_w = torch.arange(w, dtype=torch.int32, device=dev)
     positions = pos0[:, None] + arange_w[None, :]
     scale = hd ** -0.5
@@ -960,20 +1337,16 @@ def verify_step_paged(
         causal = arange_w[:, None] >= arange_w[None, :]    # [W, W]
     k_rows, v_rows = [], []
     for layer in range(cfg.n_layers):
-        lp = _layer_params(params, layer)
+        lp = _layer_params(params, layer, tp)
         h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-        q = (h @ _w(lp, "wq", dt)).reshape(b, w, g * rep, hd)
-        k = (h @ _w(lp, "wk", dt)).reshape(b, w, g, hd)
-        v = (h @ _w(lp, "wv", dt)).reshape(b, w, g, hd)
-        q = rope(q, positions, cfg.rope_theta)
-        k = rope(k, positions, cfg.rope_theta)
-        qg = q.reshape(b, w, g, rep, hd)
+        qg, k, v = _project_qkv(cfg, lp, h, positions, tp)
         if attn_impl == "kernel":
             attn = paged_attention_verify(
                 qg, k, v, cache.k[layer], cache.v[layer], cache.tables, pos0,
                 k_scale=None if cache.k_scale is None else cache.k_scale[layer],
                 v_scale=None if cache.v_scale is None else cache.v_scale[layer],
-                width=vw, sm_scale=scale, out_dtype=dt)    # [B, W, G, rep, D]
+                width=vw, sm_scale=scale, out_dtype=dt,
+                tp=1 if tp is None else tp.n)              # [B, W, G, rep, D]
         else:
             kc, vc = kview[layer], vview[layer]
             s_cache = torch.einsum("bqgrd,bkgd->bgrqk", qg.float(),
@@ -985,13 +1358,13 @@ def verify_step_paged(
             p = torch.softmax(torch.cat([s_cache, s_new], -1), -1).to(dt)
             attn = (torch.einsum("bgrqk,bkgd->bqgrd", p[..., :vw], vc)
                     + torch.einsum("bgrqk,bkgd->bqgrd", p[..., vw:], v))
-        x = x + attn.reshape(b, w, -1) @ _w(lp, "wo", dt)
+        x = _attn_out(cfg, lp, x, attn, tp)
         h2 = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
-        x = x + _ffn(cfg, lp, h2)
+        x = x + _ffn(cfg, lp, h2, tp=tp)
         k_rows.append(k)
         v_rows.append(v)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    all_logits = _head_logits(cfg, params, x)              # [B, W, vocab]
+    all_logits = _head_logits(cfg, params, x, tp)          # [B, W, vocab]
 
     preds = all_logits.argmax(-1).to(torch.int32)          # [B, W]
     if sampling is not None:
@@ -1020,6 +1393,7 @@ def verify_step_paged(
     blk = cache.tables.gather(1, (wcols // bs).clamp(0, mb - 1))
     valid = (commit & (wcols < width) & (blk < n_blocks)).reshape(-1)
     blk, woff = blk.reshape(-1), (wcols % bs).reshape(-1)
+    g = k_rows[0].shape[-2]
     _pool_write(cache.k, cache.k_scale, None, blk, woff,
                 torch.stack(k_rows).reshape(cfg.n_layers, b * w, g, hd), valid)
     _pool_write(cache.v, cache.v_scale, None, blk, woff,
@@ -1051,6 +1425,8 @@ def verify_step_paged_sampled(
     pos: torch.Tensor,          # [B] int32 tokens emitted a row
     view_width: Optional[int] = None,
     attn_impl: str = "kernel",
+    mesh: Optional[Mesh] = None,
+    tp_compute: str = "gathered",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
            PagedKVCache]:
     """:func:`verify_step_paged` with per-row sampling: the speculative
@@ -1061,12 +1437,14 @@ def verify_step_paged_sampled(
     argmax-equality rule with the same bits. Keys are
     :func:`_sample_keys`', so acceptance does not depend on the batch.
     Returns ``(window, n, next_tok, new_logits, cache)``: ``next_tok`` is
-    the draw the next quantum makes first. One device only (the JAX
-    engine's tp > 1 path is not ported)."""
+    the draw the next quantum makes first. Under tp (``mesh``) the
+    sampling inputs and the logits are whole on every rank, so every
+    rank draws the same tokens."""
     return verify_step_paged(
         cfg, params, draft, draft_len, logits, cache, eos, max_commit,
         view_width=view_width, attn_impl=attn_impl,
-        sampling=(temperature, top_k, top_p, seed, gen, pos))
+        sampling=(temperature, top_k, top_p, seed, gen, pos), mesh=mesh,
+        tp_compute=tp_compute)
 
 
 # -- batched sampling: per-row filters, counter-based per-request keys ---------
@@ -1202,7 +1580,8 @@ def copy_pool_pages(cache: PagedKVCache, src_ids, dst_ids) -> PagedKVCache:
     and its scales verbatim (no requantization), so a copied page is the
     bytes of its source. A sentinel (``>= n_blocks``) destination drops
     its write; a sentinel source reads the last page, as JAX's clamped
-    gather does."""
+    gather does. Under tp each rank copies its own head group of the
+    pages (its pool), with no collective, as in the JAX package."""
     n_blocks = cache.k.shape[1]
     pairs = [(min(int(s), n_blocks - 1), int(d))
              for s, d in zip(src_ids, dst_ids) if 0 <= int(d) < n_blocks]
@@ -1270,16 +1649,19 @@ def gather_pool_pages(
     return pages
 
 
-def pool_page_host_bytes(cache: PagedKVCache) -> int:
-    """Host bytes one pool page occupies off the card (K and V in the
-    storage type, plus the fp32 scales of int8 pools): the unit the host
-    tier's budget counts in."""
+def pool_page_host_bytes(cache: PagedKVCache, tp: int = 1) -> int:
+    """Host bytes one whole pool page occupies off the card (K and V in
+    the storage type, plus the fp32 scales of int8 pools): the unit the
+    host tier's budget counts in. ``tp``: the pool holds this rank's
+    ``1 / tp`` of every page's heads, and the page's bytes are ``tp``
+    times its share (the JAX package counts the whole page at any
+    tp)."""
     n_layers = cache.k.shape[0]
     per = cache.k[0, 0].numel() * cache.k.element_size()
     n = 2 * n_layers * per
     if cache.k_scale is not None:
         n += 2 * n_layers * cache.k_scale[0, 0].numel() * 4
-    return n
+    return n * tp
 
 
 def install_pool_pages(
@@ -1312,16 +1694,23 @@ def install_pool_pages(
 
 def scatter_row_into_pool(
     cache: PagedKVCache, ext_k: torch.Tensor, ext_v: torch.Tensor, row: int,
-    ids, starts, block_size: int,
+    ids, starts, block_size: int, mesh: Optional[Mesh] = None,
 ) -> PagedKVCache:
     """Ingest full blocks of one row of an external contiguous cache
     (``[L, B, S, KVH, D]``, K rotated) into pool pages: block ``j``
     (tokens ``starts[j] + [0, block_size)``) into page ``ids[j]``,
-    quantizing on write for int8 pools (``_pool_write``). The
-    ``register_prefix`` path: the one place KV is copied into the pool
-    from outside."""
+    quantizing on write for int8 pools (``_pool_write``; the scales are
+    per (token, head), so a head's codes do not depend on the others).
+    The ``register_prefix`` path: the one place KV is copied into the
+    pool from outside. Under tp (``mesh``) the external cache holds every
+    head, and each rank takes its own head group."""
     if not len(ids):
         return cache
+    tp = tp_size(mesh)
+    if tp > 1:
+        gl = ext_k.shape[3] // tp
+        heads = slice(mesh.coords["tp"] * gl, (mesh.coords["tp"] + 1) * gl)
+        ext_k, ext_v = ext_k[:, :, :, heads], ext_v[:, :, :, heads]
     dev = cache.k.device
     bs = int(block_size)
     cols = (torch.as_tensor([int(s) for s in starts], dtype=torch.long,

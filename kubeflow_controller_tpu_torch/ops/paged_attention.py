@@ -320,12 +320,13 @@ class _DecodeDims(ctypes.Structure):
 
 @functools.lru_cache(maxsize=256)
 def _decode_plan(q_shape, q_dtype, k_pool, v_pool, k_scale, v_scale,
-                 tables_shape, pos_shape, width, sm_scale, out_dtype):
+                 tables_shape, pos_shape, width, sm_scale, out_dtype, tp=1):
     """A decode launch's shape-only work, once per configuration: the
     operands' checks (the pools and scales given as ``(shape, dtype)``),
     then ``kfc_paged_decode``'s shape arguments (the struct, kept alive
     here, and its address), the fp32 scratch the split needs (0 with one
-    part) and the byte offset of its (m, l) pairs."""
+    part) and the byte offset of its (m, l) pairs. The split is planned
+    for ``tp`` times the heads (:func:`paged_attention_decode`)."""
     b, g, rep, hd = q_shape
     n_pages, bs, g_pool, hd_pool = k_pool[0]
     if (g_pool, hd_pool) != (g, hd) or tables_shape[0] != b or pos_shape != (b,):
@@ -337,7 +338,7 @@ def _decode_plan(q_shape, q_dtype, k_pool, v_pool, k_scale, v_scale,
     nb = pages_to_walk(width, bs, mb)
     parts, per = 1, 1
     if decode_uses_mma(q_dtype, rep, hd):
-        parts, per = decode_parts(b * g, nb * bs)
+        parts, per = decode_parts(b * g * tp, nb * bs)
     # The partial accumulators [B*G*parts, rep, D], then their (m, l) pairs
     # [B*G*parts, rep, 2].
     n_acc = b * g * parts * rep * hd if parts > 1 else 0
@@ -349,7 +350,7 @@ def _decode_plan(q_shape, q_dtype, k_pool, v_pool, k_scale, v_scale,
 
 
 def _decode_kernel(q, k_pool, v_pool, tables, pos, k_scale, v_scale,
-                   width, sm_scale, out_dtype):
+                   width, sm_scale, out_dtype, tp=1):
     from kubeflow_controller_tpu_torch.ops import _build
 
     if not q.is_contiguous():
@@ -358,7 +359,7 @@ def _decode_kernel(q, k_pool, v_pool, tables, pos, k_scale, v_scale,
     _check_cuda(q, k_pool, v_pool, tables, pos, k_scale, v_scale)
     dims, dims_p, n_floats, ml_offset = _decode_plan(
         q.shape, q.dtype, _meta(k_pool), _meta(v_pool), _meta(k_scale),
-        _meta(v_scale), tables.shape, pos.shape, width, sm_scale, out_dtype)
+        _meta(v_scale), tables.shape, pos.shape, width, sm_scale, out_dtype, tp)
     dev = q.device
     stream = _stream(dev)
     acc_p = ml_p = cnt_p = None
@@ -377,11 +378,12 @@ def _decode_kernel(q, k_pool, v_pool, tables, pos, k_scale, v_scale,
 
 
 def _chunk_kernel(q, k_new, v_new, k_pool, v_pool, tables, pos, k_scale,
-                  v_scale, width, sm_scale, out_dtype, offset=None):
+                  v_scale, width, sm_scale, out_dtype, offset=None, tp=1):
     """One chunk-kernel launch. With ``offset`` (the prefill's host
     integer; ``pos`` None) every slot is at that position and the grid is
     sized by its live columns; else by the width cap, and parts past a
-    slot's ``pos`` exit at once."""
+    slot's ``pos`` exit at once. The split is planned for ``tp`` times
+    the heads (:func:`paged_attention_decode`)."""
     from kubeflow_controller_tpu_torch.ops import _build
 
     b, w, g, rep, hd = q.shape
@@ -412,7 +414,7 @@ def _chunk_kernel(q, k_new, v_new, k_pool, v_pool, tables, pos, k_scale,
     if mma:
         span = nb * bs if offset is None else min(max(int(offset), 0), nb * bs)
         groups = b * g * -(-(w * rep) // ROWS_PER_BLOCK)
-        parts, per = chunk_parts(groups, span)
+        parts, per = chunk_parts(groups * tp, span)
         if parts > 1:
             # The partial accumulators [groups * parts, 64, D], then their
             # (m, l) pairs [groups * parts, 64, 2].
@@ -449,17 +451,23 @@ def paged_attention_decode(
     width: Optional[int] = None,
     sm_scale: Optional[float] = None,
     out_dtype: Optional[torch.dtype] = None,
+    tp: int = 1,
 ) -> torch.Tensor:
     """softmax(q·K/√d)·V over each slot's table-resolved pages, masked
     to columns ``<= pos[b]``; ``width`` caps the pages walked. Returns
-    ``[B, G, rep, D]``."""
+    ``[B, G, rep, D]``.
+
+    ``tp``: the G heads are one tp rank's share of ``tp * G`` (serving
+    over a tp mesh). The tensor-core kernels then split each head's
+    columns into the parts they would at ``tp * G`` heads, so that a
+    head's reduction order, and its bits, are the same at any tp."""
     if q.device.type == "cpu":
         return paged_attention_decode_plain(
             q, k_pool, v_pool, tables, pos, k_scale=k_scale,
             v_scale=v_scale, width=width, sm_scale=sm_scale,
             out_dtype=out_dtype)
     return _decode_kernel(q, k_pool, v_pool, tables, pos, k_scale, v_scale,
-                          width, sm_scale, out_dtype)
+                          width, sm_scale, out_dtype, tp)
 
 
 def paged_attention_verify(
@@ -476,17 +484,19 @@ def paged_attention_verify(
     width: Optional[int] = None,
     sm_scale: Optional[float] = None,
     out_dtype: Optional[torch.dtype] = None,
+    tp: int = 1,
 ) -> torch.Tensor:
     """Chunk attention for a batch of slots: each slot's W rows attend
     its cached columns ``< pos[b]`` plus the intra-window causal tile.
-    Returns ``[B, W, G, rep, D]``."""
+    Returns ``[B, W, G, rep, D]``. ``tp``: see
+    :func:`paged_attention_decode`."""
     if q.device.type == "cpu":
         return paged_chunk_attention_plain(
             q, k_new, v_new, k_pool, v_pool, tables, pos, k_scale=k_scale,
             v_scale=v_scale, width=width, sm_scale=sm_scale,
             out_dtype=out_dtype)
     return _chunk_kernel(q, k_new, v_new, k_pool, v_pool, tables, pos,
-                         k_scale, v_scale, width, sm_scale, out_dtype)
+                         k_scale, v_scale, width, sm_scale, out_dtype, tp=tp)
 
 
 def paged_attention_prefill(
@@ -503,12 +513,14 @@ def paged_attention_prefill(
     width: Optional[int] = None,
     sm_scale: Optional[float] = None,
     out_dtype: Optional[torch.dtype] = None,
+    tp: int = 1,
 ) -> torch.Tensor:
     """Chunk-prefill attention for ONE slot: W rows attend the slot's
     cached columns ``< offset`` plus the intra-chunk causal tile. The
     chunk's K/V scatter into the pool stays with the caller, after the
     layer. Returns ``[W, G, rep, D]``. On CUDA the kernel's grid is sized
-    by the offset's live pages (a host integer: no device read)."""
+    by the offset's live pages (a host integer: no device read). ``tp``:
+    see :func:`paged_attention_decode`."""
     if q.device.type == "cpu":
         pos = torch.full((1,), int(offset), dtype=torch.int32)
         return paged_chunk_attention_plain(
@@ -517,4 +529,4 @@ def paged_attention_prefill(
             width=width, sm_scale=sm_scale, out_dtype=out_dtype)[0]
     return _chunk_kernel(q[None], k_new[None], v_new[None], k_pool, v_pool,
                          table_row[None], None, k_scale, v_scale, width,
-                         sm_scale, out_dtype, offset=int(offset))[0]
+                         sm_scale, out_dtype, offset=int(offset), tp=tp)[0]

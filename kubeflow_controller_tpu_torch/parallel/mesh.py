@@ -257,13 +257,25 @@ def make_multislice_mesh(
     return Mesh(arr, device_type)
 
 
-def serving_mesh(tp: int = 1, devices: Optional[Sequence[int]] = None):
-    """The serving engine's mesh: ``None`` for ``tp <= 1`` (the engine
-    runs its single-card path); a tensor-parallel engine is not ported."""
+def serving_mesh(tp: int = 1, devices: Optional[Sequence[int]] = None,
+                 device_type: str = "cpu") -> Optional[Mesh]:
+    """The serving engine's mesh: a 1-D tp mesh over ``tp`` ranks
+    (``devices``, default the first ``tp`` of the world), every other
+    axis 1. One process runs each tp rank: it holds its ``n_kv_heads /
+    tp`` slice of the paged pool and its shard of the weights, and every
+    rank runs the same scheduler on the same requests (block tables,
+    lengths and logits are whole on each). For a MoE config the tp axis
+    is also the expert-parallel axis. ``None`` for ``tp <= 1``: the
+    single-card engine runs its own path, not a mesh of one. More ranks
+    than the world holds raise the JAX package's ``ValueError``."""
     if tp <= 1:
         return None
-    raise NotImplementedError(
-        f"serving over a tp={tp} mesh is not yet ported")
+    ranks = list(devices) if devices is not None else list(range(world()[0]))
+    if tp > len(ranks):
+        raise ValueError(
+            f"serving_mesh: tp={tp} exceeds the {len(ranks)} visible "
+            f"devices")
+    return make_mesh(MeshConfig(dp=1, tp=tp), ranks[:tp], device_type)
 
 
 def mesh_for_context(ctx, config: Optional[MeshConfig] = None,

@@ -484,3 +484,125 @@ def opt_state_specs(opt_state: Dict[Any, Dict[str, Any]],
                       if isinstance(v, torch.Tensor) and v.ndim > 0 else P())
                   for k, v in st.items()}
     return out
+
+
+# -- serving placement ----------------------------------------------------------
+#
+# The serving engine over a tp mesh (``parallel.mesh.serving_mesh``) stores
+# each weight by its training spec with the axes that do not divide a
+# dimension dropped (:func:`serving_param_shardings`), and computes on the
+# stored chunks in one of two ways (``tp_compute``): "gathered" gathers
+# each layer's chunks where the layer runs (bytes move, never change), and
+# "parallel" consumes the column- and row-parallel chunks in place
+# (:func:`tp_compute_param_specs`: Megatron's split, one tp sum after wo
+# and one after w_down). MoE expert banks split their expert axis over tp
+# in both modes (``_EXPERT_SPEC``): tokens travel to their experts
+# (``models/generate.py:_moe_ep_ffn``), the banks never gather.
+_TP_COLUMN_KEYS = frozenset(("wq", "wk", "wv", "w_gate", "w_up"))
+_TP_ROW_KEYS = frozenset(("wo", "w_down"))
+_TP_EXPERT_KEYS = frozenset(("w_gate", "w_up", "w_down"))
+# Stacked expert banks are [L, E, D, F] / [L, E, F, D]; dense weights are
+# [L, D, F]. ndim tells them apart for both q and (q, scale).
+_EXPERT_SPEC = P(None, "tp", None, None)
+
+
+def tp_dims(spec, ndim: int) -> List[int]:
+    """The dimensions of an ``ndim``-dimensional tensor that ``spec``
+    splits over tp."""
+    entries = list(spec or ()) + [None] * ndim
+    return [d for d in range(ndim) if "tp" in _entry_axes(entries[d])]
+
+
+def _map_named(fn: Callable[[Optional[str], Any], Any], tree: Any,
+               key: Optional[str] = None) -> Any:
+    """``fn(key, leaf)`` over a dict tree whose leaves are tensors (or
+    shapes) and ``(q, scale)`` pairs, ``key`` the leaf's own name."""
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, k) for k, v in tree.items()}
+    return fn(key, tree)
+
+
+def _ndim(x) -> int:
+    return x.ndim if isinstance(x, torch.Tensor) else len(x)
+
+
+def tp_compute_param_specs(params: Any) -> Any:
+    """The spec each leaf of a serving tree is computed at under
+    ``tp_compute="parallel"``: column-parallel weights put their output
+    (last) dimension on tp, row-parallel ones their contraction
+    (second-to-last) dimension, expert banks their expert axis;
+    everything else whole. A weight-only int8 ``(q, scale)`` pair splits
+    as its values do, but a row-parallel weight's scale (size 1 on the
+    contraction axis) stays whole, so each rank's dequant of its rows is
+    the whole weight's. ``w_router`` stays whole fp32: routing is the
+    same on every rank."""
+    def spec(key, x):
+        pair = isinstance(x, tuple)
+        nd = _ndim(x[0] if pair else x)
+        if key in _TP_EXPERT_KEYS and nd >= 4:
+            w = s = _EXPERT_SPEC
+        elif key in _TP_COLUMN_KEYS:
+            w = s = P(*((None,) * (nd - 1)), "tp")
+        elif key in _TP_ROW_KEYS:
+            w, s = P(*((None,) * (nd - 2)), "tp", None), P()
+        else:
+            w = s = P()
+        return (w, s) if pair else w
+
+    return _map_named(spec, params)
+
+
+def serving_param_shardings(cfg: Any, mesh: Mesh, quant: str = "") -> Any:
+    """Where each leaf of a serving tree (``generate.inference_params``
+    with ``quant``) is stored on a serving mesh: its training spec
+    (``generate.inference_param_specs``) with every axis that does not
+    divide its dimension dropped to whole (a tiny model's vocab or d_ff
+    may not divide tp: that weight stays whole on every rank and the
+    engine still serves), and expert banks split on their expert axis
+    (``_EXPERT_SPEC``), whose training spec would split d_ff. Computed
+    from the configuration's whole shapes, so a rank holding only its
+    chunks gets the same tree."""
+    from kubeflow_controller_tpu_torch.models import generate as gen
+    from kubeflow_controller_tpu_torch.models import transformer as tfm
+
+    specs = gen.inference_param_specs(cfg, quant)
+
+    def fit(spec, shape) -> P:
+        if len(shape) >= 4:              # a stacked expert bank (q or scale)
+            spec = _EXPERT_SPEC
+        parts = list(spec) + [None] * (len(shape) - len(spec))
+        out = []
+        for dim, part in zip(shape, parts[:len(shape)]):
+            size = mesh.axis_size(*_entry_axes(part))
+            out.append(part if size > 1 and dim % size == 0 else None)
+        return P(*out)
+
+    def place(spec, shape):
+        if isinstance(spec, tuple) and not isinstance(spec, P):
+            scale = tuple(shape[:-2]) + (1, shape[-1])
+            return fit(spec[0], shape), fit(spec[1], scale)
+        return fit(spec, shape)
+
+    def walk(spec, shape):
+        if isinstance(spec, dict):
+            return {k: walk(spec[k], shape[k]) for k in spec}
+        return place(spec, shape)
+
+    return walk(specs, tfm.param_shapes(cfg))
+
+
+def shard_serving_params(cfg: Any, params: Any, mesh: Mesh,
+                         quant: str = "") -> Any:
+    """This rank's chunks of a whole serving tree, stored as
+    :func:`serving_param_shardings` places them (a ``(q, scale)`` pair
+    as a pair of chunks)."""
+    specs = serving_param_shardings(cfg, mesh, quant)
+
+    def walk(tree, spec):
+        if isinstance(tree, dict):
+            return {k: walk(v, spec[k]) for k, v in tree.items()}
+        if isinstance(tree, tuple):
+            return tuple(local_shard(t, s, mesh) for t, s in zip(tree, spec))
+        return local_shard(tree, spec, mesh)
+
+    return walk(params, specs)

@@ -160,7 +160,8 @@ def test_multislice_rank_order_matches_jax():
 
 def test_world_of_one_without_a_process_group():
     """No process group: make_mesh is a world of one rank and every
-    group is None; the serving mesh refuses tp > 1."""
+    group is None; the serving mesh of tp > 1 ranks cannot form in a
+    world of one, and says so as the JAX package's does."""
     assert not dist.is_initialized()
     m = tmesh.make_mesh(tmesh.MeshConfig())
     assert m.size == 1 and m.coords == dict.fromkeys(tmesh.AXES, 0)
@@ -168,7 +169,7 @@ def test_world_of_one_without_a_process_group():
     with pytest.raises(ValueError, match="not divisible"):
         tmesh.make_mesh(tmesh.MeshConfig(tp=2))
     assert tmesh.serving_mesh(1) is None
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(ValueError, match="exceeds the 1 visible devices"):
         tmesh.serving_mesh(2)
 
 

@@ -217,7 +217,8 @@ _SERVE_KW = [
 ]
 #: Refused until exact prefill, speculative decoding, checkpoints,
 #: sampling, the prefix cache, weight-only int8 and the MoE decoder
-#: (``config="tiny_moe"``) were ported: these now serve.
+#: (``config="tiny_moe"``) were ported: these now serve. ``tp=2`` (tensor
+#: parallelism, ported too) needs a gang of two processes.
 _SERVE_PORTED = ("prefill_mode", "speculative", "model_dir", "temperature",
                  "n", "prefix_cache", "quant", "config")
 
@@ -228,6 +229,12 @@ def test_serve_refuses_what_is_not_ported(kwargs):
     base = dict(config="tiny", batch=1, prompt_len=4, max_new_tokens=2,
                 device="cpu")
     base.update(kwargs)
+    if next(iter(kwargs)) == "tp":
+        # Tensor-parallel serving is ported: one process is no gang of two
+        # ranks, and the serving mesh says so.
+        with pytest.raises(ValueError, match="exceeds the 1 visible devices"):
+            serve_lm.serve(**base)
+        return
     if next(iter(kwargs)) in _SERVE_PORTED:
         out = serve_lm.serve(**base)
         n = kwargs.get("n", 1)                 # n generations a prompt

@@ -209,12 +209,17 @@ def test_engine_refuses_what_is_not_ported():
     the host tier and the radix proposer (refused before they were
     ported) now build engines, and the prefix cache with exact prefill,
     the tier without the cache and the radix proposer without the trie
-    raise the JAX engine's ValueErrors."""
+    raise the JAX engine's ValueErrors. Tensor parallelism is ported:
+    ``tp=2`` in one process has no gang of two ranks, and the serving
+    mesh raises its ValueError."""
     _, cfg_t, _, params_t = _weights()
-    for kw in (dict(tp=2), dict(tracer=object()), dict(injector=object())):
+    for kw in (dict(tracer=object()), dict(injector=object())):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16,
                           device="cpu", **kw)
+    with pytest.raises(ValueError, match="exceeds the 1 visible devices"):
+        ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16, device="cpu",
+                      tp=2)
     for kw, msg in ((dict(prefix_cache=True), "prefix_cache requires"),
                     (dict(host_kv_mb=1.0, prefill_mode="bucketed"),
                      "requires prefix_cache"),
@@ -295,7 +300,8 @@ def test_cli_serves_on_cpu_and_refuses_unported_flags(tmp_path):
     rows = [json.loads(line) for line in out.read_text().splitlines()]
     assert [r["rid"] for r in rows] == [0, 1, 2]
     assert all(len(r["completion"]) == 4 for r in rows)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    # Tensor parallelism is ported: one process is no gang of two ranks.
+    with pytest.raises(ValueError, match="exceeds the 1 visible devices"):
         serve_lm.main(argv + ["--tp", "2"])
     # Weight-only int8 serves now (its streams are held to the JAX
     # engine's in test_int8_engine_streams_equal_jax_engine).
@@ -368,16 +374,18 @@ def test_small_pool_requeues_until_pages_free():
     dict(model_dir="/nonexistent"), dict(num_processes=2, process_id=1),
 ], ids=["ctx_model_dir", "num_processes=2"])
 def test_serve_refuses_the_job_env_it_cannot_honour(env, caplog):
-    """A multi-process job is refused. A job's model dir (refused until
-    checkpoints were ported) is read: with no checkpoint in it, serve()
-    warns and serves the fresh init, reporting restored_step -1, as the
-    JAX entry point does."""
+    """A multi-process job serves at tp equal to its process count (one
+    process a tp rank; ``tests/test_torch_tp_serving.py`` serves one), and
+    any other tp is refused before the job joins a group. A job's model
+    dir (refused until checkpoints were ported) is read: with no
+    checkpoint in it, serve() warns and serves the fresh init, reporting
+    restored_step -1, as the JAX entry point does."""
     from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
 
     kw = dict(config="tiny", batch=2, prompt_len=9, max_new_tokens=2,
               device="cpu")
     if "model_dir" not in env:
-        with pytest.raises(NotImplementedError, match="not yet ported"):
+        with pytest.raises(ValueError, match="serves at tp=2"):
             serve_lm.serve(ProcessContext(**env), **kw)
         return
     with caplog.at_level("WARNING", logger="tpujob.serve_lm_torch"):
@@ -647,11 +655,11 @@ def test_serve_int8_equals_jax_serve(tmp_path, monkeypatch):
 
 # -- C8: the summary's keys ------------------------------------------------------
 
-#: Summary keys of features the port refuses: tensor parallelism,
-#: migration, fault injection, spans and the jit-cache counts. (The MoE
-#: keys left this set with the MoE decoder.)
+#: Summary keys of features the port refuses: migration, fault
+#: injection, spans and the jit-cache counts. (The MoE keys left this
+#: set with the MoE decoder, the tp gauges with tensor parallelism.)
 REFUSED_SUMMARY_KEYS = {
-    "tp", "pool_blocks_per_shard", "migrated_in", "migrated_out",
+    "migrated_in", "migrated_out",
     "pages_migrated", "migration_bytes", "migrated_zero_copy_tokens",
     "migrate_dedups", "faults_injected", "spans_recorded", "spans_dropped",
     "prefill_compiles", "admit_cache_size",

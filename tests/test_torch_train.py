@@ -605,7 +605,10 @@ def test_lm_train_refuses_what_is_not_ported(kw, tmp_path):
     end. ``config="tiny_moe"`` (refused until the MoE slice) trains and
     reports the MoE metrics. ``llama3_70b`` (refused until its own slice,
     though tensor parallelism came first) is a training config now, and
-    ``serve`` refuses it until tensor-parallel serving is ported. ``tp`` and ``fsdp`` (refused until multi-process training
+    ``serve`` takes it over tensor parallelism: its heads split at tp=2,
+    which one process, a world of one rank, cannot fill (the serving
+    mesh's ``ValueError``, before any weight loads), and tp=3 is refused
+    by the head check. ``tp`` and ``fsdp`` (refused until multi-process training
     was ported) are a ``mesh_config`` now: one process is a world of one
     rank, which a tp=2 or fsdp=2 mesh cannot fill, and
     ``MeshConfig.resolve`` raises the reference's ``ValueError``; so does
@@ -628,8 +631,10 @@ def test_lm_train_refuses_what_is_not_ported(kw, tmp_path):
 
         cfg = tlm.model_config("llama3_70b")
         assert (cfg.d_model, cfg.n_layers, cfg.n_heads, cfg.n_kv_heads) == (8192, 80, 64, 8)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            serve(config="llama3_70b", device="cpu")
+        with pytest.raises(ValueError, match="exceeds the 1 visible devices"):
+            serve(config="llama3_70b", tp=2, device="cpu")
+        with pytest.raises(ValueError, match="n_kv_heads must be divisible by tp"):
+            serve(config="llama3_70b", tp=3, device="cpu")
         return
     if kw.get("config") == "tiny_moe" or kw.get("attn") == "ring":
         out = tlm.train(**base)
