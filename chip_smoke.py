@@ -100,6 +100,23 @@ Phases, in order; any failure exits non-zero before the result line:
    only after a near-tie); each run's launches exact
    (``paged_chunk`` = (prefill chunks + verify steps) x the layers); then the
    tiny config, card vs CPU, through each of those paths;
+5c. fleet (``fleet_phase``, on ``SERVE_CONFIG``): ``serve(disagg=True)``
+   (``prefill-0`` prefills, ``decode-0`` decodes, the KV pages moving
+   between their pools) beside the one-engine bucketed run with the
+   prefix cache: B6 256 chunks x the layers, B1 none, B5 decode-0's
+   dispatches x 4 x the layers, the migration counters and bytes exact
+   (and on an int8 pool), the streams equal or off only after a
+   near-tie, TTFT/TPOT/tokens/s of both and the export and install ms a
+   request from the trace; the trace (one export, one install and one
+   router hop a rid, nothing dropped) and the same run untraced (the
+   same streams and launches); a three-engine fleet on a fake clock
+   under one fault plan (a payload lost, an ACK lost and deduplicated, a
+   hang window the watchdog strikes) with decode-1 killed mid-decode
+   (its engine collected, its pool freed), then a rolling restart with
+   8 requests in flight (none dropped); the books closed, no rid
+   delivered twice, the fires accounted for, the memory back within a
+   pool after the fleet; a fleet prefix pull (an owner cordoned, 12
+   pages pulled into the other replica's host tier and rehydrated);
 6. train: bench.py's flagship decoder (B16 S1024, 16 layers, remat) and
    llama3_8b at full width and 2 layers (B2 S2048), 8 steps each through
    ``TrainLoop``; the flagship with int8 projections, ``"int8_fused"``
@@ -134,13 +151,14 @@ Phases, in order; any failure exits non-zero before the result line:
    a machine of two cards or more, else gloo with both ranks on cuda:0
    (the backend's collectives on CUDA tensors probed first; a layout
    whose collectives it lacks is not run and the line says so). The
-   flagship at full width and depth (global batch 16) at dp=2, fsdp=2
+   flagship at full width and 8 of its 16 layers (global batch 16; the
+   depth cut for the script's time) at dp=2, fsdp=2
    (its checkpoint restored by a one-process loop, bit for bit) and
    tp=2, 3 steps; ``int8_fused`` at fsdp=2 and llama3_8b at 2 layers
    (B3/B4) at fsdp=2, 2 steps; the flagship at sp=2 (S=2048, global
    batch 4) with ring attention and with q/k/v gathered over sp (B1,
-   B3/B4), at pp=2 (4 microbatches, global batch 16) through
-   ``TrainLoop`` with ``next_token_loss(pp_microbatches=4)``, and
+   B3/B4), at pp=2 (all 16 layers, 4 microbatches, global batch 16)
+   through ``TrainLoop`` with ``next_token_loss(pp_microbatches=4)``, and
    llama3_8b at 2 layers, sp=2, S=4096 with ring attention; each rank's
    launches a step exactly the one-process counts (none on the ring;
    each rank's layers on every tick of the pipeline), its step ms, and
@@ -2203,11 +2221,11 @@ def _time_tier_moves(eng, rec):
         rec["spill"].append((dt, sum(keep)))
         return keep
 
-    def timed_rehydrate(nodes):
+    def timed_rehydrate(nodes, rid=None):
         torch.cuda.synchronize()
         nested[0] = 0.0
         t = time.perf_counter()
-        n = rehydrate(nodes)
+        n = rehydrate(nodes, rid)
         torch.cuda.synchronize()
         rec["rehydrate"].append((time.perf_counter() - t - nested[0], n))
         return n
@@ -2670,6 +2688,387 @@ def prefix_phase(smi):
     finally:
         _drop_llama()
     tiny_prefix_check()
+    return runs
+
+
+# -- the serving fleet: disaggregation, chaos, prefix pulls ---------------------
+
+#: The fleet phase's fake clock step a router quantum (seconds).
+FLEET_DT = 0.05
+#: The chaos plan's hang on decode-0: from this clock reading (decode-0
+#: then decodes the first requests it took), this many quanta: long
+#: enough that the requests the watchdog takes off it prefill again and
+#: finish on decode-1 before it wakes (its stale copies then complete
+#: second, and are dropped). The watchdog strikes a busy replica whose
+#: heartbeat stalls FLEET_WATCHDOG_S.
+FLEET_HANG_AFTER = 1.0
+FLEET_HANG_FIRES = 48
+FLEET_WATCHDOG_S = 0.3
+
+
+class _FleetClock:
+    """A clock the fleet phase advances by FLEET_DT a router quantum, so
+    that the fault plan's windows and the watchdog read quanta, not the
+    host's speed."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def _page_bytes(cfg, kv_quant=""):
+    """One pool page's K and V (and int8 scales) over every layer: the
+    unit a migration ships."""
+    import torch
+
+    kv = 2 * cfg.n_layers * 16 * cfg.n_kv_heads
+    if kv_quant == "int8":
+        return kv * cfg.head_dim + kv * 4
+    return kv * cfg.head_dim * torch.empty((), dtype=cfg.dtype).element_size()
+
+
+def _serve_prompts(vocab, batch=16, prompt_len=256):
+    """The synthetic prompts ``serve()`` draws when given no input file."""
+    import numpy as np
+
+    return np.random.default_rng(0).integers(0, vocab, (batch, prompt_len)).astype(
+        np.int32)
+
+
+def _pool_bytes(eng):
+    return sum(t.numel() * t.element_size() for t in (
+        eng.cache.k, eng.cache.v, eng.cache.k_scale, eng.cache.v_scale)
+        if t is not None)
+
+
+def _fleet_engine(clock, injector=None, **kw):
+    """A replica of ``serve(disagg=True)``'s shape on the ``SERVE_CONFIG``
+    weights: 8 slots of 256 + 32 tokens, bucketed prefill, the prefix
+    cache, pages of 16."""
+    from kubeflow_controller_tpu_torch.dataplane.serving_engine import ServingEngine
+
+    cfg, params = _llama()
+    return ServingEngine(cfg, params, n_slots=8, max_seq=288, prefill_mode="bucketed",
+                         prefix_cache=True, block_size=16, clock=clock,
+                         injector=injector, device="cuda", **kw)
+
+
+def _pump_fleet(router, clock, label, steps=4000, until=None):
+    """Step the fleet on its fake clock until it idles (or ``until()``)."""
+    for _ in range(steps):
+        if until is not None and until():
+            return
+        if until is None and router.idle:
+            return
+        clock.t += FLEET_DT
+        router.step()
+    raise AssertionError(f"{label}: the fleet did not settle in {steps} quanta "
+                         f"({router.pending} pending)")
+
+
+def _near_tie_streams(label, want, got, prompts):
+    """Each stream of ``got`` equal to ``want``'s, or leaving it only at a
+    near-tie (SPEC_FLIP_GAP_OF_RMS) on the ``SERVE_CONFIG`` weights."""
+    gaps = (_first_divergence_gaps(_llama()[1], want, got,
+                                   _stream_context(prompts, want))
+            if want != got else [])
+    _check_near_ties(label, gaps, len(got))
+
+
+def _trace_ms(doc, name):
+    """Each rid's durations (ms) of the complete spans named ``name``."""
+    return sorted(e["dur"] / 1e3 for e in doc["traceEvents"]
+                  if e.get("name") == name and e.get("ph") == "X")
+
+
+def _fleet_disagg(smi, n_layers, cfg, prompts):
+    """(a) and (b): ``serve(disagg=True)`` traced, untraced and on an int8
+    pool, beside the one-engine bucketed run with the prefix cache."""
+    from kubeflow_controller_tpu_torch.obs.trace import load_chrome_trace
+
+    runs = {}
+    one_res, one_l, one = _serve_run("fleet.one", smi, 16, prefill_mode="bucketed",
+                                     prefix_cache=True)
+    runs["fleet.one"] = (one_res, one_l)
+    trace = os.path.join(OUT_DIR, "fleet_trace.json")
+    res, launches, dis = _serve_run("fleet.disagg", smi, 16, disagg=True, trace=trace)
+    runs["fleet.disagg"] = (res, launches)
+    doc = load_chrome_trace(trace)
+    # Every decode dispatch is decode-0's (prefill-0's slots never
+    # decode): B5 = its dispatches x decode_chunk (4) x the layers.
+    dispatches = sum(1 for e in doc["traceEvents"]
+                     if e.get("name") == "dispatch" and e.get("cat") == "dataplane")
+    chunks = 16 * 256 // 16
+    want = {"paged_chunk": chunks * n_layers, "flash_fwd": 0, "rope_rotate": 0,
+            "paged_decode": dispatches * 4 * n_layers}
+    got = {k: launches[k] for k in want}
+    if got != want or one_l["paged_chunk"] != chunks * n_layers:
+        raise AssertionError(f"fleet[disagg]: launches {launches}, want {want} "
+                             f"(one engine: {one_l})")
+    page = _page_bytes(cfg)
+    counters = {k: res[k] for k in ("migrations", "pages_migrated",
+                                    "migrated_zero_copy_tokens", "migration_bytes")}
+    if counters != {"migrations": 16, "pages_migrated": chunks,
+                    "migrated_zero_copy_tokens": 0,
+                    "migration_bytes": chunks * page}:
+        raise AssertionError(f"fleet[disagg]: {counters}, want 16 migrations of "
+                             f"{chunks} pages, {chunks * page} B")
+    _near_tie_streams("fleet disagg vs one engine", one, dis, prompts)
+    # (b) the trace: one export, one install and one router hop a rid.
+    per_rid = {}
+    for e in doc["traceEvents"]:
+        rid = e.get("args", {}).get("rid")
+        if rid is not None and e["name"] in ("migrate_export", "migrate_install",
+                                             "migrate"):
+            key = (e["name"], e["cat"])
+            per_rid.setdefault(rid, {}).setdefault(key, 0)
+            per_rid[rid][key] += 1
+    want_rid = {("migrate_export", "dataplane"): 1,
+                ("migrate_install", "dataplane"): 1, ("migrate", "router"): 1}
+    if sorted(per_rid) != sorted(map(str, range(16))) or any(
+            v != want_rid for v in per_rid.values()):
+        raise AssertionError(f"fleet[trace]: per-rid migration events {per_rid}")
+    if res["spans_dropped"] != 0 or doc["otherData"]["spans_dropped"] != 0:
+        raise AssertionError(f"fleet[trace]: {res['spans_dropped']} spans dropped")
+    exp, ins = _trace_ms(doc, "migrate_export"), _trace_ms(doc, "migrate_install")
+    log(f"fleet disagg vs one engine ({SERVE_CONFIG}, 16 requests of 256 + 32, this "
+        f"run, {smi}): ttft_p50 {res['ttft_p50_ms']} vs {one_res['ttft_p50_ms']} ms, "
+        f"ttft_p95 {res['ttft_p95_ms']} vs {one_res['ttft_p95_ms']} ms, tpot_p50 "
+        f"{res['tpot_p50_ms']} vs {one_res['tpot_p50_ms']} ms, tokens/s "
+        f"{res['tokens_per_sec']} vs {one_res['tokens_per_sec']}, wall {res['wall_s']} "
+        f"vs {one_res['wall_s']} s; migrate_export ms a request p50 "
+        f"{exp[len(exp) // 2]} max {exp[-1]} (16 pages, {16 * page} B, copies "
+        f"enqueued), migrate_install p50 {ins[len(ins) // 2]} max {ins[-1]}; "
+        f"{res['spans_recorded']} spans, decode dispatches {dispatches}")
+    # The same run without the tracer: the same streams and launches.
+    res2, launches2, dis2 = _serve_run("fleet.disagg.untraced", smi, 16, disagg=True)
+    if dis2 != dis or launches2 != launches:
+        raise AssertionError(f"fleet[untraced]: launches {launches2} vs {launches}, "
+                             f"streams equal {dis2 == dis}")
+    runs["fleet.disagg.untraced"] = (res2, launches2)
+    # An int8 pool ships its codes and scales raw.
+    res8, launches8, _ = _serve_run("fleet.disagg.int8", smi, 4, disagg=True,
+                                    kv_quant="int8")
+    page8 = _page_bytes(cfg, "int8")
+    if (res8["migrations"], res8["pages_migrated"], res8["migration_bytes"]) != (
+            4, 64, 64 * page8) or launches8["paged_chunk"] != 64 * n_layers:
+        raise AssertionError(f"fleet[int8]: {res8['migrations']} migrations, "
+                             f"{res8['pages_migrated']} pages, {res8['migration_bytes']} "
+                             f"B (want 4, 64, {64 * page8}); launches {launches8}")
+    runs["fleet.disagg.int8"] = (res8, launches8)
+    return runs, one
+
+
+def _fleet_chaos(smi, n_layers, prompts, one):
+    """(c) and (e): three engines under one fault plan (a lost payload, a
+    lost ACK, a hang window on decode-0 with the watchdog), decode-1
+    killed mid-decode, then a rolling restart of every replica with
+    traffic in flight; conservation, no duplicate delivery, the fires
+    accounted for, the streams (a)'s, and every engine let go of freed."""
+    import gc
+    import weakref
+
+    import torch
+
+    from kubeflow_controller_tpu_torch.dataplane.faults import FaultInjector, FaultPlan
+    from kubeflow_controller_tpu_torch.dataplane.router import FleetRouter
+    from kubeflow_controller_tpu_torch.dataplane.serving_engine import Request
+
+    _llama()                            # the weights stay: not the fleet's
+    gc.collect()
+    torch.cuda.synchronize()
+    m_before = torch.cuda.memory_allocated()
+    clock = _FleetClock()
+    plan = FaultPlan.from_dict({"specs": [
+        {"kind": "drop_migration", "site": "router.migrate", "max_fires": 1},
+        {"kind": "drop_migration", "site": "router.migrate_ack", "max_fires": 1},
+        {"kind": "hang", "site": "engine.step", "target": "decode-0",
+         "after": FLEET_HANG_AFTER, "max_fires": FLEET_HANG_FIRES}]})
+    inj = FaultInjector(plan, clock=clock, seed=0)
+    router = FleetRouter(clock=clock, block_size=16, injector=inj,
+                         watchdog_stale_s=FLEET_WATCHDOG_S)
+    for name, role in (("prefill-0", "prefill"), ("decode-0", "decode"),
+                       ("decode-1", "decode")):
+        router.add_replica(name, _fleet_engine(clock, inj), role=role)
+    pool = _pool_bytes(router.get_replica("decode-1").engine)
+
+    def run():
+        # Eight requests, the hang's window, then eight more; decode-1 is
+        # killed once decode-0 is back and decode-1 decodes.
+        for rid in range(8):
+            router.submit(Request(rid=rid, prompt=prompts[rid], max_new_tokens=32))
+        _pump_fleet(router, clock, "fleet[chaos]", until=lambda: inj.fired.get(
+            ("engine.step", "hang"), 0) == FLEET_HANG_FIRES)
+        for rid in range(8, 16):
+            router.submit(Request(rid=rid, prompt=prompts[rid], max_new_tokens=32))
+        _pump_fleet(router, clock, "fleet[chaos]", until=lambda: (
+            router.get_replica("decode-0").healthy
+            and router.get_replica("decode-1").engine.n_active > 0))
+        torch.cuda.synchronize()
+        m_pre = torch.cuda.memory_allocated()
+        gone = weakref.ref(router.get_replica("decode-1").engine)
+        moved = router.kill("decode-1")
+        gc.collect()
+        torch.cuda.synchronize()
+        m_post = torch.cuda.memory_allocated()
+        if gone() is not None or m_pre - m_post < pool:
+            raise AssertionError(f"fleet[kill]: engine collected {gone() is None}, "
+                                 f"{m_pre - m_post} B freed, its pool {pool} B")
+        log(f"fleet[kill]: decode-1 killed at {clock.t:.2f} s with {len(moved)} "
+            f"requests re-dispatched; {m_pre - m_post} B freed (its pool {pool} B)")
+        _pump_fleet(router, clock, "fleet[chaos]")
+
+    _, wall, launches = _counted(run)
+    fs = router.fleet_summary()
+    comps = router.completions
+    streams = {c.rid: list(map(int, c.tokens)) for c in comps}
+    fires = inj.summary()
+    if (fs["submitted"] != fs["completed"] + fs["rejected"] + fs["cancelled"]
+            or fs["completed"] != 16 or fs["pending"] != 0
+            or len(comps) != len({c.rid for c in comps})):
+        raise AssertionError(f"fleet[chaos]: books {fs}, {len(comps)} completions")
+    if (fs["migrate_dedups"] != 1 or fs["migration_timeouts"] != 2
+            or fs["faults_injected"] != FLEET_HANG_FIRES
+            or inj.total_fires != FLEET_HANG_FIRES + 2
+            or fs["watchdog_strikes"] < 1 or fs["redispatched"] < 1):
+        raise AssertionError(f"fleet[chaos]: {fs}, fires {fires}")
+    if (launches["flash_fwd"] or launches["paged_chunk"] % n_layers
+            or launches["paged_decode"] % n_layers or not launches["paged_decode"]):
+        raise AssertionError(f"fleet[chaos]: launches {launches}")
+    _near_tie_streams("fleet chaos vs one engine", one, streams, prompts)
+    log(f"fleet[chaos] ({SERVE_CONFIG}, 3 engines, 16 requests, {smi}): wall {wall} s, "
+        f"{clock.t:.2f} s of fleet clock; watchdog strikes {fs['watchdog_strikes']}, "
+        f"ejections {fs['ejections']}, readmissions {fs['readmissions']}, "
+        f"redispatched {fs['redispatched']}, duplicate completions "
+        f"{fs['duplicate_completions']}, migrations {fs['migrations']}, dedups "
+        f"{fs['migrate_dedups']}, fires {json.dumps(fires)}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    runs = {"fleet.chaos": (fs, launches)}
+
+    # The rolling restart, 8 requests in flight.
+    old = [weakref.ref(h.engine) for h in router.replicas]
+
+    def restart():
+        for rid in range(16, 24):
+            router.submit(Request(rid=rid, prompt=prompts[rid - 16], max_new_tokens=32))
+        for _ in range(6):
+            clock.t += FLEET_DT
+            router.step()
+        router.rolling_restart(lambda name: _fleet_engine(clock, inj), grace_s=5.0)
+        _pump_fleet(router, clock, "fleet[restart]")
+
+    _, wall, launches = _counted(restart)
+    gc.collect()
+    torch.cuda.synchronize()
+    fs = router.fleet_summary()
+    comps = router.completions
+    if (fs["completed"] != 24 or fs["submitted"] != 24 or fs["rejected"]
+            or fs["cancelled"] or len(comps) != len({c.rid for c in comps})
+            or any(r() is not None for r in old)):
+        raise AssertionError(f"fleet[restart]: {fs}; old engines alive "
+                             f"{[r() is not None for r in old]}")
+    streams = {c.rid - 16: list(map(int, c.tokens)) for c in comps if c.rid >= 16}
+    _near_tie_streams("fleet restart vs one engine", {r: one[r] for r in range(8)},
+                      streams, prompts)
+    live = torch.cuda.memory_allocated()
+    del router, comps
+    gc.collect()
+    torch.cuda.synchronize()
+    m_after = torch.cuda.memory_allocated()
+    log(f"fleet[restart]: 8 requests through a rolling restart of 3 engines, wall "
+        f"{wall} s, dropped 0, redispatched {fs['redispatched']}; allocated before "
+        f"the fleet {m_before} B, with its 2 live engines {live} B, after it "
+        f"{m_after} B (a pool {pool} B); launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if m_after - m_before > pool:
+        raise AssertionError(f"fleet[memory]: {m_after - m_before} B still allocated "
+                             f"after the fleet, more than a pool ({pool} B)")
+    runs["fleet.restart"] = (fs, launches)
+    return runs
+
+
+def _fleet_prefix_pull(smi, n_layers, cfg):
+    """(d): two mixed replicas with host tiers; 8 requests behind one
+    192-token prefix in two waves of 4; the owner is cordoned after the
+    first, so the second routes away and pulls the prefix. Held against
+    one engine serving the same two waves."""
+    import numpy as np
+
+    from kubeflow_controller_tpu_torch.dataplane.router import FleetRouter
+    from kubeflow_controller_tpu_torch.dataplane.serving_engine import Request
+
+    rng = np.random.default_rng(5)
+    shared = rng.integers(0, cfg.vocab_size, 192)
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, 64)]).astype(
+        np.int32) for _ in range(8)]
+    waves = (range(4), range(4, 8))
+
+    def reqs(rids):
+        return [Request(rid=r, prompt=prompts[r], max_new_tokens=32) for r in rids]
+
+    eng = _fleet_engine(_FleetClock())
+    (out1, out2), _, one_l = _counted(lambda: [eng.run(reqs(w)) for w in waves])
+    one = {c.rid: list(map(int, c.tokens)) for c in out1 + out2}
+    del eng
+    clock = _FleetClock()
+    router = FleetRouter(clock=clock, block_size=16)
+    for name in ("m0", "m1"):
+        router.add_replica(name, _fleet_engine(clock, host_kv_mb=64.0))
+
+    def run():
+        for r in reqs(waves[0]):
+            router.submit(r)
+        _pump_fleet(router, clock, "fleet[pull]")
+        # Affinity sent the whole wave where its first request went.
+        owner = next(iter(router._owners.values()))
+        router.get_replica(owner).cordoned = True
+        for r in reqs(waves[1]):
+            router.submit(r)
+        _pump_fleet(router, clock, "fleet[pull]")
+        return owner
+
+    owner, wall, launches = _counted(run)
+    fs = router.fleet_summary()
+    recv = next(h.engine for h in router.replicas if h.name != owner)
+    streams = {c.rid: list(map(int, c.tokens)) for c in router.completions}
+    if (fs["prefix_pulls"] < 1 or fs["prefix_pull_pages"] != 12
+            or recv.stats.rehydrate_hits < 1 or fs["completed"] != 8):
+        raise AssertionError(f"fleet[pull]: {fs}, receiver rehydrate hits "
+                             f"{recv.stats.rehydrate_hits}")
+    _near_tie_streams("fleet prefix pull vs one engine", one, streams, prompts)
+    log(f"fleet[pull] ({SERVE_CONFIG}, {smi}): owner {owner} cordoned after wave 1; "
+        f"prefix pulls {fs['prefix_pulls']}, pages {fs['prefix_pull_pages']}, bytes "
+        f"{fs['prefix_pull_bytes']}, receiver rehydrate hits "
+        f"{recv.stats.rehydrate_hits} ({recv.stats.rehydrate_tokens} tokens); wall "
+        f"{wall} s; launches {launches} (one engine {one_l})")
+    if launches["flash_fwd"] or launches["paged_chunk"] % n_layers:
+        raise AssertionError(f"fleet[pull]: launches {launches}")
+    return {"fleet.pull": (fs, launches)}
+
+
+def fleet_phase(smi):
+    """The serving fleet on ``SERVE_CONFIG`` (llama3_8b at full width, 8 of
+    its 32 layers, pages of 16): (a) ``serve(disagg=True)`` beside the
+    one-engine bucketed run with the prefix cache, each engine's
+    launches (B6 256 chunks x the layers, B1 none, B5 decode-0's
+    dispatches x 4 x the layers), the migration counters and bytes
+    exact, the streams equal or off only after a near-tie, again on an
+    int8 pool; (b) its trace (one export, one install and one router hop
+    a rid, nothing dropped) and the same run untraced (the same streams
+    and launches); (c) a three-engine fleet under one fault plan and a
+    kill, then a rolling restart; (d) a fleet prefix pull; (e) every
+    engine the fleet let go of freed."""
+    n_layers = _case_config(SERVE_CONFIG).n_layers
+    cfg = _case_config(SERVE_CONFIG)
+    prompts = _serve_prompts(cfg.vocab_size)
+    try:
+        runs, one = _fleet_disagg(smi, n_layers, cfg, prompts)
+        runs.update(_fleet_chaos(smi, n_layers, prompts, one))
+        runs.update(_fleet_prefix_pull(smi, n_layers, cfg))
+    finally:
+        _drop_llama()
     return runs
 
 
@@ -3996,15 +4395,15 @@ DIST_CASES = [
     dict(label="llama3_70b_1l.fsdp2", config="llama3_70b_1l", mesh=dict(dp=1, fsdp=2),
          batch=1, seq=1024, steps=2, checkpoint=True, after_gang=True,
          needs=("all_gather_into_tensor", "reduce_scatter_tensor"), change_cap=0.0428),
-    dict(label="flagship.dp2", config="flagship", mesh=dict(dp=2), batch=8, seq=1024,
+    dict(label="flagship_8l.dp2", config="flagship_8l", mesh=dict(dp=2), batch=8, seq=1024,
          steps=3, needs=(), change_cap=0.114),
-    dict(label="flagship.fsdp2", config="flagship", mesh=dict(dp=1, fsdp=2), batch=8,
+    dict(label="flagship_8l.fsdp2", config="flagship_8l", mesh=dict(dp=1, fsdp=2), batch=8,
          seq=1024, steps=3, needs=("all_gather_into_tensor", "reduce_scatter_tensor"),
          checkpoint=True, change_cap=0.114),
-    dict(label="flagship.tp2", config="flagship", mesh=dict(dp=1, tp=2), batch=16,
+    dict(label="flagship_8l.tp2", config="flagship_8l", mesh=dict(dp=1, tp=2), batch=16,
          seq=1024, steps=3, needs=("all_gather_into_tensor", "all_gather", "all_reduce_max"),
          change_cap=0.114),
-    dict(label="flagship.int8_fused.fsdp2", config="flagship", quant="int8_fused",
+    dict(label="flagship_8l.int8_fused.fsdp2", config="flagship_8l", quant="int8_fused",
          mesh=dict(dp=1, fsdp=2), batch=8, seq=1024, steps=2,
          needs=("all_gather_into_tensor", "reduce_scatter_tensor"), change_cap=0.3654),
     dict(label="llama3_8b.fsdp2", config="llama3_8b_2l", attn="flash",
@@ -4015,16 +4414,19 @@ DIST_CASES = [
     # blocks go around by send and receive), held against the one-process
     # flash run; and the gather path (q/k/v gathered over sp: B1 and the
     # two-pass backward B3/B4 at S=2048 on every rank).
-    dict(label="flagship.sp2.ring", config="flagship", attn="ring", one_process_attn="auto",
+    dict(label="flagship_8l.sp2.ring", config="flagship_8l", attn="ring", one_process_attn="auto",
          mesh=dict(dp=1, sp=2), batch=4, seq=2048, steps=3, needs=("send_recv",),
          change_cap=0.123),
-    dict(label="flagship.sp2", config="flagship", mesh=dict(dp=1, sp=2), batch=4, seq=2048,
+    dict(label="flagship_8l.sp2", config="flagship_8l", mesh=dict(dp=1, sp=2), batch=4, seq=2048,
          steps=3, needs=("all_gather_into_tensor", "reduce_scatter_tensor"),
          change_cap=0.123),
     # Pipeline parallelism: 8 layers a stage, 4 microbatches, through
     # TrainLoop with next_token_loss(pp_microbatches=4) on parameters
     # placed by param_specs(cfg, pp=True) (the JAX package's train-step
-    # entry: no lm.train flag).
+    # entry: no lm.train flag). It keeps the flagship's 16 layers: at 8
+    # its steps' peak (8.364 GB a rank) passes the plan's 7.919 plus 3
+    # leaves, since a tick's buffers do not shrink with the stage's
+    # layers, and its steps are short (~0.9 s).
     dict(label="flagship.pp2", config="flagship", mesh=dict(pp=2, dp=1), batch=16,
          seq=1024, steps=3, pp_microbatches=4, needs=("send_recv",), change_cap=0.114),
     # The long context the sp axis exists for: llama3_8b at 2 layers,
@@ -4090,7 +4492,8 @@ DIST_CASES = [
 # DIST_VS_YARDSTICK times as much, whole and worst leaf. So that this
 # limit cannot grow with the flash kernels' own error, the whole
 # model's change is also capped by the case's ``change_cap``: twice its
-# yardstick as read on an H100 80GB HBM3 at 700 W (flagship 0.0570,
+# yardstick as read on an H100 80GB HBM3 at 700 W (flagship 0.0570 at
+# 16 layers, whose caps its 8-layer dp, fsdp, tp and sp layouts keep,
 # int8_fused 0.1827, llama3_8b 0.0333; the flagship at B4 S2048 0.0615,
 # llama3_8b at S4096 0.0329; mixtral_8x7b at 1 layer: 0.1216 at ep=2,
 # 0.1167 at tp=2 (B2 S1024), 0.1418 at sp=2 (B1 S2048); the flagship's 8
@@ -4951,10 +5354,12 @@ def dist_phase(smi, labels=None):
     controller gives a pod (``JAX_COORDINATOR_ADDRESS`` on 127.0.0.1,
     ``JAX_NUM_PROCESSES=2``, ``JAX_PROCESS_ID``), entering through
     ``initialize_from_env`` and ``lm.train``: the flagship at full width
-    and depth at dp=2, fsdp=2 (writing a checkpoint a one-process loop
-    restores) and tp=2, ``int8_fused`` at fsdp=2 and llama3_8b (2
+    and 8 of its 16 layers at dp=2, fsdp=2 (writing a checkpoint a
+    one-process loop restores) and tp=2, ``int8_fused`` at fsdp=2 and
+    llama3_8b (2
     layers, B3/B4) at fsdp=2; the flagship at sp=2 (ring and gathered
-    attention) and at pp=2 (``TrainLoop`` with the pipelined loss), and
+    attention) and at pp=2 (all 16 layers; ``TrainLoop`` with the
+    pipelined loss), and
     llama3_8b (2 layers) at sp=2, S=4096, ring; mixtral_8x7b (1 layer)
     at ep=2, tp=2 and sp=2, the flagship (8 of its 16 layers) with int8
     projections at tp=2 (``int8`` and ``int8_fused``: B7's split
@@ -5663,6 +6068,7 @@ def _phases(aot) -> int:
     int8_runs = phase("int8 serve", int8_serve_phase, smi, runs)
     moe_runs = phase("moe", moe_phase, smi)
     prefix_runs = phase("prefix", prefix_phase, smi)
+    fleet_runs = phase("fleet", fleet_phase, smi)
     phase("logits", logits_phase)
     train_runs = phase("train", train_phase, smi)
     phase("checkpoint", checkpoint_phase, smi)
@@ -5694,6 +6100,11 @@ def _phases(aot) -> int:
         # host tier off and on, int8, multi-turn, radix drafts).
         line["kernels"][-1]["prefix_runs_launches"] = {
             run: rec[1][name] for run, rec in prefix_runs.items()}
+        # Each fleet run's launches (disaggregated traced, untraced and
+        # int8, the one-engine twin, chaos, the rolling restart, the
+        # prefix pull).
+        line["kernels"][-1]["fleet_runs_launches"] = {
+            run: rec[1][name] for run, rec in fleet_runs.items()}
         # The weight-only int8 runs' launches (exact, bucketed with lookup
         # speculation, int8 KV).
         line["kernels"][-1]["int8_serve_launches"] = {

@@ -41,11 +41,24 @@ writes the completions and the metrics. A two-rank gang on the CPU:
         kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm \
         --config tiny --tp 2 --tp-compute parallel --device cpu & done; wait
 
+``--disagg`` serves through a two-replica fleet in one process
+(``dataplane/router.py``): ``prefill-0`` prefills every request and
+``decode-0`` decodes it, the KV pages moving between their pools;
+``--trace out.json`` writes the Chrome trace of every request's spans
+(router and engines on one tracer), flushed on every exit;
+``--fault-plan plan.json`` (with ``--fault-seed``) injects the plan's
+faults (``dataplane/faults.py``) and ``--watchdog-stale-s`` turns on the
+router's progress watchdog (``--disagg`` only):
+
+    python -m kubeflow_controller_tpu_torch.dataplane.entrypoints.serve_lm \
+        --config tiny --disagg --trace out.json --fault-plan plan.json \
+        --device cpu
+
 Runs on ``cuda``; ``--device cpu`` runs the plain PyTorch versions on
 the CPU. The command line takes every option of the JAX entry point's,
 with its default (``--attn-impl`` also takes the JAX names ``xla`` and
-``pallas``); options whose features this port does not serve yet are
-refused with "not yet ported" when they are off that default.
+``pallas``). In a tp gang, ``--disagg`` and ``--fault-plan`` are refused
+with "not yet ported".
 """
 
 from __future__ import annotations
@@ -68,15 +81,29 @@ from kubeflow_controller_tpu_torch.device import DeviceLike, resolve_device
 
 logger = logging.getLogger("tpujob.serve_lm_torch")
 
-#: serve() keywords of features not ported yet, with the value that means
-#: "off". Any other value raises NotImplementedError.
-NOT_YET_PORTED_FLAGS = {
-    "trace": "",
-    "disagg": False,
-    "fault_plan": "",
-    "watchdog_stale_s": 0.0,
-    "fault_seed": 0,
-}
+#: The fleet counters ``serve(disagg=True)`` copies from the router's
+#: summary into its own.
+FLEET_SUMMARY_KEYS = (
+    "migrations", "pages_migrated", "migration_bytes",
+    "migrated_zero_copy_tokens", "spilled_pages", "spill_bytes",
+    "rehydrate_hits", "rehydrate_tokens", "host_pages_resident",
+    "prefix_pulls", "prefix_pull_pages", "prefix_pull_bytes",
+    "faults_injected", "migrate_dedups", "watchdog_strikes",
+    "dispatch_timeouts", "migration_timeouts", "deadline_sheds")
+
+
+class _RelClock:
+    """The fault injector's clock: ``perf_counter`` rebased to the first
+    fault-site check, so a plan's windows are seconds from when serving
+    starts stepping (not since boot, and not spent on the set-up)."""
+
+    t0 = None
+
+    def __call__(self):
+        now = time.perf_counter()
+        if self.t0 is None:
+            self.t0 = now
+        return now - self.t0
 
 
 def _read_prompts(path: str, vocab: int, batch: int,
@@ -207,9 +234,13 @@ def serve(
     tp: int = 1,
     tp_compute: str = "gathered",
     mesh_devices: str = "",
+    trace: str = "",
+    disagg: bool = False,
+    fault_plan: str = "",
+    fault_seed: int = 0,
+    watchdog_stale_s: float = 0.0,
     stop=None,
     device: DeviceLike = None,
-    **not_yet_ported,
 ) -> Dict[str, float]:
     """Serve ``batch`` prompts through the engine; returns the summary
     (``tokens_per_sec``, ``ttft_p50_ms``, ``tpot_p50_ms``, the spec and
@@ -261,10 +292,24 @@ def serve(
     accepts it, on the contiguous multi-turn path; elsewhere the engine
     raises the reference's ``ValueError``, and so does ``n > 1``.
 
+    ``disagg`` serves through a fleet of two engines under one
+    :class:`~..router.FleetRouter`: ``prefill-0`` (bucketed prefill
+    with the prefix cache, ``prefill_only`` admissions) and ``decode-0``
+    (the same engine, fed by KV-page migration); they share the weight
+    tensors, each has its own pool. The summary is ``decode-0``'s stats
+    with the fleet counters of :data:`FLEET_SUMMARY_KEYS`. ``trace``
+    names a Chrome-trace JSON file: the engines (and the router) record
+    every request's spans there, flushed on every exit. ``fault_plan``
+    names a JSON :class:`~..faults.FaultPlan`, fired by one injector
+    (seeded by ``fault_seed``, on ``perf_counter`` rebased to its first
+    check) in every engine, tier and the router; its fire counts join
+    the summary. ``watchdog_stale_s > 0`` is the router's progress
+    watchdog (needs ``disagg``). In a tp gang ``disagg`` and
+    ``fault_plan`` raise "not yet ported", and rank 0 alone traces.
+
     ``stop`` (a ``threading.Event``) drains the engine within
-    ``drain_grace_s`` and still writes the partial completions.
-    Keywords of :data:`NOT_YET_PORTED_FLAGS` are accepted and refused
-    unless they hold their "off" value."""
+    ``drain_grace_s`` and still writes the partial completions (and
+    flushes the trace)."""
     import torch
 
     from kubeflow_controller_tpu_torch.dataplane import metrics as metrics_mod
@@ -272,10 +317,31 @@ def serve(
     from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
         Rejected, Request, ServingEngine,
     )
+    from kubeflow_controller_tpu_torch.dataplane.router import FleetRouter
     from kubeflow_controller_tpu_torch.models import generate as gen
+    from kubeflow_controller_tpu_torch.obs.trace import Tracer
 
-    # The reference's sampling checks come first, before the refusals of
-    # what is not ported and before any weights load.
+    # The reference's checks, in its order, before any weights load.
+    tracer = Tracer(path=trace) if trace else None
+    injector = None
+    if fault_plan:
+        from kubeflow_controller_tpu_torch.dataplane import faults
+
+        injector = faults.FaultInjector(
+            faults.load_plan(fault_plan), clock=_RelClock(),
+            seed=fault_seed, tracer=tracer)
+    if watchdog_stale_s < 0:
+        raise ValueError(
+            f"--watchdog-stale-s must be >= 0 (got {watchdog_stale_s})")
+    if watchdog_stale_s > 0 and not disagg:
+        raise ValueError(
+            "--watchdog-stale-s is the fleet router's progress watchdog "
+            "and requires --disagg (the single-engine path has no "
+            "router to strike replicas out)")
+    if fault_plan and turns > 1:
+        raise ValueError(
+            "--fault-plan targets the continuous-batching engine "
+            "(turns == 1)")
     sampling.SamplingParams(temperature=temperature, top_k=top_k,
                             top_p=top_p, n=n, seed=seed).validate()
     if n > 1 and not paged:
@@ -285,6 +351,12 @@ def serve(
     if (n > 1 or grammar) and turns > 1:
         raise ValueError(
             "--n / --grammar are single-turn engine features (turns == 1)")
+    if disagg and turns > 1:
+        raise ValueError("--disagg is a single-turn engine feature")
+    if disagg and not paged:
+        raise ValueError(
+            "--disagg migrates KV pages between engines and requires "
+            "the paged block pool (drop --no-paged)")
     if host_kv_mb < 0:
         raise ValueError(f"--host-kv-mb must be >= 0 (got {host_kv_mb})")
     if host_kv_mb > 0 and not prefix_cache:
@@ -296,13 +368,11 @@ def serve(
             "top-k/top-p serve through the engine; the contiguous "
             "multi-turn path (--turns without --prefix-cache) supports "
             "temperature only")
-    for key, value in not_yet_ported.items():
-        if key not in NOT_YET_PORTED_FLAGS:
-            raise TypeError(f"serve() got an unexpected keyword {key!r}")
-        if value != NOT_YET_PORTED_FLAGS[key]:
+    for asked, what in ((disagg, "disagg"), (fault_plan, "fault_plan")):
+        if asked and tp > 1:
             raise NotImplementedError(
-                f"serve({key}={value!r}) is not yet ported to the PyTorch "
-                f"entry point (see ROADMAP.md)")
+                f"serve({what}=...) over a tensor-parallel gang is not yet "
+                f"ported to the PyTorch entry point (see ROADMAP.md)")
     cfg = model_config(config)
     # The head split is checked before anything loads or joins a group.
     gen.check_tp_heads(cfg, tp, tp_compute)
@@ -314,6 +384,8 @@ def serve(
     ctx = ctx or ProcessContext.from_env()
     dev, mesh = _device_and_mesh(ctx, tp, mesh_devices, device)
     rank0 = mesh is None or mesh.rank == 0
+    if not rank0:
+        tracer = None                # rank 0 writes the trace
     params, restored_step = _load_params(cfg, model_dir or ctx.model_dir,
                                          seed, dev, quant)
     if not gen.weight_quant(params):
@@ -332,31 +404,80 @@ def serve(
     n_slots = min(slots, b) if slots > 0 else b
     engine = None
     mode = "bucketed" if prefix_cache else prefill_mode
-    if turns <= 1 or prefix_cache:
+
+    def make_engine(pm: str, pc: bool) -> ServingEngine:
         # A conversation of `turns` turns fits a slot.
-        engine = ServingEngine(
+        return ServingEngine(
             cfg, params, n_slots=n_slots,
             max_seq=max(1, turns) * (s + max_new_tokens),
             temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
-            max_queue=max_queue, prefill_mode=mode, prefix_cache=prefix_cache,
+            max_queue=max_queue, prefill_mode=pm, prefix_cache=pc,
             block_size=block_size, kv_hbm_budget_mb=kv_pool_mb,
             host_kv_mb=host_kv_mb, kv_quant=kv_quant,
             spec_decode=speculative, draft_k=draft_k, proposer=proposer,
             attn_impl=attn_impl, paged=paged, mesh=mesh,
-            tp_compute=tp_compute, device=dev)
+            tp_compute=tp_compute, tracer=tracer, injector=injector,
+            device=dev)
+
+    engines = {}
+    if disagg:
+        # One prefill and one decode engine, both bucketed with the
+        # prefix cache, on the weight tensors they share.
+        engines = {"prefill-0": make_engine("bucketed", True),
+                   "decode-0": make_engine("bucketed", True)}
+        engine = engines["decode-0"]
+        params = None
+    elif turns <= 1 or prefix_cache:
+        engine = make_engine(mode, prefix_cache)
         # The engine holds this rank's chunks; the whole tree goes.
         params = None
-    if turns <= 1:
-        # One params object for every request: draws are keyed by (seed,
-        # gen, position), and a mask keeps its automaton state in the slot.
-        req_params = None
-        if n > 1 or grammar:
-            req_params = sampling.SamplingParams(
-                temperature=temperature, top_k=top_k, top_p=top_p, n=n,
-                seed=seed,
-                logit_mask=(sampling.make_mask(grammar, cfg.vocab_size,
-                                               eos_id=eos_id)
-                            if grammar else None))
+    if disagg:
+        req_params = _request_params(cfg, temperature, top_k, top_p, n,
+                                     seed, grammar, eos_id)
+        router = FleetRouter(
+            clock=time.perf_counter, block_size=block_size, tracer=tracer,
+            injector=injector,
+            watchdog_stale_s=(watchdog_stale_s if watchdog_stale_s > 0
+                              else None))
+        router.add_replica("prefill-0", engines["prefill-0"], role="prefill")
+        router.add_replica("decode-0", engines["decode-0"], role="decode")
+        for i in range(b):
+            router.submit(Request(
+                rid=i, prompt=prompts[i], max_new_tokens=max_new_tokens,
+                eos_id=eos_id, deadline_s=deadline_s, params=req_params))
+        # Every request may prefill its whole prompt chunkwise.
+        chunks = -(-s // block_size)
+        max_steps = 2 * (b * n * (max_new_tokens + chunks) + 2 * b * n + 4)
+        completions = []
+        for _ in range(max_steps):
+            if stop is not None and stop.is_set():
+                logger.info("stop requested: draining fleet (grace %.1fs)",
+                            drain_grace_s)
+                for e in engines.values():
+                    completions.extend(e.drain(drain_grace_s))
+                interrupted = True
+                break
+            completions.extend(router.step())
+            if router.idle:
+                break
+        if not interrupted and not router.idle:
+            logger.error("fleet failed to drain; flushing partials")
+            for e in engines.values():
+                completions.extend(e.drain(0.0))
+        dt = time.perf_counter() - t0
+        # The decode engine's stats carry the tokens; the migration and
+        # fault counters come from the fleet (both engines and the
+        # router).
+        serving = engine.stats.summary(wall_s=dt)
+        fleet = router.fleet_summary()
+        for k in FLEET_SUMMARY_KEYS:
+            serving[k] = fleet[k]
+        completions.sort(key=lambda c: (c.rid, c.gen))
+        rows = [(c.rid, c.gen, list(map(int, c.tokens)), c.finish_reason)
+                for c in completions]
+    elif turns <= 1:
+        req_params = _request_params(cfg, temperature, top_k, top_p, n,
+                                     seed, grammar, eos_id)
         for i in range(b):
             try:
                 engine.submit(Request(
@@ -479,11 +600,35 @@ def serve(
         "interrupted": float(interrupted),
     }
     out.update(serving)
+    if tracer is not None:
+        # Idempotent: a drain already flushed through the engine; this
+        # covers the normal exit.
+        tracer.flush()
+        out["spans_recorded"] = float(tracer.spans_recorded)
+        out["spans_dropped"] = float(tracer.spans_dropped)
+    if injector is not None:
+        # The fault ledger in the same summary: fires per (site, kind).
+        out.update(injector.summary())
     ml = metrics_mod.from_context(ctx) if rank0 else None
     if ml is not None:
         ml.write(0, out)
         ml.close()
     return out
+
+
+def _request_params(cfg, temperature, top_k, top_p, n, seed, grammar,
+                    eos_id):
+    """One params object for every request (None without ``n > 1`` or a
+    grammar): draws are keyed by (seed, gen, position), and a mask keeps
+    its automaton state in the slot."""
+    from kubeflow_controller_tpu_torch.dataplane import sampling
+
+    if n <= 1 and not grammar:
+        return None
+    return sampling.SamplingParams(
+        temperature=temperature, top_k=top_k, top_p=top_p, n=n, seed=seed,
+        logit_mask=(sampling.make_mask(grammar, cfg.vocab_size, eos_id=eos_id)
+                    if grammar else None))
 
 
 def main(argv=None) -> int:
@@ -596,15 +741,30 @@ def main(argv=None) -> int:
                    help="comma-separated cards of the tp ranks (rank i "
                         "drives cuda:<i-th>); default: the card training "
                         "gives each rank")
+    p.add_argument("--disagg", action="store_true",
+                   help="prefill/decode disaggregation: serve through a "
+                        "two-replica fleet in this process (one prefill "
+                        "and one decode engine) that moves each "
+                        "request's KV pages between them")
+    p.add_argument("--trace", default="",
+                   help="write a Chrome-trace-event JSON of every "
+                        "request's spans to this path (Perfetto, "
+                        "chrome://tracing); empty = no tracing")
+    p.add_argument("--fault-plan", default="",
+                   help="JSON FaultPlan of deterministic fault injection "
+                        "(crash/hang/slow/drop_migration/tier_io_error/"
+                        "refuse_admit specs on the serving clock); "
+                        "empty = no injection")
+    p.add_argument("--fault-seed", type=int, default=0,
+                   help="seed of probabilistic fault specs (prob < 1): "
+                        "the same plan, seed and clock fire the same "
+                        "faults")
+    p.add_argument("--watchdog-stale-s", type=float, default=0.0,
+                   help="the fleet's progress watchdog (--disagg only): "
+                        "strike a replica whose quantum heartbeat stalls "
+                        "this many seconds while it holds work; 0 "
+                        "disables")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
-    for key, off in NOT_YET_PORTED_FLAGS.items():
-        if isinstance(off, bool):
-            kind = dict(action=argparse.BooleanOptionalAction if off
-                        else "store_true")
-        else:
-            kind = dict(type=type(off))
-        p.add_argument("--" + key.replace("_", "-"),
-                       dest=key, default=off, help="not yet ported", **kind)
     args = p.parse_args(argv)
     if args.tp > 1:
         from kubeflow_controller_tpu_torch.models import generate as gen
@@ -637,7 +797,23 @@ def main(argv=None) -> int:
     if args.host_kv_mb > 0 and not args.prefix_cache:
         p.error("--host-kv-mb spills radix-cache pages to host RAM and "
                 "requires --prefix-cache (0 disables the tier)")
-    refused = {k: getattr(args, k) for k in NOT_YET_PORTED_FLAGS}
+    if args.watchdog_stale_s < 0:
+        p.error(f"--watchdog-stale-s must be >= 0 "
+                f"(got {args.watchdog_stale_s})")
+    if args.watchdog_stale_s > 0 and not args.disagg:
+        p.error("--watchdog-stale-s is the fleet router's progress "
+                "watchdog and requires --disagg")
+    if args.fault_plan:
+        if args.turns > 1:
+            p.error("--fault-plan targets the continuous-batching "
+                    "engine (use --turns 1)")
+        # A typo'd kind or site fails here, with the schema's message,
+        # before anything loads.
+        from kubeflow_controller_tpu_torch.dataplane import faults
+        try:
+            faults.load_plan(args.fault_plan)
+        except (OSError, ValueError, KeyError, TypeError) as e:
+            p.error(f"--fault-plan {args.fault_plan}: {e}")
     # SIGTERM drains the engine and still writes the partial completions.
     stop = threading.Event()
     previous = signal.signal(signal.SIGTERM, lambda *_: stop.set())
@@ -661,8 +837,11 @@ def main(argv=None) -> int:
             prefix_cache=args.prefix_cache, host_kv_mb=args.host_kv_mb,
             attn_impl=args.attn_impl, quant=args.quant, paged=args.paged,
             tp=args.tp, tp_compute=args.tp_compute,
-            mesh_devices=args.mesh_devices, device=args.device, stop=stop,
-            **refused)
+            mesh_devices=args.mesh_devices, trace=args.trace,
+            disagg=args.disagg, fault_plan=args.fault_plan,
+            fault_seed=args.fault_seed,
+            watchdog_stale_s=args.watchdog_stale_s, device=args.device,
+            stop=stop)
     finally:
         signal.signal(signal.SIGTERM, previous)
     from kubeflow_controller_tpu_torch.dataplane.dist import destroy

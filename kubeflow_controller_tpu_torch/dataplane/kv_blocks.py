@@ -186,8 +186,17 @@ class HostKVTier:
     when a single page exceeds the whole budget (the caller then
     discards the page). Handles are never reused: a handle whose entry
     was dropped stops answering :meth:`has`, and the trie prunes its
-    node on the next walk through it. ``injector`` (fault injection) is
-    not yet ported: only ``None`` is accepted.
+    node on the next walk through it.
+
+    ``injector`` (fault injection, ``dataplane/faults.py``): an injected
+    ``tier_io_error`` at the ``tier.read`` site makes a read behave
+    exactly like a page lost to LRU pressure: ``has()`` answers False
+    and ``pop()`` drops the entry and returns None, so every caller
+    degrades through the discard path a dead handle already takes (the
+    trie prunes the spilled subtree and admission prefills those tokens
+    again). ``injector`` and ``target`` (the replica name specs match)
+    are plain attributes: the owning engine learns its name after it is
+    built.
 
     ``shards``: an engine over a tp mesh of that many ranks, each rank's
     tier holding its own ``1 / shards`` of every page's heads. The budget
@@ -196,14 +205,11 @@ class HostKVTier:
     every rank spills, evicts and refuses the same pages at any tp.
     """
 
-    def __init__(self, budget_bytes: int, injector=None, shards: int = 1):
+    def __init__(self, budget_bytes: int, injector=None, target: str = "",
+                 shards: int = 1):
         if budget_bytes < 0:
             raise ValueError(
                 f"budget_bytes must be >= 0 (got {budget_bytes})")
-        if injector is not None:
-            raise NotImplementedError(
-                "fault injection in the host tier (injector) is not yet "
-                "ported (see ROADMAP.md)")
         self.budget_bytes = int(budget_bytes)
         self.shards = int(shards)
         self._pages: "OrderedDict[int, tuple]" = OrderedDict()
@@ -213,10 +219,25 @@ class HostKVTier:
         #: entries dropped by LRU budget pressure (their trie nodes go
         #: stale and are pruned on the next tiered walk).
         self.evicted_pages = 0
+        self.injector = injector
+        self.target = target
+        #: injected read failures absorbed (0 outside fault runs).
+        self.io_errors = 0
 
     @property
     def resident_pages(self) -> int:
         return len(self._pages)
+
+    def _read_fault(self) -> bool:
+        inj = self.injector
+        if inj is None:
+            return False
+        spec = inj.fires("tier", "tier.read", target=self.target,
+                         kinds=("tier_io_error",))
+        if spec is None:
+            return False
+        self.io_errors += 1
+        return True
 
     @staticmethod
     def payload_nbytes(payload: tuple) -> int:
@@ -245,7 +266,9 @@ class HostKVTier:
         return h
 
     def has(self, handle: Optional[int]) -> bool:
-        return handle is not None and handle in self._pages
+        if handle is None or handle not in self._pages:
+            return False
+        return not self._read_fault()
 
     def touch(self, handle: int) -> None:
         self._pages.move_to_end(handle)
@@ -264,6 +287,10 @@ class HostKVTier:
             return None
         payload = self._pages.pop(handle)
         self.resident_bytes -= self._nbytes.pop(handle)
+        if self._read_fault():
+            # The bytes failed to read back: the entry is gone (no leak)
+            # and the caller sees a dead handle.
+            return None
         return payload
 
     def discard(self, handle: Optional[int]) -> None:
@@ -687,5 +714,8 @@ class PrefixStore:
             elif self.tier is not None:
                 self.tier.discard(n.host_handle)
         if self.tier is not None:
-            self.tier = HostKVTier(self.tier.budget_bytes)
+            self.tier = HostKVTier(self.tier.budget_bytes,
+                                   injector=self.tier.injector,
+                                   target=self.tier.target,
+                                   shards=self.tier.shards)
         self.trie = RadixCache(self.pool, self.block_size, tier=self.tier)

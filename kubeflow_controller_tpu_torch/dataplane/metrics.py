@@ -1,10 +1,9 @@
 """Serving metrics: the engine's aggregate and a JSONL sink.
 
 Counterpart of ``kubeflow_controller_tpu/dataplane/metrics.py``'s
-:class:`ServingStats` and :class:`MetricsLogger`, cut to the counters
-the port produces: the reference's summary keys but those of features
-not ported yet (migration, fault injection, spans, and the jit-cache
-counts ``prefill_compiles`` and ``admit_cache_size``).
+:class:`ServingStats` and :class:`MetricsLogger`, with the reference's
+summary keys but the jit-cache counts ``prefill_compiles`` and
+``admit_cache_size`` (the port compiles no per-shape functions).
 """
 
 from __future__ import annotations
@@ -116,6 +115,21 @@ class ServingStats:
     cow_page_copies: int = 0
     fork_shared_tokens: int = 0
     mask_tokens_filtered: int = 0
+    # Span counters, synced from the engine's tracer every step (0/0
+    # without one).
+    spans_recorded: int = 0
+    spans_dropped: int = 0
+    # Cross-engine KV migration (prefill/decode disaggregation):
+    # requests this engine prefilled and handed off, requests it adopted
+    # mid-flight, pool pages installed from a payload, the payload bytes
+    # this engine exported (counted once fleet-wide, on the export
+    # side), and prompt tokens whose pages arrived as pointers because
+    # the receiver's trie already held them.
+    migrated_in: int = 0
+    migrated_out: int = 0
+    pages_migrated: int = 0
+    migration_bytes: int = 0
+    migrated_zero_copy_tokens: int = 0
     # Host tier: pool pages spilled to host memory on eviction (and their
     # payload bytes), admissions that installed at least one spilled page
     # back instead of prefilling it again (and the tokens those pages
@@ -125,8 +139,14 @@ class ServingStats:
     rehydrate_hits: int = 0
     rehydrate_tokens: int = 0
     host_pages_resident: int = 0
-    # Quantum-progress counter: bumped once per completed step().
+    # Robustness: ``heartbeat`` is the quantum-progress counter the
+    # router's watchdog reads, bumped once per completed step() (an
+    # injected hang returns before it); ``faults_injected`` the injected
+    # faults this engine absorbed; ``migrate_dedups`` re-sent migration
+    # payloads this engine turned into no-ops (the lost-ACK guard).
     heartbeat: int = 0
+    faults_injected: int = 0
+    migrate_dedups: int = 0
 
     def record(self, completion) -> None:
         self.finished += 1
@@ -225,8 +245,18 @@ class ServingStats:
             "cow_page_copies": float(self.cow_page_copies),
             "fork_shared_tokens": float(self.fork_shared_tokens),
             "mask_tokens_filtered": float(self.mask_tokens_filtered),
+            "migrated_in": float(self.migrated_in),
+            "migrated_out": float(self.migrated_out),
+            "pages_migrated": float(self.pages_migrated),
+            "migration_bytes": float(self.migration_bytes),
+            "migrated_zero_copy_tokens": float(
+                self.migrated_zero_copy_tokens),
+            "spans_recorded": float(self.spans_recorded),
+            "spans_dropped": float(self.spans_dropped),
             "samples_dropped": float(self.samples_dropped),
             "heartbeat": float(self.heartbeat),
+            "faults_injected": float(self.faults_injected),
+            "migrate_dedups": float(self.migrate_dedups),
         }
         # The committed-tokens histogram as flat keys spec_step_tokens_1
         # .. spec_step_tokens_{K+1}: one flat record a line.

@@ -73,18 +73,38 @@ from the clock (deadlines, queue waits, the drain's grace) read rank
 ``stop`` is rank 0's: every rank books, retires and admits alike. The
 KV budget is per device, and the host tier counts whole pages' bytes.
 
+The fleet (``dataplane/router.py``) drives several engines on one card
+(they share one set of weight tensors, each with its own pool):
+
+* ``Request.prefill_only`` (bucketed prefill): the finished prefill
+  parks export-ready, its row inactive and its prompt-final logits row
+  copied; :meth:`ServingEngine.export_request` ships its pool pages (one
+  gather on the device, one copy to pinned host memory) and that row as
+  a :class:`MigrationPayload`, :meth:`ServingEngine.admit_migrated`
+  installs them on another engine, bytes verbatim, and activates the
+  slot from the row as a fork activates from its parent's; a re-sent
+  payload after a lost ACK is deduplicated by rid;
+* :meth:`ServingEngine.export_prefix` and
+  :meth:`ServingEngine.admit_prefix_to_tier` move a cached prefix chain
+  into another engine's host tier (a fleet prefix pull);
+* ``tracer`` (``obs/trace.py``) records the request lifecycle spans of
+  the JAX engine, with its names and attributes, in host time (no
+  device synchronization); ``injector`` (``dataplane/faults.py``) fires
+  the ``engine.step``, ``engine.submit`` and ``engine.admit_migrated``
+  faults, and the host tier's ``tier.read``.
+
 ``stats.summary()`` publishes the JAX engine's keys (``cancelled``, the
-pool and tp gauges and the analytic traffic model of
-:meth:`ServingEngine._traffic_model`) but those of features not ported.
-Everything else the JAX engine offers raises "not yet ported" when
-asked for: disaggregation, fault injection and the tracer;
-``paged=False`` raises the JAX engine's ``ValueError``.
+pool and tp gauges, the analytic traffic model of
+:meth:`ServingEngine._traffic_model`, the migration, fault and span
+counters) but its jit-cache counts; ``paged=False`` raises the JAX
+engine's ``ValueError``. Under tensor parallelism the fleet paths
+(``prefill_only``, migration and prefix pulls) raise "not yet ported".
 """
 
 from __future__ import annotations
 
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -236,6 +256,13 @@ class _Slot:
     gen_idx: int = 0
     mask: Optional[LogitMask] = None
     mask_state: object = None
+    # Prefill/decode disaggregation: a prefill_only request parks here
+    # once its prefill finishes: its device row stays inactive, its
+    # pages pinned, and a COPY of its prompt-final logits row (taken at
+    # the final chunk: the engine's logits buffer takes in-place writes)
+    # seeds the first decode token on the engine that receives it.
+    export_ready: bool = False
+    export_logits: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -258,6 +285,68 @@ class _ForkSource:
     logits_row: torch.Tensor          # [vocab] parent logits at prefill end
     shared: List[int]                 # the prompt's full page ids
     boundary_bid: Optional[int]       # the partial last prompt page
+
+
+@dataclass
+class MigrationPayload:
+    """The cross-engine wire format of one finished prefill: what the
+    decode engine needs to resume the request where the prefill engine
+    left it. The pages travel raw (int8 codes and fp32 scales for an
+    int8 pool, never dequantized), so the hop is bit-invisible.
+    ``page_starts[i]`` is the token offset of ``pages_*[:, i]`` in the
+    prompt, a multiple of ``block_size``; ``skip_tokens`` leading prompt
+    tokens are omitted because the receiver's trie holds them (they
+    travel as pointers). Every tensor is on the host (pinned when the
+    exporter's pool is on the card), in the JAX payload's layout."""
+
+    rid: int
+    prompt: np.ndarray                # [prompt_len] int32
+    max_new_tokens: int
+    eos_id: Optional[int]
+    params: Optional[SamplingParams]
+    submit_t: float                   # fleet clock: TTFT spans the hop
+    admit_t: float
+    deadline_t: Optional[float]
+    logits_row: torch.Tensor          # [vocab] f32, prefill-final logits
+    pages_k: torch.Tensor             # [L, m, bs, KVH, D] pool dtype
+    pages_v: torch.Tensor
+    scales_k: Optional[torch.Tensor]  # [L, m, bs, KVH] f32 (int8 KV only)
+    scales_v: Optional[torch.Tensor]
+    page_starts: List[int]            # token offset of each shipped page
+    prompt_len: int
+    skip_tokens: int                  # leading tokens omitted (zero-copy)
+    block_size: int
+    kv_quant: str
+    nbytes: int = 0                   # payload bytes (pages + scales)
+    # The router stamps the attempt number on each (re-)send; the
+    # receiver dedupes installs by rid while the rid is live, so a lost
+    # ACK can never install twice.
+    attempt: int = 0
+
+
+@dataclass
+class PrefixPayload:
+    """The fleet prefix-pull wire format: one cached prefix chain,
+    copied out of the owning engine's pool and host tier in raw pool
+    types (never requantized), so that installing it in another
+    engine's host tier and rehydrating later is a local hit's bits.
+    ``chunks[i]`` is the i-th trie edge's token key, ``pages_*[:, i]``
+    its page; host tensors."""
+
+    chunks: List[Tuple[int, ...]]     # trie edge keys, root outward
+    pages_k: torch.Tensor             # [L, m, bs, KVH, D] pool dtype
+    pages_v: torch.Tensor
+    scales_k: Optional[torch.Tensor]  # [L, m, bs, KVH] f32 (int8 only)
+    scales_v: Optional[torch.Tensor]
+    block_size: int
+    kv_quant: str
+    n_tokens: int                     # chain coverage in tokens
+    nbytes: int                       # payload bytes (pages + scales)
+
+
+def _parts_nbytes(*parts) -> int:
+    return int(sum(t.numel() * t.element_size() for t in parts
+                   if t is not None))
 
 
 class _Fetch:
@@ -348,13 +437,6 @@ class ServingEngine:
             raise ValueError(
                 "prefix_cache requires prefill_mode='bucketed' (exact-"
                 "length prefill does not land on the block grid)")
-        refused = [
-            (tracer is not None, "the lifecycle tracer"),
-            (injector is not None, "fault injection"),
-        ]
-        for asked, what in refused:
-            if asked:
-                raise not_yet_ported(what)
         if not paged:
             # The reference engine's own refusal: it serves from the block
             # pool only (its contiguous cache survives in models/generate.py
@@ -450,10 +532,25 @@ class ServingEngine:
                 "host_kv_mb > 0 requires prefix_cache=True (the host "
                 "tier spills radix-cache pages; without the trie there "
                 "is nothing to spill)")
+        # Fault injection: None leaves every instrumented path as it is.
+        # ``fault_target`` is the replica name specs match; the router
+        # stamps it (the setter mirrors it into the host tier).
+        self._injector = injector
+        self._fault_target = ""
+        # Quantum-stretch phase of an injected ``slow`` fault: one step()
+        # in ``factor`` does work while it is active.
+        self._slow_phase = 0
+        # (rid -> attempt) of the migration installs this engine made,
+        # LRU-capped: the ledger admit_migrated dedupes re-sends against.
+        self._install_log: "OrderedDict[int, int]" = OrderedDict()
         self._host_tier: Optional[kv_blocks.HostKVTier] = None
         if host_kv_mb > 0:
-            self._host_tier = kv_blocks.HostKVTier(int(host_kv_mb * (1 << 20)),
-                                                   shards=self.tp)
+            self._host_tier = kv_blocks.HostKVTier(
+                int(host_kv_mb * (1 << 20)), injector=injector,
+                shards=self.tp)
+        # The rid an eviction spill is attributed to in the trace (set
+        # around the admission that made the pressure).
+        self._spill_rid: Optional[str] = None
         self._prefix_store: Optional[kv_blocks.PrefixStore] = None
         if prefix_cache:
             self._prefix_store = kv_blocks.PrefixStore(
@@ -461,6 +558,11 @@ class ServingEngine:
                 tier=self._host_tier)
         self._clock = clock if self._host_group is None else (
             lambda: self._agreed(clock()))
+        # The tracer stamps its spans from the raw clock: on a tp gang a
+        # trace read must not be a collective (rank 0's raw clock is the
+        # agreed one).
+        self._tracer = tracer
+        self._tclock = clock
         self._metrics = MetricsLogger(metrics_path) if metrics_path else None
         # Speculative decoding. Cooldown (steps before a lane may propose
         # again) and backoff (the last cooldown, doubled on every relapse
@@ -556,6 +658,18 @@ class ServingEngine:
         host event that must act on every rank at the same step."""
         return bool(self._agreed(1.0 if flag else 0.0))
 
+    @property
+    def fault_target(self) -> str:
+        """Replica name fault specs match this engine under (set by the
+        router at ``add_replica``; "" standalone)."""
+        return self._fault_target
+
+    @fault_target.setter
+    def fault_target(self, name: str) -> None:
+        self._fault_target = str(name)
+        if self._host_tier is not None:
+            self._host_tier.target = self._fault_target
+
     def reset(self) -> None:
         """Drop every queued and in-flight request and zero the pool and
         the stats, keeping the configuration. The prefix store is
@@ -564,8 +678,13 @@ class ServingEngine:
         adaptation to the traffic)."""
         self.pool = kv_blocks.BlockPool(self._kv_pool_blocks)
         if self._host_tier is not None:
-            self._host_tier = kv_blocks.HostKVTier(self._host_tier.budget_bytes,
-                                                   shards=self.tp)
+            self._host_tier = kv_blocks.HostKVTier(
+                self._host_tier.budget_bytes,
+                injector=self._host_tier.injector,
+                target=self._host_tier.target, shards=self.tp)
+        self._spill_rid = None
+        self._slow_phase = 0
+        self._install_log.clear()
         if self._prefix_store is not None:
             self._prefix_store.pool = self.pool
             self._prefix_store.tier = self._host_tier
@@ -630,9 +749,10 @@ class ServingEngine:
     # -- request intake ----------------------------------------------------
 
     def submit(self, req: Request) -> None:
-        """Queue a request. Raises ``ValueError`` on malformed input,
-        :class:`Rejected` on admission control, and
-        ``NotImplementedError`` for what this port does not serve yet."""
+        """Queue a request. Raises ``ValueError`` on malformed input and
+        :class:`Rejected` on admission control (or an injected
+        ``refuse_admit``); ``prefill_only`` under tensor parallelism
+        raises ``NotImplementedError``."""
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError(f"request {req.rid}: empty prompt")
@@ -646,13 +766,23 @@ class ServingEngine:
                     raise ValueError(
                         f"request {req.rid}: logit_mask vocab "
                         f"{mv} != model vocab {self.cfg.vocab_size}")
-        if req.prefill_only:
-            raise not_yet_ported("prefill/decode disaggregation (prefill_only)")
         if prompt.size + req.max_new_tokens > self.max_seq:
             raise ValueError(
                 f"request {req.rid}: prompt {prompt.size} + "
                 f"{req.max_new_tokens} new exceeds max_seq {self.max_seq}")
-        needed = self._blocks_needed(prompt.size, req.max_new_tokens)
+        if req.prefill_only and self.prefill_mode != "bucketed":
+            # Only the chunked path leaves the device row inactive with
+            # the final logits in hand.
+            raise ValueError(
+                f"request {req.rid}: prefill_only requires "
+                "prefill_mode='bucketed'")
+        if req.prefill_only and self._mesh is not None:
+            raise not_yet_ported(
+                "prefill/decode disaggregation under tensor parallelism")
+        # A prefill-only request never decodes here: admission reserves
+        # only the prompt's span (the receiver reserves the budget).
+        needed = self._blocks_needed(
+            prompt.size, 0 if req.prefill_only else req.max_new_tokens)
         if needed > self._kv_pool_blocks:
             raise ValueError(
                 f"request {req.rid}: needs {needed} pool pages, pool "
@@ -661,6 +791,15 @@ class ServingEngine:
         if req.rid in self._rids:
             raise ValueError(f"request {req.rid}: duplicate rid "
                              "among queued/in-flight requests")
+        if self._injector is not None:
+            # An admission-control flake: a typed Rejected, after the
+            # ValueError checks (a fault never masks a caller bug).
+            if self._injector.fires(
+                    "engine", "engine.submit", target=self._fault_target,
+                    rid=req.rid, kinds=("refuse_admit",)) is not None:
+                self.stats.faults_injected += 1
+                self.stats.rejected += 1
+                raise Rejected(req.rid, "fault_injected")
         if self._draining:
             self.stats.rejected += 1
             raise Rejected(req.rid, "draining")
@@ -677,6 +816,11 @@ class ServingEngine:
         self.stats.submitted += 1
         self.stats.queue_depth_max = max(self.stats.queue_depth_max,
                                          len(self.queue))
+        if self._tracer is not None:
+            self._tracer.add_event(
+                "submit", now, rid=str(req.rid),
+                prompt_tokens=int(prompt.size),
+                max_new=int(req.max_new_tokens))
 
     def cancel(self, rid: int) -> bool:
         """Cancel a request by rid. A queued request is removed outright
@@ -709,10 +853,21 @@ class ServingEngine:
                 found = True
         return found
 
+    def _record_completion(self, comp: Completion) -> None:
+        """The one funnel every recorded Completion passes through, so
+        the stats and the trace agree: one ``retire`` event a recorded
+        completion, with its finish reason."""
+        self.stats.record(comp)
+        if self._tracer is not None:
+            self._tracer.add_event(
+                "retire", comp.done_t, rid=str(comp.rid),
+                finish_reason=comp.finish_reason,
+                n_tokens=len(comp.tokens))
+
     def _finish_completion(self, comp: Completion) -> None:
         """Record a completion made outside a step's booking (a shed) and
         buffer it for the next step()'s return."""
-        self.stats.record(comp)
+        self._record_completion(comp)
         self._done_buf.append(comp)
 
     # -- block-table plumbing ----------------------------------------------
@@ -722,8 +877,11 @@ class ServingEngine:
         while clean."""
         if not self._tables_dirty:
             return
+        t0 = self._tclock() if self._tracer is not None else 0.0
         self.cache.tables = _to_device(self._tables, self.device)
         self._tables_dirty = False
+        if self._tracer is not None:
+            self._tracer.add_span("push_tables", t0, self._tclock())
 
     def _view_width(self) -> int:
         """Columns the next dispatch attends: the max page span any live
@@ -790,6 +948,7 @@ class ServingEngine:
         requantized). Returns each node's keep decision; False (the tier
         refused a page over its budget) discards."""
         tier = self._host_tier
+        t0 = self._tclock() if self._tracer is not None else 0.0
         keep: List[bool] = []
         pages = 0
         nbytes = 0
@@ -808,9 +967,15 @@ class ServingEngine:
         reg = registry()
         reg.counter("kv_spilled_pages", "dataplane").inc(pages)
         reg.counter("kv_spill_bytes", "dataplane").inc(nbytes)
+        if self._tracer is not None and pages:
+            span = {"pages": pages, "bytes": nbytes}
+            if self._spill_rid is not None:
+                span["rid"] = self._spill_rid
+            self._tracer.add_span("kv_spill", t0, self._tclock(), **span)
         return keep
 
-    def _rehydrate_nodes(self, nodes: List[kv_blocks.RadixNode]) -> int:
+    def _rehydrate_nodes(self, nodes: List[kv_blocks.RadixNode],
+                         rid=None) -> int:
         """Install spilled nodes' host pages back into the pool: the
         ``match_for_admission`` rehydrate callback. The payloads leave
         the tier FIRST (our own allocations below may spill, and must not
@@ -828,6 +993,7 @@ class ServingEngine:
         if tier is None or not nodes:
             return 0
         trie = self._prefix_store.trie
+        t0 = self._tclock() if self._tracer is not None else 0.0
         payloads: List[tuple] = []
         usable: List[kv_blocks.RadixNode] = []
         for node in nodes:
@@ -876,6 +1042,10 @@ class ServingEngine:
         reg = registry()
         reg.counter("kv_rehydrate_hits", "dataplane").inc()
         reg.counter("kv_rehydrate_tokens", "dataplane").inc(tokens)
+        if self._tracer is not None:
+            self._tracer.add_span(
+                "kv_rehydrate", t0, self._tclock(),
+                rid=str(rid), pages=len(bids), tokens=tokens)
         return len(usable)
 
     def _release_pins(self, slot: _Slot) -> None:
@@ -948,8 +1118,9 @@ class ServingEngine:
     def _masked_decoding(self) -> bool:
         """True while a DECODING slot carries a grammar mask: such quanta
         run one synchronous micro-step, so the automaton advances a token
-        at a time (mid-prefill masked slots do not count yet)."""
+        at a time (mid-prefill and export-parked slots do not count)."""
         return any(s is not None and s.prefill is None
+                   and not s.export_ready
                    and s.mask is not None for s in self.slots)
 
     def _clear_table_row(self, i: int) -> None:
@@ -979,7 +1150,7 @@ class ServingEngine:
         self.slots[i] = None
         self._rid_done(slot.req.rid)
         self.cache.active[i] = False
-        self.stats.record(comp)
+        self._record_completion(comp)
         return comp
 
     def _retire_due(self) -> List[Completion]:
@@ -1194,19 +1365,27 @@ class ServingEngine:
             path: List[kv_blocks.RadixNode] = []
             matched = 0
             if self._prefix_store is not None:
-                rehydrate = (self._rehydrate_nodes
-                             if self._host_tier is not None else None)
+                rehydrate = None
+                if self._host_tier is not None:
+                    rid_ = req.rid
+                    rehydrate = (
+                        lambda nodes: self._rehydrate_nodes(nodes, rid_))
+                self._spill_rid = str(req.rid)
                 rt0 = self.stats.rehydrate_tokens
                 path, matched = self._prefix_store.match_for_admission(
                     req.prompt, rehydrate=rehydrate)
+                self._spill_rid = None
                 self.stats.prefix_lookup_tokens += req.prompt.size
                 self.stats.prefix_hit_tokens += matched
                 # Rehydrated pages moved host -> device bytes: only the
                 # resident share of the hit is zero-copy.
                 self.stats.prefix_zero_copy_tokens += matched - (
                     self.stats.rehydrate_tokens - rt0)
-            needed = self._blocks_needed(req.prompt.size, req.max_new_tokens)
+            needed = self._blocks_needed(
+                req.prompt.size, 0 if req.prefill_only else req.max_new_tokens)
+            self._spill_rid = str(req.rid)
             owned = self._reserve_blocks(needed - len(path))
+            self._spill_rid = None
             if owned is None:
                 if path:
                     self._prefix_store.release(path)
@@ -1225,6 +1404,7 @@ class ServingEngine:
                 # and decodes in the next dispatch.
                 self._push_tables()
                 self._note_moe_dispatch(req.prompt.size)
+                t_p0 = self._tclock() if self._tracer is not None else 0.0
                 row_logits, self.cache = gen.prefill_into_paged(
                     self.cfg, self.params,
                     _to_device(req.prompt[None], self.device), self.cache,
@@ -1233,6 +1413,13 @@ class ServingEngine:
                 self.eos[slot] = eos_val
                 self.budget[slot] = req.max_new_tokens
                 self.emitted[slot] = 0
+                if self._tracer is not None:
+                    # One final chunk, so that the span names are those
+                    # of both prefill modes.
+                    self._tracer.add_span(
+                        "prefill_chunk", t_p0, self._tclock(),
+                        rid=str(req.rid), offset=0,
+                        width=int(req.prompt.size), final=True)
             else:
                 # Prefill starts at the matched offset: the matched pages
                 # are already in the slot's table.
@@ -1254,6 +1441,12 @@ class ServingEngine:
                 self.stats.sampled_requests += 1
             self.stats.admitted += 1
             self.stats.record_queue_wait(now - q.submit_t)
+            if self._tracer is not None:
+                r = str(req.rid)
+                self._tracer.add_span("queue_wait", q.submit_t, now, rid=r)
+                self._tracer.add_event(
+                    "admit", now, rid=r, slot=slot,
+                    prefix_hit=int(matched), pages_reserved=int(needed))
         # Exact admissions may have captured fork sources; place their
         # children in the slots still free.
         self._spawn_forks()
@@ -1278,9 +1471,20 @@ class ServingEngine:
             final = off + w_real >= p.tokens.size
             buf = np.zeros((1, w), np.int32)
             buf[0, :w_real] = p.tokens[off:off + w_real]
-            self._push_tables()
             self._note_moe_dispatch(w_real)
-            self._chunk(i, buf, off, w_real, p, final)
+            self._push_tables()
+            t0 = self._tclock() if self._tracer is not None else 0.0
+            # A prefill_only slot never activates: its row stays out of
+            # decode dispatches while it parks export-ready.
+            self._chunk(i, buf, off, w_real, p,
+                        final and not slot.req.prefill_only)
+            if self._tracer is not None:
+                # Host time of scheduling the chunk (the launch is
+                # asynchronous).
+                self._tracer.add_span(
+                    "prefill_chunk", t0, self._tclock(),
+                    rid=str(slot.req.rid), offset=int(off), width=int(w),
+                    final=bool(final))
             self.stats.prefill_chunks += 1
             p.next_off = off + w_real
             if final:
@@ -1302,7 +1506,15 @@ class ServingEngine:
                     self._prefix_store.trie.acquire(ext)
                     slot.path = slot.path + ext
                 slot.prefill = None
-                if slot.sp.n > 1:
+                if slot.req.prefill_only:
+                    # Park export-ready with a copy of the prompt-final
+                    # logits row: the engine's logits buffer takes
+                    # in-place writes, and a view could ship a later
+                    # step's row. Forks (n > 1) happen on the decode
+                    # side, after migration.
+                    slot.export_logits = self.logits[i].clone()
+                    slot.export_ready = True
+                elif slot.sp.n > 1:
                     # The prompt is in the pages and the row holds the
                     # prompt-final logits: the parent is fork-ready.
                     self._capture_fork_source(i, slot)
@@ -1387,6 +1599,11 @@ class ServingEngine:
         self.stats.fork_shared_tokens += fp * bs
         if not src.sp.is_greedy:
             self.stats.sampled_requests += 1
+        if self._tracer is not None:
+            self._tracer.add_event(
+                "fork", self._tclock(), rid=str(src.req.rid), gen=g,
+                slot=slot_idx, shared_pages=fp,
+                cow_pages=int(src.boundary_bid is not None))
         return True
 
     def _spawn_forks(self) -> None:
@@ -1431,6 +1648,389 @@ class ServingEngine:
             self._rid_done(src.req.rid)
         src.gens_left = []
 
+    # -- cross-engine migration (prefill/decode disaggregation) ---------------
+
+    def _fleet_path(self, what: str) -> None:
+        if self._mesh is not None:
+            raise not_yet_ported(f"{what} under tensor parallelism")
+
+    def _host_copy(self, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """A host tensor of its own (pinned on a card engine, so that a
+        later install copies it without stopping the host)."""
+        if t is None:
+            return None
+        if self.device.type == "cuda":
+            out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            out.copy_(t)
+            return out
+        return t.clone()
+
+    def export_ready_rids(self) -> List[int]:
+        """Rids parked export-ready (finished prefill_only requests)
+        awaiting migration, read fresh from the slots. Cancelled or
+        deadlined slots are left out: the next step's retirement
+        surfaces their outcome."""
+        now = self._clock()
+        return [s.req.rid for s in self.slots
+                if s is not None and s.export_ready and not s.cancelled
+                and (s.deadline_t is None or now < s.deadline_t)]
+
+    def _find_export(self, rid: int) -> Tuple[int, _Slot]:
+        for i, s in enumerate(self.slots):
+            if s is not None and s.req.rid == rid and s.export_ready:
+                return i, s
+        raise KeyError(f"rid {rid} is not export-ready on this engine")
+
+    def migration_probe(self, prompt) -> Tuple[List, int]:
+        """Receiver-side half of the zero-copy rule: match ``prompt``
+        against this engine's trie and pin the matched chain. Returns
+        ``(path, matched_tokens)``; the exporter then ships only the
+        pages at offsets >= matched_tokens. The caller balances the pin
+        with :meth:`admit_migrated` (which adopts it) or
+        :meth:`release_probe` (an abandoned handoff)."""
+        if self._prefix_store is None:
+            return [], 0
+        path = self._prefix_store.trie.match(np.asarray(prompt, np.int32))
+        self._prefix_store.trie.acquire(path)
+        return path, len(path) * self.block_size
+
+    def release_probe(self, path) -> None:
+        """Drop a :meth:`migration_probe` pin whose handoff was
+        abandoned."""
+        if self._prefix_store is not None and path:
+            self._prefix_store.release(list(path))
+
+    def export_request(self, rid: int,
+                       skip_tokens: int = 0) -> MigrationPayload:
+        """An export-ready request's state for migration: its pool pages
+        but the first ``skip_tokens`` worth (the receiver's trie holds
+        them, per :meth:`migration_probe`), gathered in one device
+        ``index_select`` and copied to pinned host memory in one copy a
+        part, plus the copied prefill-final logits row. The copies are
+        enqueued, not waited for: the install on the receiver is ordered
+        after them on the stream. Frees nothing: the slot stays parked
+        until :meth:`finish_export`, so a failed install can export
+        again. ``migration_bytes`` counts each shipped payload here."""
+        self._fleet_path("migration")
+        i, slot = self._find_export(rid)
+        bs = self.block_size
+        n_prompt = int(slot.req.prompt.size)
+        if skip_tokens % bs or not (0 <= skip_tokens <= n_prompt):
+            raise ValueError(
+                f"rid {rid}: skip_tokens {skip_tokens} not a block "
+                f"multiple within the prompt ({n_prompt} tokens)")
+        t0 = self._tclock()
+        nb = -(-n_prompt // bs)
+        ship = list(range(skip_tokens // bs, nb))
+        ids = [int(self._tables[i, b]) for b in ship]
+        pk, pv, sk, sv = gen.export_pool_pages(self.cache, ids, wait=False)
+        logits_row = slot.export_logits
+        if logits_row.device.type == "cuda":
+            host = torch.empty(logits_row.shape, dtype=logits_row.dtype,
+                               pin_memory=True)
+            host.copy_(logits_row, non_blocking=True)
+            logits_row = host
+        else:
+            logits_row = logits_row.clone()
+        nbytes = _parts_nbytes(pk, pv, sk, sv)
+        self.stats.migration_bytes += nbytes
+        now = self._tclock()
+        if self._tracer is not None:
+            self._tracer.add_span(
+                "migrate_export", t0, now, rid=str(rid),
+                pages=len(ids), bytes=nbytes, skip_tokens=int(skip_tokens))
+        return MigrationPayload(
+            rid=rid, prompt=slot.req.prompt,
+            max_new_tokens=slot.req.max_new_tokens,
+            eos_id=slot.req.eos_id,
+            # The resolved sampling contract (the request's params or
+            # this engine's defaults): the receiver decodes the stream a
+            # single engine would have.
+            params=slot.sp,
+            submit_t=slot.submit_t, admit_t=slot.admit_t,
+            deadline_t=slot.deadline_t, logits_row=logits_row,
+            pages_k=pk, pages_v=pv, scales_k=sk, scales_v=sv,
+            page_starts=[b * bs for b in ship], prompt_len=n_prompt,
+            skip_tokens=int(skip_tokens), block_size=bs,
+            kv_quant=self.kv_quant, nbytes=nbytes)
+
+    def finish_export(self, rid: int) -> None:
+        """Release an exported request's local tenancy once the receiver
+        admitted it: pins, pages, table row, slot; no Completion (the
+        request moved, and the receiver produces its outcome). The
+        books close with ``submitted == finished + rejected +
+        migrated_out``."""
+        i, slot = self._find_export(rid)
+        self._release_pins(slot)
+        self._free_owned(slot)
+        self._free_shared(slot)
+        self._clear_table_row(i)
+        self.slots[i] = None
+        self._rids.discard(rid)
+        self._rid_gens.pop(rid, None)
+        self.stats.migrated_out += 1
+        if self._tracer is not None:
+            self._tracer.add_event("migrate_out", self._tclock(),
+                                   rid=str(rid))
+
+    def admit_migrated(self, payload: MigrationPayload, path=()) -> None:
+        """Receiver-side install of a migrated prefill: reserve the
+        request's whole prompt + budget span (the chain
+        :meth:`migration_probe` pinned, plus fresh pages), install the
+        shipped page bytes, and activate the slot from the payload's
+        fp32 logits row (no cast), as a fork activates from its
+        parent's. On any failure the probe pin is released here. Raises
+        :class:`Rejected` when this engine cannot take the request now
+        (no slot, no pages, draining, an injected refusal) and
+        ``ValueError`` on a wire-format mismatch.
+
+        Idempotent by rid while the request is live here: a re-send
+        after a lost ACK is a success no-op (``migrate_dedups``). A
+        ledger entry whose rid is no longer live is stale, and a fresh
+        migration of that rid installs normally."""
+        try:
+            if payload.rid in self._install_log:
+                if payload.rid in self._rids:
+                    self.stats.migrate_dedups += 1
+                    self.release_probe(path)
+                    if self._tracer is not None:
+                        self._tracer.add_event(
+                            "migrate_dedup", self._tclock(),
+                            rid=str(payload.rid),
+                            attempt=int(payload.attempt))
+                    return
+                self._install_log.pop(payload.rid, None)
+            if self._injector is not None:
+                if self._injector.fires(
+                        "engine", "engine.admit_migrated",
+                        target=self._fault_target, rid=payload.rid,
+                        kinds=("refuse_admit",)) is not None:
+                    self.stats.faults_injected += 1
+                    self.stats.rejected += 1
+                    raise Rejected(payload.rid, "fault_injected")
+            self._fleet_path("migration")
+            bs = self.block_size
+            if payload.block_size != bs:
+                raise ValueError(
+                    f"rid {payload.rid}: block_size "
+                    f"{payload.block_size} != engine {bs}")
+            if payload.kv_quant != self.kv_quant:
+                raise ValueError(
+                    f"rid {payload.rid}: kv_quant "
+                    f"{payload.kv_quant!r} != engine {self.kv_quant!r}")
+            if payload.logits_row.numel() != self.cfg.vocab_size:
+                raise ValueError(
+                    f"rid {payload.rid}: logits vocab "
+                    f"{payload.logits_row.numel()} != model "
+                    f"{self.cfg.vocab_size}")
+            if payload.skip_tokens != len(path) * bs:
+                raise ValueError(
+                    f"rid {payload.rid}: payload skips "
+                    f"{payload.skip_tokens} tokens but the probe path "
+                    f"covers {len(path) * bs}")
+            if payload.prompt_len + payload.max_new_tokens > self.max_seq:
+                raise ValueError(
+                    f"rid {payload.rid}: prompt {payload.prompt_len} + "
+                    f"{payload.max_new_tokens} new exceeds max_seq "
+                    f"{self.max_seq}")
+            if payload.rid in self._rids:
+                raise ValueError(f"rid {payload.rid}: duplicate rid "
+                                 "among queued/in-flight requests")
+            if self._draining:
+                raise Rejected(payload.rid, "draining")
+            try:
+                slot_idx = self.slots.index(None)
+            except ValueError:
+                raise Rejected(payload.rid, "no_slot") from None
+            needed = self._blocks_needed(payload.prompt_len,
+                                         payload.max_new_tokens)
+            if needed > self._kv_pool_blocks:
+                raise Rejected(payload.rid, "pool_too_small")
+            self._spill_rid = str(payload.rid)
+            owned = self._reserve_blocks(needed - len(path))
+            self._spill_rid = None
+            if owned is None:
+                raise Rejected(payload.rid, "no_pages")
+        except BaseException:
+            self.release_probe(path)
+            raise
+        t0 = self._tclock()
+        row = self._tables[slot_idx]
+        row[:] = self._kv_pool_blocks
+        row[:len(path)] = [n.block for n in path]
+        row[len(path):needed] = owned
+        self._slot_blocks[slot_idx] = needed
+        self._tables_dirty = True
+        # The shipped bytes land in the fresh pages covering
+        # [skip_tokens, prompt_len), verbatim; pages before skip_tokens
+        # came as pointers.
+        dst_ids, sel = [], []
+        for j, start in enumerate(payload.page_starts):
+            if start >= payload.skip_tokens:
+                dst_ids.append(int(row[start // bs]))
+                sel.append(j)
+        if dst_ids:
+            parts = (payload.pages_k, payload.pages_v, payload.scales_k,
+                     payload.scales_v)
+            if len(sel) != len(payload.page_starts):
+                parts = tuple(None if t is None else t[:, sel]
+                              for t in parts)
+            gen.install_pool_pages(self.cache, *parts, dst_ids)
+        self.logits[slot_idx].copy_(payload.logits_row, non_blocking=True)
+        self.eos[slot_idx] = -1 if payload.eos_id is None else payload.eos_id
+        self.budget[slot_idx] = payload.max_new_tokens
+        self.emitted[slot_idx] = 0
+        self.cache.length[slot_idx] = payload.prompt_len
+        self.cache.active[slot_idx] = True
+        sp = (payload.params if payload.params is not None
+              else self._default_params)
+        req = Request(rid=payload.rid, prompt=payload.prompt,
+                      max_new_tokens=payload.max_new_tokens,
+                      eos_id=payload.eos_id, params=payload.params)
+        slot = _Slot(
+            req=req, submit_t=payload.submit_t, admit_t=payload.admit_t,
+            deadline_t=payload.deadline_t, path=list(path),
+            spec_k=self.draft_k, owned=owned, sp=sp, mask=sp.logit_mask,
+            mask_state=(sp.logit_mask.init_state()
+                        if sp.logit_mask is not None else None))
+        self.slots[slot_idx] = slot
+        self._set_slot_sampling(slot_idx, sp, 0)
+        self._rids.add(payload.rid)
+        if self._prefix_store is not None:
+            # Publish the migrated prompt's full blocks to this trie, so
+            # the next shared-prefix migration ships pointers.
+            owned_map = {
+                o: int(row[o // bs])
+                for o in range(len(path) * bs,
+                               (payload.prompt_len // bs) * bs, bs)}
+            full, adopted = self._prefix_store.trie.insert_owned(
+                payload.prompt, owned_map, known_path=list(path))
+            for o in adopted:
+                slot.owned.remove(owned_map[o])
+            ext = full[len(path):]
+            self._prefix_store.trie.acquire(ext)
+            slot.path = list(path) + ext
+        if sp.n > 1:
+            # Forks materialize here, on the decode side.
+            self._rid_gens[payload.rid] = sp.n
+            self._capture_fork_source(slot_idx, slot)
+        if not sp.is_greedy:
+            self.stats.sampled_requests += 1
+        self.stats.submitted += 1
+        self.stats.admitted += 1
+        self.stats.migrated_in += 1
+        self.stats.pages_migrated += len(dst_ids)
+        self.stats.migrated_zero_copy_tokens += payload.skip_tokens
+        self._install_log[payload.rid] = int(payload.attempt)
+        self._install_log.move_to_end(payload.rid)
+        while len(self._install_log) > 4096:
+            self._install_log.popitem(last=False)
+        now = self._tclock()
+        if self._tracer is not None:
+            self._tracer.add_span(
+                "migrate_install", t0, now, rid=str(payload.rid),
+                slot=slot_idx, pages=len(dst_ids),
+                zero_copy_tokens=int(payload.skip_tokens))
+
+    # -- fleet prefix pulls (tiered KV) ------------------------------------------
+
+    def _tiered_match(self, prompt) -> List[kv_blocks.RadixNode]:
+        toks = np.asarray(prompt, np.int32).reshape(-1)
+        trie = self._prefix_store.trie
+        return (trie.match_tiered(toks) if self._host_tier is not None
+                else trie.match(toks))
+
+    def probe_prefix_len(self, prompt) -> int:
+        """Tokens of ``prompt`` this engine holds in either tier (the
+        device trie and the host spill): what the router weighs a pull
+        against."""
+        if self._prefix_store is None:
+            return 0
+        return len(self._tiered_match(prompt)) * self.block_size
+
+    def export_prefix(self, prompt) -> Optional[PrefixPayload]:
+        """Exporter-side half of a fleet prefix pull: the longest cached
+        chain matching ``prompt``, resident pages through one
+        :func:`generate.export_pool_pages` (waited for: the receiver
+        reads the bytes on the host), spilled pages out of the host
+        tier, in raw pool types. Nothing is pinned or freed: the
+        payload is a snapshot copy."""
+        if self._prefix_store is None:
+            return None
+        self._fleet_path("a fleet prefix pull")
+        path = self._tiered_match(prompt)
+        if not path:
+            return None
+        resident = [n for n in path if n.block >= 0]
+        res = {}
+        if resident:
+            parts = gen.export_pool_pages(self.cache,
+                                          [n.block for n in resident])
+            res = {id(n): j for j, n in enumerate(resident)}
+        pages = []
+        for n in path:
+            if n.block >= 0:
+                j = res[id(n)]
+                pages.append(tuple(None if t is None else t[:, j:j + 1]
+                                   for t in parts))
+            else:
+                pages.append(self._host_tier.get(n.host_handle))
+
+        def joined(part: int) -> Optional[torch.Tensor]:
+            if pages[0][part] is None:
+                return None
+            return torch.cat([p[part] for p in pages], 1)
+
+        pk, pv, sk, sv = (joined(k) for k in range(4))
+        return PrefixPayload(
+            chunks=[n.key for n in path], pages_k=pk, pages_v=pv,
+            scales_k=sk, scales_v=sv, block_size=self.block_size,
+            kv_quant=self.kv_quant, n_tokens=len(path) * self.block_size,
+            nbytes=_parts_nbytes(pk, pv, sk, sv))
+
+    def admit_prefix_to_tier(self, payload: PrefixPayload) -> int:
+        """Receiver-side half of a fleet prefix pull: land the pulled
+        pages in this engine's HOST tier as spilled trie nodes (no
+        device work now; the next admission that hits the chain
+        rehydrates it). Chunks this trie already holds are skipped.
+        Returns the pages admitted."""
+        if self._prefix_store is None or self._host_tier is None:
+            return 0
+        if payload.block_size != self.block_size:
+            raise ValueError(
+                f"prefix pull: block_size {payload.block_size} != "
+                f"engine {self.block_size}")
+        if payload.kv_quant != self.kv_quant:
+            raise ValueError(
+                f"prefix pull: kv_quant {payload.kv_quant!r} != "
+                f"engine {self.kv_quant!r}")
+        tier = self._host_tier
+        trie = self._prefix_store.trie
+        node = trie.root
+        admitted = 0
+        for j, key in enumerate(payload.chunks):
+            child = node.children.get(key)
+            if child is not None and (
+                    child.block >= 0 or tier.has(child.host_handle)):
+                node = child      # already held here: a pointer, no copy
+                continue
+            page = tuple(
+                None if t is None else self._host_copy(t[:, j:j + 1])
+                for t in (payload.pages_k, payload.pages_v,
+                          payload.scales_k, payload.scales_v))
+            h = tier.put(page)
+            if h is None:
+                break             # the tier is too small for one page
+            if child is None:
+                child = kv_blocks.RadixNode(
+                    key=key, block=-1, parent=node, host_handle=h)
+                node.children[key] = child
+            else:
+                child.host_handle = h    # revive a dead spilled handle
+            admitted += 1
+            node = child
+        return admitted
+
     @property
     def n_active(self) -> int:
         return sum(s is not None for s in self.slots)
@@ -1440,6 +2040,26 @@ class ServingEngine:
         return (not self.queue and self.n_active == 0
                 and self._pending is None and not self._done_buf
                 and not self._fork_sources)
+
+    def _fault_step_skip(self) -> bool:
+        """Injected hang or slow: True when this quantum makes no
+        progress. The early return in :meth:`step` comes before
+        ``_sync_stats``, so ``stats.heartbeat`` freezes: the signal the
+        router's progress watchdog strikes on. ``hang`` skips every
+        quantum of its window; ``slow`` lets one quantum in ``factor``
+        through."""
+        if self._injector is None:
+            return False
+        spec = self._injector.fires(
+            "engine", "engine.step", target=self._fault_target,
+            kinds=("hang", "slow"))
+        if spec is None:
+            return False
+        self.stats.faults_injected += 1
+        if spec.kind == "hang":
+            return True
+        self._slow_phase += 1
+        return self._slow_phase % max(1, int(spec.factor)) != 0
 
     def step(self) -> List[Completion]:
         """One scheduling quantum, pipelined one dispatch deep:
@@ -1454,28 +2074,38 @@ class ServingEngine:
         Returns the requests that finished this quantum. While a
         decoding slot carries a grammar mask, :meth:`_step_constrained`
         runs instead; otherwise ``spec_decode=True`` engines run
-        :meth:`_step_spec`."""
+        :meth:`_step_spec`. An injected hang or slow quantum returns
+        nothing and does nothing."""
+        if self._fault_step_skip():
+            return []
         if self._masked_decoding():
             return self._step_constrained()
         if self.spec_decode:
             return self._step_spec()
+        tr = self._tracer
+        t_q0 = self._tclock() if tr is not None else 0.0
         finished: List[Completion] = list(self._done_buf)
         self._done_buf.clear()
         finished.extend(self._retire_due())
         snapshot = self._decoding_snapshot()
-        dispatched = self._dispatch_plain(snapshot)
+        n_decoding = sum(s is not None for s in snapshot)
+        dispatched = self._dispatch_plain(snapshot, span=True)
         finished.extend(self._process_pending())
         self._pending = dispatched
         self._admit_waiting()
         self._advance_prefills()
+        if tr is not None:
+            tr.add_span("decode_quantum", t_q0, self._tclock(),
+                        slots=n_decoding, finished=len(finished))
         self._sync_stats()
         return finished
 
     def _decoding_snapshot(self) -> List[Optional[_Slot]]:
-        """The slots past prefill. A mid-prefill slot's device row is
-        inactive, and snapshotting it as None keeps its chunk garbage out
-        of the books."""
-        return [s if (s is not None and s.prefill is None) else None
+        """The slots past prefill. A mid-prefill or export-parked slot's
+        device row is inactive, and snapshotting it as None keeps its
+        chunk garbage out of the books."""
+        return [s if (s is not None and s.prefill is None
+                      and not s.export_ready) else None
                 for s in self.slots]
 
     def _note_moe_dispatch(self, n_tokens: int) -> None:
@@ -1486,17 +2116,26 @@ class ServingEngine:
             self.stats.moe_tokens_dispatched += (
                 int(n_tokens) * self.cfg.moe_top_k)
 
-    def _dispatch_plain(self, snapshot):
+    def _dispatch_plain(self, snapshot, span: bool = False):
         """Dispatch the pipelined plain chunk when any slot decodes — the
         sampled twin when a decoding row samples, else the greedy chunk:
-        the ``(token fetch, snapshot)`` to book next quantum, or None."""
-        if not any(s is not None for s in snapshot):
+        the ``(token fetch, snapshot)`` to book next quantum, or None.
+        ``span`` records the ``dispatch`` span where the JAX engine
+        does."""
+        n_decoding = sum(s is not None for s in snapshot)
+        if not n_decoding:
             return None
         self._push_tables()
+        tr = self._tracer if span else None
+        t_d0 = self._tclock() if tr is not None else 0.0
         self._note_moe_dispatch(self.n_active * self.decode_chunk)
-        chunk = (self._decode_chunk_sampled if self._sampled_in(snapshot)
-                 else self._decode_chunk)
-        return _Fetch(chunk(self._view_width())), snapshot
+        sampled = self._sampled_in(snapshot)
+        chunk = self._decode_chunk_sampled if sampled else self._decode_chunk
+        out = _Fetch(chunk(self._view_width())), snapshot
+        if tr is not None:
+            tr.add_span("dispatch", t_d0, self._tclock(), slots=n_decoding,
+                        sampled=sampled)
+        return out
 
     def _step_constrained(self) -> List[Completion]:
         """One quantum while a decoding slot carries a grammar mask. The
@@ -1507,6 +2146,8 @@ class ServingEngine:
         by (seed, gen, position), their streams do not change with the
         kind of quantum. A masked slot whose grammar admits nothing (and
         that has no EOS to carry the end) retires as an EOS finish."""
+        tr = self._tracer
+        t_q0 = self._tclock() if tr is not None else 0.0
         finished: List[Completion] = list(self._done_buf)
         self._done_buf.clear()
         finished.extend(self._retire_due())
@@ -1514,6 +2155,7 @@ class ServingEngine:
         snapshot = self._decoding_snapshot()
         vocab = self.cfg.vocab_size
         mask = np.ones((self.n_slots, vocab), bool)
+        n_masked = 0
         now = self._clock()
         for i, s in enumerate(snapshot):
             if s is None or s.mask is None:
@@ -1525,12 +2167,19 @@ class ServingEngine:
                 continue
             mask[i] = allowed
             self.stats.mask_tokens_filtered += int(vocab - int(allowed.sum()))
-        if any(s is not None for s in snapshot):
+            n_masked += 1
+        n_decoding = sum(s is not None for s in snapshot)
+        if n_decoding:
             self._push_tables()
             self._note_moe_dispatch(self.n_active)
+            t_d0 = self._tclock() if tr is not None else 0.0
+            sampled = self._sampled_in(snapshot)
             toks = _Fetch(self._masked_step(
-                self._view_width(), mask,
-                self._sampled_in(snapshot) > 0)).numpy()
+                self._view_width(), mask, sampled > 0)).numpy()
+            if tr is not None:
+                tr.add_span("sample", t_d0, self._tclock(),
+                            slots=n_decoding, masked=n_masked,
+                            sampled=sampled)
             now = self._clock()
             self.stats.steps += 1
             for i, s in enumerate(snapshot):
@@ -1546,10 +2195,14 @@ class ServingEngine:
                 if comp is not None:
                     # Recorded here as the other booking paths record
                     # theirs (the JAX engine's constrained step does not).
-                    self.stats.record(comp)
+                    self._record_completion(comp)
                     finished.append(comp)
         self._admit_waiting()
         self._advance_prefills()
+        if tr is not None:
+            tr.add_span("decode_quantum", t_q0, self._tclock(),
+                        slots=n_decoding, constrained=True,
+                        finished=len(finished))
         self._sync_stats()
         return finished
 
@@ -1563,6 +2216,8 @@ class ServingEngine:
         pipelined chunk. When no lane is worth a probe (cooldown, or a
         host-side scan of the booked context finds no candidate), the
         quantum is exactly the plain one: dispatch first, then book."""
+        tr = self._tracer
+        t_q0 = self._tclock() if tr is not None else 0.0
         finished: List[Completion] = list(self._done_buf)
         self._done_buf.clear()
         finished.extend(self._retire_due())
@@ -1583,25 +2238,36 @@ class ServingEngine:
                 for i, s in enumerate(snapshot):
                     if s is not None and self._spec_cooldown[i] > 0:
                         self._spec_cooldown[i] -= 1
-            dispatched = self._dispatch_plain(snapshot)
+            dispatched = self._dispatch_plain(snapshot, span=True)
             finished.extend(self._process_pending())
             self._pending = dispatched
             self._admit_waiting()
             self._advance_prefills()
+            if tr is not None:
+                tr.add_span("decode_quantum", t_q0, self._tclock(),
+                            spec=False, finished=len(finished))
             self._sync_stats()
             return finished
         finished.extend(self._process_pending())
         snapshot = self._decoding_snapshot()
         if any(s is not None for s in snapshot):
             self.stats.spec_probe_steps += 1
+            t_p0 = self._tclock() if tr is not None else 0.0
             proposal = self._propose_drafts(snapshot)
+            if tr is not None:
+                tr.add_span("spec_probe", t_p0, self._tclock(),
+                            drafted=proposal is not None)
             if proposal is not None:
                 draft, dlen = proposal
                 self._push_tables()
                 self._note_moe_dispatch(self.n_active * (self.draft_k + 1))
+                t_v0 = self._tclock() if tr is not None else 0.0
                 out = _Fetch(self._verify(
                     self._view_width(), draft, dlen,
                     sampled=self._sampled_in(snapshot) > 0)).numpy()
+                if tr is not None:
+                    tr.add_span("spec_verify", t_v0, self._tclock(),
+                                draft_tokens=int(np.sum(dlen)))
                 k1 = draft.shape[1] + 1
                 finished.extend(self._book_spec(
                     snapshot, out[:, :k1], out[:, k1], out[:, k1 + 1], dlen))
@@ -1609,6 +2275,9 @@ class ServingEngine:
                 self._pending = self._dispatch_plain(snapshot)
         self._admit_waiting()
         self._advance_prefills()
+        if tr is not None:
+            tr.add_span("decode_quantum", t_q0, self._tclock(),
+                        spec=True, finished=len(finished))
         self._sync_stats()
         return finished
 
@@ -1738,7 +2407,7 @@ class ServingEngine:
             else:
                 slot.next_tok = int(next_tok[i])
         for c in finished:
-            self.stats.record(c)
+            self._record_completion(c)
         return finished
 
     def _traffic_model(self, phase: str = "decode") -> Tuple[float, float]:
@@ -1833,11 +2502,16 @@ class ServingEngine:
         self.stats.host_pages_resident = (
             self._host_tier.resident_pages
             if self._host_tier is not None else 0)
+        if self._tracer is not None:
+            self.stats.spans_recorded = self._tracer.spans_recorded
+            self.stats.spans_dropped = self._tracer.spans_dropped
         reg = registry()
         reg.gauge("queue_depth", "serving").set(len(self.queue))
         reg.gauge("pool_blocks_in_use", "serving").set(self.pool.used_blocks)
         reg.gauge("active_slots", "serving").set(self.n_active)
-        for name in ("spilled_pages", "spill_bytes", "rehydrate_hits",
+        for name in ("pages_migrated", "migration_bytes",
+                     "migrated_zero_copy_tokens",
+                     "spilled_pages", "spill_bytes", "rehydrate_hits",
                      "rehydrate_tokens", "host_pages_resident",
                      "moe_experts_per_shard", "moe_tokens_dispatched"):
             reg.gauge(name, "serving").set(getattr(self.stats, name))
@@ -1896,7 +2570,14 @@ class ServingEngine:
             return []
         fetch, snapshot = self._pending
         self._pending = None
+        t_g0 = self._tclock() if self._tracer is not None else 0.0
         toks_np = fetch.numpy()                       # [chunk (+1), B]
+        if self._tracer is not None:
+            # This read waits for the previous dispatch: its span is the
+            # visible device time of that chunk.
+            self._tracer.add_span(
+                "device_get", t_g0, self._tclock(),
+                chunk=int(toks_np.shape[0]) - (1 if self.spec_decode else 0))
         next_np = None
         if self.spec_decode:
             toks_np, next_np = toks_np[:-1], toks_np[-1]
@@ -1915,7 +2596,7 @@ class ServingEngine:
             if comp is None and next_np is not None:
                 slot.next_tok = int(next_np[i])
         for c in finished:
-            self.stats.record(c)
+            self._record_completion(c)
         return finished
 
     def drain(self, grace_s: float = 5.0) -> List[Completion]:
@@ -1934,18 +2615,28 @@ class ServingEngine:
             comp = Completion(
                 rid=q.req.rid, tokens=[], finish_reason="shed",
                 submit_t=q.submit_t, first_token_t=None, done_t=now)
-            self.stats.record(comp)
+            self._record_completion(comp)
             out.append(comp)
         deadline = now + grace_s
         while not self.idle and self._clock() < deadline:
+            if (not self.queue and self._pending is None
+                    and not self._fork_sources
+                    and all(s is None or s.export_ready
+                            for s in self.slots)):
+                # Only export-parked prefills remain, and stepping never
+                # finishes them (their rows are inactive).
+                break
             out.extend(self.step())
         # Grace exhausted: book the chunk still in flight (those tokens
-        # were decoded — keep them), then force-retire stragglers.
+        # were decoded — keep them), then force-retire stragglers. An
+        # export-parked prefill_only slot retires as "shed": no token was
+        # lost, and the router re-dispatches sheds.
         out.extend(self._process_pending())
         now = self._clock()
         for i, slot in enumerate(self.slots):
             if slot is not None:
-                out.append(self._retire_slot(i, slot, "deadline", now))
+                reason = "shed" if slot.req.prefill_only else "deadline"
+                out.append(self._retire_slot(i, slot, reason, now))
         # Forks never placed shed with their page holds released.
         for src in self._fork_sources:
             self._cancel_fork_source(src, "deadline")
@@ -1958,13 +2649,16 @@ class ServingEngine:
 
     def _flush_observability(self, **extra: float) -> None:
         """Write the metrics JSONL summary (with ``extra`` markers) and
-        close it; idempotent."""
+        close it, and flush the trace; idempotent, and called from every
+        exit path (drain, a run() overrun)."""
         if self._metrics is not None:
             scalars = self.stats.summary()
             scalars.update(extra)
             self._metrics.write(self.stats.steps, scalars)
             self._metrics.close()
             self._metrics = None
+        if self._tracer is not None:
+            self._tracer.flush()
 
     def run(self, requests: Sequence[Request], max_steps: int = 0,
             stop=None, drain_grace_s: float = 5.0) -> List[Completion]:

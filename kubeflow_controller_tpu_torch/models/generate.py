@@ -1649,6 +1649,43 @@ def gather_pool_pages(
     return pages
 
 
+def export_pool_pages(
+    cache: PagedKVCache, ids, wait: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
+           Optional[torch.Tensor]]:
+    """Copy whole pool pages to host memory in bulk, as the JAX package's
+    ``gather_pool_pages`` lays them out: ``(k, v, k_scale, v_scale)``,
+    each ``[L, n, bs, KVH(, D)]`` in the pool's storage types (int8
+    codes and fp32 scales for int8 pools, never dequantized; scales None
+    for fp pools), pages in ``ids`` order. The migration and prefix-pull
+    wire format. On the card: one ``index_select`` of the pages a part
+    on the device, then one copy a part into one pinned buffer.
+    ``wait=False`` returns once the copies are enqueued: work later on
+    the same stream (an ``install_pool_pages`` of these tensors, a
+    rewrite of the pages) is ordered after them, but a host read must
+    first synchronize the stream."""
+    n_blocks = cache.k.shape[1]
+    if any(not 0 <= int(i) < n_blocks for i in ids):
+        raise ValueError(f"export_pool_pages: ids {list(ids)} outside "
+                         f"[0, {n_blocks})")
+    dev = cache.k.device
+    idx = _page_ids(ids, dev)
+    out = []
+    for t in (cache.k, cache.v, cache.k_scale, cache.v_scale):
+        if t is None:
+            out.append(None)
+            continue
+        rows = t.index_select(1, idx)
+        if dev.type == "cuda":
+            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+            host.copy_(rows, non_blocking=True)
+            rows = host
+        out.append(rows)
+    if wait and dev.type == "cuda":
+        torch.cuda.current_stream(dev).synchronize()
+    return tuple(out)
+
+
 def pool_page_host_bytes(cache: PagedKVCache, tp: int = 1) -> int:
     """Host bytes one whole pool page occupies off the card (K and V in
     the storage type, plus the fp32 scales of int8 pools): the unit the

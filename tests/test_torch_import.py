@@ -214,21 +214,30 @@ _SERVE_KW = [
     dict(prefill_mode="exact"), dict(temperature=0.7), dict(quant="int8"),
     dict(prefix_cache=True), dict(speculative=True), dict(tp=2),
     dict(n=2), dict(model_dir="/nonexistent"), dict(config="tiny_moe"),
+    dict(trace="<tmp>/trace.json"), dict(disagg=True),
+    dict(fault_plan="<tmp>/plan.json"), dict(fault_seed=1),
+    dict(watchdog_stale_s=1.0, disagg=True),
 ]
 #: Refused until exact prefill, speculative decoding, checkpoints,
-#: sampling, the prefix cache, weight-only int8 and the MoE decoder
-#: (``config="tiny_moe"``) were ported: these now serve. ``tp=2`` (tensor
-#: parallelism, ported too) needs a gang of two processes.
+#: sampling, the prefix cache, weight-only int8, the MoE decoder
+#: (``config="tiny_moe"``) and the fleet (``trace``, ``disagg``,
+#: ``fault_plan``, ``fault_seed``, ``watchdog_stale_s``) were ported:
+#: these now serve. ``tp=2`` (tensor parallelism, ported too) needs a
+#: gang of two processes.
 _SERVE_PORTED = ("prefill_mode", "speculative", "model_dir", "temperature",
-                 "n", "prefix_cache", "quant", "config")
+                 "n", "prefix_cache", "quant", "config", "trace", "disagg",
+                 "fault_plan", "fault_seed", "watchdog_stale_s")
 
 
 @pytest.mark.parametrize("kwargs", _SERVE_KW,
                          ids=[next(iter(kw)) for kw in _SERVE_KW])
-def test_serve_refuses_what_is_not_ported(kwargs):
+def test_serve_refuses_what_is_not_ported(kwargs, tmp_path):
     base = dict(config="tiny", batch=1, prompt_len=4, max_new_tokens=2,
                 device="cpu")
-    base.update(kwargs)
+    (tmp_path / "plan.json").write_text(
+        '{"specs": [{"kind": "slow", "site": "engine.step", "factor": 2}]}')
+    base.update({k: v.replace("<tmp>", str(tmp_path)) if isinstance(v, str)
+                 else v for k, v in kwargs.items()})
     if next(iter(kwargs)) == "tp":
         # Tensor-parallel serving is ported: one process is no gang of two
         # ranks, and the serving mesh says so.
@@ -240,6 +249,13 @@ def test_serve_refuses_what_is_not_ported(kwargs):
         n = kwargs.get("n", 1)                 # n generations a prompt
         assert out["requests"] == n and out["tokens_out"] == 2 * n
         assert out["restored_step"] == -1      # no checkpoint: a fresh init
+        if "trace" in kwargs:
+            assert (tmp_path / "trace.json").exists()
+            assert out["spans_recorded"] > 0 and out["spans_dropped"] == 0
+        if "fault_plan" in kwargs:
+            assert out["faults_total"] > 0     # the slow quanta fired
+        if kwargs.get("disagg"):
+            assert out["migrations"] == 1
         return
     with pytest.raises(NotImplementedError, match="not yet ported"):
         serve_lm.serve(**base)

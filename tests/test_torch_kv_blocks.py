@@ -94,8 +94,18 @@ def test_host_tier_refuses_oversized_page_and_zero_budget():
         with pytest.raises(ValueError, match=">= 0"):
             tier_cls(-1)
     assert tkv.HostKVTier.payload_nbytes(_t_page(1, 8)) == 8
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tkv.HostKVTier(8, injector=object())
+    # The fault injector is ported (``tier.read`` faults are held to JAX's
+    # in test_torch_faults.py): an injector with an empty plan leaves
+    # every read as it was, as in the JAX tier.
+    from kubeflow_controller_tpu.dataplane.faults import FaultInjector as JInj
+    from kubeflow_controller_tpu_torch.dataplane.faults import FaultInjector
+
+    for tier_cls, page, inj in ((jkv.HostKVTier, _np_page, JInj()),
+                                (tkv.HostKVTier, _t_page, FaultInjector())):
+        tier = tier_cls(64, injector=inj, target="r0")
+        h = tier.put(page(1))
+        assert tier.has(h) and tier.pop(h) is not None
+        assert tier.io_errors == 0 and tier.target == "r0"
 
 
 # -- RadixCache soups, the JAX trie and the port's side by side ----------------

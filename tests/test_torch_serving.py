@@ -204,19 +204,30 @@ def test_serve_streams_equal_jax_engine(tmp_path):
 
 
 def test_engine_refuses_what_is_not_ported():
-    """What the port does not serve yet raises "not yet ported"; exact
-    prefill, greedy speculative decoding, sampling, the prefix cache,
-    the host tier and the radix proposer (refused before they were
-    ported) now build engines, and the prefix cache with exact prefill,
-    the tier without the cache and the radix proposer without the trie
-    raise the JAX engine's ValueErrors. Tensor parallelism is ported:
-    ``tp=2`` in one process has no gang of two ranks, and the serving
-    mesh raises its ValueError."""
+    """Exact prefill, greedy speculative decoding, sampling, the prefix
+    cache, the host tier, the radix proposer, the tracer, the fault
+    injector and ``prefill_only`` requests (refused before they were
+    ported) now build engines and serve, and the prefix cache with exact
+    prefill, the tier without the cache, the radix proposer without the
+    trie and ``prefill_only`` with exact prefill raise the JAX engine's
+    ValueErrors. Tensor parallelism is ported: ``tp=2`` in one process
+    has no gang of two ranks, and the serving mesh raises its
+    ValueError."""
+    from kubeflow_controller_tpu_torch.dataplane.faults import FaultInjector
+    from kubeflow_controller_tpu_torch.obs.trace import Tracer
+
     _, cfg_t, _, params_t = _weights()
-    for kw in (dict(tracer=object()), dict(injector=object())):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16,
-                          device="cpu", **kw)
+    for kw in (dict(tracer=Tracer()), dict(injector=FaultInjector())):
+        eng = ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16,
+                            device="cpu", **kw)
+        (out,) = eng.run([Request(rid=0, prompt=np.arange(5),
+                                  max_new_tokens=3)])
+        assert len(out.tokens) == 3
+    assert eng.fault_target == ""
+    eng = ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16, device="cpu")
+    with pytest.raises(ValueError, match="prefill_only requires"):
+        eng.submit(Request(rid=1, prompt=np.arange(5), max_new_tokens=3,
+                           prefill_only=True))
     with pytest.raises(ValueError, match="exceeds the 1 visible devices"):
         ServingEngine(cfg_t, params_t, n_slots=1, max_seq=16, device="cpu",
                       tp=2)
@@ -329,6 +340,19 @@ def test_cli_serves_on_cpu_and_refuses_unported_flags(tmp_path):
         assert serve_lm.main(argv + flag) == 0
         again = [json.loads(line) for line in out.read_text().splitlines()]
         assert again == rows, flag
+    # The fleet serves now: disaggregated, traced, under a fault plan
+    # (one payload lost in flight) and the watchdog, the same rows.
+    plan = tmp_path / "plan.json"
+    plan.write_text(json.dumps({"specs": [
+        {"kind": "drop_migration", "site": "router.migrate", "max_fires": 1}]}))
+    for flag in (["--disagg"], ["--disagg", "--trace", str(tmp_path / "t.json")],
+                 ["--disagg", "--fault-plan", str(plan), "--fault-seed", "4",
+                  "--watchdog-stale-s", "30"],
+                 ["--fault-plan", str(plan)]):
+        assert serve_lm.main(argv + flag) == 0
+        again = [json.loads(line) for line in out.read_text().splitlines()]
+        assert again == rows, flag
+    assert json.loads((tmp_path / "t.json").read_text())["traceEvents"]
 
 
 def test_admission_control_rejects_with_typed_reasons():
@@ -488,8 +512,9 @@ def test_cli_takes_every_reference_option_and_refuses_off_default_values(
         want = PARSERS[entry].get(opt, action.default)
         assert port[opt].default == want, (entry, opt, port[opt].default)
     if entry == "serve_lm":
-        unported = [port["--" + k.replace("_", "-") if k != "mesh_devices"
-                         else "--mesh"] for k in tmod.NOT_YET_PORTED_FLAGS]
+        # Every option of the JAX serve parser is ported (the fleet's
+        # were the last refused).
+        unported = []
         base = ["--config", "tiny", "--device", "cpu", "--batch", "1",
                 "--prompt-len", "9", "--max-new-tokens", "1", "--block-size", "8"]
         ported = [["--model-dir", str(tmp_path)], ["--speculative"],
@@ -507,6 +532,21 @@ def test_cli_takes_every_reference_option_and_refuses_off_default_values(
         assert ported[9:12] == [["--proposer", "radix"], ["--turns", "2"],
                                 ["--prefix-cache"]]
         assert ported[13:] == [["--quant", "int8"], ["--no-paged", "--turns", "2"]]
+        # The fleet's options (refused until the fleet was ported) serve
+        # off their defaults too.
+        plan = tmp_path / "plan.json"
+        plan.write_text('{"specs": [{"kind": "hang", "site": "engine.step", '
+                        '"max_fires": 1}]}')
+        ported += [_off_default(port["--disagg"]),
+                   ["--trace", str(tmp_path / "t.json")],
+                   ["--fault-plan", str(plan)],
+                   _off_default(port["--fault-seed"]),
+                   ["--disagg"] + _off_default(port["--watchdog-stale-s"])]
+        assert ported[-5:-3] == [["--disagg"], ["--trace", str(tmp_path / "t.json")]]
+        # The reference's p.error: the watchdog needs the fleet.
+        with pytest.raises(SystemExit) as e:
+            tmod.main(base + _off_default(port["--watchdog-stale-s"]))
+        assert e.value.code == 2
         # The reference engine's ValueError: --no-paged on the engine path.
         with pytest.raises(ValueError, match="paged=False"):
             tmod.main(base + ["--no-paged"])
@@ -655,15 +695,10 @@ def test_serve_int8_equals_jax_serve(tmp_path, monkeypatch):
 
 # -- C8: the summary's keys ------------------------------------------------------
 
-#: Summary keys of features the port refuses: migration, fault
-#: injection, spans and the jit-cache counts. (The MoE keys left this
-#: set with the MoE decoder, the tp gauges with tensor parallelism.)
-REFUSED_SUMMARY_KEYS = {
-    "migrated_in", "migrated_out",
-    "pages_migrated", "migration_bytes", "migrated_zero_copy_tokens",
-    "migrate_dedups", "faults_injected", "spans_recorded", "spans_dropped",
-    "prefill_compiles", "admit_cache_size",
-}
+#: Summary keys the port does not publish: the jit-cache counts. (The MoE
+#: keys left this set with the MoE decoder, the tp gauges with tensor
+#: parallelism, the migration, fault and span counters with the fleet.)
+REFUSED_SUMMARY_KEYS = {"prefill_compiles", "admit_cache_size"}
 
 
 @pytest.mark.parametrize("impl,quant", [("pallas", ""), ("xla", "int8")],
