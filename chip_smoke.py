@@ -135,7 +135,19 @@ Phases, in order; any failure exits non-zero before the result line:
    uninterrupted run on the same batches (``RESUME_LOSS_REL_TOL``), then
    ``serve(model_dir=...)`` against an engine on the in-memory
    parameters; save and restore seconds and bytes on disk;
-7a. models: the MNIST entry point at its defaults (200 steps, held-out
+7a. control: the port's control plane launching the port's trainer
+   (``runtime.LocalRuntime`` -> ``Controller`` -> ``FakeCluster``'s gang
+   admission -> a pod's ``run_fn``): a ``Local`` TPUJob whose pod trains
+   the flagship through ``lm.train(ProcessContext.from_env(pod env))``
+   for 5 steps in its ``run_fn`` thread (Pending, Running, Succeeded;
+   B1-B4 launches the train phase's a step times 5, the checkpoint in the
+   injected ``TPUJOB_MODEL_DIR``), then a ``v5p-8`` gang of two pods,
+   each starting one rank with its pod's env (the coordinator on
+   loopback, gloo on cuda:0): the flagship at 2 layers, fsdp=2, exit 137
+   after step 2's checkpoint, one gang restart, both ranks resuming from
+   step 2 to step 4; simulated submit -> Running and -> Succeeded, the
+   syncs and the wall time;
+7b. models: the MNIST entry point at its defaults (200 steps, held-out
    evaluation every 40; accuracy well above chance); ResNet-50 through
    its entry point (B128 224² uint8, bf16, 8 steps: images/s, step ms,
    peak memory, the last step's idle share and device time by kernel,
@@ -144,15 +156,15 @@ Phases, in order; any failure exits non-zero before the result line:
    bf16, ``attn="auto"``, 4 steps, half the rows padded: B1 and B2 per
    step exactly as the per-layer remat predicts, no rope prepass) and
    ``encode`` card vs CPU;
-7b. dist: a two-rank gang of ``python -c`` workers with the env the
+7c. dist: a two-rank gang of ``python -c`` workers with the env the
    controller gives a pod (``JAX_COORDINATOR_ADDRESS``,
    ``JAX_NUM_PROCESSES=2``, ``JAX_PROCESS_ID``), entering through
    ``initialize_from_env`` and ``lm.train``: NCCL with a card a rank on
    a machine of two cards or more, else gloo with both ranks on cuda:0
    (the backend's collectives on CUDA tensors probed first; a layout
    whose collectives it lacks is not run and the line says so). The
-   flagship at full width and 8 of its 16 layers (global batch 16; the
-   depth cut for the script's time) at dp=2, fsdp=2
+   flagship at full width and 4 of its 16 layers (8 at fsdp=2; global
+   batch 16; the depth cut for the script's time) at dp=2, fsdp=2
    (its checkpoint restored by a one-process loop, bit for bit) and
    tp=2, 3 steps; ``int8_fused`` at fsdp=2 and llama3_8b at 2 layers
    (B3/B4) at fsdp=2, 2 steps; the flagship at sp=2 (S=2048, global
@@ -172,7 +184,7 @@ Phases, in order; any failure exits non-zero before the result line:
    checkpoint (bit for bit) within its steps' peak plus one largest
    leaf, then, the gang gone, the one-process run, its yardstick and a
    one-process restore of the checkpoint in this process;
-7c. aot: the memory gate (``parallel/aot_check.py``) on fake CUDA
+7d. aot: the memory gate (``parallel/aot_check.py``) on fake CUDA
    tensors under a fake process group, llama3_8b at dp=2 x fsdp=16 x
    tp=4 (B32) and llama3_70b at fsdp=16 x tp=8 (B16), S=8192: per-rank
    bytes beside the analytic plan and the card's 80 GB, nothing
@@ -4373,11 +4385,13 @@ BERT_TP_LOSS_REL_TOL = 2.1e-4
 # The gang's layouts: each a two-rank lm.train (global batch 16 at S1024
 # for the flagship at full width, 2 at S2048 for llama3_8b at 2 layers)
 # held against a one-process run of the same batches, init and steps on
-# the same card. The flagship's int8 and 8-bit AdamW layouts over tp and
-# with 8-bit moments run it at 8 of its 16 layers: on one card over gloo
-# every collective goes through host memory (an int8 tp=2 step of all
-# 16 layers sums ~9.6 GB of fp32 partials: 12.9 s), and the whole script
-# must stay within its time.
+# the same card. The flagship's dp, tp and sp layouts run it at 4 of its
+# 16 layers, its fsdp layouts at 8: on one card over gloo every
+# collective goes through host memory (an int8 tp=2 step of all 16 layers
+# sums ~9.6 GB of fp32 partials: 12.9 s), and the whole script must stay
+# within its time. At 4 layers fsdp=2's steps' peak (4.304 GB a rank)
+# passes the plan's 3.892 GB plus 3 leaves: buffers that do not shrink
+# with the depth.
 # ``needs``: the collectives the layout runs on its tensors beyond
 # all_reduce (probed first on the gang's backend).
 DIST_CASES = [
@@ -4395,12 +4409,12 @@ DIST_CASES = [
     dict(label="llama3_70b_1l.fsdp2", config="llama3_70b_1l", mesh=dict(dp=1, fsdp=2),
          batch=1, seq=1024, steps=2, checkpoint=True, after_gang=True,
          needs=("all_gather_into_tensor", "reduce_scatter_tensor"), change_cap=0.0428),
-    dict(label="flagship_8l.dp2", config="flagship_8l", mesh=dict(dp=2), batch=8, seq=1024,
+    dict(label="flagship_4l.dp2", config="flagship_4l", mesh=dict(dp=2), batch=8, seq=1024,
          steps=3, needs=(), change_cap=0.114),
     dict(label="flagship_8l.fsdp2", config="flagship_8l", mesh=dict(dp=1, fsdp=2), batch=8,
          seq=1024, steps=3, needs=("all_gather_into_tensor", "reduce_scatter_tensor"),
          checkpoint=True, change_cap=0.114),
-    dict(label="flagship_8l.tp2", config="flagship_8l", mesh=dict(dp=1, tp=2), batch=16,
+    dict(label="flagship_4l.tp2", config="flagship_4l", mesh=dict(dp=1, tp=2), batch=16,
          seq=1024, steps=3, needs=("all_gather_into_tensor", "all_gather", "all_reduce_max"),
          change_cap=0.114),
     dict(label="flagship_8l.int8_fused.fsdp2", config="flagship_8l", quant="int8_fused",
@@ -4414,10 +4428,10 @@ DIST_CASES = [
     # blocks go around by send and receive), held against the one-process
     # flash run; and the gather path (q/k/v gathered over sp: B1 and the
     # two-pass backward B3/B4 at S=2048 on every rank).
-    dict(label="flagship_8l.sp2.ring", config="flagship_8l", attn="ring", one_process_attn="auto",
+    dict(label="flagship_4l.sp2.ring", config="flagship_4l", attn="ring", one_process_attn="auto",
          mesh=dict(dp=1, sp=2), batch=4, seq=2048, steps=3, needs=("send_recv",),
          change_cap=0.123),
-    dict(label="flagship_8l.sp2", config="flagship_8l", mesh=dict(dp=1, sp=2), batch=4, seq=2048,
+    dict(label="flagship_4l.sp2", config="flagship_4l", mesh=dict(dp=1, sp=2), batch=4, seq=2048,
          steps=3, needs=("all_gather_into_tensor", "reduce_scatter_tensor"),
          change_cap=0.123),
     # Pipeline parallelism: 8 layers a stage, 4 microbatches, through
@@ -4456,10 +4470,10 @@ DIST_CASES = [
     # summed over tp; under int8_fused they take B7's split entries (the
     # row scales from the caller, fp32 out), as do q/k/v's and gate/up's
     # dx.
-    dict(label="flagship_8l.int8.tp2", config="flagship_8l", quant="int8", mesh=dict(dp=1, tp=2),
+    dict(label="flagship_4l.int8.tp2", config="flagship_4l", quant="int8", mesh=dict(dp=1, tp=2),
          batch=16, seq=1024, steps=2, needs=("all_gather_into_tensor", "all_gather",
                                              "all_reduce_max"), change_cap=0.346),
-    dict(label="flagship_8l.int8_fused.tp2", config="flagship_8l", quant="int8_fused",
+    dict(label="flagship_4l.int8_fused.tp2", config="flagship_4l", quant="int8_fused",
          mesh=dict(dp=1, tp=2), batch=16, seq=1024, steps=2,
          needs=("all_gather_into_tensor", "all_gather", "all_reduce_max"), change_cap=0.346),
     # 8-bit AdamW on fsdp chunks: each leaf's row statistics the whole
@@ -4493,11 +4507,12 @@ DIST_CASES = [
 # limit cannot grow with the flash kernels' own error, the whole
 # model's change is also capped by the case's ``change_cap``: twice its
 # yardstick as read on an H100 80GB HBM3 at 700 W (flagship 0.0570 at
-# 16 layers, whose caps its 8-layer dp, fsdp, tp and sp layouts keep,
+# 16 layers, whose caps its 4- and 8-layer dp, fsdp, tp and sp layouts keep,
 # int8_fused 0.1827, llama3_8b 0.0333; the flagship at B4 S2048 0.0615,
 # llama3_8b at S4096 0.0329; mixtral_8x7b at 1 layer: 0.1216 at ep=2,
 # 0.1167 at tp=2 (B2 S1024), 0.1418 at sp=2 (B1 S2048); the flagship's 8
-# layers with int8 at tp=2 0.1730, with 8-bit AdamW at fsdp=2 0.1768;
+# layers with int8 at tp=2 0.1730, with 8-bit AdamW at fsdp=2 0.1768,
+# caps its 4-layer layouts keep;
 # BERT-base 0.1164; llama3_70b at 1 layer, fsdp=2, B2 S1024: 0.0214).
 # The ring cases are held against the
 # one-process flash run (``one_process_attn``): without a mesh the ring
@@ -5276,15 +5291,19 @@ MOE_SERVE_CONFIG = "mixtral_8x7b_8l"
 #: layers). The serving phases' two above; for the gang's layouts
 #: llama3_8b cut to 2 layers (its fp32 state at 32 layers is ~128 GB),
 #: mixtral_8x7b to 1 (~750 GB at 32 layers; 27 GB at 1), llama3_70b to 1
-#: (1.13 TB at 80 layers; 47.3 GB at 1), the flagship at full width to 8
+#: (1.13 TB at 80 layers; 47.3 GB at 1), the flagship at full width to 4
+#: or 8
 #: (DIST_CASES says why); for the tp serving gang mixtral_8x7b and
 #: llama3_70b at 2 (a rank holds its whole tree before it shards, two
 #: ranks on one card, and its gathers and exchanges go through host
-#: memory: TP_SERVE_CASES).
+#: memory: TP_SERVE_CASES); for the control phase's gang the flagship
+#: at 2 (two epochs of two ranks within the phase's time).
 CUT_CONFIGS = {SERVE_CONFIG: ("llama3_8b", 8), MOE_SERVE_CONFIG: ("mixtral_8x7b", 8),
                "llama3_8b_2l": ("llama3_8b", 2), "mixtral_8x7b_1l": ("mixtral_8x7b", 1),
                "llama3_70b_1l": ("llama3_70b", 1), "flagship_8l": ("flagship", 8),
-               "mixtral_8x7b_2l": ("mixtral_8x7b", 2), "llama3_70b_2l": ("llama3_70b", 2)}
+               "flagship_4l": ("flagship", 4),
+               "mixtral_8x7b_2l": ("mixtral_8x7b", 2), "llama3_70b_2l": ("llama3_70b", 2),
+               "flagship_2l": ("flagship", 2)}
 
 
 def _case_config(name, **overrides):
@@ -5354,14 +5373,14 @@ def dist_phase(smi, labels=None):
     controller gives a pod (``JAX_COORDINATOR_ADDRESS`` on 127.0.0.1,
     ``JAX_NUM_PROCESSES=2``, ``JAX_PROCESS_ID``), entering through
     ``initialize_from_env`` and ``lm.train``: the flagship at full width
-    and 8 of its 16 layers at dp=2, fsdp=2 (writing a checkpoint a
+    and 4 of its 16 layers (8 at fsdp=2) at dp=2, fsdp=2 (writing a checkpoint a
     one-process loop restores) and tp=2, ``int8_fused`` at fsdp=2 and
     llama3_8b (2
     layers, B3/B4) at fsdp=2; the flagship at sp=2 (ring and gathered
     attention) and at pp=2 (all 16 layers; ``TrainLoop`` with the
     pipelined loss), and
     llama3_8b (2 layers) at sp=2, S=4096, ring; mixtral_8x7b (1 layer)
-    at ep=2, tp=2 and sp=2, the flagship (8 of its 16 layers) with int8
+    at ep=2, tp=2 and sp=2, the flagship (4 of its 16 layers) with int8
     projections at tp=2 (``int8`` and ``int8_fused``: B7's split
     entries) and ``int8_fused`` with 8-bit AdamW at fsdp=2
     (checkpointed: the quantized moments restored by one process) and
@@ -5376,7 +5395,6 @@ def dist_phase(smi, labels=None):
     layout and rank: step ms, peak memory against
     ``transformer_memory_plan``, launches a step."""
     import shutil
-    import socket
 
     import torch
 
@@ -5404,10 +5422,7 @@ def dist_phase(smi, labels=None):
     torch.cuda.empty_cache()
     log(f"dist: this process holds {torch.cuda.memory_allocated() / 1e9:.3f} GB "
         f"allocated, {torch.cuda.memory_reserved() / 1e9:.3f} GB reserved on cuda:0")
-    sock = socket.socket()
-    sock.bind(("127.0.0.1", 0))
-    port = sock.getsockname()[1]
-    sock.close()
+    port = _free_port()
     spec = json.dumps({"backend": backend, "out": out, "labels": labels})
     procs, logs = [], []
     for rank in range(2):
@@ -5420,12 +5435,10 @@ def dist_phase(smi, labels=None):
             # other rank needs (llama3_70b_1l.fsdp2 peaks at ~30 GiB a rank
             # at once on both, with ~7 GiB a rank left unusable otherwise).
             env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-        f = open(os.path.join(out, f"rank{rank}.log"), "w")
+        p, f = _spawn_rank("_dist_worker", env,
+                           os.path.join(out, f"rank{rank}.log"))
+        procs.append(p)
         logs.append(f)
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c",
-             "import chip_smoke as c; raise SystemExit(c._dist_worker())"],
-            cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT))
     t0 = time.perf_counter()
     try:
         for p in procs:
@@ -5847,7 +5860,6 @@ def tp_serve_phase(smi, serve_runs, labels=None):
     weight bytes against the placement's and the traffic model's
     figures, peak memory, TTFT, TPOT and wall."""
     import shutil
-    import socket
 
     import torch
 
@@ -5862,10 +5874,7 @@ def tp_serve_phase(smi, serve_runs, labels=None):
     torch.cuda.empty_cache()
     log(f"tp serve: backend {backend}, {cards} card(s), 2 ranks; this process holds "
         f"{torch.cuda.memory_allocated() / 1e9:.3f} GB allocated")
-    sock = socket.socket()
-    sock.bind(("127.0.0.1", 0))
-    port = sock.getsockname()[1]
-    sock.close()
+    port = _free_port()
     spec = json.dumps({"backend": backend, "out": out, "labels": labels,
                        "yardsticks": _YARDSTICK})
     procs, logs = [], []
@@ -5875,12 +5884,10 @@ def tp_serve_phase(smi, serve_runs, labels=None):
                    CHIP_SMOKE_TP=spec, PYTHONPATH=ROOT)
         if cards < 2:
             env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-        f = open(os.path.join(out, f"rank{rank}.log"), "w")
+        p, f = _spawn_rank("_tp_serve_worker", env,
+                           os.path.join(out, f"rank{rank}.log"))
+        procs.append(p)
         logs.append(f)
-        procs.append(subprocess.Popen(
-            [sys.executable, "-c",
-             "import chip_smoke as c; raise SystemExit(c._tp_serve_worker())"],
-            cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT))
     t0 = time.perf_counter()
     try:
         for p in procs:
@@ -6014,6 +6021,324 @@ def _tp_prompts(case, cfg):
     return dict(enumerate(rng.integers(0, cfg.vocab_size, (kw["batch"], kw["prompt_len"]))))
 
 
+# -- the control plane: the port's controller launching the port's trainer --
+
+#: The Local job's steps (the flagship through ``lm.train``) and the
+#: gang's: epoch 0 checkpoints at GANG_STEPS[0] and exits 137, epoch 1
+#: resumes there and trains to GANG_STEPS[1].
+CONTROL_LOCAL_STEPS = 5
+CONTROL_GANG_STEPS = (2, 4)
+CONTROL_GANG_CONFIG = "flagship_2l"
+CONTROL_TIMEOUT_S = 600
+
+
+def _spawn_rank(entry, env, log_path):
+    """Start ``python -c "import chip_smoke as c; raise
+    SystemExit(c.<entry>())"`` from the repo root with ``env``, its
+    output to ``log_path``; returns the process and its open log."""
+    f = open(log_path, "w")
+    return subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke as c; raise SystemExit(c.{entry}())"],
+        cwd=ROOT, env=env, stdout=f, stderr=subprocess.STDOUT), f
+
+
+def _free_port() -> int:
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def _control_worker() -> int:
+    """One rank of the control phase's gang: the env is the pod's (the
+    controller's, with the coordinator on loopback); join through
+    ``initialize_from_env``, report the step ``lm.train`` resumed from,
+    train, leave the group and exit with the code the epoch scripts."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from kubeflow_controller_tpu_torch.dataplane import dist as ddist
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints import lm
+    from kubeflow_controller_tpu_torch.parallel.mesh import MeshConfig
+
+    spec = json.loads(os.environ["CHIP_SMOKE_CONTROL"])
+    _register_cut_configs()
+    ctx = ddist.initialize_from_env(backend="gloo")
+    torch.cuda.set_device(ddist.local_device(ctx))
+    m = lm.train(ctx, config=CONTROL_GANG_CONFIG, total_steps=spec["steps"],
+                 per_data_shard_batch=8, seq_len=1024,
+                 mesh_config=MeshConfig(fsdp=2))
+    rec = {"epoch": spec["epoch"], "rank": ctx.process_id,
+           "JAX_NUM_PROCESSES": os.environ["JAX_NUM_PROCESSES"],
+           "world": torch.distributed.get_world_size(),
+           "resumed_from": m["start_step"], "final_step": m["final_step"],
+           "loss": m["loss"]}
+    with open(os.path.join(spec["out"],
+                           f"epoch{spec['epoch']}.rank{ctx.process_id}.json"), "w") as f:
+        json.dump(rec, f)
+    ddist.destroy()
+    return spec["exit_code"]
+
+
+def _control_job(name, model_dir, accelerator_type=None):
+    from kubeflow_controller_tpu_torch.api import (
+        Container, ObjectMeta, PodSpec, PodTemplateSpec, ReplicaSpec, ReplicaType,
+        TPUJob, TPUJobSpec, TPUSliceSpec,
+    )
+
+    rs = ReplicaSpec(
+        replica_type=ReplicaType.LOCAL,
+        template=PodTemplateSpec(spec=PodSpec(containers=[Container(
+            name="trainer", image="trainer:latest",
+            command=["python", "-m",
+                     "kubeflow_controller_tpu_torch.dataplane.entrypoints.lm"])])))
+    if accelerator_type:
+        rs.replica_type = ReplicaType.WORKER
+        rs.tpu = TPUSliceSpec(accelerator_type=accelerator_type)
+    return TPUJob(metadata=ObjectMeta(name=name, namespace="default"),
+                  spec=TPUJobSpec(model_dir=model_dir, replica_specs=[rs]))
+
+
+def _control_summary(label, rt, job, phases, wall_s, smi):
+    st = job.status
+    rec = {"job": label, "phases": [p.value for p in phases],
+           "restarts": st.restarts,
+           "sim_submit_to_running_s": st.all_running_time - st.submit_time,
+           "sim_submit_to_succeeded_s": st.completion_time - st.submit_time,
+           "reconcile_syncs": rt.controller.sync_count,
+           "noop_syncs": rt.controller.syncs_skipped_noop,
+           "wall_s": wall_s}
+    return rec
+
+
+def _control_local(smi, failures):
+    """A ``Local`` TPUJob whose pod runs ``lm.train(ProcessContext.from_env(
+    pod env), config="flagship")`` in its ``run_fn`` thread on the card:
+    Pending, Running (the first ticks do not wait on the workload, so
+    the controller sees the pod run), Succeeded; the checkpoint in the
+    injected ``TPUJOB_MODEL_DIR``; B1-B4's launches over the run those of
+    the train phase's flagship a step times the steps."""
+    import shutil
+    import threading
+
+    import torch
+
+    from kubeflow_controller_tpu_torch.api.types import JobPhase
+    from kubeflow_controller_tpu_torch.cluster.cluster import PodRunPolicy
+    from kubeflow_controller_tpu_torch.dataplane import dist as ddist
+    from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints import lm
+    from kubeflow_controller_tpu_torch.runtime import LocalRuntime
+
+    mdir = os.path.join(OUT_DIR, "control", "local_ckpt")
+    shutil.rmtree(mdir, ignore_errors=True)
+    go, seen = threading.Event(), {}
+
+    def run_fn(pod):
+        env = dict(pod.spec.containers[0].env)
+        seen["env"] = env
+        torch.cuda.set_device(0)            # this thread's device
+        go.wait()
+        try:
+            seen["metrics"] = lm.train(
+                ProcessContext.from_env(env), config="flagship",
+                total_steps=CONTROL_LOCAL_STEPS, per_data_shard_batch=16,
+                seq_len=1024)
+            torch.cuda.synchronize()
+        finally:
+            ddist.destroy()
+        return 0
+
+    policy = PodRunPolicy(start_delay=0, run_fn=run_fn, run_fn_join=0.0)
+    rt = LocalRuntime(policy)
+    phases = []
+
+    def job():
+        j = rt.get_job("default", "flagship")
+        if j is not None and (not phases or phases[-1] != j.status.phase):
+            phases.append(j.status.phase)
+        return j
+
+    t0 = time.perf_counter()
+    _reset_launches()
+    try:
+        rt.submit(_control_job("flagship", mdir))
+        rt.controller.drain()
+        job()
+        if not rt.run_until(lambda: job().status.phase == JobPhase.RUNNING,
+                            max_steps=5):
+            failures.append(f"control[local]: not Running: {phases}")
+        policy.run_fn_join = CONTROL_TIMEOUT_S
+        go.set()
+        rt.run_until(lambda: job().is_done(), max_steps=20)
+    finally:
+        go.set()
+        rt.stop()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _launches()
+    final = job()
+    rec = _control_summary("local", rt, final, phases, wall_s, smi)
+    layers = lm.model_config("flagship").n_layers
+    want = {k: 0 for k in launches}
+    want.update({"rope_rotate": 3 * layers, "flash_fwd": 2 * layers,
+                 "flash_bwd_prep": layers, "flash_bwd_fused": layers,
+                 "flash_bwd_post": layers})
+    want = {k: v * CONTROL_LOCAL_STEPS for k, v in want.items()}
+    rec["launches"] = launches
+    if [p.value for p in phases if p.value] != ["Pending", "Running", "Succeeded"]:
+        failures.append(f"control[local]: phases {[p.value for p in phases]}")
+    if launches != want:
+        failures.append(f"control[local]: launches {launches} != {want}")
+    env = seen.get("env", {})
+    if env.get("TPUJOB_MODEL_DIR") != mdir:
+        failures.append(f"control[local]: TPUJOB_MODEL_DIR {env.get('TPUJOB_MODEL_DIR')!r}")
+    m = seen.get("metrics", {})
+    if (m.get("final_step") != CONTROL_LOCAL_STEPS
+            or not math.isfinite(m.get("loss", float("nan")))):
+        failures.append(f"control[local]: metrics {m}")
+    ckpt = os.path.join(mdir, str(CONTROL_LOCAL_STEPS), "index.pt")
+    if not os.path.exists(ckpt):
+        failures.append(f"control[local]: no checkpoint at {ckpt}")
+    rec["loss"] = m.get("loss")
+    rec["checkpoint"] = os.path.exists(ckpt)
+    log(f"control[local] {json.dumps(rec)} | {smi}")
+    shutil.rmtree(mdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _control_gang(smi, failures):
+    """A ``Worker`` TPUJob on a ``v5p-8`` slice (two hosts, two pods):
+    each pod's ``run_fn`` starts one rank with the pod's env, the
+    coordinator's cluster-DNS address put on loopback (no cluster DNS
+    here), gloo with both ranks on cuda:0. The flagship at 2 layers,
+    fsdp=2: epoch 0 checkpoints at step 2 and exits 137; the controller
+    gang-restarts; epoch 1's two ranks resume from step 2 and train to
+    step 4."""
+    import shutil
+
+    from kubeflow_controller_tpu_torch.api.types import JobPhase
+    from kubeflow_controller_tpu_torch.cluster.cluster import PodRunPolicy
+    from kubeflow_controller_tpu_torch.ops import _build
+    from kubeflow_controller_tpu_torch.runtime import LocalRuntime
+    from kubeflow_controller_tpu_torch.tpu import naming
+
+    _build.load()                       # built before any rank starts
+    out = os.path.join(OUT_DIR, "control", "gang")
+    mdir = os.path.join(OUT_DIR, "control", "gang_ckpt")
+    for d in (out, mdir):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(out)
+    ports = {}
+
+    def run_fn(pod):
+        epoch = int(pod.metadata.labels[naming.LABEL_EPOCH])
+        pid = pod.spec.containers[0].env["JAX_PROCESS_ID"]
+        port = ports.setdefault(epoch, _free_port())
+        env = dict(os.environ)
+        env.update(pod.spec.containers[0].env)
+        env.update(
+            JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", PYTHONPATH=ROOT,
+            PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True",
+            CHIP_SMOKE_CONTROL=json.dumps({
+                "epoch": epoch, "out": out,
+                "steps": CONTROL_GANG_STEPS[min(epoch, 1)],
+                "exit_code": 137 if epoch == 0 else 0}))
+        p, f = _spawn_rank("_control_worker", env,
+                           os.path.join(out, f"epoch{epoch}.rank{pid}.log"))
+        try:
+            return p.wait(timeout=CONTROL_TIMEOUT_S)
+        finally:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            f.close()
+
+    # As for the Local job: the first ticks do not wait on the ranks, so
+    # the controller sees the gang run; then each tick waits for them.
+    policy = PodRunPolicy(start_delay=0, run_fn=run_fn, run_fn_join=0.0)
+    rt = LocalRuntime(policy)
+    rt.cluster.slice_pool.add_pool("v5p-8", 1)
+    phases = []
+
+    def job():
+        j = rt.get_job("default", "gang")
+        if j is not None and (not phases or phases[-1] != j.status.phase):
+            phases.append(j.status.phase)
+        return j
+
+    t0 = time.perf_counter()
+    try:
+        rt.submit(_control_job("gang", mdir, accelerator_type="v5p-8"))
+        rt.run_until(lambda: job().status.phase == JobPhase.RUNNING,
+                     max_steps=5)
+        policy.run_fn_join = CONTROL_TIMEOUT_S
+        rt.run_until(lambda: job().is_done(), max_steps=20)
+    finally:
+        rt.stop()
+    wall_s = time.perf_counter() - t0
+    final = job()
+    rec = _control_summary("gang", rt, final, phases, wall_s, smi)
+    ranks = {}
+    for name in sorted(os.listdir(out)):
+        if name.endswith(".json"):
+            with open(os.path.join(out, name)) as f:
+                r = json.load(f)
+            ranks[(r["epoch"], r["rank"])] = r
+    rec["ranks"] = [ranks[k] for k in sorted(ranks)]
+    log(f"control[gang] {json.dumps(rec)} | {smi}")
+    if (final.status.phase != JobPhase.SUCCEEDED or final.status.restarts != 1
+            or JobPhase.RUNNING not in phases):
+        failures.append(f"control[gang]: phase {final.status.phase.value}, "
+                        f"restarts {final.status.restarts}")
+    if set(ranks) != {(0, 0), (0, 1), (1, 0), (1, 1)}:
+        for name in sorted(os.listdir(out)):
+            if name.endswith(".log"):
+                with open(os.path.join(out, name)) as f:
+                    log(f"control[gang] {name}:\n{f.read()[-4000:]}")
+        failures.append(f"control[gang]: ranks reported {sorted(ranks)}")
+    else:
+        for (epoch, rank), r in ranks.items():
+            want_from = 0 if epoch == 0 else CONTROL_GANG_STEPS[0]
+            if (r["JAX_NUM_PROCESSES"] != "2" or r["world"] != 2
+                    or r["resumed_from"] != want_from
+                    or r["final_step"] != CONTROL_GANG_STEPS[epoch]
+                    or not math.isfinite(r["loss"])):
+                failures.append(f"control[gang]: epoch {epoch} rank {rank}: {r}")
+        for epoch in (0, 1):
+            if ranks[(epoch, 0)]["loss"] != ranks[(epoch, 1)]["loss"]:
+                failures.append(f"control[gang]: epoch {epoch} losses differ: "
+                                f"{ranks[(epoch, 0)]['loss']} vs {ranks[(epoch, 1)]['loss']}")
+    shutil.rmtree(mdir, ignore_errors=True)
+    return rec
+
+
+def control_phase(smi):
+    """The port's control plane (``runtime.LocalRuntime`` -> ``Controller``
+    -> ``FakeCluster`` gang admission -> ``run_fn``) launching the port's
+    trainer on the card: the flagship ``Local`` job, then the two-host
+    gang through a failure restart. Every check of both runs; any that
+    fails fails the phase."""
+    failures = []
+    t0 = time.perf_counter()
+    runs = {"local": _control_local(smi, failures),
+            "gang": _control_gang(smi, failures)}
+    log(f"control: {time.perf_counter() - t0:.1f} s | {smi}")
+    if failures:
+        for msg in failures:
+            log(msg)
+        raise AssertionError(f"control: {len(failures)} checks failed; "
+                             f"first: {failures[0]}")
+    return runs
+
+
 def main() -> int:
     try:
         import torch
@@ -6072,6 +6397,7 @@ def _phases(aot) -> int:
     phase("logits", logits_phase)
     train_runs = phase("train", train_phase, smi)
     phase("checkpoint", checkpoint_phase, smi)
+    phase("control", control_phase, smi)
     model_runs = phase("models", models_phase, smi)
     dist_runs = phase("dist", dist_phase, smi)
     tp_runs = phase("tp serve", tp_serve_phase, smi, runs)

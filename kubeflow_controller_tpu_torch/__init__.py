@@ -16,8 +16,19 @@ carry on quietly on the CPU. The kernels are written by hand in CUDA
 C++ (``csrc/*.cu``), built with ``nvcc`` at first use and bound through
 ``ctypes``; on a CPU tensor each wrapper runs its plain PyTorch version
 instead.
+
+The control plane (``api``, ``cluster``, ``controller``, ``tpu``,
+``checker``, ``updater``, ``runtime``) runs no tensor and imports no
+``torch``; so this package's ``__init__`` does not import it either, and
+``resolve_device`` is loaded on first use.
 """
 
-from kubeflow_controller_tpu_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from kubeflow_controller_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(name)

@@ -22,7 +22,7 @@ placement decision and owns the fleet-level robustness contract:
   DIFFERENT replica immediately; when every routable replica refuses,
   the request parks and retries after :func:`backoff_delay` (the
   capped-exponential + deterministic-jitter curve of the controller's
-  workqueue, kept here as a copy that gives the same doubles). After ``max_retries`` parks the fleet
+  workqueue, imported from ``controller/workqueue.py``). After ``max_retries`` parks the fleet
   itself sheds the request — a typed rejection, not an infinite queue.
 * **accounting** — every submitted request ends in EXACTLY ONE of
   {completed, rejected, cancelled} (``outcome(rid)``), at most once per
@@ -56,43 +56,16 @@ from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Callable, Dict, FrozenSet, Hashable, List, Optional, Tuple
+from typing import Callable, Dict, FrozenSet, List, Optional, Tuple
 
 import numpy as np
 
+from kubeflow_controller_tpu_torch.controller.workqueue import backoff_delay
 from kubeflow_controller_tpu_torch.dataplane.metrics import percentile
 from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
     Completion, Rejected, Request, ServingEngine,
 )
 from kubeflow_controller_tpu_torch.obs.telemetry import registry
-
-# Exponent clamp for the retry backoff: past this the uncapped delay
-# exceeds any sane max_delay anyway, and 2**failures must never
-# materialize a huge int.
-_BACKOFF_MAX_EXP = 32
-
-
-def backoff_delay(
-    base_delay: float, max_delay: float, item: Hashable, failures: int
-) -> float:
-    """Per-item retry delay: capped exponential with deterministic
-    jitter, the controller workqueue's curve
-    (``kubeflow_controller_tpu/controller/workqueue.py``).
-
-    ``min(base * 2^failures, max)`` scaled into ``[0.75, 1.0)`` by an
-    FNV-1a hash of (item, failures): requests that started failing
-    together do not retry on the same beat, and the delay stays a pure
-    function of its inputs (no RNG state)."""
-    exp = failures if failures < _BACKOFF_MAX_EXP else _BACKOFF_MAX_EXP
-    raw = base_delay * float(2 ** exp)
-    if raw > max_delay:
-        raw = max_delay
-    h = 2166136261
-    for b in f"{item}|{failures}".encode():
-        h = ((h ^ b) * 16777619) & 0xFFFFFFFF
-    frac = h / 4294967296.0
-    return raw * (0.75 + 0.25 * frac)
-
 
 #: terminal outcome kinds — every submitted rid ends in exactly one.
 OUTCOMES = ("completed", "rejected", "cancelled")

@@ -334,3 +334,69 @@ def test_every_port_test_module_runs_one_intra_op_thread():
         if imports_torch and not sets_one:
             missing.append(name)
     assert not missing, missing
+
+
+#: The in-process control plane: it runs no tensor, so it imports no
+#: torch, and it imports PyYAML only inside the two YAML functions.
+CONTROL_PACKAGES = ("api", "cluster", "controller", "tpu", "checker",
+                    "updater")
+
+
+def test_control_plane_modules_are_in_the_walk():
+    names = set(_port_modules())
+    for pkg in CONTROL_PACKAGES:
+        assert f"kubeflow_controller_tpu_torch.{pkg}" in names
+    assert "kubeflow_controller_tpu_torch.runtime" in names
+    assert {"kubeflow_controller_tpu_torch.controller.controller",
+            "kubeflow_controller_tpu_torch.cluster.cluster",
+            "kubeflow_controller_tpu_torch.tpu.plan",
+            "kubeflow_controller_tpu_torch.api.serialization"} <= names
+
+
+def test_control_plane_imports_no_torch_and_no_yaml_and_runs_a_job():
+    """With JAX, the JAX package, torch and PyYAML all blocked, the control
+    plane imports, and a Local job built from the dataclasses runs to
+    Succeeded through the port's LocalRuntime."""
+    mods = [f"kubeflow_controller_tpu_torch.{p}" for p in CONTROL_PACKAGES]
+    mods += [m for m in _port_modules() if m.split(".")[1] in
+             CONTROL_PACKAGES] + ["kubeflow_controller_tpu_torch.runtime"]
+    code = (
+        "import sys, importlib\n"
+        f"for name in {BLOCKED + ('torch', 'yaml')!r}:\n"
+        "    sys.modules[name] = None\n"
+        f"for name in {mods!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from kubeflow_controller_tpu_torch.api import (Container, ObjectMeta,\n"
+        "    PodSpec, PodTemplateSpec, ReplicaSpec, ReplicaType, TPUJob,\n"
+        "    TPUJobSpec, job_from_dict, job_to_dict)\n"
+        "from kubeflow_controller_tpu_torch.api.types import JobPhase\n"
+        "from kubeflow_controller_tpu_torch.cluster.cluster import PodRunPolicy\n"
+        "from kubeflow_controller_tpu_torch.runtime import LocalRuntime\n"
+        "rt = LocalRuntime(PodRunPolicy(start_delay=1, run_duration=2))\n"
+        "job = TPUJob(metadata=ObjectMeta(name='j', namespace='default'),\n"
+        "    spec=TPUJobSpec(replica_specs=[ReplicaSpec(\n"
+        "        replica_type=ReplicaType.LOCAL, template=PodTemplateSpec(\n"
+        "            spec=PodSpec(containers=[Container(name='t', image='i')])))]))\n"
+        "assert job_to_dict(job_from_dict(job_to_dict(job))) == job_to_dict(job)\n"
+        "rt.submit(job)\n"
+        "assert rt.wait_for_phase('default', 'j', JobPhase.SUCCEEDED, max_steps=20)\n"
+        "rt.stop()\n"
+        "bad = [m for m in sys.modules if sys.modules[m] is not None and\n"
+        "       m.split('.')[0] in ('torch', 'yaml', 'jax', 'jaxlib',\n"
+        "                           'kubeflow_controller_tpu', 'numpy')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_router_uses_the_workqueue_backoff():
+    """The fleet router's retry curve is the workqueue's function, not a
+    copy of it."""
+    from kubeflow_controller_tpu_torch.controller import workqueue
+    from kubeflow_controller_tpu_torch.dataplane import router
+
+    assert router.backoff_delay is workqueue.backoff_delay
