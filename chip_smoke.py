@@ -49,7 +49,7 @@ Phases, in order; any failure exits non-zero before the result line:
    ``torch._int_mm`` on the same codes and a bf16 ``torch.mm``; a shape
    it does not tile must raise;
 5. serve: ``serve(config=SERVE_CONFIG, batch=16, slots=8, prompt_len=256,
-   max_new_tokens=32, block_size=16)`` (llama3_8b at full width and 8 of
+   max_new_tokens=32, block_size=16)`` (llama3_8b at full width and 4 of
    its 32 layers: the serving phases' depth, ``SERVE_CONFIG``) with the
    kernels' launch counts zeroed just before and read just after, in
    bucketed prefill (then 4 requests with an int8 KV pool) and in exact
@@ -117,6 +117,15 @@ Phases, in order; any failure exits non-zero before the result line:
    delivered twice, the fires accounted for, the memory back within a
    pool after the fleet; a fleet prefix pull (an owner cordoned, 12
    pages pulled into the other replica's host tier and rehydrated);
+   the LMService loop (``lmservice``): an LMService of 3 replicas, 1 of
+   them prefill, through ``LocalRuntime`` until its 3 pods run;
+   ``router.sync_fleet_from_pods`` builds an engine a pod on the same
+   weights, its role from the pod's ``LABEL_ROLE``; the 16 requests
+   served disaggregated (streams the one engine's, or off only after a
+   near-tie; B6 256 chunks x the layers, B5 the decode engines'
+   dispatches x 4 x the layers, B1 none); a decode pod crashed, the
+   sync naming it removed, the controller recreating it, the next sync
+   naming it added, the membership 3 again;
 6. train: bench.py's flagship decoder (B16 S1024, 16 layers, remat) and
    llama3_8b at full width and 2 layers (B2 S2048), 8 steps each through
    ``TrainLoop``; the flagship with int8 projections, ``"int8_fused"``
@@ -146,7 +155,17 @@ Phases, in order; any failure exits non-zero before the result line:
    loopback, gloo on cuda:0): the flagship at 2 layers, fsdp=2, exit 137
    after step 2's checkpoint, one gang restart, both ranks resuming from
    step 2 to step 4; simulated submit -> Running and -> Succeeded, the
-   syncs and the wall time;
+   syncs and the wall time; then the control plane over the wire:
+   ``remote.k8s``, the port's ``RestServer(k8s_mode=True)`` over a
+   ``FakeCluster(use_native_index=True)`` ticked by a wall-clock thread
+   (as ``tpujobctl apiserver`` does), a ``RemoteRuntime(k8s=True)`` with
+   2 workers reconciling it only over HTTP, the job created over the
+   wire, its pod training the flagship as the Local job does (the same
+   phases, launches, model dir and checkpoint; the controller's queue
+   and expectations and the cluster's index the C++ core's; the job's
+   Events read back as core/v1 Events; within a wall timeout); and
+   ``remote.rest``, the same over the framework wire with the flagship
+   at 2 of its 16 layers for 2 steps;
 7b. models: the MNIST entry point at its defaults (200 steps, held-out
    evaluation every 40; accuracy well above chance); ResNet-50 through
    its entry point (B128 224² uint8, bf16, 8 steps: images/s, step ms,
@@ -1378,7 +1397,7 @@ def _log_serve(label, what, smi, res, wall, launches, config=None):
 
 def _serve_run(label, smi, batch, n=1, prompt_len=256, config=None, **kw):
     """One ``serve()`` at ``config`` (``SERVE_CONFIG`` by default: llama3_8b
-    at full width and 8 of its 32 layers, bf16; 8 slots,
+    at full width and 4 of its 32 layers, bf16; 8 slots,
     ``prompt_len``-token prompts, 32 new tokens, pages of 16) with every
     serving kernel's count zeroed just before and read just after. Checks
     the completions (``batch * n`` of 32 in-vocab tokens) and returns
@@ -3060,8 +3079,116 @@ def _fleet_prefix_pull(smi, n_layers, cfg):
     return {"fleet.pull": (fs, launches)}
 
 
+def _fleet_lmservice(smi, n_layers, prompts, one):
+    """(f) The LMService loop: the control plane's pods become the fleet's
+    replicas. An LMService of 3 replicas, 1 of them prefill, through the
+    port's ``LocalRuntime`` until its 3 pods run; ``sync_fleet_from_pods``
+    builds a ``serve(disagg=True)``-shaped engine a pod on the
+    ``SERVE_CONFIG`` weights, its role from the pod's ``LABEL_ROLE``; the
+    16 requests served disaggregated on the host's clock, with every
+    serving kernel's count zeroed just before and read just after: B6 256
+    chunks x the layers (on the prefill replica), B5 the decode engines'
+    dispatches (from the trace) x 4 x the layers, B1 none; the streams the
+    one engine's, or off only after a near-tie. Then a decode pod crashed:
+    the next sync removes its replica, the controller recreates the pod,
+    the sync after it adds the replica back, the membership 3 again."""
+    from kubeflow_controller_tpu_torch.api.core import ObjectMeta
+    from kubeflow_controller_tpu_torch.api.types import LMService, LMServiceSpec
+    from kubeflow_controller_tpu_torch.cluster.cluster import PodRunPolicy
+    from kubeflow_controller_tpu_torch.dataplane.router import (
+        FleetRouter, sync_fleet_from_pods,
+    )
+    from kubeflow_controller_tpu_torch.dataplane.serving_engine import Request
+    from kubeflow_controller_tpu_torch.obs.trace import Tracer
+    from kubeflow_controller_tpu_torch.runtime import LocalRuntime
+    from kubeflow_controller_tpu_torch.tpu import naming
+
+    rt = LocalRuntime(PodRunPolicy(start_delay=1.0, run_duration=1e9))
+    tracer = Tracer()
+
+    def pods():
+        return sorted(rt.client.list_pods("default", {naming.LABEL_LMSERVICE: "llama"}),
+                      key=lambda p: p.metadata.name)
+
+    def running():
+        ps = pods()
+        return len(ps) == 3 and all(p.status.phase.value == "Running" for p in ps)
+
+    def factory(name):
+        return _fleet_engine(time.perf_counter, tracer=tracer)
+
+    try:
+        rt.submit_lmservice(LMService(
+            metadata=ObjectMeta(name="llama", namespace="default"),
+            spec=LMServiceSpec(model=SERVE_CONFIG, replicas=3, prefill_replicas=1)))
+        if not rt.run_until(running, max_steps=20):
+            raise AssertionError("fleet[lmservice]: pods " + str(
+                [(p.metadata.name, p.status.phase.value) for p in pods()]))
+        router = FleetRouter(clock=time.perf_counter, block_size=16, tracer=tracer)
+        t0 = time.perf_counter()
+        added, removed = sync_fleet_from_pods(router, pods(), factory)
+        roles = {h.name: h.role for h in router.replicas}
+        labels = {p.metadata.name: p.metadata.labels[naming.LABEL_ROLE] for p in pods()}
+        if (sorted(added) != sorted(labels) or removed or roles != labels
+                or sorted(roles.values()) != ["decode", "decode", "prefill"]
+                or not router.two_stage):
+            raise AssertionError(f"fleet[lmservice]: sync ({added}, {removed}), roles "
+                                 f"{roles}, labels {labels}")
+        sync_s = time.perf_counter() - t0
+        for i in range(len(prompts)):
+            router.submit(Request(rid=i, prompt=prompts[i], max_new_tokens=32))
+        completions = []
+
+        def pump():
+            for _ in range(20000):
+                completions.extend(router.step())
+                if router.idle:
+                    return
+            raise AssertionError(f"fleet[lmservice]: {router.pending} pending")
+
+        _, wall, launches = _counted(pump)
+        streams = {c.rid: list(map(int, c.tokens)) for c in completions}
+        _check_streams("fleet[lmservice]", streams, list(range(len(prompts))), 32,
+                       _case_config(SERVE_CONFIG).vocab_size)
+        dispatches = sum(1 for sp in tracer.snapshot()
+                         if sp.name == "dispatch" and sp.track == "dataplane")
+        chunks = len(prompts) * prompts.shape[1] // 16
+        want = {"paged_chunk": chunks * n_layers, "flash_fwd": 0, "rope_rotate": 0,
+                "paged_decode": dispatches * 4 * n_layers}
+        got = {k: launches[k] for k in want}
+        if got != want:
+            raise AssertionError(f"fleet[lmservice]: launches {launches}, want {want}")
+        _near_tie_streams("fleet lmservice vs one engine", one, streams, prompts)
+        summary = router.fleet_summary()
+        # A decode pod crashed: the controller deletes and recreates it;
+        # the router follows the pods.
+        victim = next(n for n, r in sorted(labels.items()) if r == "decode")
+        rt.cluster.crash_pod("default", victim)
+        rt.controller.drain()
+        after_crash = sync_fleet_from_pods(router, pods(), factory)
+        if not rt.run_until(running, max_steps=20):
+            raise AssertionError(f"fleet[lmservice]: {victim} not recreated")
+        after_restart = sync_fleet_from_pods(router, pods(), factory)
+        members = sorted((h.name, h.role) for h in router.replicas)
+        if (after_crash != ([], [victim]) or after_restart != ([victim], [])
+                or members != sorted(labels.items())):
+            raise AssertionError(f"fleet[lmservice]: after the crash {after_crash}, "
+                                 f"after the restart {after_restart}, members {members}")
+        res = {"wall_s": wall, "sync_s": sync_s, "decode_dispatches": dispatches,
+               "victim": victim, "after_crash": after_crash,
+               "after_restart": after_restart, "roles": roles,
+               "syncs": rt.controller.sync_count,
+               **{k: summary[k] for k in ("migrations", "pages_migrated",
+                                          "migration_bytes") if k in summary}}
+        log(f"fleet[lmservice] {SERVE_CONFIG}: {json.dumps(res)}, launches "
+            f"{ {k: v for k, v in launches.items() if v} } | {smi}")
+        return {"lmservice": (res, launches)}
+    finally:
+        rt.stop()
+
+
 def fleet_phase(smi):
-    """The serving fleet on ``SERVE_CONFIG`` (llama3_8b at full width, 8 of
+    """The serving fleet on ``SERVE_CONFIG`` (llama3_8b at full width, 4 of
     its 32 layers, pages of 16): (a) ``serve(disagg=True)`` beside the
     one-engine bucketed run with the prefix cache, each engine's
     launches (B6 256 chunks x the layers, B1 none, B5 decode-0's
@@ -3071,7 +3198,8 @@ def fleet_phase(smi):
     a rid, nothing dropped) and the same run untraced (the same streams
     and launches); (c) a three-engine fleet under one fault plan and a
     kill, then a rolling restart; (d) a fleet prefix pull; (e) every
-    engine the fleet let go of freed."""
+    engine the fleet let go of freed; (f) the LMService loop: pods synced
+    into the router's membership, served, a crash followed."""
     n_layers = _case_config(SERVE_CONFIG).n_layers
     cfg = _case_config(SERVE_CONFIG)
     prompts = _serve_prompts(cfg.vocab_size)
@@ -3079,6 +3207,7 @@ def fleet_phase(smi):
         runs, one = _fleet_disagg(smi, n_layers, cfg, prompts)
         runs.update(_fleet_chaos(smi, n_layers, prompts, one))
         runs.update(_fleet_prefix_pull(smi, n_layers, cfg))
+        runs.update(_fleet_lmservice(smi, n_layers, prompts, one))
     finally:
         _drop_llama()
     return runs
@@ -5279,13 +5408,15 @@ def _checkpoint_bytes(case) -> int:
     return 12 * sum(math.prod(s) for s in tree_leaves(tfm.param_shapes(cfg)))
 
 
-#: The serving phases' models: llama3_8b and mixtral_8x7b at full width
-#: and 8 of their 32 layers. Serving is host-bound (the launches of one
-#: micro-step are a layer's times the depth), so its seconds follow the
-#: depth: at all 32 layers the serving phases took 530 of the script's
-#: 1100 s on an H100 80GB HBM3 at 700 W, against the script's limit of
-#: 1200 s. The logits phase and its profile keep all 32 layers.
-SERVE_CONFIG = "llama3_8b_8l"
+#: The serving phases' models: llama3_8b at full width and 4 of its 32
+#: layers, mixtral_8x7b at full width and 8. Serving is host-bound (the
+#: launches of one micro-step are a layer's times the depth), so its
+#: seconds follow the depth: at all 32 layers the serving phases took 530
+#: of the script's 1100 s on an H100 80GB HBM3 at 700 W, against the
+#: script's limit of 1200 s; at 8 the whole script took 1116.2 s on a
+#: slower host once the control plane's runs over the wire were added.
+#: The logits phase and its profile keep all 32 layers.
+SERVE_CONFIG = "llama3_8b_4l"
 MOE_SERVE_CONFIG = "mixtral_8x7b_8l"
 #: The configurations cut in depth: name -> (the configuration, its
 #: layers). The serving phases' two above; for the gang's layouts
@@ -5298,7 +5429,7 @@ MOE_SERVE_CONFIG = "mixtral_8x7b_8l"
 #: ranks on one card, and its gathers and exchanges go through host
 #: memory: TP_SERVE_CASES); for the control phase's gang the flagship
 #: at 2 (two epochs of two ranks within the phase's time).
-CUT_CONFIGS = {SERVE_CONFIG: ("llama3_8b", 8), MOE_SERVE_CONFIG: ("mixtral_8x7b", 8),
+CUT_CONFIGS = {SERVE_CONFIG: ("llama3_8b", 4), MOE_SERVE_CONFIG: ("mixtral_8x7b", 8),
                "llama3_8b_2l": ("llama3_8b", 2), "mixtral_8x7b_1l": ("mixtral_8x7b", 1),
                "llama3_70b_1l": ("llama3_70b", 1), "flagship_8l": ("flagship", 8),
                "flagship_4l": ("flagship", 4),
@@ -5518,22 +5649,22 @@ def dist_phase(smi, labels=None):
 #: "parallel" and the MoE runs may leave them only after a near-tie
 #: (``SPEC_FLIP_GAP_OF_RMS``).
 TP_SERVE_CASES = [
-    dict(label="llama3_8b_8l.parallel.bucketed", config=SERVE_CONFIG, via="serve",
+    dict(label=f"{SERVE_CONFIG}.parallel.bucketed", config=SERVE_CONFIG, via="serve",
          tp_compute="parallel", yardstick="fp", exact=False,
          serve_kw=dict(batch=16, slots=8, prompt_len=256, max_new_tokens=32,
                        block_size=16, prefill_mode="bucketed")),
-    dict(label="llama3_8b_8l.parallel.exact.spec", config=SERVE_CONFIG, via="serve",
+    dict(label=f"{SERVE_CONFIG}.parallel.exact.spec", config=SERVE_CONFIG, via="serve",
          tp_compute="parallel", yardstick="tiled.spec", yardstick_run="spec", exact=True,
          serve_kw=dict(batch=16, slots=8, prompt_len=256, max_new_tokens=32,
                        block_size=16, speculative=True, draft_k=4, seed=0,
                        input_file="tiled_prompts.jsonl")),
-    dict(label="llama3_8b_8l.parallel.int8kv", config=SERVE_CONFIG, via="serve",
+    dict(label=f"{SERVE_CONFIG}.parallel.int8kv", config=SERVE_CONFIG, via="serve",
          tp_compute="parallel", yardstick="int8", exact=False,
          serve_kw=dict(batch=4, slots=8, prompt_len=256, max_new_tokens=32,
                        block_size=16, prefill_mode="bucketed", kv_quant="int8")),
-    dict(label="llama3_8b_8l.parallel.tier.int8kv", config=SERVE_CONFIG, via="engine",
+    dict(label=f"{SERVE_CONFIG}.parallel.tier.int8kv", config=SERVE_CONFIG, via="engine",
          tp_compute="parallel", yardstick="tier.int8.on", exact=False, max_new=32),
-    dict(label="llama3_8b_8l.parallel.logits", config=SERVE_CONFIG, via="logits",
+    dict(label=f"{SERVE_CONFIG}.parallel.logits", config=SERVE_CONFIG, via="logits",
          tp_compute="parallel", yardstick="rank0"),
     dict(label="llama3_8b_2l.gathered", config="llama3_8b_2l", via="engine",
          tp_compute="gathered", yardstick="rank0", exact=False, n_requests=2,
@@ -5850,7 +5981,7 @@ def tp_serve_phase(smi, serve_runs, labels=None):
     (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES=2``,
     ``JAX_PROCESS_ID``; gloo with both ranks on cuda:0 on one card, NCCL
     with a card a rank on two) every case of :data:`TP_SERVE_CASES`, all
-    at full width: llama3_8b (8 layers) under ``"parallel"`` (bucketed,
+    at full width: llama3_8b (``SERVE_CONFIG``, 4 layers) under ``"parallel"`` (bucketed,
     exact with lookup speculation, int8 KV, the prefix cache with the
     host tier over int8 pages, a logits tail), llama3_8b (2 layers)
     under ``"gathered"`` (streams and logits bit for bit), mixtral_8x7b
@@ -6030,6 +6161,18 @@ CONTROL_LOCAL_STEPS = 5
 CONTROL_GANG_STEPS = (2, 4)
 CONTROL_GANG_CONFIG = "flagship_2l"
 CONTROL_TIMEOUT_S = 600
+#: The runs over the wire: ``remote.k8s`` trains as the Local job does
+#: (the flagship, CONTROL_LOCAL_STEPS); ``remote.rest`` the flagship at 2
+#: of its 16 layers, full width, for 2 steps. Each must reach Succeeded
+#: within CONTROL_REMOTE_TIMEOUT_S of wall time.
+CONTROL_REMOTE = {"remote.k8s": ("flagship", CONTROL_LOCAL_STEPS),
+                  "remote.rest": ("flagship_2l", 2)}
+CONTROL_REMOTE_TIMEOUT_S = 300
+#: The remote runs' pod start delay (simulated seconds, which the ticker
+#: makes wall seconds): the job's phases are read by polling the wire
+#: every 20 ms, and with pods that start at once a Pending of a few ms
+#: can fall between two reads.
+CONTROL_REMOTE_START_S = 1.0
 
 
 def _spawn_rank(entry, env, log_path):
@@ -6185,12 +6328,7 @@ def _control_local(smi, failures):
     launches = _launches()
     final = job()
     rec = _control_summary("local", rt, final, phases, wall_s, smi)
-    layers = lm.model_config("flagship").n_layers
-    want = {k: 0 for k in launches}
-    want.update({"rope_rotate": 3 * layers, "flash_fwd": 2 * layers,
-                 "flash_bwd_prep": layers, "flash_bwd_fused": layers,
-                 "flash_bwd_post": layers})
-    want = {k: v * CONTROL_LOCAL_STEPS for k, v in want.items()}
+    want = _train_launches_want(launches, "flagship", CONTROL_LOCAL_STEPS)
     rec["launches"] = launches
     if [p.value for p in phases if p.value] != ["Pending", "Running", "Succeeded"]:
         failures.append(f"control[local]: phases {[p.value for p in phases]}")
@@ -6320,16 +6458,198 @@ def _control_gang(smi, failures):
     return rec
 
 
+def _train_launches_want(launches, config, steps):
+    """The flash kernels' launches of ``steps`` steps of ``config`` (B16
+    S1024, the fused backward): per layer and step rope_rotate 3,
+    flash_fwd 2, flash_bwd_prep/fused/post 1 each; every other 0."""
+    layers = _case_config(config).n_layers
+    want = {k: 0 for k in launches}
+    want.update({"rope_rotate": 3 * layers, "flash_fwd": 2 * layers,
+                 "flash_bwd_prep": layers, "flash_bwd_fused": layers,
+                 "flash_bwd_post": layers})
+    return {k: v * steps for k, v in want.items()}
+
+
+def _get_json(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=30) as resp:
+        return json.loads(resp.read())
+
+
+def _control_remote(smi, failures, label):
+    """``label`` in CONTROL_REMOTE: a TPUJob reconciled only over HTTP.
+    The port's ``RestServer`` (``k8s_mode`` for ``remote.k8s``) serves a
+    ``FakeCluster(use_native_index=True)``, ticked by a wall-clock thread
+    as ``tpujobctl apiserver`` does; a ``RemoteRuntime`` with 2 workers
+    (the ``tpujobctl serve --cluster-url`` topology) reconciles it; the
+    job is created through the runtime's wire client. Its pod's
+    ``run_fn`` trains with ``lm.train(ProcessContext.from_env(pod env))``
+    once the job was seen Running (as the Local job's does). Checked:
+    Pending -> Running -> Succeeded within CONTROL_REMOTE_TIMEOUT_S, the
+    injected ``TPUJOB_MODEL_DIR`` and the checkpoint there, the flash
+    launches of the steps, the C++ queue, expectations and index, and
+    (k8s) the job's Events read back from the apiserver as core/v1
+    Events."""
+    import shutil
+    import threading
+
+    import torch
+
+    from kubeflow_controller_tpu_torch.api.types import JobPhase
+    from kubeflow_controller_tpu_torch.cluster.cluster import FakeCluster, PodRunPolicy
+    from kubeflow_controller_tpu_torch.cluster.rest_server import RestServer
+    from kubeflow_controller_tpu_torch.dataplane import dist as ddist
+    from kubeflow_controller_tpu_torch.dataplane.dist import ProcessContext
+    from kubeflow_controller_tpu_torch.dataplane.entrypoints import lm
+    from kubeflow_controller_tpu_torch.native.objindex import NativeObjectIndex
+    from kubeflow_controller_tpu_torch.native.queue import (
+        NativeControllerExpectations, NativeRateLimitingQueue,
+    )
+    from kubeflow_controller_tpu_torch.runtime import RemoteRuntime
+
+    k8s = label == "remote.k8s"
+    config, steps = CONTROL_REMOTE[label]
+    name = label.replace(".", "-")
+    mdir = os.path.join(OUT_DIR, "control", f"{name}_ckpt")
+    shutil.rmtree(mdir, ignore_errors=True)
+    go, seen = threading.Event(), {}
+
+    def run_fn(pod):
+        env = dict(pod.spec.containers[0].env)
+        seen["env"] = env
+        torch.cuda.set_device(0)            # this thread's device
+        if not go.wait(CONTROL_REMOTE_TIMEOUT_S):
+            return 1
+        try:
+            seen["metrics"] = lm.train(
+                ProcessContext.from_env(env), config=config, total_steps=steps,
+                per_data_shard_batch=16, seq_len=1024)
+            torch.cuda.synchronize()
+        finally:
+            ddist.destroy()
+        return 0
+
+    # A use_native_index=True cluster raises if the C++ core does not
+    # build or load: the phase fails, it does not run the Python index.
+    # Its pods start CONTROL_REMOTE_START_S after they are scheduled, so
+    # the job stays Pending long enough for the wire poll to see it.
+    cluster = FakeCluster(default_policy=PodRunPolicy(
+        start_delay=CONTROL_REMOTE_START_S, run_fn=run_fn, run_fn_join=0.0),
+        use_native_index=True)
+    server = RestServer(cluster, k8s_mode=k8s).start()
+    stop = threading.Event()
+
+    def ticker():
+        while not stop.wait(0.05):
+            cluster.tick(0.05)
+
+    tick = threading.Thread(target=ticker, daemon=True, name="ticker")
+    rt = RemoteRuntime(server.url, token="chip-smoke-token" if k8s else "", k8s=k8s)
+    phases = []
+
+    def job():
+        j = rt.client.get_job("default", name)
+        if j is not None and (not phases or phases[-1] != j.status.phase):
+            phases.append(j.status.phase)
+        return j
+
+    def wait(pred, timeout):
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            if pred():
+                return True
+            time.sleep(0.02)
+        return False
+
+    t0 = time.perf_counter()
+    _reset_launches()
+    events = {}
+    try:
+        tick.start()
+        rt.start(workers=2)
+        rt.client.create_job(_control_job(name, mdir))
+        if not wait(lambda: (j := job()) is not None
+                    and j.status.phase == JobPhase.RUNNING, 60):
+            failures.append(f"control[{label}]: not Running: {phases}")
+        go.set()
+        if not wait(lambda: (j := job()) is not None and j.is_done(),
+                    CONTROL_REMOTE_TIMEOUT_S):
+            failures.append(f"control[{label}]: not done within "
+                            f"{CONTROL_REMOTE_TIMEOUT_S} s: {phases}")
+        final = job()
+        if k8s:
+            events = _get_json(f"{server.url}/api/v1/namespaces/default/events")
+        native = {"queue": type(rt.controller.queue).__name__,
+                  "expectations": type(rt.controller.expectations).__name__,
+                  "index": type(cluster.native_index).__name__}
+        native_ok = (isinstance(rt.controller.queue, NativeRateLimitingQueue)
+                     and isinstance(rt.controller.expectations,
+                                    NativeControllerExpectations)
+                     and isinstance(cluster.native_index, NativeObjectIndex))
+    finally:
+        go.set()
+        rt.stop()
+        stop.set()
+        tick.join(timeout=CONTROL_REMOTE_TIMEOUT_S)
+        server.stop()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _launches()
+    rec = _control_summary(label, rt, final, phases, wall_s, smi)
+    want = _train_launches_want(launches, config, steps)
+    rec.update(launches=launches, config=config, steps=steps, native=native,
+               layers=_case_config(config).n_layers)
+    if [p.value for p in phases if p.value] != ["Pending", "Running", "Succeeded"]:
+        failures.append(f"control[{label}]: phases {[p.value for p in phases]}")
+    if launches != want:
+        failures.append(f"control[{label}]: launches {launches} != {want}")
+    if not native_ok:
+        failures.append(f"control[{label}]: not the C++ core: {native}")
+    env = seen.get("env", {})
+    if env.get("TPUJOB_MODEL_DIR") != mdir:
+        failures.append(f"control[{label}]: TPUJOB_MODEL_DIR "
+                        f"{env.get('TPUJOB_MODEL_DIR')!r}")
+    m = seen.get("metrics", {})
+    if (m.get("final_step") != steps
+            or not math.isfinite(m.get("loss", float("nan")))):
+        failures.append(f"control[{label}]: metrics {m}")
+    ckpt = os.path.join(mdir, str(steps), "index.pt")
+    if not os.path.exists(ckpt):
+        failures.append(f"control[{label}]: no checkpoint at {ckpt}")
+    if k8s:
+        items = events.get("items", [])
+        mine = [e for e in items if (e.get("involvedObject") or {}).get("name", "")
+                .startswith(name)]
+        bad = [e for e in items if e.get("apiVersion") != "v1"
+               or e.get("kind") != "Event" or not e.get("reason")
+               or not (e.get("metadata") or {}).get("name")]
+        rec["events"] = sorted({(e["involvedObject"]["kind"], e["reason"])
+                                for e in mine})
+        if events.get("kind") != "EventList" or not mine or bad:
+            failures.append(f"control[{label}]: events {events}")
+    rec["loss"] = m.get("loss")
+    rec["checkpoint"] = os.path.exists(ckpt)
+    log(f"control[{label}] {json.dumps(rec)} | {smi}")
+    shutil.rmtree(mdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return rec
+
+
 def control_phase(smi):
     """The port's control plane (``runtime.LocalRuntime`` -> ``Controller``
     -> ``FakeCluster`` gang admission -> ``run_fn``) launching the port's
-    trainer on the card: the flagship ``Local`` job, then the two-host
-    gang through a failure restart. Every check of both runs; any that
-    fails fails the phase."""
+    trainer on the card: the flagship ``Local`` job; the same over the
+    wire (``remote.k8s``: the strict Kubernetes wire, ``remote.rest``: the
+    framework wire, each a ``RemoteRuntime`` against a ``RestServer``);
+    then the two-host gang through a failure restart. Every check of every
+    run; any that fails fails the phase."""
     failures = []
     t0 = time.perf_counter()
-    runs = {"local": _control_local(smi, failures),
-            "gang": _control_gang(smi, failures)}
+    runs = {"local": _control_local(smi, failures)}
+    for label in CONTROL_REMOTE:
+        runs[label] = _control_remote(smi, failures, label)
+    runs["gang"] = _control_gang(smi, failures)
     log(f"control: {time.perf_counter() - t0:.1f} s | {smi}")
     if failures:
         for msg in failures:
@@ -6397,7 +6717,7 @@ def _phases(aot) -> int:
     phase("logits", logits_phase)
     train_runs = phase("train", train_phase, smi)
     phase("checkpoint", checkpoint_phase, smi)
-    phase("control", control_phase, smi)
+    control_runs = phase("control", control_phase, smi)
     model_runs = phase("models", models_phase, smi)
     dist_runs = phase("dist", dist_phase, smi)
     tp_runs = phase("tp serve", tp_serve_phase, smi, runs)
@@ -6431,6 +6751,10 @@ def _phases(aot) -> int:
         # prefix pull).
         line["kernels"][-1]["fleet_runs_launches"] = {
             run: rec[1][name] for run, rec in fleet_runs.items()}
+        # The control plane's runs: the LMService's pods synced into a
+        # fleet and served (fleet_phase's lmservice).
+        line["kernels"][-1]["control_runs_launches"] = {
+            "lmservice": fleet_runs["lmservice"][1][name]}
         # The weight-only int8 runs' launches (exact, bucketed with lookup
         # speculation, int8 KV).
         line["kernels"][-1]["int8_serve_launches"] = {
@@ -6489,6 +6813,12 @@ def _phases(aot) -> int:
                 run: (rec[1] if isinstance(rec, tuple) else rec["launches"])[name]
                 for run, rec in moe_runs.items()}
         if name in ("flash_fwd", "flash_bwd_fused"):
+            # B1 and B2 in the control phase's runs: the Local job, and
+            # the jobs reconciled over the strict Kubernetes wire and the
+            # framework wire (the gang's ranks count in their processes).
+            line["kernels"][-1]["control_runs_launches"] = {
+                run: rec["launches"][name] for run, rec in control_runs.items()
+                if "launches" in rec}
             # B1 and B2 under BERT-base (S=512, not causal, segment ids, no
             # rope): the entry point's launches, and the record at its
             # attention shape.

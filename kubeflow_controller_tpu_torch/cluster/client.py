@@ -75,6 +75,14 @@ class FakeClusterClient:
     def __init__(self, cluster: FakeCluster):
         self.cluster = cluster
 
+    @property
+    def native_index(self):
+        """The cluster's shared native object index (or None). The
+        controller duck-types on this attribute to route its no-op-sync
+        fingerprint probe through the C++ core; clients without it (wire
+        backends) get the pure-Python fingerprint path."""
+        return self.cluster.native_index
+
     # -- pods ---------------------------------------------------------------
 
     def create_pod(self, pod: Pod) -> Pod:

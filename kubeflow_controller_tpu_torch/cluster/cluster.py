@@ -118,12 +118,23 @@ class FakeCluster:
         # pods) at any cluster size.
         from kubeflow_controller_tpu_torch.tpu.naming import LABEL_JOB, LABEL_LMSERVICE
 
-        # The port has no native object index yet: None and False run the
-        # pure-Python index, and asking for the native one raises as the
-        # JAX package does when its library is missing.
-        if use_native_index:
-            raise RuntimeError("native object index requested but "
-                               "libtpujob_native.so is unavailable")
+        # One shared native object index mirrors every store's sync-relevant
+        # state into the C++ core (csrc/tpujob_native.cc). None when the
+        # library is unavailable or use_native_index=False — everything then
+        # runs the behavior-identical pure-Python paths.
+        self.native_index = None
+        if use_native_index is None or use_native_index:
+            from kubeflow_controller_tpu_torch.native.objindex import (
+                make_object_index,
+            )
+
+            self.native_index = make_object_index()
+            if use_native_index and self.native_index is None:
+                from kubeflow_controller_tpu_torch import native
+
+                raise RuntimeError("native object index requested but "
+                                   "libtpujob_native.so is unavailable "
+                                   f"({native.load_error()})")
 
         # Frozen (copy-on-write) mode: reads, lists, and watch events are
         # shared immutable snapshots — the whole in-process control plane
@@ -132,6 +143,7 @@ class FakeCluster:
             return ObjectStore(
                 kind, now_fn=lambda: self.now, index_labels=index_labels,
                 copy_on_read=False, watch_shards=watch_shards,
+                mirror=self.native_index,
             )
 
         self.pods = _store("Pod", (LABEL_JOB, LABEL_LMSERVICE))
@@ -146,7 +158,10 @@ class FakeCluster:
         self._pending_keys: set = set()
         self._active_keys: set = set()
         self.pods.subscribe(self._track_pod, replay=False)
-        self.slice_pool = SlicePool()
+        # The pool shares the native index: holder/health mutations write
+        # through so the fingerprint's slice-health term is composed
+        # natively (no holdings() traversal per steady probe).
+        self.slice_pool = SlicePool(mirror=self.native_index)
         self.faults = FaultInjector()
         self.default_policy = default_policy or PodRunPolicy(
             start_delay=1.0, run_duration=5.0

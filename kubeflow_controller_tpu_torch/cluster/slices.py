@@ -72,9 +72,15 @@ class SlicePool:
     lives in ``kubeflow_controller_tpu_torch.tpu.gang``.
     """
 
-    def __init__(self):
+    def __init__(self, mirror=None):
         self._lock = threading.Lock()
         self._slices: Dict[str, TPUSlice] = {}
+        # Optional native slice-health mirror (NativeObjectIndex): every
+        # holder/health mutation writes through (under this lock) so the
+        # controller's fingerprint probe composes the slice-health term in
+        # the C++ core instead of traversing holdings() per probe. Duck-
+        # typed on slice_set/slice_clear; None == Python-only.
+        self._mirror = mirror
         # Indexes (insertion-ordered dict-sets, deterministic but NOT
         # provisioning-order after churn: a released slice re-enters the
         # free index at the back, so reuse is approximately
@@ -104,13 +110,19 @@ class SlicePool:
                 held.pop(s.name, None)
                 if not held:
                     del self._by_holder[s.holder]
+            if self._mirror is not None:
+                self._mirror.slice_clear(s.holder, s.name)
         s.holder = holder
         if holder:
             self._by_holder.setdefault(holder, {})[s.name] = None
+            if self._mirror is not None:
+                self._mirror.slice_set(holder, s.name, s.healthy)
         self._refresh_free(s)
 
     def _set_healthy(self, s: TPUSlice, healthy: bool) -> None:
         s.healthy = healthy
+        if s.holder and self._mirror is not None:
+            self._mirror.slice_set(s.holder, s.name, healthy)
         self._refresh_free(s)
 
     def add_pool(self, accelerator_type: str, count: int, pool_name: str = "") -> List[str]:

@@ -170,6 +170,7 @@ class ObjectStore:
         copy_on_read: bool = True,
         watch_queue_soft_max: int = 1024,
         watch_shards: int = 1,
+        mirror: Any = None,
     ):
         self.kind = kind
         self._now_fn = now_fn
@@ -178,6 +179,12 @@ class ObjectStore:
         self._objects: Dict[str, Any] = {}
         self._rv = 0
         self._last_delete_rv = 0
+        # Write-through native mirror (native.objindex.NativeObjectIndex or
+        # None): keeps (uid, rv, generation, indexed labels) per key inside
+        # the C++ core so the controller's fingerprint probe never walks
+        # Python objects. Updated under the store lock on every mutation —
+        # the Python store stays authoritative.
+        self._mirror = mirror
         self._watch_shards = max(1, watch_shards)
         self._subs: List[_Subscription] = []
         self._sub_by_listener: Dict[Listener, _Subscription] = {}
@@ -216,6 +223,29 @@ class ObjectStore:
                     bucket.discard(key)
                     if not bucket:
                         del self._index[lk][v]
+
+    # -- native write-through mirror -----------------------------------------
+
+    def _mirror_upsert(self, key: str, obj: Any) -> None:
+        m = self._mirror
+        if m is None:
+            return
+        meta = obj.metadata
+        sel = None
+        labels = meta.labels
+        if labels:
+            for lk in self._index_labels:
+                v = labels.get(lk)
+                if v is not None:
+                    if sel is None:
+                        sel = {}
+                    sel[lk] = v
+        m.upsert(self.kind, key, meta.uid, meta.resource_version,
+                 meta.generation, sel)
+
+    def _mirror_remove(self, key: str) -> None:
+        if self._mirror is not None:
+            self._mirror.remove(self.kind, key)
 
     # -- watch ---------------------------------------------------------------
 
@@ -486,6 +516,7 @@ class ObjectStore:
                 stored.freeze()
             self._objects[key] = stored
             self._index_add(key, stored)
+            self._mirror_upsert(key, stored)
             if self._copy_on_read:
                 self._emit(
                     WatchEvent(EventType.ADDED, self.kind, stored.deepcopy())
@@ -540,6 +571,7 @@ class ObjectStore:
                 self._index_remove(key, old)
                 self._objects[key] = stored
                 self._index_add(key, stored)
+                self._mirror_upsert(key, stored)
                 self._emit(WatchEvent(
                     EventType.MODIFIED, self.kind, stored, old,
                 ))
@@ -553,6 +585,7 @@ class ObjectStore:
                 self._index_remove(key, old)
                 self._objects[key] = stored
                 self._index_add(key, stored)
+                self._mirror_upsert(key, stored)
                 self._emit(WatchEvent(
                     EventType.MODIFIED, self.kind,
                     stored.deepcopy(), old.deepcopy(),
@@ -609,12 +642,14 @@ class ObjectStore:
             if not self._copy_on_read:
                 stored.freeze()  # spec already sealed: O(1) for that branch
                 self._objects[key] = stored
+                self._mirror_upsert(key, stored)
                 self._emit(WatchEvent(
                     EventType.MODIFIED, self.kind, stored, old,
                 ))
                 ret = stored
             else:
                 self._objects[key] = stored
+                self._mirror_upsert(key, stored)
                 self._emit(WatchEvent(
                     EventType.MODIFIED, self.kind,
                     stored.deepcopy(), old.deepcopy(),
@@ -643,6 +678,7 @@ class ObjectStore:
             if obj is None:
                 raise NotFound(f"{self.kind} {key}")
             self._index_remove(key, obj)
+            self._mirror_remove(key)
             self._rv += 1
             self._last_delete_rv = self._rv
             # The tombstone carries the DELETION's revision (k8s watch

@@ -55,9 +55,7 @@ from kubeflow_controller_tpu_torch.cluster.store import AlreadyExists, Conflict,
 from kubeflow_controller_tpu_torch.controller.claim import claim_objects
 from kubeflow_controller_tpu_torch.controller.expectations import ControllerExpectations
 from kubeflow_controller_tpu_torch.controller.informer import Informer
-from kubeflow_controller_tpu_torch.controller.workqueue import (
-    RateLimitingQueue, ShardedRateLimitingQueue,
-)
+from kubeflow_controller_tpu_torch.controller.workqueue import RateLimitingQueue
 from kubeflow_controller_tpu_torch.obs.telemetry import registry
 from kubeflow_controller_tpu_torch.tpu import naming
 from kubeflow_controller_tpu_torch.tpu.plan import Plan, plan_job
@@ -71,6 +69,12 @@ _RUNTIME_ID_ALPHABET = string.ascii_lowercase + string.digits
 # spaces disjoint so rate-limit/expectation state never collides with a
 # same-named job.
 LMSVC_KEY_PREFIX = "lmsvc:"
+
+# Sentinel fp value for the native path: the candidate fingerprint is parked
+# inside the C++ index (oix_fp_probe), not materialized in Python; recording
+# a steady pass promotes it verbatim via oix_fp_commit.
+_NATIVE_FP = ("__native_pending__",)
+
 
 def generate_runtime_id(rng: Optional[random.Random] = None) -> str:
     """5-char random suffix, the shape of k8s SimpleNameGenerator as the
@@ -142,14 +146,34 @@ class Controller:
         self.services = service_informer
         self.lmservices = lmservice_informer
         self.opts = options or ControllerOptions()
-        # The Python workqueue and expectations: the port has no native
-        # core yet (the JAX package's C++ ones behave the same).
+        # Hot-path structures come from the C++ core when it is loadable
+        # (csrc/tpujob_native.cc); the pure-Python implementations are the
+        # behavioural reference and the fallback. TPUJOB_NATIVE=0 forces
+        # Python.
+        from kubeflow_controller_tpu_torch.native.queue import (
+            make_expectations, make_queue,
+        )
+
         if self.opts.queue_shards > 1:
+            from kubeflow_controller_tpu_torch.controller.workqueue import (
+                ShardedRateLimitingQueue,
+            )
+
             self.queue = ShardedRateLimitingQueue(
-                self.opts.queue_shards, RateLimitingQueue)
+                self.opts.queue_shards, make_queue)
         else:
-            self.queue = RateLimitingQueue()
-        self.expectations = ControllerExpectations()
+            self.queue = make_queue()
+        self.expectations = make_expectations()
+        # Native object index (cluster/store.py write-through mirror): when
+        # the client exposes one, the no-op-sync fingerprint probe runs
+        # entirely inside the C++ core — no Python pod/service traversals
+        # on a steady resync. None routes through _sync_fingerprint.
+        self._nix = getattr(client, "native_index", None)
+        # Pre-encoded constant probe arguments (the per-sync fp probe is
+        # the steady-resync hot path; encoding these 6 strings per call
+        # was measurable at 10k+ objects).
+        self._b_job_label = naming.LABEL_JOB.encode()
+        self._b_lmsvc_label = naming.LABEL_LMSERVICE.encode()
         # Ring buffer of the last 1000 traces. deque(maxlen=) trims on
         # append under the GIL — safe with concurrent workers, unlike the
         # old unlocked append + del[:-1000] pair.
@@ -214,10 +238,12 @@ class Controller:
         self.queue.add(key)
 
     def _forget_fp(self, key: str) -> None:
-        """Invalidate the steady-sync fingerprint on DELETED — a
-        recreated same-name object must never inherit a stale skip."""
+        """Invalidate the steady-sync fingerprint (both paths) on DELETED —
+        a recreated same-name object must never inherit a stale skip."""
         with self._count_lock:
             self._last_sync_fp.pop(key, None)
+        if self._nix is not None:
+            self._nix.fp_forget(key)
 
     @staticmethod
     def _owner_key(namespace: str, ref) -> Optional[str]:
@@ -418,13 +444,23 @@ class Controller:
             satisfied and not deleting
             and job.status.observed_generation == job.metadata.generation
         ):
-            fp = self._sync_fingerprint(namespace, name, job)
-            with self._count_lock:
-                if fp == self._last_sync_fp.get(key):
-                    self.syncs_skipped_noop += 1
+            if self._nix is not None:
+                if self._native_fp_probe(key, namespace, name, job):
+                    with self._count_lock:
+                        self.syncs_skipped_noop += 1
                     trace.outcome = "noop-skip"
                     return
-                self.fp_misses += 1
+                fp = _NATIVE_FP
+                with self._count_lock:
+                    self.fp_misses += 1
+            else:
+                fp = self._sync_fingerprint(namespace, name, job)
+                with self._count_lock:
+                    if fp == self._last_sync_fp.get(key):
+                        self.syncs_skipped_noop += 1
+                        trace.outcome = "noop-skip"
+                        return
+                    self.fp_misses += 1
 
         try:
             validate_job(job)
@@ -525,11 +561,20 @@ class Controller:
             fp is not None and not executed and not wrote
             and not requeued and plan.is_noop()
         ):
-            with self._count_lock:
-                self._last_sync_fp[key] = fp
+            if fp is _NATIVE_FP:
+                self._nix.fp_commit(key)
+            else:
+                with self._count_lock:
+                    self._last_sync_fp[key] = fp
 
     def fp_stats(self) -> Tuple[int, int]:
-        """(hits, misses) of the no-op-sync fingerprint probe."""
+        """(hits, misses) of the no-op-sync fingerprint probe, whichever
+        path served it. Native counters are authoritative when the C++
+        index is wired (the Python `syncs_skipped_noop`/`fp_misses` pair
+        matches them; the native pair also counts probes issued by other
+        controllers sharing the index)."""
+        if self._nix is not None:
+            return self._nix.fp_counts()
         with self._count_lock:
             return (self.syncs_skipped_noop, self.fp_misses)
 
@@ -560,6 +605,26 @@ class Controller:
         return bool(
             job.spec.runtime_id and not job.is_done()
             and not job.spec.suspend and job.worker_spec() is not None
+        )
+
+    def _native_fp_probe(
+        self, key: str, namespace: str, name: str, job: TPUJob
+    ) -> bool:
+        """Fingerprint probe through the native object index: same
+        observable world as _sync_fingerprint (job identity, owned pod and
+        service rvs by label bucket, slice health), but BOTH the pod/service
+        traversal AND the slice-health term are composed inside the C++
+        core against write-through mirrors (stores for objects, the slice
+        pool for health) — the steady probe is fully traversal-free.
+        Returns True on a steady hit; on a miss the candidate parks
+        native-side for fp_commit."""
+        meta = job.metadata
+        ident = f"{meta.uid}|{meta.resource_version}|{meta.generation}"
+        return self._nix.fp_probe_mirrored(
+            key, ident, namespace,
+            b"Pod", self._b_job_label, name,
+            b"Service", self._b_job_label, name,
+            meta.uid, self._wants_health(job),
         )
 
     def _sync_fingerprint(self, namespace: str, name: str, job: TPUJob) -> Tuple:
@@ -862,20 +927,36 @@ class Controller:
             and svc.status.observed_generation == svc.metadata.generation
         ):
             meta = svc.metadata
-            fp = (
-                meta.uid, meta.resource_version, meta.generation,
-                tuple(sorted(
-                    (p.metadata.uid, p.metadata.resource_version)
-                    for p in self.client.list_pods(
-                        namespace, {naming.LABEL_LMSERVICE: name})
-                )),
-            )
-            with self._count_lock:
-                if fp == self._last_sync_fp.get(key):
-                    self.syncs_skipped_noop += 1
+            if self._nix is not None:
+                ident = (f"{meta.uid}|{meta.resource_version}|"
+                         f"{meta.generation}")
+                if self._nix.fp_probe(
+                    key, ident, namespace,
+                    b"Pod", self._b_lmsvc_label, name,
+                    b"", b"", b"", b"-",
+                ):
+                    with self._count_lock:
+                        self.syncs_skipped_noop += 1
                     trace.outcome = "noop-skip"
                     return
-                self.fp_misses += 1
+                fp = _NATIVE_FP
+                with self._count_lock:
+                    self.fp_misses += 1
+            else:
+                fp = (
+                    meta.uid, meta.resource_version, meta.generation,
+                    tuple(sorted(
+                        (p.metadata.uid, p.metadata.resource_version)
+                        for p in self.client.list_pods(
+                            namespace, {naming.LABEL_LMSERVICE: name})
+                    )),
+                )
+                with self._count_lock:
+                    if fp == self._last_sync_fp.get(key):
+                        self.syncs_skipped_noop += 1
+                        trace.outcome = "noop-skip"
+                        return
+                    self.fp_misses += 1
 
         try:
             validate_lmservice(svc)
@@ -967,8 +1048,11 @@ class Controller:
         # its MODIFIED event re-enqueues the key with a new rv, so a
         # prematurely recorded fingerprint self-corrects on the next sync.
         if fp is not None and not executed and not wrote:
-            with self._count_lock:
-                self._last_sync_fp[key] = fp
+            if fp is _NATIVE_FP:
+                self._nix.fp_commit(key)
+            else:
+                with self._count_lock:
+                    self._last_sync_fp[key] = fp
 
     def _lmservice_pod(self, svc: LMService, index: int) -> Pod:
         """One fully-specified serving-replica pod. No scheduling_group:

@@ -39,9 +39,10 @@ def backoff_delay(
     hash of (item, failures). The jitter desynchronizes items that started
     failing together (a controller restart re-enqueues every bad key at
     once) so their retries don't thundering-herd on the same beat, while
-    staying deterministic — no RNG state, and the JAX package's C++ core
+    staying deterministic — no RNG state, and the C++ core
     (``csrc/tpujob_native.cc::BackoffDelay``) computes the identical double
-    for the identical inputs. The fleet router retries on this curve too.
+    for the identical inputs (tests/test_torch_native.py holds the two bit
+    for bit). The fleet router retries on this curve too.
     """
     exp = failures if failures < _BACKOFF_MAX_EXP else _BACKOFF_MAX_EXP
     raw = base_delay * float(2 ** exp)
@@ -263,7 +264,7 @@ class _ShardGroupSource:
 
 class ShardedRateLimitingQueue:
     """Key-range-sharded rate-limiting queue: N independent
-    RateLimitingQueues with FNV-routed
+    RateLimitingQueues (native C++ ones when available) with FNV-routed
     membership, presenting the single-queue interface.
 
     A key always maps to the same shard, so every per-key contract —

@@ -66,8 +66,6 @@ from __future__ import annotations
 import argparse
 import json
 import logging
-import signal
-import threading
 import time
 from typing import Dict, List, Optional
 
@@ -814,36 +812,38 @@ def main(argv=None) -> int:
             faults.load_plan(args.fault_plan)
         except (OSError, ValueError, KeyError, TypeError) as e:
             p.error(f"--fault-plan {args.fault_plan}: {e}")
-    # SIGTERM drains the engine and still writes the partial completions.
-    stop = threading.Event()
-    previous = signal.signal(signal.SIGTERM, lambda *_: stop.set())
+    # Two-strike SIGINT/SIGTERM (util/signals.py): the first drains the
+    # engine and the partial completions are still written; a second exits
+    # at once with code 1.
+    from kubeflow_controller_tpu_torch.util.signals import setup_signal_handler
     try:
-        metrics = serve(
-            config=args.config, input_file=args.input,
-            output_file=args.output, batch=args.batch,
-            prompt_len=args.prompt_len, max_new_tokens=args.max_new_tokens,
-            temperature=args.temperature, top_k=args.top_k,
-            top_p=args.top_p, n=args.n, grammar=args.grammar,
-            model_dir=args.model_dir, seed=args.seed, slots=args.slots,
-            eos_id=None if args.eos_id < 0 else args.eos_id,
-            deadline_s=args.deadline_s if args.deadline_s > 0 else None,
-            max_queue=args.max_queue if args.max_queue > 0 else None,
-            drain_grace_s=args.drain_grace_s,
-            prefill_mode=args.prefill_mode, block_size=args.block_size,
-            kv_pool_mb=args.kv_pool_mb if args.kv_pool_mb > 0 else None,
-            kv_quant="" if args.kv_quant == "none" else args.kv_quant,
-            speculative=args.speculative, draft_k=args.draft_k,
-            proposer=args.proposer, turns=args.turns,
-            prefix_cache=args.prefix_cache, host_kv_mb=args.host_kv_mb,
-            attn_impl=args.attn_impl, quant=args.quant, paged=args.paged,
-            tp=args.tp, tp_compute=args.tp_compute,
-            mesh_devices=args.mesh_devices, trace=args.trace,
-            disagg=args.disagg, fault_plan=args.fault_plan,
-            fault_seed=args.fault_seed,
-            watchdog_stale_s=args.watchdog_stale_s, device=args.device,
-            stop=stop)
-    finally:
-        signal.signal(signal.SIGTERM, previous)
+        stop = setup_signal_handler()
+    except RuntimeError:
+        stop = None    # the embedding process already owns signal handling
+    metrics = serve(
+        config=args.config, input_file=args.input,
+        output_file=args.output, batch=args.batch,
+        prompt_len=args.prompt_len, max_new_tokens=args.max_new_tokens,
+        temperature=args.temperature, top_k=args.top_k,
+        top_p=args.top_p, n=args.n, grammar=args.grammar,
+        model_dir=args.model_dir, seed=args.seed, slots=args.slots,
+        eos_id=None if args.eos_id < 0 else args.eos_id,
+        deadline_s=args.deadline_s if args.deadline_s > 0 else None,
+        max_queue=args.max_queue if args.max_queue > 0 else None,
+        drain_grace_s=args.drain_grace_s,
+        prefill_mode=args.prefill_mode, block_size=args.block_size,
+        kv_pool_mb=args.kv_pool_mb if args.kv_pool_mb > 0 else None,
+        kv_quant="" if args.kv_quant == "none" else args.kv_quant,
+        speculative=args.speculative, draft_k=args.draft_k,
+        proposer=args.proposer, turns=args.turns,
+        prefix_cache=args.prefix_cache, host_kv_mb=args.host_kv_mb,
+        attn_impl=args.attn_impl, quant=args.quant, paged=args.paged,
+        tp=args.tp, tp_compute=args.tp_compute,
+        mesh_devices=args.mesh_devices, trace=args.trace,
+        disagg=args.disagg, fault_plan=args.fault_plan,
+        fault_seed=args.fault_seed,
+        watchdog_stale_s=args.watchdog_stale_s, device=args.device,
+        stop=stop)
     from kubeflow_controller_tpu_torch.dataplane.dist import destroy
 
     destroy()             # leave the job's process group, if any

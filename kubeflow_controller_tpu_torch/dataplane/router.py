@@ -1044,3 +1044,47 @@ class FleetRouter:
                     for h in self._replicas.values())),
         }
 
+
+def sync_fleet_from_pods(
+    router: FleetRouter,
+    pods,
+    engine_factory: Callable[[str], ServingEngine],
+) -> Tuple[List[str], List[str]]:
+    """Converge router membership onto the control plane's view: one
+    replica per RUNNING, non-deleting pod. A pod the controller
+    recreated after a crash joins with a fresh engine; a pod that
+    vanished (chaos, scale-down) is treated as killed — its in-flight
+    requests re-dispatch. Returns (added, removed) replica names.
+
+    This is the dataplane half of the LMService reconcile loop: the
+    controller converges pods onto spec.replicas, and this converges
+    engines onto pods — both level-triggered, so calling it repeatedly
+    is idempotent.
+
+    Each pod's serving role rides on its ``naming.LABEL_ROLE`` label
+    (set by the controller from ``spec.prefill_replicas`` — see
+    ``naming.lmservice_pod_role``); pods without the label join as
+    "mixed", so pre-disaggregation controllers keep byte-identical
+    router membership."""
+    # Local import: naming sits in the control-plane layer, and the
+    # dataplane must stay importable without it at module load.
+    from kubeflow_controller_tpu_torch.tpu import naming
+    running = set()
+    roles: Dict[str, str] = {}
+    for pod in pods:
+        phase = getattr(pod.status, "phase", None)
+        if (getattr(phase, "value", phase) == "Running"
+                and pod.metadata.deletion_timestamp is None):
+            name = pod.metadata.name
+            running.add(name)
+            labels = getattr(pod.metadata, "labels", None) or {}
+            roles[name] = labels.get(naming.LABEL_ROLE, "mixed")
+    added, removed = [], []
+    for name in sorted(set(router._replicas) - running):
+        router.kill(name)
+        removed.append(name)
+    for name in sorted(running - set(router._replicas)):
+        router.add_replica(name, engine_factory(name),
+                           role=roles.get(name, "mixed"))
+        added.append(name)
+    return added, removed

@@ -8,8 +8,9 @@ start everything. Two drive modes:
 - threaded (CLI demo): ``start_threads()`` runs informer resync + N workers +
   a wall-clock ticker, the reference's goroutine topology.
 
-Counterpart of ``LocalRuntime`` in ``kubeflow_controller_tpu/runtime.py``.
-The REST-backed ``RemoteRuntime`` is not ported yet.
+Counterpart of ``kubeflow_controller_tpu/runtime.py`` (``RemoteRuntime`` and
+``LocalRuntime``); the port keeps its own copy (it imports nothing of the
+JAX package).
 """
 
 from __future__ import annotations
@@ -27,6 +28,83 @@ from kubeflow_controller_tpu_torch.controller.controller import Controller, Cont
 from kubeflow_controller_tpu_torch.controller.informer import Informer
 
 
+class RemoteRuntime:
+    """Controller wired to a cluster ONLY over the REST seam.
+
+    The operator topology of the reference's ``main()``
+    (``cmd/controller/main.go:31-52``): a controller process that talks to
+    an apiserver URL — clients built from a server address, watch-driven
+    informers, effects via HTTP. ``cluster_url`` is the ``-master``/
+    ``-kubeconfig`` analog. Namespace-scoped (one controller per
+    namespace), matching how the kubeflow operators are usually deployed.
+    """
+
+    def __init__(
+        self,
+        cluster_url: str = "",
+        namespace: str = "default",
+        token: str = "",
+        resync_period: float = 30.0,
+        watch_timeout_seconds: float = 0,
+        k8s: bool = False,
+        kube_context=None,
+    ):
+        self.namespace = namespace
+        if k8s or kube_context is not None:
+            # Real-Kubernetes wiring (the reference's actual topology:
+            # core/v1 + CRD wire JSON, kubeconfig auth, list-then-watch).
+            from kubeflow_controller_tpu_torch.cluster.kube_client import (
+                KubeClusterClient, KubeWatchSource,
+            )
+
+            self.client = KubeClusterClient(
+                cluster_url or None, token=token, namespace=namespace,
+                kube_context=kube_context,
+            )
+            self.namespace = namespace = self.client.namespace
+            self._sources = [
+                KubeWatchSource(self.client, kind, namespace,
+                                timeout_seconds=watch_timeout_seconds)
+                for kind in ("TPUJob", "Pod", "Service")
+            ]
+        else:
+            from kubeflow_controller_tpu_torch.cluster.rest_client import (
+                RestClusterClient, RestWatchSource,
+            )
+
+            self.client = RestClusterClient(cluster_url, token=token)
+            self._sources = [
+                RestWatchSource(self.client, kind, namespace,
+                                timeout_seconds=watch_timeout_seconds)
+                for kind in ("TPUJob", "Pod", "Service")
+            ]
+        job_src, pod_src, svc_src = self._sources
+        self.job_informer = Informer(job_src, resync_period)
+        self.pod_informer = Informer(pod_src, resync_period)
+        self.service_informer = Informer(svc_src, resync_period)
+        self.controller = Controller(
+            self.client,
+            self.job_informer,
+            self.pod_informer,
+            self.service_informer,
+            ControllerOptions(resync_period=resync_period),
+        )
+
+    def start(self, workers: int = 2) -> None:
+        """Sync informers over the wire, then run reconcile workers."""
+        self.controller.start()
+        self.controller.run(workers)
+
+    def drain(self) -> int:
+        """Deterministic drive (tests): controller.start() first."""
+        return self.controller.drain()
+
+    def stop(self) -> None:
+        self.controller.stop()
+        for src in self._sources:
+            src.stop()
+
+
 class LocalRuntime:
     def __init__(
         self,
@@ -39,10 +117,9 @@ class LocalRuntime:
         watch_shards: int = 8,
         injector=None,
     ):
-        # ``use_native_index``: None and False run the pure-Python
-        # fingerprint/label paths; True asks for the C++ object index,
-        # which the port does not have yet, and raises. ``queue_shards``/
-        # ``watch_shards`` size
+        # ``use_native_index``: None = auto (C++ object index when the lib
+        # loads), False = force the pure-Python fingerprint/label paths,
+        # True = require the lib. ``queue_shards``/``watch_shards`` size
         # the key-range sharding of the workqueue and the per-subscriber
         # watch delta queues.
         self.cluster = FakeCluster(

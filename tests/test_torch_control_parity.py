@@ -22,8 +22,11 @@ the sim-clock backoff poll is parked far in the future (``drain()`` fires
 sim deadlines itself), and a sync error's rate-limited retry is waited out
 before the next drain, on both sides alike.
 
-The JAX side runs as its own tests run it (the C++ object index when its
-library loads), and the seeded soup also at ``use_native_index=False``.
+Both sides take the same ``use_native_index``: the scenarios run as each
+package's own tests run them (the C++ core, workqueue, expectations and
+object index, when its library loads: the JAX package's prebuilt one, the
+port's built from its own ``csrc/tpujob_native.cc``), and the seeded soup
+also at ``use_native_index=False`` (the pure-Python paths on both sides).
 The control plane imports no torch, so neither does this file.
 """
 
@@ -36,6 +39,7 @@ import time
 import types as pytypes
 
 import pytest
+from test_torch_native import load_jax_native
 
 PACKAGES = ("kubeflow_controller_tpu", "kubeflow_controller_tpu_torch")
 SEED = 1234
@@ -112,6 +116,8 @@ class Side:
 
     def __init__(self, pkg: str, policy: dict, native=None, seed=SEED):
         self.m = _mods(pkg)
+        if pkg == PACKAGES[0] and native is not False:
+            load_jax_native()
         kw = {} if native is None else {"use_native_index": native}
         self.rt = self.m.runtime.LocalRuntime(
             self.m.cluster.PodRunPolicy(**policy), **kw)
@@ -202,7 +208,7 @@ class Side:
             return self._norm_str(v)
         return v
 
-    def snapshot(self, outcomes: bool = True) -> dict:
+    def snapshot(self) -> dict:
         c = self.rt.cluster
         by_name = lambda objs: sorted(objs, key=lambda o: o.metadata.name)  # noqa: E731
         events = []
@@ -223,18 +229,13 @@ class Side:
                                        key=lambda s: s.name)],
             "events": events,
             "queue_len": len(self.rt.controller.queue),
-            "syncs": self._syncs(outcomes),
+            "syncs": self._syncs(),
         }
 
-    def _syncs(self, outcomes: bool):
-        """The controller's syncs: their count and, with ``outcomes``,
-        the no-op fingerprint's hits and misses and each sync's key,
-        outcome and note. Against the JAX package's C++ index only the
-        count is compared: that index keeps its fingerprints across a
-        controller restart (C13)."""
+    def _syncs(self):
+        """The controller's syncs: their count, the no-op fingerprint's
+        hits and misses and each sync's key, outcome and note."""
         c = self.rt.controller
-        if not outcomes:
-            return [c.sync_count]
         return [c.sync_count, c.syncs_skipped_noop, c.fp_misses,
                 list(c.fp_stats()),
                 [[self.norm(t.key), t.outcome, t.note, t.error]
@@ -360,14 +361,17 @@ def act(side: Side, action: tuple):
 def run_parity(actions, policy, native=None):
     """Drive both packages through ``actions``; compare after each one."""
     jax_side = Side(PACKAGES[0], policy, native=native)
-    port_side = Side(PACKAGES[1], policy)
-    outcomes = getattr(jax_side.rt.controller, "_nix", None) is None
+    port_side = Side(PACKAGES[1], policy, native=native)
     try:
-        assert jax_side.snapshot(outcomes) == port_side.snapshot(outcomes)
+        # Both sides took the same path: the C++ index on both, or on
+        # neither.
+        assert ((getattr(jax_side.rt.controller, "_nix", None) is None)
+                == (getattr(port_side.rt.controller, "_nix", None) is None))
+        assert jax_side.snapshot() == port_side.snapshot()
         for i, action in enumerate(actions):
             act(jax_side, action)
             act(port_side, action)
-            a, b = jax_side.snapshot(outcomes), port_side.snapshot(outcomes)
+            a, b = jax_side.snapshot(), port_side.snapshot()
             if a != b:
                 diff = {k: (a[k], b[k]) for k in a if a[k] != b[k]}
                 pytest.fail(f"snapshots differ after action {i} {action}: "
@@ -631,39 +635,77 @@ def test_seeded_soup_snapshots_equal(native):
 
 
 def test_native_fingerprints_outlive_a_controller_restart():
-    """C13, a behaviour of the JAX package's C++ index that the port does
-    not copy: the index lives with the cluster, so a restarted controller
-    inherits its predecessor's committed fingerprints (its first resync of
-    a steady job is a no-op skip) and ``fp_stats()`` its hits and misses.
-    The port's controller (and the JAX Python path's) starts again from
-    nothing: its first sync after the restart runs in full."""
+    """C13: the C++ object index lives with the cluster, so a restarted
+    controller inherits its predecessor's committed fingerprints: its first
+    resync of a steady job is a no-op skip, and ``fp_stats()`` keeps the
+    hits and misses. The port's native core does the same as the JAX
+    package's; on the pure-Python paths both restarted controllers start
+    again from nothing, and their first sync runs in full."""
     acts = [("pools", {"v5p-8": 1}), ("submit", {"name": "j"}),
             ("step", 1.0, 4), ("resync", "all"), ("drain",),
             ("restart_controller",), ("poke", "default/j")]
     policy = {"start_delay": 1, "run_duration": 1e9}
-    sides = [Side(PACKAGES[0], policy), Side(PACKAGES[0], policy, native=False),
-             Side(PACKAGES[1], policy)]
+    sides = [Side(pkg, policy, native=native)
+             for native in (True, False) for pkg in PACKAGES]
     try:
         for side in sides:
             for a in acts:
                 act(side, a)
-        assert getattr(sides[0].rt.controller, "_nix", None) is not None
+        nix = [getattr(s.rt.controller, "_nix", None) is not None for s in sides]
+        assert nix == [True, True, False, False]
         stats = [s.rt.controller.fp_stats() for s in sides]
         first = [s.rt.controller.traces[0].outcome for s in sides]
-        assert stats[0][0] > 0 and first[0] == "noop-skip"
-        assert stats[1] == stats[2] == (0, 1)
-        assert first[1] == first[2] == "steady"
+        assert stats[0] == stats[1] and stats[0][0] > 0
+        assert first[0] == first[1] == "noop-skip"
+        assert stats[2] == stats[3] == (0, 1)
+        assert first[2] == first[3] == "steady"
+        assert sides[0].snapshot() == sides[1].snapshot()
+        assert sides[2].snapshot() == sides[3].snapshot()
     finally:
         for side in sides:
             side.rt.stop()
 
 
 def test_port_refuses_the_native_index():
-    """The port has no native object index: asking for it raises, as the
-    JAX package does without its library; it never runs the Python index
-    under that flag."""
+    """``use_native_index=True`` runs the port's C++ core (the cluster's
+    index, the controller's queue and expectations and its probe); under
+    ``TPUJOB_NATIVE=0`` it raises, as the JAX package does without its
+    library, and never runs the Python index under that flag."""
+    import os
+    import subprocess
+    import sys
+
     m = _mods(PACKAGES[1])
-    with pytest.raises(RuntimeError, match="native object index"):
-        m.runtime.LocalRuntime(use_native_index=True)
-    with pytest.raises(RuntimeError, match="native object index"):
-        m.cluster.FakeCluster(use_native_index=True)
+    from kubeflow_controller_tpu_torch.native.objindex import NativeObjectIndex
+    from kubeflow_controller_tpu_torch.native.queue import (
+        NativeControllerExpectations, NativeRateLimitingQueue,
+    )
+
+    rt = m.runtime.LocalRuntime(use_native_index=True)
+    try:
+        assert isinstance(rt.cluster.native_index, NativeObjectIndex)
+        assert rt.controller._nix is rt.cluster.native_index
+        assert isinstance(rt.controller.queue, NativeRateLimitingQueue)
+        assert isinstance(rt.controller.expectations,
+                          NativeControllerExpectations)
+    finally:
+        rt.stop()
+    code = (
+        "from kubeflow_controller_tpu_torch.runtime import LocalRuntime\n"
+        "from kubeflow_controller_tpu_torch.cluster.cluster import FakeCluster\n"
+        "for make in (LocalRuntime, FakeCluster):\n"
+        "    try:\n"
+        "        make(use_native_index=True)\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'native object index' in str(e), e\n"
+        "        assert 'TPUJOB_NATIVE=0' in str(e), e\n"
+        "    else:\n"
+        "        raise SystemExit('no error')\n"
+        "rt = LocalRuntime()\n"
+        "assert rt.cluster.native_index is None and rt.controller._nix is None\n"
+        "print('ok')\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=root,
+                          env={**os.environ, "TPUJOB_NATIVE": "0"},
+                          capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr

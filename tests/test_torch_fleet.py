@@ -474,3 +474,83 @@ def test_membership_checks_and_names_equal_jax():
         with pytest.raises(RuntimeError, match="did not go idle"):
             r.get_replica("a").engine.wedged = True
             r.run_until_idle(max_steps=3)
+
+
+# -- sync_fleet_from_pods: the control plane's pods become replicas ----------
+
+
+def _lms_sync_run(pkg_name, replicas, prefill):
+    """One package's LocalRuntime serving an LMService, and its router
+    synced from the service's pods: after the pods first run, again with
+    nothing changed, after a crash of the first decode pod (the controller
+    deletes and recreates it), and after the recreated pod runs. The
+    cases of tests/test_fleet.py:500-525 and tests/test_disagg.py:449-503.
+    Returns every sync's (added, removed) with the router's membership
+    and roles after it."""
+    import importlib
+    import random
+
+    imp = importlib.import_module
+    pkg = PORT if pkg_name.endswith("_torch") else JAX
+    core, types = imp(f"{pkg_name}.api.core"), imp(f"{pkg_name}.api.types")
+    naming = imp(f"{pkg_name}.tpu.naming")
+    rt = imp(f"{pkg_name}.runtime").LocalRuntime(
+        default_policy=imp(f"{pkg_name}.cluster.cluster").PodRunPolicy(
+            start_delay=0.1, run_duration=1e9))
+    rt.controller.opts.rng = random.Random(3)    # the same runtime ids
+    clock = Clock()
+    router = pkg.router.FleetRouter(clock=clock, block_size=4)
+
+    def engine(name):
+        eng = FakeEngine(pkg, clock)
+        eng.prefill_mode = "bucketed"
+        return eng
+
+    def pods():
+        return sorted(rt.client.list_pods(
+            "default", {naming.LABEL_LMSERVICE: "chat"}),
+            key=lambda p: p.metadata.name)
+
+    def sync():
+        added, removed = pkg.router.sync_fleet_from_pods(router, pods(), engine)
+        return (added, removed, sorted((h.name, h.role) for h in router.replicas),
+                router.two_stage)
+
+    try:
+        rt.submit_lmservice(types.LMService(
+            metadata=core.ObjectMeta(name="chat", namespace="default"),
+            spec=types.LMServiceSpec(model="tiny", replicas=replicas,
+                                     prefill_replicas=prefill)))
+        assert rt.run_until(lambda: (
+            (s := rt.get_lmservice("default", "chat")) is not None
+            and s.status.ready_replicas == replicas))
+        out = [sync(), sync()]
+        victim = next(p.metadata.name for p in pods()
+                      if p.metadata.labels[naming.LABEL_ROLE] != "prefill")
+        rt.cluster.crash_pod("default", victim)
+        rt.controller.drain()
+        out.append(sync())
+        assert rt.run_until(lambda: len(pods()) == replicas and all(
+            p.status.phase.value == "Running" for p in pods()))
+        out.append(sync())
+    finally:
+        rt.stop()
+    return victim, out
+
+
+@pytest.mark.parametrize("replicas,prefill", [(2, 0), (3, 1)],
+                         ids=["mixed_pair", "one_prefill_two_decode"])
+def test_sync_fleet_from_pods_equals_jax(replicas, prefill):
+    victim, port = _lms_sync_run("kubeflow_controller_tpu_torch", replicas, prefill)
+    jvictim, jax = _lms_sync_run("kubeflow_controller_tpu", replicas, prefill)
+    assert (victim, port) == (jvictim, jax)
+    first, again, crashed, back = port
+    assert len(first[0]) == replicas and not first[1]
+    assert again[:2] == ([], [])
+    assert crashed[:2] == ([], [victim])
+    assert back[:2] == ([victim], [])
+    assert back[2] == first[2] and len(back[2]) == replicas
+    roles = sorted(role for _, role in first[2])
+    assert roles == (["decode", "decode", "prefill"] if prefill
+                     else ["mixed", "mixed"])
+    assert first[3] == bool(prefill)
