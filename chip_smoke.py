@@ -3213,6 +3213,74 @@ def fleet_phase(smi):
     return runs
 
 
+#: The slot-path check: llama3_8b at 2 of its 32 layers (full width, bf16),
+#: 4 requests of 256 prompt tokens (the flash kernels' shortest prompt)
+#: and 16 new ones.
+SLOT_CHECK_CONFIG = "llama3_8b_2l"
+
+
+def slot_path_check(smi):
+    """The contiguous per-slot reference path on the card
+    (``generate.prefill_into_slot`` a request, then
+    ``decode_step_slots``, greedy; plain PyTorch, B1 in each admission's
+    block prefill) beside the paged engine on the same prompts (bucketed
+    prefill: B6 a chunk and layer, B5 a decode micro-step and layer):
+    every stream equal, or off only after a near-tie. Returns the engine's
+    launches."""
+    import numpy as np
+    import torch
+
+    from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
+        Request, ServingEngine,
+    )
+    from kubeflow_controller_tpu_torch.models import generate as gen
+
+    cfg = _case_config(SLOT_CHECK_CONFIG)
+    params = gen.init_inference_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(23)
+    plen, new = 256, 16
+    prompts = {i: rng.integers(0, cfg.vocab_size, plen).astype(np.int32) for i in range(4)}
+
+    def slots():
+        cache = gen.init_slot_cache(cfg, len(prompts), plen + new, device="cuda")
+        rows = []
+        for i, p in prompts.items():
+            lg, cache = gen.prefill_into_slot(
+                cfg, params, torch.from_numpy(p[None]).cuda(), cache, i)
+            rows.append(lg)
+        logits, toks = torch.cat(rows), []
+        for _ in range(new):
+            tok = logits.argmax(-1).to(torch.int32)
+            toks.append(tok)
+            logits, cache = gen.decode_step_slots(cfg, params, tok[:, None], cache)
+        out = torch.stack(toks, 1).cpu().numpy()
+        return {i: list(map(int, out[i])) for i in prompts}
+
+    slot, slot_wall, slot_launches = _counted(slots)
+    eng = ServingEngine(cfg, params, n_slots=4, max_seq=plen + new, prefill_mode="bucketed",
+                        block_size=16, device="cuda")
+    comps, wall, launches = _counted(lambda: eng.run(
+        [Request(rid=i, prompt=p, max_new_tokens=new) for i, p in prompts.items()]))
+    paged = {c.rid: list(map(int, c.tokens)) for c in comps}
+    want_chunk = len(prompts) * plen // 16 * cfg.n_layers
+    if (slot_launches["paged_chunk"] or slot_launches["paged_decode"]
+            or slot_launches["flash_fwd"] != len(prompts) * cfg.n_layers
+            or launches["paged_chunk"] != want_chunk or not launches["paged_decode"]
+            or launches["paged_decode"] % cfg.n_layers or launches["flash_fwd"]):
+        raise AssertionError(f"slot path: launches {slot_launches} (want flash_fwd "
+                             f"{len(prompts) * cfg.n_layers}, no paged kernel); engine "
+                             f"{launches} (want paged_chunk {want_chunk})")
+    _check_streams("slot path", slot, sorted(prompts), new, cfg.vocab_size)
+    gaps = _first_divergence_gaps(params, slot, paged, _stream_context(prompts, slot), cfg)
+    _check_near_ties("slot path vs paged engine", gaps, len(slot))
+    log(f"slot path ({SLOT_CHECK_CONFIG}, 4 requests of {plen} + {new}, {smi}): slot decode "
+        f"wall {slot_wall} s, launches {slot_launches}; paged engine wall {wall} s, "
+        f"launches {launches}")
+    del params, eng
+    torch.cuda.empty_cache()
+    return {"slot": slot_launches, "paged": launches}
+
+
 def _kernel_bucket(name: str) -> str:
     if "flash_bwd_wgmma" in name and ("false>" in name or "Lb0E" in name):
         return "flash_bwd_kv"          # the warpgroup kernel without dQ: B3
@@ -5639,6 +5707,17 @@ def dist_phase(smi, labels=None):
 
 # -- tensor- and expert-parallel serving over a two-rank gang -----------------
 
+#: The tp fleet's fault plan: a refused intake (prefill-0, rid 2), a refused
+#: install (decode-0, rid 5), a payload lost in flight (rid 1) and an ACK
+#: lost (rid 3, re-sent and deduplicated), each once.
+TP_FLEET_PLAN = {"specs": [
+    {"kind": "refuse_admit", "site": "engine.submit", "target": "prefill-0", "rid": 2,
+     "max_fires": 1},
+    {"kind": "refuse_admit", "site": "engine.admit_migrated", "target": "decode-0",
+     "rid": 5, "max_fires": 1},
+    {"kind": "drop_migration", "site": "router.migrate", "rid": 1, "max_fires": 1},
+    {"kind": "drop_migration", "site": "router.migrate_ack", "rid": 3, "max_fires": 1}]}
+
 #: The tp gang's cases, each served at tp=2 through the controller's env
 #: (``initialize_from_env``): ``via`` "serve" through ``serve()``, "engine"
 #: through ``ServingEngine``, "logits" a prefill and decode tail. Each is
@@ -5684,7 +5763,31 @@ TP_SERVE_CASES = [
          tp_compute="parallel", yardstick="rank0", exact=True,
          serve_kw=dict(batch=4, slots=4, prompt_len=256, max_new_tokens=8,
                        block_size=16)),
+    # The fleet over the gang: serve(disagg=True) at tp=2, each rank running
+    # prefill-0 and decode-0 on its head group, held to the first 8 streams
+    # of the single-engine parallel case above (its first 8 prompts), then
+    # the same run under a fault plan.
+    dict(label=f"{SERVE_CONFIG}.parallel.disagg", config=SERVE_CONFIG, via="serve",
+         tp_compute="parallel", yardstick=f"tp:{SERVE_CONFIG}.parallel.bucketed",
+         exact=False, fleet=True,
+         serve_kw=dict(batch=8, slots=8, prompt_len=256, max_new_tokens=32,
+                       block_size=16, disagg=True)),
+    dict(label=f"{SERVE_CONFIG}.parallel.disagg.faults", config=SERVE_CONFIG, via="serve",
+         tp_compute="parallel", yardstick=f"tp:{SERVE_CONFIG}.parallel.bucketed",
+         exact=False, fleet=True, fault_plan=TP_FLEET_PLAN,
+         serve_kw=dict(batch=8, slots=8, prompt_len=256, max_new_tokens=32,
+                       block_size=16, disagg=True, fault_seed=0, watchdog_stale_s=30.0)),
 ]
+#: What the plan's run books: each spec fires once; the lost ACK's re-send
+#: is one dedup; the two lost hops are migration timeouts.
+TP_FLEET_FIRES = {"faults.engine.submit.refuse_admit": 1.0,
+                  "faults.engine.admit_migrated.refuse_admit": 1.0,
+                  "faults.router.migrate.drop_migration": 1.0,
+                  "faults.router.migrate_ack.drop_migration": 1.0,
+                  "faults_total": 4.0, "migrate_dedups": 1.0, "migration_timeouts": 2.0}
+#: The fleet summary keys a tp fleet case records (rank for rank).
+TP_FLEET_KEYS = ("migrations", "pages_migrated", "migration_bytes", "migration_timeouts",
+                 "migrate_dedups", "faults_injected", "faults_total")
 #: Parallel logits (bf16) against one device's, relative L2 over the
 #: vocabulary: each layer's two tp sums round the ranks' bf16 partials
 #: where one device rounds its whole product once, an error of the order
@@ -5711,16 +5814,25 @@ def _tp_requests(case, vocab):
 
 
 class _EngineTap:
-    """Inside the block, every ``ServingEngine`` step's completions and
-    the last engine made (``serve()`` keeps both to itself)."""
+    """Inside the block, every ``ServingEngine`` step's completions, the
+    last engine made and the ``FleetRouter`` steps taken (``serve()``
+    keeps them to itself)."""
 
     def __enter__(self):
+        from kubeflow_controller_tpu_torch.dataplane import router as rt
         from kubeflow_controller_tpu_torch.dataplane import serving_engine as se
 
-        self.completions, self.engine = [], None
+        self.completions, self.engine, self.router_steps = [], None, 0
         self._cls, self._step, self._init = se.ServingEngine, se.ServingEngine.step, \
             se.ServingEngine.__init__
+        self._router_step = rt.FleetRouter.step
         tap = self
+
+        def router_step(router):
+            tap.router_steps += 1
+            return tap._router_step(router)
+
+        rt.FleetRouter.step = router_step
 
         def init(eng, *a, **kw):
             tap._init(eng, *a, **kw)
@@ -5735,7 +5847,10 @@ class _EngineTap:
         return self
 
     def __exit__(self, *exc):
+        from kubeflow_controller_tpu_torch.dataplane import router as rt
+
         self._cls.__init__, self._cls.step = self._init, self._step
+        rt.FleetRouter.step = self._router_step
 
 
 def _tp_engine_record(eng, res, wall, launches, streams, device):
@@ -5750,8 +5865,9 @@ def _tp_engine_record(eng, res, wall, launches, streams, device):
                    "ttft_p50_ms", "ttft_p95_ms", "tpot_p50_ms", "tokens_per_sec",
                    "prefill_chunks", "spec_steps", "draft_accepted", "draft_proposed",
                    "spilled_pages", "rehydrate_hits", "requests", "tp",
-                   "kv_hbm_per_device_mb", "moe_experts_per_shard")
-                  if k in res})
+                   "kv_hbm_per_device_mb", "moe_experts_per_shard", *TP_FLEET_KEYS)
+                  if k in res},
+               **{k: v for k, v in res.items() if k.startswith("faults.")})
     if eng is not None:
         rec["resident_weight_bytes"] = _weight_bytes(eng.params)
         rec["traffic_model_weight_bytes"] = eng._weights_model()[0]
@@ -5867,13 +5983,30 @@ def _tp_case(ctx, case, device, mesh):
         if "input_file" in kw:
             kw["input_file"] = os.path.join(OUT_DIR, kw["input_file"])
 
+        if case.get("fleet"):
+            # Rank 0 alone writes the trace; each rank reads its own copy
+            # of the plan.
+            kw["trace"] = _tp_trace_path(case)
+            if case.get("fault_plan"):
+                kw["fault_plan"] = os.path.join(OUT_DIR, "tp_serve",
+                                                f"{case['label']}.plan-{rank}.json")
+                with open(kw["fault_plan"], "w") as f:
+                    json.dump(case["fault_plan"], f)
+
         def run(**extra):
+            from kubeflow_controller_tpu_torch.obs.telemetry import registry
+
             torch.cuda.reset_peak_memory_stats(device)
+            agreed = registry().counter("agreed_broadcasts", "dataplane")
+            b0 = agreed.value
             with _EngineTap() as tap:
                 res, wall, launches = _counted(lambda: serve(
                     config=case["config"], quant=quant, device=str(device), **kw, **extra))
             streams = {c.rid: list(map(int, c.tokens)) for c in tap.completions}
             out = _tp_engine_record(tap.engine, res, wall, launches, streams, device)
+            if case.get("fleet"):
+                out.update(router_steps=tap.router_steps,
+                           agreed_broadcasts=agreed.value - b0)
             del tap
             return out
 
@@ -5911,6 +6044,78 @@ def _tp_case(ctx, case, device, mesh):
     torch.cuda.empty_cache()
     rec["case_s"] = time.perf_counter() - t0
     return rec
+
+
+def _tp_trace_path(case):
+    return os.path.join(OUT_DIR, "tp_serve", f"{case['label']}.trace.json")
+
+
+def _tp_fleet_hold(case, recs, n_layers):
+    """A tp fleet case's books and launches, rank for rank: every rank's
+    fleet summary and fault ledger the same (rank 0's decisions), the
+    plan's fires exact; rank 0's trace with each rid's migration stitched
+    (one install and one router hop a rid, an export for each attempt
+    that reached one); B1 none, B6 the 8 prompts' chunks x the layers
+    (prefill-0), B5 decode-0's dispatches (from rank 0's trace) x 4 x the
+    layers, on every rank."""
+    from kubeflow_controller_tpu_torch.obs.trace import load_chrome_trace
+
+    label = case["label"]
+    keys = [k for k in recs[0] if k in TP_FLEET_KEYS or k.startswith("faults.")]
+    if any({k: rec.get(k) for k in keys} != {k: recs[0].get(k) for k in keys}
+           for rec in recs[1:]):
+        raise AssertionError(f"tp[{label}]: the ranks' fleet books differ: "
+                             f"{[{k: rec.get(k) for k in keys} for rec in recs]}")
+    kw = case["serve_kw"]
+    n = kw["batch"]
+    if recs[0]["migrations"] != n:
+        raise AssertionError(f"tp[{label}]: {recs[0]['migrations']} migrations, want {n}")
+    if case.get("fault_plan"):
+        got = {k: recs[0].get(k) for k in TP_FLEET_FIRES}
+        if got != TP_FLEET_FIRES:
+            raise AssertionError(f"tp[{label}]: fires and books {got}, want {TP_FLEET_FIRES}")
+    doc = load_chrome_trace(_tp_trace_path(case))
+    per_rid = {}
+    for e in doc["traceEvents"]:
+        rid = e.get("args", {}).get("rid")
+        if rid is not None and e["name"] in ("migrate_export", "migrate_install",
+                                             "migrate"):
+            per_rid.setdefault(rid, {}).setdefault(e["name"], 0)
+            per_rid[rid][e["name"]] += 1
+    want_rids = sorted(map(str, range(n)))
+    exact = not case.get("fault_plan")
+    if sorted(per_rid) != want_rids or any(
+            v.get("migrate_install") != 1 or v.get("migrate") != 1
+            or not v.get("migrate_export")
+            or (exact and v.get("migrate_export") != 1) for v in per_rid.values()):
+        raise AssertionError(f"tp[{label}]: rank 0's per-rid migration spans {per_rid}")
+    dispatches = sum(1 for e in doc["traceEvents"]
+                     if e.get("name") == "dispatch" and e.get("cat") == "dataplane")
+    pages = -(-kw["prompt_len"] // kw["block_size"])
+    chunks = n * pages
+    # Every request ships its whole prompt (no prefix is shared); a rank
+    # ships its head group and books whole pages. Under the plan the
+    # refused install's request ships again; the lost ACK's re-send finds
+    # its pages in the receiver's trie and ships pointers.
+    shipped = chunks + (pages if case.get("fault_plan") else 0)
+    page = _page_bytes(_case_config(case["config"]))
+    if (recs[0]["pages_migrated"], recs[0]["migration_bytes"]) != (chunks, shipped * page):
+        raise AssertionError(f"tp[{label}]: {recs[0]['pages_migrated']} pages installed, "
+                             f"{recs[0]['migration_bytes']} B shipped; want {chunks}, "
+                             f"{shipped * page}")
+    want = {"flash_fwd": 0, "paged_chunk": chunks * n_layers,
+            "paged_decode": dispatches * 4 * n_layers}
+    for r, rec in enumerate(recs):
+        got = {k: rec["launches"][k] for k in want}
+        if got != want:
+            raise AssertionError(f"tp[{label}] rank {r}: launches {got}, want {want} "
+                                 f"({dispatches} decode dispatches in rank 0's trace)")
+    log(f"tp[{label}]: launches a rank {want} (predicted: B6 {chunks} chunks x "
+        f"{n_layers}, B5 {dispatches} dispatches x 4 x {n_layers}); agreed broadcasts "
+        f"{[rec['agreed_broadcasts'] for rec in recs]} over "
+        f"{[rec['router_steps'] for rec in recs]} router steps "
+        f"({recs[0]['agreed_broadcasts'] / max(1, recs[0]['router_steps'])} a step); "
+        f"books {({k: recs[0].get(k) for k in keys})}; per-rid spans stitched on rank 0")
 
 
 def _tp_probe(device):
@@ -6047,12 +6252,13 @@ def tp_serve_phase(smi, serve_runs, labels=None):
         label = case["label"]
         recs = [rk["cases"][label] for rk in ranks]
         records[label] = recs
-        _tp_hold(case, recs, serve_runs, smi)
+        _tp_hold(case, recs, serve_runs, smi, records)
     return records
 
 
-def _tp_hold(case, recs, serve_runs, smi):
-    """Hold one case's ranks to each other and to the one-process run."""
+def _tp_hold(case, recs, serve_runs, smi, records=None):
+    """Hold one case's ranks to each other and to the one-process run
+    (a fleet case: to an earlier case of the gang, ``records``)."""
     label = case["label"]
     cfg = _case_config(case["config"])
     n_layers = cfg.n_layers
@@ -6073,6 +6279,19 @@ def _tp_hold(case, recs, serve_runs, smi):
         raise AssertionError(f"tp[{label}]: the ranks' completions differ")
     got = {int(k): v for k, v in recs[0]["streams"].items()}
     yard = case["yardstick"]
+    if yard.startswith("tp:"):
+        # The single-engine tp=2 case's streams of the same prompts.
+        base = records[yard[3:]][0]
+        want = {r: v for r, v in ((int(k), v) for k, v in base["streams"].items())
+                if r in got}
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"tp[{label}]: requests {sorted(got)} vs {sorted(want)}")
+        _tp_fleet_hold(case, recs, n_layers)
+        gaps = _first_divergence_gaps(_case_params(case), want, got,
+                                      _stream_context(_tp_prompts(case, cfg), want), cfg)
+        _check_near_ties(f"tp[{label}] vs {yard[3:]}", gaps, len(got))
+        _drop_case_params()
+        return
     if yard == "rank0":
         one = recs[0]["one_process"]
         want, one_launches = {int(k): v for k, v in one["streams"].items()}, one["launches"]
@@ -6714,6 +6933,7 @@ def _phases(aot) -> int:
     moe_runs = phase("moe", moe_phase, smi)
     prefix_runs = phase("prefix", prefix_phase, smi)
     fleet_runs = phase("fleet", fleet_phase, smi)
+    slot_runs = phase("slot path", slot_path_check, smi)
     phase("logits", logits_phase)
     train_runs = phase("train", train_phase, smi)
     phase("checkpoint", checkpoint_phase, smi)
@@ -6755,6 +6975,8 @@ def _phases(aot) -> int:
         # fleet and served (fleet_phase's lmservice).
         line["kernels"][-1]["control_runs_launches"] = {
             "lmservice": fleet_runs["lmservice"][1][name]}
+        # The paged engine beside the slot path (slot_path_check).
+        line["kernels"][-1]["slot_check_launches"] = slot_runs["paged"][name]
         # The weight-only int8 runs' launches (exact, bucketed with lookup
         # speculation, int8 KV).
         line["kernels"][-1]["int8_serve_launches"] = {

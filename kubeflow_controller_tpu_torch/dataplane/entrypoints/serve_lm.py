@@ -57,8 +57,8 @@ router's progress watchdog (``--disagg`` only):
 Runs on ``cuda``; ``--device cpu`` runs the plain PyTorch versions on
 the CPU. The command line takes every option of the JAX entry point's,
 with its default (``--attn-impl`` also takes the JAX names ``xla`` and
-``pallas``). In a tp gang, ``--disagg`` and ``--fault-plan`` are refused
-with "not yet ported".
+``pallas``). ``--disagg`` and ``--fault-plan`` serve at ``--tp`` > 1 in a
+gang too: every rank runs the fleet on rank 0's clock.
 """
 
 from __future__ import annotations
@@ -93,7 +93,9 @@ FLEET_SUMMARY_KEYS = (
 class _RelClock:
     """The fault injector's clock: ``perf_counter`` rebased to the first
     fault-site check, so a plan's windows are seconds from when serving
-    starts stepping (not since boot, and not spent on the set-up)."""
+    starts stepping (not since boot, and not spent on the set-up). In a
+    tp gang it is read through an ``AgreedClock``, so every rank gets
+    rank 0's reading, rebased on rank 0's first check."""
 
     t0 = None
 
@@ -302,8 +304,10 @@ def serve(
     (seeded by ``fault_seed``, on ``perf_counter`` rebased to its first
     check) in every engine, tier and the router; its fire counts join
     the summary. ``watchdog_stale_s > 0`` is the router's progress
-    watchdog (needs ``disagg``). In a tp gang ``disagg`` and
-    ``fault_plan`` raise "not yet ported", and rank 0 alone traces.
+    watchdog (needs ``disagg``). In a tp gang every rank runs the fleet
+    over its rank's engines (a rank migrates its own head group of the
+    pages), the router and the injector read rank 0's clock (an
+    ``AgreedClock``), ``stop`` is rank 0's, and rank 0 alone traces.
 
     ``stop`` (a ``threading.Event``) drains the engine within
     ``drain_grace_s`` and still writes the partial completions (and
@@ -313,7 +317,7 @@ def serve(
     from kubeflow_controller_tpu_torch.dataplane import metrics as metrics_mod
     from kubeflow_controller_tpu_torch.dataplane import sampling
     from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
-        Rejected, Request, ServingEngine,
+        AgreedClock, Rejected, Request, ServingEngine,
     )
     from kubeflow_controller_tpu_torch.dataplane.router import FleetRouter
     from kubeflow_controller_tpu_torch.models import generate as gen
@@ -321,13 +325,11 @@ def serve(
 
     # The reference's checks, in its order, before any weights load.
     tracer = Tracer(path=trace) if trace else None
-    injector = None
+    plan = None
     if fault_plan:
         from kubeflow_controller_tpu_torch.dataplane import faults
 
-        injector = faults.FaultInjector(
-            faults.load_plan(fault_plan), clock=_RelClock(),
-            seed=fault_seed, tracer=tracer)
+        plan = faults.load_plan(fault_plan)
     if watchdog_stale_s < 0:
         raise ValueError(
             f"--watchdog-stale-s must be >= 0 (got {watchdog_stale_s})")
@@ -366,11 +368,6 @@ def serve(
             "top-k/top-p serve through the engine; the contiguous "
             "multi-turn path (--turns without --prefix-cache) supports "
             "temperature only")
-    for asked, what in ((disagg, "disagg"), (fault_plan, "fault_plan")):
-        if asked and tp > 1:
-            raise NotImplementedError(
-                f"serve({what}=...) over a tensor-parallel gang is not yet "
-                f"ported to the PyTorch entry point (see ROADMAP.md)")
     cfg = model_config(config)
     # The head split is checked before anything loads or joins a group.
     gen.check_tp_heads(cfg, tp, tp_compute)
@@ -384,6 +381,14 @@ def serve(
     rank0 = mesh is None or mesh.rank == 0
     if not rank0:
         tracer = None                # rank 0 writes the trace
+    # In a gang the fault windows and the router read rank 0's clock at
+    # every read, so that every rank fires, parks, sheds and strikes out
+    # alike.
+    injector = None
+    if plan is not None:
+        injector = faults.FaultInjector(
+            plan, clock=AgreedClock(_RelClock(), mesh), seed=fault_seed,
+            tracer=tracer)
     params, restored_step = _load_params(cfg, model_dir or ctx.model_dir,
                                          seed, dev, quant)
     if not gen.weight_quant(params):
@@ -433,8 +438,8 @@ def serve(
         req_params = _request_params(cfg, temperature, top_k, top_p, n,
                                      seed, grammar, eos_id)
         router = FleetRouter(
-            clock=time.perf_counter, block_size=block_size, tracer=tracer,
-            injector=injector,
+            clock=AgreedClock(time.perf_counter, mesh),
+            block_size=block_size, tracer=tracer, injector=injector,
             watchdog_stale_s=(watchdog_stale_s if watchdog_stale_s > 0
                               else None))
         router.add_replica("prefill-0", engines["prefill-0"], role="prefill")
@@ -448,7 +453,7 @@ def serve(
         max_steps = 2 * (b * n * (max_new_tokens + chunks) + 2 * b * n + 4)
         completions = []
         for _ in range(max_steps):
-            if stop is not None and stop.is_set():
+            if stop is not None and engine.agreed_flag(stop.is_set()):
                 logger.info("stop requested: draining fleet (grace %.1fs)",
                             drain_grace_s)
                 for e in engines.values():

@@ -183,7 +183,14 @@ class FaultInjector:
     the process registry, lands a ``fault_injected`` event on the
     tracer (site, kind, rid, target), and counts into
     :meth:`summary` so chaos runs are attributable in the stitched
-    trace."""
+    trace.
+
+    Over a tensor-parallel gang each rank holds its own injector over
+    the same plan and seed, on an
+    :class:`~..serving_engine.AgreedClock` (rank 0's reading at every
+    check): with the ranks making the same checks in the same order,
+    every rank fires the same specs at the same sites, and every rank's
+    ledger is rank 0's."""
 
     def __init__(self, plan: Optional[FaultPlan] = None,
                  clock: Callable[[], float] = None,

@@ -50,6 +50,14 @@ The router is deliberately single-threaded and clock-driven (share
 ``clock`` with the engines for simulated time): `step()` is the only
 place completions surface and retries fire, which is what makes the
 accounting assertions exact.
+
+Over a tensor-parallel gang (one process a tp rank, each running this
+router over its own rank's engines) every rank must take the same
+decisions in the same order, or the ranks' next collectives pair up
+wrongly: ``clock`` is then a :class:`~..serving_engine.AgreedClock`
+(rank 0's reading at every read; rank 0's tracer stamps spans from its
+``local`` clock). One thread steps the replicas in registration order,
+so their collectives are issued in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -153,6 +161,11 @@ class FleetRouter:
         watchdog_stale_s: Optional[float] = None,
     ):
         self._clock = clock
+        # The clock span times are read from. Over a tp gang's engines
+        # ``clock`` is an AgreedClock, a collective every rank reads
+        # alike, and only rank 0 traces: its spans read this rank's own
+        # clock, never the agreed one.
+        self._tclock = getattr(clock, "local", clock)
         # Optional obs.Tracer: dispatch/failover/park/outcome spans on
         # the "router" track, keyed by rid — the same rid string the
         # engines use, so a fleet request's hops stitch into one trace
@@ -455,7 +468,7 @@ class FleetRouter:
             return
         tried = set(exclude)
         tr = self._tracer
-        t0 = self._clock() if tr is not None else 0.0
+        t0 = self._tclock() if tr is not None else 0.0
         while True:
             h = self._route(req, frozenset(tried))
             if h is None:
@@ -497,7 +510,7 @@ class FleetRouter:
             self._assigned[rid] = h.name
             self._record_owner(req, h.name)
             if tr is not None:
-                tr.add_span("dispatch", t0, self._clock(),
+                tr.add_span("dispatch", t0, self._tclock(),
                             track="router", rid=str(rid),
                             replica=h.name, attempt=attempt)
             return
@@ -535,7 +548,7 @@ class FleetRouter:
                 self.prefix_pull_bytes += payload.nbytes
                 if self._tracer is not None:
                     self._tracer.add_event(
-                        "prefix_pull", self._clock(), track="router",
+                        "prefix_pull", self._tclock(), track="router",
                         rid=str(req.rid), src=owner, dst=h.name,
                         pages=pages, bytes=payload.nbytes)
             return

@@ -97,8 +97,15 @@ The fleet (``dataplane/router.py``) drives several engines on one card
 pool and tp gauges, the analytic traffic model of
 :meth:`ServingEngine._traffic_model`, the migration, fault and span
 counters) but its jit-cache counts; ``paged=False`` raises the JAX
-engine's ``ValueError``. Under tensor parallelism the fleet paths
-(``prefill_only``, migration and prefix pulls) raise "not yet ported".
+engine's ``ValueError``.
+
+Under tensor parallelism the fleet paths run on every rank alike: a
+rank exports and installs its own ``KVH / tp`` heads of the shipped
+pages (a payload names its head group, and an engine of another rank or
+gang size refuses it with ``ValueError``), and a payload's ``nbytes``
+counts the whole pages, every rank's, as one device ships them. A router
+and a fault injector over a gang's engines read an :class:`AgreedClock`,
+so that every rank parks, sheds, strikes and fires alike.
 """
 
 from __future__ import annotations
@@ -130,9 +137,48 @@ from kubeflow_controller_tpu_torch.parallel import mesh as mesh_lib
 from kubeflow_controller_tpu_torch.parallel import sharding as sharding_lib
 
 
-def not_yet_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to the PyTorch engine (see ROADMAP.md)")
+def agreement_group(mesh):
+    """The group rank 0's host values reach the other tp ranks of
+    ``mesh`` over: the tp group on gloo, a gloo group over the same ranks
+    on another backend (the values are host scalars, which NCCL does not
+    carry). Every rank of the world takes part in making it."""
+    if str(dist.get_backend()) == "gloo":
+        return mesh.group("tp")
+    return dist.new_group([int(r) for r in mesh.devices.reshape(-1)],
+                          backend="gloo")
+
+
+def _broadcast_host_value(value: float, group, src: int) -> float:
+    """``value`` as rank ``src`` holds it, on every rank of ``group``: one
+    gloo broadcast, counted by the registry's
+    ``dataplane.agreed_broadcasts``."""
+    t = torch.tensor([float(value)], dtype=torch.float64)
+    dist.broadcast(t, src=src, group=group)
+    registry().counter("agreed_broadcasts", "dataplane").inc()
+    return float(t.item())
+
+
+class AgreedClock:
+    """``clock`` as the first rank of a tp gang reads it, on every rank:
+    each read broadcasts that rank's reading (one gloo broadcast), so the
+    decisions a reading drives (deadlines, backoff due times, the
+    watchdog, a fault window) are the same on every rank. Every rank
+    must read it as many times as the others, in the same order. With no
+    mesh it is ``clock`` itself. The clock a :class:`~..router.
+    FleetRouter` and a :class:`~..faults.FaultInjector` over a gang's
+    engines read (the engines agree their own clocks). ``local`` is
+    ``clock``, which a read that must not be a collective (a span time
+    on rank 0's tracer) reads instead."""
+
+    def __init__(self, clock: Callable[[], float], mesh=None):
+        self.local = clock
+        self._group = None if mesh is None else agreement_group(mesh)
+        self._src = 0 if mesh is None else int(mesh.devices.reshape(-1)[0])
+
+    def __call__(self) -> float:
+        if self._group is None:
+            return self.local()
+        return _broadcast_host_value(self.local(), self._group, self._src)
 
 
 class Rejected(Exception):
@@ -318,6 +364,10 @@ class MigrationPayload:
     block_size: int
     kv_quant: str
     nbytes: int = 0                   # payload bytes (pages + scales)
+    # Under tp the pages hold tp rank ``tp_rank``'s ``KVH / tp`` heads
+    # (its head group); ``nbytes`` counts the whole pages, every rank's.
+    tp: int = 1
+    tp_rank: int = 0
     # The router stamps the attempt number on each (re-)send; the
     # receiver dedupes installs by rid while the rid is live, so a lost
     # ACK can never install twice.
@@ -342,6 +392,8 @@ class PrefixPayload:
     kv_quant: str
     n_tokens: int                     # chain coverage in tokens
     nbytes: int                       # payload bytes (pages + scales)
+    tp: int = 1                       # the head group shipped, as in
+    tp_rank: int = 0                  # MigrationPayload
 
 
 def _parts_nbytes(*parts) -> int:
@@ -475,8 +527,12 @@ class ServingEngine:
         if self._mesh is not None:
             params = sharding_lib.shard_serving_params(
                 cfg, params, self._mesh, gen.weight_quant(params))
-            self._host_group = self._agreement_group(self._mesh)
+            self._host_group = agreement_group(self._mesh)
             self._host_src = int(self._mesh.devices.reshape(-1)[0])
+        # This rank's place in the gang: its pool holds head group
+        # ``_tp_rank`` of every page.
+        self._tp_rank = (0 if self._mesh is None
+                         else int(self._mesh.coords["tp"]))
         self.cfg = cfg
         self.params = params
         # Every kernel call's tensor-parallel arguments.
@@ -633,25 +689,12 @@ class ServingEngine:
         self._done_buf: List[Completion] = []
         self._draining = False
 
-    @staticmethod
-    def _agreement_group(mesh):
-        """The group rank 0's host values reach the other tp ranks over:
-        the tp group on gloo, a gloo group over the same ranks on another
-        backend (the values are host scalars, which NCCL does not
-        carry). Every rank of the world takes part in making it."""
-        if str(dist.get_backend()) == "gloo":
-            return mesh.group("tp")
-        return dist.new_group([int(r) for r in mesh.devices.reshape(-1)],
-                              backend="gloo")
-
     def _agreed(self, value: float) -> float:
         """Rank 0's ``value`` on every tp rank (``value`` itself on one
         device)."""
         if self._host_group is None:
             return value
-        t = torch.tensor([float(value)], dtype=torch.float64)
-        dist.broadcast(t, src=self._host_src, group=self._host_group)
-        return float(t.item())
+        return _broadcast_host_value(value, self._host_group, self._host_src)
 
     def agreed_flag(self, flag: bool) -> bool:
         """Rank 0's ``flag`` on every tp rank: a stop signal or any other
@@ -751,8 +794,7 @@ class ServingEngine:
     def submit(self, req: Request) -> None:
         """Queue a request. Raises ``ValueError`` on malformed input and
         :class:`Rejected` on admission control (or an injected
-        ``refuse_admit``); ``prefill_only`` under tensor parallelism
-        raises ``NotImplementedError``."""
+        ``refuse_admit``)."""
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError(f"request {req.rid}: empty prompt")
@@ -776,9 +818,6 @@ class ServingEngine:
             raise ValueError(
                 f"request {req.rid}: prefill_only requires "
                 "prefill_mode='bucketed'")
-        if req.prefill_only and self._mesh is not None:
-            raise not_yet_ported(
-                "prefill/decode disaggregation under tensor parallelism")
         # A prefill-only request never decodes here: admission reserves
         # only the prompt's span (the receiver reserves the budget).
         needed = self._blocks_needed(
@@ -1650,9 +1689,14 @@ class ServingEngine:
 
     # -- cross-engine migration (prefill/decode disaggregation) ---------------
 
-    def _fleet_path(self, what: str) -> None:
-        if self._mesh is not None:
-            raise not_yet_ported(f"{what} under tensor parallelism")
+    def _check_shard(self, what: str, tp: int, tp_rank: int) -> None:
+        """A payload's pages hold the head group of tp rank ``tp_rank`` of
+        ``tp``: only the engine of that rank of a gang of that size can
+        install them."""
+        if (tp, tp_rank) != (self.tp, self._tp_rank):
+            raise ValueError(
+                f"{what}: pages of tp rank {tp_rank} of {tp} != engine "
+                f"rank {self._tp_rank} of {self.tp}")
 
     def _host_copy(self, t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         """A host tensor of its own (pinned on a card engine, so that a
@@ -1711,7 +1755,6 @@ class ServingEngine:
         after them on the stream. Frees nothing: the slot stays parked
         until :meth:`finish_export`, so a failed install can export
         again. ``migration_bytes`` counts each shipped payload here."""
-        self._fleet_path("migration")
         i, slot = self._find_export(rid)
         bs = self.block_size
         n_prompt = int(slot.req.prompt.size)
@@ -1732,7 +1775,9 @@ class ServingEngine:
             logits_row = host
         else:
             logits_row = logits_row.clone()
-        nbytes = _parts_nbytes(pk, pv, sk, sv)
+        # A rank ships its head group; the payload counts the whole
+        # page's bytes (every rank's), as one device would ship.
+        nbytes = _parts_nbytes(pk, pv, sk, sv) * self.tp
         self.stats.migration_bytes += nbytes
         now = self._tclock()
         if self._tracer is not None:
@@ -1752,7 +1797,8 @@ class ServingEngine:
             pages_k=pk, pages_v=pv, scales_k=sk, scales_v=sv,
             page_starts=[b * bs for b in ship], prompt_len=n_prompt,
             skip_tokens=int(skip_tokens), block_size=bs,
-            kv_quant=self.kv_quant, nbytes=nbytes)
+            kv_quant=self.kv_quant, nbytes=nbytes, tp=self.tp,
+            tp_rank=self._tp_rank)
 
     def finish_export(self, rid: int) -> None:
         """Release an exported request's local tenancy once the receiver
@@ -1808,7 +1854,6 @@ class ServingEngine:
                     self.stats.faults_injected += 1
                     self.stats.rejected += 1
                     raise Rejected(payload.rid, "fault_injected")
-            self._fleet_path("migration")
             bs = self.block_size
             if payload.block_size != bs:
                 raise ValueError(
@@ -1818,6 +1863,8 @@ class ServingEngine:
                 raise ValueError(
                     f"rid {payload.rid}: kv_quant "
                     f"{payload.kv_quant!r} != engine {self.kv_quant!r}")
+            self._check_shard(f"rid {payload.rid}", payload.tp,
+                              payload.tp_rank)
             if payload.logits_row.numel() != self.cfg.vocab_size:
                 raise ValueError(
                     f"rid {payload.rid}: logits vocab "
@@ -1957,7 +2004,6 @@ class ServingEngine:
         payload is a snapshot copy."""
         if self._prefix_store is None:
             return None
-        self._fleet_path("a fleet prefix pull")
         path = self._tiered_match(prompt)
         if not path:
             return None
@@ -1986,7 +2032,8 @@ class ServingEngine:
             chunks=[n.key for n in path], pages_k=pk, pages_v=pv,
             scales_k=sk, scales_v=sv, block_size=self.block_size,
             kv_quant=self.kv_quant, n_tokens=len(path) * self.block_size,
-            nbytes=_parts_nbytes(pk, pv, sk, sv))
+            nbytes=_parts_nbytes(pk, pv, sk, sv) * self.tp, tp=self.tp,
+            tp_rank=self._tp_rank)
 
     def admit_prefix_to_tier(self, payload: PrefixPayload) -> int:
         """Receiver-side half of a fleet prefix pull: land the pulled
@@ -2004,6 +2051,7 @@ class ServingEngine:
             raise ValueError(
                 f"prefix pull: kv_quant {payload.kv_quant!r} != "
                 f"engine {self.kv_quant!r}")
+        self._check_shard("prefix pull", payload.tp, payload.tp_rank)
         tier = self._host_tier
         trie = self._prefix_store.trie
         node = trie.root

@@ -146,6 +146,14 @@ def _producer_stream(make_items, size: int) -> Iterator[Any]:
         thread.join()
 
 
+def prefetch(data_iter: Iterator[Any], size: int = 2) -> Iterator[Any]:
+    """Producer-thread prefetch, as the JAX package's: the items of
+    ``data_iter`` in order, made by a daemon thread at most ``size``
+    ahead of the consumer, so that host-side batch making overlaps the
+    device's work. A producer exception is raised at the consumer."""
+    return _producer_stream(lambda: data_iter, size)
+
+
 def _host_stack(arrays: List[np.ndarray], pin: bool) -> torch.Tensor:
     """``np.stack(arrays)`` written straight into a fresh ``[n, ...]``
     host tensor, pinned when ``pin``: one copy of each batch."""

@@ -7,7 +7,11 @@ step, the chunked prefill and the greedy speculative verify step
 (:func:`verify_step_paged`); the contiguous multi-turn path
 (:func:`decode_step`, :func:`prefill_continue`,
 :func:`generate_from_cache`, :func:`generate`; one device only, as in
-the JAX package); and the page movement under the prefix cache
+the JAX package); the per-slot contiguous reference path
+(:class:`SlotKVCache`: :func:`decode_step_slots`,
+:func:`prefill_into_slot`, :func:`prefill_chunk_into_slot`,
+:func:`verify_step_slots`, and :func:`prefill_tokenwise`; plain PyTorch,
+as the JAX versions reach no kernel); and the page movement under the prefix cache
 (:func:`gather_pool_pages` and :func:`install_pool_pages` for the host
 tier, :func:`scatter_row_into_pool` for ``register_prefix``). The
 pool's ``[L, n_blocks, bs, KVH, D]`` pages are the only KV storage of
@@ -1031,6 +1035,274 @@ def generate(
     return generate_from_cache(
         cfg, params, logits, cache, max_new_tokens, temperature=temperature,
         top_k=top_k, top_p=top_p, rng=rng)
+
+
+# -- the slot cache: the contiguous per-slot reference path ---------------------
+
+@dataclass
+class SlotKVCache:
+    """Per-slot generalization of :class:`KVCache` for continuous
+    batching: each batch row is an independent slot with its own length
+    and liveness, rows prefill, decode, retire and are reused without a
+    shared position. Retired slots are masked, not removed. The JAX
+    package keeps it as the reference its paged path is held to (its
+    engine serves from the pool only, as the port's does)."""
+
+    k: torch.Tensor          # [L, B, max_seq, KVH, D]
+    v: torch.Tensor
+    length: torch.Tensor     # [B] int32, valid positions per slot
+    active: torch.Tensor     # [B] bool, the slot is decoding
+
+
+def init_slot_cache(cfg: TransformerConfig, n_slots: int, max_seq: int,
+                    device: DeviceLike = None) -> SlotKVCache:
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, n_slots, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return SlotKVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                       v=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                       length=torch.zeros((n_slots,), dtype=torch.int32,
+                                          device=dev),
+                       active=torch.zeros((n_slots,), dtype=torch.bool,
+                                          device=dev))
+
+
+def _scores(qg: torch.Tensor, k: torch.Tensor, spec: str,
+            scale: float) -> torch.Tensor:
+    """Grouped attention scores in fp32 (the JAX einsums' preferred
+    element type)."""
+    return torch.einsum(spec, qg.float(), k.float()) * scale
+
+
+def _decode_layer_slots(
+    cfg: TransformerConfig, lp: Params, x: torch.Tensor, pos: torch.Tensor,
+    layer: int, k_all: torch.Tensor, v_all: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`_decode_layer` at per-slot positions: row b writes its
+    rotated k and v at column ``pos[b]`` of layer ``layer`` (in place; a
+    row whose position is past ``max_seq``, a retired slot at capacity,
+    writes nothing, never clamped onto a live column) and attends under
+    its own ``arange(max_seq) <= pos[b]`` mask. With every row at one
+    position it is the scalar layer's arithmetic."""
+    b = x.shape[0]
+    hd = cfg.head_dim
+    dt = cfg.dtype
+    g = cfg.n_kv_heads
+    rep = cfg.n_heads // g
+    max_seq = k_all.shape[2]
+    h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+    q = (h @ _w(lp, "wq", dt)).reshape(b, 1, cfg.n_heads, hd)
+    k = (h @ _w(lp, "wk", dt)).reshape(b, 1, g, hd)
+    v = (h @ _w(lp, "wv", dt)).reshape(b, 1, g, hd)
+    positions = pos.to(torch.int32)[:, None]
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
+    rows = torch.arange(b, device=x.device)
+    keep = pos < max_seq
+    k_all[layer, rows[keep], pos[keep]] = k[keep, 0].to(k_all.dtype)
+    v_all[layer, rows[keep], pos[keep]] = v[keep, 0].to(v_all.dtype)
+    qg = q.reshape(b, 1, g, rep, hd)
+    s = _scores(qg, k_all[layer], "bqgrd,bkgd->bgrqk", hd ** -0.5)
+    valid = torch.arange(max_seq, device=x.device)[None, :] <= pos[:, None]
+    s = torch.where(valid[:, None, None, None, :], s, -1e30)
+    p = torch.softmax(s, dim=-1).to(dt)
+    attn = torch.einsum("bgrqk,bkgd->bqgrd", p, v_all[layer]).reshape(b, 1, -1)
+    x = x + attn @ _w(lp, "wo", dt)
+    h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+    return x + _ffn(cfg, lp, h, decode=True), k_all, v_all
+
+
+def decode_step_slots(
+    cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
+    cache: SlotKVCache,
+) -> Tuple[torch.Tensor, SlotKVCache]:
+    """One token for every slot at its OWN position (``tokens`` [B, 1]):
+    fp32 logits [B, vocab] and the cache, written in place, with
+    ``length`` advanced on the active slots only (an inactive row writes
+    past its length, where no read reaches, and keeps its length)."""
+    x = params["embed"].to(cfg.dtype)[tokens.long()]      # [B, 1, D]
+    pos = cache.length.long()
+    for layer in range(cfg.n_layers):
+        x, _, _ = _decode_layer_slots(cfg, _layer_params(params, layer), x,
+                                      pos, layer, cache.k, cache.v)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    cache.length = torch.where(cache.active, cache.length + 1, cache.length)
+    return _head_logits(cfg, params, x[:, 0]), cache
+
+
+def prefill_into_slot(
+    cfg: TransformerConfig, params: Params, prompt: torch.Tensor,
+    cache: SlotKVCache, slot: int,
+) -> Tuple[torch.Tensor, SlotKVCache]:
+    """Admit one request (``prompt`` [1, S]): the fused block
+    :func:`prefill` of its prompt into a cache sized to the prompt, then
+    its K and V into columns ``[0, S)`` of slot ``slot``, ``length[slot]
+    = S`` and the slot active. Other slots are untouched, so admission
+    composes with slots mid-decode; the slot's old tenant's columns past
+    S are never read (the mask stops at the row's position, and decode
+    overwrites them in order). Returns the last position's logits."""
+    if prompt.shape[0] != 1:
+        raise ValueError(
+            f"prefill_into_slot admits one request (got batch "
+            f"{prompt.shape[0]})")
+    s = prompt.shape[1]
+    max_seq = cache.k.shape[2]
+    if s > max_seq:
+        raise ValueError(f"prompt {s} exceeds slot capacity {max_seq}")
+    logits, mini = prefill(cfg, params, prompt,
+                           init_kv_cache(cfg, 1, s, device=prompt.device))
+    cache.k[:, slot, :s] = mini.k[:, 0].to(cache.k.dtype)
+    cache.v[:, slot, :s] = mini.v[:, 0].to(cache.v.dtype)
+    cache.length[slot] = s
+    cache.active[slot] = True
+    return logits, cache
+
+
+def _window_layers(
+    cfg: TransformerConfig, params: Params, x: torch.Tensor,
+    positions: torch.Tensor, k_rows: torch.Tensor, v_rows: torch.Tensor,
+    visible: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every layer over a window of ``W`` new positions a row (``x`` [B,
+    W, D] at ``positions``), :func:`prefill_continue`'s body: position j
+    attends the row's cached columns where ``visible`` ([B, max_seq]) and
+    the window's positions ``<= j``, one fp32 softmax over both, the
+    block FFN. ``k_rows``/``v_rows`` are the rows' cache ``[L, B,
+    max_seq, KVH, D]``, read only. Returns the hidden states and each
+    layer's rotated window K and V ``[L, B, W, KVH, D]``."""
+    b, w = x.shape[:2]
+    dt = cfg.dtype
+    hd = cfg.head_dim
+    g = cfg.n_kv_heads
+    rep = cfg.n_heads // g
+    max_seq = k_rows.shape[2]
+    scale = hd ** -0.5
+    causal = torch.ones((w, w), dtype=torch.bool, device=x.device).tril()
+    ks, vs = [], []
+    for layer in range(cfg.n_layers):
+        lp = _layer_params(params, layer)
+        h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+        q = (h @ _w(lp, "wq", dt)).reshape(b, w, cfg.n_heads, hd)
+        k = (h @ _w(lp, "wk", dt)).reshape(b, w, g, hd)
+        v = (h @ _w(lp, "wv", dt)).reshape(b, w, g, hd)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        qg = q.reshape(b, w, g, rep, hd)
+        s_cache = _scores(qg, k_rows[layer], "bqgrd,bkgd->bgrqk", scale)
+        s_cache = torch.where(visible[:, None, None, None, :], s_cache, -1e30)
+        s_new = _scores(qg, k, "bqgrd,bkgd->bgrqk", scale)
+        s_new = torch.where(causal, s_new, -1e30)
+        p = torch.softmax(torch.cat([s_cache, s_new], -1), -1).to(dt)
+        attn = (torch.einsum("bgrqk,bkgd->bqgrd", p[..., :max_seq],
+                             v_rows[layer])
+                + torch.einsum("bgrqk,bkgd->bqgrd", p[..., max_seq:], v)
+                ).reshape(b, w, -1)
+        x = x + attn @ _w(lp, "wo", dt)
+        h2 = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+        x = x + _ffn(cfg, lp, h2)
+        ks.append(k)
+        vs.append(v)
+    return x, torch.stack(ks), torch.stack(vs)
+
+
+def prefill_chunk_into_slot(
+    cfg: TransformerConfig, params: Params, toks: torch.Tensor,
+    cache: SlotKVCache, slot: int, offset: int, n_real: int,
+) -> Tuple[torch.Tensor, SlotKVCache]:
+    """Chunked prefill from ``offset``: ONE chunk of a prompt (``toks`` [1,
+    W], padded past its ``n_real`` real tokens) against slot ``slot``'s
+    cached columns ``< offset`` plus the chunk's own causal positions.
+    The chunk's K and V land at columns ``offset + [0, W)`` (those past
+    capacity are dropped, never clamped onto live ones) and
+    ``length[slot] = offset + n_real``; returns the logits at the last
+    real position. Pad positions come after every real one, so no real
+    query sees them and decode overwrites their columns in order."""
+    if toks.shape[0] != 1:
+        raise ValueError(
+            f"prefill_chunk_into_slot admits one request (got batch "
+            f"{toks.shape[0]})")
+    w = toks.shape[1]
+    dev = toks.device
+    max_seq = cache.k.shape[2]
+    x = params["embed"].to(cfg.dtype)[toks.long()]        # [1, W, D]
+    positions = offset + torch.arange(w, dtype=torch.int32, device=dev)[None]
+    visible = (torch.arange(max_seq, device=dev) < offset)[None]
+    x, k_new, v_new = _window_layers(
+        cfg, params, x, positions, cache.k[:, slot:slot + 1],
+        cache.v[:, slot:slot + 1], visible)
+    cols = offset + torch.arange(w, device=dev)
+    keep = cols < max_seq
+    cache.k[:, slot, cols[keep]] = k_new[:, 0, keep].to(cache.k.dtype)
+    cache.v[:, slot, cols[keep]] = v_new[:, 0, keep].to(cache.v.dtype)
+    cache.length[slot] = offset + n_real
+    x_last = rmsnorm(x[:, n_real - 1], params["final_norm"], cfg.norm_eps)
+    return _head_logits(cfg, params, x_last), cache
+
+
+def verify_step_slots(
+    cfg: TransformerConfig, params: Params, draft: torch.Tensor,
+    draft_len: torch.Tensor, logits: torch.Tensor, cache: SlotKVCache,
+    eos: torch.Tensor, max_commit: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, SlotKVCache]:
+    """The greedy speculative verifier over slots, the JAX package's
+    rule: each row's window ``[argmax(logits), draft_0 .. draft_{K-1}]``
+    runs at offsets ``length[b] + j`` in one forward
+    (:func:`_window_layers`); draft j is accepted iff every earlier one
+    was, it lies within ``draft_len[b]`` and it equals the window's
+    argmax before it. The committed count ``n`` (1..K+1 on active rows,
+    0 on inactive ones) is cut to ``max_commit`` (at least 1) and just
+    after the first committed EOS. Only the committed positions' K and V
+    are written (in place; rollback is by never committing). Returns
+    ``(window [B, K+1], n [B], the logits at position n - 1, cache)``
+    with ``length`` advanced by ``n``."""
+    b, k_draft = draft.shape
+    w = k_draft + 1
+    dev = draft.device
+    max_seq = cache.k.shape[2]
+    pos0 = cache.length.long()
+    t0 = logits.argmax(-1).to(torch.int32)
+    window = torch.cat([t0[:, None], draft.to(torch.int32)], 1)     # [B, W]
+    x = params["embed"].to(cfg.dtype)[window.long()]
+    steps = torch.arange(w, device=dev)
+    positions = (pos0[:, None] + steps[None, :]).to(torch.int32)
+    visible = torch.arange(max_seq, device=dev)[None, :] < pos0[:, None]
+    x, k_win, v_win = _window_layers(cfg, params, x, positions, cache.k,
+                                     cache.v, visible)
+    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    all_logits = _head_logits(cfg, params, x)                       # [B, W, V]
+    preds = all_logits.argmax(-1).to(torch.int32)
+    ok = ((window[:, 1:] == preds[:, :-1])
+          & (steps[None, :k_draft] < draft_len[:, None]))
+    n = 1 + torch.cumprod(ok.to(torch.int32), 1).sum(1)
+    n = torch.minimum(n, torch.clamp(max_commit, min=1))
+    is_eos = (window == eos[:, None]) & (eos[:, None] >= 0)
+    eos_pos = is_eos.to(torch.int32).argmax(1)
+    n = torch.where(is_eos.any(1) & (eos_pos < n), eos_pos + 1, n)
+    n = torch.where(cache.active, n, 0).to(torch.int32)
+    cols = pos0[:, None] + steps[None, :]
+    commit = (steps[None, :] < n[:, None]) & (cols < max_seq)
+    rows, js = commit.nonzero(as_tuple=True)
+    cache.k[:, rows, cols[rows, js]] = k_win[:, rows, js].to(cache.k.dtype)
+    cache.v[:, rows, cols[rows, js]] = v_win[:, rows, js].to(cache.v.dtype)
+    idx = torch.clamp(n.long() - 1, 0, k_draft)
+    new_logits = all_logits[torch.arange(b, device=dev), idx]
+    cache.length = (pos0 + n).to(torch.int32)
+    return window, n, new_logits, cache
+
+
+def prefill_tokenwise(
+    cfg: TransformerConfig, params: Params, prompt: torch.Tensor,
+    cache: KVCache,
+) -> Tuple[torch.Tensor, KVCache]:
+    """Feed ``prompt`` [B, S] through :func:`decode_step` a token at a
+    time: slower than the block :func:`prefill`, but right on a cache
+    that already holds positions (each token attends everything cached).
+    The equivalence reference of :func:`prefill_continue`. Returns the
+    last position's logits and the cache."""
+    logits = torch.zeros((prompt.shape[0], cfg.vocab_size),
+                         dtype=torch.float32, device=prompt.device)
+    for i in range(prompt.shape[1]):
+        logits, cache = decode_step(cfg, params, prompt[:, i:i + 1], cache)
+    return logits, cache
 
 
 # -- decode -------------------------------------------------------------------

@@ -621,5 +621,7 @@ def test_cli_disagg_flags_and_their_errors(tmp_path, capsys):
         with pytest.raises(ValueError, match=msg):
             serve_lm.serve(config="tiny", batch=1, prompt_len=4,
                            device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="tensor-parallel gang"):
+    # The fleet serves over a tp gang (tests/test_torch_tp_serving.py):
+    # one process is no gang of two ranks, and the serving mesh says so.
+    with pytest.raises(ValueError, match="exceeds the 1 visible devices"):
         serve_lm.serve(config="tiny", tp=2, disagg=True, device="cpu")

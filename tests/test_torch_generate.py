@@ -560,3 +560,256 @@ def test_scatter_row_into_pool_matches_jax(quant):
                                           np.asarray(getattr(cj, name)))
     np.testing.assert_array_equal(ct.k[:, [1, 2, 4, 5]].numpy(),
                                   keep["k"][:, [1, 2, 4, 5]].numpy())
+
+
+# -- the slot cache: the contiguous per-slot reference path -------------------
+
+def _assert_slot_caches_close(cj, ct):
+    np.testing.assert_array_equal(ct.length.numpy(), np.asarray(cj.length))
+    np.testing.assert_array_equal(ct.active.numpy(), np.asarray(cj.active))
+    for a, b in ((cj.k, ct.k), (cj.v, ct.v)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), **PALLAS_LOGITS_TOL)
+
+
+def _slot_session(cfg_j, cfg_t, params_j, params_t, prompts, n_slots, cap):
+    """``prefill_into_slot`` of ``prompts[i]`` into slot i of both
+    packages' slot caches; returns each side's logits rows and cache."""
+    cj = jgen.init_slot_cache(cfg_j, n_slots, cap)
+    ct = tgen.init_slot_cache(cfg_t, n_slots, cap, device="cpu")
+    lj, lt = [], []
+    for i, p in enumerate(prompts):
+        a, cj = jgen.prefill_into_slot(cfg_j, params_j, jnp.asarray(p[None]), cj,
+                                       jnp.int32(i))
+        b, ct2 = tgen.prefill_into_slot(cfg_t, params_t, torch.from_numpy(p[None]),
+                                        ct, i)
+        assert ct2 is ct
+        lj.append(np.asarray(a))
+        lt.append(b.numpy())
+    return np.concatenate(lj), cj, np.concatenate(lt), ct
+
+
+def test_decode_step_slots_matches_jax():
+    """Three slots at their own positions (prompts of 5, 9 and 3 tokens;
+    slot 3 never admitted) through ``prefill_into_slot`` and 4
+    ``decode_step_slots``, then slot 1 retired at capacity: the logits
+    and the cache (K, V, lengths, liveness) against JAX's within
+    ``PALLAS_LOGITS_TOL`` at every step; the retired row's write at
+    ``max_seq`` is dropped on both sides, never clamped onto a live
+    column."""
+    cfg_j, cfg_t, params_j, params_t = _models()
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(0, cfg_j.vocab_size, n).astype(np.int32) for n in (5, 9, 3)]
+    lj, cj, lt, ct = _slot_session(cfg_j, cfg_t, params_j, params_t, prompts, 4, 16)
+    np.testing.assert_allclose(lt, lj, **PALLAS_LOGITS_TOL)
+    _assert_slot_caches_close(cj, ct)
+    step_j = jax.jit(functools.partial(jgen.decode_step_slots, cfg_j))
+    tok = np.zeros((4, 1), np.int32)
+    tok[:3, 0] = lj.argmax(-1)
+    for _ in range(4):
+        lj, cj = step_j(params_j, jnp.asarray(tok), cj)
+        lt, ct = tgen.decode_step_slots(cfg_t, params_t, torch.from_numpy(tok), ct)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **PALLAS_LOGITS_TOL)
+        _assert_slot_caches_close(cj, ct)
+        tok = np.asarray(lj.argmax(-1)).astype(np.int32)[:, None]
+        assert np.array_equal(tok[:, 0], lt.argmax(-1).numpy())
+    # Retire slot 1 at capacity: its next write falls at column 16 of 16.
+    cj = cj._replace(length=cj.length.at[1].set(16), active=cj.active.at[1].set(False))
+    ct.length[1], ct.active[1] = 16, False
+    before = ct.k[:, 1].clone()
+    lj, cj = step_j(params_j, jnp.asarray(tok), cj)
+    lt, ct = tgen.decode_step_slots(cfg_t, params_t, torch.from_numpy(tok), ct)
+    assert torch.equal(ct.k[:, 1], before) and int(ct.length[1]) == 16
+    _assert_slot_caches_close(cj, ct)
+    np.testing.assert_allclose(lt.numpy()[[0, 2]], np.asarray(lj)[[0, 2]],
+                               **PALLAS_LOGITS_TOL)
+
+
+def test_decode_step_slots_at_one_position_is_the_scalar_decode():
+    """The contract of ``_decode_layer_slots``' docstring: with every slot
+    at one position, the slot decode is the contiguous ``decode_step``,
+    logits and cache, bit for bit."""
+    cfg_j, cfg_t, params_j, params_t = _models()
+    rng = np.random.default_rng(32)
+    prompt = rng.integers(0, cfg_t.vocab_size, (3, 7)).astype(np.int32)
+    cont = tgen.init_kv_cache(cfg_t, 3, 16, device="cpu")
+    lc, cont = tgen.prefill(cfg_t, params_t, torch.from_numpy(prompt), cont)
+    slots = tgen.init_slot_cache(cfg_t, 3, 16, device="cpu")
+    slots.k.copy_(cont.k)
+    slots.v.copy_(cont.v)
+    slots.length[:] = 7
+    slots.active[:] = True
+    ls = lc
+    for _ in range(4):
+        tok = lc.argmax(-1).to(torch.int32)[:, None]
+        lc, cont = tgen.decode_step(cfg_t, params_t, tok, cont)
+        ls, slots = tgen.decode_step_slots(cfg_t, params_t, tok, slots)
+        assert torch.equal(ls, lc)
+        assert torch.equal(slots.k, cont.k) and torch.equal(slots.v, cont.v)
+        assert slots.length.tolist() == [cont.length] * 3
+
+
+def test_prefill_chunk_into_slot_matches_jax():
+    """A 19-token prompt prefilled into slot 1 in chunks of 8 (the last
+    one padded: 3 real tokens), beside slot 0 mid-decode: each chunk's
+    logits and the cache against JAX's, and the last chunk's logits are
+    ``prefill_into_slot``'s; a chunk past capacity drops its pad columns."""
+    cfg_j, cfg_t, params_j, params_t = _models()
+    rng = np.random.default_rng(33)
+    first = rng.integers(0, cfg_j.vocab_size, 6).astype(np.int32)
+    _, cj, _, ct = _slot_session(cfg_j, cfg_t, params_j, params_t, [first], 2, 24)
+    prompt = rng.integers(0, cfg_j.vocab_size, 19).astype(np.int32)
+    chunk_j = jax.jit(functools.partial(jgen.prefill_chunk_into_slot, cfg_j))
+    for off in range(0, 19, 8):
+        n_real = min(8, 19 - off)
+        toks = np.zeros((1, 8), np.int32)
+        toks[0, :n_real] = prompt[off:off + n_real]
+        lj, cj = chunk_j(params_j, jnp.asarray(toks), cj, jnp.int32(1), jnp.int32(off),
+                         jnp.int32(n_real))
+        lt, ct = tgen.prefill_chunk_into_slot(cfg_t, params_t, torch.from_numpy(toks),
+                                              ct, 1, off, n_real)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **PALLAS_LOGITS_TOL)
+        _assert_slot_caches_close(cj, ct)
+    whole, _ = tgen.prefill_into_slot(cfg_t, params_t, torch.from_numpy(prompt[None]),
+                                      tgen.init_slot_cache(cfg_t, 2, 24, device="cpu"), 1)
+    np.testing.assert_allclose(lt.numpy(), whole.numpy(), **PALLAS_LOGITS_TOL)
+    # A chunk at offset 20 of a 24-column row: 4 of its 8 columns land.
+    toks = rng.integers(0, cfg_j.vocab_size, (1, 8)).astype(np.int32)
+    lj, cj = chunk_j(params_j, jnp.asarray(toks), cj, jnp.int32(0), jnp.int32(20),
+                     jnp.int32(4))
+    lt, ct = tgen.prefill_chunk_into_slot(cfg_t, params_t, torch.from_numpy(toks), ct,
+                                          0, 20, 4)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **PALLAS_LOGITS_TOL)
+    _assert_slot_caches_close(cj, ct)
+    with pytest.raises(ValueError, match="admits one request"):
+        tgen.prefill_chunk_into_slot(cfg_t, params_t, torch.zeros((2, 8), dtype=torch.int32),
+                                     ct, 0, 0, 8)
+
+
+def test_verify_step_slots_matches_jax():
+    """Four slots (one inactive) verify windows of K=4: a row whose drafts
+    are its greedy continuation (all accepted), one with a wrong second
+    draft, one cut by a committed EOS with ``draft_len`` short. The
+    window, the committed counts, the carried logits and the cache equal
+    JAX's (counts and windows exactly); the committed rows' cache is the
+    greedy decode's. Then ``max_commit`` cuts the counts (to at least 1)
+    as JAX's does."""
+    cfg_j, cfg_t, params_j, params_t = _models()
+    rng = np.random.default_rng(34)
+    prompts = [rng.integers(0, cfg_j.vocab_size, n).astype(np.int32) for n in (6, 8, 4, 5)]
+    lj, cj, lt, ct = _slot_session(cfg_j, cfg_t, params_j, params_t, prompts, 4, 24)
+    cj = cj._replace(active=cj.active.at[3].set(False))
+    ct.active[3] = False
+    # Row 0's greedy continuation, from a copy of the port's cache.
+    probe = tgen.SlotKVCache(ct.k.clone(), ct.v.clone(), ct.length.clone(),
+                             ct.active.clone())
+    greedy, lp = [], torch.from_numpy(lt)
+    for _ in range(5):
+        tok = lp.argmax(-1).to(torch.int32)[:, None]
+        greedy.append(tok[:, 0].numpy())
+        lp, probe = tgen.decode_step_slots(cfg_t, params_t, tok, probe)
+    greedy = np.stack(greedy, 1)                                  # [4, 5]
+    draft = rng.integers(0, cfg_j.vocab_size, (4, 4)).astype(np.int32)
+    draft[0] = greedy[0, 1:]
+    draft[1, 0] = greedy[1, 1]
+    draft[2] = greedy[2, 1:]
+    draft_len = np.array([4, 4, 3, 4], np.int32)
+    eos = np.array([-1, -1, greedy[2, 2], -1], np.int32)
+    max_commit = np.array([8, 8, 8, 8], np.int32)
+    args_j = [jnp.asarray(a) for a in (draft, draft_len)]
+    wj, nj, lj2, cj = jgen.verify_step_slots(
+        cfg_j, params_j, *args_j, jnp.asarray(lj), cj, jnp.asarray(eos),
+        jnp.asarray(max_commit))
+    wt, nt, lt2, ct = tgen.verify_step_slots(
+        cfg_t, params_t, torch.from_numpy(draft), torch.from_numpy(draft_len),
+        torch.from_numpy(lt), ct, torch.from_numpy(eos), torch.from_numpy(max_commit))
+    np.testing.assert_array_equal(wt.numpy(), np.asarray(wj))
+    np.testing.assert_array_equal(nt.numpy(), np.asarray(nj))
+    assert nt.tolist() == [5, 2, 3, 0]
+    np.testing.assert_allclose(lt2.numpy()[:3], np.asarray(lj2)[:3], **PALLAS_LOGITS_TOL)
+    _assert_slot_caches_close(cj, ct)
+    # Rows 0 and 2 committed the greedy stream: the cache is the decoded one's.
+    for row, n in ((0, 5), (2, 3)):
+        np.testing.assert_allclose(
+            ct.k[:, row, :prompts[row].size + n].numpy(),
+            probe.k[:, row, :prompts[row].size + n].numpy(), **PALLAS_LOGITS_TOL)
+    # max_commit caps the count at 1 minimum.
+    cap = np.array([2, 0, 8, 8], np.int32)
+    _, nj, _, _ = jgen.verify_step_slots(cfg_j, params_j, *args_j, jnp.asarray(lj2), cj,
+                                         jnp.asarray(eos), jnp.asarray(cap))
+    _, nt, _, _ = tgen.verify_step_slots(
+        cfg_t, params_t, torch.from_numpy(draft), torch.from_numpy(draft_len), lt2, ct,
+        torch.from_numpy(eos), torch.from_numpy(cap))
+    np.testing.assert_array_equal(nt.numpy(), np.asarray(nj))
+
+
+def test_block_prefill_matches_tokenwise_decode():
+    """The reference's case (``tests/test_generate.py:58``) on the port,
+    beside JAX's ``prefill_tokenwise``: the block prefill's logits and
+    cache equal ``prefill_tokenwise``'s from an empty cache, and decode
+    continues alike from either; the port's tokenwise logits and cache
+    are JAX's."""
+    cfg_j, cfg_t, params_j, params_t = _models()
+    toks = np.random.default_rng(5).integers(0, cfg_t.vocab_size, (2, 10)).astype(np.int32)
+    lb, cb = tgen.prefill(cfg_t, params_t, torch.from_numpy(toks),
+                          tgen.init_kv_cache(cfg_t, 2, 16, device="cpu"))
+    lw, cw = tgen.prefill_tokenwise(cfg_t, params_t, torch.from_numpy(toks),
+                                    tgen.init_kv_cache(cfg_t, 2, 16, device="cpu"))
+    assert int(cb.length) == int(cw.length) == 10
+    np.testing.assert_allclose(lb.numpy(), lw.numpy(), atol=2e-4)
+    for a, b in ((cb.k, cw.k), (cb.v, cw.v)):
+        np.testing.assert_allclose(a[:, :, :10].numpy(), b[:, :, :10].numpy(), atol=2e-5)
+    nxt = torch.ones((2, 1), dtype=torch.int32)
+    la, _ = tgen.decode_step(cfg_t, params_t, nxt, cb)
+    lb2, _ = tgen.decode_step(cfg_t, params_t, nxt, cw)
+    np.testing.assert_allclose(la.numpy(), lb2.numpy(), atol=2e-4)
+    lj, cj = jgen.prefill_tokenwise(cfg_j, params_j, jnp.asarray(toks),
+                                    jgen.init_kv_cache(cfg_j, 2, 16))
+    cw = tgen.init_kv_cache(cfg_t, 2, 16, device="cpu")
+    lw, cw = tgen.prefill_tokenwise(cfg_t, params_t, torch.from_numpy(toks), cw)
+    np.testing.assert_allclose(lw.numpy(), np.asarray(lj), **PALLAS_LOGITS_TOL)
+    _assert_caches_close(cj, cw)
+
+
+def test_prefill_tokenwise_extends_existing_cache():
+    """The reference's case (``tests/test_generate.py:109``): a second turn
+    through ``prefill_tokenwise`` on a non-empty cache equals one fresh
+    block prefill of both turns, and equals JAX's continuation."""
+    cfg_j, cfg_t, params_j, params_t = _models()
+    rng = np.random.default_rng(7)
+    turn1 = rng.integers(0, cfg_t.vocab_size, (2, 6)).astype(np.int32)
+    turn2 = rng.integers(0, cfg_t.vocab_size, (2, 5)).astype(np.int32)
+    both = np.concatenate([turn1, turn2], 1)
+    ref_l, ref_c = tgen.prefill(cfg_t, params_t, torch.from_numpy(both),
+                                tgen.init_kv_cache(cfg_t, 2, 16, device="cpu"))
+    lj, cj, lt, ct = _contiguous_session(cfg_j, cfg_t, params_j, params_t, turn1, 16)
+    got_l, got_c = tgen.prefill_tokenwise(cfg_t, params_t, torch.from_numpy(turn2), ct)
+    assert int(got_c.length) == int(ref_c.length) == 11
+    np.testing.assert_allclose(got_l.numpy(), ref_l.numpy(), atol=3e-4)
+    lj, cj = jgen.prefill_tokenwise(cfg_j, params_j, jnp.asarray(turn2), cj)
+    np.testing.assert_allclose(got_l.numpy(), np.asarray(lj), **PALLAS_LOGITS_TOL)
+    _assert_caches_close(cj, got_c)
+
+
+def test_slot_paths_take_a_moe_model():
+    """tiny_moe through the slot paths: prefill, a chunk and decode steps
+    route their FFNs as JAX's do (the block FFN at capacity E / top_k, one
+    token a row through the decode FFN)."""
+    cfg_j = jtfm.tiny_moe_config()
+    cfg_t = ttfm.tiny_moe_config()
+    params_j = jgen.inference_params(cfg_j, jtfm.init_params(cfg_j, jax.random.key(3)))
+    params_t = params_from_numpy(jax.device_get(params_j), device="cpu")
+    rng = np.random.default_rng(35)
+    prompts = [rng.integers(0, cfg_j.vocab_size, n).astype(np.int32) for n in (6, 4)]
+    lj, cj, lt, ct = _slot_session(cfg_j, cfg_t, params_j, params_t, prompts, 2, 16)
+    np.testing.assert_allclose(lt, lj, rtol=5e-4, atol=5e-4)
+    toks = rng.integers(0, cfg_j.vocab_size, (1, 4)).astype(np.int32)
+    lj, cj = jgen.prefill_chunk_into_slot(cfg_j, params_j, jnp.asarray(toks), cj,
+                                          jnp.int32(1), jnp.int32(4), jnp.int32(4))
+    lt, ct = tgen.prefill_chunk_into_slot(cfg_t, params_t, torch.from_numpy(toks), ct,
+                                          1, 4, 4)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=5e-4, atol=5e-4)
+    tok = np.array([[1], [2]], np.int32)
+    lj, cj = jgen.decode_step_slots(cfg_j, params_j, jnp.asarray(tok), cj)
+    lt, ct = tgen.decode_step_slots(cfg_t, params_t, torch.from_numpy(tok), ct)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), rtol=5e-4, atol=5e-4)
+    np.testing.assert_array_equal(ct.length.numpy(), np.asarray(cj.length))

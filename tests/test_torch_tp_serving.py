@@ -99,6 +99,33 @@ TIER_KW = dict(n_slots=2, max_seq=MAX_SEQ, prefill_mode="bucketed",
 FORK_SAMPLING = dict(n=2, temperature=0.8, top_k=20, seed=5)
 SAMPLED = dict(temperature=0.8, top_k=20, top_p=0.9, seed=7)
 
+#: The fleet's fault plan (run over a driven clock, a fleet quantum
+#: FLEET_DT): typed refusals at intake and at install, a payload and an
+#: ACK lost, prefill-0 slowed, decode-0 hung long enough for the watchdog
+#: to strike it out, and decode-1 killed while it decodes.
+CHAOS_PLAN = {"specs": [
+    {"kind": "refuse_admit", "site": "engine.submit", "target": "prefill-0",
+     "rid": 1, "max_fires": 1},
+    {"kind": "refuse_admit", "site": "engine.admit_migrated", "rid": 2,
+     "max_fires": 1},
+    {"kind": "drop_migration", "site": "router.migrate", "rid": 3, "max_fires": 1},
+    {"kind": "drop_migration", "site": "router.migrate_ack", "rid": 4,
+     "max_fires": 1},
+    {"kind": "slow", "site": "engine.step", "target": "prefill-0", "after": 0.1,
+     "until": 0.3, "factor": 2},
+    {"kind": "hang", "site": "engine.step", "target": "decode-0", "after": 0.3,
+     "max_fires": 12},
+    {"kind": "crash", "site": "router.replica_step", "target": "decode-1",
+     "after": 0.6, "max_fires": 1},
+]}
+#: The disagreeing clocks' fleet: prefill-0 queues one request (a second
+#: parks), deadlines shed some, and a hung decode-0 strikes out.
+CLOCKS_PLAN = {"specs": [
+    {"kind": "hang", "site": "engine.step", "target": "decode-0", "after": 0.5,
+     "max_fires": 12}]}
+FLEET_DT = 0.05
+WATCHDOG_S = 0.3
+
 #: name -> (mesh, what the case runs, its arguments).
 CASES = {
     "g2": ("A", "churn", dict(tp_compute="gathered")),
@@ -113,9 +140,18 @@ CASES = {
     "drain2": ("B", "drain", dict(tp_compute="gathered")),
     "deadline2": ("A", "deadline", dict(tp_compute="gathered")),
     "logits4": ("all", "logits", {}),
+    "disagg_g2": ("A", "disagg", dict(tp_compute="gathered")),
+    "disagg_p2": ("B", "disagg", dict(tp_compute="parallel")),
+    "payload_g2": ("A", "payload", dict(tp_compute="gathered")),
+    "payload_p2": ("B", "payload", dict(tp_compute="parallel")),
+    "chaos_g2": ("A", "chaos", dict(tp_compute="gathered")),
+    "clocks_g2": ("B", "clocks", dict(tp_compute="gathered")),
+    "pull_g2": ("A", "pull", dict(tp_compute="gathered")),
 }
 PHASES = [["g2", "p2_gather"], ["g4"], ["p2", "spec2"], ["int8kv2", "forks2"],
-          ["tier2", "drain2"], ["deadline2"], ["logits4"]]
+          ["tier2", "drain2"], ["deadline2"], ["logits4"],
+          ["disagg_g2", "disagg_p2"], ["payload_g2", "payload_p2"],
+          ["chaos_g2", "clocks_g2"], ["pull_g2"]]
 
 
 # -- the port's runs (one process, and each rank of the gang) ------------------
@@ -231,12 +267,219 @@ def logits_tail(cfg, params, mesh, tp_compute, attn_impl="kernel", steps=6):
     return out
 
 
+# -- the fleet over a tp gang (and its references in one process) --------------
+
+class DrivenClock:
+    """A clock the test advances a fleet quantum at a time."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+
+def shared_prefix(vocab, n=8, shared=2 * BS, seed=5):
+    """``n`` requests behind one system prompt of two pages."""
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, vocab, shared).astype(np.int32)
+    return [(np.concatenate([head, rng.integers(0, vocab, 3 + i % 4).astype(np.int32)]),
+             16 + 4 * (i % 3)) for i in range(n)]
+
+
+#: what -> (workload, replicas as (name, role, engine kw), router kw, plan).
+FLEETS = {
+    "disagg": ("churn", [("prefill-0", "prefill", {}), ("decode-0", "decode", {})],
+               {}, None),
+    "chaos": ("shared", [("prefill-0", "prefill", {}), ("decode-0", "decode", {}),
+                         ("decode-1", "decode", {})],
+              dict(watchdog_stale_s=WATCHDOG_S), CHAOS_PLAN),
+    "clocks": ("deadlines", [("prefill-0", "prefill", dict(max_queue=1)),
+                             ("decode-0", "decode", {})],
+               dict(watchdog_stale_s=WATCHDOG_S, max_retries=8), CLOCKS_PLAN),
+}
+
+
+def fleet_work(what, vocab):
+    if what == "churn":
+        return churn(vocab)
+    if what == "shared":
+        return shared_prefix(vocab)
+    # Deadlines that the parked and the queued requests miss.
+    return [(p, m, 0.4 + 0.3 * i) for i, (p, m) in enumerate(churn(vocab, n=8))]
+
+
+def _fleet_result(router, inj, prefill):
+    fs = router.fleet_summary()
+    return {"streams": {(c.rid, c.gen): (list(map(int, c.tokens)), c.finish_reason)
+                        for c in router.completions},
+            "outcomes": router.outcome_counts,
+            "summary": {k: v for k, v in fs.items()
+                        if k not in ("spans_recorded", "spans_dropped")},
+            "faults": None if inj is None else inj.summary(),
+            "migrated_out": None if prefill is None else prefill.stats.migrated_out}
+
+
+def fleet_run(port, cfg, params, what, mesh=None, rank=0, tp=1, speed=1.0, trace=False,
+              **kw):
+    """One fleet of ``FLEETS[what]`` on a driven clock, a quantum
+    ``FLEET_DT * speed`` of it a step: the port's over ``mesh`` (its
+    router and injector on an ``AgreedClock``), or the JAX package's at
+    ``tp`` (one process, its tp mesh). Returns the outcomes, the fleet
+    summary, the fault ledger, prefill-0's ``migrated_out``, the agreed
+    broadcasts a router step and, with ``trace`` on the gang's first rank,
+    the trace."""
+    from kubeflow_controller_tpu.dataplane import faults as jfaults
+    from kubeflow_controller_tpu.dataplane import router as jrouter
+    from kubeflow_controller_tpu.dataplane import serving_engine as je
+    from kubeflow_controller_tpu_torch.dataplane import faults as tfaults
+    from kubeflow_controller_tpu_torch.dataplane import router as trouter
+    from kubeflow_controller_tpu_torch.dataplane.serving_engine import AgreedClock
+    from kubeflow_controller_tpu_torch.obs.telemetry import registry
+    from kubeflow_controller_tpu_torch.obs.trace import Tracer
+
+    work, replicas, router_kw, plan = FLEETS[what]
+    clock = DrivenClock()
+    shared = AgreedClock(clock, mesh) if port else clock
+    tracer = Tracer(clock=clock) if trace and (mesh is None or mesh.coords["tp"] == 0) else None
+    inj = None
+    if plan is not None:
+        fmod = tfaults if port else jfaults
+        inj = fmod.FaultInjector(fmod.FaultPlan.from_dict(plan), clock=shared, seed=3,
+                                 tracer=tracer)
+    router = (trouter if port else jrouter).FleetRouter(
+        clock=shared, block_size=BS, injector=inj, tracer=tracer, **router_kw)
+    for name, role, ekw in replicas:
+        eng_kw = dict(ENGINE_KW, clock=clock, injector=inj, tracer=tracer, **ekw, **kw)
+        eng = (ServingEngine(cfg, params, mesh=mesh, device="cpu", **eng_kw) if port
+               else je.ServingEngine(cfg, params, tp=tp, **eng_kw))
+        router.add_replica(name, eng, role=role)
+    prefill = router.get_replica("prefill-0").engine
+    req = Request if port else je.Request
+    for i, item in enumerate(fleet_work(work, cfg.vocab_size)):
+        router.submit(req(rid=i, prompt=item[0].copy(), max_new_tokens=item[1],
+                          deadline_s=item[2] if len(item) > 2 else None))
+    counter = registry().counter("agreed_broadcasts", "dataplane")
+    b0, steps = counter.value, 0
+    while not router.idle:
+        assert steps < 3000, f"{what}: fleet not idle ({router.pending} pending)"
+        clock.t += FLEET_DT * speed
+        router.step()
+        steps += 1
+    out = _fleet_result(router, inj, prefill)
+    out["broadcasts"] = [counter.value - b0, steps]
+    if tracer is not None:
+        out["trace"] = tracer.export()
+    for h in router.replicas:
+        h.engine.drain(grace_s=0.0)
+        out.setdefault("leaks", []).append(
+            h.engine.pool.used_blocks - h.engine._prefix_store.trie.n_nodes())
+    return out
+
+
+def pull_run(cfg, params, mesh=None):
+    """Two mixed replicas with host tiers: a first wave behind a
+    two-page prefix, then its owner cordoned, so the second wave pulls
+    the prefix into the other replica's tier and rehydrates it."""
+    from kubeflow_controller_tpu_torch.dataplane import router as trouter
+    from kubeflow_controller_tpu_torch.dataplane.serving_engine import AgreedClock
+
+    clock = DrivenClock()
+    router = trouter.FleetRouter(clock=AgreedClock(clock, mesh), block_size=BS)
+    for name in ("m0", "m1"):
+        router.add_replica(name, ServingEngine(
+            cfg, params, mesh=mesh, device="cpu", clock=clock, host_kv_mb=1.0,
+            **ENGINE_KW))
+    reqs = make_requests(shared_prefix(cfg.vocab_size, n=6))
+
+    def pump():
+        while not router.idle:
+            clock.t += FLEET_DT
+            router.step()
+
+    for r in reqs[:3]:
+        router.submit(r)
+    pump()
+    router.get_replica(router._assigned.get(0) or next(iter(router._owners.values()))
+                       ).cordoned = True
+    for r in reqs[3:]:
+        router.submit(r)
+    pump()
+    return _fleet_result(router, None, None)
+
+
+def payload_run(cfg, params, mesh, tp_compute):
+    """A prefill-only request parked on an engine over ``mesh``: its
+    exported logits row (from the real prefill), then, with the pool
+    overwritten by seeded full-head pages (each rank its head group), the
+    payload this rank ships, whole and with a page skipped, for an fp and
+    an int8 pool; and what an engine of this rank makes of a payload of
+    the other rank's heads."""
+    rng = np.random.default_rng(8)
+    prompt = rng.integers(0, cfg.vocab_size, 3 * BS - 2).astype(np.int32)
+    out = {}
+    for kv_quant in ("", "int8"):
+        eng = ServingEngine(cfg, params, mesh=mesh, device="cpu", tp_compute=tp_compute,
+                            kv_quant=kv_quant, **ENGINE_KW)
+        eng.submit(Request(rid=5, prompt=prompt, max_new_tokens=7, prefill_only=True))
+        while not eng.export_ready_rids():
+            eng.step()
+        row = eng.export_request(5).logits_row.clone()
+        full = pool_bytes(cfg, eng.cache.k.shape[1], kv_quant)
+        gl = cfg.n_kv_heads // eng.tp
+        heads = slice(eng._tp_rank * gl, (eng._tp_rank + 1) * gl)
+        for name, arr in full.items():
+            getattr(eng.cache, name).copy_(torch.from_numpy(arr[:, :, :, heads]))
+        i = next(j for j, sl in enumerate(eng.slots) if sl is not None)
+        rec = {"logits_row": row.numpy(), "ids": [int(b) for b in eng._tables[i, :3]]}
+        for skip in (0, BS):
+            p = eng.export_request(5, skip_tokens=skip)
+            rec[skip] = {k: (None if getattr(p, k) is None else getattr(p, k).numpy())
+                         for k in ("pages_k", "pages_v", "scales_k", "scales_v")}
+            rec[skip].update(nbytes=p.nbytes, tp=p.tp, tp_rank=p.tp_rank,
+                             page_starts=p.page_starts)
+        other = ServingEngine(cfg, params, mesh=mesh, device="cpu", tp_compute=tp_compute,
+                              kv_quant=kv_quant, **ENGINE_KW)
+        p = eng.export_request(5)
+        p.tp_rank = 1 - p.tp_rank
+        try:
+            other.admit_migrated(p)
+            rec["swapped"] = "installed"
+        except ValueError as e:
+            rec["swapped"] = str(e)
+        rec["migration_bytes"] = eng.stats.migration_bytes
+        out[kv_quant or "fp"] = rec
+    return out
+
+
+def pool_bytes(cfg, n_blocks, kv_quant):
+    """Seeded whole-head pool contents ``[L, n_blocks, BS, KVH(, D)]``."""
+    rng = np.random.default_rng(21)
+    shape = (cfg.n_layers, n_blocks, BS, cfg.n_kv_heads, cfg.head_dim)
+    if kv_quant == "int8":
+        return {"k": rng.integers(-127, 128, shape).astype(np.int8),
+                "v": rng.integers(-127, 128, shape).astype(np.int8),
+                "k_scale": rng.random(shape[:-1]).astype(np.float32),
+                "v_scale": rng.random(shape[:-1]).astype(np.float32)}
+    return {"k": rng.standard_normal(shape).astype(np.float32),
+            "v": rng.standard_normal(shape).astype(np.float32)}
+
+
 def _run_case(name, inp, mesh, rank):
     where, what, kw = CASES[name]
     cfg, params = inp["cfg"], inp["params"]
     if what == "logits":
         return {mode: logits_tail(cfg, params, mesh, mode)
                 for mode in ("gathered", "parallel")}
+    if what in FLEETS:
+        # Rank r's clock runs r + 1 times as fast as rank 0's in "clocks".
+        speed = 1.0 + rank % 2 if what == "clocks" else 1.0
+        return fleet_run(True, cfg, params, what, mesh, rank, speed=speed,
+                         trace=what == "disagg", **kw)
+    if what == "payload":
+        return payload_run(cfg, params, mesh, kw["tp_compute"])
+    if what == "pull":
+        return pull_run(cfg, params, mesh)
     return run_engine(cfg, params, what, mesh, rank, **kw)
 
 
@@ -344,6 +587,7 @@ def gang(tmp_path_factory):
     torch.save({"master": master}, os.path.join(root, "inputs.pt"))
     procs = start_gang(__name__, root)
     serve_procs = start_serve_pair(root)
+    disagg_procs = start_disagg_serve_pair(root)
     try:
         inp = gang_inputs({"master": master})
         cfg, params = inp["cfg"], inp["params"]
@@ -359,11 +603,20 @@ def gang(tmp_path_factory):
             "jax4": jax_run(cfg_j, params_j, "churn", tp=4),
             "jax_forks": jax_run(cfg_j, params_j, "forks"),
             "serve1": serve_one_process(root),
+            "disagg1": fleet_run(True, cfg, params, "disagg"),
+            "clocks1": fleet_run(True, cfg, params, "clocks"),
+            "pull1": pull_run(cfg, params),
+            "jax_disagg2": fleet_run(False, cfg_j, params_j, "disagg", tp=2,
+                                     tp_compute="gathered"),
+            "jax_chaos2": fleet_run(False, cfg_j, params_j, "chaos", tp=2,
+                                    tp_compute="gathered"),
+            "jax_serve_disagg": jax_serve_disagg(root),
         }
         got = collect_gang(procs, CASES, root)
         ref["serve2"] = collect_serve_pair(serve_procs, root)
+        ref["serve_disagg2"] = collect_disagg_serve_pair(disagg_procs, root)
     finally:
-        for p in procs + serve_procs:
+        for p in procs + serve_procs + disagg_procs:
             if p.poll() is None:
                 p.kill()
     import jax
@@ -410,6 +663,96 @@ def collect_serve_pair(procs, root):
     with open(os.path.join(root, "serve_tp2.jsonl")) as f:
         rows = [json.loads(line) for line in f]
     return {"rows": rows, "logs": sorted(os.listdir(logs))}
+
+
+#: ``serve(disagg=True)`` at tp=2 with a trace and a fault plan (a payload
+#: lost in flight, a refused intake), as the port's two ranks and the JAX
+#: package's tp mesh run it on the JAX init's ``tiny`` weights.
+DISAGG_SERVE = dict(config="tiny", batch=4, slots=2, prompt_len=10, max_new_tokens=5,
+                    block_size=4, disagg=True, fault_seed=3, watchdog_stale_s=30.0,
+                    attn_impl="xla", tp=2, tp_compute="gathered")
+DISAGG_SERVE_PLAN = {"specs": [
+    {"kind": "drop_migration", "site": "router.migrate", "max_fires": 1},
+    {"kind": "refuse_admit", "site": "engine.submit", "target": "prefill-0", "rid": 2,
+     "max_fires": 1}]}
+#: Summary keys of wall time (they differ run to run).
+TIMED = ("tokens_per_sec", "wall_s", "ttft_p50_ms", "ttft_p95_ms", "tpot_p50_ms",
+         "tpot_p95_ms", "queue_wait_p50_ms", "queue_wait_p95_ms", "slot_utilization",
+         "heartbeat")
+
+_DISAGG_SERVE_RANK = """
+import json, sys, torch
+torch.set_num_threads(1)
+from kubeflow_controller_tpu_torch.convert import params_from_numpy
+from kubeflow_controller_tpu_torch.dataplane.entrypoints import serve_lm
+root, rank = sys.argv[1], sys.argv[2]
+master = torch.load(root + "/serve_master.pt", weights_only=False)
+serve_lm._load_params = lambda *a, **k: (params_from_numpy(master, device="cpu"), None)
+with open(root + "/serve_disagg.json") as f:
+    kw = json.load(f)
+out = serve_lm.serve(**kw)
+with open(root + "/serve_disagg-" + rank + ".json", "w") as f:
+    json.dump(out, f)
+"""
+
+
+def _disagg_serve_kw(root, name):
+    return dict(DISAGG_SERVE, fault_plan=os.path.join(root, "serve_plan.json"),
+                output_file=os.path.join(root, f"{name}.jsonl"),
+                trace=os.path.join(root, f"{name}.trace.json"))
+
+
+def start_disagg_serve_pair(root):
+    """``serve(disagg=True, fault_plan=..., trace=...)`` on two ranks with
+    a pod's env, each returning its summary to a file."""
+    import jax
+
+    from kubeflow_controller_tpu.models import transformer as jtfm
+
+    master = jax.device_get(jtfm.init_params(jtfm.tiny_config(), jax.random.key(0)))
+    torch.save(master, os.path.join(root, "serve_master.pt"))
+    with open(os.path.join(root, "serve_plan.json"), "w") as f:
+        json.dump(DISAGG_SERVE_PLAN, f)
+    with open(os.path.join(root, "serve_disagg.json"), "w") as f:
+        json.dump(dict(_disagg_serve_kw(root, "port_disagg"), device="cpu"), f)
+    port = free_port()
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(rank),
+                   TPUJOB_LOG_DIR=os.path.join(root, "disagg_logs"),
+                   PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""),
+                   OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _DISAGG_SERVE_RANK, root, str(rank)], env=env,
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return procs
+
+
+def collect_disagg_serve_pair(procs, root):
+    from kubeflow_controller_tpu_torch.obs.trace import load_chrome_trace
+
+    for r, p in enumerate(procs):
+        out, err = p.communicate(timeout=GANG_TIMEOUT_S)
+        assert p.returncode == 0, f"disagg serve rank {r} rc={p.returncode}\n{err[-4000:]}"
+    summaries = []
+    for r in range(2):
+        with open(os.path.join(root, f"serve_disagg-{r}.json")) as f:
+            summaries.append(json.load(f))
+    with open(os.path.join(root, "port_disagg.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    return {"rows": rows, "summaries": summaries,
+            "trace": load_chrome_trace(os.path.join(root, "port_disagg.trace.json")),
+            "logs": sorted(os.listdir(os.path.join(root, "disagg_logs")))}
+
+
+def jax_serve_disagg(root):
+    from kubeflow_controller_tpu.dataplane.entrypoints import serve_lm as jserve
+
+    kw = _disagg_serve_kw(root, "jax_disagg")
+    out = jserve.serve(**kw)
+    with open(kw["output_file"]) as f:
+        return {"rows": [json.loads(line) for line in f], "summary": out}
 
 
 def serve_one_process(root):
@@ -539,6 +882,251 @@ def test_serve_on_two_ranks_from_the_controller_env(gang):
     _, ref = gang
     assert ref["serve2"]["rows"] == ref["serve1"]
     assert ref["serve2"]["logs"] == ["metrics-p0.jsonl"]
+
+
+# -- the fleet over the gang ------------------------------------------------------
+
+def _fleet_one(got, name):
+    """The case's records, after checking every rank's outcomes, fleet
+    summary, fault ledger and books are the same."""
+    recs = got[name]
+    keys = ("streams", "outcomes", "summary", "faults", "migrated_out", "broadcasts")
+    for r in recs[1:]:
+        for k in keys:
+            assert r.get(k) == recs[0].get(k), f"{name}: ranks disagree on {k}"
+    assert all(not any(r.get("leaks", ())) for r in recs), f"{name}: a pool leaked"
+    return recs[0]
+
+
+def test_disagg_gathered_streams_equal_jax_and_one_process(gang):
+    """prefill-0 -> decode-0 over tp=2 (gathered) on the churn workload:
+    the greedy streams, outcomes and fleet summary (migrations, pages,
+    ``migration_bytes``, zero-copy tokens, prefix hits) equal the JAX
+    package's fleet at tp=2 and the port's one-process fleet, and the
+    streams are one engine's."""
+    got, ref = gang
+    rec = _fleet_one(got, "disagg_g2")
+    for want in (ref["jax_disagg2"], ref["disagg1"]):
+        for k in ("streams", "outcomes", "summary"):
+            assert rec[k] == want[k], k
+    assert rec["streams"] == ref["base"]["streams"]
+    assert rec["summary"]["migrations"] == 10 and rec["summary"]["pages_migrated"] > 0
+
+
+def test_disagg_migration_bytes_equal_jax(gang):
+    """A rank ships its head group and counts the whole pages: the
+    fleet's ``migration_bytes`` is the JAX fleet's (full-head pages)."""
+    got, ref = gang
+    for name in ("disagg_g2", "disagg_p2"):
+        fs = _fleet_one(got, name)["summary"]
+        assert fs["migration_bytes"] == ref["jax_disagg2"]["summary"]["migration_bytes"] > 0
+        assert fs["pages_migrated"] == ref["jax_disagg2"]["summary"]["pages_migrated"]
+
+
+def test_disagg_parallel_streams_equal_the_single_engine_parallel(gang):
+    """Under ``"parallel"`` the disaggregated streams are the tp=2
+    single-engine ``parallel`` streams."""
+    got, _ = gang
+    assert _fleet_one(got, "disagg_p2")["streams"] == _one(got, "p2")["streams"]
+
+
+@pytest.mark.parametrize("kv_quant", ["fp", "int8"])
+def test_payload_shards_join_to_jax_gather_pool_pages(gang, kv_quant):
+    """Each rank's payload holds its ``KVH / tp`` heads; joined along KVH
+    the ranks' pages (and int8 scales) are JAX's ``gather_pool_pages`` of
+    the same pool bytes, byte for byte, whole and with a page skipped;
+    ``nbytes`` counts the whole pages."""
+    import jax.numpy as jnp
+
+    from kubeflow_controller_tpu.models import generate as jgen
+    from kubeflow_controller_tpu.models import transformer as jtfm
+
+    got, _ = gang
+    recs = [r[kv_quant] for r in got["payload_g2"]]
+    cfg_j = jtfm.tiny_config(n_kv_heads=4)
+    n_blocks = 2 * ENGINE_KW["n_slots"] * MAX_SEQ // BS
+    full = pool_bytes(cfg_j, n_blocks, "int8" if kv_quant == "int8" else "")
+    cache = jgen.init_paged_cache(cfg_j, 4, MAX_SEQ // BS, n_blocks, BS,
+                                  "int8" if kv_quant == "int8" else "")
+    cache = cache._replace(**{k: jnp.asarray(v) for k, v in full.items()})
+    ids = recs[0]["ids"]
+    assert recs[1]["ids"] == ids
+    for skip in (0, BS):
+        want = jgen.gather_pool_pages(cache, ids[skip // BS:])
+        for r, rec in enumerate(recs):
+            assert (rec[skip]["tp"], rec[skip]["tp_rank"]) == (2, r)
+            assert rec[skip]["page_starts"] == [BS * b for b in range(skip // BS, 3)]
+        for part, w in zip(("pages_k", "pages_v", "scales_k", "scales_v"), want):
+            if w is None:
+                assert all(rec[skip][part] is None for rec in recs)
+                continue
+            joined = np.concatenate([rec[skip][part] for rec in recs], axis=3)
+            assert joined.dtype == w.dtype and joined.shape == w.shape
+            assert joined.tobytes() == np.asarray(w).tobytes(), part
+        whole = sum(np.asarray(w).nbytes for w in want if w is not None)
+        assert all(rec[skip]["nbytes"] == whole for rec in recs)
+
+
+@pytest.mark.parametrize("name", ["payload_g2", "payload_p2"])
+def test_prefill_logits_row_is_the_same_on_every_rank(gang, name):
+    """The prefill-final logits row a payload carries is the same bits on
+    every rank, under ``"gathered"`` and ``"parallel"``."""
+    got, _ = gang
+    for kv_quant in ("fp", "int8"):
+        rows = [r[kv_quant]["logits_row"] for r in got[name]]
+        assert rows[0].tobytes() == rows[1].tobytes()
+        assert np.isfinite(rows[0]).all()
+
+
+def test_install_of_another_shard_raises():
+    """A payload of another tp rank or gang size is refused with
+    ``ValueError``, as a ``block_size`` or ``kv_quant`` mismatch is: in the
+    gang (the other rank's heads) and in one process (a tp=2 payload), for
+    a migration and for a prefix pull."""
+    got = None
+    cfg = ttfm.tiny_config(n_kv_heads=4)
+    params = tgen.inference_params(cfg, ttfm.init_params(cfg, device="cpu"))
+    prompt = np.arange(3 * BS, dtype=np.int32)
+    eng = ServingEngine(cfg, params, device="cpu", **ENGINE_KW)
+    eng.submit(Request(rid=1, prompt=prompt, max_new_tokens=4, prefill_only=True))
+    while not eng.export_ready_rids():
+        eng.step()
+    payload = eng.export_request(1)
+    assert (payload.tp, payload.tp_rank) == (1, 0)
+    payload.tp = 2
+    other = ServingEngine(cfg, params, device="cpu", **ENGINE_KW)
+    with pytest.raises(ValueError, match="tp rank 0 of 2"):
+        other.admit_migrated(payload)
+    assert other.pool.used_blocks == 0 and not any(other._slot_blocks)
+    tiered = ServingEngine(cfg, params, device="cpu", host_kv_mb=1.0, **ENGINE_KW)
+    eng.finish_export(1)
+    eng.run([Request(rid=2, prompt=prompt, max_new_tokens=2)])
+    pull = eng.export_prefix(prompt)
+    assert pull is not None and (pull.tp, pull.tp_rank) == (1, 0)
+    pull.tp_rank = 1
+    with pytest.raises(ValueError, match="prefix pull: pages of tp rank 1 of 1"):
+        tiered.admit_prefix_to_tier(pull)
+
+
+def test_gang_refuses_the_other_ranks_heads(gang):
+    got, _ = gang
+    for r, rec in enumerate(got["payload_g2"]):
+        for kv_quant in ("fp", "int8"):
+            assert rec[kv_quant]["swapped"] == (
+                f"rid 5: pages of tp rank {1 - r} of 2 != engine rank {r} of 2")
+
+
+def test_fleet_faults_equal_jax_on_every_rank(gang):
+    """Three engines at tp=2 under one plan on a driven clock (refusals,
+    a lost payload and a lost ACK, a slow prefill-0, a hung decode-0
+    struck out by the watchdog, decode-1 crashed): every rank's outcomes,
+    fleet summary, ``faults.*`` ledger, ``migrated_out`` and
+    ``migrate_dedups`` are the same, and equal the JAX package's fleet at
+    tp=2 on the same plan and seed."""
+    got, ref = gang
+    rec = _fleet_one(got, "chaos_g2")
+    want = ref["jax_chaos2"]
+    for k in ("streams", "outcomes", "summary", "faults", "migrated_out"):
+        assert rec[k] == want[k], k
+    f = rec["faults"]
+    for key in ("faults.engine.submit.refuse_admit",
+                "faults.engine.admit_migrated.refuse_admit",
+                "faults.router.migrate.drop_migration",
+                "faults.router.migrate_ack.drop_migration",
+                "faults.engine.step.slow", "faults.engine.step.hang",
+                "faults.router.replica_step.crash"):
+        assert f.get(key, 0) > 0, key
+    fs = rec["summary"]
+    assert fs["migrate_dedups"] >= 1 and fs["watchdog_strikes"] > 0
+    assert fs["redispatched"] > 0 and fs["pending"] == 0
+    assert fs["submitted"] == fs["completed"] + fs["rejected"] + fs["cancelled"]
+
+
+def test_disagreeing_clocks_take_rank0_decisions(gang):
+    """Rank 1's clock runs twice as fast as rank 0's. The router's
+    parking and backoff, its deadline sheds and the watchdog's strikes
+    (and the engines' own clock decisions) are rank 0's on every rank:
+    the one-process fleet's on rank 0's clock."""
+    got, ref = gang
+    rec = _fleet_one(got, "clocks_g2")
+    for k in ("streams", "outcomes", "summary", "faults"):
+        assert rec[k] == ref["clocks1"][k], k
+    fs = rec["summary"]
+    assert fs["retries"] > 0 and fs["deadline_sheds"] > 0
+    assert fs["watchdog_strikes"] > 0
+
+
+def test_agreed_broadcasts_per_router_step(gang):
+    """Every agreed read is one broadcast, the same count on every rank
+    (``_fleet_one``); none in one process."""
+    got, ref = gang
+    for name in ("disagg_g2", "chaos_g2", "clocks_g2"):
+        n, steps = _fleet_one(got, name)["broadcasts"]
+        assert n > 0 and steps > 0
+    assert ref["disagg1"]["broadcasts"][0] == 0
+
+
+def _migration_events(doc):
+    per_rid = {}
+    for e in doc["traceEvents"]:
+        rid = e.get("args", {}).get("rid")
+        if rid is not None and e["name"] in ("migrate_export", "migrate_install",
+                                             "migrate"):
+            key = (e["name"], e["cat"])
+            per_rid.setdefault(rid, {}).setdefault(key, 0)
+            per_rid[rid][key] += 1
+    return per_rid
+
+
+def test_rank0_trace_stitches_each_migration_under_its_rid(gang):
+    """Rank 0 alone traces: one ``migrate_export``, one ``migrate_install``
+    and one router ``migrate`` under each rid."""
+    got, _ = gang
+    recs = got["disagg_g2"]
+    assert "trace" in recs[0] and "trace" not in recs[1]
+    per_rid = _migration_events(recs[0]["trace"])
+    assert sorted(per_rid) == sorted(map(str, range(10)))
+    assert all(v == {("migrate_export", "dataplane"): 1,
+                     ("migrate_install", "dataplane"): 1,
+                     ("migrate", "router"): 1} for v in per_rid.values())
+
+
+def test_prefix_pull_over_tp_equals_one_process(gang):
+    """A fleet prefix pull between two tp=2 replicas: each rank ships and
+    tiers its head group; the streams and fleet summary (pulls, pages,
+    bytes of whole pages, rehydrates) are one process's."""
+    got, ref = gang
+    rec = _fleet_one(got, "pull_g2")
+    assert rec["streams"] == ref["pull1"]["streams"]
+    assert rec["summary"] == ref["pull1"]["summary"]
+    assert rec["summary"]["prefix_pulls"] >= 1 and rec["summary"]["rehydrate_hits"] > 0
+
+
+def test_serve_disagg_with_faults_on_two_ranks_equals_jax(gang):
+    """``serve(disagg=True, fault_plan=..., trace=...)`` on two ranks from a
+    pod's env: the completions are the JAX ``serve()``'s at tp=2 bit for
+    bit, both ranks' summaries are the same and their untimed values the
+    JAX summary's (the fleet counters, ``migration_bytes``, the fault
+    ledger), rank 0 alone wrote the metrics, and its trace stitches
+    each migration under its rid."""
+    _, ref = gang
+    port, jax_ = ref["serve_disagg2"], ref["jax_serve_disagg"]
+    assert port["rows"] == jax_["rows"] and len(port["rows"]) == 4
+    a, b = port["summaries"]
+    assert set(a) == set(b)
+    # Rank 0 alone traces: rank 1 records no span.
+    assert b["spans_recorded"] == 0 < a["spans_recorded"]
+    for k in set(a) - set(TIMED) - {"spans_recorded"}:
+        assert a[k] == b[k], k
+    want = jax_["summary"]
+    for k in set(a) & set(want) - set(TIMED):
+        assert a[k] == want[k], k
+    assert a["migrations"] == 4 and a["migration_timeouts"] == 1
+    assert a["faults.router.migrate.drop_migration"] == 1
+    assert a["faults.engine.submit.refuse_admit"] == 1 and a["faults_total"] == 2
+    assert port["logs"] == ["metrics-p0.jsonl"]
+    per_rid = _migration_events(port["trace"])
+    assert sorted(per_rid) == ["0", "1", "2", "3"]
 
 
 # -- in one process -------------------------------------------------------------

@@ -17,6 +17,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -536,8 +537,75 @@ def test_device_prefetch_yields_tensors_in_order_and_raises_producer_errors():
         next(it)
 
 
+def _within(seconds, fn):
+    """``fn()``'s result, or a failure if it takes more than ``seconds``
+    (a prefetch that deadlocks fails the test instead of hanging it)."""
+    out = {}
+
+    def run():
+        try:
+            out["value"] = fn()
+        except BaseException as e:  # raised again in the test
+            out["error"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(seconds)
+    assert not t.is_alive(), f"took more than {seconds} s"
+    if "error" in out:
+        raise out["error"]
+    return out["value"]
+
+
+def _numbered(n, bs=4):
+    for i in range(n):
+        yield {"x": np.full((bs, 3), i, np.float32)}
+
+
+def test_prefetch_yields_every_item_in_order_as_jax():
+    """``prefetch`` (the JAX package's public producer-thread prefetch,
+    ``tests/test_prefetch.py``): every item, in order, the same as JAX's,
+    host arrays untouched; at sizes 1, 2 and 5."""
+    from kubeflow_controller_tpu.dataplane.train import prefetch as jprefetch
+
+    for size in (1, 2, 5):
+        got = _within(30, lambda: [b["x"] for b in ttrain.prefetch(_numbered(7), size=size)])
+        want = _within(30, lambda: [b["x"] for b in jprefetch(_numbered(7), size=size)])
+        assert [int(x[0, 0]) for x in got] == list(range(7))
+        assert all(isinstance(x, np.ndarray) for x in got)
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def test_prefetch_raises_the_producer_error_at_the_consumer():
+    """The producer's exception reaches the consumer after the items made
+    before it, as in JAX's; a consumer that stops early lets the
+    producer go."""
+    from kubeflow_controller_tpu.dataplane.train import prefetch as jprefetch
+
+    def bad():
+        yield {"x": np.zeros((2, 2))}
+        raise IOError("disk gone")
+
+    for fn in (ttrain.prefetch, jprefetch):
+        it = fn(bad(), size=2)
+        _within(30, lambda: next(it))
+        with pytest.raises(IOError, match="disk gone"):
+            _within(30, lambda: next(it))
+
+    def forever():
+        i = 0
+        while True:
+            yield {"x": np.full((2, 2), i)}
+            i += 1
+
+    it = ttrain.prefetch(forever(), size=1)
+    assert int(_within(30, lambda: next(it))["x"][0, 0]) == 0
+    _within(30, it.close)
+
+
 _EXIT_EARLY = """
 import sys
+import threading
 import torch
 from kubeflow_controller_tpu_torch.dataplane.train import device_prefetch
 
