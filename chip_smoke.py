@@ -76,7 +76,9 @@ Phases, in order; any failure exits non-zero before the result line:
    all 32 layers, a profile of one decode micro-step and one prefill
    chunk (wall time,
    device time by kernel, idle share) and one request's first-token and
-   next-token logits under ``attn_impl="kernel"`` and ``"gather"``;
+   next-token logits under ``attn_impl="kernel"`` and ``"gather"``, both
+   held against ``transformer.forward`` over the prompt and the first
+   greedy token (B1 and its rope prepass once a layer);
 5a. int8 serve: weight-only int8 ``(q, scale)`` card vs CPU bit for bit
    at llama3_8b's projection shapes; ``SERVE_CONFIG`` with ``quant="int8"``
    (the 16 requests in exact prefill, B1 once a layer an admission; the
@@ -165,7 +167,13 @@ Phases, in order; any failure exits non-zero before the result line:
    and expectations and the cluster's index the C++ core's; the job's
    Events read back as core/v1 Events; within a wall timeout); and
    ``remote.rest``, the same over the framework wire with the flagship
-   at 2 of its 16 layers for 2 steps;
+   at 2 of its 16 layers for 2 steps; then ``serve_drain``, a preempted
+   serving job: a ``v5p-8`` gang whose index 0 drives one
+   ``ServingEngine`` on ``SERVE_CONFIG`` (8 prompts of 256 tokens,
+   budgets of 512), preempted once every request holds 8 tokens, drained
+   with no grace (typed partials, each a prefix of a one-engine twin's
+   stream), gang-restarted, and re-served at 32 tokens (the twin's
+   streams); B6 and B5 per epoch exactly, B1 none;
 7b. models: the MNIST entry point at its defaults (200 steps, held-out
    evaluation every 40; accuracy well above chance); ResNet-50 through
    its entry point (B128 224² uint8, bf16, 8 steps: images/s, step ms,
@@ -3379,7 +3387,12 @@ def _device_time(prof):
 def logits_phase():
     """One request's first-token logits (after 16 prefill chunks) and
     next-token logits (one decode step) under both attention impls, on
-    the same llama3_8b weights at all 32 layers."""
+    the same llama3_8b weights at all 32 layers; then ``tfm.forward``
+    over the 257 tokens (the prompt and the first greedy token) as the
+    yardstick: the kernel path's first- and next-token logits within
+    LOGITS_REL_L2_TOL of its rows 255 and 256, the argmax the same or
+    off only after a near-tie, and B1 once a layer (with its rope
+    prepass) in the forward. Returns the forward's launches."""
     import torch
 
     from kubeflow_controller_tpu_torch.models import generate as gen
@@ -3400,10 +3413,22 @@ def logits_phase():
                 cfg, params, prompt[:, off:off + bs], cache, 0, off, bs,
                 view_width=mb * bs, attn_impl=impl)
         cache.active[0] = True
+        tok = first.argmax(-1).to(torch.int32)[:, None]
         nxt, cache = gen.decode_step_paged(
-            cfg, params, first.argmax(-1).to(torch.int32)[:, None], cache,
-            view_width=mb * bs, attn_impl=impl)
-        out[impl] = (first.float(), nxt.float())
+            cfg, params, tok, cache, view_width=mb * bs, attn_impl=impl)
+        out[impl] = (first.float(), nxt.float(), tok)
+    # At S=257 the JAX package's flash rule (a block that tiles S) sends
+    # "auto" to the dense path; the forward asks for B1 by name.
+    fcfg = cfg.replace(attn_impl="flash")
+    seq = torch.cat([prompt, out["kernel"][2].long()], 1)
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full = tfm.forward(fcfg, params, seq)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    launches = _launches()
     del params
     for i, name in enumerate(("first-token", "next-token")):
         a, b = out["kernel"][i], out["gather"][i]
@@ -3416,6 +3441,31 @@ def logits_phase():
                 f"{name} logits: kernel vs gather rel L2 {rel} > {LOGITS_REL_L2_TOL}")
         log(f"logits[{name}] kernel vs gather: rel L2 {rel} (tol {LOGITS_REL_L2_TOL}), "
             f"max |diff| {float((a - b).abs().max())}, argmax equal {same}")
+    if tuple(full.shape) != (1, 257, cfg.vocab_size) or full.dtype != torch.float32:
+        raise AssertionError(f"forward: logits {tuple(full.shape)} {full.dtype}")
+    if not bool(torch.isfinite(full).all()):
+        raise AssertionError("forward: logits not finite")
+    for i, (name, pos) in enumerate((("first-token", 255), ("next-token", 256))):
+        a, want = out["kernel"][i][0], full[0, pos]
+        rel = float((a - want).norm() / want.norm())
+        if rel > LOGITS_REL_L2_TOL:
+            raise AssertionError(
+                f"{name} logits: paged kernel vs forward rel L2 {rel} > {LOGITS_REL_L2_TOL}")
+        got_am, want_am = int(a.argmax()), int(want.argmax())
+        gaps = ([] if got_am == want_am else
+                [(0, pos, float(want[want_am] - want[got_am]),
+                  float(want.pow(2).mean().sqrt()))])
+        log(f"logits[{name}] paged kernel vs forward[:, {pos}]: rel L2 {rel} "
+            f"(tol {LOGITS_REL_L2_TOL}), max |diff| {float((a - want).abs().max())}, "
+            f"argmax {got_am} vs {want_am}")
+        _check_near_ties(f"logits[{name}] vs forward", gaps, 1)
+    want = {k: 0 for k in launches}
+    want.update(flash_fwd=cfg.n_layers, rope_rotate=cfg.n_layers)
+    log(f"forward llama3_8b (32 layers, S=257, attn flash): {fwd_s:.3f} s, launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    if launches != want:
+        raise AssertionError(f"forward: launches {launches} != {want}")
+    return launches
 
 
 def _step_profile(step, batch):
@@ -6677,6 +6727,215 @@ def _control_gang(smi, failures):
     return rec
 
 
+#: The serving job of ``control_phase``'s ``serve_drain`` case (the path
+#: of tests/test_chaos.py's TestServingChaosDrain at SERVE_CONFIG): 8
+#: of the serve phase's prompts in 8 slots, epoch 0 with budgets of 512
+#: tokens preempted once every request holds SERVE_DRAIN_MIN_TOKENS,
+#: epoch 1 the same prompts at 32 tokens to completion.
+SERVE_DRAIN_REQUESTS = 8
+SERVE_DRAIN_BUDGET = 512
+SERVE_DRAIN_MIN_TOKENS = 8
+SERVE_DRAIN_EPOCH1_TOKENS = 32
+SERVE_DRAIN_WAIT_S = 300
+
+
+def _control_serve_drain(smi, failures):
+    """A ``Worker`` TPUJob on a ``v5p-8`` pool of 2 whose gang index 0
+    drives one ``ServingEngine`` on the card (``SERVE_CONFIG``, bucketed
+    prefill, pages of 16, 8 slots, ``attn_impl="kernel"``); index 1 only
+    waits. Epoch 0 submits 8 prompts of 256 tokens with budgets of 512,
+    steps until every request holds SERVE_DRAIN_MIN_TOKENS decoded
+    tokens, steps no more until the preemption's stop, then drains with
+    no grace and exits 137. This thread preempts the job's slice, sets the
+    stop and restores the slice; the controller gang-restarts (backoff
+    base 0.2); epoch 1 waits for the drain, resets the engine and serves
+    the 8 prompts at 32 tokens to completion. Checks: Succeeded after a
+    restart; epoch 0 every rid once with a typed reason and between
+    SERVE_DRAIN_MIN_TOKENS and the budget's tokens, each a prefix of a
+    fresh one-engine twin's stream (run first, on the same engine
+    options) or off only after a near-tie; epoch 1 every rid at
+    ``length`` with 32 tokens, the twin's streams under the same rule;
+    per epoch (counts zeroed just before, read just after) B6 = 8
+    requests x 16 chunks x the layers, B5 = the engine's decode
+    dispatches (from its tracer) x 4 x the layers, B1 none."""
+    import collections
+    import threading
+
+    import torch
+
+    from kubeflow_controller_tpu_torch.api.types import JobPhase
+    from kubeflow_controller_tpu_torch.cluster.cluster import PodRunPolicy
+    from kubeflow_controller_tpu_torch.dataplane.serving_engine import (
+        Request, ServingEngine,
+    )
+    from kubeflow_controller_tpu_torch.obs.trace import Tracer
+    from kubeflow_controller_tpu_torch.runtime import LocalRuntime
+    from kubeflow_controller_tpu_torch.tpu import naming
+
+    t0 = time.perf_counter()
+    label = "control[serve_drain]"
+    cfg, params = _llama()
+    n_layers = cfg.n_layers
+    prompts = _serve_prompts(cfg.vocab_size, SERVE_DRAIN_REQUESTS)
+    kw = dict(n_slots=8, max_seq=256 + SERVE_DRAIN_BUDGET, attn_impl="kernel")
+    twin_eng, _, _, twin = _engine_run(f"{label}.twin", smi, list(enumerate(prompts)),
+                                       max_new=SERVE_DRAIN_EPOCH1_TOKENS, **kw)
+    del twin_eng
+    tracer = Tracer()
+    engine = ServingEngine(cfg, params, prefill_mode="bucketed", block_size=16,
+                           tracer=tracer, device="cuda", **kw)
+    stop, decoded, drained = threading.Event(), threading.Event(), threading.Event()
+    partial, full, epochs, errors = [], [], {}, []
+
+    def dispatches():
+        return sum(1 for sp in tracer.snapshot()
+                   if sp.name == "dispatch" and sp.track == "dataplane")
+
+    def begin():
+        torch.cuda.synchronize()
+        _reset_serve_launches()
+        return time.perf_counter(), dispatches()
+
+    def end(epoch, started):
+        torch.cuda.synchronize()
+        epochs[epoch] = {"wall_s": time.perf_counter() - started[0],
+                         "dispatches": dispatches() - started[1],
+                         "launches": _serve_launches()}
+
+    def mid_decode():
+        live = [s for s in engine.slots if s is not None]
+        return (not engine.queue and len(live) == SERVE_DRAIN_REQUESTS
+                and all(len(s.tokens) >= SERVE_DRAIN_MIN_TOKENS for s in live))
+
+    def run_serving(pod):
+        epoch = pod.metadata.labels[naming.LABEL_EPOCH]
+        if pod.metadata.labels[naming.LABEL_INDEX] != "0":
+            if epoch == "0":
+                stop.wait(SERVE_DRAIN_WAIT_S)
+                return 137
+            return 0
+        torch.cuda.set_device(0)            # this thread's device
+        try:
+            if epoch == "0":
+                engine.reset()
+                started = begin()
+                for i, p in enumerate(prompts):
+                    engine.submit(Request(rid=i, prompt=p,
+                                          max_new_tokens=SERVE_DRAIN_BUDGET))
+                while not mid_decode() and not engine.idle:
+                    partial.extend(engine.step())
+                decoded.set()
+                stop.wait(SERVE_DRAIN_WAIT_S)
+                partial.extend(engine.drain(grace_s=0.0))
+                end(0, started)
+                return 137                  # the preempted container's exit
+            if not drained.wait(SERVE_DRAIN_WAIT_S):
+                raise RuntimeError("epoch 0 never drained")
+            engine.reset()
+            started = begin()
+            full.extend(engine.run([
+                Request(rid=i, prompt=p, max_new_tokens=SERVE_DRAIN_EPOCH1_TOKENS)
+                for i, p in enumerate(prompts)]))
+            end(1, started)
+            return 0
+        except BaseException as e:
+            errors.append(f"epoch {epoch}: {type(e).__name__}: {e}")
+            raise
+        finally:
+            if epoch == "0":
+                decoded.set()
+                drained.set()
+
+    rt = LocalRuntime(PodRunPolicy(start_delay=1, run_fn=run_serving))
+    rt.cluster.slice_pool.add_pool("v5p-8", 2)
+    rt.controller.opts.restart_backoff_base = 0.2
+    rt.controller.opts.backoff_poll = 0.005
+    phases = []
+
+    def job():
+        j = rt.get_job("default", "serve-drain")
+        if j is not None and (not phases or phases[-1] != j.status.phase):
+            phases.append(j.status.phase)
+        return j
+
+    t_job = time.perf_counter()
+    try:
+        rt.submit(_control_job("serve-drain", "", accelerator_type="v5p-8"))
+        if not rt.run_until(lambda: job().status.phase == JobPhase.RUNNING, max_steps=20):
+            failures.append(f"{label}: not Running: {phases}")
+        if not decoded.wait(SERVE_DRAIN_WAIT_S):
+            failures.append(f"{label}: epoch 0 never reached mid-decode")
+        held = rt.cluster.slice_pool.holdings(job().metadata.uid)[0].name
+        rt.cluster.preempt_slice(held)
+        stop.set()                          # the kubelet's SIGTERM to the pod
+        rt.cluster.slice_pool.restore(held)
+        rt.run_until(lambda: job().is_done(), max_steps=2000)
+    finally:
+        stop.set()
+        rt.stop()
+    wall_s = time.perf_counter() - t_job
+    final = job()
+    rec = _control_summary("serve_drain", rt, final, phases, wall_s, smi)
+    failures.extend(f"{label}: {e}" for e in errors)
+    if final.status.phase != JobPhase.SUCCEEDED or final.status.restarts < 1:
+        failures.append(f"{label}: phase {final.status.phase.value}, restarts "
+                        f"{final.status.restarts}")
+    # Epoch 0: every rid once, typed, mid-decode when preempted.
+    counts = collections.Counter(c.rid for c in partial)
+    if sorted(counts) != list(range(SERVE_DRAIN_REQUESTS)) or set(counts.values()) != {1}:
+        failures.append(f"{label}: epoch 0 returned rids {dict(counts)}")
+    for c in partial:
+        if (c.finish_reason not in ("deadline", "shed", "length")
+                or not SERVE_DRAIN_MIN_TOKENS <= len(c.tokens) < SERVE_DRAIN_BUDGET):
+            failures.append(f"{label}: epoch 0 rid {c.rid}: {c.finish_reason}, "
+                            f"{len(c.tokens)} tokens")
+    # Epoch 1: every rid to its budget, the twin's streams.
+    got = {c.rid: list(map(int, c.tokens)) for c in full}
+    if (sorted(got) != list(range(SERVE_DRAIN_REQUESTS))
+            or any(c.finish_reason != "length" for c in full)):
+        failures.append(f"{label}: epoch 1 returned "
+                        f"{[(c.rid, c.finish_reason, len(c.tokens)) for c in full]}")
+    else:
+        try:
+            _check_streams(f"{label}.epoch1", got, range(SERVE_DRAIN_REQUESTS),
+                           SERVE_DRAIN_EPOCH1_TOKENS, cfg.vocab_size)
+            _near_tie_streams(f"{label}.epoch1 vs twin", twin, got, prompts)
+            # Each partial a prefix of the twin's stream, as far as both go.
+            n = {c.rid: min(len(c.tokens), SERVE_DRAIN_EPOCH1_TOKENS) for c in partial}
+            _near_tie_streams(f"{label}.epoch0 vs twin",
+                              {r: twin[r][:k] for r, k in n.items()},
+                              {c.rid: list(map(int, c.tokens[:n[c.rid]])) for c in partial},
+                              prompts)
+        except AssertionError as e:
+            failures.append(str(e))
+    for epoch in (0, 1):
+        ep = epochs.get(epoch)
+        if ep is None:
+            failures.append(f"{label}: epoch {epoch} did not run to its end")
+            continue
+        launches = ep["launches"]
+        want = {k: 0 for k in launches}
+        want.update(paged_chunk=SERVE_DRAIN_REQUESTS * 16 * n_layers,
+                    paged_decode=ep["dispatches"] * 4 * n_layers)
+        log(f"{label} epoch {epoch}: {ep['wall_s']:.2f} s, decode dispatches "
+            f"{ep['dispatches']}, launches { {k: v for k, v in launches.items() if v} } "
+            f"(want paged_chunk {want['paged_chunk']}, paged_decode "
+            f"{ep['dispatches']} x 4 x {n_layers} = {want['paged_decode']}) | {smi}")
+        if launches != want:
+            failures.append(f"{label}: epoch {epoch} launches {launches} != {want}")
+    rec["epochs"] = [{k: epochs[e][k] for k in ("wall_s", "dispatches")}
+                     for e in sorted(epochs)]
+    rec["epoch_launches"] = [epochs[e]["launches"] for e in sorted(epochs)]
+    rec["launches"] = {k: sum(ep["launches"][k] for ep in epochs.values())
+                       for k in _serve_launches()}
+    rec["partials"] = sorted((c.rid, c.finish_reason, len(c.tokens)) for c in partial)
+    rec["case_s"] = time.perf_counter() - t0
+    log(f"{label} {json.dumps(rec)} | {smi}")
+    del engine
+    _drop_llama()
+    return rec
+
+
 def _train_launches_want(launches, config, steps):
     """The flash kernels' launches of ``steps`` steps of ``config`` (B16
     S1024, the fused backward): per layer and step rope_rotate 3,
@@ -6869,6 +7128,7 @@ def control_phase(smi):
     for label in CONTROL_REMOTE:
         runs[label] = _control_remote(smi, failures, label)
     runs["gang"] = _control_gang(smi, failures)
+    runs["serve_drain"] = _control_serve_drain(smi, failures)
     log(f"control: {time.perf_counter() - t0:.1f} s | {smi}")
     if failures:
         for msg in failures:
@@ -6934,7 +7194,7 @@ def _phases(aot) -> int:
     prefix_runs = phase("prefix", prefix_phase, smi)
     fleet_runs = phase("fleet", fleet_phase, smi)
     slot_runs = phase("slot path", slot_path_check, smi)
-    phase("logits", logits_phase)
+    forward_launches = phase("logits", logits_phase)
     train_runs = phase("train", train_phase, smi)
     phase("checkpoint", checkpoint_phase, smi)
     control_runs = phase("control", control_phase, smi)
@@ -6972,9 +7232,11 @@ def _phases(aot) -> int:
         line["kernels"][-1]["fleet_runs_launches"] = {
             run: rec[1][name] for run, rec in fleet_runs.items()}
         # The control plane's runs: the LMService's pods synced into a
-        # fleet and served (fleet_phase's lmservice).
+        # fleet and served (fleet_phase's lmservice), and the preempted
+        # serving job's two epochs (control_phase's serve_drain).
         line["kernels"][-1]["control_runs_launches"] = {
-            "lmservice": fleet_runs["lmservice"][1][name]}
+            "lmservice": fleet_runs["lmservice"][1][name],
+            "serve_drain": [ep[name] for ep in control_runs["serve_drain"]["epoch_launches"]]}
         # The paged engine beside the slot path (slot_path_check).
         line["kernels"][-1]["slot_check_launches"] = slot_runs["paged"][name]
         # The weight-only int8 runs' launches (exact, bucketed with lookup
@@ -7052,6 +7314,9 @@ def _phases(aot) -> int:
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "parts") if k in b}}
         if name == "flash_fwd":
+            # B1 in transformer.forward over llama3_8b's 257 tokens (all
+            # 32 layers): once a layer.
+            line["kernels"][-1]["forward_launches"] = forward_launches["flash_fwd"]
             # B1 in the tp gang: exact admissions, every head (gathered)
             # or a rank's head group (parallel), a rank.
             line["kernels"][-1]["tp_launches_per_rank"] = {

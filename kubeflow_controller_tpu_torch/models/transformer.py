@@ -7,8 +7,9 @@ held against each other: a dict with ``embed [V, D]``, ``final_norm
 stacked on a leading ``[L, ...]`` axis, each projection ``[D_in,
 D_out]`` and applied as ``x @ w``.
 
-The training forward (:func:`forward_hidden`, :func:`next_token_loss`)
-runs the decoder on one device: attention through
+The training forward (:func:`forward_hidden`, :func:`next_token_loss`;
+:func:`forward` adds the head for full-sequence fp32 logits) runs the
+decoder on one device: attention through
 ``ops/attention.py:mha`` (the flash kernels on the card), each layer
 under ``torch.utils.checkpoint`` when ``remat`` is true (``"ffn"``:
 only the dense FFN's d_ff-wide intermediates are recomputed), and its
@@ -65,8 +66,8 @@ from kubeflow_controller_tpu_torch.ops.attention import mha
 from kubeflow_controller_tpu_torch.ops.flash_attention import rope_full_tables
 from kubeflow_controller_tpu_torch.ops.quant import Projections
 from kubeflow_controller_tpu_torch.parallel.collectives import (
-    all_to_all, masked_denominator, seq_gather, tp_copy, tp_gather, tp_index, tp_max,
-    tp_size, tp_sum,
+    all_to_all, masked_denominator, seq_gather, tp_concat, tp_copy, tp_gather, tp_index,
+    tp_max, tp_size, tp_sum,
 )
 from kubeflow_controller_tpu_torch.parallel.mesh import DATA_AXES, current_mesh, seq_slice
 from kubeflow_controller_tpu_torch.parallel.pipeline import gpipe, pp_stage_count
@@ -853,6 +854,37 @@ def _head(cfg: TransformerConfig, params: Params) -> torch.Tensor:
     return head.to(cfg.dtype)
 
 
+def _logits(h2: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """``h2 [N, D] @ head [D, V]`` as fp32 logits (:class:`_LogitsF32`
+    for compute-dtype operands)."""
+    return h2 @ head if h2.dtype == torch.float32 else _LogitsF32.apply(h2, head)
+
+
+def forward(
+    cfg: TransformerConfig, params: Params, tokens: torch.Tensor,
+    positions: Optional[torch.Tensor] = None,
+    segment_ids: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """tokens ``[B, S]`` -> fp32 logits ``[B, S, vocab]``:
+    :func:`forward_hidden`, then the head (``lm_head``, or ``embed.T``
+    when tied) in ``cfg.dtype`` with the product accumulated in fp32, as
+    the JAX package's ``forward``. Over a mesh every rank returns the
+    whole logits, as a JAX global array reads: a hidden state split over
+    sp is gathered before the head, and a vocab-parallel head's shards
+    are joined over tp."""
+    hidden, _ = forward_hidden(cfg, params, tokens, positions, segment_ids)
+    if _split_rows(cfg, tokens.shape[1]) is not None:
+        hidden = seq_gather(hidden)
+    b, s, d = hidden.shape
+    h2 = hidden.reshape(b * s, d)
+    head = _head(cfg, params)
+    if tp_size() > 1 and "lm_head" in params:
+        logits = tp_concat(_logits(tp_copy(h2), head))
+    else:
+        logits = _logits(h2, head)
+    return logits.reshape(b, s, -1)
+
+
 def train_flops_per_token(cfg: TransformerConfig, seq: int) -> float:
     """Model FLOPs per trained token: ``6 * N_active`` matmul FLOPs
     (forward and backward) plus the causal-attention term ``12 * L * H *
@@ -926,8 +958,7 @@ def _vocab_parallel_nll_and_argmax(hidden: torch.Tensor, head: torch.Tensor,
     vocab shard (:func:`vocab_parallel_nll_and_argmax` on its logits)."""
     b, s, d = hidden.shape
     h2 = tp_copy(hidden.reshape(b * s, d))
-    logits = h2 @ head if h2.dtype == torch.float32 else _LogitsF32.apply(h2, head)
-    nll, am = vocab_parallel_nll_and_argmax(logits, targets)
+    nll, am = vocab_parallel_nll_and_argmax(_logits(h2, head), targets)
     return nll.reshape(b, s), am.reshape(b, s)
 
 
@@ -937,8 +968,7 @@ def _nll_and_argmax(hidden: torch.Tensor, head: torch.Tensor,
         return _vocab_parallel_nll_and_argmax(hidden, head, targets)
     b, s, d = hidden.shape
     h2 = hidden.reshape(b * s, d)
-    logits = (h2 @ head if h2.dtype == torch.float32
-              else _LogitsF32.apply(h2, head)).reshape(b, s, -1)
+    logits = _logits(h2, head).reshape(b, s, -1)
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, targets[..., None].long())[..., 0]
     return nll, logits.argmax(-1)

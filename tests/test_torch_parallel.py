@@ -51,7 +51,9 @@ the case's shape. Each test then holds one case to its reference:
   int8 projections at pp=2 x fsdp=2 within the int8 bounds;
 * three AdamW steps of ``TrainLoop`` at sp=2 with ring attention and at
   pp=2 x tp=2 against the JAX loop on the same ``MeshConfig``; the
-  pp=2 x tp=2 run's checkpoint restores bit for bit in one process.
+  pp=2 x tp=2 run's checkpoint restores bit for bit in one process;
+* ``transformer.forward`` at fsdp=2 x tp=2: every rank's logits whole
+  and within 2e-4 of one process's (``tests/test_transformer.py:60-78``).
 """
 
 import itertools
@@ -102,6 +104,7 @@ PIPE_FWD = dict(atol=2e-5, rtol=1e-5)
 PIPE_LOSS_RTOL = 1e-5
 PIPE_GRAD = dict(atol=3e-4, rtol=2e-3)
 PP_M = 4                         # the pipeline's microbatches
+FWD_ATOL = 2e-4                  # tests/test_transformer.py:78
 
 # name -> (model, mesh config, ranks of the gang, extra)
 CASES = {
@@ -131,6 +134,7 @@ CASES = {
     "dec_sp2_ring": ("decoder", dict(dp=1, sp=2), [0, 1], {"attn": "ring"}),
     "dec_pp2_tp2": ("decoder", dict(pp=2, dp=1, tp=2), [0, 1, 2, 3], {"pp": PP_M}),
     "c11_fsdp2_tp2": ("c11", dict(dp=1, fsdp=2, tp=2), [0, 1, 2, 3], {}),
+    "fwd_fsdp2_tp2": ("forward", dict(dp=1, fsdp=2, tp=2), [0, 1, 2, 3], {}),
 }
 # Cases that run side by side (disjoint ranks), in order.
 PHASES = [["dec_dp4"], ["dec_dp2_fsdp2"], ["dec_fsdp2_tp2"],
@@ -139,7 +143,7 @@ PHASES = [["dec_dp4"], ["dec_dp2_fsdp2"], ["dec_fsdp2_tp2"],
           ["corpus_dp2_tp2"], ["ring_sp4"], ["ring_sp2_tp2"],
           ["grad_sp2_ring", "grad_sp2_gather"], ["grad_pp2_tp2"], ["grad_pp2_tp2_packed"],
           ["grad_int8_pp2_fsdp2"], ["dec_sp2_ring", "gpipe_pp2"], ["dec_pp2_tp2"],
-          ["c11_fsdp2_tp2"]]
+          ["c11_fsdp2_tp2"], ["fwd_fsdp2_tp2"]]
 
 
 # -- the gang (no JAX here: the workers import this module) ---------------------
@@ -302,6 +306,25 @@ def _run_gpipe(mesh):
     return out
 
 
+def _run_forward(inp, mesh):
+    """``transformer.forward`` of the whole first decoder batch on every
+    rank, from its compute views of the tiny decoder's weights (the
+    layers fsdp-gathered, the head a tp rank's vocab shard); the first
+    rank returns every rank's logits."""
+    import torch.distributed as dist
+
+    from kubeflow_controller_tpu_torch.models import transformer as ttf
+
+    loop = _decoder_loop(inp, mesh)
+    tokens = torch.from_numpy(inp["dec_batches"][0]["tokens"][:, :S])
+    with tmesh.use_mesh(mesh), torch.no_grad():
+        params = convert.tree_unflatten(loop.state.params, loop._views())
+        logits = ttf.forward(ttf.tiny_config(), params, tokens).numpy()
+    every = [None] * mesh.size
+    dist.all_gather_object(every, logits, group=mesh.group(*tmesh.AXES))
+    return {"logits": every}
+
+
 def _run_case(name, inp, meshes, root):
     """This rank's part of case ``name``; the case's first rank returns
     what the test compares."""
@@ -313,6 +336,8 @@ def _run_case(name, inp, meshes, root):
     mesh = meshes[name]
     if model == "c11":
         return _run_c11(inp, mesh, root)
+    if model == "forward":
+        return _run_forward(inp, mesh)
     if model == "grad":
         return _run_grad(inp, mesh, root, extra)
     if model == "ring":
@@ -766,7 +791,7 @@ def _jax_reference(name, inp, total=None):
     model, kw, ranks, extra = CASES[name]
     if model == "ring":
         return _jax_ring(inp, kw)
-    if model in ("gpipe", "c11"):
+    if model in ("gpipe", "c11", "forward"):
         return {}
     if model == "grad":
         return _jax_decoder_grads(inp, extra, kw)
@@ -1191,6 +1216,31 @@ def test_pp2_checkpoint_restores_in_one_process(gang):
     assert g["restored_step"] == 3
     for a, b in zip(convert.tree_leaves(g["restored"]), convert.tree_leaves(g["params"])):
         np.testing.assert_array_equal(a, b)
+
+
+def test_forward_on_every_rank_at_fsdp2_tp2_matches_one_process(gang):
+    """``tests/test_transformer.py:60-78``'s contract on the port: under
+    the fsdp=2 x tp=2 mesh every rank's ``forward`` returns the whole
+    logits (the vocab-parallel head's shards joined), within 2e-4 of one
+    process's ``forward``, which is itself within 2e-4 of JAX's."""
+    import jax
+    import jax.numpy as jnp
+    from kubeflow_controller_tpu.models import transformer as jtf
+    from kubeflow_controller_tpu_torch.models import transformer as ttf
+
+    inp, got, _ = gang
+    tokens = inp["dec_batches"][0]["tokens"][:, :S]
+    with torch.no_grad():
+        one = ttf.forward(ttf.tiny_config(), convert.params_from_numpy(inp["tiny_params"], "cpu"),
+                          torch.tensor(tokens)).numpy()
+    want = jtf.forward(jtf.tiny_config(), jax.tree.map(jnp.asarray, inp["tiny_params"]),
+                       jnp.asarray(tokens))
+    np.testing.assert_allclose(one, np.asarray(want), atol=FWD_ATOL, rtol=0)
+    ranks = got["fwd_fsdp2_tp2"]["logits"]
+    assert len(ranks) == 4
+    for r, logits in enumerate(ranks):
+        assert logits.shape == one.shape
+        np.testing.assert_allclose(logits, one, atol=FWD_ATOL, rtol=0, err_msg=f"rank {r}")
 
 
 def test_moe_is_refused_on_the_pipeline_path_with_the_reference_message():
